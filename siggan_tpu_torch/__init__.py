@@ -1,0 +1,9 @@
+"""siggan_tpu_torch: the signature GAN on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of ``siggan_tpu`` that imports neither JAX nor ``siggan_tpu``. The
+serving path (checkpoint -> generator session -> HTTP API) runs here; the
+64 px unconditional generator's eval forward goes through hand-written CUDA
+kernels (``csrc/``) when the checkpoint's sidecar sets ``use_pallas``.
+"""
+
+__version__ = "0.1.0"

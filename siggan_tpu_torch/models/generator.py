@@ -1,0 +1,185 @@
+"""DCGAN-style signature generator, eval mode, as an ``nn.Module``.
+
+Same architecture as the JAX package's ``models/generator.py``:
+
+  z (N, latent)
+   -> Linear(latent, 4*4*C0) + bias -> BatchNorm1d -> act
+   -> reshape (N, 4, 4, C0)            (NHWC: fc features are in HWC order)
+   -> k x [ConvT(4,2,1, no bias) -> BatchNorm -> act]
+        64px:  C0=256: 256->128->64->32->32 (4x4 -> 64x64)
+        128px: C0=512: 512->256->128->64->32->32
+   -> Conv(3,1,1) + bias -> tanh       (32 -> image_channels)
+
+Parameters are stored in PyTorch's layouts (``Linear`` (out, in), ConvT
+(Cin, Cout, kh, kw), conv OIHW); ``bridge.py`` converts to and from the JAX
+package's trees. Activations stay NHWC, as there. Conditional models
+(``num_classes > 0``) route the label per ``g_conditioning``. Train mode and
+the packed (space-to-depth) output belong to the training path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from siggan_tpu_torch.core.config import ModelConfig
+from siggan_tpu_torch.ops import initializers as init
+from siggan_tpu_torch.ops.conv import conv2d_oihw, conv_transpose2d_iohw, linear_oi
+from siggan_tpu_torch.ops.norm import batch_norm
+
+
+def channel_schedule(cfg: ModelConfig) -> Tuple[int, List[Tuple[int, int]]]:
+    """(init_channels_at_4x4, [(in_ch, out_ch) per upsample block])."""
+    if cfg.image_size == 64:
+        c0 = cfg.base_features
+        blocks = [(c0, c0 // 2), (c0 // 2, c0 // 4), (c0 // 4, c0 // 8), (c0 // 8, c0 // 8)]
+    elif cfg.image_size == 128:
+        c0 = cfg.base_features * 2
+        blocks = [(c0, c0 // 2), (c0 // 2, c0 // 4), (c0 // 4, c0 // 8),
+                  (c0 // 8, c0 // 16), (c0 // 16, c0 // 16)]
+    else:
+        raise ValueError(f"image_size must be 64 or 128, got {cfg.image_size}")
+    return c0, blocks
+
+
+def _cond_bn(cfg: ModelConfig) -> bool:
+    return cfg.num_classes > 0 and cfg.g_conditioning in ("full", "bn_only")
+
+
+def _fc_in(cfg: ModelConfig) -> int:
+    extra = (cfg.num_classes
+             if cfg.num_classes > 0 and cfg.g_conditioning == "concat" else 0)
+    return cfg.latent_dim + extra
+
+
+def _param(*shape: int, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+
+
+class BatchNorm(nn.Module):
+    """Eval BatchNorm over the last axis: ``scale``/``offset`` parameters,
+    (num_classes, C) for class-conditional BN, and running ``mean``/``var``."""
+
+    def __init__(self, n: int, num_classes: int = 0, device=None):
+        super().__init__()
+        rows = (num_classes,) if num_classes else ()
+        self.scale = _param(*rows, n, device=device)
+        self.offset = _param(*rows, n, device=device)
+        self.register_buffer("mean", torch.zeros(n, device=device))
+        self.register_buffer("var", torch.ones(n, device=device))
+
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scale, offset = (self.scale, self.offset) if y is None else (
+            self.scale[y], self.offset[y])
+        out, _ = batch_norm(x, scale, offset, {"mean": self.mean, "var": self.var})
+        return out
+
+
+class UpBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, num_classes: int = 0, device=None):
+        super().__init__()
+        self.weight = _param(cin, cout, 4, 4, device=device)  # ConvT layout
+        self.bn = BatchNorm(cout, num_classes, device)
+
+
+class Linear(nn.Module):
+    def __init__(self, fin: int, fout: int, device=None):
+        super().__init__()
+        self.weight = _param(fout, fin, device=device)
+        self.bias = _param(fout, device=device)
+
+
+class Conv(nn.Module):
+    def __init__(self, cin: int, cout: int, k: int, device=None):
+        super().__init__()
+        self.weight = _param(cout, cin, k, k, device=device)
+        self.bias = _param(cout, device=device)
+
+
+class Generator(nn.Module):
+    """Eval-mode generator; ``forward(z, y)`` -> images (N, H, W, C) in
+    [-1, 1] in the compute dtype. Parameters start at zero: build one with
+    ``init_fn`` or ``bridge.from_jax``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        c0, blocks = channel_schedule(cfg)
+        bn_classes = cfg.num_classes if _cond_bn(cfg) else 0
+        self.fc = Linear(_fc_in(cfg), 16 * c0, device)
+        self.fc_bn = BatchNorm(16 * c0, bn_classes, device)
+        self.blocks = nn.ModuleList(
+            UpBlock(ci, co, bn_classes, device) for ci, co in blocks)
+        self.final = Conv(blocks[-1][1], cfg.image_channels, 3, device)
+        if cfg.num_classes > 0 and cfg.g_conditioning in ("full", "embed_only"):
+            self.embed = _param(cfg.num_classes, cfg.latent_dim, device=device)
+        else:
+            self.embed = None
+
+    def _act(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.g_activation == "leaky_relu":
+            return F.leaky_relu(x, self.cfg.leaky_slope)
+        return F.relu(x)
+
+    def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
+                compute_dtype=None) -> torch.Tensor:
+        cfg = self.cfg
+        c0 = self.fc.weight.shape[0] // 16
+        y_bn = None
+        if cfg.num_classes > 0:
+            if y is None:
+                raise ValueError("conditional generator requires labels y")
+            if cfg.g_conditioning in ("full", "embed_only"):
+                z = z + self.embed[y]
+            if cfg.g_conditioning == "concat":
+                z = torch.cat([z, F.one_hot(y, cfg.num_classes).to(z.dtype)], dim=1)
+            if cfg.g_conditioning in ("full", "bn_only"):
+                y_bn = y
+        h = linear_oi(z, self.fc.weight, self.fc.bias, compute_dtype=compute_dtype)
+        h = self._act(self.fc_bn(h, y_bn))
+        h = h.reshape(h.shape[0], 4, 4, c0)
+        for blk in self.blocks:
+            h = conv_transpose2d_iohw(h, blk.weight, stride=2, padding=1,
+                                      compute_dtype=compute_dtype)
+            h = self._act(blk.bn(h, y_bn))
+        img = conv2d_oihw(h, self.final.weight, self.final.bias, stride=1,
+                          padding=1, compute_dtype=compute_dtype)
+        return torch.tanh(img)
+
+
+def init_fn(gen: torch.Generator, cfg: ModelConfig, device=None) -> Generator:
+    """A generator with the DCGAN init, drawn from ``gen`` (a CPU
+    ``torch.Generator``): weights ~ N(0, 0.02), biases 0, BN scale
+    ~ N(1, 0.02) (one draw shared by every class row), BN offset 0, and a
+    unit-normal class embedding."""
+    model = Generator(cfg, device)
+    with torch.no_grad():
+        model.fc.weight.copy_(init.normal_w(gen, model.fc.weight.shape))
+        for bn in [model.fc_bn] + [b.bn for b in model.blocks]:
+            bn.scale.copy_(init.bn_scale(gen, bn.scale.shape[-1]).expand_as(bn.scale))
+        for blk in model.blocks:
+            blk.weight.copy_(init.normal_w(gen, blk.weight.shape))
+        model.final.weight.copy_(init.normal_w(gen, model.final.weight.shape))
+        if model.embed is not None:
+            model.embed.copy_(torch.randn(model.embed.shape, generator=gen))
+    return model
+
+
+def apply_fn(model: Generator, z: torch.Tensor, *, y: Optional[torch.Tensor] = None,
+             compute_dtype=None) -> torch.Tensor:
+    """Eval-mode forward: z (N, latent_dim) -> images (N, H, W, C)."""
+    with torch.no_grad():
+        return model(z, y, compute_dtype)
+
+
+def generate_latent(gen: torch.Generator, n: int, cfg: ModelConfig,
+                    scale: float = 1.0) -> torch.Tensor:
+    """z ~ N(0, scale^2 I), drawn on the CPU from ``gen``."""
+    return torch.randn((n, cfg.latent_dim), generator=gen) * scale
+
+
+def param_count(model: Generator) -> int:
+    return sum(p.numel() for p in model.parameters())

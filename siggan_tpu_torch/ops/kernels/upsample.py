@@ -1,0 +1,141 @@
+"""Kernel B3: the eval-mode generator upsample block.
+
+ConvTranspose(4, 2, 1) + per-channel affine (folded eval BatchNorm) +
+optional ReLU, NHWC. Port of ``siggan_tpu/ops/pallas/upsample.py``
+(``pack_w9``, ``fold_bn_affine``, ``upsample_block``). The card runs the
+hand-written CUDA kernel in ``csrc/convt_phase.cuh`` (library
+``csrc/upsample.cu``); a CPU tensor takes ``upsample_block_reference``, the
+plain PyTorch version with the same arithmetic.
+
+``upsample_block`` keeps the JAX signature (``w9`` from ``pack_w9``);
+``upsample_block_taps`` takes the per-phase 2x2 taps
+(``generator_fwd.pack_block_taps``) and is what the generator forward calls
+for each of its blocks. Both count their launches on the card in
+``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from siggan_tpu_torch.ops.kernels import build
+
+LAUNCHES = build.LaunchCounter()
+_SIGNATURES = {"siggan_upsample_block":
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+
+
+def pack_w9(w: torch.Tensor) -> torch.Tensor:
+    """(4, 4, Cin, Cout) HWIO ConvT weight -> (4, 9*Cin, Cout).
+
+    Matrix p = 2*di + dj holds output phase (di, dj); row block
+    t = 3*(a+1) + (b+1) holds input offset (a, b) in {-1, 0, 1}^2. Phase
+    (di, dj) uses the flipped kernel's entry wf[di+2a', dj+2b'] at input
+    offset (di-1+a', dj-1+b'); the other 5 of 9 row blocks are zero.
+    """
+    kh, kw, cin, cout = w.shape
+    if (kh, kw) != (4, 4):
+        raise ValueError(f"expected a (4, 4, Cin, Cout) kernel, got {tuple(w.shape)}")
+    wf = torch.flip(w, dims=(0, 1))
+    w9 = w.new_zeros((9, cin, 4, cout))
+    for di in range(2):
+        for dj in range(2):
+            for ap in range(2):
+                for bp in range(2):
+                    t = 3 * (di + ap) + (dj + bp)
+                    w9[t, :, 2 * di + dj, :] = wf[di + 2 * ap, dj + 2 * bp]
+    return w9.permute(2, 0, 1, 3).reshape(4, 9 * cin, cout)
+
+
+def taps_from_w9(w9: torch.Tensor) -> torch.Tensor:
+    """(4, 9*Cin, Cout) -> (4, 2, 2, Cin, Cout): the non-zero 2x2 taps of
+    each phase (the ``pack_block_taps`` view of the same weights)."""
+    _, k9, cout = w9.shape
+    v = w9.reshape(4, 3, 3, k9 // 9, cout)
+    return torch.stack([v[2 * di + dj, di:di + 2, dj:dj + 2]
+                        for di in range(2) for dj in range(2)])
+
+
+def fold_bn_affine(bn_params: Dict[str, torch.Tensor],
+                   bn_state: Dict[str, torch.Tensor], eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode BN -> (scale, offset) for the kernel epilogue."""
+    s = torch.rsqrt(bn_state["var"] + eps) * bn_params["scale"]
+    return s, bn_params["offset"] - bn_state["mean"] * s
+
+
+def convt_phase_reference(x: torch.Tensor, taps: torch.Tensor,
+                          scale: torch.Tensor, offset: torch.Tensor,
+                          relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch: per-phase 2x2 tap matmuls, affine, ReLU, and the
+    depth-to-space interleave. x (N, H, W, Cin) -> (N, 2H, 2W, Cout)."""
+    n, h, w, _ = x.shape
+    cout = taps.shape[-1]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    out = x.new_empty((n, h, 2, w, 2, cout))
+    for di in range(2):
+        for dj in range(2):
+            p = 2 * di + dj
+            acc = None
+            for a in range(2):
+                for b in range(2):
+                    m = xp[:, di + a:di + a + h, dj + b:dj + b + w, :] @ taps[p, a, b]
+                    acc = m if acc is None else acc + m
+            y = acc * scale + offset
+            out[:, :, di, :, dj, :] = torch.relu(y) if relu else y
+    return out.reshape(n, 2 * h, 2 * w, cout)
+
+
+def upsample_block_reference(x: torch.Tensor, w9: torch.Tensor,
+                             scale: torch.Tensor, offset: torch.Tensor,
+                             relu: bool = True) -> torch.Tensor:
+    """The plain version of ``upsample_block``."""
+    return convt_phase_reference(x, taps_from_w9(w9), scale, offset, relu)
+
+
+def _launch(x: torch.Tensor, taps: torch.Tensor, scale: torch.Tensor,
+            offset: torch.Tensor, relu: bool) -> torch.Tensor:
+    n, h, w, cin = x.shape
+    cout = taps.shape[-1]
+    if cout % 4:
+        raise ValueError(f"the kernel needs Cout % 4 == 0, got Cout={cout}")
+    build.require_cuda_f32("x", x)
+    build.require_cuda_f32("taps", taps, (4, 2, 2, cin, cout))
+    build.require_cuda_f32("scale", scale, (cout,))
+    build.require_cuda_f32("offset", offset, (cout,))
+    for t in (taps, scale, offset):
+        if t.device != x.device:
+            raise ValueError(f"operands on {t.device} and {x.device}")
+    lib = build.load("upsample", _SIGNATURES)
+    out = torch.empty((n, 2 * h, 2 * w, cout), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        code = lib.siggan_upsample_block(x.data_ptr(), taps.data_ptr(), scale.data_ptr(),
+                  offset.data_ptr(), out.data_ptr(), n, h, w, cin, cout,
+                  int(relu), build.stream_ptr(x))
+    build.check(lib, code, "upsample block kernel")
+    LAUNCHES.add()
+    return out
+
+
+def upsample_block_taps(x: torch.Tensor, taps: torch.Tensor,
+                        scale: torch.Tensor, offset: torch.Tensor,
+                        relu: bool = True) -> torch.Tensor:
+    """x (N, H, W, Cin), taps (4, 2, 2, Cin, Cout), scale/offset (Cout,)
+    -> (N, 2H, 2W, Cout). CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    if x.device.type == "cpu":
+        return convt_phase_reference(x, taps, scale, offset, relu)
+    return _launch(x, taps, scale, offset, relu)
+
+
+def upsample_block(x: torch.Tensor, w9: torch.Tensor, scale: torch.Tensor,
+                   offset: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """x (N, H, W, Cin), w9 (4, 9*Cin, Cout) from ``pack_w9``,
+    scale/offset (Cout,) -> (N, 2H, 2W, Cout). The kernel skips the
+    structural zeros of ``w9`` and reads only each phase's 2x2 taps."""
+    if x.device.type == "cpu":
+        return upsample_block_reference(x, w9, scale, offset, relu)
+    return _launch(x, taps_from_w9(w9).contiguous(), scale, offset, relu)
