@@ -3,7 +3,10 @@
 A port of ``siggan_tpu`` that imports neither JAX nor ``siggan_tpu``. The
 serving path (checkpoint -> generator session -> HTTP API) runs here; the
 64 px unconditional generator's eval forward goes through hand-written CUDA
-kernels (``csrc/``) when the checkpoint's sidecar sets ``use_pallas``.
+kernels (``csrc/``) when the checkpoint's sidecar sets ``use_pallas``. The
+training path (``cli.train`` -> ``GANTrainer`` -> the resident train step)
+trains unconditional models on one card; every train-mode generator forward
+packs its tail weights with a hand-written kernel (and its backward).
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,19 @@
-"""Weight bridge between the JAX package's generator trees and the port.
+"""Weight bridge between the JAX package's trees and the port's modules.
 
 The JAX package keeps the generator as two trees of arrays:
 ``g_params`` = {fc: {w (in, out), b}, fc_bn: {scale, offset},
 blocks: [{w (4, 4, Cin, Cout) HWIO, bn: {scale, offset}}],
 final: {w (3, 3, C, img_c) HWIO, b}, embed (classes, latent) if any} and
-``g_bn`` = {fc_bn: {mean, var}, blocks: [{mean, var}]}. Here they are plain
-numpy arrays in those layouts; the port's ``Generator`` stores PyTorch
+``g_bn`` = {fc_bn: {mean, var}, blocks: [{mean, var}]}; the discriminator
+as ``d_params`` = {blocks: [{w (4, 4, Cin, Cout) HWIO, b}], fc: {w (8192,
+1), b}} with an empty ``d_state`` (no spectral norm); an Adam state as
+{count, m, v} with m and v shaped like the parameter tree. Here they are
+plain numpy arrays in those layouts; the port's modules store PyTorch
 layouts: Linear (out, in), ConvT (Cin, Cout, kh, kw), conv OIHW.
 
-The fc output is reshaped to (N, 4, 4, C0) in HWC order on both sides (the
-port keeps NHWC activations), so the 4096 fc columns and the fc BN vectors
-need no permutation: only the weight's (in, out) -> (out, in) transpose.
+The G fc output and D's head input are NHWC maps flattened in HWC order on
+both sides, so their columns need no permutation: only (in, out) -> (out,
+in) transposes. Moments follow their parameters' layouts.
 
 ``flatten``/``unflatten`` give the trees as one flat mapping keyed by tree
 path (``fc/w``, ``blocks/0/w``, ``bn/blocks/0/mean``, ...), the layout of the
@@ -19,12 +22,13 @@ port's ``generator.npz``.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from siggan_tpu_torch.core.config import ModelConfig
+from siggan_tpu_torch.models.discriminator import Discriminator
 from siggan_tpu_torch.models.generator import Generator
 
 
@@ -32,49 +36,107 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+# Layout of each port parameter as a permutation of its JAX array's axes
+# (port = jax.permute(*perm)); parameters not listed keep the JAX layout.
+_G_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (2, 3, 0, 1),
+            "final.weight": (3, 2, 0, 1)}
+_D_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (3, 2, 0, 1)}
+
+
+def _entries(model) -> Iterator[Tuple[str, torch.nn.Parameter, Tuple[int, ...]]]:
+    """(JAX tree path, parameter, perm) in ``model.parameters()`` order."""
+    perms = _D_PERMS if isinstance(model, Discriminator) else _G_PERMS
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        key = ".".join("*" if q.isdigit() else q for q in parts)
+        path = "/".join({"weight": "w", "bias": "b"}.get(q, q) for q in parts)
+        yield path, p, perms.get(key)
+
+
+def _to_port(a, perm) -> torch.Tensor:
+    t = _t(a)
+    return t if perm is None else t.permute(*perm)
+
+
+def _to_jax(t: torch.Tensor, perm) -> np.ndarray:
+    t = t.detach().float().cpu()
+    if perm is not None:
+        t = t.permute(*np.argsort(perm))
+    return t.numpy().copy()
+
+
+def params_to_jax(model) -> Dict:
+    """Parameter tree of a port ``Generator`` or ``Discriminator``."""
+    return _unflatten({path: _to_jax(p, perm) for path, p, perm in _entries(model)})
+
+
+def load_params(model, params: Dict) -> None:
+    """Copy a JAX-layout parameter tree into ``model``'s parameters."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(params, "", flat)
+    with torch.no_grad():
+        for path, p, perm in _entries(model):
+            p.copy_(_to_port(flat[path], perm))
+
+
 def from_jax(g_params: Dict, g_bn: Dict, cfg: ModelConfig, device=None) -> Generator:
     """JAX-layout trees (numpy arrays) -> a port ``Generator`` on ``device``."""
     model = Generator(cfg, device)
+    load_params(model, g_params)
     with torch.no_grad():
-        model.fc.weight.copy_(_t(g_params["fc"]["w"]).t())
-        model.fc.bias.copy_(_t(g_params["fc"]["b"]))
-        bns = [(model.fc_bn, g_params["fc_bn"], g_bn["fc_bn"])]
-        for blk, p, st in zip(model.blocks, g_params["blocks"], g_bn["blocks"]):
-            blk.weight.copy_(_t(p["w"]).permute(2, 3, 0, 1))
-            bns.append((blk.bn, p["bn"], st))
-        for bn, p, st in bns:
-            bn.scale.copy_(_t(p["scale"]))
-            bn.offset.copy_(_t(p["offset"]))
+        for bn, st in zip([model.fc_bn] + [b.bn for b in model.blocks],
+                          [g_bn["fc_bn"]] + list(g_bn["blocks"])):
             bn.mean.copy_(_t(st["mean"]))
             bn.var.copy_(_t(st["var"]))
-        model.final.weight.copy_(_t(g_params["final"]["w"]).permute(3, 2, 0, 1))
-        model.final.bias.copy_(_t(g_params["final"]["b"]))
-        if model.embed is not None:
-            model.embed.copy_(_t(g_params["embed"]))
     return model
 
 
 def to_jax(model: Generator) -> Tuple[Dict, Dict]:
     """A port ``Generator`` -> (g_params, g_bn) in JAX layouts (numpy)."""
     np_ = lambda t: t.detach().float().cpu().numpy().copy()  # noqa: E731
+    state = {"fc_bn": {"mean": np_(model.fc_bn.mean), "var": np_(model.fc_bn.var)},
+             "blocks": [{"mean": np_(b.bn.mean), "var": np_(b.bn.var)}
+                        for b in model.blocks]}
+    return params_to_jax(model), state
 
-    def bn_pair(bn):
-        return ({"scale": np_(bn.scale), "offset": np_(bn.offset)},
-                {"mean": np_(bn.mean), "var": np_(bn.var)})
 
-    fc_bn_p, fc_bn_s = bn_pair(model.fc_bn)
-    params = {"fc": {"w": np_(model.fc.weight.t()), "b": np_(model.fc.bias)},
-              "fc_bn": fc_bn_p, "blocks": [],
-              "final": {"w": np_(model.final.weight.permute(2, 3, 1, 0)),
-                        "b": np_(model.final.bias)}}
-    state = {"fc_bn": fc_bn_s, "blocks": []}
-    for blk in model.blocks:
-        p, s = bn_pair(blk.bn)
-        params["blocks"].append({"w": np_(blk.weight.permute(2, 3, 0, 1)), "bn": p})
-        state["blocks"].append(s)
-    if model.embed is not None:
-        params["embed"] = np_(model.embed)
-    return params, state
+def d_from_jax(d_params: Dict, cfg: ModelConfig, device=None) -> Discriminator:
+    """JAX-layout ``d_params`` -> a port ``Discriminator`` on ``device``."""
+    model = Discriminator(cfg, device)
+    load_params(model, d_params)
+    return model
+
+
+def d_to_jax(model: Discriminator) -> Tuple[Dict, Dict]:
+    """A port ``Discriminator`` -> (d_params, d_state) in JAX layouts."""
+    return params_to_jax(model), {"blocks": [{} for _ in model.blocks], "fc": {}}
+
+
+def tensors_to_jax(model, ts: Sequence[torch.Tensor]) -> Dict:
+    """Tensors shaped like ``model.parameters()`` (gradients, moments) ->
+    the JAX-layout tree of the model's parameters (f32 numpy)."""
+    return _unflatten({path: _to_jax(t, perm)
+                       for (path, _, perm), t in zip(_entries(model), ts)})
+
+
+def opt_to_jax(opt_state: Dict, model) -> Dict:
+    """A port Adam state -> {count, m, v} with m, v as JAX-layout trees
+    (f32 numpy; cast to the moment dtype on the JAX side)."""
+    return {"count": np.int32(opt_state["count"]),
+            "m": tensors_to_jax(model, opt_state["m"]),
+            "v": tensors_to_jax(model, opt_state["v"])}
+
+
+def opt_from_jax(state: Dict, model, moment_dtype: torch.dtype) -> Dict:
+    """{count, m, v} (JAX layouts) -> a port Adam state for ``model``'s
+    parameters, moments in ``moment_dtype`` on the parameters' device."""
+    out: Dict = {"count": int(np.asarray(state["count"])), "m": [], "v": []}
+    for k in ("m", "v"):
+        flat: Dict[str, np.ndarray] = {}
+        _flatten(state[k], "", flat)
+        out[k] = [_to_port(flat[path], perm).to(p.device, moment_dtype).contiguous()
+                  for path, p, perm in _entries(model)]
+    return out
 
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:

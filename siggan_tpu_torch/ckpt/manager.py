@@ -1,20 +1,34 @@
-"""The port's generator checkpoint: a directory holding
+"""The port's checkpoints.
+
+A generator checkpoint is a directory holding
 
   config.json     the ``TrainConfig`` sidecar, the JAX package's schema
   generator.npz   the generator in JAX layouts, keyed by tree path
                   (``fc/w``, ``blocks/0/w``, ``bn/blocks/0/mean``, ...)
 
-The JAX package's Orbax directories cannot be read without JAX; a JAX-side
-export writes the same two files from ``(g_params, g_bn)`` with
-``bridge.flatten``. Loading goes through the bridge.
+and is what ``load_generator`` / ``cli.serve`` read. A JAX-side export
+writes the same two files from ``(g_params, g_bn)`` with ``bridge.flatten``.
+
+``CheckpointManager`` keeps full train-state checkpoints as the JAX
+package's manager does: one directory per saved epoch (``epoch_NNNN``,
+itself a generator checkpoint, plus ``discriminator.npz``,
+``optimizer.npz`` (the two Adam states, moments as f32), ``fixed_noise.npy``
+and ``state.json`` (step, epoch, best G loss)), the run's ``config.json``,
+and an ``index.json`` mapping the ``latest`` and ``best`` (lowest G loss)
+aliases to epochs. ``load_generator`` on such a run directory loads its
+``latest`` epoch. Orbax directories of the JAX package cannot be read
+without JAX (ROADMAP A.2).
 """
 
 from __future__ import annotations
 
+import json
+import shutil
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from siggan_tpu_torch import bridge
 from siggan_tpu_torch.core.config import TrainConfig
@@ -22,6 +36,11 @@ from siggan_tpu_torch.models.generator import Generator
 
 SIDECAR = "config.json"
 WEIGHTS = "generator.npz"
+D_WEIGHTS = "discriminator.npz"
+OPTIMIZER = "optimizer.npz"
+NOISE = "fixed_noise.npy"
+STATE = "state.json"
+INDEX = "index.json"
 
 
 def save_generator(directory: str | Path, model: Generator,
@@ -40,18 +59,33 @@ def load_config(directory: str | Path) -> TrainConfig:
     return TrainConfig.from_json((Path(directory) / SIDECAR).read_text())
 
 
-def load_arrays(directory: str | Path) -> Dict[str, np.ndarray]:
-    path = Path(directory) / WEIGHTS
+def _generator_dir(directory: str | Path) -> Path:
+    """``directory`` itself, or the ``latest`` epoch of a run directory."""
+    d = Path(directory)
+    if not (d / WEIGHTS).exists() and (d / INDEX).exists():
+        latest = json.loads((d / INDEX).read_text()).get("latest")
+        if latest is not None:
+            return d / f"epoch_{latest:04d}"
+    return d
+
+
+def _load_npz(path: Path) -> Dict[str, np.ndarray]:
     if not path.exists():
-        raise FileNotFoundError(f"no {WEIGHTS} under {directory}")
+        raise FileNotFoundError(f"no {path.name} under {path.parent}")
     with np.load(path) as f:
         return {k: f[k] for k in f.files}
 
 
+def load_arrays(directory: str | Path) -> Dict[str, np.ndarray]:
+    return _load_npz(_generator_dir(directory) / WEIGHTS)
+
+
 def load_generator(directory: str | Path, device) -> Tuple[Generator, TrainConfig]:
-    """(Generator on ``device``, TrainConfig) from a port checkpoint."""
-    cfg = load_config(directory)
-    g_params, g_bn = bridge.unflatten(load_arrays(directory))
+    """(Generator on ``device``, TrainConfig) from a generator checkpoint or
+    from the ``latest`` epoch of a run directory."""
+    d = _generator_dir(directory)
+    cfg = load_config(d)
+    g_params, g_bn = bridge.unflatten(load_arrays(d))
     return bridge.from_jax(g_params, g_bn, cfg.model, device), cfg
 
 
@@ -64,3 +98,107 @@ def infer_architecture(arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
     image_size = 4 * (2 ** n_blocks)
     return {"latent_dim": int(fc_in), "image_size": int(image_size),
             "base_features": int(c0 if image_size == 64 else c0 // 2)}
+
+
+def _opt_arrays(prefix: str, opt: Dict, model) -> Dict[str, np.ndarray]:
+    tree = bridge.opt_to_jax(opt, model)
+    out = {f"{prefix}/count": np.asarray(tree["count"])}
+    for k in ("m", "v"):
+        for path, a in bridge.flatten(tree[k], {}).items():
+            out[f"{prefix}/{k}/{path}"] = a
+    return out
+
+
+def _opt_tree(prefix: str, arrays: Dict[str, np.ndarray]) -> Dict:
+    tree: Dict[str, Any] = {"count": arrays[f"{prefix}/count"]}
+    for k in ("m", "v"):
+        head = f"{prefix}/{k}/"
+        tree[k] = bridge.unflatten({p[len(head):]: a for p, a in arrays.items()
+                                    if p.startswith(head)})[0]
+    return tree
+
+
+class CheckpointManager:
+    """Epoch checkpoints of a ``TrainState`` with ``latest``/``best``
+    aliases. ``authoritative=True`` (the trainer's manager) makes ``cfg``
+    the run's sidecar, replacing one a previous run left behind."""
+
+    def __init__(self, directory: str | Path, cfg: TrainConfig,
+                 *, authoritative: bool = False):
+        self.dir = Path(directory).absolute()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.cfg = cfg
+        sidecar = self.dir / SIDECAR
+        if not sidecar.exists():
+            sidecar.write_text(cfg.to_json())
+        elif authoritative and sidecar.read_text() != cfg.to_json():
+            print(f"WARNING: {self.dir} holds a config sidecar from a previous "
+                  "run that differs from the current config; overwriting it. "
+                  "Checkpoints already there were saved under the old config "
+                  "-- use a fresh checkpoint_dir per recipe.", flush=True)
+            sidecar.write_text(cfg.to_json())
+
+    def _read_index(self) -> Dict[str, Any]:
+        p = self.dir / INDEX
+        return json.loads(p.read_text()) if p.exists() else {"epochs": []}
+
+    def _epoch_dir(self, epoch: int) -> Path:
+        return self.dir / f"epoch_{epoch:04d}"
+
+    def save(self, state, *, epoch: int, fixed_noise: torch.Tensor,
+             g_loss: Optional[float] = None) -> Path:
+        """Save ``state`` as epoch ``epoch``; updates ``latest`` and, on a
+        new lowest G loss, ``best``."""
+        idx = self._read_index()
+        best = idx.get("best_g_loss")
+        is_best = g_loss is not None and (best is None or g_loss < best)
+        cands = [x for x in (best, g_loss) if x is not None]
+        path = self._epoch_dir(epoch)
+        if path.exists():
+            shutil.rmtree(path)
+        save_generator(path, state.g, self.cfg)
+        d_params, _ = bridge.d_to_jax(state.d)
+        np.savez(path / D_WEIGHTS, **bridge.flatten(d_params, {}))
+        np.savez(path / OPTIMIZER, **_opt_arrays("g", state.g_opt, state.g),
+                 **_opt_arrays("d", state.d_opt, state.d))
+        np.save(path / NOISE, fixed_noise.detach().float().cpu().numpy())
+        (path / STATE).write_text(json.dumps({
+            "step": int(state.step), "epoch": int(epoch),
+            "best_g_loss": float(min(cands)) if cands else float("inf")}))
+        if epoch not in idx["epochs"]:
+            idx["epochs"].append(epoch)
+        idx["latest"] = epoch
+        if is_best:
+            idx["best"] = epoch
+            idx["best_g_loss"] = float(g_loss)
+        (self.dir / INDEX).write_text(json.dumps(idx, indent=2))
+        return path
+
+    def resolve(self, which: str | int = "latest") -> Optional[Path]:
+        idx = self._read_index()
+        epoch = which if isinstance(which, int) else idx.get(which)
+        if epoch is None or epoch not in idx.get("epochs", []):
+            return None
+        return self._epoch_dir(epoch)
+
+    def restore(self, which: str | int = "latest", device="cuda"):
+        """(TrainState, extras) with extras {epoch, fixed_noise,
+        best_g_loss}; None when nothing is saved."""
+        from siggan_tpu_torch.core.state import create_train_state
+        path = self.resolve(which)
+        if path is None:
+            return None
+        state = create_train_state(self.cfg, device)
+        g_params, g_bn = bridge.unflatten(_load_npz(path / WEIGHTS))
+        loaded = bridge.from_jax(g_params, g_bn, self.cfg.model, state.g.fc.weight.device)
+        state.g.load_state_dict(loaded.state_dict())
+        bridge.load_params(state.d, bridge.unflatten(_load_npz(path / D_WEIGHTS))[0])
+        opt = _load_npz(path / OPTIMIZER)
+        mdt = getattr(torch, self.cfg.optim.moment_dtype)
+        state.g_opt = bridge.opt_from_jax(_opt_tree("g", opt), state.g, mdt)
+        state.d_opt = bridge.opt_from_jax(_opt_tree("d", opt), state.d, mdt)
+        meta = json.loads((path / STATE).read_text())
+        state.step = int(meta["step"])
+        extras = {"epoch": int(meta["epoch"]), "best_g_loss": float(meta["best_g_loss"]),
+                  "fixed_noise": torch.from_numpy(np.load(path / NOISE))}
+        return state, extras

@@ -152,3 +152,6 @@ class TrainConfig:
     @classmethod
     def from_json(cls, s: str) -> "TrainConfig":
         return cls.from_dict(json.loads(s))
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

@@ -2,9 +2,11 @@
 
 The stream tags are the JAX package's. JAX's threefry bits cannot be
 reproduced in PyTorch, so a seed gives other numbers here than there; within
-the port every draw is a pure function of (seed, tag, counter). Generators
-live on the CPU so that the same seed gives the same latents whichever
-device then runs the model.
+the port every draw is a pure function of (seed, tag, counter).
+``generator`` makes a CPU generator, so that the same seed gives the same
+latents and initial weights whichever device then runs the model;
+``reseed`` re-keys an existing generator of any device, which is how the
+train step draws on the card per (stream, step) without a host round trip.
 """
 
 from __future__ import annotations
@@ -38,8 +40,12 @@ def derive_seed(seed: int, *path: int) -> int:
     return h & ((1 << 63) - 1)
 
 
+def reseed(gen: torch.Generator, seed: int, tag: int, *counters: int) -> torch.Generator:
+    """Re-key ``gen`` (any device) to stream ``tag`` at ``counters``."""
+    gen.manual_seed(derive_seed(seed, tag, *counters))
+    return gen
+
+
 def generator(seed: int, tag: int, *counters: int) -> torch.Generator:
     """A CPU ``torch.Generator`` for stream ``tag`` at ``counters``."""
-    g = torch.Generator(device="cpu")
-    g.manual_seed(derive_seed(seed, tag, *counters))
-    return g
+    return reseed(torch.Generator(device="cpu"), seed, tag, *counters)

@@ -1,4 +1,4 @@
-"""DCGAN-style signature generator, eval mode, as an ``nn.Module``.
+"""DCGAN-style signature generator as an ``nn.Module``, eval and train mode.
 
 Same architecture as the JAX package's ``models/generator.py``:
 
@@ -13,8 +13,15 @@ Same architecture as the JAX package's ``models/generator.py``:
 Parameters are stored in PyTorch's layouts (``Linear`` (out, in), ConvT
 (Cin, Cout, kh, kw), conv OIHW); ``bridge.py`` converts to and from the JAX
 package's trees. Activations stay NHWC, as there. Conditional models
-(``num_classes > 0``) route the label per ``g_conditioning``. Train mode and
-the packed (space-to-depth) output belong to the training path.
+(``num_classes > 0``) route the label per ``g_conditioning``.
+
+Train mode (``train=True``) normalizes with batch statistics and updates the
+BN running estimates in place, as each JAX train-mode forward returns its
+new state. ``packed_output=True`` (1-channel models) runs the small-channel
+tail -- every block with Cout <= 64 and the final conv -- in 2x2
+space-to-depth form and returns ``space_to_depth(image)`` (N, H/2, W/2, 4);
+every packed tail kernel comes from one launch of kernel B1
+(``ops/kernels/pack_tail.py``), whose backward is B1'.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import torch.nn.functional as F
 from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.ops import initializers as init
 from siggan_tpu_torch.ops.conv import conv2d_oihw, conv_transpose2d_iohw, linear_oi
-from siggan_tpu_torch.ops.norm import batch_norm
+from siggan_tpu_torch.ops.kernels.pack_tail import pack_tail
+from siggan_tpu_torch.ops.norm import batch_norm, batch_norm_packed
+from siggan_tpu_torch.ops.packed import conv3_mc_as_matmul_ihwo
 
 
 def channel_schedule(cfg: ModelConfig) -> Tuple[int, List[Tuple[int, int]]]:
@@ -56,12 +65,13 @@ def _fc_in(cfg: ModelConfig) -> int:
 
 
 def _param(*shape: int, device=None) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, device=device))
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis: ``scale``/``offset`` parameters,
-    (num_classes, C) for class-conditional BN, and running ``mean``/``var``."""
+    """BatchNorm over the last axis: ``scale``/``offset`` parameters,
+    (num_classes, C) for class-conditional BN, and running ``mean``/``var``
+    buffers, which a train-mode call updates."""
 
     def __init__(self, n: int, num_classes: int = 0, device=None):
         super().__init__()
@@ -71,10 +81,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(n, device=device))
         self.register_buffer("var", torch.ones(n, device=device))
 
-    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
+                train: bool = False, packed: bool = False) -> torch.Tensor:
         scale, offset = (self.scale, self.offset) if y is None else (
             self.scale[y], self.offset[y])
-        out, _ = batch_norm(x, scale, offset, {"mean": self.mean, "var": self.var})
+        fn = batch_norm_packed if packed else batch_norm
+        out, state = fn(x, scale, offset, {"mean": self.mean, "var": self.var},
+                        train=train)
+        if train:
+            with torch.no_grad():
+                self.mean.copy_(state["mean"])
+                self.var.copy_(state["var"])
         return out
 
 
@@ -100,9 +117,9 @@ class Conv(nn.Module):
 
 
 class Generator(nn.Module):
-    """Eval-mode generator; ``forward(z, y)`` -> images (N, H, W, C) in
-    [-1, 1] in the compute dtype. Parameters start at zero: build one with
-    ``init_fn`` or ``bridge.from_jax``."""
+    """``forward(z, y)`` -> images (N, H, W, C) in [-1, 1] in the compute
+    dtype. Parameters start at zero: build one with ``init_fn`` or
+    ``bridge.from_jax``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -124,8 +141,15 @@ class Generator(nn.Module):
             return F.leaky_relu(x, self.cfg.leaky_slope)
         return F.relu(x)
 
+    def tail_entry(self) -> Optional[int]:
+        """Index of the first block with Cout <= 64: where the packed tail
+        starts (None if no block is that narrow)."""
+        return next((i for i, blk in enumerate(self.blocks)
+                     if blk.weight.shape[1] <= 64), None)
+
     def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
-                compute_dtype=None) -> torch.Tensor:
+                compute_dtype=None, *, train: bool = False,
+                packed_output: bool = False) -> torch.Tensor:
         cfg = self.cfg
         c0 = self.fc.weight.shape[0] // 16
         y_bn = None
@@ -138,15 +162,39 @@ class Generator(nn.Module):
                 z = torch.cat([z, F.one_hot(y, cfg.num_classes).to(z.dtype)], dim=1)
             if cfg.g_conditioning in ("full", "bn_only"):
                 y_bn = y
+        entry = None
+        if packed_output:
+            if cfg.image_channels != 1:
+                raise ValueError("packed_output requires 1-channel images")
+            entry = self.tail_entry()
+            if entry is None or not cfg.g_pack_pallas:
+                raise NotImplementedError(
+                    "packed_output is ported through the one-launch tail pack "
+                    "(g_pack_pallas) with a block of Cout <= 64 only")
+            odt = (getattr(torch, compute_dtype) if isinstance(compute_dtype, str)
+                   else compute_dtype) or self.final.weight.dtype
+            tail = pack_tail([b.weight for b in self.blocks[entry:]]
+                             + [self.final.weight], odt)
         h = linear_oi(z, self.fc.weight, self.fc.bias, compute_dtype=compute_dtype)
-        h = self._act(self.fc_bn(h, y_bn))
+        h = self._act(self.fc_bn(h, y_bn, train=train))
         h = h.reshape(h.shape[0], 4, 4, c0)
-        for blk in self.blocks:
-            h = conv_transpose2d_iohw(h, blk.weight, stride=2, padding=1,
-                                      compute_dtype=compute_dtype)
-            h = self._act(blk.bn(h, y_bn))
-        img = conv2d_oihw(h, self.final.weight, self.final.bias, stride=1,
-                          padding=1, compute_dtype=compute_dtype)
+        for i, blk in enumerate(self.blocks):
+            packed = entry is not None and i >= entry
+            if packed and i == entry:
+                h = conv2d_oihw(h, tail[0], stride=1, padding=1,
+                                compute_dtype=compute_dtype)
+            else:
+                w = tail[i - entry] if packed else blk.weight
+                h = conv_transpose2d_iohw(h, w, stride=2, padding=1,
+                                          compute_dtype=compute_dtype)
+            h = self._act(blk.bn(h, y_bn, train=train, packed=packed))
+        if entry is not None:
+            img = conv3_mc_as_matmul_ihwo(h, tail[-1], self.final.bias.expand(4),
+                                          compute_dtype)
+        else:
+            img = conv2d_oihw(h, self.final.weight, self.final.bias, stride=1,
+                              padding=1, compute_dtype=compute_dtype)
+        # tanh in the compute dtype, as the JAX generator does.
         return torch.tanh(img)
 
 

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "siggan_tpu_torch"
-SOURCES = ("upsample", "generator_fwd")
+SOURCES = ("upsample", "generator_fwd", "pack_tail")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

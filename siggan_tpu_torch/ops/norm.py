@@ -1,10 +1,22 @@
-"""Eval-mode BatchNorm with explicit state, channel-last.
+"""BatchNorm with explicit state, channel-last, eval and train mode.
 
-Same semantics as the JAX package's ``ops/norm.py`` in eval mode: the
-running (mean, var) fold into one per-channel affine computed in f32 and
-applied in x's dtype. A 2-D ``scale``/``offset`` of shape (N, C) is a
-per-sample affine (conditional BN, rows already selected by label). Train
-mode, ``groups > 1`` and the packed variant belong to the training path.
+Same semantics as the JAX package's ``ops/norm.py`` at ``groups=1``:
+
+- train mode normalizes with the batch statistics, taken in f32 as
+  E[x^2] - E[x]^2 over every axis but the last; the biased variance
+  normalizes and the unbiased one enters the running estimate with
+  momentum 0.1 (eps 1e-5);
+- eval mode uses the running (mean, var);
+- either way the normalization folds into one per-channel affine computed
+  in f32 and applied in x's dtype. A 2-D ``scale``/``offset`` of shape
+  (N, C) is a per-sample affine (conditional BN, rows selected by label).
+
+``batch_norm_packed`` is the same over a 2x2 space-to-depth activation
+(N, H/2, W/2, 4C) in planar channel order (``ops/packed.py``): canonical
+channel c reduces over its 4 phases, the state stays (C,).
+
+Gradients flow through the batch statistics (autograd), as through the JAX
+function. ``groups > 1`` (the fused-G-forwards step) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 EPS = 1e-5
+MOMENTUM = 0.1
 
 
 def init_state(num_features: int, device=None) -> Dict[str, torch.Tensor]:
@@ -24,23 +37,71 @@ def init_state(num_features: int, device=None) -> Dict[str, torch.Tensor]:
 def fold_affine(scale: torch.Tensor, offset: torch.Tensor, mean: torch.Tensor,
                 var: torch.Tensor, eps: float = EPS
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval BN -> (a, b) with y = x * a + b, in f32."""
+    """BN -> (a, b) with y = x * a + b, in f32."""
     a = scale.float() * torch.rsqrt(var.float() + eps)
     return a, offset.float() - mean.float() * a
 
 
+def _no_groups(groups: int) -> None:
+    if groups != 1:
+        raise NotImplementedError(
+            "BatchNorm groups > 1 (fuse_g_forwards) is not ported yet "
+            "(ROADMAP A.1, training slice leftovers)")
+
+
+def _train_stats(xf: torch.Tensor, dims, n: int, state: Dict[str, torch.Tensor],
+                 momentum: float):
+    mean = xf.mean(dim=dims)
+    var = (xf * xf).mean(dim=dims) - mean * mean
+    unbiased = var * (n / max(n - 1, 1))
+    new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+                 "var": (1 - momentum) * state["var"] + momentum * unbiased.detach()}
+    return mean, var, new_state
+
+
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
                state: Dict[str, torch.Tensor], *, train: bool = False,
-               eps: float = EPS) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Normalize over every axis but the last with the running statistics.
+               eps: float = EPS, momentum: float = MOMENTUM, groups: int = 1
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Normalize over every axis but the last. x: (N, C) or (N, H, W, C).
 
-    x: (N, C) or (N, H, W, C). Returns (y, state) like the JAX function; the
-    state is returned unchanged.
+    Returns (y, new_state) like the JAX function; in eval mode the state is
+    returned unchanged, in train mode the new state is detached.
     """
     if train:
-        raise NotImplementedError("train-mode BatchNorm is not ported yet")
-    a, b = fold_affine(scale, offset, state["mean"], state["var"], eps)
+        _no_groups(groups)
+        dims = tuple(range(x.ndim - 1))
+        n = x.numel() // x.shape[-1]
+        mean, var, new_state = _train_stats(x.float(), dims, n, state, momentum)
+    else:
+        mean, var, new_state = state["mean"], state["var"], state
+    a, b = fold_affine(scale, offset, mean, var, eps)
     if a.ndim == 2 and x.ndim == 4:
         a = a[:, None, None, :]
         b = b[:, None, None, :]
-    return x * a.to(x.dtype) + b.to(x.dtype), state
+    return x * a.to(x.dtype) + b.to(x.dtype), new_state
+
+
+def batch_norm_packed(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+                      state: Dict[str, torch.Tensor], *, train: bool = False,
+                      eps: float = EPS, momentum: float = MOMENTUM,
+                      groups: int = 1
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BatchNorm over a packed activation (N, H/2, W/2, 4C), planar order
+    phase*C + c; the state and the affine stay per canonical channel."""
+    n_, h_, w_, c4 = x.shape
+    c = c4 // 4
+    if train:
+        _no_groups(groups)
+        xf = x.float().reshape(n_, h_, w_, 4, c)
+        mean, var, new_state = _train_stats(xf, (0, 1, 2, 3), n_ * h_ * w_ * 4,
+                                            state, momentum)
+    else:
+        mean, var, new_state = state["mean"], state["var"], state
+    a, b = fold_affine(scale, offset, mean, var, eps)
+    if a.ndim == 2:
+        a4 = a.repeat(1, 4)[:, None, None, :]
+        b4 = b.repeat(1, 4)[:, None, None, :]
+    else:
+        a4, b4 = a.repeat(4), b.repeat(4)
+    return x * a4.to(x.dtype) + b4.to(x.dtype), new_state

@@ -19,6 +19,7 @@ from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.infer.generate import GeneratorSession
 from siggan_tpu_torch.models.generator import init_fn
 from siggan_tpu_torch.ops.kernels import generator_fwd as gf
+from siggan_tpu_torch.ops.kernels import pack_tail as pt
 from siggan_tpu_torch.ops.kernels import upsample as up
 
 pytestmark = pytest.mark.cuda
@@ -94,3 +95,32 @@ def test_session_kernel_path_matches_module_path(dev):
     np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(a, k.sample(70, seed=1))
     assert k.interpolate(steps=10).shape == (10, 64, 64, 1)
+
+
+def tail_weights(dev, base=32, seed=0):
+    """Stored-layout tail weights of a 64 px generator at ``base`` width."""
+    g = torch.Generator().manual_seed(seed)
+    c = [base // 2, base // 4, base // 8, base // 8]
+    ws = [torch.randn(ci, co, 4, 4, generator=g) for ci, co in zip(c, c[1:])]
+    ws.append(torch.randn(1, c[-1], 3, 3, generator=g))
+    return [w.to(dev) for w in ws]
+
+
+@pytest.mark.parametrize("base", [32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_tail_kernels(dev, base, dtype):
+    ws = [w.requires_grad_(True) for w in tail_weights(dev, base)]
+    f0, b0 = pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count
+    out = pt.pack_tail(ws, dtype)
+    ref = pt.pack_tail_reference([w.detach() for w in ws], dtype)
+    assert pt.FWD_LAUNCHES.count == f0 + 1
+    for a, b in zip(out, ref):
+        assert a.dtype == dtype and torch.equal(a, b)
+    g = torch.Generator().manual_seed(1)
+    cts = [torch.randn(o.shape, generator=g).to(dev, dtype) for o in out]
+    got = torch.autograd.grad(out, ws, cts)
+    assert pt.BWD_LAUNCHES.count == b0 + 1
+    want = pt.pack_tail_backward_reference(ws, cts)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
