@@ -19,15 +19,27 @@ Phases (any failure raises and the script exits non-zero):
      versions at the full-width tail shapes, in bf16 and f32 (forward
      bit-equal, backward within rtol 1e-5 / atol 1e-6), and time kernel,
      plain version and a library yardstick (torch.take / index_add_);
-  6. train: write 2048 synthetic 64 px PNGs, run the port's training CLI on
+  6. hold the train-mode packed-tail kernel B2 against its plain version at
+     the full-width tails of the 64 px and 128 px generators (batch 64), in
+     f32 and bf16, check that two launches give the same bits, and time the
+     host call, its device time, the plain version and a library yardstick
+     (the port's own no-grad module-path tail, cuDNN);
+  7. train: write 2048 synthetic 64 px PNGs, run the port's training CLI on
      the card for 3 epochs of 32 steps at TrainConfig() defaults (bf16,
      batch 64, packed I/O), and check finite losses, D accuracy in (0, 1),
-     that G, D and G's BN statistics moved, that B1 launched twice and B1'
-     once per step, that the saved generator serves on the kernel path,
-     and that resuming restores the step counter; then profile 10 steps for
-     the device busy time, idle share and top kernels, and report the
-     step's model FLOPs against the bf16 peak;
-  7. print the kernels line (one JSON object), the nvidia-smi line again,
+     that G, D and G's BN statistics moved, that B1 launched twice, B1'
+     once and B2 once per step, that the saved generator serves on the
+     kernel path, and that resuming restores the step counter; then profile
+     10-step windows for the device busy time, idle share and top kernels,
+     with the D step's generator tail on B2 and on the module path in turns
+     (B2, module, module, B2), and report the step's model FLOPs against
+     the bf16 peak;
+  8. train v1.1 the same way: 1024 synthetic 128 px PNGs, the CLI with
+     --image_size 128 --spectral_norm for 2 epochs of 16 steps (depth cut
+     from v1.1's 200 epochs), the same checks plus spectral-norm vectors
+     that moved, have unit norm and come back on resume, and the checkpoint
+     served at 128 x 128 through the module path;
+  9. print the kernels line (one JSON object), the nvidia-smi line again,
      and as the last line {"ok": true, "device": {...}}.
 """
 
@@ -423,6 +435,140 @@ def check_pack_tail(dev):
     return out
 
 
+B2_TOL_NOTE = ("f32: allclose rtol 1e-4 atol 1e-4 (image) and rtol 1e-4 atol 1e-5 "
+               "(running stats), f32 sums in another order; bf16: image atol 2e-2, "
+               "running stats rtol 1e-2 atol 1e-3, because the kernel's prologue "
+               "rounds affine + ReLU to bf16 once where the plain version (and JAX) "
+               "round after each op, and a bf16 ulp flip propagates through the tail")
+
+
+def train_tail_case(dev, size: int, dtype, batch: int = 64, seed: int = 0):
+    """B2's inputs at the full-width tail of the ``size`` px generator: B1's
+    packed weights in ``dtype``, random BN affines and running statistics,
+    and a ReLU'd random h0 at the tail entry."""
+    import torch
+    from siggan_tpu_torch.core import rng
+    from siggan_tpu_torch.core.config import ModelConfig
+    from siggan_tpu_torch.models.generator import init_fn
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    g = init_fn(rng.generator(seed, rng.STREAM_INIT_G), ModelConfig(image_size=size), dev)
+    gen = torch.Generator().manual_seed(seed)
+    tail = g.blocks[g.tail_entry():]
+    with torch.no_grad():
+        for blk in tail:
+            c = blk.bn.mean.shape[0]
+            blk.bn.offset.copy_(torch.randn(c, generator=gen) * 0.1)
+            blk.bn.mean.copy_(torch.randn(c, generator=gen) * 0.1)
+            blk.bn.var.copy_(torch.rand(c, generator=gen) + 0.5)
+        g.final.bias.fill_(0.05)
+        ws = pt.pack_tail_reference([b.weight for b in tail] + [g.final.weight], dtype)
+    side = size // 2 ** len(tail)
+    h0 = torch.relu(torch.randn(batch, side, side, tail[0].weight.shape[0],
+                                generator=gen)).to(dev, dtype)
+    canonical = [(b.weight.shape[0], b.weight.shape[1]) for b in tail]
+    return (h0, ws, [(b.bn.scale.detach(), b.bn.offset.detach()) for b in tail],
+            [{"mean": b.bn.mean.detach(), "var": b.bn.var.detach()} for b in tail],
+            g.final.bias.detach(), canonical)
+
+
+def module_tail(h0, ws, bn, states, bias, dtype):
+    """The library yardstick for B2: the port's own no-grad module-path tail
+    (cuDNN convs, PyTorch BN statistics and elementwise ops)."""
+    import torch
+    from siggan_tpu_torch.ops.conv import conv2d_oihw, conv_transpose2d_iohw
+    from siggan_tpu_torch.ops.norm import batch_norm_packed
+    from siggan_tpu_torch.ops.packed import conv3_mc_as_matmul_ihwo
+    h = conv2d_oihw(h0, ws[0], stride=1, padding=1, compute_dtype=dtype)
+    for i, w in enumerate(ws[1:-1]):
+        h = torch.relu(batch_norm_packed(h, *bn[i], states[i], train=True)[0])
+        h = conv_transpose2d_iohw(h, w, stride=2, padding=1, compute_dtype=dtype)
+    h = torch.relu(batch_norm_packed(h, *bn[-1], states[-1], train=True)[0])
+    return torch.tanh(conv3_mc_as_matmul_ihwo(h, ws[-1], bias.expand(4), dtype))
+
+
+def check_train_tail(dev):
+    """Phase 6: B2 against its plain version at both full-width tails."""
+    import torch
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    out = {}
+    for size in (64, 128):
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            h0, ws, bn, states, bias, canonical = train_tail_case(dev, size, dtype)
+            with torch.no_grad():
+                img, new = tt.tail_forward_train(h0, ws, bn, states, bias, dtype)
+                again, new2 = tt.tail_forward_train(h0, ws, bn, states, bias, dtype)
+                ref, ref_new = tt.tail_forward_train_reference(h0, ws, bn, states, bias,
+                                                               dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(img, again) or not all(
+                    torch.equal(a[k], b[k]) for a, b in zip(new, new2) for k in a):
+                raise AssertionError(f"train_tail {size} px {name}: two launches differ")
+            f32 = dtype == torch.float32
+            img_tol = dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=0.0, atol=2e-2)
+            st_tol = dict(rtol=1e-4, atol=1e-5) if f32 else dict(rtol=1e-2, atol=1e-3)
+            if not torch.isfinite(img.float()).all() or not torch.allclose(
+                    img.float(), ref.float(), **img_tol):
+                raise AssertionError(f"train_tail {size} px {name}: image max abs diff "
+                                     f"{float((img.float() - ref.float()).abs().max()):.3e}")
+            st_err = 0.0
+            for a, b in zip(new, ref_new):
+                for k in ("mean", "var"):
+                    if not torch.allclose(a[k], b[k], **st_tol):
+                        raise AssertionError(f"train_tail {size} px {name}: running {k} "
+                                             f"outside {st_tol}")
+                    st_err = max(st_err, float((a[k] - b[k]).abs().max()))
+            err = float((img.float() - ref.float()).abs().max())
+            with torch.no_grad():
+                k_ms = time_ms(lambda: tt.tail_forward_train(h0, ws, bn, states, bias, dtype))
+                per, d_ms, n_ops = device_time(
+                    lambda: tt.tail_forward_train(h0, ws, bn, states, bias, dtype))
+                p_ms = time_ms(lambda: tt.tail_forward_train_reference(
+                    h0, ws, bn, states, bias, dtype))
+                lib = module_tail(h0, ws, bn, states, bias, dtype)
+                l_ms = time_ms(lambda: module_tail(h0, ws, bn, states, bias, dtype))
+                _, l_dev, l_ops = device_time(
+                    lambda: module_tail(h0, ws, bn, states, bias, dtype))
+            lib_err = float((lib.float() - ref.float()).abs().max())
+            # Canonical work: every tail ConvT at 16 Ci Co H_in W_in MACs, the
+            # final conv at 9 C H W over the image; bytes: each input of the
+            # function read once (h0, packed weights, BN vectors) and each
+            # output written once (the packed image, the new statistics).
+            n, side = h0.shape[0], h0.shape[1]
+            macs = 0
+            for ci, co in canonical:
+                macs += 16 * ci * co * side * side
+                side *= 2
+            macs += 9 * canonical[-1][1] * side * side
+            flops = 2.0 * n * macs
+            isz = h0.element_size()
+            nbytes = (isz * (h0.numel() + sum(w.numel() for w in ws) + img.numel())
+                      + 4 * (4 * sum(b[0].numel() for b in bn) + 1))
+            peak = F32_PEAK_FLOPS if f32 else BF16_PEAK_FLOPS
+            t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+            b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                                     else "bytes")
+            core_ms = flops / F32_PEAK_FLOPS * 1e3
+            print(f"train_tail {size} px {name} batch {n}: image max_abs_diff {err:.3e}, "
+                  f"running stats {st_err:.3e}; host call {k_ms:.4f} ms (device "
+                  f"{fmt_ms(d_ms)}, {n_ops:.0f} kernels), plain {p_ms:.4f} ms, module-path "
+                  f"tail {l_ms:.4f} ms (device {fmt_ms(l_dev)}, {l_ops:.0f} kernels; vs "
+                  f"plain {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}; "
+                  f"{flops / 1e9:.3f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
+                  f"{nbytes / 1e6:.2f} MB), CUDA-core bound {core_ms:.4f} ms", flush=True)
+            for kname, ms in sorted(per.items(), key=lambda kv: -kv[1])[:5]:
+                print(f"  device {ms:.4f} ms  {kname[:100]}", flush=True)
+            row[name] = {"max_abs_diff": err, "state_max_abs_diff": st_err,
+                         "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+                         "library_ms": l_ms, "library_device_ms": l_dev,
+                         "library_kernels": l_ops, "bound_ms": b_ms, "bound_by": b_by,
+                         "cuda_core_bound_ms": core_ms, "gflop": flops / 1e9,
+                         "mb": nbytes / 1e6}
+        out[size] = row
+    return out
+
+
 def step_flops(cfg, batch: int) -> float:
     """Model FLOPs of one default train step (n_critic=1), counted from the
     canonical layer shapes: 2 FLOPs per MAC; a trained layer's forward +
@@ -433,7 +579,8 @@ def step_flops(cfg, batch: int) -> float:
     from siggan_tpu_torch.models.generator import channel_schedule as g_sched
     from siggan_tpu_torch.models.discriminator import channel_schedule as d_sched
     c0, blocks = g_sched(cfg.model)
-    g_macs = cfg.model.latent_dim * 16 * c0 + 9 * blocks[-1][1] * 64 * 64
+    size = cfg.model.image_size
+    g_macs = cfg.model.latent_dim * 16 * c0 + 9 * blocks[-1][1] * size * size
     side = 4
     for ci, co in blocks:
         g_macs += 16 * ci * co * side * side
@@ -445,49 +592,59 @@ def step_flops(cfg, batch: int) -> float:
     return 2.0 * (4 * batch * g_macs + (3 * 2 * batch + 2 * batch) * d_macs)
 
 
-def train_phase(card: str):
-    """Phase 6: the port's training path, through its CLI, at full width."""
+def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048):
+    """Phases 7 and 8: the port's training path, through its CLI, at full
+    width: TrainConfig() defaults at 64 px, v1.1 (--spectral_norm) at 128."""
     import numpy as np
     import torch
-    from siggan_tpu_torch.ckpt.manager import CheckpointManager, load_generator
+    from siggan_tpu_torch.ckpt.manager import D_STATE, D_WEIGHTS, CheckpointManager, \
+        load_generator
     from siggan_tpu_torch.cli import train as train_cli
-    from siggan_tpu_torch.core.config import TrainConfig
+    from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
     from siggan_tpu_torch.core.state import create_train_state
     from siggan_tpu_torch.data.synthetic import save_dataset_pngs
     from siggan_tpu_torch.infer.generate import GeneratorSession
     from siggan_tpu_torch.ops.kernels import generator_fwd as gf
     from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
     from siggan_tpu_torch.train.train_step import make_resident_train_step
     from siggan_tpu_torch.train.trainer import GANTrainer
 
-    epochs, n_images = 3, 2048
+    sn = size == 128
+    tag = "train v1.1 128 px SN" if sn else "train 64 px"
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        data = save_dataset_pngs(n_images, f"{tmp}/data", seed=0)
-        print(f"train: wrote {n_images} synthetic PNGs in "
+        data = save_dataset_pngs(n_images, f"{tmp}/data", size=size, seed=0)
+        print(f"{tag}: wrote {n_images} synthetic {size} px PNGs in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         run = f"{tmp}/run"
-        argv = ["--data_dir", str(data), "--epochs", str(epochs),
+        argv = ["--data_dir", str(data), "--epochs", str(epochs), "--image_size", str(size),
                 "--checkpoint_interval", "1", "--run_dir", run, "--device", "cuda"]
-        pt.FWD_LAUNCHES.reset()
-        pt.BWD_LAUNCHES.reset()
+        if sn:
+            argv.append("--spectral_norm")
+        for counter in (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES):
+            counter.reset()
         t0 = time.perf_counter()
         if train_cli.main(argv) != 0:
             raise AssertionError("the training CLI failed")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"pack_tail": pt.FWD_LAUNCHES.count,
-                    "pack_tail_backward": pt.BWD_LAUNCHES.count}
-        print(f"train: CLI {epochs} epochs in {wall:.1f} s; main path launches: "
+                    "pack_tail_backward": pt.BWD_LAUNCHES.count,
+                    "train_tail": tt.LAUNCHES.count}
+        print(f"{tag}: CLI {epochs} epochs in {wall:.1f} s; main path launches: "
               f"{json.dumps(launches)}", flush=True)
 
         cfg = TrainConfig.from_json(open(f"{run}/checkpoints/config.json").read())
-        if (cfg.model != TrainConfig().model or cfg.batch_size != 64
-                or cfg.compute_dtype != "bfloat16" or not cfg.packed_io):
-            raise AssertionError(f"not the default configuration: {cfg.to_json()}")
+        want_model = ModelConfig(image_size=size, use_spectral_norm=sn)
+        if (cfg.model != want_model or cfg.batch_size != 64
+                or cfg.compute_dtype != "bfloat16" or not cfg.packed_io
+                or not tt.kernel_supported(cfg)):
+            raise AssertionError(f"not the expected configuration: {cfg.to_json()}")
         steps = epochs * (n_images // cfg.batch_size)
-        if launches != {"pack_tail": 2 * steps, "pack_tail_backward": steps}:
-            raise AssertionError(f"expected B1 x{2 * steps} and B1' x{steps}, got {launches}")
+        want = {"pack_tail": 2 * steps, "pack_tail_backward": steps, "train_tail": steps}
+        if launches != want:
+            raise AssertionError(f"expected launches {want}, got {launches}")
         logs = sorted(Path(f"{run}/logs").glob("*.json"))
         metrics = json.loads(logs[-1].read_text())["metrics"]
         for m in metrics:
@@ -497,7 +654,8 @@ def train_phase(card: str):
             if not 0.0 < m["d_accuracy"] < 1.0:
                 raise AssertionError(f"d_accuracy {m['d_accuracy']} outside (0, 1)")
 
-        # Parameters and BN statistics moved from the seeded init.
+        # Parameters, BN statistics and spectral-norm vectors moved from the
+        # seeded init.
         init = create_train_state(cfg, "cuda")
         mgr = CheckpointManager(f"{run}/checkpoints", cfg)
         state, extras = mgr.restore("latest", "cuda")
@@ -510,24 +668,46 @@ def train_phase(card: str):
         for b0, b1 in zip(init.g.buffers(), state.g.buffers()):
             if torch.equal(b0, b1):
                 raise AssertionError("a G BatchNorm running statistic did not move")
+        us = [blk.u for blk in state.d.blocks]
+        if sn:
+            for i, (u0, u1) in enumerate(zip([b.u for b in init.d.blocks], us)):
+                norm = float(torch.linalg.vector_norm(u1))
+                if torch.equal(u0, u1) or abs(norm - 1.0) > 1e-4:
+                    raise AssertionError(f"D block {i} u: moved {not torch.equal(u0, u1)}, "
+                                         f"norm {norm}")
+            with np.load(Path(mgr.resolve("latest")) / D_WEIGHTS) as f:
+                saved = [f[f"{D_STATE}blocks/{i}/u"] for i in range(len(us))]
+            if not all(np.array_equal(u.cpu().numpy(), v) for u, v in zip(us, saved)):
+                raise AssertionError("the restored u's differ from the saved ones")
 
-        # The saved generator serves on the kernel path.
+        # The saved generator serves: on the B4 kernel path at 64 px, on the
+        # module path at 128 px (B4 is a 64 px kernel).
         model, _ = load_generator(f"{run}/checkpoints", "cuda")
         gf.LAUNCHES.reset()
-        imgs = GeneratorSession(model, compute_dtype="float32", use_pallas=True,
-                                device="cuda").sample(64, seed=1)
-        if gf.LAUNCHES.count < 1 or not np.isfinite(imgs).all() or np.abs(imgs).max() > 1:
-            raise AssertionError("the trained generator does not serve on the kernel path")
+        session = GeneratorSession(model, compute_dtype="float32", use_pallas=True,
+                                   device="cuda")
+        imgs = session.sample(64, seed=1)
+        if imgs.shape != (64, size, size, 1) or not np.isfinite(imgs).all() \
+                or np.abs(imgs).max() > 1 or session.uses_kernel != (size == 64) \
+                or (gf.LAUNCHES.count > 0) != (size == 64):
+            raise AssertionError(f"the trained generator does not serve {size} px images "
+                                 f"on the expected path")
 
-        # Resume restores the step counter.
-        trainer = GANTrainer(cfg, np.zeros((64, 64, 64, 1), np.float32), device="cuda")
+        # Resume restores the step counter (and, with SN, the u's).
+        trainer = GANTrainer(cfg, np.zeros((64, size, size, 1), np.float32), device="cuda")
         if not trainer.resume("latest") or trainer.state.step != steps \
                 or trainer.start_epoch != epochs:
             raise AssertionError("resume did not restore the step counter")
+        if sn and not all(torch.equal(a.u, b) for a, b in zip(trainer.state.d.blocks, us)):
+            raise AssertionError("resume did not restore the spectral-norm vectors")
 
-        # Profile 10 steps of the same resident step on the trained state.
+        # Profile 10-step windows of the same resident step on the trained
+        # state, the D step's G tail on B2 and on the module path in turns
+        # (B2, module, module, B2): host ms/step, device busy ms/step and
+        # device operations per step of each route.
         from siggan_tpu_torch.data.dataset import SignatureDataset
-        images = torch.from_numpy(SignatureDataset(data, 64).images).cuda()
+        from siggan_tpu_torch.train import train_step as ts
+        images = torch.from_numpy(SignatureDataset(data, size).images).cuda()
         step_fn, _ = make_resident_train_step(cfg, n_images)
 
         def ten():
@@ -536,31 +716,48 @@ def train_phase(card: str):
                 state, m = step_fn(state, images)
             return m
         ten()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ten()
-        torch.cuda.synchronize()
-        wall10 = (time.perf_counter() - t0) * 1e3 / 10
-        per, busy, n_ops = device_time(ten, calls=1)
-        busy = None if busy is None else busy / 10
+        routes = {"B2": [], "module": []}
+        per = {}
+        try:
+            for route in ("B2", "module", "module", "B2"):
+                ts.fused_tail = tt.kernel_supported if route == "B2" else (lambda c: False)
+                ten()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ten()
+                torch.cuda.synchronize()
+                w10 = (time.perf_counter() - t0) * 1e3 / 10
+                p, b10, o10 = device_time(ten, calls=1)
+                per = per or p
+                routes[route].append((w10, None if b10 is None else b10 / 10, o10 / 10))
+        finally:
+            ts.fused_tail = tt.kernel_supported
+        wall10 = sum(r[0] for r in routes["B2"]) / 2
+        busy = (None if any(r[1] is None for r in routes["B2"])
+                else sum(r[1] for r in routes["B2"]) / 2)
+        n_ops = 10 * sum(r[2] for r in routes["B2"]) / 2
 
-    last = metrics[-2:]
+    last = metrics[1:][-2:] or metrics   # epoch 0 holds the first-use warm-up
     ms = sum(m["ms_per_step"] for m in last) / len(last)
     ips = sum(m["images_per_sec"] for m in last) / len(last)
     flops = step_flops(cfg, cfg.batch_size)
-    print(f"train: last {len(last)} epochs {ms:.3f} ms/step, {ips:.1f} images/s "
+    print(f"{tag}: last {len(last)} epochs {ms:.3f} ms/step, {ips:.1f} images/s "
           f"(host clock per epoch, CLI) [{card}]", flush=True)
     for m in metrics:
         print(f"  epoch {m['epoch']}: d_loss {m['d_loss']:.4f} g_loss {m['g_loss']:.4f} "
               f"d_accuracy {m['d_accuracy']:.4f} ms/step {m['ms_per_step']:.3f}", flush=True)
     idle = "not measured" if busy is None else f"{1 - busy / wall10:.4f}"
-    print(f"train: 10 profiled steps: wall {wall10:.3f} ms/step, device busy "
+    print(f"{tag}: 10 profiled steps: wall {wall10:.3f} ms/step, device busy "
           f"{'not measured' if busy is None else f'{busy:.4f}'} ms/step, "
           f"idle share {idle}, {n_ops / 10:.0f} device operations per step [{card}]",
           flush=True)
+    for route, rows in routes.items():
+        print(f"{tag}: D-step tail on {route}: " + "; ".join(
+            f"wall {w:.3f} ms/step, device busy {fmt_ms(b)}/step, {o:.0f} device "
+            f"operations per step" for w, b, o in rows) + f" [{card}]", flush=True)
     for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  top kernel {t / 10:.4f} ms/step  {name[:100]}", flush=True)
-    print(f"train: model FLOPs per step {flops / 1e9:.2f} GFLOP; train_step_mfu "
+    print(f"{tag}: model FLOPs per step {flops / 1e9:.2f} GFLOP; train_step_mfu "
           f"{flops / (ms * 1e-3) / BF16_PEAK_FLOPS:.5f} of the dense bf16 peak "
           f"(989 TFLOP/s) at {ms:.3f} ms/step [{card}]", flush=True)
     return launches
@@ -600,7 +797,11 @@ def main() -> int:
         b3, b4 = check_kernels(model, dev)
     launches = serve_phase(model, card)
     b1 = check_pack_tail(dev)
-    launches.update(train_phase(card))
+    b2 = check_train_tail(dev)
+    paths = {"train 64 px": train_phase(card),
+             "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024)}
+    launches.update(paths["train 64 px"])
+    launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
     def entry(name, route, source, replaces, d):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -631,7 +832,19 @@ def main() -> int:
                         "placements, taken in another order by the plain version",
                     f32=b1["float32"]["bwd"],
                     library="index_add_ of the flat cotangent (cast to f32); bf16 input")
-    print(json.dumps({"kernels": [b4_line, b3_line, b1_line, b1b_line]}), flush=True)
+    for line in (b1_line, b1b_line):
+        line["launches_by_path"] = {k: v[line["name"]] for k, v in paths.items()}
+    b2_line = entry("train_tail", "cuda", "siggan_tpu_torch/csrc/train_tail.cu",
+                    "siggan_tpu/ops/pallas/train_tail.py:154", b2[128]["bfloat16"])
+    b2_line.update(tol=B2_TOL_NOTE, launches_by_path={k: v["train_tail"]
+                                                      for k, v in paths.items()},
+                   f32=b2[128]["float32"], px64=b2[64],
+                   library="the port's no-grad module-path tail (cuDNN convs, "
+                           "PyTorch BN and elementwise ops), bf16; 128 px, batch 64; "
+                           "bound at the bf16 dense peak (cuda_core_bound_ms at the "
+                           "f32 non-tensor peak)")
+    print(json.dumps({"kernels": [b4_line, b3_line, b1_line, b1b_line, b2_line]}),
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ blocks: [{w (4, 4, Cin, Cout) HWIO, bn: {scale, offset}}],
 final: {w (3, 3, C, img_c) HWIO, b}, embed (classes, latent) if any} and
 ``g_bn`` = {fc_bn: {mean, var}, blocks: [{mean, var}]}; the discriminator
 as ``d_params`` = {blocks: [{w (4, 4, Cin, Cout) HWIO, b}], fc: {w (8192,
-1), b}} with an empty ``d_state`` (no spectral norm); an Adam state as
+1), b}} and ``d_state`` = {blocks: [{u (Cout,)}], fc: {u (1,)}} with
+spectral norm (empty dicts without), kept in the port as each layer's ``u``
+buffer; an Adam state as
 {count, m, v} with m and v shaped like the parameter tree. Here they are
 plain numpy arrays in those layouts; the port's modules store PyTorch
 layouts: Linear (out, in), ConvT (Cin, Cout, kh, kw), conv OIHW.
@@ -17,7 +19,8 @@ in) transposes. Moments follow their parameters' layouts.
 
 ``flatten``/``unflatten`` give the trees as one flat mapping keyed by tree
 path (``fc/w``, ``blocks/0/w``, ``bn/blocks/0/mean``, ...), the layout of the
-port's ``generator.npz``.
+port's ``generator.npz``; ``discriminator.npz`` keeps D's state under
+``state/`` (``state/blocks/0/u``, ...).
 """
 
 from __future__ import annotations
@@ -100,16 +103,46 @@ def to_jax(model: Generator) -> Tuple[Dict, Dict]:
     return params_to_jax(model), state
 
 
-def d_from_jax(d_params: Dict, cfg: ModelConfig, device=None) -> Discriminator:
-    """JAX-layout ``d_params`` -> a port ``Discriminator`` on ``device``."""
+def _d_layers(model: Discriminator):
+    return [("blocks", i, b) for i, b in enumerate(model.blocks)] + [("fc", None, model.fc)]
+
+
+def load_d_state(model: Discriminator, d_state: Dict) -> None:
+    """Copy a JAX ``d_state`` (spectral-norm ``u`` per layer) into the
+    model's ``u`` buffers; a model without spectral norm takes none."""
+    with torch.no_grad():
+        for key, i, layer in _d_layers(model):
+            if layer.u is not None:
+                st = d_state[key] if i is None else d_state[key][i]
+                layer.u.copy_(_t(st["u"]))
+
+
+def d_from_jax(d_params: Dict, cfg: ModelConfig, device=None,
+               d_state: Dict | None = None) -> Discriminator:
+    """JAX-layout ``d_params`` (and ``d_state`` for a spectral-norm model)
+    -> a port ``Discriminator`` on ``device``."""
     model = Discriminator(cfg, device)
     load_params(model, d_params)
+    if cfg.use_spectral_norm:
+        if d_state is None:
+            raise ValueError("a spectral-norm discriminator needs its d_state")
+        load_d_state(model, d_state)
     return model
 
 
 def d_to_jax(model: Discriminator) -> Tuple[Dict, Dict]:
-    """A port ``Discriminator`` -> (d_params, d_state) in JAX layouts."""
-    return params_to_jax(model), {"blocks": [{} for _ in model.blocks], "fc": {}}
+    """A port ``Discriminator`` -> (d_params, d_state) in JAX layouts:
+    d_state = {blocks: [{u (Co,)}], fc: {u (1,)}} with spectral norm, else
+    empty dicts."""
+    np_ = lambda t: t.detach().float().cpu().numpy().copy()  # noqa: E731
+    state: Dict = {"blocks": [], "fc": {}}
+    for key, i, layer in _d_layers(model):
+        st = {} if layer.u is None else {"u": np_(layer.u)}
+        if i is None:
+            state[key] = st
+        else:
+            state[key].append(st)
+    return params_to_jax(model), state
 
 
 def tensors_to_jax(model, ts: Sequence[torch.Tensor]) -> Dict:
@@ -150,11 +183,12 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[prefix[:-1]] = np.asarray(tree, dtype=np.float32)
 
 
-def flatten(g_params: Dict, g_bn: Dict) -> Dict[str, np.ndarray]:
-    """Trees -> {path: array}; BN running state goes under ``bn/``."""
+def flatten(params: Dict, state: Dict, state_prefix: str = "bn/") -> Dict[str, np.ndarray]:
+    """Trees -> {path: array}; the state (G's BN running statistics by
+    default) goes under ``state_prefix``."""
     out: Dict[str, np.ndarray] = {}
-    _flatten(g_params, "", out)
-    _flatten(g_bn, "bn/", out)
+    _flatten(params, "", out)
+    _flatten(state, state_prefix, out)
     return out
 
 
@@ -177,8 +211,9 @@ def _unflatten(items: Dict[str, np.ndarray]):
     return lists(root)
 
 
-def unflatten(flat: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
-    """{path: array} -> (g_params, g_bn), the inverse of ``flatten``."""
-    params = {k: v for k, v in flat.items() if not k.startswith("bn/")}
-    state = {k[3:]: v for k, v in flat.items() if k.startswith("bn/")}
+def unflatten(flat: Dict[str, np.ndarray], state_prefix: str = "bn/") -> Tuple[Dict, Dict]:
+    """{path: array} -> (params, state), the inverse of ``flatten``."""
+    n = len(state_prefix)
+    params = {k: v for k, v in flat.items() if not k.startswith(state_prefix)}
+    state = {k[n:]: v for k, v in flat.items() if k.startswith(state_prefix)}
     return _unflatten(params), _unflatten(state)

@@ -11,7 +11,8 @@ writes the same two files from ``(g_params, g_bn)`` with ``bridge.flatten``.
 
 ``CheckpointManager`` keeps full train-state checkpoints as the JAX
 package's manager does: one directory per saved epoch (``epoch_NNNN``,
-itself a generator checkpoint, plus ``discriminator.npz``,
+itself a generator checkpoint, plus ``discriminator.npz`` (D's weights and,
+under ``state/``, its spectral-norm vectors),
 ``optimizer.npz`` (the two Adam states, moments as f32), ``fixed_noise.npy``
 and ``state.json`` (step, epoch, best G loss)), the run's ``config.json``,
 and an ``index.json`` mapping the ``latest`` and ``best`` (lowest G loss)
@@ -37,6 +38,7 @@ from siggan_tpu_torch.models.generator import Generator
 SIDECAR = "config.json"
 WEIGHTS = "generator.npz"
 D_WEIGHTS = "discriminator.npz"
+D_STATE = "state/"
 OPTIMIZER = "optimizer.npz"
 NOISE = "fixed_noise.npy"
 STATE = "state.json"
@@ -157,8 +159,7 @@ class CheckpointManager:
         if path.exists():
             shutil.rmtree(path)
         save_generator(path, state.g, self.cfg)
-        d_params, _ = bridge.d_to_jax(state.d)
-        np.savez(path / D_WEIGHTS, **bridge.flatten(d_params, {}))
+        np.savez(path / D_WEIGHTS, **bridge.flatten(*bridge.d_to_jax(state.d), D_STATE))
         np.savez(path / OPTIMIZER, **_opt_arrays("g", state.g_opt, state.g),
                  **_opt_arrays("d", state.d_opt, state.d))
         np.save(path / NOISE, fixed_noise.detach().float().cpu().numpy())
@@ -192,7 +193,9 @@ class CheckpointManager:
         g_params, g_bn = bridge.unflatten(_load_npz(path / WEIGHTS))
         loaded = bridge.from_jax(g_params, g_bn, self.cfg.model, state.g.fc.weight.device)
         state.g.load_state_dict(loaded.state_dict())
-        bridge.load_params(state.d, bridge.unflatten(_load_npz(path / D_WEIGHTS))[0])
+        d_params, d_state = bridge.unflatten(_load_npz(path / D_WEIGHTS), D_STATE)
+        bridge.load_params(state.d, d_params)
+        bridge.load_d_state(state.d, d_state)
         opt = _load_npz(path / OPTIMIZER)
         mdt = getattr(torch, self.cfg.optim.moment_dtype)
         state.g_opt = bridge.opt_from_jax(_opt_tree("g", opt), state.g, mdt)

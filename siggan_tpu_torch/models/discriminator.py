@@ -1,13 +1,13 @@
 """DCGAN-style signature discriminator as an ``nn.Module``.
 
 Same architecture as the JAX package's ``models/discriminator.py`` for
-unconditional models without spectral norm:
+unconditional models, with or without spectral norm:
 
   x (N, H, W, C) in [-1, 1]
-   -> k x [Conv(4,2,1) + bias -> LeakyReLU(0.2) -> Dropout2d(0.25)]
+   -> k x [Conv(4,2,1) + bias [+SN] -> LeakyReLU(0.2) -> Dropout2d(0.25)]
         64px:  1->64->128->256->512      (64x64 -> 4x4)
         128px: 1->64->128->256->512->512
-   -> flatten in HWC order -> Linear(512*4*4, 1)   (logits, f32)
+   -> flatten in HWC order -> Linear(512*4*4, 1) [+SN]   (logits, f32)
 
 Conv weights are stored OIHW, the head as ``nn.Linear`` (1, 8192) whose
 columns are the NHWC feature map flattened in HWC order -- the JAX head's
@@ -15,8 +15,15 @@ order, so ``bridge.py`` only transposes. ``packed_input=True`` takes the
 image in 2x2 space-to-depth form and folds the unpacking into the first
 conv (``ops/packed.py::pack_first_conv_kernel``). Dropout masks are drawn
 from a ``torch.Generator`` block by block, or injected (one (N, 1, 1, C)
-keep-mask per block). Spectral norm and the projection / AC-GAN heads are
-not ported yet.
+keep-mask per block).
+
+With ``use_spectral_norm`` every conv block and the head divide their
+weight by its spectral norm (``ops/regularizers.py``); each layer's
+power-iteration vector is the buffer ``u`` (start e_0), which a train-mode
+forward advances by one iteration in place, as each JAX train-mode forward
+returns its new ``d_state``. With ``packed_input`` the canonical (O, 1, 4,
+4) weight is normalized before it is packed. The projection / AC-GAN heads
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.ops import initializers as init
 from siggan_tpu_torch.ops.conv import conv2d_oihw, linear_oi
 from siggan_tpu_torch.ops.packed import pack_first_conv_kernel
-from siggan_tpu_torch.ops.regularizers import dropout2d
+from siggan_tpu_torch.ops.regularizers import dropout2d, sn_init, spectral_norm
 
 FINAL_FEATURES = 512 * 4 * 4
 
@@ -45,18 +52,28 @@ def channel_schedule(cfg: ModelConfig) -> List[Tuple[int, int]]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.use_spectral_norm:
-        raise NotImplementedError("spectral norm is not ported yet (ROADMAP A.1)")
     if cfg.num_classes > 0:
         raise NotImplementedError("conditional discriminators (projection / AC-GAN "
                                   "heads) are not ported yet (ROADMAP A.1)")
 
 
 class _Layer(nn.Module):
-    def __init__(self, wshape, nb: int, device=None):
+    def __init__(self, wshape, nb: int, sn: bool, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(wshape, device=device))
         self.bias = nn.Parameter(torch.zeros(nb, device=device))
+        self.register_buffer("u", sn_init(wshape[0], device) if sn else None)
+
+    def normalized_weight(self, train: bool) -> torch.Tensor:
+        """The weight, spectrally normalized when the layer has a ``u``; a
+        train-mode call advances ``u`` in place."""
+        if self.u is None:
+            return self.weight
+        w, u = spectral_norm(self.weight, self.u, train=train)
+        if train:
+            with torch.no_grad():
+                self.u.copy_(u)
+        return w
 
 
 class Discriminator(nn.Module):
@@ -66,9 +83,10 @@ class Discriminator(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.blocks = nn.ModuleList(_Layer((co, ci, 4, 4), co, device)
+        sn = cfg.use_spectral_norm
+        self.blocks = nn.ModuleList(_Layer((co, ci, 4, 4), co, sn, device)
                                     for ci, co in channel_schedule(cfg))
-        self.fc = _Layer((1, FINAL_FEATURES), 1, device)
+        self.fc = _Layer((1, FINAL_FEATURES), 1, sn, device)
 
     def forward(self, x: torch.Tensor, *, train: bool, compute_dtype=None,
                 packed_input: bool = False, gen: Optional[torch.Generator] = None,
@@ -80,27 +98,28 @@ class Discriminator(nn.Module):
                              "generator or masks")
         h = x
         for i, blk in enumerate(self.blocks):
+            w = blk.normalized_weight(train)
             if packed_input and i == 0:
                 if cfg.image_channels != 1:
                     raise ValueError("packed_input requires 1-channel images")
-                wp = pack_first_conv_kernel(blk.weight.permute(2, 3, 1, 0))
+                wp = pack_first_conv_kernel(w.permute(2, 3, 1, 0))
                 h = conv2d_oihw(h, wp.permute(3, 2, 0, 1), blk.bias, stride=1,
                                 padding=1, compute_dtype=compute_dtype)
             else:
-                h = conv2d_oihw(h, blk.weight, blk.bias, stride=2, padding=1,
+                h = conv2d_oihw(h, w, blk.bias, stride=2, padding=1,
                                 compute_dtype=compute_dtype)
             h = F.leaky_relu(h, cfg.leaky_slope)
             if drop:
                 h = dropout2d(h, cfg.dropout, train=True, gen=gen,
                               mask=None if masks is None else masks[i])
         flat = h.reshape(h.shape[0], -1)
-        return linear_oi(flat, self.fc.weight, self.fc.bias,
+        return linear_oi(flat, self.fc.normalized_weight(train), self.fc.bias,
                          compute_dtype=compute_dtype).float()
 
 
 def init_fn(gen: torch.Generator, cfg: ModelConfig, device=None) -> Discriminator:
     """A discriminator with the DCGAN init from ``gen`` (a CPU generator):
-    weights ~ N(0, 0.02), biases 0."""
+    weights ~ N(0, 0.02), biases 0, spectral-norm vectors e_0."""
     model = Discriminator(cfg, device)
     with torch.no_grad():
         for layer in list(model.blocks) + [model.fc]:

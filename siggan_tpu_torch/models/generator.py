@@ -22,6 +22,12 @@ tail -- every block with Cout <= 64 and the final conv -- in 2x2
 space-to-depth form and returns ``space_to_depth(image)`` (N, H/2, W/2, 4);
 every packed tail kernel comes from one launch of kernel B1
 (``ops/kernels/pack_tail.py``), whose backward is B1'.
+
+``fused_tail=True`` (with ``train`` and ``packed_output``, under
+``torch.no_grad()``) is the discriminator step's route: the fc, its BN and
+the wide blocks run as above, then the whole packed tail -- its convs, its
+BN statistics and running-stat updates, the final conv and tanh -- runs in
+kernel B2 (``ops/kernels/train_tail.py``), which has no backward.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.ops import initializers as init
 from siggan_tpu_torch.ops.conv import conv2d_oihw, conv_transpose2d_iohw, linear_oi
+from siggan_tpu_torch.ops.kernels import train_tail
 from siggan_tpu_torch.ops.kernels.pack_tail import pack_tail
 from siggan_tpu_torch.ops.norm import batch_norm, batch_norm_packed
 from siggan_tpu_torch.ops.packed import conv3_mc_as_matmul_ihwo
@@ -52,6 +59,13 @@ def channel_schedule(cfg: ModelConfig) -> Tuple[int, List[Tuple[int, int]]]:
     else:
         raise ValueError(f"image_size must be 64 or 128, got {cfg.image_size}")
     return c0, blocks
+
+
+def tail_start(cfg: ModelConfig) -> Optional[int]:
+    """Index of the first block with Cout <= 64: where the packed tail
+    starts (None if no block is that narrow)."""
+    _, blocks = channel_schedule(cfg)
+    return next((i for i, (_, co) in enumerate(blocks) if co <= 64), None)
 
 
 def _cond_bn(cfg: ModelConfig) -> bool:
@@ -142,15 +156,30 @@ class Generator(nn.Module):
         return F.relu(x)
 
     def tail_entry(self) -> Optional[int]:
-        """Index of the first block with Cout <= 64: where the packed tail
-        starts (None if no block is that narrow)."""
-        return next((i for i, blk in enumerate(self.blocks)
-                     if blk.weight.shape[1] <= 64), None)
+        """Where the packed tail starts (``tail_start`` of the config)."""
+        return tail_start(self.cfg)
+
+    def _fused_tail(self, h, tail, entry, y_bn, odt) -> torch.Tensor:
+        """The packed tail from the last wide block's output ``h`` in kernel
+        B2, its BN running statistics updated in place."""
+        if y_bn is not None or self.cfg.g_activation != "relu":
+            raise NotImplementedError("the fused tail (kernel B2) takes ReLU tails "
+                                      "without class-conditional BN")
+        bns = [blk.bn for blk in self.blocks[entry:]]
+        img, _ = train_tail.tail_forward_train(
+            h, tail, [(bn.scale, bn.offset) for bn in bns],
+            [{"mean": bn.mean, "var": bn.var} for bn in bns],
+            self.final.bias, odt, update_states=True)
+        return img
 
     def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
                 compute_dtype=None, *, train: bool = False,
-                packed_output: bool = False) -> torch.Tensor:
+                packed_output: bool = False, fused_tail: bool = False) -> torch.Tensor:
         cfg = self.cfg
+        if fused_tail and not (train and packed_output):
+            raise ValueError("fused_tail is the train-mode packed_output route")
+        if fused_tail and torch.is_grad_enabled():
+            raise RuntimeError("fused_tail has no gradient: run it under torch.no_grad()")
         c0 = self.fc.weight.shape[0] // 16
         y_bn = None
         if cfg.num_classes > 0:
@@ -180,6 +209,8 @@ class Generator(nn.Module):
         h = h.reshape(h.shape[0], 4, 4, c0)
         for i, blk in enumerate(self.blocks):
             packed = entry is not None and i >= entry
+            if fused_tail and packed:
+                return self._fused_tail(h, tail, entry, y_bn, odt)
             if packed and i == entry:
                 h = conv2d_oihw(h, tail[0], stride=1, padding=1,
                                 compute_dtype=compute_dtype)

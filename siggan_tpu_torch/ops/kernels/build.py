@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "siggan_tpu_torch"
-SOURCES = ("upsample", "generator_fwd", "pack_tail")
+SOURCES = ("upsample", "generator_fwd", "pack_tail", "train_tail")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -117,13 +117,13 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned f32 CUDA tensor
-    (of ``shape`` where given)."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def require(name: str, t: torch.Tensor, dtype: torch.dtype, device, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
+    on ``device`` (of ``shape`` where given)."""
+    if t.device != torch.device(device):
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
@@ -131,6 +131,13 @@ def require_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def require_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
+    """``require`` of an f32 tensor on any CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    require(name, t, torch.float32, t.device, shape)
 
 
 class LaunchCounter:

@@ -125,17 +125,6 @@ def pack_tail_backward_reference(ws: Sequence[torch.Tensor],
                  for w, d, k in zip(ws, dps, kinds(len(ws))))
 
 
-def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
 def _call(entry: str, ks, cis, cos, ins, outs, bf16: bool, device) -> None:
     n = len(ks)
     ints = ctypes.c_int * n
@@ -161,7 +150,7 @@ def pack_tail_launch(ws: Sequence[torch.Tensor],
     cis, cos, outs = [], [], []
     for i, (w, k) in enumerate(zip(ws, ks)):
         ci, co = dims(w, k)
-        _require(f"tail weight {i}", w, torch.float32, w.shape, dev)
+        build.require(f"tail weight {i}", w, torch.float32, dev)
         cis.append(ci)
         cos.append(co)
         outs.append(torch.empty(packed_shape(k, ci, co), device=dev, dtype=out_dtype))
@@ -185,7 +174,7 @@ def pack_tail_backward_launch(ws: Sequence[torch.Tensor],
     cis, cos, grads = [], [], []
     for i, (w, k, d) in enumerate(zip(ws, ks, dps)):
         ci, co = dims(w, k)
-        _require(f"cotangent {i}", d, dt, packed_shape(k, ci, co), dev)
+        build.require(f"cotangent {i}", d, dt, dev, packed_shape(k, ci, co))
         cis.append(ci)
         cos.append(co)
         grads.append(torch.empty(w.shape, device=dev, dtype=torch.float32))

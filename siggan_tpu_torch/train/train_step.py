@@ -15,7 +15,11 @@ Port of the JAX package's ``train/train_step.py`` default branch
    block over that 2b batch;
  - with ``packed_io`` (1-channel images) the generator emits
    ``space_to_depth(image)`` through the packed tail (kernels B1/B1') and D
-   folds the unpacking into its first conv.
+   folds the unpacking into its first conv; in the D step, where G runs
+   without gradient, the whole tail runs in kernel B2 when
+   ``train_tail.kernel_supported(cfg)`` (else the module path);
+ - with spectral norm, D's power-iteration vectors advance in the D step's
+   D forward and again in the G step's, in that order.
 
 Randomness: each draw comes from a generator on the training device,
 re-keyed per (stream, step, sub-step) from ``core/rng.derive_seed``; the
@@ -27,8 +31,8 @@ flip) for the in-step augment -- so a test can run it on the JAX package's
 exact randomness.
 
 Not ported yet (raise ``NotImplementedError``): ``share_fakes``,
-``fuse_g_forwards`` (BN groups), ``diffaugment``, conditional models,
-spectral norm, EMA, LR schedules, the multi-step dispatch.
+``fuse_g_forwards`` (BN groups), ``diffaugment``, conditional models, EMA,
+LR schedules, the multi-step dispatch.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from siggan_tpu_torch.core.state import Adam, TrainState, make_optimizers
 from siggan_tpu_torch.core.state import check_supported as check_optim
 from siggan_tpu_torch.data.augment import augment_apply, augment_params
 from siggan_tpu_torch.models.discriminator import check_supported as check_model
+from siggan_tpu_torch.ops.kernels.train_tail import kernel_supported as fused_tail
 from siggan_tpu_torch.ops.packed import space_to_depth
 
 Metrics = Dict[str, torch.Tensor]
@@ -98,11 +103,13 @@ def d_step(state: TrainState, real: torch.Tensor, z: torch.Tensor, cfg: TrainCon
            masks: Optional[List[torch.Tensor]] = None,
            real_packed: bool = False) -> Metrics:
     """One discriminator update on ``real`` and G(z); updates ``state`` in
-    place (D, its moments, and G's BN running statistics)."""
+    place (D, its moments and spectral-norm vectors, and G's BN running
+    statistics)."""
     cdt, packed = _dtype(cfg), _packed(cfg)
     b = real.shape[0]
     with torch.no_grad():
-        fake = state.g(z, None, cdt, train=True, packed_output=packed)
+        fake = state.g(z, None, cdt, train=True, packed_output=packed,
+                       fused_tail=fused_tail(cfg))
     if packed and not real_packed:
         real = space_to_depth(real)
     both = torch.cat([real.to(fake.dtype), fake], dim=0)

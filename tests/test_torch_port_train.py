@@ -319,6 +319,6 @@ def test_cli_refuses_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--data_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="spectral norm"):
+    with pytest.raises(NotImplementedError, match="EMA"):
         train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu",
-                        "--spectral_norm", "--batch_size", "2"])
+                        "--ema_decay", "0.999", "--batch_size", "2"])
