@@ -23,22 +23,27 @@ Phases (any failure raises and the script exits non-zero):
      the full-width tails of the 64 px and 128 px generators (batch 64), in
      f32 and bf16, check that two launches give the same bits, and time the
      host call, its device time, the plain version and a library yardstick
-     (the port's own no-grad module-path tail, cuDNN);
+     (the port's own no-grad module-path tail, cuDNN); then hold the D
+     step's generator forward with its tail in B2 against the module path
+     it replaces, on two copies of one full-width generator, in f32 and
+     bf16 (the packed fakes and every tail BN's batch statistics);
   7. train: write 2048 synthetic 64 px PNGs, run the port's training CLI on
      the card for 3 epochs of 32 steps at TrainConfig() defaults (bf16,
      batch 64, packed I/O), and check finite losses, D accuracy in (0, 1),
      that G, D and G's BN statistics moved, that B1 launched twice, B1'
      once and B2 once per step, that the saved generator serves on the
-     kernel path, and that resuming restores the step counter; then profile
+     kernel path, and that resuming restores the step counter; run the
+     same seeded CLI training with the D step's tail on the module path
+     and print its last losses beside B2's; then profile
      10-step windows for the device busy time, idle share and top kernels,
      with the D step's generator tail on B2 and on the module path in turns
      (B2, module, module, B2), and report the step's model FLOPs against
      the bf16 peak;
   8. train v1.1 the same way: 1024 synthetic 128 px PNGs, the CLI with
      --image_size 128 --spectral_norm for 2 epochs of 16 steps (depth cut
-     from v1.1's 200 epochs), the same checks plus spectral-norm vectors
-     that moved, have unit norm and come back on resume, and the checkpoint
-     served at 128 x 128 through the module path;
+     from v1.1's 200 epochs), the same checks and module-route run, plus
+     spectral-norm vectors that moved, have unit norm and come back on
+     resume, and the checkpoint served at 128 x 128 through the module path;
   9. print the kernels line (one JSON object), the nvidia-smi line again,
      and as the last line {"ok": true, "device": {...}}.
 """
@@ -435,11 +440,54 @@ def check_pack_tail(dev):
     return out
 
 
-B2_TOL_NOTE = ("f32: allclose rtol 1e-4 atol 1e-4 (image) and rtol 1e-4 atol 1e-5 "
-               "(running stats), f32 sums in another order; bf16: image atol 2e-2, "
-               "running stats rtol 1e-2 atol 1e-3, because the kernel's prologue "
-               "rounds affine + ReLU to bf16 once where the plain version (and JAX) "
-               "round after each op, and a bf16 ulp flip propagates through the tail")
+B2_TOL_NOTE = ("against the plain version and against the module path it replaces; "
+               "f32: allclose rtol 1e-4 atol 1e-4 (image) and rtol 1e-4 atol 1e-5 "
+               "(batch statistics, (new - 0.9 old) / 0.1 of each running update), "
+               "f32 sums in another order; bf16: image atol 2e-2, batch statistics "
+               "rtol 1e-2 atol 1e-3, because the kernel's prologue rounds affine + "
+               "ReLU to bf16 once where the plain version (and JAX) round after each "
+               "op, and a bf16 ulp flip propagates through the tail")
+
+
+def b2_tols(f32: bool):
+    """B2's (image, batch statistics) tolerances, as in B2_TOL_NOTE."""
+    if f32:
+        return dict(rtol=1e-4, atol=1e-4), dict(rtol=1e-4, atol=1e-5)
+    return dict(rtol=0.0, atol=2e-2), dict(rtol=1e-2, atol=1e-3)
+
+
+def clone_states(states):
+    return [{k: v.clone() for k, v in s.items()} for s in states]
+
+
+def batch_stats(new, old):
+    """The batch statistics each running update took in: (new - 0.9 old) /
+    0.1. Compared instead of the running values, of which only a tenth is
+    the batch's."""
+    return [{k: (n[k] - 0.9 * o[k]) / 0.1 for k in ("mean", "var")}
+            for n, o in zip(new, old)]
+
+
+def compare_b2(what: str, img, ref, new, ref_new, old, f32: bool):
+    """Hold B2's image and batch statistics against a reference's; returns
+    (image max abs diff, batch-statistics max abs diff, the largest
+    |diff| / (atol + rtol |ref|) of the statistics)."""
+    import torch
+    img_tol, st_tol = b2_tols(f32)
+    err = float((img.float() - ref.float()).abs().max())
+    if not torch.isfinite(img.float()).all() or not torch.allclose(
+            img.float(), ref.float(), **img_tol):
+        raise AssertionError(f"{what}: image max abs diff {err:.3e} outside {img_tol}")
+    st_err = st_use = 0.0
+    for i, (a, b) in enumerate(zip(batch_stats(new, old), batch_stats(ref_new, old))):
+        for k in ("mean", "var"):
+            d = (a[k] - b[k]).abs()
+            use = float((d / (st_tol["atol"] + st_tol["rtol"] * b[k].abs())).max())
+            if not torch.isfinite(a[k]).all() or use > 1.0:
+                raise AssertionError(f"{what}: BN {i} batch {k} max abs diff "
+                                     f"{float(d.max()):.3e} outside {st_tol}")
+            st_err, st_use = max(st_err, float(d.max())), max(st_use, use)
+    return err, st_err, st_use
 
 
 def train_tail_case(dev, size: int, dtype, batch: int = 64, seed: int = 0):
@@ -496,9 +544,11 @@ def check_train_tail(dev):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             h0, ws, bn, states, bias, canonical = train_tail_case(dev, size, dtype)
+            # The wrapper updates the states it is given: each call takes a copy.
+            new, new2, spare = (clone_states(states) for _ in range(3))
             with torch.no_grad():
-                img, new = tt.tail_forward_train(h0, ws, bn, states, bias, dtype)
-                again, new2 = tt.tail_forward_train(h0, ws, bn, states, bias, dtype)
+                img = tt.tail_forward_train(h0, ws, bn, new, bias, dtype)
+                again = tt.tail_forward_train(h0, ws, bn, new2, bias, dtype)
                 ref, ref_new = tt.tail_forward_train_reference(h0, ws, bn, states, bias,
                                                                dtype)
             torch.cuda.synchronize()
@@ -506,24 +556,12 @@ def check_train_tail(dev):
                     torch.equal(a[k], b[k]) for a, b in zip(new, new2) for k in a):
                 raise AssertionError(f"train_tail {size} px {name}: two launches differ")
             f32 = dtype == torch.float32
-            img_tol = dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=0.0, atol=2e-2)
-            st_tol = dict(rtol=1e-4, atol=1e-5) if f32 else dict(rtol=1e-2, atol=1e-3)
-            if not torch.isfinite(img.float()).all() or not torch.allclose(
-                    img.float(), ref.float(), **img_tol):
-                raise AssertionError(f"train_tail {size} px {name}: image max abs diff "
-                                     f"{float((img.float() - ref.float()).abs().max()):.3e}")
-            st_err = 0.0
-            for a, b in zip(new, ref_new):
-                for k in ("mean", "var"):
-                    if not torch.allclose(a[k], b[k], **st_tol):
-                        raise AssertionError(f"train_tail {size} px {name}: running {k} "
-                                             f"outside {st_tol}")
-                    st_err = max(st_err, float((a[k] - b[k]).abs().max()))
-            err = float((img.float() - ref.float()).abs().max())
+            err, st_err, st_use = compare_b2(f"train_tail {size} px {name}", img, ref, new,
+                                             ref_new, states, f32)
             with torch.no_grad():
-                k_ms = time_ms(lambda: tt.tail_forward_train(h0, ws, bn, states, bias, dtype))
+                k_ms = time_ms(lambda: tt.tail_forward_train(h0, ws, bn, spare, bias, dtype))
                 per, d_ms, n_ops = device_time(
-                    lambda: tt.tail_forward_train(h0, ws, bn, states, bias, dtype))
+                    lambda: tt.tail_forward_train(h0, ws, bn, spare, bias, dtype))
                 p_ms = time_ms(lambda: tt.tail_forward_train_reference(
                     h0, ws, bn, states, bias, dtype))
                 lib = module_tail(h0, ws, bn, states, bias, dtype)
@@ -551,7 +589,7 @@ def check_train_tail(dev):
                                                      else "bytes")
             core_ms = flops / F32_PEAK_FLOPS * 1e3
             print(f"train_tail {size} px {name} batch {n}: image max_abs_diff {err:.3e}, "
-                  f"running stats {st_err:.3e}; host call {k_ms:.4f} ms (device "
+                  f"batch stats {st_err:.3e} ({st_use:.3f} of the bar); host call {k_ms:.4f} ms (device "
                   f"{fmt_ms(d_ms)}, {n_ops:.0f} kernels), plain {p_ms:.4f} ms, module-path "
                   f"tail {l_ms:.4f} ms (device {fmt_ms(l_dev)}, {l_ops:.0f} kernels; vs "
                   f"plain {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}; "
@@ -559,13 +597,54 @@ def check_train_tail(dev):
                   f"{nbytes / 1e6:.2f} MB), CUDA-core bound {core_ms:.4f} ms", flush=True)
             for kname, ms in sorted(per.items(), key=lambda kv: -kv[1])[:5]:
                 print(f"  device {ms:.4f} ms  {kname[:100]}", flush=True)
-            row[name] = {"max_abs_diff": err, "state_max_abs_diff": st_err,
+            row[name] = {"max_abs_diff": err, "batch_stats_max_abs_diff": st_err,
+                         "batch_stats_share_of_bar": st_use,
                          "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                          "library_ms": l_ms, "library_device_ms": l_dev,
                          "library_kernels": l_ops, "bound_ms": b_ms, "bound_by": b_by,
                          "cuda_core_bound_ms": core_ms, "gflop": flops / 1e9,
                          "mb": nbytes / 1e6}
         out[size] = row
+    return out
+
+
+def check_fused_route(dev):
+    """Phase 6, second part: the D step's generator forward at full width
+    (batch 64, train mode, no gradient) with its tail in B2 against the
+    module path it replaces, on two copies of one seeded generator; the
+    packed fakes and every tail BN's batch statistics at B2's bars."""
+    import copy
+    import torch
+    from siggan_tpu_torch.core import rng
+    from siggan_tpu_torch.core.config import ModelConfig
+    from siggan_tpu_torch.models.generator import init_fn
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    out = {}
+    for size in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            fused = init_fn(rng.generator(0, rng.STREAM_INIT_G), ModelConfig(image_size=size),
+                            dev)
+            module = copy.deepcopy(fused)
+            tails = [g.blocks[g.tail_entry():] for g in (fused, module)]
+            old = [{"mean": b.bn.mean.clone(), "var": b.bn.var.clone()} for b in tails[0]]
+            z = torch.randn(64, fused.cfg.latent_dim,
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+            before = tt.LAUNCHES.count
+            with torch.no_grad():
+                a = fused(z, None, dtype, train=True, packed_output=True, fused_tail=True)
+                b = module(z, None, dtype, train=True, packed_output=True)
+            if tt.LAUNCHES.count != before + 1:
+                raise AssertionError("the fused route did not launch B2 once")
+            new = [[{"mean": x.bn.mean, "var": x.bn.var} for x in t] for t in tails]
+            err, st_err, st_use = compare_b2(f"D-step G forward {size} px {name}, B2 vs "
+                                             f"module path", a, b, new[0], new[1], old,
+                                             dtype == torch.float32)
+            print(f"D-step G forward {size} px {name} batch 64, tail on B2 vs module path: "
+                  f"packed fakes max_abs_diff {err:.3e}, tail BN batch stats "
+                  f"{st_err:.3e} ({st_use:.3f} of the bar)", flush=True)
+            out[f"{size}px_{name}"] = {"max_abs_diff": err, "batch_stats_max_abs_diff": st_err,
+                                       "batch_stats_share_of_bar": st_use}
     return out
 
 
@@ -604,9 +683,11 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
     from siggan_tpu_torch.core.state import create_train_state
     from siggan_tpu_torch.data.synthetic import save_dataset_pngs
     from siggan_tpu_torch.infer.generate import GeneratorSession
+    from siggan_tpu_torch.models.generator import fused_tail_supported
     from siggan_tpu_torch.ops.kernels import generator_fwd as gf
     from siggan_tpu_torch.ops.kernels import pack_tail as pt
     from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.train import train_step as ts
     from siggan_tpu_torch.train.train_step import make_resident_train_step
     from siggan_tpu_torch.train.trainer import GANTrainer
 
@@ -639,7 +720,7 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
         want_model = ModelConfig(image_size=size, use_spectral_norm=sn)
         if (cfg.model != want_model or cfg.batch_size != 64
                 or cfg.compute_dtype != "bfloat16" or not cfg.packed_io
-                or not tt.kernel_supported(cfg)):
+                or not fused_tail_supported(cfg.model)):
             raise AssertionError(f"not the expected configuration: {cfg.to_json()}")
         steps = epochs * (n_images // cfg.batch_size)
         want = {"pack_tail": 2 * steps, "pack_tail_backward": steps, "train_tail": steps}
@@ -653,6 +734,22 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
                 raise AssertionError(f"non-finite metrics: {m}")
             if not 0.0 < m["d_accuracy"] < 1.0:
                 raise AssertionError(f"d_accuracy {m['d_accuracy']} outside (0, 1)")
+
+        # The same seeded run with the D step's generator tail on the module
+        # path B2 replaces: what the route alone does to the losses.
+        ts.fused_tail_supported = lambda m: False
+        try:
+            if train_cli.main([f"{tmp}/run_module" if a == run else a for a in argv]) != 0:
+                raise AssertionError("the training CLI failed on the module route")
+        finally:
+            ts.fused_tail_supported = fused_tail_supported
+        logs = sorted(Path(f"{tmp}/run_module/logs").glob("*.json"))
+        mod = json.loads(logs[-1].read_text())["metrics"][-1]
+        print(f"{tag}: last epoch d_loss / g_loss / d_accuracy with the D-step tail on B2 "
+              + " / ".join(f"{metrics[-1][k]:.4f}" for k in ("d_loss", "g_loss", "d_accuracy"))
+              + ", on the module path "
+              + " / ".join(f"{mod[k]:.4f}" for k in ("d_loss", "g_loss", "d_accuracy")),
+              flush=True)
 
         # Parameters, BN statistics and spectral-norm vectors moved from the
         # seeded init.
@@ -706,7 +803,6 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
         # (B2, module, module, B2): host ms/step, device busy ms/step and
         # device operations per step of each route.
         from siggan_tpu_torch.data.dataset import SignatureDataset
-        from siggan_tpu_torch.train import train_step as ts
         images = torch.from_numpy(SignatureDataset(data, size).images).cuda()
         step_fn, _ = make_resident_train_step(cfg, n_images)
 
@@ -720,7 +816,8 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
         per = {}
         try:
             for route in ("B2", "module", "module", "B2"):
-                ts.fused_tail = tt.kernel_supported if route == "B2" else (lambda c: False)
+                ts.fused_tail_supported = (fused_tail_supported if route == "B2"
+                                           else (lambda m: False))
                 ten()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -731,7 +828,7 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
                 per = per or p
                 routes[route].append((w10, None if b10 is None else b10 / 10, o10 / 10))
         finally:
-            ts.fused_tail = tt.kernel_supported
+            ts.fused_tail_supported = fused_tail_supported
         wall10 = sum(r[0] for r in routes["B2"]) / 2
         busy = (None if any(r[1] is None for r in routes["B2"])
                 else sum(r[1] for r in routes["B2"]) / 2)
@@ -798,6 +895,7 @@ def main() -> int:
     launches = serve_phase(model, card)
     b1 = check_pack_tail(dev)
     b2 = check_train_tail(dev)
+    b2_route = check_fused_route(dev)
     paths = {"train 64 px": train_phase(card),
              "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024)}
     launches.update(paths["train 64 px"])
@@ -838,7 +936,7 @@ def main() -> int:
                     "siggan_tpu/ops/pallas/train_tail.py:154", b2[128]["bfloat16"])
     b2_line.update(tol=B2_TOL_NOTE, launches_by_path={k: v["train_tail"]
                                                       for k, v in paths.items()},
-                   f32=b2[128]["float32"], px64=b2[64],
+                   f32=b2[128]["float32"], px64=b2[64], vs_module_path=b2_route,
                    library="the port's no-grad module-path tail (cuDNN convs, "
                            "PyTorch BN and elementwise ops), bf16; 128 px, batch 64; "
                            "bound at the bf16 dense peak (cuda_core_bound_ms at the "

@@ -308,8 +308,7 @@ __global__ void __launch_bounds__(kThreads)
 bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
                    int rows, int C, float count, float unbias,
                    const float* __restrict__ scale, const float* __restrict__ offset,
-                   const float* mean_in, const float* var_in, float* mean_out,
-                   float* var_out, float* a4, float* b4, int bf16) {
+                   float* run_mean, float* run_var, float* a4, float* b4, int bf16) {
   __shared__ float red[8][kThreads];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -346,9 +345,8 @@ bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq
   mean /= 4.f;
   ey2 /= 4.f;
   const float var = ey2 - mean * mean;
-  const float m_old = mean_in[c], v_old = var_in[c];
-  mean_out[c] = __fadd_rn(__fmul_rn(0.9f, m_old), __fmul_rn(0.1f, mean));
-  var_out[c] = __fadd_rn(__fmul_rn(0.9f, v_old), __fmul_rn(0.1f, __fmul_rn(var, unbias)));
+  run_mean[c] = __fadd_rn(__fmul_rn(0.9f, run_mean[c]), __fmul_rn(0.1f, mean));
+  run_var[c] = __fadd_rn(__fmul_rn(0.9f, run_var[c]), __fmul_rn(0.1f, __fmul_rn(var, unbias)));
   float a = scale[c] * rsqrtf(var + 1e-5f);
   float b = offset[c] - mean * a;
   if (bf16) {
@@ -422,10 +420,8 @@ struct Tail {
   void* const* acts;
   const void* const* scales;
   const void* const* offsets;
-  const void* const* mean_in;
-  const void* const* var_in;
-  void* const* mean_out;
-  void* const* var_out;
+  void* const* means;
+  void* const* vars;
   const float* bias;
   float* scratch;
   long long scratch_floats;
@@ -514,8 +510,7 @@ cudaError_t run(const Tail& t, cudaStream_t stream) {
     bn_finalize_kernel<<<cout / 4, kThreads, 0, stream>>>(
         g.psum, g.psq, g.rows, cout / 4, static_cast<float>(count), unbias,
         static_cast<const float*>(t.scales[i]), static_cast<const float*>(t.offsets[i]),
-        static_cast<const float*>(t.mean_in[i]), static_cast<const float*>(t.var_in[i]),
-        static_cast<float*>(t.mean_out[i]), static_cast<float*>(t.var_out[i]), a4, b4,
+        static_cast<float*>(t.means[i]), static_cast<float*>(t.vars[i]), a4, b4,
         sizeof(T) == 2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -528,8 +523,8 @@ cudaError_t run(const Tail& t, cudaStream_t stream) {
 }  // namespace
 
 // ws[L]: packed weights; acts[L + 1]: h0, each layer's output (the last the
-// packed image); per BN layer i < L - 1: scale, offset, running mean/var in
-// and out (out may alias in); bias (1,) f32; scratch of scratch_floats f32;
+// packed image); per BN layer i < L - 1: scale, offset, and the running
+// mean/var, updated in place; bias (1,) f32; scratch of scratch_floats f32;
 // chans[L + 1]: h0's channels, then each layer's output channels.
 // The f32 scratch siggan_train_tail needs for this shape, or -1 for a shape
 // it does not take.
@@ -540,13 +535,12 @@ extern "C" int siggan_train_tail_scratch(int L, const int* chans, int N, int H, 
 
 extern "C" int siggan_train_tail(int L, const void* const* ws, void* const* acts,
                                  const void* const* scales, const void* const* offsets,
-                                 const void* const* mean_in, const void* const* var_in,
-                                 void* const* mean_out, void* const* var_out,
+                                 void* const* means, void* const* vars,
                                  const void* bias, void* scratch, long long scratch_floats,
                                  const int* chans, int N, int H, int W, int bf16,
                                  void* stream) {
   if (!valid_shape(L, chans, N, H, W)) return cudaErrorInvalidValue;
-  const Tail t{L, ws, acts, scales, offsets, mean_in, var_in, mean_out, var_out,
+  const Tail t{L, ws, acts, scales, offsets, means, vars,
                static_cast<const float*>(bias), static_cast<float*>(scratch),
                scratch_floats, chans, N, H, W};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

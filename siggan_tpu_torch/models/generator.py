@@ -24,10 +24,11 @@ every packed tail kernel comes from one launch of kernel B1
 (``ops/kernels/pack_tail.py``), whose backward is B1'.
 
 ``fused_tail=True`` (with ``train`` and ``packed_output``, under
-``torch.no_grad()``) is the discriminator step's route: the fc, its BN and
-the wide blocks run as above, then the whole packed tail -- its convs, its
-BN statistics and running-stat updates, the final conv and tanh -- runs in
-kernel B2 (``ops/kernels/train_tail.py``), which has no backward.
+``torch.no_grad()``, for a configuration ``fused_tail_supported`` admits)
+is the discriminator step's route: the fc, its BN and the wide blocks run
+as above, then the whole packed tail -- its convs, its BN statistics and
+running-stat updates, the final conv and tanh -- runs in kernel B2
+(``ops/kernels/train_tail.py``), which has no backward.
 """
 
 from __future__ import annotations
@@ -70,6 +71,21 @@ def tail_start(cfg: ModelConfig) -> Optional[int]:
 
 def _cond_bn(cfg: ModelConfig) -> bool:
     return cfg.num_classes > 0 and cfg.g_conditioning in ("full", "bn_only")
+
+
+def fused_tail_supported(cfg: ModelConfig) -> bool:
+    """Whether the packed tail of this model can run in kernel B2: one image
+    channel, the one-launch tail pack, a ReLU generator without
+    class-conditional BN, a tail block, and every tail layer's input
+    channels a multiple of the kernel's reduction chunk. A gate on the
+    configuration, not on a launch."""
+    start = tail_start(cfg)
+    if (cfg.image_channels != 1 or not cfg.g_pack_pallas or cfg.g_activation != "relu"
+            or _cond_bn(cfg) or start is None):
+        return False
+    _, blocks = channel_schedule(cfg)
+    cins = [blocks[start][0]] + [4 * ci for ci, _ in blocks[start + 1:]] + [4 * blocks[-1][1]]
+    return all(c % train_tail.CHUNK == 0 for c in cins)
 
 
 def _fc_in(cfg: ModelConfig) -> int:
@@ -159,18 +175,13 @@ class Generator(nn.Module):
         """Where the packed tail starts (``tail_start`` of the config)."""
         return tail_start(self.cfg)
 
-    def _fused_tail(self, h, tail, entry, y_bn, odt) -> torch.Tensor:
+    def _fused_tail(self, h, tail, entry, odt) -> torch.Tensor:
         """The packed tail from the last wide block's output ``h`` in kernel
         B2, its BN running statistics updated in place."""
-        if y_bn is not None or self.cfg.g_activation != "relu":
-            raise NotImplementedError("the fused tail (kernel B2) takes ReLU tails "
-                                      "without class-conditional BN")
         bns = [blk.bn for blk in self.blocks[entry:]]
-        img, _ = train_tail.tail_forward_train(
+        return train_tail.tail_forward_train(
             h, tail, [(bn.scale, bn.offset) for bn in bns],
-            [{"mean": bn.mean, "var": bn.var} for bn in bns],
-            self.final.bias, odt, update_states=True)
-        return img
+            [{"mean": bn.mean, "var": bn.var} for bn in bns], self.final.bias, odt)
 
     def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
                 compute_dtype=None, *, train: bool = False,
@@ -180,6 +191,9 @@ class Generator(nn.Module):
             raise ValueError("fused_tail is the train-mode packed_output route")
         if fused_tail and torch.is_grad_enabled():
             raise RuntimeError("fused_tail has no gradient: run it under torch.no_grad()")
+        if fused_tail and not fused_tail_supported(cfg):
+            raise NotImplementedError("the fused tail (kernel B2) takes 1-channel ReLU "
+                                      "tails without class-conditional BN")
         c0 = self.fc.weight.shape[0] // 16
         y_bn = None
         if cfg.num_classes > 0:
@@ -210,7 +224,7 @@ class Generator(nn.Module):
         for i, blk in enumerate(self.blocks):
             packed = entry is not None and i >= entry
             if fused_tail and packed:
-                return self._fused_tail(h, tail, entry, y_bn, odt)
+                return self._fused_tail(h, tail, entry, odt)
             if packed and i == entry:
                 h = conv2d_oihw(h, tail[0], stride=1, padding=1,
                                 compute_dtype=compute_dtype)

@@ -133,13 +133,6 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype, device, shape=None) 
                          f"expected {tuple(shape)}")
 
 
-def require_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
-    """``require`` of an f32 tensor on any CUDA device."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    require(name, t, torch.float32, t.device, shape)
-
-
 class LaunchCounter:
     """Counts one kernel wrapper's launches on the card."""
 

@@ -123,9 +123,9 @@ def generator_forward(packed: Dict, z: torch.Tensor) -> torch.Tensor:
         return generator_forward_reference(packed, z)
     n, zdim = z.shape
     c0 = packed["bfc16"].shape[-1]
-    build.require_cuda_f32("z", z)
-    build.require_cuda_f32("wfc16", packed["wfc16"], (16, zdim, c0))
-    build.require_cuda_f32("bfc16", packed["bfc16"], (16, c0))
+    build.require("z", z, torch.float32, z.device)
+    build.require("wfc16", packed["wfc16"], torch.float32, z.device, (16, zdim, c0))
+    build.require("bfc16", packed["bfc16"], torch.float32, z.device, (16, c0))
     lib = build.load("generator_fwd", _SIGNATURES)
     h = torch.empty((n, 4, 4, c0), device=z.device, dtype=torch.float32)
     with torch.cuda.device(z.device):
@@ -135,8 +135,8 @@ def generator_forward(packed: Dict, z: torch.Tensor) -> torch.Tensor:
         for blk in packed["blocks"]:
             h = upsample_block_taps(h, blk["taps"], blk["scale"], blk["offset"])
         _, s, _, c = h.shape
-        build.require_cuda_f32("wfin", packed["wfin"], (3, 3, c, 1))
-        build.require_cuda_f32("bfin", packed["bfin"], (1,))
+        build.require("wfin", packed["wfin"], torch.float32, z.device, (3, 3, c, 1))
+        build.require("bfin", packed["bfin"], torch.float32, z.device, (1,))
         if c % 4:
             raise ValueError(f"the final conv kernel needs C % 4 == 0, got {c}")
         img = torch.empty((n, s, s, 1), device=z.device, dtype=torch.float32)

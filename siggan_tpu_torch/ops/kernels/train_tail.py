@@ -26,11 +26,14 @@ The weights are the packed tail weights of kernel B1
 (``ops/kernels/pack_tail.py``) in the layouts it writes: entry OIHW (4Co,
 Ci, 3, 3), interior IOHW (4Ci, 4Co, 4, 4), final (4C, 3, 3, 4).
 
-``tail_forward_train`` on CUDA tensors makes one host call of
-``csrc/train_tail.cu`` (every layer's kernel and the statistics in between,
-nothing leaves the card), counted once in ``LAUNCHES``; on CPU tensors it
-takes ``tail_forward_train_reference``, the plain version. There is no
-fallback from a CUDA tensor to the plain version.
+``tail_forward_train`` writes the new running statistics into the BN
+state tensors it is given, as the discriminator step needs. On CUDA tensors
+it makes one host call of ``csrc/train_tail.cu`` (every layer's kernel and
+the statistics in between, nothing leaves the card), counted once in
+``LAUNCHES``; on CPU tensors it takes ``tail_forward_train_reference``, the
+plain version. There is no fallback from a CUDA tensor to the plain
+version. Which configurations take this route is decided by
+``models/generator.py::fused_tail_supported``.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from siggan_tpu_torch.ops.packed import conv3_mc_as_matmul_ihwo
 
 LAUNCHES = build.LaunchCounter()
 # Every layer's input channel count must be a multiple of the kernels'
-# reduction chunk, so that a chunk never straddles two taps.
+# reduction chunk (kBK in the .cu), so that a chunk never straddles two taps.
 CHUNK = 16
 _SHAPE = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),   # L, channels (L + 1)
           ctypes.c_int, ctypes.c_int, ctypes.c_int]      # N, H, W of h0
@@ -57,10 +60,8 @@ _SIGNATURES = {"siggan_train_tail_scratch": _SHAPE, "siggan_train_tail": [
     ctypes.POINTER(ctypes.c_void_p),                # activations, L + 1 (h0 .. image)
     ctypes.POINTER(ctypes.c_void_p),                # BN scale, L - 1
     ctypes.POINTER(ctypes.c_void_p),                # BN offset, L - 1
-    ctypes.POINTER(ctypes.c_void_p),                # running mean in, L - 1
-    ctypes.POINTER(ctypes.c_void_p),                # running var in, L - 1
-    ctypes.POINTER(ctypes.c_void_p),                # running mean out, L - 1
-    ctypes.POINTER(ctypes.c_void_p),                # running var out, L - 1
+    ctypes.POINTER(ctypes.c_void_p),                # running mean, L - 1, in place
+    ctypes.POINTER(ctypes.c_void_p),                # running var, L - 1, in place
     ctypes.c_void_p,                                # final bias (1,) f32
     ctypes.c_void_p,                                # scratch f32
     ctypes.c_longlong,                              # scratch size (floats)
@@ -68,27 +69,6 @@ _SIGNATURES = {"siggan_train_tail_scratch": _SHAPE, "siggan_train_tail": [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,       # N, H, W of h0
     ctypes.c_int,                                   # bf16
     ctypes.c_void_p]}                               # stream
-
-
-def kernel_supported(cfg) -> bool:
-    """Whether a ``TrainConfig``'s discriminator steps run the generator
-    tail through B2: packed I/O of 1-channel images with the B1 tail pack,
-    a ReLU generator without class-conditional BN, a tail block, and every
-    tail layer's input channels a multiple of ``CHUNK``. A gate on the
-    configuration, not on a launch."""
-    from siggan_tpu_torch.models.generator import channel_schedule, tail_start
-    m = cfg.model
-    if not (cfg.packed_io and m.image_channels == 1 and m.image_size % 2 == 0
-            and m.g_pack_pallas and m.g_activation == "relu"):
-        return False
-    if m.num_classes > 0 and m.g_conditioning in ("full", "bn_only"):
-        return False
-    start = tail_start(m)
-    if start is None:
-        return False
-    _, blocks = channel_schedule(m)
-    cins = [blocks[start][0]] + [4 * ci for ci, _ in blocks[start + 1:]] + [4 * blocks[-1][1]]
-    return all(c % CHUNK == 0 for c in cins)
 
 
 def stats_to_affine(ssum: torch.Tensor, ssq: torch.Tensor, scale: torch.Tensor,
@@ -178,11 +158,9 @@ def tail_forward_train_launch(
         h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
         bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
-        compute_dtype: torch.dtype, out_states: Sequence[Dict[str, torch.Tensor]]
-        ) -> torch.Tensor:
+        compute_dtype: torch.dtype) -> torch.Tensor:
     """B2 on the card: one host call; writes the new running statistics into
-    ``out_states`` (which may be ``bn_states`` itself) and returns the
-    packed image."""
+    ``bn_states`` and returns the packed image."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the train-tail kernel runs bf16 or f32, not {compute_dtype}")
     dev = h0.device
@@ -191,7 +169,7 @@ def tail_forward_train_launch(
     chans = _check_layers(h0, packed_ws)
     n_layers = len(packed_ws)
     n_bn = n_layers - 1
-    if len(bn_params) != n_bn or len(bn_states) != n_bn or len(out_states) != n_bn:
+    if len(bn_params) != n_bn or len(bn_states) != n_bn:
         raise ValueError(f"{n_layers} tail weights need {n_bn} BatchNorms")
     n, h, w, _ = h0.shape
     build.require("h0", h0, compute_dtype, dev)
@@ -200,9 +178,7 @@ def tail_forward_train_launch(
     for i in range(n_bn):
         c = chans[i + 1] // 4
         for name, t in (("scale", bn_params[i][0]), ("offset", bn_params[i][1]),
-                        ("mean", bn_states[i]["mean"]), ("var", bn_states[i]["var"]),
-                        ("new mean", out_states[i]["mean"]),
-                        ("new var", out_states[i]["var"])):
+                        ("mean", bn_states[i]["mean"]), ("var", bn_states[i]["var"])):
             build.require(f"BN {i} {name}", t, torch.float32, dev, (c,))
     build.require("final bias", final_bias, torch.float32, dev, (1,))
 
@@ -228,7 +204,6 @@ def tail_forward_train_launch(
             n_layers, arr(packed_ws), arr(acts),
             arr([p[0] for p in bn_params]), arr([p[1] for p in bn_params]),
             arr([s["mean"] for s in bn_states]), arr([s["var"] for s in bn_states]),
-            arr([s["mean"] for s in out_states]), arr([s["var"] for s in out_states]),
             final_bias.data_ptr(), scratch.data_ptr(), scratch.numel(), c_chans, n, h, w,
             int(compute_dtype == torch.bfloat16), build.stream_ptr(h0))
     build.check(lib, code, "train-tail kernel")
@@ -240,28 +215,21 @@ def tail_forward_train(
         h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
         bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
-        compute_dtype: torch.dtype, *, update_states: bool = False
-        ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """(packed image, new running states). ``update_states`` writes the new
-    statistics into ``bn_states``' tensors (and returns those). CUDA
-    tensors make one host call of kernel B2; CPU tensors take the plain
-    version. No gradient: call it under ``torch.no_grad()``."""
+        compute_dtype: torch.dtype) -> torch.Tensor:
+    """The packed image; the new running statistics are written into
+    ``bn_states``' tensors. CUDA tensors make one host call of kernel B2;
+    CPU tensors take the plain version. No gradient: call it under
+    ``torch.no_grad()``."""
     if torch.is_grad_enabled():
         raise RuntimeError("the train-tail forward has no gradient; call it under "
                            "torch.no_grad()")
     if h0.device.type == "cpu":
         img, new = tail_forward_train_reference(h0, packed_ws, bn_params, bn_states,
                                                 final_bias, compute_dtype)
-        if update_states:
-            for dst, src in zip(bn_states, new):
-                dst["mean"].copy_(src["mean"])
-                dst["var"].copy_(src["var"])
-            new = list(bn_states)
-        return img, new
-    outs = (list(bn_states) if update_states else
-            [{"mean": torch.empty_like(s["mean"]), "var": torch.empty_like(s["var"])}
-             for s in bn_states])
-    img = tail_forward_train_launch(h0.to(compute_dtype).contiguous(),
-                                    [w.contiguous() for w in packed_ws], bn_params,
-                                    bn_states, final_bias, compute_dtype, outs)
-    return img, outs
+        for dst, src in zip(bn_states, new):
+            dst["mean"].copy_(src["mean"])
+            dst["var"].copy_(src["var"])
+        return img
+    return tail_forward_train_launch(h0.to(compute_dtype).contiguous(),
+                                     [w.contiguous() for w in packed_ws], bn_params,
+                                     bn_states, final_bias, compute_dtype)

@@ -102,13 +102,13 @@ def _launch(x: torch.Tensor, taps: torch.Tensor, scale: torch.Tensor,
     cout = taps.shape[-1]
     if cout % 4:
         raise ValueError(f"the kernel needs Cout % 4 == 0, got Cout={cout}")
-    build.require_cuda_f32("x", x)
-    build.require_cuda_f32("taps", taps, (4, 2, 2, cin, cout))
-    build.require_cuda_f32("scale", scale, (cout,))
-    build.require_cuda_f32("offset", offset, (cout,))
-    for t in (taps, scale, offset):
-        if t.device != x.device:
-            raise ValueError(f"operands on {t.device} and {x.device}")
+    f32, dev = torch.float32, x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the upsample kernel needs a CUDA tensor, got {dev}")
+    build.require("x", x, f32, dev)
+    build.require("taps", taps, f32, dev, (4, 2, 2, cin, cout))
+    build.require("scale", scale, f32, dev, (cout,))
+    build.require("offset", offset, f32, dev, (cout,))
     lib = build.load("upsample", _SIGNATURES)
     out = torch.empty((n, 2 * h, 2 * w, cout), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):

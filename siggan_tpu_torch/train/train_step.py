@@ -17,7 +17,7 @@ Port of the JAX package's ``train/train_step.py`` default branch
    ``space_to_depth(image)`` through the packed tail (kernels B1/B1') and D
    folds the unpacking into its first conv; in the D step, where G runs
    without gradient, the whole tail runs in kernel B2 when
-   ``train_tail.kernel_supported(cfg)`` (else the module path);
+   ``generator.fused_tail_supported(cfg.model)`` (else the module path);
  - with spectral norm, D's power-iteration vectors advance in the D step's
    D forward and again in the G step's, in that order.
 
@@ -48,7 +48,7 @@ from siggan_tpu_torch.core.state import Adam, TrainState, make_optimizers
 from siggan_tpu_torch.core.state import check_supported as check_optim
 from siggan_tpu_torch.data.augment import augment_apply, augment_params
 from siggan_tpu_torch.models.discriminator import check_supported as check_model
-from siggan_tpu_torch.ops.kernels.train_tail import kernel_supported as fused_tail
+from siggan_tpu_torch.models.generator import fused_tail_supported
 from siggan_tpu_torch.ops.packed import space_to_depth
 
 Metrics = Dict[str, torch.Tensor]
@@ -109,7 +109,7 @@ def d_step(state: TrainState, real: torch.Tensor, z: torch.Tensor, cfg: TrainCon
     b = real.shape[0]
     with torch.no_grad():
         fake = state.g(z, None, cdt, train=True, packed_output=packed,
-                       fused_tail=fused_tail(cfg))
+                       fused_tail=packed and fused_tail_supported(cfg.model))
     if packed and not real_packed:
         real = space_to_depth(real)
     both = torch.cat([real.to(fake.dtype), fake], dim=0)

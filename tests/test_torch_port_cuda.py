@@ -8,10 +8,14 @@ so it also runs where JAX is absent:
 
 Tolerance: rtol 1e-4 / atol 1e-5 in f32; the kernels and the plain versions
 sum the same products in a different order. The train-tail kernel (B2) is
-held at rtol 1e-4 / atol 1e-4 in f32 (image) and, in bf16, at atol 2e-2
-(image) and rtol 1e-2 / atol 1e-3 (running statistics): its prologue rounds
-affine + ReLU to bf16 once where the plain version rounds after each op.
+held, against its plain version and against the module path it replaces
+in the discriminator step, at rtol 1e-4 / atol 1e-4 in f32 (image) and
+rtol 1e-4 / atol 1e-5 (batch statistics), and in bf16 at atol 2e-2 (image)
+and rtol 1e-2 / atol 1e-3 (batch statistics): its prologue rounds
+affine + ReLU to bf16 once where the other two round after each op.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -153,14 +157,37 @@ def train_tail_case(dev, size, dtype, batch=64, seed=0):
             [{"mean": b.bn.mean, "var": b.bn.var} for b in tail], g.final.bias.detach())
 
 
+def clone_states(states):
+    return [{k: v.clone() for k, v in s.items()} for s in states]
+
+
+def batch_stats(new, old):
+    """The batch statistics a running update took in: (new - 0.9 old) / 0.1.
+    Compared instead of the running values, of which only a tenth is the
+    batch's."""
+    return [{k: (n[k] - 0.9 * o[k]) / 0.1 for k in ("mean", "var")}
+            for n, o in zip(new, old)]
+
+
+def tail_tols(dtype):
+    """(image, batch statistics) tolerances of B2. bf16: the kernel's
+    prologue rounds affine + ReLU to bf16 once where the plain version (and
+    the module path) round after each op, and a flipped bf16 ulp propagates
+    through the tail."""
+    if dtype == torch.float32:
+        return dict(rtol=1e-4, atol=1e-4), dict(rtol=1e-4, atol=1e-5)
+    return dict(rtol=0, atol=2e-2), dict(rtol=1e-2, atol=1e-3)
+
+
 @pytest.mark.parametrize("size", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_tail_kernel(dev, size, dtype):
     h0, ws, bn, states, bias = train_tail_case(dev, size, dtype)
     before = tt.LAUNCHES.count
+    new, new2 = clone_states(states), clone_states(states)
     with torch.no_grad():
-        img, new = tt.tail_forward_train(h0, ws, bn, states, bias, dtype)
-        again, new2 = tt.tail_forward_train(h0, ws, bn, states, bias, dtype)
+        img = tt.tail_forward_train(h0, ws, bn, new, bias, dtype)
+        again = tt.tail_forward_train(h0, ws, bn, new2, bias, dtype)
         ref, ref_new = tt.tail_forward_train_reference(h0, ws, bn, states, bias, dtype)
     assert tt.LAUNCHES.count == before + 2
     assert img.shape == (64, size // 2, size // 2, 4) and img.dtype == dtype
@@ -168,22 +195,50 @@ def test_train_tail_kernel(dev, size, dtype):
     assert torch.equal(img, again)
     for a, b in zip(new, new2):
         assert torch.equal(a["mean"], b["mean"]) and torch.equal(a["var"], b["var"])
-    img_tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
-    st_tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-3)
+    img_tol, st_tol = tail_tols(dtype)
     torch.testing.assert_close(img.float(), ref.float(), **img_tol)
-    for a, b in zip(new, ref_new):
+    for a, b in zip(batch_stats(new, states), batch_stats(ref_new, states)):
         torch.testing.assert_close(a["mean"], b["mean"], **st_tol)
         torch.testing.assert_close(a["var"], b["var"], **st_tol)
 
 
 def test_train_tail_updates_states_in_place(dev):
     h0, ws, bn, states, bias = train_tail_case(dev, 64, torch.float32, batch=8)
+    old = clone_states(states)
+    ptrs = [s["mean"].data_ptr() for s in states]
     with torch.no_grad():
-        _, new = tt.tail_forward_train(h0, ws, bn, states, bias, torch.float32)
-        _, inplace = tt.tail_forward_train(h0, ws, bn, states, bias, torch.float32,
-                                           update_states=True)
-    for a, b in zip(new, inplace):
-        assert b["mean"].data_ptr() in [s["mean"].data_ptr() for s in states]
-        assert torch.equal(a["mean"], b["mean"]) and torch.equal(a["var"], b["var"])
+        tt.tail_forward_train(h0, ws, bn, states, bias, torch.float32)
+        _, ref_new = tt.tail_forward_train_reference(h0, ws, bn, old, bias, torch.float32)
+    assert [s["mean"].data_ptr() for s in states] == ptrs
+    for a, b in zip(states, ref_new):
+        torch.testing.assert_close(a["mean"], b["mean"], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a["var"], b["var"], rtol=1e-4, atol=1e-5)
     with torch.no_grad(), pytest.raises(ValueError, match="tail weight"):
         tt.tail_forward_train(h0, ws[1:], bn, states, bias, torch.float32)
+
+
+@pytest.mark.parametrize("size", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_tail_route_matches_module_route(dev, size, dtype):
+    """The discriminator step's generator forward at full width: the tail in
+    B2 (``fused_tail=True``) against the module path it replaces, on two
+    copies of one state. B2's bars hold between the two routes: the packed
+    fakes, and the batch statistics every tail BN took in."""
+    fused = init_fn(rng.generator(0, rng.STREAM_INIT_G), ModelConfig(image_size=size), dev)
+    module = copy.deepcopy(fused)
+    entry = fused.tail_entry()
+    old = [{"mean": b.bn.mean.clone(), "var": b.bn.var.clone()} for b in fused.blocks[entry:]]
+    z = torch.randn(64, fused.cfg.latent_dim, generator=torch.Generator().manual_seed(1))
+    z = z.to(dev)
+    before = tt.LAUNCHES.count
+    with torch.no_grad():
+        a = fused(z, None, dtype, train=True, packed_output=True, fused_tail=True)
+        b = module(z, None, dtype, train=True, packed_output=True)
+    assert tt.LAUNCHES.count == before + 1
+    assert a.shape == b.shape == (64, size // 2, size // 2, 4) and a.dtype == b.dtype == dtype
+    img_tol, st_tol = tail_tols(dtype)
+    torch.testing.assert_close(a.float(), b.float(), **img_tol)
+    new = lambda g: [{"mean": x.bn.mean, "var": x.bn.var} for x in g.blocks[entry:]]  # noqa: E731
+    for x, y in zip(batch_stats(new(fused), old), batch_stats(new(module), old)):
+        torch.testing.assert_close(x["mean"], y["mean"], **st_tol)
+        torch.testing.assert_close(x["var"], y["var"], **st_tol)

@@ -29,8 +29,7 @@ from siggan_tpu_torch.core.state import TrainState, create_train_state
 from siggan_tpu_torch.data.synthetic import generate_dataset
 from siggan_tpu_torch.infer.generate import GeneratorSession
 from siggan_tpu_torch.models.discriminator import Discriminator
-from siggan_tpu_torch.models.generator import tail_start
-from siggan_tpu_torch.ops.kernels import train_tail as tt
+from siggan_tpu_torch.models.generator import fused_tail_supported, tail_start
 from siggan_tpu_torch.ops.regularizers import sn_init, spectral_norm
 from siggan_tpu_torch.train.train_step import make_train_step
 from siggan_tpu_torch.train.trainer import GANTrainer, check_trainer_supported
@@ -139,7 +138,7 @@ def test_train_step_128_sn_matches_jax_step():
     jcfg = JTrainConfig(model=JModelConfig(**V11), batch_size=2, compute_dtype="float32",
                         seed=0, rng_impl="threefry2x32")
     cfg = port_cfg(jcfg)
-    assert tt.kernel_supported(cfg)
+    assert fused_tail_supported(cfg.model)
     js = j_create_train_state(jcfg)
     st = port_state(js, cfg)
     u0 = [t.clone() for t in st.d.buffers()]
@@ -236,7 +235,7 @@ def test_cli_builds_the_v11_configuration():
     assert cfg.model.image_size == 128 and cfg.model.use_spectral_norm
     assert cfg.model.base_features == 256 and cfg.packed_io
     check_trainer_supported(cfg, np.zeros((8, 128, 128, 1), np.float32))
-    assert tt.kernel_supported(cfg) and tail_start(cfg.model) == 2
+    assert fused_tail_supported(cfg.model) and tail_start(cfg.model) == 2
     with pytest.raises(NotImplementedError, match="conditional"):
         check_trainer_supported(cfg.replace(model=dataclasses.replace(cfg.model, num_classes=3)),
                                 np.zeros((8, 128, 128, 1), np.float32))

@@ -19,7 +19,7 @@ from siggan_tpu.models import generator as jgen
 from siggan_tpu.ops.pallas.train_tail import tail_forward_train as j_tail_forward_train
 from siggan_tpu_torch import bridge
 from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
-from siggan_tpu_torch.models.generator import tail_start
+from siggan_tpu_torch.models.generator import Generator, fused_tail_supported, tail_start
 from siggan_tpu_torch.ops.kernels import pack_tail as pt
 from siggan_tpu_torch.ops.kernels import train_tail as tt
 
@@ -61,19 +61,27 @@ def test_plain_version_matches_pallas_tail(size, base, batch):
 
     tail = g.blocks[start:]
     ws = pt.pack_tail_reference([b.weight for b in tail] + [g.final.weight], torch.float32)
+    bn_params = [(b.bn.scale, b.bn.offset) for b in tail]
+    old = [{"mean": b.bn.mean.clone(), "var": b.bn.var.clone()} for b in tail]
     bn_states = [{"mean": b.bn.mean.clone(), "var": b.bn.var.clone()} for b in tail]
+    ptrs = [s["mean"].data_ptr() for s in bn_states]
     with torch.no_grad():
-        img, new = tt.tail_forward_train(
-            torch.from_numpy(h0), ws, [(b.bn.scale, b.bn.offset) for b in tail],
-            bn_states, g.final.bias, torch.float32)
+        img = tt.tail_forward_train(torch.from_numpy(h0), ws, bn_params, bn_states,
+                                    g.final.bias, torch.float32)
+        ref_img, ref_new = tt.tail_forward_train_reference(
+            torch.from_numpy(h0), ws, bn_params, old, g.final.bias, torch.float32)
     assert img.shape == (batch, size // 2, size // 2, 4) and img.dtype == torch.float32
     np.testing.assert_allclose(img.numpy(), np.asarray(img_ref), **IMG_TOL)
-    assert len(new) == len(states_ref)
-    for got, want in zip(new, states_ref):
+    assert len(bn_states) == len(states_ref)
+    for got, want in zip(bn_states, states_ref):
         for k in ("mean", "var"):
             np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **STATE_TOL)
-    # Without update_states the inputs stay as they were.
-    assert torch.equal(bn_states[0]["mean"], tail[0].bn.mean)
+    # The wrapper writes the new statistics into the tensors it was given,
+    # and they are the plain version's.
+    assert [s["mean"].data_ptr() for s in bn_states] == ptrs
+    assert torch.equal(img, ref_img)
+    for got, want in zip(bn_states, ref_new):
+        assert torch.equal(got["mean"], want["mean"]) and torch.equal(got["var"], want["var"])
 
 
 @pytest.mark.parametrize("size,base", [(64, 32), (128, 32), (64, 192)])
@@ -109,19 +117,22 @@ def test_d_step_route_refuses_gradients_and_other_modes():
 
 
 def test_gate_is_a_gate_on_the_configuration():
-    assert tt.kernel_supported(TrainConfig())
-    assert tt.kernel_supported(TrainConfig(model=ModelConfig(image_size=128,
-                                                             use_spectral_norm=True)))
+    assert fused_tail_supported(TrainConfig().model)
+    assert fused_tail_supported(ModelConfig(image_size=128, use_spectral_norm=True))
     assert tail_start(ModelConfig()) == 1
     assert tail_start(ModelConfig(image_size=128)) == 2
-    for cfg in (TrainConfig(packed_io=False),
-                TrainConfig(model=ModelConfig(g_activation="leaky_relu")),
-                TrainConfig(model=ModelConfig(num_classes=4)),
-                TrainConfig(model=ModelConfig(g_pack_pallas=False)),
-                TrainConfig(model=ModelConfig(base_features=8))):
-        assert not tt.kernel_supported(cfg), cfg
-    assert tt.kernel_supported(TrainConfig(model=ModelConfig(num_classes=4,
-                                                             g_conditioning="concat")))
+    for cfg in (ModelConfig(image_channels=3),
+                ModelConfig(g_activation="leaky_relu"),
+                ModelConfig(num_classes=4),
+                ModelConfig(g_pack_pallas=False),
+                ModelConfig(base_features=8)):
+        assert not fused_tail_supported(cfg), cfg
+    assert fused_tail_supported(ModelConfig(num_classes=4, g_conditioning="concat"))
+    # The route refuses a configuration the gate turns away.
+    g = Generator(ModelConfig(base_features=8, latent_dim=16))
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="fused tail"):
+        g(torch.zeros(2, 16), None, torch.float32, train=True, packed_output=True,
+          fused_tail=True)
 
 
 def _block_live(kind, r, c, p, q):
