@@ -7,7 +7,9 @@ CUDA card.
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel from ``siggan_tpu_torch/csrc`` (one nvcc per source,
-     started together) and print the build time and ptxas summaries;
+     started together) and print the build time and ptxas summaries, and
+     the tensor-core instructions (HMMA/HGMMA) in B2's SASS per kernel,
+     failing if its bf16 conv tile has none;
   3. hold each kernel against its plain PyTorch version at the full-width
      64 px generator's shapes (batch 64, and batch 10 for the generator),
      and time kernel, plain version and a library yardstick with CUDA events;
@@ -18,12 +20,16 @@ Phases (any failure raises and the script exits non-zero):
   5. hold the packed-tail pack kernels B1 and B1' against their plain
      versions at the full-width tail shapes, in bf16 and f32 (forward
      bit-equal, backward within rtol 1e-5 / atol 1e-6), and time kernel,
-     plain version and a library yardstick (torch.take / index_add_);
+     plain version and a library yardstick (torch.take + cast /
+     index_add_), each host call and device time, and the gather from the
+     four weights to four tensors (cat, take, cast, views) beside it;
   6. hold the train-mode packed-tail kernel B2 against its plain version at
      the full-width tails of the 64 px and 128 px generators (batch 64), in
      f32 and bf16, check that two launches give the same bits, and time the
      host call, its device time, the plain version and a library yardstick
-     (the port's own no-grad module-path tail, cuDNN); then hold the D
+     (the port's own no-grad module-path tail, cuDNN), print B2's device
+     time per kernel, and the bound from tail_cost (pre-BN intermediates
+     written once and read once); then hold the D
      step's generator forward with its tail in B2 against the module path
      it replaces, on two copies of one full-width generator, in f32 and
      bf16 (the packed fakes and every tail BN's batch statistics);
@@ -53,6 +59,7 @@ from __future__ import annotations
 import base64
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -78,17 +85,27 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call between CUDA events, with the garbage collector
+    paused as ``timeit`` does, so that a collection does not land on one
+    call's time."""
+    import gc
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    finally:
+        if collecting:
+            gc.enable()
     return start.elapsed_time(end) / iters
 
 
@@ -109,6 +126,24 @@ def device_time(fn, calls: int = 10):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     per = {e.key: e.self_device_time_total / 1e3 / calls for e in events}
     return per, (sum(per.values()) if per else None), sum(e.count for e in events) / calls
+
+
+def tensor_core_sass(name: str):
+    """{kernel: count of tensor-core instructions (HMMA, HGMMA)} in the
+    SASS of the library csrc/<name>.cu built into (cuobjdump -sass)."""
+    import shutil
+    from siggan_tpu_torch.ops.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 def fmt_ms(ms) -> str:
@@ -412,13 +447,30 @@ def check_pack_tail(dev):
         isz = ct_flat.element_size()
         _, f_dev, _ = device_time(lambda: pt.pack_tail_launch(ws, dt))
         _, b_dev, _ = device_time(lambda: pt.pack_tail_backward_launch(ws, cts))
-        f_ms = time_ms(lambda: pt.pack_tail_launch(ws, dt))
+        # Host calls of a few tens of us: 200 calls each, so that the host's
+        # load at one moment does not decide the mean.
+        many = dict(iters=200, warmup=20)
+        f_ms = time_ms(lambda: pt.pack_tail_launch(ws, dt), **many)
         fp_ms = time_ms(lambda: pt.pack_tail_reference(ws, dt))
-        fl_ms = time_ms(lambda: torch.take(flat, idx).to(dt))
-        b_ms = time_ms(lambda: pt.pack_tail_backward_launch(ws, cts))
+        take = lambda: torch.take(flat, idx).to(dt)  # noqa: E731
+        scatter = lambda: torch.zeros(n_in + 1, device=dev).index_add_(  # noqa: E731
+            0, idx, ct_flat.float())
+        fl_ms = time_ms(take, **many)
+        _, fl_dev, _ = device_time(take)
+        # The same gather from the four weights to the four packed tensors:
+        # the concatenation and the output views that B1's call also makes.
+        zero, shapes = torch.zeros(1, device=dev), [a.shape for a in got]
+        take_io = lambda: [  # noqa: E731
+            t.view(sh) for t, sh in zip(torch.take(torch.cat(
+                [*(w.reshape(-1) for w in ws), zero]), idx).to(dt).split_with_sizes(
+                    [math.prod(sh) for sh in shapes]), shapes)]
+        if not all(torch.equal(a, b) for a, b in zip(take_io(), got)):
+            raise AssertionError(f"pack_tail {name}: differs from the four-tensor gather")
+        fio_ms = time_ms(take_io, **many)
+        b_ms = time_ms(lambda: pt.pack_tail_backward_launch(ws, cts), **many)
         bp_ms = time_ms(lambda: pt.pack_tail_backward_reference(ws, cts))
-        bl_ms = time_ms(lambda: torch.zeros(n_in + 1, device=dev).index_add_(
-            0, idx, ct_flat.float()))
+        bl_ms = time_ms(scatter, **many)
+        _, bl_dev, _ = device_time(scatter)
         # Bytes: each input read once, each output written once; no FLOPs in
         # B1, one add per non-zero placement in B1' (negligible).
         nbytes = 4.0 * n_in + isz * n_out
@@ -426,17 +478,19 @@ def check_pack_tail(dev):
         bound_b, by_b = bound(float(int((idx < n_in).sum())), nbytes)
         print(f"pack_tail {name}: {n_in} canonical -> {n_out} packed values; B1 bit-equal, "
               f"kernel {f_ms:.4f} ms (device {fmt_ms(f_dev)}), plain {fp_ms:.4f} ms, "
-              f"take+cast {fl_ms:.4f} ms, "
+              f"take+cast {fl_ms:.4f} ms (device {fmt_ms(fl_dev)}; from the four "
+              f"weights to four tensors {fio_ms:.4f} ms), "
               f"bound {bound_f * 1e3:.3f} us ({by_f}); B1' max_abs_diff {err:.3e}, "
               f"kernel {b_ms:.4f} ms (device {fmt_ms(b_dev)}), plain {bp_ms:.4f} ms, "
-              f"index_add_ {bl_ms:.4f} ms, "
+              f"index_add_ {bl_ms:.4f} ms (device {fmt_ms(bl_dev)}), "
               f"bound {bound_b * 1e3:.3f} us ({by_b})", flush=True)
         out[name] = {"fwd": {"max_abs_diff": 0.0, "kernel_ms": f_ms, "plain_ms": fp_ms,
                              "library_ms": fl_ms, "bound_ms": bound_f, "bound_by": by_f,
-                             "device_ms": f_dev},
+                             "device_ms": f_dev, "library_device_ms": fl_dev,
+                             "library_same_io_ms": fio_ms},
                      "bwd": {"max_abs_diff": err, "kernel_ms": b_ms, "plain_ms": bp_ms,
                              "library_ms": bl_ms, "bound_ms": bound_b, "bound_by": by_b,
-                             "device_ms": b_dev}}
+                             "device_ms": b_dev, "library_device_ms": bl_dev}}
     return out
 
 
@@ -569,20 +623,12 @@ def check_train_tail(dev):
                 _, l_dev, l_ops = device_time(
                     lambda: module_tail(h0, ws, bn, states, bias, dtype))
             lib_err = float((lib.float() - ref.float()).abs().max())
-            # Canonical work: every tail ConvT at 16 Ci Co H_in W_in MACs, the
-            # final conv at 9 C H W over the image; bytes: each input of the
-            # function read once (h0, packed weights, BN vectors) and each
-            # output written once (the packed image, the new statistics).
-            n, side = h0.shape[0], h0.shape[1]
-            macs = 0
-            for ci, co in canonical:
-                macs += 16 * ci * co * side * side
-                side *= 2
-            macs += 9 * canonical[-1][1] * side * side
-            flops = 2.0 * n * macs
-            isz = h0.element_size()
-            nbytes = (isz * (h0.numel() + sum(w.numel() for w in ws) + img.numel())
-                      + 4 * (4 * sum(b[0].numel() for b in bn) + 1))
+            # Canonical FLOPs; bytes: the function's inputs read once, its
+            # outputs written once, and each pre-BN intermediate written once
+            # and read once (train-mode BN needs the batch's statistics
+            # before the next layer reads it): tt.tail_cost.
+            n = h0.shape[0]
+            flops, nbytes = tt.tail_cost(n, h0.shape[1], canonical, h0.element_size())
             peak = F32_PEAK_FLOPS if f32 else BF16_PEAK_FLOPS
             t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
             b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -595,9 +641,10 @@ def check_train_tail(dev):
                   f"plain {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}; "
                   f"{flops / 1e9:.3f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
                   f"{nbytes / 1e6:.2f} MB), CUDA-core bound {core_ms:.4f} ms", flush=True)
-            for kname, ms in sorted(per.items(), key=lambda kv: -kv[1])[:5]:
-                print(f"  device {ms:.4f} ms  {kname[:100]}", flush=True)
-            row[name] = {"max_abs_diff": err, "batch_stats_max_abs_diff": st_err,
+            for kname, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+                print(f"  B2 {size} px {name} device {ms:.4f} ms  {kname[:100]}", flush=True)
+            row[name] = {"device_kernels": per, "max_abs_diff": err,
+                         "batch_stats_max_abs_diff": st_err,
                          "batch_stats_share_of_bar": st_use,
                          "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                          "library_ms": l_ms, "library_device_ms": l_dev,
@@ -881,6 +928,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    sass = tensor_core_sass("train_tail")
+    for fn, count in sorted(sass.items()):
+        print(f"  train_tail SASS: {count} tensor-core instructions in {fn}", flush=True)
+    tiles = {fn: c for fn, c in sass.items() if "convt_mma_kernel" in fn}
+    if not tiles or min(tiles.values()) == 0:
+        raise AssertionError(f"B2's bf16 conv tile has no tensor-core instructions: {tiles}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -937,10 +990,13 @@ def main() -> int:
     b2_line.update(tol=B2_TOL_NOTE, launches_by_path={k: v["train_tail"]
                                                       for k, v in paths.items()},
                    f32=b2[128]["float32"], px64=b2[64], vs_module_path=b2_route,
+                   tensor_core_sass=tiles,
                    library="the port's no-grad module-path tail (cuDNN convs, "
                            "PyTorch BN and elementwise ops), bf16; 128 px, batch 64; "
-                           "bound at the bf16 dense peak (cuda_core_bound_ms at the "
-                           "f32 non-tensor peak)")
+                           "bound: the larger of the FLOPs at the bf16 dense peak and "
+                           "the bytes (inputs, outputs, each pre-BN intermediate "
+                           "written and read once) at the HBM rate "
+                           "(cuda_core_bound_ms: the FLOPs at the f32 non-tensor peak)")
     print(json.dumps({"kernels": [b4_line, b3_line, b1_line, b1b_line, b2_line]}),
           flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -28,9 +28,14 @@
 // What bounds it on an H100. Pure data movement: at the default model (64
 // px, base 256) 180,512 f32 values in and 1,085,952 bf16 values out, 2.9 MB,
 // 0.86 us at 3.35 TB/s; both kernels are launch-bound at this size. The
-// design keeps every weight in one launch (one descriptor passed by value)
-// and walks the output in its own linear order, so writes coalesce; reads
-// are a permutation of a sub-megabyte array that stays in L2.
+// design keeps every weight in one launch (one descriptor passed by value).
+// B1 gives each weight its own run of blocks, so a block finds its weight
+// with one uniform lookup on blockIdx; each thread writes 8 consecutive
+// bf16 (or 4 f32) values, 16 bytes in one store, walking the output's
+// mixed-radix digits by increments from one 32-bit decomposition (no
+// 64-bit division); its reads are a permutation of a sub-megabyte array
+// that stays in L2. Every size is checked once on the host to fit in 32
+// bits.
 #include <cuda_bf16.h>
 #include <cstdint>
 
@@ -39,6 +44,7 @@
 namespace {
 
 constexpr int kMaxWeights = 8;
+constexpr int kPackThreads = 256;
 enum Kind { kEntry = 0, kInterior = 1, kFinal = 2 };
 
 struct TailDesc {
@@ -48,75 +54,130 @@ struct TailDesc {
   int co[kMaxWeights];
   const void* in[kMaxWeights];
   void* out[kMaxWeights];
-  int64_t start[kMaxWeights + 1];  // prefix offsets of the elements walked
+  int start[kMaxWeights + 1];        // prefix offsets of the elements walked
+  int block_start[kMaxWeights + 1];  // B1: prefix offsets of each weight's blocks
 };
 
-__device__ __forceinline__ float load(const void* p, int64_t i, int bf16) {
+__device__ __forceinline__ float load(const void* p, int i, int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
 }
 
-__device__ __forceinline__ int find(const TailDesc& d, int64_t g) {
+__device__ __forceinline__ int find(const TailDesc& d, int g) {
   int j = 0;
   while (j + 1 < d.n && g >= d.start[j + 1]) ++j;
   return j;
 }
 
-// Packed element e of weight (kind, Ci, Co) -> flat index of its canonical
-// source in the stored layout, or -1 for a structural zero.
-__device__ int64_t source_of(int kind, int Ci, int Co, int64_t e) {
-  if (kind == kEntry) {  // out OIHW (4Co, Ci, 3, 3)
-    const int b = e % 3, a = (e / 3) % 3;
-    const int ci = (e / 9) % Ci;
-    const int o = static_cast<int>(e / (9LL * Ci));
-    const int q = o / Co, co = o % Co, qr = q >> 1, qc = q & 1;
-    const int u = 3 - 2 * a + qr, v = 3 - 2 * b + qc;
-    if (u < 0 || u > 3 || v < 0 || v > 3) return -1;
-    return ((static_cast<int64_t>(ci) * Co + co) * 4 + u) * 4 + v;  // IOHW
-  }
-  if (kind == kInterior) {  // out IOHW (4Ci, 4Co, 4, 4)
-    const int B = e % 4, A = (e / 4) % 4;
-    const int qo = (e / 16) % (4 * Co);
-    const int pi = static_cast<int>(e / (16LL * 4 * Co));
-    const int p = pi / Ci, ci = pi % Ci, q = qo / Co, co = qo % Co;
-    const int u = 2 * A + (q >> 1) - 2 * (p >> 1) - 1;
-    const int v = 2 * B + (q & 1) - 2 * (p & 1) - 1;
-    if (u < 0 || u > 3 || v < 0 || v > 3) return -1;
-    return ((static_cast<int64_t>(ci) * Co + co) * 4 + u) * 4 + v;  // IOHW
-  }
-  // kFinal: out (4Ci, 3, 3, 4Co)
-  const int qo = e % (4 * Co);
-  const int b = (e / (4 * Co)) % 3, a = (e / (12 * Co)) % 3;
-  const int pi = static_cast<int>(e / (36LL * Co));
-  const int p = pi / Ci, ci = pi % Ci, q = qo / Co, co = qo % Co;
-  const int u = 2 * a - 1 - (q >> 1) + (p >> 1);
-  const int v = 2 * b - 1 - (q & 1) + (p & 1);
-  if (u < 0 || u > 2 || v < 0 || v > 2) return -1;
-  return ((static_cast<int64_t>(co) * Ci + ci) * 3 + u) * 3 + v;  // OIHW
-}
+// The packed output of one weight as mixed-radix digits, least significant
+// first, in its consumer layout:
+//   entry    OIHW (4Co, Ci, 3, 3)   digits b(3) a(3) ci(Ci) co(Co) q(4) -(1)
+//   interior IOHW (4Ci, 4Co, 4, 4)  digits B(4) A(4) co(Co) q(4) ci(Ci) p(4)
+//   final    (4Ci, 3, 3, 4Co)       digits co(Co) q(4) b(3) a(3) ci(Ci) p(4)
+// with output channel o = q Co + co and input channel q / p likewise.
+struct PackedIndex {
+  int d[6];
+  int rad[6];
 
-__global__ void pack_tail_fwd_kernel(TailDesc d, int out_bf16) {
-  const int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (g >= d.start[d.n]) return;
-  const int j = find(d, g);
-  const int64_t e = g - d.start[j];
-  const int64_t s = source_of(d.kind[j], d.ci[j], d.co[j], e);
-  const float x = s < 0 ? 0.0f : static_cast<const float*>(d.in[j])[s];
-  if (out_bf16) {
-    static_cast<__nv_bfloat16*>(d.out[j])[e] = __float2bfloat16_rn(x);
+  __device__ PackedIndex(int kind, int Ci, int Co, int e) {
+    if (kind == kEntry) {
+      rad[0] = 3; rad[1] = 3; rad[2] = Ci; rad[3] = Co; rad[4] = 4; rad[5] = 1;
+    } else if (kind == kInterior) {
+      rad[0] = 4; rad[1] = 4; rad[2] = Co; rad[3] = 4; rad[4] = Ci; rad[5] = 4;
+    } else {
+      rad[0] = Co; rad[1] = 4; rad[2] = 3; rad[3] = 3; rad[4] = Ci; rad[5] = 4;
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      d[k] = e % rad[k];
+      e /= rad[k];
+    }
+  }
+
+  __device__ __forceinline__ void next() {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      if (++d[k] < rad[k]) return;
+      d[k] = 0;
+    }
+  }
+
+  // Flat index of the canonical source in the stored layout, or -1 for a
+  // structural zero (the pack laws of ops/packed.py).
+  __device__ __forceinline__ int source(int kind, int Ci, int Co) const {
+    if (kind == kEntry) {  // from IOHW (Ci, Co, 4, 4)
+      const int b = d[0], a = d[1], ci = d[2], co = d[3], q = d[4];
+      const int u = 3 - 2 * a + (q >> 1), v = 3 - 2 * b + (q & 1);
+      if (u < 0 || u > 3 || v < 0 || v > 3) return -1;
+      return ((ci * Co + co) * 4 + u) * 4 + v;
+    }
+    if (kind == kInterior) {  // from IOHW (Ci, Co, 4, 4)
+      const int B = d[0], A = d[1], co = d[2], q = d[3], ci = d[4], p = d[5];
+      const int u = 2 * A + (q >> 1) - 2 * (p >> 1) - 1;
+      const int v = 2 * B + (q & 1) - 2 * (p & 1) - 1;
+      if (u < 0 || u > 3 || v < 0 || v > 3) return -1;
+      return ((ci * Co + co) * 4 + u) * 4 + v;
+    }
+    // kFinal: from OIHW (Co, Ci, 3, 3)
+    const int co = d[0], q = d[1], b = d[2], a = d[3], ci = d[4], p = d[5];
+    const int u = 2 * a - 1 - (q >> 1) + (p >> 1);
+    const int v = 2 * b - 1 - (q & 1) + (p & 1);
+    if (u < 0 || u > 2 || v < 0 || v > 2) return -1;
+    return ((co * Ci + ci) * 3 + u) * 3 + v;
+  }
+};
+
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 r;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = r;
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// B1: kV = 16 / sizeof(T) consecutive outputs a thread.
+template <typename T>
+__global__ void __launch_bounds__(kPackThreads) pack_tail_fwd_kernel(TailDesc d) {
+  constexpr int kV = 16 / sizeof(T);
+  int j = 0;  // the weight of this block (uniform)
+  while (j + 1 < d.n && static_cast<int>(blockIdx.x) >= d.block_start[j + 1]) ++j;
+  const int len = d.start[j + 1] - d.start[j];
+  const int e0 = ((blockIdx.x - d.block_start[j]) * kPackThreads + threadIdx.x) * kV;
+  if (e0 >= len) return;
+  const int kind = d.kind[j], Ci = d.ci[j], Co = d.co[j];
+  const float* __restrict__ src = static_cast<const float*>(d.in[j]);
+  PackedIndex idx(kind, Ci, Co, e0);
+  float v[kV];
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    const int s = e0 + k < len ? idx.source(kind, Ci, Co) : -1;
+    v[k] = s < 0 ? 0.0f : __ldg(src + s);
+    idx.next();
+  }
+  T* out = static_cast<T*>(d.out[j]) + e0;
+  if (e0 + kV <= len) {
+    store16(out, v);
   } else {
-    static_cast<float*>(d.out[j])[e] = x;
+    for (int k = 0; e0 + k < len; ++k) store1(out + k, v[k]);
   }
 }
 
 // Canonical element e (stored layout) -> the sum of its packed cotangents.
 __device__ float gather_grad(int kind, int Ci, int Co, const void* dp,
-                             int in_bf16, int64_t e) {
+                             int in_bf16, int e) {
   float acc = 0.0f;
   if (kind == kEntry) {  // canonical IOHW (Ci, Co, 4, 4), packed OIHW
     const int v = e % 4, u = (e / 4) % 4;
     const int co = (e / 16) % Co;
-    const int ci = static_cast<int>(e / (16LL * Co));
+    const int ci = e / (16 * Co);
     for (int qr = 0; qr < 2; ++qr) {
       const int a2 = 3 - u + qr;
       if (a2 & 1) continue;
@@ -126,7 +187,7 @@ __device__ float gather_grad(int kind, int Ci, int Co, const void* dp,
         const int a = a2 >> 1, b = b2 >> 1;
         if (a > 2 || b > 2) continue;
         const int o = (2 * qr + qc) * Co + co;
-        acc += load(dp, ((static_cast<int64_t>(o) * Ci + ci) * 3 + a) * 3 + b, in_bf16);
+        acc += load(dp, ((o * Ci + ci) * 3 + a) * 3 + b, in_bf16);
       }
     }
     return acc;
@@ -134,7 +195,7 @@ __device__ float gather_grad(int kind, int Ci, int Co, const void* dp,
   if (kind == kInterior) {  // canonical IOHW (Ci, Co, 4, 4), packed IOHW
     const int v = e % 4, u = (e / 4) % 4;
     const int co = (e / 16) % Co;
-    const int ci = static_cast<int>(e / (16LL * Co));
+    const int ci = e / (16 * Co);
     for (int pr = 0; pr < 2; ++pr)
       for (int pc = 0; pc < 2; ++pc)
         for (int qr = 0; qr < 2; ++qr)
@@ -143,8 +204,8 @@ __device__ float gather_grad(int kind, int Ci, int Co, const void* dp,
             if ((A2 & 1) || (B2 & 1)) continue;
             const int A = A2 >> 1, B = B2 >> 1;
             if (A > 3 || B > 3) continue;
-            const int64_t pi = (2 * pr + pc) * Ci + ci;
-            const int64_t qo = (2 * qr + qc) * Co + co;
+            const int pi = (2 * pr + pc) * Ci + ci;
+            const int qo = (2 * qr + qc) * Co + co;
             acc += load(dp, ((pi * 4 * Co + qo) * 4 + A) * 4 + B, in_bf16);
           }
     return acc;
@@ -152,7 +213,7 @@ __device__ float gather_grad(int kind, int Ci, int Co, const void* dp,
   // kFinal: canonical OIHW (Co, Ci, 3, 3), packed (4Ci, 3, 3, 4Co)
   const int v = e % 3, u = (e / 3) % 3;
   const int ci = (e / 9) % Ci;
-  const int co = static_cast<int>(e / (9LL * Ci));
+  const int co = e / (9 * Ci);
   for (int pr = 0; pr < 2; ++pr)
     for (int pc = 0; pc < 2; ++pc)
       for (int qr = 0; qr < 2; ++qr)
@@ -161,18 +222,18 @@ __device__ float gather_grad(int kind, int Ci, int Co, const void* dp,
           if ((a2 & 1) || (b2 & 1)) continue;
           const int a = a2 >> 1, b = b2 >> 1;
           if (a > 2 || b > 2) continue;
-          const int64_t pi = (2 * pr + pc) * Ci + ci;
-          const int64_t qo = (2 * qr + qc) * Co + co;
+          const int pi = (2 * pr + pc) * Ci + ci;
+          const int qo = (2 * qr + qc) * Co + co;
           acc += load(dp, ((pi * 3 + a) * 3 + b) * 4 * Co + qo, in_bf16);
         }
   return acc;
 }
 
 __global__ void pack_tail_bwd_kernel(TailDesc d, int in_bf16) {
-  const int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= d.start[d.n]) return;
   const int j = find(d, g);
-  const int64_t e = g - d.start[j];
+  const int e = g - d.start[j];
   static_cast<float*>(d.out[j])[e] =
       gather_grad(d.kind[j], d.ci[j], d.co[j], d.in[j], in_bf16, e);
 }
@@ -193,7 +254,8 @@ cudaError_t launch(bool backward, int n, const int* kinds, const int* cis,
   if (n < 1 || n > kMaxWeights) return cudaErrorInvalidValue;
   TailDesc d{};
   d.n = n;
-  d.start[0] = 0;
+  const int per_block = kPackThreads * (bf16 ? 8 : 4);  // B1's outputs a block
+  int64_t start = 0, blocks = 0;
   for (int j = 0; j < n; ++j) {
     if (kinds[j] < kEntry || kinds[j] > kFinal || cis[j] < 1 || cos[j] < 1)
       return cudaErrorInvalidValue;
@@ -204,14 +266,26 @@ cudaError_t launch(bool backward, int n, const int* kinds, const int* cis,
     d.out[j] = out[j];
     const int64_t len = backward ? canonical_size(kinds[j], cis[j], cos[j])
                                  : packed_size(kinds[j], cis[j], cos[j]);
-    d.start[j + 1] = d.start[j] + len;
+    d.start[j] = static_cast<int>(start);
+    d.block_start[j] = static_cast<int>(blocks);
+    start += len;
+    blocks += (len + per_block - 1) / per_block;
+    // 32-bit indices: every element offset, and the packed index of any
+    // source, stays below 2^31.
+    if (start >= (1LL << 31) || packed_size(kinds[j], cis[j], cos[j]) >= (1LL << 31))
+      return cudaErrorInvalidValue;
   }
-  const int threads = 256;
-  const int64_t blocks = (d.start[n] + threads - 1) / threads;
+  d.start[n] = static_cast<int>(start);
+  d.block_start[n] = static_cast<int>(blocks);
   if (backward) {
-    pack_tail_bwd_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(d, bf16);
+    const int threads = 256;
+    const int64_t grid = (start + threads - 1) / threads;
+    pack_tail_bwd_kernel<<<static_cast<unsigned>(grid), threads, 0, stream>>>(d, bf16);
+  } else if (bf16) {
+    pack_tail_fwd_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>(blocks), kPackThreads, 0, stream>>>(d);
   } else {
-    pack_tail_fwd_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(d, bf16);
+    pack_tail_fwd_kernel<float><<<static_cast<unsigned>(blocks), kPackThreads, 0, stream>>>(d);
   }
   return cudaGetLastError();
 }

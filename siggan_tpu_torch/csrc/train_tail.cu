@@ -30,24 +30,49 @@
 // entry OIHW (4Co, Ci, 3, 3), interior IOHW (4Ci, 4Co, 4, 4), final
 // (4C, 3, 3, 4). Their pack laws zero whole (tap, input phase, output
 // phase) blocks: of the entry's 9 taps 4 are live for each output phase,
-// of the interior's 2x2 taps x 4 input phases 4 of 16. A conv block whose
-// output channels share one output phase skips every reduction chunk of a
-// dead block (adding zeros would not change its sums), which brings the
-// work down to the canonical ConvT's. The kernels therefore take only
-// B1's packed weights, never arbitrary ones.
+// of the interior's 2x2 taps x 4 input phases 4 of 16, of the final's 9
+// taps 2.25 on average for each (input phase, output phase). No kernel
+// multiplies a dead block, so each does the canonical ConvT's work, and
+// the kernels take only B1's packed weights, never arbitrary ones. The
+// f32 tile skips dead chunks by `range_live`, the final conv by
+// `final_live`; the bf16 kernels read each canonical tap from the one
+// packed position `relayout_kernel` names. Their Python mirrors are held
+// against the pack law in tests/test_torch_port_train_tail.py
+// (`_range_live`, `_final_live`, `_canonical_tap`).
 //
-// What bounds it on an H100. At the full-width models and batch 64 the
-// canonical work is 4.4 GFLOP (64 px) and 17.8 GFLOP (128 px) against
-// ~47 MB and ~195 MB of compulsory bf16 traffic: bound by operations. This
-// first version runs f32 FMAs on the CUDA cores (no tensor cores), so its
-// bound is the canonical FLOP count over the f32 non-tensor rate.
+// What bounds it on an H100. Train-mode BN needs the whole batch's
+// statistics before the next layer may read its input, so each pre-BN
+// intermediate is written once and read once. At the full-width models and
+// batch 64 in bf16 that is ~50 MB (64 px) and ~193 MB (128 px) of
+// compulsory traffic, 0.015 / 0.058 ms at 3.35 TB/s, against 4.4 / 17.8
+// GFLOP of canonical work, 0.0045 / 0.018 ms at the bf16 tensor peak:
+// bound by bytes. In f32 (no tensor cores: TF32 would miss the f32 bars)
+// the canonical FLOPs at the 67 TFLOP/s CUDA-core rate bound it.
 //
-// Design. K_entry / K_interior are one implicit-GEMM tile kernel: a block
-// computes 128 output pixels (of one phase) x 32 output channels, a
-// thread 4 x 4 of them; the reduction runs in chunks of 16 input channels
-// of one tap, staged in shared memory (the activation chunk with the
-// prologue applied, and the weight chunk). K_final stages a 16 x 16 pixel
-// tile with its halo, 16 channels at a time, one pixel per thread.
+// Design.
+// - bf16 entry / interior (convt_mma_kernel): each layer as the canonical
+//   ConvT(4, 2, 1), 4 output phases x 2x2 taps, on the tensor cores
+//   (mma.sync m16n8k16 bf16 -> f32, ldmatrix). A block owns an 8 x 16 tile
+//   of output pixels in all 4 phases and stages the tile's input halo once
+//   per 32-channel chunk with 16-byte cp.async copies (zero-filled outside
+//   the image), double-buffered; all 16 (phase, tap) products read it from
+//   shared memory, so an activation crosses from L2 about 1.3 times per
+//   layer instead of once per tap and channel block. The previous BN's
+//   affine + ReLU is applied in shared memory by the thread that staged the
+//   piece, rounded to bf16 once, never on padding. The weights' canonical
+//   taps come from one relayout launch per host call, staged as 16-byte
+//   vectors beside the halo. The epilogue sums each channel's f32 results
+//   with shuffles, combines the two row halves in a fixed order, and writes
+//   the bf16 tile through shared memory as coalesced 16-byte stores.
+// - f32 entry / interior (conv_tile_kernel): CUDA-core FMAs, 128 pixels x
+//   32 channels a block, 16-channel chunks, dead chunks skipped.
+// - Final conv (final_conv_kernel, both dtypes): N = 4 is too narrow for
+//   the tensor cores. A block stages a 16 x 32 output tile's halo 32
+//   bytes a pixel at a time (16 bf16 or 8 f32 channels, two 16-byte
+//   loads issued a chunk ahead into registers), keeps all Cin x 9 x 4
+//   weights in shared memory, and gives each thread 4 pixels x 4 outputs;
+//   a chunk inside one input phase runs only the taps its pack law keeps
+//   live (9 of 36 per channel).
 #include <cuda_bf16.h>
 #include <cstdint>
 
@@ -55,31 +80,27 @@
 
 namespace {
 
-constexpr int kBM = 128;  // output pixels per conv block
-constexpr int kBN = 32;   // output channels per conv block
-constexpr int kBK = 16;   // input channels per reduction chunk
+constexpr int kBM = 128;  // f32 tile: output pixels per block
+constexpr int kBN = 32;   // f32 tile: output channels per block
+constexpr int kBK = 16;   // f32 tile: input channels per reduction chunk
 constexpr int kThreads = 256;
-constexpr int kTile = 16;  // K_final: output tile side
-constexpr int kHalo = kTile + 2;
-constexpr int kHaloStride = kHalo * kHalo + 1;  // odd: spreads banks
+constexpr int kMaxLayers = 8;
+constexpr int kMaxChannels = 512;
+
+// Final conv.
+constexpr int kFinTW = 32, kFinTH = 16;  // output tile
+constexpr int kFinWords = 8;             // 4-byte words of a pixel per staged chunk
+constexpr int kFinThreads = 128;         // 4 pixels of one row each
+constexpr int kFinHaloW = kFinTW + 2, kFinHaloH = kFinTH + 2;
+constexpr int kFinRow = 41;              // odd row stride: the 4 rows of a warp hit distinct banks
+constexpr int kFinPlane = kFinHaloH * kFinRow;
 
 enum Kind { kEntry = 0, kInterior = 1 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// Round to bf16, kept as a float.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
-
-// Round to the compute dtype, kept as a float.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
 // Eight consecutive activation values (16-byte aligned) as floats.
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
@@ -115,7 +136,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 // Whether B1's pack law can put a non-zero in the packed weight block of
 // kernel index (r, c) (entry: conv tap (a, b); interior: ConvT (ky, kx)),
 // input phase p and output phase q (csrc/pack_tail.cu, source_of).
-__device__ __forceinline__ bool block_live(int kind, int r, int c, int p, int q) {
+__host__ __device__ __forceinline__ bool block_live(int kind, int r, int c, int p, int q) {
   const int qr = q >> 1, qc = q & 1;
   int u, v;
   if (kind == kEntry) {
@@ -128,13 +149,51 @@ __device__ __forceinline__ bool block_live(int kind, int r, int c, int p, int q)
   return u >= 0 && u <= 3 && v >= 0 && v <= 3;
 }
 
-struct ConvArgs {
-  const void* x;      // input (N, H, W, Cin), compute dtype
-  const void* w;      // packed weight (B1's layout for the kind)
+// Whether any block of input phases p_lo..p_hi and output phases
+// q_lo..q_hi is live at kernel index (r, c): a chunk of input channels and
+// a range of output channels may straddle phases at narrow widths.
+__host__ __device__ __forceinline__ bool range_live(int kind, int r, int c, int p_lo,
+                                                    int p_hi, int q_lo, int q_hi) {
+  for (int p = p_lo; p <= p_hi; ++p)
+    for (int q = q_lo; q <= q_hi; ++q)
+      if (block_live(kind, r, c, p, q)) return true;
+  return false;
+}
+
+// The final conv's law (out (4C, 3, 3, 4) from OIHW (1, C, 3, 3)): tap
+// (a, b) links input phase p to output phase q iff the canonical tap
+// u = 2a - 1 - qr + pr, v = 2b - 1 - qc + pc lies in the 3x3 kernel.
+// p = 4 stands for a chunk that spans input phases: every tap is live.
+__host__ __device__ constexpr bool final_live(int p, int a, int b, int q) {
+  return p > 3 || (2 * a - 1 - (q >> 1) + (p >> 1) >= 0 && 2 * a - 1 - (q >> 1) + (p >> 1) <= 2 &&
+                   2 * b - 1 - (q & 1) + (p & 1) >= 0 && 2 * b - 1 - (q & 1) + (p & 1) <= 2);
+}
+
+// Kernel index (r, c) and input offset (dy, dx) of reduction tap `tap`:
+// the entry's 3x3 taps; an interior's 2x2 taps of output phase (di, dj).
+template <int KIND>
+__device__ __forceinline__ void tap_geometry(int tap, int di, int dj, int& r, int& c,
+                                             int& dy, int& dx) {
+  if (KIND == kEntry) {
+    r = tap / 3;
+    c = tap % 3;
+    dy = r - 1;
+    dx = c - 1;
+  } else {
+    const int ta = tap >> 1, tb = tap & 1;
+    r = 3 - di - 2 * ta;
+    c = 3 - dj - 2 * tb;
+    dy = di - 1 + ta;
+    dx = dj - 1 + tb;
+  }
+}
+
+struct ConvArgs {      // the f32 tile's
+  const float* x;     // input (N, H, W, Cin)
+  const float* w;     // B1's packed weight
   const float* a;     // prologue affine (Cin,), or null for the entry
   const float* b;
-  void* y;            // output, compute dtype: entry (N, H, W, Cout),
-                      // interior (N, 2H, 2W, Cout)
+  float* y;           // output: entry (N, H, W, Cout), interior (N, 2H, 2W, Cout)
   float* psum;        // partial sums [Cout][rows]
   float* psq;         // partial sums of squares [Cout][rows]
   int N, H, W;        // input grid
@@ -143,13 +202,15 @@ struct ConvArgs {
   int rows;           // gridDim.x * gridDim.z
 };
 
-// Entry / interior conv tile. Grid (M tiles, Cout tiles, phases).
-template <typename T, int KIND>
+// ---------------------------------------------------------------------------
+// f32 entry / interior conv tile on the CUDA cores. Grid (M tiles, Cout
+// tiles, phases).
+template <int KIND>
 __global__ void __launch_bounds__(kThreads) conv_tile_kernel(ConvArgs g) {
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
-  const T* __restrict__ x = static_cast<const T*>(g.x);
-  const T* __restrict__ w = static_cast<const T*>(g.w);
+  const float* __restrict__ x = g.x;
+  const float* __restrict__ w = g.w;
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / 4);  // 4 output channels each
   const int ty = tid / (kBN / 4);  // 4 output pixels each
@@ -179,32 +240,16 @@ __global__ void __launch_bounds__(kThreads) conv_tile_kernel(ConvArgs g) {
 
   const int ntaps = KIND == kEntry ? 9 : 4;
   for (int tap = 0; tap < ntaps; ++tap) {
-    int r, c, dy, dx;  // kernel index, input offset
-    if (KIND == kEntry) {
-      r = tap / 3;
-      c = tap % 3;
-      dy = r - 1;
-      dx = c - 1;
-    } else {
-      const int ta = tap >> 1, tb = tap & 1;
-      r = 3 - di - 2 * ta;
-      c = 3 - dj - 2 * tb;
-      dy = di - 1 + ta;
-      dx = dj - 1 + tb;
-    }
+    int r, c, dy, dx;
+    tap_geometry<KIND>(tap, di, dj, r, c, dy, dx);
     const int iy = ai + dy, ix = aj + dx;
     const bool inb = arow && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-    const T* xrow =
+    const float* xrow =
         inb ? x + ((static_cast<size_t>(aimg) * g.H + iy) * g.W + ix) * g.Cin : x;
     for (int ci0 = 0; ci0 < g.Cin; ci0 += kBK) {
-      bool live = false;
-      if (KIND == kEntry) {
-        for (int q = q_lo; q <= q_hi; ++q) live |= block_live(kEntry, r, c, 0, q);
-      } else {
-        const int p_lo = ci0 / g.Ci, p_hi = (ci0 + kBK - 1) / g.Ci;
-        for (int p = p_lo; p <= p_hi; ++p)
-          for (int q = q_lo; q <= q_hi; ++q) live |= block_live(kInterior, r, c, p, q);
-      }
+      const bool live = KIND == kEntry
+          ? range_live(kEntry, r, c, 0, 0, q_lo, q_hi)
+          : range_live(kInterior, r, c, ci0 / g.Ci, (ci0 + kBK - 1) / g.Ci, q_lo, q_hi);
       if (!live) continue;  // uniform over the block
 
       float v[8];
@@ -214,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) conv_tile_kernel(ConvArgs g) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const int ci = ci0 + lc + e;
-            v[e] = round_to<T>(fmaxf(fmaf(v[e], __ldg(g.a + ci), __ldg(g.b + ci)), 0.f));
+            v[e] = fmaxf(fmaf(v[e], __ldg(g.a + ci), __ldg(g.b + ci)), 0.f);
           }
         }
       } else {
@@ -236,7 +281,7 @@ __global__ void __launch_bounds__(kThreads) conv_tile_kernel(ConvArgs g) {
             idx = ((static_cast<size_t>(o) * g.Cin + ci) * 3 + r) * 3 + c;
           else
             idx = ((static_cast<size_t>(ci) * g.Cout + o) * 4 + r) * 4 + c;
-          wv = to_f(w[idx]);
+          wv = w[idx];
         }
         Bs[kk][nn] = wv;
       }
@@ -282,10 +327,9 @@ __global__ void __launch_bounds__(kThreads) conv_tile_kernel(ConvArgs g) {
     }
   }
 
-  // Store the tile in the compute dtype.
   const int o0 = n0 + tx * 4;
   if (o0 < g.Cout) {
-    T* y = static_cast<T*>(g.y);
+    float* y = g.y;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + ty * 4 + i;
@@ -302,6 +346,317 @@ __global__ void __launch_bounds__(kThreads) conv_tile_kernel(ConvArgs g) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 entry / interior: the canonical ConvT(4, 2, 1) on the tensor cores.
+//
+// Both layers are a canonical ConvT whose output, in packed form, has the
+// canonical input's grid: output packed pixel (Py, Px), output phase
+// q = (qr, qc) is canonical pixel (2Py + qr, 2Px + qc), the sum over taps
+// (ta, tb) in 2x2 of canonical input (Py + qr + ta - 1, Px + qc + tb - 1)
+// times the canonical weight at (ky, kx) = (3 - qr - 2ta, 3 - qc - 2tb).
+// The entry's canonical input is h0 itself; an interior's canonical pixel
+// (y, x) is packed pixel (y/2, x/2), channels p Ci .. + Ci - 1 with
+// p = 2 (y % 2) + x % 2. Only canonical taps are multiplied: the pack law's
+// zero blocks never enter.
+//
+// A block owns an 8 x 16 tile of output packed pixels and 32 canonical
+// output channels, in all 4 output phases (128 packed channels). Per chunk
+// of 32 input channels it stages, by cp.async, the tile's 10 x 18 input
+// halo once and the weights of its 16 (phase, tap) pairs; warp (q, half)
+// computes phase q of 4 tile rows (one m16 tile per row) over the 4 taps,
+// its ldmatrix rows pointing at shifted halo pixels. Rows of 64 bytes are
+// XOR-swizzled in 16-byte units so that ldmatrix reads 8 consecutive rows
+// without bank conflicts. Two stages: the next chunk loads while this one
+// is multiplied.
+
+constexpr int kTY = 8, kTX = 16;                 // output packed tile
+constexpr int kHY = kTY + 2, kHX = kTX + 2;      // its canonical input halo
+constexpr int kCK = 32;                          // input channels per chunk
+constexpr int kCN = 32;                          // canonical output channels per block
+constexpr int kRowBytes = kCK * 2;               // one staged row: 32 bf16
+constexpr int kABytes = kHY * kHX * kRowBytes;   // the halo
+constexpr int kBBytes = 16 * kCN * kRowBytes;    // 16 (phase, tap) x 32 output channels
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kOutRow = 4 * kCN + 8;             // output tile row (bf16), padded
+
+// Byte offset of byte b of staged row r: 16-byte unit u -> u ^ (r / 2 % 4).
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * kRowBytes + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
+}
+
+// cp.async of `bytes` (16 or 8) bytes, of which `fill` are read and the
+// rest zeroed.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(fill)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(fill)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct ConvTArgs {
+  const __nv_bfloat16* x;   // entry: h0 (N, Hin, Win, Ci); interior: packed (N, Hin, Win, 4Ci)
+  const __nv_bfloat16* w;   // relayout [q][tap][Co][Ci] (relayout_kernel)
+  const float* a;           // interior: the previous BN's affine over 4Ci packed channels
+  const float* b;
+  __nv_bfloat16* y;         // (N, Ho, Wo, 4Co) packed
+  float* psum;              // partial sums [4Co][rows]
+  float* psq;
+  int N, Hin, Win, Ho, Wo;  // input grid; output packed grid (the canonical input's)
+  int Ci, Co;               // canonical channels
+  int rows;                 // gridDim.x * gridDim.z
+};
+
+size_t convt_smem_bytes(int cin_packed) {
+  return 2 * kStageBytes + 2 * sizeof(float) * cin_packed;
+}
+
+// Grid (tiles of the output grid, Co / 32, N). PIECE: channels per copy,
+// 8 (16 bytes) or 4 (8 bytes, for Ci = 4 mod 8).
+template <int KIND, int PIECE>
+__global__ void __launch_bounds__(kThreads, 2) convt_mma_kernel(ConvTArgs g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* aff = reinterpret_cast<float*>(smem + 2 * kStageBytes);
+  __shared__ float red[2][2][4 * kCN];  // [sum, sq][half][phase, channel]
+  constexpr int kPieces = kCK / PIECE;  // per staged row
+  constexpr int kPieceBytes = 2 * PIECE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = warp >> 1, half = warp & 1, qr = q >> 1, qc = q & 1;
+  const int tiles_x = (g.Wo + kTX - 1) / kTX;
+  const int y0 = (blockIdx.x / tiles_x) * kTY, x0 = (blockIdx.x % tiles_x) * kTX;
+  const int co0 = blockIdx.y * kCN, n = blockIdx.z;
+  const int cinp = KIND == kEntry ? g.Ci : 4 * g.Ci;  // channels of an input pixel
+  const int nk = (g.Ci + kCK - 1) / kCK;
+  if (KIND == kInterior) {
+    for (int i = tid; i < cinp; i += kThreads) {
+      aff[i] = g.a[i];
+      aff[cinp + i] = g.b[i];
+    }
+    __syncthreads();
+  }
+
+  // Halo piece e: its input element offset, or -1 outside the image / Ci.
+  auto halo_src = [&](int e, int ci0) -> int {
+    const int pix = e / kPieces, ci = ci0 + (e % kPieces) * PIECE;
+    const int gy = y0 - 1 + pix / kHX, gx = x0 - 1 + pix % kHX;
+    if (gy < 0 || gy >= g.Ho || gx < 0 || gx >= g.Wo || ci >= g.Ci) return -1;
+    if (KIND == kEntry) return ((n * g.Hin + gy) * g.Win + gx) * cinp + ci;
+    return ((n * g.Hin + (gy >> 1)) * g.Win + (gx >> 1)) * cinp +
+           ((gy & 1) * 2 + (gx & 1)) * g.Ci + ci;
+  };
+  auto load_chunk = [&](int it) {
+    unsigned char* sa = smem + (it & 1) * kStageBytes;
+    unsigned char* sb = sa + kABytes;
+    const int ci0 = it * kCK;
+    for (int e = tid; e < kHY * kHX * kPieces; e += kThreads) {
+      const int src = halo_src(e, ci0);
+      cp_async<kPieceBytes>(sa + swz(e / kPieces, (e % kPieces) * kPieceBytes),
+                            src < 0 ? g.x : g.x + src, src < 0 ? 0 : kPieceBytes);
+    }
+    for (int e = tid; e < 16 * kCN * kPieces; e += kThreads) {
+      const int row = e / kPieces, ci = ci0 + (e % kPieces) * PIECE;
+      const int co = co0 + row % kCN;  // row = (q * 4 + tap) * 32 + channel
+      const bool ok = co < g.Co && ci < g.Ci;
+      cp_async<kPieceBytes>(sb + swz(row, (e % kPieces) * kPieceBytes),
+                            ok ? g.w + (static_cast<size_t>(row / kCN) * g.Co + co) * g.Ci + ci
+                               : g.w,
+                            ok ? kPieceBytes : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  load_chunk(0);
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait_all();
+    unsigned char* sa = smem + (it & 1) * kStageBytes;
+    if (KIND == kInterior) {
+      // The previous BN's affine + ReLU on this thread's own pieces,
+      // rounded to bf16 once; padding (and channels past Ci) stays zero.
+      for (int e = tid; e < kHY * kHX * kPieces; e += kThreads) {
+        const int src = halo_src(e, it * kCK);
+        if (src < 0) continue;
+        const int ch = src % cinp;  // the packed channel, for the affine
+        __nv_bfloat162* v =
+            reinterpret_cast<__nv_bfloat162*>(sa + swz(e / kPieces, (e % kPieces) * kPieceBytes));
+#pragma unroll
+        for (int k = 0; k < PIECE / 2; ++k) {
+          const float2 f = __bfloat1622float2(v[k]);
+          const int c = ch + 2 * k;
+          v[k] = __floats2bfloat162_rn(fmaxf(fmaf(f.x, aff[c], aff[cinp + c]), 0.f),
+                                       fmaxf(fmaf(f.y, aff[c + 1], aff[cinp + c + 1]), 0.f));
+        }
+      }
+    }
+    __syncthreads();
+    if (it + 1 < nk) load_chunk(it + 1);
+
+    const unsigned abase = static_cast<unsigned>(__cvta_generic_to_shared(sa));
+    const unsigned bbase = abase + kABytes;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int ta = t >> 1, tb = t & 1;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (it * kCK + kk * 16 >= g.Ci) continue;  // uniform: past Ci all is zero
+        uint32_t b[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r4[4];
+          const int row = (q * 4 + t) * kCN + np * 16 + (lane & 7) + (lane >> 4) * 8;
+          ldmatrix_x4(r4, bbase + swz(row, kk * 32 + ((lane >> 3) & 1) * 16));
+          b[2 * np][0] = r4[0];
+          b[2 * np][1] = r4[1];
+          b[2 * np + 1][0] = r4[2];
+          b[2 * np + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const int hy = half * 4 + mi + qr + ta, hx = (lane & 15) + qc + tb;
+          uint32_t a[4];
+          ldmatrix_x4(a, abase + swz(hy * kHX + hx, kk * 32 + (lane >> 4) * 16));
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a, b[nj][0], b[nj][1]);
+        }
+      }
+    }
+  }
+
+  // Per-block partial statistics from the f32 results of the tile's pixels
+  // inside the output grid: a thread's 8 rows per channel, then the lanes
+  // of one channel (xor 4, 8, 16), then the two halves in a fixed order.
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = 0.f, sq = 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int py = y0 + half * 4 + mi, px = x0 + (lane >> 2) + 8 * hh;
+          const float v = py < g.Ho && px < g.Wo ? acc[mi][nj][2 * hh + e] : 0.f;
+          s += v;
+          sq = fmaf(v, v, sq);
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      }
+      if (lane < 4) {
+        const int col = q * kCN + nj * 8 + lane * 2 + e;
+        red[0][half][col] = s;
+        red[1][half][col] = sq;
+      }
+    }
+  }
+  __syncthreads();  // also: every warp is done with the ring
+  const int row = blockIdx.z * gridDim.x + blockIdx.x;
+  if (tid < 4 * kCN && co0 + tid % kCN < g.Co) {
+    const size_t at = static_cast<size_t>((tid / kCN) * g.Co + co0 + tid % kCN) * g.rows + row;
+    g.psum[at] = red[0][0][tid] + red[0][1][tid];
+    g.psq[at] = red[1][0][tid] + red[1][1][tid];
+  }
+
+  // The tile in bf16 through shared memory, then coalesced stores: 16 bytes
+  // (8 channels) a thread, or 4 bytes where Co is not a multiple of 8.
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);  // [128 px][kOutRow]
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int px = (half * 4 + mi) * kTX + (lane >> 2) + 8 * hh;
+        const int col = q * kCN + nj * 8 + (lane & 3) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(tile + px * kOutRow + col) =
+            __floats2bfloat162_rn(acc[mi][nj][2 * hh], acc[mi][nj][2 * hh + 1]);
+      }
+  __syncthreads();
+  const int unit = g.Co % 8 == 0 ? 8 : 2;
+  const int per_px = 4 * kCN / unit;
+  for (int e = tid; e < kTY * kTX * per_px; e += kThreads) {
+    const int px = e / per_px, col = (e % per_px) * unit;
+    const int oq = col / kCN, co = co0 + col % kCN;
+    const int py = y0 + px / kTX, pxx = x0 + px % kTX;
+    if (py >= g.Ho || pxx >= g.Wo || co >= g.Co) continue;
+    __nv_bfloat16* dst =
+        g.y + ((static_cast<size_t>(n) * g.Ho + py) * g.Wo + pxx) * 4 * g.Co + oq * g.Co + co;
+    if (unit == 8)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(tile + px * kOutRow + col);
+    else
+      *reinterpret_cast<uint32_t*>(dst) =
+          *reinterpret_cast<const uint32_t*>(tile + px * kOutRow + col);
+  }
+}
+
+// B1's packed bf16 conv weights -> the canonical taps of each output phase,
+// [q][tap][Co][Ci]. Tap (ta, tb) of phase q = (qr, qc) is packed
+//   entry    OIHW (4Co, Ci, 3, 3)  [q Co + co][ci][qr + ta][qc + tb]
+//   interior IOHW (4Ci, 4Co, 4, 4) [ci][q Co + co][2 - qr - ta][2 - qc - tb]
+// (input phase 0), where the pack law put the canonical weight at
+// (3 - qr - 2ta, 3 - qc - 2tb). One element a thread; grid (elements of the
+// largest layer, layers).
+struct Relayout {
+  const __nv_bfloat16* src[kMaxLayers];
+  __nv_bfloat16* dst[kMaxLayers];
+  int kind[kMaxLayers];
+  int ci[kMaxLayers];
+  int co[kMaxLayers];
+};
+
+__global__ void __launch_bounds__(kThreads) relayout_kernel(Relayout d) {
+  const int l = blockIdx.y;
+  const int Ci = d.ci[l], Co = d.co[l];
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= 16 * Co * Ci) return;
+  const int ci = e % Ci, co = (e / Ci) % Co, qt = e / (Ci * Co);
+  const int q = qt >> 2, t = qt & 3;
+  const int qr = q >> 1, qc = q & 1, ta = t >> 1, tb = t & 1;
+  const int src = d.kind[l] == kEntry
+      ? (((q * Co + co) * Ci + ci) * 3 + qr + ta) * 3 + qc + tb
+      : ((ci * 4 * Co + q * Co + co) * 4 + 2 - qr - ta) * 4 + 2 - qc - tb;
+  d.dst[l][e] = d.src[l][src];
+}
+
+// ---------------------------------------------------------------------------
 // One block per canonical channel c: sums the partial rows of its 4 phase
 // channels in a fixed order, then thread 0 writes the statistics.
 __global__ void __launch_bounds__(kThreads)
@@ -350,8 +705,8 @@ bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq
   float a = scale[c] * rsqrtf(var + 1e-5f);
   float b = offset[c] - mean * a;
   if (bf16) {
-    a = round_to<__nv_bfloat16>(a);
-    b = round_to<__nv_bfloat16>(b);
+    a = round_bf16(a);
+    b = round_bf16(b);
   }
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
@@ -360,59 +715,181 @@ bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq
   }
 }
 
+// ---------------------------------------------------------------------------
 // K_final: affine + ReLU on load, 3x3 conv Cin -> 4, + bias, tanh.
-// Grid (W tiles, H tiles, N), kTile x kTile threads, one pixel each.
+//
+// A chunk is 32 bytes of each halo pixel (one memory sector): 16 bf16 or 8
+// f32 channels, loaded as two 16-byte vectors and kept in shared memory as
+// 8 words a pixel, bf16 channel pairs or f32 channels.
+
+// Channels of a 32-byte chunk.
 template <typename T>
-__global__ void __launch_bounds__(kTile * kTile)
+__host__ __device__ constexpr int fin_channels() { return 32 / static_cast<int>(sizeof(T)); }
+
+// Channel `sub` of a staged word as a float.
+template <typename T>
+__device__ __forceinline__ float word_value(uint32_t w, int sub);
+template <>
+__device__ __forceinline__ float word_value<float>(uint32_t w, int) { return __uint_as_float(w); }
+template <>
+__device__ __forceinline__ float word_value<__nv_bfloat16>(uint32_t w, int sub) {
+  return __uint_as_float(sub ? w & 0xffff0000u : w << 16);
+}
+
+// One staged chunk: input phase P of the pack law, or 4 for a chunk that
+// spans phases. xs: the chunk's 8 word planes of the halo; wc: its weights
+// [channel][3][3][4]; a thread's 4 pixels x 4 outputs in acc.
+template <int P, typename T>
+__device__ __forceinline__ void final_chunk(const uint32_t* xs, const float* wc, int ty, int tx,
+                                            float (&acc)[4][4]) {
+  constexpr int kSub = fin_channels<T>() / kFinWords;  // channels a word
+#pragma unroll 2
+  for (int j = 0; j < kFinWords; ++j) {
+    const uint32_t* xc = xs + j * kFinPlane + ty * kFinRow + tx * 4;
+    uint32_t xw[3][6];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) xw[a][k] = xc[a * kFinRow + k];
+#pragma unroll
+    for (int sub = 0; sub < kSub; ++sub) {
+      const float* w = wc + (j * kSub + sub) * 36;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (!final_live(P, a, b, q)) continue;
+            const float wv = w[(a * 3 + b) * 4 + q];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[i][q] = fmaf(word_value<T>(xw[a][i + b], sub), wv, acc[i][q]);
+          }
+    }
+  }
+}
+
+size_t final_smem_bytes(int cin) {
+  return sizeof(float) * (kFinWords * kFinPlane + cin * 36 + 2 * cin);
+}
+
+// Grid (W / 32, H / 16, N), 128 threads: thread (tx, ty) computes the
+// pixels (y0 + ty, x0 + 4 tx .. + 3). The halo of the next chunk is loaded
+// into registers while this one is multiplied.
+template <typename T>
+__global__ void __launch_bounds__(kFinThreads)
 final_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ bias, T* __restrict__ img, int H, int W,
                   int Cin) {
-  __shared__ float xs[kBK * kHaloStride];
-  __shared__ __align__(16) float ws[kBK * 9 * 4];
-  const int tid = threadIdx.x;
-  const int ox = blockIdx.x * kTile + tid % kTile;
-  const int oy = blockIdx.y * kTile + tid / kTile;
-  const int n = blockIdx.z;
-  const T* xn = x + static_cast<size_t>(n) * H * W * Cin;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int ci0 = 0; ci0 < Cin; ci0 += kBK) {
-    for (int e = tid; e < kBK * kHalo * kHalo; e += kTile * kTile) {
-      const int cc = e % kBK, pos = e / kBK;
-      const int gy = blockIdx.y * kTile + pos / kHalo - 1;
-      const int gx = blockIdx.x * kTile + pos % kHalo - 1;
-      float v = 0.f;  // zero padding after the prologue
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const int ci = ci0 + cc;
-        v = to_f(xn[(static_cast<size_t>(gy) * W + gx) * Cin + ci]);
-        v = round_to<T>(fmaxf(fmaf(v, __ldg(a + ci), __ldg(b + ci)), 0.f));
-      }
-      xs[cc * kHaloStride + pos] = v;
-    }
-    for (int e = tid; e < kBK * 36; e += kTile * kTile)
-      ws[e] = to_f(w[static_cast<size_t>(ci0) * 36 + e]);
-    __syncthreads();
-    const int ly = tid / kTile, lx = tid % kTile;
-    for (int cc = 0; cc < kBK; ++cc) {
+  constexpr int kHalo = kFinHaloH * kFinHaloW;
+  constexpr int kSlots = (kHalo + kFinThreads - 1) / kFinThreads;  // halo pixels a thread
+  constexpr int kC = fin_channels<T>();
+  extern __shared__ __align__(16) float fsm[];
+  uint32_t* xs = reinterpret_cast<uint32_t*>(fsm);  // [kFinWords][kFinHaloH][kFinRow]
+  float* ws = fsm + kFinWords * kFinPlane;          // [Cin][3][3][4]
+  float* aff = ws + Cin * 36;                       // a[Cin], b[Cin]
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int x0 = blockIdx.x * kFinTW, y0 = blockIdx.y * kFinTH, n = blockIdx.z;
+  const int C = Cin / 4;
+  for (int e = tid * 8; e < Cin * 36; e += kFinThreads * 8) {
+    float v[8];
+    load8(w + e, v);
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const float xv = xs[cc * kHaloStride + (ly + t / 3) * kHalo + lx + t % 3];
-        const float4 wv = *reinterpret_cast<const float4*>(&ws[(cc * 9 + t) * 4]);
-        acc[0] = fmaf(xv, wv.x, acc[0]);
-        acc[1] = fmaf(xv, wv.y, acc[1]);
-        acc[2] = fmaf(xv, wv.z, acc[2]);
-        acc[3] = fmaf(xv, wv.w, acc[3]);
-      }
-    }
-    __syncthreads();
+    for (int k = 0; k < 8; ++k) ws[e + k] = v[k];
   }
-  if (ox >= W || oy >= H) return;
-  const float bv = bias[0];
-  float out[4];
+  for (int i = tid; i < Cin; i += kFinThreads) {
+    aff[i] = a[i];
+    aff[Cin + i] = b[i];
+  }
+  const T* xn = x + static_cast<size_t>(n) * H * W * Cin;
+  uint4 raw[kSlots][2];
+  unsigned inside = 0;  // bit s: halo pixel tid + s * kFinThreads is in the image
+  auto fetch = [&](int ci0) {
+    inside = 0;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) out[q] = tanhf(acc[q] + bv);
-  store4(img + ((static_cast<size_t>(n) * H + oy) * W + ox) * 4, out);
+    for (int s = 0; s < kSlots; ++s) {
+      const int e = tid + s * kFinThreads;
+      const int gy = y0 + e / kFinHaloW - 1, gx = x0 + e % kFinHaloW - 1;
+      if (e < kHalo && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const uint4* p = reinterpret_cast<const uint4*>(xn + (gy * W + gx) * Cin + ci0);
+        raw[s][0] = __ldg(p);
+        raw[s][1] = __ldg(p + 1);
+        inside |= 1u << s;
+      }
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+
+  fetch(0);
+  for (int ci0 = 0; ci0 < Cin; ci0 += kC) {
+    __syncthreads();  // the previous chunk is consumed (the first: ws, aff are in)
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int e = tid + s * kFinThreads;
+      if (e >= kHalo) continue;
+      uint32_t words[kFinWords];
+      if (inside >> s & 1) {
+        float v[kC];
+        if constexpr (kC == 16) {
+          load8(reinterpret_cast<const __nv_bfloat16*>(&raw[s][0]),
+                *reinterpret_cast<float(*)[8]>(v));
+          load8(reinterpret_cast<const __nv_bfloat16*>(&raw[s][1]),
+                *reinterpret_cast<float(*)[8]>(v + 8));
+        } else {
+          load8(reinterpret_cast<const float*>(&raw[s][0]), v);
+        }
+#pragma unroll
+        for (int k = 0; k < kC; ++k)
+          v[k] = fmaxf(fmaf(v[k], aff[ci0 + k], aff[Cin + ci0 + k]), 0.f);
+#pragma unroll
+        for (int j = 0; j < kFinWords; ++j) {
+          if constexpr (kC == 16) {  // rounded to bf16 once
+            const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+            words[j] = *reinterpret_cast<const uint32_t*>(&h);
+          } else {
+            words[j] = __float_as_uint(v[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kFinWords; ++j) words[j] = 0u;  // zero padding after the prologue
+      }
+      const int at = (e / kFinHaloW) * kFinRow + e % kFinHaloW;
+#pragma unroll
+      for (int j = 0; j < kFinWords; ++j) xs[j * kFinPlane + at] = words[j];
+    }
+    __syncthreads();
+    if (ci0 + kC < Cin) fetch(ci0 + kC);
+    const float* wc = ws + ci0 * 36;
+    switch (C % kC == 0 ? ci0 / C : 4) {  // uniform over the block
+      case 0: final_chunk<0, T>(xs, wc, ty, tx, acc); break;
+      case 1: final_chunk<1, T>(xs, wc, ty, tx, acc); break;
+      case 2: final_chunk<2, T>(xs, wc, ty, tx, acc); break;
+      case 3: final_chunk<3, T>(xs, wc, ty, tx, acc); break;
+      default: final_chunk<4, T>(xs, wc, ty, tx, acc); break;
+    }
+  }
+  const int oy = y0 + ty;
+  if (oy >= H) return;
+  const float bv = bias[0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ox = x0 + tx * 4 + i;
+    if (ox >= W) continue;
+    float out[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q] = tanhf(acc[i][q] + bv);
+    store4(img + ((static_cast<size_t>(n) * H + oy) * W + ox) * 4, out);
+  }
 }
+
+// ---------------------------------------------------------------------------
 
 struct Tail {
   int L;
@@ -432,34 +909,106 @@ struct Tail {
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 bool valid_shape(int L, const int* chans, int N, int H, int W) {
-  if (L < 2 || N < 1 || H < 1 || W < 1 || chans[L] != 4) return false;
+  if (L < 2 || L > kMaxLayers || N < 1 || H < 1 || W < 1 || chans[L] != 4) return false;
   for (int i = 0; i <= L; ++i) {
-    if (chans[i] < 1 || (i < L && chans[i] % kBK) || (i > 0 && chans[i] % 4)) return false;
+    if (chans[i] < 1 || (i > 0 && chans[i] % 4)) return false;
+    if (i < L && (chans[i] % kBK || chans[i] > kMaxChannels)) return false;
   }
+  // 32-bit element offsets in the kernels: the largest grid (the final
+  // layer's) times any layer's channels.
+  const long long pixels = (static_cast<long long>(N) * H * W) << (2 * (L - 2));
+  for (int i = 0; i <= L; ++i)
+    if (pixels * chans[i] >= (1LL << 31)) return false;
   return true;
 }
 
-// f32 scratch the tail needs: per BN layer, the partial sums and squares
-// [Cout][rows] of its conv blocks, then its folded affine a4, b4 [Cout].
-long long scratch_floats(int L, const int* chans, int N, int H, int W) {
+// Canonical (Ci, Co) of conv layer i < L - 1.
+void canonical(int i, const int* chans, int& ci, int& co) {
+  ci = i == 0 ? chans[0] : chans[i] / 4;
+  co = chans[i + 1] / 4;
+}
+
+// Partial-statistics rows of conv layer i (input grid h x w): the f32
+// tile's blocks of kBM pixels x 4 output phases (1 for the entry), or the
+// bf16 kernel's output tiles x N.
+int stat_rows(int i, int N, int h, int w, bool bf16) {
+  if (!bf16) return ceil_div(N * h * w, kBM) * (i > 0 ? 4 : 1);
+  const int ho = i > 0 ? 2 * h : h, wo = i > 0 ? 2 * w : w;
+  return ceil_div(ho, kTY) * ceil_div(wo, kTX) * N;
+}
+
+// Floats of f32 scratch: per BN layer the partial sums and squares
+// [Cout][rows] of its conv blocks, then its folded affine a4, b4 [Cout];
+// in bf16, after them (16-byte aligned), each conv weight's canonical taps
+// (relayout_kernel).
+long long stats_floats(int L, const int* chans, int N, int H, int W, bool bf16) {
   long long need = 0;
   int h = H, w = W;
   for (int i = 0; i + 1 < L; ++i) {
-    const int interior = i > 0;
-    const int rows = ceil_div(N * h * w, kBM) * (interior ? 4 : 1);
-    need += 2LL * rows * chans[i + 1] + 2LL * chans[i + 1];
-    if (interior) {
+    need += 2LL * stat_rows(i, N, h, w, bf16) * chans[i + 1] + 2LL * chans[i + 1];
+    if (i > 0) {
       h *= 2;
       w *= 2;
     }
   }
+  return (need + 3) / 4 * 4;
+}
+
+long long relayout_elems(int i, const int* chans) {
+  int ci, co;
+  canonical(i, chans, ci, co);
+  return 16LL * ci * co;
+}
+
+long long scratch_floats(int L, const int* chans, int N, int H, int W, bool bf16) {
+  long long need = stats_floats(L, chans, N, H, W, bf16);
+  if (bf16)
+    for (int i = 0; i + 1 < L; ++i) need += (relayout_elems(i, chans) + 7) / 8 * 4;
   return need;
+}
+
+template <int KIND>
+cudaError_t launch_convt(const ConvTArgs& g, dim3 grid, cudaStream_t stream) {
+  const size_t smem = convt_smem_bytes(KIND == kEntry ? g.Ci : 4 * g.Ci);
+  cudaError_t err;
+  if (g.Ci % 8 == 0) {
+    err = siggan::allow_smem(convt_mma_kernel<KIND, 8>, smem);
+    if (err == cudaSuccess) convt_mma_kernel<KIND, 8><<<grid, kThreads, smem, stream>>>(g);
+  } else {
+    err = siggan::allow_smem(convt_mma_kernel<KIND, 4>, smem);
+    if (err == cudaSuccess) convt_mma_kernel<KIND, 4><<<grid, kThreads, smem, stream>>>(g);
+  }
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 template <typename T>
 cudaError_t run(const Tail& t, cudaStream_t stream) {
-  if (scratch_floats(t.L, t.chans, t.N, t.H, t.W) > t.scratch_floats)
+  constexpr bool kMma = sizeof(T) == 2;
+  if (scratch_floats(t.L, t.chans, t.N, t.H, t.W, kMma) > t.scratch_floats)
     return cudaErrorInvalidValue;
+
+  // bf16: every conv weight's canonical taps, one launch.
+  __nv_bfloat16* taps[kMaxLayers] = {};
+  if (kMma) {
+    Relayout d{};
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
+        t.scratch + stats_floats(t.L, t.chans, t.N, t.H, t.W, true));
+    long long most = 0;
+    for (int i = 0; i + 1 < t.L; ++i) {
+      d.src[i] = static_cast<const __nv_bfloat16*>(t.ws[i]);
+      d.dst[i] = taps[i] = dst;
+      d.kind[i] = i == 0 ? kEntry : kInterior;
+      canonical(i, t.chans, d.ci[i], d.co[i]);
+      const long long n = relayout_elems(i, t.chans);
+      dst += (n + 7) / 8 * 8;
+      most = n > most ? n : most;
+    }
+    const dim3 grid(static_cast<unsigned>(ceil_div(static_cast<int>(most), kThreads)),
+                    t.L - 1);
+    relayout_kernel<<<grid, kThreads, 0, stream>>>(d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
   float* s = t.scratch;
   const float* a = nullptr;
@@ -468,50 +1017,78 @@ cudaError_t run(const Tail& t, cudaStream_t stream) {
   for (int i = 0; i < t.L; ++i) {
     const int cin = t.chans[i], cout = t.chans[i + 1];
     if (i == t.L - 1) {
-      const dim3 grid(ceil_div(w, kTile), ceil_div(h, kTile), t.N);
-      final_conv_kernel<T><<<grid, kTile * kTile, 0, stream>>>(
+      const size_t smem = final_smem_bytes(cin);
+      cudaError_t err = siggan::allow_smem(final_conv_kernel<T>, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(ceil_div(w, kFinTW), ceil_div(h, kFinTH), t.N);
+      final_conv_kernel<T><<<grid, kFinThreads, smem, stream>>>(
           static_cast<const T*>(t.acts[i]), static_cast<const T*>(t.ws[i]), a, b,
           t.bias, static_cast<T*>(t.acts[i + 1]), h, w, cin);
       return cudaGetLastError();
     }
     const int interior = i > 0;
-    ConvArgs g;
-    g.x = t.acts[i];
-    g.w = t.ws[i];
-    g.a = a;
-    g.b = b;
-    g.y = t.acts[i + 1];
-    g.N = t.N;
-    g.H = h;
-    g.W = w;
-    g.Cin = cin;
-    g.Cout = cout;
-    g.Ci = interior ? cin / 4 : cin;
-    g.Co = cout / 4;
-    const dim3 grid(ceil_div(t.N * h * w, kBM), ceil_div(cout, kBN), interior ? 4 : 1);
-    g.rows = grid.x * grid.z;
-    g.psum = s;
-    g.psq = s + static_cast<size_t>(cout) * g.rows;
-    float* a4 = g.psq + static_cast<size_t>(cout) * g.rows;
+    const int rows = stat_rows(i, t.N, h, w, kMma);
+    float* psum = s;
+    float* psq = s + static_cast<size_t>(cout) * rows;
+    float* a4 = psq + static_cast<size_t>(cout) * rows;
     float* b4 = a4 + cout;
     s = b4 + cout;
+    cudaError_t err;
+    if (kMma) {
+      ConvTArgs g;
+      g.x = static_cast<const __nv_bfloat16*>(t.acts[i]);
+      g.w = taps[i];
+      g.a = a;
+      g.b = b;
+      g.y = static_cast<__nv_bfloat16*>(t.acts[i + 1]);
+      g.psum = psum;
+      g.psq = psq;
+      g.N = t.N;
+      g.Hin = h;
+      g.Win = w;
+      g.Ho = interior ? 2 * h : h;
+      g.Wo = interior ? 2 * w : w;
+      canonical(i, t.chans, g.Ci, g.Co);
+      g.rows = rows;
+      const dim3 grid(ceil_div(g.Ho, kTY) * ceil_div(g.Wo, kTX), ceil_div(g.Co, kCN), t.N);
+      err = interior ? launch_convt<kInterior>(g, grid, stream)
+                     : launch_convt<kEntry>(g, grid, stream);
+    } else {
+      ConvArgs g;
+      g.x = static_cast<const float*>(t.acts[i]);
+      g.w = static_cast<const float*>(t.ws[i]);
+      g.a = a;
+      g.b = b;
+      g.y = static_cast<float*>(t.acts[i + 1]);
+      g.N = t.N;
+      g.H = h;
+      g.W = w;
+      g.Cin = cin;
+      g.Cout = cout;
+      g.Ci = interior ? cin / 4 : cin;
+      g.Co = cout / 4;
+      const dim3 grid(ceil_div(t.N * h * w, kBM), ceil_div(cout, kBN), interior ? 4 : 1);
+      g.rows = rows;
+      g.psum = psum;
+      g.psq = psq;
+      if (interior)
+        conv_tile_kernel<kInterior><<<grid, kThreads, 0, stream>>>(g);
+      else
+        conv_tile_kernel<kEntry><<<grid, kThreads, 0, stream>>>(g);
+      err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return err;
     if (interior) {
-      conv_tile_kernel<T, kInterior><<<grid, kThreads, 0, stream>>>(g);
       h *= 2;
       w *= 2;
-    } else {
-      conv_tile_kernel<T, kEntry><<<grid, kThreads, 0, stream>>>(g);
     }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
     const long long count = static_cast<long long>(t.N) * h * w;
     const double n4 = 4.0 * static_cast<double>(count);
     const float unbias = static_cast<float>(n4 / (n4 - 1.0 > 1.0 ? n4 - 1.0 : 1.0));
     bn_finalize_kernel<<<cout / 4, kThreads, 0, stream>>>(
-        g.psum, g.psq, g.rows, cout / 4, static_cast<float>(count), unbias,
+        psum, psq, rows, cout / 4, static_cast<float>(count), unbias,
         static_cast<const float*>(t.scales[i]), static_cast<const float*>(t.offsets[i]),
-        static_cast<float*>(t.means[i]), static_cast<float*>(t.vars[i]), a4, b4,
-        sizeof(T) == 2);
+        static_cast<float*>(t.means[i]), static_cast<float*>(t.vars[i]), a4, b4, kMma);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     a = a4;
@@ -522,17 +1099,18 @@ cudaError_t run(const Tail& t, cudaStream_t stream) {
 
 }  // namespace
 
+// The f32 scratch siggan_train_tail needs for this shape and dtype, or -1
+// for a shape it does not take.
+extern "C" int siggan_train_tail_scratch(int L, const int* chans, int N, int H, int W,
+                                         int bf16) {
+  if (!valid_shape(L, chans, N, H, W)) return -1;
+  return static_cast<int>(scratch_floats(L, chans, N, H, W, bf16 != 0));
+}
+
 // ws[L]: packed weights; acts[L + 1]: h0, each layer's output (the last the
 // packed image); per BN layer i < L - 1: scale, offset, and the running
 // mean/var, updated in place; bias (1,) f32; scratch of scratch_floats f32;
 // chans[L + 1]: h0's channels, then each layer's output channels.
-// The f32 scratch siggan_train_tail needs for this shape, or -1 for a shape
-// it does not take.
-extern "C" int siggan_train_tail_scratch(int L, const int* chans, int N, int H, int W) {
-  if (!valid_shape(L, chans, N, H, W)) return -1;
-  return static_cast<int>(scratch_floats(L, chans, N, H, W));
-}
-
 extern "C" int siggan_train_tail(int L, const void* const* ws, void* const* acts,
                                  const void* const* scales, const void* const* offsets,
                                  void* const* means, void* const* vars,

@@ -43,7 +43,9 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """The shared library ``csrc/<name>.cu`` builds into, named by a hash of
+    its sources."""
     h = hashlib.sha256()
     for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
@@ -54,7 +56,7 @@ def _lib_path(name: str) -> Path:
 def _start(name: str) -> Tuple[subprocess.Popen, Path, Path] | None:
     """Start ``nvcc`` for one source unless its library exists; the library
     is written under a temporary name and renamed when the build succeeds."""
-    out = _lib_path(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,13 +93,17 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.
 
     ``signatures`` maps each C entry to its ``argtypes``; every entry
-    returns an ``int`` (a ``cudaError_t``).
+    returns an ``int`` (a ``cudaError_t``). Once loaded, a library is
+    returned without taking the lock.
     """
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             lib.siggan_error_string.argtypes = [ctypes.c_int]
             lib.siggan_error_string.restype = ctypes.c_char_p
             for fn, argtypes in signatures.items():
@@ -107,19 +113,36 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         return lib
 
 
+def call(lib: ctypes.CDLL, fn, args, device: torch.device, what: str) -> None:
+    """``fn(*args)``, a C entry of ``lib``, with ``device`` current (the
+    device guard is entered only when another device is), then ``check``."""
+    if device.index == torch._C._cuda_getDevice():
+        code = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args)
+    if code:
+        check(lib, code, what)
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.siggan_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require(name: str, t: torch.Tensor, dtype: torch.dtype, device, shape=None) -> None:
     """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
-    on ``device`` (of ``shape`` where given)."""
+    on ``device`` (of ``shape`` where given). A tensor that passes costs one
+    combined test; the detailed checks below only name what failed."""
+    if (t.dtype == dtype and t.device == device and t.data_ptr() % 16 == 0
+            and t.is_contiguous() and (shape is None or t.shape == tuple(shape))):
+        return
     if t.device != torch.device(device):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

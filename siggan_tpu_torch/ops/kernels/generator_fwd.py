@@ -131,7 +131,7 @@ def generator_forward(packed: Dict, z: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(z.device):
         build.check(lib, lib.siggan_gen_fc(
             z.data_ptr(), packed["wfc16"].data_ptr(), packed["bfc16"].data_ptr(),
-            h.data_ptr(), n, zdim, c0, build.stream_ptr(z)), "generator fc kernel")
+            h.data_ptr(), n, zdim, c0, build.stream_ptr(z.device)), "generator fc kernel")
         for blk in packed["blocks"]:
             h = upsample_block_taps(h, blk["taps"], blk["scale"], blk["offset"])
         _, s, _, c = h.shape
@@ -142,6 +142,6 @@ def generator_forward(packed: Dict, z: torch.Tensor) -> torch.Tensor:
         img = torch.empty((n, s, s, 1), device=z.device, dtype=torch.float32)
         build.check(lib, lib.siggan_gen_final(
             h.data_ptr(), packed["wfin"].data_ptr(), packed["bfin"].data_ptr(),
-            img.data_ptr(), n, s, c, build.stream_ptr(z)), "generator final kernel")
+            img.data_ptr(), n, s, c, build.stream_ptr(z.device)), "generator final kernel")
     LAUNCHES.add()
     return img

@@ -22,7 +22,8 @@ cotangents' dtype, as the JAX kernel does.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,61 +126,90 @@ def pack_tail_backward_reference(ws: Sequence[torch.Tensor],
                  for w, d, k in zip(ws, dps, kinds(len(ws))))
 
 
-def _call(entry: str, ks, cis, cos, ins, outs, bf16: bool, device) -> None:
-    n = len(ks)
-    ints = ctypes.c_int * n
-    ptrs = ctypes.c_void_p * n
+class _Plan:
+    """What one weight list's shapes and output dtype fix, built once: the
+    kinds and (Ci, Co), each output's (shape, stride, offset) in one buffer
+    (16-byte aligned), and the ctypes integer arrays of the call."""
+
+    def __init__(self, shapes: Sequence[Tuple[int, ...]], out_dtype: torch.dtype) -> None:
+        ks = kinds(len(shapes))
+        cis, cos = zip(*(dims(torch.empty(s, device="meta"), k) for s, k in zip(shapes, ks)))
+        self.shapes = [packed_shape(k, ci, co) for k, ci, co in zip(ks, cis, cos)]
+        isz = torch.empty((), dtype=out_dtype).element_size()
+        self.views, total = [], 0
+        for shape in self.shapes:
+            self.views.append((shape, torch.empty(shape, device="meta").stride(), total))
+            total += -(-math.prod(shape) * isz // 16) * 16 // isz
+        self.total = total
+        self.offsets = [isz * off for _, _, off in self.views]   # in bytes
+        self.ptrs = ctypes.c_void_p * len(ks)
+        ints = ctypes.c_int * len(ks)
+        self.args = (len(ks), ints(*ks), ints(*cis), ints(*cos))
+
+
+_plans: Dict[Tuple, _Plan] = {}
+
+
+def _plan(ws: Sequence[torch.Tensor], out_dtype: torch.dtype) -> _Plan:
+    key = (out_dtype, *[w.shape for w in ws])
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _Plan([tuple(w.shape) for w in ws], out_dtype)
+    return plan
+
+
+def _launch(entry: str, plan: _Plan, in_ptrs: List[int], out_ptrs: List[int], bf16: bool,
+            device: torch.device) -> None:
     lib = build.load("pack_tail", _SIGNATURES)
-    with torch.cuda.device(device):
-        code = getattr(lib, entry)(
-            n, ints(*ks), ints(*cis), ints(*cos), ptrs(*[t.data_ptr() for t in ins]),
-            ptrs(*[t.data_ptr() for t in outs]), int(bf16), build.stream_ptr(ins[0]))
-    build.check(lib, code, f"pack tail kernel ({entry})")
+    args = (*plan.args, plan.ptrs(*in_ptrs), plan.ptrs(*out_ptrs), int(bf16),
+            build.stream_ptr(device))
+    build.call(lib, getattr(lib, entry), args, device, "pack tail kernel")
 
 
 def pack_tail_launch(ws: Sequence[torch.Tensor],
                      out_dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
     """B1 on the card: f32 canonical weights -> packed weights in
-    ``out_dtype`` (bf16 or f32), one launch."""
-    if out_dtype not in (torch.bfloat16, torch.float32):
+    ``out_dtype`` (bf16 or f32), one launch. The outputs are views of one
+    buffer. Nothing that holds data is cached: the weights' pointers are
+    read on every call (the optimizer updates them in place, and a later
+    call may pass other tensors)."""
+    if out_dtype is not torch.bfloat16 and out_dtype is not torch.float32:
         raise TypeError(f"the pack kernel writes bf16 or f32, not {out_dtype}")
-    ks = kinds(len(ws))
     dev = ws[0].device
     if dev.type != "cuda":
         raise ValueError(f"the pack kernel needs CUDA tensors, got {dev}")
-    cis, cos, outs = [], [], []
-    for i, (w, k) in enumerate(zip(ws, ks)):
-        ci, co = dims(w, k)
-        build.require(f"tail weight {i}", w, torch.float32, dev)
-        cis.append(ci)
-        cos.append(co)
-        outs.append(torch.empty(packed_shape(k, ci, co), device=dev, dtype=out_dtype))
-    _call("siggan_pack_tail_fwd", ks, cis, cos, list(ws), outs,
-          out_dtype == torch.bfloat16, dev)
+    plan = _plan(ws, out_dtype)
+    ptrs = []
+    for i, w in enumerate(ws):   # one combined test each; require names a failure
+        p = w.data_ptr()
+        if p & 15 or w.dtype is not torch.float32 or w.device != dev or not w.is_contiguous():
+            build.require(f"tail weight {i}", w, torch.float32, dev)
+        ptrs.append(p)
+    buf = torch.empty(plan.total, device=dev, dtype=out_dtype)
+    base = buf.data_ptr()
+    _launch("siggan_pack_tail_fwd", plan, ptrs, [base + o for o in plan.offsets],
+            out_dtype is torch.bfloat16, dev)
     FWD_LAUNCHES.add()
-    return tuple(outs)
+    return tuple([buf.as_strided(*v) for v in plan.views])
 
 
 def pack_tail_backward_launch(ws: Sequence[torch.Tensor],
                               dps: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """B1' on the card: packed cotangents (bf16 or f32, one dtype) -> f32
     canonical gradients in the stored layouts, one launch."""
-    ks = kinds(len(ws))
     dev = ws[0].device
     if dev.type != "cuda":
         raise ValueError(f"the pack kernel needs CUDA tensors, got {dev}")
     dt = dps[0].dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the pack backward reads bf16 or f32, not {dt}")
-    cis, cos, grads = [], [], []
-    for i, (w, k, d) in enumerate(zip(ws, ks, dps)):
-        ci, co = dims(w, k)
-        build.require(f"cotangent {i}", d, dt, dev, packed_shape(k, ci, co))
-        cis.append(ci)
-        cos.append(co)
+    plan = _plan(ws, dt)
+    grads = []
+    for i, (w, d, shape) in enumerate(zip(ws, dps, plan.shapes)):
+        build.require(f"cotangent {i}", d, dt, dev, shape)
         grads.append(torch.empty(w.shape, device=dev, dtype=torch.float32))
-    _call("siggan_pack_tail_bwd", ks, cis, cos, list(dps), grads,
-          dt == torch.bfloat16, dev)
+    _launch("siggan_pack_tail_bwd", plan, [d.data_ptr() for d in dps],
+            [g.data_ptr() for g in grads], dt == torch.bfloat16, dev)
     BWD_LAUNCHES.add()
     return tuple(grads)
 

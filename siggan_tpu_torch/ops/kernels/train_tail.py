@@ -49,11 +49,13 @@ from siggan_tpu_torch.ops.norm import EPS, MOMENTUM
 from siggan_tpu_torch.ops.packed import conv3_mc_as_matmul_ihwo
 
 LAUNCHES = build.LaunchCounter()
-# Every layer's input channel count must be a multiple of the kernels'
-# reduction chunk (kBK in the .cu), so that a chunk never straddles two taps.
+# Every layer's input channel count must be a multiple of 16: the f32
+# tile's reduction chunk (kBK in the .cu) and the tensor cores' k16 step, so
+# that a chunk never straddles two taps.
 CHUNK = 16
 _SHAPE = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),   # L, channels (L + 1)
-          ctypes.c_int, ctypes.c_int, ctypes.c_int]      # N, H, W of h0
+          ctypes.c_int, ctypes.c_int, ctypes.c_int,      # N, H, W of h0
+          ctypes.c_int]                                  # bf16
 _SIGNATURES = {"siggan_train_tail_scratch": _SHAPE, "siggan_train_tail": [
     ctypes.c_int,                                   # number of conv layers L
     ctypes.POINTER(ctypes.c_void_p),                # weights, L
@@ -88,6 +90,31 @@ def stats_to_affine(ssum: torch.Tensor, ssq: torch.Tensor, scale: torch.Tensor,
     a = scale.float() * torch.rsqrt(var + EPS)
     b = offset.float() - mean * a
     return a.repeat(4), b.repeat(4), new_state
+
+
+def tail_cost(batch: int, side: int, canonical: Sequence[Tuple[int, int]],
+              itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call at the least the function needs: the
+    yardstick of B2's bound. ``canonical`` is the (Ci, Co) of each tail
+    ConvT block, entry first; ``side`` is h0's side; ``itemsize`` the
+    compute dtype's. FLOPs: every tail ConvT at 16 Ci Co H_in W_in MACs and
+    the final conv at 9 C over the image. Bytes: h0, the packed weights and
+    the image (compute dtype), the BN vectors (f32); and each pre-BN
+    intermediate written once and read once, since train-mode BN needs the
+    whole batch's statistics before the next layer may read it."""
+    macs = acts = 0
+    s = side
+    for ci, co in canonical:
+        macs += 16 * ci * co * s * s
+        s *= 2
+        acts += batch * s * s * co          # its packed output (N, s/2, s/2, 4Co)
+    c = canonical[-1][1]
+    macs += 9 * c * s * s
+    ci0, co0 = canonical[0]
+    weights = 36 * ci0 * co0 + sum(256 * ci * co for ci, co in canonical[1:]) + 144 * c
+    nbytes = (itemsize * (batch * side * side * ci0 + weights + batch * s * s + 2 * acts)
+              + 4 * (4 * sum(co for _, co in canonical) + 1))
+    return 2.0 * batch * macs, float(nbytes)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -154,61 +181,88 @@ def _check_layers(h0: torch.Tensor, packed_ws: Sequence[torch.Tensor]) -> List[i
     return chans
 
 
+class _Plan:
+    """What the shapes and the compute dtype of a call fix, built once: the
+    channels (as the C array too), the intermediates' and the scratch's
+    byte offsets in one buffer, and the image's shape."""
+
+    def __init__(self, lib, h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
+                 compute_dtype: torch.dtype) -> None:
+        chans = _check_layers(h0, packed_ws)
+        self.n_layers = n_layers = len(packed_ws)
+        n, h, w, _ = h0.shape
+        self.c_chans = (ctypes.c_int * len(chans))(*chans)
+        self.bf16 = int(compute_dtype == torch.bfloat16)
+        # f32 scratch for the per-block partial statistics and folded affines
+        # (and, in bf16, the weights' canonical taps); its layout follows the
+        # kernels' tiling, which only the library knows.
+        self.scratch_floats = lib.siggan_train_tail_scratch(n_layers, self.c_chans, n, h, w,
+                                                            self.bf16)
+        if self.scratch_floats < 0:
+            raise ValueError(f"the train-tail kernel does not take channels {chans} at "
+                             f"({n}, {h}, {w})")
+        isz = torch.empty((), dtype=compute_dtype).element_size()
+        self.offsets, nbytes = [], 0
+        for i in range(n_layers - 1):   # the intermediates, then the scratch
+            if i > 0:
+                h, w = 2 * h, 2 * w
+            self.offsets.append(nbytes)
+            nbytes += -(-n * h * w * chans[i + 1] * isz // 256) * 256
+        self.scratch_offset = nbytes
+        self.nbytes = nbytes + 4 * self.scratch_floats
+        self.image = (n, h, w, chans[-1])
+        self.grid = (n, h0.shape[1], h0.shape[2])   # N, H, W of h0
+        self.bn_shapes = [(c // 4,) for c in chans[1:-1]]
+
+
+_plans: Dict[Tuple, _Plan] = {}
+
+
 def tail_forward_train_launch(
         h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
         bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
         compute_dtype: torch.dtype) -> torch.Tensor:
     """B2 on the card: one host call; writes the new running statistics into
-    ``bn_states`` and returns the packed image."""
+    ``bn_states`` and returns the packed image. Nothing that holds data is
+    cached: every pointer is read on every call."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the train-tail kernel runs bf16 or f32, not {compute_dtype}")
     dev = h0.device
     if dev.type != "cuda":
         raise ValueError(f"the train-tail kernel needs CUDA tensors, got {dev}")
-    chans = _check_layers(h0, packed_ws)
-    n_layers = len(packed_ws)
-    n_bn = n_layers - 1
+    lib = build.load("train_tail", _SIGNATURES)
+    key = (compute_dtype, h0.shape, *[w.shape for w in packed_ws])
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _Plan(lib, h0, packed_ws, compute_dtype)
+    n_bn = plan.n_layers - 1
     if len(bn_params) != n_bn or len(bn_states) != n_bn:
-        raise ValueError(f"{n_layers} tail weights need {n_bn} BatchNorms")
-    n, h, w, _ = h0.shape
+        raise ValueError(f"{plan.n_layers} tail weights need {n_bn} BatchNorms")
     build.require("h0", h0, compute_dtype, dev)
     for i, t in enumerate(packed_ws):
         build.require(f"tail weight {i}", t, compute_dtype, dev)
-    for i in range(n_bn):
-        c = chans[i + 1] // 4
-        for name, t in (("scale", bn_params[i][0]), ("offset", bn_params[i][1]),
-                        ("mean", bn_states[i]["mean"]), ("var", bn_states[i]["var"])):
-            build.require(f"BN {i} {name}", t, torch.float32, dev, (c,))
+    for i, ((scale, offset), st, c) in enumerate(zip(bn_params, bn_states, plan.bn_shapes)):
+        for name, t in (("scale", scale), ("offset", offset), ("mean", st["mean"]),
+                        ("var", st["var"])):
+            build.require(f"BN {i} {name}", t, torch.float32, dev, c)
     build.require("final bias", final_bias, torch.float32, dev, (1,))
 
-    acts = [h0]
-    hh, ww = h, w
-    for i in range(n_layers):
-        if 0 < i < n_layers - 1:
-            hh, ww = 2 * hh, 2 * ww
-        acts.append(torch.empty((n, hh, ww, chans[i + 1]), device=dev, dtype=compute_dtype))
-    ptrs = ctypes.c_void_p
-    arr = lambda ts: (ptrs * len(ts))(*[t.data_ptr() for t in ts])  # noqa: E731
-    c_chans = (ctypes.c_int * len(chans))(*chans)
-    lib = build.load("train_tail", _SIGNATURES)
-    # f32 scratch for the per-block partial statistics and folded affines;
-    # its layout follows the kernels' tiling, which only the library knows.
-    floats = lib.siggan_train_tail_scratch(n_layers, c_chans, n, h, w)
-    if floats < 0:
-        raise ValueError(f"the train-tail kernel does not take channels {chans} at "
-                         f"({n}, {h}, {w})")
-    scratch = torch.empty(floats, device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        code = lib.siggan_train_tail(
-            n_layers, arr(packed_ws), arr(acts),
-            arr([p[0] for p in bn_params]), arr([p[1] for p in bn_params]),
-            arr([s["mean"] for s in bn_states]), arr([s["var"] for s in bn_states]),
-            final_bias.data_ptr(), scratch.data_ptr(), scratch.numel(), c_chans, n, h, w,
-            int(compute_dtype == torch.bfloat16), build.stream_ptr(h0))
-    build.check(lib, code, "train-tail kernel")
+    buf = torch.empty(plan.nbytes, device=dev, dtype=torch.uint8)
+    img = torch.empty(plan.image, device=dev, dtype=compute_dtype)
+    base = buf.data_ptr()
+    ptrs = lambda xs: (ctypes.c_void_p * len(xs))(*xs)  # noqa: E731
+    args = (plan.n_layers, ptrs([t.data_ptr() for t in packed_ws]),
+            ptrs([h0.data_ptr(), *[base + o for o in plan.offsets], img.data_ptr()]),
+            ptrs([p[0].data_ptr() for p in bn_params]),
+            ptrs([p[1].data_ptr() for p in bn_params]),
+            ptrs([s["mean"].data_ptr() for s in bn_states]),
+            ptrs([s["var"].data_ptr() for s in bn_states]),
+            final_bias.data_ptr(), base + plan.scratch_offset, plan.scratch_floats,
+            plan.c_chans, *plan.grid, plan.bf16, build.stream_ptr(dev))
+    build.call(lib, lib.siggan_train_tail, args, dev, "train-tail kernel")
     LAUNCHES.add()
-    return acts[-1]
+    return img
 
 
 def tail_forward_train(

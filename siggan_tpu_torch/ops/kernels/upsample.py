@@ -114,7 +114,7 @@ def _launch(x: torch.Tensor, taps: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         code = lib.siggan_upsample_block(x.data_ptr(), taps.data_ptr(), scale.data_ptr(),
                   offset.data_ptr(), out.data_ptr(), n, h, w, cin, cout,
-                  int(relu), build.stream_ptr(x))
+                  int(relu), build.stream_ptr(x.device))
     build.check(lib, code, "upsample block kernel")
     LAUNCHES.add()
     return out

@@ -134,11 +134,11 @@ def test_pack_tail_kernels(dev, base, dtype):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-def train_tail_case(dev, size, dtype, batch=64, seed=0):
-    """The full-width tail of the ``size`` px generator: B1's packed weights
-    in ``dtype``, random BN affines and running statistics, and a ReLU'd
-    random h0 at the tail entry."""
-    cfg = ModelConfig(image_size=size)
+def train_tail_case(dev, size, dtype, batch=64, seed=0, base=256):
+    """The tail of the ``size`` px generator (full width at base 256): B1's
+    packed weights in ``dtype``, random BN affines and running statistics,
+    and a ReLU'd random h0 at the tail entry."""
+    cfg = ModelConfig(image_size=size, base_features=base)
     g = init_fn(rng.generator(seed, rng.STREAM_INIT_G), cfg, dev)
     gen = torch.Generator().manual_seed(seed)
     tail = g.blocks[g.tail_entry():]
@@ -200,6 +200,49 @@ def test_train_tail_kernel(dev, size, dtype):
     for a, b in zip(batch_stats(new, states), batch_stats(ref_new, states)):
         torch.testing.assert_close(a["mean"], b["mean"], **st_tol)
         torch.testing.assert_close(a["var"], b["var"], **st_tol)
+
+
+@pytest.mark.parametrize("size", [64, 128])
+@pytest.mark.parametrize("base", [32, 256])
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_tail_kernel_shapes(dev, size, base, batch, dtype):
+    """B2 where the tiles meet ragged pixel counts (batch 1 and 3: fewer
+    than 128 pixels, or not a multiple) and narrow channels (base 32: 16
+    packed channels, phases of 4, chunks that straddle them), against the
+    plain version, with two launches giving the same bits."""
+    h0, ws, bn, states, bias = train_tail_case(dev, size, dtype, batch=batch, base=base)
+    new, new2 = clone_states(states), clone_states(states)
+    with torch.no_grad():
+        img = tt.tail_forward_train(h0, ws, bn, new, bias, dtype)
+        again = tt.tail_forward_train(h0, ws, bn, new2, bias, dtype)
+        ref, ref_new = tt.tail_forward_train_reference(h0, ws, bn, states, bias, dtype)
+    assert img.shape == ref.shape and img.dtype == dtype
+    assert torch.equal(img, again)
+    for a, b in zip(new, new2):
+        assert torch.equal(a["mean"], b["mean"]) and torch.equal(a["var"], b["var"])
+    img_tol, st_tol = tail_tols(dtype)
+    torch.testing.assert_close(img.float(), ref.float(), **img_tol)
+    for a, b in zip(batch_stats(new, states), batch_stats(ref_new, states)):
+        torch.testing.assert_close(a["mean"], b["mean"], **st_tol)
+        torch.testing.assert_close(a["var"], b["var"], **st_tol)
+
+
+def test_pack_tail_kernel_takes_new_shapes_dtypes_and_weights(dev):
+    """B1 bit-equal to its plain version call after call while the shapes,
+    the dtype and the weight tensors change, and after the weights are
+    updated in place: no descriptor or pointer of an earlier call survives."""
+    for seed, (base, dtype) in enumerate([(32, torch.bfloat16), (256, torch.bfloat16),
+                                          (256, torch.float32), (32, torch.float32),
+                                          (32, torch.bfloat16), (256, torch.bfloat16)]):
+        ws = tail_weights(dev, base, seed)
+        for _ in range(2):
+            got = pt.pack_tail_launch(ws, dtype)
+            for a, b in zip(got, pt.pack_tail_reference(ws, dtype)):
+                assert a.dtype == dtype and torch.equal(a, b)
+            with torch.no_grad():
+                for w in ws:
+                    w.mul_(-1.5).add_(0.25)
 
 
 def test_train_tail_updates_states_in_place(dev):

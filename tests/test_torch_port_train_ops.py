@@ -62,6 +62,28 @@ def test_pack_tail_matches_pallas_and_its_vjp(odt, jdt):
         np.testing.assert_allclose(back.numpy(), np.asarray(r), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pack_tail_plan_lays_out_one_aligned_buffer(dtype):
+    """B1's host plan, built once per shapes and dtype: the consumer shapes
+    of the plain version, outputs at 16-byte aligned offsets of one buffer
+    that do not overlap, and the kinds and (Ci, Co) the kernel is given."""
+    shapes = [(128, 64, 4, 4), (64, 32, 4, 4), (32, 32, 4, 4), (1, 32, 3, 3)]
+    ws = [torch.zeros(s) for s in shapes]
+    plan = pt._plan(ws, dtype)
+    assert pt._plan([torch.ones(s) for s in shapes], dtype) is plan
+    assert pt._plan(ws, torch.float32 if dtype == torch.bfloat16 else torch.bfloat16) is not plan
+    assert plan.shapes == [tuple(r.shape) for r in pt.pack_tail_reference(ws, dtype)]
+    isz = 2 if dtype == torch.bfloat16 else 4
+    ends = [off for _, _, off in plan.views[1:]] + [plan.total]
+    for (shape, stride, off), end, want in zip(plan.views, ends, plan.shapes):
+        assert shape == want and stride == torch.empty(shape).stride()
+        assert off * isz % 16 == 0 and 0 <= end - off - int(np.prod(shape)) < 16 // isz
+    assert plan.offsets == [isz * off for _, _, off in plan.views]
+    n, ks, cis, cos = plan.args
+    assert (n, list(ks), list(cis), list(cos)) == (4, [0, 1, 1, 2], [128, 64, 32, 32],
+                                                   [64, 32, 32, 1])
+
+
 @pytest.mark.parametrize("fn", ["pack_convt_kernel_out_mc", "pack_convt_kernel_both_mc",
                                 "pack_conv3_kernel_both_mc", "pack_first_conv_kernel"])
 def test_pack_laws_match_jax(fn):
