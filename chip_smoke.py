@@ -8,11 +8,19 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel from ``siggan_tpu_torch/csrc`` (one nvcc per source,
      started together) and print the build time and ptxas summaries, and
-     the tensor-core instructions (HMMA/HGMMA) in B2's SASS per kernel,
-     failing if its bf16 conv tile has none;
-  3. hold each kernel against its plain PyTorch version at the full-width
-     64 px generator's shapes (batch 64, and batch 10 for the generator),
-     and time kernel, plain version and a library yardstick with CUDA events;
+     the tensor-core instructions (HMMA/HGMMA) per kernel in the SASS of
+     B2, B3 and B4, failing if B2's bf16 conv tile, B3's tile kernel (in
+     both libraries that hold it) or B4's fused block-4 + final conv
+     kernel has none;
+  3. hold B3 and B4 against their plain PyTorch versions at the full-width
+     64 px generator's shapes (batch 64 and 10), and time kernel, plain
+     version and a library yardstick with CUDA events; B3's totals sum the
+     shapes of blocks 1-3, the ones the served forward runs it at (block
+     4's shape is checked and timed beside them); print B4's host call,
+     its device time per kernel (profiler), and the bounds: 3xTF32 on the
+     tensor cores (three times the FLOPs of the blocks and the final conv
+     at the TF32 peak, plus the fc's at the f32 CUDA-core rate) and all
+     FLOPs at the CUDA-core rate;
   4. serve a full-width generator (random weights from a seed) through the
      port's HTTP server on port 0, send five requests, and check that the
      generator kernel's launch counters rose, that the images decode, repeat
@@ -70,11 +78,12 @@ import zipfile
 from pathlib import Path
 
 F32_PEAK_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
+TF32_PEAK_FLOPS = 494.7e12 # H100 SXM dense TF32 tensor cores (data sheet)
 BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 RTOL, ATOL = 1e-4, 1e-4
-TOL_NOTE = ("allclose rtol 1e-4 atol 1e-4: f32 FMA sums taken in another "
-            "order than the plain version's matmuls")
+TOL_NOTE = ("allclose rtol 1e-4 atol 1e-4: 3xTF32 products (B3, B4's blocks) or f32 "
+            "FMAs, summed in f32 in another order than the plain version's matmuls")
 
 
 def nvidia_smi_line() -> str:
@@ -192,8 +201,19 @@ def calibrate(model, z) -> None:
         model.final.weight.mul_(1.5 / float(pre.std()))
 
 
+def tensor_core_bound(tc_flops: float, core_flops: float, nbytes: float):
+    """(bound_ms, bound_by, cuda_core_bound_ms). The tensor-core FLOPs run as
+    3xTF32, three passes at the TF32 peak; the rest at the f32 CUDA-core
+    rate; the bound is the larger of that and the byte time. The CUDA-core
+    bound puts every FLOP at the f32 rate."""
+    t_ops = 3 * tc_flops / TF32_PEAK_FLOPS + core_flops / F32_PEAK_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            (tc_flops + core_flops) / F32_PEAK_FLOPS * 1e3)
+
+
 def check_kernels(model, dev):
-    """Phase 3: every kernel against its plain version, with timings."""
+    """Phase 3: B3 and B4 against their plain versions, with timings."""
     import torch
     import torch.nn.functional as F
     from siggan_tpu_torch.core import rng
@@ -204,59 +224,76 @@ def check_kernels(model, dev):
     g = rng.generator(0, rng.STREAM_FIXED)
     z64 = torch.randn(64, model.cfg.latent_dim, generator=g).to(dev)
     z10 = torch.randn(10, model.cfg.latent_dim, generator=g).to(dev)
-
-    # B3 at the four block shapes, on the generator's own block inputs.
-    with torch.no_grad():
-        c0 = packed["bfc16"].shape[-1]
-        h = torch.relu(torch.einsum("nk,pkc->npc", z64, packed["wfc16"])
-                       + packed["bfc16"]).reshape(64, 4, 4, c0)
-    b3 = {"max_abs_diff": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
-          "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0,
-          "shapes": []}
-    cases = []
-    for i, (blk, pb) in enumerate(zip(model.blocks, packed["blocks"])):
-        cases.append((f"block{i + 1}", h, blk.weight, pb, True))
-        h = up.convt_phase_reference(h, pb["taps"], pb["scale"], pb["offset"])
-    x4, w4 = cases[-1][1], model.blocks[-1].weight
+    c0 = packed["bfc16"].shape[-1]
     g2 = torch.Generator().manual_seed(2)
-    relu_off = {"taps": packed["blocks"][-1]["taps"],
-                "scale": (torch.rand(w4.shape[1], generator=g2) + 0.5).to(dev),
+    last, w4 = packed["blocks"][-1], model.blocks[-1].weight
+    relu_off = {**last, "scale": (torch.rand(w4.shape[1], generator=g2) + 0.5).to(dev),
                 "offset": torch.randn(w4.shape[1], generator=g2).to(dev)}
-    cases.append(("block4_no_relu", x4, w4, relu_off, False))
-    for name, x, w_iohw, pb, relu in cases:
-        n, hh, ww, cin = x.shape
-        cout = w_iohw.shape[1]
-        w9 = up.pack_w9(w_iohw.permute(2, 3, 0, 1).contiguous())
-        got = up.upsample_block(x, w9, pb["scale"], pb["offset"], relu=relu)
-        ref = up.upsample_block_reference(x, w9, pb["scale"], pb["offset"], relu=relu)
-        if not relu and float(got.min()) >= 0:
-            raise AssertionError(f"{name}: ReLU was not off")
-        err = compare(f"upsample_block {name}", got, ref)
-        k_ms = time_ms(lambda: up.upsample_block_taps(x, pb["taps"], pb["scale"],
-                                                      pb["offset"], relu))
-        p_ms = time_ms(lambda: up.upsample_block_reference(x, w9, pb["scale"],
-                                                           pb["offset"], relu))
-        x_nchw = x.permute(0, 3, 1, 2)
-        l_ms = time_ms(lambda: F.conv_transpose2d(x_nchw, w_iohw, stride=2, padding=1))
-        flops = 2.0 * 16 * n * cin * cout * hh * ww
-        nbytes = 4.0 * (x.numel() + 16 * cin * cout + 2 * cout + got.numel())
-        b_ms, b_by = bound(flops, nbytes)
-        print(f"upsample_block {name} x{tuple(x.shape)}->{cout} relu={relu}: "
-              f"max_abs_diff {err:.3e}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"conv_transpose2d {l_ms:.4f} ms (no affine epilogue), "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        b3["shapes"].append({"case": name, "x": list(x.shape), "cout": cout,
-                             "relu": relu, "max_abs_diff": err, "kernel_ms": k_ms,
-                             "plain_ms": p_ms, "library_ms": l_ms,
-                             "bound_ms": b_ms, "bound_by": b_by})
-        b3["max_abs_diff"] = max(b3["max_abs_diff"], err)
-        if relu:  # the four blocks of one batch-64 forward
-            for k, v in (("kernel_ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                         ("flops", flops), ("bytes", nbytes)):
-                b3[k] += v
-    b3["bound_ms"], b3["bound_by"] = bound(b3["flops"], b3["bytes"])
 
-    # B4 at batch 64 and at an odd batch.
+    def block_cases(z):
+        """B3's inputs at the four block shapes, the generator's own block
+        inputs, and block 4 again with ReLU off."""
+        h = torch.relu(torch.einsum("nk,pkc->npc", z, packed["wfc16"])
+                       + packed["bfc16"]).reshape(z.shape[0], 4, 4, c0)
+        cases = []
+        for i, (blk, pb) in enumerate(zip(model.blocks, packed["blocks"])):
+            cases.append((f"block{i + 1}", h, blk.weight, pb, True))
+            h = up.convt_phase_reference(h, pb["taps"], pb["scale"], pb["offset"])
+        return cases + [("block4_no_relu", cases[-1][1], w4, relu_off, False)]
+
+    # B3 at the four block shapes, batch 64 (timed) and 10. The totals sum
+    # blocks 1-3: the served forward runs block 4 in its fused kernel.
+    on_path = ("block1", "block2", "block3")
+    b3 = {"max_abs_diff": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+          "tc_flops": 0.0, "bytes": 0.0, "shapes": []}
+    for z in (z64, z10):
+        cases = block_cases(z)
+        for name, x, w_iohw, pb, relu in cases:
+            n, hh, ww, cin = x.shape
+            cout = w_iohw.shape[1]
+            w9 = up.pack_w9(w_iohw.permute(2, 3, 0, 1).contiguous())
+            got = up.upsample_block(x, w9, pb["scale"], pb["offset"], relu=relu)
+            ref = up.upsample_block_reference(x, w9, pb["scale"], pb["offset"], relu=relu)
+            if not relu and float(got.min()) >= 0:
+                raise AssertionError(f"{name}: ReLU was not off")
+            err = compare(f"upsample_block {name} n={n}", got, ref)
+            b3["max_abs_diff"] = max(b3["max_abs_diff"], err)
+            if n != 64:
+                print(f"upsample_block {name} x{tuple(x.shape)}->{cout} relu={relu}: "
+                      f"max_abs_diff {err:.3e}", flush=True)
+                continue
+            k_ms = time_ms(lambda: up.upsample_block_taps(x, pb["taps"], pb["scale"],
+                                                          pb["offset"], relu, pb["taps_mma"]))
+            p_ms = time_ms(lambda: up.upsample_block_reference(x, w9, pb["scale"],
+                                                               pb["offset"], relu))
+            x_nchw = x.permute(0, 3, 1, 2)
+            l_ms = time_ms(lambda: F.conv_transpose2d(x_nchw, w_iohw, stride=2, padding=1))
+            flops = 2.0 * 16 * n * cin * cout * hh * ww
+            nbytes = 4.0 * (x.numel() + 2 * 16 * cin * cout + 2 * cout + got.numel())
+            b_ms, b_by, core_ms = tensor_core_bound(flops, 0.0, nbytes)
+            print(f"upsample_block {name} x{tuple(x.shape)}->{cout} relu={relu}: "
+                  f"max_abs_diff {err:.3e}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"conv_transpose2d {l_ms:.4f} ms (no affine epilogue), "
+                  f"bound {b_ms:.4f} ms ({b_by}, 3xTF32), CUDA-core bound {core_ms:.4f} ms",
+                  flush=True)
+            b3["shapes"].append({"case": name, "x": list(x.shape), "cout": cout,
+                                 "relu": relu, "on_main_path": name in on_path,
+                                 "max_abs_diff": err, "kernel_ms": k_ms,
+                                 "plain_ms": p_ms, "library_ms": l_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "cuda_core_bound_ms": core_ms})
+            if name in on_path:
+                for k, v in (("kernel_ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                             ("tc_flops", flops), ("bytes", nbytes)):
+                    b3[k] += v
+    b3["bound_ms"], b3["bound_by"], b3["cuda_core_bound_ms"] = tensor_core_bound(
+        b3["tc_flops"], 0.0, b3["bytes"])
+    cases = block_cases(z64)
+    _, b3["device_ms"], _ = device_time(lambda: [
+        up.upsample_block_taps(x, pb["taps"], pb["scale"], pb["offset"], True, pb["taps_mma"])
+        for name, x, _, pb, _ in cases if name in on_path])
+
+    # B4 at batch 64 and at an odd batch; two launches give the same bits.
     b4 = {"max_abs_diff": 0.0}
     for z in (z64, z10):
         img = gf.generator_forward(packed, z)
@@ -265,33 +302,39 @@ def check_kernels(model, dev):
             raise AssertionError(f"generator_forward shape {tuple(img.shape)}")
         if float(img.std()) <= 0.1:
             raise AssertionError(f"image std {float(img.std()):.3f}: images too flat")
+        if not torch.equal(img, gf.generator_forward(packed, z)):
+            raise AssertionError("generator_forward: two launches differ")
         b4["max_abs_diff"] = max(b4["max_abs_diff"],
                                  compare(f"generator_forward n={z.shape[0]}", img, ref))
     b4["kernel_ms"] = time_ms(lambda: gf.generator_forward(packed, z64))
     per, b4["device_ms"], _ = device_time(lambda: gf.generator_forward(packed, z64))
+    b4["device_kernels"] = per
     for name, ms in sorted(per.items(), key=lambda kv: -kv[1]):
         print(f"  generator_forward device time: {ms:.4f} ms  {name[:90]}", flush=True)
-    _, b3["device_ms"], _ = device_time(lambda: [
-        up.upsample_block_taps(x, pb["taps"], pb["scale"], pb["offset"], True)
-        for _, x, _, pb, relu in cases if relu])
     b4["plain_ms"] = time_ms(lambda: gf.generator_forward_reference(packed, z64))
     with torch.no_grad():
         b4["library_ms"] = time_ms(lambda: model(z64, None, torch.float32))
     zdim, c = z64.shape[1], packed["wfin"].shape[2]
-    macs = zdim * 16 * c0 + 9 * c * 64 * 64 + sum(
+    core_macs = zdim * 16 * c0   # the fc, on the CUDA cores
+    tc_macs = 9 * c * 64 * 64 + sum(   # the blocks and the final conv, 3xTF32
         16 * b["taps"].shape[3] * b["taps"].shape[4] * (4 * 2 ** i) ** 2
         for i, b in enumerate(packed["blocks"]))
     weights = sum(t.numel() for t in (packed["wfc16"], packed["bfc16"],
                                       packed["wfin"], packed["bfin"]))
     weights += sum(b[k].numel() for b in packed["blocks"]
-                   for k in ("taps", "scale", "offset"))
-    b4["flops"], b4["bytes"] = 2.0 * 64 * macs, 4.0 * (z64.numel() + weights + 64 * 64 * 64)
-    b4["bound_ms"], b4["bound_by"] = bound(b4["flops"], b4["bytes"])
+                   for k in ("taps_mma", "scale", "offset"))
+    b4["flops"] = 2.0 * 64 * (core_macs + tc_macs)
+    b4["bytes"] = 4.0 * (z64.numel() + weights + 64 * 64 * 64)
+    b4["bound_ms"], b4["bound_by"], b4["cuda_core_bound_ms"] = tensor_core_bound(
+        2.0 * 64 * tc_macs, 2.0 * 64 * core_macs, b4["bytes"])
     print(f"generator_forward batch 64: max_abs_diff {b4['max_abs_diff']:.3e}, "
-          f"kernel {b4['kernel_ms']:.4f} ms, plain {b4['plain_ms']:.4f} ms, "
-          f"cuDNN module path f32 {b4['library_ms']:.4f} ms, "
-          f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}, "
-          f"{b4['flops'] / 1e9:.3f} GFLOP, {b4['bytes'] / 1e6:.2f} MB)", flush=True)
+          f"host call {b4['kernel_ms']:.4f} ms (device {fmt_ms(b4['device_ms'])}), "
+          f"plain {b4['plain_ms']:.4f} ms, cuDNN module path f32 {b4['library_ms']:.4f} ms, "
+          f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}; blocks and final conv 3xTF32 at "
+          f"{TF32_PEAK_FLOPS / 1e12:.1f} TFLOP/s, fc at "
+          f"{F32_PEAK_FLOPS / 1e12:.0f}; {b4['flops'] / 1e9:.3f} GFLOP, "
+          f"{b4['bytes'] / 1e6:.2f} MB), CUDA-core bound {b4['cuda_core_bound_ms']:.4f} ms",
+          flush=True)
     return b3, b4
 
 
@@ -928,12 +971,23 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    sass = tensor_core_sass("train_tail")
-    for fn, count in sorted(sass.items()):
-        print(f"  train_tail SASS: {count} tensor-core instructions in {fn}", flush=True)
-    tiles = {fn: c for fn, c in sass.items() if "convt_mma_kernel" in fn}
-    if not tiles or min(tiles.values()) == 0:
-        raise AssertionError(f"B2's bf16 conv tile has no tensor-core instructions: {tiles}")
+    sass = {lib: tensor_core_sass(lib) for lib in ("train_tail", "upsample", "generator_fwd")}
+    for lib, counts in sass.items():
+        for fn, count in sorted(counts.items()):
+            print(f"  {lib} SASS: {count} tensor-core instructions in {fn}", flush=True)
+
+    def tc_kernels(lib, names):
+        """The tensor-core instruction counts of ``lib``'s kernels whose name
+        holds one of ``names``; fails if one of those names has none."""
+        found = {fn: c for fn, c in sass[lib].items() if any(k in fn for k in names)}
+        for k in names:
+            counts = [c for fn, c in found.items() if k in fn]
+            if not counts or min(counts) == 0:
+                raise AssertionError(f"{lib}: {k} has no tensor-core instructions: {found}")
+        return found
+    tiles = tc_kernels("train_tail", ["convt_mma_kernel"])
+    b3_sass = tc_kernels("upsample", ["convt_tile_kernel"])
+    b4_sass = tc_kernels("generator_fwd", ["convt_tile_kernel", "gen_tail_kernel"])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -965,12 +1019,21 @@ def main() -> int:
 
     b4_line = entry("generator_forward", "cuda", "siggan_tpu_torch/csrc/generator_fwd.cu",
                     "siggan_tpu/ops/pallas/generator_fwd.py:142", b4)
-    b4_line["library"] = "port module forward, cuDNN f32, TF32 off (batch 64)"
+    b4_line.update(library="port module forward, cuDNN f32, TF32 off (batch 64); bound: "
+                           "the FLOPs of the blocks and the final conv as 3xTF32 at the TF32 "
+                           "dense peak plus the fc's at the f32 CUDA-core peak "
+                           "(cuda_core_bound_ms: all FLOPs at the f32 CUDA-core peak)",
+                   tensor_core_sass=b4_sass, cuda_core_bound_ms=b4["cuda_core_bound_ms"],
+                   device_kernels=b4["device_kernels"])
     b3_line = entry("upsample_block", "cuda", "siggan_tpu_torch/csrc/convt_phase.cuh",
                     "siggan_tpu/ops/pallas/upsample.py:89", b3)
-    b3_line["library"] = ("F.conv_transpose2d (no affine epilogue); times are sums "
-                          "over the four block shapes at batch 64")
-    b3_line["shapes"] = b3["shapes"]
+    b3_line.update(library="F.conv_transpose2d (no affine epilogue); times and bounds are "
+                           "sums over the shapes of blocks 1-3 at batch 64, the ones the "
+                           "served forward launches (block 4's shape, off the main path, is "
+                           "in shapes); bound: 3xTF32 at the TF32 dense peak "
+                           "(cuda_core_bound_ms: f32 CUDA-core peak)",
+                   shapes=b3["shapes"], tensor_core_sass=b3_sass,
+                   cuda_core_bound_ms=b3["cuda_core_bound_ms"])
     b1_tol = "torch.equal (a copy and a cast)"
     b1_line = entry("pack_tail", "cuda", "siggan_tpu_torch/csrc/pack_tail.cu",
                     "siggan_tpu/ops/packed.py:636", b1["bfloat16"]["fwd"])

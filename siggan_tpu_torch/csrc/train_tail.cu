@@ -76,6 +76,7 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
@@ -384,26 +385,10 @@ __device__ __forceinline__ int swz(int r, int b) {
   return r * kRowBytes + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
 }
 
-// cp.async of `bytes` (16 or 8) bytes, of which `fill` are read and the
-// rest zeroed.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(fill)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(fill)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// cp.async of 16 or 8 bytes with zero fill (async_copy.cuh).
+using siggan::cp_async;
+using siggan::cp_async_commit;
+using siggan::cp_async_wait_all;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

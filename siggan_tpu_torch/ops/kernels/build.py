@@ -162,8 +162,8 @@ class LaunchCounter:
     def __init__(self) -> None:
         self.count = 0
 
-    def add(self) -> None:
-        self.count += 1
+    def add(self, n: int = 1) -> None:
+        self.count += n
 
     def reset(self) -> None:
         self.count = 0

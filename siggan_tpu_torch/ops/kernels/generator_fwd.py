@@ -2,36 +2,38 @@
 
 Port of ``siggan_tpu/ops/pallas/generator_fwd.py`` (``pack_block_taps``,
 ``pack_generator``, ``generator_forward``). On the card ``generator_forward``
-is one host call that launches, in order on the current stream, the fc
-kernel (``csrc/generator_fwd.cu``), the upsample block kernel of
-``csrc/convt_phase.cuh`` once per block (through
-``upsample.upsample_block_taps``), and the final 3x3 conv + tanh kernel.
-Intermediates live in device memory (see the source note for why the TPU
-design of one kernel with every activation on chip does not carry over).
+is one ctypes call, ``siggan_gen_forward`` (``csrc/generator_fwd.cu``),
+which launches in order on the current stream the fc kernel, the upsample
+block kernel of ``csrc/convt_phase.cuh`` (B3) for blocks 1-3, and one kernel
+that runs block 4 and the final 3x3 conv + tanh with block 4's output kept
+in shared memory. The blocks and the final conv run on the tensor cores in
+3xTF32, the fc in f32 on the CUDA cores. Shapes and dtypes are checked once,
+when ``pack_generator`` builds the packed weights on the card (``_Plan``),
+and again only when a tensor of the packed dict has been replaced; a call
+checks ``z`` and reads the weight pointers from the dict.
 
-A CPU tensor takes ``generator_forward_reference``: plain PyTorch with the
-same arithmetic (16 per-pixel fc matmuls with BN folded in, per-phase tap
-matmuls, depth-to-space, 9-tap final conv). The kernel takes any batch size;
-there is no tile padding.
+A CPU tensor takes ``generator_forward_reference``: plain PyTorch in f32
+with the same arithmetic (16 per-pixel fc matmuls with BN folded in,
+per-phase tap matmuls, depth-to-space, 9-tap final conv). The kernel takes
+any batch size; there is no tile padding.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
 from siggan_tpu_torch.models.generator import Generator
 from siggan_tpu_torch.ops.kernels import build
+from siggan_tpu_torch.ops.kernels import upsample
 from siggan_tpu_torch.ops.kernels.upsample import (
-    convt_phase_reference, fold_bn_affine, upsample_block_taps)
+    KC, NT, convt_phase_reference, fold_bn_affine, mma_taps)
 
 LAUNCHES = build.LaunchCounter()
-_SIGNATURES = {
-    "siggan_gen_fc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "siggan_gen_final": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-}
+_SIGNATURES = {"siggan_gen_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]}
+_WEIGHTS = 16   # the tensors siggan_gen_forward reads
 
 
 def pack_block_taps(w: torch.Tensor) -> torch.Tensor:
@@ -63,8 +65,12 @@ def pack_generator(model: Generator) -> Dict:
 
     Returns f32, contiguous tensors on the model's device: ``wfc16`` (16,
     zdim, C0) and ``bfc16`` (16, C0), the fc split per output pixel (feature
-    index (a*4+b)*C0 + c); per block ``taps`` (4, 2, 2, Cin, Cout) and the
-    folded ``scale``/``offset`` (Cout,); ``wfin`` (3, 3, C, 1), ``bfin`` (1,).
+    index (a*4+b)*C0 + c); per block ``taps`` (4, 2, 2, Cin, Cout), their
+    TF32 hi and lo parts in the kernel's layout ``taps_mma``
+    (``upsample.mma_taps``) and the folded ``scale``/``offset`` (Cout,);
+    ``wfin`` (3, 3, C, 1), ``bfin`` (1,). On the card also ``plan``, the
+    kernel's checked arguments. The card reads ``taps_mma`` and the plain
+    version ``taps``: a changed block is packed again, never edited in place.
     """
     if not kernel_supported(model.cfg):
         raise ValueError("the generator kernel serves 64 px unconditional "
@@ -81,12 +87,76 @@ def pack_generator(model: Generator) -> Dict:
     for blk in model.blocks:
         s, o = fold_bn_affine({"scale": blk.bn.scale, "offset": blk.bn.offset},
                               {"mean": blk.bn.mean, "var": blk.bn.var})
-        packed["blocks"].append({
-            "taps": _f32(pack_block_taps(blk.weight.permute(2, 3, 0, 1))),
-            "scale": _f32(s), "offset": _f32(o)})
+        taps = _f32(pack_block_taps(blk.weight.permute(2, 3, 0, 1)))
+        packed["blocks"].append({"taps": taps, "taps_mma": mma_taps(taps),
+                                 "scale": _f32(s), "offset": _f32(o)})
     packed["wfin"] = _f32(model.final.weight.permute(2, 3, 1, 0))
     packed["bfin"] = _f32(model.final.bias)
+    if packed["wfc16"].device.type == "cuda":
+        packed["plan"] = _Plan(packed)
     return packed
+
+
+def _plan_tensors(packed: Dict) -> List[torch.Tensor]:
+    """The tensors ``siggan_gen_forward`` reads, in its order (wfc16, bfc16,
+    each block's taps_mma, scale and offset, wfin, bfin), then each block's
+    ``taps``, whose TF32 split ``taps_mma`` must be."""
+    ts = [packed["wfc16"], packed["bfc16"]]
+    for blk in packed["blocks"]:
+        ts += [blk["taps_mma"], blk["scale"], blk["offset"]]
+    return ts + [packed["wfin"], packed["bfin"]] + [blk["taps"] for blk in packed["blocks"]]
+
+
+class _Plan:
+    """What one packed generator fixes, checked once: the widths, the
+    integers ``siggan_gen_forward`` takes and the scratch floats per image.
+    It remembers the tensors it checked; ``_launch_args`` checks the dict
+    again when one of them has been replaced."""
+
+    def __init__(self, packed: Dict) -> None:
+        dev, f32 = packed["wfc16"].device, torch.float32
+        _, zdim, c0 = packed["wfc16"].shape
+        build.require("wfc16", packed["wfc16"], f32, dev, (16, zdim, c0))
+        build.require("bfc16", packed["bfc16"], f32, dev, (16, c0))
+        widths = [c0]
+        if len(packed["blocks"]) != 4:
+            raise ValueError("the generator kernel runs the 64 px generator's 4 blocks")
+        for b, blk in enumerate(packed["blocks"]):
+            cin, cout = widths[-1], blk["taps"].shape[-1]
+            if cout % 4:
+                raise ValueError(f"the generator kernel needs widths % 4 == 0, "
+                                 f"block {b + 1} has Cout={cout}")
+            build.require(f"block {b + 1} taps", blk["taps"], f32, dev, (4, 2, 2, cin, cout))
+            build.require(f"block {b + 1} taps_mma", blk["taps_mma"], f32, dev,
+                          (16, -(-cin // KC), -(-cout // NT) * NT, 16))
+            if not torch.equal(blk["taps_mma"], mma_taps(blk["taps"])):
+                raise ValueError(f"block {b + 1} taps_mma is not the TF32 split of its "
+                                 f"taps: pack the generator again (pack_generator)")
+            for key in ("scale", "offset"):
+                build.require(f"block {b + 1} {key}", blk[key], f32, dev, (cout,))
+            widths.append(cout)
+        build.require("wfin", packed["wfin"], f32, dev, (3, 3, widths[-1], 1))
+        build.require("bfin", packed["bfin"], f32, dev, (1,))
+        self.device, self.zdim, self.widths = dev, zdim, widths
+        self.checked = _plan_tensors(packed)
+        self.dims = (ctypes.c_int * 6)(zdim, *widths)
+        self.scratch = sum(16 * 4 ** b * c for b, c in enumerate(widths[:4]))
+
+
+def _launch_args(packed: Dict):
+    """(plan, the weight pointers read from ``packed`` now). A dict whose
+    tensors are not the ones its plan checked is checked again, and the new
+    plan kept in it."""
+    plan = packed.get("plan")
+    if plan is None:
+        raise ValueError("the packed generator is not on the card: pack the model "
+                         "there (pack_generator) before a CUDA forward")
+    tensors = _plan_tensors(packed)
+    if len(tensors) != len(plan.checked) or any(
+            t is not c for t, c in zip(tensors, plan.checked)):
+        plan = packed["plan"] = _Plan(packed)
+    ptrs = (ctypes.c_void_p * _WEIGHTS)(*[t.data_ptr() for t in tensors[:_WEIGHTS]])
+    return plan, ptrs
 
 
 def _final_reference(h: torch.Tensor, wfin: torch.Tensor,
@@ -116,32 +186,22 @@ def generator_forward_reference(packed: Dict, z: torch.Tensor) -> torch.Tensor:
 def generator_forward(packed: Dict, z: torch.Tensor) -> torch.Tensor:
     """z (N, zdim) f32 -> images (N, 64, 64, 1) f32 in [-1, 1].
 
-    CUDA tensors launch the kernels (and raise if a launch fails); CPU
-    tensors take the plain version.
+    CUDA tensors launch the kernels in one host call (and raise if a launch
+    fails); CPU tensors take the plain version.
     """
     if z.device.type == "cpu":
         return generator_forward_reference(packed, z)
-    n, zdim = z.shape
-    c0 = packed["bfc16"].shape[-1]
-    build.require("z", z, torch.float32, z.device)
-    build.require("wfc16", packed["wfc16"], torch.float32, z.device, (16, zdim, c0))
-    build.require("bfc16", packed["bfc16"], torch.float32, z.device, (16, c0))
+    plan, weights = _launch_args(packed)
+    n = z.shape[0]
+    if (z.dtype is not torch.float32 or z.device != plan.device or z.data_ptr() & 15
+            or not z.is_contiguous() or z.shape != (n, plan.zdim)):
+        build.require("z", z, torch.float32, plan.device, (n, plan.zdim))
     lib = build.load("generator_fwd", _SIGNATURES)
-    h = torch.empty((n, 4, 4, c0), device=z.device, dtype=torch.float32)
-    with torch.cuda.device(z.device):
-        build.check(lib, lib.siggan_gen_fc(
-            z.data_ptr(), packed["wfc16"].data_ptr(), packed["bfc16"].data_ptr(),
-            h.data_ptr(), n, zdim, c0, build.stream_ptr(z.device)), "generator fc kernel")
-        for blk in packed["blocks"]:
-            h = upsample_block_taps(h, blk["taps"], blk["scale"], blk["offset"])
-        _, s, _, c = h.shape
-        build.require("wfin", packed["wfin"], torch.float32, z.device, (3, 3, c, 1))
-        build.require("bfin", packed["bfin"], torch.float32, z.device, (1,))
-        if c % 4:
-            raise ValueError(f"the final conv kernel needs C % 4 == 0, got {c}")
-        img = torch.empty((n, s, s, 1), device=z.device, dtype=torch.float32)
-        build.check(lib, lib.siggan_gen_final(
-            h.data_ptr(), packed["wfin"].data_ptr(), packed["bfin"].data_ptr(),
-            img.data_ptr(), n, s, c, build.stream_ptr(z.device)), "generator final kernel")
+    scratch = torch.empty(n * plan.scratch, device=plan.device, dtype=torch.float32)
+    img = torch.empty((n, 64, 64, 1), device=plan.device, dtype=torch.float32)
+    build.call(lib, lib.siggan_gen_forward,
+               (z.data_ptr(), scratch.data_ptr(), img.data_ptr(), weights, plan.dims, n,
+                build.stream_ptr(plan.device)), plan.device, "generator forward kernels")
     LAUNCHES.add()
+    upsample.LAUNCHES.add(3)   # blocks 1-3 run B3's kernel
     return img

@@ -7,7 +7,9 @@ so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerance: rtol 1e-4 / atol 1e-5 in f32; the kernels and the plain versions
-sum the same products in a different order. The train-tail kernel (B2) is
+sum the same products in a different order. B3 and B4 at full width (base
+256, up to 1024 products a sum, 3xTF32) are held at the serving bar, rtol
+1e-4 / atol 1e-4. The train-tail kernel (B2) is
 held, against its plain version and against the module path it replaces
 in the discriminator step, at rtol 1e-4 / atol 1e-4 in f32 (image) and
 rtol 1e-4 / atol 1e-5 (batch statistics), and in bf16 at atol 2e-2 (image)
@@ -25,6 +27,7 @@ from siggan_tpu_torch.core import rng
 from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.infer.generate import GeneratorSession
 from siggan_tpu_torch.models.generator import init_fn
+from siggan_tpu_torch.ops.conv import conv2d_oihw, conv_transpose2d_iohw, linear_oi
 from siggan_tpu_torch.ops.kernels import generator_fwd as gf
 from siggan_tpu_torch.ops.kernels import pack_tail as pt
 from siggan_tpu_torch.ops.kernels import train_tail as tt
@@ -79,6 +82,139 @@ def test_generator_forward_kernel(dev, n):
     assert gf.LAUNCHES.count == before + 1
     torch.testing.assert_close(got, gf.generator_forward_reference(packed, z),
                                rtol=RTOL, atol=ATOL)
+
+
+def calibrated_model(dev, base, seed=0):
+    """A random 64 px generator at ``base`` width whose eval BN statistics
+    are its own batch statistics with a jitter and whose final conv is
+    scaled so that the images span [-1, 1] (a trained model's scale)."""
+    model = init_fn(rng.generator(seed, rng.STREAM_INIT_G),
+                    ModelConfig(base_features=base), dev).eval()
+    g = torch.Generator().manual_seed(seed + 1)
+
+    def set_stats(bn, h):
+        flat = h.reshape(-1, h.shape[-1])
+        jit = lambda: (0.8 + 0.4 * torch.rand(flat.shape[1], generator=g)).to(dev)  # noqa: E731
+        bn.mean.copy_(flat.mean(0) * jit())
+        bn.var.copy_(flat.var(0) * jit())
+
+    with torch.no_grad():
+        z = torch.randn(32, model.cfg.latent_dim, generator=g).to(dev)
+        h = linear_oi(z, model.fc.weight, model.fc.bias)
+        set_stats(model.fc_bn, h)
+        h = torch.relu(model.fc_bn(h)).reshape(32, 4, 4, -1)
+        for blk in model.blocks:
+            h = conv_transpose2d_iohw(h, blk.weight, stride=2, padding=1)
+            set_stats(blk.bn, h)
+            h = torch.relu(blk.bn(h))
+        pre = conv2d_oihw(h, model.final.weight, model.final.bias, padding=1)
+        model.final.weight.mul_(1.5 / float(pre.std()))
+    return model
+
+
+# The serving bar of B3 and B4 at full width (chip_smoke.py): 3xTF32
+# products summed in f32 over up to 1024 terms, in another order than the
+# plain version's matmuls.
+SERVE_TOL = dict(rtol=1e-4, atol=1e-4)
+# The four blocks of the full-width generator (base 256): input side, Cin, Cout.
+FULL_WIDTH_BLOCKS = [(4, 256, 128), (8, 128, 64), (16, 64, 32), (32, 32, 32)]
+
+
+@pytest.mark.parametrize("block", range(4))
+@pytest.mark.parametrize("n", [1, 10, 63, 64])
+def test_upsample_block_kernel_full_width(dev, block, n):
+    """B3 at the full-width block shapes, whole and ragged batches (tiles
+    that span images, and a last tile past the batch), against the plain
+    version; two launches give the same bits."""
+    side, cin, cout = FULL_WIDTH_BLOCKS[block]
+    rs = np.random.RandomState(block * 100 + n)
+    x = torch.from_numpy(np.maximum(rs.randn(n, side, side, cin), 0).astype(np.float32)).to(dev)
+    taps = torch.from_numpy((rs.randn(4, 2, 2, cin, cout) / np.sqrt(4 * cin))
+                            .astype(np.float32)).to(dev)
+    scale = torch.from_numpy(rs.rand(cout).astype(np.float32) + 0.5).to(dev)
+    offset = torch.from_numpy(rs.randn(cout).astype(np.float32) * 0.1).to(dev)
+    before = up.LAUNCHES.count
+    got = up.upsample_block_taps(x, taps, scale, offset, mma=up.mma_taps(taps))
+    again = up.upsample_block_taps(x, taps, scale, offset)
+    assert up.LAUNCHES.count == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, up.convt_phase_reference(x, taps, scale, offset),
+                               **SERVE_TOL)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((3, 4, 4, 100), 36),   # a cluster of 4 over 13 uneven chunks; Cin % 8, Cout % 32 != 0
+    ((9, 4, 4, 260), 8),    # a cluster of 4 over 33 chunks
+    ((2, 50, 3, 6), 8),     # an image's rows over two tiles; Cin % 4 != 0
+    ((1, 3, 130, 8), 12),   # columns over three tiles
+    ((70, 1, 1, 16), 4),    # 1 x 1 maps, 42 images a tile
+])
+def test_upsample_block_kernel_tile_geometry(dev, shape, cout):
+    """B3's tile shapes, cluster splits and zero padding at the edges of
+    its contract, against the plain version; two launches give the same
+    bits."""
+    rs = np.random.RandomState(sum(shape) + cout)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
+    taps = torch.from_numpy((rs.randn(4, 2, 2, shape[-1], cout) / np.sqrt(4 * shape[-1]))
+                            .astype(np.float32)).to(dev)
+    scale = torch.from_numpy(rs.rand(cout).astype(np.float32) + 0.5).to(dev)
+    offset = torch.from_numpy(rs.randn(cout).astype(np.float32) * 0.1).to(dev)
+    got = up.upsample_block_taps(x, taps, scale, offset)
+    assert torch.equal(got, up.upsample_block_taps(x, taps, scale, offset))
+    torch.testing.assert_close(got, up.convt_phase_reference(x, taps, scale, offset),
+                               **SERVE_TOL)
+
+
+@pytest.mark.parametrize("base", [32, 256])
+@pytest.mark.parametrize("n", [1, 10, 64])
+def test_generator_forward_kernel_widths(dev, base, n):
+    """B4 (blocks 1-3 in B3's kernel, block 4 fused with the final conv)
+    at the test width and the full width, against the plain version; two
+    launches give the same bits."""
+    packed = gf.pack_generator(calibrated_model(dev, base, seed=base))
+    zdim = packed["wfc16"].shape[1]
+    z = torch.randn(n, zdim, generator=torch.Generator().manual_seed(n)).to(dev)
+    got = gf.generator_forward(packed, z)
+    assert torch.equal(got, gf.generator_forward(packed, z))
+    ref = gf.generator_forward_reference(packed, z)
+    assert float(ref.std()) > 0.1
+    torch.testing.assert_close(got, ref, **SERVE_TOL)
+
+
+def test_generator_forward_follows_a_replaced_weight(dev):
+    """The kernel reads the weights the packed dict holds at the call: a
+    replaced final conv (weights and bias negated, so the image is too)
+    changes the image as it changes the plain version's."""
+    packed = gf.pack_generator(calibrated_model(dev, 32))
+    z = torch.randn(10, packed["wfc16"].shape[1],
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    before = gf.generator_forward(packed, z)
+    packed["wfin"], packed["bfin"] = -packed["wfin"], -packed["bfin"]
+    got = gf.generator_forward(packed, z)
+    torch.testing.assert_close(got, gf.generator_forward_reference(packed, z), **SERVE_TOL)
+    torch.testing.assert_close(got, -before, **SERVE_TOL)
+
+
+def test_generator_forward_is_one_host_call_without_block4_in_memory(dev):
+    """One ctypes call per forward; the profiler sees the fc kernel, B3's
+    tile kernel three times (blocks 1-3) and the fused kernel once: block
+    4's output is never written to device memory by a B3 launch."""
+    from torch.profiler import ProfilerActivity, profile
+    packed = gf.pack_generator(calibrated_model(dev, 256))
+    z = torch.randn(64, 100, generator=torch.Generator().manual_seed(0)).to(dev)
+    gf.generator_forward(packed, z)
+    torch.cuda.synchronize()
+    f0, u0 = gf.LAUNCHES.count, up.LAUNCHES.count
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gf.generator_forward(packed, z)
+        torch.cuda.synchronize()
+    assert gf.LAUNCHES.count == f0 + 1 and up.LAUNCHES.count == u0 + 3
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    kernels = [n for n in names if "fc_relu_kernel" in n or "convt_tile_kernel" in n
+               or "gen_tail_kernel" in n]
+    assert sum("convt_tile_kernel" in n for n in kernels) == 3
+    assert sum("gen_tail_kernel" in n for n in kernels) == 1
+    assert sum("fc_relu_kernel" in n for n in kernels) == 1
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
