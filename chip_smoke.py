@@ -27,10 +27,11 @@ Phases (any failure raises and the script exits non-zero):
      for a seed and agree with the cuDNN path;
   5. hold the packed-tail pack kernels B1 and B1' against their plain
      versions at the full-width tail shapes, in bf16 and f32 (forward
-     bit-equal, backward within rtol 1e-5 / atol 1e-6), and time kernel,
-     plain version and a library yardstick (torch.take + cast /
-     index_add_), each host call and device time, and the gather from the
-     four weights to four tensors (cat, take, cast, views) beside it;
+     bit-equal, backward within rtol 1e-5 / atol 1e-6 and two launches
+     bit-equal), and time kernel, plain version and a library yardstick
+     (torch.take + cast / index_add_), each host call and device time,
+     B1' replayed from a CUDA graph, and the gather from the four weights
+     to four tensors (cat, take, cast, views) beside it;
   6. hold the train-mode packed-tail kernel B2 against its plain version at
      the full-width tails of the 64 px and 128 px generators (batch 64), in
      f32 and bf16, check that two launches give the same bits, and time the
@@ -43,16 +44,22 @@ Phases (any failure raises and the script exits non-zero):
      bf16 (the packed fakes and every tail BN's batch statistics);
   7. train: write 2048 synthetic 64 px PNGs, run the port's training CLI on
      the card for 3 epochs of 32 steps at TrainConfig() defaults (bf16,
-     batch 64, packed I/O), and check finite losses, D accuracy in (0, 1),
+     batch 64, packed I/O) on its graphed dispatch (K steps a window, a CUDA
+     graph of one step replayed K times; K and the capture time printed),
+     and check finite losses, D accuracy in (0, 1),
      that G, D and G's BN statistics moved, that B1 launched twice, B1'
      once and B2 once per step, that the saved generator serves on the
      kernel path, and that resuming restores the step counter; run the
      same seeded CLI training with the D step's tail on the module path
-     and print its last losses beside B2's; then profile
-     10-step windows for the device busy time, idle share and top kernels,
-     with the D step's generator tail on B2 and on the module path in turns
-     (B2, module, module, B2), and report the step's model FLOPs against
-     the bf16 peak;
+     (its own capture) and print its last losses beside B2's; hold two
+     graphed windows against 2K eager steps on copies of the trained state
+     (bit-equal where two eager runs are, else within their spread, both
+     printed); then profile the eager resident step in 10-step windows and
+     the graphed dispatch in K-step windows for wall ms/step, device busy
+     time, idle share, operations per step and top kernels, with the D
+     step's generator tail on B2 and on the module path in turns (B2,
+     module, module, B2; the graphed route on one capture per route), and
+     report the step's model FLOPs against the bf16 peak;
   8. train v1.1 the same way: 1024 synthetic 128 px PNGs, the CLI with
      --image_size 128 --spectral_norm for 2 epochs of 16 steps (depth cut
      from v1.1's 200 epochs), the same checks and module-route run, plus
@@ -66,8 +73,10 @@ from __future__ import annotations
 
 import base64
 import io
+import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -479,6 +488,8 @@ def check_pack_tail(dev):
         cts = [torch.randn(a.shape, generator=g).to(dev, dt) for a in got]
         bgot = pt.pack_tail_backward_launch(ws, cts)
         bref = pt.pack_tail_backward_reference(ws, cts)
+        if not all(torch.equal(a, b) for a, b in zip(bgot, pt.pack_tail_backward_launch(ws, cts))):
+            raise AssertionError(f"pack_tail backward {name}: two launches differ")
         err = 0.0
         for i, (a, b) in enumerate(zip(bgot, bref)):
             if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
@@ -511,6 +522,12 @@ def check_pack_tail(dev):
             raise AssertionError(f"pack_tail {name}: differs from the four-tensor gather")
         fio_ms = time_ms(take_io, **many)
         b_ms = time_ms(lambda: pt.pack_tail_backward_launch(ws, cts), **many)
+        # B1' as the graphed train step runs it: one captured launch, replayed.
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            pt.pack_tail_backward_launch(ws, cts)
+        pt.BWD_LAUNCHES.add(-1)   # the capture recorded the launch; replays run it
+        bg_ms = time_ms(graph.replay, **many)
         bp_ms = time_ms(lambda: pt.pack_tail_backward_reference(ws, cts))
         bl_ms = time_ms(scatter, **many)
         _, bl_dev, _ = device_time(scatter)
@@ -524,7 +541,8 @@ def check_pack_tail(dev):
               f"take+cast {fl_ms:.4f} ms (device {fmt_ms(fl_dev)}; from the four "
               f"weights to four tensors {fio_ms:.4f} ms), "
               f"bound {bound_f * 1e3:.3f} us ({by_f}); B1' max_abs_diff {err:.3e}, "
-              f"kernel {b_ms:.4f} ms (device {fmt_ms(b_dev)}), plain {bp_ms:.4f} ms, "
+              f"two launches bit-equal, kernel {b_ms:.4f} ms (device {fmt_ms(b_dev)}, "
+              f"graph replay {bg_ms:.4f} ms), plain {bp_ms:.4f} ms, "
               f"index_add_ {bl_ms:.4f} ms (device {fmt_ms(bl_dev)}), "
               f"bound {bound_b * 1e3:.3f} us ({by_b})", flush=True)
         out[name] = {"fwd": {"max_abs_diff": 0.0, "kernel_ms": f_ms, "plain_ms": fp_ms,
@@ -533,7 +551,8 @@ def check_pack_tail(dev):
                              "library_same_io_ms": fio_ms},
                      "bwd": {"max_abs_diff": err, "kernel_ms": b_ms, "plain_ms": bp_ms,
                              "library_ms": bl_ms, "bound_ms": bound_b, "bound_by": by_b,
-                             "device_ms": b_dev, "library_device_ms": bl_dev}}
+                             "device_ms": b_dev, "library_device_ms": bl_dev,
+                             "graph_replay_ms": bg_ms}}
     return out
 
 
@@ -703,7 +722,6 @@ def check_fused_route(dev):
     (batch 64, train mode, no gradient) with its tail in B2 against the
     module path it replaces, on two copies of one seeded generator; the
     packed fakes and every tail BN's batch statistics at B2's bars."""
-    import copy
     import torch
     from siggan_tpu_torch.core import rng
     from siggan_tpu_torch.core.config import ModelConfig
@@ -761,6 +779,142 @@ def step_flops(cfg, batch: int) -> float:
     return 2.0 * (4 * batch * g_macs + (3 * 2 * batch + 2 * batch) * d_macs)
 
 
+class _Tee(io.StringIO):
+    """A text stream that keeps what is written and passes it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, s):
+        self.out.write(s)
+        return super().write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(main, argv) -> str:
+    """``main(argv)`` with its standard output shown and returned; raises
+    unless it exits 0."""
+    import contextlib
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}: {argv}")
+    return tee.getvalue()
+
+
+def state_groups(state, metrics):
+    """The state's tensors by part, and the metrics."""
+    return {"G parameters": list(state.g.parameters()),
+            "G BN statistics": list(state.g.buffers()),
+            "D parameters": list(state.d.parameters()),
+            "D spectral-norm u": list(state.d.buffers()),
+            "G Adam": [state.g_opt["count"], *state.g_opt["m"], *state.g_opt["v"]],
+            "D Adam": [state.d_opt["count"], *state.d_opt["m"], *state.d_opt["v"]],
+            "metrics": list(metrics.values())}
+
+
+def group_diffs(a, b):
+    """{part: max abs difference} between two ``state_groups``."""
+    import torch
+    return {k: max([float((x.detach().float() - y.detach().float()).abs().max())
+                    for x, y in zip(a[k], b[k])], default=0.0)
+            for k in a}
+
+
+def graphed_vs_eager(tag, cfg, n_images, images, state0, k):
+    """Phases 7-8: two windows of K graphed steps (the first holding the
+    eager warm-up steps and the capture) against 2K eager resident steps, on
+    copies of one state at an epoch boundary. Two eager runs are compared
+    first: where they give the same bits the graphed run must too, else it
+    must stay within their spread (twice its largest difference) in every
+    part -- parameters, BN statistics, u's, both Adam states, metrics."""
+    import torch
+    from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
+                                                   make_resident_train_step)
+
+    def eager():
+        fn, _ = make_resident_train_step(cfg, n_images)
+        state, ms = copy.deepcopy(state0), []
+        for _ in range(2 * k):
+            state, m = fn(state, images)
+            ms.append(m)
+        return state_groups(state, {key: torch.stack([m[key] for m in ms]) for key in ms[0]})
+    first, second = eager(), eager()
+    multi, _ = make_resident_multi_step(cfg, n_images, k)
+    state, ms = copy.deepcopy(state0), []
+    for _ in range(2):
+        state, m = multi(state, images)
+        ms.append(m)
+    graphed = state_groups(state, {key: torch.cat([m[key] for m in ms]) for key in ms[0]})
+    torch.cuda.synchronize()
+    spread, diff = group_diffs(first, second), group_diffs(graphed, first)
+    bit_equal = all(v == 0.0 for v in spread.values())
+    for part, d in diff.items():
+        if d > 2 * spread[part]:
+            raise AssertionError(f"{tag}: graphed vs eager {part} differ by {d:.3e}, "
+                                 f"two eager runs by {spread[part]:.3e}")
+    print(f"{tag}: two windows of {k} graphed steps vs {2 * k} eager steps (capture "
+          f"{multi.graphed.capture_s:.3f} s): eager vs eager max abs diff by part "
+          f"{json.dumps(spread)}; graphed vs eager {json.dumps(diff)}; "
+          f"{'bit-equal' if bit_equal else 'within the eager spread'}", flush=True)
+    return {"k": k, "capture_s": multi.graphed.capture_s, "eager_spread": spread,
+            "graphed_vs_eager": diff, "eager_bit_equal": bit_equal}
+
+
+def profile_routes(cfg, n_images, images, state, k):
+    """Phases 7-8: profile the steps on the trained state, the D step's G
+    tail on B2 and on the module path in turns (B2, module, module, B2):
+    10-step windows of the eager resident step, and K-step windows of the
+    graphed dispatch (one multi-step per route, each captured under its
+    route, both bound to one copy of the state). Returns ({"eager B2": [(host
+    ms/step, device busy ms/step, device operations per step)], ...}, the
+    eager and the graphed B2 windows' device ms by kernel)."""
+    import torch
+    from siggan_tpu_torch.models.generator import fused_tail_supported
+    from siggan_tpu_torch.train import train_step as ts
+    step_fn, _ = ts.make_resident_train_step(cfg, n_images)
+    graphed = {route: ts.make_resident_multi_step(cfg, n_images, k)[0]
+               for route in ("B2", "module")}
+    gstate = copy.deepcopy(state)
+
+    def ten():
+        nonlocal state
+        for _ in range(10):
+            state, m = step_fn(state, images)
+        return m
+
+    def window(route):
+        def run():
+            nonlocal gstate
+            gstate, m = graphed[route](gstate, images)
+            return m
+        return run
+    routes = {f"{how} {route}": [] for how in ("eager", "graphed") for route in ("B2", "module")}
+    per, gper = {}, {}
+    try:
+        for route in ("B2", "module", "module", "B2"):
+            ts.fused_tail_supported = (fused_tail_supported if route == "B2"
+                                       else (lambda m: False))
+            for how, fn, n in (("eager", ten, 10), ("graphed", window(route), k)):
+                fn()   # the first graphed window warms up and captures
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / n
+                p, b, o = device_time(fn, calls=1)
+                if route == "B2":
+                    (per if how == "eager" else gper).update(p)
+                routes[f"{how} {route}"].append((wall, None if b is None else b / n, o / n))
+    finally:
+        ts.fused_tail_supported = fused_tail_supported
+    return routes, per, gper
+
+
 def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048):
     """Phases 7 and 8: the port's training path, through its CLI, at full
     width: TrainConfig() defaults at 64 px, v1.1 (--spectral_norm) at 128."""
@@ -778,7 +932,6 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
     from siggan_tpu_torch.ops.kernels import pack_tail as pt
     from siggan_tpu_torch.ops.kernels import train_tail as tt
     from siggan_tpu_torch.train import train_step as ts
-    from siggan_tpu_torch.train.train_step import make_resident_train_step
     from siggan_tpu_torch.train.trainer import GANTrainer
 
     sn = size == 128
@@ -796,15 +949,20 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
         for counter in (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES):
             counter.reset()
         t0 = time.perf_counter()
-        if train_cli.main(argv) != 0:
-            raise AssertionError("the training CLI failed")
+        out = run_cli(train_cli.main, argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"pack_tail": pt.FWD_LAUNCHES.count,
                     "pack_tail_backward": pt.BWD_LAUNCHES.count,
                     "train_tail": tt.LAUNCHES.count}
-        print(f"{tag}: CLI {epochs} epochs in {wall:.1f} s; main path launches: "
-              f"{json.dumps(launches)}", flush=True)
+        dispatch = re.search(r"Dispatch: (\d+) steps per call .* graph of one step, "
+                             r"captured in ([0-9.]+) s", out)
+        if dispatch is None:
+            raise AssertionError("the CLI did not train on the graphed dispatch")
+        k, capture_s = int(dispatch.group(1)), float(dispatch.group(2))
+        print(f"{tag}: CLI {epochs} epochs in {wall:.1f} s, K = {k} steps per graphed "
+              f"window, one step's graph captured in {capture_s:.3f} s; main path "
+              f"launches: {json.dumps(launches)}", flush=True)
 
         cfg = TrainConfig.from_json(open(f"{run}/checkpoints/config.json").read())
         want_model = ModelConfig(image_size=size, use_spectral_norm=sn)
@@ -828,9 +986,8 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
         # The same seeded run with the D step's generator tail on the module
         # path B2 replaces: what the route alone does to the losses.
         ts.fused_tail_supported = lambda m: False
-        try:
-            if train_cli.main([f"{tmp}/run_module" if a == run else a for a in argv]) != 0:
-                raise AssertionError("the training CLI failed on the module route")
+        try:   # a new trainer: its graph is captured on the module route
+            run_cli(train_cli.main, [f"{tmp}/run_module" if a == run else a for a in argv])
         finally:
             ts.fused_tail_supported = fused_tail_supported
         logs = sorted(Path(f"{tmp}/run_module/logs").glob("*.json"))
@@ -888,41 +1045,19 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
         if sn and not all(torch.equal(a.u, b) for a, b in zip(trainer.state.d.blocks, us)):
             raise AssertionError("resume did not restore the spectral-norm vectors")
 
-        # Profile 10-step windows of the same resident step on the trained
-        # state, the D step's G tail on B2 and on the module path in turns
-        # (B2, module, module, B2): host ms/step, device busy ms/step and
-        # device operations per step of each route.
         from siggan_tpu_torch.data.dataset import SignatureDataset
         images = torch.from_numpy(SignatureDataset(data, size).images).cuda()
-        step_fn, _ = make_resident_train_step(cfg, n_images)
+        # Graphed windows against eager steps on copies of the trained state.
+        agreement = graphed_vs_eager(tag, cfg, n_images, images, state, k)
 
-        def ten():
-            nonlocal state
-            for _ in range(10):
-                state, m = step_fn(state, images)
-            return m
-        ten()
-        routes = {"B2": [], "module": []}
-        per = {}
-        try:
-            for route in ("B2", "module", "module", "B2"):
-                ts.fused_tail_supported = (fused_tail_supported if route == "B2"
-                                           else (lambda m: False))
-                ten()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ten()
-                torch.cuda.synchronize()
-                w10 = (time.perf_counter() - t0) * 1e3 / 10
-                p, b10, o10 = device_time(ten, calls=1)
-                per = per or p
-                routes[route].append((w10, None if b10 is None else b10 / 10, o10 / 10))
-        finally:
-            ts.fused_tail_supported = fused_tail_supported
-        wall10 = sum(r[0] for r in routes["B2"]) / 2
-        busy = (None if any(r[1] is None for r in routes["B2"])
-                else sum(r[1] for r in routes["B2"]) / 2)
-        n_ops = 10 * sum(r[2] for r in routes["B2"]) / 2
+        routes, per, gper = profile_routes(cfg, n_images, images, state, k)
+
+        def mean_of(rows):
+            wall = sum(r[0] for r in rows) / len(rows)
+            busy = None if any(r[1] is None for r in rows) else sum(r[1] for r in rows) / len(rows)
+            return wall, busy, sum(r[2] for r in rows) / len(rows)
+        wall10, busy, n_ops = mean_of(routes["eager B2"])
+        g_wall, g_busy, g_ops = mean_of(routes["graphed B2"])
 
     last = metrics[1:][-2:] or metrics   # epoch 0 holds the first-use warm-up
     ms = sum(m["ms_per_step"] for m in last) / len(last)
@@ -933,20 +1068,27 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
     for m in metrics:
         print(f"  epoch {m['epoch']}: d_loss {m['d_loss']:.4f} g_loss {m['g_loss']:.4f} "
               f"d_accuracy {m['d_accuracy']:.4f} ms/step {m['ms_per_step']:.3f}", flush=True)
-    idle = "not measured" if busy is None else f"{1 - busy / wall10:.4f}"
-    print(f"{tag}: 10 profiled steps: wall {wall10:.3f} ms/step, device busy "
-          f"{'not measured' if busy is None else f'{busy:.4f}'} ms/step, "
-          f"idle share {idle}, {n_ops / 10:.0f} device operations per step [{card}]",
-          flush=True)
+    for how, (w, b, o), n in (("eager, 10 profiled steps", (wall10, busy, n_ops), 10),
+                              (f"graphed, {k}-step windows", (g_wall, g_busy, g_ops), k)):
+        idle = "not measured" if b is None else f"{1 - b / w:.4f}"
+        print(f"{tag}: {how}: wall {w:.3f} ms/step, device busy {fmt_ms(b)}/step, "
+              f"idle share {idle}, {o:.0f} device operations per step [{card}]", flush=True)
     for route, rows in routes.items():
-        print(f"{tag}: D-step tail on {route}: " + "; ".join(
+        print(f"{tag}: {route.split()[0]}, D-step tail on {route.split()[1]}: " + "; ".join(
             f"wall {w:.3f} ms/step, device busy {fmt_ms(b)}/step, {o:.0f} device "
             f"operations per step" for w, b, o in rows) + f" [{card}]", flush=True)
     for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"  top kernel {t / 10:.4f} ms/step  {name[:100]}", flush=True)
+        print(f"  top kernel (eager) {t / 10:.4f} ms/step  {name[:100]}", flush=True)
+    for name, t in sorted(gper.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  top kernel (graphed) {t / k:.4f} ms/step  {name[:100]}", flush=True)
+    for name, t in gper.items():
+        if "pack_tail_bwd" in name:
+            print(f"  B1' inside the graphed step: device {t / k:.4f} ms/step [{card}]",
+                  flush=True)
     print(f"{tag}: model FLOPs per step {flops / 1e9:.2f} GFLOP; train_step_mfu "
           f"{flops / (ms * 1e-3) / BF16_PEAK_FLOPS:.5f} of the dense bf16 peak "
           f"(989 TFLOP/s) at {ms:.3f} ms/step [{card}]", flush=True)
+    print(f"{tag}: graphed vs eager: {json.dumps(agreement)}", flush=True)
     return launches
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from siggan_tpu_torch.core.config import ModelConfig
+from siggan_tpu_torch.core.state import new_count
 from siggan_tpu_torch.models.discriminator import Discriminator
 from siggan_tpu_torch.models.generator import Generator
 
@@ -153,17 +154,20 @@ def tensors_to_jax(model, ts: Sequence[torch.Tensor]) -> Dict:
 
 
 def opt_to_jax(opt_state: Dict, model) -> Dict:
-    """A port Adam state -> {count, m, v} with m, v as JAX-layout trees
-    (f32 numpy; cast to the moment dtype on the JAX side)."""
-    return {"count": np.int32(opt_state["count"]),
+    """A port Adam state -> {count, m, v} with the count an int32 (read
+    from its device tensor) and m, v as JAX-layout trees (f32 numpy; cast
+    to the moment dtype on the JAX side)."""
+    return {"count": np.int32(int(opt_state["count"])),
             "m": tensors_to_jax(model, opt_state["m"]),
             "v": tensors_to_jax(model, opt_state["v"])}
 
 
 def opt_from_jax(state: Dict, model, moment_dtype: torch.dtype) -> Dict:
     """{count, m, v} (JAX layouts) -> a port Adam state for ``model``'s
-    parameters, moments in ``moment_dtype`` on the parameters' device."""
-    out: Dict = {"count": int(np.asarray(state["count"])), "m": [], "v": []}
+    parameters, moments in ``moment_dtype`` and the count an int32 tensor
+    on the parameters' device."""
+    out: Dict = {"count": new_count(int(np.asarray(state["count"])),
+                                    next(model.parameters()).device), "m": [], "v": []}
     for k in ("m", "v"):
         flat: Dict[str, np.ndarray] = {}
         _flatten(state[k], "", flat)

@@ -16,9 +16,9 @@ under ``state/``, its spectral-norm vectors),
 ``optimizer.npz`` (the two Adam states, moments as f32), ``fixed_noise.npy``
 and ``state.json`` (step, epoch, best G loss)), the run's ``config.json``,
 and an ``index.json`` mapping the ``latest`` and ``best`` (lowest G loss)
-aliases to epochs. ``load_generator`` on such a run directory loads its
-``latest`` epoch. Orbax directories of the JAX package cannot be read
-without JAX (ROADMAP A.2).
+aliases to epochs. ``load_generator`` on such a run directory loads the
+epoch ``which`` names (``"latest"``, ``"best"`` or an epoch number). Orbax
+directories of the JAX package cannot be read without JAX (ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -61,14 +61,20 @@ def load_config(directory: str | Path) -> TrainConfig:
     return TrainConfig.from_json((Path(directory) / SIDECAR).read_text())
 
 
-def _generator_dir(directory: str | Path) -> Path:
-    """``directory`` itself, or the ``latest`` epoch of a run directory."""
+def _generator_dir(directory: str | Path, which: str | int = "latest") -> Path:
+    """``directory`` itself (a generator checkpoint, which holds one
+    generator: its ``latest``), or the epoch ``which`` names in a run
+    directory: ``"latest"``, ``"best"`` or an epoch number."""
     d = Path(directory)
-    if not (d / WEIGHTS).exists() and (d / INDEX).exists():
-        latest = json.loads((d / INDEX).read_text()).get("latest")
-        if latest is not None:
-            return d / f"epoch_{latest:04d}"
-    return d
+    if (d / WEIGHTS).exists() or not (d / INDEX).exists():
+        if which != "latest":
+            raise FileNotFoundError(f"{d} is not a run directory: no epoch {which!r}")
+        return d
+    idx = json.loads((d / INDEX).read_text())
+    epoch = which if isinstance(which, int) else idx.get(which)
+    if epoch is None or epoch not in idx.get("epochs", []):
+        raise FileNotFoundError(f"no checkpoint under {d} ({which})")
+    return d / f"epoch_{epoch:04d}"
 
 
 def _load_npz(path: Path) -> Dict[str, np.ndarray]:
@@ -78,14 +84,15 @@ def _load_npz(path: Path) -> Dict[str, np.ndarray]:
         return {k: f[k] for k in f.files}
 
 
-def load_arrays(directory: str | Path) -> Dict[str, np.ndarray]:
-    return _load_npz(_generator_dir(directory) / WEIGHTS)
+def load_arrays(directory: str | Path, which: str | int = "latest") -> Dict[str, np.ndarray]:
+    return _load_npz(_generator_dir(directory, which) / WEIGHTS)
 
 
-def load_generator(directory: str | Path, device) -> Tuple[Generator, TrainConfig]:
+def load_generator(directory: str | Path, device,
+                   which: str | int = "latest") -> Tuple[Generator, TrainConfig]:
     """(Generator on ``device``, TrainConfig) from a generator checkpoint or
-    from the ``latest`` epoch of a run directory."""
-    d = _generator_dir(directory)
+    from the epoch ``which`` names in a run directory."""
+    d = _generator_dir(directory, which)
     cfg = load_config(d)
     g_params, g_bn = bridge.unflatten(load_arrays(d))
     return bridge.from_jax(g_params, g_bn, cfg.model, device), cfg
@@ -174,6 +181,11 @@ class CheckpointManager:
             idx["best_g_loss"] = float(g_loss)
         (self.dir / INDEX).write_text(json.dumps(idx, indent=2))
         return path
+
+    def available(self) -> Dict[str, Any]:
+        """The index: the saved ``epochs`` and the ``latest`` / ``best``
+        aliases (with ``best_g_loss``)."""
+        return self._read_index()
 
     def resolve(self, which: str | int = "latest") -> Optional[Path]:
         idx = self._read_index()

@@ -1,10 +1,13 @@
 """Batch generation CLI: load a port checkpoint, generate N seeded images in
-batches and save ``{prefix}_{i:06d}.png``; ``--info`` prints the
-checkpoint's architecture and config; ``--grid``/``--zip`` exports and
-``--interpolate`` as in the JAX package's CLI.
+batches and save ``{prefix}_{i:06d}.png``; ``--which`` picks the epoch of a
+run directory (``latest``, ``best`` or an epoch number); ``--info`` prints
+the saved epochs and aliases, the architecture and the config;
+``--grid``/``--zip`` exports and ``--interpolate`` as in the JAX package's
+CLI.
 
 Usage:
-    python -m siggan_tpu_torch.cli.generate --checkpoint DIR --n_samples 100 [--device cuda]
+    python -m siggan_tpu_torch.cli.generate --checkpoint DIR --n_samples 100 \
+        [--which best] [--device cuda]
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from pathlib import Path
 def parse_arguments(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Generate signatures from a checkpoint")
     p.add_argument("--checkpoint", type=str, required=True,
-                   help="checkpoint DIRECTORY (config.json + generator.npz)")
+                   help="checkpoint DIRECTORY (config.json + generator.npz, or a "
+                        "training run's checkpoint directory with index.json)")
+    p.add_argument("--which", type=str, default="latest",
+                   help="'latest' | 'best' | epoch number")
     p.add_argument("--n_samples", type=int, default=100)
     p.add_argument("--output_dir", type=str, default="./generated")
     p.add_argument("--batch_size", type=int, default=64)
@@ -39,22 +45,25 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def checkpoint_info(checkpoint_dir: str) -> dict:
-    from siggan_tpu_torch.ckpt.manager import (infer_architecture, load_arrays,
-                                               load_config)
-    arrays = load_arrays(checkpoint_dir)
+def checkpoint_info(checkpoint_dir: str, which: str | int = "latest") -> dict:
+    from siggan_tpu_torch.ckpt.manager import (CheckpointManager, infer_architecture,
+                                               load_arrays, load_config)
+    arrays = load_arrays(checkpoint_dir, which)
+    cfg = load_config(checkpoint_dir)
     return {
+        "available": CheckpointManager(checkpoint_dir, cfg).available(),
         "architecture": infer_architecture(arrays),
         "g_param_count": sum(int(a.size) for k, a in arrays.items()
                              if not k.startswith("bn/")),
-        "config": load_config(checkpoint_dir).to_dict(),
+        "config": cfg.to_dict(),
     }
 
 
 def main(argv=None) -> int:
     args = parse_arguments(argv)
+    which = args.which if args.which in ("latest", "best") else int(args.which)
     if args.info:
-        print(json.dumps(checkpoint_info(args.checkpoint), indent=2))
+        print(json.dumps(checkpoint_info(args.checkpoint, which), indent=2))
         return 0
 
     from siggan_tpu_torch.infer.export import (contact_sheet, encode_png,
@@ -62,7 +71,7 @@ def main(argv=None) -> int:
     from siggan_tpu_torch.infer.generate import load_session
     from siggan_tpu_torch.utils.visualizer import make_grid, to_uint8
 
-    session = load_session(args.checkpoint, device=args.device)
+    session = load_session(args.checkpoint, which, device=args.device)
 
     if args.interpolate > 0:
         frames = session.interpolate(seed=args.seed, steps=args.interpolate)

@@ -5,12 +5,16 @@ Usage:
         [--batch_size 64] [--run_dir runs/exp1] [--resume] [--device cuda]
 
 Trains on one CUDA card (``--device cpu`` runs the same code on the CPU, for
-tests); without a card it raises rather than fall back. ``--data_dir``
-holds PNG images. Flags of features the port does not train yet (spectral
-norm, conditional models, EMA, LR schedules, DiffAugment, shared fakes, FID,
-the profiler, several cards) are accepted and raise ``NotImplementedError``.
+tests); without a card it raises rather than fall back. On the card the
+steps run in windows of K (the JAX trainer's ``scan_steps`` rule), each a
+CUDA graph of one step replayed K times. ``--data_dir`` holds PNG images
+(other image files are refused). ``--spectral_norm`` with ``--image_size
+128`` trains v1.1. Flags of features the port does not train yet
+(conditional models, EMA, LR schedules, DiffAugment, shared fakes, FID, the
+profiler, several cards) are accepted and raise ``NotImplementedError``.
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve
---checkpoint DIR`` (its latest epoch).
+--checkpoint DIR`` (its latest epoch), and ``cli.generate --which`` samples
+any saved epoch.
 """
 
 from __future__ import annotations

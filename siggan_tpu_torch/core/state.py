@@ -12,8 +12,12 @@ with ``moment_dtype="bfloat16"`` it is the JAX package's ``adam_low_mem``
 incremented count, ``u = -lr*(m/bc1)/(sqrt(v/bc2)+eps)``); with
 ``"float32"`` it is optax's ``adam`` (f32 moments, optax's formula).
 ``gradient_clip_value`` prepends optax's ``clip_by_global_norm``. The count
-is a host integer and every step's update stays on the device: nothing
-synchronizes with the host. LR schedules and EMA are not ported yet.
+is an int32 tensor on the parameters' device and the bias corrections are
+f32 device values computed from it, as JAX computes them, so a step reads
+nothing from the host and a CUDA graph of it advances the count on every
+replay; checkpoints keep the count as an integer (``bridge.opt_to_jax``).
+LR schedules and EMA are not ported yet (under a graph the LR will have to
+be a device value too).
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from siggan_tpu_torch.core import rng
@@ -29,7 +32,7 @@ from siggan_tpu_torch.core.config import TrainConfig
 from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
 from siggan_tpu_torch.models import discriminator, generator
 
-OptState = Dict[str, object]   # {"count": int, "m": [Tensor], "v": [Tensor]}
+OptState = Dict[str, object]   # {"count": int32 Tensor (), "m": [Tensor], "v": [Tensor]}
 
 
 @dataclass
@@ -56,11 +59,12 @@ class Adam:
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         z = [torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device) for p in params]
-        return {"count": 0, "m": z, "v": [t.clone() for t in z]}
+        return {"count": new_count(0, params[0].device), "m": z,
+                "v": [t.clone() for t in z]}
 
     def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """optax.clip_by_global_norm: g if |g| < c else g / |g| * c."""
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = global_norm(grads)
         keep = norm < self.clip
         return [torch.where(keep, g, g / norm * self.clip) for g in grads]
 
@@ -71,11 +75,13 @@ class Adam:
         g32 = [g.float() for g in grads]
         if self.clip:
             g32 = self._clip(g32)
-        count = state["count"] + 1
+        count = state["count"]
+        count.add_(1)
         b1, b2 = self.b1, self.b2
-        # Bias corrections in f32, as the JAX package computes them.
-        bc1 = float(np.float32(1.0) - np.power(np.float32(b1), np.float32(count)))
-        bc2 = float(np.float32(1.0) - np.power(np.float32(b2), np.float32(count)))
+        # Bias corrections in f32 on the device, as the JAX package computes
+        # them: 1 - b ** float(count).
+        c = count.float()
+        bc1, bc2 = 1.0 - torch.pow(b1, c), 1.0 - torch.pow(b2, c)
         m32 = [m.float() for m in state["m"]]
         v32 = [v.float() for v in state["v"]]
         if self.low_mem:
@@ -106,7 +112,16 @@ class Adam:
         torch._foreach_add_(list(params), num)
         torch._foreach_copy_(state["m"], m32)
         torch._foreach_copy_(state["v"], v32)
-        state["count"] = count
+
+
+def new_count(n: int, device) -> torch.Tensor:
+    """An Adam step count: an int32 scalar tensor on ``device``."""
+    return torch.tensor(n, dtype=torch.int32, device=device)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the l2 norm of all entries, in f32."""
+    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
 def check_supported(cfg: TrainConfig) -> None:

@@ -8,7 +8,10 @@ decode-free. PNGs are decoded by the port's own ``infer/export.decode_png``
 601 luma weights PIL's ``convert("L")`` uses. Images of another size are
 resized with PyTorch's antialiased bilinear filter, close to (not bit-equal
 with) PIL's. A file that fails to decode becomes a zero image with a
-warning, as in the reference. Only PNG files are read.
+warning, as in the reference. Only PNG files are read: a directory that
+also holds the reference's other image files (.jpg, .jpeg, .bmp, .tiff,
+.tif) is refused, rather than trained on its PNG subset, until their
+decoders are ported (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -29,14 +32,22 @@ from siggan_tpu_torch.infer.export import decode_png
 logger = logging.getLogger(__name__)
 
 IMAGE_EXTENSIONS = {".png"}
+# The reference's other image extensions (its data/dataset.py), not decoded yet.
+UNDECODED_EXTENSIONS = {".jpg", ".jpeg", ".bmp", ".tiff", ".tif"}
 
 
 def list_images(data_dir: str | Path, recursive: bool = True) -> List[Path]:
     root = Path(data_dir)
     if not root.is_dir():
         raise FileNotFoundError(f"data_dir does not exist: {root}")
-    it = root.rglob("*") if recursive else root.glob("*")
-    return sorted(p for p in it if p.suffix.lower() in IMAGE_EXTENSIONS)
+    files = list(root.rglob("*") if recursive else root.glob("*"))
+    other = sorted(p for p in files if p.suffix.lower() in UNDECODED_EXTENSIONS)
+    if other:
+        raise NotImplementedError(
+            f"{root} holds {len(other)} image files the port cannot decode yet "
+            f"({other[0].name}, ...): only PNG is read until the other formats' "
+            f"decoders are ported (ROADMAP A.6)")
+    return sorted(p for p in files if p.suffix.lower() in IMAGE_EXTENSIONS)
 
 
 def _to_gray(u8: np.ndarray) -> np.ndarray:

@@ -115,10 +115,13 @@ class GeneratorSession:
         return self._fwd(zs).cpu().numpy()
 
 
-def load_session(checkpoint_dir: str, device: DeviceLike = "cuda") -> GeneratorSession:
-    """A session on ``device`` for a port checkpoint (``ckpt/manager.py``)."""
+def load_session(checkpoint_dir: str, which: str | int = "latest",
+                 device: DeviceLike = "cuda") -> GeneratorSession:
+    """A session on ``device`` for a port checkpoint (``ckpt/manager.py``):
+    a generator checkpoint, or the epoch ``which`` names in a run directory
+    (``"latest"``, ``"best"`` or an epoch number)."""
     from siggan_tpu_torch.ckpt.manager import load_generator
     dev = resolve_device(device)
-    model, cfg = load_generator(checkpoint_dir, dev)
+    model, cfg = load_generator(checkpoint_dir, dev, which)
     return GeneratorSession(model, compute_dtype=cfg.compute_dtype,
                             use_pallas=cfg.use_pallas, device=dev)

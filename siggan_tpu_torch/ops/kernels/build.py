@@ -156,14 +156,34 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype, device, shape=None) 
                          f"expected {tuple(shape)}")
 
 
+_counters: List["LaunchCounter"] = []
+
+
 class LaunchCounter:
-    """Counts one kernel wrapper's launches on the card."""
+    """Counts one kernel wrapper's launches on the card. Every counter is
+    registered, so that a CUDA graph's capture can take back the launches
+    it recorded and each replay add them (``launch_counts``,
+    ``add_launches``)."""
 
     def __init__(self) -> None:
         self.count = 0
+        _counters.append(self)
 
     def add(self, n: int = 1) -> None:
         self.count += n
 
     def reset(self) -> None:
         self.count = 0
+
+
+def launch_counts() -> List[int]:
+    """The count of every registered ``LaunchCounter``, in registration order."""
+    return [c.count for c in _counters]
+
+
+def add_launches(counts: List[int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (as ``launch_counts`` orders them) to the
+    counters: what ``times`` replays of a graph that recorded ``counts``
+    launched."""
+    for c, n in zip(_counters, counts):
+        c.add(n * times)

@@ -126,22 +126,31 @@ def pack_tail_backward_reference(ws: Sequence[torch.Tensor],
                  for w, d, k in zip(ws, dps, kinds(len(ws))))
 
 
+def _layout(shapes: Sequence[Tuple[int, ...]], isz: int):
+    """([(shape, stride, offset)], total elements) of contiguous tensors of
+    ``shapes`` in one buffer, each at a 16-byte aligned offset."""
+    views, total = [], 0
+    for shape in shapes:
+        views.append((shape, torch.empty(shape, device="meta").stride(), total))
+        total += -(-math.prod(shape) * isz // 16) * 16 // isz
+    return views, total
+
+
 class _Plan:
-    """What one weight list's shapes and output dtype fix, built once: the
-    kinds and (Ci, Co), each output's (shape, stride, offset) in one buffer
-    (16-byte aligned), and the ctypes integer arrays of the call."""
+    """What one weight list's shapes and the packed dtype fix, built once:
+    the kinds and (Ci, Co), each packed output's (shape, stride, offset) in
+    one buffer and each f32 gradient's in another (16-byte aligned), and the
+    ctypes integer arrays of the call."""
 
     def __init__(self, shapes: Sequence[Tuple[int, ...]], out_dtype: torch.dtype) -> None:
         ks = kinds(len(shapes))
         cis, cos = zip(*(dims(torch.empty(s, device="meta"), k) for s, k in zip(shapes, ks)))
         self.shapes = [packed_shape(k, ci, co) for k, ci, co in zip(ks, cis, cos)]
         isz = torch.empty((), dtype=out_dtype).element_size()
-        self.views, total = [], 0
-        for shape in self.shapes:
-            self.views.append((shape, torch.empty(shape, device="meta").stride(), total))
-            total += -(-math.prod(shape) * isz // 16) * 16 // isz
-        self.total = total
+        self.views, self.total = _layout(self.shapes, isz)
         self.offsets = [isz * off for _, _, off in self.views]   # in bytes
+        self.grad_views, self.grad_total = _layout([tuple(s) for s in shapes], 4)
+        self.grad_offsets = [4 * off for _, _, off in self.grad_views]
         self.ptrs = ctypes.c_void_p * len(ks)
         ints = ctypes.c_int * len(ks)
         self.args = (len(ks), ints(*ks), ints(*cis), ints(*cos))
@@ -196,22 +205,29 @@ def pack_tail_launch(ws: Sequence[torch.Tensor],
 def pack_tail_backward_launch(ws: Sequence[torch.Tensor],
                               dps: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """B1' on the card: packed cotangents (bf16 or f32, one dtype) -> f32
-    canonical gradients in the stored layouts, one launch."""
+    canonical gradients in the stored layouts, one launch. The gradients
+    are views of one buffer; the cotangents' pointers are read on every
+    call."""
     dev = ws[0].device
     if dev.type != "cuda":
         raise ValueError(f"the pack kernel needs CUDA tensors, got {dev}")
     dt = dps[0].dtype
-    if dt not in (torch.bfloat16, torch.float32):
+    if dt is not torch.bfloat16 and dt is not torch.float32:
         raise TypeError(f"the pack backward reads bf16 or f32, not {dt}")
     plan = _plan(ws, dt)
-    grads = []
-    for i, (w, d, shape) in enumerate(zip(ws, dps, plan.shapes)):
-        build.require(f"cotangent {i}", d, dt, dev, shape)
-        grads.append(torch.empty(w.shape, device=dev, dtype=torch.float32))
-    _launch("siggan_pack_tail_bwd", plan, [d.data_ptr() for d in dps],
-            [g.data_ptr() for g in grads], dt == torch.bfloat16, dev)
+    ptrs = []
+    for i, (d, shape) in enumerate(zip(dps, plan.shapes)):   # one combined test each
+        p = d.data_ptr()
+        if (p & 15 or d.dtype is not dt or d.device != dev or not d.is_contiguous()
+                or d.shape != shape):
+            build.require(f"cotangent {i}", d, dt, dev, shape)
+        ptrs.append(p)
+    buf = torch.empty(plan.grad_total, device=dev, dtype=torch.float32)
+    base = buf.data_ptr()
+    _launch("siggan_pack_tail_bwd", plan, ptrs, [base + o for o in plan.grad_offsets],
+            dt is torch.bfloat16, dev)
     BWD_LAUNCHES.add()
-    return tuple(grads)
+    return tuple([buf.as_strided(*v) for v in plan.grad_views])
 
 
 class _PackTail(torch.autograd.Function):
@@ -225,11 +241,11 @@ class _PackTail(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *dps):
-        ws = ctx.saved_tensors
-        dps = [torch.zeros(packed_shape(k, *dims(w, k)), device=w.device,
-                           dtype=ctx.out_dtype) if d is None
-               else d.to(ctx.out_dtype).contiguous()
-               for d, w, k in zip(dps, ws, kinds(len(ws)))]
+        ws, odt = ctx.saved_tensors, ctx.out_dtype
+        if any(d is None or d.dtype is not odt or not d.is_contiguous() for d in dps):
+            shapes = _plan(ws, odt).shapes
+            dps = [torch.zeros(s, device=ws[0].device, dtype=odt) if d is None
+                   else d.to(odt).contiguous() for d, s in zip(dps, shapes)]
         if ws[0].device.type == "cpu":
             return (None, *pack_tail_backward_reference(ws, dps))
         return (None, *pack_tail_backward_launch(ws, dps))

@@ -25,11 +25,17 @@ import torch
 SN_EPS = 1e-12
 
 
+def keep_mask(u: torch.Tensor, rate: float) -> torch.Tensor:
+    """The keep-mask of uniform draws ``u``: u < 1 - rate (JAX's
+    ``bernoulli`` law)."""
+    return u < (1.0 - rate)
+
+
 def dropout2d_mask(shape, rate: float, gen: torch.Generator,
                    device=None) -> torch.Tensor:
     """Keep-mask (N, 1, 1, C) bool for an (N, H, W, C) activation."""
     n, c = shape[0], shape[-1]
-    return torch.rand((n, 1, 1, c), generator=gen, device=device) < (1.0 - rate)
+    return keep_mask(torch.rand((n, 1, 1, c), generator=gen, device=device), rate)
 
 
 def dropout2d(x: torch.Tensor, rate: float, *, train: bool,

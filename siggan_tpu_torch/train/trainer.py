@@ -3,14 +3,18 @@ sample grids, recovery.
 
 Port of the JAX package's ``GANTrainer`` (``train/trainer.py``) without the
 mesh, FID or profiler. The dataset is resident on the card and every step
-gathers its batch there (``make_resident_train_step``). Steps are enqueued
-without a host synchronization: per-step metrics stay on the card and are
-pulled once at epoch end, where the mode-collapse detector replays them and
-the epoch's images/s and ms/step are logged (host clock around the epoch,
-ending in that pull). The stop file is polled before every epoch and after
-every step. Fixed-noise sample grids every ``sample_interval`` epochs,
-epoch/latest/best checkpoints every ``checkpoint_interval``, resume, and a
-checkpoint on interrupt, as in the JAX trainer.
+gathers its batch there. Steps run in windows of K = ``scan_steps``
+(``choose_scan_steps``, the JAX trainer's rule) through
+``make_resident_multi_step``: on the card each window replays a CUDA graph
+of one step K times, on the CPU it is K eager steps. Windows are enqueued
+without a host synchronization: metrics stay on the card and are pulled
+once at epoch end, where the mode-collapse detector replays them and the
+epoch's images/s and ms/step are logged (host clock around the epoch,
+ending in that pull), with every key the step returns. The stop file is
+polled before every epoch and after every window. Fixed-noise sample grids
+every ``sample_interval`` epochs, epoch/latest/best checkpoints every
+``checkpoint_interval``, resume, and a checkpoint on interrupt, as in the
+JAX trainer.
 """
 
 from __future__ import annotations
@@ -29,10 +33,27 @@ from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
 from siggan_tpu_torch.core.state import TrainState, create_train_state
 from siggan_tpu_torch.infer.export import contact_sheet
 from siggan_tpu_torch.train.collapse import ModeCollapseDetector
-from siggan_tpu_torch.train.train_step import (STEP_METRIC_KEYS, check_supported,
-                                               make_eval_generate,
-                                               make_resident_train_step)
+from siggan_tpu_torch.train.train_step import (check_supported, make_eval_generate,
+                                               make_resident_multi_step)
 from siggan_tpu_torch.utils.logger import GANLogger
+
+
+def choose_scan_steps(steps_per_epoch: int, scan_steps: int = 0) -> int:
+    """K, the steps of one dispatch, by the JAX trainer's rule: an explicit
+    ``scan_steps`` must divide ``steps_per_epoch``; on auto (0) K is its
+    largest divisor up to 64, or the whole epoch when that divisor is under
+    16 and smaller than the epoch (a prime steps_per_epoch, say), so that
+    every window starts at an epoch boundary and stays within its epoch."""
+    if scan_steps:
+        if steps_per_epoch % scan_steps:
+            raise ValueError(f"scan_steps ({scan_steps}) must divide steps_per_epoch "
+                             f"({steps_per_epoch}) -- or leave scan_steps=0 for a "
+                             f"valid automatic choice")
+        return scan_steps
+    k = max(1, min(steps_per_epoch, 64))
+    while steps_per_epoch % k:
+        k -= 1
+    return steps_per_epoch if k < 16 and steps_per_epoch > k else k
 
 
 def check_trainer_supported(cfg: TrainConfig, images: np.ndarray) -> None:
@@ -65,13 +86,34 @@ class GANTrainer:
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg, authoritative=True)
         self.images_dev = torch.from_numpy(np.ascontiguousarray(images, np.float32)
                                            ).to(self.device)
-        self._step_fn, self.steps_per_epoch = make_resident_train_step(cfg, len(images))
+        spe = len(images) // cfg.batch_size
+        self.scan_steps = choose_scan_steps(spe, cfg.scan_steps)
+        self._step_fn, self.steps_per_epoch = make_resident_multi_step(
+            cfg, len(images), self.scan_steps)
         self.state: TrainState = create_train_state(cfg, self.device)
         self._generate = make_eval_generate(cfg)
         self.fixed_noise = torch.randn(
             (cfg.fixed_noise_samples, cfg.model.latent_dim),
             generator=rng.generator(cfg.seed, rng.STREAM_FIXED))
         self.start_epoch = 0
+        self._reported = False
+
+    def _report_dispatch(self) -> None:
+        """Print, once, how the windows run: K, and on the card the graph's
+        capture time."""
+        graphed = self._step_fn.graphed
+        if self._reported:
+            return
+        if self.device.type == "cuda":
+            if graphed.capture_s is None:   # the window of the eager warm-up steps
+                return
+            how = (f"replays of a CUDA graph of one step, captured in "
+                   f"{graphed.capture_s:.3f} s after {graphed.warm} eager warm-up steps")
+        else:
+            how = "eager steps"
+        self._reported = True
+        print(f"Dispatch: {self.scan_steps} steps per call ({self.steps_per_epoch} per "
+              f"epoch) as {how}", flush=True)
 
     def _should_stop(self) -> bool:
         return self.stop_file is not None and self.stop_file.exists()
@@ -109,20 +151,23 @@ class GANTrainer:
                     stopped = True
                     epoch -= 1   # label the final checkpoint with the last done epoch
                     break
-                device_metrics = []
+                windows = []
                 t_epoch = time.perf_counter()
-                for _ in range(self.steps_per_epoch):
+                for _ in range(self.steps_per_epoch // self.scan_steps):
                     self.state, m = self._step_fn(self.state, self.images_dev)
-                    device_metrics.append(torch.stack([m[k] for k in STEP_METRIC_KEYS]))
+                    windows.append(m)   # each metric stacked to (K,)
+                    self._report_dispatch()
                     if self._should_stop():
                         print("Stop file detected — stopping mid-epoch", flush=True)
                         stopped = True
                         break
                 # One device-to-host transfer per epoch; it waits for the card.
-                stacked = torch.stack(device_metrics).cpu().numpy()
+                keys = list(windows[0])
+                stacked = torch.stack([torch.cat([m[k] for m in windows])
+                                       for k in keys]).cpu().numpy()
                 dt = time.perf_counter() - t_epoch
-                n_steps = len(device_metrics)
-                cols = {k: stacked[:, i] for i, k in enumerate(STEP_METRIC_KEYS)}
+                n_steps = stacked.shape[1]
+                cols = dict(zip(keys, stacked))
                 for g, dfm in zip(cols["g_loss"], cols["d_fake_mean"]):
                     self.collapse_detector.update(float(g), float(dfm))
                 avgs = {k: float(np.mean(v)) for k, v in cols.items()}

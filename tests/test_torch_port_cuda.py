@@ -421,3 +421,119 @@ def test_fused_tail_route_matches_module_route(dev, size, dtype):
     for x, y in zip(batch_stats(new(fused), old), batch_stats(new(module), old)):
         torch.testing.assert_close(x["mean"], y["mean"], **st_tol)
         torch.testing.assert_close(x["var"], y["var"], **st_tol)
+
+
+def packed_cotangents(ws, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(pt.packed_shape(k, *pt.dims(w, k)), generator=g).to(w.device, dtype)
+            for w, k in zip(ws, pt.kinds(len(ws)))]
+
+
+@pytest.mark.parametrize("channels", [
+    [(128, 64), (64, 32), (32, 32), (1, 32)],     # the full-width tail
+    [(13, 10), (10, 7), (7, 5), (3, 5)],          # ragged: element copies, partial tiles
+    [(16, 8), (8, 4), (1, 4)],                    # base 32 at 64 px, one interior
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_tail_backward_kernel(dev, channels, dtype):
+    """B1' against its plain version (f32 sums in another order: rtol 1e-5,
+    atol 1e-6) wherever its tiles meet ragged channel counts and runs that
+    are not 16-byte aligned; two launches give the same bits."""
+    g = torch.Generator().manual_seed(len(channels))
+    ws = [torch.randn(ci, co, 4, 4, generator=g).to(dev) for ci, co in channels[:-1]]
+    ws.append(torch.randn(channels[-1][0], channels[-1][1], 3, 3, generator=g).to(dev))
+    cts = packed_cotangents(ws, dtype, seed=3)
+    before = pt.BWD_LAUNCHES.count
+    got = pt.pack_tail_backward_launch(ws, cts)
+    again = pt.pack_tail_backward_launch(ws, cts)
+    assert pt.BWD_LAUNCHES.count == before + 2
+    for a, b, r, w in zip(got, again, pt.pack_tail_backward_reference(ws, cts), ws):
+        assert a.shape == w.shape and a.dtype == torch.float32 and a.is_contiguous()
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+
+
+# -- the graphed K-step dispatch ---------------------------------------------
+
+def train_cfg(tmp_path=None, **kw):
+    from siggan_tpu_torch.core.config import TrainConfig
+    dirs = {} if tmp_path is None else dict(
+        checkpoint_dir=str(tmp_path / "c"), sample_dir=str(tmp_path / "s"),
+        log_dir=str(tmp_path / "l"))
+    return TrainConfig(model=ModelConfig(latent_dim=16, base_features=32), batch_size=8,
+                       seed=4, sample_interval=0, checkpoint_interval=1, **dirs, **kw)
+
+
+@pytest.fixture
+def deterministic(dev):
+    """cuDNN's deterministic algorithms, so that two eager runs give the same
+    bits and graphed steps can be held to them."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield dev
+    torch.backends.cudnn.deterministic = before
+
+
+def state_equal(a, b):
+    from siggan_tpu_torch.train.train_step import state_tensors
+    return a.step == b.step and all(torch.equal(x, y) for x, y in
+                                    zip(state_tensors(a), state_tensors(b)))
+
+
+def test_graphed_steps_equal_eager_steps(deterministic):
+    """Two windows of 4 graphed steps (the first holds the 2 eager warm-up
+    steps and the capture), across an epoch change, against 8 eager steps
+    on a copy of the state: the same bits, metrics and launch counts (B1
+    twice, B1' once and B2 once per step)."""
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
+                                                   make_resident_train_step)
+    cfg = train_cfg()
+    images = torch.from_numpy(generate_dataset(32, 64, seed=2)).to(deterministic)
+    multi, spe = make_resident_multi_step(cfg, 32, 4)
+    eager, _ = make_resident_train_step(cfg, 32)
+    a = create_train_state(cfg, deterministic)
+    b = copy.deepcopy(a)
+    counters = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES)
+    before = [c.count for c in counters]
+    got = []
+    for _ in range(2):
+        a, m = multi(a, images)
+        got.append(m)
+    torch.cuda.synchronize()
+    assert multi.graphed.graph is not None and multi.graphed.capture_s > 0
+    assert [c.count - n for c, n in zip(counters, before)] == [16, 8, 8]
+    want = []
+    for _ in range(8):
+        b, m = eager(b, images)
+        want.append(m)
+    assert state_equal(a, b)
+    for k in want[0]:
+        assert torch.equal(torch.cat([m[k] for m in got]), torch.stack([m[k] for m in want]))
+    # Launch counts after more windows: each replay adds what was captured.
+    before = [c.count for c in counters]
+    for _ in range(3):
+        a, _ = multi(a, images)
+    assert [c.count - n for c, n in zip(counters, before)] == [24, 12, 12]
+
+
+def test_graphed_training_resumes_like_the_uninterrupted_run(deterministic, tmp_path):
+    """1 epoch, a checkpoint, a new trainer that resumes it (the graph bound
+    to the restored state) and 1 more epoch: the bits of 2 epochs in one run."""
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.train.trainer import GANTrainer
+    images = generate_dataset(32, 64, seed=3)
+
+    def trainer(name, epochs):
+        return GANTrainer(train_cfg(tmp_path / name, epochs=epochs), images, device="cuda")
+
+    whole = trainer("whole", 2)
+    whole.train()
+    trainer("split", 1).train()
+    resumed = trainer("split", 2)
+    assert resumed.resume("latest") and resumed.state.step == 4
+    resumed.train()
+    assert whole.scan_steps == resumed.scan_steps == 4
+    assert state_equal(whole.state, resumed.state)
+    assert resumed._step_fn.graphed.graph is not None
