@@ -65,8 +65,23 @@ Phases (any failure raises and the script exits non-zero):
      from v1.1's 200 epochs), the same checks and module-route run, plus
      spectral-norm vectors that moved, have unit norm and come back on
      resume, and the checkpoint served at 128 x 128 through the module path;
-  9. print the kernels line (one JSON object), the nvidia-smi line again,
-     and as the last line {"ok": true, "device": {...}}.
+  9. train v2.0, the conditional recipe, the same way at full width: 8
+     writer subdirectories of 256 synthetic 64 px PNGs each
+     (generate_labeled_dataset(8, 256, 64, seed=21); the recipe's 8 x 1024
+     cut to phase 7's size), the CLI with V20_ARGV (8 classes, concat
+     labels, spectral norm with the projection head, latent 200, d_lr 1e-4,
+     g_lr 2e-4, linear LR decay, DiffAugment translation,cutout) for 3
+     epochs of 32 steps (depth cut from 600 epochs); the checks of phase 8
+     plus the class embedding's u, the LR Adam applied at the last step
+     against the linear schedule's for G and D, a resumed run trained on
+     for one more epoch whose last LR is the schedule's at its count, the
+     checkpoint served over HTTP with class_id 0 and 7 (images that decode,
+     repeat for a seed and differ between the classes), two graphed
+     windows against eager steps with the EMA shadow on and the LR
+     decaying over them, and the profile;
+ 10. print the kernels line (one JSON object; B1, B1' and B2 with their
+     launches by path), the nvidia-smi line again, and as the last line
+     {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -757,22 +772,29 @@ def check_fused_route(dev):
 
 
 def step_flops(cfg, batch: int) -> float:
-    """Model FLOPs of one default train step (n_critic=1), counted from the
+    """Model FLOPs of one train step (n_critic=1), counted from the
     canonical layer shapes: 2 FLOPs per MAC; a trained layer's forward +
     input gradient + weight gradient is 3 forwards. G: forward in the D
     step, forward + both gradients in the G step (4 forwards of batch b).
     D: forward + both gradients over the 2b batch of the D step, forward +
-    input gradient over b in the G step (3 x 2b + 2 x b forwards)."""
+    input gradient over b in the G step (3 x 2b + 2 x b forwards). A
+    conditional model's fc takes the one-hot columns (concat), and D's
+    projection head adds one 8192-term dot a sample (the AC-GAN head
+    num_classes of them); DiffAugment is counted as no FLOPs."""
     from siggan_tpu_torch.models.generator import channel_schedule as g_sched
     from siggan_tpu_torch.models.discriminator import channel_schedule as d_sched
     c0, blocks = g_sched(cfg.model)
     size = cfg.model.image_size
-    g_macs = cfg.model.latent_dim * 16 * c0 + 9 * blocks[-1][1] * size * size
+    nc = cfg.model.num_classes
+    fc_in = cfg.model.latent_dim + (nc if cfg.model.g_conditioning == "concat" and nc else 0)
+    g_macs = fc_in * 16 * c0 + 9 * blocks[-1][1] * size * size
     side = 4
     for ci, co in blocks:
         g_macs += 16 * ci * co * side * side
         side *= 2
-    d_macs, side = 512 * 4 * 4, cfg.model.image_size
+    heads = 1 + (1 if nc and cfg.model.d_projection else 0) + (
+        nc if nc and cfg.model.aux_classifier else 0)
+    d_macs, side = heads * 512 * 4 * 4, cfg.model.image_size
     for ci, co in d_sched(cfg.model):
         side //= 2
         d_macs += 16 * ci * co * side * side
@@ -812,8 +834,12 @@ def state_groups(state, metrics):
             "G BN statistics": list(state.g.buffers()),
             "D parameters": list(state.d.parameters()),
             "D spectral-norm u": list(state.d.buffers()),
-            "G Adam": [state.g_opt["count"], *state.g_opt["m"], *state.g_opt["v"]],
-            "D Adam": [state.d_opt["count"], *state.d_opt["m"], *state.d_opt["v"]],
+            "G Adam": [state.g_opt["count"], state.g_opt["lr"], *state.g_opt["m"],
+                       *state.g_opt["v"]],
+            "D Adam": [state.d_opt["count"], state.d_opt["lr"], *state.d_opt["m"],
+                       *state.d_opt["v"]],
+            "G EMA": ([] if state.g_ema is None
+                      else [*state.g_ema.parameters(), *state.g_ema.buffers()]),
             "metrics": list(metrics.values())}
 
 
@@ -825,13 +851,15 @@ def group_diffs(a, b):
             for k in a}
 
 
-def graphed_vs_eager(tag, cfg, n_images, images, state0, k):
-    """Phases 7-8: two windows of K graphed steps (the first holding the
+def graphed_vs_eager(tag, cfg, n_images, images, state0, k, labels=None):
+    """Phases 7-9: two windows of K graphed steps (the first holding the
     eager warm-up steps and the capture) against 2K eager resident steps, on
     copies of one state at an epoch boundary. Two eager runs are compared
     first: where they give the same bits the graphed run must too, else it
     must stay within their spread (twice its largest difference) in every
-    part -- parameters, BN statistics, u's, both Adam states, metrics."""
+    part -- parameters, BN statistics, u's, both Adam states with their LR
+    records, the EMA shadow, metrics. Returns (the agreement, the graphed
+    state)."""
     import torch
     from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
                                                    make_resident_train_step)
@@ -840,14 +868,14 @@ def graphed_vs_eager(tag, cfg, n_images, images, state0, k):
         fn, _ = make_resident_train_step(cfg, n_images)
         state, ms = copy.deepcopy(state0), []
         for _ in range(2 * k):
-            state, m = fn(state, images)
+            state, m = fn(state, images, labels=labels)
             ms.append(m)
         return state_groups(state, {key: torch.stack([m[key] for m in ms]) for key in ms[0]})
     first, second = eager(), eager()
     multi, _ = make_resident_multi_step(cfg, n_images, k)
     state, ms = copy.deepcopy(state0), []
     for _ in range(2):
-        state, m = multi(state, images)
+        state, m = multi(state, images, labels)
         ms.append(m)
     graphed = state_groups(state, {key: torch.cat([m[key] for m in ms]) for key in ms[0]})
     torch.cuda.synchronize()
@@ -862,11 +890,11 @@ def graphed_vs_eager(tag, cfg, n_images, images, state0, k):
           f"{json.dumps(spread)}; graphed vs eager {json.dumps(diff)}; "
           f"{'bit-equal' if bit_equal else 'within the eager spread'}", flush=True)
     return {"k": k, "capture_s": multi.graphed.capture_s, "eager_spread": spread,
-            "graphed_vs_eager": diff, "eager_bit_equal": bit_equal}
+            "graphed_vs_eager": diff, "eager_bit_equal": bit_equal}, state
 
 
-def profile_routes(cfg, n_images, images, state, k):
-    """Phases 7-8: profile the steps on the trained state, the D step's G
+def profile_routes(cfg, n_images, images, state, k, labels=None):
+    """Phases 7-9: profile the steps on the trained state, the D step's G
     tail on B2 and on the module path in turns (B2, module, module, B2):
     10-step windows of the eager resident step, and K-step windows of the
     graphed dispatch (one multi-step per route, each captured under its
@@ -884,13 +912,13 @@ def profile_routes(cfg, n_images, images, state, k):
     def ten():
         nonlocal state
         for _ in range(10):
-            state, m = step_fn(state, images)
+            state, m = step_fn(state, images, labels=labels)
         return m
 
     def window(route):
         def run():
             nonlocal gstate
-            gstate, m = graphed[route](gstate, images)
+            gstate, m = graphed[route](gstate, images, labels)
             return m
         return run
     routes = {f"{how} {route}": [] for how in ("eager", "graphed") for route in ("B2", "module")}
@@ -915,17 +943,77 @@ def profile_routes(cfg, n_images, images, state, k):
     return routes, per, gper
 
 
-def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048):
-    """Phases 7 and 8: the port's training path, through its CLI, at full
-    width: TrainConfig() defaults at 64 px, v1.1 (--spectral_norm) at 128."""
+V20_ARGV = ["--num_classes", "8", "--g_conditioning", "concat", "--spectral_norm",
+            "--latent_dim", "200", "--d_lr", "1e-4", "--g_lr", "2e-4", "--lr_schedule", "linear",
+            "--diffaugment", "translation,cutout"]
+
+
+def linear_lr(lr: float, total: int, count: int) -> float:
+    """optax's join_schedules([constant(lr), linear(lr, 0, span)], [start])
+    at ``count`` in f32, written out apart from the port's Schedule."""
+    import numpy as np
+    start = int(total * 0.5)
+    span = max(total - start, 1)
+    if count < start:
+        return float(np.float32(lr))
+    frac = np.float32(1) - np.float32(min(count - start, span)) / np.float32(span)
+    return float(np.float32(lr) * frac)
+
+
+def serve_conditional(run: str, card: str):
+    """Phase 9: the trained conditional checkpoint through the HTTP server,
+    class_id 0 and 7: the images decode, repeat for a seed and differ
+    between the classes."""
+    import numpy as np
+    from siggan_tpu_torch.infer.export import decode_png
+    from siggan_tpu_torch.serve.api import serve
+    server = serve("127.0.0.1", 0, f"{run}/checkpoints", device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    try:
+        if server.core.state.session is None:
+            raise AssertionError(f"model failed to load: {server.core.state.load_error}")
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        info = json.loads(http(base + "/info")[0])
+        got, ms = {}, []
+        for cid, tag in ((0, "a"), (0, "b"), (7, "a")):
+            payload, _, t = http(base + "/generate", {"n": 16, "format": "base64",
+                                                       "seed": 3, "class_id": cid})
+            got[(cid, tag)] = [decode_png(base64.b64decode(x))
+                               for x in json.loads(payload)["images"]]
+            ms.append(t)
+    finally:
+        server.shutdown()
+        server.server_close()
+        if thread.is_alive():
+            thread.join(timeout=30)
+    if info["num_classes"] != 8 or info["latent_dim"] != 200:
+        raise AssertionError(f"/info: {info}")
+    if any(len(v) != 16 or v[0].shape != (64, 64, 1) for v in got.values()):
+        raise AssertionError("the conditional checkpoint served wrong images")
+    if not all(np.array_equal(a, b) for a, b in zip(got[(0, "a")], got[(0, "b")])):
+        raise AssertionError("class_id 0: the same seed gave different images")
+    same = sum(np.array_equal(a, b) for a, b in zip(got[(0, "a")], got[(7, "a")]))
+    if same:
+        raise AssertionError(f"class_id 0 and 7 gave {same} equal images of 16")
+    print(f"train v2.0: served the checkpoint with class_id 0 and 7 (16 images each; "
+          f"{' / '.join(f'{t:.2f}' for t in ms)} ms a request) [{card}]", flush=True)
+
+
+def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048,
+                v20: bool = False):
+    """Phases 7, 8 and 9: the port's training path, through its CLI, at full
+    width: TrainConfig() defaults at 64 px, v1.1 (--spectral_norm) at 128,
+    and the conditional v2.0 recipe (``V20_ARGV``) at 64 px on 8 writers."""
+    import dataclasses
     import numpy as np
     import torch
     from siggan_tpu_torch.ckpt.manager import D_STATE, D_WEIGHTS, CheckpointManager, \
         load_generator
     from siggan_tpu_torch.cli import train as train_cli
     from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
-    from siggan_tpu_torch.core.state import create_train_state
-    from siggan_tpu_torch.data.synthetic import save_dataset_pngs
+    from siggan_tpu_torch.core.state import copy_generator, create_train_state
+    from siggan_tpu_torch.data.synthetic import save_dataset_pngs, save_labeled_dataset_pngs
     from siggan_tpu_torch.infer.generate import GeneratorSession
     from siggan_tpu_torch.models.generator import fused_tail_supported
     from siggan_tpu_torch.ops.kernels import generator_fwd as gf
@@ -934,17 +1022,23 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
     from siggan_tpu_torch.train import train_step as ts
     from siggan_tpu_torch.train.trainer import GANTrainer
 
-    sn = size == 128
-    tag = "train v1.1 128 px SN" if sn else "train 64 px"
+    sn = size == 128 or v20
+    tag = "train v2.0" if v20 else "train v1.1 128 px SN" if sn else "train 64 px"
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        data = save_dataset_pngs(n_images, f"{tmp}/data", size=size, seed=0)
+        if v20:
+            data = save_labeled_dataset_pngs(8, n_images // 8, f"{tmp}/data", size=size,
+                                             seed=21)
+        else:
+            data = save_dataset_pngs(n_images, f"{tmp}/data", size=size, seed=0)
         print(f"{tag}: wrote {n_images} synthetic {size} px PNGs in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         run = f"{tmp}/run"
         argv = ["--data_dir", str(data), "--epochs", str(epochs), "--image_size", str(size),
                 "--checkpoint_interval", "1", "--run_dir", run, "--device", "cuda"]
-        if sn:
+        if v20:
+            argv += V20_ARGV
+        elif sn:
             argv.append("--spectral_norm")
         for counter in (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES):
             counter.reset()
@@ -965,12 +1059,19 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
               f"launches: {json.dumps(launches)}", flush=True)
 
         cfg = TrainConfig.from_json(open(f"{run}/checkpoints/config.json").read())
+        steps = epochs * (n_images // cfg.batch_size)
         want_model = ModelConfig(image_size=size, use_spectral_norm=sn)
+        if v20:
+            want_model = ModelConfig(latent_dim=200, num_classes=8, g_conditioning="concat",
+                                     use_spectral_norm=True)
+            o = cfg.optim
+            if (o.d_lr, o.g_lr, o.lr_schedule, o.lr_total_steps, cfg.diffaugment) != (
+                    1e-4, 2e-4, "linear", steps, "translation,cutout"):
+                raise AssertionError(f"not the v2.0 recipe: {cfg.to_json()}")
         if (cfg.model != want_model or cfg.batch_size != 64
                 or cfg.compute_dtype != "bfloat16" or not cfg.packed_io
                 or not fused_tail_supported(cfg.model)):
             raise AssertionError(f"not the expected configuration: {cfg.to_json()}")
-        steps = epochs * (n_images // cfg.batch_size)
         want = {"pack_tail": 2 * steps, "pack_tail_backward": steps, "train_tail": steps}
         if launches != want:
             raise AssertionError(f"expected launches {want}, got {launches}")
@@ -1013,44 +1114,110 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
             if torch.equal(b0, b1):
                 raise AssertionError("a G BatchNorm running statistic did not move")
         us = [blk.u for blk in state.d.blocks]
+        u_keys = [f"{D_STATE}blocks/{i}/u" for i in range(len(us))]
+        u_init = [b.u for b in init.d.blocks]
+        if v20:   # the projection head's u (8192,)
+            us, u_init = us + [state.d.class_embed_u], u_init + [init.d.class_embed_u]
+            u_keys.append(f"{D_STATE}class_embed/u")
         if sn:
-            for i, (u0, u1) in enumerate(zip([b.u for b in init.d.blocks], us)):
+            for key, u0, u1 in zip(u_keys, u_init, us):
                 norm = float(torch.linalg.vector_norm(u1))
                 if torch.equal(u0, u1) or abs(norm - 1.0) > 1e-4:
-                    raise AssertionError(f"D block {i} u: moved {not torch.equal(u0, u1)}, "
+                    raise AssertionError(f"D {key}: moved {not torch.equal(u0, u1)}, "
                                          f"norm {norm}")
             with np.load(Path(mgr.resolve("latest")) / D_WEIGHTS) as f:
-                saved = [f[f"{D_STATE}blocks/{i}/u"] for i in range(len(us))]
+                saved = [f[key] for key in u_keys]
             if not all(np.array_equal(u.cpu().numpy(), v) for u, v in zip(us, saved)):
                 raise AssertionError("the restored u's differ from the saved ones")
+        if v20:
+            # The LR Adam applied at the last step: the linear schedule's at
+            # count steps - 1 (D's span = G's, n_critic = 1).
+            applied = {}
+            for net, opt, lr in (("G", state.g_opt, 2e-4), ("D", state.d_opt, 1e-4)):
+                want_lr = linear_lr(lr, steps, steps - 1)
+                applied[net] = float(opt["lr"])
+                if int(opt["count"]) != steps or abs(applied[net] - want_lr) > 1e-6 * want_lr:
+                    raise AssertionError(f"{net}: count {int(opt['count'])}, last LR "
+                                         f"{applied[net]!r}, schedule {want_lr!r}")
+            print(f"{tag}: the last step applied LR {applied['G']:.6e} (G) and "
+                  f"{applied['D']:.6e} (D), the linear schedule's at count {steps - 1}",
+                  flush=True)
 
-        # The saved generator serves: on the B4 kernel path at 64 px, on the
-        # module path at 128 px (B4 is a 64 px kernel).
-        model, _ = load_generator(f"{run}/checkpoints", "cuda")
-        gf.LAUNCHES.reset()
-        session = GeneratorSession(model, compute_dtype="float32", use_pallas=True,
-                                   device="cuda")
-        imgs = session.sample(64, seed=1)
-        if imgs.shape != (64, size, size, 1) or not np.isfinite(imgs).all() \
-                or np.abs(imgs).max() > 1 or session.uses_kernel != (size == 64) \
-                or (gf.LAUNCHES.count > 0) != (size == 64):
-            raise AssertionError(f"the trained generator does not serve {size} px images "
-                                 f"on the expected path")
+        from siggan_tpu_torch.data.dataset import SignatureDataset
+        ds = SignatureDataset(data, size)
+        images = torch.from_numpy(ds.images).cuda()
+        labels = torch.from_numpy(ds.writer_labels()[0]).long().cuda() if v20 else None
+        if v20:
+            serve_conditional(run, card)
+        else:
+            # The saved generator serves: on the B4 kernel path at 64 px, on
+            # the module path at 128 px (B4 is a 64 px kernel).
+            model, _ = load_generator(f"{run}/checkpoints", "cuda")
+            gf.LAUNCHES.reset()
+            session = GeneratorSession(model, compute_dtype="float32", use_pallas=True,
+                                       device="cuda")
+            imgs = session.sample(64, seed=1)
+            if imgs.shape != (64, size, size, 1) or not np.isfinite(imgs).all() \
+                    or np.abs(imgs).max() > 1 or session.uses_kernel != (size == 64) \
+                    or (gf.LAUNCHES.count > 0) != (size == 64):
+                raise AssertionError(f"the trained generator does not serve {size} px "
+                                     f"images on the expected path")
 
         # Resume restores the step counter (and, with SN, the u's).
-        trainer = GANTrainer(cfg, np.zeros((64, size, size, 1), np.float32), device="cuda")
+        trainer = GANTrainer(cfg, np.zeros((64, size, size, 1), np.float32), device="cuda",
+                             labels=np.zeros(64, np.int32) if v20 else None)
         if not trainer.resume("latest") or trainer.state.step != steps \
                 or trainer.start_epoch != epochs:
             raise AssertionError("resume did not restore the step counter")
-        if sn and not all(torch.equal(a.u, b) for a, b in zip(trainer.state.d.blocks, us)):
+        if sn and not all(torch.equal(a, b) for a, b in zip(
+                [blk.u for blk in trainer.state.d.blocks] + (
+                    [trainer.state.d.class_embed_u] if v20 else []), us)):
             raise AssertionError("resume did not restore the spectral-norm vectors")
+        if v20:
+            # The schedule goes on from the restored count: one more epoch on
+            # a span of epochs + 1 (graphed), its last LR the schedule's.
+            more = cfg.replace(epochs=epochs + 1, checkpoint_dir=f"{tmp}/more/c",
+                               sample_dir=f"{tmp}/more/s", log_dir=f"{tmp}/more/l",
+                               optim=dataclasses.replace(cfg.optim, lr_total_steps=steps
+                                                         + steps // epochs))
+            trainer = GANTrainer(more, ds.images, device="cuda", labels=ds.writer_labels()[0])
+            trainer.state, _ = CheckpointManager(f"{run}/checkpoints", more).restore(
+                "latest", "cuda")
+            trainer.start_epoch = epochs
+            trainer.train()
+            total = more.optim.lr_total_steps
+            got_lr, want_lr = float(trainer.state.g_opt["lr"]), linear_lr(2e-4, total, total - 1)
+            if trainer.state.step != total or abs(got_lr - want_lr) > 1e-6 * want_lr:
+                raise AssertionError(f"resumed: step {trainer.state.step}, last LR {got_lr!r}, "
+                                     f"schedule {want_lr!r}")
+            print(f"{tag}: resumed at step {steps} and trained to {total} on the graphed "
+                  f"dispatch; last LR {got_lr:.6e}, the schedule's at count {total - 1}",
+                  flush=True)
 
-        from siggan_tpu_torch.data.dataset import SignatureDataset
-        images = torch.from_numpy(SignatureDataset(data, size).images).cuda()
-        # Graphed windows against eager steps on copies of the trained state.
-        agreement = graphed_vs_eager(tag, cfg, n_images, images, state, k)
+        # Graphed windows against eager steps on copies of the trained state;
+        # for v2.0 with the EMA shadow on and the LR decaying over the windows.
+        ge_cfg, ge_state = cfg, state
+        if v20:
+            ge_cfg = cfg.replace(ema_decay=0.999, optim=dataclasses.replace(
+                cfg.optim, lr_total_steps=2 * steps))
+            ge_state = copy.deepcopy(state)
+            ge_state.g_ema = copy_generator(ge_state.g)
+        agreement, after = graphed_vs_eager(tag, ge_cfg, n_images, images, ge_state, k, labels)
+        if v20:
+            last = steps + 2 * k - 1
+            lrs = {"G": (float(after.g_opt["lr"]), linear_lr(2e-4, 2 * steps, last)),
+                   "D": (float(after.d_opt["lr"]), linear_lr(1e-4, 2 * steps, last))}
+            for net, (got_lr, want_lr) in lrs.items():
+                if abs(got_lr - want_lr) > 1e-6 * want_lr or not got_lr < (
+                        2e-4 if net == "G" else 1e-4):
+                    raise AssertionError(f"{net}: LR after the graphed windows {got_lr!r}, "
+                                         f"schedule {want_lr!r}")
+            agreement["lr_after_windows"] = lrs
+            print(f"{tag}: after 2 graphed windows from step {steps} the LRs are the "
+                  f"schedule's at count {last}: {json.dumps(lrs)} (captured at step "
+                  f"{steps + 2})", flush=True)
 
-        routes, per, gper = profile_routes(cfg, n_images, images, state, k)
+        routes, per, gper = profile_routes(cfg, n_images, images, state, k, labels)
 
         def mean_of(rows):
             wall = sum(r[0] for r in rows) / len(rows)
@@ -1146,7 +1313,8 @@ def main() -> int:
     b2 = check_train_tail(dev)
     b2_route = check_fused_route(dev)
     paths = {"train 64 px": train_phase(card),
-             "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024)}
+             "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024),
+             "train v2.0": train_phase(card, v20=True)}
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 

@@ -5,8 +5,11 @@ serving path (checkpoint -> generator session -> HTTP API) runs here; the
 64 px unconditional generator's eval forward goes through hand-written CUDA
 kernels (``csrc/``) when the checkpoint's sidecar sets ``use_pallas``. The
 training path (``cli.train`` -> ``GANTrainer`` -> the resident train step)
-trains unconditional models on one card; every train-mode generator forward
-packs its tail weights with a hand-written kernel (and its backward).
+trains unconditional and conditional (per-writer, v2.0) models on one card,
+with DiffAugment, LR schedules and a generator EMA; every train-mode
+generator forward packs its tail weights with a hand-written kernel (and
+its backward), and every discriminator step runs the generator's tail in
+another.
 """
 
 __version__ = "0.1.0"

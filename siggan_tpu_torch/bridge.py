@@ -6,9 +6,12 @@ blocks: [{w (4, 4, Cin, Cout) HWIO, bn: {scale, offset}}],
 final: {w (3, 3, C, img_c) HWIO, b}, embed (classes, latent) if any} and
 ``g_bn`` = {fc_bn: {mean, var}, blocks: [{mean, var}]}; the discriminator
 as ``d_params`` = {blocks: [{w (4, 4, Cin, Cout) HWIO, b}], fc: {w (8192,
-1), b}} and ``d_state`` = {blocks: [{u (Cout,)}], fc: {u (1,)}} with
-spectral norm (empty dicts without), kept in the port as each layer's ``u``
-buffer; an Adam state as
+1), b}, class_embed (classes, 8192) and aux: {w (8192, classes), b} where
+the heads are} and ``d_state`` = {blocks: [{u (Cout,)}], fc: {u (1,)},
+class_embed: {u (8192,)}, aux: {u (classes,)}} with spectral norm (empty
+dicts without), kept in the port as each site's ``u`` buffer; an EMA
+shadow ``g_ema`` = {params, bn} as the generator's two trees
+(``ema_to_jax``/``ema_from_jax``); an Adam state as
 {count, m, v} with m and v shaped like the parameter tree. Here they are
 plain numpy arrays in those layouts; the port's modules store PyTorch
 layouts: Linear (out, in), ConvT (Cin, Cout, kh, kw), conv OIHW.
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from siggan_tpu_torch.core.config import ModelConfig
-from siggan_tpu_torch.core.state import new_count
+from siggan_tpu_torch.core.state import new_count, new_lr
 from siggan_tpu_torch.models.discriminator import Discriminator
 from siggan_tpu_torch.models.generator import Generator
 
@@ -44,7 +47,7 @@ def _t(a) -> torch.Tensor:
 # (port = jax.permute(*perm)); parameters not listed keep the JAX layout.
 _G_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (2, 3, 0, 1),
             "final.weight": (3, 2, 0, 1)}
-_D_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (3, 2, 0, 1)}
+_D_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (3, 2, 0, 1), "aux.weight": (1, 0)}
 
 
 def _entries(model) -> Iterator[Tuple[str, torch.nn.Parameter, Tuple[int, ...]]]:
@@ -104,18 +107,41 @@ def to_jax(model: Generator) -> Tuple[Dict, Dict]:
     return params_to_jax(model), state
 
 
-def _d_layers(model: Discriminator):
-    return [("blocks", i, b) for i, b in enumerate(model.blocks)] + [("fc", None, model.fc)]
+def ema_to_jax(g_ema: Generator) -> Dict:
+    """A port EMA shadow -> the JAX ``g_ema`` tree {params, bn}."""
+    params, bn = to_jax(g_ema)
+    return {"params": params, "bn": bn}
+
+
+def ema_from_jax(g_ema: Dict, cfg: ModelConfig, device=None) -> Generator:
+    """A JAX ``g_ema`` tree {params, bn} -> a port shadow ``Generator``
+    (no gradients)."""
+    model = from_jax(g_ema["params"], g_ema["bn"], cfg, device)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model
+
+
+def _d_vectors(model: Discriminator):
+    """(``d_state`` key, block index or None, u or None) per spectral-norm
+    site: each block, the head, then the class embedding and the aux head
+    where the model has them with spectral norm."""
+    out = [("blocks", i, b.u) for i, b in enumerate(model.blocks)] + [("fc", None, model.fc.u)]
+    if model.class_embed_u is not None:
+        out.append(("class_embed", None, model.class_embed_u))
+    if model.aux is not None and model.aux.u is not None:
+        out.append(("aux", None, model.aux.u))
+    return out
 
 
 def load_d_state(model: Discriminator, d_state: Dict) -> None:
-    """Copy a JAX ``d_state`` (spectral-norm ``u`` per layer) into the
+    """Copy a JAX ``d_state`` (spectral-norm ``u`` per site) into the
     model's ``u`` buffers; a model without spectral norm takes none."""
     with torch.no_grad():
-        for key, i, layer in _d_layers(model):
-            if layer.u is not None:
+        for key, i, u in _d_vectors(model):
+            if u is not None:
                 st = d_state[key] if i is None else d_state[key][i]
-                layer.u.copy_(_t(st["u"]))
+                u.copy_(_t(st["u"]))
 
 
 def d_from_jax(d_params: Dict, cfg: ModelConfig, device=None,
@@ -133,12 +159,13 @@ def d_from_jax(d_params: Dict, cfg: ModelConfig, device=None,
 
 def d_to_jax(model: Discriminator) -> Tuple[Dict, Dict]:
     """A port ``Discriminator`` -> (d_params, d_state) in JAX layouts:
-    d_state = {blocks: [{u (Co,)}], fc: {u (1,)}} with spectral norm, else
-    empty dicts."""
+    d_state = {blocks: [{u (Co,)}], fc: {u (1,)}} with spectral norm, plus
+    class_embed: {u (8192,)} and aux: {u (num_classes,)} where the heads
+    are; else empty dicts."""
     np_ = lambda t: t.detach().float().cpu().numpy().copy()  # noqa: E731
     state: Dict = {"blocks": [], "fc": {}}
-    for key, i, layer in _d_layers(model):
-        st = {} if layer.u is None else {"u": np_(layer.u)}
+    for key, i, u in _d_vectors(model):
+        st = {} if u is None else {"u": np_(u)}
         if i is None:
             state[key] = st
         else:
@@ -164,10 +191,12 @@ def opt_to_jax(opt_state: Dict, model) -> Dict:
 
 def opt_from_jax(state: Dict, model, moment_dtype: torch.dtype) -> Dict:
     """{count, m, v} (JAX layouts) -> a port Adam state for ``model``'s
-    parameters, moments in ``moment_dtype`` and the count an int32 tensor
-    on the parameters' device."""
-    out: Dict = {"count": new_count(int(np.asarray(state["count"])),
-                                    next(model.parameters()).device), "m": [], "v": []}
+    parameters, moments in ``moment_dtype``, the count an int32 tensor on
+    the parameters' device and the applied-LR record 0 (the JAX state
+    keeps none)."""
+    dev = next(model.parameters()).device
+    out: Dict = {"count": new_count(int(np.asarray(state["count"])), dev), "m": [], "v": [],
+                 "lr": new_lr(dev)}
     for k in ("m", "v"):
         flat: Dict[str, np.ndarray] = {}
         _flatten(state[k], "", flat)

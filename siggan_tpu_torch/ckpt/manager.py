@@ -11,14 +11,23 @@ writes the same two files from ``(g_params, g_bn)`` with ``bridge.flatten``.
 
 ``CheckpointManager`` keeps full train-state checkpoints as the JAX
 package's manager does: one directory per saved epoch (``epoch_NNNN``,
-itself a generator checkpoint, plus ``discriminator.npz`` (D's weights and,
-under ``state/``, its spectral-norm vectors),
-``optimizer.npz`` (the two Adam states, moments as f32), ``fixed_noise.npy``
-and ``state.json`` (step, epoch, best G loss)), the run's ``config.json``,
-and an ``index.json`` mapping the ``latest`` and ``best`` (lowest G loss)
-aliases to epochs. ``load_generator`` on such a run directory loads the
-epoch ``which`` names (``"latest"``, ``"best"`` or an epoch number). Orbax
-directories of the JAX package cannot be read without JAX (ROADMAP A.2).
+itself a generator checkpoint, plus ``discriminator.npz`` (D's weights,
+with the class embedding and the aux head of a conditional model, and,
+under ``state/``, its spectral-norm vectors), ``optimizer.npz`` (the two
+Adam states, moments as f32, with the LR each last applied),
+``generator_ema.npz`` when the run tracks a generator EMA (the shadow, in
+``generator.npz``'s layout), ``fixed_noise.npy`` and ``state.json`` (step,
+epoch, best G loss)), the run's ``config.json``, and an ``index.json``
+mapping the ``latest`` and ``best`` (lowest G loss) aliases to epochs.
+``load_generator`` on such a run directory loads the epoch ``which`` names
+(``"latest"``, ``"best"`` or an epoch number), and serves the EMA weights
+(``generator_ema.npz``) when the run has them and its config keeps EMA on,
+as the JAX package's ``load_generator`` returns the shadow;
+``generator.npz`` always holds the raw weights. The resume rules are the
+JAX package's: a shadow missing from the checkpoint starts as a copy of
+the restored weights, and one present while ``ema_decay == 0`` is dropped.
+Orbax directories of the JAX package cannot be read without JAX (ROADMAP
+A.2).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from siggan_tpu_torch.models.generator import Generator
 
 SIDECAR = "config.json"
 WEIGHTS = "generator.npz"
+EMA_WEIGHTS = "generator_ema.npz"
 D_WEIGHTS = "discriminator.npz"
 D_STATE = "state/"
 OPTIMIZER = "optimizer.npz"
@@ -91,10 +101,13 @@ def load_arrays(directory: str | Path, which: str | int = "latest") -> Dict[str,
 def load_generator(directory: str | Path, device,
                    which: str | int = "latest") -> Tuple[Generator, TrainConfig]:
     """(Generator on ``device``, TrainConfig) from a generator checkpoint or
-    from the epoch ``which`` names in a run directory."""
+    from the epoch ``which`` names in a run directory: the EMA weights when
+    the checkpoint has them and its config tracks EMA, else the weights."""
     d = _generator_dir(directory, which)
     cfg = load_config(d)
-    g_params, g_bn = bridge.unflatten(load_arrays(d))
+    ema = d / EMA_WEIGHTS
+    path = ema if cfg.ema_decay > 0 and ema.exists() else d / WEIGHTS
+    g_params, g_bn = bridge.unflatten(_load_npz(path))
     return bridge.from_jax(g_params, g_bn, cfg.model, device), cfg
 
 
@@ -111,7 +124,8 @@ def infer_architecture(arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
 
 def _opt_arrays(prefix: str, opt: Dict, model) -> Dict[str, np.ndarray]:
     tree = bridge.opt_to_jax(opt, model)
-    out = {f"{prefix}/count": np.asarray(tree["count"])}
+    out = {f"{prefix}/count": np.asarray(tree["count"]),
+           f"{prefix}/lr": opt["lr"].detach().cpu().numpy()}
     for k in ("m", "v"):
         for path, a in bridge.flatten(tree[k], {}).items():
             out[f"{prefix}/{k}/{path}"] = a
@@ -166,6 +180,8 @@ class CheckpointManager:
         if path.exists():
             shutil.rmtree(path)
         save_generator(path, state.g, self.cfg)
+        if state.g_ema is not None:
+            np.savez(path / EMA_WEIGHTS, **bridge.flatten(*bridge.to_jax(state.g_ema)))
         np.savez(path / D_WEIGHTS, **bridge.flatten(*bridge.d_to_jax(state.d), D_STATE))
         np.savez(path / OPTIMIZER, **_opt_arrays("g", state.g_opt, state.g),
                  **_opt_arrays("d", state.d_opt, state.d))
@@ -197,7 +213,7 @@ class CheckpointManager:
     def restore(self, which: str | int = "latest", device="cuda"):
         """(TrainState, extras) with extras {epoch, fixed_noise,
         best_g_loss}; None when nothing is saved."""
-        from siggan_tpu_torch.core.state import create_train_state
+        from siggan_tpu_torch.core.state import copy_generator, create_train_state, new_lr
         path = self.resolve(which)
         if path is None:
             return None
@@ -212,6 +228,19 @@ class CheckpointManager:
         mdt = getattr(torch, self.cfg.optim.moment_dtype)
         state.g_opt = bridge.opt_from_jax(_opt_tree("g", opt), state.g, mdt)
         state.d_opt = bridge.opt_from_jax(_opt_tree("d", opt), state.d, mdt)
+        for key, o in (("g", state.g_opt), ("d", state.d_opt)):
+            if f"{key}/lr" in opt:
+                o["lr"] = new_lr(o["count"].device, float(opt[f"{key}/lr"]))
+        # EMA: the checkpoint's shadow when the config tracks one (a copy of
+        # the restored weights when the checkpoint has none); dropped at
+        # ema_decay == 0.
+        if self.cfg.ema_decay > 0:
+            if (path / EMA_WEIGHTS).exists():
+                e_params, e_bn = bridge.unflatten(_load_npz(path / EMA_WEIGHTS))
+                state.g_ema = bridge.ema_from_jax({"params": e_params, "bn": e_bn},
+                                                  self.cfg.model, state.g.fc.weight.device)
+            else:
+                state.g_ema = copy_generator(state.g)
         meta = json.loads((path / STATE).read_text())
         state.step = int(meta["step"])
         extras = {"epoch": int(meta["epoch"]), "best_g_loss": float(meta["best_g_loss"]),

@@ -9,9 +9,17 @@ tests); without a card it raises rather than fall back. On the card the
 steps run in windows of K (the JAX trainer's ``scan_steps`` rule), each a
 CUDA graph of one step replayed K times. ``--data_dir`` holds PNG images
 (other image files are refused). ``--spectral_norm`` with ``--image_size
-128`` trains v1.1. Flags of features the port does not train yet
-(conditional models, EMA, LR schedules, DiffAugment, shared fakes, FID, the
-profiler, several cards) are accepted and raise ``NotImplementedError``.
+128`` trains v1.1. ``--num_classes N`` trains a conditional model on the
+per-writer subdirectories of ``--data_dir`` (exactly N of them); v2.0 is
+
+    --num_classes 8 --g_conditioning concat --spectral_norm --latent_dim 200
+    --d_lr 1e-4 --g_lr 2e-4 --lr_schedule linear --diffaugment translation,cutout
+
+and ``--ema_decay``, ``--aux_weight``, ``--lr_schedule`` and
+``--diffaugment`` train as in the JAX package. Flags of features the port
+does not train yet (shared fakes, FID, the profiler, several cards) are
+accepted and raise ``NotImplementedError``, as does a dataset over
+``resident_max_mb`` (the streaming loader).
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve
 --checkpoint DIR`` (its latest epoch), and ``cli.generate --which`` samples
 any saved epoch.
@@ -143,7 +151,15 @@ def main(argv=None) -> int:
 
     ds = SignatureDataset(cfg.data_dir, cfg.model.image_size, max_images=args.max_images)
     print(f"Dataset: {ds.statistics()}", flush=True)
-    trainer = GANTrainer(cfg, ds.images, stop_file=args.stop_file, device=device)
+    labels = None
+    if cfg.model.num_classes > 0:
+        labels, names = ds.writer_labels()
+        if len(names) != cfg.model.num_classes:
+            raise SystemExit(f"--num_classes={cfg.model.num_classes} but "
+                             f"found {len(names)} writer subdirs")
+        print(f"Writers: {len(names)}", flush=True)
+    trainer = GANTrainer(cfg, ds.images, stop_file=args.stop_file, device=device,
+                         labels=labels)
     if args.resume or args.resume_from:
         which = args.resume_from or "latest"
         if which not in ("latest", "best"):

@@ -11,7 +11,8 @@ with) PIL's. A file that fails to decode becomes a zero image with a
 warning, as in the reference. Only PNG files are read: a directory that
 also holds the reference's other image files (.jpg, .jpeg, .bmp, .tiff,
 .tif) is refused, rather than trained on its PNG subset, until their
-decoders are ported (ROADMAP A.6).
+decoders are ported (ROADMAP A.6). ``writer_labels`` labels the images by
+their per-writer subdirectory, for conditional training.
 """
 
 from __future__ import annotations
@@ -88,6 +89,19 @@ class SignatureDataset:
         if not self.paths:
             raise ValueError(f"no PNG images found under {data_dir}")
         self.images = self._load(use_cache)
+
+    def writer_labels(self):
+        """(labels (N,) int32, writer names) from the per-writer
+        subdirectories of ``data_dir`` (sorted names, label = index), the
+        data of conditional (v2.0) training; raises if images sit directly
+        in ``data_dir``."""
+        names = sorted({p.parent.name for p in self.paths if p.parent != self.data_dir})
+        direct = [p for p in self.paths if p.parent == self.data_dir]
+        if direct or not names:
+            raise ValueError("conditional training expects per-writer subdirectories "
+                             f"under {self.data_dir}")
+        index = {n: i for i, n in enumerate(names)}
+        return np.asarray([index[p.parent.name] for p in self.paths], np.int32), names
 
     def _cache_path(self) -> Path:
         sig = hashlib.sha1(

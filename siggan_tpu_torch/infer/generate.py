@@ -119,7 +119,8 @@ def load_session(checkpoint_dir: str, which: str | int = "latest",
                  device: DeviceLike = "cuda") -> GeneratorSession:
     """A session on ``device`` for a port checkpoint (``ckpt/manager.py``):
     a generator checkpoint, or the epoch ``which`` names in a run directory
-    (``"latest"``, ``"best"`` or an epoch number)."""
+    (``"latest"``, ``"best"`` or an epoch number); the EMA weights when the
+    run tracks them (``load_generator``)."""
     from siggan_tpu_torch.ckpt.manager import load_generator
     dev = resolve_device(device)
     model, cfg = load_generator(checkpoint_dir, dev, which)

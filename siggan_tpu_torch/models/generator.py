@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.ops import initializers as init
+from siggan_tpu_torch.ops.activations import leaky_relu, take_rows
 from siggan_tpu_torch.ops.conv import conv2d_oihw, conv_transpose2d_iohw, linear_oi
 from siggan_tpu_torch.ops.kernels import train_tail
 from siggan_tpu_torch.ops.kernels.pack_tail import pack_tail
@@ -114,7 +115,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                 train: bool = False, packed: bool = False) -> torch.Tensor:
         scale, offset = (self.scale, self.offset) if y is None else (
-            self.scale[y], self.offset[y])
+            take_rows(self.scale, y), take_rows(self.offset, y))
         fn = batch_norm_packed if packed else batch_norm
         out, state = fn(x, scale, offset, {"mean": self.mean, "var": self.var},
                         train=train)
@@ -168,7 +169,7 @@ class Generator(nn.Module):
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.g_activation == "leaky_relu":
-            return F.leaky_relu(x, self.cfg.leaky_slope)
+            return leaky_relu(x, self.cfg.leaky_slope)
         return F.relu(x)
 
     def tail_entry(self) -> Optional[int]:
@@ -200,7 +201,7 @@ class Generator(nn.Module):
             if y is None:
                 raise ValueError("conditional generator requires labels y")
             if cfg.g_conditioning in ("full", "embed_only"):
-                z = z + self.embed[y]
+                z = z + take_rows(self.embed, y)
             if cfg.g_conditioning == "concat":
                 z = torch.cat([z, F.one_hot(y, cfg.num_classes).to(z.dtype)], dim=1)
             if cfg.g_conditioning in ("full", "bn_only"):

@@ -2,8 +2,12 @@
 sample grids, recovery.
 
 Port of the JAX package's ``GANTrainer`` (``train/trainer.py``) without the
-mesh, FID or profiler. The dataset is resident on the card and every step
-gathers its batch there. Steps run in windows of K = ``scan_steps``
+mesh, FID, the profiler or the streaming loader (they raise
+``NotImplementedError``). The dataset, and a conditional model's labels
+(``labels=``, required then), are resident on the card and every step
+gathers its batch there. With an LR schedule the span ``lr_total_steps``
+is filled in at construction (epochs x steps per epoch) and serialized
+with the config, so a resume keeps the schedule. Steps run in windows of K = ``scan_steps``
 (``choose_scan_steps``, the JAX trainer's rule) through
 ``make_resident_multi_step``: on the card each window replays a CUDA graph
 of one step K times, on the CPU it is K eager steps. Windows are enqueued
@@ -14,11 +18,13 @@ ending in that pull), with every key the step returns. The stop file is
 polled before every epoch and after every window. Fixed-noise sample grids
 every ``sample_interval`` epochs, epoch/latest/best checkpoints every
 ``checkpoint_interval``, resume, and a checkpoint on interrupt, as in the
-JAX trainer.
+JAX trainer; the grids of a conditional model label image i with class
+i % num_classes, and with ``ema_decay > 0`` they show the EMA generator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -74,9 +80,16 @@ class GANTrainer:
     def __init__(self, cfg: TrainConfig, images: np.ndarray,
                  stop_file: Optional[str] = None,
                  experiment_name: Optional[str] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", labels: Optional[np.ndarray] = None):
         check_trainer_supported(cfg, images)
+        if cfg.optim.lr_schedule != "constant" and cfg.optim.lr_total_steps == 0:
+            # The schedule's span rides along in every saved config.
+            cfg = cfg.replace(optim=dataclasses.replace(
+                cfg.optim, lr_total_steps=cfg.epochs * (len(images) // cfg.batch_size)))
         self.cfg = cfg
+        self.conditional = cfg.model.num_classes > 0
+        if self.conditional and labels is None:
+            raise ValueError("conditional training requires labels")
         self.device = resolve_device(device)
         self.stop_file = Path(stop_file) if stop_file else None
         self.logger = GANLogger(cfg.log_dir, experiment_name)
@@ -86,6 +99,8 @@ class GANTrainer:
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg, authoritative=True)
         self.images_dev = torch.from_numpy(np.ascontiguousarray(images, np.float32)
                                            ).to(self.device)
+        self.labels_dev = (torch.from_numpy(np.asarray(labels, np.int64)).to(self.device)
+                           if self.conditional else None)
         spe = len(images) // cfg.batch_size
         self.scan_steps = choose_scan_steps(spe, cfg.scan_steps)
         self._step_fn, self.steps_per_epoch = make_resident_multi_step(
@@ -119,7 +134,9 @@ class GANTrainer:
         return self.stop_file is not None and self.stop_file.exists()
 
     def _sample_grid(self, epoch: int) -> Path:
-        imgs = self._generate(self.state, self.fixed_noise.to(self.device))
+        y = (torch.arange(self.cfg.fixed_noise_samples, device=self.device)
+             % self.cfg.model.num_classes if self.conditional else None)
+        imgs = self._generate(self.state, self.fixed_noise.to(self.device), y)
         path = Path(self.cfg.sample_dir) / f"epoch_{epoch:04d}.png"
         return contact_sheet(imgs.cpu().numpy(), path, nrow=8)
 
@@ -154,7 +171,7 @@ class GANTrainer:
                 windows = []
                 t_epoch = time.perf_counter()
                 for _ in range(self.steps_per_epoch // self.scan_steps):
-                    self.state, m = self._step_fn(self.state, self.images_dev)
+                    self.state, m = self._step_fn(self.state, self.images_dev, self.labels_dev)
                     windows.append(m)   # each metric stacked to (K,)
                     self._report_dispatch()
                     if self._should_stop():

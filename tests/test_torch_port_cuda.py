@@ -537,3 +537,86 @@ def test_graphed_training_resumes_like_the_uninterrupted_run(deterministic, tmp_
     assert whole.scan_steps == resumed.scan_steps == 4
     assert state_equal(whole.state, resumed.state)
     assert resumed._step_fn.graphed.graph is not None
+
+
+def v20_cfg(**kw):
+    """The v2.0 recipe at a small width: concat labels, the spectral-norm
+    projection head, DiffAugment, linear LR decay over 16 steps from step 4,
+    and the EMA shadow."""
+    from siggan_tpu_torch.core.config import OptimConfig, TrainConfig
+    return TrainConfig(
+        model=ModelConfig(latent_dim=20, base_features=32, num_classes=4,
+                          g_conditioning="concat", use_spectral_norm=True),
+        batch_size=8, seed=5, sample_interval=0, checkpoint_interval=1,
+        diffaugment="translation,cutout", ema_decay=0.999,
+        optim=OptimConfig(d_lr=1e-4, g_lr=2e-4, lr_schedule="linear", lr_total_steps=16,
+                          lr_decay_start_frac=0.25), **kw)
+
+
+def test_graphed_v20_steps_equal_eager_steps_and_decay_the_lr(deterministic):
+    """The v2.0 recipe: two windows of 4 graphed steps against 8 eager
+    steps on a copy of the state, the same bits (EMA shadow and LR records
+    included) and launches (B1 twice, B1' once and B2 once per step, B2 on
+    the concat generator's D-step tail); the LR each replay applied is the
+    schedule's at its count, so it goes on decaying after the capture."""
+    from siggan_tpu_torch.core.state import create_train_state, lr_schedule
+    from siggan_tpu_torch.data.synthetic import generate_labeled_dataset
+    from siggan_tpu_torch.models.generator import fused_tail_supported
+    from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
+                                                   make_resident_train_step)
+    cfg = v20_cfg()
+    assert fused_tail_supported(cfg.model)
+    images, labels = generate_labeled_dataset(4, 8, 64, seed=2)
+    images = torch.from_numpy(images).to(deterministic)
+    labels = torch.from_numpy(labels).long().to(deterministic)
+    multi, _ = make_resident_multi_step(cfg, 32, 4)
+    eager, _ = make_resident_train_step(cfg, 32)
+    a = create_train_state(cfg, deterministic)
+    b = copy.deepcopy(a)
+    counters = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES)
+    before = [c.count for c in counters]
+    got, lrs = [], []
+    for _ in range(2):
+        a, m = multi(a, images, labels)
+        got.append(m)
+        lrs.append(float(a.g_opt["lr"]))
+    torch.cuda.synchronize()
+    assert multi.graphed.graph is not None
+    assert [c.count - n for c, n in zip(counters, before)] == [16, 8, 8]
+    want = []
+    for _ in range(8):
+        b, m = eager(b, images, labels=labels)
+        want.append(m)
+    assert state_equal(a, b)
+    for k in want[0]:
+        assert torch.equal(torch.cat([m[k] for m in got]), torch.stack([m[k] for m in want]))
+    # Steps 3 and 7 (counts before the update) are on the decay: 2e-4 * (1 -
+    # (c - 4) / 12) for c >= 4, the capture having been at step 2.
+    sched = lr_schedule(cfg, cfg.optim.g_lr)
+    for lr, c in zip(lrs, (3, 7)):
+        assert lr == float(sched(torch.tensor(c, dtype=torch.int32, device=deterministic)))
+    assert lrs[0] == pytest.approx(2e-4) and lrs[1] == pytest.approx(2e-4 * (1 - 3 / 12))
+    a, _ = multi(a, images, labels)
+    assert float(a.g_opt["lr"]) == pytest.approx(2e-4 * (1 - 7 / 12), rel=1e-6)
+
+
+def test_graphed_v20_training_resumes_like_the_uninterrupted_run(deterministic, tmp_path):
+    """The v2.0 recipe through the trainer: 1 epoch, a checkpoint, a resumed
+    trainer and 1 more epoch give the bits of 2 epochs in one run, shadow
+    and schedule included."""
+    from siggan_tpu_torch.data.synthetic import generate_labeled_dataset
+    from siggan_tpu_torch.train.trainer import GANTrainer
+    images, labels = generate_labeled_dataset(4, 8, 64, seed=3)
+
+    def trainer(name, epochs):
+        cfg = v20_cfg(epochs=epochs, checkpoint_dir=str(tmp_path / name / "c"),
+                      sample_dir=str(tmp_path / name / "s"), log_dir=str(tmp_path / name / "l"))
+        return GANTrainer(cfg, images, device="cuda", labels=labels)
+
+    whole = trainer("whole", 2)
+    whole.train()
+    trainer("split", 1).train()
+    resumed = trainer("split", 2)
+    assert resumed.resume("latest") and resumed.state.step == 4
+    resumed.train()
+    assert state_equal(whole.state, resumed.state)

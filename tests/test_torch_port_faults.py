@@ -110,14 +110,16 @@ def test_dataset_refuses_images_it_cannot_decode(tmp_path):
 
 def test_train_cli_doc_names_only_what_raises(tmp_path):
     """The CLI's docstring lists the flags that raise; spectral norm (v1.1)
-    trains, EMA raises."""
+    and EMA train, FID raises."""
     doc = " ".join(train_cli.__doc__.split())
     refused = doc[doc.index("Flags of features"):].split(")")[0]
-    assert "spectral" not in refused and "EMA" in refused
+    assert "spectral" not in refused and "EMA" not in refused and "FID" in refused
     images = np.zeros((8, 128, 128, 1), np.float32)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--image_size", "128",
                                       "--spectral_norm"])
     check_trainer_supported(train_cli.build_config(args), images)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--ema_decay", "0.99"])
-    with pytest.raises(NotImplementedError, match="EMA"):
+    check_trainer_supported(train_cli.build_config(args), images)
+    args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--fid_interval", "5"])
+    with pytest.raises(NotImplementedError, match="FID"):
         check_trainer_supported(train_cli.build_config(args), images)

@@ -236,6 +236,9 @@ def test_cli_builds_the_v11_configuration():
     assert cfg.model.base_features == 256 and cfg.packed_io
     check_trainer_supported(cfg, np.zeros((8, 128, 128, 1), np.float32))
     assert fused_tail_supported(cfg.model) and tail_start(cfg.model) == 2
-    with pytest.raises(NotImplementedError, match="conditional"):
-        check_trainer_supported(cfg.replace(model=dataclasses.replace(cfg.model, num_classes=3)),
+    # Conditional models train too now; the profiler hook still raises.
+    check_trainer_supported(cfg.replace(model=dataclasses.replace(cfg.model, num_classes=3)),
+                            np.zeros((8, 128, 128, 1), np.float32))
+    with pytest.raises(NotImplementedError, match="profiler"):
+        check_trainer_supported(cfg.replace(profile_dir="trace"),
                                 np.zeros((8, 128, 128, 1), np.float32))

@@ -319,6 +319,6 @@ def test_cli_refuses_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--data_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="EMA"):
+    with pytest.raises(NotImplementedError, match="share_fakes"):
         train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu",
-                        "--ema_decay", "0.999", "--batch_size", "2"])
+                        "--share_fakes", "--batch_size", "2"])
