@@ -79,8 +79,23 @@ Phases (any failure raises and the script exits non-zero):
      repeat for a seed and differ between the classes), two graphed
      windows against eager steps with the EMA shadow on and the LR
      decaying over them, and the profile;
- 10. print the kernels line (one JSON object; B1, B1' and B2 with their
-     launches by path), the nvidia-smi line again, and as the last line
+ 10. evaluate phase 7's trained model (kept with its 2048 PNGs): saved as
+     a ``use_pallas`` generator checkpoint, ``cli.evaluate --n_samples 512
+     --seeds 0 1`` (random-init InceptionV3 FID, KID, precision/recall,
+     LPIPS-Alex, stroke stats) samples through B4 (2 x 8 launches, B3 3 per
+     launch), its report finite and free of errors, the grids written; the
+     Inception features, LPIPS distances and D(x) (score_with_discriminator,
+     phase 7's D) of 64 images on the card against the CPU module on the
+     same weights (EVAL_TOL_NOTE); FID(real half, real half) below FID(real,
+     uniform noise); the stage times (B4 sampling, Inception images/s,
+     LPIPS pairs/s, the host FID / KID / precision-recall math, the CLI);
+     then ``cli.train --fid_interval 1 --checkpoint_interval 1`` for 2
+     epochs on the graphed dispatch (a finite FID each epoch, ``best`` the
+     lowest FID's epoch, its ms/step beside phase 7's) and ``cli.evaluate
+     --which best`` on that run;
+ 11. print the kernels line (one JSON object; B1, B1' and B2 with their
+     launches by path, B4 and B3 with their launches on the serving and the
+     evaluation paths), the nvidia-smi line again, and as the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -1001,10 +1016,13 @@ def serve_conditional(run: str, card: str):
 
 
 def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048,
-                v20: bool = False):
+                v20: bool = False, keep: str | None = None):
     """Phases 7, 8 and 9: the port's training path, through its CLI, at full
     width: TrainConfig() defaults at 64 px, v1.1 (--spectral_norm) at 128,
-    and the conditional v2.0 recipe (``V20_ARGV``) at 64 px on 8 writers."""
+    and the conditional v2.0 recipe (``V20_ARGV``) at 64 px on 8 writers.
+    With ``keep`` the PNGs (``data``) and the run (``run``) are written
+    there and left for phase 10, else into a directory removed after."""
+    import contextlib
     import dataclasses
     import numpy as np
     import torch
@@ -1024,7 +1042,8 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
 
     sn = size == 128 or v20
     tag = "train v2.0" if v20 else "train v1.1 128 px SN" if sn else "train 64 px"
-    with tempfile.TemporaryDirectory() as tmp:
+    with (tempfile.TemporaryDirectory() if keep is None else contextlib.nullcontext(keep)) \
+            as tmp:
         t0 = time.perf_counter()
         if v20:
             data = save_labeled_dataset_pngs(8, n_images // 8, f"{tmp}/data", size=size,
@@ -1259,6 +1278,226 @@ def train_phase(card: str, size: int = 64, epochs: int = 3, n_images: int = 2048
     return launches
 
 
+EVAL_TOL_NOTE = ("card against CPU on the same weights, TF32 off inside the eval code: "
+                 "Inception features allclose rtol 1e-4 atol 1e-5 (the f32 bar), LPIPS "
+                 "distances and D(x) probabilities rtol 1e-4 atol 1e-6; f32 sums in "
+                 "another order (cuDNN's algorithms against the CPU's)")
+
+
+def close(what: str, got, want, rtol: float, atol: float) -> float:
+    import numpy as np
+    err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    if not np.all(np.isfinite(got)) or not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max abs diff {err:.3e} outside rtol {rtol} atol {atol}")
+    return err
+
+
+def conv_flops(model, fn) -> float:
+    """The FLOPs of the convolutions ``fn()`` runs in ``model`` (2 per MAC,
+    from each conv's output shape), counted with forward hooks."""
+    import torch
+    total = [0.0]
+
+    def hook(mod, _, out):
+        kh, kw = mod.kernel_size
+        total[0] += 2.0 * out.numel() * mod.in_channels // mod.groups * kh * kw
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def eval_phase(card: str, work: str):
+    """Phase 10: the evaluation path on phase 7's trained model and PNGs
+    (``work``): ``cli.evaluate`` through B4, the eval networks on the card
+    against the CPU, a FID sanity check, the stage times, and
+    ``cli.train --fid_interval 1``. Returns B4's and B3's launches in the
+    evaluation CLI's run."""
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.ckpt.manager import CheckpointManager, load_generator, save_generator
+    from siggan_tpu_torch.cli import evaluate as eval_cli
+    from siggan_tpu_torch.cli import train as train_cli
+    from siggan_tpu_torch.core.config import TrainConfig
+    from siggan_tpu_torch.data.dataset import SignatureDataset
+    from siggan_tpu_torch.eval import fid as fid_mod
+    from siggan_tpu_torch.eval import lpips as lpips_mod
+    from siggan_tpu_torch.eval.common import batched_apply, full_f32
+    from siggan_tpu_torch.infer.generate import load_session
+    from siggan_tpu_torch.ops.kernels import generator_fwd as gf
+    from siggan_tpu_torch.ops.kernels import upsample as up
+
+    data, run = f"{work}/data", f"{work}/run"
+    model, cfg7 = load_generator(f"{run}/checkpoints", "cuda")
+    ckpt = save_generator(f"{work}/eval_ckpt", model, TrainConfig(
+        model=model.cfg, use_pallas=True, compute_dtype="float32"))
+
+    # 1. cli.evaluate on phase 7's model, 512 samples x 2 seeds, through B4.
+    gf.LAUNCHES.reset()
+    up.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    run_cli(eval_cli.main, ["--checkpoint", str(ckpt), "--data_dir", data, "--n_samples",
+                            "512", "--seeds", "0", "1", "--output_dir", f"{work}/eval"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"generator_forward": gf.LAUNCHES.count, "upsample_block": up.LAUNCHES.count}
+    batches = 2 * math.ceil(512 / 64)
+    if launches != {"generator_forward": batches, "upsample_block": 3 * batches}:
+        raise AssertionError(f"evaluation path launches {launches}, expected B4 x{batches}")
+    report = json.loads(Path(f"{work}/eval/evaluation_report.json").read_text())
+    m = report["metrics"]
+    if m["errors"]:
+        raise AssertionError(f"cli.evaluate recorded errors: {m['errors']}")
+    if not (np.isfinite(m["fid"]) and m["fid"] > 0 and np.isfinite(m["kid_mean"])
+            and 0 <= m["precision"] <= 1 and 0 <= m["recall"] <= 1
+            and np.isfinite(m["lpips_diversity"]) and m["lpips_diversity"] > 0
+            and "stroke_density" in m and "foreground_ratio" in m
+            and m["fid_backbone"] == "random-init" and report["n_real"] == 2048):
+        raise AssertionError(f"cli.evaluate report: {json.dumps(m)[:2000]}")
+    for f in ("fake_grid.png", "real_grid.png", "sample_grid_1.png", "sample_grid_3.png"):
+        if not Path(f"{work}/eval/{f}").exists():
+            raise AssertionError(f"cli.evaluate wrote no {f}")
+    ms_ = m["multi_seed"]
+    print(f"eval: cli.evaluate (512 samples x seeds 0 1, 2048 real) in {cli_s:.1f} s: FID "
+          f"{m['fid']:.4f} (seeds {ms_['fid']['mean']:.4f} +- {ms_['fid']['std']:.4f}), KID "
+          f"{m['kid_mean']:.4g}, precision/recall {m['precision']:.4f} / {m['recall']:.4f}, "
+          f"LPIPS diversity {m['lpips_diversity']:.4f}, stroke density fake "
+          f"{m['stroke_density']['fake']['mean']:.4f} real "
+          f"{m['stroke_density']['real']['mean']:.4f}; launches {json.dumps(launches)} "
+          f"[{card}]", flush=True)
+
+    # 2. The eval networks on the card against the CPU module, same weights.
+    real = SignatureDataset(data, 64).images
+    session = load_session(str(ckpt), device="cuda")
+    x = real[:64]
+    cpu_scorer = fid_mod.FIDScorer(batch_size=64, device="cpu")
+    scorer = fid_mod.FIDScorer(batch_size=256, device="cuda")
+    feat_err = close("Inception features card vs CPU", scorer.features(x),
+                     cpu_scorer.features(x), 1e-4, 1e-5)
+    rgb = np.repeat(x, 3, axis=-1)
+    dists = {}
+    for where in ("cpu", "cuda"):
+        lp = lpips_mod.init_lpips(0).to(where)
+        dists[where] = batched_apply(lambda a, b: lpips_mod.distance(lp, a, b), rgb[:32],
+                                     rgb[32:], batch_size=32, device=torch.device(where))
+    lpips_err = close("LPIPS distances card vs CPU", dists["cuda"], dists["cpu"], 1e-4, 1e-6)
+    d_card = CheckpointManager(f"{run}/checkpoints", cfg7).restore("latest", "cuda")[0].d
+    d_cpu = copy.deepcopy(d_card).cpu()
+    fakes = session.sample(64, seed=5)
+    both = np.concatenate([fakes, x])
+    p_card = session.score_with_discriminator(both, d_card)
+    d_err = close("D(x) card vs CPU", p_card, session.score_with_discriminator(both, d_cpu),
+                  1e-4, 1e-6)
+    print(f"eval: card vs CPU on 64 images ({EVAL_TOL_NOTE}): Inception features max abs "
+          f"diff {feat_err:.3e}, LPIPS {lpips_err:.3e} (32 pairs), D(x) {d_err:.3e} (mean "
+          f"D(fake) {p_card[:64].mean():.4f}, D(real) {p_card[64:].mean():.4f})", flush=True)
+
+    # 3. FID sanity and the stage times.
+    t0 = time.perf_counter()
+    fr = scorer.features(real)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    noise = np.random.RandomState(0).uniform(-1, 1, (1024, 64, 64, 1)).astype(np.float32)
+    fid_rr = fid_mod.frechet_distance(*scorer._condition(fr[:1024], fr[1024:]))
+    fid_rn = fid_mod.frechet_distance(*scorer._condition(fr[:1024], scorer.features(noise)))
+    if not fid_rr < fid_rn:
+        raise AssertionError(f"FID(real half, real half) {fid_rr} >= FID(real, noise) {fid_rn}")
+    print(f"eval: FID(real 1024, real 1024) {fid_rr:.4f} < FID(real 1024, uniform noise "
+          f"1024) {fid_rn:.4f}", flush=True)
+    sample_ms = time_ms(lambda: session.sample(64, seed=0), iters=10)
+    batch = torch.from_numpy(real[:256]).cuda()
+    lp = lpips_mod.init_lpips(0).cuda()
+    pa = torch.from_numpy(np.repeat(real[:256], 3, axis=-1)).cuda()
+    with torch.inference_mode():
+        inc_flops = conv_flops(scorer.model, lambda: scorer._extract(batch))
+        lp_flops = conv_flops(lp, lambda: lpips_mod.distance(lp, pa, pa.flip(0)))
+        with full_f32():
+            inc_ms = time_ms(lambda: scorer._extract(batch), iters=5, warmup=2)
+            lp_ms = time_ms(lambda: lpips_mod.distance(lp, pa, pa.flip(0)), iters=10)
+        # A yardstick the port does not use: the same forward with TF32 allowed.
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            inc_tf32_ms = time_ms(lambda: scorer._extract(batch), iters=5, warmup=2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    ff = fr[:512] + 0.1   # the CLI's shapes: 2048 real and 512 fake features
+    host = {}
+    for name, fn in (("FID", lambda: fid_mod.frechet_distance(fr, ff)),
+                     ("KID", lambda: fid_mod.kernel_distance(fr, ff)),
+                     ("precision/recall", lambda: fid_mod.precision_recall(fr[:512], ff))):
+        t0 = time.perf_counter()
+        fn()
+        host[name] = (time.perf_counter() - t0) * 1e3
+    n_inc, n_lp = len(batch), len(pa)
+    stages = {"sample_ms_per_64": sample_ms, "inception_images_per_s": n_inc / inc_ms * 1e3,
+              "inception_gflop_per_image": inc_flops / n_inc / 1e9,
+              "inception_tflops": inc_flops / inc_ms / 1e9,
+              "inception_tf32_images_per_s": n_inc / inc_tf32_ms * 1e3,
+              "inception_2048_features_s": feat_s, "lpips_pairs_per_s": n_lp / lp_ms * 1e3,
+              "lpips_tflops": lp_flops / lp_ms / 1e9, "host_ms": host, "cli_s": cli_s}
+
+    # 4. In-training FID on the graphed dispatch, then cli.evaluate --which best.
+    run2, run0 = f"{work}/run_fid", f"{work}/run_nofid"
+    t0 = time.perf_counter()
+    out = run_cli(train_cli.main, ["--data_dir", data, "--epochs", "2", "--fid_interval", "1",
+                                   "--checkpoint_interval", "1", "--run_dir", run2,
+                                   "--device", "cuda"])
+    train_s = time.perf_counter() - t0
+    # The same run without FID, for its ms/step beside the FID run's.
+    run_cli(train_cli.main, ["--data_dir", data, "--epochs", "2", "--checkpoint_interval", "1",
+                             "--run_dir", run0, "--device", "cuda"])
+    no_fid = json.loads(sorted(Path(f"{run0}/logs").glob("*.json"))[-1].read_text())["metrics"]
+    if re.search(r"Dispatch: \d+ steps per call .* graph of one step", out) is None:
+        raise AssertionError("the FID run did not train on the graphed dispatch")
+    fid_lines = re.findall(r"FID epoch (\d+): ([0-9.]+) in ([0-9.]+) s", out)
+    metrics = json.loads(sorted(Path(f"{run2}/logs").glob("*.json"))[-1].read_text())["metrics"]
+    fids = [mm.get("fid", float("nan")) for mm in metrics]
+    idx = json.loads(Path(f"{run2}/checkpoints/index.json").read_text())
+    if len(fids) != 2 or not np.all(np.isfinite(fids)) or len(fid_lines) != 2 \
+            or idx.get("best_fid") != min(fids) or idx.get("best") != int(np.argmin(fids)):
+        raise AssertionError(f"in-training FID: logged {fids}, index {idx}")
+    run_cli(eval_cli.main, ["--checkpoint", f"{run2}/checkpoints", "--which", "best",
+                            "--data_dir", data, "--n_samples", "64", "--seeds", "0",
+                            "--output_dir", f"{work}/eval_best"])
+    best = json.loads(Path(f"{work}/eval_best/evaluation_report.json").read_text())
+    if best["metrics"]["errors"] or best["which"] != "best":
+        raise AssertionError(f"cli.evaluate --which best: {best['metrics']['errors']}")
+    p7 = json.loads(sorted(Path(f"{run}/logs").glob("*.json"))[-1].read_text())["metrics"]
+    p7_ms = sum(mm["ms_per_step"] for mm in p7[1:]) / len(p7[1:])
+    fid_s = [float(t) for _, _, t in fid_lines]
+    print(f"eval: cli.train --fid_interval 1, 2 epochs in {train_s:.1f} s: FIDs "
+          f"{' / '.join(f'{f:.4f}' for f in fids)}, best epoch {idx['best']}; last epoch "
+          f"{metrics[-1]['ms_per_step']:.3f} ms/step beside the same run's without FID "
+          f"{no_fid[-1]['ms_per_step']:.3f} and phase 7's {p7_ms:.3f} (epochs 1-2); "
+          f"cli.evaluate --which best ran [{card}]", flush=True)
+    stages["in_training_fid_s"] = fid_s
+    stages["fid_run_ms_per_step"] = metrics[-1]["ms_per_step"]
+    stages["no_fid_run_ms_per_step"] = no_fid[-1]["ms_per_step"]
+    for line in (f"sampling through B4: {sample_ms:.4f} ms per 64 images (session.sample, "
+                 f"host to host)",
+                 f"Inception features at 299: {stages['inception_images_per_s']:.1f} "
+                 f"images/s (batch 256, f32, TF32 off; "
+                 f"{stages['inception_gflop_per_image']:.3f} GFLOP of convs an image, "
+                 f"{stages['inception_tflops']:.2f} TFLOP/s of the "
+                 f"{F32_PEAK_FLOPS / 1e12:.0f} f32 peak; with TF32 allowed, which the "
+                 f"port does not, {stages['inception_tf32_images_per_s']:.1f}); 2048 images "
+                 f"with resize and copies {feat_s:.3f} s",
+                 f"LPIPS-Alex at 64 px: {stages['lpips_pairs_per_s']:.1f} pairs/s (256 pairs, "
+                 f"{stages['lpips_tflops']:.2f} TFLOP/s of convs)",
+                 "host math on 2048 real x 512 fake features: " + ", ".join(
+                     f"{k} {v:.1f} ms" for k, v in host.items()),
+                 f"cli.evaluate, n=512 x 2 seeds: {cli_s:.1f} s",
+                 f"in-training FID (512 fakes; the first epoch builds the scorer and the "
+                 f"real features): {' / '.join(f'{t:.2f}' for t in fid_s)} s per epoch"):
+        print(f"eval stage: {line} [{card}]", flush=True)
+    return launches, stages
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1312,9 +1551,11 @@ def main() -> int:
     b1 = check_pack_tail(dev)
     b2 = check_train_tail(dev)
     b2_route = check_fused_route(dev)
-    paths = {"train 64 px": train_phase(card),
-             "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024),
-             "train v2.0": train_phase(card, v20=True)}
+    with tempfile.TemporaryDirectory() as work:
+        paths = {"train 64 px": train_phase(card, keep=work),
+                 "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024),
+                 "train v2.0": train_phase(card, v20=True)}
+        eval_launches, stages = eval_phase(card, work)
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
@@ -1334,7 +1575,10 @@ def main() -> int:
                            "dense peak plus the fc's at the f32 CUDA-core peak "
                            "(cuda_core_bound_ms: all FLOPs at the f32 CUDA-core peak)",
                    tensor_core_sass=b4_sass, cuda_core_bound_ms=b4["cuda_core_bound_ms"],
-                   device_kernels=b4["device_kernels"])
+                   device_kernels=b4["device_kernels"],
+                   launches_by_path={"serving": launches["generator_forward"],
+                                     "evaluation": eval_launches["generator_forward"]},
+                   eval_stages=stages)
     b3_line = entry("upsample_block", "cuda", "siggan_tpu_torch/csrc/convt_phase.cuh",
                     "siggan_tpu/ops/pallas/upsample.py:89", b3)
     b3_line.update(library="F.conv_transpose2d (no affine epilogue); times and bounds are "
@@ -1343,7 +1587,9 @@ def main() -> int:
                            "in shapes); bound: 3xTF32 at the TF32 dense peak "
                            "(cuda_core_bound_ms: f32 CUDA-core peak)",
                    shapes=b3["shapes"], tensor_core_sass=b3_sass,
-                   cuda_core_bound_ms=b3["cuda_core_bound_ms"])
+                   cuda_core_bound_ms=b3["cuda_core_bound_ms"],
+                   launches_by_path={"serving": launches["upsample_block"],
+                                     "evaluation": eval_launches["upsample_block"]})
     b1_tol = "torch.equal (a copy and a cast)"
     b1_line = entry("pack_tail", "cuda", "siggan_tpu_torch/csrc/pack_tail.cu",
                     "siggan_tpu/ops/packed.py:636", b1["bfloat16"]["fwd"])

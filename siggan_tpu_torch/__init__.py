@@ -9,7 +9,9 @@ trains unconditional and conditional (per-writer, v2.0) models on one card,
 with DiffAugment, LR schedules and a generator EMA; every train-mode
 generator forward packs its tail weights with a hand-written kernel (and
 its backward), and every discriminator step runs the generator's tail in
-another.
+another. The evaluation path (``cli.evaluate``, the trainer's FID) scores
+samples with InceptionV3 FID / KID / precision-recall, LPIPS-Alex and
+stroke statistics (``eval/``).
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,13 @@ The G fc output and D's head input are NHWC maps flattened in HWC order on
 both sides, so their columns need no permutation: only (in, out) -> (out,
 in) transposes. Moments follow their parameters' layouts.
 
+The eval networks' JAX trees map to the port modules' state dicts:
+``inception_from_jax`` (conv ``w`` HWIO -> OIHW, BN ``scale``/``offset``/
+``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``,
+branch ``bNAME`` -> torchvision's ``branchNAME``, ``bpool`` ->
+``branch_pool``) and ``lpips_from_jax`` (the AlexNet convs and the (C,)
+linear weights).
+
 ``flatten``/``unflatten`` give the trees as one flat mapping keyed by tree
 path (``fc/w``, ``blocks/0/w``, ``bn/blocks/0/mean``, ...), the layout of the
 port's ``generator.npz``; ``discriminator.npz`` keeps D's state under
@@ -203,6 +210,39 @@ def opt_from_jax(state: Dict, model, moment_dtype: torch.dtype) -> Dict:
         out[k] = [_to_port(flat[path], perm).to(p.device, moment_dtype).contiguous()
                   for path, p, perm in _entries(model)]
     return out
+
+
+def _bconv_sd(prefix: str, p: Dict) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.conv.weight": _t(p["w"]).permute(3, 2, 0, 1).contiguous(),
+            f"{prefix}.bn.weight": _t(p["scale"]), f"{prefix}.bn.bias": _t(p["offset"]),
+            f"{prefix}.bn.running_mean": _t(p["mean"]),
+            f"{prefix}.bn.running_var": _t(p["var"])}
+
+
+def inception_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's InceptionV3 tree (``eval/inception.py::
+    init_params``, numpy arrays) -> a state dict of the port's
+    ``eval/inception.py::InceptionV3`` (torchvision's key names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        if "w" in node:   # a stem conv
+            sd.update(_bconv_sd(name, node))
+            continue
+        for branch, p in node.items():
+            tv = "branch_pool" if branch == "bpool" else "branch" + branch[1:]
+            sd.update(_bconv_sd(f"{name}.{tv}", p))
+    return sd
+
+
+def lpips_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS tree ({convs: [{w HWIO, b}], lins: [(C,)]})
+    -> a state dict of the port's ``eval/lpips.py::LPIPS``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, (conv, lin) in enumerate(zip(params["convs"], params["lins"])):
+        sd[f"convs.{i}.weight"] = _t(conv["w"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"convs.{i}.bias"] = _t(conv["b"])
+        sd[f"lins.{i}"] = _t(lin).reshape(-1)
+    return sd
 
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:

@@ -18,7 +18,10 @@ Adam states, moments as f32, with the LR each last applied),
 ``generator_ema.npz`` when the run tracks a generator EMA (the shadow, in
 ``generator.npz``'s layout), ``fixed_noise.npy`` and ``state.json`` (step,
 epoch, best G loss)), the run's ``config.json``, and an ``index.json``
-mapping the ``latest`` and ``best`` (lowest G loss) aliases to epochs.
+mapping the ``latest`` and ``best`` aliases to epochs. ``best`` follows the
+JAX package's rule (``ckpt/manager.py:101-157``): the lowest G loss until
+a FID is recorded (``save(..., fid=)``, the trainer's in-training FID),
+then the lowest FID, kept as ``best_fid`` in ``index.json``.
 ``load_generator`` on such a run directory loads the epoch ``which`` names
 (``"latest"``, ``"best"`` or an epoch number), and serves the EMA weights
 (``generator_ema.npz``) when the run has them and its config keeps EMA on,
@@ -169,12 +172,28 @@ class CheckpointManager:
         return self.dir / f"epoch_{epoch:04d}"
 
     def save(self, state, *, epoch: int, fixed_noise: torch.Tensor,
-             g_loss: Optional[float] = None) -> Path:
-        """Save ``state`` as epoch ``epoch``; updates ``latest`` and, on a
-        new lowest G loss, ``best``."""
+             g_loss: Optional[float] = None, fid: Optional[float] = None) -> Path:
+        """Save ``state`` as epoch ``epoch``; updates ``latest`` and ``best``.
+
+        ``best``: once any ``fid`` has been recorded, the lowest FID wins,
+        and an epoch saved without one never becomes ``best`` (criteria do
+        not mix); before that, the lowest G loss (the reference's rule).
+        ``best_fid`` lives in ``index.json`` only; ``state.json`` records
+        the lower of the index's ``best_g_loss`` and this save's G loss,
+        whichever criterion picks ``best`` (as the JAX manager stamps its
+        checkpoints)."""
         idx = self._read_index()
         best = idx.get("best_g_loss")
-        is_best = g_loss is not None and (best is None or g_loss < best)
+        if fid is not None:
+            best_fid = idx.get("best_fid")
+            is_best = best_fid is None or fid < best_fid
+        elif "best_fid" in idx:
+            is_best = False
+            print(f"WARNING: checkpoint epoch {epoch} saved without a FID "
+                  "into a FID-tracked index — it cannot become 'best' "
+                  "(align fid_interval with checkpoint_interval)", flush=True)
+        else:
+            is_best = g_loss is not None and (best is None or g_loss < best)
         cands = [x for x in (best, g_loss) if x is not None]
         path = self._epoch_dir(epoch)
         if path.exists():
@@ -194,13 +213,17 @@ class CheckpointManager:
         idx["latest"] = epoch
         if is_best:
             idx["best"] = epoch
-            idx["best_g_loss"] = float(g_loss)
+            if fid is not None:
+                idx["best_fid"] = float(fid)
+            else:
+                idx["best_g_loss"] = float(g_loss)
         (self.dir / INDEX).write_text(json.dumps(idx, indent=2))
         return path
 
     def available(self) -> Dict[str, Any]:
         """The index: the saved ``epochs`` and the ``latest`` / ``best``
-        aliases (with ``best_g_loss``)."""
+        aliases (with ``best_g_loss``, and ``best_fid`` once a FID was
+        recorded)."""
         return self._read_index()
 
     def resolve(self, which: str | int = "latest") -> Optional[Path]:

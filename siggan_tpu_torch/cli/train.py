@@ -16,8 +16,10 @@ per-writer subdirectories of ``--data_dir`` (exactly N of them); v2.0 is
     --d_lr 1e-4 --g_lr 2e-4 --lr_schedule linear --diffaugment translation,cutout
 
 and ``--ema_decay``, ``--aux_weight``, ``--lr_schedule`` and
-``--diffaugment`` train as in the JAX package. Flags of features the port
-does not train yet (shared fakes, FID, the profiler, several cards) are
+``--diffaugment`` train as in the JAX package. ``--fid_interval N``
+scores a random-init FID every N epochs (logged as ``fid``) and makes the
+``best`` checkpoint follow the lowest FID. Flags of features the port
+does not train yet (shared fakes, the profiler, several cards) are
 accepted and raise ``NotImplementedError``, as does a dataset over
 ``resident_max_mb`` (the streaming loader).
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve

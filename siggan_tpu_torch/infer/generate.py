@@ -9,6 +9,8 @@ For 64 px unconditional ReLU models with ``use_pallas`` set, every batch
 goes through the hand-written generator kernel (``ops/kernels/
 generator_fwd.py``); otherwise the ``Generator`` module runs (cuDNN on the
 card) in ``compute_dtype``. The kernel takes any batch size.
+``score_with_discriminator`` gives a discriminator's D(x) probabilities,
+the quality filter of the JAX package's session.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 
 from siggan_tpu_torch.core import rng
 from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
+from siggan_tpu_torch.eval.common import full_f32
+from siggan_tpu_torch.models.discriminator import Discriminator
 from siggan_tpu_torch.models.generator import Generator, generate_latent
 from siggan_tpu_torch.ops.kernels.generator_fwd import (
     generator_forward, kernel_supported, pack_generator)
@@ -113,6 +117,28 @@ class GeneratorSession:
             raise ValueError("class_id given but this checkpoint is "
                              "unconditional (num_classes == 0)")
         return self._fwd(zs).cpu().numpy()
+
+    def score_with_discriminator(self, images: np.ndarray, discriminator: Discriminator,
+                                 y: Optional[np.ndarray] = None) -> np.ndarray:
+        """D(x) probabilities (N,) of (N, H, W, C) images in [-1, 1] for
+        quality filtering (JAX ``infer/generate.py:143-159``): the
+        discriminator in eval mode (no dropout, spectral norm from its
+        stored u's) in f32 with TF32 off, on the discriminator's own
+        device.
+
+        Conditional checkpoints (projection D) need the labels the images
+        were generated with: callers must pass ``y``."""
+        if discriminator.cfg.num_classes > 0 and y is None:
+            raise ValueError(
+                "conditional discriminator scoring requires labels y — "
+                "generate with an explicit class_id to use the quality "
+                "filter on a conditional checkpoint")
+        dev = next(discriminator.parameters()).device
+        x = torch.as_tensor(np.asarray(images, np.float32)).to(dev)
+        labels = None if y is None else torch.as_tensor(np.asarray(y), dtype=torch.long).to(dev)
+        with torch.inference_mode(), full_f32():
+            logits = discriminator(x, train=False, y=labels)
+        return torch.sigmoid(logits)[:, 0].cpu().numpy()
 
 
 def load_session(checkpoint_dir: str, which: str | int = "latest",

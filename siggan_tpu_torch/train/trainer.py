@@ -2,7 +2,7 @@
 sample grids, recovery.
 
 Port of the JAX package's ``GANTrainer`` (``train/trainer.py``) without the
-mesh, FID, the profiler or the streaming loader (they raise
+mesh, the profiler or the streaming loader (they raise
 ``NotImplementedError``). The dataset, and a conditional model's labels
 (``labels=``, required then), are resident on the card and every step
 gathers its batch there. With an LR schedule the span ``lr_total_steps``
@@ -20,6 +20,17 @@ every ``sample_interval`` epochs, epoch/latest/best checkpoints every
 ``checkpoint_interval``, resume, and a checkpoint on interrupt, as in the
 JAX trainer; the grids of a conditional model label image i with class
 i % num_classes, and with ``ema_decay > 0`` they show the EMA generator.
+
+In-training FID (JAX ``train/trainer.py:164-206``), every ``fid_interval``
+epochs: ``fid_samples`` fakes from fixed eval noise (``STREAM_EVAL``;
+labels i % num_classes for a conditional model) through
+``make_eval_generate`` (the EMA generator when tracked) against a fixed
+real subset, ``RandomState(seed).permutation(N)[:fid_samples]``, the JAX
+trainer's images. The random-init scorer is built on first use and the
+real features are extracted once. The FID is computed after the epoch's
+timed window (so ``ms_per_step`` stays the step's), on the stream the
+graphed windows replay on, outside any capture; it is logged as ``fid``
+and passed to the checkpoint, whose ``best`` then follows the lowest FID.
 """
 
 from __future__ import annotations
@@ -64,8 +75,6 @@ def choose_scan_steps(steps_per_epoch: int, scan_steps: int = 0) -> int:
 
 def check_trainer_supported(cfg: TrainConfig, images: np.ndarray) -> None:
     check_supported(cfg)
-    if cfg.fid_interval > 0:
-        raise NotImplementedError("in-training FID is not ported yet (ROADMAP A.1)")
     if cfg.profile_dir:
         raise NotImplementedError("the trainer's profiler hook is not ported yet "
                                   "(ROADMAP A.1)")
@@ -112,6 +121,23 @@ class GANTrainer:
             generator=rng.generator(cfg.seed, rng.STREAM_FIXED))
         self.start_epoch = 0
         self._reported = False
+        # Quality-tracked best: a fixed real subset and fixed eval noise so
+        # that the epochs' FIDs compare; the scorer is built on first use.
+        self._fid_scorer = None
+        self._last_fid: Optional[tuple] = None   # (epoch, fid)
+        if cfg.fid_interval > 0:
+            if cfg.checkpoint_interval % cfg.fid_interval != 0:
+                print(f"WARNING: fid_interval={cfg.fid_interval} does not "
+                      f"divide checkpoint_interval={cfg.checkpoint_interval}; "
+                      "checkpoints saved without a FID can never become "
+                      "'best' once a FID-best exists", flush=True)
+            sel = np.random.RandomState(cfg.seed).permutation(len(images))[:cfg.fid_samples]
+            self._fid_real = np.asarray(images[sel], np.float32)
+            self._fid_noise = torch.randn(
+                (cfg.fid_samples, cfg.model.latent_dim),
+                generator=rng.generator(cfg.seed, rng.STREAM_EVAL)).to(self.device)
+            self._fid_labels = (torch.arange(cfg.fid_samples, device=self.device)
+                                % cfg.model.num_classes if self.conditional else None)
 
     def _report_dispatch(self) -> None:
         """Print, once, how the windows run: K, and on the card the graph's
@@ -140,9 +166,26 @@ class GANTrainer:
         path = Path(self.cfg.sample_dir) / f"epoch_{epoch:04d}.png"
         return contact_sheet(imgs.cpu().numpy(), path, nrow=8)
 
+    def _compute_fid(self) -> float:
+        if self._fid_scorer is None:
+            from siggan_tpu_torch.eval.fid import FIDScorer
+            # 256-image feature chunks, as the JAX trainer; the real subset
+            # is fixed for the run, so its features are extracted once.
+            self._fid_scorer = FIDScorer(batch_size=min(256, self.cfg.fid_samples),
+                                         device=self.device)
+            self._fid_real_feats = self._fid_scorer.features(self._fid_real)
+        fakes = []
+        for s in range(0, self.cfg.fid_samples, 256):
+            y = self._fid_labels[s:s + 256] if self.conditional else None
+            fakes.append(self._generate(self.state, self._fid_noise[s:s + 256], y))
+        return self._fid_scorer.fid_from_features(self._fid_real_feats, torch.cat(fakes))
+
     def _save_checkpoint(self, epoch: int, g_loss: float) -> None:
+        # A FID goes with the checkpoint only when it scored this epoch's state.
+        fid = self._last_fid[1] if (
+            self._last_fid is not None and self._last_fid[0] == epoch) else None
         self.ckpt.save(self.state, epoch=epoch, fixed_noise=self.fixed_noise,
-                       g_loss=g_loss)
+                       g_loss=g_loss, fid=fid)
 
     def resume(self, which: str | int = "latest") -> bool:
         out = self.ckpt.restore(which, self.device)
@@ -190,6 +233,12 @@ class GANTrainer:
                 avgs = {k: float(np.mean(v)) for k, v in cols.items()}
                 avgs["images_per_sec"] = cfg.batch_size * n_steps / dt
                 avgs["ms_per_step"] = dt / n_steps * 1000.0
+                if cfg.fid_interval > 0 and (epoch + 1) % cfg.fid_interval == 0:
+                    t_fid = time.perf_counter()
+                    self._last_fid = (epoch, self._compute_fid())
+                    avgs["fid"] = self._last_fid[1]
+                    print(f"FID epoch {epoch}: {avgs['fid']:.4f} in "
+                          f"{time.perf_counter() - t_fid:.2f} s", flush=True)
                 self.logger.log_metrics(epoch, avgs)
                 collapsed, reason = self.collapse_detector.check_collapse()
                 if collapsed:

@@ -1,6 +1,8 @@
-"""Image conversion and grids (numpy only)."""
+"""Image conversion and grids (numpy only), and the sample-grid writer."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -24,3 +26,11 @@ def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
         x = col * (w + padding) + padding
         grid[y:y + h, x:x + w] = images[i]
     return grid
+
+
+def save_sample_grid(images: np.ndarray, path: str | Path, nrow: int = 8,
+                     denormalize: bool = True) -> Path:
+    """A grid of samples as one PNG (the JAX package's
+    ``utils/visualizer.py:55-59``), through the port's PNG encoder."""
+    from siggan_tpu_torch.infer.export import contact_sheet   # export imports this module
+    return contact_sheet(images, path, nrow=nrow, denormalize=denormalize)

@@ -620,3 +620,82 @@ def test_graphed_v20_training_resumes_like_the_uninterrupted_run(deterministic, 
     assert resumed.resume("latest") and resumed.state.step == 4
     resumed.train()
     assert state_equal(whole.state, resumed.state)
+
+
+# -- the evaluation path -----------------------------------------------------
+
+@pytest.fixture
+def tf32_on(dev):
+    """TF32 allowed globally (PyTorch's cuDNN default), so that the eval
+    code has to turn it off itself."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    yield dev
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_inception_and_lpips_on_the_card_match_the_cpu(tf32_on):
+    """Random-init Inception features and LPIPS distances of 64 px images on
+    the card against the CPU module on the same weights, at the f32 bar
+    (features rtol 1e-4 / atol 1e-5, distances rtol 1e-4 / atol 1e-6; TF32
+    would miss it), with TF32 on outside the eval code and restored after
+    it."""
+    from siggan_tpu_torch.eval import lpips
+    from siggan_tpu_torch.eval.common import batched_apply
+    from siggan_tpu_torch.eval.fid import FIDScorer
+    x = np.tanh(np.random.RandomState(0).randn(6, 64, 64, 1) * 2).astype(np.float32)
+    cpu, card = FIDScorer(batch_size=4, device="cpu"), FIDScorer(batch_size=4, device="cuda")
+    np.testing.assert_allclose(card.features(x), cpu.features(x), rtol=RTOL, atol=ATOL)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    rgb = np.repeat(x, 3, axis=-1)
+    dists = {}
+    for where in ("cpu", "cuda"):
+        m = lpips.init_lpips(0).to(where)
+        dists[where] = batched_apply(lambda a, b: lpips.distance(m, a, b), rgb[:3], rgb[3:],
+                                     batch_size=2, device=torch.device(where))
+        dists[where + " diversity"] = lpips.diversity(m, x)
+    np.testing.assert_allclose(dists["cuda"], dists["cpu"], rtol=RTOL, atol=1e-6)
+    assert dists["cuda diversity"] == pytest.approx(dists["cpu diversity"], rel=RTOL)
+
+
+def test_cli_evaluate_on_the_card_samples_through_b4(dev, tmp_path):
+    """``cli.evaluate`` (device cuda by default) on a ``use_pallas``
+    checkpoint: every sampled batch launches B4, the report has no error."""
+    import json
+    from siggan_tpu_torch.ckpt.manager import save_generator
+    from siggan_tpu_torch.cli import evaluate
+    from siggan_tpu_torch.core.config import TrainConfig
+    from siggan_tpu_torch.data.synthetic import save_dataset_pngs
+    data = save_dataset_pngs(16, tmp_path / "data", seed=1)
+    model = small_model(dev)
+    ckpt = save_generator(tmp_path / "ckpt", model, TrainConfig(
+        model=model.cfg, use_pallas=True, compute_dtype="float32"))
+    before = gf.LAUNCHES.count
+    assert evaluate.main(["--checkpoint", str(ckpt), "--data_dir", str(data),
+                          "--n_samples", "16", "--batch_size", "8", "--seeds", "0", "1",
+                          "--lpips_subset", "8", "--output_dir", str(tmp_path / "out")]) == 0
+    assert gf.LAUNCHES.count - before == 2 * 2
+    m = json.loads((tmp_path / "out" / "evaluation_report.json").read_text())["metrics"]
+    assert m["errors"] == {} and np.isfinite(m["fid"]) and m["fid"] > 0
+    assert 0.0 <= m["precision"] <= 1.0 and np.isfinite(m["lpips_diversity"])
+
+
+def test_fid_epoch_leaves_the_graphed_windows_bit_equal(deterministic, tmp_path):
+    """Two epochs on the graphed dispatch with the in-training FID after
+    each (fakes, Inception and the host math between the windows) give the
+    bits of the same run without FID, and the FID picks ``best``."""
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.train.trainer import GANTrainer
+    images = generate_dataset(32, 64, seed=3)
+    runs = {}
+    for fid in (0, 1):
+        t = GANTrainer(train_cfg(tmp_path / str(fid), epochs=2, fid_interval=fid,
+                                 fid_samples=16), images, device="cuda")
+        t.train()
+        assert t._step_fn.graphed.graph is not None
+        runs[fid] = t
+    assert state_equal(runs[0].state, runs[1].state)
+    fids = [m["fid"] for m in runs[1].logger.metrics]
+    assert len(fids) == 2 and all(np.isfinite(fids))
+    idx = runs[1].ckpt.available()
+    assert idx["best_fid"] == min(fids) and idx["best"] == int(np.argmin(fids))
