@@ -93,10 +93,26 @@ Phases (any failure raises and the script exits non-zero):
      epochs on the graphed dispatch (a finite FID each epoch, ``best`` the
      lowest FID's epoch, its ms/step beside phase 7's) and ``cli.evaluate
      --which best`` on that run;
- 11. print the kernels line (one JSON object; B1, B1' and B2 with their
-     launches by path, B4 and B3 with their launches on the serving and the
-     evaluation paths), the nvidia-smi line again, and as the last line
-     {"ok": true, "device": {...}}.
+ 11. the verification experiment (``write_scans``, ``verification_phase``):
+     55 writers x 24 signatures (CEDAR's genuine count) from
+     generate_labeled_dataset(55, 24, 64, seed=31), upscaled to scan size
+     with aspect jitter (about one in ten past the 512 px canvas) on white
+     pages with light specks, written as per-writer PNGs; ``cli.preprocess``
+     on the card (processed + invalid = 1320, the invalid share, images/s;
+     one 64-scan batch card against CPU, VERIFY_TOL_NOTE); ``cli.generate``
+     512 images from phase 10's ``use_pallas`` checkpoint (B4 x8, B3 x24);
+     ``cli.verifier_train`` baseline and augmented at the JAX defaults (20
+     epochs, batch 32, 10 pairs a user; finite losses, both pickles, the
+     baseline above chance; ms/step and s/model); ``cli.verifier_eval`` (20
+     pairs a user, seed 123; both models, the comparison, curves.json) and
+     256 test pairs' scores card against CPU; ``cli.evaluate --backbone
+     verifier:<baseline pkl> --n_samples 512 --seeds 0`` on phase 7's model
+     and PNGs (no errors, a finite FID, the real floor and the feature
+     diversity; B4 x8, B3 x24); the stage times;
+ 12. print the kernels line (one JSON object; B1, B1' and B2 with their
+     launches by path, B4 and B3 with their launches on the serving, the
+     evaluation and the verification paths), the nvidia-smi line again, and
+     as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1498,6 +1514,209 @@ def eval_phase(card: str, work: str):
     return launches, stages
 
 
+VERIFY_TOL_NOTE = ("card against CPU: preprocessing (CLAHE) allclose atol 1e-5 with equal valid "
+                   "flags (the float64 integral image is exact on both; the rest elementwise "
+                   "or exact counts); verifier scores rtol 1e-4 atol 1e-5 (the f32 bar, TF32 "
+                   "off in the verifier code)")
+
+
+def write_scans(raw: Path, n_writers: int = 55, per_writer: int = 24, seed: int = 31) -> int:
+    """CEDAR-shaped raw scans: ``generate_labeled_dataset(55, 24, 64)``
+    upscaled to scan size with aspect jitter (about one in ten past the
+    512 px canvas), the ink darkened by a scan contrast of 1.3-2.0, on a
+    white page with small margins and light paper specks, written as PNG in
+    per-writer directories (``wNN/wNN_KK.png``). Returns the number
+    written."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from siggan_tpu_torch.data.synthetic import generate_labeled_dataset
+    from siggan_tpu_torch.infer.export import encode_png
+
+    images, labels = generate_labeled_dataset(n_writers, per_writer, 64, seed=seed)
+    rs = np.random.RandomState(seed)
+    counts = [0] * n_writers
+    for img, lab in zip(images, labels):
+        big = rs.rand() < 0.1
+        base = rs.uniform(8.2, 10.0) if big else rs.uniform(3.0, 6.5)
+        aspect = rs.uniform(0.8, 1.25)
+        w, h = int(64 * base * aspect), int(64 * base / aspect)
+        ink = (1.0 - img[..., 0]) * 127.5 * rs.uniform(1.3, 2.0)
+        t = torch.from_numpy(np.clip(255.0 - ink, 0.0, 255.0))[None, None]
+        sig = F.interpolate(t, size=(h, w), mode="bilinear", align_corners=False)[0, 0].numpy()
+        mx, my = (int(rs.uniform(0.01, 0.04) * d) + 2 for d in (w, h))
+        page = np.full((h + 2 * my, w + 2 * mx), 255.0)
+        page[my:my + h, mx:mx + w] = sig
+        k = rs.randint(5, 20)
+        page[rs.randint(0, page.shape[0], k), rs.randint(0, page.shape[1], k)] = rs.uniform(
+            160, 230, k)
+        d = raw / f"w{lab:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"w{lab:02d}_{counts[lab]:02d}.png").write_bytes(
+            encode_png(np.clip(np.round(page), 0, 255).astype(np.uint8)))
+        counts[lab] += 1
+    return sum(counts)
+
+
+def verification_phase(card: str, work: str):
+    """Phase 11: the verification experiment on the card: raw scans ->
+    ``cli.preprocess``; phase 7's model (``use_pallas``, phase 10's
+    checkpoint) -> ``cli.generate`` 512 images through B4; baseline and
+    augmented verifiers by ``cli.verifier_train``; ``cli.verifier_eval``;
+    ``cli.evaluate --backbone verifier:<baseline pkl>``. Returns B4's and
+    B3's launches on the path and the stage times."""
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.cli import evaluate as eval_cli
+    from siggan_tpu_torch.cli import generate as gen_cli
+    from siggan_tpu_torch.cli import preprocess as pre_cli
+    from siggan_tpu_torch.cli import verifier_eval as veval_cli
+    from siggan_tpu_torch.cli import verifier_train as vtrain_cli
+    from siggan_tpu_torch.data import preprocess as pp
+    from siggan_tpu_torch.data.dataset import list_images
+    from siggan_tpu_torch.ops.kernels import generator_fwd as gf
+    from siggan_tpu_torch.ops.kernels import upsample as up
+    from siggan_tpu_torch.verify import train as vtrain
+    from siggan_tpu_torch.verify.pairs import PairDataset
+
+    w = Path(work)
+    raw, clean, synth = w / "scans", w / "clean", w / "synthetic"
+    vmodels, veval, vfid = w / "verifiers", w / "verifier_eval", w / "verifier_fid"
+    gf.LAUNCHES.reset()
+    up.LAUNCHES.reset()
+
+    # 1. Raw scans, CEDAR's size: 55 writers x 24 genuine signatures.
+    t0 = time.perf_counter()
+    n_scans = write_scans(raw)
+    scans_s = time.perf_counter() - t0
+
+    # 2. cli.preprocess on the card; one 64-scan batch card vs CPU.
+    t0 = time.perf_counter()
+    run_cli(pre_cli.main, ["--input_dir", str(raw), "--output_dir", str(clean)])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rep = json.loads((clean / "preprocess_report.json").read_text())
+    n_ok, n_bad = len(rep["processed"]), len(rep["invalid"])
+    if n_ok + n_bad != n_scans or n_scans != 1320 or n_ok < n_scans // 2:
+        raise AssertionError(f"cli.preprocess: {n_ok} processed + {n_bad} invalid of {n_scans}")
+    paths = list_images(raw)[:64]
+    canv, hws = zip(*(pre_cli.load_canvas(p_, 512) for p_ in paths))
+    canv, hws = torch.from_numpy(np.stack(canv)), torch.from_numpy(np.asarray(hws, np.int32))
+    cpu_img, cpu_ok = pp.preprocess_batch(canv, hws)
+    img, ok = pp.preprocess_batch(canv.cuda(), hws.cuda())
+    if not torch.equal(ok.cpu(), cpu_ok):
+        raise AssertionError("preprocessing valid flags differ between the card and the CPU")
+    pre_err = close("preprocessing card vs CPU", img.cpu().numpy(), cpu_img.numpy(), 0, 1e-5)
+    canv_d, hws_d = canv.cuda(), hws.cuda()
+    gpu_batch_ms = time_ms(lambda: pp.preprocess_batch(canv_d, hws_d), iters=5, warmup=1)
+    print(f"verify: cli.preprocess on {n_scans} scans (55 writers x 24) in {pre_s:.2f} s "
+          f"({n_scans / pre_s:.1f} images/s, host decode and letterbox included; writing the "
+          f"scans took {scans_s:.2f} s): {n_ok} written, {n_bad} invalid "
+          f"({n_bad / n_scans:.4f}); one 64-scan batch at 512 px on the card "
+          f"{gpu_batch_ms:.3f} ms, card vs CPU max abs diff {pre_err:.3e} [{card}]", flush=True)
+
+    # 3. The synthetic set: 512 images through B4 (and B3) from phase 7's model.
+    ckpt = w / "eval_ckpt"
+    b4, b3 = gf.LAUNCHES.count, up.LAUNCHES.count
+    t0 = time.perf_counter()
+    run_cli(gen_cli.main, ["--checkpoint", str(ckpt), "--n_samples", "512", "--output_dir",
+                           str(synth)])
+    gen_s = time.perf_counter() - t0
+    gen_launches = (gf.LAUNCHES.count - b4, up.LAUNCHES.count - b3)
+    if gen_launches != (8, 24) or len(list(synth.glob("*.png"))) != 512:
+        raise AssertionError(f"cli.generate: launches (B4, B3) {gen_launches}, expected (8, 24)")
+
+    # 4. Baseline and augmented verifiers, the JAX CLI's defaults.
+    t0 = time.perf_counter()
+    run_cli(vtrain_cli.main, ["--data_dir", str(clean), "--synthetic_dir", str(synth),
+                              "--output_dir", str(vmodels)])
+    vtrain_s = time.perf_counter() - t0
+    hist = json.loads((vmodels / "training_history.json").read_text())
+    timing = {}
+    for name in ("baseline", "augmented"):
+        r = hist[name]
+        losses = [e["loss"] for e in r["history"]["train"]]
+        if not (np.all(np.isfinite(losses)) and len(losses) == 20
+                and (vmodels / f"verifier_{name}.pkl").exists()):
+            raise AssertionError(f"verifier {name}: losses {losses}")
+        secs = r["history"]["epoch_seconds"]
+        per_epoch = r["steps"] // len(secs)
+        timing[name] = {"s_per_model": r["seconds"], "steps": r["steps"],
+                        "ms_per_step": 1e3 * float(np.mean(secs[1:])) / per_epoch,
+                        "first_epoch_ms_per_step": 1e3 * secs[0] / per_epoch,
+                        "best_val_accuracy": r["best_val_accuracy"],
+                        "last_train_loss": losses[-1]}
+    if not hist["baseline"]["best_val_accuracy"] > 0.5:
+        raise AssertionError(f"baseline verifier at chance: {hist['baseline']}")
+
+    # 5. cli.verifier_eval on both; 256 test pairs' scores card vs CPU.
+    t0 = time.perf_counter()
+    run_cli(veval_cli.main, ["--data_dir", str(clean), "--baseline_model",
+                             str(vmodels / "verifier_baseline.pkl"), "--augmented_model",
+                             str(vmodels / "verifier_augmented.pkl"), "--output_dir",
+                             str(veval)])
+    veval_s = time.perf_counter() - t0
+    report = json.loads((veval / "evaluation_report.json").read_text())
+    if set(report["models"]) != {"baseline", "augmented"} or "comparison" not in report \
+            or not (veval / "curves.json").exists():
+        raise AssertionError(f"cli.verifier_eval report: {list(report)}")
+    ds = PairDataset(clean, pairs_per_user=20, seed=123)
+    snap = vtrain.load_verifier(vmodels / "verifier_baseline.pkl")
+    sc = {where: vtrain.predict_scores(vtrain.model_from_snapshot(snap, where),
+                                       ds.img1[:256], ds.img2[:256], 128)
+          for where in ("cpu", "cuda")}
+    score_err = close("verifier scores card vs CPU", sc["cuda"], sc["cpu"], 1e-4, 1e-5)
+
+    # 6. The verifier: FID backbone on phase 7's model and PNGs.
+    b4, b3 = gf.LAUNCHES.count, up.LAUNCHES.count
+    t0 = time.perf_counter()
+    run_cli(eval_cli.main, ["--checkpoint", str(ckpt), "--data_dir", str(w / "data"),
+                            "--n_samples", "512", "--seeds", "0", "--backbone",
+                            f"verifier:{vmodels / 'verifier_baseline.pkl'}",
+                            "--output_dir", str(vfid)])
+    vfid_s = time.perf_counter() - t0
+    fid_launches = (gf.LAUNCHES.count - b4, up.LAUNCHES.count - b3)
+    m = json.loads((vfid / "evaluation_report.json").read_text())["metrics"]
+    if m["errors"] or not np.isfinite(m["fid"]) or "fid_real_floor" not in m \
+            or "feature_diversity" not in m or fid_launches != (8, 24):
+        raise AssertionError(f"verifier FID: launches {fid_launches}, {json.dumps(m)[:1500]}")
+    launches = {"generator_forward": gf.LAUNCHES.count, "upsample_block": up.LAUNCHES.count}
+    if launches != {"generator_forward": 16, "upsample_block": 48}:
+        raise AssertionError(f"verification path launches {launches}")
+
+    comp = report["comparison"]
+    print(f"verify: EER baseline {comp['eer']['values']['baseline']:.4f} augmented "
+          f"{comp['eer']['values']['augmented']:.4f}, ROC-AUC "
+          f"{comp['roc_auc']['values']['baseline']:.4f} / "
+          f"{comp['roc_auc']['values']['augmented']:.4f}, accuracy "
+          f"{comp['accuracy']['values']['baseline']:.4f} / "
+          f"{comp['accuracy']['values']['augmented']:.4f}; best val accuracy "
+          f"{timing['baseline']['best_val_accuracy']:.4f} / "
+          f"{timing['augmented']['best_val_accuracy']:.4f}; scores of 256 pairs card vs CPU "
+          f"max abs diff {score_err:.3e} ({VERIFY_TOL_NOTE}); verifier FID {m['fid']:.4f}, "
+          f"real floor {m['fid_real_floor']:.4f}, feature diversity fake "
+          f"{m['feature_diversity']['fake']:.4f} real {m['feature_diversity']['real']:.4f}; "
+          f"launches {json.dumps(launches)} [{card}]", flush=True)
+    stages = {"preprocess_s": pre_s, "preprocess_images_per_s": n_scans / pre_s,
+              "preprocess_invalid_share": n_bad / n_scans, "preprocess_batch64_ms": gpu_batch_ms,
+              "generate_512_s": gen_s, "verifier_train_cli_s": vtrain_s,
+              "verifier": timing, "verifier_eval_s": veval_s, "verifier_fid_s": vfid_s,
+              "write_scans_s": scans_s}
+    for line in (f"cli.preprocess, 1320 scans at canvas 512: {pre_s:.2f} s "
+                 f"({stages['preprocess_images_per_s']:.1f} images/s); the device pipeline "
+                 f"alone {gpu_batch_ms:.3f} ms per 64",
+                 f"cli.generate 512 images through B4: {gen_s:.2f} s",
+                 "cli.verifier_train (20 epochs, batch 32, 10 pairs a user): " + "; ".join(
+                     f"{k} {v['ms_per_step']:.3f} ms/step (epochs 2-20; epoch 1 "
+                     f"{v['first_epoch_ms_per_step']:.3f}), {v['steps']} steps, "
+                     f"{v['s_per_model']:.2f} s/model" for k, v in timing.items())
+                 + f"; the CLI {vtrain_s:.2f} s",
+                 f"cli.verifier_eval (2 models, 20 pairs a user): {veval_s:.2f} s",
+                 f"cli.evaluate --backbone verifier: (512 samples, 1 seed): {vfid_s:.2f} s"):
+        print(f"verify stage: {line} [{card}]", flush=True)
+    return launches, stages
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1556,6 +1775,7 @@ def main() -> int:
                  "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024),
                  "train v2.0": train_phase(card, v20=True)}
         eval_launches, stages = eval_phase(card, work)
+        verify_launches, verify_stages = verification_phase(card, work)
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
@@ -1577,8 +1797,9 @@ def main() -> int:
                    tensor_core_sass=b4_sass, cuda_core_bound_ms=b4["cuda_core_bound_ms"],
                    device_kernels=b4["device_kernels"],
                    launches_by_path={"serving": launches["generator_forward"],
-                                     "evaluation": eval_launches["generator_forward"]},
-                   eval_stages=stages)
+                                     "evaluation": eval_launches["generator_forward"],
+                                     "verification": verify_launches["generator_forward"]},
+                   eval_stages=stages, verification_stages=verify_stages)
     b3_line = entry("upsample_block", "cuda", "siggan_tpu_torch/csrc/convt_phase.cuh",
                     "siggan_tpu/ops/pallas/upsample.py:89", b3)
     b3_line.update(library="F.conv_transpose2d (no affine epilogue); times and bounds are "
@@ -1589,7 +1810,8 @@ def main() -> int:
                    shapes=b3["shapes"], tensor_core_sass=b3_sass,
                    cuda_core_bound_ms=b3["cuda_core_bound_ms"],
                    launches_by_path={"serving": launches["upsample_block"],
-                                     "evaluation": eval_launches["upsample_block"]})
+                                     "evaluation": eval_launches["upsample_block"],
+                                     "verification": verify_launches["upsample_block"]})
     b1_tol = "torch.equal (a copy and a cast)"
     b1_line = entry("pack_tail", "cuda", "siggan_tpu_torch/csrc/pack_tail.cu",
                     "siggan_tpu/ops/packed.py:636", b1["bfloat16"]["fwd"])

@@ -11,7 +11,11 @@ generator forward packs its tail weights with a hand-written kernel (and
 its backward), and every discriminator step runs the generator's tail in
 another. The evaluation path (``cli.evaluate``, the trainer's FID) scores
 samples with InceptionV3 FID / KID / precision-recall, LPIPS-Alex and
-stroke statistics (``eval/``).
+stroke statistics (``eval/``). The verification path preprocesses raw scans
+on the card (``cli.preprocess``), trains and evaluates the Siamese
+signature verifier, baseline against GAN-augmented (``verify/``,
+``cli.verifier_train``, ``cli.verifier_eval``), and scores FID on its
+features (``verifier:`` backbone).
 """
 
 __version__ = "0.1.0"

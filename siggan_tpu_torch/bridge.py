@@ -27,6 +27,13 @@ branch ``bNAME`` -> torchvision's ``branchNAME``, ``bpool`` ->
 ``branch_pool``) and ``lpips_from_jax`` (the AlexNet convs and the (C,)
 linear weights).
 
+The verifier's trees (``verify/models.py``): ``params`` = {conv: [{w
+(k, k, Cin, Cout) HWIO, b}] x 3, bn: [{scale, offset}] x 3, fc1, fc2, cls1,
+cls2: {w (in, out), b}} and ``state`` = {bn: [{mean, var}] x 3}, the layout
+of a verifier pickle (``verify/train.py::save_verifier``), map to the port's
+``Verifier`` (``verifier_from_jax``/``verifier_to_jax``); fc1's rows are the
+NHWC map's (h, w, c) order on both sides.
+
 ``flatten``/``unflatten`` give the trees as one flat mapping keyed by tree
 path (``fc/w``, ``blocks/0/w``, ``bn/blocks/0/mean``, ...), the layout of the
 port's ``generator.npz``; ``discriminator.npz`` keeps D's state under
@@ -44,6 +51,7 @@ from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.core.state import new_count, new_lr
 from siggan_tpu_torch.models.discriminator import Discriminator
 from siggan_tpu_torch.models.generator import Generator
+from siggan_tpu_torch.verify.models import Verifier
 
 
 def _t(a) -> torch.Tensor:
@@ -57,8 +65,24 @@ _G_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (2, 3, 0, 1),
 _D_PERMS = {"fc.weight": (1, 0), "blocks.*.weight": (3, 2, 0, 1), "aux.weight": (1, 0)}
 
 
+def _verifier_path(name: str) -> Tuple[str, Tuple[int, ...] | None]:
+    """A ``Verifier`` parameter name -> (JAX tree path, perm)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        i, leaf = parts[1], parts[2]
+        if leaf in ("scale", "offset"):
+            return f"bn/{i}/{leaf}", None
+        return f"conv/{i}/{leaf[0]}", ((3, 2, 0, 1) if leaf == "weight" else None)
+    return f"{parts[0]}/{parts[1][0]}", ((1, 0) if parts[1] == "weight" else None)
+
+
 def _entries(model) -> Iterator[Tuple[str, torch.nn.Parameter, Tuple[int, ...]]]:
     """(JAX tree path, parameter, perm) in ``model.parameters()`` order."""
+    if isinstance(model, Verifier):
+        for name, p in model.named_parameters():
+            path, perm = _verifier_path(name)
+            yield path, p, perm
+        return
     perms = _D_PERMS if isinstance(model, Discriminator) else _G_PERMS
     for name, p in model.named_parameters():
         parts = name.split(".")
@@ -210,6 +234,25 @@ def opt_from_jax(state: Dict, model, moment_dtype: torch.dtype) -> Dict:
         out[k] = [_to_port(flat[path], perm).to(p.device, moment_dtype).contiguous()
                   for path, p, perm in _entries(model)]
     return out
+
+
+def verifier_from_jax(params: Dict, state: Dict, device=None) -> Verifier:
+    """JAX-layout verifier trees (numpy arrays; a pickle's ``params`` and
+    ``bn``) -> a port ``Verifier`` on ``device`` (eval mode)."""
+    model = Verifier(int(np.asarray(params["fc2"]["b"]).shape[0]))
+    load_params(model, params)
+    with torch.no_grad():
+        for blk, st in zip(model.blocks, state["bn"]):
+            blk.mean.copy_(_t(st["mean"]))
+            blk.var.copy_(_t(st["var"]))
+    return model.to(device).eval()
+
+
+def verifier_to_jax(model: Verifier) -> Tuple[Dict, Dict]:
+    """A port ``Verifier`` -> (params, state) in JAX layouts (numpy)."""
+    np_ = lambda t: t.detach().float().cpu().numpy().copy()  # noqa: E731
+    return params_to_jax(model), {"bn": [{"mean": np_(b.mean), "var": np_(b.var)}
+                                         for b in model.blocks]}
 
 
 def _bconv_sd(prefix: str, p: Dict) -> Dict[str, torch.Tensor]:

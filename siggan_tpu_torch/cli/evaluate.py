@@ -52,7 +52,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument("--backbone", type=str, default="random-init",
                    help="FID feature backbone: 'random-init' | "
                         "'torchvision:<state_dict.pt>' | "
-                        "'verifier:<ckpt>' (not ported yet, ROADMAP A.7)")
+                        "'verifier:<ckpt.pkl>' (a verifier_train checkpoint)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)

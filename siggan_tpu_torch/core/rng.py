@@ -21,6 +21,8 @@ STREAM_AUGMENT = 0x415547         # data augmentation per step
 STREAM_FIXED = 0x464958           # fixed evaluation noise
 STREAM_EVAL = 0x4556414C          # evaluation sampling
 STREAM_DATA = 0x44415441          # per-epoch shuffle of the resident dataset
+STREAM_INIT_VERIFIER = 0x564552   # signature verifier init
+STREAM_DROPOUT_VERIFIER = 0x564450  # signature verifier dropout
 
 _MASK64 = (1 << 64) - 1
 

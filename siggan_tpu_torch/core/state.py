@@ -91,7 +91,25 @@ class Schedule:
         return torch.where(count < self.start, f(self.lr), tail)
 
 
-LearningRate = Union[float, Schedule]
+class StaircaseDecay:
+    """optax's ``exponential_decay(lr, transition_steps, decay_rate,
+    staircase=True)`` on the device (the verifier's torch-style StepLR):
+    lr * decay_rate ** floor(count / transition_steps), in f32 from the
+    int32 count; each constant an f32 device tensor, the division by one."""
+
+    def __init__(self, lr: float, transition_steps: int, decay_rate: float):
+        if transition_steps <= 0:
+            raise ValueError(f"transition_steps must be positive, got {transition_steps}")
+        self.lr, self.transition_steps, self.decay_rate = lr, transition_steps, decay_rate
+
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        def f(v):
+            return torch.full((), v, dtype=torch.float32, device=count.device)
+        p = torch.floor(count.float() / f(float(self.transition_steps)))
+        return torch.where(count <= 0, f(self.lr), f(self.lr) * torch.pow(f(self.decay_rate), p))
+
+
+LearningRate = Union[float, Schedule, StaircaseDecay]
 
 
 def lr_schedule(cfg: TrainConfig, lr: float, step_mult: int = 1) -> LearningRate:
@@ -111,9 +129,10 @@ def lr_schedule(cfg: TrainConfig, lr: float, step_mult: int = 1) -> LearningRate
 
 
 class Adam:
-    """Adam over a list of parameters, updated in place; ``lr`` a float or
-    a ``Schedule`` of the count of previous updates; ``clip`` is the
-    global-norm bound applied to the gradients first (None = off)."""
+    """Adam over a list of parameters, updated in place; ``lr`` a float, a
+    ``Schedule`` or a ``StaircaseDecay`` of the count of previous updates;
+    ``clip`` is the global-norm bound applied to the gradients first (None
+    = off)."""
 
     def __init__(self, lr: LearningRate, b1: float, b2: float, eps: float = 1e-8,
                  moment_dtype: str = "bfloat16", clip: Optional[float] = None):
@@ -144,7 +163,7 @@ class Adam:
             g32 = self._clip(g32)
         count = state["count"]
         # The schedule reads the count of previous updates, as optax does.
-        if isinstance(self.lr, Schedule):
+        if isinstance(self.lr, (Schedule, StaircaseDecay)):
             lr = self.lr(count)
             state["lr"].copy_(lr)
         else:

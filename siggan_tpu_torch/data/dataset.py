@@ -6,13 +6,14 @@ to the card; a ``.npy`` cache beside the data directory makes re-runs
 decode-free. PNGs are decoded by the port's own ``infer/export.decode_png``
 (no imaging package): grayscale as stored, RGB/RGBA converted with the ITU-R
 601 luma weights PIL's ``convert("L")`` uses. Images of another size are
-resized with PyTorch's antialiased bilinear filter, close to (not bit-equal
-with) PIL's. A file that fails to decode becomes a zero image with a
-warning, as in the reference. Only PNG files are read: a directory that
-also holds the reference's other image files (.jpg, .jpeg, .bmp, .tiff,
-.tif) is refused, rather than trained on its PNG subset, until their
-decoders are ported (ROADMAP A.6). ``writer_labels`` labels the images by
-their per-writer subdirectory, for conditional training.
+resized by ``data/resample.py::resize_bilinear``, bit-equal with the PIL
+``resize(..., Image.BILINEAR)`` that the JAX package calls. A file that
+fails to decode becomes a zero image with a warning, as in the reference.
+Only PNG files are read: a directory that also holds the reference's other
+image files (.jpg, .jpeg, .bmp, .tiff, .tif) is refused, rather than
+trained on its PNG subset, until their decoders are ported (ROADMAP A.6).
+``writer_labels`` labels the images by their per-writer subdirectory, for
+conditional training.
 """
 
 from __future__ import annotations
@@ -25,9 +26,8 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
+from siggan_tpu_torch.data.resample import resize_bilinear
 from siggan_tpu_torch.infer.export import decode_png
 
 logger = logging.getLogger(__name__)
@@ -61,19 +61,21 @@ def _to_gray(u8: np.ndarray) -> np.ndarray:
              + 0x8000) >> 16).astype(np.uint8)
 
 
+def decode_gray(path: str | Path) -> np.ndarray:
+    """A PNG file as uint8 (H, W) grayscale (PIL's ``convert("L")``)."""
+    return _to_gray(decode_png(Path(path).read_bytes()))
+
+
 def decode_image(path: Path, image_size: int) -> np.ndarray:
     """Grayscale decode (+ resize to (s, s)), scaled to [-1, 1], (s, s, 1)."""
     try:
-        arr = _to_gray(decode_png(Path(path).read_bytes())).astype(np.float32)
+        gray = decode_gray(path)
     except (OSError, ValueError, struct.error, zlib.error) as e:   # zero-image fallback (reference)
         logger.warning("failed to decode %s (%s); using zero image", path, e)
         return np.zeros((image_size, image_size, 1), np.float32)
-    if arr.shape != (image_size, image_size):
-        t = torch.from_numpy(arr)[None, None]
-        t = F.interpolate(t, size=(image_size, image_size), mode="bilinear",
-                          align_corners=False, antialias=True)
-        arr = t[0, 0].round().clamp(0, 255).numpy()
-    return (arr / 255.0 * 2.0 - 1.0)[:, :, None]
+    if gray.shape != (image_size, image_size):
+        gray = resize_bilinear(gray, image_size, image_size)
+    return (gray.astype(np.float32) / 255.0 * 2.0 - 1.0)[:, :, None]
 
 
 class SignatureDataset:

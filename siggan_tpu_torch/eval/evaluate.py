@@ -34,8 +34,8 @@ def compute_metrics(real: np.ndarray, fake: np.ndarray, *,
 
     ``inception_params``: a torchvision InceptionV3 state dict (tagged
     "torchvision"); otherwise ``fid_backbone`` is a spec for
-    ``eval.fid.make_scorer``. A trained backbone (``verifier:``, ROADMAP
-    A.7) also reports the split-half real-vs-real floor and a feature-space
+    ``eval.fid.make_scorer``. A trained backbone (``verifier:<ckpt.pkl>``)
+    also reports the split-half real-vs-real floor and a feature-space
     diversity.
 
     ``lpips_params``: an ``LPIPS`` state dict; ``lpips_backbone`` is its

@@ -12,15 +12,17 @@ The ``random-init`` backbone is ``inception.init_inception()``, the JAX
 law from a torch generator, not the JAX package's draws: its FIDs compare
 within the port only. Across packages, score with the same weights
 (``torchvision:<file>`` in both, or the JAX tree loaded through
-``bridge.inception_from_jax``).
+``bridge.inception_from_jax``). The ``verifier:<ckpt>`` backbone reads a
+verifier pickle of either package, so its FIDs compare across packages.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy import linalg
 
 from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
@@ -30,18 +32,24 @@ from siggan_tpu_torch.eval.common import batched_apply
 
 class FIDScorer:
     def __init__(self, state_dict: Optional[Mapping] = None, batch_size: int = 32,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 extract_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 backbone: Optional[str] = None):
         """InceptionV3 features on ``device``: a torchvision state dict when
         ``state_dict`` is given (tagged "torchvision"), the fixed-seed
         random init otherwise ("random-init"); the network is ``self.model``.
-        (The JAX scorer's ``extract_fn`` hook serves only the verifier
-        backbone, ROADMAP A.7.)"""
+        Another feature space plugs in as ``extract_fn`` (NHWC images on
+        ``device`` -> (N, D) features) with a ``backbone`` tag, as
+        ``make_scorer("verifier:...")`` does."""
         self.device = resolve_device(device)
+        self.batch_size = batch_size
+        if extract_fn is not None:
+            self.backbone, self._extract = backbone or "custom", extract_fn
+            return
         self.backbone = "torchvision" if state_dict is not None else "random-init"
         model = (inception.init_inception() if state_dict is None else
                  inception.load_torchvision(inception.InceptionV3(), state_dict))
         self.model = model.to(self.device)
-        self.batch_size = batch_size
 
     def _extract(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(inception.prepare_images(x))
@@ -95,8 +103,13 @@ def make_scorer(spec: str = "random-init", batch_size: int = 32,
     - ``"torchvision:<state_dict.pt>"``: pretrained InceptionV3 weights
       (``torch.load(weights_only=True)``, checked against the pinned
       manifest first), comparable to the reference's absolute FID bands.
-    - ``"verifier:<ckpt>"``: the signature verifier's encoder, which the
-      port does not have yet (ROADMAP A.7); raises ``NotImplementedError``.
+    - ``"verifier:<ckpt.pkl>"``: a domain-trained backbone, the 512-d
+      relu(fc1) features of a signature verifier's encoder
+      (``verify/train.py``; a pickle of either package); colour images are
+      averaged to grey and other sizes resized to the encoder's 64 px
+      (bilinear, antialiased on a downscale, as ``jax.image.resize``).
+      Its values form their own band: report the real-vs-real floor beside
+      them (``eval/evaluate.py``).
     """
     if spec in (None, "", "random-init"):
         return FIDScorer(batch_size=batch_size, device=device)
@@ -111,9 +124,21 @@ def make_scorer(spec: str = "random-init", batch_size: int = 32,
                          label=f"torchvision:{path}")
         return FIDScorer(state_dict=sd, batch_size=batch_size, device=device)
     if kind == "verifier":
-        raise NotImplementedError(
-            f"FID backbone {spec!r}: the verifier encoder is not ported yet "
-            "(ROADMAP A.7)")
+        from siggan_tpu_torch.verify.models import IMAGE_SIZE
+        from siggan_tpu_torch.verify.train import load_verifier, model_from_snapshot
+        model = model_from_snapshot(load_verifier(path), device)
+        s = IMAGE_SIZE
+
+        def extract(x: torch.Tensor) -> torch.Tensor:
+            if x.shape[-1] != 1:
+                x = x.mean(dim=-1, keepdim=True)
+            if x.shape[1] != s or x.shape[2] != s:
+                x = F.interpolate(x.permute(0, 3, 1, 2), size=(s, s), mode="bilinear",
+                                  align_corners=False, antialias=True).permute(0, 2, 3, 1)
+            return model.encode(x, train=False, return_hidden=True)
+
+        return FIDScorer(batch_size=batch_size, device=device, extract_fn=extract,
+                         backbone=f"verifier:{path}")
     raise ValueError(f"unknown FID backbone spec: {spec!r}")
 
 

@@ -699,3 +699,84 @@ def test_fid_epoch_leaves_the_graphed_windows_bit_equal(deterministic, tmp_path)
     assert len(fids) == 2 and all(np.isfinite(fids))
     idx = runs[1].ckpt.available()
     assert idx["best_fid"] == min(fids) and idx["best"] == int(np.argmin(fids))
+
+
+# -- the verification path -------------------------------------------------------
+
+def _scans(n, canvas, seed):
+    rs = np.random.RandomState(seed)
+    c = np.full((n, canvas, canvas), 255.0, np.float32)
+    hw = np.zeros((n, 2), np.int32)
+    for i in range(n):
+        h, w = rs.randint(canvas // 2, canvas + 1, 2)
+        hw[i] = h, w
+        page = rs.randint(200, 256, (h, w)).astype(np.float32)
+        for _ in range(rs.randint(8, 16) * (canvas // 128) ** 2 if i % 5 else 0):
+            y, x = rs.randint(0, h), rs.randint(0, w)
+            page[max(0, y - 2):y + 3, max(0, x - 15):x + 15] = rs.randint(0, 90)
+        c[i, :h, :w] = page
+    return torch.from_numpy(c), torch.from_numpy(hw)
+
+
+@pytest.mark.parametrize("flags", [{}, {"binarize": True}, {"remove_margin": False}])
+def test_preprocessing_on_the_card_matches_the_cpu(dev, flags):
+    """The batched preprocessing on the card against the CPU on 512 px
+    canvases: the valid flags and the CLAHE images equal (atol 1e-5; the
+    float64 integral image is exact on both, every other op elementwise or
+    an exact count), binarized images with at most 0.1 % of the pixels
+    flipped (the Gaussian's f32 exp)."""
+    from siggan_tpu_torch.data import preprocess as pp
+    c, hw = _scans(12, 512, 0)
+    cpu_img, cpu_ok = pp.preprocess_batch(c, hw, **flags)
+    img, ok = pp.preprocess_batch(c.to(dev), hw.to(dev), **flags)
+    assert img.device.type == "cuda"
+    assert torch.equal(ok.cpu(), cpu_ok) and 0 < int(cpu_ok.sum()) < 12
+    if flags.get("binarize"):
+        assert (img.cpu() != cpu_img).float().mean() <= 1e-3
+    else:
+        torch.testing.assert_close(img.cpu(), cpu_img, rtol=0, atol=1e-5)
+
+
+def test_verifier_on_the_card_matches_the_cpu(tf32_on):
+    """A verifier's scores and its FID features (``verifier:`` backbone,
+    64 and 128 px inputs) on the card against the CPU on the same pickle
+    (rtol 1e-4 / atol 1e-5; TF32 on outside, the code turns it off), and
+    two train steps on the same masks (losses rtol 1e-4)."""
+    import tempfile
+    from siggan_tpu_torch.eval.common import full_f32
+    from siggan_tpu_torch.eval.fid import make_scorer
+    from siggan_tpu_torch.verify import models, train
+    model = models.init_fn(torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(1)
+    x1, x2 = (np.tanh(rs.randn(40, 64, 64, 1) * 2).astype(np.float32) for _ in range(2))
+    with tempfile.TemporaryDirectory() as d:
+        pkl = train.save_verifier(train.snapshot(model, 0, 0.5), f"{d}/v.pkl")
+        snap = train.load_verifier(pkl)
+        scores = {w: train.predict_scores(train.model_from_snapshot(snap, w), x1, x2, 16)
+                  for w in ("cpu", "cuda")}
+        np.testing.assert_allclose(scores["cuda"], scores["cpu"], rtol=RTOL, atol=ATOL)
+        big = np.tanh(rs.randn(6, 128, 128, 1) * 2).astype(np.float32)
+        for x in (x1[:10], big):
+            feats = {w: make_scorer(f"verifier:{pkl}", 4, device=w).features(x)
+                     for w in ("cpu", "cuda")}
+            np.testing.assert_allclose(feats["cuda"], feats["cpu"], rtol=RTOL, atol=ATOL)
+    assert torch.backends.cudnn.allow_tf32
+    losses = {}
+    for where in ("cpu", "cuda"):
+        st = train.VerifierState(0, models.init_fn(torch.Generator().manual_seed(2),
+                                                   device=where),
+                                 train.make_optimizer(), None)
+        st.opt = st.tx.init(list(st.model.parameters()))
+        g = torch.Generator().manual_seed(3)
+        out = []
+        with full_f32():
+            for i in range(2):
+                masks = [torch.rand(s, generator=g) < k for s, k in
+                         (((8, 512), 0.5), ((8, 512), 0.5), ((8, 64), 0.7))]
+                lab = torch.tensor([1.0, 0.0] * 4)
+                m = train.train_step(st, *(t.to(where) for t in (
+                    torch.from_numpy(x1[i * 8:i * 8 + 8]), torch.from_numpy(x2[i * 8:i * 8 + 8]),
+                    lab)), masks=[mk.to(where) for mk in masks])
+                out.append([float(m[k]) for k in ("loss", "bce_loss", "contrastive_loss")])
+        losses[where] = np.asarray(out)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=1e-6)

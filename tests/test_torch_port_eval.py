@@ -246,7 +246,9 @@ def test_compute_metrics_records_each_failure(monkeypatch):
 def test_torchvision_spec_and_verifier(tmp_path):
     """A synthetic torchvision state dict (every key of the published file)
     through ``torchvision:<file>``: the port's features equal the JAX
-    package's ``convert_torch_state_dict`` of the same dict."""
+    package's ``convert_torch_state_dict`` of the same dict. The
+    ``verifier:<pkl>`` spec builds a scorer of the verifier's 512-d features
+    (held against the JAX scorer in ``test_torch_port_verify.py``)."""
     sd = synthetic_state_dict(INCEPTION_V3_SD, seed=0, torch_tensors=True)
     path = tmp_path / "inception.pt"
     torch.save(sd, path)
@@ -263,8 +265,14 @@ def test_torchvision_spec_and_verifier(tmp_path):
     loaded = tfid.FIDScorer(_load_inception_weights(str(tmp_path / "inception.npz")),
                             device="cpu").model.state_dict()
     assert all(torch.equal(v, scorer.model.state_dict()[k]) for k, v in loaded.items())
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tfid.make_scorer("verifier:ckpt.pkl", device="cpu")
+    from siggan_tpu_torch.verify import models as vmodels
+    from siggan_tpu_torch.verify import train as vtrain
+    pkl = vtrain.save_verifier(vtrain.snapshot(vmodels.init_fn(torch.Generator().manual_seed(0)),
+                                               0, 0.5), tmp_path / "verifier.pkl")
+    verifier = tfid.make_scorer(f"verifier:{pkl}", batch_size=2, device="cpu")
+    assert verifier.backbone == f"verifier:{pkl}" and verifier.features(x).shape == (2, 512)
+    with pytest.raises(FileNotFoundError):
+        tfid.make_scorer(f"verifier:{tmp_path / 'missing.pkl'}", device="cpu")
     del sd["Mixed_7c.branch_pool.conv.weight"]
     torch.save(sd, path)
     with pytest.raises(ValueError, match="required keys missing"):
