@@ -109,7 +109,33 @@ Phases (any failure raises and the script exits non-zero):
      verifier:<baseline pkl> --n_samples 512 --seeds 0`` on phase 7's model
      and PNGs (no errors, a finite FID, the real floor and the feature
      diversity; B4 x8, B3 x24); the stage times;
- 12. print the kernels line (one JSON object; B1, B1' and B2 with their
+ 12. the host decoders (``decode_phase``): build ``data/native/decode.cpp``
+     with g++ and decode every fixture of ``tests/data/torch_port/`` (JPEG
+     at 4:4:4, 4:2:2 and 4:2:0 at scan size, grey, restart intervals,
+     optimised tables; BMP 1/8/24/32-bit; TIFF raw, PackBits, LZW with
+     predictor 2, 1-bit WhiteIsZero, RGB; PNG palette, 16-bit, Adam7)
+     bit-equal to its golden array (PIL's grey, saved where the fixtures
+     were written: this host has no PIL); time the threaded batch decode
+     per format at 1 and 8 threads (images/s); rewrite phase 11's 1320
+     scans as a mixed tree in CEDAR's shape (PNG, BMP and uncompressed TIFF
+     written here with numpy, JPEG copied from the fixtures), run
+     ``cli.preprocess`` on it (wall time, images/s, the share of it that
+     host decoding and letterboxing take) and build a ``SignatureDataset``
+     on it (its decode time);
+ 13. shared fakes and the ablation grid (``shared_fakes_phase``,
+     ``ablation_phase``): ``cli.train --share_fakes`` at full width on
+     phase 7's 2048 PNGs for 2 epochs of 32 steps (B1 x1, B1' x1, B2 x0
+     per step; finite losses; two graphed windows against eager steps, as
+     in phase 7); then graphed windows of the default step and of the
+     shared-fake step on copies of the trained state in turns (default,
+     shared, shared, default: wall ms/step, device busy ms/step, idle
+     share, device operations per step) and the eager shared-fake step;
+     then ``cli.ablate`` over the full 12-run grid at full width in bf16,
+     1 epoch of 32 steps a run (cut from 20 epochs), FID at 256 samples
+     against 512 reals: each run's short name, losses, FID, ms/step and
+     wall time, the tables, plots.json and 12 sample grids, and no kernel
+     launch (the ablation step's G is unpacked);
+ 14. print the kernels line (one JSON object; B1, B1' and B2 with their
      launches by path, B4 and B3 with their launches on the serving, the
      evaluation and the verification paths), the nvidia-smi line again, and
      as the last line {"ok": true, "device": {...}}.
@@ -1717,6 +1743,287 @@ def verification_phase(card: str, work: str):
     return launches, stages
 
 
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_port"
+
+
+def bmp_grey(u8) -> bytes:
+    """An 8-bit BMP of uint8 (H, W) grey with the identity palette."""
+    import numpy as np
+    h, w = u8.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = u8[::-1]
+    pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, 1)
+    pal[:, 3] = 0
+    info = (40).to_bytes(4, "little") + w.to_bytes(4, "little") + h.to_bytes(4, "little") \
+        + (1).to_bytes(2, "little") + (8).to_bytes(2, "little") + bytes(4) \
+        + (rows.size).to_bytes(4, "little") + bytes(8) + (256).to_bytes(4, "little") + bytes(4)
+    off = 14 + len(info) + pal.size
+    return (b"BM" + (off + rows.size).to_bytes(4, "little") + bytes(4)
+            + off.to_bytes(4, "little") + info + pal.tobytes() + rows.tobytes())
+
+
+def tiff_grey(u8) -> bytes:
+    """An uncompressed one-strip little-endian TIFF of uint8 (H, W) grey."""
+    h, w = u8.shape
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1),
+               (273, 4, 8), (277, 3, 1), (278, 4, h), (279, 4, h * w)]
+    ifd = len(entries).to_bytes(2, "little") + b"".join(
+        tag.to_bytes(2, "little") + typ.to_bytes(2, "little") + (1).to_bytes(4, "little")
+        + val.to_bytes(4, "little") for tag, typ, val in entries) + bytes(4)
+    return b"II*\0" + (8 + h * w).to_bytes(4, "little") + u8.tobytes() + ifd
+
+
+def decode_phase(card: str, work: str):
+    """Phase 12: the host decoders: the fixtures bit-equal to their golden
+    arrays, the threaded batch decode's rate per format, ``cli.preprocess``
+    and a ``SignatureDataset`` on a mixed tree of 1320 scans."""
+    import shutil
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.cli import preprocess as pre_cli
+    from siggan_tpu_torch.data import dataset as ds_mod
+    from siggan_tpu_torch.data.native import loader as native
+    from siggan_tpu_torch.infer.export import decode_png
+
+    from siggan_tpu_torch.ops.kernels import build
+    native.library()   # built on first use (phase 7's dataset); timed again here
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([shutil.which("g++"), *build.HOST_FLAGS, str(native.SOURCE), "-o",
+                        f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
+        build_s = time.perf_counter() - t0
+    with np.load(FIXTURES / "golden.npz") as f:
+        golden = dict(f)
+    if len(golden) != 18:
+        raise AssertionError(f"expected 18 decoder fixtures, found {sorted(golden)}")
+    for name, want in golden.items():
+        got = ds_mod.decode_gray(FIXTURES / name)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"decoder fixture {name}: not bit-equal to PIL's grey")
+    print(f"decode: g++ build of data/native/decode.cpp {build_s:.2f} s (timed apart from the "
+          f"first use's build); all {len(golden)} "
+          f"fixtures bit-equal to PIL's grey ({', '.join(sorted(golden))})", flush=True)
+
+    groups = {"JPEG 1200x500": [n for n in golden if n.startswith("scan_")],
+              "JPEG 210x80": [n for n in golden if n.endswith(".jpg")
+                              and not n.startswith("scan_")],
+              "BMP 210x80": [n for n in golden if n.endswith(".bmp")],
+              "TIFF 210x80": [n for n in golden if n.endswith(".tif")]}
+    rates = {}
+    for fmt, names in groups.items():
+        reps = 20 if fmt.startswith("JPEG 1200") else 100
+        paths = [FIXTURES / n for n in names] * reps
+        for threads in (1, 8):
+            native.decode_files(paths[:len(names)], threads)
+            t0 = time.perf_counter()
+            _, status, _ = native.decode_files(paths, threads)
+            dt = time.perf_counter() - t0
+            if (status != native.OK).any():
+                raise AssertionError(f"batch decode of {fmt}: statuses {set(status.tolist())}")
+            rates[f"{fmt}, {threads} thread{'s' if threads > 1 else ''}"] = len(paths) / dt
+    pngs = [FIXTURES / n for n in golden if n.endswith(".png")] * 30
+    t0 = time.perf_counter()
+    ds_mod.decode_images(pngs, 64)
+    rates["PNG 210x80 (Python), 1 thread"] = len(pngs) / (time.perf_counter() - t0)
+    for k, v in rates.items():
+        print(f"decode: {k}: {v:.1f} images/s [{card}]", flush=True)
+
+    # A mixed tree in CEDAR's shape from phase 11's scans: per writer, PNG,
+    # BMP, TIFF and JPEG in turns (the JPEGs are the fixtures' scan pages).
+    raw, mixed = Path(work) / "scans", Path(work) / "mixed_scans"
+    jpegs = sorted(FIXTURES.glob("scan_*.jpg"))
+    t0 = time.perf_counter()
+    kinds = {".png": 0, ".bmp": 0, ".tif": 0, ".jpg": 0}
+    for i, p in enumerate(sorted(raw.rglob("*.png"))):
+        d = mixed / p.parent.name
+        d.mkdir(parents=True, exist_ok=True)
+        k = i % 4
+        if k == 0:
+            shutil.copy(p, d / p.name)
+        elif k == 3:
+            shutil.copy(jpegs[i % len(jpegs)], d / f"{p.stem}.jpg")
+        else:
+            grey = decode_png(p.read_bytes())[..., 0]
+            data = bmp_grey(grey) if k == 1 else tiff_grey(grey)
+            (d / f"{p.stem}{'.bmp' if k == 1 else '.tif'}").write_bytes(data)
+        kinds[[".png", ".bmp", ".tif", ".jpg"][k]] += 1
+    write_s = time.perf_counter() - t0
+    paths = ds_mod.list_images(mixed)
+    per_kind = {}
+    for p in paths:
+        t0 = time.perf_counter()
+        ds_mod.decode_gray(p)
+        t1 = time.perf_counter()
+        pre_cli.load_canvas(p, 512)
+        t2 = time.perf_counter()
+        d, c = per_kind.get(p.suffix, (0.0, 0.0))
+        per_kind[p.suffix] = (d + t1 - t0, c + t2 - t1)
+    host_s = sum(c for _, c in per_kind.values())
+    print("decode: host ms a scan of the mixed tree, decode alone / decode + letterbox "
+          "(resize past 512 px): " + "; ".join(
+              f"{k} {1e3 * d / kinds[k]:.2f} / {1e3 * c / kinds[k]:.2f}"
+              for k, (d, c) in sorted(per_kind.items())) + f" [{card}]", flush=True)
+    t0 = time.perf_counter()
+    run_cli(pre_cli.main, ["--input_dir", str(mixed), "--output_dir", str(Path(work) / "mixed_clean")])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rep = json.loads((Path(work) / "mixed_clean" / "preprocess_report.json").read_text())
+    n = len(rep["processed"]) + len(rep["invalid"])
+    if n != 1320 or len(paths) != 1320:
+        raise AssertionError(f"cli.preprocess on the mixed tree: {n} of {len(paths)} scans")
+    t0 = time.perf_counter()
+    ds = ds_mod.SignatureDataset(mixed, 64, use_cache=False)
+    ds_s = time.perf_counter() - t0
+    if ds.images.shape != (1320, 64, 64, 1) or not np.isfinite(ds.images).all():
+        raise AssertionError(f"SignatureDataset on the mixed tree: {ds.images.shape}")
+    print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}) written in "
+          f"{write_s:.2f} s; cli.preprocess {pre_s:.2f} s ({1320 / pre_s:.1f} images/s), "
+          f"{len(rep['processed'])} written, {len(rep['invalid'])} invalid; the host decode + "
+          f"letterbox of every scan alone {host_s:.2f} s ({host_s / pre_s:.4f} of the CLI's "
+          f"wall time); SignatureDataset (threaded decode + resize to 64) {ds_s:.2f} s "
+          f"({1320 / ds_s:.1f} images/s) [{card}]", flush=True)
+    return {"build_s": build_s, "images_per_s": rates, "preprocess_s": pre_s,
+            "preprocess_host_decode_s": host_s, "dataset_s": ds_s,
+            "host_ms_per_scan": {k: [1e3 * d / kinds[k], 1e3 * c / kinds[k]]
+                                 for k, (d, c) in per_kind.items()}}
+
+
+def shared_fakes_phase(card: str, work: str):
+    """Phase 13a: ``cli.train --share_fakes`` at full width on phase 7's
+    PNGs; graphed against eager; the default and the shared-fake step's
+    graphed windows in turns. Returns the main path's launches."""
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.ckpt.manager import CheckpointManager
+    from siggan_tpu_torch.cli import train as train_cli
+    from siggan_tpu_torch.core.config import TrainConfig
+    from siggan_tpu_torch.data.dataset import SignatureDataset
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.train import train_step as ts
+
+    tag, data, run = "train share_fakes", f"{work}/data", f"{work}/run_share"
+    for counter in (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES):
+        counter.reset()
+    t0 = time.perf_counter()
+    out = run_cli(train_cli.main, ["--data_dir", data, "--epochs", "2", "--checkpoint_interval",
+                                   "1", "--run_dir", run, "--device", "cuda", "--share_fakes"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pack_tail": pt.FWD_LAUNCHES.count,
+                "pack_tail_backward": pt.BWD_LAUNCHES.count, "train_tail": tt.LAUNCHES.count}
+    dispatch = re.search(r"Dispatch: (\d+) steps per call", out)
+    if dispatch is None:
+        raise AssertionError(f"{tag}: the CLI did not train on the graphed dispatch")
+    k = int(dispatch.group(1))
+    cfg = TrainConfig.from_json(open(f"{run}/checkpoints/config.json").read())
+    steps = 2 * (2048 // cfg.batch_size)
+    if not cfg.share_fakes or cfg.batch_size != 64 or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{tag}: not the expected configuration: {cfg.to_json()}")
+    if launches != {"pack_tail": steps, "pack_tail_backward": steps, "train_tail": 0}:
+        raise AssertionError(f"{tag}: launches {launches} for {steps} steps")
+    metrics = json.loads(sorted(Path(f"{run}/logs").glob("*.json"))[-1].read_text())["metrics"]
+    for m in metrics:
+        if not np.all(np.isfinite([m[key] for key in ("d_loss", "g_loss", "d_on_g_mean")])):
+            raise AssertionError(f"{tag}: non-finite metrics {m}")
+    print(f"{tag}: CLI 2 epochs in {wall:.1f} s, K = {k}; launches per step B1 "
+          f"{launches['pack_tail'] / steps:g}, B1' {launches['pack_tail_backward'] / steps:g}, "
+          f"B2 {launches['train_tail'] / steps:g}; " + "; ".join(
+              f"epoch {m['epoch']}: d_loss {m['d_loss']:.4f} g_loss {m['g_loss']:.4f} "
+              f"{m['ms_per_step']:.3f} ms/step" for m in metrics) + f" [{card}]", flush=True)
+
+    state, _ = CheckpointManager(f"{run}/checkpoints", cfg).restore("latest", "cuda")
+    images = torch.from_numpy(SignatureDataset(data, 64).images).cuda()
+    agreement, _ = graphed_vs_eager(tag, cfg, 2048, images, state, k)
+
+    # The default and the shared-fake step, graphed windows in turns on copies.
+    routes = {"default": cfg.replace(share_fakes=False), "share_fakes": cfg}
+    multis = {r: ts.make_resident_multi_step(c, 2048, k)[0] for r, c in routes.items()}
+    states = {r: copy.deepcopy(state) for r in routes}
+    rows = {r: [] for r in routes}
+
+    def window(route):
+        def run_():
+            states[route], m = multis[route](states[route], images)
+            return m
+        return run_
+    for route in ("default", "share_fakes", "share_fakes", "default"):
+        fn = window(route)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        w = (time.perf_counter() - t0) * 1e3 / k
+        _, busy, ops = device_time(fn, calls=1)
+        rows[route].append((w, None if busy is None else busy / k, ops / k))
+    eager_fn, _ = ts.make_resident_train_step(cfg, 2048)
+    estate = copy.deepcopy(state)
+
+    def ten():
+        nonlocal estate
+        for _ in range(10):
+            estate, m = eager_fn(estate, images)
+        return m
+    ten()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ten()
+    torch.cuda.synchronize()
+    ewall = (time.perf_counter() - t0) * 1e3 / 10
+    _, ebusy, eops = device_time(ten, calls=1)
+    for route, rs in rows.items():
+        print(f"{tag}: graphed {k}-step windows, {route} step: " + "; ".join(
+            f"wall {w:.3f} ms/step, device busy {fmt_ms(b)}/step, idle share "
+            f"{'not measured' if b is None else f'{1 - b / w:.4f}'}, {o:.0f} device "
+            f"operations per step" for w, b, o in rs) + f" [{card}]", flush=True)
+    print(f"{tag}: eager, 10 profiled steps: wall {ewall:.3f} ms/step, device busy "
+          f"{fmt_ms(None if ebusy is None else ebusy / 10)}/step, {eops / 10:.0f} device "
+          f"operations per step [{card}]", flush=True)
+    print(f"{tag}: graphed vs eager: {json.dumps(agreement)}", flush=True)
+    return launches
+
+
+def ablation_phase(card: str, work: str):
+    """Phase 13b: ``cli.ablate`` over the 12-run grid at full width."""
+    import numpy as np
+    from siggan_tpu_torch.cli import ablate as ablate_cli
+    from siggan_tpu_torch.ops.kernels import build
+
+    out = Path(work) / "ablation"
+    before = build.launch_counts()
+    t0 = time.perf_counter()
+    log = run_cli(ablate_cli.main, ["--data_dir", f"{work}/data", "--output_dir", str(out),
+                                    "--epochs", "1"])
+    wall = time.perf_counter() - t0
+    if build.launch_counts() != before:
+        raise AssertionError("the ablation grid launched a kernel: its G is unpacked")
+    rows = json.loads((out / "results.json").read_text())
+    names = [r["short_name"] for r in rows]
+    want = [f"z{z}_{a}_sn{s}" for z in (50, 100, 200) for a in ("relu", "lrelu") for s in (0, 1)]
+    if names != want:
+        raise AssertionError(f"ablation runs {names}")
+    for name in ("results.csv", "results.md", "plots.json"):
+        if not (out / name).exists():
+            raise AssertionError(f"ablation: {name} missing")
+    if sorted(p.stem for p in (out / "samples").glob("*.png")) != sorted(want):
+        raise AssertionError("ablation: sample grids missing")
+    ms = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\] (z\S+)\n.*?([0-9.]+) ms/step", log)}
+    for r in rows:
+        if not np.all(np.isfinite([r["final_d_loss"], r["final_g_loss"], r["fid"]])):
+            raise AssertionError(f"ablation run {r['short_name']}: {r}")
+        print(f"ablate: {r['short_name']}: d_loss {r['final_d_loss']:.4f} g_loss "
+              f"{r['final_g_loss']:.4f} FID {r['fid']:.4f} (random-init InceptionV3, 256 "
+              f"samples against 512 reals), {r['wall_time_sec'] / 32 * 1e3:.3f} ms/step "
+              f"(32 eager steps), {r['wall_time_sec']:.2f} s training, G "
+              f"{r['g_params']} parameters [{card}]", flush=True)
+    print(f"ablate: the 12-run grid in {wall:.1f} s (the CLI: dataset, 12 x (init, 32 steps, "
+          f"256 samples, FID)) [{card}]", flush=True)
+    return {"wall_s": wall, "ms_per_step": ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1776,6 +2083,9 @@ def main() -> int:
                  "train v2.0": train_phase(card, v20=True)}
         eval_launches, stages = eval_phase(card, work)
         verify_launches, verify_stages = verification_phase(card, work)
+        decode_stats = decode_phase(card, work)
+        paths["train share_fakes"] = shared_fakes_phase(card, work)
+        ablation_stats = ablation_phase(card, work)
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
@@ -1799,7 +2109,8 @@ def main() -> int:
                    launches_by_path={"serving": launches["generator_forward"],
                                      "evaluation": eval_launches["generator_forward"],
                                      "verification": verify_launches["generator_forward"]},
-                   eval_stages=stages, verification_stages=verify_stages)
+                   eval_stages=stages, verification_stages=verify_stages,
+                   decode_stages=decode_stats, ablation=ablation_stats)
     b3_line = entry("upsample_block", "cuda", "siggan_tpu_torch/csrc/convt_phase.cuh",
                     "siggan_tpu/ops/pallas/upsample.py:89", b3)
     b3_line.update(library="F.conv_transpose2d (no affine epilogue); times and bounds are "

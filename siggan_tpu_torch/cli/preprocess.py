@@ -6,9 +6,10 @@ Usage:
         [--device cuda]
 
 Port of ``siggan_tpu/cli/preprocess.py``: cleans a directory of raw
-signature scans (PNG; searched recursively, a tree holding other image
-formats is refused) into training-ready images. The host decodes each scan
-to grayscale and letterboxes it at the top-left of a white
+signature scans (PNG, JPEG, BMP or TIFF, read by content; searched
+recursively) into training-ready images. The host decodes each scan to
+grayscale (``data/dataset.py::decode_gray``, PIL's grey bit for bit) and
+letterboxes it at the top-left of a white
 ``canvas_size``-square canvas (a scan larger than the canvas is first
 downscaled, aspect kept, with PIL's bilinear filter reproduced bit for bit
 by ``data/resample.py``); the device runs the batched pipeline

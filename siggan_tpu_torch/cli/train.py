@@ -7,8 +7,8 @@ Usage:
 Trains on one CUDA card (``--device cpu`` runs the same code on the CPU, for
 tests); without a card it raises rather than fall back. On the card the
 steps run in windows of K (the JAX trainer's ``scan_steps`` rule), each a
-CUDA graph of one step replayed K times. ``--data_dir`` holds PNG images
-(other image files are refused). ``--spectral_norm`` with ``--image_size
+CUDA graph of one step replayed K times. ``--data_dir`` holds the JAX
+package's image files (PNG, JPEG, BMP, TIFF). ``--spectral_norm`` with ``--image_size
 128`` trains v1.1. ``--num_classes N`` trains a conditional model on the
 per-writer subdirectories of ``--data_dir`` (exactly N of them); v2.0 is
 
@@ -18,10 +18,11 @@ per-writer subdirectories of ``--data_dir`` (exactly N of them); v2.0 is
 and ``--ema_decay``, ``--aux_weight``, ``--lr_schedule`` and
 ``--diffaugment`` train as in the JAX package. ``--fid_interval N``
 scores a random-init FID every N epochs (logged as ``fid``) and makes the
-``best`` checkpoint follow the lowest FID. Flags of features the port
-does not train yet (shared fakes, the profiler, several cards) are
-accepted and raise ``NotImplementedError``, as does a dataset over
-``resident_max_mb`` (the streaming loader).
+``best`` checkpoint follow the lowest FID. ``--share_fakes`` trains with
+one latent batch a step, shared by the D and G updates. Flags of features
+the port does not train yet (the profiler, several cards) are accepted and
+raise ``NotImplementedError``, as does a dataset over ``resident_max_mb``
+(the streaming loader).
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve
 --checkpoint DIR`` (its latest epoch), and ``cli.generate --which`` samples
 any saved epoch.

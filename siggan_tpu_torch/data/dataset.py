@@ -3,17 +3,17 @@
 Port of the JAX package's ``data/dataset.py``. The whole set is decoded
 once into a contiguous float32 (N, s, s, 1) array, which the trainer moves
 to the card; a ``.npy`` cache beside the data directory makes re-runs
-decode-free. PNGs are decoded by the port's own ``infer/export.decode_png``
-(no imaging package): grayscale as stored, RGB/RGBA converted with the ITU-R
-601 luma weights PIL's ``convert("L")`` uses. Images of another size are
-resized by ``data/resample.py::resize_bilinear``, bit-equal with the PIL
-``resize(..., Image.BILINEAR)`` that the JAX package calls. A file that
-fails to decode becomes a zero image with a warning, as in the reference.
-Only PNG files are read: a directory that also holds the reference's other
-image files (.jpg, .jpeg, .bmp, .tiff, .tif) is refused, rather than
-trained on its PNG subset, until their decoders are ported (ROADMAP A.6).
-``writer_labels`` labels the images by their per-writer subdirectory, for
-conditional training.
+decode-free. The files are those the JAX package reads (.png, .jpg, .jpeg,
+.bmp, .tiff, .tif), each decoded by its content, not its name, with no
+imaging package: PNG by ``infer/export.decode_png``, JPEG, BMP and TIFF by
+the port's C++ decoder (``data/native/``), the whole set on several
+threads; each gives PIL's ``convert("L")`` grey bit for bit. Images of
+another size are resized by ``data/resample.py::resize_bilinear``,
+bit-equal with the PIL ``resize(..., Image.BILINEAR)`` that the JAX package
+calls. A corrupt or unreadable file becomes a zero image with a warning, as
+in the reference; a valid file of a kind the port does not read yet raises
+``NotImplementedError`` (ROADMAP A.6). ``writer_labels`` labels the images
+by their per-writer subdirectory, for conditional training.
 """
 
 from __future__ import annotations
@@ -27,34 +27,30 @@ from typing import List, Optional
 
 import numpy as np
 
+from siggan_tpu_torch.data.native import loader as native
 from siggan_tpu_torch.data.resample import resize_bilinear
 from siggan_tpu_torch.infer.export import decode_png
 
 logger = logging.getLogger(__name__)
 
-IMAGE_EXTENSIONS = {".png"}
-# The reference's other image extensions (its data/dataset.py), not decoded yet.
-UNDECODED_EXTENSIONS = {".jpg", ".jpeg", ".bmp", ".tiff", ".tif"}
+# The JAX package's extensions (its data/dataset.py).
+IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".tif"}
+# What a corrupt or unreadable file raises (a zero image in the dataset).
+DECODE_ERRORS = (OSError, ValueError, struct.error, zlib.error)
 
 
 def list_images(data_dir: str | Path, recursive: bool = True) -> List[Path]:
     root = Path(data_dir)
     if not root.is_dir():
         raise FileNotFoundError(f"data_dir does not exist: {root}")
-    files = list(root.rglob("*") if recursive else root.glob("*"))
-    other = sorted(p for p in files if p.suffix.lower() in UNDECODED_EXTENSIONS)
-    if other:
-        raise NotImplementedError(
-            f"{root} holds {len(other)} image files the port cannot decode yet "
-            f"({other[0].name}, ...): only PNG is read until the other formats' "
-            f"decoders are ported (ROADMAP A.6)")
-    return sorted(p for p in files if p.suffix.lower() in IMAGE_EXTENSIONS)
+    it = root.rglob("*") if recursive else root.glob("*")
+    return sorted(p for p in it if p.suffix.lower() in IMAGE_EXTENSIONS)
 
 
 def _to_gray(u8: np.ndarray) -> np.ndarray:
     """uint8 (H, W, C) -> uint8 (H, W), PIL's L = (19595 R + 38470 G + 7471 B
     + 2^15) >> 16; alpha is dropped, as PIL does."""
-    if u8.shape[-1] == 1:
+    if u8.shape[-1] <= 2:
         return u8[..., 0]
     rgb = u8[..., :3].astype(np.uint32)
     return ((19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2]
@@ -62,20 +58,58 @@ def _to_gray(u8: np.ndarray) -> np.ndarray:
 
 
 def decode_gray(path: str | Path) -> np.ndarray:
-    """A PNG file as uint8 (H, W) grayscale (PIL's ``convert("L")``)."""
-    return _to_gray(decode_png(Path(path).read_bytes()))
+    """An image file as uint8 (H, W) grey, PIL's ``convert("L")``; the
+    format comes from the file's first bytes. Raises ``NotImplementedError``
+    for a valid file of a kind not read yet, ``ValueError`` (or ``OSError``)
+    for a corrupt (or unreadable) one."""
+    data = Path(path).read_bytes()
+    if data.startswith(b"\x89PNG\r\n\x1a\n"):
+        return _to_gray(decode_png(data))
+    return native.decode(data, str(path))
 
 
-def decode_image(path: Path, image_size: int) -> np.ndarray:
-    """Grayscale decode (+ resize to (s, s)), scaled to [-1, 1], (s, s, 1)."""
-    try:
-        gray = decode_gray(path)
-    except (OSError, ValueError, struct.error, zlib.error) as e:   # zero-image fallback (reference)
-        logger.warning("failed to decode %s (%s); using zero image", path, e)
-        return np.zeros((image_size, image_size, 1), np.float32)
+def _scaled(gray: np.ndarray, image_size: int) -> np.ndarray:
+    """uint8 grey (+ resize to (s, s)) -> [-1, 1] float32 (s, s, 1)."""
     if gray.shape != (image_size, image_size):
         gray = resize_bilinear(gray, image_size, image_size)
     return (gray.astype(np.float32) / 255.0 * 2.0 - 1.0)[:, :, None]
+
+
+def _zero_image(path, image_size: int, err: Exception) -> np.ndarray:
+    logger.warning("failed to decode %s (%s); using zero image", path, err)
+    return np.zeros((image_size, image_size, 1), np.float32)
+
+
+def decode_image(path: Path, image_size: int) -> np.ndarray:
+    """Grayscale decode (+ resize to (s, s)), scaled to [-1, 1], (s, s, 1).
+    A corrupt or unreadable file gives a zero image and a warning (the
+    reference's fallback); ``NotImplementedError`` passes through."""
+    try:
+        gray = decode_gray(path)
+    except DECODE_ERRORS as e:
+        return _zero_image(path, image_size, e)
+    return _scaled(gray, image_size)
+
+
+def decode_images(paths: List[Path], image_size: int) -> np.ndarray:
+    """``decode_image`` of every path -> (N, s, s, 1) float32: JPEG, BMP and
+    TIFF files on the C++ decoder's threads, PNG files in Python."""
+    grays, status, msgs = native.decode_files(paths)
+    out = np.empty((len(paths), image_size, image_size, 1), np.float32)
+    for i, p in enumerate(paths):
+        if status[i] == native.PNG:
+            try:
+                out[i] = _scaled(_to_gray(decode_png(p.read_bytes())), image_size)
+            except DECODE_ERRORS as e:
+                out[i] = _zero_image(p, image_size, e)
+        elif status[i] == native.OK:
+            out[i] = _scaled(grays[i], image_size)
+        else:
+            err = native.error(int(status[i]), msgs[i], str(p))
+            if isinstance(err, NotImplementedError):
+                raise err
+            out[i] = _zero_image(p, image_size, err)
+    return out
 
 
 class SignatureDataset:
@@ -89,7 +123,7 @@ class SignatureDataset:
         if max_images is not None:
             self.paths = self.paths[:max_images]
         if not self.paths:
-            raise ValueError(f"no PNG images found under {data_dir}")
+            raise ValueError(f"no images found under {data_dir}")
         self.images = self._load(use_cache)
 
     def writer_labels(self):
@@ -117,7 +151,7 @@ class SignatureDataset:
             arr = np.load(cache)
             if arr.shape[0] == len(self.paths):
                 return arr
-        arr = np.stack([decode_image(p, self.image_size) for p in self.paths])
+        arr = decode_images(self.paths, self.image_size)
         if use_cache:
             try:
                 np.save(cache, arr)

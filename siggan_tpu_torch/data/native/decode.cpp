@@ -1,0 +1,1372 @@
+// Host image decoders of the port: JPEG, BMP and TIFF to 8-bit grey, as
+// PIL's Image.open(path).convert("L") gives them, with no imaging library.
+//
+// JPEG: sequential DCT, 8-bit, Huffman-coded (SOF0/SOF1), one or three
+// components, any whole-number sampling, restart intervals, the default
+// Huffman tables when a file carries none. The arithmetic is libjpeg's
+// (libjpeg-turbo, which PIL links): the "islow" integer IDCT of jidctint.c,
+// its range limit, "fancy" chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
+// with the neighbouring rows of the next and previous iMCU rows, box
+// replication for other factors), the YCbCr->RGB tables of jdcolor.c and
+// libjpeg's colour-space defaults (JFIF, then Adobe's transform, then the
+// component ids). Then PIL's L = (19595 R + 38470 G + 7471 B + 2^15) >> 16.
+//
+// BMP: as PIL's BmpImagePlugin reads it (1/4/8-bit palettes, 16-bit 555 and
+// 565, 24-bit, 32-bit, BI_BITFIELDS, RLE4/RLE8 with PIL's own RLE rules,
+// bottom-up and top-down rows).
+//
+// TIFF: the first page, strips or tiles, either byte order, no compression,
+// PackBits or LZW (predictor 1 or 2); WhiteIsZero/BlackIsZero at 1, 2, 4, 8
+// bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255), RGB/RGBA
+// at 8 and 16 bits (PIL keeps the high byte), grey+alpha, palettes.
+//
+// Every entry returns a status: 0 ok, 1 corrupt (truncated or malformed
+// data), 2 unsupported (a valid file of a kind not read here), 3 the file
+// could not be read, 4 a PNG file (decoded by the Python side).
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <new>
+#include <stdexcept>
+#include <string>
+#include <thread>
+#include <vector>
+
+namespace {
+
+enum Status { kOk = 0, kCorrupt = 1, kUnsupported = 2, kUnreadable = 3, kPng = 4 };
+
+struct DecodeError {
+  int status;
+  std::string msg;
+};
+
+[[noreturn]] void corrupt(const std::string& m) { throw DecodeError{kCorrupt, m}; }
+[[noreturn]] void unsupported(const std::string& m) { throw DecodeError{kUnsupported, m}; }
+
+struct Gray {
+  int w = 0, h = 0;
+  std::vector<uint8_t> px;
+};
+
+inline uint8_t luma(int r, int g, int b) {
+  return (uint8_t)((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16);
+}
+
+inline void check_size(int64_t w, int64_t h) {
+  if (w <= 0 || h <= 0) corrupt("image has no pixels");
+  if (w > 65535 || h > 65535 || w * h > (int64_t)1 << 30) unsupported("image too large");
+}
+
+// ------------------------------------------------------------------ JPEG
+
+const int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};  // overrun guard
+
+struct Huff {
+  bool defined = false;
+  uint8_t bits[17] = {0};
+  uint8_t vals[256] = {0};
+  int maxcode[18];
+  int valoffset[18];
+  uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 = longer code
+
+  void build(bool dc) {
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) count += bits[l];
+    if (count > 256) corrupt("bad Huffman table");
+    if (dc)
+      for (int i = 0; i < count; ++i)
+        if (vals[i] > 15) corrupt("bad Huffman table");
+    int code = 0, k = 0;
+    std::fill(look, look + 512, 0);
+    for (int l = 1; l <= 16; ++l) {
+      valoffset[l] = k - code;
+      for (int i = 0; i < bits[l]; ++i, ++k, ++code) {
+        if (l <= 9) {
+          int shift = 9 - l;
+          for (int j = 0; j < (1 << shift); ++j)
+            look[(code << shift) | j] = (uint16_t)((l << 8) | vals[k]);
+        }
+      }
+      maxcode[l] = bits[l] ? code - 1 : -1;
+      if (code > (1 << l)) corrupt("bad Huffman table");
+      code <<= 1;
+    }
+    maxcode[17] = 0x7FFFFFFF;
+    defined = true;
+  }
+};
+
+// The default tables of the JPEG standard (K.3), which libjpeg installs for
+// a slot a scan uses when the file defined none (motion-JPEG frames).
+const uint8_t kDcBits[2][17] = {{0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcBits[2][17] = {{0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+                                {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+     0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+     0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+     0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+     0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+     0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+     0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+     0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+     0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+     0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+     0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+     0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+     0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+     0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+     0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+     0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+     0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+void std_table(Huff& t, bool dc, int id) {
+  memcpy(t.bits, dc ? kDcBits[id] : kAcBits[id], 17);
+  memcpy(t.vals, dc ? kDcVals : kAcVals[id], dc ? 12 : 162);
+  t.build(dc);
+}
+
+// Entropy-coded data, MSB first, with FF00 unstuffing. At a marker it
+// supplies zero bits (as libjpeg does); running off the end of the file is
+// a truncated file.
+struct BitReader {
+  const uint8_t* d;
+  size_t n, pos;
+  uint64_t acc = 0;
+  int cnt = 0;
+  bool at_marker = false;
+
+  void fill() {
+    while (cnt <= 56) {
+      int byte = 0;
+      if (!at_marker) {
+        if (pos >= n) corrupt("JPEG data ends early");
+        byte = d[pos];
+        if (byte == 0xFF) {
+          size_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) ++q;
+          if (q >= n) corrupt("JPEG data ends early");
+          if (d[q] == 0) {
+            pos = q + 1;
+          } else {
+            pos = q - 1;  // the marker's last FF
+            at_marker = true;
+            byte = 0;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      acc |= (uint64_t)byte << (56 - cnt);
+      cnt += 8;
+    }
+  }
+  inline void need(int k) {
+    if (cnt < k) fill();
+  }
+  inline int get(int k) {  // 1 <= k <= 16
+    need(k);
+    int v = (int)(acc >> (64 - k));
+    acc <<= k;
+    cnt -= k;
+    return v;
+  }
+  inline int decode(const Huff& h) {
+    need(16);
+    uint16_t e = h.look[acc >> 55];
+    if (e) {
+      int l = e >> 8;
+      acc <<= l;
+      cnt -= l;
+      return e & 0xFF;
+    }
+    for (int l = 10; l <= 16; ++l) {
+      int code = (int)(acc >> (64 - l));
+      if (code <= h.maxcode[l]) {
+        acc <<= l;
+        cnt -= l;
+        return h.vals[(h.valoffset[l] + code) & 0xFF];
+      }
+    }
+    corrupt("bad Huffman code in JPEG data");
+  }
+  void reset() {
+    acc = 0;
+    cnt = 0;
+    at_marker = false;
+  }
+};
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+// jidctint.c, jpeg_idct_islow: 8x8 dequantized coefficients -> samples.
+const int kConstBits = 13, kPass1Bits = 2;
+const int32_t F0_298631336 = 2446, F0_390180644 = 3196, F0_541196100 = 4433,
+              F0_765366865 = 6270, F0_899976223 = 7373, F1_175875602 = 9633,
+              F1_501321110 = 12299, F1_847759065 = 15137, F1_961570560 = 16069,
+              F2_053119869 = 16819, F2_562915447 = 20995, F3_072711026 = 25172;
+
+inline int32_t descale(int32_t x, int n) { return (x + (1 << (n - 1))) >> n; }
+
+inline uint8_t idct_limit(int32_t v) {
+  // range_limit[v & RANGE_MASK] of libjpeg's post-IDCT table (centre 128).
+  int x = v & 1023;
+  if (x < 128) return (uint8_t)(x + 128);
+  if (x < 512) return 255;
+  if (x < 896) return 0;
+  return (uint8_t)(x - 896);
+}
+
+void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
+  int32_t ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* in = coef + c;
+    const int16_t* qt = q + c;
+    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
+      int32_t dc = (int32_t)(in[0] * qt[0]) << kPass1Bits;
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+      continue;
+    }
+    int32_t z2 = in[16] * qt[16], z3 = in[48] * qt[48];
+    int32_t z1 = (z2 + z3) * F0_541196100;
+    int32_t tmp2 = z1 + z3 * -F1_847759065;
+    int32_t tmp3 = z1 + z2 * F0_765366865;
+    z2 = in[0] * qt[0];
+    z3 = in[32] * qt[32];
+    int32_t tmp0 = (z2 + z3) * (1 << kConstBits);
+    int32_t tmp1 = (z2 - z3) * (1 << kConstBits);
+    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = in[56] * qt[56];
+    tmp1 = in[40] * qt[40];
+    tmp2 = in[24] * qt[24];
+    tmp3 = in[8] * qt[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int32_t z4 = tmp1 + tmp3;
+    int32_t z5 = (z3 + z4) * F1_175875602;
+    tmp0 *= F0_298631336;
+    tmp1 *= F2_053119869;
+    tmp2 *= F3_072711026;
+    tmp3 *= F1_501321110;
+    z1 *= -F0_899976223;
+    z2 *= -F2_562915447;
+    z3 *= -F1_961570560;
+    z4 *= -F0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits - kPass1Bits;
+    ws[0 * 8 + c] = descale(tmp10 + tmp3, sh);
+    ws[7 * 8 + c] = descale(tmp10 - tmp3, sh);
+    ws[1 * 8 + c] = descale(tmp11 + tmp2, sh);
+    ws[6 * 8 + c] = descale(tmp11 - tmp2, sh);
+    ws[2 * 8 + c] = descale(tmp12 + tmp1, sh);
+    ws[5 * 8 + c] = descale(tmp12 - tmp1, sh);
+    ws[3 * 8 + c] = descale(tmp13 + tmp0, sh);
+    ws[4 * 8 + c] = descale(tmp13 - tmp0, sh);
+  }
+  const int sh = kConstBits + kPass1Bits + 3;
+  for (int r = 0; r < 8; ++r) {
+    const int32_t* w = ws + r * 8;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      uint8_t v = idct_limit(descale(w[0], kPass1Bits + 3));
+      for (int i = 0; i < 8; ++i) o[i] = v;
+      continue;
+    }
+    int32_t z2 = w[2], z3 = w[6];
+    int32_t z1 = (z2 + z3) * F0_541196100;
+    int32_t tmp2 = z1 + z3 * -F1_847759065;
+    int32_t tmp3 = z1 + z2 * F0_765366865;
+    int32_t tmp0 = (w[0] + w[4]) * (1 << kConstBits);
+    int32_t tmp1 = (w[0] - w[4]) * (1 << kConstBits);
+    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int32_t z4 = tmp1 + tmp3;
+    int32_t z5 = (z3 + z4) * F1_175875602;
+    tmp0 *= F0_298631336;
+    tmp1 *= F2_053119869;
+    tmp2 *= F3_072711026;
+    tmp3 *= F1_501321110;
+    z1 *= -F0_899976223;
+    z2 *= -F2_562915447;
+    z3 *= -F1_961570560;
+    z4 *= -F0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    o[0] = idct_limit(descale(tmp10 + tmp3, sh));
+    o[7] = idct_limit(descale(tmp10 - tmp3, sh));
+    o[1] = idct_limit(descale(tmp11 + tmp2, sh));
+    o[6] = idct_limit(descale(tmp11 - tmp2, sh));
+    o[2] = idct_limit(descale(tmp12 + tmp1, sh));
+    o[5] = idct_limit(descale(tmp12 - tmp1, sh));
+    o[3] = idct_limit(descale(tmp13 + tmp0, sh));
+    o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+  }
+}
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int td = 0, ta = 0;  // the current scan's tables
+  int dw = 0, dh = 0;  // downsampled size (libjpeg's downsampled_width/height)
+  int pw = 0, ph = 0;  // plane size, whole MCUs
+  std::vector<uint8_t> plane;
+  int dc_pred = 0;
+};
+
+inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// One component plane upsampled to the image size (jdsample.c).
+std::vector<uint8_t> upsample(const Component& c, int fx, int fy, int W, int H) {
+  std::vector<uint8_t> out((size_t)W * H);
+  const uint8_t* p = c.plane.data();
+  const int pw = c.pw, dw = c.dw, dh = c.dh;
+  auto row = [&](int i) { return p + (size_t)std::min(std::max(i, 0), dh - 1) * pw; };
+  if (fx == 1 && fy == 1) {
+    for (int y = 0; y < H; ++y) memcpy(&out[(size_t)y * W], p + (size_t)y * pw, W);
+  } else if (fx == 2 && fy == 1 && dw > 2) {
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* in = p + (size_t)y * pw;
+      uint8_t* o = &out[(size_t)y * W];
+      for (int x = 0; x < W; ++x) {
+        int c0 = x >> 1, v = 3 * in[c0];
+        o[x] = (x & 1) ? (uint8_t)((v + in[std::min(c0 + 1, dw - 1)] + 2) >> 2)
+                       : (uint8_t)((v + in[std::max(c0 - 1, 0)] + 1) >> 2);
+      }
+    }
+  } else if (fx == 1 && fy == 2) {
+    for (int y = 0; y < H; ++y) {
+      int i = y >> 1;
+      const uint8_t* near = row(i);
+      const uint8_t* far = row((y & 1) ? i + 1 : i - 1);
+      int bias = (y & 1) ? 2 : 1;
+      uint8_t* o = &out[(size_t)y * W];
+      for (int x = 0; x < W; ++x) o[x] = (uint8_t)((3 * near[x] + far[x] + bias) >> 2);
+    }
+  } else if (fx == 2 && fy == 2 && dw > 2) {
+    std::vector<int> cs(dw);
+    for (int y = 0; y < H; ++y) {
+      int i = y >> 1;
+      const uint8_t* near = row(i);
+      const uint8_t* far = row((y & 1) ? i + 1 : i - 1);
+      for (int x = 0; x < dw; ++x) cs[x] = 3 * near[x] + far[x];
+      uint8_t* o = &out[(size_t)y * W];
+      for (int x = 0; x < W; ++x) {
+        int c0 = x >> 1, v = 3 * cs[c0];
+        o[x] = (x & 1) ? (uint8_t)((v + cs[std::min(c0 + 1, dw - 1)] + 7) >> 4)
+                       : (uint8_t)((v + cs[std::max(c0 - 1, 0)] + 8) >> 4);
+      }
+    }
+  } else {
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* in = p + (size_t)(y / fy) * pw;
+      uint8_t* o = &out[(size_t)y * W];
+      for (int x = 0; x < W; ++x) o[x] = in[x / fx];
+    }
+  }
+  return out;
+}
+
+struct Jpeg {
+  const uint8_t* d;
+  size_t n, pos = 2;
+  int16_t qt[4][64];
+  bool qdef[4] = {false, false, false, false};
+  Huff dc[4], ac[4];
+  int W = 0, H = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  Component comp[3];
+  bool frame = false, jfif = false, adobe = false;
+  int adobe_transform = -1, restart = 0, scans = 0;
+
+  int u8() {
+    if (pos >= n) corrupt("JPEG file ends early");
+    return d[pos++];
+  }
+  int u16() {
+    int a = u8();
+    return (a << 8) | u8();
+  }
+
+  int next_marker() {
+    // Skip to the next FF xx (xx neither 00 nor FF), as libjpeg's next_marker.
+    for (;;) {
+      int c = u8();
+      if (c != 0xFF) continue;
+      do c = u8();
+      while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+
+  void sof() {
+    if (frame) corrupt("JPEG has two frames");
+    int len = u16();
+    size_t end = pos + len - 2;
+    if (len < 8 || end > n) corrupt("bad JPEG frame header");
+    int p = u8();
+    H = u16();
+    W = u16();
+    ncomp = u8();
+    if (p != 8) unsupported(std::to_string(p) + "-bit JPEG");
+    if (H == 0) unsupported("JPEG with a DNL marker (height 0)");
+    if (ncomp == 4) unsupported("CMYK/YCCK JPEG (4 components)");
+    if (ncomp != 1 && ncomp != 3) unsupported(std::to_string(ncomp) + "-component JPEG");
+    if ((size_t)len != 8 + 3 * (size_t)ncomp) corrupt("bad JPEG frame header");
+    check_size(W, H);
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.id = u8();
+      int hv = u8();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) corrupt("bad JPEG sampling");
+      hmax = std::max(hmax, c.h);
+      vmax = std::max(vmax, c.v);
+    }
+    mcux = (W + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.dw = (int)(((int64_t)W * c.h + hmax - 1) / hmax);
+      c.dh = (int)(((int64_t)H * c.v + vmax - 1) / vmax);
+      c.pw = mcux * c.h * 8;
+      c.ph = mcuy * c.v * 8;
+      c.plane.assign((size_t)c.pw * c.ph, 0);
+    }
+    frame = true;
+    pos = end;
+  }
+
+  void dqt() {
+    int len = u16();
+    size_t end = pos + len - 2;
+    if (len < 2 || end > n) corrupt("bad JPEG quantization table");
+    while (pos < end) {
+      int pq = u8(), t = pq & 15;
+      pq >>= 4;
+      if (t > 3 || pq > 1) corrupt("bad JPEG quantization table");
+      for (int i = 0; i < 64; ++i) qt[t][kNatural[i]] = (int16_t)(pq ? u16() : u8());
+      qdef[t] = true;
+    }
+    if (pos != end) corrupt("bad JPEG quantization table");
+  }
+
+  void dht() {
+    int len = u16();
+    size_t end = pos + len - 2;
+    if (len < 2 || end > n) corrupt("bad JPEG Huffman table");
+    while (pos < end) {
+      int tc = u8(), th = tc & 15;
+      tc >>= 4;
+      if (tc > 1 || th > 3) corrupt("bad JPEG Huffman table");
+      Huff& t = tc ? ac[th] : dc[th];
+      t.bits[0] = 0;
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += (t.bits[l] = (uint8_t)u8());
+      if (count > 256 || pos + count > end) corrupt("bad JPEG Huffman table");
+      for (int i = 0; i < count; ++i) t.vals[i] = (uint8_t)u8();
+      t.build(tc == 0);
+    }
+    if (pos != end) corrupt("bad JPEG Huffman table");
+  }
+
+  void app(int m) {
+    int len = u16();
+    size_t end = pos + len - 2;
+    if (len < 2 || end > n) corrupt("bad JPEG marker segment");
+    const uint8_t* a = d + pos;
+    size_t l = len - 2;
+    if (m == 0xE0 && l >= 14 && !memcmp(a, "JFIF\0", 5)) jfif = true;
+    if (m == 0xEE && l >= 12 && !memcmp(a, "Adobe", 5)) {
+      adobe = true;
+      adobe_transform = a[11];
+    }
+    pos = end;
+  }
+
+  void block(BitReader& br, Component& c, int brow, int bcol) {
+    int16_t coef[64] = {0};
+    int s = br.decode(dc[c.td]);
+    int diff = s ? extend(br.get(s), s) : 0;
+    c.dc_pred += diff;
+    coef[0] = (int16_t)c.dc_pred;
+    const Huff& a = ac[c.ta];
+    for (int k = 1; k < 64; ++k) {
+      int rs = br.decode(a), r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        coef[kNatural[k]] = (int16_t)extend(br.get(s), s);
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+    idct_islow(coef, qt[c.tq], &c.plane[(size_t)brow * 8 * c.pw + (size_t)bcol * 8], c.pw);
+  }
+
+  void sos() {
+    if (!frame) corrupt("JPEG scan before its frame");
+    int len = u16();
+    int ns = u8();
+    if (ns < 1 || ns > ncomp || len != 6 + 2 * ns) corrupt("bad JPEG scan header");
+    Component* sc[3];
+    for (int i = 0; i < ns; ++i) {
+      int id = u8(), t = u8();
+      Component* c = nullptr;
+      for (int j = 0; j < ncomp; ++j)
+        if (comp[j].id == id) c = &comp[j];
+      if (!c) corrupt("JPEG scan names an unknown component");
+      c->td = t >> 4;
+      c->ta = t & 15;
+      if (c->td > 3 || c->ta > 3) corrupt("bad JPEG scan header");
+      if (!dc[c->td].defined) {
+        if (c->td > 1) corrupt("JPEG scan uses an undefined Huffman table");
+        std_table(dc[c->td], true, c->td);
+      }
+      if (!ac[c->ta].defined) {
+        if (c->ta > 1) corrupt("JPEG scan uses an undefined Huffman table");
+        std_table(ac[c->ta], false, c->ta);
+      }
+      if (!qdef[c->tq]) corrupt("JPEG component uses an undefined quantization table");
+      c->dc_pred = 0;
+      sc[i] = c;
+    }
+    int ss = u8(), se = u8(), ahl = u8();
+    if (ss != 0 || se != 63 || ahl != 0) corrupt("bad spectral selection in a sequential JPEG");
+    ++scans;
+
+    BitReader br{d, n, pos};
+    int rows, cols;
+    if (ns == 1) {
+      cols = (sc[0]->dw + 7) / 8;
+      rows = (sc[0]->dh + 7) / 8;
+    } else {
+      cols = mcux;
+      rows = mcuy;
+    }
+    int64_t done = 0;
+    int rst = 0;
+    for (int my = 0; my < rows; ++my) {
+      for (int mx = 0; mx < cols; ++mx) {
+        if (restart && done > 0 && done % restart == 0) {
+          // Expect RSTn, then restart the bit stream and the DC predictors.
+          br.reset();
+          pos = br.pos;
+          int m = next_marker();
+          if (m != 0xD0 + rst) corrupt("JPEG restart marker missing");
+          rst = (rst + 1) & 7;
+          br.pos = pos;
+          for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+        }
+        if (ns == 1) {
+          block(br, *sc[0], my, mx);
+        } else {
+          for (int i = 0; i < ns; ++i)
+            for (int v = 0; v < sc[i]->v; ++v)
+              for (int h = 0; h < sc[i]->h; ++h)
+                block(br, *sc[i], my * sc[i]->v + v, mx * sc[i]->h + h);
+        }
+        ++done;
+      }
+    }
+    pos = br.pos;
+  }
+
+  Gray run() {
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xD9) break;  // EOI
+      if (m == 0xC0 || m == 0xC1) {
+        sof();
+      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
+        unsupported("progressive JPEG");
+      } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
+        unsupported("lossless JPEG");
+      } else if (m == 0xC5) {
+        unsupported("hierarchical JPEG");
+      } else if (m == 0xC9 || m == 0xCD || m == 0xCC) {
+        unsupported("arithmetic-coded JPEG");
+      } else if (m == 0xC4) {
+        dht();
+      } else if (m == 0xDB) {
+        dqt();
+      } else if (m == 0xDD) {
+        if (u16() != 4) corrupt("bad JPEG restart interval");
+        restart = u16();
+      } else if (m == 0xDA) {
+        sos();
+      } else if (m == 0xDC) {
+        unsupported("JPEG with a DNL marker");
+      } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || (m >= 0xF0 && m <= 0xFD)) {
+        app(m);
+      } else if (m >= 0xD0 && m <= 0xD7) {
+        continue;  // a stray restart marker
+      } else if (m == 0x01) {
+        continue;  // TEM
+      } else {
+        corrupt("unknown JPEG marker");
+      }
+    }
+    if (!frame || !scans) corrupt("JPEG has no image data");
+    Gray g;
+    g.w = W;
+    g.h = H;
+    g.px.resize((size_t)W * H);
+    if (ncomp == 1) {
+      for (int y = 0; y < H; ++y) memcpy(&g.px[(size_t)y * W], &comp[0].plane[(size_t)y * comp[0].pw], W);
+      return g;
+    }
+    std::vector<uint8_t> full[3];
+    for (int i = 0; i < 3; ++i) {
+      const Component& c = comp[i];
+      if (hmax % c.h || vmax % c.v) unsupported("JPEG with fractional chroma sampling");
+      full[i] = upsample(c, hmax / c.h, vmax / c.v, W, H);
+    }
+    bool rgb;
+    if (jfif) {
+      rgb = false;
+    } else if (adobe) {
+      rgb = adobe_transform == 0;
+    } else {
+      rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    }
+    if (rgb) {
+      for (size_t i = 0; i < g.px.size(); ++i) g.px[i] = luma(full[0][i], full[1][i], full[2][i]);
+      return g;
+    }
+    // jdcolor.c build_ycc_rgb_table: SCALEBITS 16.
+    int cr_r[256], cb_b[256];
+    int32_t cr_g[256], cb_g[256];
+    const int32_t half = 1 << 15;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      int32_t x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + half) >> 16);
+      cb_b[i] = (int)((fix(1.77200) * x + half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+    for (size_t i = 0; i < g.px.size(); ++i) {
+      int y = full[0][i], cb = full[1][i], cr = full[2][i];
+      int r = clamp255(y + cr_r[cr]);
+      int gg = clamp255(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+      int b = clamp255(y + cb_b[cb]);
+      g.px[i] = luma(r, gg, b);
+    }
+    return g;
+  }
+};
+
+Gray decode_jpeg(const uint8_t* d, size_t n) {
+  Jpeg j;
+  j.d = d;
+  j.n = n;
+  return j.run();
+}
+
+// ------------------------------------------------------------------- BMP
+
+inline uint32_t le16(const uint8_t* p) { return p[0] | (p[1] << 8); }
+inline uint32_t le32(const uint8_t* p) {
+  return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+}
+
+// PIL's P -> L: entries past the file's palette are black.
+struct Palette {
+  uint8_t grey[256] = {0};
+};
+
+Gray decode_bmp(const uint8_t* d, size_t n) {
+  if (n < 18) corrupt("BMP file ends early");
+  uint32_t offset = le32(d + 10);
+  uint32_t hsize = le32(d + 14);
+  if (14 + (size_t)hsize > n) corrupt("BMP header ends early");
+  const uint8_t* hd = d + 18;  // the header after its size field
+  int64_t w, h;
+  int bits, compression, pal_pad;
+  bool top_down = false;
+  uint32_t colors = 0;
+  uint32_t masks[4] = {0, 0, 0, 0};
+  if (hsize == 12) {
+    w = le16(hd);
+    h = le16(hd + 2);
+    bits = le16(hd + 6);
+    compression = 0;
+    pal_pad = 3;
+  } else if (hsize == 40 || hsize == 52 || hsize == 56 || hsize == 64 || hsize == 108 ||
+             hsize == 124) {
+    top_down = hd[7] == 0xFF;
+    w = (int32_t)le32(hd);
+    uint32_t hh = le32(hd + 4);
+    h = top_down ? (int64_t)((uint64_t)1 << 32) - hh : hh;
+    bits = le16(hd + 10);
+    compression = (int)le32(hd + 12);
+    colors = le32(hd + 28);
+    pal_pad = 4;
+    if (compression == 3) {
+      size_t have = hsize - 4;
+      if (have >= 48) {
+        int k = have >= 52 ? 4 : 3;
+        for (int i = 0; i < k; ++i) masks[i] = le32(hd + 36 + 4 * i);
+      } else {
+        if (14 + (size_t)hsize + 12 > n) corrupt("BMP header ends early");
+        for (int i = 0; i < 3; ++i) masks[i] = le32(d + 14 + hsize + 4 * i);
+      }
+    }
+  } else {
+    unsupported("BMP header of " + std::to_string(hsize) + " bytes");
+  }
+  if (colors == 0) colors = 1u << std::min(bits, 31);
+  if (offset == 14 + hsize && bits <= 8) offset += 4 * colors;
+  if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
+    unsupported(std::to_string(bits) + "-bit BMP");
+  check_size(w, h);
+  const int W = (int)w, H = (int)h;
+
+  // Channel layout of 16/24/32-bit pixels: (byte or field) positions of R, G, B.
+  enum { kRaw, kRle } decoder = kRaw;
+  int layout = 0;  // 15: 555, 16: 565, 24: BGR, 32: one of the 32-bit byte orders
+  int order[3] = {2, 1, 0};  // byte index of R, G, B within a 32-bit or 24-bit pixel
+  if (compression == 3) {
+    if (bits == 32) {
+      struct M { uint32_t m[4]; int r, g, b; } known[] = {
+          {{0xFF0000, 0xFF00, 0xFF, 0x0}, 2, 1, 0},        // BGRX
+          {{0xFF000000, 0xFF0000, 0xFF00, 0x0}, 3, 2, 1},  // XBGR
+          {{0xFF000000, 0xFF00, 0xFF, 0x0}, 3, 1, 0},      // BGXR
+          {{0xFF000000, 0xFF0000, 0xFF00, 0xFF}, 3, 2, 1}, // ABGR
+          {{0xFF, 0xFF00, 0xFF0000, 0xFF000000}, 0, 1, 2}, // RGBA
+          {{0xFF0000, 0xFF00, 0xFF, 0xFF000000}, 2, 1, 0}, // BGRA
+          {{0xFF000000, 0xFF00, 0xFF, 0xFF0000}, 3, 1, 0}, // BGAR
+          {{0x0, 0x0, 0x0, 0x0}, 2, 1, 0}};                // BGRA
+      bool found = false;
+      for (const M& k : known)
+        if (!memcmp(k.m, masks, sizeof masks)) {
+          order[0] = k.r;
+          order[1] = k.g;
+          order[2] = k.b;
+          found = true;
+          break;
+        }
+      if (!found) unsupported("BMP bitfields layout");
+      layout = 32;
+    } else if (bits == 24 && masks[0] == 0xFF0000 && masks[1] == 0xFF00 && masks[2] == 0xFF) {
+      layout = 24;
+    } else if (bits == 16 && masks[0] == 0xF800 && masks[1] == 0x7E0 && masks[2] == 0x1F) {
+      layout = 16;
+    } else if (bits == 16 && masks[0] == 0x7C00 && masks[1] == 0x3E0 && masks[2] == 0x1F) {
+      layout = 15;
+    } else {
+      unsupported("BMP bitfields layout");
+    }
+  } else if (compression == 0) {
+    layout = bits == 16 ? 15 : bits;
+  } else if (compression == 1 || compression == 2) {
+    decoder = kRle;
+  } else {
+    unsupported("BMP compression " + std::to_string(compression));
+  }
+
+  Palette pal;
+  if (bits <= 8) {
+    if (colors == 0 || colors > 65536) unsupported("BMP palette size");
+    size_t pstart = 14 + hsize;
+    size_t avail = pstart < n ? std::min((size_t)pal_pad * colors, n - pstart) : 0;
+    size_t entries = std::min<size_t>(avail / pal_pad, 256);
+    // PIL's grayscale test: a palette of (v, v, v) for v = 0, 1, ... (or 0
+    // and 255 for two colours) makes the image "L" (or "1"), whose pixels
+    // are the indices themselves, past the palette too.
+    bool identity = entries == colors;
+    for (size_t i = 0; i < entries; ++i) {
+      const uint8_t* e = d + pstart + i * pal_pad;
+      int v = colors == 2 ? (i ? 255 : 0) : (int)i;
+      identity = identity && e[0] == v && e[1] == v && e[2] == v;
+      pal.grey[i] = luma(e[2], e[1], e[0]);
+    }
+    if (identity)
+      for (int i = 0; i < 256; ++i) pal.grey[i] = colors == 2 ? (i ? 255 : 0) : (uint8_t)i;
+  }
+
+  Gray g;
+  g.w = W;
+  g.h = H;
+  g.px.resize((size_t)W * H);
+  if (offset > n) corrupt("BMP pixel data missing");
+  if (decoder == kRle) {
+    if ((compression == 1 && bits != 8) || (compression == 2 && bits != 4))
+      corrupt("BMP RLE with the wrong bit depth");
+    // PIL's BmpRleDecoder, rule for rule (file positions count from the file's start).
+    bool rle4 = compression == 2;
+    std::vector<uint8_t> data;
+    size_t dest = (size_t)W * H, p = offset;
+    size_t x = 0;
+    auto rd = [&](size_t k, std::vector<uint8_t>& out) {
+      size_t got = p < n ? std::min(k, n - p) : 0;
+      out.assign(d + p, d + p + got);
+      p += got;
+      return got;
+    };
+    std::vector<uint8_t> tmp;
+    while (data.size() < dest) {
+      if (p + 2 > n) break;
+      int num = d[p], byte = d[p + 1];
+      p += 2;
+      if (num) {
+        if (x + num > (size_t)W) num = (int)std::max<int64_t>(0, (int64_t)W - (int64_t)x);
+        if (rle4) {
+          for (int i = 0; i < num; ++i) data.push_back((uint8_t)(i % 2 == 0 ? byte >> 4 : byte & 15));
+        } else {
+          data.insert(data.end(), num, (uint8_t)byte);
+        }
+        x += num;
+      } else if (byte == 0) {
+        while (data.size() % W) data.push_back(0);
+        x = 0;
+      } else if (byte == 1) {
+        break;
+      } else if (byte == 2) {
+        if (rd(2, tmp) < 2) break;
+        if (rd(2, tmp) < 2) corrupt("BMP RLE data ends early");
+        size_t right = tmp[0], up = tmp[1];
+        data.insert(data.end(), right + up * W, 0);
+        x = data.size() % W;
+      } else {
+        size_t count = rle4 ? byte / 2 : byte;
+        size_t got = rd(count, tmp);
+        for (uint8_t b : tmp) {
+          if (rle4) {
+            data.push_back(b >> 4);
+            data.push_back(b & 15);
+          } else {
+            data.push_back(b);
+          }
+        }
+        if (got < count) break;
+        x += byte;
+        if (p % 2) ++p;
+      }
+    }
+    if (data.size() < dest) corrupt("BMP RLE data ends early");
+    for (int y = 0; y < H; ++y) {
+      int src = top_down ? y : H - 1 - y;
+      for (int xx = 0; xx < W; ++xx) g.px[(size_t)src * W + xx] = pal.grey[data[(size_t)y * W + xx]];
+    }
+    return g;
+  }
+  size_t stride = (((size_t)W * bits + 31) >> 3) & ~(size_t)3;
+  if (offset + stride * H > n) corrupt("BMP pixel data ends early");
+  for (int y = 0; y < H; ++y) {
+    const uint8_t* r = d + offset + stride * (top_down ? y : H - 1 - y);
+    uint8_t* o = &g.px[(size_t)y * W];
+    if (bits <= 8) {
+      int per = 8 / bits, mask = (1 << bits) - 1;
+      for (int x = 0; x < W; ++x) {
+        int idx = bits == 8 ? r[x] : (r[x / per] >> (8 - bits * (x % per + 1))) & mask;
+        o[x] = pal.grey[idx];
+      }
+    } else if (layout == 15 || layout == 16) {
+      for (int x = 0; x < W; ++x) {
+        int v = r[2 * x] | (r[2 * x + 1] << 8);
+        int R, G, B;
+        if (layout == 15) {
+          R = ((v >> 10) & 31) * 255 / 31;
+          G = ((v >> 5) & 31) * 255 / 31;
+          B = (v & 31) * 255 / 31;
+        } else {
+          R = ((v >> 11) & 31) * 255 / 31;
+          G = ((v >> 5) & 63) * 255 / 63;
+          B = (v & 31) * 255 / 31;
+        }
+        o[x] = luma(R, G, B);
+      }
+    } else {
+      int bpp = bits / 8;
+      for (int x = 0; x < W; ++x) {
+        const uint8_t* q = r + (size_t)bpp * x;
+        o[x] = luma(q[order[0]], q[order[1]], q[order[2]]);
+      }
+    }
+  }
+  return g;
+}
+
+// ------------------------------------------------------------------ TIFF
+
+struct Tiff {
+  const uint8_t* d;
+  size_t n;
+  bool be = false;
+
+  uint32_t r16(size_t p) const {
+    if (p + 2 > n) corrupt("TIFF file ends early");
+    return be ? (d[p] << 8) | d[p + 1] : d[p] | (d[p + 1] << 8);
+  }
+  uint32_t r32(size_t p) const {
+    if (p + 4 > n) corrupt("TIFF file ends early");
+    return be ? ((uint32_t)d[p] << 24) | ((uint32_t)d[p + 1] << 16) | ((uint32_t)d[p + 2] << 8) | d[p + 3]
+              : (uint32_t)d[p] | ((uint32_t)d[p + 1] << 8) | ((uint32_t)d[p + 2] << 16) |
+                    ((uint32_t)d[p + 3] << 24);
+  }
+
+  struct Tag {
+    bool present = false;
+    std::vector<uint32_t> v;
+  };
+
+  Tag tags[8] = {};
+  // Values of an IFD entry as unsigned integers (BYTE, SHORT, LONG and their signed forms).
+  std::vector<uint32_t> values(size_t e) const {
+    uint32_t type = r16(e + 2), count = r32(e + 4);
+    int size = (type == 1 || type == 2 || type == 6 || type == 7) ? 1
+               : (type == 3 || type == 8)                       ? 2
+               : (type == 4 || type == 9 || type == 11)         ? 4
+                                                                : 8;
+    if (count > (1u << 28)) corrupt("bad TIFF tag");
+    size_t total = (size_t)size * count;
+    size_t at = total <= 4 ? e + 8 : r32(e + 8);
+    if (at + total > n) corrupt("TIFF tag data outside the file");
+    std::vector<uint32_t> out(count);
+    for (uint32_t i = 0; i < count; ++i) {
+      size_t p = at + (size_t)size * i;
+      out[i] = size == 1 ? d[p] : size == 2 ? r16(p) : r32(p);
+    }
+    return out;
+  }
+};
+
+std::vector<uint8_t> packbits(const uint8_t* s, size_t n, size_t want) {
+  std::vector<uint8_t> out;
+  out.reserve(want);
+  size_t p = 0;
+  while (out.size() < want && p < n) {
+    int c = (int8_t)s[p++];
+    if (c >= 0) {
+      size_t k = (size_t)c + 1;
+      if (p + k > n) corrupt("PackBits data ends early");
+      out.insert(out.end(), s + p, s + p + k);
+      p += k;
+    } else if (c != -128) {
+      if (p >= n) corrupt("PackBits data ends early");
+      out.insert(out.end(), (size_t)(1 - c), s[p++]);
+    }
+  }
+  if (out.size() < want) corrupt("PackBits data ends early");
+  out.resize(want);
+  return out;
+}
+
+std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
+  if (n >= 2 && s[0] == 0 && (s[1] & 1)) unsupported("old-style TIFF LZW");
+  std::vector<uint8_t> out;
+  out.reserve(want);
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  std::vector<uint16_t> length(4096);
+  for (int i = 0; i < 256; ++i) {
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  std::vector<uint8_t> str;
+  size_t bitpos = 0;
+  int nbits = 9, next = 258, old = -1;
+  auto read = [&]() -> int {
+    if (bitpos + nbits > n * 8) return 257;  // end of data: as if EOI
+    int v = 0;
+    for (int i = 0; i < nbits; ++i, ++bitpos) v = (v << 1) | ((s[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
+    return v;
+  };
+  auto emit = [&](int code) {
+    size_t l = length[code];
+    size_t at = out.size();
+    out.resize(at + l);
+    for (int c = code; l > 0; c = prefix[c]) out[at + --l] = suffix[c];
+  };
+  while (out.size() < want) {
+    int code = read();
+    if (code == 257) break;
+    if (code == 256) {
+      nbits = 9;
+      next = 258;
+      code = read();
+      if (code == 257) break;
+      if (code > 255) corrupt("bad TIFF LZW code");
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (old < 0) corrupt("TIFF LZW data does not start with a clear code");
+    if (code < next) {
+      emit(code);
+      if (next < 4096) {
+        prefix[next] = (uint16_t)old;
+        suffix[next] = first[code];
+        first[next] = first[old];
+        length[next] = (uint16_t)(length[old] + 1);
+        ++next;
+      }
+    } else if (code == next && next < 4096) {
+      prefix[next] = (uint16_t)old;
+      suffix[next] = first[old];
+      first[next] = first[old];
+      length[next] = (uint16_t)(length[old] + 1);
+      ++next;
+      emit(code);
+    } else {
+      corrupt("bad TIFF LZW code");
+    }
+    old = code;
+    if (next > (1 << nbits) - 2 && nbits < 12) ++nbits;
+  }
+  if (out.size() < want) corrupt("TIFF LZW data ends early");
+  out.resize(want);
+  return out;
+}
+
+Gray decode_tiff(const uint8_t* d, size_t n) {
+  Tiff t{d, n};
+  if (n < 8) corrupt("TIFF file ends early");
+  t.be = d[0] == 'M';
+  if (t.r16(2) == 43) unsupported("BigTIFF");
+  size_t ifd = t.r32(4);
+  uint32_t count = t.r16(ifd);
+  uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
+           planar = 1, predictor = 1, tw = 0, th = 0;
+  std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1};
+  bool strips = false, tiles = false;
+  for (uint32_t i = 0; i < count; ++i) {
+    size_t e = ifd + 2 + 12 * (size_t)i;
+    uint32_t tag = t.r16(e);
+    switch (tag) {
+      case 256: W = t.values(e).at(0); break;
+      case 257: H = t.values(e).at(0); break;
+      case 258: bps = t.values(e); break;
+      case 259: compression = t.values(e).at(0); break;
+      case 262: photometric = t.values(e).at(0); break;
+      case 266: fill = t.values(e).at(0); break;
+      case 273: offsets = t.values(e); strips = true; break;
+      case 277: spp = t.values(e).at(0); break;
+      case 278: rps = t.values(e).at(0); break;
+      case 279: counts = t.values(e); break;
+      case 284: planar = t.values(e).at(0); break;
+      case 317: predictor = t.values(e).at(0); break;
+      case 320: cmap = t.values(e); break;
+      case 322: tw = t.values(e).at(0); break;
+      case 323: th = t.values(e).at(0); break;
+      case 324: offsets = t.values(e); tiles = true; break;
+      case 325: counts = t.values(e); break;
+      case 338: extra = t.values(e); break;
+      case 339: fmt = t.values(e); break;
+      default: break;
+    }
+  }
+  check_size(W, H);
+  if (compression == 2 || compression == 3 || compression == 4) unsupported("CCITT-compressed TIFF");
+  if (compression == 6 || compression == 7) unsupported("JPEG-in-TIFF");
+  if (compression == 8 || compression == 32946) unsupported("Deflate-compressed TIFF");
+  if (compression != 1 && compression != 5 && compression != 32773)
+    unsupported("TIFF compression " + std::to_string(compression));
+  if (photometric == 5 || photometric == 6 || photometric == 8)
+    unsupported(photometric == 5 ? "CMYK TIFF" : photometric == 6 ? "YCbCr TIFF" : "CIELab TIFF");
+  if (fill != 1) unsupported("TIFF with FillOrder 2");
+  if (spp > 1 && planar == 2) unsupported("planar TIFF");
+  if (spp < 1 || spp > 6) unsupported("TIFF with " + std::to_string(spp) + " samples per pixel");
+  if (bps.size() == 1 && spp > 1) bps.assign(spp, bps[0]);
+  if (bps.size() != spp) corrupt("bad TIFF BitsPerSample");
+  for (uint32_t b : bps)
+    if (b != bps[0]) unsupported("TIFF with mixed sample sizes");
+  const int bits = (int)bps[0];
+  if (fmt.size() == 1 && spp > 1) fmt.assign(spp, fmt[0]);
+  bool signed8 = fmt[0] == 2 && bits == 8 && spp == 1 && photometric == 1;
+  for (uint32_t f : fmt)
+    if (f != 1 && !signed8) unsupported("TIFF sample format " + std::to_string(f));
+  // libtiff applies a predictor only inside the LZW (and Deflate) codec.
+  if (compression == 5 && predictor != 1 && predictor != 2)
+    unsupported("TIFF predictor " + std::to_string(predictor));
+  const bool pred2 = predictor == 2 && compression == 5;
+  if (pred2 && bits != 8 && bits != 16) unsupported("TIFF predictor 2 at this sample size");
+
+  // What the samples mean, in PIL's OPEN_INFO terms.
+  enum { kGrey, kGreyInv, kGrey16, kRgb, kPal, kGreyAlpha } kind;
+  uint32_t nextra = spp - (photometric == 2 ? 3 : 1);
+  if (photometric <= 1 && spp == 1) {
+    if (bits == 16) {
+      if (photometric == 0 && t.be) unsupported("big-endian 16-bit WhiteIsZero TIFF");
+      kind = kGrey16;
+    } else if (bits == 1 || bits == 2 || bits == 4 || bits == 8) {
+      kind = photometric == 0 ? kGreyInv : kGrey;
+    } else {
+      unsupported(std::to_string(bits) + "-bit grey TIFF");
+    }
+  } else if (photometric == 1 && spp == 2 && bits == 8 && extra.size() == 1 && extra[0] == 2) {
+    kind = kGreyAlpha;
+  } else if (photometric == 2 && spp >= 3 && (bits == 8 || (bits == 16 && spp <= 4))) {
+    if (extra.size() > nextra) corrupt("bad TIFF ExtraSamples");
+    for (size_t i = 0; i < extra.size(); ++i) {
+      if (extra[i] == 1) unsupported("TIFF with associated alpha");
+      if (i > 0 ? extra[i] != 0 : extra[i] != 0 && extra[i] != 2 && extra[i] != 999)
+        unsupported("TIFF extra samples");
+    }
+    if (extra.size() < nextra && !(nextra == 1 && extra.empty())) unsupported("TIFF extra samples");
+    kind = kRgb;
+  } else if (photometric == 3 && spp == 1 && (bits == 1 || bits == 2 || bits == 4 || bits == 8)) {
+    if (cmap.size() != 3u << bits) corrupt("bad TIFF colour map");
+    kind = kPal;
+  } else {
+    unsupported("TIFF photometric " + std::to_string(photometric) + " with " + std::to_string(spp) +
+                " samples of " + std::to_string(bits) + " bits");
+  }
+
+  // Chunks: strips (full width) or tiles.
+  uint32_t cw, ch;
+  if (tiles) {
+    if (tw == 0 || th == 0) corrupt("bad TIFF tile size");
+    cw = tw;
+    ch = th;
+  } else if (strips) {
+    cw = W;
+    ch = std::min(rps == 0 ? H : rps, H);
+  } else {
+    corrupt("TIFF has no image data");
+  }
+  const uint32_t across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
+  if (offsets.size() < (size_t)across * down) corrupt("TIFF has too few strips or tiles");
+  if (compression != 1 && counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
+  const size_t rb = ((size_t)cw * spp * bits + 7) / 8;
+
+  // Unpack to one sample array per pixel (spp values each, 16-bit kept whole).
+  std::vector<uint16_t> smp((size_t)W * H * spp);
+  for (uint32_t ty = 0; ty < down; ++ty) {
+    for (uint32_t tx = 0; tx < across; ++tx) {
+      size_t idx = (size_t)ty * across + tx;
+      uint32_t y0 = ty * ch, x0 = tx * cw;
+      uint32_t rows = tiles ? ch : std::min(ch, H - y0);
+      size_t want = rb * rows;
+      size_t off = offsets[idx];
+      std::vector<uint8_t> buf;
+      if (compression == 1) {
+        if (off + want > n) corrupt("TIFF image data ends early");
+        buf.assign(d + off, d + off + want);
+      } else {
+        size_t cnt = counts[idx];
+        if (off > n || cnt > n - off) corrupt("TIFF strip outside the file");
+        buf = compression == 5 ? lzw(d + off, cnt, want) : packbits(d + off, cnt, want);
+      }
+      if (pred2) {
+        for (uint32_t r = 0; r < rows; ++r) {
+          uint8_t* row = &buf[r * rb];
+          if (bits == 8) {
+            for (size_t i = spp; i < (size_t)cw * spp; ++i) row[i] = (uint8_t)(row[i] + row[i - spp]);
+          } else {
+            for (size_t i = spp; i < (size_t)cw * spp; ++i) {
+              uint8_t* a = row + 2 * i;
+              uint8_t* b = row + 2 * (i - spp);
+              uint32_t va = t.be ? (a[0] << 8) | a[1] : a[0] | (a[1] << 8);
+              uint32_t vb = t.be ? (b[0] << 8) | b[1] : b[0] | (b[1] << 8);
+              uint32_t v = (va + vb) & 0xFFFF;
+              a[0] = (uint8_t)(t.be ? v >> 8 : v);
+              a[1] = (uint8_t)(t.be ? v : v >> 8);
+            }
+          }
+        }
+      }
+      for (uint32_t r = 0; r < rows && y0 + r < H; ++r) {
+        const uint8_t* row = &buf[r * rb];
+        for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
+          uint16_t* o = &smp[(((size_t)(y0 + r)) * W + x0 + c) * spp];
+          for (uint32_t s = 0; s < spp; ++s) {
+            size_t k = (size_t)c * spp + s;
+            uint16_t v;
+            if (bits == 8) {
+              v = row[k];
+            } else if (bits == 16) {
+              v = (uint16_t)(t.be ? (row[2 * k] << 8) | row[2 * k + 1] : row[2 * k] | (row[2 * k + 1] << 8));
+            } else {
+              size_t bit = k * bits;
+              v = (uint16_t)((row[bit >> 3] >> (8 - bits - (bit & 7))) & ((1 << bits) - 1));
+            }
+            o[s] = v;
+          }
+        }
+      }
+    }
+  }
+
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  const int maxv = (1 << std::min(bits, 8)) - 1;
+  uint8_t pal[256];
+  if (kind == kPal) {
+    size_t m = (size_t)1 << bits;
+    for (size_t i = 0; i < m; ++i)
+      pal[i] = luma(cmap[i] / 256, cmap[m + i] / 256, cmap[2 * m + i] / 256);
+  }
+  for (size_t i = 0; i < g.px.size(); ++i) {
+    const uint16_t* s = &smp[i * spp];
+    switch (kind) {
+      case kGrey: g.px[i] = (uint8_t)(s[0] * 255 / maxv); break;
+      case kGreyInv: g.px[i] = (uint8_t)(255 - s[0] * 255 / maxv); break;
+      case kGrey16: g.px[i] = (uint8_t)std::min<int>(s[0], 255); break;
+      case kGreyAlpha: g.px[i] = (uint8_t)s[0]; break;
+      case kPal: g.px[i] = pal[s[0]]; break;
+      case kRgb:
+        if (bits == 16)
+          g.px[i] = luma(s[0] >> 8, s[1] >> 8, s[2] >> 8);
+        else
+          g.px[i] = luma(s[0], s[1], s[2]);
+        break;
+    }
+  }
+  return g;
+}
+
+// --------------------------------------------------------------- dispatch
+
+int format_of(const uint8_t* d, size_t n) {
+  static const uint8_t png[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
+  if (n >= 8 && !memcmp(d, png, 8)) return 'P';
+  if (n >= 3 && d[0] == 0xFF && d[1] == 0xD8 && d[2] == 0xFF) return 'J';
+  if (n >= 2 && d[0] == 'B' && d[1] == 'M') return 'B';
+  if (n >= 4 && ((d[0] == 'I' && d[1] == 'I') || (d[0] == 'M' && d[1] == 'M'))) {
+    uint32_t magic = d[0] == 'I' ? d[2] | (d[3] << 8) : (d[2] << 8) | d[3];
+    if (magic == 42 || magic == 43 || magic == 0x2A00) return 'T';
+  }
+  if (n >= 6 && (!memcmp(d, "GIF87a", 6) || !memcmp(d, "GIF89a", 6))) return 'G';
+  if (n >= 12 && !memcmp(d, "RIFF", 4) && !memcmp(d + 8, "WEBP", 4)) return 'W';
+  return 0;
+}
+
+int decode_any(const uint8_t* d, size_t n, Gray& g, std::string& msg) {
+  try {
+    switch (format_of(d, n)) {
+      case 'P': return kPng;
+      case 'J': g = decode_jpeg(d, n); break;
+      case 'B': g = decode_bmp(d, n); break;
+      case 'T': g = decode_tiff(d, n); break;
+      case 'G': unsupported("GIF");
+      case 'W': unsupported("WebP");
+      default: corrupt("not a recognised image file");
+    }
+  } catch (const DecodeError& e) {
+    msg = e.msg;
+    return e.status;
+  } catch (const std::bad_alloc&) {
+    msg = "out of memory";
+    return kCorrupt;
+  } catch (const std::out_of_range&) {
+    msg = "malformed header";
+    return kCorrupt;
+  }
+  return kOk;
+}
+
+void put_msg(char* dst, int len, const std::string& m) {
+  if (dst && len > 0) {
+    size_t k = std::min(m.size(), (size_t)len - 1);
+    memcpy(dst, m.data(), k);
+    dst[k] = 0;
+  }
+}
+
+int finish(int status, const Gray* g, uint8_t** out, int* w, int* h) {
+  *out = nullptr;
+  *w = *h = 0;
+  if (status != kOk) return status;
+  *out = (uint8_t*)malloc(g->px.size());
+  if (!*out) return kCorrupt;
+  memcpy(*out, g->px.data(), g->px.size());
+  *w = g->w;
+  *h = g->h;
+  return kOk;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One image in memory -> grey. On status 0, *out holds w*h bytes (free with
+// sig_free); otherwise msg names what failed.
+int sig_decode(const uint8_t* data, int64_t n, uint8_t** out, int* w, int* h, char* msg, int msg_len) {
+  Gray g;
+  std::string m;
+  int st = decode_any(data, (size_t)n, g, m);
+  put_msg(msg, msg_len, m);
+  return finish(st, &g, out, w, h);
+}
+
+void sig_free(void* p) { free(p); }
+
+// Files -> grey on `threads` threads: per file its status, size, pixels
+// (malloc'd, free with sig_free) and a message of up to msg_len bytes.
+void sig_decode_files(const char** paths, int n, int threads, uint8_t** outs, int* ws, int* hs,
+                      int* status, char* msgs, int msg_len) {
+  std::atomic<int> next{0};
+  auto work = [&]() {
+    std::vector<uint8_t> buf;
+    for (int i = next++; i < n; i = next++) {
+      char* msg = msgs ? msgs + (size_t)i * msg_len : nullptr;
+      FILE* f = fopen(paths[i], "rb");
+      if (!f) {
+        put_msg(msg, msg_len, "cannot open the file");
+        status[i] = finish(kUnreadable, nullptr, outs + i, ws + i, hs + i);
+        continue;
+      }
+      buf.clear();
+      uint8_t chunk[1 << 16];
+      size_t k;
+      while ((k = fread(chunk, 1, sizeof chunk, f)) > 0) buf.insert(buf.end(), chunk, chunk + k);
+      bool err = ferror(f);
+      fclose(f);
+      if (err) {
+        put_msg(msg, msg_len, "cannot read the file");
+        status[i] = finish(kUnreadable, nullptr, outs + i, ws + i, hs + i);
+        continue;
+      }
+      Gray g;
+      std::string m;
+      int st = decode_any(buf.data(), buf.size(), g, m);
+      put_msg(msg, msg_len, m);
+      status[i] = finish(st, &g, outs + i, ws + i, hs + i);
+    }
+  };
+  int t = std::max(1, std::min(threads, n));
+  std::vector<std::thread> pool;
+  for (int i = 1; i < t; ++i) pool.emplace_back(work);
+  work();
+  for (auto& th : pool) th.join();
+}
+
+}  // extern "C"

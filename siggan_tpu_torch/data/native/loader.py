@@ -1,0 +1,100 @@
+"""ctypes binding of the port's host image decoder, ``decode.cpp``.
+
+The decoder reads JPEG, BMP and TIFF files to 8-bit grey, as PIL's
+``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
+files are recognised and left to ``infer/export.py::decode_png``. The
+format comes from the file's first bytes, not from its name. The library is
+built with ``g++`` at first use into ``build/siggan_tpu_torch/``
+(``ops/kernels/build.py::load_host``); there is no other decoder to fall
+back on.
+
+Statuses: ``OK``; ``CORRUPT`` (truncated or malformed data, raised as
+``ValueError``); ``UNSUPPORTED`` (a valid file of a kind not read yet,
+raised as ``NotImplementedError`` naming ROADMAP A.6); ``UNREADABLE`` (the
+file could not be opened or read, ``OSError``); ``PNG``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from siggan_tpu_torch.ops.kernels import build
+
+SOURCE = Path(__file__).with_name("decode.cpp")
+OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
+_MSG = 160
+
+_P = ctypes.POINTER
+_SIGNATURES = {
+    "sig_decode": ([ctypes.c_char_p, ctypes.c_int64, _P(ctypes.c_void_p), _P(ctypes.c_int),
+                    _P(ctypes.c_int), ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+    "sig_free": ([ctypes.c_void_p], None),
+    "sig_decode_files": ([_P(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, _P(ctypes.c_void_p),
+                          _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_int),
+                          ctypes.c_char_p, ctypes.c_int], None),
+}
+
+
+def library() -> ctypes.CDLL:
+    """The decoder library, built on first use."""
+    return build.load_host(SOURCE, _SIGNATURES)
+
+
+def _take(lib: ctypes.CDLL, ptr: int, w: int, h: int) -> np.ndarray:
+    """Copy a decoded image out of the library's buffer and free it."""
+    try:
+        return np.ctypeslib.as_array(ctypes.cast(ptr, _P(ctypes.c_uint8)),
+                                     shape=(h, w)).copy()
+    finally:
+        lib.sig_free(ptr)
+
+
+def error(status: int, message: str, what: str) -> Exception:
+    """The exception a failed decode of ``what`` raises."""
+    if status == UNSUPPORTED:
+        return NotImplementedError(
+            f"{what}: {message} is not read by the port yet (ROADMAP A.6)")
+    if status == UNREADABLE:
+        return OSError(f"{what}: {message}")
+    return ValueError(f"{what}: {message}")
+
+
+def decode(data: bytes, what: str = "image") -> np.ndarray:
+    """A JPEG, BMP or TIFF file's bytes -> uint8 (H, W) grey; raises as
+    ``error`` says (a PNG raises ``ValueError``: it is not decoded here)."""
+    lib = library()
+    ptr, w, h = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(_MSG)
+    st = lib.sig_decode(data, len(data), ctypes.byref(ptr), ctypes.byref(w), ctypes.byref(h),
+                        msg, _MSG)
+    if st == PNG:
+        raise ValueError(f"{what}: a PNG file goes to decode_png")
+    if st != OK:
+        raise error(st, msg.value.decode(errors="replace"), what)
+    return _take(lib, ptr.value, w.value, h.value)
+
+
+def decode_files(paths: Sequence[str | Path], n_threads: Optional[int] = None
+                 ) -> Tuple[List[Optional[np.ndarray]], np.ndarray, List[str]]:
+    """Decode files on ``n_threads`` threads (default: up to 8, one per
+    core) -> (per file its uint8 (H, W) grey or None, (n,) int32 statuses,
+    messages). A PNG file comes back as None with status ``PNG``."""
+    lib = library()
+    n = len(paths)
+    names = (ctypes.c_char_p * n)(*[os.fsencode(str(p)) for p in paths])
+    outs = (ctypes.c_void_p * n)()
+    ws, hs, st = (ctypes.c_int * n)(), (ctypes.c_int * n)(), (ctypes.c_int * n)()
+    msgs = ctypes.create_string_buffer(_MSG * n)
+    threads = n_threads or min(8, os.cpu_count() or 1)
+    lib.sig_decode_files(names, n, threads, outs, ws, hs, st, msgs, _MSG)
+    images: List[Optional[np.ndarray]] = [
+        _take(lib, outs[i], ws[i], hs[i]) if st[i] == OK else None for i in range(n)]
+    raw = msgs.raw
+    messages = [raw[i * _MSG:(i + 1) * _MSG].split(b"\0", 1)[0].decode(errors="replace")
+                for i in range(n)]
+    return images, np.frombuffer(st, np.int32).copy(), messages

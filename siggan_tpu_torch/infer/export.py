@@ -3,8 +3,9 @@
 The same functions as the JAX package's ``infer/export.py``. PNGs are
 encoded with the standard library (zlib) so that serving needs no imaging
 package: 8-bit grayscale, RGB or RGBA, one filter byte of 0 per row.
-``decode_png`` reads 8-bit non-interlaced PNGs back (all five row filters;
-None, Sub and Up as numpy row operations, Average and Paeth byte by byte).
+``decode_png`` reads every kind of PNG back to 8 bits as PIL does (all five
+row filters; None, Sub and Up as numpy row operations, Average and Paeth
+byte by byte; Adam7 interlacing).
 """
 
 from __future__ import annotations
@@ -52,36 +53,19 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """8-bit non-interlaced grayscale/RGB/RGBA PNG -> uint8 (H, W, C).
-    Raises ``ValueError`` on a malformed file or a bad chunk CRC."""
-    if data[:8] != _SIG:
-        raise ValueError("not a PNG")
-    pos, idat, hdr = 8, b"", None
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
-        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"bad CRC in {tag!r} chunk")
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat += body
-        elif tag == b"IEND":
-            break
-        pos += 12 + length
-    if hdr is None:
-        raise ValueError("PNG has no IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
-    chans = {v: k for k, v in _COLOR_TYPE.items()}.get(ctype)
-    if depth != 8 or chans is None or interlace:
-        raise ValueError(f"unsupported PNG (depth {depth}, type {ctype})")
-    raw = zlib.decompress(idat)
-    stride = w * chans
-    if len(raw) != h * (stride + 1):
-        raise ValueError("PNG image data has the wrong size")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}        # PNG colour type -> samples
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unfilter(raw: bytes, pos: int, h: int, stride: int, bpp: int) -> np.ndarray:
+    """``h`` filtered rows of ``stride`` bytes at ``raw[pos:]`` -> (h, stride)
+    uint8 (``bpp``: bytes per complete pixel, at least 1)."""
+    if len(raw) < pos + h * (stride + 1):
+        raise ValueError("PNG image data is too short")
+    rows = np.frombuffer(raw, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for r in range(h):
@@ -90,22 +74,110 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError(f"bad PNG filter type {f}")
         if f == 0:
             cur = line
-        elif f == 1:      # Sub: a running sum of each channel along the row
-            cur = (np.cumsum(line.reshape(w, chans), axis=0, dtype=np.int64) & 0xFF
+        elif f == 1 and stride % bpp == 0:   # Sub: a running sum of each byte lane
+            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.int64) & 0xFF
                    ).astype(np.uint8).reshape(stride)
         elif f == 2:      # Up
             cur = line + prev
-        else:             # Average and Paeth depend on the byte just decoded
+        else:             # Sub (ragged), Average and Paeth: byte by byte
             vals, up_ = line.tolist(), prev.tolist()
             for i in range(stride):
-                left = vals[i - chans] if i >= chans else 0
-                pred = ((left + up_[i]) // 2 if f == 3 else
-                        _paeth(left, up_[i], up_[i - chans] if i >= chans else 0))
+                left = vals[i - bpp] if i >= bpp else 0
+                if f == 1:
+                    pred = left
+                elif f == 3:
+                    pred = (left + up_[i]) // 2
+                else:
+                    pred = _paeth(left, up_[i], up_[i - bpp] if i >= bpp else 0)
                 vals[i] = (vals[i] + pred) & 0xFF
             cur = np.asarray(vals, np.uint8)
         out[r] = cur
         prev = out[r]
-    return out.reshape(h, w, chans)
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, chans: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> (h, w, chans) sample values (uint16 at 16 bits)."""
+    h = rows.shape[0]
+    n = w * chans
+    if depth == 8:
+        return rows[:, :n].reshape(h, w, chans)
+    if depth == 16:
+        return rows[:, :2 * n].copy().view(">u2").astype(np.uint16).reshape(h, w, chans)
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(h, n, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, chans)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG file -> uint8 (H, W, C) as PIL opens it and takes it to 8 bits:
+    grey (C=1), grey + alpha (C=2), RGB (C=3) or RGBA (C=4); a palette image
+    comes back as RGB through its palette (``tRNS`` ignored, as
+    ``convert("L")`` ignores it); 1-, 2- and 4-bit grey scaled to 0..255;
+    16-bit grey clamped at 255 and 16-bit colour or alpha reduced to its
+    high byte, as PIL's conversions do; Adam7 interlacing. Every colour
+    type and bit depth of the standard is read. Raises ``ValueError`` on a
+    malformed file or a bad chunk CRC."""
+    if data[:8] != _SIG:
+        raise ValueError("not a PNG")
+    pos, idat, hdr, plte = 8, [], None, None
+    while pos < len(data):
+        if pos + 12 > len(data):
+            raise ValueError("PNG file ends inside a chunk")
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if pos + 12 + length > len(data):
+            raise ValueError("PNG file ends inside a chunk")
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"bad CRC in {tag!r} chunk")
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if hdr is None:
+        raise ValueError("PNG has no IHDR")
+    w, h, depth, ctype, method, filt, interlace = hdr
+    if (ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or method or filt
+            or interlace > 1 or not w or not h):
+        raise ValueError(f"bad PNG header (depth {depth}, colour type {ctype})")
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    chans = _CHANNELS[ctype]
+    bpp = max(1, chans * depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    stride = lambda width: (width * chans * depth + 7) // 8  # noqa: E731
+    if not interlace:
+        if len(raw) != h * (stride(w) + 1):
+            raise ValueError("PNG image data has the wrong size")
+        img = _samples(_unfilter(raw, 0, h, stride(w), bpp), w, chans, depth)
+    else:
+        img = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            img[y0::dy, x0::dx] = _samples(_unfilter(raw, pos, ph, stride(pw), bpp),
+                                           pw, chans, depth)
+            pos += ph * (stride(pw) + 1)
+        if pos != len(raw):
+            raise ValueError("PNG image data has the wrong size")
+    if ctype == 3:
+        # Indices past the palette are black, as in PIL.
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(plte)] = plte[:256]
+        return lut[img[..., 0]]
+    if depth == 16:
+        return (np.minimum(img, 255) if ctype == 0 else img >> 8).astype(np.uint8)
+    if depth < 8:
+        return img * np.uint8(255 // ((1 << depth) - 1))
+    return img
 
 
 def save_pngs(images: np.ndarray, output_dir: str | Path,

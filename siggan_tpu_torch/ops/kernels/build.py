@@ -10,6 +10,10 @@ starts one ``nvcc`` per source at once and waits for all of them.
 
 Every C entry returns ``cudaGetLastError()`` after its launches; ``check``
 turns a non-zero code into a ``RuntimeError`` with CUDA's message.
+
+``load_host`` builds a host C++ source (the image decoders of
+``data/native/``) the same way with ``g++``, which needs no CUDA toolkit, so
+it runs on the CPU as well as on the card's host.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "siggan_tpu_torch"
 SOURCES = ("upsample", "generator_fwd", "pack_tail", "train_tail")
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -53,19 +58,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str) -> Tuple[subprocess.Popen, Path, Path] | None:
-    """Start ``nvcc`` for one source unless its library exists; the library
-    is written under a temporary name and renamed when the build succeeds."""
-    out = library_path(name)
+def _spawn(cmd: List[str], out: Path) -> Tuple[subprocess.Popen, Path, Path] | None:
+    """Start ``cmd + ["-o", tmp]`` unless ``out`` exists; the library is
+    written under a temporary name carrying the pid (concurrent test workers
+    build the same library) and renamed when the build succeeds."""
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
+
+
+def _start(name: str) -> Tuple[subprocess.Popen, Path, Path] | None:
+    """Start ``nvcc`` for one source unless its library exists."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    return _spawn([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), str(CSRC / f"{name}.cu")], out)
 
 
 def _finish(name: str, started: Tuple[subprocess.Popen, Path, Path] | None) -> str:
@@ -74,10 +85,42 @@ def _finish(name: str, started: Tuple[subprocess.Popen, Path, Path] | None) -> s
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"{Path(proc.args[0]).name} failed for {name} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return log
+
+
+def host_library_path(src: Path) -> Path:
+    """The shared library the host source ``src`` builds into, named by a
+    hash of the source."""
+    digest = hashlib.sha256(src.name.encode() + src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def load_host(src: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library of the host C++ source ``src``, built with ``g++``
+    on first use; ``signatures`` maps each C entry to ``(argtypes,
+    restype)``. Raises ``RuntimeError`` when ``g++`` is missing or fails."""
+    key = str(src)
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {src.name} (the port's host "
+                                   "image decoder) is built with the host C++ compiler")
+            out = host_library_path(src)
+            _finish(src.name, _spawn([gxx, *HOST_FLAGS, str(src)], out))
+            lib = ctypes.CDLL(str(out))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[key] = lib
+        return lib
 
 
 def build_all(names: List[str] | None = None) -> Dict[str, str]:

@@ -1,8 +1,8 @@
 """The adversarial train step: n_critic discriminator updates, then one
 generator update.
 
-Port of the JAX package's ``train/train_step.py`` default branch
-(``d_step``, ``g_step``, ``make_train_step``, ``make_resident_train_step``,
+Port of the JAX package's ``train/train_step.py`` (``d_step``, ``g_step``,
+``shared_fakes_step``, ``make_train_step``, ``make_resident_train_step``,
 ``make_resident_multi_step``, ``make_eval_generate``). The same semantics:
 
  - one-sided label smoothing: reals 0.9, fakes 0.0, G targets 1.0; BCE from
@@ -57,8 +57,9 @@ and its epoch's tables are made outside the graph, with the eager step's
 keys, into buffers the graph reads, so graphed and eager steps see the same
 numbers.
 
-Not ported yet (raise ``NotImplementedError``): ``share_fakes`` and
-``fuse_g_forwards`` (BN groups).
+With ``share_fakes`` (n_critic 1) a step is ``shared_fakes_step``: one
+latent batch, one generator forward for both updates. Not ported yet
+(raises ``NotImplementedError``): ``fuse_g_forwards`` (BN groups).
 """
 
 from __future__ import annotations
@@ -94,10 +95,12 @@ STEP_METRIC_KEYS = ("d_loss", "g_loss", "d_real_mean", "d_fake_mean",
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not train yet
-    (and ``ValueError`` for an unknown DiffAugment policy)."""
-    for flag in ("share_fakes", "fuse_g_forwards"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP A.1.4)")
+    (and ``ValueError`` for an unknown DiffAugment policy or ``share_fakes``
+    with ``n_critic != 1``)."""
+    if cfg.fuse_g_forwards:
+        raise NotImplementedError("fuse_g_forwards is not ported yet (ROADMAP A.1.4)")
+    if cfg.share_fakes and cfg.n_critic != 1:
+        raise ValueError("share_fakes requires n_critic == 1 (ablation-trainer semantics)")
     diffaug.policies(cfg.diffaugment)
 
 
@@ -221,6 +224,69 @@ def g_step(state: TrainState, z: torch.Tensor, cfg: TrainConfig, g_tx: Adam, *,
         return m
 
 
+def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
+                      cfg: TrainConfig, d_tx: Adam, g_tx: Adam, *,
+                      masks: Sequence[Optional[List[torch.Tensor]]] = (None, None),
+                      real_packed: bool = False, y_real: Optional[torch.Tensor] = None,
+                      y_fake: Optional[torch.Tensor] = None,
+                      diffaug_params: Sequence = (None, None)) -> Metrics:
+    """One D update and one G update sharing a single generator forward,
+    the JAX package's ``shared_fakes_step`` (the reference's ablation
+    trainer: one latent batch per iteration). G runs once in train mode
+    with its graph kept (its BN statistics update once); D trains on
+    ``[real; fake.detach()]`` with ``masks[0]`` and ``diffaug_params[0]``;
+    then the same fakes go through the updated D with ``masks[1]`` and
+    ``diffaug_params[1]``, and G's gradient flows back through the saved
+    forward. Conditional models: ``y_fake`` conditions G and ``[y_real;
+    y_fake]`` feeds D's heads, the G head scores the fakes with
+    ``y_fake``. Updates ``state`` in place, then the EMA shadow when
+    ``ema_decay > 0``."""
+    cdt, packed = _dtype(cfg), _packed(cfg)
+    b = real.shape[0]
+    conditional = cfg.model.num_classes > 0
+    aux_on = _aux_on(cfg)
+    fake = state.g(z, y_fake, cdt, train=True, packed_output=packed)
+    if packed and not real_packed:
+        real = space_to_depth(real)
+    both = torch.cat([real.to(fake.dtype), fake.detach()], dim=0)
+    if cfg.diffaugment:
+        both = diffaug.apply(both, diffaug_params[0], cfg.diffaugment, packed)
+    out = state.d(both, train=True, compute_dtype=cdt, packed_input=packed, masks=masks[0],
+                  aux=aux_on, y=torch.cat([y_real, y_fake]) if conditional else None)
+    logits, aux_logits = out if aux_on else (out, None)
+    logits_r, logits_f = logits[:b], logits[b:]
+    d_loss = _bce_mean(logits_r, cfg.label_smoothing) + _bce_mean(logits_f, 0.0)
+    if aux_on:
+        aux_loss = _ce_mean(aux_logits[:b], y_real)
+        if cfg.aux_d_on_fakes:
+            aux_loss = aux_loss + _ce_mean(aux_logits[b:], y_fake)
+        d_loss = d_loss + cfg.aux_weight * aux_loss
+    d_params = list(state.d.parameters())
+    d_tx.step(d_params, torch.autograd.grad(d_loss, d_params), state.d_opt)
+
+    fake_g = diffaug.apply(fake, diffaug_params[1], cfg.diffaugment, packed) \
+        if cfg.diffaugment else fake
+    out = state.d(fake_g, train=True, compute_dtype=cdt, packed_input=packed, masks=masks[1],
+                  y=y_fake, aux=aux_on)
+    logits_g, aux_g = out if aux_on else (out, None)
+    g_loss = _bce_mean(logits_g, 1.0)
+    if aux_on:
+        g_loss = g_loss + cfg.aux_weight * _ce_mean(aux_g, y_fake)
+    g_params = list(state.g.parameters())
+    g_tx.step(g_params, torch.autograd.grad(g_loss, g_params), state.g_opt)
+    if cfg.ema_decay > 0:
+        ema_update(state.g_ema, state.g, cfg.ema_decay)
+    with torch.no_grad():
+        p_real, p_fake = torch.sigmoid(logits_r), torch.sigmoid(logits_f)
+        m = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+             "d_real_mean": p_real.mean(), "d_fake_mean": p_fake.mean(),
+             "d_acc_real": (p_real > 0.5).float().mean(),
+             "d_acc_fake": (p_fake < 0.5).float().mean(),
+             "d_on_g_mean": torch.sigmoid(logits_g).mean()}
+        m["d_accuracy"] = 0.5 * (m["d_acc_real"] + m["d_acc_fake"])
+    return m
+
+
 def _fake_labels(cfg: TrainConfig, b: int, gen: torch.Generator, device,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fakes' labels of a sub-step (int64): a random permutation of
@@ -258,6 +324,7 @@ def step_draws(cfg: TrainConfig, st: Streams, step: int, b: int, device,
         return None if out is None else out[key][i]
 
     n_sub = cfg.n_critic + 1
+    n_z = 1 if cfg.share_fakes else n_sub
     conditional = cfg.model.num_classes > 0
     draws: Dict = {"z": [], "u": []}
     if conditional:
@@ -273,9 +340,10 @@ def step_draws(cfg: TrainConfig, st: Streams, step: int, b: int, device,
                     d.copy_(src)
     widths = [co for _, co in d_channels(cfg.model)] if cfg.model.dropout > 0 else []
     for i in range(n_sub):
-        draws["z"].append(fill(torch.randn, (b, cfg.model.latent_dim),
-                               st(rng.STREAM_NOISE, step, i), dst("z", i)))
-        if conditional:
+        if i < n_z:
+            draws["z"].append(fill(torch.randn, (b, cfg.model.latent_dim),
+                                   st(rng.STREAM_NOISE, step, i), dst("z", i)))
+        if conditional and i < n_z:
             draws["y"].append(_fake_labels(cfg, b, st(rng.STREAM_NOISE, step, i, 1), device,
                                            dst("y", i)))
         gen = st(rng.STREAM_DROPOUT, step, i)
@@ -319,14 +387,19 @@ def _run_step(cfg: TrainConfig, d_tx: Adam, g_tx: Adam, real_packed: bool,
               state: TrainState, real: torch.Tensor, draws: Dict,
               y_real: Optional[torch.Tensor] = None) -> Metrics:
     """One iteration on complete draws: the per-step augmentation (when
-    ``cfg.augment``), n_critic D steps, then the G step. Reads and updates
+    ``cfg.augment``), n_critic D steps, then the G step (or, with
+    ``share_fakes``, the shared-fake step). Reads and updates
     only device tensors (what a CUDA graph of it captures); ``state.step``
     is left to the caller."""
     if cfg.augment:
         real = augment_apply(real, *draws["augment"], dtype=_dtype(cfg))
     zs, masks = draws["z"], draws["masks"]
     ys = draws.get("y") or [None] * len(zs)
-    das = draws.get("diffaug") or [None] * len(zs)
+    das = draws.get("diffaug") or [None] * len(masks)
+    if cfg.share_fakes:
+        return shared_fakes_step(state, real, zs[0], cfg, d_tx, g_tx, masks=masks,
+                                 real_packed=real_packed, y_real=y_real, y_fake=ys[0],
+                                 diffaug_params=das)
     metrics: Metrics = {}
     for i in range(cfg.n_critic):
         metrics = d_step(state, real, zs[i], cfg, d_tx, masks=masks[i],

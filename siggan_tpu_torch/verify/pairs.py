@@ -11,11 +11,10 @@ both packages:
    used as negatives but never paired with itself;
  - the train/val split is ``np.random.RandomState(seed).permutation``.
 
-Only PNG files are read (``data/dataset.py::decode_image``, the resize
-bit-equal with PIL's); a tree that also holds .jpg, .jpeg, .bmp, .tif or
-.tiff files is refused, naming the ROADMAP item of their decoders, rather
-than paired on its PNG subset. Decoded pairs are materialized as arrays,
-which training moves to the device once.
+The JAX package's image files are read (``data/dataset.py::decode_image``:
+PNG, JPEG, BMP and TIFF by content, PIL's grey and resize bit for bit).
+Decoded pairs are materialized as arrays, which training moves to the
+device once.
 """
 
 from __future__ import annotations
@@ -26,21 +25,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from siggan_tpu_torch.data.dataset import (IMAGE_EXTENSIONS, UNDECODED_EXTENSIONS,
-                                           decode_image)
+from siggan_tpu_torch.data.dataset import IMAGE_EXTENSIONS, decode_images
 
 SYNTHETIC_USER = "_synthetic_"
 
 
 def _images(files) -> List[Path]:
-    files = sorted(files)
-    other = [f for f in files if f.suffix.lower() in UNDECODED_EXTENSIONS]
-    if other:
-        raise NotImplementedError(
-            f"{other[0].parent} holds {len(other)} image files the port cannot decode "
-            f"yet ({other[0].name}, ...): only PNG is read until the other formats' "
-            f"decoders are ported (ROADMAP A.6)")
-    return [f for f in files if f.suffix.lower() in IMAGE_EXTENSIONS]
+    return sorted(f for f in files if f.suffix.lower() in IMAGE_EXTENSIONS)
 
 
 def load_user_signatures(data_dir: str | Path,
@@ -101,15 +92,10 @@ class PairDataset:
         if not self.users:
             raise ValueError(f"no users with >=2 signatures under {data_dir}")
         self.pairs = generate_pairs(self.users, pairs_per_user, seed)
-        cache: Dict[Path, np.ndarray] = {}
-
-        def img(p: Path) -> np.ndarray:
-            if p not in cache:
-                cache[p] = decode_image(p, image_size)
-            return cache[p]
-
-        self.img1 = np.stack([img(a) for a, _, _ in self.pairs])
-        self.img2 = np.stack([img(b) for _, b, _ in self.pairs])
+        uniq = list(dict.fromkeys(p for a, b, _ in self.pairs for p in (a, b)))
+        img = dict(zip(uniq, decode_images(uniq, image_size)))
+        self.img1 = np.stack([img[a] for a, _, _ in self.pairs])
+        self.img2 = np.stack([img[b] for _, b, _ in self.pairs])
         self.labels = np.asarray([l for _, _, l in self.pairs], np.float32)
 
     def __len__(self) -> int:

@@ -518,6 +518,37 @@ def test_graphed_steps_equal_eager_steps(deterministic):
     assert [c.count - n for c, n in zip(counters, before)] == [24, 12, 12]
 
 
+def test_graphed_share_fakes_steps_equal_eager_steps(deterministic):
+    """The shared-fake step (one generator forward a step) through the
+    graphed dispatch: two windows of 4 steps against 8 eager steps on a copy
+    of the state, bit-equal, with B1 once, B1' once and B2 never per step."""
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
+                                                   make_resident_train_step)
+    cfg = train_cfg(share_fakes=True)
+    images = torch.from_numpy(generate_dataset(32, 64, seed=5)).to(deterministic)
+    multi, _ = make_resident_multi_step(cfg, 32, 4)
+    eager, _ = make_resident_train_step(cfg, 32)
+    a = create_train_state(cfg, deterministic)
+    b = copy.deepcopy(a)
+    counters = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES)
+    before = [c.count for c in counters]
+    got = []
+    for _ in range(2):
+        a, m = multi(a, images)
+        got.append(m)
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [8, 8, 0]
+    want = []
+    for _ in range(8):
+        b, m = eager(b, images)
+        want.append(m)
+    assert state_equal(a, b)
+    for k in want[0]:
+        assert torch.equal(torch.cat([m[k] for m in got]), torch.stack([m[k] for m in want]))
+
+
 def test_graphed_training_resumes_like_the_uninterrupted_run(deterministic, tmp_path):
     """1 epoch, a checkpoint, a new trainer that resumes it (the graph bound
     to the restored state) and 1 more epoch: the bits of 2 epochs in one run."""

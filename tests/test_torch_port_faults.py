@@ -100,21 +100,33 @@ def test_best_and_an_epoch_are_served_and_listed(tmp_path, capsys):
 
 
 def test_dataset_refuses_images_it_cannot_decode(tmp_path):
+    """C.3, then A.6: the dataset reads the JAX package's formats (a .JPG
+    next to PNGs is trained on, as PIL reads it) and refuses, naming A.6,
+    only a file of a kind not read yet (a progressive JPEG)."""
+    from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=1)
     assert len(SignatureDataset(tmp_path, 64, use_cache=False)) == 3
     (tmp_path / "sub").mkdir()
-    (tmp_path / "sub" / "scan.JPG").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    scan = (np.random.RandomState(0).rand(40, 90) * 255).astype(np.uint8)
+    Image.fromarray(scan).save(tmp_path / "sub" / "scan.JPG", "JPEG", quality=90)
+    ds = SignatureDataset(tmp_path, 64, use_cache=False)
+    assert len(ds) == 4 and ds.paths[-1].name == "scan.JPG"
+    with Image.open(tmp_path / "sub" / "scan.JPG") as im:
+        want = np.asarray(im.convert("L").resize((64, 64), Image.BILINEAR), np.float32)
+    np.testing.assert_array_equal(ds.images[-1, ..., 0], want / 255.0 * 2.0 - 1.0)
+    Image.fromarray(scan).save(tmp_path / "sub" / "scan2.jpg", "JPEG", progressive=True)
+    with pytest.raises(NotImplementedError, match="progressive JPEG.*A.6"):
         SignatureDataset(tmp_path, 64, use_cache=False)
 
 
 def test_train_cli_doc_names_only_what_raises(tmp_path):
     """The CLI's docstring lists the flags that raise; spectral norm (v1.1),
-    EMA and the in-training FID train, shared fakes raise."""
+    EMA, the in-training FID and shared fakes train; the fused generator
+    forwards (a config field, no flag) raise."""
     doc = " ".join(train_cli.__doc__.split())
     refused = doc[doc.index("Flags of features"):].split(")")[0]
     assert "spectral" not in refused and "EMA" not in refused and "FID" not in refused
-    assert "shared fakes" in refused
+    assert "shared fakes" not in refused and "profiler" in refused
     images = np.zeros((8, 128, 128, 1), np.float32)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--image_size", "128",
                                       "--spectral_norm"])
@@ -124,5 +136,7 @@ def test_train_cli_doc_names_only_what_raises(tmp_path):
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--fid_interval", "5"])
     check_trainer_supported(train_cli.build_config(args), images)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--share_fakes"])
-    with pytest.raises(NotImplementedError, match="share_fakes"):
-        check_trainer_supported(train_cli.build_config(args), images)
+    check_trainer_supported(train_cli.build_config(args), images)
+    with pytest.raises(NotImplementedError, match="fuse_g_forwards"):
+        check_trainer_supported(train_cli.build_config(args).replace(fuse_g_forwards=True),
+                                images)

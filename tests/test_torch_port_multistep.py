@@ -126,6 +126,7 @@ def uncaptured(multi):
     (4, dict(hflip=True)),                         # warm-up, capture and replays in window 1
     (2, dict(augment_bulk=False, n_critic=2)),     # per-step augment draws; capture in window 2
     (4, dict(augment=False, model=ModelConfig(dropout=0.0, **TINY))),
+    (4, dict(share_fakes=True)),                   # one latent batch, two masks a step
 ])
 def test_graph_route_buffers_reproduce_eager_steps(k, overrides):
     cfg = tiny_cfg(seed=6).replace(**overrides)

@@ -225,8 +225,9 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     """``cli.preprocess --device cpu`` and the JAX CLI on one tree of raw
     scans (per-writer directories; blank pages, RGB scans, scans over the
     canvas; batch 4 with a padded tail): the same valid / invalid split and
-    report, images within the whole-pipeline tolerance; a tree holding a
-    JPEG is refused."""
+    report, images within the whole-pipeline tolerance; JPEG, BMP and TIFF
+    scans read as the JAX CLI reads them; a progressive JPEG is refused,
+    naming ROADMAP A.6."""
     from siggan_tpu.cli import preprocess as jcli
     from siggan_tpu.core import platform as jplatform
     from siggan_tpu_torch.cli import preprocess as tcli
@@ -255,7 +256,24 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
         b = np.asarray(Image.open(tmp_path / "j" / name)).astype(np.int64)
         d = np.abs(a - b)
         assert a.shape == (64, 64) and (d > 0).mean() <= 0.25 and d.max() <= 40
-    (raw / "w1" / "scan.jpg").write_bytes(b"\xff\xd8")
+    other = tmp_path / "other"
+    for i, fmt in enumerate(("JPEG", "BMP", "TIFF")):
+        page = rs.randint(215, 256, (90, 110)).astype(np.uint8)
+        for _ in range(12):
+            y, x = rs.randint(4, 86), rs.randint(4, 90)
+            page[y - 3:y + 3, x:x + 16] = rs.randint(0, 80)
+        (other / f"w{i}").mkdir(parents=True)
+        Image.fromarray(page).save(other / f"w{i}" / f"w{i}_0.{fmt.lower()}", fmt)
+    assert jcli.main(["--input_dir", str(other), "--output_dir", str(tmp_path / "jo")] + flags) == 0
+    assert tcli.main(["--input_dir", str(other), "--output_dir", str(tmp_path / "to"),
+                      "--device", "cpu"] + flags) == 0
+    want = json.loads((tmp_path / "jo" / "preprocess_report.json").read_text())
+    assert json.loads((tmp_path / "to" / "preprocess_report.json").read_text()) == want
+    assert len(want["processed"]) == 3
+    for name in want["processed"]:
+        path = next(other.rglob(name))
+        np.testing.assert_array_equal(tcli.load_canvas(path, 64)[0], jcli.load_canvas(path, 64)[0])
+    Image.fromarray(page).save(raw / "w1" / "scan.jpg", progressive=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         tcli.main(["--input_dir", str(raw), "--output_dir", str(tmp_path / "x"),
                    "--device", "cpu"])

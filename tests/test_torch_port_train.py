@@ -234,8 +234,12 @@ def test_resident_step_gathers_and_warps_its_epoch_batch():
     for p, q in zip(a.g.parameters(), b.g.parameters()):
         assert torch.equal(p, q)
     assert a.step == 1
-    with pytest.raises(NotImplementedError, match="share_fakes"):
-        make_train_step(cfg.replace(share_fakes=True))
+    # share_fakes trains (one latent batch a step); fuse_g_forwards still raises.
+    c = create_train_state(cfg, "cpu")
+    c, mc = make_resident_train_step(cfg.replace(share_fakes=True), 8)[0](c, images, draws)
+    assert c.step == 1 and set(mc) == set(ma)
+    with pytest.raises(NotImplementedError, match="fuse_g_forwards"):
+        make_train_step(cfg.replace(fuse_g_forwards=True))
 
 
 def test_trainer_and_cli_train_resume_and_serve(tmp_path, capsys):
@@ -319,6 +323,5 @@ def test_cli_refuses_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--data_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="share_fakes"):
-        train_cli.main(["--data_dir", str(tmp_path), "--device", "cpu",
-                        "--share_fakes", "--batch_size", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--data_dir", str(tmp_path), "--share_fakes", "--batch_size", "2"])

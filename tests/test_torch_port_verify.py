@@ -231,15 +231,33 @@ def test_pairs_and_split_match_jax(trees, layout):
 
 
 def test_pairs_refuse_other_image_formats(trees, tmp_path):
-    """A tree holding a .jpg is refused, naming the ROADMAP item of the
-    decoders, where the JAX package would read it."""
+    """A tree holding .jpg, .bmp and .tif scans is paired and decoded as
+    the JAX package does (its PIL path); only a file of a kind not read yet
+    (CCITT TIFF) is refused, naming the ROADMAP item of the decoders."""
     import shutil
+
+    from siggan_tpu.data.native import loader as jnative
     shutil.copytree(trees / "users", tmp_path / "users")
-    (tmp_path / "users" / "writer_010" / "scan.jpg").write_bytes(b"\xff\xd8")
+    rs = np.random.RandomState(9)
+    for i, ext in enumerate((".jpg", ".bmp", ".tif")):
+        scan = (rs.rand(50, 70, 3) * 255).astype(np.uint8)
+        Image.fromarray(scan).save(tmp_path / "users" / "writer_010" / f"scan{i}{ext}")
+    got = tpairs.load_user_signatures(tmp_path / "users")
+    assert got == jpairs.load_user_signatures(tmp_path / "users")
+    assert {p.suffix for p in got["writer_010"]} >= {".jpg", ".bmp", ".tif"}
+    available = jnative.available
+    jnative.available = lambda: False        # the JAX dataset's PIL path
+    try:
+        want = jpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
+    finally:
+        jnative.available = available
+    have = tpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
+    np.testing.assert_array_equal(have.img1, want.img1)
+    np.testing.assert_array_equal(have.img2, want.img2)
+    Image.fromarray(scan[..., 0] > 128).save(tmp_path / "users" / "writer_010" / "fax.tif",
+                                             compression="group4")
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tpairs.load_user_signatures(tmp_path / "users")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tpairs.load_user_signatures(trees / "users", tmp_path / "users" / "writer_010")
+        tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
 
 # -- training ------------------------------------------------------------------
