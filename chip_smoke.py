@@ -135,10 +135,29 @@ Phases (any failure raises and the script exits non-zero):
      against 512 reals: each run's short name, losses, FID, ms/step and
      wall time, the tables, plots.json and 12 sample grids, and no kernel
      launch (the ablation step's G is unpacked);
- 14. print the kernels line (one JSON object; B1, B1' and B2 with their
+ 14. a run of the JAX package and the control panel (``imported_run_phase``,
+     ``panel_phase``): the committed run ``tests/data/torch_port/jax_run``
+     (trained by the JAX package, converted by ``scripts/import_jax_run.py``)
+     served through B4 against the JAX package's images of the same latents
+     (rtol 1e-3, atol 1e-4), then resumed by ``cli.train --resume`` for one
+     epoch of the run's 48 steps on phase 7's PNGs at batch 32 (epoch, step
+     counter, fixed noise, finite
+     losses, moved weights, B1 x2, B1' x1, B2 x1 a step); then the panel
+     (``serve/app.py`` on port 0, on the card) over phase 7's run and the
+     imported one, driven over HTTP: checkpoints, generate n=64 (B4 x1; the
+     card's busy time), with the quality filter at keep_fraction 0.5 (B4 x2,
+     D's scores), the imported run, interpolate, a generation job polled to
+     its end, gallery, contact sheet, runs-compare chart, export zip, save
+     with binarize and transparency, about, and a training subprocess at
+     TrainConfig() defaults for 1 epoch polled through train_status to its
+     end; the ms of each request. Phase 12 also decodes a PIL-saved PNG
+     scan page (bit-equal to PIL's committed grey) and 1320 copies of it at
+     1 and 8 threads, and runs ``cli.preprocess`` on them;
+ 15. print the kernels line (one JSON object; B1, B1' and B2 with their
      launches by path, B4 and B3 with their launches on the serving, the
-     evaluation and the verification paths), the nvidia-smi line again, and
-     as the last line {"ok": true, "device": {...}}.
+     evaluation, the verification, the imported-run and the panel paths),
+     the nvidia-smi line again, and as the last line {"ok": true,
+     "device": {...}}.
 """
 
 from __future__ import annotations
@@ -148,6 +167,7 @@ import io
 import copy
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -199,16 +219,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(fn, calls: int = 10):
+def device_time(fn, calls: int = 10, cpu: bool = False):
     """Device time per call from a profiler trace: ({kernel: ms}, total ms,
     device operations launched), CUDA kernels and copies only. An empty
-    trace gives ({}, None, 0)."""
+    trace gives ({}, None, 0). ``cpu`` traces the host too: late in this
+    script a CUDA-only trace came back empty on the card (phase 14)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -388,7 +410,8 @@ def check_kernels(model, dev):
         b4["max_abs_diff"] = max(b4["max_abs_diff"],
                                  compare(f"generator_forward n={z.shape[0]}", img, ref))
     b4["kernel_ms"] = time_ms(lambda: gf.generator_forward(packed, z64))
-    per, b4["device_ms"], _ = device_time(lambda: gf.generator_forward(packed, z64))
+    per, b4["device_ms"], b4["device_ops"] = device_time(
+        lambda: gf.generator_forward(packed, z64))
     b4["device_kernels"] = per
     for name, ms in sorted(per.items(), key=lambda kv: -kv[1]):
         print(f"  generator_forward device time: {ms:.4f} ms  {name[:90]}", flush=True)
@@ -1823,9 +1846,11 @@ def decode_phase(card: str, work: str):
                 raise AssertionError(f"batch decode of {fmt}: statuses {set(status.tolist())}")
             rates[f"{fmt}, {threads} thread{'s' if threads > 1 else ''}"] = len(paths) / dt
     pngs = [FIXTURES / n for n in golden if n.endswith(".png")] * 30
-    t0 = time.perf_counter()
-    ds_mod.decode_images(pngs, 64)
-    rates["PNG 210x80 (Python), 1 thread"] = len(pngs) / (time.perf_counter() - t0)
+    for threads in (1, 8, None):
+        t0 = time.perf_counter()
+        ds_mod.decode_images(pngs, 64, n_threads=threads)
+        rates[f"PNG 210x80 (decode_images: zlib + C++ unfilter, resized to 64), "
+              f"{pool_label(ds_mod, pngs, threads)}"] = len(pngs) / (time.perf_counter() - t0)
     for k, v in rates.items():
         print(f"decode: {k}: {v:.1f} images/s [{card}]", flush=True)
 
@@ -1883,10 +1908,78 @@ def decode_phase(card: str, work: str):
           f"letterbox of every scan alone {host_s:.2f} s ({host_s / pre_s:.4f} of the CLI's "
           f"wall time); SignatureDataset (threaded decode + resize to 64) {ds_s:.2f} s "
           f"({1320 / ds_s:.1f} images/s) [{card}]", flush=True)
+    png = png_tree_phase(card, work)
     return {"build_s": build_s, "images_per_s": rates, "preprocess_s": pre_s,
             "preprocess_host_decode_s": host_s, "dataset_s": ds_s,
             "host_ms_per_scan": {k: [1e3 * d / kinds[k], 1e3 * c / kinds[k]]
-                                 for k, (d, c) in per_kind.items()}}
+                                 for k, (d, c) in per_kind.items()},
+            "pil_png_tree": png}
+
+
+def pool_label(ds_mod, paths, threads) -> str:
+    """'N threads', or for ``threads`` None the default pool's size."""
+    if threads is None:
+        from siggan_tpu_torch.data.native import loader as native
+        grays, status, _ = native.decode_files(paths[:8])
+        n = ds_mod.pool_threads(paths[:8], grays, status, min(8, os.cpu_count() or 1))
+        return f"default ({n} thread{'s' if n > 1 else ''})"
+    return f"{threads} thread{'s' if threads > 1 else ''}"
+
+
+def png_tree_phase(card: str, work: str):
+    """Phase 12, PNG scans saved by PIL: the committed 1200 x 500 page (PIL's
+    default adaptive filters) bit-equal to PIL's committed grey; 1320 copies
+    of it in CEDAR's shape (55 writers x 24) through the dataset's threaded
+    path, ``decode_images`` (zlib, the C++ row unfilter and the resize to 64
+    on a pool of Python threads), at 1 and 8 threads and its default
+    (images/s), and through ``cli.preprocess``."""
+    import shutil
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.cli import preprocess as pre_cli
+    from siggan_tpu_torch.data import dataset as ds_mod
+
+    page = FIXTURES / "png_page" / "page.png"
+    with np.load(FIXTURES / "png_page" / "page_grey.npz") as f:
+        want = f["grey"]
+    t0 = time.perf_counter()
+    got = ds_mod.decode_gray(page)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    if got.shape != (500, 1200) or not np.array_equal(got, want):
+        raise AssertionError("the PIL-saved PNG page is not bit-equal to PIL's grey")
+    tree = Path(work) / "pil_png_scans"
+    for w in range(55):
+        d = tree / f"writer_{w:03d}"
+        d.mkdir(parents=True)
+        for i in range(24):
+            shutil.copy(page, d / f"w{w:03d}_{i:02d}.png")
+    paths = ds_mod.list_images(tree)
+    want64 = ds_mod._scaled(want, 64)
+    rates = {}
+    for threads, n in ((1, 132), (8, 1320), (None, 660)):
+        ds_mod.decode_images(paths[:16], 64, n_threads=threads)
+        t0 = time.perf_counter()
+        out = ds_mod.decode_images(paths[:n], 64, n_threads=threads)
+        rates[pool_label(ds_mod, paths, threads)] = n / (time.perf_counter() - t0)
+        if out.shape != (n, 64, 64, 1) or not (out == want64).all():
+            raise AssertionError(f"decode_images on {threads} threads: not PIL's grey resized")
+    t0 = time.perf_counter()
+    run_cli(pre_cli.main, ["--input_dir", str(tree), "--output_dir",
+                           str(Path(work) / "pil_png_clean")])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rep = json.loads((Path(work) / "pil_png_clean" / "preprocess_report.json").read_text())
+    if len(rep["processed"]) + len(rep["invalid"]) != 1320 or len(paths) != 1320:
+        raise AssertionError("cli.preprocess on the PIL-saved PNG tree: "
+                             f"{len(rep['processed'])} + {len(rep['invalid'])} of {len(paths)}")
+    print(f"decode: PIL-saved PNG page 1200x500 ({page.stat().st_size} bytes) bit-equal to "
+          f"PIL's grey, first decode {one_ms:.2f} ms; 1320 copies (55 writers x 24) through "
+          f"decode_images (decode + resize to 64), images/s: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + " (1 thread on 132 of them, the default on 660); cli.preprocess "
+          f"{pre_s:.2f} s ({1320 / pre_s:.1f} images/s), {len(rep['processed'])} written "
+          f"[{card}]", flush=True)
+    return {"first_decode_ms": one_ms, "decode_images_per_s": rates, "preprocess_s": pre_s}
 
 
 def shared_fakes_phase(card: str, work: str):
@@ -2024,6 +2117,293 @@ def ablation_phase(card: str, work: str):
     return {"wall_s": wall, "ms_per_step": ms}
 
 
+def imported_run_phase(card: str, work: str):
+    """Phase 14a: a run trained by the JAX package and imported with
+    ``scripts/import_jax_run.py`` (the committed ``tests/data/torch_port/
+    jax_run``: 64 px, base 32, EMA on; its generators, fixed noise and
+    state, and JAX's eval images of 16 fixed latents). Serve it through B4
+    against JAX's images; then resume it with ``cli.train --resume`` on
+    phase 7's PNGs for one epoch of the run's 48 steps. The committed run
+    holds no D and no Adam states (D keeps its 2.76 M parameters at every
+    generator width, too many for a fixture), so the epoch is completed with
+    the port's initial D and zero moments at the run's step count, written
+    by ``ckpt/manager.py::write_epoch``, the writer the script uses."""
+    import shutil
+    import numpy as np
+    import torch
+    from siggan_tpu_torch import bridge
+    from siggan_tpu_torch.ckpt import manager as ckpt
+    from siggan_tpu_torch.cli import train as train_cli
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.infer.generate import load_session
+    from siggan_tpu_torch.ops.kernels import generator_fwd as gf
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.ops.kernels import upsample as up
+
+    fixture = FIXTURES / "jax_run"
+    with np.load(fixture / "jax_eval.npz") as f:
+        z, want = f["z"], f["images"]
+    session = load_session(str(fixture), device="cuda")
+    if not session.uses_kernel:
+        raise AssertionError("the imported run is not served through the generator kernel")
+    gf.LAUNCHES.reset()
+    up.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    got = session._fwd(torch.from_numpy(z).cuda()).cpu().numpy()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches = {"generator_forward": gf.LAUNCHES.count,
+                      "upsample_block": up.LAUNCHES.count}
+    if serve_launches != {"generator_forward": 1, "upsample_block": 3}:
+        raise AssertionError(f"imported run served with launches {serve_launches}")
+    err = close("imported JAX run through B4 vs JAX's eval images", got, want, 1e-3, 1e-4)
+    print(f"imported run: {fixture.relative_to(FIXTURES.parents[2])} served through B4 "
+          f"({serve_launches}), 16 images in {serve_ms:.2f} ms, max abs diff against the JAX "
+          f"package's images {err:.3e} (rtol 1e-3, atol 1e-4) [{card}]", flush=True)
+
+    run = Path(work) / "imported_run"
+    shutil.copytree(fixture, run)
+    ep = run / "epoch_0001"
+    meta = json.loads((ep / "state.json").read_text())
+    cfg = ckpt.load_config(run)
+    state = create_train_state(cfg, "cuda")
+    with np.load(ep / "generator.npz") as f:
+        g = bridge.unflatten(dict(f))
+    with np.load(ep / "generator_ema.npz") as f:
+        g_ema = bridge.unflatten(dict(f))
+    noise = np.load(ep / "fixed_noise.npy")
+
+    def adam(opt, model):
+        return {**bridge.opt_to_jax(opt, model), "count": np.int32(meta["step"]), "lr": 0.0}
+    ckpt.write_epoch(ep, (run / "config.json").read_text(), epoch=meta["epoch"],
+                     step=meta["step"], best_g_loss=meta["best_g_loss"], g=g, g_ema=g_ema,
+                     d=bridge.d_to_jax(state.d), g_opt=adam(state.g_opt, state.g),
+                     d_opt=adam(state.d_opt, state.d), fixed_noise=noise)
+    before = {k: v.copy() for k, v in np.load(ep / "generator.npz").items()}
+    for c in (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES):
+        c.reset()
+    t0 = time.perf_counter()
+    # The run's 48 steps an epoch (its step counter keys the epochs), at
+    # batch 32 on 1536 of phase 7's PNGs.
+    out = run_cli(train_cli.main, [
+        "--data_dir", str(Path(work) / "data"), "--checkpoint_dir", str(run),
+        "--sample_dir", str(Path(work) / "imported_samples"),
+        "--log_dir", str(Path(work) / "imported_logs"), "--resume", "--epochs", "3",
+        "--batch_size", "32", "--max_images", "1536",
+        "--ema_decay", str(cfg.ema_decay), "--seed", str(cfg.seed),
+        "--checkpoint_interval", "1", "--device", "cuda"])
+    resume_s = time.perf_counter() - t0
+    launches = {"pack_tail": pt.FWD_LAUNCHES.count,
+                "pack_tail_backward": pt.BWD_LAUNCHES.count, "train_tail": tt.LAUNCHES.count}
+    if f"Resumed from epoch 1 (step {meta['step']})" not in out:
+        raise AssertionError("the imported run did not resume at epoch 1")
+    idx = json.loads((run / "index.json").read_text())
+    new = json.loads((run / "epoch_0002" / "state.json").read_text())
+    metrics = json.loads(next((Path(work) / "imported_logs").glob("*.json")).read_text())["metrics"]
+    losses = [(m["d_loss"], m["g_loss"]) for m in metrics]
+    after = np.load(run / "epoch_0002" / "generator.npz")
+    moved = sum(not np.array_equal(before[k], after[k]) for k in before)
+    if (idx["latest"] != 2 or new["step"] != meta["step"] + 48 or len(losses) != 1
+            or not np.isfinite(losses).all() or moved < len(before) // 2
+            or not np.array_equal(np.load(run / "epoch_0002" / "fixed_noise.npy"), noise)
+            or launches != {"pack_tail": 96, "pack_tail_backward": 48, "train_tail": 48}):
+        raise AssertionError(f"imported run's resume: index {idx}, state {new}, losses "
+                             f"{losses}, {moved} of {len(before)} G arrays moved, launches "
+                             f"{launches}")
+    print(f"imported run: cli.train --resume at base_features {cfg.model.base_features} "
+          f"trained epoch 2 (steps {meta['step']} -> {new['step']}) in {resume_s:.2f} s, "
+          f"d_loss {losses[0][0]:.4f} g_loss {losses[0][1]:.4f}, {moved} of {len(before)} G "
+          f"arrays moved, fixed noise kept, launches {launches} [{card}]", flush=True)
+    return {"serve": serve_launches, "train": launches, "max_abs_err": err,
+            "serve_ms": serve_ms, "resume_s": resume_s}
+
+
+def panel_phase(card: str, work: str, b4_kernels, b4_ops: float):
+    """Phase 14b: the port's control panel on the card (``serve/app.py``,
+    what ``cli.app`` serves, on port 0), over a work directory with phase
+    7's full-width run under ``runs/`` (its sidecars set ``use_pallas``, so
+    generation runs B4) and phase 14a's imported run under
+    ``checkpoints/``; every endpoint driven over HTTP, a training
+    subprocess at ``TrainConfig()`` defaults run to its end. ``b4_kernels``,
+    ``b4_ops``: B4's device kernels and operations a call, as phase 1's
+    profile read them."""
+    import shutil
+    import numpy as np
+    from siggan_tpu_torch.infer.export import decode_png
+    from siggan_tpu_torch.ops.kernels import generator_fwd as gf
+    from siggan_tpu_torch.ops.kernels import upsample as up
+    from siggan_tpu_torch.serve.app import serve
+
+    root = Path(work) / "panel"
+    shutil.copytree(Path(work) / "run", root / "runs" / "p7")
+    shutil.copytree(Path(work) / "imported_run", root / "checkpoints" / "imported")
+    for side in (root / "runs" / "p7" / "checkpoints").rglob("config.json"):
+        side.write_text(json.dumps({**json.loads(side.read_text()), "use_pallas": True}))
+    p7 = "runs/p7/checkpoints"
+    server = serve("127.0.0.1", 0, root, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    ms, launches, b3_launches = {}, {}, {}
+    gf.LAUNCHES.reset()
+    up.LAUNCHES.reset()
+
+    def call(name, path, body=None, b4=None):
+        """One request: its ms, and the B4 and B3 launches while it ran
+        (summed over the requests of one name; a generation job's batches
+        land in its status polls, which may split a batch). B4 launches B3
+        three times a batch."""
+        before, b3_before = gf.LAUNCHES.count, up.LAUNCHES.count
+        payload, ctype, t = http(base + path, body)
+        ms[name] = t
+        n4, n3 = gf.LAUNCHES.count - before, up.LAUNCHES.count - b3_before
+        launches[name] = launches.get(name, 0) + n4
+        b3_launches[name] = b3_launches.get(name, 0) + n3
+        if b4 is not None and (n4 != b4 or n3 != 3 * b4):
+            raise AssertionError(f"panel {name}: {n4} B4 launches (expected {b4}), "
+                                 f"{n3} B3 launches")
+        return json.loads(payload) if ctype == "application/json" else payload
+
+    try:
+        found = {c["path"]: c for c in call("checkpoints", "/api/checkpoints")}
+        if sorted(found) != ["checkpoints/imported", p7] or found[p7]["latest"] != 2:
+            raise AssertionError(f"panel checkpoints: {found}")
+        gen = call("generate n=64", "/api/generate", {"checkpoint": p7, "n": 64, "seed": 3},
+                   b4=1)
+        if gen["count"] != 64 or len(gen["thumbnails"]) != 64:
+            raise AssertionError(f"panel generate: {gen['count']} images")
+        # The request's card work, its session's sample(64), profiled from
+        # this thread (the server's handler threads do not reach the trace).
+        # Late in this script the trace may be empty or hold part of that
+        # work (PERF.md section 7): its busy time counts only if it holds
+        # every kernel of B4 and at least B4's operations a call; the
+        # CUDA-event span is measured either way.
+        session = server.core._session(p7, "latest")
+        per, busy, ops = device_time(lambda: session.sample(64, seed=3), calls=3, cpu=True)
+        missing = [k[:60] for k in sorted(set(b4_kernels) - set(per))]
+        if missing or ops < b4_ops:
+            busy = None
+        span = card_span(session, 64)
+        best = call("generate n=64, quality filter 0.5", "/api/generate",
+                    {"checkpoint": p7, "n": 64, "seed": 4, "quality_filter": True,
+                     "keep_fraction": 0.5}, b4=2)
+        scores = best["scores"]
+        if (len(scores) != 64 or scores != sorted(scores, reverse=True)
+                or not all(0 < x < 1 for x in scores)):
+            raise AssertionError("panel quality filter: scores not D's top 64 in (0, 1)")
+        # Epoch 1 is the JAX run's (its sidecar sets use_pallas); epoch 2,
+        # phase 14a's resume, has the CLI's config.
+        imported = call("generate n=16 (imported run)", "/api/generate",
+                        {"checkpoint": "checkpoints/imported", "which": 1, "n": 16}, b4=1)
+        frames = call("interpolate", "/api/interpolate",
+                      {"checkpoint": p7, "steps": 10}, b4=1)["frames"]
+        if imported["count"] != 16 or len(frames) != 10:
+            raise AssertionError("panel: imported run's generation or interpolation")
+        b4_before_job, b3_before_job = gf.LAUNCHES.count, up.LAUNCHES.count
+        job = call("generate_start n=100", "/api/generate/start",
+                   {"checkpoint": p7, "n": 100, "batch_size": 32, "seed": 5})
+        t0 = time.perf_counter()
+        while True:
+            st = call("generate_status", f"/api/generate/status/{job['job']}")
+            if st["finished"] or time.perf_counter() - t0 > 120:
+                break
+            time.sleep(0.05)
+        ms["generation job"] = (time.perf_counter() - t0) * 1e3
+        # The job's batches run in the server's worker thread, between the
+        # polls too: count them over the whole job.
+        for counts in (launches, b3_launches):
+            counts.pop("generate_start n=100")
+            counts.pop("generate_status")
+        launches["generation job"] = gf.LAUNCHES.count - b4_before_job
+        b3_launches["generation job"] = up.LAUNCHES.count - b3_before_job
+        if (st["error"] or st["kept"] != 100 or st["n_files"] != 100
+                or launches["generation job"] != 4 or b3_launches["generation job"] != 12):
+            raise AssertionError(f"panel generation job: {st}, B4 launches "
+                                 f"{launches['generation job']} (4 batches of 32), B3 "
+                                 f"{b3_launches['generation job']}")
+        rel = job["output_rel"]
+        page = call("gallery", f"/api/gallery?dir={rel}&page=1&page_size=24")
+        sheet = decode_png(call("contact sheet", f"/api/contact_sheet?dir={rel}"))
+        chart = decode_png(call("runs compare", "/api/runs/compare?runs=p7&key=g_loss"))
+        zipped = zipfile.ZipFile(io.BytesIO(call("export zip", f"/api/export?dir={rel}")))
+        saved = call("save, binarize + transparency", "/api/save",
+                     {"dir": rel, "dest": "exports/bin", "binarize": True, "threshold": 128,
+                      "transparent": True})
+        rgba = decode_png((root / "exports" / "bin" / saved["names"][0]).read_bytes())
+        if (page["total"] != 100 or len(page["items"]) != 24 or sheet.ndim != 3
+                or chart.shape != (495, 880, 3) or len(zipped.namelist()) != 100
+                or saved["saved"] != 100 or rgba.shape != (64, 64, 4)
+                or not set(np.unique(rgba[..., 3])) <= {0, 255}):
+            raise AssertionError("panel gallery / contact sheet / chart / zip / save")
+        about = call("about", "/api/about")
+        if about["platform"] != "gpu" or not about["memory"]["bytes_in_use"]:
+            raise AssertionError(f"panel about: {about}")
+        started = call("train_start", "/api/train/start",
+                       {"data_dir": str(Path(work) / "data"), "run_name": "panel_run",
+                        "epochs": 1})
+        if "error" in started:
+            raise AssertionError(f"panel train_start: {started}")
+        t0 = time.perf_counter()
+        while True:
+            st = call("train_status", "/api/train/status")
+            if not st["running"] or time.perf_counter() - t0 > 600:
+                break
+            time.sleep(1.0)
+        train_s = time.perf_counter() - t0
+        run = root / "runs" / "panel_run"
+        tail = "\n".join(st.get("log_tail") or [])
+        if (st["running"] or st["epochs_done"] != 1 or not st.get("latest_sample")
+                or not (run / "checkpoints" / "config.json").exists()
+                or "Training summary" not in tail):
+            raise AssertionError(f"panel training subprocess: {st.get('metrics')}\n{tail}")
+        runs = call("runs", "/api/runs")
+        if sorted(r["name"] for r in runs) != ["p7", "panel_run"]:
+            raise AssertionError(f"panel runs: {runs}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    m = st["metrics"][-1]
+    print("panel: request ms " + "; ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; the generate n=64 request's card work (its session's sample(64)): "
+          f"{span:.4f} ms between CUDA events (z in, B4, images out), card busy "
+          f"{fmt_ms(busy)} by the profiler ({ops:.0f} device operations"
+          + (f"; the trace lacks B4's kernels {missing} or operations ({b4_ops:.0f} a "
+             f"call), so its busy time is not counted" if busy is None else "")
+          + f"); B4 launches {launches}; B3 launches {b3_launches}; "
+          f"training subprocess (TrainConfig() defaults, "
+          f"1 epoch on phase 7's 2048 PNGs, 32 steps of 64) ran to its end in {train_s:.1f} s "
+          f"from its start: d_loss {m['d_loss']:.4f} g_loss {m['g_loss']:.4f} [{card}]",
+          flush=True)
+    return {"request_ms": ms, "generate_busy_ms": busy, "generate_card_span_ms": span,
+            "generate_trace_lacks": missing, "b4_launches": launches,
+            "b3_launches": b3_launches, "train_subprocess_s": train_s}
+
+
+def card_span(session, n: int, reps: int = 5) -> float:
+    """The median ms between CUDA events around what a request for ``n``
+    images runs on the card: the latents in, the generator forward, the
+    images out. A sleep kernel ahead of the first event lets the host queue
+    all of it, so the span is the card's, not the host's launch pace."""
+    import statistics
+    import torch
+    z = torch.randn(n, session.cfg.latent_dim,
+                    generator=torch.Generator().manual_seed(3)).pin_memory()
+    out = torch.empty((n, 64, 64, 1), pin_memory=True)
+    spans = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        out.copy_(session._fwd(z.to("cuda", non_blocking=True)), non_blocking=True)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return statistics.median(spans[1:])
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2086,6 +2466,9 @@ def main() -> int:
         decode_stats = decode_phase(card, work)
         paths["train share_fakes"] = shared_fakes_phase(card, work)
         ablation_stats = ablation_phase(card, work)
+        imported = imported_run_phase(card, work)
+        paths["imported JAX run resume"] = imported["train"]
+        panel = panel_phase(card, work, b4["device_kernels"], b4["device_ops"])
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
@@ -2108,9 +2491,13 @@ def main() -> int:
                    device_kernels=b4["device_kernels"],
                    launches_by_path={"serving": launches["generator_forward"],
                                      "evaluation": eval_launches["generator_forward"],
-                                     "verification": verify_launches["generator_forward"]},
+                                     "verification": verify_launches["generator_forward"],
+                                     "imported JAX run": imported["serve"]["generator_forward"],
+                                     "panel": sum(panel["b4_launches"].values())},
+                   panel_b4_launches_by_request=panel["b4_launches"],
                    eval_stages=stages, verification_stages=verify_stages,
-                   decode_stages=decode_stats, ablation=ablation_stats)
+                   decode_stages=decode_stats, ablation=ablation_stats,
+                   imported_run=imported, panel=panel)
     b3_line = entry("upsample_block", "cuda", "siggan_tpu_torch/csrc/convt_phase.cuh",
                     "siggan_tpu/ops/pallas/upsample.py:89", b3)
     b3_line.update(library="F.conv_transpose2d (no affine epilogue); times and bounds are "
@@ -2122,7 +2509,10 @@ def main() -> int:
                    cuda_core_bound_ms=b3["cuda_core_bound_ms"],
                    launches_by_path={"serving": launches["upsample_block"],
                                      "evaluation": eval_launches["upsample_block"],
-                                     "verification": verify_launches["upsample_block"]})
+                                     "verification": verify_launches["upsample_block"],
+                                     "imported JAX run": imported["serve"]["upsample_block"],
+                                     "panel": sum(panel["b3_launches"].values())},
+                   panel_b3_launches_by_request=panel["b3_launches"])
     b1_tol = "torch.equal (a copy and a cast)"
     b1_line = entry("pack_tail", "cuda", "siggan_tpu_torch/csrc/pack_tail.cu",
                     "siggan_tpu/ops/packed.py:636", b1["bfloat16"]["fwd"])
@@ -2135,13 +2525,17 @@ def main() -> int:
                         "placements, taken in another order by the plain version",
                     f32=b1["float32"]["bwd"],
                     library="index_add_ of the flat cotangent (cast to f32); bf16 input")
+    not_counted = ("the panel's training subprocess (phase 14b) runs B1, B1' and B2 in its own "
+                   "process, whose counters this script cannot read")
     for line in (b1_line, b1b_line):
         line["launches_by_path"] = {k: v[line["name"]] for k, v in paths.items()}
+        line["not_counted"] = not_counted
     b2_line = entry("train_tail", "cuda", "siggan_tpu_torch/csrc/train_tail.cu",
                     "siggan_tpu/ops/pallas/train_tail.py:154", b2[128]["bfloat16"])
     b2_line.update(tol=B2_TOL_NOTE, launches_by_path={k: v["train_tail"]
                                                       for k, v in paths.items()},
                    f32=b2[128]["float32"], px64=b2[64], vs_module_path=b2_route,
+                   not_counted=not_counted,
                    tensor_core_sass=tiles,
                    library="the port's no-grad module-path tail (cuDNN convs, "
                            "PyTorch BN and elementwise ops), bf16; 128 px, batch 64; "

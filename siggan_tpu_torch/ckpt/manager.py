@@ -29,8 +29,12 @@ as the JAX package's ``load_generator`` returns the shadow;
 ``generator.npz`` always holds the raw weights. The resume rules are the
 JAX package's: a shadow missing from the checkpoint starts as a copy of
 the restored weights, and one present while ``ema_decay == 0`` is dropped.
-Orbax directories of the JAX package cannot be read without JAX (ROADMAP
-A.2).
+
+The epoch layout is written in one place, ``write_epoch``, from JAX-layout
+trees of numpy arrays; ``CheckpointManager.save`` converts its train state
+to those trees and calls it, and so does ``scripts/import_jax_run.py``,
+which turns a JAX package run (Orbax directories, read with JAX where it is
+installed) into a run of this layout that the port serves and resumes.
 """
 
 from __future__ import annotations
@@ -114,6 +118,17 @@ def load_generator(directory: str | Path, device,
     return bridge.from_jax(g_params, g_bn, cfg.model, device), cfg
 
 
+def load_discriminator(directory: str | Path, device,
+                       which: str | int = "latest") -> Tuple[torch.nn.Module, TrainConfig]:
+    """(Discriminator on ``device`` in eval mode, TrainConfig) of the epoch
+    ``which`` names in a run directory (its spectral-norm u's included)."""
+    d = _generator_dir(directory, which)
+    cfg = load_config(d)
+    d_params, d_state = bridge.unflatten(_load_npz(d / D_WEIGHTS), D_STATE)
+    model = bridge.d_from_jax(d_params, cfg.model, device, d_state)
+    return model.eval(), cfg
+
+
 def infer_architecture(arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
     """(latent_dim, image_size, base_features) from the weight shapes, as
     the JAX package's ``infer_architecture`` reads a bare tree."""
@@ -125,14 +140,52 @@ def infer_architecture(arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
             "base_features": int(c0 if image_size == 64 else c0 // 2)}
 
 
-def _opt_arrays(prefix: str, opt: Dict, model) -> Dict[str, np.ndarray]:
-    tree = bridge.opt_to_jax(opt, model)
-    out = {f"{prefix}/count": np.asarray(tree["count"]),
-           f"{prefix}/lr": opt["lr"].detach().cpu().numpy()}
+def _opt_arrays(prefix: str, tree: Dict) -> Dict[str, np.ndarray]:
+    out = {f"{prefix}/count": np.asarray(tree["count"], np.int32),
+           f"{prefix}/lr": np.asarray(tree["lr"], np.float32)}
     for k in ("m", "v"):
         for path, a in bridge.flatten(tree[k], {}).items():
             out[f"{prefix}/{k}/{path}"] = a
     return out
+
+
+Trees = Tuple[Dict, Dict]
+
+
+def write_epoch(path: str | Path, cfg_json: str, *, epoch: int, step: int,
+                best_g_loss: float, g: Trees, d: Trees, g_opt: Dict, d_opt: Dict,
+                fixed_noise: np.ndarray, g_ema: Optional[Trees] = None) -> Path:
+    """Write one epoch directory of the run layout from JAX-layout trees of
+    numpy arrays, replacing what ``path`` held: ``g`` = (g_params, g_bn),
+    ``d`` = (d_params, d_state), ``g_ema`` = (params, bn) of the shadow or
+    None, each Adam state {count, m, v, lr} with m and v shaped like its
+    model's parameter tree (any float dtype, bf16 included; stored as f32)
+    and ``lr`` the learning rate its last update applied (0 before the
+    first); ``cfg_json`` the ``TrainConfig`` sidecar."""
+    path = Path(path)
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    (path / SIDECAR).write_text(cfg_json)
+    np.savez(path / WEIGHTS, **bridge.flatten(*g))
+    if g_ema is not None:
+        np.savez(path / EMA_WEIGHTS, **bridge.flatten(*g_ema))
+    np.savez(path / D_WEIGHTS, **bridge.flatten(*d, D_STATE))
+    np.savez(path / OPTIMIZER, **_opt_arrays("g", g_opt), **_opt_arrays("d", d_opt))
+    np.save(path / NOISE, np.asarray(fixed_noise, np.float32))
+    (path / STATE).write_text(json.dumps({
+        "step": int(step), "epoch": int(epoch), "best_g_loss": float(best_g_loss)}))
+    return path
+
+
+def write_index(directory: str | Path, idx: Dict[str, Any]) -> None:
+    """A run's ``index.json``: ``epochs``, ``latest``, ``best`` and the
+    ``best_g_loss`` / ``best_fid`` the aliases were chosen by."""
+    (Path(directory) / INDEX).write_text(json.dumps(idx, indent=2))
+
+
+def _opt_state(opt: Dict, model) -> Dict:
+    return {**bridge.opt_to_jax(opt, model), "lr": opt["lr"].detach().cpu().numpy()}
 
 
 def _opt_tree(prefix: str, arrays: Dict[str, np.ndarray]) -> Dict:
@@ -195,19 +248,15 @@ class CheckpointManager:
         else:
             is_best = g_loss is not None and (best is None or g_loss < best)
         cands = [x for x in (best, g_loss) if x is not None]
-        path = self._epoch_dir(epoch)
-        if path.exists():
-            shutil.rmtree(path)
-        save_generator(path, state.g, self.cfg)
-        if state.g_ema is not None:
-            np.savez(path / EMA_WEIGHTS, **bridge.flatten(*bridge.to_jax(state.g_ema)))
-        np.savez(path / D_WEIGHTS, **bridge.flatten(*bridge.d_to_jax(state.d), D_STATE))
-        np.savez(path / OPTIMIZER, **_opt_arrays("g", state.g_opt, state.g),
-                 **_opt_arrays("d", state.d_opt, state.d))
-        np.save(path / NOISE, fixed_noise.detach().float().cpu().numpy())
-        (path / STATE).write_text(json.dumps({
-            "step": int(state.step), "epoch": int(epoch),
-            "best_g_loss": float(min(cands)) if cands else float("inf")}))
+        if self.cfg.model != state.g.cfg:
+            raise ValueError("cfg.model differs from the generator's own config")
+        path = write_epoch(
+            self._epoch_dir(epoch), self.cfg.to_json(), epoch=epoch, step=state.step,
+            best_g_loss=float(min(cands)) if cands else float("inf"),
+            g=bridge.to_jax(state.g), d=bridge.d_to_jax(state.d),
+            g_opt=_opt_state(state.g_opt, state.g), d_opt=_opt_state(state.d_opt, state.d),
+            fixed_noise=fixed_noise.detach().float().cpu().numpy(),
+            g_ema=None if state.g_ema is None else bridge.to_jax(state.g_ema))
         if epoch not in idx["epochs"]:
             idx["epochs"].append(epoch)
         idx["latest"] = epoch
@@ -217,7 +266,7 @@ class CheckpointManager:
                 idx["best_fid"] = float(fid)
             else:
                 idx["best_g_loss"] = float(g_loss)
-        (self.dir / INDEX).write_text(json.dumps(idx, indent=2))
+        write_index(self.dir, idx)
         return path
 
     def available(self) -> Dict[str, Any]:

@@ -25,7 +25,10 @@ raise ``NotImplementedError``, as does a dataset over ``resident_max_mb``
 (the streaming loader).
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve
 --checkpoint DIR`` (its latest epoch), and ``cli.generate --which`` samples
-any saved epoch.
+any saved epoch. ``--resume`` takes the architecture fields no flag sets
+(``base_features``, ``g_activation``, ...) from the checkpoint directory's
+``config.json``, so a run saved at another width (one imported from the JAX
+package by ``scripts/import_jax_run.py``, say) resumes as it was built.
 """
 
 from __future__ import annotations
@@ -143,11 +146,31 @@ def build_config(args: argparse.Namespace):
     )
 
 
+# ModelConfig fields that a flag of this CLI sets.
+FLAG_MODEL_FIELDS = ("latent_dim", "image_size", "use_spectral_norm", "num_classes",
+                     "g_conditioning", "aux_classifier")
+
+
+def resume_config(cfg):
+    """``cfg`` with the model fields no flag sets taken from the checkpoint
+    directory's sidecar, when there is one."""
+    import dataclasses
+    from siggan_tpu_torch.core.config import TrainConfig
+    sidecar = Path(cfg.checkpoint_dir) / "config.json"
+    if not sidecar.exists():
+        return cfg
+    saved = TrainConfig.from_json(sidecar.read_text()).model
+    model = dataclasses.replace(saved, **{k: getattr(cfg.model, k) for k in FLAG_MODEL_FIELDS})
+    return cfg.replace(model=model)
+
+
 def main(argv=None) -> int:
     args = parse_arguments(argv)
     from siggan_tpu_torch.core.platform import resolve_device
     device = resolve_device(args.device)
     cfg = build_config(args)
+    if args.resume or args.resume_from:
+        cfg = resume_config(cfg)
 
     from siggan_tpu_torch.data.dataset import SignatureDataset
     from siggan_tpu_torch.train.trainer import GANTrainer

@@ -3,7 +3,9 @@
 Port of the JAX package's ``data/dataset.py``. The whole set is decoded
 once into a contiguous float32 (N, s, s, 1) array, which the trainer moves
 to the card; a ``.npy`` cache beside the data directory makes re-runs
-decode-free. The files are those the JAX package reads (.png, .jpg, .jpeg,
+decode-free (its name carries the decoder's version,
+``data/native/loader.py::DECODE_VERSION``, and is not the JAX package's
+cache name). The files are those the JAX package reads (.png, .jpg, .jpeg,
 .bmp, .tiff, .tif), each decoded by its content, not its name, with no
 imaging package: PNG by ``infer/export.decode_png``, JPEG, BMP and TIFF by
 the port's C++ decoder (``data/native/``), the whole set on several
@@ -20,10 +22,12 @@ from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -91,24 +95,60 @@ def decode_image(path: Path, image_size: int) -> np.ndarray:
     return _scaled(gray, image_size)
 
 
-def decode_images(paths: List[Path], image_size: int) -> np.ndarray:
+# The Python pool pays once the files it decodes or resizes average about
+# this many pixels. Between the two sizes measured on the card's host
+# (``chip_smoke.py`` phase 12, PERF.md PR 11): 210 x 80 PNGs (16,800 px) went
+# faster on 1 thread than on 8, 1200 x 500 pages (600,000 px) 2.4-3.2 times
+# faster on 8; where between them the two cross is not measured.
+POOL_MIN_PIXELS = 1 << 17
+
+
+def _png_pixels(path: Path) -> int:
+    """Width x height from a PNG's IHDR (0 if the header is cut short)."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    return int.from_bytes(head[16:20], "big") * int.from_bytes(head[20:24], "big")
+
+
+def pool_threads(paths: List[Path], grays, status, threads: int) -> int:
+    """The Python pool's size for ``decode_images``: ``threads`` when the
+    files it decodes (PNG) or resizes (the rest) average ``POOL_MIN_PIXELS``
+    or more, else 1 (on small files the interpreter lock's hand-offs cost
+    more than the work that runs without it)."""
+    px = [_png_pixels(p) if s == native.PNG else grays[i].size
+          for i, (p, s) in enumerate(zip(paths, status)) if s in (native.PNG, native.OK)]
+    return threads if px and sum(px) >= POOL_MIN_PIXELS * len(px) else 1
+
+
+def decode_images(paths: List[Path], image_size: int,
+                  n_threads: Optional[int] = None) -> np.ndarray:
     """``decode_image`` of every path -> (N, s, s, 1) float32: JPEG, BMP and
-    TIFF files on the C++ decoder's threads, PNG files in Python."""
-    grays, status, msgs = native.decode_files(paths)
-    out = np.empty((len(paths), image_size, image_size, 1), np.float32)
-    for i, p in enumerate(paths):
+    TIFF files in the C++ decoder's own threads (up to 8, one per core);
+    then PNG files (zlib and the C++ row unfilter, both of which release the
+    interpreter lock) and every resize on a pool of Python threads, as many
+    as ``pool_threads`` gives. ``n_threads`` fixes both counts."""
+    threads = n_threads or min(8, os.cpu_count() or 1)
+    grays, status, msgs = native.decode_files(paths, threads)
+    pool_size = n_threads or pool_threads(paths, grays, status, threads)
+
+    def one(i: int) -> np.ndarray:
+        p = paths[i]
         if status[i] == native.PNG:
             try:
-                out[i] = _scaled(_to_gray(decode_png(p.read_bytes())), image_size)
+                return _scaled(_to_gray(decode_png(p.read_bytes())), image_size)
             except DECODE_ERRORS as e:
-                out[i] = _zero_image(p, image_size, e)
-        elif status[i] == native.OK:
-            out[i] = _scaled(grays[i], image_size)
-        else:
-            err = native.error(int(status[i]), msgs[i], str(p))
-            if isinstance(err, NotImplementedError):
-                raise err
-            out[i] = _zero_image(p, image_size, err)
+                return _zero_image(p, image_size, e)
+        if status[i] == native.OK:
+            return _scaled(grays[i], image_size)
+        err = native.error(int(status[i]), msgs[i], str(p))
+        if isinstance(err, NotImplementedError):
+            raise err
+        return _zero_image(p, image_size, err)
+
+    out = np.empty((len(paths), image_size, image_size, 1), np.float32)
+    with ThreadPoolExecutor(pool_size) as pool:
+        for i, img in enumerate(pool.map(one, range(len(paths)))):
+            out[i] = img
     return out
 
 
@@ -140,10 +180,15 @@ class SignatureDataset:
         return np.asarray([index[p.parent.name] for p in self.paths], np.int32), names
 
     def _cache_path(self) -> Path:
+        """The port's own cache file: its name carries ``DECODE_VERSION``,
+        so neither the JAX package's cache (``.siggan_cache_*``: its native
+        decoder may be 1-2 grey levels off PIL) nor one an older decoder of
+        the port wrote is read."""
         sig = hashlib.sha1(
             ("|".join(f"{p.name}:{p.stat().st_size}" for p in self.paths)
              + f"@{self.image_size}").encode()).hexdigest()[:16]
-        return self.data_dir / f".siggan_cache_{self.image_size}_{sig}.npy"
+        return self.data_dir / (f".siggan_torch_cache_{self.image_size}_"
+                                f"{native.DECODE_VERSION}_{sig}.npy")
 
     def _load(self, use_cache: bool) -> np.ndarray:
         cache = self._cache_path()
@@ -168,3 +213,12 @@ class SignatureDataset:
                 "mean": float(x.mean()), "std": float(x.std()),
                 "min": float(x.min()), "max": float(x.max())}
 
+
+def train_val_split(ds: SignatureDataset, val_fraction: float = 0.1,
+                    seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(train, val) images: a shuffled split by numpy's ``RandomState(seed)``
+    permutation, the JAX package's ``train_val_split`` index for index."""
+    n = len(ds)
+    idx = np.random.RandomState(seed).permutation(n)
+    n_val = int(n * val_fraction)
+    return ds.images[idx[n_val:]], ds.images[idx[:n_val]]

@@ -20,6 +20,10 @@
 // bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255), RGB/RGBA
 // at 8 and 16 bits (PIL keeps the high byte), grey+alpha, palettes.
 //
+// PNG: the Python side (infer/export.py::decode_png) parses the chunks and
+// inflates the image data with zlib; sig_png_unfilter undoes the five row
+// filters (None, Sub, Up, Average, Paeth) for any bytes per pixel.
+//
 // Every entry returns a status: 0 ok, 1 corrupt (truncated or malformed
 // data), 2 unsupported (a valid file of a kind not read here), 3 the file
 // could not be read, 4 a PNG file (decoded by the Python side).
@@ -1313,9 +1317,80 @@ int finish(int status, const Gray* g, uint8_t** out, int* w, int* h) {
   return kOk;
 }
 
+inline uint8_t paeth(int a, int b, int c) {
+  int p = a + b - c, pa = abs(p - a), pb = abs(p - b), pc = abs(p - c);
+  if (pa <= pb && pa <= pc) return (uint8_t)a;
+  return (uint8_t)(pb <= pc ? b : c);
+}
+
+// `h` rows of 1 filter byte + `stride` data bytes at `raw` -> `out` (h *
+// stride bytes); `bpp` >= 1 is the bytes of one complete pixel (the left
+// neighbour's distance). The row above the first is zeros.
+void png_unfilter(const uint8_t* raw, int h, int64_t stride, int bpp, uint8_t* out) {
+  const uint8_t* prev = nullptr;
+  for (int r = 0; r < h; ++r) {
+    const uint8_t* in = raw + (int64_t)r * (stride + 1);
+    const int f = *in++;
+    uint8_t* cur = out + (int64_t)r * stride;
+    const int64_t lead = std::min<int64_t>(bpp, stride);
+    switch (f) {
+      case 0:
+        memcpy(cur, in, stride);
+        break;
+      case 1:
+        memcpy(cur, in, lead);
+        for (int64_t i = bpp; i < stride; ++i) cur[i] = (uint8_t)(in[i] + cur[i - bpp]);
+        break;
+      case 2:
+        if (!prev) {
+          memcpy(cur, in, stride);
+        } else {
+          for (int64_t i = 0; i < stride; ++i) cur[i] = (uint8_t)(in[i] + prev[i]);
+        }
+        break;
+      case 3:
+        for (int64_t i = 0; i < lead; ++i) cur[i] = (uint8_t)(in[i] + ((prev ? prev[i] : 0) >> 1));
+        for (int64_t i = bpp; i < stride; ++i)
+          cur[i] = (uint8_t)(in[i] + ((cur[i - bpp] + (prev ? prev[i] : 0)) >> 1));
+        break;
+      case 4:
+        if (!prev) {  // Paeth with a zero row above is Sub.
+          memcpy(cur, in, lead);
+          for (int64_t i = bpp; i < stride; ++i) cur[i] = (uint8_t)(in[i] + cur[i - bpp]);
+        } else {
+          for (int64_t i = 0; i < lead; ++i) cur[i] = (uint8_t)(in[i] + prev[i]);
+          for (int64_t i = bpp; i < stride; ++i)
+            cur[i] = (uint8_t)(in[i] + paeth(cur[i - bpp], prev[i], prev[i - bpp]));
+        }
+        break;
+      default:
+        corrupt("bad PNG filter type " + std::to_string(f));
+    }
+    prev = cur;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// PNG rows as zlib inflates them (`n` bytes at `raw`: `h` rows of a filter
+// byte and `stride` bytes) -> `out`, h * stride unfiltered bytes; `bpp` the
+// bytes of one complete pixel (1 below 8 bits a sample). Returns 0, or 1
+// with msg set (too little data, a bad filter type).
+int sig_png_unfilter(const uint8_t* raw, int64_t n, int h, int64_t stride, int bpp, uint8_t* out,
+                     char* msg, int msg_len) {
+  try {
+    if (h < 0 || stride < 0 || bpp < 1) corrupt("bad PNG row geometry");
+    if (n < (int64_t)h * (stride + 1)) corrupt("PNG image data is too short");
+    png_unfilter(raw, h, stride, bpp, out);
+  } catch (const DecodeError& e) {
+    put_msg(msg, msg_len, e.msg);
+    return e.status;
+  }
+  put_msg(msg, msg_len, "");
+  return kOk;
+}
 
 // One image in memory -> grey. On status 0, *out holds w*h bytes (free with
 // sig_free); otherwise msg names what failed.

@@ -2,7 +2,9 @@
 
 The decoder reads JPEG, BMP and TIFF files to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
-files are recognised and left to ``infer/export.py::decode_png``. The
+files are recognised and left to ``infer/export.py::decode_png``, which
+inflates their rows with zlib and undoes the row filters here
+(``png_unfilter``). The
 format comes from the file's first bytes, not from its name. The library is
 built with ``g++`` at first use into ``build/siggan_tpu_torch/``
 (``ops/kernels/build.py::load_host``); there is no other decoder to fall
@@ -26,6 +28,13 @@ import numpy as np
 from siggan_tpu_torch.ops.kernels import build
 
 SOURCE = Path(__file__).with_name("decode.cpp")
+# The version of what the dataset decodes: the decoders (this library and
+# ``infer/export.py::decode_png``) and the resize (``data/resample.py``).
+# It names the dataset cache (``data/dataset.py``), so a cache written by an
+# older decoder is never read. Bump it in every change that alters a decoded
+# or resized pixel. d1: the decoders of the PNG-in-Python port; d2: PNG rows
+# unfiltered by ``sig_png_unfilter``.
+DECODE_VERSION = "d2"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 
@@ -34,6 +43,9 @@ _SIGNATURES = {
     "sig_decode": ([ctypes.c_char_p, ctypes.c_int64, _P(ctypes.c_void_p), _P(ctypes.c_int),
                     _P(ctypes.c_int), ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
     "sig_free": ([ctypes.c_void_p], None),
+    "sig_png_unfilter": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int],
+                         ctypes.c_int),
     "sig_decode_files": ([_P(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, _P(ctypes.c_void_p),
                           _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_int),
                           ctypes.c_char_p, ctypes.c_int], None),
@@ -77,6 +89,24 @@ def decode(data: bytes, what: str = "image") -> np.ndarray:
     if st != OK:
         raise error(st, msg.value.decode(errors="replace"), what)
     return _take(lib, ptr.value, w.value, h.value)
+
+
+def png_unfilter(raw: np.ndarray, pos: int, h: int, stride: int, bpp: int) -> np.ndarray:
+    """``h`` PNG rows of a filter byte and ``stride`` bytes at ``raw[pos:]``
+    (uint8, as zlib inflates the image data) -> (h, stride) uint8 with the
+    row filters undone (``bpp``: bytes of one complete pixel, at least 1).
+    Raises ``ValueError`` on too little data or a bad filter type."""
+    lib = library()
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if not 0 <= pos <= raw.size:
+        raise ValueError("PNG image data is too short")
+    out = np.empty((h, stride), np.uint8)
+    msg = ctypes.create_string_buffer(_MSG)
+    st = lib.sig_png_unfilter(raw.ctypes.data + pos, raw.size - pos, h, stride, bpp,
+                              out.ctypes.data, msg, _MSG)
+    if st != OK:
+        raise ValueError(msg.value.decode(errors="replace"))
+    return out
 
 
 def decode_files(paths: Sequence[str | Path], n_threads: Optional[int] = None

@@ -3,9 +3,10 @@
 The same functions as the JAX package's ``infer/export.py``. PNGs are
 encoded with the standard library (zlib) so that serving needs no imaging
 package: 8-bit grayscale, RGB or RGBA, one filter byte of 0 per row.
-``decode_png`` reads every kind of PNG back to 8 bits as PIL does (all five
-row filters; None, Sub and Up as numpy row operations, Average and Paeth
-byte by byte; Adam7 interlacing).
+``decode_png`` reads every kind of PNG back to 8 bits as PIL does: zlib
+inflates the rows, the port's host decoder (``data/native/decode.cpp``,
+``sig_png_unfilter``) undoes the five row filters, numpy unpacks the
+samples; Adam7 interlacing.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import List
 
 import numpy as np
 
+from siggan_tpu_torch.data.native.loader import png_unfilter
 from siggan_tpu_torch.utils.visualizer import make_grid, to_uint8
 
 _SIG = b"\x89PNG\r\n\x1a\n"
@@ -45,55 +47,11 @@ def encode_png(u8: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}        # PNG colour type -> samples
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # Adam7 passes: (x0, y0, dx, dy).
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
-
-
-def _unfilter(raw: bytes, pos: int, h: int, stride: int, bpp: int) -> np.ndarray:
-    """``h`` filtered rows of ``stride`` bytes at ``raw[pos:]`` -> (h, stride)
-    uint8 (``bpp``: bytes per complete pixel, at least 1)."""
-    if len(raw) < pos + h * (stride + 1):
-        raise ValueError("PNG image data is too short")
-    rows = np.frombuffer(raw, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for r in range(h):
-        f, line = rows[r, 0], rows[r, 1:]
-        if f > 4:
-            raise ValueError(f"bad PNG filter type {f}")
-        if f == 0:
-            cur = line
-        elif f == 1 and stride % bpp == 0:   # Sub: a running sum of each byte lane
-            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.int64) & 0xFF
-                   ).astype(np.uint8).reshape(stride)
-        elif f == 2:      # Up
-            cur = line + prev
-        else:             # Sub (ragged), Average and Paeth: byte by byte
-            vals, up_ = line.tolist(), prev.tolist()
-            for i in range(stride):
-                left = vals[i - bpp] if i >= bpp else 0
-                if f == 1:
-                    pred = left
-                elif f == 3:
-                    pred = (left + up_[i]) // 2
-                else:
-                    pred = _paeth(left, up_[i], up_[i - bpp] if i >= bpp else 0)
-                vals[i] = (vals[i] + pred) & 0xFF
-            cur = np.asarray(vals, np.uint8)
-        out[r] = cur
-        prev = out[r]
-    return out
 
 
 def _samples(rows: np.ndarray, w: int, chans: int, depth: int) -> np.ndarray:
@@ -150,12 +108,12 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("palette PNG without a PLTE chunk")
     chans = _CHANNELS[ctype]
     bpp = max(1, chans * depth // 8)
-    raw = zlib.decompress(b"".join(idat))
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     stride = lambda width: (width * chans * depth + 7) // 8  # noqa: E731
     if not interlace:
         if len(raw) != h * (stride(w) + 1):
             raise ValueError("PNG image data has the wrong size")
-        img = _samples(_unfilter(raw, 0, h, stride(w), bpp), w, chans, depth)
+        img = _samples(png_unfilter(raw, 0, h, stride(w), bpp), w, chans, depth)
     else:
         img = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
         pos = 0
@@ -163,7 +121,7 @@ def decode_png(data: bytes) -> np.ndarray:
             pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
             if pw <= 0 or ph <= 0:
                 continue
-            img[y0::dy, x0::dx] = _samples(_unfilter(raw, pos, ph, stride(pw), bpp),
+            img[y0::dy, x0::dx] = _samples(png_unfilter(raw, pos, ph, stride(pw), bpp),
                                            pw, chans, depth)
             pos += ph * (stride(pw) + 1)
         if pos != len(raw):
@@ -218,3 +176,20 @@ def contact_sheet(images: np.ndarray, path: str | Path, nrow: int = 8,
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(encode_png(make_grid(u8, nrow=nrow)))
     return path
+
+
+def postprocess_binarize(images: np.ndarray, threshold: int = 128,
+                         transparent: bool = False) -> np.ndarray:
+    """Binarize uint8 images (N, H, W) or (N, H, W, 1): 255 above
+    ``threshold``, else 0; with ``transparent`` an (N, H, W, 4) RGBA batch
+    whose ink is opaque black and whose background is transparent (the
+    panel's export post-processing, as in the JAX package)."""
+    u8 = np.asarray(images, np.uint8)
+    binary = np.where(u8 > threshold, 255, 0).astype(np.uint8)
+    if not transparent:
+        return binary
+    gray = binary[..., 0] if binary.ndim == 4 and binary.shape[-1] == 1 else binary
+    n, h, w = gray.shape
+    rgba = np.zeros((n, h, w, 4), np.uint8)
+    rgba[..., 3] = 255 - gray
+    return rgba

@@ -1,20 +1,17 @@
 """Conditional (v2.0) training of the port against the JAX package: the
 labeled writer-style data (bit-equal), ``writer_labels``, the
 discriminator's projection and AC-GAN heads with and without spectral norm,
-the train-mode generator in every ``g_conditioning`` mode (and kernel B2's
-route for ``concat``), labels through the resident and K-step routes
-(their graph buffers replayed on the CPU), and the conditional trainer and
-CLI end to end on the CPU (grid, checkpoint, resume with the schedule
-going on, served with ``class_id``).
+and the train-mode generator in every ``g_conditioning`` mode (and kernel
+B2's route for ``concat``). Labels through the resident and K-step routes
+are in ``test_torch_port_conditional_steps.py``, the conditional trainer
+and CLI in ``test_torch_port_conditional_cli.py``.
 
 Tolerances: f32 rtol 1e-4 / atol 1e-5 (the same math, sums in another
 order); spectral-norm vectors rtol 1e-5 / atol 1e-6 (unit vectors); the
 pack-tail route against the module route as ``test_torch_port_train_tail``
 holds it (rtol 1e-4 / atol 1e-5)."""
 
-import base64
 import copy
-import json
 
 import jax
 import jax.numpy as jnp
@@ -29,19 +26,11 @@ from siggan_tpu.data.dataset import SignatureDataset as JSignatureDataset
 from siggan_tpu.models import discriminator as jdisc
 from siggan_tpu.models import generator as jgen
 from siggan_tpu_torch import bridge
-from siggan_tpu_torch.ckpt.manager import CheckpointManager
-from siggan_tpu_torch.cli import train as train_cli
-from siggan_tpu_torch.core.config import ModelConfig, OptimConfig, TrainConfig
-from siggan_tpu_torch.core.state import create_train_state, lr_schedule
+from siggan_tpu_torch.core.config import ModelConfig
 from siggan_tpu_torch.data import synthetic
 from siggan_tpu_torch.data.dataset import SignatureDataset
-from siggan_tpu_torch.infer.export import decode_png
 from siggan_tpu_torch.models.generator import fused_tail_supported
 from siggan_tpu_torch.ops.kernels import train_tail as tt
-from siggan_tpu_torch.serve.api import ApiCore
-from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
-                                               make_resident_train_step, state_tensors)
-from test_torch_port_multistep import assert_states_equal, uncaptured, windows
 from test_torch_port_train import TINY, jax_masks, np_tree, port_cfg, widths
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -157,106 +146,3 @@ def test_train_mode_conditional_generator_matches_apply_fn(mode):
         np.testing.assert_allclose(fused.numpy(), img.detach().numpy(), **TOL)
         for a, b in zip(g2.buffers(), g.buffers()):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-6)
-
-
-def v20_cfg(**kw) -> TrainConfig:
-    return TrainConfig(
-        model=ModelConfig(num_classes=3, g_conditioning="concat", use_spectral_norm=True,
-                          aux_classifier=True, **TINY),
-        batch_size=4, compute_dtype="float32", seed=3, diffaugment="color,translation,cutout",
-        ema_decay=0.9, aux_weight=0.5, aux_d_on_fakes=True,
-        optim=OptimConfig(lr_schedule="linear", lr_total_steps=8, lr_end_frac=0.1), **kw)
-
-
-def eager_run(cfg, images, labels, state, steps):
-    fn, _ = make_resident_train_step(cfg, len(images))
-    ms = []
-    for _ in range(steps):
-        state, m = fn(state, images, labels=labels)
-        ms.append(m)
-    return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-
-
-@pytest.mark.parametrize("k,class_balanced", [(2, True), (4, False)])
-def test_conditional_multi_step_equals_resident_steps(k, class_balanced):
-    """K steps per call on the CPU, and the graph route's buffers (fake
-    labels, DiffAugment parameters, labels gathered with the batch rows)
-    replayed with each capture replaced by a direct call, against eager
-    resident steps over two epochs; the LR records follow the schedule."""
-    cfg = v20_cfg(class_balanced_fakes=class_balanced)
-    images, labels = synthetic.generate_labeled_dataset(3, 6, 64, seed=4)
-    images = torch.from_numpy(images[:16])
-    labels = torch.from_numpy(labels[:16]).long()
-    want_state, want = eager_run(cfg, images, labels, create_train_state(cfg, "cpu"), 8)
-    assert set(want) >= {"aux_acc_real", "d_loss", "g_loss"}
-    multi, spe = make_resident_multi_step(cfg, 16, k)
-    a, got = windows(lambda s, im: multi(s, im, labels), create_train_state(cfg, "cpu"),
-                     images, 8 // k)
-    assert_states_equal(a, want_state)
-    graphed = uncaptured(make_resident_multi_step(cfg, 16, k)[0])
-    b, got_g = windows(lambda s, im: graphed(s, im, labels), create_train_state(cfg, "cpu"),
-                       images, 8 // k)
-    assert_states_equal(b, want_state)
-    for key, v in want.items():
-        assert torch.equal(got[key], v) and torch.equal(got_g[key], v), key
-    assert len(state_tensors(b)) == len(state_tensors(want_state))
-    sched = lr_schedule(cfg, cfg.optim.g_lr)
-    assert torch.equal(b.g_opt["lr"], sched(torch.tensor(7, dtype=torch.int32)))
-    with pytest.raises(ValueError, match="other images or labels"):
-        graphed(b, images, labels.clone())
-
-
-def test_conditional_cli_trains_samples_checkpoints_resumes_and_serves(tmp_path, capsys):
-    data = synthetic.save_labeled_dataset_pngs(3, 8, tmp_path / "data", seed=2)
-    run = tmp_path / "run"
-    argv = ["--data_dir", str(data), "--epochs", "2", "--batch_size", "8",
-            "--compute_dtype", "float32", "--checkpoint_interval", "1", "--sample_interval", "1",
-            "--run_dir", str(run), "--device", "cpu", "--num_classes", "3",
-            "--g_conditioning", "concat", "--spectral_norm", "--latent_dim", "20",
-            "--d_lr", "1e-4", "--g_lr", "2e-4", "--lr_schedule", "linear",
-            "--diffaugment", "translation,cutout", "--ema_decay", "0.9", "--aux_weight", "0.5"]
-    assert train_cli.main(argv) == 0
-    out = capsys.readouterr().out
-    assert "Writers: 3" in out and "aux_acc_real" in out
-    ckpt = run / "checkpoints"
-    cfg = TrainConfig.from_json((ckpt / "config.json").read_text())
-    # The span was filled in (2 epochs x 3 steps) and travels with the config.
-    assert cfg.optim.lr_total_steps == 6 and cfg.model.num_classes == 3
-    ep = ckpt / "epoch_0001"
-    assert (ep / "generator_ema.npz").exists()
-    state, extras = CheckpointManager(ckpt, cfg).restore("latest", "cpu")
-    assert state.step == 6 and int(state.g_opt["count"]) == 6
-    for opt, lr in ((state.g_opt, 2e-4), (state.d_opt, 1e-4)):
-        assert float(opt["lr"]) == pytest.approx(lr * (1 - 2 / 3), rel=1e-6)  # lr(5)
-    assert sorted(p.name for p in (run / "samples").glob("*.png"))[-1] == "epoch_0002.png"
-
-    # Resume for a third epoch: the schedule goes on from the restored count.
-    assert train_cli.main([a if a != "2" else "3" for a in argv] + ["--resume"]) == 0
-    assert "Resumed from epoch 1 (step 6)" in capsys.readouterr().out
-    cfg3 = TrainConfig.from_json((ckpt / "config.json").read_text())
-    assert cfg3.optim.lr_total_steps == 9
-    state, _ = CheckpointManager(ckpt, cfg3).restore("latest", "cpu")
-    assert state.step == 9
-    assert float(state.g_opt["lr"]) == pytest.approx(2e-4 * (1 - 4 / 5), rel=1e-6)  # lr(8)
-
-    # Served with class_id: the EMA generator, images that repeat for a
-    # seed and differ between classes.
-    core = ApiCore(device="cpu")
-    core.load_model(str(ckpt))
-    assert core.info()["num_classes"] == 3
-
-    def images(class_id):
-        payload, _ = core.generate({"n": 2, "seed": 5, "format": "base64",
-                                    "class_id": class_id})
-        return [decode_png(base64.b64decode(s)) for s in json.loads(payload)["images"]]
-    a0, a0_again, a2 = images(0), images(0), images(2)
-    assert all(np.array_equal(p, q) for p, q in zip(a0, a0_again))
-    assert not all(np.array_equal(p, q) for p, q in zip(a0, a2))
-    assert a0[0].shape[:2] == (64, 64)
-
-
-def test_cli_refuses_a_num_classes_mismatch(tmp_path):
-    data = synthetic.save_labeled_dataset_pngs(2, 2, tmp_path, seed=0)
-    with pytest.raises(SystemExit, match="--num_classes=3 but found 2 writer subdirs"):
-        train_cli.main(["--data_dir", str(data), "--num_classes", "3", "--batch_size", "2",
-                        "--device", "cpu", "--run_dir", str(tmp_path / "run")])

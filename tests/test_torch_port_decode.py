@@ -756,7 +756,8 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     rs = np.random.RandomState(2024)
     out.mkdir(parents=True, exist_ok=True)
     for old in out.iterdir():
-        old.unlink()
+        if old.is_file():        # png_page/ and jax_run/ have writers of their own
+            old.unlink()
     scan = scan_page(rs, 500, 1200, rgb=True)
     small = scan_page(rs, 80, 210, rgb=True)
     files = {}

@@ -1,13 +1,13 @@
 """The K-step resident dispatch (``make_resident_multi_step``) and what it
-needed: the trainer's choice of K against the JAX trainer's, K steps per
-call against K resident steps over an epoch boundary, the graph route's
-buffers (the window's draws, batch rows, epoch tables, metrics rows and a
-replaced state) replayed on the CPU with each capture replaced by a direct
-call of the step it would capture, and Adam's device count and bias
-corrections against optax / ``adam_low_mem``."""
+needed: the trainer's choice of K against the JAX trainer's, the step's
+draws written into the graph route's buffers, and Adam's device count and
+bias corrections against optax / ``adam_low_mem``; and the helpers of the
+dispatch's step tests (``test_torch_port_multistep_epoch.py``: K steps per
+call against K resident steps over an epoch boundary;
+``test_torch_port_multistep_graph.py``: the graph route's buffers replayed
+on the CPU with each capture replaced by a direct call of the step it
+would capture)."""
 
-import copy
-import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -23,9 +23,7 @@ from siggan_tpu.train import trainer as jtrainer
 from siggan_tpu_torch import bridge
 from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
 from siggan_tpu_torch.core.state import Adam, create_train_state
-from siggan_tpu_torch.data.synthetic import generate_dataset
-from siggan_tpu_torch.train.train_step import (make_resident_multi_step,
-                                               make_resident_train_step, state_tensors,
+from siggan_tpu_torch.train.train_step import (make_resident_train_step, state_tensors,
                                                step_draws, Streams)
 from siggan_tpu_torch.train.trainer import choose_scan_steps
 
@@ -92,21 +90,15 @@ def windows(fn, state, images, n):
     return state, {k: torch.cat([m[k] for m in ms]) for k in ms[0]}
 
 
-def test_multi_step_equals_k_resident_steps_over_an_epoch_boundary():
-    cfg = tiny_cfg(seed=3, log_grad_norms=True)
-    images = torch.from_numpy(generate_dataset(16, 64, seed=5))   # 4 steps an epoch
-    multi, spe = make_resident_multi_step(cfg, 16, 2)
-    assert spe == 4
-    a, m1 = multi(create_train_state(cfg, "cpu"), images)
-    assert set(m1) >= {"d_loss", "g_loss", "d_grad_norm", "g_grad_norm"}
-    assert all(v.shape == (2,) for v in m1.values())
-    a, rest = windows(multi, a, images, 2)                      # steps 2-5: epoch 0 -> 1
-    b, want = eager_run(cfg, images, create_train_state(cfg, "cpu"), 6)
-    assert_states_equal(a, b)
-    for k, v in want.items():
-        assert torch.equal(torch.cat([m1[k], rest[k]]), v), k
-    with pytest.raises(ValueError, match="must divide"):
-        make_resident_multi_step(cfg, 16, 3)
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the CPU train steps of the files that use
+    it: the suite runs files in parallel workers, and a full-width pool in
+    each oversubscribes the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def uncaptured(multi):
@@ -120,37 +112,6 @@ def uncaptured(multi):
 
     g._capture = capture
     return g
-
-
-@pytest.mark.parametrize("k,overrides", [
-    (4, dict(hflip=True)),                         # warm-up, capture and replays in window 1
-    (2, dict(augment_bulk=False, n_critic=2)),     # per-step augment draws; capture in window 2
-    (4, dict(augment=False, model=ModelConfig(dropout=0.0, **TINY))),
-    (4, dict(share_fakes=True)),                   # one latent batch, two masks a step
-])
-def test_graph_route_buffers_reproduce_eager_steps(k, overrides):
-    cfg = tiny_cfg(seed=6).replace(**overrides)
-    images = torch.from_numpy(generate_dataset(16, 64, seed=7))
-    multi, spe = make_resident_multi_step(cfg, 16, k)
-    graphed = uncaptured(multi)
-    a = create_train_state(cfg, "cpu")
-    a2, got = windows(graphed, a, images, 8 // k)               # two epochs
-    assert a2 is a and graphed.graph is not None and graphed.warm == graphed.WARMUP
-    b, want = eager_run(cfg, images, create_train_state(cfg, "cpu"), 8)
-    assert_states_equal(a, b)
-    for key, v in want.items():
-        assert torch.equal(got[key], v), key
-    # A state that is not the bound one (a restored checkpoint, say) is
-    # copied into the bound storage and training goes on from it.
-    c = copy.deepcopy(b)
-    out, m = graphed(c, images)
-    assert out is a and out.step == 8 + k
-    b, want = eager_run(cfg, images, b, k)
-    assert_states_equal(out, b)
-    for key, v in want.items():
-        assert torch.equal(m[key], v), key
-    with pytest.raises(ValueError, match="crosses an epoch"):
-        graphed(dataclasses.replace(b, step=b.step + 1), images)
 
 
 def test_step_draws_fill_buffers_with_the_eager_numbers():

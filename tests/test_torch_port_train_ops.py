@@ -218,5 +218,5 @@ def test_synthetic_data_and_png_dataset_match_jax(tmp_path):
     b = JDataset(tmp_path / "d", 64, use_cache=False).images
     np.testing.assert_array_equal(a, b)
     c = SignatureDataset(tmp_path / "d", 64).images          # writes the cache
-    assert list((tmp_path / "d").glob(".siggan_cache_*.npy"))
+    assert list((tmp_path / "d").glob(".siggan_torch_cache_*.npy"))
     np.testing.assert_array_equal(SignatureDataset(tmp_path / "d", 64).images, c)
