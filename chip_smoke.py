@@ -153,11 +153,33 @@ Phases (any failure raises and the script exits non-zero):
      end; the ms of each request. Phase 12 also decodes a PIL-saved PNG
      scan page (bit-equal to PIL's committed grey) and 1320 copies of it at
      1 and 8 threads, and runs ``cli.preprocess`` on them;
- 15. print the kernels line (one JSON object; B1, B1' and B2 with their
-     launches by path, B4 and B3 with their launches on the serving, the
-     evaluation, the verification, the imported-run and the panel paths),
-     the nvidia-smi line again, and as the last line {"ok": true,
-     "device": {...}}.
+ 15. the rest of the trainer, the host resize and the charts
+     (``streaming_phase``): (a) one epoch at TrainConfig() defaults through
+     GANTrainer on 262,208 images (phase 7's 2048 decoded images tiled 128
+     times plus the first 64: 4097 MB f32, over resident_max_mb, so the
+     set streams from host memory through data/loader.py::BatchLoader into
+     a CUDA graph of one step): ms/step, images/s, peak allocated memory
+     (under 1024 MB), launches (B1 8194, B1' 4097, B2 4097), finite losses,
+     moved parameters, the checkpoint; (b) phase 7's 2048 images resident
+     and streamed (resident_data=False) in turns, 2 epochs of 32 steps
+     each (ms/step of epoch 1), the streamed graphed step's wall, busy time,
+     idle share and operations (profiler, 16-step windows), 32 graphed
+     streamed steps against eager ones (cuDNN deterministic), and v1.1
+     streamed for 1 epoch of 16 steps on 1024 128 px images with its
+     launches; (c) ``cli.train --profile_dir`` in a fresh process on phase
+     7's PNGs, 2 epochs of 32: the trace of epoch 1 holds B2's kernels;
+     (d) the C++ resize bit-equal to the numpy one on phase 12's 1320
+     PIL-saved pages (6 sizes of the page, decode_images' arrays,
+     cli.preprocess's PNGs), and both routes' decode_images images/s at 1
+     and 8 threads and cli.preprocess s; (e) the verifier's four and the
+     ablation's five charts, phase 7's progress montage and loss plot
+     decode at their sizes, and its sample grids as a GIF decode (LZW,
+     here) to the grids' grey, 30 cs a frame, loop 0;
+ 16. print the kernels line (one JSON object; B1, B1' and B2 with their
+     launches by path, the streamed ones included, B4 and B3 with their
+     launches on the serving, the evaluation, the verification, the
+     imported-run and the panel paths), the nvidia-smi line again, and as
+     the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2380,6 +2402,449 @@ def panel_phase(card: str, work: str, b4_kernels, b4_ops: float):
             "b3_launches": b3_launches, "train_subprocess_s": train_s}
 
 
+# B2's kernels in a bf16 step (conv_tile_kernel is its f32 path), and the
+# relayout it may add; the profiled epoch's trace must hold the first three.
+STREAM_B2_KERNELS = ("convt_mma_kernel", "bn_finalize_kernel", "final_conv_kernel",
+                     "relayout_kernel")
+
+
+def train_dirs(root: Path, tag: str) -> dict:
+    return {"checkpoint_dir": str(root / tag / "c"), "sample_dir": str(root / tag / "s"),
+            "log_dir": str(root / tag / "l")}
+
+
+def stream_graphed_vs_eager(tag, cfg, images, state0, steps: int):
+    """Phase 15b: ``steps`` streamed steps from copies of ``state0`` on the
+    loader's batches, twice eager (``make_train_step``) and once graphed
+    (``make_stream_step``: two eager warm-up steps, the capture, replays),
+    with cuDNN's deterministic algorithms (a capture may otherwise take
+    other algorithms than the eager steps). Where the eager runs give the
+    same bits the graphed run must too, else it must stay within their
+    spread, part by part (as graphed_vs_eager)."""
+    import torch
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _stream_graphed_vs_eager(tag, cfg, images, state0, steps)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _stream_graphed_vs_eager(tag, cfg, images, state0, steps: int):
+    import torch
+    from siggan_tpu_torch.data.loader import BatchLoader
+    from siggan_tpu_torch.train import train_step as ts
+
+    def run(step_fn, reshape):
+        state, ms = copy.deepcopy(state0), []
+        loader = BatchLoader(images, cfg.batch_size, seed=cfg.seed, prefetch=cfg.prefetch)
+        for batch in loader.epoch(0):
+            if len(ms) == steps:
+                break
+            state, m = step_fn(state, batch)
+            ms.append({k: v.reshape(1) for k, v in m.items()} if reshape else m)
+        return state, state_groups(state, {k: torch.cat([m[k] for m in ms]) for k in ms[0]})
+    _, first = run(ts.make_train_step(cfg), True)
+    _, second = run(ts.make_train_step(cfg), True)
+    graphed_fn = ts.make_stream_step(cfg)
+    _, graphed = run(graphed_fn, False)
+    torch.cuda.synchronize()
+    spread, diff = group_diffs(first, second), group_diffs(graphed, first)
+    bit_equal = all(v == 0.0 for v in spread.values())
+    for part, d in diff.items():
+        if d > 2 * spread[part]:
+            raise AssertionError(f"{tag}: graphed vs eager {part} differ by {d:.3e}, "
+                                 f"two eager runs by {spread[part]:.3e}")
+    print(f"{tag}: {steps} graphed streamed steps (capture "
+          f"{graphed_fn.graphed.capture_s:.3f} s after 2 eager ones) vs {steps} eager "
+          f"streamed steps on the loader's batches, cuDNN deterministic: eager vs eager max "
+          f"abs diff by part "
+          f"{json.dumps(spread)}; graphed vs eager {json.dumps(diff)}; "
+          f"{'bit-equal' if bit_equal else 'within the eager spread'}", flush=True)
+    return {"steps": steps, "eager_spread": spread, "graphed_vs_eager": diff,
+            "eager_bit_equal": bit_equal}
+
+
+def read_gif(data: bytes):
+    """(grey frames, delays in centiseconds, loop count) of a GIF89a with a
+    global grey palette, LZW decoded here, apart from the port's encoder."""
+    import numpy as np
+    import struct
+    if data[:6] != b"GIF89a":
+        raise AssertionError("not a GIF89a")
+    _, _, packed = struct.unpack("<HHB", data[6:11])
+    pos, pal = 13, None
+    if packed & 0x80:
+        n = 2 << (packed & 7)
+        pal = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        pos += 3 * n
+    frames, delays, loop, delay = [], [], None, 0
+
+    def blocks():
+        nonlocal pos
+        out = []
+        while data[pos]:
+            out.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        pos += 1
+        return out
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        pos += 1
+        if kind == 0x21:
+            label = data[pos]
+            pos += 1
+            sub = blocks()
+            if label == 0xF9:
+                delay = struct.unpack("<H", sub[0][1:3])[0]
+            elif label == 0xFF and sub[0] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", sub[1][1:3])[0]
+        elif kind == 0x2C:
+            _, _, fw, fh, _ = struct.unpack("<HHHHB", data[pos:pos + 9])
+            mcs = data[pos + 9]
+            pos += 10
+            idx = lzw_decode(b"".join(blocks()), mcs)
+            if len(idx) != fw * fh:
+                raise AssertionError(f"GIF frame of {len(idx)} pixels, {fw} x {fh} expected")
+            rgb = pal[np.frombuffer(idx, np.uint8)].reshape(fh, fw, 3)
+            frames.append(rgb[..., 0])
+            delays.append(delay)
+        else:
+            raise AssertionError(f"GIF block {kind:#x}")
+    return frames, delays, loop
+
+
+def lzw_decode(raw: bytes, mcs: int) -> bytes:
+    """GIF's variable-width LZW (least significant bit first)."""
+    clear, end = 1 << mcs, (1 << mcs) + 1
+    base = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table, size, prev, bit, out = list(base), mcs + 1, None, 0, bytearray()
+    raw = raw + b"\0\0\0"
+    while bit + size <= 8 * (len(raw) - 3):
+        word = int.from_bytes(raw[bit >> 3:(bit >> 3) + 3], "little")
+        code = (word >> (bit & 7)) & ((1 << size) - 1)
+        bit += size
+        if code == clear:
+            table, size, prev = list(base), mcs + 1, None
+            continue
+        if code == end:
+            break
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else table[prev] + table[prev][:1]
+            table.append(table[prev] + entry[:1])
+        out += entry
+        prev = code
+        if len(table) == 1 << size and size < 12:
+            size += 1
+    return bytes(out)
+
+
+def streaming_phase(card: str, work: str):
+    """Phase 15: the rest of the trainer, the host resize in C++ and the
+    charts. (a) one epoch at TrainConfig() defaults through GANTrainer on
+    262,208 images (phase 7's 2048 decoded ones tiled 128 times plus the
+    first 64: 4097 MB f32, over resident_max_mb), streamed by the loader
+    as a graphed step: ms/step, images/s, the peak allocated memory (less
+    than 1024 MB above what earlier phases hold), launches, finite losses, moved parameters, the checkpoint;
+    (b) phase 7's 2048 images resident and streamed (resident_data=False)
+    in turns, 2 epochs of 32 each; the streamed step's busy time, idle
+    share and operations (profiler); graphed streamed steps against eager
+    ones; v1.1 streamed for 1 epoch of 16 on 1024 128 px images; (c)
+    ``cli.train --profile_dir`` in a fresh process, its trace holding B2's
+    kernels; (d) the C++ resize against numpy's on phase 12's pages, with
+    both routes' decode_images and cli.preprocess times; (e) the verifier
+    and ablation charts, phase 7's training GIF, montage and loss plot."""
+    import gc
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.ckpt.manager import CheckpointManager
+    from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.data.dataset import SignatureDataset
+    from siggan_tpu_torch.data.loader import BatchLoader
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.train import train_step as ts
+    from siggan_tpu_torch.train.trainer import GANTrainer
+
+    root = Path(work) / "stream"
+    base = SignatureDataset(f"{work}/data", 64).images
+    counters = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES)
+
+    def counts():
+        return {"pack_tail": pt.FWD_LAUNCHES.count,
+                "pack_tail_backward": pt.BWD_LAUNCHES.count, "train_tail": tt.LAUNCHES.count}
+
+    def moved(cfg, state):
+        init = create_train_state(cfg, "cuda")
+        return all(not torch.equal(a, b) for a, b in zip(
+            [*init.g.parameters(), *init.d.parameters()],
+            [*state.g.parameters(), *state.d.parameters()]))
+
+    # (a) Streaming at the real limit.
+    big = np.concatenate([np.tile(base, (128, 1, 1, 1)), base[:64]])
+    mb = big.nbytes / 2 ** 20
+    cfg = TrainConfig(epochs=1, **train_dirs(root, "a"))
+    if len(big) != 262208 or not mb > cfg.resident_max_mb:
+        raise AssertionError(f"the streamed set holds {len(big)} images, {mb:.1f} MB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = GANTrainer(cfg, big, device="cuda")
+    if trainer.resident or hasattr(trainer, "images_dev"):
+        raise AssertionError("the trainer did not take the streaming route")
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = {"streaming 262,208 images": counts()}
+    want = {"pack_tail": 2 * 4097, "pack_tail_backward": 4097, "train_tail": 4097}
+    m = trainer.logger.metrics[-1]
+    if launches["streaming 262,208 images"] != want:
+        raise AssertionError(f"streaming launches {counts()}, expected {want}")
+    if not np.all(np.isfinite([m["d_loss"], m["g_loss"]])) or not moved(cfg, trainer.state):
+        raise AssertionError(f"streaming epoch: losses {m}, or a parameter did not move")
+    if CheckpointManager(cfg.checkpoint_dir, cfg).resolve("latest") is None:
+        raise AssertionError("the streamed run wrote no checkpoint")
+    # Earlier phases leave tensors allocated (the served generator, the eval
+    # networks, ...): the streamed run's own share is the peak above them.
+    if not peak - alloc0 / 2 ** 20 < 1024:
+        raise AssertionError(f"peak allocated {peak:.1f} MB while streaming, "
+                             f"{alloc0 / 2 ** 20:.1f} MB of it before the trainer")
+    capture = trainer._step_fn.graphed.capture_s
+    print(f"stream (a): 1 epoch of 4097 steps on 262208 images ({mb:.1f} MB f32, over "
+          f"resident_max_mb {cfg.resident_max_mb}) streamed as a graphed step (captured in "
+          f"{capture:.3f} s after 2 eager steps): {m['ms_per_step']:.3f} ms/step, "
+          f"{m['images_per_sec']:.1f} images/s (the epoch, host clock), {wall:.1f} s for "
+          f"train(); peak allocated {peak:.1f} MB, {peak - alloc0 / 2 ** 20:.1f} MB above "
+          f"the {alloc0 / 2 ** 20:.1f} MB allocated before the trainer; launches {json.dumps(counts())}; d_loss {m['d_loss']:.4f} g_loss "
+          f"{m['g_loss']:.4f}; parameters moved; checkpoint written [{card}]", flush=True)
+    stats = {"a": {"ms_per_step": m["ms_per_step"], "images_per_sec": m["images_per_sec"],
+                   "peak_allocated_mb": peak, "allocated_before_mb": alloc0 / 2 ** 20,
+                   "capture_s": capture, "train_s": wall}}
+    del trainer, big
+    gc.collect()
+
+    # (b) The same set resident and streamed, in turns.
+    routes = {"resident": [], "streaming": []}
+    for i, route in enumerate(("resident", "streaming", "streaming", "resident")):
+        cfg = TrainConfig(epochs=2, resident_data=route == "resident",
+                          **train_dirs(root, f"b{i}"))
+        trainer = GANTrainer(cfg, base, device="cuda")
+        if trainer.resident != (route == "resident"):
+            raise AssertionError(f"{route}: the trainer took the other route")
+        trainer.train()
+        routes[route].append(trainer.logger.metrics[-1]["ms_per_step"])
+    cfg = TrainConfig()
+    loader = BatchLoader(base, cfg.batch_size, seed=cfg.seed, prefetch=cfg.prefetch)
+    step_fn = ts.make_stream_step(cfg)
+    state = create_train_state(cfg, "cuda")
+    feed = (b for e in range(100) for b in loader.epoch(e))
+
+    def window(n=16):
+        nonlocal state
+        for _ in range(n):
+            state, _m = step_fn(state, next(feed))
+    window(4)   # the eager warm-up steps and the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    s_wall = (time.perf_counter() - t0) * 1e3 / 16
+    _, busy, ops = device_time(window, calls=1, cpu=True)
+    busy = None if busy is None else busy / 16
+    idle = "not measured" if busy is None else f"{1 - busy / s_wall:.4f}"
+    print(f"stream (b): 2048 images, epoch 1 of 2 (32 steps) in turns resident / streaming / "
+          f"streaming / resident: {routes['resident'][0]:.3f} / {routes['streaming'][0]:.3f} / "
+          f"{routes['streaming'][1]:.3f} / {routes['resident'][1]:.3f} ms/step; the streamed "
+          f"graphed step over 16-step windows: wall {s_wall:.3f} ms/step, device busy "
+          f"{fmt_ms(busy)}/step, idle share {idle}, {ops / 16:.0f} device operations per "
+          f"step (profiler) [{card}]", flush=True)
+    agreement = stream_graphed_vs_eager("stream (b)", cfg, base,
+                                        create_train_state(cfg, "cuda"), 32)
+    v11 = TrainConfig(model=ModelConfig(image_size=128, use_spectral_norm=True), epochs=1,
+                      resident_data=False, **train_dirs(root, "v11"))
+    t0 = time.perf_counter()
+    set128 = generate_dataset(1024, 128, seed=0)
+    gen_s = time.perf_counter() - t0
+    trainer = GANTrainer(v11, set128, device="cuda")
+    for c in counters:
+        c.reset()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches["streaming v1.1 128 px"] = counts()
+    mv = trainer.logger.metrics[-1]
+    if counts() != {"pack_tail": 32, "pack_tail_backward": 16, "train_tail": 16} \
+            or trainer.resident or not np.isfinite(mv["g_loss"]) or not moved(v11, trainer.state):
+        raise AssertionError(f"v1.1 streamed: launches {counts()}, metrics {mv}")
+    print(f"stream (b): v1.1 (128 px, spectral norm) streamed, 1 epoch of 16 steps on 1024 "
+          f"images (generate_dataset(1024, 128, seed=0), {gen_s:.1f} s): "
+          f"{mv['ms_per_step']:.3f} ms/step (the epoch holds the warm-up and the capture), "
+          f"launches {json.dumps(counts())} [{card}]", flush=True)
+    stats["b"] = {"resident_ms": routes["resident"], "streaming_ms": routes["streaming"],
+                  "stream_wall_ms": s_wall, "stream_busy_ms": busy,
+                  "stream_ops": ops / 16, "graphed_vs_eager": agreement,
+                  "v11_ms_per_step": mv["ms_per_step"]}
+    del trainer, set128, loader, feed
+    gc.collect()
+
+    # (c) The profiler hook, in a fresh process.
+    pdir = root / "profile"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "siggan_tpu_torch.cli.train", "--data_dir",
+                           f"{work}/data", "--epochs", "2", "--run_dir", str(root / "c"),
+                           "--profile_dir", str(pdir)],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    prof_s = time.perf_counter() - t0
+    if proc.returncode != 0 or f"Profiler trace written to {pdir}" not in proc.stdout:
+        raise AssertionError(f"cli.train --profile_dir exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    trace = pdir / "epoch_0001.pt.trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b2 = {k: sum(k in e["name"] for e in kernels) for k in STREAM_B2_KERNELS}
+    if min(b2[k] for k in STREAM_B2_KERNELS[:3]) < 32:
+        raise AssertionError(f"the trace of epoch 1 lacks B2's kernels: {b2}")
+    print(f"stream (c): cli.train --profile_dir in a fresh process ({prof_s:.1f} s, 2 epochs "
+          f"of 32 steps): {trace.name}, {trace.stat().st_size} bytes, {len(kernels)} kernel "
+          f"events, B2's kernels {json.dumps(b2)} [{card}]", flush=True)
+    stats["c"] = {"trace_bytes": trace.stat().st_size, "kernel_events": len(kernels),
+                  "b2_kernels": b2, "cli_s": prof_s}
+
+    # (d) The resize: C++ against numpy on phase 12's pages, and both routes' times.
+    stats["d"] = resize_phase(card, work)
+
+    # (e) The charts and the GIF.
+    stats["e"] = charts_phase(card, work)
+    return launches, stats
+
+
+def resize_phase(card: str, work: str):
+    """Phase 15d: ``sig_resize_bilinear`` bit-equal to the numpy resize on
+    phase 12's 1320 PIL-saved pages (decode_images' resize to 64 and
+    cli.preprocess's letterbox to the 512 canvas, and a few other sizes),
+    and decode_images at 1 and 8 threads and cli.preprocess through the C++
+    and the numpy resize, in that order."""
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.cli import preprocess as pre_cli
+    from siggan_tpu_torch.data import dataset as ds_mod
+    from siggan_tpu_torch.data import resample
+    from siggan_tpu_torch.data.native import loader as native
+    from siggan_tpu_torch.infer.export import decode_png
+
+    tree = Path(work) / "pil_png_scans"
+    paths = ds_mod.list_images(tree)
+    page = ds_mod.decode_gray(paths[0])
+    t0 = time.perf_counter()
+    for w, h in ((64, 64), (512, 213), (1199, 500), (1200, 499), (37, 1000), (2400, 1000)):
+        a, b = native.resize_bilinear(page, w, h), resample.resize_bilinear(page, w, h)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"C++ resize of the page to {w} x {h} differs from numpy's")
+    check_s = time.perf_counter() - t0
+    cpp = native.resize_bilinear
+    ms = {}
+    for label, fn in (("C++", cpp), ("numpy", resample.resize_bilinear)):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(page, 64, 64)
+        ms[label] = (time.perf_counter() - t0) / 20 * 1e3
+    routes, outs = {}, {}
+    try:
+        for label, fn in (("C++", cpp), ("numpy", resample.resize_bilinear)):
+            native.resize_bilinear = fn
+            rates = {}
+            for threads, n in ((1, 132), (8, 1320)):
+                t0 = time.perf_counter()
+                out = ds_mod.decode_images(paths[:n], 64, n_threads=threads)
+                rates[threads] = n / (time.perf_counter() - t0)
+                outs[(label, threads)] = out
+            dst = Path(work) / f"resize_clean_{label.replace('+', 'p')}"
+            t0 = time.perf_counter()
+            run_cli(pre_cli.main, ["--input_dir", str(tree), "--output_dir", str(dst)])
+            torch.cuda.synchronize()
+            routes[label] = {"images_per_s_1": rates[1], "images_per_s_8": rates[8],
+                             "preprocess_s": time.perf_counter() - t0, "dir": dst}
+    finally:
+        native.resize_bilinear = cpp
+    for threads in (1, 8):
+        if not np.array_equal(outs[("C++", threads)], outs[("numpy", threads)]):
+            raise AssertionError(f"decode_images on {threads} threads: the routes differ")
+    files = sorted(p.name for p in routes["C++"]["dir"].glob("*.png"))
+    if len(files) != 1320 or files != sorted(p.name for p in routes["numpy"]["dir"].glob("*.png")):
+        raise AssertionError("cli.preprocess: the routes wrote other files")
+    for name in files[::40]:
+        if not np.array_equal(decode_png((routes["C++"]["dir"] / name).read_bytes()),
+                              decode_png((routes["numpy"]["dir"] / name).read_bytes())):
+            raise AssertionError(f"cli.preprocess: {name} differs between the routes")
+    print(f"stream (d): the C++ resize bit-equal to numpy's on the 1200x500 page at 6 sizes "
+          f"({check_s:.2f} s) and through decode_images on 132 and 1320 pages and "
+          f"cli.preprocess (every 40th of 1320 outputs compared); the page to 64x64 "
+          f"{ms['C++']:.3f} ms in C++, {ms['numpy']:.3f} ms in numpy; " + "; ".join(
+              f"{k}: decode_images {r['images_per_s_1']:.1f} images/s on 1 thread, "
+              f"{r['images_per_s_8']:.1f} on 8, cli.preprocess {r['preprocess_s']:.2f} s"
+              for k, r in routes.items()) + f" [{card}]", flush=True)
+    return {"page_to_64_ms": ms, **{k: {kk: v for kk, v in r.items() if kk != "dir"}
+                                    for k, r in routes.items()}}
+
+
+def charts_phase(card: str, work: str):
+    """Phase 15e: the charts of phases 11 (cli.verifier_eval) and 13b
+    (cli.ablate) decode at the JAX figures' pixel sizes; phase 7's sample
+    grids as a GIF (decoded here: every frame equal to its grid's grey, the
+    delay and the loop), its progress montage and its loss plot."""
+    import numpy as np
+    from siggan_tpu_torch.data.dataset import _to_gray
+    from siggan_tpu_torch.infer.export import decode_png
+    from siggan_tpu_torch.utils import visualizer as vis
+
+    w = Path(work)
+    want = {w / "verifier_eval" / "roc.png": (550, 660, 3),
+            w / "verifier_eval" / "det.png": (550, 660, 3),
+            w / "verifier_eval" / "score_distributions.png": (440, 1320, 3),
+            w / "verifier_eval" / "metric_comparison.png": (495, 990, 3),
+            w / "ablation" / "loss_curves.png": (495, 1320, 3),
+            w / "ablation" / "stability.png": (440, 990, 3),
+            w / "ablation" / "wall_time.png": (440, 990, 3),
+            w / "ablation" / "fid_comparison.png": (440, 990, 3),
+            w / "ablation" / "params_vs_fid.png": (495, 660, 3)}
+    grids = sorted((w / "run" / "samples").glob("*.png"))
+    t0 = time.perf_counter()
+    gif = vis.create_training_gif(w / "run" / "samples", w / "charts" / "training.gif")
+    gif_s = time.perf_counter() - t0
+    frames, delays, loop = read_gif(gif.read_bytes())
+    if len(frames) != len(grids) or set(delays) != {30} or loop != 0 or not all(
+            np.array_equal(f, _to_gray(decode_png(g.read_bytes())))
+            for f, g in zip(frames, grids)):
+        raise AssertionError(f"the training GIF: {len(frames)} frames of {len(grids)} grids, "
+                             f"delays {set(delays)}, loop {loop}")
+    montage = vis.save_progress_montage(w / "run" / "samples", w / "charts" / "montage.png")
+    want[montage] = (286, 242 * min(8, len(grids)), 3)
+    logs = sorted((w / "run" / "logs").glob("*.json"))
+    losses = vis.plot_losses_from_json(logs[-1], w / "charts" / "losses.png")
+    want[losses] = (495, 880, 3)
+    got = {}
+    for path, shape in want.items():
+        img = decode_png(path.read_bytes())
+        got[path.name] = list(img.shape)
+        if img.shape != shape or img.min() == img.max():
+            raise AssertionError(f"{path}: {img.shape} (expected {shape}), or blank")
+    print(f"stream (e): {len(want)} charts decode at their sizes "
+          f"{json.dumps(got)}; the training GIF of {len(grids)} grids "
+          f"({gif.stat().st_size} bytes, {gif_s:.2f} s) decodes to them, 30 cs a frame, "
+          f"loop 0 [{card}]", flush=True)
+    return {"charts": got, "gif_frames": len(frames), "gif_bytes": gif.stat().st_size,
+            "gif_s": gif_s}
+
+
 def card_span(session, n: int, reps: int = 5) -> float:
     """The median ms between CUDA events around what a request for ``n``
     images runs on the card: the latents in, the generator forward, the
@@ -2469,6 +2934,8 @@ def main() -> int:
         imported = imported_run_phase(card, work)
         paths["imported JAX run resume"] = imported["train"]
         panel = panel_phase(card, work, b4["device_kernels"], b4["device_ops"])
+        stream_launches, stream_stats = streaming_phase(card, work)
+        paths.update(stream_launches)
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
@@ -2535,6 +3002,7 @@ def main() -> int:
     b2_line.update(tol=B2_TOL_NOTE, launches_by_path={k: v["train_tail"]
                                                       for k, v in paths.items()},
                    f32=b2[128]["float32"], px64=b2[64], vs_module_path=b2_route,
+                   streaming=stream_stats,
                    not_counted=not_counted,
                    tensor_core_sass=tiles,
                    library="the port's no-grad module-path tail (cuDNN convs, "

@@ -12,7 +12,7 @@ grayscale (``data/dataset.py::decode_gray``, PIL's grey bit for bit) and
 letterboxes it at the top-left of a white
 ``canvas_size``-square canvas (a scan larger than the canvas is first
 downscaled, aspect kept, with PIL's bilinear filter reproduced bit for bit
-by ``data/resample.py``); the device runs the batched pipeline
+by the C++ host library, ``data/native/loader.py::resize_bilinear``); the device runs the batched pipeline
 (``data/preprocess.py``) on ``batch_size`` canvases at a time, the last
 chunk padded with copies of its last canvas to the full batch. Valid images
 are written flat as ``<stem>.png`` (uint8), with ``preprocess_report.json``
@@ -57,14 +57,14 @@ def load_canvas(path: Path, canvas: int) -> tuple[np.ndarray, tuple[int, int]]:
     float32 array at the top-left; returns it and the image's (h, w).
     Images larger than the canvas are downscaled (aspect kept) first."""
     from siggan_tpu_torch.data.dataset import decode_gray
-    from siggan_tpu_torch.data.resample import resize_bilinear
+    from siggan_tpu_torch.data.native import loader as native
 
     gray = decode_gray(path)
     h, w = gray.shape
     if max(w, h) > canvas:
         s = canvas / max(w, h)
         w, h = max(1, int(w * s)), max(1, int(h * s))
-        gray = resize_bilinear(gray, w, h)
+        gray = native.resize_bilinear(gray, w, h)
     out = np.full((canvas, canvas), 255.0, np.float32)
     out[:h, :w] = gray
     return out, (h, w)

@@ -19,10 +19,12 @@ and ``--ema_decay``, ``--aux_weight``, ``--lr_schedule`` and
 ``--diffaugment`` train as in the JAX package. ``--fid_interval N``
 scores a random-init FID every N epochs (logged as ``fid``) and makes the
 ``best`` checkpoint follow the lowest FID. ``--share_fakes`` trains with
-one latent batch a step, shared by the D and G updates. Flags of features
-the port does not train yet (the profiler, several cards) are accepted and
-raise ``NotImplementedError``, as does a dataset over ``resident_max_mb``
-(the streaming loader).
+one latent batch a step, shared by the D and G updates. ``--profile_dir
+DIR`` writes a ``torch.profiler`` Chrome trace of the epoch after the first
+there. A dataset over ``resident_max_mb`` streams from host memory (one
+graphed step a batch). Flags of features the port does not train yet
+(several cards: ``--num_data_devices`` above 1) are accepted and raise
+``NotImplementedError`` (ROADMAP A.9).
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve
 --checkpoint DIR`` (its latest epoch), and ``cli.generate --which`` samples
 any saved epoch. ``--resume`` takes the architecture fields no flag sets
@@ -88,7 +90,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                    help="-1 = all visible devices on the data axis")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--profile_dir", type=str, default="",
-                   help="capture a jax.profiler trace of one epoch here")
+                   help="write a torch.profiler trace of one epoch here")
     p.add_argument("--fid_interval", type=int, default=0,
                    help="score a relative FID every N epochs; the 'best' "
                         "checkpoint alias then follows lowest FID (0 = off, "

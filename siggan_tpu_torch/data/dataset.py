@@ -10,9 +10,10 @@ cache name). The files are those the JAX package reads (.png, .jpg, .jpeg,
 imaging package: PNG by ``infer/export.decode_png``, JPEG, BMP and TIFF by
 the port's C++ decoder (``data/native/``), the whole set on several
 threads; each gives PIL's ``convert("L")`` grey bit for bit. Images of
-another size are resized by ``data/resample.py::resize_bilinear``,
-bit-equal with the PIL ``resize(..., Image.BILINEAR)`` that the JAX package
-calls. A corrupt or unreadable file becomes a zero image with a warning, as
+another size are resized by the same C++ library
+(``data/native/loader.py::resize_bilinear``), bit-equal with the PIL
+``resize(..., Image.BILINEAR)`` that the JAX package calls and with
+``data/resample.py``'s numpy version. A corrupt or unreadable file becomes a zero image with a warning, as
 in the reference; a valid file of a kind the port does not read yet raises
 ``NotImplementedError`` (ROADMAP A.6). ``writer_labels`` labels the images
 by their per-writer subdirectory, for conditional training.
@@ -32,7 +33,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from siggan_tpu_torch.data.native import loader as native
-from siggan_tpu_torch.data.resample import resize_bilinear
 from siggan_tpu_torch.infer.export import decode_png
 
 logger = logging.getLogger(__name__)
@@ -75,7 +75,7 @@ def decode_gray(path: str | Path) -> np.ndarray:
 def _scaled(gray: np.ndarray, image_size: int) -> np.ndarray:
     """uint8 grey (+ resize to (s, s)) -> [-1, 1] float32 (s, s, 1)."""
     if gray.shape != (image_size, image_size):
-        gray = resize_bilinear(gray, image_size, image_size)
+        gray = native.resize_bilinear(gray, image_size, image_size)
     return (gray.astype(np.float32) / 255.0 * 2.0 - 1.0)[:, :, None]
 
 
@@ -125,8 +125,8 @@ def decode_images(paths: List[Path], image_size: int,
     """``decode_image`` of every path -> (N, s, s, 1) float32: JPEG, BMP and
     TIFF files in the C++ decoder's own threads (up to 8, one per core);
     then PNG files (zlib and the C++ row unfilter, both of which release the
-    interpreter lock) and every resize on a pool of Python threads, as many
-    as ``pool_threads`` gives. ``n_threads`` fixes both counts."""
+    interpreter lock) and every resize (C++, which releases it too) on a
+    pool of Python threads, as many as ``pool_threads`` gives. ``n_threads`` fixes both counts."""
     threads = n_threads or min(8, os.cpu_count() or 1)
     grays, status, msgs = native.decode_files(paths, threads)
     pool_size = n_threads or pool_threads(paths, grays, status, threads)

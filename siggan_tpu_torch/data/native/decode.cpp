@@ -24,12 +24,21 @@
 // inflates the image data with zlib; sig_png_unfilter undoes the five row
 // filters (None, Sub, Up, Average, Paeth) for any bytes per pixel.
 //
+// Resize: sig_resize_bilinear is Pillow's 8-bit L-mode bilinear resample
+// (libImaging/Resample.c), bit for bit: per output pixel the triangle
+// filter's taps over center +- support (support widened by the scale on a
+// downscale), normalised by their sequential sum in double and rounded to
+// 22 fraction bits; a horizontal pass, then a vertical pass over its
+// output, each rounded and clamped to 0..255; a pass whose side keeps its
+// size is skipped. data/resample.py holds the same arithmetic in numpy.
+//
 // Every entry returns a status: 0 ok, 1 corrupt (truncated or malformed
 // data), 2 unsupported (a valid file of a kind not read here), 3 the file
 // could not be read, 4 a PNG file (decoded by the Python side).
 
 #include <algorithm>
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -1370,9 +1379,116 @@ void png_unfilter(const uint8_t* raw, int h, int64_t stride, int bpp, uint8_t* o
   }
 }
 
+constexpr int kPrecisionBits = 32 - 8 - 2;
+
+// One axis's taps: per output position its first input index, its tap
+// count and `ksize` fixed-point taps (zero past the count).
+struct Taps {
+  int ksize = 0;
+  std::vector<int> xmin, count;
+  std::vector<int32_t> k;
+};
+
+Taps bilinear_taps(int in_size, int out_size) {
+  Taps t;
+  const double scale = (double)in_size / out_size;
+  const double filterscale = std::max(scale, 1.0);
+  const double support = 1.0 * filterscale;
+  t.ksize = (int)std::ceil(support) * 2 + 1;
+  t.xmin.resize(out_size);
+  t.count.resize(out_size);
+  t.k.assign((size_t)out_size * t.ksize, 0);
+  std::vector<double> w(t.ksize);
+  const double ss = 1.0 / filterscale;
+  for (int xx = 0; xx < out_size; ++xx) {
+    const double center = (xx + 0.5) * scale;
+    int xmin = (int)(center - support + 0.5);
+    if (xmin < 0) xmin = 0;
+    int xmax = (int)(center + support + 0.5);
+    if (xmax > in_size) xmax = in_size;
+    xmax -= xmin;
+    double ww = 0.0;
+    for (int x = 0; x < xmax; ++x) {
+      double a = (x + xmin - center + 0.5) * ss;
+      if (a < 0.0) a = -a;
+      w[x] = a < 1.0 ? 1.0 - a : 0.0;
+      ww += w[x];
+    }
+    for (int x = 0; x < xmax; ++x) {
+      if (ww != 0.0) w[x] /= ww;
+      const double v = w[x] * (1 << kPrecisionBits);
+      t.k[(size_t)xx * t.ksize + x] = (int32_t)(w[x] < 0 ? -0.5 + v : 0.5 + v);
+    }
+    t.xmin[xx] = xmin;
+    t.count[xx] = xmax;
+  }
+  return t;
+}
+
+inline uint8_t clip8(int64_t v) {
+  if (v >= ((int64_t)255 << kPrecisionBits)) return 255;
+  if (v <= 0) return 0;
+  return (uint8_t)(v >> kPrecisionBits);
+}
+
+// Rows of `in` (h x w, row stride `in_stride`) -> `out` (h x ow), each row
+// resampled along its length.
+void pass_rows(const uint8_t* in, int h, int w, int64_t in_stride, uint8_t* out, int ow) {
+  const Taps t = bilinear_taps(w, ow);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* row = in + (int64_t)y * in_stride;
+    uint8_t* dst = out + (int64_t)y * ow;
+    for (int xx = 0; xx < ow; ++xx) {
+      const int32_t* k = &t.k[(size_t)xx * t.ksize];
+      const uint8_t* src = row + t.xmin[xx];
+      int64_t acc = 1 << (kPrecisionBits - 1);
+      for (int x = 0; x < t.count[xx]; ++x) acc += (int64_t)src[x] * k[x];
+      dst[xx] = clip8(acc);
+    }
+  }
+}
+
+// Columns of `in` (h x w, row stride `in_stride`) -> `out` (oh x w), each
+// column resampled along its length, a whole output row at a time.
+void pass_cols(const uint8_t* in, int h, int w, int64_t in_stride, uint8_t* out, int oh) {
+  const Taps t = bilinear_taps(h, oh);
+  std::vector<int64_t> acc(w);
+  for (int yy = 0; yy < oh; ++yy) {
+    const int32_t* k = &t.k[(size_t)yy * t.ksize];
+    std::fill(acc.begin(), acc.end(), (int64_t)1 << (kPrecisionBits - 1));
+    for (int y = 0; y < t.count[yy]; ++y) {
+      const uint8_t* row = in + (int64_t)(t.xmin[yy] + y) * in_stride;
+      const int64_t ky = k[y];
+      for (int x = 0; x < w; ++x) acc[x] += (int64_t)row[x] * ky;
+    }
+    uint8_t* dst = out + (int64_t)yy * w;
+    for (int x = 0; x < w; ++x) dst[x] = clip8(acc[x]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// uint8 grey `in` (h x w, row stride `in_stride` bytes) -> `out` (oh x ow,
+// contiguous), Pillow's Image.resize((ow, oh), Image.BILINEAR) in L mode.
+// Returns 0, or 1 for a size below 1.
+int sig_resize_bilinear(const uint8_t* in, int h, int w, int64_t in_stride, uint8_t* out,
+                        int oh, int ow) {
+  if (h < 1 || w < 1 || oh < 1 || ow < 1 || in_stride < w) return kCorrupt;
+  if (ow == w && oh == h) {
+    for (int y = 0; y < h; ++y) memcpy(out + (int64_t)y * w, in + (int64_t)y * in_stride, w);
+  } else if (oh == h) {
+    pass_rows(in, h, w, in_stride, out, ow);
+  } else if (ow == w) {
+    pass_cols(in, h, w, in_stride, out, oh);
+  } else {
+    std::vector<uint8_t> mid((size_t)h * ow);
+    pass_rows(in, h, w, in_stride, mid.data(), ow);
+    pass_cols(mid.data(), h, ow, ow, out, oh);
+  }
+  return kOk;
+}
 
 // PNG rows as zlib inflates them (`n` bytes at `raw`: `h` rows of a filter
 // byte and `stride` bytes) -> `out`, h * stride unfiltered bytes; `bpp` the

@@ -5,7 +5,10 @@ The decoder reads JPEG, BMP and TIFF files to 8-bit grey, as PIL's
 files are recognised and left to ``infer/export.py::decode_png``, which
 inflates their rows with zlib and undoes the row filters here
 (``png_unfilter``). The
-format comes from the file's first bytes, not from its name. The library is
+format comes from the file's first bytes, not from its name. The library
+also resizes (``resize_bilinear``: Pillow's ``L``-mode bilinear, bit-equal
+to ``data/resample.py``'s numpy version, which stays as the plain version);
+a ctypes call releases the interpreter lock, so threads resize in parallel. The library is
 built with ``g++`` at first use into ``build/siggan_tpu_torch/``
 (``ops/kernels/build.py::load_host``); there is no other decoder to fall
 back on.
@@ -29,7 +32,7 @@ from siggan_tpu_torch.ops.kernels import build
 
 SOURCE = Path(__file__).with_name("decode.cpp")
 # The version of what the dataset decodes: the decoders (this library and
-# ``infer/export.py::decode_png``) and the resize (``data/resample.py``).
+# ``infer/export.py::decode_png``) and the resize (``sig_resize_bilinear``).
 # It names the dataset cache (``data/dataset.py``), so a cache written by an
 # older decoder is never read. Bump it in every change that alters a decoded
 # or resized pixel. d1: the decoders of the PNG-in-Python port; d2: PNG rows
@@ -46,6 +49,8 @@ _SIGNATURES = {
     "sig_png_unfilter": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
                           ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int],
                          ctypes.c_int),
+    "sig_resize_bilinear": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int], ctypes.c_int),
     "sig_decode_files": ([_P(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, _P(ctypes.c_void_p),
                           _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_int),
                           ctypes.c_char_p, ctypes.c_int], None),
@@ -106,6 +111,27 @@ def png_unfilter(raw: np.ndarray, pos: int, h: int, stride: int, bpp: int) -> np
                               out.ctypes.data, msg, _MSG)
     if st != OK:
         raise ValueError(msg.value.decode(errors="replace"))
+    return out
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 (H, W) -> uint8 (height, width), equal to PIL's
+    ``Image.fromarray(img).resize((width, height), Image.BILINEAR)`` and to
+    ``data/resample.py::resize_bilinear``."""
+    a = np.asarray(img, np.uint8)
+    if a.ndim != 2:
+        raise ValueError(f"resize_bilinear takes one (H, W) image, got {a.shape}")
+    if width < 1 or height < 1:
+        raise ValueError(f"cannot resize to {width} x {height}")
+    if a.shape[0] < 1 or a.shape[1] < 1:
+        raise ValueError(f"cannot resize an empty image {a.shape}")
+    if a.strides[1] != 1:
+        a = np.ascontiguousarray(a)
+    out = np.empty((height, width), np.uint8)
+    st = library().sig_resize_bilinear(a.ctypes.data, a.shape[0], a.shape[1], a.strides[0],
+                                       out.ctypes.data, height, width)
+    if st != OK:
+        raise ValueError(f"cannot resize {a.shape} to {width} x {height}")
     return out
 
 

@@ -6,15 +6,58 @@ thickness and optional underline flourishes, on a white background with
 dark ink, float32 (N, size, size, 1) in [-1, 1]. The same seed gives the
 same images as the JAX package's ``generate_dataset``, and the labeled
 writer-style sets (``generate_labeled_dataset``, the data of conditional
-v2.0 training) the same images and labels as its namesake there. The JAX
-package's ``SIGGAN_SYNTH_CACHE`` disk cache is not ported.
+v2.0 training) the same images and labels as its namesake there.
+
+With ``SIGGAN_SYNTH_CACHE=<dir>`` set, both generators keep what they made
+in that directory, as the JAX package's do: ``generate_dataset`` per
+(size, seed), serving prefixes of a larger cached array;
+``generate_labeled_dataset`` per exact (writers, per writer, size, seed).
+A file is written under a temporary name and renamed, so a reader never
+sees half of one; an unreadable or corrupt file is regenerated and
+rewritten; a failed write warns once per process and the arrays are
+returned all the same. The file names are the port's own and carry the
+generator's version (``CACHE_VERSION``, bumped whenever a generated pixel
+changes), so the port never reads a file of the JAX package's cache, nor
+one of an older generator.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import warnings
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
+
+CACHE_ENV = "SIGGAN_SYNTH_CACHE"
+CACHE_VERSION = "g1"
+_write_failed_warned = False
+
+
+def _cache_path(name: str) -> Optional[Path]:
+    cache_dir = os.environ.get(CACHE_ENV)
+    return Path(cache_dir) / name if cache_dir else None
+
+
+def _cache_write(path: Path, save: Callable[[Path], None]) -> None:
+    """``save`` to a temporary name beside ``path``, then rename it there;
+    a failure warns once per process."""
+    global _write_failed_warned
+    tmp = path.with_name(f"{path.stem}.tmp{os.getpid()}{path.suffix}")
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save(tmp)
+        tmp.replace(path)
+    except OSError as err:
+        with contextlib.suppress(OSError):
+            tmp.unlink()
+        if not _write_failed_warned:
+            _write_failed_warned = True
+            warnings.warn(f"{CACHE_ENV}: could not write {path} ({err}); the synthetic "
+                          f"sets are regenerated on every call", RuntimeWarning,
+                          stacklevel=3)
 
 
 def _smooth(v: np.ndarray, k: int) -> np.ndarray:
@@ -102,9 +145,21 @@ def make_signature(rs: np.random.RandomState, size: int = 64) -> np.ndarray:
 
 def generate_dataset(n: int, size: int = 64, seed: int = 0) -> np.ndarray:
     """(n, size, size, 1) float32 in [-1, 1], deterministic in ``seed``;
-    the first k images are the same for every n >= k."""
+    the first k images are the same for every n >= k (so a cached larger
+    set serves a smaller one)."""
+    path = _cache_path(f"synth_torch_{CACHE_VERSION}_{size}px_seed{seed}.npy")
+    if path is not None and path.exists():
+        try:
+            arr = np.load(path, mmap_mode="r")
+            if arr.ndim == 4 and arr.shape[1:] == (size, size, 1) and len(arr) >= n:
+                return np.array(arr[:n], np.float32)
+        except (OSError, ValueError, EOFError):
+            pass   # an unreadable or corrupt file: regenerated below
     rs = np.random.RandomState(seed)
-    return np.stack([make_signature(rs, size) for _ in range(n)])
+    out = np.stack([make_signature(rs, size) for _ in range(n)])
+    if path is not None:
+        _cache_write(path, lambda tmp: np.save(tmp, out))
+    return out
 
 
 def make_writer_signature(rs: np.random.RandomState, style: dict,
@@ -164,7 +219,19 @@ def generate_labeled_dataset(n_writers: int, per_writer: int, size: int = 64,
                              seed: int = 0):
     """((n_writers*per_writer, size, size, 1) images, (N,) int32 labels):
     writer-consistent styles, writer by writer. Style draws interleave with
-    image draws, so sets of other shapes differ from image 0 on."""
+    image draws, so sets of other shapes differ from image 0 on (and the
+    cache keeps each shape apart)."""
+    path = _cache_path(f"labeled_torch_{CACHE_VERSION}_{n_writers}w{per_writer}_{size}px"
+                       f"_seed{seed}.npz")
+    if path is not None and path.exists():
+        try:
+            with np.load(path) as z:
+                images, labels = z["images"], z["labels"]
+            if images.shape == (n_writers * per_writer, size, size, 1) \
+                    and labels.shape == (n_writers * per_writer,):
+                return images, labels
+        except (OSError, ValueError, EOFError, KeyError):
+            pass   # an unreadable or corrupt file: regenerated below
     rs = np.random.RandomState(seed)
     imgs, labels = [], []
     for w in range(n_writers):
@@ -172,7 +239,10 @@ def generate_labeled_dataset(n_writers: int, per_writer: int, size: int = 64,
         for _ in range(per_writer):
             imgs.append(make_writer_signature(rs, style, size))
             labels.append(w)
-    return np.stack(imgs), np.asarray(labels, np.int32)
+    images, labels = np.stack(imgs), np.asarray(labels, np.int32)
+    if path is not None:
+        _cache_write(path, lambda tmp: np.savez(tmp, images=images, labels=labels))
+    return images, labels
 
 
 def save_labeled_dataset_pngs(n_writers: int, per_writer: int, output_dir: str | Path,

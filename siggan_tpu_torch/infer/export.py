@@ -1,8 +1,13 @@
-"""Image export: PNG bytes, in-memory ZIPs, PNG batches, contact sheets.
+"""Image export: PNG bytes, in-memory ZIPs, PNG batches, contact sheets,
+animated GIFs.
 
 The same functions as the JAX package's ``infer/export.py``. PNGs are
 encoded with the standard library (zlib) so that serving needs no imaging
 package: 8-bit grayscale, RGB or RGBA, one filter byte of 0 per row.
+``encode_gif`` writes grey frames as a GIF89a animation (what PIL's
+``save(..., save_all=True)`` gives the JAX package's training GIF): a
+256-grey global palette, LZW-coded frames, one graphics-control block per
+frame with its delay, and the NETSCAPE2.0 loop block.
 ``decode_png`` reads every kind of PNG back to 8 bits as PIL does: zlib
 inflates the rows, the port's host decoder (``data/native/decode.cpp``,
 ``sig_png_unfilter``) undoes the five row filters, numpy unpacks the
@@ -45,6 +50,80 @@ def encode_png(u8: np.ndarray) -> bytes:
     return (_SIG + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def _lzw(pixels: bytes) -> bytes:
+    """GIF's variable-width LZW of 8-bit ``pixels`` (minimum code size 8),
+    packed least significant bit first: a clear code first and whenever
+    the table reaches 4096 codes, the end code last."""
+    clear, end = 256, 257
+    out = bytearray()
+    acc = n_acc = 0
+
+    def emit(code: int, size: int) -> None:
+        nonlocal acc, n_acc
+        acc |= code << n_acc
+        n_acc += size
+        while n_acc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            n_acc -= 8
+
+    table: dict = {}
+    size, nxt = 9, 258
+    emit(clear, size)
+    it = iter(pixels)
+    w = next(it, None)
+    if w is not None:
+        for c in it:
+            key = (w << 8) | c
+            code = table.get(key)
+            if code is not None:
+                w = code
+                continue
+            emit(w, size)
+            table[key] = nxt
+            nxt += 1
+            # The decoder reads the next code one table entry behind.
+            if nxt > 1 << size and size < 12:
+                size += 1
+            if nxt == 4096:
+                emit(clear, size)
+                table.clear()
+                size, nxt = 9, 258
+            w = c
+        emit(w, size)
+    emit(end, size)
+    if n_acc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def encode_gif(frames: List[np.ndarray], duration_ms: int = 300) -> bytes:
+    """uint8 (H, W) grey frames -> GIF89a bytes: a 256-grey global palette,
+    each frame LZW-coded behind a graphics-control block with a delay of
+    ``duration_ms / 10`` centiseconds, and the NETSCAPE2.0 block with loop
+    count 0 (forever, as the JAX package's GIF). The screen is the largest frame's size; each
+    frame sits at its top-left corner."""
+    if not frames:
+        raise ValueError("a GIF needs at least one frame")
+    arrs = [np.ascontiguousarray(np.asarray(f, np.uint8)) for f in frames]
+    if any(a.ndim != 2 for a in arrs):
+        raise ValueError("encode_gif takes (H, W) grey frames")
+    sw, sh = max(a.shape[1] for a in arrs), max(a.shape[0] for a in arrs)
+    grey = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    head = [b"GIF89a", struct.pack("<HHBBB", sw, sh, 0xF7, 0, 0), grey,
+            b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    delay = int(round(duration_ms / 10))
+    body = []
+    for a in arrs:
+        data = _lzw(a.tobytes())
+        blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                          for i in range(0, len(data), 255))
+        body += [b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00",
+                 b"\x2c" + struct.pack("<HHHHB", 0, 0, a.shape[1], a.shape[0], 0),
+                 b"\x08", blocks, b"\x00"]
+    return b"".join(head + body) + b"\x3b"
 
 
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}        # PNG colour type -> samples

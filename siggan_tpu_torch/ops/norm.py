@@ -46,7 +46,7 @@ def _no_groups(groups: int) -> None:
     if groups != 1:
         raise NotImplementedError(
             "BatchNorm groups > 1 (fuse_g_forwards) is not ported yet "
-            "(ROADMAP A.1, training slice leftovers)")
+            "(ROADMAP A.1.4)")
 
 
 def _train_stats(xf: torch.Tensor, dims, n: int, state: Dict[str, torch.Tensor],

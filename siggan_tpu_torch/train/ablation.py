@@ -17,9 +17,10 @@ Port of the JAX package's ``train/ablation.py``:
    (``np.random.RandomState((seed, epoch)).permutation``), FID of 256
    samples against up to 512 cached reals (``eval/fid.py``'s random-init
    InceptionV3, the reals' features extracted once), CSV / Markdown / JSON
-   tables, a sample grid per run and ``plots.json``: the points of the JAX
-   package's five plots (the card's host has no plotting library; drawing
-   them is ROADMAP A.10).
+   tables, a sample grid per run, the JAX package's five plots under its
+   file names (``loss_curves.png``, ``stability.png``, ``wall_time.png``,
+   and with a FID ``fid_comparison.png`` and ``params_vs_fid.png``), drawn
+   with numpy (``utils/visualizer.py``), and ``plots.json``, their points.
 
 Leaky-ReLU generators train on the module path (kernels B2 and B4 take ReLU
 only). Runs are eager steps on the device, which defaults to ``cuda`` and
@@ -47,6 +48,8 @@ from siggan_tpu_torch.models.discriminator import channel_schedule as d_channels
 from siggan_tpu_torch.ops.regularizers import keep_mask
 from siggan_tpu_torch.train.train_step import (Metrics, Streams, _bce_mean, _dtype,
                                                make_eval_generate)
+from siggan_tpu_torch.utils.visualizer import (Chart, _write_png, bar_chart, colour, figure,
+                                               line_chart)
 
 
 @dataclass(frozen=True)
@@ -149,6 +152,39 @@ def make_ablation_train_step(cfg: TrainConfig):
         return state, metrics
 
     return step
+
+
+def plot_images(plots: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The images of ``save_plots``' charts from their points (plots.json):
+    the D and G loss of every run against the step (1320 x 495, two
+    panels), bars of stability, wall time and FID (990 x 440), and G's
+    parameters against the FID with each run's name (660 x 495)."""
+    hist = plots["loss_curves.png"]
+    panels = [line_chart({n: (list(range(len(h[key]))), h[key]) for n, h in hist.items()},
+                         660, 495, x_label="step", title=title)
+              for key, title in (("d_loss", "d loss"), ("g_loss", "g loss"))]
+    out = {"loss_curves.png": figure(panels),
+           "stability.png": bar_chart(list(plots["stability.png"]),
+                                      list(plots["stability.png"].values()),
+                                      y_label="loss variance").img,
+           "wall_time.png": bar_chart(list(plots["wall_time.png"]),
+                                      list(plots["wall_time.png"].values()),
+                                      y_label="wall time s").img}
+    if "fid_comparison.png" in plots:
+        fid = plots["fid_comparison.png"]
+        out["fid_comparison.png"] = bar_chart(list(fid), list(fid.values()),
+                                              y_label="fid").img
+        pts = plots["params_vs_fid.png"]
+        xs, ys = [p[0] for p in pts.values()], [p[1] for p in pts.values()]
+        (x_lo, x_hi), (y_lo, y_hi) = (min(xs), max(xs)), (min(ys), max(ys))
+        px, py = 0.05 * (x_hi - x_lo) or 1.0, 0.05 * (y_hi - y_lo) or 1.0
+        chart = Chart((x_lo - px, x_hi + px), (y_lo - py, y_hi + py), 660, 495,
+                      x_label="g params", y_label="fid")
+        chart.points(xs, ys, colour(0))
+        for name, (x, y) in pts.items():
+            chart.label(x, y, name)
+        out["params_vs_fid.png"] = chart.img
+    return out
 
 
 class AblationStudyManager:
@@ -277,9 +313,10 @@ class AblationStudyManager:
         (self.out / "results.md").write_text("\n".join(md) + "\n")
 
     def save_plots(self) -> None:
-        """plots.json: the points of the JAX package's five plots (loss
-        curves, FID bars, stability bars, parameters against FID, wall
-        time), by file name of the plot they draw."""
+        """The JAX package's five plots (loss curves, FID bars, stability
+        bars, parameters against FID, wall time; the two of the FID when any
+        run has one), drawn with numpy at the JAX figures' pixel sizes, and
+        plots.json, their points by file name."""
         names = [r.config.short_name for r in self.results]
         has_fid = any(r.fid is not None for r in self.results)
         plots: Dict[str, Any] = {
@@ -292,3 +329,5 @@ class AblationStudyManager:
             plots["params_vs_fid.png"] = {r.config.short_name: [r.g_params, r.fid or 0]
                                           for r in self.results}
         (self.out / "plots.json").write_text(json.dumps(plots, indent=2))
+        for name, img in plot_images(plots).items():
+            _write_png(img, self.out / name)

@@ -3,7 +3,8 @@ generator update.
 
 Port of the JAX package's ``train/train_step.py`` (``d_step``, ``g_step``,
 ``shared_fakes_step``, ``make_train_step``, ``make_resident_train_step``,
-``make_resident_multi_step``, ``make_eval_generate``). The same semantics:
+``make_resident_multi_step``, ``make_eval_generate``; ``make_stream_step``
+graphs the step the JAX streaming path jits). The same semantics:
 
  - one-sided label smoothing: reals 0.9, fakes 0.0, G targets 1.0; BCE from
    logits, losses and statistics in f32, convs in ``cfg.compute_dtype``;
@@ -55,7 +56,9 @@ eager steps. On the card one step is captured as
 a CUDA graph and replayed K times (``_GraphedSteps``): the window's draws
 and its epoch's tables are made outside the graph, with the eager step's
 keys, into buffers the graph reads, so graphed and eager steps see the same
-numbers.
+numbers. ``make_stream_step`` is the streaming route's counterpart, one
+step per call on a batch the loader brought: the same graph machinery with
+the batch copied into a static buffer.
 
 With ``share_fakes`` (n_critic 1) a step is ``shared_fakes_step``: one
 latent batch, one generator forward for both updates. Not ported yet
@@ -535,72 +538,146 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
     return out
 
 
+class _Gathered:
+    """Where a resident window's batches come from: rows of the epoch's
+    permutation of the set on the card, gathered inside the graph (and
+    warped there with the epoch's augment tables, with bulk augmentation).
+    ``fill`` writes the window's rows (and, when the epoch changed, its
+    tables) into buffers the graph reads."""
+
+    def __init__(self, cfg: TrainConfig, n_images: int, k: int, eager_step):
+        self.cfg, self.n_images, self.k, self.eager_step = cfg, n_images, k, eager_step
+        self.spe = n_images // cfg.batch_size
+        self.inner, self.real_packed = _inner(cfg)
+
+    def allocate(self, images: torch.Tensor, labels: Optional[torch.Tensor]) -> None:
+        dev, b = images.device, self.cfg.batch_size
+        self.images, self.labels, self.epoch = images, labels, None
+        self.perm = torch.empty(self.n_images, dtype=torch.long, device=dev)
+        self.rows = torch.empty((self.k, b), dtype=torch.long, device=dev)
+        self.aug = None
+        if _bulk(self.cfg):
+            n = self.n_images
+            self.aug = (torch.empty(n, device=dev), torch.empty(n, device=dev),
+                        torch.empty(n, dtype=torch.bool, device=dev) if self.cfg.hflip else None)
+
+    def check(self, step0: int, images: torch.Tensor, labels: Optional[torch.Tensor],
+              allocated: bool) -> None:
+        if step0 % self.spe + self.k > self.spe:
+            raise ValueError(f"a window of {self.k} steps from step {step0} crosses an "
+                             f"epoch of {self.spe} steps")
+        if allocated and (images is not self.images or labels is not self.labels):
+            raise ValueError("the train step's graph was built on other images or labels")
+
+    def fill(self, step0: int, images: torch.Tensor, labels: Optional[torch.Tensor]) -> None:
+        b = self.cfg.batch_size
+        epoch, bidx = divmod(step0, self.spe)
+        if self.epoch != epoch:
+            perm, aug = _epoch_tables(self.cfg, self.n_images, epoch, images.device)
+            self.perm.copy_(perm)
+            for dst, src in zip(self.aug or (), aug or ()):
+                if dst is not None:
+                    dst.copy_(src)
+            self.epoch = epoch
+        self.rows.copy_(self.perm[bidx * b:(bidx + self.k) * b].view(self.k, b))
+
+    def batch(self, slot: torch.Tensor):
+        """(real, its labels or None) of the step at row ``slot`` (captured)."""
+        idx = self.rows.index_select(0, slot).view(-1)
+        real = self.images[idx]
+        if self.aug is not None:
+            real = _warp_gathered(self.cfg, real, *self.aug, idx)
+        return real, None if self.labels is None else self.labels[idx]
+
+    def eager(self, state: TrainState):
+        return self.eager_step(state, self.images, labels=self.labels)
+
+
+class _Static:
+    """Where a streamed step's batch comes from: a static buffer on the card
+    (and one for its labels) that each call's batch is copied into, on the
+    current stream, before the step runs."""
+
+    def __init__(self, cfg: TrainConfig, eager_step):
+        self.eager_step = eager_step
+        self.inner, self.real_packed = cfg, False
+
+    def allocate(self, batch: torch.Tensor, labels: Optional[torch.Tensor]) -> None:
+        self.real = torch.empty_like(batch)
+        self.labels = None if labels is None else torch.empty_like(labels)
+
+    def check(self, step0: int, batch: torch.Tensor, labels: Optional[torch.Tensor],
+              allocated: bool) -> None:
+        if allocated and (batch.shape != self.real.shape
+                          or (labels is None) != (self.labels is None)):
+            raise ValueError(f"the train step's graph was built on batches of "
+                             f"{tuple(self.real.shape)}, got {tuple(batch.shape)}")
+
+    def fill(self, step0: int, batch: torch.Tensor, labels: Optional[torch.Tensor]) -> None:
+        self.real.copy_(batch)
+        if labels is not None:
+            self.labels.copy_(labels)
+
+    def batch(self, slot: torch.Tensor):
+        return self.real, self.labels
+
+    def eager(self, state: TrainState):
+        return self.eager_step(state, self.real, y_real=self.labels)
+
+
 class _GraphedSteps:
-    """K resident steps per call on the card: one step captured as a CUDA
-    graph and replayed K times.
+    """K steps per call on the card: one step captured as a CUDA graph and
+    replayed K times, on the batches of a source -- ``_Gathered`` (rows of
+    the resident set) or ``_Static`` (a streamed batch, K = 1).
 
     One graph of one step, not one of K: capture time and the graph's node
     count stay those of a step whatever K is (K reaches a whole epoch when
     steps_per_epoch has no divisor in [16, 64]), and the memory is one
-    step's either way. The graph reads the window's draws, its batch
-    indices and the epoch's augment tables from buffers filled before the
-    replays (``step_draws`` and ``epoch_tables`` with the eager step's
-    keys), finds its row through a device counter it advances (and a
-    conditional model's labels through the same rows), and writes its
-    metrics into row ``slot`` of a (K, keys) buffer. The learning rates are
-    device values of Adam's counts, so they follow the schedule on every
-    replay.
+    step's either way. The graph reads the window's draws and its source's
+    buffers, filled before the replays (``step_draws`` with the eager
+    step's keys), finds its row through a device counter it advances, and
+    writes its metrics into row ``slot`` of a (K, keys) buffer. The
+    learning rates are device values of Adam's counts, so they follow the
+    schedule on every replay.
 
     The first ``WARMUP`` steps of the run are eager steps on a side stream,
     real steps of the training: they build the kernels' plans and let
     cuDNN, cuBLAS and the autograd engine set up outside the capture. The
-    graph is bound to the first state's tensors and to ``images``; a state
-    whose tensors are others (a resumed or restored one) is copied into the
-    bound storage, and the bound state is returned. A capture launches
-    nothing, so the kernels' launch counts it records are taken back, and
-    every replay adds them."""
+    graph is bound to the first state's tensors and to the source's
+    buffers; a state whose tensors are others (a resumed or restored one) is
+    copied into the bound storage, and the bound state is returned. A
+    capture launches nothing, so the kernels' launch counts it records are
+    taken back, and every replay adds them. A failed capture raises."""
 
     WARMUP = 2
 
-    def __init__(self, cfg: TrainConfig, n_images: int, k: int, eager_step):
-        self.cfg, self.n_images, self.k = cfg, n_images, k
-        self.spe = n_images // cfg.batch_size
-        self.inner, self.real_packed = _inner(cfg)
+    def __init__(self, cfg: TrainConfig, k: int, source):
+        self.cfg, self.k, self.source = cfg, k, source
+        self.inner, self.real_packed = source.inner, source.real_packed
         self.g_tx, self.d_tx = make_optimizers(cfg)
-        self.eager_step = eager_step
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.bound: Optional[TrainState] = None
         self.warm = 0
         self.capture_s: Optional[float] = None
         self.delta: List[int] = []
 
-    def _allocate(self, state: TrainState, images: torch.Tensor,
+    def _allocate(self, state: TrainState, data: torch.Tensor,
                   labels: Optional[torch.Tensor]) -> None:
-        cfg, k, b, dev = self.inner, self.k, self.cfg.batch_size, images.device
-        self.bound, self.images, self.tensors = state, images, state_tensors(state)
-        self.labels = labels
+        cfg, k, b, dev = self.inner, self.k, self.cfg.batch_size, data.device
+        self.bound, self.tensors = state, state_tensors(state)
+        self.source.allocate(data, labels)
         self.streams = Streams(cfg.seed, dev)
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        self.epoch = None
-        self.perm = torch.empty(self.n_images, dtype=torch.long, device=dev)
-        self.rows = torch.empty((k, b), dtype=torch.long, device=dev)
         self.slot = torch.zeros(1, dtype=torch.long, device=dev)
-        self.aug = None
-        if _bulk(self.cfg):
-            n = self.n_images
-            self.aug = (torch.empty(n, device=dev), torch.empty(n, device=dev),
-                        torch.empty(n, dtype=torch.bool, device=dev) if self.cfg.hflip else None)
         # One (K, ...) buffer per draw of a step, shaped by step_draws itself.
         self.draws = _map_draws(lambda t: t.new_empty((k, *t.shape)),
                                 step_draws(cfg, self.streams, 0, b, dev))
 
-    def _bind(self, state: TrainState, images: torch.Tensor,
+    def _bind(self, state: TrainState, data: torch.Tensor,
               labels: Optional[torch.Tensor]) -> TrainState:
         if self.bound is None:
-            self._allocate(state, images, labels)
+            self._allocate(state, data, labels)
             return state
-        if images is not self.images or labels is not self.labels:
-            raise ValueError("the train step's graph was built on other images or labels")
         now = state_tensors(state)
         if len(now) != len(self.tensors):
             raise ValueError("the state's tensors are not those of the bound state's kind")
@@ -614,34 +691,21 @@ class _GraphedSteps:
         self.bound.step = state.step
         return self.bound
 
-    def _fill(self, step0: int) -> None:
-        """The window's buffers: its epoch's tables (when the epoch changed),
-        its K batches' rows of the permutation, and its K steps' draws."""
-        b = self.cfg.batch_size
-        epoch, bidx = divmod(step0, self.spe)
-        if self.epoch != epoch:
-            perm, aug = _epoch_tables(self.cfg, self.n_images, epoch, self.images.device)
-            self.perm.copy_(perm)
-            for dst, src in zip(self.aug or (), aug or ()):
-                if dst is not None:
-                    dst.copy_(src)
-            self.epoch = epoch
-        self.rows.copy_(self.perm[bidx * b:(bidx + self.k) * b].view(self.k, b))
+    def _fill(self, step0: int, data: torch.Tensor, labels: Optional[torch.Tensor]) -> None:
+        """The window's buffers: its source's batches and its K steps' draws."""
+        self.source.fill(step0, data, labels)
         for s in range(self.k):
-            step_draws(self.inner, self.streams, step0 + s, b, self.images.device,
+            step_draws(self.inner, self.streams, step0 + s, self.cfg.batch_size, data.device,
                        out=_map_draws(lambda t: t[s], self.draws))
         self.slot.zero_()
 
     def _step(self, state: TrainState) -> Metrics:
         """The captured step: batch, draws and metrics through ``slot``."""
-        idx = self.rows.index_select(0, self.slot).view(-1)
-        real = self.images[idx]
-        if self.aug is not None:
-            real = _warp_gathered(self.cfg, real, *self.aug, idx)
+        real, y_real = self.source.batch(self.slot)
         draws = _map_draws(lambda t: t.index_select(0, self.slot)[0], self.draws)
         draws["masks"] = _keep_masks(self.inner, draws.pop("u"))
         metrics = _run_step(self.inner, self.d_tx, self.g_tx, self.real_packed, state,
-                            real, draws, None if self.labels is None else self.labels[idx])
+                            real, draws, None if y_real is None else y_real.long())
         self.metrics.index_copy_(0, self.slot,
                                  torch.stack([metrics[k].float() for k in self.keys])[None])
         self.slot.add_(1)
@@ -653,7 +717,7 @@ class _GraphedSteps:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=self.stream):
             self._step(state)
-        torch.cuda.synchronize(self.images.device)
+        torch.cuda.synchronize(self.slot.device)
         self.capture_s = time.perf_counter() - t0
         self.delta = [a - b for a, b in zip(build.launch_counts(), before)]
         build.add_launches(self.delta, -1)
@@ -671,24 +735,22 @@ class _GraphedSteps:
             yield
         current.wait_stream(self.stream)
 
-    def __call__(self, state: TrainState, images: torch.Tensor,
+    def __call__(self, state: TrainState, data: torch.Tensor,
                  labels: Optional[torch.Tensor] = None):
         step0 = state.step
-        if step0 % self.spe + self.k > self.spe:
-            raise ValueError(f"a window of {self.k} steps from step {step0} crosses an "
-                             f"epoch of {self.spe} steps")
-        state = self._bind(state, images, labels)
-        self._fill(step0)
+        self.source.check(step0, data, labels, self.bound is not None)
+        state = self._bind(state, data, labels)
+        self._fill(step0, data, labels)
         replays = 0
         for s in range(self.k):
             if self.graph is None and self.warm < self.WARMUP:
                 # Eager warm-up step on the side stream: a real step of the run.
                 with self._side_stream():
-                    state, m = self.eager_step(state, images, labels=labels)
+                    state, m = self.source.eager(state)
                     if self.warm == 0:
                         self.keys = list(m)
                         self.metrics = torch.zeros((self.k, len(self.keys)),
-                                                   device=images.device)
+                                                   device=data.device)
                     self.metrics[s] = torch.stack([m[key].float() for key in self.keys])
                     self.slot.add_(1)
                 self.warm += 1
@@ -719,7 +781,7 @@ def make_resident_multi_step(cfg: TrainConfig, n_images: int, scan_steps: int):
     step_fn, spe = make_resident_train_step(cfg, n_images)
     if scan_steps < 1 or spe % scan_steps:
         raise ValueError(f"scan_steps ({scan_steps}) must divide steps_per_epoch ({spe})")
-    graphed = _GraphedSteps(cfg, n_images, scan_steps, step_fn)
+    graphed = _GraphedSteps(cfg, scan_steps, _Gathered(cfg, n_images, scan_steps, step_fn))
 
     def multi_step(state: TrainState, images: torch.Tensor,
                    labels: Optional[torch.Tensor] = None):
@@ -733,6 +795,34 @@ def make_resident_multi_step(cfg: TrainConfig, n_images: int, scan_steps: int):
 
     multi_step.graphed = graphed
     return multi_step, spe
+
+
+def make_stream_step(cfg: TrainConfig):
+    """The streaming route's step, one dispatch per batch: ``(state, batch,
+    labels=None) -> (state, metrics)`` with ``batch`` a (b, H, W, 1) batch
+    from ``data/loader.py::BatchLoader`` (``labels`` its labels for a
+    conditional model) and each metric of shape (1,). The step is
+    ``make_train_step(cfg)``, the JAX streaming path's: augmentation drawn
+    per step from the step counter's keys.
+
+    On CUDA tensors it replays a CUDA graph of that step
+    (``stream_step.graphed``, a ``_GraphedSteps`` over a ``_Static``
+    source): the batch is copied into the graph's static buffer and the
+    step's draws into its draw buffers, with the eager step's keys, so
+    graphed and eager steps see the same numbers. On CPU tensors it is the
+    eager step (also the route to debug on the card)."""
+    step_fn = make_train_step(cfg)
+    graphed = _GraphedSteps(cfg, 1, _Static(cfg, step_fn))
+
+    def stream_step(state: TrainState, batch: torch.Tensor,
+                    labels: Optional[torch.Tensor] = None):
+        if batch.device.type == "cuda":
+            return graphed(state, batch, labels)
+        state, m = step_fn(state, batch, y_real=labels)
+        return state, {k: v.reshape(1) for k, v in m.items()}
+
+    stream_step.graphed = graphed
+    return stream_step
 
 
 def make_eval_generate(cfg: TrainConfig):

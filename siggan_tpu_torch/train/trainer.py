@@ -2,20 +2,35 @@
 sample grids, recovery.
 
 Port of the JAX package's ``GANTrainer`` (``train/trainer.py``) without the
-mesh, the profiler or the streaming loader (they raise
-``NotImplementedError``). The dataset, and a conditional model's labels
-(``labels=``, required then), are resident on the card and every step
-gathers its batch there. With an LR schedule the span ``lr_total_steps``
+mesh (it raises ``NotImplementedError``, ROADMAP A.9). A conditional model
+needs its labels (``labels=``). Two routes, chosen as the JAX trainer
+chooses them:
+
+- resident (the set fits ``resident_max_mb`` and ``resident_data``): the
+  dataset and its labels live on the card and every step gathers its batch
+  there. Steps run in windows of K = ``scan_steps`` (``choose_scan_steps``,
+  the JAX trainer's rule) through ``make_resident_multi_step``: on the card
+  each window replays a CUDA graph of one step K times, on the CPU it is K
+  eager steps. The stop file is polled after every window.
+- streaming (otherwise): the set stays in host memory and
+  ``data/loader.py::BatchLoader`` copies each batch to the card ahead of
+  the step (the epoch's order keyed by its index, the JAX loader's). One
+  dispatch per batch through ``make_stream_step``: on the card a CUDA
+  graph of ``make_train_step(cfg)`` (augmentation drawn per step), on the
+  CPU the eager step. The stop file is polled after every batch.
+
+With an LR schedule the span ``lr_total_steps``
 is filled in at construction (epochs x steps per epoch) and serialized
-with the config, so a resume keeps the schedule. Steps run in windows of K = ``scan_steps``
-(``choose_scan_steps``, the JAX trainer's rule) through
-``make_resident_multi_step``: on the card each window replays a CUDA graph
-of one step K times, on the CPU it is K eager steps. Windows are enqueued
+with the config, so a resume keeps the schedule. Dispatches are enqueued
 without a host synchronization: metrics stay on the card and are pulled
 once at epoch end, where the mode-collapse detector replays them and the
 epoch's images/s and ms/step are logged (host clock around the epoch,
 ending in that pull), with every key the step returns. The stop file is
-polled before every epoch and after every window. Fixed-noise sample grids
+also polled before every epoch. With ``profile_dir`` the epoch
+``start_epoch + 1`` (the first after the warm-up and the capture) is
+traced with ``torch.profiler`` (CPU and, on the card, CUDA activities) and
+written there as a Chrome trace, ``epoch_{E:04d}.pt.trace.json``, as the JAX
+trainer traces that epoch with ``jax.profiler``. Fixed-noise sample grids
 every ``sample_interval`` epochs, epoch/latest/best checkpoints every
 ``checkpoint_interval``, resume, and a checkpoint on interrupt, as in the
 JAX trainer; the grids of a conditional model label image i with class
@@ -48,10 +63,11 @@ from siggan_tpu_torch.core import rng
 from siggan_tpu_torch.core.config import TrainConfig
 from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
 from siggan_tpu_torch.core.state import TrainState, create_train_state
+from siggan_tpu_torch.data.loader import BatchLoader
 from siggan_tpu_torch.infer.export import contact_sheet
 from siggan_tpu_torch.train.collapse import ModeCollapseDetector
 from siggan_tpu_torch.train.train_step import (check_supported, make_eval_generate,
-                                               make_resident_multi_step)
+                                               make_resident_multi_step, make_stream_step)
 from siggan_tpu_torch.utils.logger import GANLogger
 
 
@@ -75,14 +91,14 @@ def choose_scan_steps(steps_per_epoch: int, scan_steps: int = 0) -> int:
 
 def check_trainer_supported(cfg: TrainConfig, images: np.ndarray) -> None:
     check_supported(cfg)
-    if cfg.profile_dir:
-        raise NotImplementedError("the trainer's profiler hook is not ported yet "
-                                  "(ROADMAP A.1)")
     if cfg.mesh.num_data not in (-1, 1):
         raise NotImplementedError("multi-card training is not ported yet (ROADMAP A.9)")
-    if not cfg.resident_data or images.nbytes / 2 ** 20 > cfg.resident_max_mb:
-        raise NotImplementedError("the streaming loader is not ported yet (ROADMAP "
-                                  "A.1): the dataset must fit resident_max_mb")
+
+
+def is_resident(cfg: TrainConfig, images: np.ndarray) -> bool:
+    """The JAX trainer's choice: the set lives on the card when
+    ``resident_data`` and it fits ``resident_max_mb``, else it streams."""
+    return cfg.resident_data and images.nbytes / 2 ** 20 <= cfg.resident_max_mb
 
 
 class GANTrainer:
@@ -106,14 +122,25 @@ class GANTrainer:
         self.collapse_detector = ModeCollapseDetector(
             cfg.mode_collapse_threshold, cfg.mode_collapse_window)
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg, authoritative=True)
-        self.images_dev = torch.from_numpy(np.ascontiguousarray(images, np.float32)
-                                           ).to(self.device)
-        self.labels_dev = (torch.from_numpy(np.asarray(labels, np.int64)).to(self.device)
-                           if self.conditional else None)
-        spe = len(images) // cfg.batch_size
-        self.scan_steps = choose_scan_steps(spe, cfg.scan_steps)
-        self._step_fn, self.steps_per_epoch = make_resident_multi_step(
-            cfg, len(images), self.scan_steps)
+        images = np.ascontiguousarray(images, np.float32)
+        self.resident = is_resident(cfg, images)
+        if self.resident:
+            self.images_dev = torch.from_numpy(images).to(self.device)
+            self.labels_dev = (torch.from_numpy(np.asarray(labels, np.int64)).to(self.device)
+                               if self.conditional else None)
+            spe = len(images) // cfg.batch_size
+            self.scan_steps = choose_scan_steps(spe, cfg.scan_steps)
+            self._step_fn, self.steps_per_epoch = make_resident_multi_step(
+                cfg, len(images), self.scan_steps)
+            self.loader = None
+        else:
+            self.loader = BatchLoader(
+                images, cfg.batch_size, seed=cfg.seed, prefetch=cfg.prefetch,
+                labels=np.asarray(labels, np.int64) if self.conditional else None,
+                device=self.device)
+            self.steps_per_epoch = len(self.loader)
+            self.scan_steps = 1
+            self._step_fn = make_stream_step(cfg)
         self.state: TrainState = create_train_state(cfg, self.device)
         self._generate = make_eval_generate(cfg)
         self.fixed_noise = torch.randn(
@@ -153,8 +180,36 @@ class GANTrainer:
         else:
             how = "eager steps"
         self._reported = True
+        route = ("resident" if self.resident else
+                 f"streaming, {self.cfg.prefetch} batches copied ahead")
         print(f"Dispatch: {self.scan_steps} steps per call ({self.steps_per_epoch} per "
-              f"epoch) as {how}", flush=True)
+              f"epoch) as {how} ({route})", flush=True)
+
+    def _dispatches(self, epoch: int):
+        """The epoch's step arguments after the state: per window the
+        resident set, or per batch the loader's batch (and labels)."""
+        if self.loader is None:
+            for _ in range(self.steps_per_epoch // self.scan_steps):
+                yield self.images_dev, self.labels_dev
+            return
+        for batch in self.loader.epoch(epoch):
+            yield batch if isinstance(batch, tuple) else (batch,)
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, epoch: int) -> None:
+        prof.stop()
+        out = Path(self.cfg.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"epoch_{epoch:04d}.pt.trace.json"))
+        print(f"Profiler trace written to {self.cfg.profile_dir}", flush=True)
 
     def _should_stop(self) -> bool:
         return self.stop_file is not None and self.stop_file.exists()
@@ -211,10 +266,12 @@ class GANTrainer:
                     stopped = True
                     epoch -= 1   # label the final checkpoint with the last done epoch
                     break
+                profiler = (self._start_profiler() if cfg.profile_dir
+                            and epoch == self.start_epoch + 1 else None)
                 windows = []
                 t_epoch = time.perf_counter()
-                for _ in range(self.steps_per_epoch // self.scan_steps):
-                    self.state, m = self._step_fn(self.state, self.images_dev, self.labels_dev)
+                for batch in self._dispatches(epoch):
+                    self.state, m = self._step_fn(self.state, *batch)
                     windows.append(m)   # each metric stacked to (K,)
                     self._report_dispatch()
                     if self._should_stop():
@@ -225,6 +282,8 @@ class GANTrainer:
                 keys = list(windows[0])
                 stacked = torch.stack([torch.cat([m[k] for m in windows])
                                        for k in keys]).cpu().numpy()
+                if profiler is not None:
+                    self._stop_profiler(profiler, epoch)
                 dt = time.perf_counter() - t_epoch
                 n_steps = stacked.shape[1]
                 cols = dict(zip(keys, stacked))

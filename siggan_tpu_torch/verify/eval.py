@@ -3,10 +3,11 @@
 Port of the JAX package's ``verify/eval.py``: batched similarity scoring of
 seeded test pairs on the device, ``compute_verification_metrics`` per
 model, a JSON report with the baseline-against-augmented improvement
-percentages, and a console comparison table. The JAX package draws four
-matplotlib plots (ROC, log-log DET, score distributions with the EER
-threshold, metric bars); the port writes the points behind them to
-``curves.json`` beside the report instead, for any plotting tool: per
+percentages, a console comparison table, and the JAX package's four plots
+(``roc.png``, ``det.png`` on log-log axes, ``score_distributions.png``
+with the EER threshold, ``metric_comparison.png``), drawn with numpy
+(``utils/visualizer.py::Chart``) at the JAX figures' pixel sizes. The
+points behind them also go to ``curves.json`` beside the report: per
 model the ROC ``fpr``/``tpr``/``thresholds`` (a non-finite threshold as
 null), the DET ``fpr``/``fnr`` where both are > 0 (the plot's log axes),
 30-bin density histograms of the genuine and forgery scores with the EER
@@ -23,6 +24,7 @@ from typing import Any, Dict
 import numpy as np
 
 from siggan_tpu_torch.core.platform import DeviceLike
+from siggan_tpu_torch.utils.visualizer import Chart, _text, _write_png, colour, figure
 from siggan_tpu_torch.verify.metrics import (compute_verification_metrics,
                                              det_points, roc_points)
 from siggan_tpu_torch.verify.train import (load_verifier, model_from_snapshot,
@@ -81,6 +83,97 @@ def write_curves(results: Dict[str, Dict], path: str | Path) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(curve_points(results), indent=1))
     return path
+
+
+# -- plots ------------------------------------------------------------------
+
+def roc_chart(results: Dict[str, Dict]) -> Chart:
+    chart = Chart((0.0, 1.0), (0.0, 1.0), 660, 550, title="roc",
+                  x_label="false positive rate", y_label="true positive rate",
+                  legend_rows=-(-len(results) // 3))
+    chart.line([0.0, 1.0], [0.0, 1.0], (153, 153, 153), 1, dash=6)
+    names = []
+    for i, (name, r) in enumerate(results.items()):
+        fpr, tpr, _ = roc_points(r["y_true"], r["y_scores"])
+        chart.line(fpr, tpr, colour(i))
+        names.append(f"{name} auc {r['metrics']['roc_auc']:.3f}")
+    chart.legend(names, [colour(i) for i in range(len(results))])
+    return chart
+
+
+def plot_roc(results: Dict[str, Dict], path: str | Path) -> Path:
+    return _write_png(roc_chart(results).img, path)
+
+
+def det_chart(results: Dict[str, Dict]) -> Chart:
+    pts = {}
+    for name, r in results.items():
+        fpr, fnr = det_points(r["y_true"], r["y_scores"])
+        m = (fpr > 0) & (fnr > 0)
+        pts[name] = (fpr[m], fnr[m])
+    vals = np.concatenate([np.concatenate(p) for p in pts.values()] + [np.ones(1)])
+    lo = 10 ** np.floor(np.log10(vals.min()))
+    chart = Chart((lo, 1.0), (lo, 1.0), 660, 550, log_x=True, log_y=True,
+                  title="det log-log", x_label="false acceptance rate",
+                  y_label="false rejection rate", legend_rows=-(-len(results) // 3))
+    for i, (x, y) in enumerate(pts.values()):
+        chart.line(x, y, colour(i))
+    chart.legend(list(pts), [colour(i) for i in range(len(pts))])
+    return chart
+
+
+def plot_det(results: Dict[str, Dict], path: str | Path) -> Path:
+    return _write_png(det_chart(results).img, path)
+
+
+def score_charts(results: Dict[str, Dict]) -> list:
+    """Per model: the genuine and forgery score densities (30 bins each,
+    blended bars) and the EER threshold, dashed."""
+    charts = []
+    for name, r in results.items():
+        y, s = np.asarray(r["y_true"]), np.asarray(r["y_scores"])
+        thr = float(r["metrics"]["eer_threshold"])
+        hists = [np.histogram(s[y == v], bins=30, density=True) if (y == v).any()
+                 else (np.zeros(0), np.zeros(1)) for v in (1, 0)]
+        x_lo = min([float(s.min()) if s.size else 0.0, thr])
+        x_hi = max([float(s.max()) if s.size else 1.0, thr])
+        top = max([float(d.max()) for d, _ in hists if d.size] + [1.0])
+        chart = Chart((x_lo, x_hi), (0.0, top * 1.05), 660, 440, title=name,
+                      x_label="similarity score", legend_rows=1)
+        for i, (dens, edges) in enumerate(hists):
+            for d, a, b in zip(dens, edges[:-1], edges[1:]):
+                chart.bar(a, b, 0.0, d, colour(i), alpha=0.6)
+        chart.line([thr, thr], [0.0, top * 1.05], (0, 0, 0), 2, dash=6)
+        chart.legend(["genuine", "forgery", f"eer thr {thr:.2f}"],
+                     [colour(0), colour(1), (0, 0, 0)])
+        charts.append(chart)
+    return charts
+
+
+def plot_score_distributions(results: Dict[str, Dict], path: str | Path) -> Path:
+    return _write_png(figure(score_charts(results)), path)
+
+
+def metric_bars_chart(results: Dict[str, Dict], keys=BAR_KEYS) -> Chart:
+    """Grouped bars: per metric one bar a model, 0..1.05."""
+    names = list(results)
+    width = 0.8 / max(len(names), 1)
+    chart = Chart((-0.5, len(keys) - 0.5), (0.0, 1.05), 990, 495, x_ticks=False,
+                  title="verification metrics", legend_rows=-(-len(names) // 3),
+                  bottom_pad=16)
+    for i, name in enumerate(names):
+        for j, k in enumerate(keys):
+            x = j - 0.4 + i * width
+            chart.bar(x, x + width, 0.0, float(results[name]["metrics"][k]), colour(i))
+    for j, k in enumerate(keys):
+        c = int(chart.px(j, 0.0)[0])
+        _text(chart.img, c - 4 * len(k), chart.bottom + 8, k)
+    chart.legend(names, [colour(i) for i in range(len(names))])
+    return chart
+
+
+def plot_metric_bars(results: Dict[str, Dict], path: str | Path, keys=BAR_KEYS) -> Path:
+    return _write_png(metric_bars_chart(results, keys).img, path)
 
 
 # -- report -----------------------------------------------------------------
@@ -152,8 +245,8 @@ def evaluate_signature_verifier(model_paths: Dict[str, str], test_data,
                                 batch_size: int = 128,
                                 threshold: float = 0.5,
                                 device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """Load each model, score the seeded test pairs, write
-    ``evaluation_report.json`` and ``curves.json``, print the table."""
+    """Load each model, score the seeded test pairs, write the four plots,
+    ``curves.json`` and ``evaluation_report.json``, print the table."""
     out = Path(output_dir)
     results = {}
     for name, path in model_paths.items():
@@ -162,6 +255,10 @@ def evaluate_signature_verifier(model_paths: Dict[str, str], test_data,
                                        threshold, device)
         print(f"[{name}] acc {results[name]['metrics']['accuracy']:.4f} "
               f"EER {results[name]['metrics']['eer']:.4f}", flush=True)
+    plot_roc(results, out / "roc.png")
+    plot_det(results, out / "det.png")
+    plot_score_distributions(results, out / "score_distributions.png")
+    plot_metric_bars(results, out / "metric_comparison.png")
     write_curves(results, out / "curves.json")
     report = generate_evaluation_report(results, out / "evaluation_report.json")
     print_comparison_table(results)

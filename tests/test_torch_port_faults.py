@@ -121,12 +121,14 @@ def test_dataset_refuses_images_it_cannot_decode(tmp_path):
 
 def test_train_cli_doc_names_only_what_raises(tmp_path):
     """The CLI's docstring lists the flags that raise; spectral norm (v1.1),
-    EMA, the in-training FID and shared fakes train; the fused generator
-    forwards (a config field, no flag) raise."""
+    EMA, the in-training FID, shared fakes and the profiler train; several
+    cards and the fused generator forwards (a config field, no flag)
+    raise."""
     doc = " ".join(train_cli.__doc__.split())
     refused = doc[doc.index("Flags of features"):].split(")")[0]
     assert "spectral" not in refused and "EMA" not in refused and "FID" not in refused
-    assert "shared fakes" not in refused and "profiler" in refused
+    assert "shared fakes" not in refused and "profiler" not in refused
+    assert "several cards" in refused
     images = np.zeros((8, 128, 128, 1), np.float32)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--image_size", "128",
                                       "--spectral_norm"])
@@ -140,3 +142,8 @@ def test_train_cli_doc_names_only_what_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="fuse_g_forwards"):
         check_trainer_supported(train_cli.build_config(args).replace(fuse_g_forwards=True),
                                 images)
+    args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--profile_dir", "p"])
+    check_trainer_supported(train_cli.build_config(args), images)
+    args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--num_data_devices", "4"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        check_trainer_supported(train_cli.build_config(args), images)

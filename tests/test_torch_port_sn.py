@@ -236,9 +236,12 @@ def test_cli_builds_the_v11_configuration():
     assert cfg.model.base_features == 256 and cfg.packed_io
     check_trainer_supported(cfg, np.zeros((8, 128, 128, 1), np.float32))
     assert fused_tail_supported(cfg.model) and tail_start(cfg.model) == 2
-    # Conditional models train too now; the profiler hook still raises.
+    # Conditional models and the profiler hook train too now; a mesh of
+    # cards still raises.
     check_trainer_supported(cfg.replace(model=dataclasses.replace(cfg.model, num_classes=3)),
                             np.zeros((8, 128, 128, 1), np.float32))
-    with pytest.raises(NotImplementedError, match="profiler"):
-        check_trainer_supported(cfg.replace(profile_dir="trace"),
+    check_trainer_supported(cfg.replace(profile_dir="trace"),
+                            np.zeros((8, 128, 128, 1), np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        check_trainer_supported(cfg.replace(mesh=dataclasses.replace(cfg.mesh, num_data=4)),
                                 np.zeros((8, 128, 128, 1), np.float32))
