@@ -175,7 +175,21 @@ Phases (any failure raises and the script exits non-zero):
      ablation's five charts, phase 7's progress montage and loss plot
      decode at their sizes, and its sample grids as a GIF decode (LZW,
      here) to the grids' grey, 30 cs a frame, loop 0;
- 16. print the kernels line (one JSON object; B1, B1' and B2 with their
+ 16. data parallelism on the one card (``dp_phase``): (a) the graphed
+     resident trainer at TrainConfig() defaults, 2 epochs of 32 steps,
+     without a mesh and under a one-rank NCCL process group (its all-reduces
+     captured in the graph), cuDNN deterministic: bit-equal states, ms/step
+     and busy ms/step of each (K-step windows in turns), collectives per
+     step, B1/B1'/B2 launches; B2's layer route (per BN layer conv and
+     totals, an all-reduce of the totals, the finalize) bit-equal to its
+     single host call at both full-width tails and at batches 64, 32 and
+     16, both timed; (b) two gloo ranks spawned on the card, eager steps
+     of the 64 px default and v1.1 at global batch 64 (32 rows each) in
+     f32 (rtol 1e-4 atol 1e-5) and bf16 (a looser bar, printed) against one
+     process's steps at batch 64, the ranks' states bitwise equal, B2's
+     layer route over both ranks against its plain version with the same
+     hook and against the single call on the whole batch;
+ 17. print the kernels line (one JSON object; B1, B1' and B2 with their
      launches by path, the streamed ones included, B4 and B3 with their
      launches on the serving, the evaluation, the verification, the
      imported-run and the panel paths), the nvidia-smi line again, and as
@@ -2845,6 +2859,453 @@ def charts_phase(card: str, work: str):
             "gif_s": gif_s}
 
 
+# Phase 16: data parallelism on the one card.
+DP_STEPS = 2
+DP_NOTE = ("each part (G parameters, G Adam, ...) within its bar, or else within twice "
+           "the spread of one process's steps (their largest difference from a repeat of "
+           "the same steps and from the steps on 3 permutations of the batch rows, the "
+           "same steps summed in other orders), as phases 7-9 hold graphed steps to the "
+           "eager spread. The bars: f32 every tensor allclose rtol 1e-4 atol 1e-5; bf16 "
+           "parameters within Adam's bound, 2 lr (1 + 1.054) x 1.01 over the 2 steps (two "
+           "runs' updates differ by at most the sum of their sizes; 1.054 bounds "
+           "m_hat / sqrt(v_hat) at step 2 for beta (0.5, 0.999), 1 % for bf16 moments), "
+           "bf16 BN running statistics B2's bf16 bar on batch statistics, rtol 1e-2 atol "
+           "1e-3 (cuDNN runs other bf16 algorithms on 32 rows than on 64), bf16 "
+           "accuracies within 4 of 64 rows, the other bf16 parts the spread alone. The "
+           "spread is needed for Adam's moments: at init G's fakes are alike, so its "
+           "BatchNorm backward cancels most of each gradient (G's fc bias to rounding "
+           "noise), and summation order alone moves G's moments by up to 3 % of a "
+           "tensor's largest entry (cuDNN's backward convs also differ run to run)")
+
+
+def dp_configs():
+    """Phase 16b's configurations: the 64 px default and v1.1, each in f32
+    (strict bar) and at its bf16 defaults (loose bar)."""
+    from siggan_tpu_torch.core.config import ModelConfig, OptimConfig, TrainConfig
+    # f32 at LRs 1/100 of the defaults, so that a sign-like Adam step moves a
+    # weight by at most 2e-6, under the strict bar.
+    f32 = dict(compute_dtype="float32",
+               optim=OptimConfig(moment_dtype="float32", g_lr=2e-6, d_lr=2e-6))
+    v11 = ModelConfig(image_size=128, use_spectral_norm=True)
+    return {"64 px f32": TrainConfig(**f32), "64 px bf16": TrainConfig(),
+            "v1.1 128 px f32": TrainConfig(model=v11, **f32),
+            "v1.1 128 px bf16": TrainConfig(model=v11)}
+
+
+def dp_rank(work: str) -> None:
+    """Phase 16b, one of two gloo ranks on card 0 (spawned): DP_STEPS eager
+    steps of each ``dp_configs`` configuration on its 32 rows of a global
+    batch of 64, and B2 over the two ranks (its layer route, with a real
+    reduction of the totals) and its plain version with the same hook;
+    saves what it got to ``dp_rank{r}.pt`` in ``work``."""
+    import torch
+    import torch.distributed as dist
+    from siggan_tpu_torch.core.config import MeshConfig
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.parallel.mesh import make_mesh
+    from siggan_tpu_torch.train.train_step import make_train_step, state_tensors
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", world_size=2, rank=rank, init_method=(
+        f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"))
+    try:
+        mesh = make_mesh(MeshConfig(), "cuda")
+        dev = mesh.device
+        out = {}
+        for name, cfg in dp_configs().items():
+            state = create_train_state(cfg, dev)
+            real = torch.from_numpy(generate_dataset(64, cfg.model.image_size, seed=5))
+            real = real[mesh.rows(64)].to(dev)
+            step = make_train_step(cfg, mesh=mesh)
+            counts0 = (pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count, tt.LAUNCHES.count,
+                       tt.LAYER_LAUNCHES.count, mesh.collectives.count)
+            metrics = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_STEPS):
+                state, m = step(state, real)
+                metrics.append({k: v.detach().cpu() for k, v in m.items()})
+            torch.cuda.synchronize()
+            counts = [b - a for a, b in zip(counts0, (
+                pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count, tt.LAUNCHES.count,
+                tt.LAYER_LAUNCHES.count, mesh.collectives.count))]
+            out[name] = {"state": [t.detach().cpu() for t in state_tensors(state)],
+                         "metrics": metrics, "launches": counts,
+                         "ms_per_step": (time.perf_counter() - t0) * 1e3 / DP_STEPS}
+        for dtype in (torch.float32, torch.bfloat16):
+            h0, ws, bn, states, bias, _ = train_tail_case(dev, 64, dtype)
+            mine = h0[mesh.rows(64)].contiguous()
+            got, ref = clone_states(states), clone_states(states)
+            with torch.no_grad():
+                img = tt.tail_forward_train(mine, ws, bn, got, bias, dtype, mesh=mesh)
+                ref_img, ref_new = tt.tail_forward_train_reference(mine, ws, bn, ref, bias,
+                                                                   dtype, mesh)
+            torch.cuda.synchronize()
+            cpu = lambda sts: [{k: v.cpu() for k, v in s.items()} for s in sts]  # noqa: E731
+            out[f"b2 {str(dtype).split('.')[-1]}"] = {
+                "image": img.cpu(), "states": cpu(got), "plain": ref_img.cpu(),
+                "plain_states": cpu(ref_new)}
+        out["layer_launches"] = tt.LAYER_LAUNCHES.count
+        torch.save(out, Path(work) / f"dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_names(state, metrics):
+    """The names of ``state_groups(state, metrics)``'s tensors, part by part."""
+    g = [n for n, _ in state.g.named_parameters()]
+    d = [n for n, _ in state.d.named_parameters()]
+    return {"G parameters": g, "G BN statistics": [n for n, _ in state.g.named_buffers()],
+            "D parameters": d, "D spectral-norm u": [n for n, _ in state.d.named_buffers()],
+            "G Adam": ["count", "lr", *[f"m {n}" for n in g], *[f"v {n}" for n in g]],
+            "D Adam": ["count", "lr", *[f"m {n}" for n in d], *[f"v {n}" for n in d]],
+            "G EMA": ([] if state.g_ema is None else
+                      [n for n, _ in state.g_ema.named_parameters()]
+                      + [n for n, _ in state.g_ema.named_buffers()]),
+            "metrics": list(metrics)}
+
+
+def dp_bar(part: str, y, f32: bool, lr: float):
+    """Phase 16b's bar for a tensor of ``part`` whose reference is ``y``
+    (``DP_NOTE``); None where only the spread holds it."""
+    if f32:
+        return 1e-5 + 1e-4 * y.abs()
+    if part.endswith("parameters") or part == "G EMA":
+        return 2 * lr * (1 + 1.054) * 1.01 + 0 * y
+    if part == "G BN statistics":
+        return 1e-3 + 1e-2 * y.abs()
+    return None
+
+
+def dp_within(what: str, a, b, spread, names, f32: bool, lr: float, table=None):
+    """Hold ``a`` to ``b`` (tensor lists by part, ``state_groups``; their
+    names ``names``) at phase 16b's bar (``DP_NOTE``), ``spread`` the part's
+    largest difference between one process's steps and a repeat of them or
+    the same steps on a permuted batch: (each part's largest share of its
+    bar, None where the spread alone holds it; the failures); ``table``
+    collects (part, name, max |ref|, max abs diff, share of the bar or
+    None) of every tensor."""
+    import torch
+    use_by_part, failures = {}, []
+    for part in a:
+        worst, part_diff, bad = 0.0, 0.0, []
+        for name, x, y in zip(names[part], a[part], b[part]):
+            x, y = x.detach().float().cpu(), y.detach().float().cpu()
+            if not x.numel():
+                continue
+            if not torch.isfinite(x).all():
+                failures.append(f"{what}: {part} {name} is not finite")
+            bar = dp_bar(part, y, f32, lr)
+            diff = float((x - y).abs().max())
+            use = None if bar is None else float(((x - y).abs() / bar).max())
+            if table is not None:
+                table.append((part, name, float(y.abs().max()), diff, use))
+            if diff > 0 and (use is None or use > 1.0):
+                bad.append(f"{name} {diff:.3e}")
+            if use is None:
+                worst = None
+            elif worst is not None:
+                worst = max(worst, use)
+            part_diff = max(part_diff, diff)
+        if bad and part_diff > 2 * spread[part]:
+            failures.append(f"{what}: {part} max abs diff {part_diff:.3e} over its bar and over "
+                            f"twice one process's spread {spread[part]:.3e} "
+                            f"({', '.join(bad[:6])})")
+        use_by_part[part] = worst
+    return use_by_part, failures
+
+
+def dp_one_process(cfg, real, dev, perm=None):
+    """DP_STEPS eager steps of one process on the global batch ``real`` and
+    its draws, made as the step makes them; with ``perm``, the batch's rows
+    and every draw's rows (each half of a D step's 2b) permuted: the same
+    steps, summed in another order. Returns (state, stacked metrics)."""
+    import torch
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.train import train_step as ts
+    state, step = create_train_state(cfg, dev), ts.make_train_step(cfg)
+    streams, b, ms = ts.Streams(cfg.seed, dev), real.shape[0], []
+    for _ in range(DP_STEPS):
+        draws = ts.step_draws(cfg, streams, state.step, b, dev)
+        draws["masks"] = ts._keep_masks(cfg, draws.pop("u"))
+        x = real
+        if perm is not None:
+            draws = ts._map_draws(lambda t: torch.cat([c[perm] for c in t.split(b)]), draws)
+            x = real[perm]
+        state, m = step(state, x, draws)
+        ms.append(m)
+    torch.cuda.synchronize()
+    return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def dp_phase(card: str, work: str):
+    """Phase 16: data parallelism (``parallel/mesh.py``) on the one card.
+
+    (a) The graphed resident trainer at ``TrainConfig()`` full width, 2
+    epochs of 32 steps on 2048 images, without a mesh and then under a
+    one-rank NCCL process group (its gradient and metric all-reduces
+    captured in the graph), with cuDNN deterministic: bit-equal states; per
+    route ms/step and busy ms/step (windows in turns), collectives per step,
+    B1 / B1' / B2 launches. Kernel B2's layer route (conv and totals, an
+    all-reduce of the totals on the one-rank mesh, the finalize) against its
+    single host call at both full-width tails and at the local batches of
+    1, 2 and 4 ranks (64, 32, 16): bit-equal, and both timed; the single
+    call held to the plain version at each batch.
+    (b) Two gloo ranks on the card, spawned: eager steps of the 64 px
+    default and v1.1 at global batch 64 (32 rows each), in f32 and bf16,
+    against one process's steps at batch 64 on the same draws; the ranks'
+    states bitwise equal; B2 over both ranks (layer route, real reduction)
+    against its plain version with the same hook and against the single
+    call on the whole batch."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from siggan_tpu_torch.core.config import TrainConfig
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.parallel.mesh import free_port, spawn
+    from siggan_tpu_torch.train.train_step import state_tensors
+    from siggan_tpu_torch.train.trainer import GANTrainer
+    dev = torch.device("cuda", 0)
+    out = {}
+    images = generate_dataset(2048, 64, seed=7)
+
+    def trainer(tag):
+        root = Path(work) / "dp" / tag
+        cfg = TrainConfig(epochs=2, sample_interval=0, checkpoint_interval=0,
+                          checkpoint_dir=str(root / "c"), sample_dir=str(root / "s"),
+                          log_dir=str(root / "l"))
+        return GANTrainer(cfg, images, device=dev)
+
+    # (a) The one-rank NCCL graphed trainer against the trainer without a mesh.
+    determ = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counters = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES, tt.LAYER_LAUNCHES)
+    plain = meshed = None
+    try:
+        plain = trainer("no mesh")
+        plain.train()
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+        meshed = trainer("one-rank mesh")
+        mesh = meshed.mesh
+        if mesh is None or mesh.size != 1 or mesh.backend != "nccl":
+            raise AssertionError(f"phase 16a: the trainer's mesh is {mesh}")
+        before = [c.count for c in counters] + [mesh.collectives.count]
+        meshed.train()
+        torch.cuda.synchronize()
+        after = [c.count for c in counters] + [mesh.collectives.count]
+        steps = meshed.state.step
+        b1, b1b, b2, b2_layers, coll = (b - a for a, b in zip(before, after))
+        if steps != plain.state.step or steps != 64:
+            raise AssertionError(f"phase 16a: {steps} and {plain.state.step} steps, not 64")
+        if (b1, b1b, b2, b2_layers) != (2 * steps, steps, steps, 0) or coll != 3 * steps:
+            raise AssertionError(f"phase 16a: launches B1 {b1}, B1' {b1b}, B2 {b2} "
+                                 f"(layer route {b2_layers}), collectives {coll} over "
+                                 f"{steps} steps")
+        for x, y in zip(state_tensors(meshed.state), state_tensors(plain.state)):
+            if not torch.equal(x, y):
+                raise AssertionError("phase 16a: the one-rank NCCL trainer's state differs "
+                                     "from the trainer's without a mesh")
+        logs = {t.mesh is None: t.logger.metrics for t in (plain, meshed)}
+        for k in ("d_loss", "g_loss"):
+            if [m[k] for m in logs[True]] != [m[k] for m in logs[False]]:
+                raise AssertionError(f"phase 16a: {k} differs")
+
+        # Windows of K = 32 graphed steps in turns: host ms/step and busy ms/step.
+        times = {"no mesh": [], "one-rank NCCL mesh": []}
+        for tag, t in (("no mesh", plain), ("one-rank NCCL mesh", meshed),
+                       ("one-rank NCCL mesh", meshed), ("no mesh", plain)):
+            def window(t=t):
+                t.state, _ = t._step_fn(t.state, t.images_dev, t.labels_dev)
+            window()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / t.scan_steps
+            _, busy, ops = device_time(window, calls=1, cpu=True)
+            times[tag].append((wall, None if busy is None else busy / t.scan_steps,
+                               ops / t.scan_steps))
+        out["a"] = {"steps": steps, "bit_equal": True, "launches_per_step": {
+            "pack_tail": b1 / steps, "pack_tail_backward": b1b / steps,
+            "train_tail": b2 / steps, "train_tail_layer_route": b2_layers / steps},
+            "collectives_per_step": coll / steps, "launches": {
+                "pack_tail": b1, "pack_tail_backward": b1b, "train_tail": b2},
+            "epoch_ms_per_step": {k: [m["ms_per_step"] for m in v] for k, v in
+                                  (("no mesh", logs[True]), ("one-rank NCCL mesh",
+                                                             logs[False]))},
+            "windows": times}
+        print(f"16a one-rank NCCL graphed trainer (TrainConfig(), 64 steps, K "
+              f"{meshed.scan_steps}): bit-equal to the trainer without a mesh; "
+              f"collectives/step {coll / steps:.1f}; launches/step B1 {b1 / steps:.0f}, "
+              f"B1' {b1b / steps:.0f}, B2 {b2 / steps:.0f} (layer route {b2_layers}); "
+              f"epoch ms/step {json.dumps(out['a']['epoch_ms_per_step'])}; windows "
+              f"(host ms/step, busy ms/step, device ops/step) "
+              f"{json.dumps(times)}", flush=True)
+
+        # B2's layer route against its single call, at 1, 2 and 4 ranks' batches.
+        layer = {}
+        for size in (64, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[-1]
+                h0, ws, bn, states, bias, canonical = train_tail_case(dev, size, dtype)
+                for batch in (64, 32, 16):
+                    h = h0[:batch].contiguous()
+                    single, lay, spare = (clone_states(states) for _ in range(3))
+                    with torch.no_grad():
+                        a = tt.tail_forward_train_launch(h, ws, bn, single, bias, dtype)
+                        b = tt.tail_forward_train_layers(h, ws, bn, lay, bias, dtype, mesh)
+                        ref, ref_new = tt.tail_forward_train_reference(h, ws, bn, states,
+                                                                       bias, dtype)
+                    torch.cuda.synchronize()
+                    if not torch.equal(a, b) or not all(
+                            torch.equal(x[k], y[k]) for x, y in zip(single, lay) for k in x):
+                        raise AssertionError(f"B2 {size} px {name} batch {batch}: the layer "
+                                             f"route differs from the single call")
+                    err, st_err, _ = compare_b2(f"B2 {size} px {name} batch {batch}", a, ref,
+                                                single, ref_new, states,
+                                                dtype == torch.float32)
+                    with torch.no_grad():
+                        s_ms = time_ms(lambda: tt.tail_forward_train_launch(
+                            h, ws, bn, spare, bias, dtype))
+                        l_ms = time_ms(lambda: tt.tail_forward_train_layers(
+                            h, ws, bn, spare, bias, dtype, mesh))
+                    flops, nbytes = tt.tail_cost(batch, h.shape[1], canonical,
+                                                 h.element_size())
+                    peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
+                    bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+                    layer[f"{size}px_{name}_b{batch}"] = {
+                        "single_ms": s_ms, "layer_route_ms": l_ms, "bound_ms": bound,
+                        "max_abs_diff": err, "batch_stats_max_abs_diff": st_err}
+                    print(f"B2 {size} px {name} batch {batch}: layer route bit-equal to the "
+                          f"single call; vs plain image {err:.3e}, batch stats {st_err:.3e}; "
+                          f"single call {s_ms:.4f} ms, layer route (one-rank NCCL "
+                          f"all-reduces) {l_ms:.4f} ms, bound {bound:.4f} ms", flush=True)
+        out["layer_route"] = layer
+    finally:
+        torch.backends.cudnn.deterministic = determ
+        # The graphs that hold NCCL work go before the communicator does.
+        plain = meshed = None
+        gc.collect()
+        torch.cuda.synchronize()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    # (b) Two gloo ranks on the card against one process.
+    t0 = time.perf_counter()
+    spawn(dp_rank, 2, work)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(Path(work) / f"dp_rank{r}.pt", weights_only=False) for r in (0, 1)]
+    b_out = {"spawn_s": spawn_s, "configs": {}, "bar": DP_NOTE}
+    failures = []
+    # The spread: the same steps again, and on 3 permutations of the batch.
+    perms = [None] + [torch.randperm(64, generator=torch.Generator().manual_seed(s)).to(dev)
+                      for s in (11, 12, 13)]
+    for name, cfg in dp_configs().items():
+        f32 = cfg.compute_dtype == "float32"
+        real = torch.from_numpy(generate_dataset(64, cfg.model.image_size, seed=5)).to(dev)
+        state, metrics = dp_one_process(cfg, real, dev)
+        others = [dp_one_process(cfg, real, dev, perm) for perm in perms]
+        got = [r[name] for r in ranks]
+        if not all(torch.equal(x, y) for x, y in zip(got[0]["state"], got[1]["state"])):
+            failures.append(f"16b {name}: the two ranks' states differ")
+        rank_state = copy.deepcopy(state)
+        with torch.no_grad():
+            for dst, src in zip(state_tensors(rank_state), got[0]["state"]):
+                dst.copy_(src)
+        # Accuracies count logits on each side of 0; in bf16 a few rows' logits
+        # lie within the rounding of 0, so they are held to 4 of 64 rows.
+        keys = [k for k in metrics if f32 or "acc" not in k]
+        one = state_groups(state, {k: metrics[k] for k in keys})
+        spreads = [group_diffs(state_groups(o, {k: om[k] for k in keys}), one)
+                   for o, om in others]
+        spread = {part: max(sp[part] for sp in spreads) for part in one}
+        two = state_groups(rank_state, {k: torch.stack([m[k] for m in got[0]["metrics"]])
+                                        .to(dev) for k in keys})
+        table = []
+        use, bad = dp_within(f"16b {name}", two, one, spread,
+                             dp_names(state, {k: None for k in keys}), f32,
+                             max(cfg.optim.g_lr, cfg.optim.d_lr), table)
+        failures += bad
+        for k in set(metrics) - set(keys):
+            d = max(abs(float(m[k]) - float(w)) for m, w in zip(got[0]["metrics"], metrics[k]))
+            if d > 4 / 64:
+                failures.append(f"16b {name}: {k} differs by {d} (over 4 of 64 rows)")
+        diffs = group_diffs(two, one)
+        worst = sorted(table, key=lambda r: -(r[4] if r[4] is not None else -1))[:5]
+        b1, b1b, b2, b2_layers, coll = got[0]["launches"]
+        if b2_layers != DP_STEPS or b2 != DP_STEPS:
+            failures.append(f"16b {name}: B2 {b2} launches, {b2_layers} on the layer "
+                            f"route, in {DP_STEPS} steps")
+        b_out["configs"][name] = {"max_abs_diff_by_part": diffs,
+                                  "one_process_spread_by_part": spread,
+                                  "share_of_bar_by_part": use,
+                                  "worst_tensors": worst,
+                                  "launches": {"pack_tail": b1, "pack_tail_backward": b1b,
+                                               "train_tail": b2,
+                                               "train_tail_layer_route": b2_layers},
+                                  "collectives_per_step": coll / DP_STEPS,
+                                  "rank_ms_per_step": [g["ms_per_step"] for g in got]}
+        print(f"16b {name}: 2 gloo ranks x 32 rows vs one process x 64, {DP_STEPS} eager "
+              f"steps: ranks bitwise equal; max abs diff by part {json.dumps(diffs)}; "
+              f"one process's spread (a repeat, 3 permuted batches) {json.dumps(spread)}; "
+              f"share of the bar "
+              f"by part (null: the spread alone) {json.dumps(use)}; worst (part, tensor, max "
+              f"|ref|, "
+              f"diff, share) {json.dumps(worst)}; "
+              f"launches/rank B1 {b1}, B1' {b1b}, B2 {b2} (layer route {b2_layers}); "
+              f"collectives/step {coll / DP_STEPS:.0f}; rank ms/step "
+              f"{[round(g['ms_per_step'], 3) for g in got]}", flush=True)
+    b2_dp = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        got = [r[f"b2 {name}"] for r in ranks]
+        h0, ws, bn, states, bias, _ = train_tail_case(dev, 64, dtype)
+        single = clone_states(states)
+        with torch.no_grad():
+            whole = tt.tail_forward_train_launch(h0, ws, bn, single, bias, dtype)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        old = [{k: v.cpu() for k, v in s.items()} for s in states]
+        err = st_err = whole_err = whole_st = float("nan")
+        try:
+            for r, g in enumerate(got):
+                err, st_err, _ = compare_b2(f"16b B2 {name} rank {r} vs its plain version",
+                                            g["image"], g["plain"], g["states"],
+                                            g["plain_states"], old, f32)
+            img = torch.cat([g["image"] for g in got]).to(dev)
+            whole_err, whole_st, _ = compare_b2(
+                f"16b B2 {name}: 2 ranks vs the single call on batch 64", img, whole,
+                [{k: v.to(dev) for k, v in s.items()} for s in got[0]["states"]], single,
+                states, f32)
+        except AssertionError as e:
+            failures.append(str(e))
+        for x, y in zip(got[0]["states"], got[1]["states"]):
+            if not all(torch.equal(x[k], y[k]) for k in x):
+                failures.append(f"16b B2 {name}: the ranks' running statistics differ")
+        b2_dp[name] = {"vs_plain_max_abs_diff": err, "vs_plain_batch_stats": st_err,
+                       "vs_single_call_max_abs_diff": whole_err,
+                       "vs_single_call_batch_stats": whole_st}
+        print(f"16b B2 64 px {name}, 2 gloo ranks x 32 rows (layer route, totals "
+              f"all-reduced): vs its plain version image {err:.3e}, batch stats "
+              f"{st_err:.3e}; stacked vs the single call on 64 rows image {whole_err:.3e}, "
+              f"batch stats {whole_st:.3e}", flush=True)
+    b_out["b2"] = b2_dp
+    b_out["layer_launches_rank0"] = ranks[0]["layer_launches"]
+    print(f"16b: spawn and both ranks' work {spawn_s:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("phase 16b: " + "; ".join(failures))
+    out["b"] = b_out
+    return out
+
+
 def card_span(session, n: int, reps: int = 5) -> float:
     """The median ms between CUDA events around what a request for ``n``
     images runs on the card: the latents in, the generator forward, the
@@ -2936,6 +3397,8 @@ def main() -> int:
         panel = panel_phase(card, work, b4["device_kernels"], b4["device_ops"])
         stream_launches, stream_stats = streaming_phase(card, work)
         paths.update(stream_launches)
+        dp = dp_phase(card, work)
+        paths["data parallel, one-rank NCCL graphed trainer"] = dp["a"]["launches"]
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 
@@ -3003,6 +3466,14 @@ def main() -> int:
                                                       for k, v in paths.items()},
                    f32=b2[128]["float32"], px64=b2[64], vs_module_path=b2_route,
                    streaming=stream_stats,
+                   layer_route=dp["layer_route"],
+                   layer_route_note="the layer route (siggan_train_tail_stage: per BN layer "
+                                    "conv + totals, an all-reduce of the totals, the "
+                                    "finalize; then the final conv) on a one-rank NCCL mesh "
+                                    "beside the single host call, at the local batches of "
+                                    "1, 2 and 4 ranks; bit-equal",
+                   data_parallel={"one_rank_nccl_trainer": dp["a"], "two_gloo_ranks": dp["b"],
+                                  "layer_route_launches_rank0": dp["b"]["layer_launches_rank0"]},
                    not_counted=not_counted,
                    tensor_core_sass=tiles,
                    library="the port's no-grad module-path tail (cuDNN convs, "

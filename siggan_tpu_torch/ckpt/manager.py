@@ -200,13 +200,22 @@ def _opt_tree(prefix: str, arrays: Dict[str, np.ndarray]) -> Dict:
 class CheckpointManager:
     """Epoch checkpoints of a ``TrainState`` with ``latest``/``best``
     aliases. ``authoritative=True`` (the trainer's manager) makes ``cfg``
-    the run's sidecar, replacing one a previous run left behind."""
+    the run's sidecar, replacing one a previous run left behind.
+
+    In a data-parallel run the state is replicated, so rank 0 alone writes
+    (``write=True`` there, False on the other ranks, whose ``save`` writes
+    nothing and returns None) and every rank restores from the same files;
+    the trainer puts a barrier after each save, as the JAX manager syncs
+    its processes around one."""
 
     def __init__(self, directory: str | Path, cfg: TrainConfig,
-                 *, authoritative: bool = False):
+                 *, authoritative: bool = False, write: bool = True):
         self.dir = Path(directory).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
         self.cfg = cfg
+        self.write = write
+        if not write:
+            return
+        self.dir.mkdir(parents=True, exist_ok=True)
         sidecar = self.dir / SIDECAR
         if not sidecar.exists():
             sidecar.write_text(cfg.to_json())
@@ -225,7 +234,8 @@ class CheckpointManager:
         return self.dir / f"epoch_{epoch:04d}"
 
     def save(self, state, *, epoch: int, fixed_noise: torch.Tensor,
-             g_loss: Optional[float] = None, fid: Optional[float] = None) -> Path:
+             g_loss: Optional[float] = None, fid: Optional[float] = None
+             ) -> Optional[Path]:
         """Save ``state`` as epoch ``epoch``; updates ``latest`` and ``best``.
 
         ``best``: once any ``fid`` has been recorded, the lowest FID wins,
@@ -235,6 +245,8 @@ class CheckpointManager:
         the lower of the index's ``best_g_loss`` and this save's G loss,
         whichever criterion picks ``best`` (as the JAX manager stamps its
         checkpoints)."""
+        if not self.write:
+            return None
         idx = self._read_index()
         best = idx.get("best_g_loss")
         if fid is not None:

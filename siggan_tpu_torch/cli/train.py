@@ -4,8 +4,9 @@ Usage:
     python -m siggan_tpu_torch.cli.train --data_dir DIR --epochs 200 \
         [--batch_size 64] [--run_dir runs/exp1] [--resume] [--device cuda]
 
-Trains on one CUDA card (``--device cpu`` runs the same code on the CPU, for
-tests); without a card it raises rather than fall back. On the card the
+Trains on one CUDA card, or data-parallel on several (below); ``--device
+cpu`` runs the same code on the CPU, for tests. Without a card it raises
+rather than fall back. On the card the
 steps run in windows of K (the JAX trainer's ``scan_steps`` rule), each a
 CUDA graph of one step replayed K times. ``--data_dir`` holds the JAX
 package's image files (PNG, JPEG, BMP, TIFF). ``--spectral_norm`` with ``--image_size
@@ -22,9 +23,23 @@ scores a random-init FID every N epochs (logged as ``fid``) and makes the
 one latent batch a step, shared by the D and G updates. ``--profile_dir
 DIR`` writes a ``torch.profiler`` Chrome trace of the epoch after the first
 there. A dataset over ``resident_max_mb`` streams from host memory (one
-graphed step a batch). Flags of features the port does not train yet
-(several cards: ``--num_data_devices`` above 1) are accepted and raise
-``NotImplementedError`` (ROADMAP A.9).
+graphed step a batch).
+
+Several cards, one process each, train what one card trains at the same
+global ``--batch_size`` (global-batch BatchNorm, gradients and metrics
+averaged over the ranks; each rank takes its rows of every batch):
+
+    python -m siggan_tpu_torch.cli.train --data_dir DIR --num_data_devices 4
+    torchrun --nproc_per_node 4 -m siggan_tpu_torch.cli.train --data_dir DIR
+
+The first starts the ranks itself (on localhost); the second joins the
+ranks torchrun started (or a job named by ``SIGGAN_COORDINATOR``,
+``SIGGAN_NUM_PROCS`` and ``SIGGAN_PROC_ID``). ``--num_data_devices -1``,
+the default, means every visible card: on a machine with one card that is
+the one-card run, with no process group. The cards talk over NCCL; with
+``--device cpu`` the ranks are processes on the CPU that talk over gloo.
+Rank 0 alone writes logs, samples and checkpoints, and the stop file ends
+every rank.
 The checkpoint directory serves with ``python -m siggan_tpu_torch.cli.serve
 --checkpoint DIR`` (its latest epoch), and ``cli.generate --which`` samples
 any saved epoch. ``--resume`` takes the architecture fields no flag sets
@@ -87,7 +102,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument("--stop_file", type=str, default=None,
                    help="training stops cooperatively when this file appears")
     p.add_argument("--num_data_devices", type=int, default=-1,
-                   help="-1 = all visible devices on the data axis")
+                   help="ranks on the data axis, one process per card "
+                        "(-1 = all visible devices; the CPU counts as one)")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of one epoch here")
@@ -166,8 +182,45 @@ def resume_config(cfg):
     return cfg.replace(model=model)
 
 
+def ranks_to_start(args: argparse.Namespace) -> int:
+    """How many local ranks ``main`` starts itself: 0 inside a job that is
+    already launched (torchrun's or the JAX package's variables), else the
+    ranks ``--num_data_devices`` asks for (-1: every visible card; the CPU
+    counts as one). Raises for more cards than are visible and for a
+    global batch the ranks do not divide."""
+    import os
+    if os.environ.get("WORLD_SIZE") or os.environ.get("SIGGAN_NUM_PROCS"):
+        return 0
+    import torch
+    cuda = args.device.startswith("cuda")
+    visible = torch.cuda.device_count() if cuda else 1
+    n = args.num_data_devices if args.num_data_devices > 0 else max(visible, 1)
+    if cuda and 1 < n and visible < n:
+        raise ValueError(f"mesh ({n} data x 1 model = {n} devices) exceeds the {visible} "
+                         "visible devices")
+    if args.batch_size % n:
+        raise ValueError(f"global batch {args.batch_size} not divisible by data-axis size {n}")
+    return n
+
+
 def main(argv=None) -> int:
     args = parse_arguments(argv)
+    n = ranks_to_start(args)
+    if n > 1:
+        from siggan_tpu_torch.parallel.mesh import spawn
+        spawn(main, n, list(sys.argv[1:] if argv is None else argv))
+        return 0
+    from siggan_tpu_torch.core.platform import init_distributed, resolve_device
+    joined = init_distributed(args.device)
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace) -> int:
     from siggan_tpu_torch.core.platform import resolve_device
     device = resolve_device(args.device)
     cfg = build_config(args)
@@ -178,24 +231,29 @@ def main(argv=None) -> int:
     from siggan_tpu_torch.train.trainer import GANTrainer
 
     ds = SignatureDataset(cfg.data_dir, cfg.model.image_size, max_images=args.max_images)
-    print(f"Dataset: {ds.statistics()}", flush=True)
+    import torch.distributed as dist
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    if main_rank:
+        print(f"Dataset: {ds.statistics()}", flush=True)
     labels = None
     if cfg.model.num_classes > 0:
         labels, names = ds.writer_labels()
         if len(names) != cfg.model.num_classes:
             raise SystemExit(f"--num_classes={cfg.model.num_classes} but "
                              f"found {len(names)} writer subdirs")
-        print(f"Writers: {len(names)}", flush=True)
+        if main_rank:
+            print(f"Writers: {len(names)}", flush=True)
     trainer = GANTrainer(cfg, ds.images, stop_file=args.stop_file, device=device,
                          labels=labels)
     if args.resume or args.resume_from:
         which = args.resume_from or "latest"
         if which not in ("latest", "best"):
             which = int(which)
-        if not trainer.resume(which):
+        if not trainer.resume(which) and main_rank:
             print("No checkpoint to resume from — starting fresh", flush=True)
     summary = trainer.train()
-    print(f"Training summary: {summary}", flush=True)
+    if main_rank:
+        print(f"Training summary: {summary}", flush=True)
     return 0
 
 

@@ -23,8 +23,17 @@
 // result before it is rounded to the compute dtype, as in the TPU kernel.
 // There are no float atomics: each conv block writes its own partial row,
 // and bn_finalize sums the rows in a fixed order, so two runs on the same
-// inputs give the same bits. One host call launches every kernel on the
-// caller's stream; nothing leaves the card in between.
+// inputs give the same bits. One host call (siggan_train_tail) launches
+// every kernel on the caller's stream; nothing leaves the card in between.
+//
+// Data parallelism needs the global batch's statistics, so the ranks' sums
+// must be added between a layer's conv and its finalize. The layer route
+// (siggan_train_tail_stage, one host call a stage) splits bn_finalize there:
+// bn_totals_kernel writes the layer's 8 C totals (phase sums and sums of
+// squares of each canonical channel), the caller all-reduces them on its
+// stream, and bn_from_totals_kernel finalizes with the global count. Both
+// halves share bn_finalize's arithmetic, so on one rank the layer route
+// gives the single call's bits.
 //
 // Weights are read in the layouts kernel B1 writes (csrc/pack_tail.cu):
 // entry OIHW (4Co, Ci, 3, 3), interior IOHW (4Ci, 4Co, 4, 4), final
@@ -642,15 +651,20 @@ __global__ void __launch_bounds__(kThreads) relayout_kernel(Relayout d) {
 }
 
 // ---------------------------------------------------------------------------
-// One block per canonical channel c: sums the partial rows of its 4 phase
-// channels in a fixed order, then thread 0 writes the statistics.
-__global__ void __launch_bounds__(kThreads)
-bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
-                   int rows, int C, float count, float unbias,
-                   const float* __restrict__ scale, const float* __restrict__ offset,
-                   float* run_mean, float* run_var, float* a4, float* b4, int bf16) {
-  __shared__ float red[8][kThreads];
-  const int c = blockIdx.x;
+// The BN statistics of a layer, in two halves so that a data-parallel run
+// can add the ranks' totals between them (the layer route,
+// siggan_train_tail_stage): phase_totals sums canonical channel c's partial
+// rows, of its 4 phase channels, in a fixed order; finalize_channel turns
+// the 8 totals (4 phase sums, then 4 phase sums of squares) into the
+// statistics. bn_finalize_kernel does both in one block, the single host
+// call's route; bn_totals_kernel and bn_from_totals_kernel are the halves,
+// with the same arithmetic, so that one rank's layer route gives the single
+// call's bits.
+
+// The block's 8 totals of channel c land in red[k][0].
+__device__ __forceinline__ void phase_totals(const float* __restrict__ psum,
+                                             const float* __restrict__ psq, int rows, int C,
+                                             int c, float (*red)[kThreads]) {
   const int tid = threadIdx.x;
   float part[8];
 #pragma unroll
@@ -675,12 +689,22 @@ bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq
     }
     __syncthreads();
   }
-  if (tid != 0) return;
+}
+
+// Channel c's statistics from its totals tot[k * stride] over `count`
+// positions a phase: the running mean and unbiased variance, updated in
+// place, and the folded affine (rounded to bf16 in bf16) for all 4 phases.
+__device__ __forceinline__ void finalize_channel(const float* tot, int stride, int C, int c,
+                                                 float count, float unbias,
+                                                 const float* __restrict__ scale,
+                                                 const float* __restrict__ offset,
+                                                 float* run_mean, float* run_var, float* a4,
+                                                 float* b4, int bf16) {
   float mean = 0.f, ey2 = 0.f;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    mean += red[p][0] / count;
-    ey2 += red[4 + p][0] / count;
+    mean += tot[p * stride] / count;
+    ey2 += tot[(4 + p) * stride] / count;
   }
   mean /= 4.f;
   ey2 /= 4.f;
@@ -698,6 +722,43 @@ bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq
     a4[p * C + c] = a;
     b4[p * C + c] = b;
   }
+}
+
+// One block per canonical channel c: its totals, then thread 0 writes the
+// statistics.
+__global__ void __launch_bounds__(kThreads)
+bn_finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
+                   int rows, int C, float count, float unbias,
+                   const float* __restrict__ scale, const float* __restrict__ offset,
+                   float* run_mean, float* run_var, float* a4, float* b4, int bf16) {
+  __shared__ float red[8][kThreads];
+  phase_totals(psum, psq, rows, C, blockIdx.x, red);
+  if (threadIdx.x != 0) return;
+  finalize_channel(&red[0][0], kThreads, C, blockIdx.x, count, unbias, scale, offset,
+                   run_mean, run_var, a4, b4, bf16);
+}
+
+// One block per canonical channel c: its 8 totals into totals[k][C].
+__global__ void __launch_bounds__(kThreads)
+bn_totals_kernel(const float* __restrict__ psum, const float* __restrict__ psq, int rows,
+                 int C, float* __restrict__ totals) {
+  __shared__ float red[8][kThreads];
+  phase_totals(psum, psq, rows, C, blockIdx.x, red);
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) totals[k * C + blockIdx.x] = red[k][0];
+}
+
+// One thread per canonical channel: the statistics from totals[k][C] (the
+// ranks' totals added) over `count` positions a phase.
+__global__ void __launch_bounds__(kThreads)
+bn_from_totals_kernel(const float* __restrict__ totals, int C, float count, float unbias,
+                      const float* __restrict__ scale, const float* __restrict__ offset,
+                      float* run_mean, float* run_var, float* a4, float* b4, int bf16) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  finalize_channel(totals + c, C, C, c, count, unbias, scale, offset, run_mean, run_var, a4,
+                   b4, bf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -966,120 +1027,218 @@ cudaError_t launch_convt(const ConvTArgs& g, dim3 grid, cudaStream_t stream) {
   return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
+// Where conv layer i < L - 1 keeps its statistics in the scratch, and its
+// grids: per BN layer in order, the partial sums and squares [Cout][rows],
+// then the folded affine a4, b4 [Cout].
+struct Layer {
+  float* psum;
+  float* psq;
+  float* a4;
+  float* b4;
+  int rows;
+  int h, w;    // input grid
+  int ho, wo;  // output grid
+};
+
+Layer layer_at(const Tail& t, int i, bool mma) {
+  float* s = t.scratch;
+  int h = t.H, w = t.W;
+  for (int j = 0;; ++j) {
+    const int cout = t.chans[j + 1];
+    Layer l;
+    l.rows = stat_rows(j, t.N, h, w, mma);
+    l.psum = s;
+    l.psq = s + static_cast<size_t>(cout) * l.rows;
+    l.a4 = l.psq + static_cast<size_t>(cout) * l.rows;
+    l.b4 = l.a4 + cout;
+    l.h = h;
+    l.w = w;
+    l.ho = j > 0 ? 2 * h : h;
+    l.wo = j > 0 ? 2 * w : w;
+    if (j == i) return l;
+    s = l.b4 + cout;
+    h = l.ho;
+    w = l.wo;
+  }
+}
+
+// The input grid of the final conv.
+void final_grid(const Tail& t, int& h, int& w) {
+  h = t.H << (t.L - 2);
+  w = t.W << (t.L - 2);
+}
+
+// bf16: every conv weight's canonical taps, laid out after the statistics;
+// with `launch`, the one relayout launch that writes them.
+cudaError_t canonical_taps(const Tail& t, __nv_bfloat16** taps, bool launch,
+                           cudaStream_t stream) {
+  Relayout d{};
+  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
+      t.scratch + stats_floats(t.L, t.chans, t.N, t.H, t.W, true));
+  long long most = 0;
+  for (int i = 0; i + 1 < t.L; ++i) {
+    d.src[i] = static_cast<const __nv_bfloat16*>(t.ws[i]);
+    d.dst[i] = taps[i] = dst;
+    d.kind[i] = i == 0 ? kEntry : kInterior;
+    canonical(i, t.chans, d.ci[i], d.co[i]);
+    const long long n = relayout_elems(i, t.chans);
+    dst += (n + 7) / 8 * 8;
+    most = n > most ? n : most;
+  }
+  if (!launch) return cudaSuccess;
+  const dim3 grid(static_cast<unsigned>(ceil_div(static_cast<int>(most), kThreads)), t.L - 1);
+  relayout_kernel<<<grid, kThreads, 0, stream>>>(d);
+  return cudaGetLastError();
+}
+
+// Conv layer i < L - 1 (the previous layer's affine a, b applied on load;
+// null for the entry), writing its output and its partial statistics.
+template <typename T>
+cudaError_t conv_layer(const Tail& t, int i, const Layer& l, const float* a, const float* b,
+                       __nv_bfloat16* const* taps, cudaStream_t stream) {
+  constexpr bool kMma = sizeof(T) == 2;
+  const int interior = i > 0;
+  const int cin = t.chans[i], cout = t.chans[i + 1];
+  if (kMma) {
+    ConvTArgs g;
+    g.x = static_cast<const __nv_bfloat16*>(t.acts[i]);
+    g.w = taps[i];
+    g.a = a;
+    g.b = b;
+    g.y = static_cast<__nv_bfloat16*>(t.acts[i + 1]);
+    g.psum = l.psum;
+    g.psq = l.psq;
+    g.N = t.N;
+    g.Hin = l.h;
+    g.Win = l.w;
+    g.Ho = l.ho;
+    g.Wo = l.wo;
+    canonical(i, t.chans, g.Ci, g.Co);
+    g.rows = l.rows;
+    const dim3 grid(ceil_div(g.Ho, kTY) * ceil_div(g.Wo, kTX), ceil_div(g.Co, kCN), t.N);
+    return interior ? launch_convt<kInterior>(g, grid, stream)
+                    : launch_convt<kEntry>(g, grid, stream);
+  }
+  ConvArgs g;
+  g.x = static_cast<const float*>(t.acts[i]);
+  g.w = static_cast<const float*>(t.ws[i]);
+  g.a = a;
+  g.b = b;
+  g.y = static_cast<float*>(t.acts[i + 1]);
+  g.N = t.N;
+  g.H = l.h;
+  g.W = l.w;
+  g.Cin = cin;
+  g.Cout = cout;
+  g.Ci = interior ? cin / 4 : cin;
+  g.Co = cout / 4;
+  const dim3 grid(ceil_div(t.N * l.h * l.w, kBM), ceil_div(cout, kBN), interior ? 4 : 1);
+  g.rows = l.rows;
+  g.psum = l.psum;
+  g.psq = l.psq;
+  if (interior)
+    conv_tile_kernel<kInterior><<<grid, kThreads, 0, stream>>>(g);
+  else
+    conv_tile_kernel<kEntry><<<grid, kThreads, 0, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// The final conv, + bias, tanh, with the last BN's affine a, b on load.
+template <typename T>
+cudaError_t final_layer(const Tail& t, const float* a, const float* b, cudaStream_t stream) {
+  const int i = t.L - 1, cin = t.chans[i];
+  int h, w;
+  final_grid(t, h, w);
+  const size_t smem = final_smem_bytes(cin);
+  cudaError_t err = siggan::allow_smem(final_conv_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(w, kFinTW), ceil_div(h, kFinTH), t.N);
+  final_conv_kernel<T><<<grid, kFinThreads, smem, stream>>>(
+      static_cast<const T*>(t.acts[i]), static_cast<const T*>(t.ws[i]), a, b, t.bias,
+      static_cast<T*>(t.acts[i + 1]), h, w, cin);
+  return cudaGetLastError();
+}
+
+// BN layer i's count of positions a phase over a batch of n, and the
+// running variance's unbiasing factor (over the 4 phases' positions).
+void bn_count(const Layer& l, long long n, float& count, float& unbias) {
+  const long long positions = n * l.ho * l.wo;
+  const double n4 = 4.0 * static_cast<double>(positions);
+  count = static_cast<float>(positions);
+  unbias = static_cast<float>(n4 / (n4 - 1.0 > 1.0 ? n4 - 1.0 : 1.0));
+}
+
 template <typename T>
 cudaError_t run(const Tail& t, cudaStream_t stream) {
   constexpr bool kMma = sizeof(T) == 2;
   if (scratch_floats(t.L, t.chans, t.N, t.H, t.W, kMma) > t.scratch_floats)
     return cudaErrorInvalidValue;
-
-  // bf16: every conv weight's canonical taps, one launch.
   __nv_bfloat16* taps[kMaxLayers] = {};
   if (kMma) {
-    Relayout d{};
-    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
-        t.scratch + stats_floats(t.L, t.chans, t.N, t.H, t.W, true));
-    long long most = 0;
-    for (int i = 0; i + 1 < t.L; ++i) {
-      d.src[i] = static_cast<const __nv_bfloat16*>(t.ws[i]);
-      d.dst[i] = taps[i] = dst;
-      d.kind[i] = i == 0 ? kEntry : kInterior;
-      canonical(i, t.chans, d.ci[i], d.co[i]);
-      const long long n = relayout_elems(i, t.chans);
-      dst += (n + 7) / 8 * 8;
-      most = n > most ? n : most;
-    }
-    const dim3 grid(static_cast<unsigned>(ceil_div(static_cast<int>(most), kThreads)),
-                    t.L - 1);
-    relayout_kernel<<<grid, kThreads, 0, stream>>>(d);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = canonical_taps(t, taps, true, stream);
     if (err != cudaSuccess) return err;
   }
-
-  float* s = t.scratch;
   const float* a = nullptr;
   const float* b = nullptr;
-  int h = t.H, w = t.W;
-  for (int i = 0; i < t.L; ++i) {
-    const int cin = t.chans[i], cout = t.chans[i + 1];
-    if (i == t.L - 1) {
-      const size_t smem = final_smem_bytes(cin);
-      cudaError_t err = siggan::allow_smem(final_conv_kernel<T>, smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid(ceil_div(w, kFinTW), ceil_div(h, kFinTH), t.N);
-      final_conv_kernel<T><<<grid, kFinThreads, smem, stream>>>(
-          static_cast<const T*>(t.acts[i]), static_cast<const T*>(t.ws[i]), a, b,
-          t.bias, static_cast<T*>(t.acts[i + 1]), h, w, cin);
-      return cudaGetLastError();
-    }
-    const int interior = i > 0;
-    const int rows = stat_rows(i, t.N, h, w, kMma);
-    float* psum = s;
-    float* psq = s + static_cast<size_t>(cout) * rows;
-    float* a4 = psq + static_cast<size_t>(cout) * rows;
-    float* b4 = a4 + cout;
-    s = b4 + cout;
-    cudaError_t err;
-    if (kMma) {
-      ConvTArgs g;
-      g.x = static_cast<const __nv_bfloat16*>(t.acts[i]);
-      g.w = taps[i];
-      g.a = a;
-      g.b = b;
-      g.y = static_cast<__nv_bfloat16*>(t.acts[i + 1]);
-      g.psum = psum;
-      g.psq = psq;
-      g.N = t.N;
-      g.Hin = h;
-      g.Win = w;
-      g.Ho = interior ? 2 * h : h;
-      g.Wo = interior ? 2 * w : w;
-      canonical(i, t.chans, g.Ci, g.Co);
-      g.rows = rows;
-      const dim3 grid(ceil_div(g.Ho, kTY) * ceil_div(g.Wo, kTX), ceil_div(g.Co, kCN), t.N);
-      err = interior ? launch_convt<kInterior>(g, grid, stream)
-                     : launch_convt<kEntry>(g, grid, stream);
-    } else {
-      ConvArgs g;
-      g.x = static_cast<const float*>(t.acts[i]);
-      g.w = static_cast<const float*>(t.ws[i]);
-      g.a = a;
-      g.b = b;
-      g.y = static_cast<float*>(t.acts[i + 1]);
-      g.N = t.N;
-      g.H = h;
-      g.W = w;
-      g.Cin = cin;
-      g.Cout = cout;
-      g.Ci = interior ? cin / 4 : cin;
-      g.Co = cout / 4;
-      const dim3 grid(ceil_div(t.N * h * w, kBM), ceil_div(cout, kBN), interior ? 4 : 1);
-      g.rows = rows;
-      g.psum = psum;
-      g.psq = psq;
-      if (interior)
-        conv_tile_kernel<kInterior><<<grid, kThreads, 0, stream>>>(g);
-      else
-        conv_tile_kernel<kEntry><<<grid, kThreads, 0, stream>>>(g);
-      err = cudaGetLastError();
-    }
+  for (int i = 0; i + 1 < t.L; ++i) {
+    const Layer l = layer_at(t, i, kMma);
+    cudaError_t err = conv_layer<T>(t, i, l, a, b, taps, stream);
     if (err != cudaSuccess) return err;
-    if (interior) {
-      h *= 2;
-      w *= 2;
-    }
-    const long long count = static_cast<long long>(t.N) * h * w;
-    const double n4 = 4.0 * static_cast<double>(count);
-    const float unbias = static_cast<float>(n4 / (n4 - 1.0 > 1.0 ? n4 - 1.0 : 1.0));
+    float count, unbias;
+    bn_count(l, t.N, count, unbias);
+    const int cout = t.chans[i + 1];
     bn_finalize_kernel<<<cout / 4, kThreads, 0, stream>>>(
-        psum, psq, rows, cout / 4, static_cast<float>(count), unbias,
+        l.psum, l.psq, l.rows, cout / 4, count, unbias,
         static_cast<const float*>(t.scales[i]), static_cast<const float*>(t.offsets[i]),
-        static_cast<float*>(t.means[i]), static_cast<float*>(t.vars[i]), a4, b4, kMma);
+        static_cast<float*>(t.means[i]), static_cast<float*>(t.vars[i]), l.a4, l.b4, kMma);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    a = a4;
-    b = b4;
+    a = l.a4;
+    b = l.b4;
   }
-  return cudaErrorInvalidValue;  // unreachable: the last layer returns
+  return final_layer<T>(t, a, b, stream);
+}
+
+// One stage of the layer route: stage 2i runs conv layer i < L - 1 (after
+// the relayout, at stage 0 in bf16) and writes its totals [8][Cout / 4];
+// stage 2i + 1 finalizes BN layer i from `totals` over a batch of
+// n_total; stage 2(L - 1) is the final conv.
+template <typename T>
+cudaError_t run_stage(const Tail& t, int stage, float* totals, int n_total,
+                      cudaStream_t stream) {
+  constexpr bool kMma = sizeof(T) == 2;
+  if (scratch_floats(t.L, t.chans, t.N, t.H, t.W, kMma) > t.scratch_floats || stage < 0 ||
+      stage > 2 * (t.L - 1) || n_total < t.N)
+    return cudaErrorInvalidValue;
+  const int i = stage / 2;
+  const float* a = nullptr;
+  const float* b = nullptr;
+  if (i > 0) {
+    const Layer prev = layer_at(t, i - 1, kMma);
+    a = prev.a4;
+    b = prev.b4;
+  }
+  if (i == t.L - 1) return final_layer<T>(t, a, b, stream);
+  const Layer l = layer_at(t, i, kMma);
+  const int C = t.chans[i + 1] / 4;
+  if (stage % 2 == 0) {
+    __nv_bfloat16* taps[kMaxLayers] = {};
+    if (kMma) {
+      const cudaError_t err = canonical_taps(t, taps, i == 0, stream);
+      if (err != cudaSuccess) return err;
+    }
+    const cudaError_t err = conv_layer<T>(t, i, l, a, b, taps, stream);
+    if (err != cudaSuccess) return err;
+    bn_totals_kernel<<<C, kThreads, 0, stream>>>(l.psum, l.psq, l.rows, C, totals);
+    return cudaGetLastError();
+  }
+  float count, unbias;
+  bn_count(l, n_total, count, unbias);
+  bn_from_totals_kernel<<<ceil_div(C, kThreads), kThreads, 0, stream>>>(
+      totals, C, count, unbias, static_cast<const float*>(t.scales[i]),
+      static_cast<const float*>(t.offsets[i]), static_cast<float*>(t.means[i]),
+      static_cast<float*>(t.vars[i]), l.a4, l.b4, kMma);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1108,4 +1267,25 @@ extern "C" int siggan_train_tail(int L, const void* const* ws, void* const* acts
                scratch_floats, chans, N, H, W};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bf16 ? run<__nv_bfloat16>(t, s) : run<float>(t, s));
+}
+
+// One stage of the layer route (run_stage): the arguments of
+// siggan_train_tail, then the stage, the totals buffer (8 * chans[i + 1] / 4
+// f32 of BN layer i) and the batch the totals cover (the global batch when
+// the ranks' totals were added between the stages, else N).
+extern "C" int siggan_train_tail_stage(int L, const void* const* ws, void* const* acts,
+                                       const void* const* scales, const void* const* offsets,
+                                       void* const* means, void* const* vars,
+                                       const void* bias, void* scratch,
+                                       long long scratch_floats, const int* chans, int N,
+                                       int H, int W, int bf16, int stage, void* totals,
+                                       int n_total, void* stream) {
+  if (!valid_shape(L, chans, N, H, W)) return cudaErrorInvalidValue;
+  const Tail t{L, ws, acts, scales, offsets, means, vars,
+               static_cast<const float*>(bias), static_cast<float*>(scratch),
+               scratch_floats, chans, N, H, W};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tot = static_cast<float*>(totals);
+  return static_cast<int>(bf16 ? run_stage<__nv_bfloat16>(t, stage, tot, n_total, s)
+                               : run_stage<float>(t, stage, tot, n_total, s));
 }

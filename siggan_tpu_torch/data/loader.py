@@ -4,8 +4,11 @@
 Port of the JAX package's ``data/loader.py::BatchLoader`` on one process:
 the same seeded epoch order (``RandomState((seed, epoch)).permutation``),
 the same batches, ``len()``, ``shuffle`` and ``drop_last``, and aligned
-``(images, labels)`` pairs for a conditional model. The multi-process and
-mesh branches are not ported (ROADMAP A.9).
+``(images, labels)`` pairs for a conditional model. Over a mesh of ranks
+(``mesh``, ``parallel/mesh.py::DataMesh``) every rank holds the whole set,
+walks the same global order and yields only its rows of each global batch
+of ``batch_size`` (``DataMesh.rows``); the remainder is dropped, as the
+JAX loader drops it under a mesh.
 
 On the card the set stays in host memory; only the batches in flight are
 on the device. Each batch is gathered with numpy into one of a ring of
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
+from siggan_tpu_torch.parallel.mesh import DataMesh
 
 
 class BatchLoader:
@@ -38,9 +42,13 @@ class BatchLoader:
                  labels: Optional[np.ndarray] = None, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, mesh=None, prefetch: int = 2,
                  device: DeviceLike = "cuda"):
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.DataMesh, got {type(mesh).__name__}")
         if mesh is not None:
-            raise NotImplementedError("a BatchLoader over a mesh of cards is not ported yet "
-                                      "(ROADMAP A.9)")
+            # A partial final batch cannot be split over the ranks.
+            drop_last = True
+        self.mesh = mesh
+        self.local_bs = batch_size if mesh is None else mesh.local_batch_size(batch_size)
         self.images = images
         if labels is not None and len(labels) != len(images):
             raise ValueError(f"labels ({len(labels)}) and images ({len(images)}) lengths "
@@ -72,10 +80,13 @@ class BatchLoader:
 
     def epoch(self, epoch_idx: int) -> Iterator:
         """The epoch's batches (``(images, labels)`` pairs with labels), on
-        the loader's device."""
+        the loader's device: over a mesh, this rank's rows of each."""
         order = self.order(epoch_idx)
         sels = [order[b * self.batch_size:(b + 1) * self.batch_size]
                 for b in range(len(self))]
+        if self.mesh is not None:
+            mine = self.mesh.rows(self.batch_size)
+            sels = [sel[mine] for sel in sels]
         if self.device.type != "cuda":
             for sel in sels:
                 x = torch.from_numpy(self.images[sel])
@@ -93,7 +104,7 @@ class _Ring:
 
     def __init__(self, loader: BatchLoader, slots: int):
         self.loader = loader
-        dev, b = loader.device, loader.batch_size
+        dev, b = loader.device, loader.local_bs
         self.arrays = [loader.images] + ([] if loader.labels is None else [loader.labels])
         self.host: List[List[torch.Tensor]] = []
         self.dev: List[List[torch.Tensor]] = []

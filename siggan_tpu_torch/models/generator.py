@@ -17,7 +17,8 @@ package's trees. Activations stay NHWC, as there. Conditional models
 
 Train mode (``train=True``) normalizes with batch statistics and updates the
 BN running estimates in place, as each JAX train-mode forward returns its
-new state. ``packed_output=True`` (1-channel models) runs the small-channel
+new state; with ``mesh`` (``parallel/mesh.py``) every BN, B2's included,
+takes the statistics of the global batch of the mesh's ranks. ``packed_output=True`` (1-channel models) runs the small-channel
 tail -- every block with Cout <= 64 and the final conv -- in 2x2
 space-to-depth form and returns ``space_to_depth(image)`` (N, H/2, W/2, 4);
 every packed tail kernel comes from one launch of kernel B1
@@ -113,12 +114,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(n, device=device))
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
-                train: bool = False, packed: bool = False) -> torch.Tensor:
+                train: bool = False, packed: bool = False, mesh=None) -> torch.Tensor:
         scale, offset = (self.scale, self.offset) if y is None else (
             take_rows(self.scale, y), take_rows(self.offset, y))
         fn = batch_norm_packed if packed else batch_norm
         out, state = fn(x, scale, offset, {"mean": self.mean, "var": self.var},
-                        train=train)
+                        train=train, mesh=mesh)
         if train:
             with torch.no_grad():
                 self.mean.copy_(state["mean"])
@@ -176,17 +177,19 @@ class Generator(nn.Module):
         """Where the packed tail starts (``tail_start`` of the config)."""
         return tail_start(self.cfg)
 
-    def _fused_tail(self, h, tail, entry, odt) -> torch.Tensor:
+    def _fused_tail(self, h, tail, entry, odt, mesh) -> torch.Tensor:
         """The packed tail from the last wide block's output ``h`` in kernel
         B2, its BN running statistics updated in place."""
         bns = [blk.bn for blk in self.blocks[entry:]]
         return train_tail.tail_forward_train(
             h, tail, [(bn.scale, bn.offset) for bn in bns],
-            [{"mean": bn.mean, "var": bn.var} for bn in bns], self.final.bias, odt)
+            [{"mean": bn.mean, "var": bn.var} for bn in bns], self.final.bias, odt,
+            mesh=mesh)
 
     def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
                 compute_dtype=None, *, train: bool = False,
-                packed_output: bool = False, fused_tail: bool = False) -> torch.Tensor:
+                packed_output: bool = False, fused_tail: bool = False,
+                mesh=None) -> torch.Tensor:
         cfg = self.cfg
         if fused_tail and not (train and packed_output):
             raise ValueError("fused_tail is the train-mode packed_output route")
@@ -220,12 +223,12 @@ class Generator(nn.Module):
             tail = pack_tail([b.weight for b in self.blocks[entry:]]
                              + [self.final.weight], odt)
         h = linear_oi(z, self.fc.weight, self.fc.bias, compute_dtype=compute_dtype)
-        h = self._act(self.fc_bn(h, y_bn, train=train))
+        h = self._act(self.fc_bn(h, y_bn, train=train, mesh=mesh))
         h = h.reshape(h.shape[0], 4, 4, c0)
         for i, blk in enumerate(self.blocks):
             packed = entry is not None and i >= entry
             if fused_tail and packed:
-                return self._fused_tail(h, tail, entry, odt)
+                return self._fused_tail(h, tail, entry, odt, mesh)
             if packed and i == entry:
                 h = conv2d_oihw(h, tail[0], stride=1, padding=1,
                                 compute_dtype=compute_dtype)
@@ -233,7 +236,7 @@ class Generator(nn.Module):
                 w = tail[i - entry] if packed else blk.weight
                 h = conv_transpose2d_iohw(h, w, stride=2, padding=1,
                                           compute_dtype=compute_dtype)
-            h = self._act(blk.bn(h, y_bn, train=train, packed=packed))
+            h = self._act(blk.bn(h, y_bn, train=train, packed=packed, mesh=mesh))
         if entry is not None:
             img = conv3_mc_as_matmul_ihwo(h, tail[-1], self.final.bias.expand(4),
                                           compute_dtype)

@@ -34,6 +34,17 @@ the statistics in between, nothing leaves the card), counted once in
 plain version. There is no fallback from a CUDA tensor to the plain
 version. Which configurations take this route is decided by
 ``models/generator.py::fused_tail_supported``.
+
+Over a mesh of several ranks (``mesh``, ``parallel/mesh.py::DataMesh``)
+each BN takes the global batch's statistics, so the ranks' sums are added
+between a layer's conv and its finalize: on the card the layer route
+(``tail_forward_train_layers``) makes one host call per stage of
+``siggan_train_tail_stage`` -- per BN layer its conv and totals, one
+all-reduce of the 8 C totals on the current stream, its finalize with the
+global count -- and then the final conv; it is counted in ``LAUNCHES`` and
+in ``LAYER_LAUNCHES``. Every call stays on the stream, so a CUDA graph
+captures it with its all-reduces. The plain version takes the same
+``mesh``. On one rank (or without a mesh) the single host call runs.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from siggan_tpu_torch.ops.norm import EPS, MOMENTUM
 from siggan_tpu_torch.ops.packed import conv3_mc_as_matmul_ihwo
 
 LAUNCHES = build.LaunchCounter()
+LAYER_LAUNCHES = build.LaunchCounter()   # the layer route's share of LAUNCHES
 # Every layer's input channel count must be a multiple of 16: the f32
 # tile's reduction chunk (kBK in the .cu) and the tensor cores' k16 step, so
 # that a chunk never straddles two taps.
@@ -71,14 +83,23 @@ _SIGNATURES = {"siggan_train_tail_scratch": _SHAPE, "siggan_train_tail": [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,       # N, H, W of h0
     ctypes.c_int,                                   # bf16
     ctypes.c_void_p]}                               # stream
+# The layer route's entry: siggan_train_tail's arguments, then the stage,
+# the totals buffer and the batch the totals cover, then the stream.
+_SIGNATURES["siggan_train_tail_stage"] = (_SIGNATURES["siggan_train_tail"][:-1] + [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def stats_to_affine(ssum: torch.Tensor, ssq: torch.Tensor, scale: torch.Tensor,
-                    offset: torch.Tensor, state: Dict[str, torch.Tensor], count: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+                    offset: torch.Tensor, state: Dict[str, torch.Tensor], count: int,
+                    mesh=None) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Packed-channel sums (4C,) over ``count`` positions -> the train-mode
     affine (a4, b4) over packed channels (f32) and the new running state:
-    the 4 phases of canonical channel c pool into its statistics."""
+    the 4 phases of canonical channel c pool into its statistics. With a
+    ``mesh`` of several ranks the sums are first added over its ranks and
+    ``count`` is each rank's."""
+    if mesh is not None and mesh.size > 1:
+        ssum, ssq = mesh.all_reduce_sum(torch.cat([ssum, ssq])).chunk(2)
+        count *= mesh.size
     c = scale.shape[0]
     mean = (ssum / count).reshape(4, c).mean(0)
     ey2 = (ssq / count).reshape(4, c).mean(0)
@@ -129,9 +150,11 @@ def tail_forward_train_reference(
         h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
         bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
-        compute_dtype: torch.dtype) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+        compute_dtype: torch.dtype, mesh=None
+        ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """The plain version of B2: (packed image (N, H', W', 4) in
-    ``compute_dtype``, new running states [{mean, var}] per tail BN)."""
+    ``compute_dtype``, new running states [{mean, var}] per tail BN); with
+    ``mesh``, statistics over its ranks' global batch."""
     cdt = compute_dtype
     ws = [w.to(cdt).float() for w in packed_ws]
     x = h0.to(cdt)
@@ -151,7 +174,7 @@ def tail_forward_train_reference(
         scale, offset = bn_params[i]
         count = y.shape[0] * y.shape[1] * y.shape[2]
         a4, b4, st = stats_to_affine(y.sum((0, 1, 2)), (y * y).sum((0, 1, 2)),
-                                     scale, offset, bn_states[i], count)
+                                     scale, offset, bn_states[i], count, mesh)
         new_states.append(st)
         x = y.to(cdt)
     raise ValueError("a packed tail has an entry and a final weight")
@@ -218,14 +241,12 @@ class _Plan:
 _plans: Dict[Tuple, _Plan] = {}
 
 
-def tail_forward_train_launch(
-        h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
-        bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-        bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
-        compute_dtype: torch.dtype) -> torch.Tensor:
-    """B2 on the card: one host call; writes the new running statistics into
-    ``bn_states`` and returns the packed image. Nothing that holds data is
-    cached: every pointer is read on every call."""
+def _prepare(h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
+             bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+             bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
+             compute_dtype: torch.dtype):
+    """(library, plan, image, the C arguments before the stream): checks
+    every input and allocates the image and the intermediates' buffer."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the train-tail kernel runs bf16 or f32, not {compute_dtype}")
     dev = h0.device
@@ -259,9 +280,60 @@ def tail_forward_train_launch(
             ptrs([s["mean"].data_ptr() for s in bn_states]),
             ptrs([s["var"].data_ptr() for s in bn_states]),
             final_bias.data_ptr(), base + plan.scratch_offset, plan.scratch_floats,
-            plan.c_chans, *plan.grid, plan.bf16, build.stream_ptr(dev))
-    build.call(lib, lib.siggan_train_tail, args, dev, "train-tail kernel")
+            plan.c_chans, *plan.grid, plan.bf16)
+    # The intermediates' buffer lives as long as the image.
+    return lib, plan, img, args, buf
+
+
+def tail_forward_train_launch(
+        h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
+        bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+        bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
+        compute_dtype: torch.dtype) -> torch.Tensor:
+    """B2 on the card: one host call; writes the new running statistics into
+    ``bn_states`` and returns the packed image. Nothing that holds data is
+    cached: every pointer is read on every call."""
+    lib, _, img, args, _buf = _prepare(h0, packed_ws, bn_params, bn_states, final_bias,
+                                       compute_dtype)
+    dev = h0.device
+    build.call(lib, lib.siggan_train_tail, (*args, build.stream_ptr(dev)), dev,
+               "train-tail kernel")
     LAUNCHES.add()
+    return img
+
+
+def tail_forward_train_layers(
+        h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
+        bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+        bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
+        compute_dtype: torch.dtype, mesh=None) -> torch.Tensor:
+    """B2 on the card through the layer route: per BN layer a host call of
+    its conv and totals, the totals all-reduced over ``mesh``'s ranks (on
+    one rank an all-reduce that changes nothing; without a mesh none), a
+    host call of its finalize over the global batch; then the final conv.
+    Writes the new running statistics into ``bn_states`` and returns the
+    packed image. Raises on a failed build or launch, as the single call
+    does."""
+    lib, plan, img, args, _buf = _prepare(h0, packed_ws, bn_params, bn_states, final_bias,
+                                          compute_dtype)
+    dev = h0.device
+    world = 1 if mesh is None else mesh.size
+    n_total = h0.shape[0] * world
+    for i, (c,) in enumerate(plan.bn_shapes):
+        totals = torch.empty(8 * c, device=dev, dtype=torch.float32)
+        build.call(lib, lib.siggan_train_tail_stage,
+                   (*args, 2 * i, totals.data_ptr(), n_total, build.stream_ptr(dev)), dev,
+                   "train-tail kernel (layer route)")
+        if mesh is not None:
+            mesh.all_reduce_(totals)
+        build.call(lib, lib.siggan_train_tail_stage,
+                   (*args, 2 * i + 1, totals.data_ptr(), n_total, build.stream_ptr(dev)), dev,
+                   "train-tail kernel (layer route)")
+    build.call(lib, lib.siggan_train_tail_stage,
+               (*args, 2 * len(plan.bn_shapes), None, n_total, build.stream_ptr(dev)), dev,
+               "train-tail kernel (layer route)")
+    LAUNCHES.add()
+    LAYER_LAUNCHES.add()
     return img
 
 
@@ -269,21 +341,23 @@ def tail_forward_train(
         h0: torch.Tensor, packed_ws: Sequence[torch.Tensor],
         bn_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         bn_states: Sequence[Dict[str, torch.Tensor]], final_bias: torch.Tensor,
-        compute_dtype: torch.dtype) -> torch.Tensor:
+        compute_dtype: torch.dtype, mesh=None) -> torch.Tensor:
     """The packed image; the new running statistics are written into
-    ``bn_states``' tensors. CUDA tensors make one host call of kernel B2;
-    CPU tensors take the plain version. No gradient: call it under
-    ``torch.no_grad()``."""
+    ``bn_states``' tensors. CUDA tensors make one host call of kernel B2,
+    or with a ``mesh`` of several ranks its layer route; CPU tensors take
+    the plain version. No gradient: call it under ``torch.no_grad()``."""
     if torch.is_grad_enabled():
         raise RuntimeError("the train-tail forward has no gradient; call it under "
                            "torch.no_grad()")
     if h0.device.type == "cpu":
         img, new = tail_forward_train_reference(h0, packed_ws, bn_params, bn_states,
-                                                final_bias, compute_dtype)
+                                                final_bias, compute_dtype, mesh)
         for dst, src in zip(bn_states, new):
             dst["mean"].copy_(src["mean"])
             dst["var"].copy_(src["var"])
         return img
-    return tail_forward_train_launch(h0.to(compute_dtype).contiguous(),
-                                     [w.contiguous() for w in packed_ws], bn_params,
-                                     bn_states, final_bias, compute_dtype)
+    args = (h0.to(compute_dtype).contiguous(), [w.contiguous() for w in packed_ws], bn_params,
+            bn_states, final_bias, compute_dtype)
+    if mesh is not None and mesh.size > 1:
+        return tail_forward_train_layers(*args, mesh=mesh)
+    return tail_forward_train_launch(*args)

@@ -17,6 +17,15 @@ channel c reduces over its 4 phases, the state stays (C,).
 
 Gradients flow through the batch statistics (autograd), as through the JAX
 function. ``groups > 1`` (the fused-G-forwards step) is not ported yet.
+
+Over a mesh of several ranks (``mesh``, a ``parallel/mesh.py::DataMesh``)
+the statistics are the global batch's, as GSPMD makes the JAX function's
+means global: each rank sums x and x^2 per channel in f32, one all-reduce
+adds the ranks' sums, and E[x^2] - E[x]^2 and the running estimate's
+unbiasing use the global count, n times the mesh size (every rank holds
+an equal share of the batch). The all-reduce is differentiable, so
+gradients flow through the global statistics. On one rank (or without a
+mesh) the local statistics are the global ones and nothing is reduced.
 """
 
 from __future__ import annotations
@@ -50,9 +59,15 @@ def _no_groups(groups: int) -> None:
 
 
 def _train_stats(xf: torch.Tensor, dims, n: int, state: Dict[str, torch.Tensor],
-                 momentum: float):
-    mean = xf.mean(dim=dims)
-    var = (xf * xf).mean(dim=dims) - mean * mean
+                 momentum: float, mesh=None):
+    if mesh is None or mesh.size == 1:
+        mean = xf.mean(dim=dims)
+        var = (xf * xf).mean(dim=dims) - mean * mean
+    else:
+        sums = mesh.all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+        n *= mesh.size
+        mean, ey2 = (sums / n).chunk(2)
+        var = ey2 - mean * mean
     unbiased = var * (n / max(n - 1, 1))
     new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
                  "var": (1 - momentum) * state["var"] + momentum * unbiased.detach()}
@@ -61,18 +76,19 @@ def _train_stats(xf: torch.Tensor, dims, n: int, state: Dict[str, torch.Tensor],
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
                state: Dict[str, torch.Tensor], *, train: bool = False,
-               eps: float = EPS, momentum: float = MOMENTUM, groups: int = 1
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               eps: float = EPS, momentum: float = MOMENTUM, groups: int = 1,
+               mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Normalize over every axis but the last. x: (N, C) or (N, H, W, C).
 
     Returns (y, new_state) like the JAX function; in eval mode the state is
-    returned unchanged, in train mode the new state is detached.
+    returned unchanged, in train mode the new state is detached. ``mesh``:
+    train-mode statistics over the global batch of its ranks.
     """
     if train:
         _no_groups(groups)
         dims = tuple(range(x.ndim - 1))
         n = x.numel() // x.shape[-1]
-        mean, var, new_state = _train_stats(x.float(), dims, n, state, momentum)
+        mean, var, new_state = _train_stats(x.float(), dims, n, state, momentum, mesh)
     else:
         mean, var, new_state = state["mean"], state["var"], state
     a, b = fold_affine(scale, offset, mean, var, eps)
@@ -85,7 +101,7 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
 def batch_norm_packed(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
                       state: Dict[str, torch.Tensor], *, train: bool = False,
                       eps: float = EPS, momentum: float = MOMENTUM,
-                      groups: int = 1
+                      groups: int = 1, mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """BatchNorm over a packed activation (N, H/2, W/2, 4C), planar order
     phase*C + c; the state and the affine stay per canonical channel."""
@@ -95,7 +111,7 @@ def batch_norm_packed(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor
         _no_groups(groups)
         xf = x.float().reshape(n_, h_, w_, 4, c)
         mean, var, new_state = _train_stats(xf, (0, 1, 2, 3), n_ * h_ * w_ * 4,
-                                            state, momentum)
+                                            state, momentum, mesh)
     else:
         mean, var, new_state = state["mean"], state["var"], state
     a, b = fold_affine(scale, offset, mean, var, eps)

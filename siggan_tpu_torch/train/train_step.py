@@ -63,6 +63,21 @@ the batch copied into a static buffer.
 With ``share_fakes`` (n_critic 1) a step is ``shared_fakes_step``: one
 latent batch, one generator forward for both updates. Not ported yet
 (raises ``NotImplementedError``): ``fuse_g_forwards`` (BN groups).
+
+Data parallelism (``mesh``, a ``parallel/mesh.py::DataMesh``): every step
+function takes the mesh, and each rank is handed its rows of the global
+batch (``cfg.batch_size``). The draws are made for the global batch, as the
+JAX step draws them under its mesh, and each rank takes its rows of every
+draw (``_shard_draws``; a D step's masks and DiffAugment parameters cover
+``[real; fake]``, so a rank takes its rows of each half), which keeps one
+seed's run the same on any number of ranks. Every BatchNorm of G (kernel
+B2's included) takes global-batch statistics, the D and G gradients are
+averaged over the ranks before Adam (one all-reduce of one flat buffer per
+update; the logged grad norms are the averaged gradients'), and every
+metric is the global mean. On the card the all-reduces are enqueued on the
+step's stream, so ``_GraphedSteps`` captures them in its graph (NCCL; the
+eager warm-up steps set up the communicator); a gloo mesh cannot be
+captured, and its steps are called eagerly.
 """
 
 from __future__ import annotations
@@ -152,17 +167,19 @@ def d_step(state: TrainState, real: torch.Tensor, z: torch.Tensor, cfg: TrainCon
            masks: Optional[List[torch.Tensor]] = None,
            real_packed: bool = False, y_real: Optional[torch.Tensor] = None,
            y_fake: Optional[torch.Tensor] = None,
-           diffaug_params: Optional[Sequence[diffaug.Params]] = None) -> Metrics:
+           diffaug_params: Optional[Sequence[diffaug.Params]] = None, mesh=None) -> Metrics:
     """One discriminator update on ``real`` (labels ``y_real``) and G(z)
     (labels ``y_fake``), the pair through DiffAugment with
     ``diffaug_params`` when configured; updates ``state`` in place (D, its
-    moments and spectral-norm vectors, and G's BN running statistics)."""
+    moments and spectral-norm vectors, and G's BN running statistics). With
+    ``mesh``, G's statistics are the global batch's and the gradients the
+    ranks' mean; the metrics stay this rank's."""
     cdt, packed = _dtype(cfg), _packed(cfg)
     b = real.shape[0]
     conditional = cfg.model.num_classes > 0
     with torch.no_grad():
         fake = state.g(z, y_fake, cdt, train=True, packed_output=packed,
-                       fused_tail=packed and fused_tail_supported(cfg.model))
+                       fused_tail=packed and fused_tail_supported(cfg.model), mesh=mesh)
     if packed and not real_packed:
         real = space_to_depth(real)
     both = torch.cat([real.to(fake.dtype), fake], dim=0)
@@ -181,7 +198,7 @@ def d_step(state: TrainState, real: torch.Tensor, z: torch.Tensor, cfg: TrainCon
             aux_loss = aux_loss + _ce_mean(aux_logits[b:], y_fake)
         loss = loss + cfg.aux_weight * aux_loss
     params = list(state.d.parameters())
-    grads = torch.autograd.grad(loss, params)
+    grads = _mean_grads(torch.autograd.grad(loss, params), mesh)
     d_tx.step(params, grads, state.d_opt)
     with torch.no_grad():
         p_real, p_fake = torch.sigmoid(logits_r), torch.sigmoid(logits_f)
@@ -200,13 +217,14 @@ def d_step(state: TrainState, real: torch.Tensor, z: torch.Tensor, cfg: TrainCon
 def g_step(state: TrainState, z: torch.Tensor, cfg: TrainConfig, g_tx: Adam, *,
            gen: Optional[torch.Generator] = None,
            masks: Optional[List[torch.Tensor]] = None, y: Optional[torch.Tensor] = None,
-           diffaug_params: Optional[Sequence[diffaug.Params]] = None) -> Metrics:
+           diffaug_params: Optional[Sequence[diffaug.Params]] = None, mesh=None) -> Metrics:
     """One generator update (non-saturating loss through a train-mode D,
     its fakes labelled ``y`` and through DiffAugment when configured), then
-    the EMA shadow's update when ``ema_decay > 0``."""
+    the EMA shadow's update when ``ema_decay > 0``. ``mesh`` as in
+    ``d_step``."""
     cdt, packed = _dtype(cfg), _packed(cfg)
     aux_on = _aux_on(cfg)
-    fake = state.g(z, y, cdt, train=True, packed_output=packed)
+    fake = state.g(z, y, cdt, train=True, packed_output=packed, mesh=mesh)
     if cfg.diffaugment:
         fake = diffaug.apply(fake, diffaug_params, cfg.diffaugment, packed)
     out = state.d(fake, train=True, compute_dtype=cdt, packed_input=packed,
@@ -216,7 +234,7 @@ def g_step(state: TrainState, z: torch.Tensor, cfg: TrainConfig, g_tx: Adam, *,
     if aux_on:
         loss = loss + cfg.aux_weight * _ce_mean(aux_logits, y)
     params = list(state.g.parameters())
-    grads = torch.autograd.grad(loss, params)
+    grads = _mean_grads(torch.autograd.grad(loss, params), mesh)
     g_tx.step(params, grads, state.g_opt)
     if cfg.ema_decay > 0:
         ema_update(state.g_ema, state.g, cfg.ema_decay)
@@ -232,7 +250,7 @@ def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
                       masks: Sequence[Optional[List[torch.Tensor]]] = (None, None),
                       real_packed: bool = False, y_real: Optional[torch.Tensor] = None,
                       y_fake: Optional[torch.Tensor] = None,
-                      diffaug_params: Sequence = (None, None)) -> Metrics:
+                      diffaug_params: Sequence = (None, None), mesh=None) -> Metrics:
     """One D update and one G update sharing a single generator forward,
     the JAX package's ``shared_fakes_step`` (the reference's ablation
     trainer: one latent batch per iteration). G runs once in train mode
@@ -243,12 +261,12 @@ def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
     forward. Conditional models: ``y_fake`` conditions G and ``[y_real;
     y_fake]`` feeds D's heads, the G head scores the fakes with
     ``y_fake``. Updates ``state`` in place, then the EMA shadow when
-    ``ema_decay > 0``."""
+    ``ema_decay > 0``. ``mesh`` as in ``d_step``."""
     cdt, packed = _dtype(cfg), _packed(cfg)
     b = real.shape[0]
     conditional = cfg.model.num_classes > 0
     aux_on = _aux_on(cfg)
-    fake = state.g(z, y_fake, cdt, train=True, packed_output=packed)
+    fake = state.g(z, y_fake, cdt, train=True, packed_output=packed, mesh=mesh)
     if packed and not real_packed:
         real = space_to_depth(real)
     both = torch.cat([real.to(fake.dtype), fake.detach()], dim=0)
@@ -265,7 +283,8 @@ def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
             aux_loss = aux_loss + _ce_mean(aux_logits[b:], y_fake)
         d_loss = d_loss + cfg.aux_weight * aux_loss
     d_params = list(state.d.parameters())
-    d_tx.step(d_params, torch.autograd.grad(d_loss, d_params), state.d_opt)
+    d_tx.step(d_params, _mean_grads(torch.autograd.grad(d_loss, d_params), mesh),
+              state.d_opt)
 
     fake_g = diffaug.apply(fake, diffaug_params[1], cfg.diffaugment, packed) \
         if cfg.diffaugment else fake
@@ -276,7 +295,8 @@ def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
     if aux_on:
         g_loss = g_loss + cfg.aux_weight * _ce_mean(aux_g, y_fake)
     g_params = list(state.g.parameters())
-    g_tx.step(g_params, torch.autograd.grad(g_loss, g_params), state.g_opt)
+    g_tx.step(g_params, _mean_grads(torch.autograd.grad(g_loss, g_params), mesh),
+              state.g_opt)
     if cfg.ema_decay > 0:
         ema_update(state.g_ema, state.g, cfg.ema_decay)
     with torch.no_grad():
@@ -288,6 +308,18 @@ def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
              "d_on_g_mean": torch.sigmoid(logits_g).mean()}
         m["d_accuracy"] = 0.5 * (m["d_acc_real"] + m["d_acc_fake"])
     return m
+
+
+def _mean_grads(grads: Sequence[torch.Tensor], mesh) -> Sequence[torch.Tensor]:
+    """The gradients averaged over ``mesh``'s ranks: one all-reduce of one
+    flat buffer (the gradients themselves without a mesh)."""
+    return grads if mesh is None else mesh.average(grads)
+
+
+def _shard_draws(draws: Dict, mesh, b: int) -> Dict:
+    """This rank's rows of a step's draws made for the global batch ``b``:
+    of each draw's b rows, or of each b-row half of a D step's 2b."""
+    return _map_draws(lambda t: mesh.shard_rows(t, b), draws)
 
 
 def _fake_labels(cfg: TrainConfig, b: int, gen: torch.Generator, device,
@@ -388,12 +420,25 @@ def _keep_masks(cfg: TrainConfig, u: Sequence[Sequence[torch.Tensor]]):
 
 def _run_step(cfg: TrainConfig, d_tx: Adam, g_tx: Adam, real_packed: bool,
               state: TrainState, real: torch.Tensor, draws: Dict,
-              y_real: Optional[torch.Tensor] = None) -> Metrics:
+              y_real: Optional[torch.Tensor] = None, mesh=None) -> Metrics:
     """One iteration on complete draws: the per-step augmentation (when
     ``cfg.augment``), n_critic D steps, then the G step (or, with
     ``share_fakes``, the shared-fake step). Reads and updates
     only device tensors (what a CUDA graph of it captures); ``state.step``
-    is left to the caller."""
+    is left to the caller. With ``mesh``, ``real`` is this rank's rows of
+    the global batch, ``draws`` are the global batch's, and the metrics
+    returned are the ranks' means."""
+    if mesh is not None and mesh.size > 1:
+        draws = _shard_draws(draws, mesh, real.shape[0] * mesh.size)
+    metrics = _iteration(cfg, d_tx, g_tx, real_packed, state, real, draws, y_real, mesh)
+    if mesh is None:
+        return metrics
+    return mesh.all_reduce_mean(metrics, keep=("d_grad_norm", "g_grad_norm"))
+
+
+def _iteration(cfg: TrainConfig, d_tx: Adam, g_tx: Adam, real_packed: bool,
+               state: TrainState, real: torch.Tensor, draws: Dict,
+               y_real: Optional[torch.Tensor], mesh) -> Metrics:
     if cfg.augment:
         real = augment_apply(real, *draws["augment"], dtype=_dtype(cfg))
     zs, masks = draws["z"], draws["masks"]
@@ -402,19 +447,19 @@ def _run_step(cfg: TrainConfig, d_tx: Adam, g_tx: Adam, real_packed: bool,
     if cfg.share_fakes:
         return shared_fakes_step(state, real, zs[0], cfg, d_tx, g_tx, masks=masks,
                                  real_packed=real_packed, y_real=y_real, y_fake=ys[0],
-                                 diffaug_params=das)
+                                 diffaug_params=das, mesh=mesh)
     metrics: Metrics = {}
     for i in range(cfg.n_critic):
         metrics = d_step(state, real, zs[i], cfg, d_tx, masks=masks[i],
                          real_packed=real_packed, y_real=y_real, y_fake=ys[i],
-                         diffaug_params=das[i])
+                         diffaug_params=das[i], mesh=mesh)
     n = cfg.n_critic
     metrics.update(g_step(state, zs[n], cfg, g_tx, masks=masks[n], y=ys[n],
-                          diffaug_params=das[n]))
+                          diffaug_params=das[n], mesh=mesh))
     return metrics
 
 
-def make_train_step(cfg: TrainConfig, real_pre_packed: bool = False):
+def make_train_step(cfg: TrainConfig, real_pre_packed: bool = False, mesh=None):
     """``train_step(state, real, draws=None, y_real=None) -> (state,
     metrics)``.
 
@@ -422,7 +467,9 @@ def make_train_step(cfg: TrainConfig, real_pre_packed: bool = False):
     ``real_pre_packed``, already augmented, cast and packed; ``y_real`` its
     labels, required by a conditional model. The state is updated in place
     and returned with ``step`` advanced by one. What ``draws`` does not
-    inject is drawn by ``step_draws``."""
+    inject is drawn by ``step_draws``. With ``mesh``, ``real`` is this
+    rank's rows of the global batch and ``draws``, injected or drawn, are
+    the global batch's (``b`` times the mesh size)."""
     check_supported(cfg)
     if real_pre_packed and cfg.augment:
         raise ValueError("real_pre_packed implies augmentation was applied "
@@ -443,11 +490,12 @@ def make_train_step(cfg: TrainConfig, real_pre_packed: bool = False):
             st = streams.get(str(dev))
             if st is None:
                 st = streams[str(dev)] = Streams(cfg.seed, dev)
-            drawn = step_draws(cfg, st, state.step, real.shape[0], dev)
+            b = real.shape[0] * (1 if mesh is None else mesh.size)
+            drawn = step_draws(cfg, st, state.step, b, dev)
             drawn["masks"] = _keep_masks(cfg, drawn.pop("u"))
             draws = {**drawn, **draws}
         metrics = _run_step(cfg, d_tx, g_tx, real_pre_packed, state, real, draws,
-                            None if y_real is None else y_real.long())
+                            None if y_real is None else y_real.long(), mesh)
         state.step += 1
         return state, metrics
 
@@ -490,7 +538,7 @@ def _epoch_tables(cfg: TrainConfig, n_images: int, epoch: int, device):
     return perm, aug
 
 
-def make_resident_train_step(cfg: TrainConfig, n_images: int):
+def make_resident_train_step(cfg: TrainConfig, n_images: int, mesh=None):
     """A train step over a device-resident dataset: ``(state, images,
     draws=None, labels=None) -> (state, metrics)`` with ``images`` the whole
     (N, H, W, 1) set on the device and, for a conditional model, ``labels``
@@ -502,12 +550,15 @@ def make_resident_train_step(cfg: TrainConfig, n_images: int):
     per epoch, remainder dropped), and a slice of it. With augmentation
     (``augment_bulk``, the default) the transform is keyed per epoch: the
     epoch's per-image parameters are drawn once and only the gathered batch
-    is warped. Both tables are made when the epoch changes."""
+    is warped. Both tables are made when the epoch changes. With ``mesh``
+    every rank holds the whole set and gathers its rows of each global
+    batch."""
     steps_per_epoch = n_images // cfg.batch_size
     if steps_per_epoch < 1:
         raise ValueError(f"dataset ({n_images}) smaller than the batch ({cfg.batch_size})")
     bulk = _bulk(cfg)
-    base_step = make_train_step(*_inner(cfg))
+    base_step = make_train_step(*_inner(cfg), mesh=mesh)
+    mine = slice(None) if mesh is None else mesh.rows(cfg.batch_size)
     cache: Dict[str, object] = {"epoch": None}
 
     def train_step(state: TrainState, images: torch.Tensor,
@@ -516,7 +567,7 @@ def make_resident_train_step(cfg: TrainConfig, n_images: int):
         if cache["epoch"] != epoch:
             cache["perm"], cache["aug"] = _epoch_tables(cfg, n_images, epoch, images.device)
             cache["epoch"] = epoch
-        idx = cache["perm"][bidx * cfg.batch_size:(bidx + 1) * cfg.batch_size]
+        idx = cache["perm"][bidx * cfg.batch_size:(bidx + 1) * cfg.batch_size][mine]
         real = images[idx]
         if bulk:
             real = _warp_gathered(cfg, real, *cache["aug"], idx)
@@ -545,16 +596,19 @@ class _Gathered:
     ``fill`` writes the window's rows (and, when the epoch changed, its
     tables) into buffers the graph reads."""
 
-    def __init__(self, cfg: TrainConfig, n_images: int, k: int, eager_step):
+    def __init__(self, cfg: TrainConfig, n_images: int, k: int, eager_step, mesh=None):
         self.cfg, self.n_images, self.k, self.eager_step = cfg, n_images, k, eager_step
         self.spe = n_images // cfg.batch_size
         self.inner, self.real_packed = _inner(cfg)
+        # This rank's columns of a window's (K, B) rows of the permutation.
+        self.mine = slice(None) if mesh is None else mesh.rows(cfg.batch_size)
 
     def allocate(self, images: torch.Tensor, labels: Optional[torch.Tensor]) -> None:
         dev, b = images.device, self.cfg.batch_size
         self.images, self.labels, self.epoch = images, labels, None
         self.perm = torch.empty(self.n_images, dtype=torch.long, device=dev)
-        self.rows = torch.empty((self.k, b), dtype=torch.long, device=dev)
+        self.rows = torch.empty((self.k, len(range(b)[self.mine])), dtype=torch.long,
+                                device=dev)
         self.aug = None
         if _bulk(self.cfg):
             n = self.n_images
@@ -579,11 +633,11 @@ class _Gathered:
                 if dst is not None:
                     dst.copy_(src)
             self.epoch = epoch
-        self.rows.copy_(self.perm[bidx * b:(bidx + self.k) * b].view(self.k, b))
+        self.rows.copy_(self.perm[bidx * b:(bidx + self.k) * b].view(self.k, b)[:, self.mine])
 
     def batch(self, slot: torch.Tensor):
         """(real, its labels or None) of the step at row ``slot`` (captured)."""
-        idx = self.rows.index_select(0, slot).view(-1)
+        idx = self.rows.index_select(0, slot).reshape(-1)
         real = self.images[idx]
         if self.aug is not None:
             real = _warp_gathered(self.cfg, real, *self.aug, idx)
@@ -647,12 +701,16 @@ class _GraphedSteps:
     buffers; a state whose tensors are others (a resumed or restored one) is
     copied into the bound storage, and the bound state is returned. A
     capture launches nothing, so the kernels' launch counts it records are
-    taken back, and every replay adds them. A failed capture raises."""
+    taken back, and every replay adds them. A failed capture raises.
+
+    With ``mesh`` the step's all-reduces are captured with it (an NCCL
+    mesh); the warm-up steps run them first, which sets up the
+    communicator. A gloo mesh cannot be captured and raises."""
 
     WARMUP = 2
 
-    def __init__(self, cfg: TrainConfig, k: int, source):
-        self.cfg, self.k, self.source = cfg, k, source
+    def __init__(self, cfg: TrainConfig, k: int, source, mesh=None):
+        self.cfg, self.k, self.source, self.mesh = cfg, k, source, mesh
         self.inner, self.real_packed = source.inner, source.real_packed
         self.g_tx, self.d_tx = make_optimizers(cfg)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -705,13 +763,16 @@ class _GraphedSteps:
         draws = _map_draws(lambda t: t.index_select(0, self.slot)[0], self.draws)
         draws["masks"] = _keep_masks(self.inner, draws.pop("u"))
         metrics = _run_step(self.inner, self.d_tx, self.g_tx, self.real_packed, state,
-                            real, draws, None if y_real is None else y_real.long())
+                            real, draws, None if y_real is None else y_real.long(), self.mesh)
         self.metrics.index_copy_(0, self.slot,
                                  torch.stack([metrics[k].float() for k in self.keys])[None])
         self.slot.add_(1)
         return metrics
 
     def _capture(self, state: TrainState) -> None:
+        if self.mesh is not None and self.mesh.backend != "nccl":
+            raise ValueError(f"a {self.mesh.backend} mesh cannot be captured in a CUDA "
+                             "graph: call the eager step (make_train_step) on the card")
         before = build.launch_counts()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
@@ -765,7 +826,7 @@ class _GraphedSteps:
         return state, {key: rows[:, i] for i, key in enumerate(self.keys)}
 
 
-def make_resident_multi_step(cfg: TrainConfig, n_images: int, scan_steps: int):
+def make_resident_multi_step(cfg: TrainConfig, n_images: int, scan_steps: int, mesh=None):
     """K = ``scan_steps`` resident train steps per call: ``(state, images,
     labels=None) -> (state, metrics)`` (``labels`` the resident (N,) labels
     of a conditional model) with each metric stacked to shape (K,); returns
@@ -777,11 +838,13 @@ def make_resident_multi_step(cfg: TrainConfig, n_images: int, scan_steps: int):
     draws as K calls of ``make_resident_train_step``; the returned state is
     the one the graph is bound to. On CPU tensors it runs K eager steps of
     ``make_resident_train_step``, which is also the eager route on the card
-    (for debugging)."""
-    step_fn, spe = make_resident_train_step(cfg, n_images)
+    (for debugging). With ``mesh`` each rank steps on its rows of every
+    global batch."""
+    step_fn, spe = make_resident_train_step(cfg, n_images, mesh)
     if scan_steps < 1 or spe % scan_steps:
         raise ValueError(f"scan_steps ({scan_steps}) must divide steps_per_epoch ({spe})")
-    graphed = _GraphedSteps(cfg, scan_steps, _Gathered(cfg, n_images, scan_steps, step_fn))
+    graphed = _GraphedSteps(cfg, scan_steps,
+                            _Gathered(cfg, n_images, scan_steps, step_fn, mesh), mesh)
 
     def multi_step(state: TrainState, images: torch.Tensor,
                    labels: Optional[torch.Tensor] = None):
@@ -797,7 +860,7 @@ def make_resident_multi_step(cfg: TrainConfig, n_images: int, scan_steps: int):
     return multi_step, spe
 
 
-def make_stream_step(cfg: TrainConfig):
+def make_stream_step(cfg: TrainConfig, mesh=None):
     """The streaming route's step, one dispatch per batch: ``(state, batch,
     labels=None) -> (state, metrics)`` with ``batch`` a (b, H, W, 1) batch
     from ``data/loader.py::BatchLoader`` (``labels`` its labels for a
@@ -810,9 +873,10 @@ def make_stream_step(cfg: TrainConfig):
     source): the batch is copied into the graph's static buffer and the
     step's draws into its draw buffers, with the eager step's keys, so
     graphed and eager steps see the same numbers. On CPU tensors it is the
-    eager step (also the route to debug on the card)."""
-    step_fn = make_train_step(cfg)
-    graphed = _GraphedSteps(cfg, 1, _Static(cfg, step_fn))
+    eager step (also the route to debug on the card). With ``mesh`` the
+    batch is this rank's rows of the global batch (``BatchLoader(mesh=)``)."""
+    step_fn = make_train_step(cfg, mesh=mesh)
+    graphed = _GraphedSteps(cfg, 1, _Static(cfg, step_fn), mesh)
 
     def stream_step(state: TrainState, batch: torch.Tensor,
                     labels: Optional[torch.Tensor] = None):

@@ -1,10 +1,9 @@
-"""The training engine on one card: epoch loop, logging, checkpoints,
-sample grids, recovery.
+"""The training engine: epoch loop, logging, checkpoints, sample grids,
+recovery, on one card or data-parallel over several.
 
-Port of the JAX package's ``GANTrainer`` (``train/trainer.py``) without the
-mesh (it raises ``NotImplementedError``, ROADMAP A.9). A conditional model
-needs its labels (``labels=``). Two routes, chosen as the JAX trainer
-chooses them:
+Port of the JAX package's ``GANTrainer`` (``train/trainer.py``). A
+conditional model needs its labels (``labels=``). Two routes, chosen as the
+JAX trainer chooses them:
 
 - resident (the set fits ``resident_max_mb`` and ``resident_data``): the
   dataset and its labels live on the card and every step gathers its batch
@@ -36,6 +35,23 @@ every ``sample_interval`` epochs, epoch/latest/best checkpoints every
 JAX trainer; the grids of a conditional model label image i with class
 i % num_classes, and with ``ema_decay > 0`` they show the EMA generator.
 
+Data parallelism (``cfg.mesh``, ``parallel/mesh.py``): in a job of several
+ranks, one process per card, ``make_mesh`` gives the data axis and each rank
+trains its rows of every global batch of ``batch_size`` (which the ranks
+must divide); without a process group the trainer runs alone, as before.
+Every rank holds the whole set -- resident on each card, or in each host
+process for streaming -- and walks the same global order, so a rank's
+gather needs no collective. This differs from the JAX package's sharded
+residency (each device holds its shard of the set) and gives the same
+batches. Steps per epoch, K and the LR span count the global set and batch.
+Rank 0's state is broadcast to the others at the start (and after a
+resume, which every rank reads from the same files). Only rank 0 writes
+logs, sample grids, checkpoints, the profiler trace and the in-training
+FID (the JAX trainer's process 0); the others wait at a barrier after each
+checkpoint. The stop file is polled on rank 0 and its decision broadcast,
+so every rank stops after the same window; on an interrupt every rank
+leaves its loop, and rank 0 saves.
+
 In-training FID (JAX ``train/trainer.py:164-206``), every ``fid_interval``
 epochs: ``fid_samples`` fakes from fixed eval noise (``STREAM_EVAL``;
 labels i % num_classes for a conditional model) through
@@ -65,9 +81,11 @@ from siggan_tpu_torch.core.platform import DeviceLike, resolve_device
 from siggan_tpu_torch.core.state import TrainState, create_train_state
 from siggan_tpu_torch.data.loader import BatchLoader
 from siggan_tpu_torch.infer.export import contact_sheet
+from siggan_tpu_torch.parallel.mesh import make_mesh
 from siggan_tpu_torch.train.collapse import ModeCollapseDetector
 from siggan_tpu_torch.train.train_step import (check_supported, make_eval_generate,
-                                               make_resident_multi_step, make_stream_step)
+                                               make_resident_multi_step, make_stream_step,
+                                               state_tensors)
 from siggan_tpu_torch.utils.logger import GANLogger
 
 
@@ -90,9 +108,13 @@ def choose_scan_steps(steps_per_epoch: int, scan_steps: int = 0) -> int:
 
 
 def check_trainer_supported(cfg: TrainConfig, images: np.ndarray) -> None:
+    """Raise for a configuration the trainer does not take: what the step
+    refuses, and a global batch that an explicit ``num_data`` does not
+    divide (the launched ranks are checked by ``make_mesh``)."""
     check_supported(cfg)
-    if cfg.mesh.num_data not in (-1, 1):
-        raise NotImplementedError("multi-card training is not ported yet (ROADMAP A.9)")
+    n = cfg.mesh.num_data
+    if n > 0 and cfg.batch_size % n:
+        raise ValueError(f"global batch {cfg.batch_size} not divisible by data-axis size {n}")
 
 
 def is_resident(cfg: TrainConfig, images: np.ndarray) -> bool:
@@ -116,12 +138,17 @@ class GANTrainer:
         if self.conditional and labels is None:
             raise ValueError("conditional training requires labels")
         self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg.mesh, self.device)
+        if self.mesh is not None:
+            self.mesh.local_batch_size(cfg.batch_size)
+        self.main = self.mesh is None or self.mesh.is_main
         self.stop_file = Path(stop_file) if stop_file else None
-        self.logger = GANLogger(cfg.log_dir, experiment_name)
+        self.logger = GANLogger(cfg.log_dir, experiment_name, write=self.main)
         self.logger.log_config(cfg.to_dict())
         self.collapse_detector = ModeCollapseDetector(
             cfg.mode_collapse_threshold, cfg.mode_collapse_window)
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg, authoritative=True)
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg, authoritative=True,
+                                      write=self.main)
         images = np.ascontiguousarray(images, np.float32)
         self.resident = is_resident(cfg, images)
         if self.resident:
@@ -131,17 +158,18 @@ class GANTrainer:
             spe = len(images) // cfg.batch_size
             self.scan_steps = choose_scan_steps(spe, cfg.scan_steps)
             self._step_fn, self.steps_per_epoch = make_resident_multi_step(
-                cfg, len(images), self.scan_steps)
+                cfg, len(images), self.scan_steps, self.mesh)
             self.loader = None
         else:
             self.loader = BatchLoader(
                 images, cfg.batch_size, seed=cfg.seed, prefetch=cfg.prefetch,
                 labels=np.asarray(labels, np.int64) if self.conditional else None,
-                device=self.device)
+                mesh=self.mesh, device=self.device)
             self.steps_per_epoch = len(self.loader)
             self.scan_steps = 1
-            self._step_fn = make_stream_step(cfg)
+            self._step_fn = make_stream_step(cfg, self.mesh)
         self.state: TrainState = create_train_state(cfg, self.device)
+        self._replicate()
         self._generate = make_eval_generate(cfg)
         self.fixed_noise = torch.randn(
             (cfg.fixed_noise_samples, cfg.model.latent_dim),
@@ -152,7 +180,7 @@ class GANTrainer:
         # that the epochs' FIDs compare; the scorer is built on first use.
         self._fid_scorer = None
         self._last_fid: Optional[tuple] = None   # (epoch, fid)
-        if cfg.fid_interval > 0:
+        if cfg.fid_interval > 0 and self.main:
             if cfg.checkpoint_interval % cfg.fid_interval != 0:
                 print(f"WARNING: fid_interval={cfg.fid_interval} does not "
                       f"divide checkpoint_interval={cfg.checkpoint_interval}; "
@@ -166,11 +194,16 @@ class GANTrainer:
             self._fid_labels = (torch.arange(cfg.fid_samples, device=self.device)
                                 % cfg.model.num_classes if self.conditional else None)
 
+    def _replicate(self) -> None:
+        """Every rank takes rank 0's state (a no-op without a mesh)."""
+        if self.mesh is not None:
+            self.mesh.replicate(state_tensors(self.state))
+
     def _report_dispatch(self) -> None:
         """Print, once, how the windows run: K, and on the card the graph's
         capture time."""
         graphed = self._step_fn.graphed
-        if self._reported:
+        if self._reported or not self.main:
             return
         if self.device.type == "cuda":
             if graphed.capture_s is None:   # the window of the eager warm-up steps
@@ -182,6 +215,9 @@ class GANTrainer:
         self._reported = True
         route = ("resident" if self.resident else
                  f"streaming, {self.cfg.prefetch} batches copied ahead")
+        if self.mesh is not None:
+            route += (f"; {self.mesh.size} ranks of {self.mesh.local_batch_size(self.cfg.batch_size)}"
+                      f" rows each")
         print(f"Dispatch: {self.scan_steps} steps per call ({self.steps_per_epoch} per "
               f"epoch) as {how} ({route})", flush=True)
 
@@ -212,9 +248,13 @@ class GANTrainer:
         print(f"Profiler trace written to {self.cfg.profile_dir}", flush=True)
 
     def _should_stop(self) -> bool:
-        return self.stop_file is not None and self.stop_file.exists()
+        """Whether the stop file exists, as rank 0 sees it, on every rank."""
+        stop = self.main and self.stop_file is not None and self.stop_file.exists()
+        return stop if self.mesh is None else self.mesh.decide(stop)
 
-    def _sample_grid(self, epoch: int) -> Path:
+    def _sample_grid(self, epoch: int) -> Optional[Path]:
+        if not self.main:
+            return None
         y = (torch.arange(self.cfg.fixed_noise_samples, device=self.device)
              % self.cfg.model.num_classes if self.conditional else None)
         imgs = self._generate(self.state, self.fixed_noise.to(self.device), y)
@@ -235,21 +275,29 @@ class GANTrainer:
             fakes.append(self._generate(self.state, self._fid_noise[s:s + 256], y))
         return self._fid_scorer.fid_from_features(self._fid_real_feats, torch.cat(fakes))
 
-    def _save_checkpoint(self, epoch: int, g_loss: float) -> None:
+    def _save_checkpoint(self, epoch: int, g_loss: float, sync: bool = True) -> None:
+        """Rank 0 saves; with ``sync`` the ranks then meet at a barrier."""
         # A FID goes with the checkpoint only when it scored this epoch's state.
         fid = self._last_fid[1] if (
             self._last_fid is not None and self._last_fid[0] == epoch) else None
         self.ckpt.save(self.state, epoch=epoch, fixed_noise=self.fixed_noise,
                        g_loss=g_loss, fid=fid)
+        if sync and self.mesh is not None:
+            self.mesh.barrier()
 
     def resume(self, which: str | int = "latest") -> bool:
+        if self.mesh is not None:
+            self.mesh.barrier()
         out = self.ckpt.restore(which, self.device)
         if out is None:
             return False
         self.state, extras = out
+        self._replicate()
         self.fixed_noise = extras["fixed_noise"]
         self.start_epoch = extras["epoch"] + 1
-        print(f"Resumed from epoch {extras['epoch']} (step {self.state.step})", flush=True)
+        if self.main:
+            print(f"Resumed from epoch {extras['epoch']} (step {self.state.step})",
+                  flush=True)
         return True
 
     def train(self, epochs: Optional[int] = None) -> Dict:
@@ -262,11 +310,13 @@ class GANTrainer:
                 self._sample_grid(0)
             for epoch in range(self.start_epoch, epochs):
                 if self._should_stop():
-                    print(f"Stop file detected — stopping before epoch {epoch}", flush=True)
+                    if self.main:
+                        print(f"Stop file detected — stopping before epoch {epoch}",
+                              flush=True)
                     stopped = True
                     epoch -= 1   # label the final checkpoint with the last done epoch
                     break
-                profiler = (self._start_profiler() if cfg.profile_dir
+                profiler = (self._start_profiler() if cfg.profile_dir and self.main
                             and epoch == self.start_epoch + 1 else None)
                 windows = []
                 t_epoch = time.perf_counter()
@@ -275,7 +325,8 @@ class GANTrainer:
                     windows.append(m)   # each metric stacked to (K,)
                     self._report_dispatch()
                     if self._should_stop():
-                        print("Stop file detected — stopping mid-epoch", flush=True)
+                        if self.main:
+                            print("Stop file detected — stopping mid-epoch", flush=True)
                         stopped = True
                         break
                 # One device-to-host transfer per epoch; it waits for the card.
@@ -292,7 +343,7 @@ class GANTrainer:
                 avgs = {k: float(np.mean(v)) for k, v in cols.items()}
                 avgs["images_per_sec"] = cfg.batch_size * n_steps / dt
                 avgs["ms_per_step"] = dt / n_steps * 1000.0
-                if cfg.fid_interval > 0 and (epoch + 1) % cfg.fid_interval == 0:
+                if cfg.fid_interval > 0 and (epoch + 1) % cfg.fid_interval == 0 and self.main:
                     t_fid = time.perf_counter()
                     self._last_fid = (epoch, self._compute_fid())
                     avgs["fid"] = self._last_fid[1]
@@ -300,7 +351,7 @@ class GANTrainer:
                           f"{time.perf_counter() - t_fid:.2f} s", flush=True)
                 self.logger.log_metrics(epoch, avgs)
                 collapsed, reason = self.collapse_detector.check_collapse()
-                if collapsed:
+                if collapsed and self.main:
                     print(f"WARNING: possible mode collapse — {reason}", flush=True)
                 if cfg.sample_interval > 0 and (epoch + 1) % cfg.sample_interval == 0:
                     self._sample_grid(epoch + 1)
@@ -318,8 +369,11 @@ class GANTrainer:
                 self._save_checkpoint(epoch, last)
                 self._sample_grid(epoch + 1)
         except KeyboardInterrupt:
-            print("Interrupted — saving checkpoint", flush=True)
-            self._save_checkpoint(epoch, float("inf"))
+            # No barrier: another rank may have been interrupted inside a
+            # collective. Every rank leaves; rank 0 saves the replicated state.
+            if self.main:
+                print("Interrupted — saving checkpoint", flush=True)
+            self._save_checkpoint(epoch, float("inf"), sync=False)
         finally:
             self.logger.save_to_csv()
             self.logger.save_to_json()

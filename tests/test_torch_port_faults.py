@@ -25,6 +25,7 @@ from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
 from siggan_tpu_torch.data.dataset import SignatureDataset
 from siggan_tpu_torch.data.synthetic import generate_dataset, save_dataset_pngs
 from siggan_tpu_torch.infer.generate import load_session
+from siggan_tpu_torch.parallel.mesh import make_mesh
 from siggan_tpu_torch.train.train_step import make_train_step
 from siggan_tpu_torch.train.trainer import GANTrainer, check_trainer_supported
 
@@ -120,15 +121,13 @@ def test_dataset_refuses_images_it_cannot_decode(tmp_path):
 
 
 def test_train_cli_doc_names_only_what_raises(tmp_path):
-    """The CLI's docstring lists the flags that raise; spectral norm (v1.1),
-    EMA, the in-training FID, shared fakes and the profiler train; several
-    cards and the fused generator forwards (a config field, no flag)
-    raise."""
+    """The CLI's docstring lists the flags that raise: none now. Spectral
+    norm (v1.1), EMA, the in-training FID, shared fakes, the profiler and
+    several cards (its usage is in the docstring) train; the fused
+    generator forwards (a config field, no flag) raise."""
     doc = " ".join(train_cli.__doc__.split())
-    refused = doc[doc.index("Flags of features"):].split(")")[0]
-    assert "spectral" not in refused and "EMA" not in refused and "FID" not in refused
-    assert "shared fakes" not in refused and "profiler" not in refused
-    assert "several cards" in refused
+    assert "Flags of features" not in doc and "NotImplementedError" not in doc
+    assert "--num_data_devices 4" in doc and "torchrun --nproc_per_node 4" in doc
     images = np.zeros((8, 128, 128, 1), np.float32)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--image_size", "128",
                                       "--spectral_norm"])
@@ -144,6 +143,10 @@ def test_train_cli_doc_names_only_what_raises(tmp_path):
                                 images)
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--profile_dir", "p"])
     check_trainer_supported(train_cli.build_config(args), images)
+    # Several cards: the config is accepted; a single launched rank refuses
+    # a mesh of 4.
     args = train_cli.parse_arguments(["--data_dir", str(tmp_path), "--num_data_devices", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        check_trainer_supported(train_cli.build_config(args), images)
+    cfg = train_cli.build_config(args)
+    check_trainer_supported(cfg, images)
+    with pytest.raises(ValueError, match=r"exceeds the launched ranks \(1\)"):
+        make_mesh(cfg.mesh, "cpu")

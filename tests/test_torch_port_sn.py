@@ -31,6 +31,7 @@ from siggan_tpu_torch.infer.generate import GeneratorSession
 from siggan_tpu_torch.models.discriminator import Discriminator
 from siggan_tpu_torch.models.generator import fused_tail_supported, tail_start
 from siggan_tpu_torch.ops.regularizers import sn_init, spectral_norm
+from siggan_tpu_torch.parallel.mesh import make_mesh
 from siggan_tpu_torch.train.train_step import make_train_step
 from siggan_tpu_torch.train.trainer import GANTrainer, check_trainer_supported
 from test_torch_port_train import (assert_trees_close, jax_draws, jax_masks, jax_opt,
@@ -236,12 +237,13 @@ def test_cli_builds_the_v11_configuration():
     assert cfg.model.base_features == 256 and cfg.packed_io
     check_trainer_supported(cfg, np.zeros((8, 128, 128, 1), np.float32))
     assert fused_tail_supported(cfg.model) and tail_start(cfg.model) == 2
-    # Conditional models and the profiler hook train too now; a mesh of
-    # cards still raises.
+    # Conditional models, the profiler hook and a mesh of cards train too
+    # now; a single launched rank refuses a mesh of 4.
     check_trainer_supported(cfg.replace(model=dataclasses.replace(cfg.model, num_classes=3)),
                             np.zeros((8, 128, 128, 1), np.float32))
     check_trainer_supported(cfg.replace(profile_dir="trace"),
                             np.zeros((8, 128, 128, 1), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        check_trainer_supported(cfg.replace(mesh=dataclasses.replace(cfg.mesh, num_data=4)),
-                                np.zeros((8, 128, 128, 1), np.float32))
+    meshed = cfg.replace(mesh=dataclasses.replace(cfg.mesh, num_data=4))
+    check_trainer_supported(meshed, np.zeros((8, 128, 128, 1), np.float32))
+    with pytest.raises(ValueError, match=r"exceeds the launched ranks \(1\)"):
+        make_mesh(meshed.mesh, "cpu")

@@ -21,6 +21,7 @@ from siggan_tpu_torch.core.config import ModelConfig, TrainConfig
 from siggan_tpu_torch.core.state import create_train_state
 from siggan_tpu_torch.data.loader import BatchLoader
 from siggan_tpu_torch.data.synthetic import generate_dataset, generate_labeled_dataset
+from siggan_tpu_torch.parallel.mesh import DataMesh
 from siggan_tpu_torch.train.train_step import make_stream_step, make_train_step
 from siggan_tpu_torch.train.trainer import GANTrainer, is_resident
 from test_torch_port_multistep import assert_states_equal, few_threads  # noqa: F401
@@ -80,7 +81,13 @@ def test_size_checks_and_mesh_refusal():
         with pytest.raises(ValueError, match=r"labels \(2\) and images \(3\) lengths differ"):
             loader(images, 2, labels=np.zeros(2, np.int32), **kw)
     assert len(BatchLoader(images, 4, drop_last=False, device="cpu")) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    # A one-rank mesh yields the global batch; a mesh forces drop_last.
+    one = BatchLoader(images, 2, mesh=DataMesh(1, 0, "cpu"), drop_last=False, device="cpu")
+    plain = BatchLoader(images, 2, device="cpu")
+    assert len(one) == len(plain) == 1 and one.drop_last
+    for a, b in zip(one.epoch(0), plain.epoch(0)):
+        assert torch.equal(a, b) and a.shape == (2, 2, 2, 1)
+    with pytest.raises(TypeError, match="DataMesh"):
         BatchLoader(images, 2, mesh=object(), device="cpu")
 
 
