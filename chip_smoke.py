@@ -113,10 +113,12 @@ Phases (any failure raises and the script exits non-zero):
      with g++ and decode every fixture of ``tests/data/torch_port/`` (JPEG
      at 4:4:4, 4:2:2 and 4:2:0 at scan size, grey, restart intervals,
      optimised tables; BMP 1/8/24/32-bit; TIFF raw, PackBits, LZW with
-     predictor 2, 1-bit WhiteIsZero, RGB; PNG palette, 16-bit, Adam7)
-     bit-equal to its golden array (PIL's grey, saved where the fixtures
-     were written: this host has no PIL); time the threaded batch decode
-     per format at 1 and 8 threads (images/s); rewrite phase 11's 1320
+     predictor 2, 1-bit WhiteIsZero, RGB; CCITT Group 4, 2-D T.4 with EOL
+     fill bits, Modified Huffman and a Group 4 page at 1200 x 500; PNG
+     palette, 16-bit, Adam7) bit-equal to its golden array (PIL's grey,
+     saved where the fixtures were written: this host has no PIL); time the
+     threaded batch decode per format at 1 and 8 threads (images/s, the
+     CCITT page apart); rewrite phase 11's 1320
      scans as a mixed tree in CEDAR's shape (PNG, BMP and uncompressed TIFF
      written here with numpy, JPEG copied from the fixtures), run
      ``cli.preprocess`` on it (wall time, images/s, the share of it that
@@ -134,7 +136,16 @@ Phases (any failure raises and the script exits non-zero):
      1 epoch of 32 steps a run (cut from 20 epochs), FID at 256 samples
      against 512 reals: each run's short name, losses, FID, ms/step and
      wall time, the tables, plots.json and 12 sample grids, and no kernel
-     launch (the ablation step's G is unpacked);
+     launch (the ablation step's G is unpacked); then (13c,
+     ``fused_phase``) the fused generator forwards,
+     ``TrainConfig(fuse_g_forwards=True)`` at full width through GANTrainer
+     on phase 7's PNGs for 2 epochs of 32 steps on the graphed dispatch:
+     finite losses, B1 x1, B1' x1, B2 x0 a step, the checkpoint served on
+     B4, two graphed windows against eager steps (as in phase 7), 4 eager
+     fused steps against 4 sequential ones on the same draws in f32 and
+     bf16 (FUSE_NOTE's bars), n_critic 2 (3 groups a forward, still B1 x1
+     and B1' x1 a step), and graphed windows of the default and the fused
+     step in turns (default, fused, fused, default);
  14. a run of the JAX package and the control panel (``imported_run_phase``,
      ``panel_phase``): the committed run ``tests/data/torch_port/jax_run``
      (trained by the JAX package, converted by ``scripts/import_jax_run.py``)
@@ -184,13 +195,14 @@ Phases (any failure raises and the script exits non-zero):
      totals, an all-reduce of the totals, the finalize) bit-equal to its
      single host call at both full-width tails and at batches 64, 32 and
      16, both timed; (b) two gloo ranks spawned on the card, eager steps
-     of the 64 px default and v1.1 at global batch 64 (32 rows each) in
+     of the 64 px default, its fused generator forwards and v1.1 at global
+     batch 64 (32 rows each) in
      f32 (rtol 1e-4 atol 1e-5) and bf16 (a looser bar, printed) against one
      process's steps at batch 64, the ranks' states bitwise equal, B2's
      layer route over both ranks against its plain version with the same
      hook and against the single call on the whole batch;
  17. print the kernels line (one JSON object; B1, B1' and B2 with their
-     launches by path, the streamed ones included, B4 and B3 with their
+     launches by path, the streamed and the fused ones included, B4 and B3 with their
      launches on the serving, the evaluation, the verification, the
      imported-run and the panel paths), the nvidia-smi line again, and as
      the last line {"ok": true, "device": {...}}.
@@ -1854,8 +1866,8 @@ def decode_phase(card: str, work: str):
         build_s = time.perf_counter() - t0
     with np.load(FIXTURES / "golden.npz") as f:
         golden = dict(f)
-    if len(golden) != 18:
-        raise AssertionError(f"expected 18 decoder fixtures, found {sorted(golden)}")
+    if len(golden) != 22:
+        raise AssertionError(f"expected 22 decoder fixtures, found {sorted(golden)}")
     for name, want in golden.items():
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -1868,10 +1880,15 @@ def decode_phase(card: str, work: str):
               "JPEG 210x80": [n for n in golden if n.endswith(".jpg")
                               and not n.startswith("scan_")],
               "BMP 210x80": [n for n in golden if n.endswith(".bmp")],
-              "TIFF 210x80": [n for n in golden if n.endswith(".tif")]}
+              "TIFF 210x80": [n for n in golden if n.endswith(".tif")
+                              and not n.startswith("ccitt_")],
+              "CCITT TIFF 210x80 (G4, 2-D T.4, MH)": [n for n in golden
+                                                     if n.startswith("ccitt_")
+                                                     and not n.endswith("_page.tif")],
+              "CCITT G4 TIFF 1200x500": ["ccitt_g4_page.tif"]}
     rates = {}
     for fmt, names in groups.items():
-        reps = 20 if fmt.startswith("JPEG 1200") else 100
+        reps = 20 if fmt.startswith("JPEG 1200") else (200 if "1200" in fmt else 100)
         paths = [FIXTURES / n for n in names] * reps
         for threads in (1, 8):
             native.decode_files(paths[:len(names)], threads)
@@ -2018,6 +2035,40 @@ def png_tree_phase(card: str, work: str):
     return {"first_decode_ms": one_ms, "decode_images_per_s": rates, "preprocess_s": pre_s}
 
 
+def windows_in_turns(cfgs, order, images, state, k):
+    """Graphed K-step windows of each route's step (``cfgs``: route ->
+    TrainConfig; one multi-step and one copy of ``state`` a route) in the
+    turns of ``order``: per route a list of (host ms/step, device busy
+    ms/step or None, device operations per step), each turn's first window
+    a warm-up (the route's first one also its capture)."""
+    import torch
+    from siggan_tpu_torch.train import train_step as ts
+    multis = {r: ts.make_resident_multi_step(c, len(images), k)[0] for r, c in cfgs.items()}
+    states = {r: copy.deepcopy(state) for r in cfgs}
+    rows = {r: [] for r in cfgs}
+    for route in order:
+        def window(route=route):
+            states[route], m = multis[route](states[route], images)
+            return m
+        window()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        w = (time.perf_counter() - t0) * 1e3 / k
+        _, busy, ops = device_time(window, calls=1)
+        rows[route].append((w, None if busy is None else busy / k, ops / k))
+    return rows
+
+
+def print_turns(tag, k, rows, card):
+    for route, rs in rows.items():
+        print(f"{tag}: graphed {k}-step windows, {route} step: " + "; ".join(
+            f"wall {w:.3f} ms/step, device busy {fmt_ms(b)}/step, idle share "
+            f"{'not measured' if b is None else f'{1 - b / w:.4f}'}, {o:.0f} device "
+            f"operations per step" for w, b, o in rs) + f" [{card}]", flush=True)
+
+
 def shared_fakes_phase(card: str, work: str):
     """Phase 13a: ``cli.train --share_fakes`` at full width on phase 7's
     PNGs; graphed against eager; the default and the shared-fake step's
@@ -2067,26 +2118,9 @@ def shared_fakes_phase(card: str, work: str):
     agreement, _ = graphed_vs_eager(tag, cfg, 2048, images, state, k)
 
     # The default and the shared-fake step, graphed windows in turns on copies.
-    routes = {"default": cfg.replace(share_fakes=False), "share_fakes": cfg}
-    multis = {r: ts.make_resident_multi_step(c, 2048, k)[0] for r, c in routes.items()}
-    states = {r: copy.deepcopy(state) for r in routes}
-    rows = {r: [] for r in routes}
-
-    def window(route):
-        def run_():
-            states[route], m = multis[route](states[route], images)
-            return m
-        return run_
-    for route in ("default", "share_fakes", "share_fakes", "default"):
-        fn = window(route)
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        w = (time.perf_counter() - t0) * 1e3 / k
-        _, busy, ops = device_time(fn, calls=1)
-        rows[route].append((w, None if busy is None else busy / k, ops / k))
+    rows = windows_in_turns({"default": cfg.replace(share_fakes=False), "share_fakes": cfg},
+                            ("default", "share_fakes", "share_fakes", "default"), images,
+                            state, k)
     eager_fn, _ = ts.make_resident_train_step(cfg, 2048)
     estate = copy.deepcopy(state)
 
@@ -2102,16 +2136,227 @@ def shared_fakes_phase(card: str, work: str):
     torch.cuda.synchronize()
     ewall = (time.perf_counter() - t0) * 1e3 / 10
     _, ebusy, eops = device_time(ten, calls=1)
-    for route, rs in rows.items():
-        print(f"{tag}: graphed {k}-step windows, {route} step: " + "; ".join(
-            f"wall {w:.3f} ms/step, device busy {fmt_ms(b)}/step, idle share "
-            f"{'not measured' if b is None else f'{1 - b / w:.4f}'}, {o:.0f} device "
-            f"operations per step" for w, b, o in rs) + f" [{card}]", flush=True)
+    print_turns(tag, k, rows, card)
     print(f"{tag}: eager, 10 profiled steps: wall {ewall:.3f} ms/step, device busy "
           f"{fmt_ms(None if ebusy is None else ebusy / 10)}/step, {eops / 10:.0f} device "
           f"operations per step [{card}]", flush=True)
     print(f"{tag}: graphed vs eager: {json.dumps(agreement)}", flush=True)
     return launches
+
+
+FUSE_STEPS = 4
+FUSE_NOTE = ("the fused step against the sequential step, 4 eager steps of each from one "
+             "seeded state on the same draws and phase 7's first 64 images, the sequential "
+             "D step's G tail on the module path (the fused step's route: B2 takes one "
+             "group over its batch, and its own bar against the module path is phase 6's; "
+             "in bf16 the two tails round apart by that bar, which Adam's moments carry). "
+             "f32 (LRs 1e-6, "
+             "TF32 off): G and D parameters, G's BN running statistics and the metrics "
+             "allclose rtol 2e-5 atol 2e-5, the JAX package's bar at n_critic 1 "
+             "(tests/test_train_step.py), with no fallback; the other parts (Adam, u's) "
+             "within twice the spread of the sequential step's own runs (a repeat, 3 "
+             "permutations of the batch rows and of every draw's rows: the same steps "
+             "summed in other orders, and its D step's G tail on B2). bf16 (TrainConfig() defaults): parameters within "
+             "Adam's bound over the steps, 2 lr x 1.01 x the sum over steps t of "
+             "sqrt(sum_i w_i^2 / u_i) (the largest |m_hat| / sqrt(v_hat) at step t for beta "
+             "(0.5, 0.999); 1 % for bf16 moments), BN running statistics rtol 1e-2 atol 1e-3 "
+             "(B2's bf16 bar), Adam's bf16 moments within 1e-2 of each tensor's largest "
+             "entry (the bar tests/test_torch_port_dp_cli.py holds bf16 moments to), each "
+             "part else within twice the spread, as phase 16b holds bf16 ranks. In both, "
+             "accuracies (counts of logits on each side of 0) within 4 of 64 rows")
+
+
+def adam_step_bounds(steps: int, b1: float = 0.5, b2: float = 0.999):
+    """Per step t, the largest |m_hat| / sqrt(v_hat) any gradients give
+    (Cauchy-Schwarz over the bias-corrected weights)."""
+    out = []
+    for t in range(1, steps + 1):
+        w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        out.append(math.sqrt(sum(wi * wi / ui for wi, ui in zip(w, u))))
+    return out
+
+
+def fuse_bar(steps: int):
+    """Phase 13c's bar for a tensor of ``part`` whose reference is ``y``
+    (FUSE_NOTE); None where only the spread holds it."""
+    adam = 2 * 1.01 * sum(adam_step_bounds(steps))
+
+    def bar(part, y, f32, lr):
+        if f32:
+            strict = ("G parameters", "D parameters", "G BN statistics", "metrics")
+            return 2e-5 + 2e-5 * y.abs() if part in strict else None
+        if part.endswith("parameters") or part == "G EMA":
+            return adam * lr + 0 * y
+        if part == "G BN statistics":
+            return 1e-3 + 1e-2 * y.abs()
+        if part.endswith("Adam"):
+            return 1e-2 * y.abs().max() + 0 * y
+        return None
+    return bar
+
+
+def fused_vs_sequential(tag, cfg, real, dev):
+    """FUSE_STEPS eager steps of the fused and of the sequential step of
+    ``cfg`` on the same draws, held at FUSE_NOTE's bar: (max abs diff by
+    part, the spread, the share of the bar by part, the worst tensors)."""
+    import torch
+    from siggan_tpu_torch.models.generator import fused_tail_supported
+    from siggan_tpu_torch.train import train_step as ts
+    f32 = cfg.compute_dtype == "float32"
+    seq_cfg, fused_cfg = cfg.replace(fuse_g_forwards=False), cfg.replace(fuse_g_forwards=True)
+    fstate, fmetrics = dp_one_process(fused_cfg, real, dev, steps=FUSE_STEPS)
+    b2state, b2metrics = dp_one_process(seq_cfg, real, dev, steps=FUSE_STEPS)
+    perms = [None] + [torch.randperm(64, generator=torch.Generator().manual_seed(s)).to(dev)
+                      for s in (21, 22, 23)]
+    spread = {}
+    ts.fused_tail_supported = lambda m: False   # the D step's G tail on the module path
+    try:
+        state, metrics = dp_one_process(seq_cfg, real, dev, steps=FUSE_STEPS)
+        keys = [k for k in metrics if "acc" not in k]
+        one = state_groups(state, {k: metrics[k] for k in keys})
+        others = [dp_one_process(seq_cfg, real, dev, perm, steps=FUSE_STEPS)
+                  for perm in perms] + [(b2state, b2metrics)]
+        for o, om in others:
+            for part, d in group_diffs(state_groups(o, {k: om[k] for k in keys}), one).items():
+                spread[part] = max(spread.get(part, 0.0), d)
+    finally:
+        ts.fused_tail_supported = fused_tail_supported
+    fused = state_groups(fstate, {k: fmetrics[k] for k in keys})
+    table = []
+    use, bad = dp_within(tag, fused, one, spread, dp_names(state, {k: None for k in keys}),
+                         f32, max(cfg.optim.g_lr, cfg.optim.d_lr), table,
+                         bar=fuse_bar(FUSE_STEPS))
+    if f32:
+        bad += [f"{tag}: {part} {name} over the JAX bar ({d:.3e}, {u:.2f} of it)"
+                for part, name, _, d, u in table if u is not None and u > 1.0]
+    for k in set(metrics) - set(keys):
+        d = float((fmetrics[k] - metrics[k]).abs().max())
+        if d > 4 / 64:
+            bad.append(f"{tag}: {k} differs by {d} (over 4 of 64 rows)")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    worst = sorted(table, key=lambda r: -(r[4] if r[4] is not None else -1))[:5]
+    return group_diffs(fused, one), spread, use, worst
+
+
+def fused_phase(card: str, work: str):
+    """Phase 13c: the fused generator forwards (``TrainConfig(fuse_g_forwards=
+    True)``, no CLI flag) through GANTrainer at full width on phase 7's
+    PNGs; graphed against eager; fused against sequential in f32 and bf16;
+    n_critic 2; the default and the fused step's graphed windows in turns.
+    Returns the main path's launches."""
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.ckpt.manager import CheckpointManager, load_generator
+    from siggan_tpu_torch.core.config import OptimConfig, TrainConfig
+    from siggan_tpu_torch.data.dataset import SignatureDataset
+    from siggan_tpu_torch.infer.generate import GeneratorSession
+    from siggan_tpu_torch.ops.kernels import generator_fwd as gf
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.train import train_step as ts
+    from siggan_tpu_torch.train.trainer import GANTrainer
+
+    tag, root = "train fuse_g_forwards", Path(work) / "run_fused"
+    dev = torch.device("cuda", 0)
+    images = SignatureDataset(f"{work}/data", 64).images
+    cfg = TrainConfig(fuse_g_forwards=True, epochs=2, sample_interval=0,
+                      checkpoint_interval=1, checkpoint_dir=str(root / "checkpoints"),
+                      sample_dir=str(root / "samples"), log_dir=str(root / "logs"))
+    counters = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, tt.LAUNCHES)
+    for counter in counters:
+        counter.reset()
+    t0 = time.perf_counter()
+    trainer = GANTrainer(cfg, images, device=dev)
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pack_tail": pt.FWD_LAUNCHES.count,
+                "pack_tail_backward": pt.BWD_LAUNCHES.count, "train_tail": tt.LAUNCHES.count}
+    steps, k = trainer.state.step, trainer.scan_steps
+    graphed = trainer._step_fn.graphed
+    if steps != 64 or graphed.graph is None or k < 2:
+        raise AssertionError(f"{tag}: {steps} steps, K {k}, graph {graphed.graph}: not the "
+                             f"graphed dispatch over 2 epochs of 32 steps")
+    if launches != {"pack_tail": steps, "pack_tail_backward": steps, "train_tail": 0}:
+        raise AssertionError(f"{tag}: launches {launches} for {steps} steps")
+    metrics = trainer.logger.metrics
+    for m in metrics:
+        if not np.all(np.isfinite([m[key] for key in ("d_loss", "g_loss", "d_on_g_mean")])):
+            raise AssertionError(f"{tag}: non-finite metrics {m}")
+    print(f"{tag}: GANTrainer 2 epochs in {wall:.1f} s, K = {k} (capture "
+          f"{graphed.capture_s:.3f} s); launches per step B1 "
+          f"{launches['pack_tail'] / steps:g}, B1' {launches['pack_tail_backward'] / steps:g}, "
+          f"B2 {launches['train_tail'] / steps:g}; " + "; ".join(
+              f"epoch {m['epoch']}: d_loss {m['d_loss']:.4f} g_loss {m['g_loss']:.4f} "
+              f"{m['ms_per_step']:.3f} ms/step" for m in metrics) + f" [{card}]", flush=True)
+
+    # The saved generator serves on B4.
+    model, _ = load_generator(cfg.checkpoint_dir, "cuda")
+    gf.LAUNCHES.reset()
+    session = GeneratorSession(model, compute_dtype="float32", use_pallas=True, device="cuda")
+    imgs = session.sample(64, seed=1)
+    if imgs.shape != (64, 64, 64, 1) or not np.isfinite(imgs).all() \
+            or np.abs(imgs).max() > 1 or not session.uses_kernel or gf.LAUNCHES.count < 1:
+        raise AssertionError(f"{tag}: the trained generator does not serve on B4")
+    serve_b4 = gf.LAUNCHES.count
+
+    state, _ = CheckpointManager(cfg.checkpoint_dir, cfg).restore("latest", "cuda")
+    images_dev = torch.from_numpy(images).cuda()
+    agreement, _ = graphed_vs_eager(tag, cfg, 2048, images_dev, state, k)
+
+    # Fused against sequential on the same draws, f32 and bf16.
+    real = images_dev[:64]
+    versus = {}
+    for name, c in (("f32", cfg.replace(compute_dtype="float32", optim=OptimConfig(
+                        moment_dtype="float32", g_lr=1e-6, d_lr=1e-6))),
+                    ("bf16", cfg)):
+        diffs, spread, use, worst = fused_vs_sequential(f"{tag} vs sequential {name}", c,
+                                                        real, dev)
+        versus[name] = {"max_abs_diff_by_part": diffs, "sequential_spread_by_part": spread,
+                        "share_of_bar_by_part": use, "worst_tensors": worst}
+        print(f"{tag} vs sequential, {name}, {FUSE_STEPS} eager steps on the same draws: max "
+              f"abs diff by part {json.dumps(diffs)}; the sequential step's spread "
+              f"{json.dumps(spread)}; share of the bar by part (null: the spread alone) "
+              f"{json.dumps(use)}; worst (part, tensor, max |ref|, diff, share) "
+              f"{json.dumps(worst)}", flush=True)
+
+    # n_critic 2: three groups in one forward, still one B1 and one B1' a step.
+    c2 = cfg.replace(n_critic=2)
+    multi, _ = ts.make_resident_multi_step(c2, 2048, k)
+    s2 = copy.deepcopy(state)
+    before = [c.count for c in counters]
+    t0 = time.perf_counter()
+    ms = []
+    for _ in range(2):
+        s2, m = multi(s2, images_dev)
+        ms.append(m)
+    torch.cuda.synchronize()
+    n2_wall = (time.perf_counter() - t0) * 1e3 / (2 * k)
+    n2 = [b - a for a, b in zip(before, (c.count for c in counters))]
+    if len(multi.graphed.draws["z"]) != 3 or n2 != [2 * k, 2 * k, 0]:
+        raise AssertionError(f"{tag} n_critic 2: {len(multi.graphed.draws['z'])} latent "
+                             f"batches a step, launches {n2} in {2 * k} steps")
+    if not all(torch.isfinite(v).all() for m in ms for v in m.values()):
+        raise AssertionError(f"{tag} n_critic 2: non-finite metrics")
+    print(f"{tag} n_critic 2: 2 graphed windows of {k} steps, 3 groups a forward, launches "
+          f"per step B1 {n2[0] / (2 * k):g}, B1' {n2[1] / (2 * k):g}, B2 {n2[2] / (2 * k):g}; "
+          f"{n2_wall:.3f} ms/step with the capture [{card}]", flush=True)
+
+    # The default and the fused step, graphed windows in turns on copies.
+    rows = windows_in_turns({"default": cfg.replace(fuse_g_forwards=False),
+                             "fuse_g_forwards": cfg},
+                            ("default", "fuse_g_forwards", "fuse_g_forwards", "default"),
+                            images_dev, state, k)
+    print_turns(tag, k, rows, card)
+    print(f"{tag}: graphed vs eager: {json.dumps(agreement)}", flush=True)
+    return launches, {"epoch_ms_per_step": [m["ms_per_step"] for m in metrics],
+                      "k": k, "capture_s": graphed.capture_s, "serve_b4_launches": serve_b4,
+                      "graphed_vs_eager": agreement, "vs_sequential": versus,
+                      "vs_sequential_bar": FUSE_NOTE,
+                      "n_critic_2": {"launches": n2, "steps": 2 * k, "ms_per_step": n2_wall},
+                      "windows_in_turns": rows}
 
 
 def ablation_phase(card: str, work: str):
@@ -2879,8 +3124,9 @@ DP_NOTE = ("each part (G parameters, G Adam, ...) within its bar, or else within
 
 
 def dp_configs():
-    """Phase 16b's configurations: the 64 px default and v1.1, each in f32
-    (strict bar) and at its bf16 defaults (loose bar)."""
+    """Phase 16b's configurations: the 64 px default, its fused generator
+    forwards and v1.1, each in f32 (strict bar) and at its bf16 defaults
+    (loose bar)."""
     from siggan_tpu_torch.core.config import ModelConfig, OptimConfig, TrainConfig
     # f32 at LRs 1/100 of the defaults, so that a sign-like Adam step moves a
     # weight by at most 2e-6, under the strict bar.
@@ -2888,6 +3134,8 @@ def dp_configs():
                optim=OptimConfig(moment_dtype="float32", g_lr=2e-6, d_lr=2e-6))
     v11 = ModelConfig(image_size=128, use_spectral_norm=True)
     return {"64 px f32": TrainConfig(**f32), "64 px bf16": TrainConfig(),
+            "64 px fused f32": TrainConfig(fuse_g_forwards=True, **f32),
+            "64 px fused bf16": TrainConfig(fuse_g_forwards=True),
             "v1.1 128 px f32": TrainConfig(model=v11, **f32),
             "v1.1 128 px bf16": TrainConfig(model=v11)}
 
@@ -2982,9 +3230,9 @@ def dp_bar(part: str, y, f32: bool, lr: float):
     return None
 
 
-def dp_within(what: str, a, b, spread, names, f32: bool, lr: float, table=None):
+def dp_within(what: str, a, b, spread, names, f32: bool, lr: float, table=None, bar=dp_bar):
     """Hold ``a`` to ``b`` (tensor lists by part, ``state_groups``; their
-    names ``names``) at phase 16b's bar (``DP_NOTE``), ``spread`` the part's
+    names ``names``) at phase 16b's bar (``DP_NOTE``; ``bar`` another), ``spread`` the part's
     largest difference between one process's steps and a repeat of them or
     the same steps on a permuted batch: (each part's largest share of its
     bar, None where the spread alone holds it; the failures); ``table``
@@ -3000,9 +3248,9 @@ def dp_within(what: str, a, b, spread, names, f32: bool, lr: float, table=None):
                 continue
             if not torch.isfinite(x).all():
                 failures.append(f"{what}: {part} {name} is not finite")
-            bar = dp_bar(part, y, f32, lr)
+            limit = bar(part, y, f32, lr)
             diff = float((x - y).abs().max())
-            use = None if bar is None else float(((x - y).abs() / bar).max())
+            use = None if limit is None else float(((x - y).abs() / limit).max())
             if table is not None:
                 table.append((part, name, float(y.abs().max()), diff, use))
             if diff > 0 and (use is None or use > 1.0):
@@ -3020,8 +3268,8 @@ def dp_within(what: str, a, b, spread, names, f32: bool, lr: float, table=None):
     return use_by_part, failures
 
 
-def dp_one_process(cfg, real, dev, perm=None):
-    """DP_STEPS eager steps of one process on the global batch ``real`` and
+def dp_one_process(cfg, real, dev, perm=None, steps: int = DP_STEPS):
+    """``steps`` eager steps of one process on the global batch ``real`` and
     its draws, made as the step makes them; with ``perm``, the batch's rows
     and every draw's rows (each half of a D step's 2b) permuted: the same
     steps, summed in another order. Returns (state, stacked metrics)."""
@@ -3030,7 +3278,7 @@ def dp_one_process(cfg, real, dev, perm=None):
     from siggan_tpu_torch.train import train_step as ts
     state, step = create_train_state(cfg, dev), ts.make_train_step(cfg)
     streams, b, ms = ts.Streams(cfg.seed, dev), real.shape[0], []
-    for _ in range(DP_STEPS):
+    for _ in range(steps):
         draws = ts.step_draws(cfg, streams, state.step, b, dev)
         draws["masks"] = ts._keep_masks(cfg, draws.pop("u"))
         x = real
@@ -3241,9 +3489,12 @@ def dp_phase(card: str, work: str):
         diffs = group_diffs(two, one)
         worst = sorted(table, key=lambda r: -(r[4] if r[4] is not None else -1))[:5]
         b1, b1b, b2, b2_layers, coll = got[0]["launches"]
-        if b2_layers != DP_STEPS or b2 != DP_STEPS:
-            failures.append(f"16b {name}: B2 {b2} launches, {b2_layers} on the layer "
-                            f"route, in {DP_STEPS} steps")
+        # A fused step: one G forward with gradients (B1, B1') and no B2.
+        want = ((1, 1, 0) if cfg.fuse_g_forwards else (2, 1, 1))
+        if (b1, b1b, b2, b2_layers) != (want[0] * DP_STEPS, want[1] * DP_STEPS,
+                                        want[2] * DP_STEPS, want[2] * DP_STEPS):
+            failures.append(f"16b {name}: launches B1 {b1}, B1' {b1b}, B2 {b2} ({b2_layers} "
+                            f"on the layer route) in {DP_STEPS} steps")
         b_out["configs"][name] = {"max_abs_diff_by_part": diffs,
                                   "one_process_spread_by_part": spread,
                                   "share_of_bar_by_part": use,
@@ -3391,6 +3642,7 @@ def main() -> int:
         verify_launches, verify_stages = verification_phase(card, work)
         decode_stats = decode_phase(card, work)
         paths["train share_fakes"] = shared_fakes_phase(card, work)
+        paths["train fuse_g_forwards"], fused_stats = fused_phase(card, work)
         ablation_stats = ablation_phase(card, work)
         imported = imported_run_phase(card, work)
         paths["imported JAX run resume"] = imported["train"]
@@ -3446,7 +3698,7 @@ def main() -> int:
     b1_tol = "torch.equal (a copy and a cast)"
     b1_line = entry("pack_tail", "cuda", "siggan_tpu_torch/csrc/pack_tail.cu",
                     "siggan_tpu/ops/packed.py:636", b1["bfloat16"]["fwd"])
-    b1_line.update(tol=b1_tol, f32=b1["float32"]["fwd"],
+    b1_line.update(tol=b1_tol, f32=b1["float32"]["fwd"], fuse_g_forwards=fused_stats,
                    library="torch.take of the zero-extended flat weights by the "
                            "constant index map, + cast to bf16; bf16 output")
     b1b_line = entry("pack_tail_backward", "cuda", "siggan_tpu_torch/csrc/pack_tail.cu",

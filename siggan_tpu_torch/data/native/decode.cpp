@@ -18,7 +18,9 @@
 // TIFF: the first page, strips or tiles, either byte order, no compression,
 // PackBits or LZW (predictor 1 or 2); WhiteIsZero/BlackIsZero at 1, 2, 4, 8
 // bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255), RGB/RGBA
-// at 8 and 16 bits (PIL keeps the high byte), grey+alpha, palettes.
+// at 8 and 16 bits (PIL keeps the high byte), grey+alpha, palettes; and
+// bilevel strips coded CCITT Modified Huffman, T.4 (1-D and 2-D, with or
+// without EOL fill bits) or T.6 (Group 4).
 //
 // PNG: the Python side (infer/export.py::decode_png) parses the chunks and
 // inflates the image data with zlib; sig_png_unfilter undoes the five row
@@ -1067,6 +1069,249 @@ std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
   return out;
 }
 
+// ----------------------------------------------------------------- CCITT
+// Bilevel fax coding in TIFF (ITU-T T.4 and T.6), decoded to rows of 1-bit
+// samples, MSB first, a black run as 1 bits (the raw samples libtiff's fax
+// codec returns; PhotometricInterpretation then says which bit is white).
+// Compression 2 is Modified Huffman: 1-D rows, each starting on a byte,
+// no EOL. Compression 3 is T.4: each row after an EOL (found as libtiff's
+// decoder finds it: any bits up to 11 zeros, the zeros, then a 1), then
+// with T4Options bit 0 a tag bit (1: a 1-D row, 0: a 2-D row). Compression
+// 4 is T.6: 2-D rows back to back. Each strip starts on an all-white
+// reference line.
+
+// The terminating (0-63) and make-up (64-1728) codes of each colour, then
+// the extended make-up codes (1792-2560) both colours share.
+const char* const kWhiteCodes[] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111", "10011", "10100",
+    "00111", "01000", "001000", "000011", "110100", "110101", "101010", "101011", "0100111",
+    "0001100", "0001000", "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011", "00010010",
+    "00010011", "00010100", "00010101", "00010110", "00010111", "00101000", "00101001",
+    "00101010", "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
+    "00001011", "01010010", "01010011", "01010100", "01010101", "00100100", "00100101",
+    "01011000", "01011001", "01011010", "01011011", "01001010", "01001011", "00110010",
+    "00110011", "00110100",
+    // 64, 128, ..., 1728
+    "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100", "01100101",
+    "01101000", "01100111", "011001100", "011001101", "011010010", "011010011", "011010100",
+    "011010101", "011010110", "011010111", "011011000", "011011001", "011011010", "011011011",
+    "010011000", "010011001", "010011010", "011000", "010011011"};
+const char* const kBlackCodes[] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101", "000100",
+    "0000100", "0000101", "0000111", "00000100", "00000111", "000011000", "0000010111",
+    "0000011000", "0000001000", "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010", "000011001011",
+    "000011001100", "000011001101", "000001101000", "000001101001", "000001101010",
+    "000001101011", "000011010010", "000011010011", "000011010100", "000011010101",
+    "000011010110", "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110", "000001010111",
+    "000001100100", "000001100101", "000001010010", "000001010011", "000000100100",
+    "000000110111", "000000111000", "000000100111", "000000101000", "000001011000",
+    "000001011001", "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111",
+    // 64, 128, ..., 1728
+    "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
+    "000000110100", "000000110101", "0000001101100", "0000001101101", "0000001001010",
+    "0000001001011", "0000001001100", "0000001001101", "0000001110010", "0000001110011",
+    "0000001110100", "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010", "0000001011011",
+    "0000001100100", "0000001100101"};
+const char* const kExtendedCodes[] = {  // 1792, 1856, ..., 2560
+    "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
+    "000000010100", "000000010101", "000000010110", "000000010111", "000000011100",
+    "000000011101", "000000011110", "000000011111"};
+
+constexpr int kPeek = 13;     // the longest run code
+constexpr int16_t kEol = -1;  // 000000000001
+constexpr int16_t kBad = -2;
+
+// Per colour, the next 13 bits -> (code length, run length or kEol/kBad).
+struct RunTable {
+  uint8_t len[1 << kPeek];
+  int16_t run[1 << kPeek];
+  void add(const char* code, int16_t value) {
+    int l = (int)std::strlen(code), c = 0;
+    for (int i = 0; i < l; ++i) c = (c << 1) | (code[i] - '0');
+    for (int t = 0; t < 1 << (kPeek - l); ++t) {
+      len[(c << (kPeek - l)) | t] = (uint8_t)l;
+      run[(c << (kPeek - l)) | t] = value;
+    }
+  }
+  explicit RunTable(const char* const* codes) {
+    std::fill(len, len + (1 << kPeek), 0);
+    std::fill(run, run + (1 << kPeek), kBad);
+    for (int i = 0; i < 64; ++i) add(codes[i], (int16_t)i);
+    for (int i = 0; i < 27; ++i) add(codes[64 + i], (int16_t)(64 * (i + 1)));
+    for (int i = 0; i < 13; ++i) add(kExtendedCodes[i], (int16_t)(1792 + 64 * i));
+    add("000000000001", kEol);
+  }
+};
+
+const RunTable& run_table(bool black) {
+  static const RunTable white(kWhiteCodes), blk(kBlackCodes);
+  return black ? blk : white;
+}
+
+struct FaxBits {
+  const uint8_t* s;
+  size_t nbits;
+  size_t pos = 0;
+  uint32_t peek(int k) const {  // the next k <= 24 bits, zeros past the end
+    uint32_t v = 0;
+    size_t byte = pos >> 3;
+    for (int i = 0; i < 4; ++i) v = (v << 8) | (byte + i < nbits / 8 ? s[byte + i] : 0u);
+    return (v << (pos & 7)) >> (32 - k);
+  }
+  void skip(int k) {
+    pos += (size_t)k;
+    if (pos > nbits) corrupt("CCITT data ends early");
+  }
+  void align() { pos = (pos + 7) & ~(size_t)7; }
+  // libtiff's SYNC_EOL: any bits up to 11 zeros, the zeros, then the 1.
+  void sync_eol() {
+    while (peek(11) != 0) skip(1);
+    while (peek(1) == 0) skip(1);
+    skip(1);
+  }
+};
+
+// One run of `black` pixels: make-up codes, then a terminating code.
+int fax_run(FaxBits& b, bool black) {
+  const RunTable& t = run_table(black);
+  int total = 0;
+  for (;;) {
+    uint32_t c = b.peek(kPeek);
+    int16_t r = t.run[c];
+    if (r == kEol) corrupt("CCITT row ends early (EOL)");
+    if (r == kBad) corrupt("bad CCITT run code");
+    b.skip(t.len[c]);
+    total += r;
+    if (r < 64) return total;
+  }
+}
+
+// A 1-D row: alternating white and black runs from white, until they fill
+// the width. `cur` receives the changing elements (where the colour flips).
+void fax_row_1d(FaxBits& b, int W, std::vector<int>& cur) {
+  cur.clear();
+  int a0 = 0;
+  for (bool black = false;; black = !black) {
+    a0 += fax_run(b, black);
+    if (a0 > W) corrupt("CCITT row longer than the image");
+    if (a0 == W) return;
+    cur.push_back(a0);
+  }
+}
+
+// A 2-D row against the reference line's changing elements `ref` (then
+// two entries W): pass, horizontal and vertical modes until a0 reaches W.
+void fax_row_2d(FaxBits& b, int W, const std::vector<int>& ref, std::vector<int>& cur) {
+  cur.clear();
+  int a0 = -1;         // the imaginary white element before the row
+  bool black = false;  // a0's colour
+  size_t j = 0;
+  while (a0 < W) {
+    // b1: the first change on the reference line right of a0 to the colour
+    // opposite a0's (even entries change to black); b2: the change after it.
+    j = j > 0 ? j - 1 : 0;
+    while (ref[j] <= a0 || (j & 1) != (size_t)black) ++j;
+    const int b1 = ref[j], b2 = ref[j + 1];
+    const uint32_t c = b.peek(7);
+    int d;
+    if (c >= 64) {  // 1: V0
+      b.skip(1);
+      d = 0;
+    } else if (c >= 32) {  // 011: VR1, 010: VL1
+      b.skip(3);
+      d = c >= 48 ? 1 : -1;
+    } else if (c >= 16) {  // 001: horizontal, two runs from a0
+      b.skip(3);
+      const int a1 = std::max(a0, 0) + fax_run(b, black);
+      const int a2 = a1 + fax_run(b, !black);
+      if (a2 > W) corrupt("CCITT row longer than the image");
+      if (a1 < W) cur.push_back(a1);
+      if (a2 < W) cur.push_back(a2);
+      a0 = a2;
+      continue;
+    } else if (c >= 8) {  // 0001: pass, a0 to b2 in its colour
+      b.skip(4);
+      a0 = b2;
+      continue;
+    } else if (c >= 4) {  // 000011: VR2, 000010: VL2
+      b.skip(6);
+      d = c >= 6 ? 2 : -2;
+    } else if (c >= 2) {  // 0000011: VR3, 0000010: VL3
+      b.skip(7);
+      d = c == 3 ? 3 : -3;
+    } else if (c == 1) {
+      corrupt("CCITT extension code in 2-D data");
+    } else {
+      corrupt(b.peek(12) == 1 ? "CCITT row ends early (EOL)" : "bad CCITT mode code");
+    }
+    const int a1 = b1 + d;  // a vertical mode
+    if (a1 < std::max(a0, 0) || a1 > W) corrupt("bad CCITT vertical mode");
+    if (a1 < W) cur.push_back(a1);
+    a0 = a1;
+    black = !black;
+  }
+}
+
+// One strip of `rows` rows, `W` wide: `n` bytes of code -> rows of
+// (W + 7) / 8 bytes.
+std::vector<uint8_t> ccitt(const uint8_t* s, size_t n, uint32_t W, uint32_t rows,
+                           uint32_t compression, uint32_t t4opts) {
+  const size_t rb = ((size_t)W + 7) / 8;
+  std::vector<uint8_t> out(rb * rows, 0);
+  FaxBits b{s, n * 8};
+  std::vector<int> ref{(int)W, (int)W}, cur;
+  cur.reserve(W + 2);
+  for (uint32_t r = 0; r < rows; ++r) {
+    bool two_d = compression == 4;
+    if (compression == 3) {
+      b.sync_eol();
+      if (t4opts & 1) {
+        two_d = b.peek(1) == 0;
+        b.skip(1);
+      }
+    }
+    if (two_d)
+      fax_row_2d(b, (int)W, ref, cur);
+    else
+      fax_row_1d(b, (int)W, cur);
+    if (compression == 2) b.align();
+    uint8_t* row = &out[r * rb];
+    for (size_t i = 0; i < cur.size(); i += 2) {  // black from cur[i] to cur[i + 1]
+      const int x0 = cur[i], x1 = i + 1 < cur.size() ? cur[i + 1] : (int)W;
+      int x = x0;
+      for (; x < x1 && (x & 7); ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
+      if (x1 - x >= 8) {
+        std::memset(row + (x >> 3), 0xFF, (size_t)((x1 - x) >> 3));
+        x += (x1 - x) & ~7;
+      }
+      for (; x < x1; ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
+    }
+    ref.assign(cur.begin(), cur.end());
+    ref.push_back((int)W);
+    ref.push_back((int)W);
+  }
+  return out;
+}
+
+// 1-bit samples, MSB first -> 8 grey pixels per byte: 255 for a 1 bit, or
+// for a 0 bit when `inverted` (WhiteIsZero).
+const uint8_t (*bilevel_lut(bool inverted))[8] {
+  static const auto tables = [] {
+    std::vector<uint8_t> t(2 * 256 * 8);
+    for (int inv = 0; inv < 2; ++inv)
+      for (int b = 0; b < 256; ++b)
+        for (int k = 0; k < 8; ++k)
+          t[(inv * 256 + b) * 8 + k] = ((b >> (7 - k)) & 1) != inv ? 255 : 0;
+    return t;
+  }();
+  return reinterpret_cast<const uint8_t(*)[8]>(tables.data() + (inverted ? 256 * 8 : 0));
+}
+
 Gray decode_tiff(const uint8_t* d, size_t n) {
   Tiff t{d, n};
   if (n < 8) corrupt("TIFF file ends early");
@@ -1075,7 +1320,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   size_t ifd = t.r32(4);
   uint32_t count = t.r16(ifd);
   uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
-           planar = 1, predictor = 1, tw = 0, th = 0;
+           planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
   std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1};
   bool strips = false, tiles = false;
   for (uint32_t i = 0; i < count; ++i) {
@@ -1093,6 +1338,8 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       case 278: rps = t.values(e).at(0); break;
       case 279: counts = t.values(e); break;
       case 284: planar = t.values(e).at(0); break;
+      case 292: t4opts = t.values(e).at(0); break;
+      case 293: t6opts = t.values(e).at(0); break;
       case 317: predictor = t.values(e).at(0); break;
       case 320: cmap = t.values(e); break;
       case 322: tw = t.values(e).at(0); break;
@@ -1105,10 +1352,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     }
   }
   check_size(W, H);
-  if (compression == 2 || compression == 3 || compression == 4) unsupported("CCITT-compressed TIFF");
+  const bool fax = compression == 2 || compression == 3 || compression == 4;
   if (compression == 6 || compression == 7) unsupported("JPEG-in-TIFF");
   if (compression == 8 || compression == 32946) unsupported("Deflate-compressed TIFF");
-  if (compression != 1 && compression != 5 && compression != 32773)
+  if (compression != 1 && compression != 5 && compression != 32773 && !fax)
     unsupported("TIFF compression " + std::to_string(compression));
   if (photometric == 5 || photometric == 6 || photometric == 8)
     unsupported(photometric == 5 ? "CMYK TIFF" : photometric == 6 ? "YCbCr TIFF" : "CIELab TIFF");
@@ -1120,6 +1367,14 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   for (uint32_t b : bps)
     if (b != bps[0]) unsupported("TIFF with mixed sample sizes");
   const int bits = (int)bps[0];
+  if (fax) {
+    if (bits != 1 || spp != 1 || photometric > 1)
+      unsupported("CCITT-coded TIFF of " + std::to_string(spp) + " samples of " +
+                  std::to_string(bits) + " bits, photometric " + std::to_string(photometric));
+    if (tiles) unsupported("CCITT-coded TIFF in tiles");
+    if ((compression == 3 && (t4opts & 2)) || (compression == 4 && (t6opts & 2)))
+      unsupported("CCITT uncompressed mode");
+  }
   if (fmt.size() == 1 && spp > 1) fmt.assign(spp, fmt[0]);
   bool signed8 = fmt[0] == 2 && bits == 8 && spp == 1 && photometric == 1;
   for (uint32_t f : fmt)
@@ -1178,8 +1433,15 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (compression != 1 && counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
   const size_t rb = ((size_t)cw * spp * bits + 7) / 8;
 
-  // Unpack to one sample array per pixel (spp values each, 16-bit kept whole).
-  std::vector<uint16_t> smp((size_t)W * H * spp);
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  // Bilevel grey (CCITT scans among them) goes straight to 0 / 255; every
+  // other kind unpacks to one sample array per pixel (spp values each,
+  // 16-bit kept whole).
+  const bool bilevel = bits == 1 && (kind == kGrey || kind == kGreyInv);
+  std::vector<uint16_t> smp(bilevel ? 0 : (size_t)W * H * spp);
   for (uint32_t ty = 0; ty < down; ++ty) {
     for (uint32_t tx = 0; tx < across; ++tx) {
       size_t idx = (size_t)ty * across + tx;
@@ -1194,7 +1456,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       } else {
         size_t cnt = counts[idx];
         if (off > n || cnt > n - off) corrupt("TIFF strip outside the file");
-        buf = compression == 5 ? lzw(d + off, cnt, want) : packbits(d + off, cnt, want);
+        buf = fax              ? ccitt(d + off, cnt, cw, rows, compression, t4opts)
+              : compression == 5 ? lzw(d + off, cnt, want)
+                                 : packbits(d + off, cnt, want);
       }
       if (pred2) {
         for (uint32_t r = 0; r < rows; ++r) {
@@ -1216,6 +1480,15 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       }
       for (uint32_t r = 0; r < rows && y0 + r < H; ++r) {
         const uint8_t* row = &buf[r * rb];
+        if (bilevel) {  // a byte at a time, 8 pixels from a table
+          const uint8_t(*lut)[8] = bilevel_lut(kind == kGreyInv);
+          uint8_t* o = &g.px[(size_t)(y0 + r) * W + x0];
+          const uint32_t n = std::min(cw, W - x0);
+          uint32_t c = 0;
+          for (; c + 8 <= n; c += 8) std::memcpy(o + c, lut[row[c >> 3]], 8);
+          for (; c < n; ++c) o[c] = lut[row[c >> 3]][c & 7];
+          continue;
+        }
         for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
           uint16_t* o = &smp[(((size_t)(y0 + r)) * W + x0 + c) * spp];
           for (uint32_t s = 0; s < spp; ++s) {
@@ -1236,10 +1509,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     }
   }
 
-  Gray g;
-  g.w = (int)W;
-  g.h = (int)H;
-  g.px.resize((size_t)W * H);
+  if (bilevel) return g;
   const int maxv = (1 << std::min(bits, 8)) - 1;
   uint8_t pal[256];
   if (kind == kPal) {

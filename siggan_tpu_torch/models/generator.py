@@ -24,12 +24,18 @@ space-to-depth form and returns ``space_to_depth(image)`` (N, H/2, W/2, 4);
 every packed tail kernel comes from one launch of kernel B1
 (``ops/kernels/pack_tail.py``), whose backward is B1'.
 
+``bn_groups=k`` (train mode) splits the batch into k equal groups, each
+normalized with its own statistics, the running estimates folded group by
+group in order (``ops/norm.py``): the fused-G-forwards step's one forward of
+k latent batches. B1 still packs the tail weights once a forward.
+
 ``fused_tail=True`` (with ``train`` and ``packed_output``, under
 ``torch.no_grad()``, for a configuration ``fused_tail_supported`` admits)
 is the discriminator step's route: the fc, its BN and the wide blocks run
 as above, then the whole packed tail -- its convs, its BN statistics and
 running-stat updates, the final conv and tanh -- runs in kernel B2
-(``ops/kernels/train_tail.py``), which has no backward.
+(``ops/kernels/train_tail.py``), which has no backward. B2 takes one
+group's statistics over the batch, so it refuses ``bn_groups > 1``.
 """
 
 from __future__ import annotations
@@ -114,12 +120,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(n, device=device))
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
-                train: bool = False, packed: bool = False, mesh=None) -> torch.Tensor:
+                train: bool = False, packed: bool = False, mesh=None,
+                groups: int = 1) -> torch.Tensor:
         scale, offset = (self.scale, self.offset) if y is None else (
             take_rows(self.scale, y), take_rows(self.offset, y))
         fn = batch_norm_packed if packed else batch_norm
         out, state = fn(x, scale, offset, {"mean": self.mean, "var": self.var},
-                        train=train, mesh=mesh)
+                        train=train, mesh=mesh, groups=groups)
         if train:
             with torch.no_grad():
                 self.mean.copy_(state["mean"])
@@ -189,10 +196,13 @@ class Generator(nn.Module):
     def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
                 compute_dtype=None, *, train: bool = False,
                 packed_output: bool = False, fused_tail: bool = False,
-                mesh=None) -> torch.Tensor:
+                mesh=None, bn_groups: int = 1) -> torch.Tensor:
         cfg = self.cfg
         if fused_tail and not (train and packed_output):
             raise ValueError("fused_tail is the train-mode packed_output route")
+        if fused_tail and bn_groups > 1:
+            raise ValueError("fused_tail takes one group's BN statistics over the whole "
+                             "batch: it cannot run with bn_groups > 1")
         if fused_tail and torch.is_grad_enabled():
             raise RuntimeError("fused_tail has no gradient: run it under torch.no_grad()")
         if fused_tail and not fused_tail_supported(cfg):
@@ -223,7 +233,7 @@ class Generator(nn.Module):
             tail = pack_tail([b.weight for b in self.blocks[entry:]]
                              + [self.final.weight], odt)
         h = linear_oi(z, self.fc.weight, self.fc.bias, compute_dtype=compute_dtype)
-        h = self._act(self.fc_bn(h, y_bn, train=train, mesh=mesh))
+        h = self._act(self.fc_bn(h, y_bn, train=train, mesh=mesh, groups=bn_groups))
         h = h.reshape(h.shape[0], 4, 4, c0)
         for i, blk in enumerate(self.blocks):
             packed = entry is not None and i >= entry
@@ -236,7 +246,8 @@ class Generator(nn.Module):
                 w = tail[i - entry] if packed else blk.weight
                 h = conv_transpose2d_iohw(h, w, stride=2, padding=1,
                                           compute_dtype=compute_dtype)
-            h = self._act(blk.bn(h, y_bn, train=train, packed=packed, mesh=mesh))
+            h = self._act(blk.bn(h, y_bn, train=train, packed=packed, mesh=mesh,
+                                 groups=bn_groups))
         if entry is not None:
             img = conv3_mc_as_matmul_ihwo(h, tail[-1], self.final.bias.expand(4),
                                           compute_dtype)

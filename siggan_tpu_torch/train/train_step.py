@@ -2,7 +2,7 @@
 generator update.
 
 Port of the JAX package's ``train/train_step.py`` (``d_step``, ``g_step``,
-``shared_fakes_step``, ``make_train_step``, ``make_resident_train_step``,
+``fused_iteration``, ``shared_fakes_step``, ``make_train_step``, ``make_resident_train_step``,
 ``make_resident_multi_step``, ``make_eval_generate``; ``make_stream_step``
 graphs the step the JAX streaming path jits). The same semantics:
 
@@ -61,8 +61,12 @@ step per call on a batch the loader brought: the same graph machinery with
 the batch copied into a static buffer.
 
 With ``share_fakes`` (n_critic 1) a step is ``shared_fakes_step``: one
-latent batch, one generator forward for both updates. Not ported yet
-(raises ``NotImplementedError``): ``fuse_g_forwards`` (BN groups).
+latent batch, one generator forward for both updates. With
+``fuse_g_forwards`` (and not ``share_fakes``, JAX's order) it is
+``fused_iteration``: the n_critic + 1 generator forwards of the step, which
+all run under the same G parameters, as one forward of (n_critic + 1) b
+rows with BatchNorm statistics per group of b rows, on the same draws as
+the sequential step.
 
 Data parallelism (``mesh``, a ``parallel/mesh.py::DataMesh``): every step
 function takes the mesh, and each rank is handed its rows of the global
@@ -112,11 +116,8 @@ STEP_METRIC_KEYS = ("d_loss", "g_loss", "d_real_mean", "d_fake_mean",
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not train yet
-    (and ``ValueError`` for an unknown DiffAugment policy or ``share_fakes``
-    with ``n_critic != 1``)."""
-    if cfg.fuse_g_forwards:
-        raise NotImplementedError("fuse_g_forwards is not ported yet (ROADMAP A.1.4)")
+    """Raise ``ValueError`` for a configuration no step trains: an unknown
+    DiffAugment policy, or ``share_fakes`` with ``n_critic != 1``."""
     if cfg.share_fakes and cfg.n_critic != 1:
         raise ValueError("share_fakes requires n_critic == 1 (ablation-trainer semantics)")
     diffaug.policies(cfg.diffaugment)
@@ -162,24 +163,28 @@ class Streams:
         return rng.reseed(gen, self.seed, tag, *counters)
 
 
-def d_step(state: TrainState, real: torch.Tensor, z: torch.Tensor, cfg: TrainConfig,
-           d_tx: Adam, *, gen: Optional[torch.Generator] = None,
+def d_step(state: TrainState, real: torch.Tensor, z: Optional[torch.Tensor],
+           cfg: TrainConfig, d_tx: Adam, *, gen: Optional[torch.Generator] = None,
            masks: Optional[List[torch.Tensor]] = None,
            real_packed: bool = False, y_real: Optional[torch.Tensor] = None,
            y_fake: Optional[torch.Tensor] = None,
-           diffaug_params: Optional[Sequence[diffaug.Params]] = None, mesh=None) -> Metrics:
+           diffaug_params: Optional[Sequence[diffaug.Params]] = None, mesh=None,
+           fake: Optional[torch.Tensor] = None) -> Metrics:
     """One discriminator update on ``real`` (labels ``y_real``) and G(z)
     (labels ``y_fake``), the pair through DiffAugment with
     ``diffaug_params`` when configured; updates ``state`` in place (D, its
     moments and spectral-norm vectors, and G's BN running statistics). With
     ``mesh``, G's statistics are the global batch's and the gradients the
-    ranks' mean; the metrics stay this rank's."""
+    ranks' mean; the metrics stay this rank's. ``fake``: fakes made already
+    (``fused_iteration``'s detached slices, in the generator's output
+    layout), which skips the G forward and its BN update (``z`` unused)."""
     cdt, packed = _dtype(cfg), _packed(cfg)
     b = real.shape[0]
     conditional = cfg.model.num_classes > 0
-    with torch.no_grad():
-        fake = state.g(z, y_fake, cdt, train=True, packed_output=packed,
-                       fused_tail=packed and fused_tail_supported(cfg.model), mesh=mesh)
+    if fake is None:
+        with torch.no_grad():
+            fake = state.g(z, y_fake, cdt, train=True, packed_output=packed,
+                           fused_tail=packed and fused_tail_supported(cfg.model), mesh=mesh)
     if packed and not real_packed:
         real = space_to_depth(real)
     both = torch.cat([real.to(fake.dtype), fake], dim=0)
@@ -308,6 +313,66 @@ def shared_fakes_step(state: TrainState, real: torch.Tensor, z: torch.Tensor,
              "d_on_g_mean": torch.sigmoid(logits_g).mean()}
         m["d_accuracy"] = 0.5 * (m["d_acc_real"] + m["d_acc_fake"])
     return m
+
+
+def fused_iteration(state: TrainState, real: torch.Tensor, zs: Sequence[torch.Tensor],
+                    cfg: TrainConfig, d_tx: Adam, g_tx: Adam, *,
+                    masks: Sequence[Optional[List[torch.Tensor]]],
+                    real_packed: bool = False, y_real: Optional[torch.Tensor] = None,
+                    ys: Optional[Sequence[torch.Tensor]] = None,
+                    diffaug_params: Optional[Sequence] = None, mesh=None) -> Metrics:
+    """n_critic D updates and one G update with every generator forward of
+    the step merged into one, the JAX package's ``fused_iteration``.
+
+    The k = n_critic + 1 forwards all run under the same G parameters (only
+    D changes between sub-steps), so G runs once, in train mode with its
+    graph kept, on ``cat(zs)`` (labels ``cat(ys)``) with BatchNorm
+    statistics per group of b rows (``bn_groups=k``): every row is what its
+    own forward gives, and the running estimates fold the groups in order.
+    D step i trains on the detached rows of group i with ``masks[i]``,
+    ``ys[i]`` and ``diffaug_params[i]``; the G head scores the last group
+    through the updated D (``masks[n_critic]``, ...), its fakes' gradient
+    is taken alone, and G's gradient is one backward of the merged forward
+    with that gradient on the last group's rows and zeros on the others
+    (no statistic crosses a group, so those rows add nothing). Then Adam,
+    the EMA shadow when ``ema_decay > 0``, and the metrics of the
+    sequential step. ``mesh`` as in ``d_step``: ``zs`` and ``ys`` are this
+    rank's rows of each sub-step's draw, so each group's statistics are the
+    global batch's of that sub-step."""
+    cdt, packed = _dtype(cfg), _packed(cfg)
+    b, k, n = real.shape[0], cfg.n_critic + 1, cfg.n_critic
+    aux_on = _aux_on(cfg)
+    ys, das = ys or [None] * k, diffaug_params or [None] * k
+    fake_all = state.g(torch.cat(list(zs)), None if ys[0] is None else torch.cat(list(ys)),
+                       cdt, train=True, packed_output=packed, mesh=mesh, bn_groups=k)
+    fake_sg = fake_all.detach()
+    metrics: Metrics = {}
+    for i in range(n):
+        metrics = d_step(state, real, None, cfg, d_tx, masks=masks[i], real_packed=real_packed,
+                         y_real=y_real, y_fake=ys[i], diffaug_params=das[i], mesh=mesh,
+                         fake=fake_sg[i * b:(i + 1) * b])
+    fake_g = fake_all[n * b:].detach().requires_grad_(True)
+    fake_d = diffaug.apply(fake_g, das[n], cfg.diffaugment, packed) \
+        if cfg.diffaugment else fake_g
+    out = state.d(fake_d, train=True, compute_dtype=cdt, packed_input=packed, masks=masks[n],
+                  y=ys[n], aux=aux_on)
+    logits, aux_logits = out if aux_on else (out, None)
+    loss = _bce_mean(logits, 1.0)
+    if aux_on:
+        loss = loss + cfg.aux_weight * _ce_mean(aux_logits, ys[n])
+    (dfake,) = torch.autograd.grad(loss, fake_g)
+    cot = torch.cat([torch.zeros((n * b, *fake_all.shape[1:]), dtype=fake_all.dtype,
+                                 device=fake_all.device), dfake.to(fake_all.dtype)])
+    params = list(state.g.parameters())
+    grads = _mean_grads(torch.autograd.grad(fake_all, params, grad_outputs=cot), mesh)
+    g_tx.step(params, grads, state.g_opt)
+    if cfg.ema_decay > 0:
+        ema_update(state.g_ema, state.g, cfg.ema_decay)
+    with torch.no_grad():
+        metrics.update({"g_loss": loss.detach(), "d_on_g_mean": torch.sigmoid(logits).mean()})
+        if cfg.log_grad_norms:
+            metrics["g_grad_norm"] = global_norm(grads)
+    return metrics
 
 
 def _mean_grads(grads: Sequence[torch.Tensor], mesh) -> Sequence[torch.Tensor]:
@@ -448,6 +513,10 @@ def _iteration(cfg: TrainConfig, d_tx: Adam, g_tx: Adam, real_packed: bool,
         return shared_fakes_step(state, real, zs[0], cfg, d_tx, g_tx, masks=masks,
                                  real_packed=real_packed, y_real=y_real, y_fake=ys[0],
                                  diffaug_params=das, mesh=mesh)
+    if cfg.fuse_g_forwards:
+        return fused_iteration(state, real, zs, cfg, d_tx, g_tx, masks=masks,
+                               real_packed=real_packed, y_real=y_real, ys=ys,
+                               diffaug_params=das, mesh=mesh)
     metrics: Metrics = {}
     for i in range(cfg.n_critic):
         metrics = d_step(state, real, zs[i], cfg, d_tx, masks=masks[i],

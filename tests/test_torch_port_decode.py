@@ -605,10 +605,15 @@ def _unsupported_files(tmp_path):
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
     Image.fromarray(img).save(tmp_path / "progressive.jpg", quality=80, progressive=True)
-    Image.fromarray(img[..., 0] > 128).save(tmp_path / "ccitt.tif", compression="group4")
+    from test_torch_port_ccitt import ccitt_bytes, strips, wrap
+    # Group 4 with FillOrder 2: each byte's bits reversed (CCITT itself is read).
+    rev = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+    (strip,) = strips(ccitt_bytes(img[..., 0] > 128, "t6"))
+    (tmp_path / "fill_order_2.tif").write_bytes(
+        wrap(40, 24, [strip.translate(rev)], 4, extra=[(266, 3, 2)]))
     Image.fromarray(img).save(tmp_path / "deflate.tiff", compression="tiff_adobe_deflate")
     Image.fromarray(img).convert("CMYK").save(tmp_path / "cmyk.jpg")
-    return {"progressive.jpg": "progressive JPEG", "ccitt.tif": "CCITT",
+    return {"progressive.jpg": "progressive JPEG", "fill_order_2.tif": "FillOrder 2",
             "deflate.tiff": "Deflate", "cmyk.jpg": "CMYK"}
 
 
@@ -789,6 +794,19 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     (out / "grey16.png").write_bytes(png_bytes(g16[..., None], 0, 16, rs))
     (out / "interlaced.png").write_bytes(png_bytes(small, 2, 8, rs, interlace=True))
     files["grey16.png"], files["interlaced.png"] = out / "grey16.png", out / "interlaced.png"
+    # Bilevel scans in the CCITT codings (their own draws, so the files
+    # above stay as they were): Group 4, 2-D T.4 with EOL fill bits and
+    # Modified Huffman in strips of 32 rows, and a Group 4 page.
+    from test_torch_port_ccitt import ccitt_bytes
+    rs = np.random.RandomState(2025)
+    bilevel = scan_page(rs, 80, 210) < 128
+    for name, coding in (("ccitt_g4.tif", "t6"), ("ccitt_g3_2d.tif", "t4_2d_fill"),
+                         ("ccitt_mh.tif", "mh")):
+        (out / name).write_bytes(ccitt_bytes(~bilevel, coding, rows_per_strip=32))
+        files[name] = out / name
+    (out / "ccitt_g4_page.tif").write_bytes(
+        ccitt_bytes(scan_page(rs, 500, 1200) >= 128, "t6"))
+    files["ccitt_g4_page.tif"] = out / "ccitt_g4_page.tif"
     golden = {name: pil_gray(path) for name, path in files.items()}
     np.savez_compressed(out / "golden.npz", **golden)
     return golden
@@ -799,8 +817,8 @@ def test_fixtures_are_pil_exact_and_small():
     their golden arrays; together they stay under 1 MB."""
     with np.load(FIXTURES / "golden.npz") as f:
         golden = dict(f)
-    assert len(golden) == 18 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
-    assert golden["scan_420.jpg"].shape == (500, 1200)
+    assert len(golden) == 22 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    assert golden["scan_420.jpg"].shape == golden["ccitt_g4_page.tif"].shape == (500, 1200)
     for name, want in golden.items():
         np.testing.assert_array_equal(pil_gray(FIXTURES / name), want, err_msg=name)
         np.testing.assert_array_equal(tdataset.decode_gray(FIXTURES / name), want, err_msg=name)

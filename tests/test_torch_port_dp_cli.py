@@ -114,20 +114,23 @@ def test_two_rank_run_resumes_on_one_rank(two_rank_run, capsys, tmp_path):
 
 
 def test_stop_file_ends_every_rank(tmp_path, ranks_env):
-    """The stop file appears after the first checkpoint: rank 0 sees it and
+    """The stop file appears after the second checkpoint: rank 0 sees it and
     its decision ends both ranks at the same window (neither waits in a
-    collective for the other), and the last checkpoint is saved."""
+    collective for the other), and the last checkpoint is saved. The trainer
+    also polls before each epoch, and a stop seen there labels the final
+    checkpoint with the last finished epoch; waiting for epoch 1's checkpoint
+    keeps that label at 1 or more wherever the stop lands."""
     data = save_dataset_pngs(16, tmp_path / "data", seed=3)
     run, stop = tmp_path / "run", tmp_path / "STOP"
-    first = run / "checkpoints" / "epoch_0000" / "state.json"
+    second = run / "checkpoints" / "epoch_0001" / "state.json"
 
-    def touch_after_first_checkpoint():
+    def touch_after_second_checkpoint():
         deadline = time.time() + 600
-        while not first.exists() and time.time() < deadline:
+        while not second.exists() and time.time() < deadline:
             time.sleep(0.05)
         stop.touch()
 
-    watcher = threading.Thread(target=touch_after_first_checkpoint, daemon=True)
+    watcher = threading.Thread(target=touch_after_second_checkpoint, daemon=True)
     watcher.start()
     assert train_cli.main(argv(data, run, "--epochs", "200", "--num_data_devices", "2",
                                "--stop_file", str(stop))) == 0

@@ -234,12 +234,15 @@ def test_resident_step_gathers_and_warps_its_epoch_batch():
     for p, q in zip(a.g.parameters(), b.g.parameters()):
         assert torch.equal(p, q)
     assert a.step == 1
-    # share_fakes trains (one latent batch a step); fuse_g_forwards still raises.
+    # share_fakes trains (one latent batch a step), and so do the fused
+    # generator forwards (one forward of both latent batches).
     c = create_train_state(cfg, "cpu")
     c, mc = make_resident_train_step(cfg.replace(share_fakes=True), 8)[0](c, images, draws)
     assert c.step == 1 and set(mc) == set(ma)
-    with pytest.raises(NotImplementedError, match="fuse_g_forwards"):
-        make_train_step(cfg.replace(fuse_g_forwards=True))
+    f = create_train_state(cfg, "cpu")
+    f, mf = make_train_step(cfg.replace(fuse_g_forwards=True))(f, images[:4], draws)
+    assert f.step == 1 and set(mf) == set(ma)
+    assert all(torch.isfinite(v) for v in mf.values())
 
 
 def test_trainer_and_cli_train_resume_and_serve(tmp_path, capsys):

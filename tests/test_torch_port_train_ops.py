@@ -133,7 +133,16 @@ def test_train_batch_norm_matches_jax(packed, per_sample):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     for k in ("mean", "var"):
         np.testing.assert_allclose(gst[k].numpy(), np.asarray(rst[k]), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Groups (the fused generator forwards): 5 groups of one row, as JAX
+    # takes them; a batch that does not split raises.
+    ref, rst = jfn(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(offset),
+                   {k: jnp.asarray(v) for k, v in state.items()}, train=True, groups=5)
+    got, gst = tfn(t(x), t(scale), t(offset), {k: t(v) for k, v in state.items()},
+                   train=True, groups=5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(gst[k].numpy(), np.asarray(rst[k]), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="does not split into 2 groups"):
         tfn(t(x), t(scale), t(offset), {k: t(v) for k, v in state.items()},
             train=True, groups=2)
 

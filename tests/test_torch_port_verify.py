@@ -231,9 +231,10 @@ def test_pairs_and_split_match_jax(trees, layout):
 
 
 def test_pairs_refuse_other_image_formats(trees, tmp_path):
-    """A tree holding .jpg, .bmp and .tif scans is paired and decoded as
-    the JAX package does (its PIL path); only a file of a kind not read yet
-    (CCITT TIFF) is refused, naming the ROADMAP item of the decoders."""
+    """A tree holding .jpg, .bmp and .tif scans (a CCITT Group 4 one among
+    them) is paired and decoded as the JAX package does (its PIL path);
+    only a file of a kind not read yet (Deflate TIFF) is refused, naming
+    the ROADMAP item of the decoders."""
     import shutil
 
     from siggan_tpu.data.native import loader as jnative
@@ -242,6 +243,8 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     for i, ext in enumerate((".jpg", ".bmp", ".tif")):
         scan = (rs.rand(50, 70, 3) * 255).astype(np.uint8)
         Image.fromarray(scan).save(tmp_path / "users" / "writer_010" / f"scan{i}{ext}")
+    Image.fromarray(scan[..., 0] > 128).save(tmp_path / "users" / "writer_010" / "fax.tif",
+                                             compression="group4")
     got = tpairs.load_user_signatures(tmp_path / "users")
     assert got == jpairs.load_user_signatures(tmp_path / "users")
     assert {p.suffix for p in got["writer_010"]} >= {".jpg", ".bmp", ".tif"}
@@ -254,8 +257,8 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     have = tpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
     np.testing.assert_array_equal(have.img1, want.img1)
     np.testing.assert_array_equal(have.img2, want.img2)
-    Image.fromarray(scan[..., 0] > 128).save(tmp_path / "users" / "writer_010" / "fax.tif",
-                                             compression="group4")
+    Image.fromarray(scan).save(tmp_path / "users" / "writer_010" / "deflate.tif",
+                               compression="tiff_adobe_deflate")
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
