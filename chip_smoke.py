@@ -115,10 +115,15 @@ Phases (any failure raises and the script exits non-zero):
      optimised tables; BMP 1/8/24/32-bit; TIFF raw, PackBits, LZW with
      predictor 2, 1-bit WhiteIsZero, RGB; CCITT Group 4, 2-D T.4 with EOL
      fill bits, Modified Huffman and a Group 4 page at 1200 x 500; PNG
-     palette, 16-bit, Adam7) bit-equal to its golden array (PIL's grey,
-     saved where the fixtures were written: this host has no PIL); time the
+     palette, 16-bit, Adam7; progressive JPEG grey, 4:2:0 with optimised
+     tables and restarts, and a 1200 x 500 page whose golden is
+     scan_420.jpg's; Deflate with predictor 2; JPEG-in-TIFF YCbCr 4:2:0 and
+     grey) bit-equal to its golden array (PIL's grey, saved where the
+     fixtures were written: this host has no PIL), a Deflate page written
+     here with zlib from scan_420.jpg's grey bit-equal to it, and a cut
+     progressive scan script refused (NotImplementedError); time the
      threaded batch decode per format at 1 and 8 threads (images/s, the
-     CCITT page apart); rewrite phase 11's 1320
+     CCITT, progressive and Deflate pages apart); rewrite phase 11's 1320
      scans as a mixed tree in CEDAR's shape (PNG, BMP and uncompressed TIFF
      written here with numpy, JPEG copied from the fixtures), run
      ``cli.preprocess`` on it (wall time, images/s, the share of it that
@@ -1834,21 +1839,57 @@ def bmp_grey(u8) -> bytes:
             + off.to_bytes(4, "little") + info + pal.tobytes() + rows.tobytes())
 
 
-def tiff_grey(u8) -> bytes:
-    """An uncompressed one-strip little-endian TIFF of uint8 (H, W) grey."""
+def tiff_grey(u8, rows_per_strip: int = 0, deflate: bool = False) -> bytes:
+    """A little-endian TIFF of uint8 (H, W) grey in strips of
+    ``rows_per_strip`` rows (0: one strip), uncompressed, or with
+    ``deflate`` Deflate-compressed (compression 8, zlib level 6) with
+    predictor 2, as libtiff writes a scan page."""
+    import zlib
+    import numpy as np
     h, w = u8.shape
-    entries = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1),
-               (273, 4, 8), (277, 3, 1), (278, 4, h), (279, 4, h * w)]
-    ifd = len(entries).to_bytes(2, "little") + b"".join(
-        tag.to_bytes(2, "little") + typ.to_bytes(2, "little") + (1).to_bytes(4, "little")
-        + val.to_bytes(4, "little") for tag, typ, val in entries) + bytes(4)
-    return b"II*\0" + (8 + h * w).to_bytes(4, "little") + u8.tobytes() + ifd
+    rps = rows_per_strip or h
+    data, offsets, counts = bytearray(b"II*\0\0\0\0\0"), [], []
+    for y in range(0, h, rps):
+        rows = u8[y:y + rps]
+        if deflate:
+            diff = rows.astype(np.int16)
+            diff[:, 1:] -= rows[:, :-1]
+            rows = zlib.compress(diff.astype(np.uint8).tobytes(), 6)
+        offsets.append(len(data))
+        data += bytes(rows)
+        counts.append(len(data) - offsets[-1])
+    data += b"\0" * (len(data) & 1)
+    n = len(offsets)
+    if n > 1:   # more than one LONG: the arrays go outside the IFD
+        at = len(data)
+        data += np.array(offsets + counts, "<u4").tobytes()
+        offsets, counts = [at], [at + 4 * n]
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, 8), (259, 3, 1, 8 if deflate else 1),
+               (262, 3, 1, 1), (273, 4, n, offsets[0]), (277, 3, 1, 1), (278, 4, 1, rps),
+               (279, 4, n, counts[0])] + ([(317, 3, 1, 2)] if deflate else [])
+    data[4:8] = len(data).to_bytes(4, "little")
+    data += len(entries).to_bytes(2, "little") + b"".join(
+        tag.to_bytes(2, "little") + typ.to_bytes(2, "little") + cnt.to_bytes(4, "little")
+        + val.to_bytes(4, "little") for tag, typ, cnt, val in entries) + bytes(4)
+    return bytes(data)
+
+
+def golden_arrays() -> dict:
+    """The decoder fixtures' golden arrays by name. The progressive page
+    holds scan_420.jpg's pixels at its quality and subsampling, so it reads
+    as that file does and ``golden.npz`` holds no array of its own for it."""
+    import numpy as np
+    with np.load(FIXTURES / "golden.npz") as f:
+        golden = dict(f)
+    return {**golden, "progressive_page.jpg": golden["scan_420.jpg"]}
 
 
 def decode_phase(card: str, work: str):
     """Phase 12: the host decoders: the fixtures bit-equal to their golden
-    arrays, the threaded batch decode's rate per format, ``cli.preprocess``
-    and a ``SignatureDataset`` on a mixed tree of 1320 scans."""
+    arrays, a Deflate page written here bit-equal to its source, a cut
+    progressive scan script refused, the threaded batch decode's rate per
+    format, ``cli.preprocess`` and a ``SignatureDataset`` on a mixed tree
+    of 1320 scans."""
     import shutil
     import numpy as np
     import torch
@@ -1864,10 +1905,9 @@ def decode_phase(card: str, work: str):
         subprocess.run([shutil.which("g++"), *build.HOST_FLAGS, str(native.SOURCE), "-o",
                         f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
         build_s = time.perf_counter() - t0
-    with np.load(FIXTURES / "golden.npz") as f:
-        golden = dict(f)
-    if len(golden) != 22:
-        raise AssertionError(f"expected 22 decoder fixtures, found {sorted(golden)}")
+    golden = golden_arrays()
+    if len(golden) != 28:
+        raise AssertionError(f"expected 28 decoder fixtures, found {sorted(golden)}")
     for name, want in golden.items():
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -1875,23 +1915,53 @@ def decode_phase(card: str, work: str):
     print(f"decode: g++ build of data/native/decode.cpp {build_s:.2f} s (timed apart from the "
           f"first use's build); all {len(golden)} "
           f"fixtures bit-equal to PIL's grey ({', '.join(sorted(golden))})", flush=True)
+    # The Deflate page: lossless, so its golden is the grey it was written from.
+    deflate_page = Path(work) / "deflate_page.tif"
+    deflate_page.write_bytes(tiff_grey(golden["scan_420.jpg"], 54, deflate=True))
+    if not np.array_equal(ds_mod.decode_gray(deflate_page), golden["scan_420.jpg"]):
+        raise AssertionError("the Deflate page is not bit-equal to the grey it was written from")
+    # PIL's progressive script cut after 6 of its 10 scans: libjpeg would
+    # smooth its unrefined coefficients, so the port must refuse it.
+    page = (FIXTURES / "progressive_page.jpg").read_bytes()
+    sos = [i for i in range(len(page) - 1) if page[i] == 0xFF and page[i + 1] == 0xDA]
+    try:
+        native.decode(page[:sos[6]] + b"\xff\xd9", "cut progressive page")
+        raise AssertionError("a cut progressive scan script was decoded, not refused")
+    except NotImplementedError as e:
+        refusal = str(e)
+    print(f"decode: a Deflate 1200x500 page written here from scan_420.jpg's grey "
+          f"({deflate_page.stat().st_size} B, predictor 2) bit-equal to it; the progressive page "
+          f"cut after 6 of its {len(sos)} scans refused: {refusal}", flush=True)
 
-    groups = {"JPEG 1200x500": [n for n in golden if n.startswith("scan_")],
-              "JPEG 210x80": [n for n in golden if n.endswith(".jpg")
-                              and not n.startswith("scan_")],
-              "BMP 210x80": [n for n in golden if n.endswith(".bmp")],
-              "TIFF 210x80": [n for n in golden if n.endswith(".tif")
-                              and not n.startswith("ccitt_")],
-              "CCITT TIFF 210x80 (G4, 2-D T.4, MH)": [n for n in golden
-                                                     if n.startswith("ccitt_")
-                                                     and not n.endswith("_page.tif")],
-              "CCITT G4 TIFF 1200x500": ["ccitt_g4_page.tif"]}
+    new = {"progressive_page.jpg", "progressive_grey.jpg", "progressive_420.jpg",
+           "deflate_pred2.tif", "jpeg_ycbcr.tif", "jpeg_grey.tif"}
+    old = [n for n in golden if n not in new]
+
+    def fixtures(*names):
+        return [FIXTURES / n for n in names]
+    groups = {"JPEG 1200x500": (fixtures(*[n for n in old if n.startswith("scan_")]), 20),
+              "JPEG 210x80": (fixtures(*[n for n in old if n.endswith(".jpg")
+                                         and not n.startswith("scan_")]), 100),
+              "BMP 210x80": (fixtures(*[n for n in old if n.endswith(".bmp")]), 100),
+              "TIFF 210x80": (fixtures(*[n for n in old if n.endswith(".tif")
+                                         and not n.startswith("ccitt_")]), 100),
+              "CCITT TIFF 210x80 (G4, 2-D T.4, MH)": (
+                  fixtures(*[n for n in old if n.startswith("ccitt_")
+                             and not n.endswith("_page.tif")]), 100),
+              "CCITT G4 TIFF 1200x500": (fixtures("ccitt_g4_page.tif"), 200),
+              "progressive JPEG 1200x500 (4:2:0, PIL's 10 scans)": (
+                  fixtures("progressive_page.jpg"), 60),
+              "progressive JPEG 210x80 (grey; 4:2:0 optimised, restarts)": (
+                  fixtures("progressive_grey.jpg", "progressive_420.jpg"), 100),
+              "Deflate TIFF 1200x500 (grey, predictor 2)": ([deflate_page], 100),
+              "Deflate TIFF 210x80 (RGB, predictor 2)": (fixtures("deflate_pred2.tif"), 100),
+              "JPEG-in-TIFF 210x80 (YCbCr 4:2:0 in 5 strips; grey)": (
+                  fixtures("jpeg_ycbcr.tif", "jpeg_grey.tif"), 100)}
     rates = {}
-    for fmt, names in groups.items():
-        reps = 20 if fmt.startswith("JPEG 1200") else (200 if "1200" in fmt else 100)
-        paths = [FIXTURES / n for n in names] * reps
+    for fmt, (files, reps) in groups.items():
+        paths = files * reps
         for threads in (1, 8):
-            native.decode_files(paths[:len(names)], threads)
+            native.decode_files(files, threads)
             t0 = time.perf_counter()
             _, status, _ = native.decode_files(paths, threads)
             dt = time.perf_counter() - t0

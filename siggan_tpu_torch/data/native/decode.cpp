@@ -1,26 +1,35 @@
 // Host image decoders of the port: JPEG, BMP and TIFF to 8-bit grey, as
 // PIL's Image.open(path).convert("L") gives them, with no imaging library.
 //
-// JPEG: sequential DCT, 8-bit, Huffman-coded (SOF0/SOF1), one or three
-// components, any whole-number sampling, restart intervals, the default
-// Huffman tables when a file carries none. The arithmetic is libjpeg's
-// (libjpeg-turbo, which PIL links): the "islow" integer IDCT of jidctint.c,
-// its range limit, "fancy" chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
-// with the neighbouring rows of the next and previous iMCU rows, box
-// replication for other factors), the YCbCr->RGB tables of jdcolor.c and
-// libjpeg's colour-space defaults (JFIF, then Adobe's transform, then the
-// component ids). Then PIL's L = (19595 R + 38470 G + 7471 B + 2^15) >> 16.
+// JPEG: 8-bit DCT, Huffman-coded, sequential (SOF0/SOF1) or progressive
+// (SOF2), one or three components, any whole-number sampling, restart
+// intervals, the default Huffman tables when a file carries none. The
+// arithmetic is libjpeg's (libjpeg-turbo, which PIL links): the "islow"
+// integer IDCT of jidctint.c, its range limit, "fancy" chroma upsampling
+// (jdsample.c: h2v1, h1v2, h2v2 with the neighbouring rows of the next and
+// previous iMCU rows, box replication for other factors), the YCbCr->RGB
+// tables of jdcolor.c and libjpeg's colour-space defaults (JFIF, then
+// Adobe's transform, then the component ids). Then PIL's L = (19595 R +
+// 38470 G + 7471 B + 2^15) >> 16. A progressive file's scans refine one
+// coefficient buffer per component as jdphuff.c does; the IDCT runs once,
+// after EOI. Where libjpeg would smooth the image between blocks (a scan
+// script that leaves some of the first ten coefficients unrefined:
+// jdcoefct.c, smoothing_ok) the file is refused, not decoded differently.
 //
 // BMP: as PIL's BmpImagePlugin reads it (1/4/8-bit palettes, 16-bit 555 and
 // 565, 24-bit, 32-bit, BI_BITFIELDS, RLE4/RLE8 with PIL's own RLE rules,
 // bottom-up and top-down rows).
 //
 // TIFF: the first page, strips or tiles, either byte order, no compression,
-// PackBits or LZW (predictor 1 or 2); WhiteIsZero/BlackIsZero at 1, 2, 4, 8
-// bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255), RGB/RGBA
-// at 8 and 16 bits (PIL keeps the high byte), grey+alpha, palettes; and
-// bilevel strips coded CCITT Modified Huffman, T.4 (1-D and 2-D, with or
-// without EOL fill bits) or T.6 (Group 4).
+// PackBits, LZW or Deflate (compression 8 and 32946, the port's own
+// inflate; predictor 1 or 2 with either); WhiteIsZero/BlackIsZero at 1, 2,
+// 4, 8 bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255),
+// RGB/RGBA at 8 and 16 bits (PIL keeps the high byte), grey+alpha,
+// palettes; bilevel strips coded CCITT Modified Huffman, T.4 (1-D and 2-D,
+// with or without EOL fill bits) or T.6 (Group 4); and JPEG-in-TIFF
+// (compression 7) in grey, RGB or chunky YCbCr, each strip or tile a JPEG
+// stream read with the JPEGTables tag's tables, as libtiff reads it for PIL
+// (YCbCr through libjpeg's own upsampling and colour conversion).
 //
 // PNG: the Python side (infer/export.py::decode_png) parses the chunks and
 // inflates the image data with zlib; sig_png_unfilter undoes the five row
@@ -160,13 +169,21 @@ void std_table(Huff& t, bool dc, int id) {
 
 // Entropy-coded data, MSB first, with FF00 unstuffing. At a marker it
 // supplies zero bits (as libjpeg does); running off the end of the file is
-// a truncated file.
-struct BitReader {
+// a truncated file. A progressive scan's reader (kStarve) also counts the
+// zero bits: `starved` says that a read took some of them (libjpeg's
+// insufficient_data, after which its progressive decoder leaves the
+// segment's remaining MCUs as they are). A sequential scan's reader does
+// not count them, so its per-symbol work is what it was before progressive
+// files were read.
+template <bool kStarve>
+struct Bits {
   const uint8_t* d;
   size_t n, pos;
   uint64_t acc = 0;
   int cnt = 0;
+  int pad = 0;  // the zero bits supplied at a marker, the last `pad` of `cnt`
   bool at_marker = false;
+  bool starved = false;
 
   void fill() {
     while (cnt <= 56) {
@@ -189,6 +206,7 @@ struct BitReader {
           ++pos;
         }
       }
+      if (kStarve && at_marker) pad += 8;
       acc |= (uint64_t)byte << (56 - cnt);
       cnt += 8;
     }
@@ -196,27 +214,33 @@ struct BitReader {
   inline void need(int k) {
     if (cnt < k) fill();
   }
+  inline void take(int k) {
+    acc <<= k;
+    cnt -= k;
+    if constexpr (kStarve) {
+      if (cnt < pad) {
+        starved = true;
+        pad = cnt;
+      }
+    }
+  }
   inline int get(int k) {  // 1 <= k <= 16
     need(k);
     int v = (int)(acc >> (64 - k));
-    acc <<= k;
-    cnt -= k;
+    take(k);
     return v;
   }
   inline int decode(const Huff& h) {
     need(16);
     uint16_t e = h.look[acc >> 55];
     if (e) {
-      int l = e >> 8;
-      acc <<= l;
-      cnt -= l;
+      take(e >> 8);
       return e & 0xFF;
     }
     for (int l = 10; l <= 16; ++l) {
       int code = (int)(acc >> (64 - l));
       if (code <= h.maxcode[l]) {
-        acc <<= l;
-        cnt -= l;
+        take(l);
         return h.vals[(h.valoffset[l] + code) & 0xFF];
       }
     }
@@ -225,9 +249,13 @@ struct BitReader {
   void reset() {
     acc = 0;
     cnt = 0;
+    pad = 0;
     at_marker = false;
+    starved = false;
   }
 };
+using BitReader = Bits<false>;        // sequential scans
+using ProgressiveReader = Bits<true>;  // progressive scans
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
@@ -356,7 +384,10 @@ struct Component {
   int td = 0, ta = 0;  // the current scan's tables
   int dw = 0, dh = 0;  // downsampled size (libjpeg's downsampled_width/height)
   int pw = 0, ph = 0;  // plane size, whole MCUs
+  int16_t q[64] = {0};  // the quantization table, latched at the first scan
+  bool latched = false;
   std::vector<uint8_t> plane;
+  std::vector<int16_t> coef;  // progressive: 64 a block over the plane's blocks
   int dc_pred = 0;
 };
 
@@ -413,16 +444,39 @@ std::vector<uint8_t> upsample(const Component& c, int fx, int fy, int W, int H) 
   return out;
 }
 
+// How a frame's three components become RGB: libjpeg's defaults from the
+// markers, YCbCr whatever they say (libtiff's JPEGCOLORMODE_RGB for a
+// YCbCr TIFF), or as they are (libtiff's JCS_UNKNOWN for an RGB TIFF).
+enum ColorMode { kColorFromMarkers, kColorYcc, kColorAsIs };
+
 struct Jpeg {
   const uint8_t* d;
   size_t n, pos = 2;
+  // Tables outlive a stream: a TIFF's JPEGTables and its strips share them.
   int16_t qt[4][64];
   bool qdef[4] = {false, false, false, false};
   Huff dc[4], ac[4];
   int W = 0, H = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Component comp[3];
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, jfif = false, adobe = false;
   int adobe_transform = -1, restart = 0, scans = 0;
+  // libjpeg's coef_bits: per component and zig-zag index, -1 before any
+  // scan codes the coefficient, else the Al of the last scan that did.
+  int coef_bits[3][64];
+
+  // A new stream (SOI at data[0]) with the tables read so far.
+  void begin(const uint8_t* data, size_t len) {
+    if (len < 2 || data[0] != 0xFF || data[1] != 0xD8) corrupt("not a JPEG stream");
+    d = data;
+    n = len;
+    pos = 2;
+    W = H = ncomp = mcux = mcuy = 0;
+    hmax = vmax = 1;
+    for (Component& c : comp) c = Component();
+    frame = progressive = jfif = adobe = false;
+    adobe_transform = -1;
+    restart = scans = 0;
+  }
 
   int u8() {
     if (pos >= n) corrupt("JPEG file ends early");
@@ -444,7 +498,7 @@ struct Jpeg {
     }
   }
 
-  void sof() {
+  void sof(bool prog) {
     if (frame) corrupt("JPEG has two frames");
     int len = u16();
     size_t end = pos + len - 2;
@@ -472,13 +526,18 @@ struct Jpeg {
     }
     mcux = (W + 8 * hmax - 1) / (8 * hmax);
     mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+    progressive = prog;
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.dw = (int)(((int64_t)W * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)H * c.v + vmax - 1) / vmax);
       c.pw = mcux * c.h * 8;
       c.ph = mcuy * c.v * 8;
-      c.plane.assign((size_t)c.pw * c.ph, 0);
+      if (prog)
+        c.coef.assign((size_t)c.pw * c.ph, 0);  // 64 a block, pw/8 x ph/8 blocks
+      else
+        c.plane.assign((size_t)c.pw * c.ph, 0);
+      std::fill(coef_bits[i], coef_bits[i] + 64, -1);
     }
     frame = true;
     pos = end;
@@ -549,7 +608,117 @@ struct Jpeg {
         k += 15;
       }
     }
-    idct_islow(coef, qt[c.tq], &c.plane[(size_t)brow * 8 * c.pw + (size_t)bcol * 8], c.pw);
+    idct_islow(coef, c.q, &c.plane[(size_t)brow * 8 * c.pw + (size_t)bcol * 8], c.pw);
+  }
+
+  // jdphuff.c, one block of each kind of progressive scan; `eobrun` is the
+  // scan's run of blocks left with no coefficient in its band.
+  static void dc_first(ProgressiveReader& br, const Huff& t, Component& c, int16_t* b, int al) {
+    int s = br.decode(t);
+    if (s) c.dc_pred += extend(br.get(s), s);
+    b[0] = (int16_t)(uint16_t)((unsigned)c.dc_pred << al);
+  }
+
+  static void ac_first(ProgressiveReader& br, const Huff& t, int16_t* b, int ss, int se, int al,
+                       int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(t), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        b[kNatural[k]] = (int16_t)(uint16_t)((unsigned)extend(br.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        return;
+      }
+    }
+  }
+
+  // Correction bits of the coefficients already nonzero, new ones of +-1 at
+  // Al, zero runs that count only zero-history coefficients.
+  static void ac_refine(ProgressiveReader& br, const Huff& t, int16_t* b, int ss, int se, int al,
+                        int& eobrun) {
+    const int p1 = 1 << al, m1 = (int)((unsigned)-1 << al);
+    auto refine = [&](int16_t* c) {
+      if (br.get(1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = br.decode(t), r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // libjpeg takes any size as 1
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        do {
+          int16_t* c = b + kNatural[k];
+          if (*c != 0) {
+            refine(c);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) b[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k)
+        if (b[kNatural[k]] != 0) refine(b + kNatural[k]);
+      --eobrun;
+    }
+  }
+
+  // Calls f(component, block row, block column) for each block of each MCU
+  // of a scan, reading the restart markers between intervals; before each
+  // MCU, mcu_start(whether a restart came just before it).
+  template <class Reader, class Start, class F>
+  void each_block(Component** sc, int ns, Reader& br, Start mcu_start, F f) {
+    int rows, cols;
+    if (ns == 1) {  // a non-interleaved scan covers the component's own blocks
+      cols = (sc[0]->dw + 7) / 8;
+      rows = (sc[0]->dh + 7) / 8;
+    } else {
+      cols = mcux;
+      rows = mcuy;
+    }
+    int64_t done = 0;
+    int rst = 0;
+    for (int my = 0; my < rows; ++my) {
+      for (int mx = 0; mx < cols; ++mx) {
+        if (restart && done > 0 && done % restart == 0) {
+          // Expect RSTn, then restart the bit stream and the predictors.
+          br.reset();
+          pos = br.pos;
+          int m = next_marker();
+          if (m != 0xD0 + rst) corrupt("JPEG restart marker missing");
+          rst = (rst + 1) & 7;
+          br.pos = pos;
+          mcu_start(true);
+        } else {
+          mcu_start(false);
+        }
+        if (ns == 1) {
+          f(*sc[0], my, mx);
+        } else {
+          for (int i = 0; i < ns; ++i)
+            for (int v = 0; v < sc[i]->v; ++v)
+              for (int h = 0; h < sc[i]->h; ++h) f(*sc[i], my * sc[i]->v + v, mx * sc[i]->h + h);
+        }
+        ++done;
+      }
+    }
+    pos = br.pos;
   }
 
   void sos() {
@@ -567,72 +736,133 @@ struct Jpeg {
       c->td = t >> 4;
       c->ta = t & 15;
       if (c->td > 3 || c->ta > 3) corrupt("bad JPEG scan header");
-      if (!dc[c->td].defined) {
-        if (c->td > 1) corrupt("JPEG scan uses an undefined Huffman table");
-        std_table(dc[c->td], true, c->td);
-      }
-      if (!ac[c->ta].defined) {
-        if (c->ta > 1) corrupt("JPEG scan uses an undefined Huffman table");
-        std_table(ac[c->ta], false, c->ta);
-      }
-      if (!qdef[c->tq]) corrupt("JPEG component uses an undefined quantization table");
-      c->dc_pred = 0;
       sc[i] = c;
     }
-    int ss = u8(), se = u8(), ahl = u8();
-    if (ss != 0 || se != 63 || ahl != 0) corrupt("bad spectral selection in a sequential JPEG");
+    int ss = u8(), se = u8(), ahl = u8(), ah = ahl >> 4, al = ahl & 15;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ahl != 0) corrupt("bad spectral selection in a sequential JPEG");
+    } else {  // jdphuff.c start_pass_phuff_decoder
+      bool bad = ss == 0 ? se != 0 : ss > se || se > 63 || ns != 1;
+      if ((ah != 0 && al != ah - 1) || al > 13 || bad) corrupt("bad progressive JPEG scan");
+    }
+    // Only the tables the scan uses: a DC refinement uses none, an AC scan
+    // only its AC table. libjpeg installs the default tables in slots 0 and
+    // 1 for a sequential scan only; a progressive scan needs its own.
+    const bool use_dc = !progressive || (ss == 0 && ah == 0), use_ac = !progressive || ss != 0;
+    for (int i = 0; i < ns; ++i) {
+      Component* c = sc[i];
+      if (use_dc && !dc[c->td].defined) {
+        if (c->td > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
+        std_table(dc[c->td], true, c->td);
+      }
+      if (use_ac && !ac[c->ta].defined) {
+        if (c->ta > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
+        std_table(ac[c->ta], false, c->ta);
+      }
+      if (!c->latched) {  // libjpeg latches a component's table at its first scan
+        if (!qdef[c->tq]) corrupt("JPEG component uses an undefined quantization table");
+        memcpy(c->q, qt[c->tq], sizeof c->q);
+        c->latched = true;
+      }
+      c->dc_pred = 0;
+    }
     ++scans;
 
-    BitReader br{d, n, pos};
-    int rows, cols;
-    if (ns == 1) {
-      cols = (sc[0]->dw + 7) / 8;
-      rows = (sc[0]->dh + 7) / 8;
-    } else {
-      cols = mcux;
-      rows = mcuy;
-    }
-    int64_t done = 0;
-    int rst = 0;
-    for (int my = 0; my < rows; ++my) {
-      for (int mx = 0; mx < cols; ++mx) {
-        if (restart && done > 0 && done % restart == 0) {
-          // Expect RSTn, then restart the bit stream and the DC predictors.
-          br.reset();
-          pos = br.pos;
-          int m = next_marker();
-          if (m != 0xD0 + rst) corrupt("JPEG restart marker missing");
-          rst = (rst + 1) & 7;
-          br.pos = pos;
+    if (!progressive) {
+      BitReader br{d, n, pos};
+      each_block(sc, ns, br, [&](bool rst) {
+        if (rst)
           for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
-        }
-        if (ns == 1) {
-          block(br, *sc[0], my, mx);
-        } else {
-          for (int i = 0; i < ns; ++i)
-            for (int v = 0; v < sc[i]->v; ++v)
-              for (int h = 0; h < sc[i]->h; ++h)
-                block(br, *sc[i], my * sc[i]->v + v, mx * sc[i]->h + h);
-        }
-        ++done;
-      }
+      }, [&](Component& c, int r, int col) { block(br, c, r, col); });
+      return;
     }
-    pos = br.pos;
+    for (int i = 0; i < ns; ++i) {
+      int* cb = coef_bits[sc[i] - comp];
+      for (int k = ss; k <= se; ++k) cb[k] = al;
+    }
+    ProgressiveReader br{d, n, pos};
+    int eobrun = 0;
+    bool skip = false;  // out of data in this restart interval: leave the rest
+    auto start = [&](bool rst) {
+      if (rst) {
+        for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+        eobrun = 0;
+      }
+      skip = br.starved;
+    };
+    auto at = [](Component& c, int r, int col) {
+      return &c.coef[((size_t)r * (c.pw / 8) + col) * 64];
+    };
+    if (ss == 0 && ah == 0) {
+      each_block(sc, ns, br, start, [&](Component& c, int r, int col) {
+        if (!skip) dc_first(br, dc[c.td], c, at(c, r, col), al);
+      });
+    } else if (ss == 0) {
+      const int16_t p1 = (int16_t)(1 << al);
+      each_block(sc, ns, br, start, [&](Component& c, int r, int col) {
+        if (!skip && br.get(1)) *at(c, r, col) |= p1;
+      });
+    } else {
+      const Huff& t = ac[sc[0]->ta];
+      each_block(sc, ns, br, start, [&](Component& c, int r, int col) {
+        if (skip) return;
+        if (ah == 0)
+          ac_first(br, t, at(c, r, col), ss, se, al, eobrun);
+        else
+          ac_refine(br, t, at(c, r, col), ss, se, al, eobrun);
+      });
+    }
   }
 
-  Gray run() {
+  // jdcoefct.c smoothing_ok (libjpeg-turbo 3, SAVED_COEFS = 10): whether
+  // libjpeg would smooth this progressive image between blocks.
+  bool would_smooth() const {
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched) return false;
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})  // DC and Q01 .. Q30
+        if (c.q[pos] == 0) return false;
+      if (coef_bits[i][0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful = useful || coef_bits[i][k] != 0;
+    }
+    return useful;
+  }
+
+  // The progressive coefficients -> planes, once, after the last scan: the
+  // blocks that hold the component's samples (the rest are never read).
+  void idct_planes() {
+    if (would_smooth())
+      unsupported("progressive JPEG with unrefined coefficients (libjpeg's block smoothing)");
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.plane.assign((size_t)c.pw * c.ph, 0);
+      const int bw = c.pw / 8;
+      for (int r = 0; r < (c.dh + 7) / 8; ++r)
+        for (int col = 0; col < (c.dw + 7) / 8; ++col)
+          idct_islow(&c.coef[((size_t)r * bw + col) * 64], c.q,
+                     &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+      std::vector<int16_t>().swap(c.coef);
+    }
+  }
+
+  // Markers up to EOI; with `tables_only`, a stream of tables (a TIFF's
+  // JPEGTables) that must hold no frame.
+  void markers(bool tables_only) {
     for (;;) {
+      if (tables_only && pos >= n) break;  // libtiff supplies a missing EOI here
       int m = next_marker();
       if (m == 0xD9) break;  // EOI
-      if (m == 0xC0 || m == 0xC1) {
-        sof();
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        unsupported("progressive JPEG");
+      if (tables_only && (m == 0xDA || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
+                                        m != 0xCC)))
+        corrupt("JPEG tables stream holds image data");
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        sof(m == 0xC2);
       } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
         unsupported("lossless JPEG");
-      } else if (m == 0xC5) {
+      } else if (m == 0xC5 || m == 0xC6 || m == 0xCE) {
         unsupported("hierarchical JPEG");
-      } else if (m == 0xC9 || m == 0xCD || m == 0xCC) {
+      } else if (m == 0xC9 || m == 0xCA || m == 0xCD || m == 0xCC) {
         unsupported("arithmetic-coded JPEG");
       } else if (m == 0xC4) {
         dht();
@@ -655,7 +885,12 @@ struct Jpeg {
         corrupt("unknown JPEG marker");
       }
     }
+  }
+
+  Gray run(ColorMode mode = kColorFromMarkers) {
+    markers(false);
     if (!frame || !scans) corrupt("JPEG has no image data");
+    if (progressive) idct_planes();
     Gray g;
     g.w = W;
     g.h = H;
@@ -671,7 +906,9 @@ struct Jpeg {
       full[i] = upsample(c, hmax / c.h, vmax / c.v, W, H);
     }
     bool rgb;
-    if (jfif) {
+    if (mode != kColorFromMarkers) {
+      rgb = mode == kColorAsIs;
+    } else if (jfif) {
       rgb = false;
     } else if (adobe) {
       rgb = adobe_transform == 0;
@@ -707,8 +944,7 @@ struct Jpeg {
 
 Gray decode_jpeg(const uint8_t* d, size_t n) {
   Jpeg j;
-  j.d = d;
-  j.n = n;
+  j.begin(d, n);
   return j.run();
 }
 
@@ -979,6 +1215,14 @@ struct Tiff {
     }
     return out;
   }
+  // An IFD entry's data as bytes: (file offset, byte count).
+  std::pair<size_t, size_t> bytes(size_t e) const {
+    uint32_t type = r16(e + 2), count = r32(e + 4);
+    if ((type != 1 && type != 7) || count > (1u << 28)) corrupt("bad TIFF tag");
+    size_t at = count <= 4 ? e + 8 : r32(e + 8);
+    if (at + count > n) corrupt("TIFF tag data outside the file");
+    return {at, count};
+  }
 };
 
 std::vector<uint8_t> packbits(const uint8_t* s, size_t n, size_t want) {
@@ -1066,6 +1310,211 @@ std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
   }
   if (out.size() < want) corrupt("TIFF LZW data ends early");
   out.resize(want);
+  return out;
+}
+
+// ---------------------------------------------------------------- inflate
+// A zlib stream (RFC 1950 header, RFC 1951 stored, fixed- and dynamic-
+// Huffman blocks) inflated into `want` bytes, as libtiff's ZIP codec asks
+// zlib for a strip: it stops once the strip is whole (the rest, Adler-32
+// among it, is not read), and a stream that ends short is corrupt.
+
+// Canonical Huffman codes of up to 15 bits, read LSB first: a 10-bit table
+// of (length << 9 | symbol), 0 for a longer code, then puff's count walk.
+struct InflateCodes {
+  static constexpr int kFast = 10;
+  uint16_t fast[1 << kFast];
+  uint16_t count[16];
+  uint16_t symbol[288];
+
+  // zlib's rules: an over-subscribed set is an error, and so is an
+  // incomplete one unless it is a set of `lengths` (literal/length or
+  // distance codes) with a single code of length 1, or `allow_empty`
+  // distances with no code at all.
+  void build(const uint8_t* lens, int n, bool lengths, bool allow_empty) {
+    std::fill(count, count + 16, 0);
+    for (int i = 0; i < n; ++i) ++count[lens[i]];
+    int left = 1, codes = n - count[0];
+    for (int l = 1; l <= 15; ++l) {
+      left = (left << 1) - count[l];
+      if (left < 0) corrupt("bad Deflate code lengths (over-subscribed)");
+    }
+    if (left > 0 && !(lengths && codes == 1 && count[1] == 1) && !(codes == 0 && allow_empty))
+      corrupt("bad Deflate code lengths (incomplete)");
+    uint16_t offs[16];
+    offs[1] = 0;
+    for (int l = 1; l < 15; ++l) offs[l + 1] = offs[l] + count[l];
+    for (int i = 0; i < n; ++i)
+      if (lens[i]) symbol[offs[lens[i]]++] = (uint16_t)i;
+    std::fill(fast, fast + (1 << kFast), 0);
+    int code = 0, k = 0;
+    for (int l = 1; l <= kFast; ++l) {
+      for (int i = 0; i < count[l]; ++i, ++code, ++k) {
+        int rev = 0;  // the code's bits as the stream holds them, first bit lowest
+        for (int b = 0; b < l; ++b) rev |= ((code >> b) & 1) << (l - 1 - b);
+        for (int j = rev; j < (1 << kFast); j += 1 << l) fast[j] = (uint16_t)((l << 9) | symbol[k]);
+      }
+      code <<= 1;
+    }
+  }
+};
+
+struct InflateBits {
+  const uint8_t* s;
+  size_t n, pos = 0;
+  uint64_t buf = 0;
+  int cnt = 0;
+
+  inline void refill() {
+    while (cnt <= 56 && pos < n) {
+      buf |= (uint64_t)s[pos++] << cnt;
+      cnt += 8;
+    }
+  }
+  inline void drop(int k) {
+    if (k > cnt) corrupt("Deflate data ends early");
+    buf >>= k;
+    cnt -= k;
+  }
+  inline int get(int k) {  // k <= 32
+    if (cnt < k) refill();
+    int v = (int)(buf & ((1ull << k) - 1));
+    drop(k);
+    return v;
+  }
+  inline int decode(const InflateCodes& h) {
+    if (cnt < 15) refill();
+    uint16_t e = h.fast[buf & ((1u << InflateCodes::kFast) - 1)];
+    if (e) {
+      drop(e >> 9);
+      return e & 511;
+    }
+    int code = 0, first = 0, index = 0;
+    for (int l = 1; l <= 15; ++l) {
+      code |= (int)((buf >> (l - 1)) & 1);
+      int c = h.count[l];
+      if (code - c < first) {
+        drop(l);
+        return h.symbol[index + (code - first)];
+      }
+      index += c;
+      first = (first + c) << 1;
+      code <<= 1;
+    }
+    corrupt("bad Deflate code");
+  }
+};
+
+std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
+  static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
+                                        31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+  static const uint8_t kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                                        2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+  static const uint16_t kDistBase[30] = {1,    2,    3,    4,    5,    7,     9,     13,    17,  25,
+                                         33,   49,   65,   97,   129,  193,   257,   385,   513, 769,
+                                         1025, 1537, 2049, 3073, 4097, 6145,  8193, 12289, 16385, 24577};
+  static const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5,  6,
+                                         6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+  static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+  if (n < 2) corrupt("Deflate data ends early");
+  if ((s[0] & 15) != 8 || (s[0] >> 4) > 7 || ((s[0] << 8) | s[1]) % 31 != 0)
+    corrupt("bad zlib header");
+  if (s[1] & 0x20) corrupt("zlib stream needs a preset dictionary");
+  std::vector<uint8_t> out(want);
+  size_t at = 0;
+  InflateBits b{s + 2, n - 2};
+  InflateCodes lit, dist;
+  bool last = false;
+  while (at < want) {
+    if (last) corrupt("Deflate data ends early");
+    last = b.get(1);
+    const int type = b.get(2);
+    if (type == 0) {  // stored: LEN, NLEN from the next byte boundary
+      b.drop(b.cnt & 7);
+      const int len = b.get(16), nlen = b.get(16);
+      if (len != (~nlen & 0xFFFF)) corrupt("bad Deflate stored block length");
+      size_t left = len;
+      while (left > 0 && at < want) {
+        if (b.cnt > 0) {  // whole bytes still in the bit buffer
+          out[at++] = (uint8_t)b.get(8);
+          --left;
+          continue;
+        }
+        const size_t k = std::min({left, want - at, b.n - b.pos});
+        if (k == 0) corrupt("Deflate data ends early");
+        memcpy(&out[at], b.s + b.pos, k);
+        b.pos += k;
+        at += k;
+        left -= k;
+      }
+      continue;
+    }
+    if (type == 3) corrupt("bad Deflate block type");
+    uint8_t lens[320];
+    int nlit = 288, ndist = 32;
+    if (type == 1) {
+      std::fill(lens, lens + 144, 8);
+      std::fill(lens + 144, lens + 256, 9);
+      std::fill(lens + 256, lens + 280, 7);
+      std::fill(lens + 280, lens + 288, 8);
+      std::fill(lens + 288, lens + 320, 5);
+    } else {
+      nlit = b.get(5) + 257;
+      ndist = b.get(5) + 1;
+      const int ncode = b.get(4) + 4;
+      if (nlit > 286 || ndist > 30) corrupt("bad Deflate code counts");
+      uint8_t cl[19] = {0};
+      for (int i = 0; i < ncode; ++i) cl[kOrder[i]] = (uint8_t)b.get(3);
+      InflateCodes clh;
+      clh.build(cl, 19, false, false);
+      for (int i = 0; i < nlit + ndist;) {
+        int sym = b.decode(clh);
+        if (sym < 16) {
+          lens[i++] = (uint8_t)sym;
+          continue;
+        }
+        int rep, v = 0;
+        if (sym == 16) {
+          if (i == 0) corrupt("bad Deflate code lengths (repeat with no previous)");
+          v = lens[i - 1];
+          rep = 3 + b.get(2);
+        } else {
+          rep = sym == 17 ? 3 + b.get(3) : 11 + b.get(7);
+        }
+        if (i + rep > nlit + ndist) corrupt("bad Deflate code lengths (too many)");
+        std::fill(lens + i, lens + i + rep, (uint8_t)v);
+        i += rep;
+      }
+      if (lens[256] == 0) corrupt("Deflate block has no end-of-block code");
+    }
+    lit.build(lens, nlit, true, false);
+    dist.build(lens + nlit, ndist, true, true);
+    for (;;) {
+      int sym = b.decode(lit);
+      if (sym < 256) {
+        out[at++] = (uint8_t)sym;
+        if (at == want) break;
+        continue;
+      }
+      if (sym == 256) break;
+      sym -= 257;
+      if (sym >= 29) corrupt("bad Deflate length code");
+      size_t len = kLenBase[sym] + b.get(kLenExtra[sym]);
+      int ds = b.decode(dist);
+      if (ds >= 30) corrupt("bad Deflate distance code");
+      size_t back = kDistBase[ds] + b.get(kDistExtra[ds]);
+      if (back > at) corrupt("Deflate distance too far back");
+      len = std::min(len, want - at);
+      uint8_t* o = &out[at];
+      if (back >= len) {
+        memcpy(o, o - back, len);
+      } else {
+        for (size_t i = 0; i < len; ++i) o[i] = o[i - back];
+      }
+      at += len;
+      if (at == want) break;
+    }
+  }
   return out;
 }
 
@@ -1312,6 +1761,68 @@ const uint8_t (*bilevel_lut(bool inverted))[8] {
   return reinterpret_cast<const uint8_t(*)[8]>(tables.data() + (inverted ? 256 * 8 : 0));
 }
 
+struct Chunks {  // a TIFF's strips or tiles
+  const std::vector<uint32_t>& offsets;
+  const std::vector<uint32_t>& counts;
+  uint32_t cw, ch;  // a chunk's size
+  bool tiles;
+};
+
+// JPEG-in-TIFF: each strip or tile a JPEG stream, read by one decoder, so
+// that the tables of JPEGTables (the entry `tables`, if not 0) and any a
+// stream defines carry over to the next stream, as in libjpeg. libtiff's
+// checks: a stream holds the file's samples per pixel, its luma sampling is
+// the YCbCr subsampling (that of the first stream, as libtiff's tag fix-up
+// reads it; 1 x 1 for grey and RGB) and its chroma 1 x 1, and its size is
+// the strip's or tile's (a last strip may be taller, and is cropped). PIL
+// asks libtiff for RGB (JPEGCOLORMODE_RGB), so libjpeg upsamples and
+// converts YCbCr within each stream; an RGB file's components are taken as
+// they are. Not inlined, so that the JPEG decoder stays out of
+// decode_tiff's frame, and six arguments, all in registers: a call that
+// passes some on the stack makes GCC give decode_tiff a frame pointer, one
+// register fewer for its sample loops.
+[[gnu::noinline]] void jpeg_tiff(const Tiff& t, size_t tables, uint32_t photometric,
+                                 uint32_t spp, const Chunks& c, Gray& g) {
+  const uint8_t* d = t.d;
+  const size_t n = t.n;
+  const uint32_t cw = c.cw, ch = c.ch;
+  Jpeg jp;
+  if (tables) {
+    auto [at, len] = t.bytes(tables);
+    jp.begin(d + at, len);
+    jp.markers(true);
+  }
+  const uint32_t W = g.w, H = g.h, across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
+  int sub_h = 0, sub_v = 0;
+  for (uint32_t ty = 0; ty < down; ++ty) {
+    for (uint32_t tx = 0; tx < across; ++tx) {
+      const size_t idx = (size_t)ty * across + tx, off = c.offsets[idx], cnt = c.counts[idx];
+      const uint32_t y0 = ty * ch, x0 = tx * cw, rows = c.tiles ? ch : std::min(ch, H - y0);
+      if (off > n || cnt > n - off) corrupt("TIFF strip outside the file");
+      jp.begin(d + off, cnt);
+      Gray px = jp.run(photometric == 6 ? kColorYcc : kColorAsIs);
+      if ((uint32_t)jp.ncomp != spp) corrupt("JPEG-in-TIFF stream with the wrong component count");
+      if (photometric == 6 && sub_h == 0) {
+        sub_h = jp.comp[0].h;
+        sub_v = jp.comp[0].v;
+        for (int f : {sub_h, sub_v})
+          if (f != 1 && f != 2 && f != 4)
+            unsupported("JPEG-in-TIFF with YCbCr subsampling " + std::to_string(f));
+      }
+      const int want_h = photometric == 6 ? sub_h : 1, want_v = photometric == 6 ? sub_v : 1;
+      for (int i = 0; i < jp.ncomp; ++i)
+        if (jp.comp[i].h != (i ? 1 : want_h) || jp.comp[i].v != (i ? 1 : want_v))
+          corrupt("JPEG-in-TIFF stream with improper sampling factors");
+      const bool exact = c.tiles || y0 + rows < H;
+      if ((uint32_t)px.w != cw || (uint32_t)px.h < rows || (exact && (uint32_t)px.h != rows))
+        corrupt("JPEG-in-TIFF stream of the wrong size");
+      const uint32_t nr = std::min(rows, H - y0), nc = std::min(cw, W - x0);
+      for (uint32_t r = 0; r < nr; ++r)
+        memcpy(&g.px[(size_t)(y0 + r) * W + x0], &px.px[(size_t)r * px.w], nc);
+    }
+  }
+}
+
 Gray decode_tiff(const uint8_t* d, size_t n) {
   Tiff t{d, n};
   if (n < 8) corrupt("TIFF file ends early");
@@ -1323,6 +1834,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
            planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
   std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1};
   bool strips = false, tiles = false;
+  size_t jpeg_tables = 0;  // the JPEGTables entry, if any
   for (uint32_t i = 0; i < count; ++i) {
     size_t e = ifd + 2 + 12 * (size_t)i;
     uint32_t tag = t.r16(e);
@@ -1348,16 +1860,18 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       case 325: counts = t.values(e); break;
       case 338: extra = t.values(e); break;
       case 339: fmt = t.values(e); break;
+      case 347: jpeg_tables = e; break;
       default: break;
     }
   }
   check_size(W, H);
   const bool fax = compression == 2 || compression == 3 || compression == 4;
-  if (compression == 6 || compression == 7) unsupported("JPEG-in-TIFF");
-  if (compression == 8 || compression == 32946) unsupported("Deflate-compressed TIFF");
-  if (compression != 1 && compression != 5 && compression != 32773 && !fax)
+  const bool jpeg = compression == 7, zip = compression == 8 || compression == 32946;
+  if (compression == 6) unsupported("old-style JPEG-in-TIFF (compression 6)");
+  if (compression != 1 && compression != 5 && compression != 32773 && !fax && !jpeg && !zip)
     unsupported("TIFF compression " + std::to_string(compression));
-  if (photometric == 5 || photometric == 6 || photometric == 8)
+  // YCbCr is read only as libtiff's JPEG codec converts it, in one plane.
+  if (photometric == 5 || photometric == 8 || (photometric == 6 && !(jpeg && planar == 1)))
     unsupported(photometric == 5 ? "CMYK TIFF" : photometric == 6 ? "YCbCr TIFF" : "CIELab TIFF");
   if (fill != 1) unsupported("TIFF with FillOrder 2");
   if (spp > 1 && planar == 2) unsupported("planar TIFF");
@@ -1379,16 +1893,24 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   bool signed8 = fmt[0] == 2 && bits == 8 && spp == 1 && photometric == 1;
   for (uint32_t f : fmt)
     if (f != 1 && !signed8) unsupported("TIFF sample format " + std::to_string(f));
-  // libtiff applies a predictor only inside the LZW (and Deflate) codec.
-  if (compression == 5 && predictor != 1 && predictor != 2)
+  // libtiff applies a predictor only inside the LZW and Deflate codecs.
+  const bool predicted = compression == 5 || zip;
+  if (predicted && predictor == 3) unsupported("TIFF floating-point predictor (3)");
+  if (predicted && predictor != 1 && predictor != 2)
     unsupported("TIFF predictor " + std::to_string(predictor));
-  const bool pred2 = predictor == 2 && compression == 5;
+  const bool pred2 = predictor == 2 && predicted;
   if (pred2 && bits != 8 && bits != 16) unsupported("TIFF predictor 2 at this sample size");
+  if (jpeg && bits != 8) unsupported(std::to_string(bits) + "-bit JPEG-in-TIFF");
+  if (jpeg && !(photometric == 1 ? spp == 1 : (photometric == 2 || photometric == 6) && spp == 3))
+    unsupported("JPEG-in-TIFF of photometric " + std::to_string(photometric) + " with " +
+                std::to_string(spp) + " samples");
 
   // What the samples mean, in PIL's OPEN_INFO terms.
-  enum { kGrey, kGreyInv, kGrey16, kRgb, kPal, kGreyAlpha } kind;
+  enum { kGrey, kGreyInv, kGrey16, kRgb, kPal, kGreyAlpha } kind = kGrey;
   uint32_t nextra = spp - (photometric == 2 ? 3 : 1);
-  if (photometric <= 1 && spp == 1) {
+  if (jpeg) {
+    // libjpeg's output, converted to grey per strip or tile below.
+  } else if (photometric <= 1 && spp == 1) {
     if (bits == 16) {
       if (photometric == 0 && t.be) unsupported("big-endian 16-bit WhiteIsZero TIFF");
       kind = kGrey16;
@@ -1437,6 +1959,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   g.w = (int)W;
   g.h = (int)H;
   g.px.resize((size_t)W * H);
+  if (jpeg) {
+    jpeg_tiff(t, jpeg_tables, photometric, spp, Chunks{offsets, counts, cw, ch, tiles}, g);
+    return g;
+  }
   // Bilevel grey (CCITT scans among them) goes straight to 0 / 255; every
   // other kind unpacks to one sample array per pixel (spp values each,
   // 16-bit kept whole).
@@ -1456,8 +1982,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       } else {
         size_t cnt = counts[idx];
         if (off > n || cnt > n - off) corrupt("TIFF strip outside the file");
-        buf = fax              ? ccitt(d + off, cnt, cw, rows, compression, t4opts)
+        buf = fax                ? ccitt(d + off, cnt, cw, rows, compression, t4opts)
               : compression == 5 ? lzw(d + off, cnt, want)
+              : zip              ? inflate_zlib(d + off, cnt, want)
                                  : packbits(d + off, cnt, want);
       }
       if (pred2) {

@@ -28,7 +28,8 @@ from siggan_tpu.data import dataset as jdataset
 from siggan_tpu.data.native import loader as jnative
 from siggan_tpu_torch.data import dataset as tdataset
 from siggan_tpu_torch.data.native import loader as tnative
-from test_torch_port_decode import SETTINGS, assert_port_reads_as_pil, pixels
+from test_torch_port_decode import (SETTINGS, assert_port_reads_as_pil, layout_tags, pixels,
+                                    tiff_file)
 
 # Compression name and T4Options of each coding PIL writes.
 CODINGS = {"mh": ("tiff_ccitt", None), "t4_1d": ("group3", None),
@@ -95,33 +96,9 @@ def strips(data: bytes):
 def wrap(w: int, h: int, blobs, compression: int, extra=(), tile=None) -> bytes:
     """A little-endian bilevel TIFF of coded ``blobs``: strips of all rows,
     or tiles of ``tile`` = (tw, th); ``extra`` more (tag, type, value)."""
-    data = bytearray(b"II*\0\0\0\0\0")
-    offsets = []
-    for b in blobs:
-        offsets.append(len(data))
-        data += b
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [1]), (259, 3, [compression]),
-               (262, 3, [1]), (277, 3, [1])]
-    if tile:
-        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
-                    (325, 4, [len(b) for b in blobs])]
-    else:
-        entries += [(273, 4, offsets), (278, 4, [h]), (279, 4, [len(b) for b in blobs])]
-    entries += [(t, typ, [v]) for t, typ, v in extra]
-    entries.sort()
-    data += b"\0" * (len(data) & 1)
-    struct.pack_into("<I", data, 4, len(data))
-    tail = bytearray()
-    ifd = bytearray(struct.pack("<H", len(entries)))
-    base = len(data) + 2 + 12 * len(entries) + 4
-    for tag, typ, vals in entries:
-        raw = struct.pack("<" + ("H" if typ == 3 else "I") * len(vals), *vals)
-        if len(raw) <= 4:
-            ifd += struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
-        else:
-            ifd += struct.pack("<HHII", tag, typ, len(vals), base + len(tail))
-            tail += raw
-    return bytes(data + ifd + b"\0\0\0\0" + tail)
+    tags = [(258, 3, [1]), (259, 3, [compression]), (262, 3, [1]), (277, 3, [1])]
+    tags += layout_tags(tile, None, h) + [(t, typ, [v]) for t, typ, v in extra]
+    return tiff_file(w, h, blobs, tags)
 
 
 def pil_l(data: bytes) -> np.ndarray:

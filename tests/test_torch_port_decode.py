@@ -201,13 +201,11 @@ def _codes(bits, vals):
     return out
 
 
-def jpeg_bytes(img: np.ndarray, sampling, quality: int, restart: int = 0,
-               rgb_ids: bool = False) -> bytes:
-    """A baseline JPEG of uint8 (H, W) or (H, W, 3) with any sampling
-    factors (PIL writes only 1x1, 2x1 and 2x2): one quantization table, the
-    standard luminance Huffman tables (K.3) for every component, and no DHT
-    (libjpeg then installs those same tables). ``rgb_ids`` names the
-    components 'R', 'G', 'B' and codes RGB as it is."""
+def quantized_blocks(img: np.ndarray, sampling, quality: int, rgb_ids: bool = False):
+    """The quantization table (natural order) and, per component, its
+    quantized DCT blocks (block rows, block columns, 64 in natural order)
+    over the MCU-padded plane, as a baseline or progressive encoder codes
+    them."""
     h, w = img.shape[:2]
     planes = [img.astype(np.float64)] if img.ndim == 2 else [img[..., i].astype(np.float64)
                                                             for i in range(3)]
@@ -237,6 +235,18 @@ def jpeg_bytes(img: np.ndarray, sampling, quality: int, restart: int = 0,
         b = (small - 128).reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3)
         coef = dct @ b @ dct.T
         blocks.append(np.round(coef.reshape(*coef.shape[:2], 64) / q).astype(np.int64))
+    return q, blocks, (mcux, mcuy)
+
+
+def jpeg_bytes(img: np.ndarray, sampling, quality: int, restart: int = 0,
+               rgb_ids: bool = False) -> bytes:
+    """A baseline JPEG of uint8 (H, W) or (H, W, 3) with any sampling
+    factors (PIL writes only 1x1, 2x1 and 2x2): one quantization table, the
+    standard luminance Huffman tables (K.3) for every component, and no DHT
+    (libjpeg then installs those same tables). ``rgb_ids`` names the
+    components 'R', 'G', 'B' and codes RGB as it is."""
+    h, w = img.shape[:2]
+    q, blocks, (mcux, mcuy) = quantized_blocks(img, sampling, quality, rgb_ids)
     dc_codes = _codes(_STD_BITS[("dc", 0)], _STD_VALS[("dc", 0)])
     ac_codes = _codes(_STD_BITS[("ac", 0)], _STD_VALS[("ac", 0)])
     out, acc, nacc = bytearray(), 0, 0
@@ -263,14 +273,14 @@ def jpeg_bytes(img: np.ndarray, sampling, quality: int, restart: int = 0,
         s = int(abs(v)).bit_length()
         return s, (v if v >= 0 else v + (1 << s) - 1)
 
-    preds = [0] * len(planes)
+    preds = [0] * len(blocks)
     n_mcu = 0
     for my in range(mcuy):
         for mx in range(mcux):
             if restart and n_mcu and n_mcu % restart == 0:
                 flush()
                 out += bytes([0xFF, 0xD0 + (n_mcu // restart - 1) % 8])
-                preds = [0] * len(planes)
+                preds = [0] * len(blocks)
             n_mcu += 1
             for ci, (sh, sv) in enumerate(sampling):
                 for v in range(sv):
@@ -297,9 +307,9 @@ def jpeg_bytes(img: np.ndarray, sampling, quality: int, restart: int = 0,
                             code(ac_codes, 0)
     flush()
     ids = [ord("R"), ord("G"), ord("B")] if rgb_ids else [1, 2, 3]
-    sof = struct.pack(">BHHB", 8, h, w, len(planes)) + b"".join(
+    sof = struct.pack(">BHHB", 8, h, w, len(blocks)) + b"".join(
         bytes([ids[i], (sh << 4) | sv, 0]) for i, (sh, sv) in enumerate(sampling))
-    sos = bytes([len(planes)]) + b"".join(bytes([ids[i], 0]) for i in range(len(planes))) \
+    sos = bytes([len(blocks)]) + b"".join(bytes([ids[i], 0]) for i in range(len(blocks))) \
         + bytes([0, 63, 0])
 
     def seg(m, body):
@@ -482,61 +492,78 @@ def _packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
-def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, *, be=False, tile=None,
-               rows_per_strip=None, packbits=False, colormap=None, extra=None) -> bytes:
-    """A one-page TIFF of (h, w, spp) samples, in strips or (padded) tiles."""
-    h, w, spp = samples.shape
-    order = ">" if be else "<"
-    if tile:
-        tw, th = tile
-        padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, spp), samples.dtype)
-        padded[:h, :w] = samples
-        chunks = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
-    else:
-        rps = rows_per_strip or h
-        chunks = [samples[y:y + rps] for y in range(0, h, rps)]
-
-    def pack(c):
-        if bits == 16:
-            return c.reshape(c.shape[0], -1).astype(order + "u2").tobytes()
-        return _pack(c, bits).tobytes()
-    blobs = [pack(c) for c in chunks]
-    if packbits:
-        blobs = [_packbits(b) for b in blobs]
-    data = bytearray(struct.pack(order + "2sHI", b"MM" if be else b"II", 42, 0))
+def tiff_file(w: int, h: int, blobs, tags, be: bool = False) -> bytes:
+    """A one-page TIFF: ``blobs`` (strips or tiles) and IFD ``tags``, a list
+    of (tag, type, values) where type 7 takes bytes; the offsets tag (273 or
+    324) gets the blobs' positions and the byte-count tag (279 or 325) their
+    sizes when its values are None."""
+    o = ">" if be else "<"
+    data = bytearray(struct.pack(o + "2sHI", b"MM" if be else b"II", 42, 0))
     offsets = []
     for b in blobs:
         offsets.append(len(data))
         data += b
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
-               (259, 3, [32773 if packbits else 1]), (262, 3, [photometric]),
-               (277, 3, [spp])]
-    if tile:
-        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
-                    (325, 4, [len(b) for b in blobs])]
-    else:
-        entries += [(273, 4, offsets), (278, 4, [rows_per_strip or h]),
-                    (279, 4, [len(b) for b in blobs])]
-    if colormap is not None:
-        entries.append((320, 3, list(colormap.T.reshape(-1))))
-    if extra is not None:
-        entries.append((338, 3, extra))
-    entries.sort()
-    ifd_at = len(data) + (len(data) & 1)
-    data += b"\0" * (ifd_at - len(data))
-    struct.pack_into(order + "I", data, 4, ifd_at)
-    tail = bytearray()
-    ifd = bytearray(struct.pack(order + "H", len(entries)))
-    base = ifd_at + 2 + 12 * len(entries) + 4
+    entries = [(256, 4, [w]), (257, 4, [h])]
+    for tag, typ, vals in tags:
+        if tag in (273, 324):
+            vals = offsets
+        elif tag in (279, 325) and vals is None:
+            vals = [len(b) for b in blobs]
+        entries.append((tag, typ, vals))
+    entries.sort(key=lambda e: e[0])
+    data += b"\0" * (len(data) & 1)
+    ifd_at = len(data)
+    struct.pack_into(o + "I", data, 4, ifd_at)
+    base, tail = ifd_at + 2 + 12 * len(entries) + 4, bytearray()
+    ifd = bytearray(struct.pack(o + "H", len(entries)))
     for tag, typ, vals in entries:
-        fmt = order + ("H" if typ == 3 else "I") * len(vals)
-        raw = struct.pack(fmt, *[int(v) for v in vals])
+        raw = (bytes(vals) if typ == 7 else
+               struct.pack(o + {3: "H", 4: "I"}[typ] * len(vals), *[int(v) for v in vals]))
         if len(raw) <= 4:
-            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+            ifd += struct.pack(o + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
         else:
-            ifd += struct.pack(order + "HHII", tag, typ, len(vals), base + len(tail))
-            tail += raw
-    return bytes(data + ifd + struct.pack(order + "I", 0) + tail)
+            ifd += struct.pack(o + "HHII", tag, typ, len(vals), base + len(tail))
+            tail += raw + b"\0" * (len(raw) & 1)
+    return bytes(data + ifd + struct.pack(o + "I", 0) + tail)
+
+
+def chunks_of(samples: np.ndarray, tile=None, rows_per_strip=None):
+    """Strips (cut at the image's foot) or tiles (padded with zeros)."""
+    h, w = samples.shape[:2]
+    if tile:
+        tw, th = tile
+        padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw) + samples.shape[2:], samples.dtype)
+        padded[:h, :w] = samples
+        return [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+    rps = rows_per_strip or h
+    return [samples[y:y + rps] for y in range(0, h, rps)]
+
+
+def layout_tags(tile=None, rows_per_strip=None, h=0):
+    if tile:
+        return [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, None), (325, 4, None)]
+    return [(273, 4, None), (278, 4, [rows_per_strip or h]), (279, 4, None)]
+
+
+def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, *, be=False, tile=None,
+               rows_per_strip=None, packbits=False, colormap=None, extra=None) -> bytes:
+    """A one-page TIFF of (h, w, spp) samples, in strips or (padded) tiles."""
+    h, w, spp = samples.shape
+
+    def pack(c):
+        if bits == 16:
+            return c.reshape(c.shape[0], -1).astype((">" if be else "<") + "u2").tobytes()
+        return _pack(c, bits).tobytes()
+    blobs = [pack(c) for c in chunks_of(samples, tile, rows_per_strip)]
+    if packbits:
+        blobs = [_packbits(b) for b in blobs]
+    tags = [(258, 3, [bits] * spp), (259, 3, [32773 if packbits else 1]),
+            (262, 3, [photometric]), (277, 3, [spp])] + layout_tags(tile, rows_per_strip, h)
+    if colormap is not None:
+        tags.append((320, 3, list(colormap.T.reshape(-1))))
+    if extra is not None:
+        tags.append((338, 3, extra))
+    return tiff_file(w, h, blobs, tags, be)
 
 
 TIFF_KINDS = ["pil_raw_L", "pil_packbits_RGB", "pil_lzw_L", "pil_lzw_pred2_RGB",
@@ -604,22 +631,27 @@ def test_format_comes_from_content_not_suffix(tmp_path):
 def _unsupported_files(tmp_path):
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
-    Image.fromarray(img).save(tmp_path / "progressive.jpg", quality=80, progressive=True)
+    from test_torch_port_progressive import cut_scans, pil_jpeg
+    # PIL's progressive script cut after 6 of its 10 scans: libjpeg smooths
+    # between blocks where coefficients are unrefined.
+    (tmp_path / "cut_script.jpg").write_bytes(
+        cut_scans(pil_jpeg(img, quality=80, progressive=True), 6))
     from test_torch_port_ccitt import ccitt_bytes, strips, wrap
     # Group 4 with FillOrder 2: each byte's bits reversed (CCITT itself is read).
     rev = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
     (strip,) = strips(ccitt_bytes(img[..., 0] > 128, "t6"))
     (tmp_path / "fill_order_2.tif").write_bytes(
         wrap(40, 24, [strip.translate(rev)], 4, extra=[(266, 3, 2)]))
-    Image.fromarray(img).save(tmp_path / "deflate.tiff", compression="tiff_adobe_deflate")
+    Image.fromarray(img).convert("CMYK").save(tmp_path / "cmyk.tiff", compression="tiff_deflate")
     Image.fromarray(img).convert("CMYK").save(tmp_path / "cmyk.jpg")
-    return {"progressive.jpg": "progressive JPEG", "fill_order_2.tif": "FillOrder 2",
-            "deflate.tiff": "Deflate", "cmyk.jpg": "CMYK"}
+    return {"cut_script.jpg": "progressive JPEG with unrefined coefficients",
+            "fill_order_2.tif": "FillOrder 2", "cmyk.tiff": "CMYK TIFF", "cmyk.jpg": "CMYK"}
 
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6."""
+    NotImplementedError naming the feature and ROADMAP A.6 (a cut
+    progressive scan script, CCITT with FillOrder 2, CMYK TIFF and JPEG)."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -629,13 +661,14 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
 
 
 @pytest.mark.parametrize("name,keep", [("cut.jpg", 300), ("cut.png", 60), ("cut.bmp", 70),
-                                       ("cut.tif", 40), ("empty.jpg", 0), ("junk.png", None)])
+                                       ("cut.tif", 40), ("empty.jpg", 0), ("junk.png", None),
+                                       ("cut_progressive.jpg", 900)])
 def test_corrupt_file_becomes_a_zero_image_with_a_warning(tmp_path, caplog, name, keep):
     rs = np.random.RandomState(5)
     img = pixels(rs, (30, 30, 3)).astype(np.uint8)
     fmt = {"jpg": "JPEG", "png": "PNG", "bmp": "BMP", "tif": "TIFF"}[name.split(".")[1]]
     buf = io.BytesIO()
-    Image.fromarray(img).save(buf, fmt)
+    Image.fromarray(img).save(buf, fmt, **({"progressive": True} if "progressive" in name else {}))
     data = buf.getvalue()[:keep] if keep is not None else b"not an image at all"
     (tmp_path / name).write_bytes(data)
     assert not jdataset.decode_image(tmp_path / name, 16).any()
@@ -807,18 +840,45 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     (out / "ccitt_g4_page.tif").write_bytes(
         ccitt_bytes(scan_page(rs, 500, 1200) >= 128, "t6"))
     files["ccitt_g4_page.tif"] = out / "ccitt_g4_page.tif"
+    # Progressive JPEG, Deflate and JPEG-in-TIFF, from the pages above (no
+    # new draws). The progressive page holds scan_420.jpg's pixels at its
+    # quality and subsampling, so it reads as that file does: golden.npz
+    # holds no array of its own for it (``load_golden``).
+    save("progressive_page.jpg", Image.fromarray(scan), "JPEG", quality=90, subsampling=2,
+         progressive=True)
+    save("progressive_grey.jpg", Image.fromarray(small[..., 0]), "JPEG", quality=85,
+         progressive=True)
+    save("progressive_420.jpg", Image.fromarray(small), "JPEG", quality=75, subsampling=2,
+         optimize=True, restart_marker_blocks=2, progressive=True)
+    save("deflate_pred2.tif", Image.fromarray(small), "TIFF", compression="tiff_adobe_deflate",
+         tiffinfo={317: 2})
+    save("jpeg_grey.tif", Image.fromarray(small[..., 0]), "TIFF", compression="jpeg", quality=85)
+    from test_torch_port_tiff_codecs import jpeg_tiff
+    (out / "jpeg_ycbcr.tif").write_bytes(jpeg_tiff(small, 6, rows_per_strip=16, sub=2, quality=85,
+                                                   abbreviate=True))
+    files["jpeg_ycbcr.tif"] = out / "jpeg_ycbcr.tif"
     golden = {name: pil_gray(path) for name, path in files.items()}
+    assert np.array_equal(golden.pop("progressive_page.jpg"), golden["scan_420.jpg"])
     np.savez_compressed(out / "golden.npz", **golden)
-    return golden
+    return load_golden(out)
+
+
+def load_golden(root: Path = FIXTURES) -> dict:
+    """PIL's grey of every fixture by name: ``golden.npz``, and for the
+    progressive page scan_420.jpg's array."""
+    with np.load(root / "golden.npz") as f:
+        golden = dict(f)
+    return {**golden, "progressive_page.jpg": golden["scan_420.jpg"]}
 
 
 def test_fixtures_are_pil_exact_and_small():
     """The committed fixtures still read, with PIL and with the port, as
-    their golden arrays; together they stay under 1 MB."""
-    with np.load(FIXTURES / "golden.npz") as f:
-        golden = dict(f)
-    assert len(golden) == 22 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    their golden arrays (the progressive page as scan_420.jpg's); together
+    they stay under 1 MB."""
+    golden = load_golden()
+    assert len(golden) == 28 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
     assert golden["scan_420.jpg"].shape == golden["ccitt_g4_page.tif"].shape == (500, 1200)
+    assert golden["progressive_page.jpg"] is golden["scan_420.jpg"]
     for name, want in golden.items():
         np.testing.assert_array_equal(pil_gray(FIXTURES / name), want, err_msg=name)
         np.testing.assert_array_equal(tdataset.decode_gray(FIXTURES / name), want, err_msg=name)

@@ -226,8 +226,9 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     scans (per-writer directories; blank pages, RGB scans, scans over the
     canvas; batch 4 with a padded tail): the same valid / invalid split and
     report, images within the whole-pipeline tolerance; JPEG, BMP and TIFF
-    scans read as the JAX CLI reads them; a progressive JPEG is refused,
-    naming ROADMAP A.6."""
+    scans read as the JAX CLI reads them; a progressive JPEG whose scan
+    script was cut (libjpeg would smooth its unrefined coefficients) is
+    refused, naming ROADMAP A.6."""
     from siggan_tpu.cli import preprocess as jcli
     from siggan_tpu.core import platform as jplatform
     from siggan_tpu_torch.cli import preprocess as tcli
@@ -273,7 +274,8 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     for name in want["processed"]:
         path = next(other.rglob(name))
         np.testing.assert_array_equal(tcli.load_canvas(path, 64)[0], jcli.load_canvas(path, 64)[0])
-    Image.fromarray(page).save(raw / "w1" / "scan.jpg", progressive=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+    from test_torch_port_progressive import cut_scans, pil_jpeg
+    (raw / "w1" / "scan.jpg").write_bytes(cut_scans(pil_jpeg(page, progressive=True), 3))
+    with pytest.raises(NotImplementedError, match="unrefined coefficients.*ROADMAP A.6"):
         tcli.main(["--input_dir", str(raw), "--output_dir", str(tmp_path / "x"),
                    "--device", "cpu"])

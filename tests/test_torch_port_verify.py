@@ -233,7 +233,7 @@ def test_pairs_and_split_match_jax(trees, layout):
 def test_pairs_refuse_other_image_formats(trees, tmp_path):
     """A tree holding .jpg, .bmp and .tif scans (a CCITT Group 4 one among
     them) is paired and decoded as the JAX package does (its PIL path);
-    only a file of a kind not read yet (Deflate TIFF) is refused, naming
+    only a file of a kind not read yet (a CMYK TIFF) is refused, naming
     the ROADMAP item of the decoders."""
     import shutil
 
@@ -257,9 +257,9 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     have = tpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
     np.testing.assert_array_equal(have.img1, want.img1)
     np.testing.assert_array_equal(have.img2, want.img2)
-    Image.fromarray(scan).save(tmp_path / "users" / "writer_010" / "deflate.tif",
-                               compression="tiff_adobe_deflate")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+    Image.fromarray(scan).convert("CMYK").save(tmp_path / "users" / "writer_010" / "cmyk.tif",
+                                               compression="tiff_adobe_deflate")
+    with pytest.raises(NotImplementedError, match="CMYK TIFF.*ROADMAP A.6"):
         tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
 
