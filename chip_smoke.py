@@ -118,12 +118,17 @@ Phases (any failure raises and the script exits non-zero):
      palette, 16-bit, Adam7; progressive JPEG grey, 4:2:0 with optimised
      tables and restarts, and a 1200 x 500 page whose golden is
      scan_420.jpg's; Deflate with predictor 2; JPEG-in-TIFF YCbCr 4:2:0 and
-     grey) bit-equal to its golden array (PIL's grey, saved where the
+     grey; a restart marker missing, a bad Huffman code, quantizers of 64;
+     CMYK and YCCK JPEG, CMYK TIFF; a cut progressive script that libjpeg
+     smooths) bit-equal to its golden array (PIL's grey, saved where the
      fixtures were written: this host has no PIL), a Deflate page written
-     here with zlib from scan_420.jpg's grey bit-equal to it, and a cut
-     progressive scan script refused (NotImplementedError); time the
-     threaded batch decode per format at 1 and 8 threads (images/s, the
-     CCITT, progressive and Deflate pages apart); rewrite phase 11's 1320
+     here with zlib from scan_420.jpg's grey bit-equal to it, a restart-
+     damaged and a CMYK JPEG page tiled here from fixtures' restart
+     intervals (``tile_jpeg``) and a CMYK TIFF page of scan_420.jpg's grey
+     bit-equal to the greys they were built from, the cut progressive page
+     bit-equal to PIL's grey by its digest, and a 12-bit JPEG (which PIL refuses) a zero image in a
+     ``SignatureDataset``; time the threaded batch decode per format at 1
+     and 8 threads (images/s, the pages apart); rewrite phase 11's 1320
      scans as a mixed tree in CEDAR's shape (PNG, BMP and uncompressed TIFF
      written here with numpy, JPEG copied from the fixtures), run
      ``cli.preprocess`` on it (wall time, images/s, the share of it that
@@ -216,6 +221,7 @@ Phases (any failure raises and the script exits non-zero):
 from __future__ import annotations
 
 import base64
+import hashlib
 import io
 import copy
 import json
@@ -1874,6 +1880,91 @@ def tiff_grey(u8, rows_per_strip: int = 0, deflate: bool = False) -> bytes:
     return bytes(data)
 
 
+def tiff_cmyk(u8, rows_per_strip: int = 0) -> bytes:
+    """A little-endian CMYK TIFF (photometric 5, 4 samples of 8 bits) of
+    uint8 (H, W) grey as ink: C = M = Y = 0 and K = 255 - grey, in Deflate
+    strips (zlib level 6) of ``rows_per_strip`` rows (0: one strip). PIL's
+    CMYK -> L gives back the grey exactly, so the file needs no golden
+    array of its own (tests/test_torch_port_cmyk.py holds PIL to that)."""
+    import zlib
+    import numpy as np
+    h, w = u8.shape
+    rps = rows_per_strip or h
+    cmyk = np.zeros((h, w, 4), np.uint8)
+    cmyk[..., 3] = 255 - u8
+    data, offsets, counts = bytearray(b"II*\0\0\0\0\0"), [], []
+    for y in range(0, h, rps):
+        offsets.append(len(data))
+        data += zlib.compress(cmyk[y:y + rps].tobytes(), 6)
+        counts.append(len(data) - offsets[-1])
+    data += b"\0" * (len(data) & 1)
+    n, at = len(offsets), len(data)   # then the offsets, the counts and BitsPerSample
+    data += np.array(offsets + counts, "<u4").tobytes() + np.array([8] * 4, "<u2").tobytes()
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 4, at + 8 * n), (259, 3, 1, 8),
+               (262, 3, 1, 5), (273, 4, n, offsets[0] if n == 1 else at), (277, 3, 1, 4),
+               (278, 4, 1, rps), (279, 4, n, counts[0] if n == 1 else at + 4 * n)]
+    data[4:8] = len(data).to_bytes(4, "little")
+    data += len(entries).to_bytes(2, "little") + b"".join(
+        tag.to_bytes(2, "little") + typ.to_bytes(2, "little") + cnt.to_bytes(4, "little")
+        + val.to_bytes(4, "little") for tag, typ, cnt, val in entries) + bytes(4)
+    return bytes(data)
+
+
+def tile_jpeg(data: bytes, width: int, height: int, pick, renumber=None) -> bytes:
+    """A JPEG of ``width`` x ``height`` built from the restart intervals of
+    ``data``, a 4:4:4 JPEG whose restart interval is one row of MCUs (8
+    pixel rows), no re-encoding: each MCU row of the new image is
+    ``width // w`` of those intervals side by side, ``pick(i, j)`` naming
+    the source row for row i, place j (each interval resets the DC
+    predictions, and no sample of one MCU depends on another's, so the
+    image is the source's rows tiled). ``renumber(k)`` may change the
+    number of the k-th restart marker written (damage that libjpeg's
+    resynchronisation takes back, such as a number 4 ahead)."""
+    sof = next(i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] in (0xC0, 0xC1))
+    h, w = int.from_bytes(data[sof + 5:sof + 7], "big"), int.from_bytes(data[sof + 7:sof + 9], "big")
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    body = data[start:data.rindex(b"\xff\xd9")]
+    cuts = [i for i in range(len(body) - 1) if body[i] == 0xFF and 0xD0 <= body[i + 1] <= 0xD7]
+    rows = [body[a:b] for a, b in zip([0] + [c + 2 for c in cuts], cuts + [len(body)])]
+    if len(rows) != h // 8 or width % w:
+        raise ValueError("tile_jpeg wants one restart interval an MCU row and a width of whole rows")
+    out, k = bytearray(), 0
+    for i in range(-(-height // 8)):
+        for j in range(width // w):
+            if out:
+                out += bytes([0xFF, 0xD0 + ((renumber(k) if renumber else k) & 7)])
+                k += 1
+            out += rows[pick(i, j)]
+    head = bytearray(data[:start])
+    head[sof + 5:sof + 9] = height.to_bytes(2, "big") + width.to_bytes(2, "big")
+    return bytes(head + out) + b"\xff\xd9"
+
+
+def page_pick(i: int, j: int) -> int:
+    """``tile_jpeg``'s source row for row i, place j, of the 10 MCU rows of
+    an 80-row fixture (``restart_444.jpg``, ``cmyk.jpg``)."""
+    return (i + 3 * j) % 10
+
+
+def renumber_ahead(k: int) -> int:
+    """Every 16th restart marker numbered 4 ahead of its place: libjpeg's
+    resynchronisation consumes it and decodes on, so the pixels stay."""
+    return k + 4 if k % 16 == 5 else k
+
+
+def tile_golden(golden, width: int, height: int, pick):
+    """The grey of ``tile_jpeg(data, width, height, pick)`` from the source's."""
+    import numpy as np
+    w = golden.shape[1]
+    out = np.empty((-(-height // 8) * 8, width), np.uint8)
+    for i in range(out.shape[0] // 8):
+        for j in range(width // w):
+            r = pick(i, j)
+            out[8 * i:8 * i + 8, w * j:w * j + w] = golden[8 * r:8 * r + 8]
+    return out[:height]
+
+
 def golden_arrays() -> dict:
     """The decoder fixtures' golden arrays by name. The progressive page
     holds scan_420.jpg's pixels at its quality and subsampling, so it reads
@@ -1886,10 +1977,10 @@ def golden_arrays() -> dict:
 
 def decode_phase(card: str, work: str):
     """Phase 12: the host decoders: the fixtures bit-equal to their golden
-    arrays, a Deflate page written here bit-equal to its source, a cut
-    progressive scan script refused, the threaded batch decode's rate per
-    format, ``cli.preprocess`` and a ``SignatureDataset`` on a mixed tree
-    of 1320 scans."""
+    arrays, the pages built here bit-equal to their sources, a cut
+    progressive scan script smoothed, a file PIL refuses a zero image, the
+    threaded batch decode's rate per format, ``cli.preprocess`` and a
+    ``SignatureDataset`` on a mixed tree of 1320 scans."""
     import shutil
     import numpy as np
     import torch
@@ -1906,8 +1997,8 @@ def decode_phase(card: str, work: str):
                         f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
         build_s = time.perf_counter() - t0
     golden = golden_arrays()
-    if len(golden) != 28:
-        raise AssertionError(f"expected 28 decoder fixtures, found {sorted(golden)}")
+    if len(golden) != 36:
+        raise AssertionError(f"expected 36 decoder fixtures, found {sorted(golden)}")
     for name, want in golden.items():
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -1920,21 +2011,60 @@ def decode_phase(card: str, work: str):
     deflate_page.write_bytes(tiff_grey(golden["scan_420.jpg"], 54, deflate=True))
     if not np.array_equal(ds_mod.decode_gray(deflate_page), golden["scan_420.jpg"]):
         raise AssertionError("the Deflate page is not bit-equal to the grey it was written from")
-    # PIL's progressive script cut after 6 of its 10 scans: libjpeg would
-    # smooth its unrefined coefficients, so the port must refuse it.
+    # PIL's progressive script cut after 6 of its 10 scans: libjpeg smooths
+    # its unrefined coefficients between blocks, and so does the port. Its
+    # grey is held to the digest of PIL's that the fixtures keep
+    # (progressive_cut_page.sha256; progressive_cut.jpg above is a small
+    # such cut, held to PIL's grey itself).
     page = (FIXTURES / "progressive_page.jpg").read_bytes()
     sos = [i for i in range(len(page) - 1) if page[i] == 0xFF and page[i + 1] == 0xDA]
-    try:
-        native.decode(page[:sos[6]] + b"\xff\xd9", "cut progressive page")
-        raise AssertionError("a cut progressive scan script was decoded, not refused")
-    except NotImplementedError as e:
-        refusal = str(e)
+    cut_page = Path(work) / "progressive_cut_page.jpg"
+    cut_page.write_bytes(page[:sos[6]] + b"\xff\xd9")
+    cut = ds_mod.decode_gray(cut_page)
+    digest = hashlib.sha256(repr(cut.shape).encode() + np.ascontiguousarray(cut).tobytes())
+    if (cut.shape != (500, 1200) or [digest.hexdigest()]
+            != (FIXTURES / "progressive_cut_page.sha256").read_text().split()):
+        raise AssertionError("the cut progressive page is not bit-equal to PIL's grey")
+    # Page-sized files of the kinds this slice reads, with golden arrays
+    # from the fixtures': restart intervals of restart_444.jpg and cmyk.jpg
+    # tiled into 1200 x 500 pages (some restart markers numbered 4 ahead,
+    # which libjpeg's resynchronisation consumes), and a CMYK TIFF of
+    # scan_420.jpg's grey as K ink.
+    pages = {"restart_damaged_page.jpg": (tile_jpeg(
+                 (FIXTURES / "restart_444.jpg").read_bytes(), 1200, 500, page_pick, renumber_ahead),
+                 tile_golden(golden["restart_444.jpg"], 1200, 500, page_pick)),
+             "cmyk_page.jpg": (tile_jpeg((FIXTURES / "cmyk.jpg").read_bytes(), 1200, 500,
+                                         page_pick),
+                               tile_golden(golden["cmyk.jpg"], 1200, 500, page_pick)),
+             "cmyk_page.tif": (tiff_cmyk(golden["scan_420.jpg"], 50), golden["scan_420.jpg"])}
+    for name, (data, want) in pages.items():
+        (Path(work) / name).write_bytes(data)
+        if not np.array_equal(ds_mod.decode_gray(Path(work) / name), want):
+            raise AssertionError(f"{name}: not bit-equal to the grey it was built from")
+    # A file PIL refuses (grey.jpg as a 12-bit frame) is a zero image in a
+    # SignatureDataset beside a good one, as in the JAX package.
+    refused = Path(work) / "refused_set"
+    refused.mkdir(exist_ok=True)
+    grey = bytearray((FIXTURES / "grey.jpg").read_bytes())
+    at = grey.index(b"\xff\xc0")
+    grey[at + 1], grey[at + 4] = 0xC1, 12
+    (refused / "a_twelve_bit.jpg").write_bytes(bytes(grey))
+    shutil.copy(FIXTURES / "grey.jpg", refused / "b_grey.jpg")
+    refused_ds = ds_mod.SignatureDataset(refused, 64, use_cache=False)
+    if refused_ds.images[0].any() or not refused_ds.images[1].any():
+        raise AssertionError("a 12-bit JPEG beside a good one: not a zero image and a decoded one")
     print(f"decode: a Deflate 1200x500 page written here from scan_420.jpg's grey "
           f"({deflate_page.stat().st_size} B, predictor 2) bit-equal to it; the progressive page "
-          f"cut after 6 of its {len(sos)} scans refused: {refusal}", flush=True)
+          f"cut after 6 of its {len(sos)} scans (libjpeg's block smoothing) bit-equal to PIL's "
+          f"grey by its SHA-256; "
+          + ", ".join(f"{n} ({len(d)} B)" for n, (d, _) in pages.items())
+          + " bit-equal to the golden arrays they were built from; a 12-bit JPEG (PIL refuses "
+          "it) a zero image in a SignatureDataset beside grey.jpg", flush=True)
 
     new = {"progressive_page.jpg", "progressive_grey.jpg", "progressive_420.jpg",
-           "deflate_pred2.tif", "jpeg_ycbcr.tif", "jpeg_grey.tif"}
+           "deflate_pred2.tif", "jpeg_ycbcr.tif", "jpeg_grey.tif", "restart_444.jpg",
+           "restart_damaged.jpg", "bad_code.jpg", "dqt_q64.jpg", "cmyk.jpg", "ycck.jpg",
+           "cmyk.tif", "progressive_cut.jpg"}
     old = [n for n in golden if n not in new]
 
     def fixtures(*names):
@@ -1956,7 +2086,16 @@ def decode_phase(card: str, work: str):
               "Deflate TIFF 1200x500 (grey, predictor 2)": ([deflate_page], 100),
               "Deflate TIFF 210x80 (RGB, predictor 2)": (fixtures("deflate_pred2.tif"), 100),
               "JPEG-in-TIFF 210x80 (YCbCr 4:2:0 in 5 strips; grey)": (
-                  fixtures("jpeg_ycbcr.tif", "jpeg_grey.tif"), 100)}
+                  fixtures("jpeg_ycbcr.tif", "jpeg_grey.tif"), 100),
+              "restart-damaged JPEG 1200x500 (4:4:4, restart markers numbered 4 ahead)": (
+                  [Path(work) / "restart_damaged_page.jpg"], 20),
+              "CMYK JPEG 1200x500 (Adobe, 4:4:4)": ([Path(work) / "cmyk_page.jpg"], 20),
+              "CMYK TIFF 1200x500 (Deflate strips)": ([Path(work) / "cmyk_page.tif"], 20),
+              "progressive JPEG 1200x500 cut after 6 scans (block smoothing)": ([cut_page], 20),
+              "damaged JPEG 200x80 (restart marker missing; bad code; q = 64 at 32x32)": (
+                  fixtures("restart_damaged.jpg", "bad_code.jpg", "dqt_q64.jpg"), 100),
+              "CMYK and YCCK JPEG, CMYK TIFF 200x80": (
+                  fixtures("cmyk.jpg", "ycck.jpg", "cmyk.tif"), 100)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps

@@ -9,8 +9,9 @@ that their numbers compare.
 the parent commit unpacked under ``build/``. Both decoders are built with
 ``g++`` and ``HOST_FLAGS`` (``ops/kernels/build.py::load_host``) and called
 through ``sig_decode`` on one thread. The files are the committed decoder
-fixtures that both decoders read (PNG is decoded elsewhere) and a 1200 x
-500 uncompressed one-strip grey TIFF written here from scan_420.jpg's grey.
+fixtures that both trees hold and both decoders read (PNG is decoded
+elsewhere) and a 1200 x 500 uncompressed one-strip grey TIFF written here
+from scan_420.jpg's grey.
 Each file is decoded by the other tree's decoder (A) and this one's (B) in
 the order A, B, B, A, ``--rounds`` times, each turn ``reps`` decodes long
 (about ``--budget_s`` seconds); the two must agree pixel for pixel. Prints
@@ -74,7 +75,12 @@ def main(argv=None) -> None:
         print("no nvidia-smi: host only", flush=True)
     a, b = decoder(args.tree.resolve()), decoder(ROOT)
     golden = chip_smoke.golden_arrays()
-    files = {n: (chip_smoke.FIXTURES / n).read_bytes() for n in sorted(golden)}
+    import numpy as np
+    with np.load(args.tree / "tests" / "data" / "torch_port" / "golden.npz") as f:
+        theirs = set(f.files) | {"progressive_page.jpg"}
+    # The fixtures both trees hold: a decoder change's new fixtures may read
+    # otherwise (or not at all) in the other tree.
+    files = {n: (chip_smoke.FIXTURES / n).read_bytes() for n in sorted(golden) if n in theirs}
     files["raw_page.tif (1200x500, one strip)"] = chip_smoke.tiff_grey(golden["scan_420.jpg"])
     rows = {}
     for name, data in files.items():

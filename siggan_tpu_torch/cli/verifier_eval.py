@@ -9,8 +9,9 @@ Usage:
 Port of ``siggan_tpu/cli/verifier_eval.py``: scores seeded test pairs with
 each verifier checkpoint (either package's pickle) and writes
 ``evaluation_report.json`` (FAR/FRR/EER/ROC-AUC..., the comparison with
-improvement %) and ``curves.json`` (the points of the ROC, DET,
-score-distribution and metric-bar plots, which the port does not draw).
+improvement %), the four charts ``roc.png``, ``det.png``,
+``score_distributions.png`` and ``metric_comparison.png``, and
+``curves.json`` (the points those charts plot).
 It runs on the card (``--device cpu`` for tests) and raises without one.
 """
 

@@ -13,9 +13,10 @@ threads; each gives PIL's ``convert("L")`` grey bit for bit. Images of
 another size are resized by the same C++ library
 (``data/native/loader.py::resize_bilinear``), bit-equal with the PIL
 ``resize(..., Image.BILINEAR)`` that the JAX package calls and with
-``data/resample.py``'s numpy version. A corrupt or unreadable file becomes a zero image with a warning, as
-in the reference; a valid file of a kind the port does not read yet raises
-``NotImplementedError`` (ROADMAP A.6). ``writer_labels`` labels the images
+``data/resample.py``'s numpy version. A corrupt or unreadable file, and
+one of a kind PIL itself refuses, becomes a zero image with a warning, as
+in the reference; a file PIL reads, of a kind the port does not read yet,
+raises ``NotImplementedError`` (ROADMAP A.6). ``writer_labels`` labels the images
 by their per-writer subdirectory, for conditional training.
 """
 
@@ -64,8 +65,8 @@ def _to_gray(u8: np.ndarray) -> np.ndarray:
 def decode_gray(path: str | Path) -> np.ndarray:
     """An image file as uint8 (H, W) grey, PIL's ``convert("L")``; the
     format comes from the file's first bytes. Raises ``NotImplementedError``
-    for a valid file of a kind not read yet, ``ValueError`` (or ``OSError``)
-    for a corrupt (or unreadable) one."""
+    for a file PIL reads, of a kind not read yet, ``ValueError`` (or
+    ``OSError``) for a corrupt (or unreadable) one or one PIL refuses."""
     data = Path(path).read_bytes()
     if data.startswith(b"\x89PNG\r\n\x1a\n"):
         return _to_gray(decode_png(data))
@@ -86,8 +87,9 @@ def _zero_image(path, image_size: int, err: Exception) -> np.ndarray:
 
 def decode_image(path: Path, image_size: int) -> np.ndarray:
     """Grayscale decode (+ resize to (s, s)), scaled to [-1, 1], (s, s, 1).
-    A corrupt or unreadable file gives a zero image and a warning (the
-    reference's fallback); ``NotImplementedError`` passes through."""
+    A corrupt or unreadable file, or one PIL refuses, gives a zero image
+    and a warning (the reference's fallback); ``NotImplementedError`` (a
+    kind PIL reads and the port not yet) passes through."""
     try:
         gray = decode_gray(path)
     except DECODE_ERRORS as e:

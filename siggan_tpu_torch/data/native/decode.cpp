@@ -2,19 +2,24 @@
 // PIL's Image.open(path).convert("L") gives them, with no imaging library.
 //
 // JPEG: 8-bit DCT, Huffman-coded, sequential (SOF0/SOF1) or progressive
-// (SOF2), one or three components, any whole-number sampling, restart
-// intervals, the default Huffman tables when a file carries none. The
-// arithmetic is libjpeg's (libjpeg-turbo, which PIL links): the "islow"
-// integer IDCT of jidctint.c, its range limit, "fancy" chroma upsampling
-// (jdsample.c: h2v1, h1v2, h2v2 with the neighbouring rows of the next and
-// previous iMCU rows, box replication for other factors), the YCbCr->RGB
-// tables of jdcolor.c and libjpeg's colour-space defaults (JFIF, then
-// Adobe's transform, then the component ids). Then PIL's L = (19595 R +
-// 38470 G + 7471 B + 2^15) >> 16. A progressive file's scans refine one
-// coefficient buffer per component as jdphuff.c does; the IDCT runs once,
-// after EOI. Where libjpeg would smooth the image between blocks (a scan
-// script that leaves some of the first ten coefficients unrefined:
-// jdcoefct.c, smoothing_ok) the file is refused, not decoded differently.
+// (SOF2), one, three or four components (CMYK, or YCCK after Adobe's
+// transform), any whole-number sampling, restart intervals, the default
+// Huffman tables when a file carries none. The arithmetic is libjpeg's
+// (libjpeg-turbo, which PIL links): its SIMD "islow" integer IDCT, 16-bit
+// lanes and all, "fancy" chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
+// with the neighbouring rows of the next and previous iMCU rows, box
+// replication for other factors), the YCbCr->RGB tables of jdcolor.c and
+// libjpeg's colour-space defaults (JFIF, then Adobe's transform, then the
+// component ids). Then PIL's L = (19595 R + 38470 G + 7471 B + 2^15) >> 16,
+// by way of PIL's CMYK -> RGB for four components (which PIL reads as
+// Adobe's inverted CMYK). A progressive file's scans refine one coefficient
+// buffer per component as jdphuff.c does; the IDCT runs once, after EOI,
+// through libjpeg-turbo 3's block smoothing where a scan script leaves some
+// of the first ten coefficients unrefined (jdcoefct.c). Damaged data reads
+// as libjpeg reads it: a bad Huffman code gives a zero symbol, a restart
+// marker out of place is resynchronised (jpeg_resync_to_restart), and once
+// a segment's data runs out its MCUs are left alone (zero in a sequential
+// scan).
 //
 // BMP: as PIL's BmpImagePlugin reads it (1/4/8-bit palettes, 16-bit 555 and
 // 565, 24-bit, 32-bit, BI_BITFIELDS, RLE4/RLE8 with PIL's own RLE rules,
@@ -24,12 +29,12 @@
 // PackBits, LZW or Deflate (compression 8 and 32946, the port's own
 // inflate; predictor 1 or 2 with either); WhiteIsZero/BlackIsZero at 1, 2,
 // 4, 8 bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255),
-// RGB/RGBA at 8 and 16 bits (PIL keeps the high byte), grey+alpha,
+// RGB/RGBA and CMYK at 8 and 16 bits (PIL keeps the high byte), grey+alpha,
 // palettes; bilevel strips coded CCITT Modified Huffman, T.4 (1-D and 2-D,
 // with or without EOL fill bits) or T.6 (Group 4); and JPEG-in-TIFF
-// (compression 7) in grey, RGB or chunky YCbCr, each strip or tile a JPEG
-// stream read with the JPEGTables tag's tables, as libtiff reads it for PIL
-// (YCbCr through libjpeg's own upsampling and colour conversion).
+// (compression 7) in grey, RGB, CMYK or chunky YCbCr, each strip or tile a
+// JPEG stream read with the JPEGTables tag's tables, as libtiff reads it for
+// PIL (YCbCr through libjpeg's own upsampling and colour conversion).
 //
 // PNG: the Python side (infer/export.py::decode_png) parses the chunks and
 // inflates the image data with zlib; sig_png_unfilter undoes the five row
@@ -44,8 +49,9 @@
 // size is skipped. data/resample.py holds the same arithmetic in numpy.
 //
 // Every entry returns a status: 0 ok, 1 corrupt (truncated or malformed
-// data), 2 unsupported (a valid file of a kind not read here), 3 the file
-// could not be read, 4 a PNG file (decoded by the Python side).
+// data, or a kind PIL itself refuses), 2 unsupported (a file PIL reads, of a
+// kind not read here yet), 3 the file could not be read, 4 a PNG file
+// (decoded by the Python side).
 
 #include <algorithm>
 #include <atomic>
@@ -81,9 +87,15 @@ inline uint8_t luma(int r, int g, int b) {
   return (uint8_t)((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16);
 }
 
+// PIL's Image.open refuses more than 2 * Image.MAX_IMAGE_PIXELS pixels
+// (DecompressionBombError); any side length up to that is read.
+constexpr int64_t kMaxPixels = 2 * (1024LL * 1024 * 1024 / 4 / 3);
+
 inline void check_size(int64_t w, int64_t h) {
   if (w <= 0 || h <= 0) corrupt("image has no pixels");
-  if (w > 65535 || h > 65535 || w * h > (int64_t)1 << 30) unsupported("image too large");
+  if (w * h > kMaxPixels)
+    corrupt("image of " + std::to_string(w * h) + " pixels (PIL's decompression-bomb limit is " +
+            std::to_string(kMaxPixels) + ")");
 }
 
 // ------------------------------------------------------------------ JPEG
@@ -107,9 +119,9 @@ struct Huff {
     int count = 0;
     for (int l = 1; l <= 16; ++l) count += bits[l];
     if (count > 256) corrupt("bad Huffman table");
-    if (dc)
+    if (dc)  // libjpeg-turbo 3 allows 16, the lossless difference category
       for (int i = 0; i < count; ++i)
-        if (vals[i] > 15) corrupt("bad Huffman table");
+        if (vals[i] > 16) corrupt("bad Huffman table");
     int code = 0, k = 0;
     std::fill(look, look + 512, 0);
     for (int l = 1; l <= 16; ++l) {
@@ -169,12 +181,12 @@ void std_table(Huff& t, bool dc, int id) {
 
 // Entropy-coded data, MSB first, with FF00 unstuffing. At a marker it
 // supplies zero bits (as libjpeg does); running off the end of the file is
-// a truncated file. A progressive scan's reader (kStarve) also counts the
-// zero bits: `starved` says that a read took some of them (libjpeg's
-// insufficient_data, after which its progressive decoder leaves the
-// segment's remaining MCUs as they are). A sequential scan's reader does
-// not count them, so its per-symbol work is what it was before progressive
-// files were read.
+// a truncated file. `pad` counts the zero bits supplied (the last `pad` of
+// `cnt`); a read that takes some of them is libjpeg's insufficient_data,
+// after which its decoders leave the rest of the restart interval alone
+// (`starved`). A progressive scan's reader (kStarve) checks that at every
+// read; a sequential scan's reader leaves it to the caller once an MCU
+// (`took_padding`), so that its per-symbol work stays as small as it was.
 template <bool kStarve>
 struct Bits {
   const uint8_t* d;
@@ -206,7 +218,7 @@ struct Bits {
           ++pos;
         }
       }
-      if (kStarve && at_marker) pad += 8;
+      if (at_marker) pad += 8;
       acc |= (uint64_t)byte << (56 - cnt);
       cnt += 8;
     }
@@ -244,8 +256,13 @@ struct Bits {
         return h.vals[(h.valoffset[l] + code) & 0xFF];
       }
     }
-    corrupt("bad Huffman code in JPEG data");
+    // No code of 16 bits or fewer: libjpeg (jdhuff.c, JWRN_HUFF_BAD_CODE)
+    // takes 17 bits and fakes a zero symbol.
+    need(17);
+    take(17);
+    return 0;
   }
+  bool took_padding() const { return cnt < pad; }
   void reset() {
     acc = 0;
     cnt = 0;
@@ -259,7 +276,16 @@ using ProgressiveReader = Bits<true>;  // progressive scans
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-// jidctint.c, jpeg_idct_islow: 8x8 dequantized coefficients -> samples.
+// libjpeg-turbo's SIMD "islow" IDCT (jsimd_idct_islow, the arithmetic of
+// jidctint.c in 16-bit lanes), which PIL runs on x86-64: 8x8 coefficients
+// and their quantizers -> samples. Valid data never leaves 16 bits, and
+// then this is jidctint.c; damaged data does, and then the lanes decide: a
+// dequantized coefficient and the sums in0 + in4, in0 - in4, in7 + in3 and
+// in5 + in1 wrap to 16 bits; pass 1's outputs saturate to 16 bits (and its
+// shortcut for a block whose rows 1-7 are all zero shifts the DC in 16
+// bits); pass 2's saturate to 16 and then 8 bits around the centre 128.
+// Each pass runs on 8 lanes at once: pass 1's lanes are the columns, pass
+// 2's the rows.
 const int kConstBits = 13, kPass1Bits = 2;
 const int32_t F0_298631336 = 2446, F0_390180644 = 3196, F0_541196100 = 4433,
               F0_765366865 = 6270, F0_899976223 = 7373, F1_175875602 = 9633,
@@ -268,114 +294,114 @@ const int32_t F0_298631336 = 2446, F0_390180644 = 3196, F0_541196100 = 4433,
 
 inline int32_t descale(int32_t x, int n) { return (x + (1 << (n - 1))) >> n; }
 
-inline uint8_t idct_limit(int32_t v) {
-  // range_limit[v & RANGE_MASK] of libjpeg's post-IDCT table (centre 128).
-  int x = v & 1023;
-  if (x < 128) return (uint8_t)(x + 128);
-  if (x < 512) return 255;
-  if (x < 896) return 0;
-  return (uint8_t)(x - 896);
+typedef int16_t I16x8 __attribute__((vector_size(16)));
+typedef uint16_t U16x8 __attribute__((vector_size(16)));
+typedef int32_t I32x8 __attribute__((vector_size(32)));
+typedef uint8_t U8x8 __attribute__((vector_size(8)));
+
+inline I32x8 wide(I16x8 v) { return __builtin_convertvector(v, I32x8); }
+inline I16x8 add16(I16x8 a, I16x8 b) { return (I16x8)((U16x8)a + (U16x8)b); }
+inline I16x8 sub16(I16x8 a, I16x8 b) { return (I16x8)((U16x8)a - (U16x8)b); }
+inline I32x8 clamp(I32x8 v, int32_t lo, int32_t hi) {
+  const I32x8 l = I32x8{} + lo, h = I32x8{} + hi;
+  v = v < l ? l : v;
+  return v > h ? h : v;
+}
+inline I32x8 descale(I32x8 x, int n) { return (x + (1 << (n - 1))) >> n; }
+
+// One 1-D pass over 8 lanes of 8 values `in` -> 8 unrounded outputs, scaled
+// by 2^13, in the order 0..7.
+inline void idct_1d(const I16x8* in, I32x8* o) {
+  const I32x8 z2 = wide(in[2]), z3 = wide(in[6]);
+  const I32x8 tmp2 = z2 * F0_541196100 + z3 * (F0_541196100 - F1_847759065);
+  const I32x8 tmp3 = z2 * (F0_541196100 + F0_765366865) + z3 * F0_541196100;
+  const I32x8 tmp0 = wide(add16(in[0], in[4])) * (1 << kConstBits);
+  const I32x8 tmp1 = wide(sub16(in[0], in[4])) * (1 << kConstBits);
+  const I32x8 tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const I32x8 t0 = wide(in[7]), t1 = wide(in[5]), t2 = wide(in[3]), t3 = wide(in[1]);
+  const I32x8 z3o = wide(add16(in[7], in[3])), z4o = wide(add16(in[5], in[1]));
+  const I32x8 zz3 = z3o * (F1_175875602 - F1_961570560) + z4o * F1_175875602;
+  const I32x8 zz4 = z3o * F1_175875602 + z4o * (F1_175875602 - F0_390180644);
+  const I32x8 o0 = t0 * (F0_298631336 - F0_899976223) + t3 * -F0_899976223 + zz3;
+  const I32x8 o3 = t0 * -F0_899976223 + t3 * (F1_501321110 - F0_899976223) + zz4;
+  const I32x8 o1 = t1 * (F2_053119869 - F2_562915447) + t2 * -F2_562915447 + zz4;
+  const I32x8 o2 = t1 * -F2_562915447 + t2 * (F3_072711026 - F2_562915447) + zz3;
+  o[0] = tmp10 + o3;
+  o[7] = tmp10 - o3;
+  o[1] = tmp11 + o2;
+  o[6] = tmp11 - o2;
+  o[2] = tmp12 + o1;
+  o[5] = tmp12 - o1;
+  o[3] = tmp13 + o0;
+  o[4] = tmp13 - o0;
+}
+
+inline void transpose(I16x8* m) {
+  // Three rounds of interleaving: 16-, 32- then 64-bit pairs of rows.
+  typedef int32_t I32x4 __attribute__((vector_size(16)));
+  typedef int64_t I64x2 __attribute__((vector_size(16)));
+  const I16x8 lo16 = {0, 8, 1, 9, 2, 10, 3, 11}, hi16 = {4, 12, 5, 13, 6, 14, 7, 15};
+  const I32x4 lo32 = {0, 4, 1, 5}, hi32 = {2, 6, 3, 7};
+  const I64x2 lo64 = {0, 2}, hi64 = {1, 3};
+  I16x8 a[8];
+  for (int i = 0; i < 4; ++i) {
+    a[2 * i] = __builtin_shuffle(m[2 * i], m[2 * i + 1], lo16);
+    a[2 * i + 1] = __builtin_shuffle(m[2 * i], m[2 * i + 1], hi16);
+  }
+  I32x4 b[8];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      const I32x4 x = (I32x4)a[4 * i + j], y = (I32x4)a[4 * i + j + 2];
+      b[4 * i + 2 * j] = __builtin_shuffle(x, y, lo32);
+      b[4 * i + 2 * j + 1] = __builtin_shuffle(x, y, hi32);
+    }
+  for (int j = 0; j < 4; ++j) {
+    const I64x2 x = (I64x2)b[j], y = (I64x2)b[j + 4];
+    m[2 * j] = (I16x8)__builtin_shuffle(x, y, lo64);
+    m[2 * j + 1] = (I16x8)__builtin_shuffle(x, y, hi64);
+  }
 }
 
 void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
-  int32_t ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* in = coef + c;
-    const int16_t* qt = q + c;
-    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
-      int32_t dc = (int32_t)(in[0] * qt[0]) << kPass1Bits;
-      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
-      continue;
-    }
-    int32_t z2 = in[16] * qt[16], z3 = in[48] * qt[48];
-    int32_t z1 = (z2 + z3) * F0_541196100;
-    int32_t tmp2 = z1 + z3 * -F1_847759065;
-    int32_t tmp3 = z1 + z2 * F0_765366865;
-    z2 = in[0] * qt[0];
-    z3 = in[32] * qt[32];
-    int32_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int32_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = in[56] * qt[56];
-    tmp1 = in[40] * qt[40];
-    tmp2 = in[24] * qt[24];
-    tmp3 = in[8] * qt[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int32_t z4 = tmp1 + tmp3;
-    int32_t z5 = (z3 + z4) * F1_175875602;
-    tmp0 *= F0_298631336;
-    tmp1 *= F2_053119869;
-    tmp2 *= F3_072711026;
-    tmp3 *= F1_501321110;
-    z1 *= -F0_899976223;
-    z2 *= -F2_562915447;
-    z3 *= -F1_961570560;
-    z4 *= -F0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    ws[0 * 8 + c] = descale(tmp10 + tmp3, sh);
-    ws[7 * 8 + c] = descale(tmp10 - tmp3, sh);
-    ws[1 * 8 + c] = descale(tmp11 + tmp2, sh);
-    ws[6 * 8 + c] = descale(tmp11 - tmp2, sh);
-    ws[2 * 8 + c] = descale(tmp12 + tmp1, sh);
-    ws[5 * 8 + c] = descale(tmp12 - tmp1, sh);
-    ws[3 * 8 + c] = descale(tmp13 + tmp0, sh);
-    ws[4 * 8 + c] = descale(tmp13 - tmp0, sh);
-  }
-  const int sh = kConstBits + kPass1Bits + 3;
+  I16x8 in[8];
+  U16x8 ac = {};
   for (int r = 0; r < 8; ++r) {
-    const int32_t* w = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = idct_limit(descale(w[0], kPass1Bits + 3));
-      for (int i = 0; i < 8; ++i) o[i] = v;
-      continue;
+    U16x8 c, k;
+    memcpy(&c, coef + r * 8, sizeof c);
+    memcpy(&k, q + r * 8, sizeof k);
+    in[r] = (I16x8)(c * k);  // wraps
+    if (r) ac |= c;
+  }
+  uint64_t any[2];
+  memcpy(any, &ac, sizeof any);
+  I16x8 ws[8];
+  if (!(any[0] | any[1])) {  // rows 1-7 all zero: the DC shifted in 16 bits
+    if (!(coef[1] | coef[2] | coef[3] | coef[4] | coef[5] | coef[6] | coef[7])) {
+      // and row 0 too: every sample is the DC's
+      const int32_t v = descale((int16_t)((uint16_t)in[0][0] << kPass1Bits), kPass1Bits + 3);
+      const uint8_t x = (uint8_t)(std::min(std::max(v, -128), 127) + 128);
+      for (int r = 0; r < 8; ++r) memset(out + r * stride, x, 8);
+      return;
     }
-    int32_t z2 = w[2], z3 = w[6];
-    int32_t z1 = (z2 + z3) * F0_541196100;
-    int32_t tmp2 = z1 + z3 * -F1_847759065;
-    int32_t tmp3 = z1 + z2 * F0_765366865;
-    int32_t tmp0 = (w[0] + w[4]) * (1 << kConstBits);
-    int32_t tmp1 = (w[0] - w[4]) * (1 << kConstBits);
-    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int32_t z4 = tmp1 + tmp3;
-    int32_t z5 = (z3 + z4) * F1_175875602;
-    tmp0 *= F0_298631336;
-    tmp1 *= F2_053119869;
-    tmp2 *= F3_072711026;
-    tmp3 *= F1_501321110;
-    z1 *= -F0_899976223;
-    z2 *= -F2_562915447;
-    z3 *= -F1_961570560;
-    z4 *= -F0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = idct_limit(descale(tmp10 + tmp3, sh));
-    o[7] = idct_limit(descale(tmp10 - tmp3, sh));
-    o[1] = idct_limit(descale(tmp11 + tmp2, sh));
-    o[6] = idct_limit(descale(tmp11 - tmp2, sh));
-    o[2] = idct_limit(descale(tmp12 + tmp1, sh));
-    o[5] = idct_limit(descale(tmp12 - tmp1, sh));
-    o[3] = idct_limit(descale(tmp13 + tmp0, sh));
-    o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+    const I16x8 dc = (I16x8)((U16x8)in[0] << kPass1Bits);
+    for (int r = 0; r < 8; ++r) ws[r] = dc;
+  } else {
+    I32x8 o[8];
+    idct_1d(in, o);
+    for (int r = 0; r < 8; ++r)
+      ws[r] = __builtin_convertvector(clamp(descale(o[r], kConstBits - kPass1Bits), -32768, 32767),
+                                      I16x8);
+  }
+  transpose(ws);
+  I32x8 o[8];
+  idct_1d(ws, o);
+  for (int c = 0; c < 8; ++c)
+    ws[c] = __builtin_convertvector(
+        clamp(descale(o[c], kConstBits + kPass1Bits + 3), -128, 127) + 128, I16x8);
+  transpose(ws);
+  for (int r = 0; r < 8; ++r) {
+    const U8x8 row = __builtin_convertvector(ws[r], U8x8);
+    memcpy(out + r * stride, &row, sizeof row);
   }
 }
 
@@ -392,6 +418,44 @@ struct Component {
 };
 
 inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// jdcolor.c build_ycc_rgb_table (SCALEBITS 16) and ycc_rgb_convert.
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int32_t half = 1 << 15;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      int32_t x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + half) >> 16);
+      cb_b[i] = (int)((fix(1.77200) * x + half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+  }
+  inline void rgb(int y, int cb, int cr, int& r, int& g, int& b) const {
+    r = clamp255(y + cr_r[cr]);
+    g = clamp255(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+    b = clamp255(y + cb_b[cb]);
+  }
+};
+
+const YccTables& ycc_tables() {
+  static const YccTables t;
+  return t;
+}
+
+// PIL's CMYK -> L: Convert.c cmyk2rgb (each of R, G, B = nk - nk * ink / 255
+// with nk = 255 - K, MULDIV255's rounding), then L from RGB.
+inline uint8_t cmyk_luma(int c, int m, int y, int k) {
+  const int nk = 255 - k;
+  auto ch = [nk](int ink) {
+    const int t = ink * nk + 128;
+    return nk - (((t >> 8) + t) >> 8);
+  };
+  return luma(ch(c), ch(m), ch(y));
+}
 
 // One component plane upsampled to the image size (jdsample.c).
 std::vector<uint8_t> upsample(const Component& c, int fx, int fy, int W, int H) {
@@ -457,12 +521,17 @@ struct Jpeg {
   bool qdef[4] = {false, false, false, false};
   Huff dc[4], ac[4];
   int W = 0, H = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Component comp[3];
+  Component comp[4];
   bool frame = false, progressive = false, jfif = false, adobe = false;
   int adobe_transform = -1, restart = 0, scans = 0;
   // libjpeg's coef_bits: per component and zig-zag index, -1 before any
   // scan codes the coefficient, else the Al of the last scan that did.
-  int coef_bits[3][64];
+  int coef_bits[4][64];
+  // jdphuff.c's copy of coef_bits 0 .. 9 from before the component's latest
+  // scan (0 for the file's first scan), and the iMCU row of the last MCU
+  // the latest scan began with data left (libjpeg's last_good_iMCU_row).
+  int prev_bits[4][10];
+  int last_good = 0, last_good_rows = 1;  // in the latest scan's MCU rows, and those an iMCU row
 
   // A new stream (SOI at data[0]) with the tables read so far.
   void begin(const uint8_t* data, size_t len) {
@@ -507,12 +576,16 @@ struct Jpeg {
     H = u16();
     W = u16();
     ncomp = u8();
-    if (p != 8) unsupported(std::to_string(p) + "-bit JPEG");
-    if (H == 0) unsupported("JPEG with a DNL marker (height 0)");
-    if (ncomp == 4) unsupported("CMYK/YCCK JPEG (4 components)");
-    if (ncomp != 1 && ncomp != 3) unsupported(std::to_string(ncomp) + "-component JPEG");
+    // PIL's JpegImagePlugin takes 8-bit frames of 1, 3 or 4 components;
+    // libjpeg refuses an empty frame (a height left to a DNL marker) and a
+    // side over JPEG_MAX_DIMENSION.
+    if (p != 8) corrupt(std::to_string(p) + "-bit JPEG (PIL reads 8-bit frames only)");
+    if (H == 0) corrupt("JPEG with a DNL marker (height 0)");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      corrupt(std::to_string(ncomp) + "-component JPEG (PIL reads 1, 3 or 4)");
     if ((size_t)len != 8 + 3 * (size_t)ncomp) corrupt("bad JPEG frame header");
     check_size(W, H);
+    if (W > 65500 || H > 65500) corrupt("JPEG larger than libjpeg's 65500 pixels a side");
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.id = u8();
@@ -524,6 +597,10 @@ struct Jpeg {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
+    if (ncomp > 1)
+      for (int i = 0; i < ncomp; ++i)
+        if (hmax % comp[i].h || vmax % comp[i].v)
+          corrupt("JPEG with fractional chroma sampling, which libjpeg does not upsample");
     mcux = (W + 8 * hmax - 1) / (8 * hmax);
     mcuy = (H + 8 * vmax - 1) / (8 * vmax);
     progressive = prog;
@@ -588,6 +665,19 @@ struct Jpeg {
       adobe_transform = a[11];
     }
     pos = end;
+  }
+
+  // DAC, arithmetic conditioning (jdmarker.c get_dac): checked, then unused
+  // by a Huffman-coded frame.
+  void dac() {
+    int len = u16() - 2;
+    if (len < 0 || pos + len > n) corrupt("bad JPEG arithmetic conditioning");
+    for (; len >= 2; len -= 2) {
+      int index = u8(), val = u8();
+      if (index >= 32 || (index < 16 && (val & 15) > (val >> 4)))
+        corrupt("bad JPEG arithmetic conditioning");
+    }
+    if (len) corrupt("bad JPEG arithmetic conditioning");
   }
 
   void block(BitReader& br, Component& c, int brow, int bcol) {
@@ -679,11 +769,34 @@ struct Jpeg {
     }
   }
 
+  // After a restart interval: jdmarker.c read_restart_marker with
+  // jpeg_resync_to_restart's rule. From where the bit reader stopped, the
+  // next marker: RSTn as expected, or a restart too far off, is consumed;
+  // one of the next two restarts, or a marker that is not a restart, is
+  // left for the next interval, which then reads as empty data; an earlier
+  // restart or an invalid marker is skipped for the one after it. Returns
+  // whether a marker was left (pos then at its FF).
+  bool restart_marker(int desired) {
+    for (int m = next_marker();; m = next_marker()) {
+      const int k = m - 0xD0;
+      const bool rst = k >= 0 && k <= 7;
+      if (m >= 0xC0 && (!rst || k == ((desired + 1) & 7) || k == ((desired + 2) & 7))) {
+        pos -= 2;
+        return true;
+      }
+      if (m < 0xC0 || k == ((desired - 1) & 7) || k == ((desired - 2) & 7)) continue;
+      return false;
+    }
+  }
+
   // Calls f(component, block row, block column) for each block of each MCU
   // of a scan, reading the restart markers between intervals; before each
-  // MCU, mcu_start(whether a restart came just before it).
-  template <class Reader, class Start, class F>
-  void each_block(Component** sc, int ns, Reader& br, Start mcu_start, F f) {
+  // MCU, mcu_start(whether a restart came just before it). An MCU that
+  // starts once the reader has run out of data in its interval (libjpeg's
+  // insufficient_data) is passed to `skipped` instead, block by block: a
+  // sequential decoder leaves its blocks zero, a progressive one as they are.
+  template <class Reader, class Start, class F, class Skip>
+  void each_block(Component** sc, int ns, Reader& br, Start mcu_start, F f, Skip skipped) {
     int rows, cols;
     if (ns == 1) {  // a non-interleaved scan covers the component's own blocks
       cols = (sc[0]->dw + 7) / 8;
@@ -694,27 +807,37 @@ struct Jpeg {
     }
     int64_t done = 0;
     int rst = 0;
+    last_good_rows = ns == 1 ? sc[0]->v : 1;  // MCU rows an iMCU row
     for (int my = 0; my < rows; ++my) {
       for (int mx = 0; mx < cols; ++mx) {
-        if (restart && done > 0 && done % restart == 0) {
-          // Expect RSTn, then restart the bit stream and the predictors.
+        bool restarted = restart && done > 0 && done % restart == 0;
+        if (br.took_padding()) br.starved = true;
+        if (restarted) {
+          // Drop the buffered bits, find RSTn, restart the predictors; out
+          // of data stays so only while a marker is left unread.
+          const bool starved = br.starved;
           br.reset();
           pos = br.pos;
-          int m = next_marker();
-          if (m != 0xD0 + rst) corrupt("JPEG restart marker missing");
+          const bool left = restart_marker(rst);
           rst = (rst + 1) & 7;
           br.pos = pos;
-          mcu_start(true);
-        } else {
-          mcu_start(false);
+          br.starved = left && starved;
         }
-        if (ns == 1) {
-          f(*sc[0], my, mx);
-        } else {
-          for (int i = 0; i < ns; ++i)
-            for (int v = 0; v < sc[i]->v; ++v)
-              for (int h = 0; h < sc[i]->h; ++h) f(*sc[i], my * sc[i]->v + v, mx * sc[i]->h + h);
-        }
+        mcu_start(restarted);
+        if (!br.starved) last_good = my;
+        auto mcu = [&](auto& g) {
+          if (ns == 1) {
+            g(*sc[0], my, mx);
+          } else {
+            for (int i = 0; i < ns; ++i)
+              for (int v = 0; v < sc[i]->v; ++v)
+                for (int h = 0; h < sc[i]->h; ++h) g(*sc[i], my * sc[i]->v + v, mx * sc[i]->h + h);
+          }
+        };
+        if (br.starved)
+          mcu(skipped);
+        else
+          mcu(f);
         ++done;
       }
     }
@@ -726,7 +849,7 @@ struct Jpeg {
     int len = u16();
     int ns = u8();
     if (ns < 1 || ns > ncomp || len != 6 + 2 * ns) corrupt("bad JPEG scan header");
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
       Component* c = nullptr;
@@ -766,51 +889,61 @@ struct Jpeg {
       }
       c->dc_pred = 0;
     }
+    int mcu_blocks = 0;
+    for (int i = 0; i < ns; ++i) mcu_blocks += sc[i]->h * sc[i]->v;
+    if (ns > 1 && mcu_blocks > 10) corrupt("JPEG scan of more than 10 blocks an MCU");
     ++scans;
 
     if (!progressive) {
       BitReader br{d, n, pos};
-      each_block(sc, ns, br, [&](bool rst) {
-        if (rst)
-          for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
-      }, [&](Component& c, int r, int col) { block(br, c, r, col); });
+      each_block(
+          sc, ns, br,
+          [&](bool rst) {
+            if (rst)
+              for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+          },
+          [&](Component& c, int r, int col) { block(br, c, r, col); },
+          [&](Component& c, int r, int col) {  // all-zero coefficients: flat 128
+            for (int y = 0; y < 8; ++y)
+              memset(&c.plane[((size_t)r * 8 + y) * c.pw + (size_t)col * 8], 128, 8);
+          });
       return;
     }
     for (int i = 0; i < ns; ++i) {
       int* cb = coef_bits[sc[i] - comp];
+      int* pb = prev_bits[sc[i] - comp];
+      for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), 9); ++k) pb[k] = scans > 1 ? cb[k] : 0;
       for (int k = ss; k <= se; ++k) cb[k] = al;
     }
     ProgressiveReader br{d, n, pos};
     int eobrun = 0;
-    bool skip = false;  // out of data in this restart interval: leave the rest
     auto start = [&](bool rst) {
       if (rst) {
         for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
         eobrun = 0;
       }
-      skip = br.starved;
     };
+    auto leave = [](Component&, int, int) {};  // out of data: the blocks stay as they are
     auto at = [](Component& c, int r, int col) {
       return &c.coef[((size_t)r * (c.pw / 8) + col) * 64];
     };
     if (ss == 0 && ah == 0) {
       each_block(sc, ns, br, start, [&](Component& c, int r, int col) {
-        if (!skip) dc_first(br, dc[c.td], c, at(c, r, col), al);
-      });
+        dc_first(br, dc[c.td], c, at(c, r, col), al);
+      }, leave);
     } else if (ss == 0) {
       const int16_t p1 = (int16_t)(1 << al);
       each_block(sc, ns, br, start, [&](Component& c, int r, int col) {
-        if (!skip && br.get(1)) *at(c, r, col) |= p1;
-      });
+        if (br.get(1)) *at(c, r, col) |= p1;
+      }, leave);
     } else {
       const Huff& t = ac[sc[0]->ta];
       each_block(sc, ns, br, start, [&](Component& c, int r, int col) {
-        if (skip) return;
         if (ah == 0)
           ac_first(br, t, at(c, r, col), ss, se, al, eobrun);
         else
           ac_refine(br, t, at(c, r, col), ss, se, al, eobrun);
-      });
+      }, leave);
     }
   }
 
@@ -829,19 +962,101 @@ struct Jpeg {
     return useful;
   }
 
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 3): before its IDCT,
+  // each block's first nine AC coefficients that are still zero and not
+  // known exactly (coef_bits not 0) are estimated from the DC values of the
+  // 5 x 5 blocks around it (edges repeated); with no AC data at all the DC
+  // is smoothed too. Rows past the last scan's last good iMCU row use the
+  // coef_bits from before that scan.
+  void smooth_plane(int ci) {
+    Component& c = comp[ci];
+    const int bw = c.pw / 8, wb = (c.dw + 7) / 8, hb = (c.dh + 7) / 8;
+    auto at = [&](int r, int col) { return &c.coef[((size_t)r * bw + col) * 64]; };
+    int64_t Q[10];  // the quantizers of zig-zag 0 .. 9 (Q00, Q01, Q10, Q20, Q11, Q02, ...)
+    for (int k = 0; k < 10; ++k) Q[k] = (uint16_t)c.q[kNatural[k]];
+    const int* prev = scans > 1 ? prev_bits[ci] : nullptr;
+    for (int r = 0; r < hb; ++r) {
+      const int* bits = r / c.v > last_good / last_good_rows ? prev : coef_bits[ci];
+      auto known = [&](int k) { return bits ? bits[k] : -1; };
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && known(k) == -1;
+      // The neighbouring block rows as libjpeg-turbo picks them: by the
+      // row's index counted in rows of its own iMCU row's height (that of
+      // the last iMCU row, short when the image ends inside it, differs).
+      // A row two above is its neighbour above where that index is 1; two
+      // below can be an MCU-padding row (its DC as coded, or 0).
+      const int im = r / c.v, rows_here = im < mcuy - 1 || hb % c.v == 0 ? c.v : hb % c.v;
+      const int idx = im * rows_here + r % c.v, last = rows_here * mcuy - 1;
+      const int up = idx > 0 ? r - 1 : r, down = idx < last ? r + 1 : r;
+      const int rows[5] = {idx > 1 ? r - 2 : up, up, r, down, idx < last - 1 ? r + 2 : down};
+      for (int col = 0; col < wb; ++col) {
+        int DC[26];  // DC[1 + 5 * i + j]: row r - 2 + i, column col - 2 + j
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j)
+            DC[1 + 5 * i + j] = at(rows[i], std::min(std::max(col - 2 + j, 0), wb - 1))[0];
+        int16_t ws[64];
+        memcpy(ws, at(r, col), sizeof ws);
+        auto predict = [&](int k, int64_t weighted) {
+          const int al = known(k), pos = kNatural[k];
+          if (al == 0 || ws[pos] != 0) return;
+          const int64_t num = Q[0] * weighted, d = Q[k] << 8;
+          int64_t pred = ((Q[k] << 7) + (num >= 0 ? num : -num)) / d;
+          if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          ws[pos] = (int16_t)(num >= 0 ? pred : -pred);
+        };
+        const int *D = DC;
+        if (change_dc) {
+          predict(1, -D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10] -
+                         3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] - 3 * D[16] + 13 * D[17] -
+                         13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25]);
+          predict(2, -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7] + 38 * D[8] +
+                         13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18] - 13 * D[19] + D[20] +
+                         D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24] + D[25]);
+          predict(3, D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] - 5 * D[14] +
+                         2 * D[17] + 7 * D[18] + 2 * D[19] + D[23]);
+          predict(4, -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25]);
+          predict(5, 2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] + 7 * D[14] +
+                         D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19]);
+          predict(6, D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]);
+          predict(7, D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]);
+          predict(8, D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19]);
+          predict(9, D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]);
+          const int64_t num =
+              Q[0] * (-2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] + 6 * D[7] +
+                      42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] + 42 * D[12] + 152 * D[13] +
+                      42 * D[14] - 8 * D[15] - 6 * D[16] + 6 * D[17] + 42 * D[18] + 6 * D[19] -
+                      6 * D[20] - 2 * D[21] - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25]);
+          const int64_t pred = ((Q[0] << 7) + (num >= 0 ? num : -num)) / (Q[0] << 8);
+          ws[0] = (int16_t)(num >= 0 ? pred : -pred);
+        } else {
+          predict(1, -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15]);
+          predict(2, -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23]);
+          predict(3, -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23]);
+          predict(4, D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24] + D[4] -
+                         D[6] + 10 * D[7] - 10 * D[9]);
+          predict(5, -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]);
+        }
+        idct_islow(ws, c.q, &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+      }
+    }
+  }
+
   // The progressive coefficients -> planes, once, after the last scan: the
   // blocks that hold the component's samples (the rest are never read).
   void idct_planes() {
-    if (would_smooth())
-      unsupported("progressive JPEG with unrefined coefficients (libjpeg's block smoothing)");
+    const bool smooth = would_smooth();
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.plane.assign((size_t)c.pw * c.ph, 0);
       const int bw = c.pw / 8;
-      for (int r = 0; r < (c.dh + 7) / 8; ++r)
-        for (int col = 0; col < (c.dw + 7) / 8; ++col)
-          idct_islow(&c.coef[((size_t)r * bw + col) * 64], c.q,
-                     &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+      if (smooth) {
+        smooth_plane(i);
+      } else {
+        for (int r = 0; r < (c.dh + 7) / 8; ++r)
+          for (int col = 0; col < (c.dw + 7) / 8; ++col)
+            idct_islow(&c.coef[((size_t)r * bw + col) * 64], c.q,
+                       &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+      }
       std::vector<int16_t>().swap(c.coef);
     }
   }
@@ -858,12 +1073,14 @@ struct Jpeg {
         corrupt("JPEG tables stream holds image data");
       if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         sof(m == 0xC2);
-      } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
+      } else if (m == 0xC3 || m == 0xCB) {
         unsupported("lossless JPEG");
-      } else if (m == 0xC5 || m == 0xC6 || m == 0xCE) {
-        unsupported("hierarchical JPEG");
-      } else if (m == 0xC9 || m == 0xCA || m == 0xCD || m == 0xCC) {
+      } else if (m == 0xC9 || m == 0xCA) {
         unsupported("arithmetic-coded JPEG");
+      } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF) {
+        corrupt("hierarchical (differential) JPEG, which libjpeg does not decode");
+      } else if (m == 0xCC) {
+        dac();
       } else if (m == 0xC4) {
         dht();
       } else if (m == 0xDB) {
@@ -873,10 +1090,8 @@ struct Jpeg {
         restart = u16();
       } else if (m == 0xDA) {
         sos();
-      } else if (m == 0xDC) {
-        unsupported("JPEG with a DNL marker");
-      } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || (m >= 0xF0 && m <= 0xFD)) {
-        app(m);
+      } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+        app(m);  // a DNL segment after a frame with a height is skipped, as libjpeg does
       } else if (m >= 0xD0 && m <= 0xD7) {
         continue;  // a stray restart marker
       } else if (m == 0x01) {
@@ -899,44 +1114,57 @@ struct Jpeg {
       for (int y = 0; y < H; ++y) memcpy(&g.px[(size_t)y * W], &comp[0].plane[(size_t)y * comp[0].pw], W);
       return g;
     }
-    std::vector<uint8_t> full[3];
-    for (int i = 0; i < 3; ++i) {
+    std::vector<uint8_t> full[4];
+    for (int i = 0; i < ncomp; ++i) {
       const Component& c = comp[i];
-      if (hmax % c.h || vmax % c.v) unsupported("JPEG with fractional chroma sampling");
       full[i] = upsample(c, hmax / c.h, vmax / c.v, W, H);
     }
-    bool rgb;
+    // libjpeg's colour space (jdapimin.c default_decompress_parms): three
+    // components are YCbCr under JFIF, else as Adobe's transform says (0:
+    // RGB), else RGB only when named R, G, B; four are YCCK where Adobe's
+    // transform is not 0, else CMYK.
+    bool ycc;
     if (mode != kColorFromMarkers) {
-      rgb = mode == kColorAsIs;
-    } else if (jfif) {
-      rgb = false;
+      ycc = mode == kColorYcc;
+    } else if (ncomp == 3 && jfif) {
+      ycc = true;
     } else if (adobe) {
-      rgb = adobe_transform == 0;
+      ycc = adobe_transform != 0;
     } else {
-      rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+      ycc = ncomp == 3 && !(comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
     }
-    if (rgb) {
-      for (size_t i = 0; i < g.px.size(); ++i) g.px[i] = luma(full[0][i], full[1][i], full[2][i]);
+    const YccTables t = ycc_tables();  // a copy on the stack, out of the pixels' way
+    const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
+    if (ncomp == 4) {
+      // CMYK, or YCCK that libjpeg turns into CMYK (jdcolor.c
+      // ycck_cmyk_convert: 255 minus the RGB of Y, Cb, Cr; K as coded).
+      // PIL reads a JPEG file's CMYK as Adobe's inverted "CMYK;I", a TIFF's
+      // (libtiff's JCS_UNKNOWN) as it is.
+      const uint8_t* c3 = full[3].data();
+      const int inv = mode == kColorFromMarkers ? 255 : 0;
+      for (size_t i = 0; i < g.px.size(); ++i) {
+        int c = c0[i], m = c1[i], y = c2[i];
+        if (ycc) {
+          int r, gg, b;
+          t.rgb(c0[i], c1[i], c2[i], r, gg, b);
+          c = 255 - r;
+          m = 255 - gg;
+          y = 255 - b;
+        }
+        g.px[i] = cmyk_luma(c ^ inv, m ^ inv, y ^ inv, c3[i] ^ inv);
+      }
       return g;
     }
-    // jdcolor.c build_ycc_rgb_table: SCALEBITS 16.
-    int cr_r[256], cb_b[256];
-    int32_t cr_g[256], cb_g[256];
-    const int32_t half = 1 << 15;
-    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
-    for (int i = 0; i < 256; ++i) {
-      int32_t x = i - 128;
-      cr_r[i] = (int)((fix(1.40200) * x + half) >> 16);
-      cb_b[i] = (int)((fix(1.77200) * x + half) >> 16);
-      cr_g[i] = -fix(0.71414) * x;
-      cb_g[i] = -fix(0.34414) * x + half;
+    uint8_t* o = g.px.data();
+    const size_t n = g.px.size();
+    if (!ycc) {
+      for (size_t i = 0; i < n; ++i) o[i] = luma(c0[i], c1[i], c2[i]);
+      return g;
     }
-    for (size_t i = 0; i < g.px.size(); ++i) {
-      int y = full[0][i], cb = full[1][i], cr = full[2][i];
-      int r = clamp255(y + cr_r[cr]);
-      int gg = clamp255(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
-      int b = clamp255(y + cb_b[cb]);
-      g.px[i] = luma(r, gg, b);
+    for (size_t i = 0; i < n; ++i) {
+      int r, gg, b;
+      t.rgb(c0[i], c1[i], c2[i], r, gg, b);
+      o[i] = luma(r, gg, b);
     }
     return g;
   }
@@ -960,6 +1188,8 @@ struct Palette {
   uint8_t grey[256] = {0};
 };
 
+// A kind PIL's BmpImagePlugin refuses (a header size, bit depth, bitfields
+// layout, compression or palette size it does not know) is corrupt here too.
 Gray decode_bmp(const uint8_t* d, size_t n) {
   if (n < 18) corrupt("BMP file ends early");
   uint32_t offset = le32(d + 10);
@@ -998,12 +1228,12 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
       }
     }
   } else {
-    unsupported("BMP header of " + std::to_string(hsize) + " bytes");
+    corrupt("BMP header of " + std::to_string(hsize) + " bytes");
   }
   if (colors == 0) colors = 1u << std::min(bits, 31);
   if (offset == 14 + hsize && bits <= 8) offset += 4 * colors;
   if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
-    unsupported(std::to_string(bits) + "-bit BMP");
+    corrupt(std::to_string(bits) + "-bit BMP");
   check_size(w, h);
   const int W = (int)w, H = (int)h;
 
@@ -1031,7 +1261,7 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
           found = true;
           break;
         }
-      if (!found) unsupported("BMP bitfields layout");
+      if (!found) corrupt("BMP bitfields layout");
       layout = 32;
     } else if (bits == 24 && masks[0] == 0xFF0000 && masks[1] == 0xFF00 && masks[2] == 0xFF) {
       layout = 24;
@@ -1040,19 +1270,19 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
     } else if (bits == 16 && masks[0] == 0x7C00 && masks[1] == 0x3E0 && masks[2] == 0x1F) {
       layout = 15;
     } else {
-      unsupported("BMP bitfields layout");
+      corrupt("BMP bitfields layout");
     }
   } else if (compression == 0) {
     layout = bits == 16 ? 15 : bits;
   } else if (compression == 1 || compression == 2) {
     decoder = kRle;
   } else {
-    unsupported("BMP compression " + std::to_string(compression));
+    corrupt("BMP compression " + std::to_string(compression));
   }
 
   Palette pal;
   if (bits <= 8) {
-    if (colors == 0 || colors > 65536) unsupported("BMP palette size");
+    if (colors == 0 || colors > 65536) corrupt("BMP palette size");
     size_t pstart = 14 + hsize;
     size_t avail = pstart < n ? std::min((size_t)pal_pad * colors, n - pstart) : 0;
     size_t entries = std::min<size_t>(avail / pal_pad, 256);
@@ -1070,11 +1300,13 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
       for (int i = 0; i < 256; ++i) pal.grey[i] = colors == 2 ? (i ? 255 : 0) : (uint8_t)i;
   }
 
+  if (offset > n) corrupt("BMP pixel data missing");
+  const size_t stride = (((size_t)W * bits + 31) >> 3) & ~(size_t)3;
+  if (decoder == kRaw && offset + stride * H > n) corrupt("BMP pixel data ends early");
   Gray g;
   g.w = W;
   g.h = H;
   g.px.resize((size_t)W * H);
-  if (offset > n) corrupt("BMP pixel data missing");
   if (decoder == kRle) {
     if ((compression == 1 && bits != 8) || (compression == 2 && bits != 4))
       corrupt("BMP RLE with the wrong bit depth");
@@ -1136,8 +1368,6 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
     }
     return g;
   }
-  size_t stride = (((size_t)W * bits + 31) >> 3) & ~(size_t)3;
-  if (offset + stride * H > n) corrupt("BMP pixel data ends early");
   for (int y = 0; y < H; ++y) {
     const uint8_t* r = d + offset + stride * (top_down ? y : H - 1 - y);
     uint8_t* o = &g.px[(size_t)y * W];
@@ -1766,7 +1996,76 @@ struct Chunks {  // a TIFF's strips or tiles
   const std::vector<uint32_t>& counts;
   uint32_t cw, ch;  // a chunk's size
   bool tiles;
+  int sub_h, sub_v;  // the YCbCrSubsampling tag, 0 when the file has none
 };
+
+// Whether PIL's TiffImagePlugin.OPEN_INFO holds a mode for this layout:
+// the byte order, photometric, SampleFormat (one value when every sample's
+// is 1), FillOrder, BitsPerSample (one per sample, a single value repeated)
+// and ExtraSamples as the file gives them. PIL refuses any other, and more
+// than 6 samples.
+struct TiffLayout {
+  bool be;
+  uint32_t photometric, fill, spp;
+  std::vector<uint32_t> fmt, bps, extra;
+};
+
+// Not inlined, and its arguments by reference: decode_tiff keeps its frame
+// (see jpeg_tiff).
+[[gnu::noinline]] bool pil_tiff_mode(const TiffLayout& layout) {
+  const bool be = layout.be;
+  const uint32_t photo = layout.photometric, fill = layout.fill, spp = layout.spp;
+  std::vector<uint32_t> fmt = layout.fmt, bps = layout.bps;
+  const std::vector<uint32_t>& extra = layout.extra;
+  if (spp > 6) return false;
+  if (bps.size() > spp) bps.resize(spp);
+  if (bps.size() == 1 && spp > 1) bps.assign(spp, bps[0]);
+  if (bps.size() != spp || spp == 0) return false;
+  if (fmt.size() > 1 && std::all_of(fmt.begin(), fmt.end(), [](uint32_t f) { return f == 1; }))
+    fmt.assign(1, 1);
+  if (fmt.size() != 1 || (fill != 1 && fill != 2)) return false;
+  const uint32_t f = fmt[0], b = bps[0], n = spp;
+  for (uint32_t v : bps)
+    if (v != b) return false;
+  auto extra_is = [&](std::initializer_list<uint32_t> e) {
+    return extra.size() == e.size() && std::equal(e.begin(), e.end(), extra.begin());
+  };
+  const bool none = extra.empty(), low = b == 1 || b == 2 || b == 4 || b == 8;
+  switch (photo) {
+    case 0:
+    case 1:
+      if (!none) return photo == 1 && f == 1 && fill == 1 && b == 8 && n == 2 && extra_is({2});
+      if (n != 1) return false;
+      if (f == 1 && low) return true;
+      if (fill == 2) return photo == 1 && f == 1 && b == 16 && !be;
+      if (f == 1) return photo == 0 ? b == 16 && !be : (b == 12 && !be) || b == 16 || (b == 32 && !be);
+      if (f == 2) return photo == 1 && (b == 8 || b == 16 || b == 32);
+      return f == 3 && b == 32;
+    case 2:
+      if (f != 1) return false;
+      if (fill == 2) return b == 8 && n == 3 && none;
+      if (b == 16) return (n == 3 && none) || (n == 4 && (none || extra_is({0}) || extra_is({1}) || extra_is({2})));
+      if (b != 8) return false;
+      if (n == 3 || (n == 4 && none)) return none;
+      if (n == 4 && extra_is({999})) return true;
+      if (extra.size() != n - 3 || extra[0] > 2) return false;
+      return std::all_of(extra.begin() + 1, extra.end(), [](uint32_t e) { return e == 0; });
+    case 3:
+      if (f != 1) return false;
+      if (n == 1) return low && none;
+      return fill == 1 && n == 2 && b == 8 && (extra_is({0}) || extra_is({2}));
+    case 5:
+      if (f != 1 || fill != 1) return false;
+      if (b == 16) return n == 4 && none;
+      return b == 8 && ((n == 4 && none) || (n == 5 && extra_is({0})) || (n == 6 && extra_is({0, 0})));
+    case 6:
+      return f == 1 && fill == 1 && b == 8 && none && (n == 1 || n == 3);
+    case 8:
+      return f == 1 && fill == 1 && b == 8 && none && n == 3;
+    default:
+      return false;
+  }
+}
 
 // JPEG-in-TIFF: each strip or tile a JPEG stream, read by one decoder, so
 // that the tables of JPEGTables (the entry `tables`, if not 0) and any a
@@ -1793,22 +2092,30 @@ struct Chunks {  // a TIFF's strips or tiles
     jp.markers(true);
   }
   const uint32_t W = g.w, H = g.h, across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
-  int sub_h = 0, sub_v = 0;
+  // The YCbCr subsampling: the tag's, else the first stream's luma
+  // sampling (libtiff's tag fix-up); libtiff takes 1, 2 or 4 only.
+  int sub_h = c.sub_h, sub_v = c.sub_v;
+  std::vector<uint8_t> stream;
   for (uint32_t ty = 0; ty < down; ++ty) {
     for (uint32_t tx = 0; tx < across; ++tx) {
       const size_t idx = (size_t)ty * across + tx, off = c.offsets[idx], cnt = c.counts[idx];
       const uint32_t y0 = ty * ch, x0 = tx * cw, rows = c.tiles ? ch : std::min(ch, H - y0);
       if (off > n || cnt > n - off) corrupt("TIFF strip outside the file");
-      jp.begin(d + off, cnt);
+      // libtiff feeds libjpeg an EOI once a strip's bytes run out
+      // (std_fill_input_buffer), so a stream cut short still decodes.
+      stream.assign(d + off, d + off + cnt);
+      stream.insert(stream.end(), {0xFF, 0xD9});
+      jp.begin(stream.data(), stream.size());
       Gray px = jp.run(photometric == 6 ? kColorYcc : kColorAsIs);
       if ((uint32_t)jp.ncomp != spp) corrupt("JPEG-in-TIFF stream with the wrong component count");
       if (photometric == 6 && sub_h == 0) {
         sub_h = jp.comp[0].h;
         sub_v = jp.comp[0].v;
+      }
+      if (photometric == 6)
         for (int f : {sub_h, sub_v})
           if (f != 1 && f != 2 && f != 4)
-            unsupported("JPEG-in-TIFF with YCbCr subsampling " + std::to_string(f));
-      }
+            corrupt("JPEG-in-TIFF with YCbCr subsampling " + std::to_string(f));
       const int want_h = photometric == 6 ? sub_h : 1, want_v = photometric == 6 ? sub_v : 1;
       for (int i = 0; i < jp.ncomp; ++i)
         if (jp.comp[i].h != (i ? 1 : want_h) || jp.comp[i].v != (i ? 1 : want_v))
@@ -1832,7 +2139,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   uint32_t count = t.r16(ifd);
   uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
            planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
-  std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1};
+  std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1}, ycbcr_sub;
   bool strips = false, tiles = false;
   size_t jpeg_tables = 0;  // the JPEGTables entry, if any
   for (uint32_t i = 0; i < count; ++i) {
@@ -1861,58 +2168,77 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       case 338: extra = t.values(e); break;
       case 339: fmt = t.values(e); break;
       case 347: jpeg_tables = e; break;
+      case 530: ycbcr_sub = t.values(e); break;
       default: break;
     }
   }
   check_size(W, H);
+  // What PIL itself refuses is corrupt: a compression its TiffImagePlugin
+  // does not name, a layout without a mode in its OPEN_INFO, a CIELab image
+  // (opened as LAB, which convert("L") refuses), and what libtiff refuses
+  // under it.
+  static const uint32_t kPilCompressions[] = {1,     2,     3,     4,     5,     6,     7,    8,    32771,
+                                              32773, 32809, 32946, 34676, 34677, 34925, 50000, 50001};
+  if (std::find(std::begin(kPilCompressions), std::end(kPilCompressions), compression) ==
+      std::end(kPilCompressions))
+    corrupt("TIFF compression " + std::to_string(compression) + ", which PIL does not name");
+  if (!pil_tiff_mode(TiffLayout{t.be, compression == 6 ? 6 : photometric, fill, spp, fmt, bps, extra}))
+    corrupt("TIFF layout without a PIL mode (photometric " + std::to_string(photometric) + ", " +
+            std::to_string(spp) + " samples of " + std::to_string(bps.at(0)) + " bits)");
+  if (bps.size() == 1 && spp > 1) bps.assign(spp, bps[0]);
+  if (fmt.size() == 1 && spp > 1) fmt.assign(spp, fmt[0]);
+  const int bits = (int)bps[0];
+  if (photometric == 8) corrupt("CIELab TIFF (PIL cannot convert LAB to L)");
   const bool fax = compression == 2 || compression == 3 || compression == 4;
   const bool jpeg = compression == 7, zip = compression == 8 || compression == 32946;
+  // libtiff's codecs: SGILog wants a LogLuv image (no PIL mode), WebP is not
+  // built into PIL's libtiff, the fax codecs take 1 bit, ThunderScan 4, JPEG
+  // 8 or 12, and a predictor is 1, 2 (8 to 64 bits) or 3 (floating point).
+  if (compression == 34676 || compression == 34677 || compression == 50001)
+    corrupt("TIFF compression " + std::to_string(compression) + ", which PIL's libtiff refuses");
+  if ((fax || compression == 32771) && bits != 1) corrupt("CCITT-coded TIFF of more than 1 bit");
+  if (compression == 32809 && bits != 4) corrupt("ThunderScan TIFF not of 4 bits");
+  if (jpeg && bits != 8 && bits != 12) corrupt(std::to_string(bits) + "-bit JPEG-in-TIFF");
+  const bool predicted = compression == 5 || zip || compression == 34925 || compression == 50000;
+  if (predicted && (predictor < 1 || predictor > 3))
+    corrupt("TIFF predictor " + std::to_string(predictor));
+  if (predicted && predictor == 2 && bits != 8 && bits != 16 && bits != 32 && bits != 64)
+    corrupt("TIFF predictor 2 with " + std::to_string(bits) + "-bit samples");
+  if (predicted && predictor == 3 && fmt[0] != 3) corrupt("TIFF floating-point predictor on integers");
+
+  // Kinds PIL reads and the port does not yet (ROADMAP A.6).
   if (compression == 6) unsupported("old-style JPEG-in-TIFF (compression 6)");
   if (compression != 1 && compression != 5 && compression != 32773 && !fax && !jpeg && !zip)
     unsupported("TIFF compression " + std::to_string(compression));
   // YCbCr is read only as libtiff's JPEG codec converts it, in one plane.
-  if (photometric == 5 || photometric == 8 || (photometric == 6 && !(jpeg && planar == 1)))
-    unsupported(photometric == 5 ? "CMYK TIFF" : photometric == 6 ? "YCbCr TIFF" : "CIELab TIFF");
+  if (photometric == 6 && !(jpeg && planar == 1)) unsupported("YCbCr TIFF");
   if (fill != 1) unsupported("TIFF with FillOrder 2");
   if (spp > 1 && planar == 2) unsupported("planar TIFF");
-  if (spp < 1 || spp > 6) unsupported("TIFF with " + std::to_string(spp) + " samples per pixel");
-  if (bps.size() == 1 && spp > 1) bps.assign(spp, bps[0]);
-  if (bps.size() != spp) corrupt("bad TIFF BitsPerSample");
-  for (uint32_t b : bps)
-    if (b != bps[0]) unsupported("TIFF with mixed sample sizes");
-  const int bits = (int)bps[0];
   if (fax) {
-    if (bits != 1 || spp != 1 || photometric > 1)
-      unsupported("CCITT-coded TIFF of " + std::to_string(spp) + " samples of " +
-                  std::to_string(bits) + " bits, photometric " + std::to_string(photometric));
+    if (photometric > 1) unsupported("CCITT-coded palette TIFF");
     if (tiles) unsupported("CCITT-coded TIFF in tiles");
     if ((compression == 3 && (t4opts & 2)) || (compression == 4 && (t6opts & 2)))
       unsupported("CCITT uncompressed mode");
   }
-  if (fmt.size() == 1 && spp > 1) fmt.assign(spp, fmt[0]);
+  if (predicted && predictor == 3) unsupported("TIFF floating-point predictor (3)");
   bool signed8 = fmt[0] == 2 && bits == 8 && spp == 1 && photometric == 1;
   for (uint32_t f : fmt)
     if (f != 1 && !signed8) unsupported("TIFF sample format " + std::to_string(f));
-  // libtiff applies a predictor only inside the LZW and Deflate codecs.
-  const bool predicted = compression == 5 || zip;
-  if (predicted && predictor == 3) unsupported("TIFF floating-point predictor (3)");
-  if (predicted && predictor != 1 && predictor != 2)
-    unsupported("TIFF predictor " + std::to_string(predictor));
   const bool pred2 = predictor == 2 && predicted;
   if (pred2 && bits != 8 && bits != 16) unsupported("TIFF predictor 2 at this sample size");
   if (jpeg && bits != 8) unsupported(std::to_string(bits) + "-bit JPEG-in-TIFF");
-  if (jpeg && !(photometric == 1 ? spp == 1 : (photometric == 2 || photometric == 6) && spp == 3))
+  if (jpeg && !(photometric == 1   ? spp == 1
+                : photometric == 5 ? spp == 4
+                                   : (photometric == 2 || photometric == 6) && spp == 3))
     unsupported("JPEG-in-TIFF of photometric " + std::to_string(photometric) + " with " +
                 std::to_string(spp) + " samples");
 
   // What the samples mean, in PIL's OPEN_INFO terms.
-  enum { kGrey, kGreyInv, kGrey16, kRgb, kPal, kGreyAlpha } kind = kGrey;
-  uint32_t nextra = spp - (photometric == 2 ? 3 : 1);
+  enum { kGrey, kGreyInv, kGrey16, kRgb, kPal, kGreyAlpha, kCmyk } kind = kGrey;
   if (jpeg) {
     // libjpeg's output, converted to grey per strip or tile below.
   } else if (photometric <= 1 && spp == 1) {
     if (bits == 16) {
-      if (photometric == 0 && t.be) unsupported("big-endian 16-bit WhiteIsZero TIFF");
       kind = kGrey16;
     } else if (bits == 1 || bits == 2 || bits == 4 || bits == 8) {
       kind = photometric == 0 ? kGreyInv : kGrey;
@@ -1921,15 +2247,11 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     }
   } else if (photometric == 1 && spp == 2 && bits == 8 && extra.size() == 1 && extra[0] == 2) {
     kind = kGreyAlpha;
-  } else if (photometric == 2 && spp >= 3 && (bits == 8 || (bits == 16 && spp <= 4))) {
-    if (extra.size() > nextra) corrupt("bad TIFF ExtraSamples");
-    for (size_t i = 0; i < extra.size(); ++i) {
-      if (extra[i] == 1) unsupported("TIFF with associated alpha");
-      if (i > 0 ? extra[i] != 0 : extra[i] != 0 && extra[i] != 2 && extra[i] != 999)
-        unsupported("TIFF extra samples");
-    }
-    if (extra.size() < nextra && !(nextra == 1 && extra.empty())) unsupported("TIFF extra samples");
+  } else if (photometric == 2) {  // PIL's modes: 3 to 6 samples, extra ones unassociated
+    if (!extra.empty() && extra[0] == 1) unsupported("TIFF with associated alpha");
     kind = kRgb;
+  } else if (photometric == 5) {  // PIL's CMYK, CMYKX, CMYKXX and 16-bit CMYK
+    kind = kCmyk;
   } else if (photometric == 3 && spp == 1 && (bits == 1 || bits == 2 || bits == 4 || bits == 8)) {
     if (cmap.size() != 3u << bits) corrupt("bad TIFF colour map");
     kind = kPal;
@@ -1960,7 +2282,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   g.h = (int)H;
   g.px.resize((size_t)W * H);
   if (jpeg) {
-    jpeg_tiff(t, jpeg_tables, photometric, spp, Chunks{offsets, counts, cw, ch, tiles}, g);
+    const bool sub = ycbcr_sub.size() >= 2;
+    jpeg_tiff(t, jpeg_tables, photometric, spp,
+              Chunks{offsets, counts, cw, ch, tiles, sub ? (int)ycbcr_sub[0] : 0,
+                     sub ? (int)ycbcr_sub[1] : 0}, g);
     return g;
   }
   // Bilevel grey (CCITT scans among them) goes straight to 0 / 255; every
@@ -2057,6 +2382,12 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
           g.px[i] = luma(s[0] >> 8, s[1] >> 8, s[2] >> 8);
         else
           g.px[i] = luma(s[0], s[1], s[2]);
+        break;
+      case kCmyk:
+        if (bits == 16)
+          g.px[i] = cmyk_luma(s[0] >> 8, s[1] >> 8, s[2] >> 8, s[3] >> 8);
+        else
+          g.px[i] = cmyk_luma(s[0], s[1], s[2], s[3]);
         break;
     }
   }

@@ -13,10 +13,11 @@ built with ``g++`` at first use into ``build/siggan_tpu_torch/``
 (``ops/kernels/build.py::load_host``); there is no other decoder to fall
 back on.
 
-Statuses: ``OK``; ``CORRUPT`` (truncated or malformed data, raised as
-``ValueError``); ``UNSUPPORTED`` (a valid file of a kind not read yet,
-raised as ``NotImplementedError`` naming ROADMAP A.6); ``UNREADABLE`` (the
-file could not be opened or read, ``OSError``); ``PNG``.
+Statuses: ``OK``; ``CORRUPT`` (truncated or malformed data, or a kind PIL
+itself refuses, such as a 12-bit JPEG or a TIFF layout PIL has no mode
+for: raised as ``ValueError``); ``UNSUPPORTED`` (a file PIL reads, of a
+kind not read yet, raised as ``NotImplementedError`` naming ROADMAP A.6);
+``UNREADABLE`` (the file could not be opened or read, ``OSError``); ``PNG``.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ SOURCE = Path(__file__).with_name("decode.cpp")
 # It names the dataset cache (``data/dataset.py``), so a cache written by an
 # older decoder is never read. Bump it in every change that alters a decoded
 # or resized pixel. d1: the decoders of the PNG-in-Python port; d2: PNG rows
-# unfiltered by ``sig_png_unfilter``.
-DECODE_VERSION = "d2"
+# unfiltered by ``sig_png_unfilter``; d3: damaged JPEG data read as
+# libjpeg-turbo reads it (restart resync, bad Huffman codes, its SIMD IDCT
+# on out-of-range coefficients), so files that were zero images decode.
+DECODE_VERSION = "d3"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 

@@ -146,6 +146,11 @@ def _samples(rows: np.ndarray, w: int, chans: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, chans)
 
 
+# PIL's Image.open refuses an image of more than 2 * Image.MAX_IMAGE_PIXELS
+# pixels (DecompressionBombError); the C++ decoder holds the same limit.
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """A PNG file -> uint8 (H, W, C) as PIL opens it and takes it to 8 bits:
     grey (C=1), grey + alpha (C=2), RGB (C=3) or RGBA (C=4); a palette image
@@ -154,7 +159,7 @@ def decode_png(data: bytes) -> np.ndarray:
     16-bit grey clamped at 255 and 16-bit colour or alpha reduced to its
     high byte, as PIL's conversions do; Adam7 interlacing. Every colour
     type and bit depth of the standard is read. Raises ``ValueError`` on a
-    malformed file or a bad chunk CRC."""
+    malformed file, a bad chunk CRC or more than ``MAX_PIXELS`` pixels."""
     if data[:8] != _SIG:
         raise ValueError("not a PNG")
     pos, idat, hdr, plte = 8, [], None, None
@@ -183,6 +188,9 @@ def decode_png(data: bytes) -> np.ndarray:
     if (ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or method or filt
             or interlace > 1 or not w or not h):
         raise ValueError(f"bad PNG header (depth {depth}, colour type {ctype})")
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"image of {w * h} pixels (PIL's decompression-bomb limit is "
+                         f"{MAX_PIXELS})")
     if ctype == 3 and plte is None:
         raise ValueError("palette PNG without a PLTE chunk")
     chans = _CHANNELS[ctype]

@@ -11,10 +11,13 @@ bitfields, RLE or an OS/2 header, TIFF tiles, big-endian and 16-bit files),
 by small writers here, with PIL's reading as the reference. The datasets of
 both packages agree on a mixed tree (the JAX native decoder switched off:
 it differs from PIL by design, which ``tests/test_native_decoder.py``
-bounds, and this file holds the port within that bound of it). A valid file
-of a kind not read yet raises ``NotImplementedError`` naming ROADMAP A.6;
-only a corrupt or unreadable file becomes a zero image, with a warning."""
+bounds, and this file holds the port within that bound of it). A file PIL
+reads, of a kind not read yet, raises ``NotImplementedError`` naming ROADMAP
+A.6; a corrupt or unreadable file, or one PIL itself refuses
+(``tests/test_torch_port_refusals.py``), becomes a zero image, with a
+warning."""
 
+import hashlib
 import io
 import logging
 import math
@@ -205,10 +208,11 @@ def quantized_blocks(img: np.ndarray, sampling, quality: int, rgb_ids: bool = Fa
     """The quantization table (natural order) and, per component, its
     quantized DCT blocks (block rows, block columns, 64 in natural order)
     over the MCU-padded plane, as a baseline or progressive encoder codes
-    them."""
+    them. Three channels are RGB, coded as YCbCr unless ``rgb_ids``; four
+    are coded as they are."""
     h, w = img.shape[:2]
     planes = [img.astype(np.float64)] if img.ndim == 2 else [img[..., i].astype(np.float64)
-                                                            for i in range(3)]
+                                                            for i in range(img.shape[2])]
     if len(planes) == 3 and not rgb_ids:
         r, g, b = planes
         planes = [0.299 * r + 0.587 * g + 0.114 * b,
@@ -306,7 +310,7 @@ def jpeg_bytes(img: np.ndarray, sampling, quality: int, restart: int = 0,
                         if run:
                             code(ac_codes, 0)
     flush()
-    ids = [ord("R"), ord("G"), ord("B")] if rgb_ids else [1, 2, 3]
+    ids = [ord("R"), ord("G"), ord("B")] if rgb_ids else [1, 2, 3, 4]
     sof = struct.pack(">BHHB", 8, h, w, len(blocks)) + b"".join(
         bytes([ids[i], (sh << 4) | sv, 0]) for i, (sh, sv) in enumerate(sampling))
     sos = bytes([len(blocks)]) + b"".join(bytes([ids[i], 0]) for i in range(len(blocks))) \
@@ -631,33 +635,42 @@ def test_format_comes_from_content_not_suffix(tmp_path):
 def _unsupported_files(tmp_path):
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
-    from test_torch_port_progressive import cut_scans, pil_jpeg
-    # PIL's progressive script cut after 6 of its 10 scans: libjpeg smooths
-    # between blocks where coefficients are unrefined.
-    (tmp_path / "cut_script.jpg").write_bytes(
-        cut_scans(pil_jpeg(img, quality=80, progressive=True), 6))
     from test_torch_port_ccitt import ccitt_bytes, strips, wrap
     # Group 4 with FillOrder 2: each byte's bits reversed (CCITT itself is read).
     rev = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
     (strip,) = strips(ccitt_bytes(img[..., 0] > 128, "t6"))
     (tmp_path / "fill_order_2.tif").write_bytes(
         wrap(40, 24, [strip.translate(rev)], 4, extra=[(266, 3, 2)]))
-    Image.fromarray(img).convert("CMYK").save(tmp_path / "cmyk.tiff", compression="tiff_deflate")
-    Image.fromarray(img).convert("CMYK").save(tmp_path / "cmyk.jpg")
-    return {"cut_script.jpg": "progressive JPEG with unrefined coefficients",
-            "fill_order_2.tif": "FillOrder 2", "cmyk.tiff": "CMYK TIFF", "cmyk.jpg": "CMYK"}
+    Image.fromarray(img).save(tmp_path / "big.tiff", big_tiff=True)
+    (tmp_path / "planar.tif").write_bytes(tiff_file(
+        40, 24, [img.transpose(2, 0, 1).tobytes()],
+        [(258, 3, [8] * 3), (259, 3, [1]), (262, 3, [2]), (277, 3, [3]), (284, 3, [2]),
+         (273, 4, None), (278, 4, [24]), (279, 4, None)]))
+    return {"fill_order_2.tif": "FillOrder 2", "big.tiff": "BigTIFF", "planar.tif": "planar TIFF"}
 
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (a cut
-    progressive scan script, CCITT with FillOrder 2, CMYK TIFF and JPEG)."""
+    NotImplementedError naming the feature and ROADMAP A.6 (CCITT with
+    FillOrder 2, BigTIFF, planar RGB). The kinds this test named before the
+    port read them (a cut progressive scan script, CMYK TIFF and JPEG) now
+    read bit-equal with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
             tdataset.decode_image(tmp_path / name, 16)
         with pytest.raises(NotImplementedError, match="A.6"):
             tdataset.SignatureDataset(tmp_path, 16, use_cache=False)
+    img = pixels(np.random.RandomState(4), (24, 40, 3)).astype(np.uint8)
+    from test_torch_port_progressive import cut_scans, pil_jpeg
+    read = tmp_path / "read"
+    read.mkdir()
+    (read / "cut_script.jpg").write_bytes(
+        cut_scans(pil_jpeg(img, quality=80, progressive=True), 6))
+    Image.fromarray(img).convert("CMYK").save(read / "cmyk.tiff", compression="tiff_deflate")
+    Image.fromarray(img).convert("CMYK").save(read / "cmyk.jpg")
+    for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg"):
+        assert_port_reads_as_pil(read / name)
 
 
 @pytest.mark.parametrize("name,keep", [("cut.jpg", 300), ("cut.png", 60), ("cut.bmp", 70),
@@ -857,10 +870,66 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     (out / "jpeg_ycbcr.tif").write_bytes(jpeg_tiff(small, 6, rows_per_strip=16, sub=2, quality=85,
                                                    abbreviate=True))
     files["jpeg_ycbcr.tif"] = out / "jpeg_ycbcr.tif"
+    # Damaged JPEG data, CMYK and YCCK, a cut progressive script, from the
+    # small page (no new draws; 200 wide where a file is cut into MCU rows
+    # of 25 MCUs, one restart interval each, from which chip_smoke.py
+    # tiles its page-sized files, ``chip_smoke.tile_jpeg``).
+    page = small[:, :200]
+    save("restart_444.jpg", Image.fromarray(page), "JPEG", quality=85, subsampling=0,
+         restart_marker_blocks=25)
+    data = (out / "restart_444.jpg").read_bytes()
+    rst = [i for i in range(len(data) - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+    (out / "restart_damaged.jpg").write_bytes(data[:rst[4]] + data[rst[4] + 2:])
+    buf = io.BytesIO()
+    Image.fromarray(small).save(buf, "JPEG", quality=75, subsampling=2)
+    data = buf.getvalue()
+    at = data.index(b"\xff\xda") + 2000
+    (out / "bad_code.jpg").write_bytes(data[:at] + b"\xff\x00" * 3 + data[at:])
+    buf = io.BytesIO()
+    Image.fromarray(np.random.RandomState(2026).randint(0, 256, (32, 32)).astype(np.uint8)).save(
+        buf, "JPEG", quality=100)
+    (out / "dqt_q64.jpg").write_bytes(with_quantizers(buf.getvalue(), 64))
+    cmyk = np.asarray(Image.fromarray(page).convert("CMYK"))
+    save("cmyk.jpg", Image.fromarray(cmyk, "CMYK"), "JPEG", quality=85, restart_marker_blocks=25)
+    from test_torch_port_cmyk import ycck_bytes
+    (out / "ycck.jpg").write_bytes(ycck_bytes(cmyk, ((2, 2), (1, 1), (1, 1), (2, 2)), 85))
+    save("cmyk.tif", Image.fromarray(cmyk, "CMYK"), "TIFF", compression="tiff_adobe_deflate")
+    from test_torch_port_progressive import cut_scans
+    buf = io.BytesIO()
+    Image.fromarray(small).save(buf, "JPEG", quality=85, subsampling=2, progressive=True)
+    (out / "progressive_cut.jpg").write_bytes(cut_scans(buf.getvalue(), 4))
+    for name in ("restart_damaged.jpg", "bad_code.jpg", "dqt_q64.jpg", "ycck.jpg",
+                 "progressive_cut.jpg"):
+        files[name] = out / name
     golden = {name: pil_gray(path) for name, path in files.items()}
     assert np.array_equal(golden.pop("progressive_page.jpg"), golden["scan_420.jpg"])
+    # The progressive page cut after 6 of its 10 scans, which chip_smoke.py
+    # decodes: a page of golden array would pass the 1 MB, so its digest.
+    cut = cut_scans((out / "progressive_page.jpg").read_bytes(), 6)
+    with Image.open(io.BytesIO(cut)) as im:
+        (out / "progressive_cut_page.sha256").write_text(
+            gray_digest(np.asarray(im.convert("L"))) + "\n")
     np.savez_compressed(out / "golden.npz", **golden)
     return load_golden(out)
+
+
+def gray_digest(gray: np.ndarray) -> str:
+    """SHA-256 of a grey image's shape and pixels, in hex."""
+    return hashlib.sha256(repr(gray.shape).encode() + np.ascontiguousarray(gray).tobytes()).hexdigest()
+
+
+def with_quantizers(data: bytes, q: int) -> bytes:
+    """A JPEG with every entry of its 8-bit quantization tables set to
+    ``q``: its coefficients, coded for other quantizers, then dequantize
+    past the range of valid data."""
+    d, i = bytearray(data), 2
+    while d[i + 1] != 0xDA:
+        n = (d[i + 2] << 8) | d[i + 3]
+        if d[i + 1] == 0xDB:
+            for j in range(i + 4, i + 2 + n, 65):
+                d[j + 1:j + 65] = bytes([q]) * 64
+        i += 2 + n
+    return bytes(d)
 
 
 def load_golden(root: Path = FIXTURES) -> dict:
@@ -876,7 +945,7 @@ def test_fixtures_are_pil_exact_and_small():
     their golden arrays (the progressive page as scan_420.jpg's); together
     they stay under 1 MB."""
     golden = load_golden()
-    assert len(golden) == 28 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    assert len(golden) == 36 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
     assert golden["scan_420.jpg"].shape == golden["ccitt_g4_page.tif"].shape == (500, 1200)
     assert golden["progressive_page.jpg"] is golden["scan_420.jpg"]
     for name, want in golden.items():

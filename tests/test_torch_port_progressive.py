@@ -8,10 +8,10 @@ optimised tables, restart intervals) read bit-equal with PIL's
 same quality and subsampling give the same quantized coefficients). Scan
 scripts PIL does not write come from ``progressive_bytes`` here: DC scans
 interleaved or not, at Al 0 or 1, with or without their refinement, AC
-bands with end-of-block runs, components left out. Where libjpeg would
-smooth between blocks (some of the first ten coefficients unrefined,
-``jdcoefct.c::smoothing_ok``) the port raises ``NotImplementedError``
-naming ROADMAP A.6; elsewhere it decodes as PIL does."""
+bands with end-of-block runs, components left out. Where libjpeg smooths
+between blocks (some of the first ten coefficients unrefined,
+``jdcoefct.c::smoothing_ok``) the port smooths as libjpeg-turbo 3's
+``decompress_smooth_data`` does, bit-equal with PIL too."""
 
 import io
 import struct
@@ -225,7 +225,9 @@ def test_scan_sized_progressive_pages_match_pil(tmp_path):
 def test_cut_pil_script_raises_where_libjpeg_smooths(tmp_path, sub):
     """Every cut of PIL's scan script (6 scans grey, 10 in colour) leaves
     some of the first ten coefficients unrefined: PIL then smooths between
-    blocks, and the port refuses the file rather than decode it otherwise."""
+    blocks (the DC too after the first scan, which codes no AC), and so does
+    the port, bit-equal; 4:2:0 at 40 rows has a padding block row that the
+    smoothing of the row two above it reads."""
     rs = np.random.RandomState(11)
     img = pixels(rs, (40, 56) if sub == "grey" else (40, 56, 3)).astype(np.uint8)
     kw = {} if sub == "grey" else {"subsampling": sub}
@@ -236,9 +238,33 @@ def test_cut_pil_script_raises_where_libjpeg_smooths(tmp_path, sub):
     for keep in range(1, n):
         path = tmp_path / f"cut{keep}.jpg"
         path.write_bytes(cut_scans(data, keep))
+        assert libjpeg_smooths(pil_script(data, keep), 1 if sub == "grey" else 3)
         assert not np.array_equal(pil_gray(path), full)   # PIL reads it, not as the whole file
-        with pytest.raises(NotImplementedError, match="unrefined coefficients.*ROADMAP A.6"):
-            tdataset.decode_gray(path)
+        assert_port_reads_as_pil(path)
+
+
+def test_cut_progressive_page_matches_pil():
+    """The page ``chip_smoke.py`` phase 12 decodes and times: the committed
+    1200 x 500 progressive page cut after 6 of its 10 scans, bit-equal with
+    PIL; the card's machine has no PIL, so it holds the page to the digest
+    of PIL's grey that the fixtures keep."""
+    from test_torch_port_decode import FIXTURES, gray_digest
+    data = cut_scans((FIXTURES / "progressive_page.jpg").read_bytes(), 6)
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im.convert("L"))
+    np.testing.assert_array_equal(tnative.decode(data), want)
+    assert (FIXTURES / "progressive_cut_page.sha256").read_text().split() == [gray_digest(want)]
+
+
+def pil_script(data: bytes, keep: int) -> list:
+    """The first ``keep`` scans of a file as (components, Ss, Se, Ah, Al)."""
+    script = []
+    for at in scan_offsets(data)[:keep]:
+        ns = data[at + 4]
+        comps = tuple(data[at + 5 + 2 * i] - 1 for i in range(ns))
+        ss, se, ahl = data[at + 5 + 2 * ns:at + 8 + 2 * ns]
+        script.append((comps, ss, se, ahl >> 4, ahl & 15))
+    return script
 
 
 # -- scan scripts of this file's encoder -------------------------------------------
@@ -268,19 +294,15 @@ def _script(draw, ncomp):
        sub=st.sampled_from(["grey", 0, 1, 2]), restart=st.sampled_from([0, 1, 3]),
        seed=st.integers(0, 2 ** 16))
 def test_written_scan_scripts_match_pil_or_raise(tmp_path, data, h, w, sub, restart, seed):
-    """Drawn scan scripts: bit-equal with PIL wherever libjpeg does not
-    smooth (``libjpeg_smooths``), refused naming A.6 where it does."""
+    """Drawn scan scripts: bit-equal with PIL, whether libjpeg smooths
+    between blocks (``libjpeg_smooths``) or not."""
     sampling = SUBSAMPLING[sub]
     script = _script(data.draw, len(sampling))
     rs = np.random.RandomState(seed)
     img = pixels(rs, (h, w) if sub == "grey" else (h, w, 3)).astype(np.uint8)
     path = tmp_path / "s.jpg"
     path.write_bytes(progressive_bytes(img, sampling, 75, script, restart))
-    if libjpeg_smooths(script, len(sampling)):
-        with pytest.raises(NotImplementedError, match="unrefined coefficients.*ROADMAP A.6"):
-            tdataset.decode_gray(path)
-    else:
-        assert_port_reads_as_pil(path)
+    assert_port_reads_as_pil(path)
 
 
 # The DC scans, then each component's AC bands.
@@ -299,16 +321,33 @@ _AC = [((c,), 1, 9, 0, 0) for c in range(3)] + [((c,), 10, 63, 0, 0) for c in ra
 ])
 def test_named_scan_scripts(tmp_path, name, script, smooths):
     """The edges of libjpeg's rule: it looks at AC 1-9 only, and only once
-    every component's DC is known."""
+    every component's DC is known; smoothed or not, the port reads the file
+    as PIL does."""
     assert libjpeg_smooths(script, 3) == smooths
     img = pixels(np.random.RandomState(12), (27, 35, 3)).astype(np.uint8)
     path = tmp_path / "n.jpg"
     path.write_bytes(progressive_bytes(img, SUBSAMPLING[2], 80, script))
-    if smooths:
-        with pytest.raises(NotImplementedError, match="unrefined coefficients"):
-            tdataset.decode_gray(path)
-    else:
-        assert_port_reads_as_pil(path)
+    assert_port_reads_as_pil(path)
+
+
+@pytest.mark.parametrize("sampling,h", [(((1, 2),), 18), (((1, 2),), 28), (((1, 4),), 35),
+                                        (((1, 2), (1, 1), (1, 1)), 22),
+                                        (((2, 2), (1, 1), (1, 1)), 40),
+                                        (((2, 2), (1, 1), (1, 1), (2, 2)), 19)])
+def test_smoothing_picks_neighbour_rows_as_libjpeg(tmp_path, sampling, h):
+    """Block smoothing of DC-only scans (the DC smoothed too) where the
+    luma has 2 or 4 block rows an iMCU row: libjpeg-turbo counts a row's
+    neighbours in rows of its own iMCU row's height, so in a short last
+    iMCU row the row two above can be the row above, and the row two below
+    can be an MCU-padding row; the port picks the same rows."""
+    n = len(sampling)
+    rs = np.random.RandomState(h)
+    img = rs.randint(0, 256, (h, 27) if n == 1 else (h, 27, 3)).astype(np.uint8)
+    if n == 4:
+        img = np.dstack([img, img[..., :1]])
+    path = tmp_path / "s.jpg"
+    path.write_bytes(progressive_bytes(img, sampling, 50, [(tuple(range(n)), 0, 0, 0, 0)]))
+    assert_port_reads_as_pil(path)
 
 
 # -- what still raises, and truncation --------------------------------------------
@@ -316,12 +355,24 @@ def test_named_scan_scripts(tmp_path, name, script, smooths):
 @pytest.mark.parametrize("marker,kind", [(0xC6, "hierarchical JPEG"),
                                          (0xCA, "arithmetic-coded JPEG"),
                                          (0xCE, "hierarchical JPEG")])
-def test_other_frames_raise_naming_their_kind(marker, kind):
+def test_other_frames_raise_naming_their_kind(tmp_path, marker, kind):
+    """Arithmetic coding (SOF10) is a kind libjpeg decodes and the port not
+    yet: it raises naming A.6. libjpeg refuses hierarchical frames (SOF6,
+    SOF14), so PIL fails and both packages' ``decode_image`` give the zero
+    image; the port calls the file corrupt (ValueError), naming its kind."""
     data = bytearray(pil_jpeg(np.full((16, 16), 128, np.uint8), progressive=True))
     at = data.index(b"\xff\xc2")
     data[at + 1] = marker
-    with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP A.6"):
+    if kind == "arithmetic-coded JPEG":
+        with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP A.6"):
+            tnative.decode(bytes(data))
+        return
+    path = tmp_path / "h.jpg"
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=kind.split()[0]):
         tnative.decode(bytes(data))
+    assert not jdataset.decode_image(path, 16).any()
+    np.testing.assert_array_equal(tdataset.decode_image(path, 16), jdataset.decode_image(path, 16))
 
 
 def test_progressive_scan_without_its_huffman_table_is_corrupt(tmp_path):

@@ -163,9 +163,11 @@ def test_written_deflate_tiff_matches_pil(tmp_path, kind, h, w, seed):
 
 
 def test_deflate_stops_at_the_strip_and_refuses_what_libtiff_refuses(tmp_path):
-    """Bytes after a strip's stream are not read; a stream that ends short
-    and a bad zlib header are corrupt (PIL fails, the datasets take a zero
-    image); predictor 3 (floating point) is a kind not read yet."""
+    """Bytes after a strip's stream are not read; a stream that ends short,
+    a bad zlib header and predictor 3 on integer samples (libtiff's
+    PredictorSetup refuses it) are corrupt (PIL fails, the datasets take a
+    zero image); predictor 3 on float samples, which PIL reads, is a kind
+    not read yet."""
     img = pixels(np.random.RandomState(14), (30, 44, 1)).astype(np.int64)
     z = zlib.compress(np.diff(img[..., 0], prepend=0, axis=1).astype(np.uint8).tobytes())
     tags = [(258, 3, [8]), (259, 3, [8]), (262, 3, [1]), (277, 3, [1]), (317, 3, [2]),
@@ -174,16 +176,22 @@ def test_deflate_stops_at_the_strip_and_refuses_what_libtiff_refuses(tmp_path):
     path = tmp_path / "trailing.tif"
     path.write_bytes(tiff_file(44, 30, [z + b"junk after the stream"], tags))
     assert_port_reads_as_pil(path)
-    for name, blob in (("short.tif", z[:len(z) // 2]), ("header.tif", b"\x78\x9d" + z[2:])):
+    (tmp_path / "float.tif").write_bytes(deflate_tiff(img, 8, 1).replace(
+        struct.pack("<HHII", 317, 3, 1, 1), struct.pack("<HHII", 317, 3, 1, 3)))
+    for name, blob in (("short.tif", z[:len(z) // 2]), ("header.tif", b"\x78\x9d" + z[2:]),
+                       ("float.tif", None)):
         path = tmp_path / name
-        path.write_bytes(tiff_file(44, 30, [blob], tags))
+        if blob is not None:
+            path.write_bytes(tiff_file(44, 30, [blob], tags))
         assert not jdataset.decode_image(path, 16).any()
         assert not tdataset.decode_image(path, 16).any()
         with pytest.raises(ValueError):
             tdataset.decode_gray(path)
-    path = tmp_path / "float.tif"
-    path.write_bytes(deflate_tiff(img, 8, 1).replace(struct.pack("<HHII", 317, 3, 1, 1),
-                                                     struct.pack("<HHII", 317, 3, 1, 3)))
+    path = tmp_path / "float32.tif"
+    Image.fromarray(img[..., 0].astype(np.float32)).save(path, "TIFF",
+                                                         compression="tiff_adobe_deflate",
+                                                         tiffinfo={317: 3})
+    assert jdataset.decode_image(path, 16).any()      # PIL reads it
     with pytest.raises(NotImplementedError, match="floating-point predictor.*ROADMAP A.6"):
         tdataset.decode_gray(path)
 

@@ -259,7 +259,16 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     np.testing.assert_array_equal(have.img2, want.img2)
     Image.fromarray(scan).convert("CMYK").save(tmp_path / "users" / "writer_010" / "cmyk.tif",
                                                compression="tiff_adobe_deflate")
-    with pytest.raises(NotImplementedError, match="CMYK TIFF.*ROADMAP A.6"):
+    jnative.available = lambda: False
+    try:
+        want = jpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
+    finally:
+        jnative.available = available
+    have = tpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
+    np.testing.assert_array_equal(have.img1, want.img1)
+    np.testing.assert_array_equal(have.img2, want.img2)
+    Image.fromarray(scan).save(tmp_path / "users" / "writer_010" / "big.tif", big_tiff=True)
+    with pytest.raises(NotImplementedError, match="BigTIFF.*ROADMAP A.6"):
         tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
 
