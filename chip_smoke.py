@@ -120,13 +120,20 @@ Phases (any failure raises and the script exits non-zero):
      scan_420.jpg's; Deflate with predictor 2; JPEG-in-TIFF YCbCr 4:2:0 and
      grey; a restart marker missing, a bad Huffman code, quantizers of 64;
      CMYK and YCCK JPEG, CMYK TIFF; a cut progressive script that libjpeg
-     smooths) bit-equal to its golden array (PIL's grey, saved where the
+     smooths; old-style JPEG-in-TIFF grey and 4:2:0 in both layouts;
+     float32 with predictor 3, int16, uint32, 12-bit and int32 TIFF;
+     lossless and arithmetic-coded JPEG) bit-equal to its golden array
+     (PIL's grey, saved where the
      fixtures were written: this host has no PIL), a Deflate page written
      here with zlib from scan_420.jpg's grey bit-equal to it, a restart-
      damaged and a CMYK JPEG page tiled here from fixtures' restart
      intervals (``tile_jpeg``) and a CMYK TIFF page of scan_420.jpg's grey
      bit-equal to the greys they were built from, the cut progressive page
-     bit-equal to PIL's grey by its digest, and a 12-bit JPEG (which PIL refuses) a zero image in a
+     bit-equal to PIL's grey by its digest, 1200 x 500 pages of the
+     newest kinds built here (``a6_pages``: scan_420.jpg as old-style
+     JPEG-in-TIFF, its grey as float32 with predictor 3, arithmetic and
+     lossless pages from restart intervals) bit-equal to PIL's grey by
+     their digests, and a 12-bit JPEG (which PIL refuses) a zero image in a
      ``SignatureDataset``; time the threaded batch decode per format at 1
      and 8 threads (images/s, the pages apart); rewrite phase 11's 1320
      scans as a mixed tree in CEDAR's shape (PNG, BMP and uncompressed TIFF
@@ -208,7 +215,10 @@ Phases (any failure raises and the script exits non-zero):
      of the 64 px default, its fused generator forwards and v1.1 at global
      batch 64 (32 rows each) in
      f32 (rtol 1e-4 atol 1e-5) and bf16 (a looser bar, printed) against one
-     process's steps at batch 64, the ranks' states bitwise equal, B2's
+     process's steps at batch 64, both sides under cuDNN's deterministic
+     algorithms (``dp_two_ranks``: a repeat of one process's steps gives
+     their bits, the spread is 3 permuted batches'), the ranks' states
+     bitwise equal, B2's
      layer route over both ranks against its plain version with the same
      hook and against the single call on the whole batch;
  17. print the kernels line (one JSON object; B1, B1' and B2 with their
@@ -1854,30 +1864,18 @@ def tiff_grey(u8, rows_per_strip: int = 0, deflate: bool = False) -> bytes:
     import numpy as np
     h, w = u8.shape
     rps = rows_per_strip or h
-    data, offsets, counts = bytearray(b"II*\0\0\0\0\0"), [], []
+    blobs = []
     for y in range(0, h, rps):
         rows = u8[y:y + rps]
         if deflate:
             diff = rows.astype(np.int16)
             diff[:, 1:] -= rows[:, :-1]
             rows = zlib.compress(diff.astype(np.uint8).tobytes(), 6)
-        offsets.append(len(data))
-        data += bytes(rows)
-        counts.append(len(data) - offsets[-1])
-    data += b"\0" * (len(data) & 1)
-    n = len(offsets)
-    if n > 1:   # more than one LONG: the arrays go outside the IFD
-        at = len(data)
-        data += np.array(offsets + counts, "<u4").tobytes()
-        offsets, counts = [at], [at + 4 * n]
-    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, 8), (259, 3, 1, 8 if deflate else 1),
-               (262, 3, 1, 1), (273, 4, n, offsets[0]), (277, 3, 1, 1), (278, 4, 1, rps),
-               (279, 4, n, counts[0])] + ([(317, 3, 1, 2)] if deflate else [])
-    data[4:8] = len(data).to_bytes(4, "little")
-    data += len(entries).to_bytes(2, "little") + b"".join(
-        tag.to_bytes(2, "little") + typ.to_bytes(2, "little") + cnt.to_bytes(4, "little")
-        + val.to_bytes(4, "little") for tag, typ, cnt, val in entries) + bytes(4)
-    return bytes(data)
+        blobs.append(bytes(rows))
+    return tiff_pack(w, h, blobs, [
+        (258, 3, [8]), (259, 3, [8 if deflate else 1]), (262, 3, [1]), (273, 4, lambda o: o),
+        (277, 3, [1]), (278, 4, [rps]), (279, 4, [len(b) for b in blobs])]
+        + ([(317, 3, [2])] if deflate else []))
 
 
 def tiff_cmyk(u8, rows_per_strip: int = 0) -> bytes:
@@ -1892,35 +1890,27 @@ def tiff_cmyk(u8, rows_per_strip: int = 0) -> bytes:
     rps = rows_per_strip or h
     cmyk = np.zeros((h, w, 4), np.uint8)
     cmyk[..., 3] = 255 - u8
-    data, offsets, counts = bytearray(b"II*\0\0\0\0\0"), [], []
-    for y in range(0, h, rps):
-        offsets.append(len(data))
-        data += zlib.compress(cmyk[y:y + rps].tobytes(), 6)
-        counts.append(len(data) - offsets[-1])
-    data += b"\0" * (len(data) & 1)
-    n, at = len(offsets), len(data)   # then the offsets, the counts and BitsPerSample
-    data += np.array(offsets + counts, "<u4").tobytes() + np.array([8] * 4, "<u2").tobytes()
-    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 4, at + 8 * n), (259, 3, 1, 8),
-               (262, 3, 1, 5), (273, 4, n, offsets[0] if n == 1 else at), (277, 3, 1, 4),
-               (278, 4, 1, rps), (279, 4, n, counts[0] if n == 1 else at + 4 * n)]
-    data[4:8] = len(data).to_bytes(4, "little")
-    data += len(entries).to_bytes(2, "little") + b"".join(
-        tag.to_bytes(2, "little") + typ.to_bytes(2, "little") + cnt.to_bytes(4, "little")
-        + val.to_bytes(4, "little") for tag, typ, cnt, val in entries) + bytes(4)
-    return bytes(data)
+    blobs = [zlib.compress(cmyk[y:y + rps].tobytes(), 6) for y in range(0, h, rps)]
+    return tiff_pack(w, h, blobs, [
+        (258, 3, [8] * 4), (259, 3, [8]), (262, 3, [5]), (273, 4, lambda o: o), (277, 3, [4]),
+        (278, 4, [rps]), (279, 4, [len(b) for b in blobs])])
 
 
 def tile_jpeg(data: bytes, width: int, height: int, pick, renumber=None) -> bytes:
     """A JPEG of ``width`` x ``height`` built from the restart intervals of
-    ``data``, a 4:4:4 JPEG whose restart interval is one row of MCUs (8
-    pixel rows), no re-encoding: each MCU row of the new image is
+    ``data``, a 4:4:4 JPEG (Huffman or arithmetic-coded, sequential) whose
+    restart interval is one row of MCUs (8 pixel rows), no re-encoding:
+    each MCU row of the new image is
     ``width // w`` of those intervals side by side, ``pick(i, j)`` naming
     the source row for row i, place j (each interval resets the DC
     predictions, and no sample of one MCU depends on another's, so the
     image is the source's rows tiled). ``renumber(k)`` may change the
     number of the k-th restart marker written (damage that libjpeg's
-    resynchronisation takes back, such as a number 4 ahead)."""
-    sof = next(i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] in (0xC0, 0xC1))
+    resynchronisation takes back, such as a number 4 ahead). An
+    arithmetic-coded interval starts its statistics afresh, as a Huffman
+    one its DC predictions."""
+    sof = next(i for i in range(len(data) - 1)
+               if data[i] == 0xFF and data[i + 1] in (0xC0, 0xC1, 0xC9))
     h, w = int.from_bytes(data[sof + 5:sof + 7], "big"), int.from_bytes(data[sof + 7:sof + 9], "big")
     sos = data.index(b"\xff\xda")
     start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
@@ -1965,14 +1955,157 @@ def tile_golden(golden, width: int, height: int, pick):
     return out[:height]
 
 
+def tiff_pack(w: int, h: int, blobs, entries, be: bool = False) -> bytes:
+    """A one-page TIFF: ``blobs`` after the 8-byte header (each at an even
+    offset), then the IFD of ``entries``, (tag, type, values) with type 3
+    SHORT, 4 LONG or 5 RATIONAL (a (numerator, denominator) a value); a
+    values entry may be a function of the blobs' offsets."""
+    import struct
+    o = ">" if be else "<"
+    data, offsets = bytearray(struct.pack(o + "2sHI", b"MM" if be else b"II", 42, 0)), []
+    for b in blobs:
+        data += b"\0" * (len(data) & 1)
+        offsets.append(len(data))
+        data += b
+    data += b"\0" * (len(data) & 1)
+    entries = sorted([(256, 4, [w]), (257, 4, [h])] + [
+        (tag, typ, vals(offsets) if callable(vals) else vals) for tag, typ, vals in entries])
+    ifd_at = len(data)
+    struct.pack_into(o + "I", data, 4, ifd_at)
+    base, tail = ifd_at + 2 + 12 * len(entries) + 4, bytearray()
+    ifd = bytearray(struct.pack(o + "H", len(entries)))
+    for tag, typ, vals in entries:
+        raw = (b"".join(struct.pack(o + "II", *v) for v in vals) if typ == 5 else
+               struct.pack(o + {3: "H", 4: "I"}[typ] * len(vals), *[int(v) for v in vals]))
+        if len(raw) <= 4:
+            ifd += struct.pack(o + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(o + "HHII", tag, typ, len(vals), base + len(tail))
+            tail += raw + b"\0" * (len(raw) & 1)
+    return bytes(data + ifd + struct.pack(o + "I", 0) + tail)
+
+
+def ojpeg_wrap(stream: bytes, w: int, h: int, spp: int, photometric: int = 6) -> bytes:
+    """An old-style JPEG-in-TIFF (compression 6) of a whole JPEG stream of
+    ``spp`` components: JPEGInterchangeFormat and its length give the
+    stream, one strip points at the same bytes (as the old writers laid
+    such files out)."""
+    return tiff_pack(w, h, [stream], [
+        (258, 3, [8] * spp), (259, 3, [6]), (262, 3, [photometric]), (277, 3, [spp]),
+        (273, 4, lambda o: [o[0]]), (278, 4, [h]), (279, 4, [len(stream)]),
+        (513, 4, lambda o: [o[0]]), (514, 4, [len(stream)])])
+
+
+def tiff_numbers(values, dtype: str, fmt: int, *, rows_per_strip: int = 0,
+                 deflate: bool = False, predictor: int = 1) -> bytes:
+    """A grey TIFF of (H, W) ``values`` as numpy ``dtype`` ('<f4', '>i2',
+    '<u4', ... , or '12' for 12-bit samples packed MSB first), SampleFormat
+    ``fmt`` (1 unsigned, 2 signed, 3 float), in strips of ``rows_per_strip``
+    rows (0: one strip), uncompressed or Deflate (zlib level 6) after
+    ``predictor`` 2 (each sample less its left neighbour, modulo its size)
+    or 3 (libtiff's floating-point predictor: the row's samples as byte
+    planes, most significant first, each byte less the one before it)."""
+    import zlib
+    import numpy as np
+    h, w = values.shape
+    be = dtype.startswith(">")
+    rps = rows_per_strip or h
+    blobs = []
+    for y in range(0, h, rps):
+        rows = values[y:y + rps]
+        if dtype == "12":
+            v = rows.astype(np.uint16)
+            bits = ((v[..., None] >> np.arange(11, -1, -1)) & 1).astype(np.uint8)
+            raw = np.packbits(bits.reshape(len(rows), -1), axis=1).tobytes()
+        else:
+            a = rows.astype(dtype)
+            size = a.dtype.itemsize
+            if predictor == 2:
+                u = a.view(a.dtype.byteorder + f"u{size}").astype(np.uint64)
+                u[:, 1:] -= u[:, :-1].copy()
+                a = (u & np.uint64((1 << 8 * size) - 1)).astype(a.dtype.byteorder + f"u{size}")
+            if predictor == 3:
+                planes = a.astype(">" + a.dtype.str[1:]).view(np.uint8).reshape(len(rows), w, size)
+                b = planes.transpose(0, 2, 1).reshape(len(rows), -1).astype(np.int16)
+                b[:, 1:] -= b[:, :-1].copy()
+                raw = (b & 0xFF).astype(np.uint8).tobytes()
+            else:
+                raw = a.tobytes()
+        blobs.append(zlib.compress(raw, 6) if deflate else raw)
+    n = len(blobs)
+    return tiff_pack(w, h, blobs, [
+        (258, 3, [12 if dtype == "12" else np.dtype(dtype).itemsize * 8]),
+        (259, 3, [8 if deflate else 1]), (262, 3, [1]), (277, 3, [1]),
+        (273, 4, lambda o: o[:n]), (278, 4, [rps]), (279, 4, [len(b) for b in blobs]),
+        (317, 3, [predictor]), (339, 3, [fmt])], be)
+
+
+def lossless_rows(data: bytes, height: int, pick) -> bytes:
+    """A taller lossless JPEG (SOF3, one component, a restart interval of
+    one row) from the rows of ``data``, one such file, no re-encoding: row
+    i of the new image is source row ``pick(i)`` (each interval starts its
+    row afresh, so the image is the source's rows in that order)."""
+    sof = data.index(b"\xff\xc3")
+    h = int.from_bytes(data[sof + 5:sof + 7], "big")
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    body = data[start:data.rindex(b"\xff\xd9")]
+    cuts = [i for i in range(len(body) - 1) if body[i] == 0xFF and 0xD0 <= body[i + 1] <= 0xD7]
+    rows = [body[a:b] for a, b in zip([0] + [c + 2 for c in cuts], cuts + [len(body)])]
+    if len(rows) != h:
+        raise ValueError("lossless_rows wants one restart interval a row")
+    out = bytearray(rows[pick(0)])
+    for i in range(1, height):
+        out += bytes([0xFF, 0xD0 + (i - 1) % 8]) + rows[pick(i)]
+    head = bytearray(data[:start])
+    head[sof + 5:sof + 7] = height.to_bytes(2, "big")
+    return bytes(head + out) + b"\xff\xd9"
+
+
+def stripe_pick(i: int) -> int:
+    """``lossless_rows``' source row for row i of a page from the 8 rows of
+    ``lossless_stripe.jpg``."""
+    return (5 * i + i // 8) % 8
+
+
+def a6_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of old-style JPEG-in-TIFF, float TIFF,
+    arithmetic-coded and lossless JPEG, built without PIL from the
+    fixtures: scan_420.jpg wrapped as old-style
+    JPEG-in-TIFF, its grey as float32 in Deflate strips with predictor 3,
+    arith_444.jpg's restart intervals tiled (arithmetic-coded, sequential),
+    and lossless_stripe.jpg's rows (lossless, predictor 1, a restart a row)
+    stacked. Each is held to a digest of PIL's grey of the same bytes
+    (a6_pages.sha256, written with the fixtures)."""
+    import numpy as np
+    return {"ojpeg_page.tif": ojpeg_wrap((FIXTURES / "scan_420.jpg").read_bytes(), 1200, 500, 3),
+            "float32_page.tif": tiff_numbers(golden["scan_420.jpg"].astype(np.float32), "<f4", 3,
+                                             rows_per_strip=50, deflate=True, predictor=3),
+            "arith_page.jpg": tile_jpeg((FIXTURES / "arith_444.jpg").read_bytes(), 1200, 500,
+                                        page_pick),
+            "lossless_page.jpg": lossless_rows((FIXTURES / "lossless_stripe.jpg").read_bytes(),
+                                               500, stripe_pick)}
+
+
+def gray_digest(gray) -> str:
+    """SHA-256 of a grey image's shape and pixels, in hex."""
+    import numpy as np
+    data = repr(gray.shape).encode() + np.ascontiguousarray(gray).tobytes()
+    return hashlib.sha256(data).hexdigest()
+
+
 def golden_arrays() -> dict:
-    """The decoder fixtures' golden arrays by name. The progressive page
-    holds scan_420.jpg's pixels at its quality and subsampling, so it reads
-    as that file does and ``golden.npz`` holds no array of its own for it."""
+    """The decoder fixtures' golden arrays by name. Three fixtures hold
+    pixels another's array holds, and ``golden.npz`` no array of their own:
+    the progressive page scan_420.jpg's (its quality and subsampling),
+    arith_444.jpg restart_444.jpg's (its coefficients arithmetic-coded) and
+    lossless_stripe.jpg the first 8 rows of scan_420.jpg's grey."""
     import numpy as np
     with np.load(FIXTURES / "golden.npz") as f:
         golden = dict(f)
-    return {**golden, "progressive_page.jpg": golden["scan_420.jpg"]}
+    return {**golden, "progressive_page.jpg": golden["scan_420.jpg"],
+            "arith_444.jpg": golden["restart_444.jpg"],
+            "lossless_stripe.jpg": golden["scan_420.jpg"][:8]}
 
 
 def decode_phase(card: str, work: str):
@@ -1997,8 +2130,8 @@ def decode_phase(card: str, work: str):
                         f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
         build_s = time.perf_counter() - t0
     golden = golden_arrays()
-    if len(golden) != 36:
-        raise AssertionError(f"expected 36 decoder fixtures, found {sorted(golden)}")
+    if len(golden) != 48:
+        raise AssertionError(f"expected 48 decoder fixtures, found {sorted(golden)}")
     for name, want in golden.items():
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -2021,8 +2154,7 @@ def decode_phase(card: str, work: str):
     cut_page = Path(work) / "progressive_cut_page.jpg"
     cut_page.write_bytes(page[:sos[6]] + b"\xff\xd9")
     cut = ds_mod.decode_gray(cut_page)
-    digest = hashlib.sha256(repr(cut.shape).encode() + np.ascontiguousarray(cut).tobytes())
-    if (cut.shape != (500, 1200) or [digest.hexdigest()]
+    if (cut.shape != (500, 1200) or [gray_digest(cut)]
             != (FIXTURES / "progressive_cut_page.sha256").read_text().split()):
         raise AssertionError("the cut progressive page is not bit-equal to PIL's grey")
     # Page-sized files of the kinds this slice reads, with golden arrays
@@ -2041,6 +2173,19 @@ def decode_phase(card: str, work: str):
         (Path(work) / name).write_bytes(data)
         if not np.array_equal(ds_mod.decode_gray(Path(work) / name), want):
             raise AssertionError(f"{name}: not bit-equal to the grey it was built from")
+    # Pages of old-style JPEG-in-TIFF, float TIFF, arithmetic-coded and
+    # lossless JPEG, each held to the digest of PIL's grey of the same bytes
+    # (a6_pages.sha256).
+    digests = dict(reversed(line.split()) for line in
+                   (FIXTURES / "a6_pages.sha256").read_text().splitlines())
+    a6 = a6_pages(golden)
+    for name, data in a6.items():
+        (Path(work) / name).write_bytes(data)
+        got = ds_mod.decode_gray(Path(work) / name)
+        if got.shape != (500, 1200) or gray_digest(got) != digests[name]:
+            raise AssertionError(f"{name}: not bit-equal to PIL's grey (its SHA-256)")
+    print("decode: " + ", ".join(f"{n} ({len(d)} B)" for n, d in a6.items())
+          + " bit-equal to PIL's grey by their SHA-256", flush=True)
     # A file PIL refuses (grey.jpg as a 12-bit frame) is a zero image in a
     # SignatureDataset beside a good one, as in the JAX package.
     refused = Path(work) / "refused_set"
@@ -2064,7 +2209,10 @@ def decode_phase(card: str, work: str):
     new = {"progressive_page.jpg", "progressive_grey.jpg", "progressive_420.jpg",
            "deflate_pred2.tif", "jpeg_ycbcr.tif", "jpeg_grey.tif", "restart_444.jpg",
            "restart_damaged.jpg", "bad_code.jpg", "dqt_q64.jpg", "cmyk.jpg", "ycck.jpg",
-           "cmyk.tif", "progressive_cut.jpg"}
+           "cmyk.tif", "progressive_cut.jpg", "ojpeg_grey.tif", "ojpeg_420.tif",
+           "ojpeg_tables_420.tif", "float32_pred3.tif", "int16_be.tif", "uint32.tif",
+           "grey12.tif", "int32_lzw.tif", "lossless_rgb.jpg", "arith_progressive.jpg",
+           "arith_444.jpg", "lossless_stripe.jpg"}
     old = [n for n in golden if n not in new]
 
     def fixtures(*names):
@@ -2095,7 +2243,22 @@ def decode_phase(card: str, work: str):
               "damaged JPEG 200x80 (restart marker missing; bad code; q = 64 at 32x32)": (
                   fixtures("restart_damaged.jpg", "bad_code.jpg", "dqt_q64.jpg"), 100),
               "CMYK and YCCK JPEG, CMYK TIFF 200x80": (
-                  fixtures("cmyk.jpg", "ycck.jpg", "cmyk.tif"), 100)}
+                  fixtures("cmyk.jpg", "ycck.jpg", "cmyk.tif"), 100),
+              "old-style JPEG-in-TIFF 1200x500 (scan_420.jpg, YCbCr 4:2:0)": (
+                  [Path(work) / "ojpeg_page.tif"], 20),
+              "float32 TIFF 1200x500 (Deflate strips, predictor 3)": (
+                  [Path(work) / "float32_page.tif"], 20),
+              "arithmetic-coded JPEG 1200x500 (4:4:4, a restart an MCU row)": (
+                  [Path(work) / "arith_page.jpg"], 20),
+              "lossless JPEG 1200x500 (grey, predictor 1, a restart a row)": (
+                  [Path(work) / "lossless_page.jpg"], 20),
+              "old-style JPEG-in-TIFF 48x32 (grey; 4:2:0 in both layouts)": (
+                  fixtures("ojpeg_grey.tif", "ojpeg_420.tif", "ojpeg_tables_420.tif"), 200),
+              "number TIFF 48x32 (float32, int16, uint32, 12-bit, int32)": (
+                  fixtures("float32_pred3.tif", "int16_be.tif", "uint32.tif", "grey12.tif",
+                           "int32_lzw.tif"), 200),
+              "lossless and arithmetic-coded JPEG 48x32": (
+                  fixtures("lossless_rgb.jpg", "arith_progressive.jpg"), 200)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -2881,6 +3044,24 @@ def train_dirs(root: Path, tag: str) -> dict:
             "log_dir": str(root / tag / "l")}
 
 
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms (and no benchmark search) inside
+    ``with``, the settings as they were restored on leaving: two runs of the
+    same steps then give the same bits (cuDNN's default backward convs may
+    sum in another order on every call)."""
+
+    def __enter__(self):
+        import torch
+        self.saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.saved
+        return False
+
+
 def stream_graphed_vs_eager(tag, cfg, images, state0, steps: int):
     """Phase 15b: ``steps`` streamed steps from copies of ``state0`` on the
     loader's batches, twice eager (``make_train_step``) and once graphed
@@ -2889,13 +3070,8 @@ def stream_graphed_vs_eager(tag, cfg, images, state0, steps: int):
     other algorithms than the eager steps). Where the eager runs give the
     same bits the graphed run must too, else it must stay within their
     spread, part by part (as graphed_vs_eager)."""
-    import torch
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with cudnn_deterministic():
         return _stream_graphed_vs_eager(tag, cfg, images, state0, steps)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
 
 
 def _stream_graphed_vs_eager(tag, cfg, images, state0, steps: int):
@@ -3315,9 +3491,10 @@ def charts_phase(card: str, work: str):
 
 # Phase 16: data parallelism on the one card.
 DP_STEPS = 2
-DP_NOTE = ("each part (G parameters, G Adam, ...) within its bar, or else within twice "
-           "the spread of one process's steps (their largest difference from a repeat of "
-           "the same steps and from the steps on 3 permutations of the batch rows, the "
+DP_NOTE = ("both sides under cuDNN's deterministic algorithms (one process's repeat of "
+           "its steps bit-equal to them); each part (G parameters, G Adam, ...) within "
+           "its bar, or else within twice the spread of one process's steps (their "
+           "largest difference from the steps on 3 permutations of the batch rows, the "
            "same steps summed in other orders), as phases 7-9 hold graphed steps to the "
            "eager spread. The bars: f32 every tensor allclose rtol 1e-4 atol 1e-5; bf16 "
            "parameters within Adam's bound, 2 lr (1 + 1.054) x 1.01 over the 2 steps (two "
@@ -3329,7 +3506,7 @@ DP_NOTE = ("each part (G parameters, G Adam, ...) within its bar, or else within
            "spread is needed for Adam's moments: at init G's fakes are alike, so its "
            "BatchNorm backward cancels most of each gradient (G's fc bias to rounding "
            "noise), and summation order alone moves G's moments by up to 3 % of a "
-           "tensor's largest entry (cuDNN's backward convs also differ run to run)")
+           "tensor's largest entry)")
 
 
 def dp_configs():
@@ -3358,12 +3535,7 @@ def dp_rank(work: str) -> None:
     import torch
     import torch.distributed as dist
     from siggan_tpu_torch.core.config import MeshConfig
-    from siggan_tpu_torch.core.state import create_train_state
-    from siggan_tpu_torch.data.synthetic import generate_dataset
-    from siggan_tpu_torch.ops.kernels import pack_tail as pt
-    from siggan_tpu_torch.ops.kernels import train_tail as tt
     from siggan_tpu_torch.parallel.mesh import make_mesh
-    from siggan_tpu_torch.train.train_step import make_train_step, state_tensors
     rank = int(os.environ["RANK"])
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3371,46 +3543,57 @@ def dp_rank(work: str) -> None:
     dist.init_process_group("gloo", world_size=2, rank=rank, init_method=(
         f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"))
     try:
-        mesh = make_mesh(MeshConfig(), "cuda")
-        dev = mesh.device
-        out = {}
-        for name, cfg in dp_configs().items():
-            state = create_train_state(cfg, dev)
-            real = torch.from_numpy(generate_dataset(64, cfg.model.image_size, seed=5))
-            real = real[mesh.rows(64)].to(dev)
-            step = make_train_step(cfg, mesh=mesh)
-            counts0 = (pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count, tt.LAUNCHES.count,
-                       tt.LAYER_LAUNCHES.count, mesh.collectives.count)
-            metrics = []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(DP_STEPS):
-                state, m = step(state, real)
-                metrics.append({k: v.detach().cpu() for k, v in m.items()})
-            torch.cuda.synchronize()
-            counts = [b - a for a, b in zip(counts0, (
-                pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count, tt.LAUNCHES.count,
-                tt.LAYER_LAUNCHES.count, mesh.collectives.count))]
-            out[name] = {"state": [t.detach().cpu() for t in state_tensors(state)],
-                         "metrics": metrics, "launches": counts,
-                         "ms_per_step": (time.perf_counter() - t0) * 1e3 / DP_STEPS}
-        for dtype in (torch.float32, torch.bfloat16):
-            h0, ws, bn, states, bias, _ = train_tail_case(dev, 64, dtype)
-            mine = h0[mesh.rows(64)].contiguous()
-            got, ref = clone_states(states), clone_states(states)
-            with torch.no_grad():
-                img = tt.tail_forward_train(mine, ws, bn, got, bias, dtype, mesh=mesh)
-                ref_img, ref_new = tt.tail_forward_train_reference(mine, ws, bn, ref, bias,
-                                                                   dtype, mesh)
-            torch.cuda.synchronize()
-            cpu = lambda sts: [{k: v.cpu() for k, v in s.items()} for s in sts]  # noqa: E731
-            out[f"b2 {str(dtype).split('.')[-1]}"] = {
-                "image": img.cpu(), "states": cpu(got), "plain": ref_img.cpu(),
-                "plain_states": cpu(ref_new)}
-        out["layer_launches"] = tt.LAYER_LAUNCHES.count
-        torch.save(out, Path(work) / f"dp_rank{rank}.pt")
+        with cudnn_deterministic():
+            dp_rank_work(work, rank, make_mesh(MeshConfig(), "cuda"))
     finally:
         dist.destroy_process_group()
+
+
+def dp_rank_work(work: str, rank: int, mesh) -> None:
+    """``dp_rank``'s steps and B2 calls on ``mesh``."""
+    import torch
+    from siggan_tpu_torch.core.state import create_train_state
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.ops.kernels import pack_tail as pt
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.train.train_step import make_train_step, state_tensors
+    dev = mesh.device
+    out = {}
+    for name, cfg in dp_configs().items():
+        state = create_train_state(cfg, dev)
+        real = torch.from_numpy(generate_dataset(64, cfg.model.image_size, seed=5))
+        real = real[mesh.rows(64)].to(dev)
+        step = make_train_step(cfg, mesh=mesh)
+        counts0 = (pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count, tt.LAUNCHES.count,
+                   tt.LAYER_LAUNCHES.count, mesh.collectives.count)
+        metrics = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            state, m = step(state, real)
+            metrics.append({k: v.detach().cpu() for k, v in m.items()})
+        torch.cuda.synchronize()
+        counts = [b - a for a, b in zip(counts0, (
+            pt.FWD_LAUNCHES.count, pt.BWD_LAUNCHES.count, tt.LAUNCHES.count,
+            tt.LAYER_LAUNCHES.count, mesh.collectives.count))]
+        out[name] = {"state": [t.detach().cpu() for t in state_tensors(state)],
+                     "metrics": metrics, "launches": counts,
+                     "ms_per_step": (time.perf_counter() - t0) * 1e3 / DP_STEPS}
+    for dtype in (torch.float32, torch.bfloat16):
+        h0, ws, bn, states, bias, _ = train_tail_case(dev, 64, dtype)
+        mine = h0[mesh.rows(64)].contiguous()
+        got, ref = clone_states(states), clone_states(states)
+        with torch.no_grad():
+            img = tt.tail_forward_train(mine, ws, bn, got, bias, dtype, mesh=mesh)
+            ref_img, ref_new = tt.tail_forward_train_reference(mine, ws, bn, ref, bias,
+                                                               dtype, mesh)
+        torch.cuda.synchronize()
+        cpu = lambda sts: [{k: v.cpu() for k, v in s.items()} for s in sts]  # noqa: E731
+        out[f"b2 {str(dtype).split('.')[-1]}"] = {
+            "image": img.cpu(), "states": cpu(got), "plain": ref_img.cpu(),
+            "plain_states": cpu(ref_new)}
+    out["layer_launches"] = tt.LAYER_LAUNCHES.count
+    torch.save(out, Path(work) / f"dp_rank{rank}.pt")
 
 
 def dp_names(state, metrics):
@@ -3526,7 +3709,7 @@ def dp_phase(card: str, work: str):
     from siggan_tpu_torch.data.synthetic import generate_dataset
     from siggan_tpu_torch.ops.kernels import pack_tail as pt
     from siggan_tpu_torch.ops.kernels import train_tail as tt
-    from siggan_tpu_torch.parallel.mesh import free_port, spawn
+    from siggan_tpu_torch.parallel.mesh import free_port
     from siggan_tpu_torch.train.train_step import state_tensors
     from siggan_tpu_torch.train.trainer import GANTrainer
     dev = torch.device("cuda", 0)
@@ -3656,20 +3839,42 @@ def dp_phase(card: str, work: str):
             dist.destroy_process_group()
 
     # (b) Two gloo ranks on the card against one process.
+    out["b"] = dp_two_ranks(work)
+    return out
+
+
+def dp_two_ranks(work: str) -> dict:
+    """Phase 16b (``dp_phase``'s (b)): ``dp_rank`` spawned on two gloo
+    ranks against one process's steps, both under ``cudnn_deterministic``;
+    raises AssertionError naming every failure. Returns the numbers, per
+    configuration its max abs diff and one process's spread by part."""
+    import torch
+    from siggan_tpu_torch.data.synthetic import generate_dataset
+    from siggan_tpu_torch.ops.kernels import train_tail as tt
+    from siggan_tpu_torch.parallel.mesh import spawn
+    from siggan_tpu_torch.train.train_step import state_tensors
+    dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     spawn(dp_rank, 2, work)
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(Path(work) / f"dp_rank{r}.pt", weights_only=False) for r in (0, 1)]
     b_out = {"spawn_s": spawn_s, "configs": {}, "bar": DP_NOTE}
     failures = []
-    # The spread: the same steps again, and on 3 permutations of the batch.
-    perms = [None] + [torch.randperm(64, generator=torch.Generator().manual_seed(s)).to(dev)
-                      for s in (11, 12, 13)]
+    # The spread: the same steps on 3 permutations of the batch; a repeat of
+    # the steps must give their bits.
+    perms = [torch.randperm(64, generator=torch.Generator().manual_seed(s)).to(dev)
+             for s in (11, 12, 13)]
     for name, cfg in dp_configs().items():
         f32 = cfg.compute_dtype == "float32"
         real = torch.from_numpy(generate_dataset(64, cfg.model.image_size, seed=5)).to(dev)
-        state, metrics = dp_one_process(cfg, real, dev)
-        others = [dp_one_process(cfg, real, dev, perm) for perm in perms]
+        with cudnn_deterministic():
+            state, metrics = dp_one_process(cfg, real, dev)
+            again, again_metrics = dp_one_process(cfg, real, dev)
+            others = [dp_one_process(cfg, real, dev, perm) for perm in perms]
+        if not all(torch.equal(x, y) for x, y in zip(state_tensors(state),
+                                                     state_tensors(again))) or \
+                not all(torch.equal(metrics[k], again_metrics[k]) for k in metrics):
+            failures.append(f"16b {name}: one process's repeat of its steps differs")
         got = [r[name] for r in ranks]
         if not all(torch.equal(x, y) for x, y in zip(got[0]["state"], got[1]["state"])):
             failures.append(f"16b {name}: the two ranks' states differ")
@@ -3715,7 +3920,7 @@ def dp_phase(card: str, work: str):
                                   "rank_ms_per_step": [g["ms_per_step"] for g in got]}
         print(f"16b {name}: 2 gloo ranks x 32 rows vs one process x 64, {DP_STEPS} eager "
               f"steps: ranks bitwise equal; max abs diff by part {json.dumps(diffs)}; "
-              f"one process's spread (a repeat, 3 permuted batches) {json.dumps(spread)}; "
+              f"one process's spread (3 permuted batches) {json.dumps(spread)}; "
               f"share of the bar "
               f"by part (null: the spread alone) {json.dumps(use)}; worst (part, tensor, max "
               f"|ref|, "
@@ -3762,8 +3967,7 @@ def dp_phase(card: str, work: str):
     print(f"16b: spawn and both ranks' work {spawn_s:.1f} s", flush=True)
     if failures:
         raise AssertionError("phase 16b: " + "; ".join(failures))
-    out["b"] = b_out
-    return out
+    return b_out
 
 
 def card_span(session, n: int, reps: int = 5) -> float:

@@ -2,13 +2,17 @@
 // PIL's Image.open(path).convert("L") gives them, with no imaging library.
 //
 // JPEG: 8-bit DCT, Huffman-coded, sequential (SOF0/SOF1) or progressive
-// (SOF2), one, three or four components (CMYK, or YCCK after Adobe's
-// transform), any whole-number sampling, restart intervals, the default
-// Huffman tables when a file carries none. The arithmetic is libjpeg's
+// (SOF2), or arithmetic-coded (SOF9/SOF10: jdarith.c's QM decoder and
+// statistics, with a DAC segment's conditioning), or lossless (SOF3:
+// predictors 1-7, a point transform, jddiffct.c's rows and restarts), one,
+// three or four components (CMYK, or YCCK after Adobe's transform), any
+// whole-number sampling, restart intervals, the default Huffman tables when
+// a file carries none. The arithmetic is libjpeg's
 // (libjpeg-turbo, which PIL links): its SIMD "islow" integer IDCT, 16-bit
 // lanes and all, "fancy" chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
 // with the neighbouring rows of the next and previous iMCU rows, box
-// replication for other factors), the YCbCr->RGB tables of jdcolor.c and
+// replication for other factors and in a lossless frame), the YCbCr->RGB
+// tables of jdcolor.c (no conversion of a lossless frame: RGB) and
 // libjpeg's colour-space defaults (JFIF, then Adobe's transform, then the
 // component ids). Then PIL's L = (19595 R + 38470 G + 7471 B + 2^15) >> 16,
 // by way of PIL's CMYK -> RGB for four components (which PIL reads as
@@ -27,14 +31,19 @@
 //
 // TIFF: the first page, strips or tiles, either byte order, no compression,
 // PackBits, LZW or Deflate (compression 8 and 32946, the port's own
-// inflate; predictor 1 or 2 with either); WhiteIsZero/BlackIsZero at 1, 2,
-// 4, 8 bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at 255),
+// inflate; predictor 1, 2, or 3 on floats, with either); WhiteIsZero/
+// BlackIsZero at 1, 2, 4, 8 bits (PIL inverts WhiteIsZero) and 16 bits (PIL
+// clamps at 255), grey numbers (12 bits, signed 16 and 32, unsigned 32,
+// float 32) as PIL's modes convert them,
 // RGB/RGBA and CMYK at 8 and 16 bits (PIL keeps the high byte), grey+alpha,
 // palettes; bilevel strips coded CCITT Modified Huffman, T.4 (1-D and 2-D,
 // with or without EOL fill bits) or T.6 (Group 4); and JPEG-in-TIFF
 // (compression 7) in grey, RGB, CMYK or chunky YCbCr, each strip or tile a
 // JPEG stream read with the JPEGTables tag's tables, as libtiff reads it for
-// PIL (YCbCr through libjpeg's own upsampling and colour conversion).
+// PIL (YCbCr through libjpeg's own upsampling and colour conversion); and
+// old-style JPEG-in-TIFF (compression 6), one JPEG stream built from the
+// file's pieces as libtiff's tif_ojpeg.c builds it (YCbCr through libtiff's
+// RGBA reader: each block's chroma as it is, libtiff's colour tables).
 //
 // PNG: the Python side (infer/export.py::decode_png) parses the chunks and
 // inflates the image data with zlib; sig_png_unfilter undoes the five row
@@ -276,6 +285,135 @@ using ProgressiveReader = Bits<true>;  // progressive scans
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// ITU T.81 Table D.2, the QM coder's probability states, packed as
+// libjpeg's jaricom.c packs them: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; state 113 is libjpeg's fixed 0.5.
+#define QM(qe, mps, lps, sw) (((uint32_t)(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const uint32_t kQmStates[114] = {
+    QM(0x5a1d, 1, 1, 1),     QM(0x2586, 2, 14, 0),    QM(0x1114, 3, 16, 0),
+    QM(0x080b, 4, 18, 0),    QM(0x03d8, 5, 20, 0),    QM(0x01da, 6, 23, 0),
+    QM(0x00e5, 7, 25, 0),    QM(0x006f, 8, 28, 0),    QM(0x0036, 9, 30, 0),
+    QM(0x001a, 10, 33, 0),   QM(0x000d, 11, 35, 0),   QM(0x0006, 12, 9, 0),
+    QM(0x0003, 13, 10, 0),   QM(0x0001, 13, 12, 0),   QM(0x5a7f, 15, 15, 1),
+    QM(0x3f25, 16, 36, 0),   QM(0x2cf2, 17, 38, 0),   QM(0x207c, 18, 39, 0),
+    QM(0x17b9, 19, 40, 0),   QM(0x1182, 20, 42, 0),   QM(0x0cef, 21, 43, 0),
+    QM(0x09a1, 22, 45, 0),   QM(0x072f, 23, 46, 0),   QM(0x055c, 24, 48, 0),
+    QM(0x0406, 25, 49, 0),   QM(0x0303, 26, 51, 0),   QM(0x0240, 27, 52, 0),
+    QM(0x01b1, 28, 54, 0),   QM(0x0144, 29, 56, 0),   QM(0x00f5, 30, 57, 0),
+    QM(0x00b7, 31, 59, 0),   QM(0x008a, 32, 60, 0),   QM(0x0068, 33, 62, 0),
+    QM(0x004e, 34, 63, 0),   QM(0x003b, 35, 32, 0),   QM(0x002c, 9, 33, 0),
+    QM(0x5ae1, 37, 37, 1),   QM(0x484c, 38, 64, 0),   QM(0x3a0d, 39, 65, 0),
+    QM(0x2ef1, 40, 67, 0),   QM(0x261f, 41, 68, 0),   QM(0x1f33, 42, 69, 0),
+    QM(0x19a8, 43, 70, 0),   QM(0x1518, 44, 72, 0),   QM(0x1177, 45, 73, 0),
+    QM(0x0e74, 46, 74, 0),   QM(0x0bfb, 47, 75, 0),   QM(0x09f8, 48, 77, 0),
+    QM(0x0861, 49, 78, 0),   QM(0x0706, 50, 79, 0),   QM(0x05cd, 51, 48, 0),
+    QM(0x04de, 52, 50, 0),   QM(0x040f, 53, 50, 0),   QM(0x0363, 54, 51, 0),
+    QM(0x02d4, 55, 52, 0),   QM(0x025c, 56, 53, 0),   QM(0x01f8, 57, 54, 0),
+    QM(0x01a4, 58, 55, 0),   QM(0x0160, 59, 56, 0),   QM(0x0125, 60, 57, 0),
+    QM(0x00f6, 61, 58, 0),   QM(0x00cb, 62, 59, 0),   QM(0x00ab, 63, 61, 0),
+    QM(0x008f, 32, 61, 0),   QM(0x5b12, 65, 65, 1),   QM(0x4d04, 66, 80, 0),
+    QM(0x412c, 67, 81, 0),   QM(0x37d8, 68, 82, 0),   QM(0x2fe8, 69, 83, 0),
+    QM(0x293c, 70, 84, 0),   QM(0x2379, 71, 86, 0),   QM(0x1edf, 72, 87, 0),
+    QM(0x1aa9, 73, 87, 0),   QM(0x174e, 74, 72, 0),   QM(0x1424, 75, 72, 0),
+    QM(0x119c, 76, 74, 0),   QM(0x0f6b, 77, 74, 0),   QM(0x0d51, 78, 75, 0),
+    QM(0x0bb6, 79, 77, 0),   QM(0x0a40, 48, 77, 0),   QM(0x5832, 81, 80, 1),
+    QM(0x4d1c, 82, 88, 0),   QM(0x438e, 83, 89, 0),   QM(0x3bdd, 84, 90, 0),
+    QM(0x34ee, 85, 91, 0),   QM(0x2eae, 86, 92, 0),   QM(0x299a, 87, 93, 0),
+    QM(0x2516, 71, 86, 0),   QM(0x5570, 89, 88, 1),   QM(0x4ca9, 90, 95, 0),
+    QM(0x44d9, 91, 96, 0),   QM(0x3e22, 92, 97, 0),   QM(0x3824, 93, 99, 0),
+    QM(0x32b4, 94, 99, 0),   QM(0x2e17, 86, 93, 0),   QM(0x56a8, 96, 95, 1),
+    QM(0x4f46, 97, 101, 0),  QM(0x47e5, 98, 102, 0),  QM(0x41cf, 99, 103, 0),
+    QM(0x3c3d, 100, 104, 0), QM(0x375e, 93, 99, 0),   QM(0x5231, 102, 105, 0),
+    QM(0x4c0f, 103, 106, 0), QM(0x4639, 104, 107, 0), QM(0x415e, 99, 103, 0),
+    QM(0x5627, 106, 105, 1), QM(0x50e7, 107, 108, 0), QM(0x4b85, 103, 109, 0),
+    QM(0x5597, 109, 110, 0), QM(0x504f, 107, 111, 0), QM(0x5a10, 111, 110, 1),
+    QM(0x5522, 109, 112, 0), QM(0x59eb, 111, 112, 1), QM(0x5a1d, 113, 113, 0)};
+#undef QM
+
+// Arithmetic-coded data (jdarith.c's arith_decode and its byte input):
+// FF 00 is an FF byte; at a marker the decoder takes zero bytes, and pos
+// stays at the marker's last FF (where the Huffman reader leaves it).
+// Running off the end of the file is a truncated file. Its interface is
+// each_block's: it never runs out of data (libjpeg's arithmetic decoder
+// never sets insufficient_data).
+struct ArithReader {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read into c; -1: an error left the interval's MCUs alone
+  bool at_marker = false;
+  bool starved = false;  // never set
+
+  int byte() {
+    if (at_marker) return 0;
+    if (pos >= n) corrupt("JPEG data ends early");
+    int v = d[pos];
+    if (v != 0xFF) {
+      ++pos;
+      return v;
+    }
+    size_t q = pos + 1;
+    while (q < n && d[q] == 0xFF) ++q;
+    if (q >= n) corrupt("JPEG data ends early");
+    if (d[q] == 0) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    pos = q - 1;
+    at_marker = true;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalization and input (D.2.6)
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two first bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const uint32_t e = kQmStates[sv & 0x7F];
+    const int64_t qe = e >> 16;
+    const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  bool took_padding() const { return false; }
+  void reset() {  // at a restart
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+  }
+};
+
+// One arithmetic-coded scan's statistics (jdarith.c): 64 DC and 256 AC
+// bins a table, each component's DC prediction and context, the fixed bin.
+struct ArithStats {
+  uint8_t dc[16][64], ac[16][256];
+  int last_dc[4], dc_context[4];
+  uint8_t fixed = 113;
+};
+
 // libjpeg-turbo's SIMD "islow" IDCT (jsimd_idct_islow, the arithmetic of
 // jidctint.c in 16-bit lanes), which PIL runs on x86-64: 8x8 coefficients
 // and their quantizers -> samples. Valid data never leaves 16 bits, and
@@ -405,6 +543,9 @@ void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride)
   }
 }
 
+struct OldTiffStop {};  // see Jpeg::old_tiff
+struct JpegEnd {};      // see Jpeg::whole
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;  // the current scan's tables
@@ -457,14 +598,22 @@ inline uint8_t cmyk_luma(int c, int m, int y, int k) {
   return luma(ch(c), ch(m), ch(y));
 }
 
-// One component plane upsampled to the image size (jdsample.c).
-std::vector<uint8_t> upsample(const Component& c, int fx, int fy, int W, int H) {
+// One component plane upsampled to the image size (jdsample.c): "fancy"
+// for h2v1, h1v2 and h2v2, replication otherwise and always with `box` (a
+// lossless frame, whose blocks are one sample).
+std::vector<uint8_t> upsample(const Component& c, int fx, int fy, int W, int H, bool box) {
   std::vector<uint8_t> out((size_t)W * H);
   const uint8_t* p = c.plane.data();
   const int pw = c.pw, dw = c.dw, dh = c.dh;
   auto row = [&](int i) { return p + (size_t)std::min(std::max(i, 0), dh - 1) * pw; };
   if (fx == 1 && fy == 1) {
     for (int y = 0; y < H; ++y) memcpy(&out[(size_t)y * W], p + (size_t)y * pw, W);
+  } else if (box) {
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* in = p + (size_t)(y / fy) * pw;
+      uint8_t* o = &out[(size_t)y * W];
+      for (int x = 0; x < W; ++x) o[x] = in[x / fx];
+    }
   } else if (fx == 2 && fy == 1 && dw > 2) {
     for (int y = 0; y < H; ++y) {
       const uint8_t* in = p + (size_t)y * pw;
@@ -522,8 +671,23 @@ struct Jpeg {
   Huff dc[4], ac[4];
   int W = 0, H = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Component comp[4];
-  bool frame = false, progressive = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, lossless = false, arith = false, jfif = false,
+       adobe = false;
+  // The DAC segment's conditioning per arithmetic table (defaults at SOI):
+  // DC bounds L and U, AC threshold K.
+  uint8_t dac_l[16], dac_u[16], dac_k[16];
   int adobe_transform = -1, restart = 0, scans = 0;
+  // libjpeg's has_multiple_scans: a progressive frame, or one whose first
+  // scan leaves a component out; any other frame ends after its first scan.
+  bool multi_scan = false;
+  // libtiff's old-style JPEG reader (tif_ojpeg.c) hands libjpeg a
+  // resync_to_restart that fails: a restart marker out of place stops the
+  // decode (OldTiffStop; stop_row is the MCU row it stopped at); and it
+  // reads no marker past its one scan.
+  bool old_tiff = false;
+  int stop_row = 0;
+  // A frame of one scan is whole once that scan is (see tail).
+  bool whole = false;
   // libjpeg's coef_bits: per component and zig-zag index, -1 before any
   // scan codes the coefficient, else the Al of the last scan that did.
   int coef_bits[4][64];
@@ -542,13 +706,19 @@ struct Jpeg {
     W = H = ncomp = mcux = mcuy = 0;
     hmax = vmax = 1;
     for (Component& c : comp) c = Component();
-    frame = progressive = jfif = adobe = false;
+    frame = progressive = lossless = arith = jfif = adobe = whole = false;
     adobe_transform = -1;
     restart = scans = 0;
+    std::fill_n(dac_l, 16, 0);
+    std::fill_n(dac_u, 16, 1);
+    std::fill_n(dac_k, 16, 5);
   }
 
   int u8() {
-    if (pos >= n) corrupt("JPEG file ends early");
+    if (pos >= n) {
+      if (whole) throw JpegEnd{};
+      corrupt("JPEG file ends early");
+    }
     return d[pos++];
   }
   int u16() {
@@ -567,7 +737,9 @@ struct Jpeg {
     }
   }
 
-  void sof(bool prog) {
+  // A frame: DCT (progressive or not), or lossless, whose "blocks" are
+  // single samples.
+  void sof(bool prog, bool lossl = false, bool ari = false) {
     if (frame) corrupt("JPEG has two frames");
     int len = u16();
     size_t end = pos + len - 2;
@@ -601,15 +773,18 @@ struct Jpeg {
       for (int i = 0; i < ncomp; ++i)
         if (hmax % comp[i].h || vmax % comp[i].v)
           corrupt("JPEG with fractional chroma sampling, which libjpeg does not upsample");
-    mcux = (W + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+    const int bs = lossl ? 1 : 8;
+    mcux = (W + bs * hmax - 1) / (bs * hmax);
+    mcuy = (H + bs * vmax - 1) / (bs * vmax);
     progressive = prog;
+    lossless = lossl;
+    arith = ari;
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.dw = (int)(((int64_t)W * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)H * c.v + vmax - 1) / vmax);
-      c.pw = mcux * c.h * 8;
-      c.ph = mcuy * c.v * 8;
+      c.pw = mcux * c.h * bs;
+      c.ph = mcuy * c.v * bs;
       if (prog)
         c.coef.assign((size_t)c.pw * c.ph, 0);  // 64 a block, pw/8 x ph/8 blocks
       else
@@ -667,8 +842,8 @@ struct Jpeg {
     pos = end;
   }
 
-  // DAC, arithmetic conditioning (jdmarker.c get_dac): checked, then unused
-  // by a Huffman-coded frame.
+  // DAC, arithmetic conditioning (jdmarker.c get_dac), which a
+  // Huffman-coded frame does not use.
   void dac() {
     int len = u16() - 2;
     if (len < 0 || pos + len > n) corrupt("bad JPEG arithmetic conditioning");
@@ -676,6 +851,12 @@ struct Jpeg {
       int index = u8(), val = u8();
       if (index >= 32 || (index < 16 && (val & 15) > (val >> 4)))
         corrupt("bad JPEG arithmetic conditioning");
+      if (index >= 16) {
+        dac_k[index - 16] = (uint8_t)val;
+      } else {
+        dac_l[index] = (uint8_t)(val & 15);
+        dac_u[index] = (uint8_t)(val >> 4);
+      }
     }
     if (len) corrupt("bad JPEG arithmetic conditioning");
   }
@@ -778,6 +959,7 @@ struct Jpeg {
   // whether a marker was left (pos then at its FF).
   bool restart_marker(int desired) {
     for (int m = next_marker();; m = next_marker()) {
+      if (old_tiff && m != 0xD0 + desired) throw OldTiffStop{};
       const int k = m - 0xD0;
       const bool rst = k >= 0 && k <= 7;
       if (m >= 0xC0 && (!rst || k == ((desired + 1) & 7) || k == ((desired + 2) & 7))) {
@@ -818,6 +1000,7 @@ struct Jpeg {
           const bool starved = br.starved;
           br.reset();
           pos = br.pos;
+          stop_row = my;
           const bool left = restart_marker(rst);
           rst = (rst + 1) & 7;
           br.pos = pos;
@@ -844,6 +1027,286 @@ struct Jpeg {
     pos = br.pos;
   }
 
+  // A lossless scan (libjpeg-turbo 3: jdlhuff.c, jddiffct.c, jdlossls.c):
+  // per sample a Huffman-coded difference category (16: 32768, no extra
+  // bits), in MCUs of h x v samples a component (one sample a non-
+  // interleaved scan's MCU). An iMCU row (one MCU row, or v rows of a lone
+  // component) is decoded, then undifferenced row by row with predictor
+  // `psv` from the row above and the sample to the left, modulo 2^16; the
+  // first row after the scan's start or a restart is a row of its own
+  // (2^(7 - pt), then the left neighbour), and so is, as in libjpeg, the
+  // first row of an iMCU row in which a restart came. Each row's first
+  // sample takes the one above. A sample is its value << pt, kept to 8 bits.
+  // Once the reader runs past the segment's data, each further MCU row is
+  // zero differences from a first row, until a restart.
+  void lossless_scan(Component** sc, int ns, int psv, int pt) {
+    const bool inter = ns > 1;
+    const int cols = inter ? mcux : sc[0]->dw;  // MCUs a row
+    if (restart % cols) corrupt("lossless JPEG restart interval not a whole number of rows");
+    struct Rows {
+      std::vector<int> diff, undiff;  // v rows of the padded width; v rows of the width
+      bool first = true;
+    } rows[4];
+    for (int i = 0; i < ns; ++i) {
+      rows[i].diff.assign((size_t)sc[i]->v * cols * (inter ? sc[i]->h : 1), 0);
+      rows[i].undiff.assign((size_t)sc[i]->v * sc[i]->dw, 0);
+    }
+    BitReader br{d, n, pos};
+    const int init = 1 << (8 - pt - 1);
+    int rst = 0, rows_to_go = restart / cols;
+    for (int im = 0; im < mcuy; ++im) {
+      // A lone component's iMCU row is v of its rows, fewer at its foot.
+      const int mrows = inter ? 1 : std::min(sc[0]->v, sc[0]->dh - im * sc[0]->v);
+      for (int y = 0; y < mrows; ++y) {
+        if (restart && rows_to_go == 0) {
+          const bool starved = br.starved || br.took_padding();
+          br.reset();
+          pos = br.pos;
+          stop_row = im;
+          const bool left = restart_marker(rst);
+          rst = (rst + 1) & 7;
+          br.pos = pos;
+          br.starved = left && starved;
+          for (int i = 0; i < ns; ++i) rows[i].first = true;
+          rows_to_go = restart / cols;
+        }
+        if (br.took_padding()) br.starved = true;
+        for (int i = 0; i < ns; ++i) {
+          if (!br.starved) continue;
+          const int w = cols * (inter ? sc[i]->h : 1);
+          for (int v = inter ? 0 : y; v < (inter ? sc[i]->v : y + 1); ++v)
+            std::fill_n(&rows[i].diff[(size_t)v * w], w, 0);
+          rows[i].first = true;
+        }
+        if (!br.starved) {
+          for (int mx = 0; mx < cols; ++mx)
+            for (int i = 0; i < ns; ++i) {
+              const int h = inter ? sc[i]->h : 1, w = cols * h;
+              for (int v = 0; v < (inter ? sc[i]->v : 1); ++v)
+                for (int u = 0; u < h; ++u) {
+                  int s = br.decode(dc[sc[i]->td]);
+                  if (s == 16)
+                    s = 32768;
+                  else if (s)
+                    s = extend(br.get(s), s);
+                  rows[i].diff[(size_t)(inter ? v : y) * w + mx * h + u] = s;
+                }
+            }
+        }
+        if (restart) --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[i];
+        Rows& r = rows[i];
+        const int w = cols * (inter ? c.h : 1), dw = c.dw;
+        for (int y = 0; y < c.v && im * c.v + y < c.dh; ++y) {
+          const int* df = &r.diff[(size_t)y * w];
+          const int* prev = &r.undiff[(size_t)(y ? y - 1 : c.v - 1) * dw];
+          int* u = &r.undiff[(size_t)y * dw];
+          if (r.first) {
+            int ra = (df[0] + init) & 0xFFFF;
+            u[0] = ra;
+            for (int x = 1; x < dw; ++x) u[x] = ra = (df[x] + ra) & 0xFFFF;
+            r.first = false;
+          } else {
+            int rb = prev[0], ra = (df[0] + rb) & 0xFFFF;
+            u[0] = ra;
+            for (int x = 1; x < dw; ++x) {
+              const int rc = rb;
+              rb = prev[x];
+              const int p = psv == 1   ? ra
+                            : psv == 2 ? rb
+                            : psv == 3 ? rc
+                            : psv == 4 ? ra + rb - rc
+                            : psv == 5 ? ra + ((rb - rc) >> 1)
+                            : psv == 6 ? rb + ((ra - rc) >> 1)
+                                       : (ra + rb) >> 1;
+              u[x] = ra = (df[x] + p) & 0xFFFF;
+            }
+          }
+          uint8_t* o = &c.plane[(size_t)(im * c.v + y) * c.pw];
+          for (int x = 0; x < dw; ++x) o[x] = (uint8_t)(u[x] << pt);
+        }
+      }
+    }
+    pos = br.pos;
+  }
+
+  // jdarith.c: a DC difference (Figures F.19 - F.24) in the bins of table
+  // `tbl` from context `ctx`, which it updates; false on a magnitude
+  // overflow, which leaves the rest of the restart interval alone (ct -1).
+  bool arith_dc(ArithReader& ar, uint8_t* bins, int tbl, int& ctx, int& v) {
+    uint8_t* st = bins + ctx;
+    v = 0;
+    if (!ar.decode(st)) {
+      ctx = 0;
+      return true;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = bins + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    if (m < (1 << dac_l[tbl]) >> 1)
+      ctx = 0;
+    else if (m > (1 << dac_u[tbl]) >> 1)
+      ctx = 12 + sign * 4;
+    else
+      ctx = 4 + sign * 4;
+    v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    return true;
+  }
+
+  // jdarith.c: AC coefficients ss .. se of a block, as a sequential or a
+  // first progressive scan codes them (Figure F.20), each << al.
+  bool arith_ac(ArithReader& ar, uint8_t* bins, int tbl, uint8_t* fixed, int16_t* b, int ss,
+                int se, int al) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = bins + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return false;
+        }
+      }
+      const int sign = ar.decode(fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = bins + (k <= dac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      b[kNatural[k]] = (int16_t)(uint16_t)((unsigned)v << al);
+    }
+    return true;
+  }
+
+  // An arithmetic-coded scan (SOF9, SOF10; libjpeg-turbo's jdarith.c), on
+  // each_block's MCU walk and restarts. Statistics start at zero, and again
+  // at each restart with the DC predictions, as do the coding variables.
+  // An error (a magnitude or run past its bound) leaves the MCUs that
+  // follow in its restart interval alone: zero blocks in a sequential scan.
+  void arith_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
+    ArithReader ar{d, n, pos};
+    ArithStats s;
+    const bool dc_scan = !progressive || (ss == 0 && ah == 0), ac_scan = !progressive || ss;
+    auto reset = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        const int ci = (int)(sc[i] - comp);
+        if (dc_scan) {
+          memset(s.dc[sc[i]->td], 0, sizeof s.dc[0]);
+          s.last_dc[ci] = s.dc_context[ci] = 0;
+        }
+        if (ac_scan) memset(s.ac[sc[i]->ta], 0, sizeof s.ac[0]);
+      }
+    };
+    reset();
+    auto start = [&](bool restarted) {
+      if (restarted) reset();
+    };
+    // A DC difference added to the component's prediction, modulo 2^16.
+    auto dc_value = [&](Component& c, int& out) {
+      const int ci = (int)(&c - comp);
+      int v;
+      if (!arith_dc(ar, s.dc[c.td], c.td, s.dc_context[ci], v)) return false;
+      s.last_dc[ci] = (s.last_dc[ci] + v) & 0xFFFF;
+      out = s.last_dc[ci];
+      return true;
+    };
+    auto leave = [](Component&, int, int) {};
+    if (!progressive) {
+      each_block(sc, ns, ar, start, [&](Component& c, int r, int col) {
+        int16_t b[64] = {0};
+        int dcv;
+        if (ar.ct != -1 && dc_value(c, dcv)) {
+          b[0] = (int16_t)dcv;
+          arith_ac(ar, s.ac[c.ta], c.ta, &s.fixed, b, 1, 63, 0);
+        }
+        idct_islow(b, c.q, &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+      }, leave);
+      return;
+    }
+    auto at = [](Component& c, int r, int col) {
+      return &c.coef[((size_t)r * (c.pw / 8) + col) * 64];
+    };
+    if (ss == 0 && ah == 0) {
+      each_block(sc, ns, ar, start, [&](Component& c, int r, int col) {
+        int dcv;
+        if (ar.ct != -1 && dc_value(c, dcv))
+          *at(c, r, col) = (int16_t)(uint16_t)((unsigned)dcv << al);
+      }, leave);
+    } else if (ss == 0) {
+      const int16_t p1 = (int16_t)(1 << al);
+      each_block(sc, ns, ar, start, [&](Component& c, int r, int col) {
+        if (ar.decode(&s.fixed)) *at(c, r, col) |= p1;
+      }, leave);
+    } else if (ah == 0) {
+      each_block(sc, ns, ar, start, [&](Component& c, int r, int col) {
+        if (ar.ct != -1) arith_ac(ar, s.ac[c.ta], c.ta, &s.fixed, at(c, r, col), ss, se, al);
+      }, leave);
+    } else {
+      // Figure G.10's decoding: past the last coefficient that earlier
+      // scans made nonzero an EOB decision; a nonzero one takes a
+      // correction bit, a zero one may become +-1 << al.
+      const int p1 = 1 << al, m1 = (int)((unsigned)-1 << al);
+      each_block(sc, ns, ar, start, [&](Component& c, int r, int col) {
+        if (ar.ct == -1) return;
+        int16_t* b = at(c, r, col);
+        uint8_t* bins = s.ac[c.ta];
+        int kex = se;
+        while (kex > 0 && !b[kNatural[kex]]) --kex;
+        for (int k = ss; k <= se; ++k) {
+          uint8_t* st = bins + 3 * (k - 1);
+          if (k > kex && ar.decode(st)) break;
+          for (;;) {
+            int16_t* x = b + kNatural[k];
+            if (*x) {
+              if (ar.decode(st + 2)) *x = (int16_t)(*x + (*x < 0 ? m1 : p1));
+              break;
+            }
+            if (ar.decode(st + 1)) {
+              *x = (int16_t)(ar.decode(&s.fixed) ? m1 : p1);
+              break;
+            }
+            st += 3;
+            if (++k > se) {
+              ar.ct = -1;
+              return;
+            }
+          }
+        }
+      }, leave);
+    }
+  }
+
   void sos() {
     if (!frame) corrupt("JPEG scan before its frame");
     int len = u16();
@@ -858,31 +1321,36 @@ struct Jpeg {
       if (!c) corrupt("JPEG scan names an unknown component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3) corrupt("bad JPEG scan header");
+      if (!arith && (c->td > 3 || c->ta > 3)) corrupt("bad JPEG scan header");
       sc[i] = c;
     }
     int ss = u8(), se = u8(), ahl = u8(), ah = ahl >> 4, al = ahl & 15;
-    if (!progressive) {
-      if (ss != 0 || se != 63 || ahl != 0) corrupt("bad spectral selection in a sequential JPEG");
-    } else {  // jdphuff.c start_pass_phuff_decoder
+    // A sequential scan's Ss, Se, Ah and Al are only a warning to libjpeg
+    // (some baseline files hold zeros there): it codes all 64 coefficients.
+    if (lossless) {  // jdlossls.c start_pass_lossless: the predictor and point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) corrupt("bad lossless JPEG scan");
+    } else if (progressive) {  // jdphuff.c start_pass_phuff_decoder
       bool bad = ss == 0 ? se != 0 : ss > se || se > 63 || ns != 1;
       if ((ah != 0 && al != ah - 1) || al > 13 || bad) corrupt("bad progressive JPEG scan");
     }
     // Only the tables the scan uses: a DC refinement uses none, an AC scan
     // only its AC table. libjpeg installs the default tables in slots 0 and
     // 1 for a sequential scan only; a progressive scan needs its own.
-    const bool use_dc = !progressive || (ss == 0 && ah == 0), use_ac = !progressive || ss != 0;
+    const bool use_dc = !progressive || (ss == 0 && ah == 0);
+    const bool use_ac = !lossless && (!progressive || ss != 0);
     for (int i = 0; i < ns; ++i) {
       Component* c = sc[i];
-      if (use_dc && !dc[c->td].defined) {
+      if (arith) {
+        // no Huffman tables
+      } else if (use_dc && !dc[c->td].defined) {
         if (c->td > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
         std_table(dc[c->td], true, c->td);
       }
-      if (use_ac && !ac[c->ta].defined) {
+      if (!arith && use_ac && !ac[c->ta].defined) {
         if (c->ta > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
         std_table(ac[c->ta], false, c->ta);
       }
-      if (!c->latched) {  // libjpeg latches a component's table at its first scan
+      if (!c->latched && !lossless) {  // libjpeg latches a component's table at its first scan
         if (!qdef[c->tq]) corrupt("JPEG component uses an undefined quantization table");
         memcpy(c->q, qt[c->tq], sizeof c->q);
         c->latched = true;
@@ -892,8 +1360,17 @@ struct Jpeg {
     int mcu_blocks = 0;
     for (int i = 0; i < ns; ++i) mcu_blocks += sc[i]->h * sc[i]->v;
     if (ns > 1 && mcu_blocks > 10) corrupt("JPEG scan of more than 10 blocks an MCU");
+    if (scans == 0) multi_scan = progressive || ns < ncomp;
     ++scans;
 
+    if (lossless) {
+      lossless_scan(sc, ns, ss, al);
+      return;
+    }
+    if (!progressive && arith) {
+      arith_scan(sc, ns, 0, 63, 0, 0);
+      return;
+    }
     if (!progressive) {
       BitReader br{d, n, pos};
       each_block(
@@ -914,6 +1391,10 @@ struct Jpeg {
       int* pb = prev_bits[sc[i] - comp];
       for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), 9); ++k) pb[k] = scans > 1 ? cb[k] : 0;
       for (int k = ss; k <= se; ++k) cb[k] = al;
+    }
+    if (arith) {
+      arith_scan(sc, ns, ss, se, ah, al);
+      return;
     }
     ProgressiveReader br{d, n, pos};
     int eobrun = 0;
@@ -1063,6 +1544,77 @@ struct Jpeg {
 
   // Markers up to EOI; with `tables_only`, a stream of tables (a TIFF's
   // JPEGTables) that must hold no frame.
+  // The markers after a whole frame of one scan, as jpeg_finish_decompress
+  // reads them (jdmarker.c): nothing they define is used, so only whether
+  // libjpeg fails on them matters. It fails on a check in the order it
+  // reads (a second SOS header whole fails: JERR_EOI_EXPECTED), and stops
+  // at EOI or, under PIL's suspending source, at the end of the data.
+  void tail() {
+    whole = true;
+    const auto bad = [] { corrupt("bad JPEG marker after the image"); };
+    try {
+      for (;;) {
+        const int m = next_marker();
+        if (m == 0xD9) return;
+        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;  // RSTn, TEM
+        const bool skipped = (m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC;
+        if (!skipped && m != 0xDD && m != 0xCC && m != 0xC4 && m != 0xDB && m != 0xDA)
+          bad();  // SOI, SOFn, JPGn and the like
+        int len = m == 0xDA ? 0 : u16() - 2;
+        if (skipped) {  // APPn, COM, DNL
+          for (; len > 0; --len) u8();
+        } else if (m == 0xDD) {
+          if (len != 2) bad();
+          u16();
+        } else if (m == 0xCC) {  // DAC, pair by pair
+          for (; len > 0; len -= 2) {
+            const int index = u8(), val = u8();
+            if (index >= 32 || (index < 16 && (val & 15) > (val >> 4))) bad();
+          }
+          if (len) bad();
+        } else if (m == 0xC4) {  // DHT, table by table (not built)
+          while (len > 16) {
+            const int index = u8();
+            int count = 0;
+            for (int i = 0; i < 16; ++i) count += u8();
+            len -= 17;
+            if (count > 256 || count > len) bad();
+            for (int i = 0; i < count; ++i) u8();
+            len -= count;
+            if ((index & ~0x10) > 3) bad();
+          }
+          if (len) bad();
+        } else if (m == 0xDB) {  // DQT
+          while (len > 0) {
+            const int pq = u8();
+            if ((pq & 15) > 3) bad();
+            for (int i = 0; i < (pq >> 4 ? 128 : 64); ++i) u8();
+            len -= pq >> 4 ? 129 : 65;
+          }
+          if (len) bad();
+        } else if (m == 0xDA) {  // a second scan's header, then EOI expected
+          len = u16();
+          const int ns = u8();
+          if (len != 6 + 2 * ns || ns < 1 || ns > 4) bad();
+          bool used[4] = {false, false, false, false};
+          for (int i = 0; i < ns; ++i) {
+            const int id = u8();
+            u8();
+            int ci = 0;
+            while (ci < std::min(ncomp, 4) && (comp[ci].id != id || used[ci])) ++ci;
+            if (ci == std::min(ncomp, 4)) bad();
+            used[ci] = true;
+          }
+          u8();
+          u8();
+          u8();
+          corrupt("JPEG scan after one of every component (libjpeg expects EOI)");
+        }
+      }
+    } catch (const JpegEnd&) {
+    }
+  }
+
   void markers(bool tables_only) {
     for (;;) {
       if (tables_only && pos >= n) break;  // libtiff supplies a missing EOI here
@@ -1071,12 +1623,12 @@ struct Jpeg {
       if (tables_only && (m == 0xDA || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
                                         m != 0xCC)))
         corrupt("JPEG tables stream holds image data");
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        sof(m == 0xC2);
-      } else if (m == 0xC3 || m == 0xCB) {
-        unsupported("lossless JPEG");
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3) {
+        sof(m == 0xC2, m == 0xC3);
+      } else if (m == 0xCB) {
+        unsupported("lossless arithmetic-coded JPEG");
       } else if (m == 0xC9 || m == 0xCA) {
-        unsupported("arithmetic-coded JPEG");
+        sof(m == 0xCA, false, true);
       } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF) {
         corrupt("hierarchical (differential) JPEG, which libjpeg does not decode");
       } else if (m == 0xCC) {
@@ -1090,6 +1642,11 @@ struct Jpeg {
         restart = u16();
       } else if (m == 0xDA) {
         sos();
+        if (old_tiff) break;
+        if (!multi_scan) {
+          tail();
+          break;
+        }
       } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
         app(m);  // a DNL segment after a frame with a height is skipped, as libjpeg does
       } else if (m >= 0xD0 && m <= 0xD7) {
@@ -1102,10 +1659,15 @@ struct Jpeg {
     }
   }
 
-  Gray run(ColorMode mode = kColorFromMarkers) {
+  // The markers to EOI, then every component's plane.
+  void planes() {
     markers(false);
     if (!frame || !scans) corrupt("JPEG has no image data");
     if (progressive) idct_planes();
+  }
+
+  Gray run(ColorMode mode = kColorFromMarkers) {
+    planes();
     Gray g;
     g.w = W;
     g.h = H;
@@ -1117,7 +1679,7 @@ struct Jpeg {
     std::vector<uint8_t> full[4];
     for (int i = 0; i < ncomp; ++i) {
       const Component& c = comp[i];
-      full[i] = upsample(c, hmax / c.h, vmax / c.v, W, H);
+      full[i] = upsample(c, hmax / c.h, vmax / c.v, W, H, lossless);
     }
     // libjpeg's colour space (jdapimin.c default_decompress_parms): three
     // components are YCbCr under JFIF, else as Adobe's transform says (0:
@@ -1131,8 +1693,12 @@ struct Jpeg {
     } else if (adobe) {
       ycc = adobe_transform != 0;
     } else {
-      ycc = ncomp == 3 && !(comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
+      // libjpeg-turbo 3 takes a lossless frame without markers for RGB
+      ycc = ncomp == 3 && !lossless &&
+            !(comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
     }
+    // and converts no colour space of a lossless frame.
+    if (lossless && ycc) corrupt("lossless JPEG in YCbCr or YCCK, which libjpeg does not convert");
     const YccTables t = ycc_tables();  // a copy on the stack, out of the pixels' way
     const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
     if (ncomp == 4) {
@@ -1445,6 +2011,20 @@ struct Tiff {
     }
     return out;
   }
+  // A RATIONAL entry's values as libtiff reads them into floats (0 for a
+  // zero denominator).
+  std::vector<float> rationals(size_t e) const {
+    const uint32_t count = r32(e + 4);
+    if (r16(e + 2) != 5 || count > 64) corrupt("bad TIFF tag");
+    const size_t at = r32(e + 8);
+    if (at + 8 * (size_t)count > n) corrupt("TIFF tag data outside the file");
+    std::vector<float> out(count);
+    for (uint32_t i = 0; i < count; ++i) {
+      const uint32_t num = r32(at + 8 * i), den = r32(at + 8 * i + 4);
+      out[i] = den ? (float)num / (float)den : 0.0f;
+    }
+    return out;
+  }
   // An IFD entry's data as bytes: (file offset, byte count).
   std::pair<size_t, size_t> bytes(size_t e) const {
     uint32_t type = r16(e + 2), count = r32(e + 4);
@@ -1546,8 +2126,10 @@ std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
 // ---------------------------------------------------------------- inflate
 // A zlib stream (RFC 1950 header, RFC 1951 stored, fixed- and dynamic-
 // Huffman blocks) inflated into `want` bytes, as libtiff's ZIP codec asks
-// zlib for a strip: it stops once the strip is whole (the rest, Adler-32
-// among it, is not read), and a stream that ends short is corrupt.
+// zlib for a strip: a stream that ends short is corrupt; once the strip is
+// whole zlib reads on as far as it can without room for output (block
+// headers and tables, a match's length and distance, and after the last
+// block the Adler-32 of the output), so an error there is corrupt too.
 
 // Canonical Huffman codes of up to 15 bits, read LSB first: a 10-bit table
 // of (length << 9 | symbol), 0 for a longer code, then puff's count walk.
@@ -1589,11 +2171,22 @@ struct InflateCodes {
   }
 };
 
+// Thrown where the input runs out once the output is whole: zlib stops there
+// and libtiff has its strip.
+struct InflateEnd {};
+
 struct InflateBits {
   const uint8_t* s;
   size_t n, pos = 0;
   uint64_t buf = 0;
   int cnt = 0;
+  const size_t* done = nullptr;  // the output so far, and all of it
+  size_t whole = 0;
+
+  [[noreturn]] void out_of_data() const {
+    if (done && *done == whole) throw InflateEnd{};
+    corrupt("Deflate data ends early");
+  }
 
   inline void refill() {
     while (cnt <= 56 && pos < n) {
@@ -1602,7 +2195,7 @@ struct InflateBits {
     }
   }
   inline void drop(int k) {
-    if (k > cnt) corrupt("Deflate data ends early");
+    if (k > cnt) out_of_data();
     buf >>= k;
     cnt -= k;
   }
@@ -1631,9 +2224,43 @@ struct InflateBits {
       first = (first + c) << 1;
       code <<= 1;
     }
+    if (cnt < 15) out_of_data();
     corrupt("bad Deflate code");
   }
 };
+
+// zlib's Adler-32; 16 bytes a step (their sum, and their sum weighted 16
+// .. 1 for b), within zlib's NMAX bytes between the modulo reductions.
+uint32_t adler32(const uint8_t* p, size_t n) {
+  typedef uint8_t U8x16 __attribute__((vector_size(16)));
+  typedef uint16_t U16x16 __attribute__((vector_size(32)));
+  typedef uint32_t U32x16 __attribute__((vector_size(64)));
+  const U16x16 weight = {16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2, 1};
+  uint64_t a = 1, b = 0;
+  while (n) {
+    size_t k = std::min<size_t>(n, 5552 / 16 * 16);
+    n -= k;
+    U32x16 weighted = {};
+    for (; k >= 16; k -= 16, p += 16) {
+      U8x16 x;
+      memcpy(&x, p, sizeof x);
+      const U16x16 y = __builtin_convertvector(x, U16x16);
+      uint32_t sum = 0;
+      for (int i = 0; i < 16; ++i) sum += y[i];
+      b += 16 * a;
+      a += sum;
+      weighted += __builtin_convertvector(y * weight, U32x16);
+    }
+    for (int i = 0; i < 16; ++i) b += weighted[i] % 65521;
+    for (; k; --k) {
+      a += *p++;
+      b += a;
+    }
+    a %= 65521;
+    b %= 65521;
+  }
+  return (uint32_t)(b << 16 | a);
+}
 
 std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
   static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
@@ -1653,97 +2280,107 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
   std::vector<uint8_t> out(want);
   size_t at = 0;
   InflateBits b{s + 2, n - 2};
+  b.done = &at;
+  b.whole = want;
   InflateCodes lit, dist;
-  bool last = false;
-  while (at < want) {
-    if (last) corrupt("Deflate data ends early");
-    last = b.get(1);
-    const int type = b.get(2);
-    if (type == 0) {  // stored: LEN, NLEN from the next byte boundary
-      b.drop(b.cnt & 7);
-      const int len = b.get(16), nlen = b.get(16);
-      if (len != (~nlen & 0xFFFF)) corrupt("bad Deflate stored block length");
-      size_t left = len;
-      while (left > 0 && at < want) {
-        if (b.cnt > 0) {  // whole bytes still in the bit buffer
-          out[at++] = (uint8_t)b.get(8);
-          --left;
-          continue;
+  try {
+    for (bool last = false; !last;) {
+      last = b.get(1);
+      const int type = b.get(2);
+      if (type == 0) {  // stored: LEN, NLEN from the next byte boundary
+        b.drop(b.cnt & 7);
+        const int len = b.get(16), nlen = b.get(16);
+        if (len != (~nlen & 0xFFFF)) corrupt("bad Deflate stored block length");
+        size_t left = len;
+        while (left > 0 && at < want) {
+          if (b.cnt > 0) {  // whole bytes still in the bit buffer
+            out[at++] = (uint8_t)b.get(8);
+            --left;
+            continue;
+          }
+          const size_t k = std::min({left, want - at, b.n - b.pos});
+          if (k == 0) corrupt("Deflate data ends early");
+          memcpy(&out[at], b.s + b.pos, k);
+          b.pos += k;
+          at += k;
+          left -= k;
         }
-        const size_t k = std::min({left, want - at, b.n - b.pos});
-        if (k == 0) corrupt("Deflate data ends early");
-        memcpy(&out[at], b.s + b.pos, k);
-        b.pos += k;
-        at += k;
-        left -= k;
-      }
-      continue;
-    }
-    if (type == 3) corrupt("bad Deflate block type");
-    uint8_t lens[320];
-    int nlit = 288, ndist = 32;
-    if (type == 1) {
-      std::fill(lens, lens + 144, 8);
-      std::fill(lens + 144, lens + 256, 9);
-      std::fill(lens + 256, lens + 280, 7);
-      std::fill(lens + 280, lens + 288, 8);
-      std::fill(lens + 288, lens + 320, 5);
-    } else {
-      nlit = b.get(5) + 257;
-      ndist = b.get(5) + 1;
-      const int ncode = b.get(4) + 4;
-      if (nlit > 286 || ndist > 30) corrupt("bad Deflate code counts");
-      uint8_t cl[19] = {0};
-      for (int i = 0; i < ncode; ++i) cl[kOrder[i]] = (uint8_t)b.get(3);
-      InflateCodes clh;
-      clh.build(cl, 19, false, false);
-      for (int i = 0; i < nlit + ndist;) {
-        int sym = b.decode(clh);
-        if (sym < 16) {
-          lens[i++] = (uint8_t)sym;
-          continue;
-        }
-        int rep, v = 0;
-        if (sym == 16) {
-          if (i == 0) corrupt("bad Deflate code lengths (repeat with no previous)");
-          v = lens[i - 1];
-          rep = 3 + b.get(2);
-        } else {
-          rep = sym == 17 ? 3 + b.get(3) : 11 + b.get(7);
-        }
-        if (i + rep > nlit + ndist) corrupt("bad Deflate code lengths (too many)");
-        std::fill(lens + i, lens + i + rep, (uint8_t)v);
-        i += rep;
-      }
-      if (lens[256] == 0) corrupt("Deflate block has no end-of-block code");
-    }
-    lit.build(lens, nlit, true, false);
-    dist.build(lens + nlit, ndist, true, true);
-    for (;;) {
-      int sym = b.decode(lit);
-      if (sym < 256) {
-        out[at++] = (uint8_t)sym;
-        if (at == want) break;
+        if (left > 0) return out;  // the rest waits for room
         continue;
       }
-      if (sym == 256) break;
-      sym -= 257;
-      if (sym >= 29) corrupt("bad Deflate length code");
-      size_t len = kLenBase[sym] + b.get(kLenExtra[sym]);
-      int ds = b.decode(dist);
-      if (ds >= 30) corrupt("bad Deflate distance code");
-      size_t back = kDistBase[ds] + b.get(kDistExtra[ds]);
-      if (back > at) corrupt("Deflate distance too far back");
-      len = std::min(len, want - at);
-      uint8_t* o = &out[at];
-      if (back >= len) {
-        memcpy(o, o - back, len);
+      if (type == 3) corrupt("bad Deflate block type");
+      uint8_t lens[320];
+      int nlit = 288, ndist = 32;
+      if (type == 1) {
+        std::fill(lens, lens + 144, 8);
+        std::fill(lens + 144, lens + 256, 9);
+        std::fill(lens + 256, lens + 280, 7);
+        std::fill(lens + 280, lens + 288, 8);
+        std::fill(lens + 288, lens + 320, 5);
       } else {
-        for (size_t i = 0; i < len; ++i) o[i] = o[i - back];
+        nlit = b.get(5) + 257;
+        ndist = b.get(5) + 1;
+        const int ncode = b.get(4) + 4;
+        if (nlit > 286 || ndist > 30) corrupt("bad Deflate code counts");
+        uint8_t cl[19] = {0};
+        for (int i = 0; i < ncode; ++i) cl[kOrder[i]] = (uint8_t)b.get(3);
+        InflateCodes clh;
+        clh.build(cl, 19, false, false);
+        for (int i = 0; i < nlit + ndist;) {
+          int sym = b.decode(clh);
+          if (sym < 16) {
+            lens[i++] = (uint8_t)sym;
+            continue;
+          }
+          int rep, v = 0;
+          if (sym == 16) {
+            if (i == 0) corrupt("bad Deflate code lengths (repeat with no previous)");
+            v = lens[i - 1];
+            rep = 3 + b.get(2);
+          } else {
+            rep = sym == 17 ? 3 + b.get(3) : 11 + b.get(7);
+          }
+          if (i + rep > nlit + ndist) corrupt("bad Deflate code lengths (too many)");
+          std::fill(lens + i, lens + i + rep, (uint8_t)v);
+          i += rep;
+        }
+        if (lens[256] == 0) corrupt("Deflate block has no end-of-block code");
       }
-      at += len;
-      if (at == want) break;
+      lit.build(lens, nlit, true, false);
+      dist.build(lens + nlit, ndist, true, true);
+      for (;;) {
+        int sym = b.decode(lit);
+        if (sym < 256) {
+          if (at == want) return out;  // a literal waits for room
+          out[at++] = (uint8_t)sym;
+          continue;
+        }
+        if (sym == 256) break;
+        sym -= 257;
+        if (sym >= 29) corrupt("bad Deflate length code");
+        size_t len = kLenBase[sym] + b.get(kLenExtra[sym]);
+        int ds = b.decode(dist);
+        if (ds >= 30) corrupt("bad Deflate distance code");
+        size_t back = kDistBase[ds] + b.get(kDistExtra[ds]);
+        if (back > at) corrupt("Deflate distance too far back");
+        const bool room = len <= want - at;  // else the rest of the match waits for it
+        len = std::min(len, want - at);
+        uint8_t* o = &out[at];
+        if (back >= len) {
+          memcpy(o, o - back, len);
+        } else {
+          for (size_t i = 0; i < len; ++i) o[i] = o[i - back];
+        }
+        at += len;
+        if (!room) return out;
+      }
     }
+    if (at < want) corrupt("Deflate data ends early");
+    b.drop(b.cnt & 7);
+    uint32_t check = 0;
+    for (int i = 0; i < 4; ++i) check = check << 8 | (uint32_t)b.get(8);
+    if (check != adler32(out.data(), want)) corrupt("Deflate data check (Adler-32) fails");
+  } catch (const InflateEnd&) {
   }
   return out;
 }
@@ -2130,6 +2767,393 @@ struct TiffLayout {
   }
 }
 
+// libtiff's YCbCr -> RGB (tif_color.c TIFFYCbCrToRGBInit, TIFFYCbCrtoRGB),
+// which its RGBA reader (tif_getimage.c) applies to YCbCr that libjpeg has
+// not converted: tables in 16-bit fixed point from the YCbCrCoefficients
+// and ReferenceBlackWhite tags, in float as libtiff computes them.
+struct TiffYcc {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y[256];
+  TiffYcc(const float* luma, const float* rbw) {
+    auto fix = [](float x) { return (int32_t)(x * (float)(1L << 16) + 0.5); };
+    auto clampf = [](float f, float lo, float hi) { return f < lo ? lo : f > hi ? hi : f; };
+    auto code2v = [](int c, float rb, float rw, float cr) {
+      return ((float)(c - (int32_t)rb) * cr) / (rw - rb != 0 ? rw - rb : 1.0f);
+    };
+    const float f1 = 2 - 2 * luma[0], f2 = luma[0] * f1 / luma[1];
+    const float f3 = 2 - 2 * luma[2], f4 = luma[2] * f3 / luma[1];
+    const int32_t d1 = fix(clampf(f1, 0, 2)), d2 = -fix(clampf(f2, 0, 2));
+    const int32_t d3 = fix(clampf(f3, 0, 2)), d4 = -fix(clampf(f4, 0, 2));
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      const int32_t cr = (int32_t)clampf(code2v(x, rbw[4] - 128, rbw[5] - 128, 127), -4096, 4096);
+      const int32_t cb = (int32_t)clampf(code2v(x, rbw[2] - 128, rbw[3] - 128, 127), -4096, 4096);
+      cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+      cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + (1 << 15);
+      y[i] = (int32_t)clampf(code2v(x + 128, rbw[0], rbw[1], 255), -4096, 4096);
+    }
+  }
+  uint8_t grey(int yy, int cb, int cr) const {  // then PIL's RGB -> L
+    const int32_t v = y[yy];
+    return luma(clamp255(v + cr_r[cr]), clamp255(v + (int32_t)((cb_g[cb] + cr_g[cr]) >> 16)),
+                  clamp255(v + cb_b[cb]));
+  }
+};
+
+struct OJpegTags {  // IFD entries, 0 where absent
+  size_t jif, jif_len, restart, qtables, dctables, actables, coefficients, refbw;
+};
+
+// Old-style JPEG-in-TIFF (compression 6), as libtiff's tif_ojpeg.c reads it
+// for PIL. libtiff builds one JPEG stream for libjpeg: its header from the
+// marker segments at the front of a byte source (the JPEGInterchangeFormat
+// bytes, then every strip's) up to SOS, or, when that source does not start
+// with a marker, from the tables that JPEGQTables, JPEGDCTables and
+// JPEGACTables point at and a frame of the strip's size with the YCbCr
+// subsampling; then the rest of the source as the scan, an RSTn after each
+// strip but the last, EOI. Strips shorter than the image make the restart
+// interval a strip's MCUs (a DRI in the stream overrides it). Grey comes out
+// as libjpeg decodes it. YCbCr (photometric 6, or libtiff's reading of 2)
+// comes out of libjpeg raw, each component at its own resolution, when the
+// stream's luma sampling is 1, 2 or 4 each way and its chroma 1 x 1; PIL
+// then reads it through libtiff's RGBA reader: a block of h x v pixels takes
+// its Cb and Cr as they are, converted by TiffYcc. Other sampling libjpeg
+// upsamples itself (libtiff's "desubsampling inside decompression") before
+// TiffYcc converts each pixel. Not inlined, six register arguments: see
+// jpeg_tiff.
+[[gnu::noinline]] void ojpeg_tiff(const Tiff& t, const OJpegTags& oj, uint32_t photometric,
+                                  uint32_t spp, const Chunks& c, Gray& g) {
+  if (c.tiles) unsupported("old-style JPEG-in-TIFF in tiles");
+  const uint8_t* d = t.d;
+  const size_t fsize = t.n;
+  const uint32_t W = g.w, H = g.h, rps = c.ch, nstrips = (H + rps - 1) / rps;
+  const bool ycc = spp == 3;
+  if (ycc && photometric != 6 && photometric != 2)
+    unsupported("old-style JPEG-in-TIFF of 3 samples in photometric " +
+                std::to_string(photometric));
+  if (!ycc && photometric == 6)
+    corrupt("old-style JPEG-in-TIFF of one YCbCr sample, which libtiff's RGBA reader refuses");
+  // The byte source, and where each strip's bytes end in it.
+  std::vector<uint8_t> src;
+  std::vector<size_t> strip_end;
+  if (oj.jif) {
+    const size_t off = t.values(oj.jif).at(0);
+    if (off < fsize) {
+      size_t len = oj.jif_len ? t.values(oj.jif_len).at(0) : 0;
+      if (len == 0 || len > fsize - off) len = fsize - off;
+      src.assign(d + off, d + off + len);
+    }
+  }
+  const size_t jif_size = src.size();
+  for (uint32_t i = 0; i < nstrips; ++i) {
+    const size_t off = c.offsets[i];
+    if (off != 0 && off < fsize) {
+      size_t cnt = c.counts[i];
+      if (cnt == 0 || cnt > fsize - off) cnt = fsize - off;
+      src.insert(src.end(), d + off, d + off + cnt);
+    }
+    strip_end.push_back(src.size());
+  }
+  // The subsampling: the stream's luma sampling when its header holds a
+  // frame, else the tag's (2 x 2 by default); 1 x 1 for grey.
+  int sub_h = 1, sub_v = 1;
+  bool desub = false;  // libjpeg upsamples
+  size_t p = 0;
+  auto byte = [&]() -> int {
+    if (p >= src.size()) corrupt("old-style JPEG-in-TIFF data ends early");
+    return src[p++];
+  };
+  auto word = [&]() { return (byte() << 8) | byte(); };
+  if (ycc) {
+    sub_h = c.sub_h ? c.sub_h : 2;
+    sub_v = c.sub_v ? c.sub_v : 2;
+    for (size_t q = 0; q + 1 < src.size() && src[q] == 0xFF;) {  // a first pass to the frame
+      int m = src[++q];
+      while (m == 0xFF && q + 1 < src.size()) m = src[++q];
+      ++q;
+      if (m == 0xD8) continue;
+      if (m == 0xDA || q + 2 > src.size()) break;
+      const size_t len = (src[q] << 8) | src[q + 1];
+      if (m == 0xC0 || m == 0xC1 || m == 0xC3) {
+        if (len < 11 || (len - 8) % 3 || q + len > src.size()) break;
+        const int nf = (int)(len - 8) / 3;
+        for (int k = 0; k < nf; ++k) {
+          const int hv = src[q + 9 + 3 * k];  // after Lf, P, Y, X, Nf and the id
+          if (k == 0) {
+            sub_h = hv >> 4;
+            sub_v = hv & 15;
+            for (int f : {sub_h, sub_v}) desub = desub || (f != 1 && f != 2 && f != 4);
+          } else {
+            desub = desub || hv != 0x11;
+          }
+        }
+        break;
+      }
+      q += len;
+    }
+    if (desub) sub_h = sub_v = 1;
+  }
+  int restart = oj.restart ? (int)t.values(oj.restart).at(0) : 0;
+  if (rps < H) {
+    for (int f : {sub_h, sub_v})
+      if (f != 1 && f != 2 && f != 4)
+        corrupt("old-style JPEG-in-TIFF with YCbCr subsampling " + std::to_string(f));
+    if (rps % (8 * sub_v)) corrupt("old-style JPEG-in-TIFF strips not whole MCU rows");
+    restart = (int)(((W + 8 * sub_h - 1) / (8 * sub_h)) * (rps / (8 * sub_v)));
+  }
+  // The header: libtiff's OJPEGReadHeaderInfoSec, segment by segment.
+  std::vector<uint8_t> qseg[4], dcseg[4], acseg[4];
+  int sof_marker = 0xC0, sof_x = (int)W, sof_y = (int)H;
+  int sof_c[3] = {0, 1, 2}, sof_hv[3] = {sub_h << 4 | sub_v, 0x11, 0x11}, sof_tq[3] = {0, 0, 0};
+  int sos_cs[3] = {0, 1, 2}, sos_tda[3] = {0, 0, 0};
+  bool have_sof = false;
+  while (p < src.size() && src[p] == 0xFF) {
+    ++p;
+    int m;
+    do m = byte();
+    while (m == 0xFF);
+    if (m == 0xD8) continue;
+    if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
+      const int len = word();
+      if (len < 2) corrupt("bad JPEG marker segment in old-style JPEG-in-TIFF");
+      p = std::min(src.size(), p + len - 2);
+    } else if (m == 0xDD) {
+      if (word() != 4) corrupt("bad DRI segment in old-style JPEG-in-TIFF");
+      restart = word();
+    } else if (m == 0xDB) {
+      int len = word();
+      if (len <= 2) corrupt("bad DQT segment in old-style JPEG-in-TIFF");
+      for (len -= 2; len > 0; len -= 65) {
+        if (len < 65) corrupt("bad DQT segment in old-style JPEG-in-TIFF");
+        std::vector<uint8_t> s{0xFF, 0xDB, 0, 67};
+        for (int k = 0; k < 65; ++k) s.push_back((uint8_t)byte());
+        if ((s[4] & 15) > 3) corrupt("bad DQT segment in old-style JPEG-in-TIFF");
+        qseg[s[4] & 15] = s;
+      }
+    } else if (m == 0xC4) {
+      const int len = word();
+      if (len <= 2) corrupt("bad DHT segment in old-style JPEG-in-TIFF");
+      std::vector<uint8_t> s{0xFF, 0xC4, (uint8_t)(len >> 8), (uint8_t)len};
+      for (int k = 0; k < len - 2; ++k) s.push_back((uint8_t)byte());
+      const int o = s[4];
+      if (((o & 0xF0) != 0 && (o & 0xF0) != 0x10) || (o & 15) > 3)
+        corrupt("bad DHT segment in old-style JPEG-in-TIFF");
+      ((o & 0xF0) ? acseg : dcseg)[o & 15] = s;
+    } else if (m == 0xC0 || m == 0xC1 || m == 0xC3) {
+      if (have_sof) corrupt("old-style JPEG-in-TIFF with two frames");
+      sof_marker = m;
+      const int len = word();
+      if (len < 11 || (len - 8) % 3 || (len - 8) / 3 != (int)spp)
+        corrupt("old-style JPEG-in-TIFF frame of the wrong sample count");
+      if (byte() != 8) corrupt("old-style JPEG-in-TIFF not of 8 bits");
+      sof_y = word();
+      sof_x = word();
+      if ((uint32_t)sof_y < H || (uint32_t)sof_x != W)
+        corrupt("old-style JPEG-in-TIFF frame of the wrong size");
+      if (byte() != (int)spp) corrupt("bad frame in old-style JPEG-in-TIFF");
+      for (uint32_t k = 0; k < spp; ++k) {
+        sof_c[k] = byte();
+        sof_hv[k] = byte();
+        if (!desub && sof_hv[k] != (k ? 0x11 : (sub_h << 4 | sub_v)))
+          corrupt("old-style JPEG-in-TIFF frame with unexpected subsampling");
+        sof_tq[k] = byte();
+      }
+      have_sof = true;
+    } else if (m == 0xDA) {
+      if (word() != 6 + 2 * (int)spp || byte() != (int)spp)
+        corrupt("bad SOS in old-style JPEG-in-TIFF");
+      for (uint32_t k = 0; k < spp; ++k) {
+        sos_cs[k] = byte();
+        sos_tda[k] = byte();
+      }
+      for (int k = 0; k < 3; ++k) byte();
+      break;
+    } else {
+      corrupt("unknown JPEG marker in old-style JPEG-in-TIFF");
+    }
+  }
+  if (!have_sof) {
+    // The tables of the tags: per sample an offset, each new one (not the
+    // previous sample's) a table of its own; an offset seen two samples
+    // back is corrupt (tif_ojpeg.c's check).
+    const std::vector<uint32_t> none;
+    auto tag = [&](size_t e) { return e ? t.values(e) : none; };
+    const std::vector<uint32_t> offs[3] = {tag(oj.qtables), tag(oj.dctables), tag(oj.actables)};
+    for (int kind = 0; kind < 3; ++kind) {
+      const std::vector<uint32_t>& v = offs[kind];
+      auto at = [&](uint32_t k) { return k < v.size() ? v[k] : 0u; };
+      if (!at(0)) corrupt("old-style JPEG-in-TIFF without JPEG tables");
+      for (uint32_t k = 0; k < spp; ++k) {
+        const size_t off = at(k);
+        if (!off || (k && off == at(k - 1))) {  // the previous sample's table
+          if (kind == 0) sof_tq[k] = sof_tq[k - 1];
+          if (kind == 1) sos_tda[k] = sos_tda[k - 1];
+          if (kind == 2) sos_tda[k] |= sos_tda[k - 1] & 15;
+          continue;
+        }
+        for (uint32_t m = 0; m + 1 < k; ++m)
+          if (at(m) == off) corrupt("old-style JPEG-in-TIFF with a bad JPEG tables tag");
+        size_t len = 64;
+        if (kind && off + 16 <= fsize) {
+          len = 16;
+          for (int b = 0; b < 16; ++b) len += d[off + b];
+        }
+        if (off + len > fsize) corrupt("old-style JPEG-in-TIFF table outside the file");
+        std::vector<uint8_t>& seg = (kind == 0 ? qseg : kind == 1 ? dcseg : acseg)[k];
+        if (kind == 0) {
+          seg = {0xFF, 0xDB, 0, 67, (uint8_t)k};
+          sof_tq[k] = (int)k;
+        } else {
+          seg = {0xFF, 0xC4, (uint8_t)((len + 3) >> 8), (uint8_t)(len + 3),
+                 (uint8_t)((kind - 1) << 4 | k)};
+          sos_tda[k] = kind == 1 ? (int)k << 4 : sos_tda[k] | (int)k;
+        }
+        seg.insert(seg.end(), d + off, d + off + len);
+      }
+    }
+  }
+  // The stream libjpeg reads.
+  std::vector<uint8_t> s{0xFF, 0xD8};
+  for (auto* set : {qseg, dcseg, acseg})
+    for (int k = 0; k < 4; ++k) s.insert(s.end(), set[k].begin(), set[k].end());
+  if (restart) s.insert(s.end(), {0xFF, 0xDD, 0, 4, (uint8_t)(restart >> 8), (uint8_t)restart});
+  s.insert(s.end(), {0xFF, (uint8_t)sof_marker, 0, (uint8_t)(8 + 3 * spp), 8, (uint8_t)(sof_y >> 8),
+                     (uint8_t)sof_y, (uint8_t)(sof_x >> 8), (uint8_t)sof_x, (uint8_t)spp});
+  for (uint32_t k = 0; k < spp; ++k)
+    s.insert(s.end(), {(uint8_t)sof_c[k], (uint8_t)sof_hv[k], (uint8_t)sof_tq[k]});
+  s.insert(s.end(), {0xFF, 0xDA, 0, (uint8_t)(6 + 2 * spp), (uint8_t)spp});
+  for (uint32_t k = 0; k < spp; ++k) s.insert(s.end(), {(uint8_t)sos_cs[k], (uint8_t)sos_tda[k]});
+  s.insert(s.end(), {0, 63, 0});
+  // The scan: what the header left of the source, an RSTn after each
+  // strip's last bytes but the last strip's.
+  if (p < jif_size) s.insert(s.end(), src.begin() + p, src.begin() + jif_size);
+  for (uint32_t i = 0, rst = 0; i < nstrips; ++i) {
+    const size_t from = std::max(p, i ? strip_end[i - 1] : jif_size), to = strip_end[i];
+    if (from >= to) continue;
+    s.insert(s.end(), src.begin() + from, src.begin() + to);
+    if (i + 1 < nstrips) {
+      s.insert(s.end(), {0xFF, (uint8_t)(0xD0 + rst)});
+      rst = (rst + 1) & 7;
+    }
+  }
+  s.insert(s.end(), {0xFF, 0xD9});
+  // A stop in a strip fails its read: PIL refuses the file, unless it is
+  // the last strip of YCbCr, which libtiff's RGBA reader takes with the
+  // rows from the stopped MCU row on left zero (Y = Cb = Cr = 0).
+  Jpeg jp;
+  jp.begin(s.data(), s.size());
+  jp.old_tiff = true;
+  uint32_t good_rows = H;
+  try {
+    jp.planes();
+  } catch (const OldTiffStop&) {
+    good_rows = (uint32_t)jp.stop_row * 8 * jp.vmax;
+    if (!ycc || good_rows / rps + 1 < nstrips)
+      corrupt("old-style JPEG-in-TIFF with a restart marker out of place (libtiff stops there)");
+  }
+  const Component* cp = jp.comp;
+  if (!ycc) {
+    for (uint32_t y = 0; y < H; ++y)
+      memcpy(&g.px[(size_t)y * W], &cp[0].plane[(size_t)y * cp[0].pw], W);
+    return;
+  }
+  float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
+  if (oj.coefficients) {
+    const std::vector<float> v = t.rationals(oj.coefficients);
+    if (v.size() < 3) corrupt("bad YCbCrCoefficients tag");
+    std::copy(v.begin(), v.begin() + 3, luma);
+  }
+  if (oj.refbw) {
+    const std::vector<float> v = t.rationals(oj.refbw);
+    if (v.size() < 6) corrupt("bad ReferenceBlackWhite tag");
+    std::copy(v.begin(), v.begin() + 6, rbw);
+  }
+  if (std::isnan(luma[0]) || std::isnan(luma[1]) || luma[1] == 0 || std::isnan(luma[2]))
+    corrupt("bad YCbCrCoefficients tag");
+  if (desub)
+    corrupt("old-style JPEG-in-TIFF of a sampling libtiff leaves to libjpeg (PIL refuses it)");
+  // The subsamplings tif_getimage.c has a reader for.
+  static const int kRgbaSub[] = {0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11};
+  if (std::find(std::begin(kRgbaSub), std::end(kRgbaSub), sub_h << 4 | sub_v) == std::end(kRgbaSub))
+    corrupt("old-style JPEG-in-TIFF with YCbCr subsampling libtiff's RGBA reader refuses");
+  const TiffYcc conv(luma, rbw);
+  std::fill(g.px.begin() + (size_t)std::min(good_rows, H) * W, g.px.end(), conv.grey(0, 0, 0));
+  for (uint32_t y = 0; y < std::min(good_rows, H); ++y) {
+    const uint8_t* yr = &cp[0].plane[(size_t)y * cp[0].pw];
+    const uint8_t* cb = &cp[1].plane[(size_t)(y / sub_v) * cp[1].pw];
+    const uint8_t* cr = &cp[2].plane[(size_t)(y / sub_v) * cp[2].pw];
+    uint8_t* o = &g.px[(size_t)y * W];
+    for (uint32_t x = 0; x < W; ++x) o[x] = conv.grey(yr[x], cb[x / sub_h], cr[x / sub_h]);
+  }
+}
+
+// Grey TIFF numbers (PIL's modes I;12, I;16S, I;32S, I;32N and F;32F) to
+// PIL's convert("L"): an integer clipped to 0 .. 255 (a uint32 read as
+// PIL's int32 first), a float clipped and truncated, NaN to 0. libtiff
+// returns 16- and 32-bit samples of a compressed file in the host's byte
+// order, which PIL then reads in the file's: so a big-endian file's
+// samples come out byte-swapped unless it is uncompressed. That is
+// `le`, the order the rows are read in here, where a row's bytes stand in
+// the file's order (the predictors below keep that order).
+struct NumberGrey {
+  int bits, fmt;  // 12 (fmt 1), 16 (fmt 2) or 32 (fmt 1, 2 or 3)
+  bool be, le;    // the file's byte order; the order PIL reads a row in
+  int predictor;  // 1, or 2 / 3 under a predicting codec
+  size_t rb;      // bytes a chunk row
+  uint32_t cw;    // samples a chunk row
+};
+
+inline uint8_t clip_int(int32_t v) { return (uint8_t)(v <= 0 ? 0 : v >= 255 ? 255 : v); }
+
+// Rows `rows` of a chunk at (x0, y0), decompressed into `buf`, to grey.
+// Predictor 2 adds each sample to its left neighbour's (in the file's byte
+// order, modulo its size); predictor 3 is libtiff's fpAcc: the row's bytes
+// summed left to right, then each sample's bytes taken from the row's byte
+// planes, the most significant plane first.
+[[gnu::noinline]] void number_rows(const NumberGrey& f, uint8_t* buf, uint32_t rows, uint32_t x0,
+                                   uint32_t y0, Gray& g) {
+  const uint32_t W = g.w, H = g.h, bps = f.bits / 8;
+  std::vector<uint8_t> tmp(f.predictor == 3 ? f.rb : 0);
+  auto rd = [](const uint8_t* p, int k, bool le) {
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) v |= (uint32_t)p[le ? i : k - 1 - i] << (8 * i);
+    return v;
+  };
+  for (uint32_t r = 0; r < rows && y0 + r < H; ++r) {
+    uint8_t* row = buf + r * f.rb;
+    if (f.predictor == 2) {
+      for (uint32_t c = 1; c < f.cw; ++c) {
+        const uint32_t v = rd(row + bps * c, bps, !f.be) + rd(row + bps * (c - 1), bps, !f.be);
+        for (uint32_t i = 0; i < bps; ++i)
+          row[bps * c + (f.be ? bps - 1 - i : i)] = (uint8_t)(v >> (8 * i));
+      }
+    } else if (f.predictor == 3) {
+      for (size_t i = 1; i < f.rb; ++i) row[i] = (uint8_t)(row[i] + row[i - 1]);
+      memcpy(tmp.data(), row, f.rb);
+      for (uint32_t c = 0; c < f.cw; ++c)
+        for (uint32_t b = 0; b < bps; ++b)  // plane b holds byte b, most significant first
+          row[bps * c + (f.be ? b : bps - 1 - b)] = tmp[(size_t)b * f.cw + c];
+    }
+    uint8_t* o = &g.px[(size_t)(y0 + r) * W + x0];
+    const uint32_t n = std::min(f.cw, W - x0);
+    for (uint32_t c = 0; c < n; ++c) {
+      if (f.bits == 12) {  // MSB first, two samples in three bytes
+        const uint8_t* p = row + (size_t)c * 3 / 2;
+        o[c] = clip_int(c & 1 ? ((p[0] & 15) << 8) | p[1] : (p[0] << 4) | (p[1] >> 4));
+      } else if (f.bits == 16) {
+        o[c] = clip_int((int16_t)rd(row + 2 * c, 2, f.le));
+      } else if (f.fmt != 3) {
+        o[c] = clip_int((int32_t)rd(row + 4 * c, 4, f.le));
+      } else {
+        const uint32_t u = rd(row + 4 * c, 4, f.le);
+        float v;
+        memcpy(&v, &u, sizeof v);
+        o[c] = v > 0.0f ? (v >= 255.0f ? 255 : (uint8_t)v) : 0;  // NaN: 0
+      }
+    }
+  }
+}
+
 Gray decode_tiff(const uint8_t* d, size_t n) {
   Tiff t{d, n};
   if (n < 8) corrupt("TIFF file ends early");
@@ -2140,8 +3164,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
            planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
   std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1}, ycbcr_sub;
-  bool strips = false, tiles = false;
+  bool strips = false, tiles = false, has_photometric = false, has_spp = false;
   size_t jpeg_tables = 0;  // the JPEGTables entry, if any
+  OJpegTags oj{};
   for (uint32_t i = 0; i < count; ++i) {
     size_t e = ifd + 2 + 12 * (size_t)i;
     uint32_t tag = t.r16(e);
@@ -2150,10 +3175,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       case 257: H = t.values(e).at(0); break;
       case 258: bps = t.values(e); break;
       case 259: compression = t.values(e).at(0); break;
-      case 262: photometric = t.values(e).at(0); break;
+      case 262: photometric = t.values(e).at(0); has_photometric = true; break;
       case 266: fill = t.values(e).at(0); break;
       case 273: offsets = t.values(e); strips = true; break;
-      case 277: spp = t.values(e).at(0); break;
+      case 277: spp = t.values(e).at(0); has_spp = true; break;
       case 278: rps = t.values(e).at(0); break;
       case 279: counts = t.values(e); break;
       case 284: planar = t.values(e).at(0); break;
@@ -2168,11 +3193,27 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       case 338: extra = t.values(e); break;
       case 339: fmt = t.values(e); break;
       case 347: jpeg_tables = e; break;
+      case 513: oj.jif = e; break;
+      case 514: oj.jif_len = e; break;
+      case 515: oj.restart = e; break;
+      case 519: oj.qtables = e; break;
+      case 520: oj.dctables = e; break;
+      case 521: oj.actables = e; break;
+      case 529: oj.coefficients = e; break;
       case 530: ycbcr_sub = t.values(e); break;
+      case 532: oj.refbw = e; break;
       default: break;
     }
   }
   check_size(W, H);
+  if (compression == 6) {
+    // libtiff (tif_dirread.c) takes an old-style JPEG's photometric for
+    // YCbCr when the tag is missing or says RGB of 3 samples, and its
+    // samples per pixel for 3 when missing there; PIL takes its own
+    // photometric for YCbCr and defaults to 3 samples too.
+    if (!has_spp && (!has_photometric || photometric == 2 || photometric == 6)) spp = 3;
+    if (!has_photometric || (photometric == 2 && spp == 3)) photometric = 6;
+  }
   // What PIL itself refuses is corrupt: a compression its TiffImagePlugin
   // does not name, a layout without a mode in its OPEN_INFO, a CIELab image
   // (opened as LAB, which convert("L") refuses), and what libtiff refuses
@@ -2207,11 +3248,12 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (predicted && predictor == 3 && fmt[0] != 3) corrupt("TIFF floating-point predictor on integers");
 
   // Kinds PIL reads and the port does not yet (ROADMAP A.6).
-  if (compression == 6) unsupported("old-style JPEG-in-TIFF (compression 6)");
-  if (compression != 1 && compression != 5 && compression != 32773 && !fax && !jpeg && !zip)
+  const bool ojpeg = compression == 6;
+  if (compression != 1 && compression != 5 && compression != 32773 && !fax && !jpeg && !zip &&
+      !ojpeg)
     unsupported("TIFF compression " + std::to_string(compression));
-  // YCbCr is read only as libtiff's JPEG codec converts it, in one plane.
-  if (photometric == 6 && !(jpeg && planar == 1)) unsupported("YCbCr TIFF");
+  // YCbCr is read only as libtiff's JPEG codecs give it, in one plane.
+  if (photometric == 6 && !((jpeg || ojpeg) && planar == 1)) unsupported("YCbCr TIFF");
   if (fill != 1) unsupported("TIFF with FillOrder 2");
   if (spp > 1 && planar == 2) unsupported("planar TIFF");
   if (fax) {
@@ -2220,12 +3262,6 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     if ((compression == 3 && (t4opts & 2)) || (compression == 4 && (t6opts & 2)))
       unsupported("CCITT uncompressed mode");
   }
-  if (predicted && predictor == 3) unsupported("TIFF floating-point predictor (3)");
-  bool signed8 = fmt[0] == 2 && bits == 8 && spp == 1 && photometric == 1;
-  for (uint32_t f : fmt)
-    if (f != 1 && !signed8) unsupported("TIFF sample format " + std::to_string(f));
-  const bool pred2 = predictor == 2 && predicted;
-  if (pred2 && bits != 8 && bits != 16) unsupported("TIFF predictor 2 at this sample size");
   if (jpeg && bits != 8) unsupported(std::to_string(bits) + "-bit JPEG-in-TIFF");
   if (jpeg && !(photometric == 1   ? spp == 1
                 : photometric == 5 ? spp == 4
@@ -2233,17 +3269,19 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     unsupported("JPEG-in-TIFF of photometric " + std::to_string(photometric) + " with " +
                 std::to_string(spp) + " samples");
 
-  // What the samples mean, in PIL's OPEN_INFO terms.
-  enum { kGrey, kGreyInv, kGrey16, kRgb, kPal, kGreyAlpha, kCmyk } kind = kGrey;
-  if (jpeg) {
+  // What the samples mean, in PIL's OPEN_INFO terms. pil_tiff_mode lets a
+  // sample format other than 1 through for grey alone: 2 at 8 bits (read as
+  // unsigned, PIL's L), 16 and 32 bits, 3 at 32 bits.
+  enum { kGrey, kGreyInv, kGrey16, kNumber, kRgb, kPal, kGreyAlpha, kCmyk } kind = kGrey;
+  if (jpeg || ojpeg) {
     // libjpeg's output, converted to grey per strip or tile below.
   } else if (photometric <= 1 && spp == 1) {
-    if (bits == 16) {
+    if (bits == 12 || bits == 32 || (bits == 16 && fmt[0] == 2)) {
+      kind = kNumber;
+    } else if (bits == 16) {
       kind = kGrey16;
-    } else if (bits == 1 || bits == 2 || bits == 4 || bits == 8) {
-      kind = photometric == 0 ? kGreyInv : kGrey;
     } else {
-      unsupported(std::to_string(bits) + "-bit grey TIFF");
+      kind = photometric == 0 ? kGreyInv : kGrey;
     }
   } else if (photometric == 1 && spp == 2 && bits == 8 && extra.size() == 1 && extra[0] == 2) {
     kind = kGreyAlpha;
@@ -2276,23 +3314,29 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (offsets.size() < (size_t)across * down) corrupt("TIFF has too few strips or tiles");
   if (compression != 1 && counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
   const size_t rb = ((size_t)cw * spp * bits + 7) / 8;
+  const bool pred2 = predictor == 2 && predicted && kind != kNumber;
+  const NumberGrey numbers{bits, (int)fmt[0], t.be, !t.be || compression != 1,
+                           predicted ? (int)predictor : 1, rb, cw};
 
   Gray g;
   g.w = (int)W;
   g.h = (int)H;
   g.px.resize((size_t)W * H);
-  if (jpeg) {
+  if (jpeg || ojpeg) {
     const bool sub = ycbcr_sub.size() >= 2;
-    jpeg_tiff(t, jpeg_tables, photometric, spp,
-              Chunks{offsets, counts, cw, ch, tiles, sub ? (int)ycbcr_sub[0] : 0,
-                     sub ? (int)ycbcr_sub[1] : 0}, g);
+    const Chunks chunks{offsets, counts, cw, ch, tiles, sub ? (int)ycbcr_sub[0] : 0,
+                        sub ? (int)ycbcr_sub[1] : 0};
+    if (jpeg)
+      jpeg_tiff(t, jpeg_tables, photometric, spp, chunks, g);
+    else
+      ojpeg_tiff(t, oj, photometric, spp, chunks, g);
     return g;
   }
   // Bilevel grey (CCITT scans among them) goes straight to 0 / 255; every
   // other kind unpacks to one sample array per pixel (spp values each,
   // 16-bit kept whole).
   const bool bilevel = bits == 1 && (kind == kGrey || kind == kGreyInv);
-  std::vector<uint16_t> smp(bilevel ? 0 : (size_t)W * H * spp);
+  std::vector<uint16_t> smp(bilevel || kind == kNumber ? 0 : (size_t)W * H * spp);
   for (uint32_t ty = 0; ty < down; ++ty) {
     for (uint32_t tx = 0; tx < across; ++tx) {
       size_t idx = (size_t)ty * across + tx;
@@ -2311,6 +3355,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
               : compression == 5 ? lzw(d + off, cnt, want)
               : zip              ? inflate_zlib(d + off, cnt, want)
                                  : packbits(d + off, cnt, want);
+      }
+      if (kind == kNumber) {
+        number_rows(numbers, buf.data(), rows, x0, y0, g);
+        continue;
       }
       if (pred2) {
         for (uint32_t r = 0; r < rows; ++r) {
@@ -2361,7 +3409,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     }
   }
 
-  if (bilevel) return g;
+  if (bilevel || kind == kNumber) return g;
   const int maxv = (1 << std::min(bits, 8)) - 1;
   uint8_t pal[256];
   if (kind == kPal) {
@@ -2388,6 +3436,8 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
           g.px[i] = cmyk_luma(s[0] >> 8, s[1] >> 8, s[2] >> 8, s[3] >> 8);
         else
           g.px[i] = cmyk_luma(s[0], s[1], s[2], s[3]);
+        break;
+      case kNumber:  // written by number_rows
         break;
     }
   }

@@ -901,8 +901,61 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     for name in ("restart_damaged.jpg", "bad_code.jpg", "dqt_q64.jpg", "ycck.jpg",
                  "progressive_cut.jpg"):
         files[name] = out / name
+    # Old-style JPEG-in-TIFF, number TIFFs, lossless and arithmetic-coded
+    # JPEG, 32 x 48 from draws of their own; and two files from which
+    # chip_smoke.py builds pages, whose greys other fixtures hold: the
+    # restart intervals of restart_444.jpg arithmetic-coded, and the first 8
+    # rows of scan_420.jpg's grey, lossless, a restart a row.
+    import chip_smoke
+    from test_torch_port_ojpeg import ojpeg_jif, ojpeg_tables
+    from torch_port_jpeg_writers import SCRIPT3, arith_jpeg, lossless_jpeg
+
+    def put(name, data):
+        (out / name).write_bytes(data)
+        files[name] = out / name
+
+    def jpeg(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", **kw)
+        return buf.getvalue()
+    rs = np.random.RandomState(2027)
+    tiny = scan_page(rs, 32, 48, rgb=True)
+    grey = tiny[..., 0].astype(np.float64)
+    put("ojpeg_grey.tif", ojpeg_jif(jpeg(tiny[..., 0], quality=85), 48, 32, 1, photometric=1))
+    put("ojpeg_420.tif", ojpeg_jif(jpeg(tiny, quality=85, subsampling=2), 48, 32, 3))
+    put("ojpeg_tables_420.tif", ojpeg_tables(jpeg(tiny, quality=85, subsampling=2,
+                                                  restart_marker_rows=1), 48, 32, 3, sub=(2, 2),
+                                             rows_per_strip=16))
+    floats = (grey * 1.3 - 30 + rs.rand(32, 48)).astype(np.float32)
+    floats[0, :6] = [np.nan, -3.5, 0.5, 254.9, 300, np.inf]
+    put("float32_pred3.tif", chip_smoke.tiff_numbers(floats, "<f4", 3, rows_per_strip=8,
+                                                     deflate=True, predictor=3))
+    put("int16_be.tif", chip_smoke.tiff_numbers(np.round(grey * 2 - 100).astype(np.int16), ">i2",
+                                                2, deflate=True, predictor=2))
+    wide = (grey * 3).astype(np.uint32) | (rs.rand(32, 48) < 0.1).astype(np.uint32) << 31
+    put("uint32.tif", chip_smoke.tiff_numbers(wide, "<u4", 1, deflate=True, predictor=2))
+    put("grey12.tif", chip_smoke.tiff_numbers((grey * 13).astype(np.uint16) % 4096, "12", 1,
+                                              deflate=True))
+    save("int32_lzw.tif", Image.fromarray((grey * 2 - 80).astype(np.int32), "I"), "TIFF",
+         compression="tiff_lzw", tiffinfo={317: 2})
+    put("lossless_rgb.jpg", lossless_jpeg([tiny[..., 0], tiny[:, ::2, 1], tiny[:, ::2, 2]],
+                                          [(2, 1), (1, 1), (1, 1)], psv=7, pt=1, restart_rows=4))
+    put("arith_progressive.jpg", arith_jpeg(jpeg(tiny, quality=85, subsampling=2), scans=SCRIPT3,
+                                            restart=2, dac=((0, 0x21), (16, 3))))
+    put("arith_444.jpg", arith_jpeg((out / "restart_444.jpg").read_bytes(), restart=25,
+                                    dac=((0, 0x31),)))
+    put("lossless_stripe.jpg", lossless_jpeg([pil_gray(out / "scan_420.jpg")[:8]],
+                                             restart_rows=1))
     golden = {name: pil_gray(path) for name, path in files.items()}
     assert np.array_equal(golden.pop("progressive_page.jpg"), golden["scan_420.jpg"])
+    assert np.array_equal(golden.pop("arith_444.jpg"), golden["restart_444.jpg"])
+    assert np.array_equal(golden.pop("lossless_stripe.jpg"), golden["scan_420.jpg"][:8])
+    # chip_smoke.py's pages of these kinds, held to PIL's grey by digest.
+    lines = []
+    for name, data in chip_smoke.a6_pages(golden).items():
+        with Image.open(io.BytesIO(data)) as im:
+            lines.append(f"{gray_digest(np.asarray(im.convert('L')))}  {name}\n")
+    (out / "a6_pages.sha256").write_text("".join(lines))
     # The progressive page cut after 6 of its 10 scans, which chip_smoke.py
     # decodes: a page of golden array would pass the 1 MB, so its digest.
     cut = cut_scans((out / "progressive_page.jpg").read_bytes(), 6)
@@ -934,10 +987,13 @@ def with_quantizers(data: bytes, q: int) -> bytes:
 
 def load_golden(root: Path = FIXTURES) -> dict:
     """PIL's grey of every fixture by name: ``golden.npz``, and for the
-    progressive page scan_420.jpg's array."""
+    three fixtures that hold another's pixels that array
+    (``chip_smoke.golden_arrays``)."""
     with np.load(root / "golden.npz") as f:
         golden = dict(f)
-    return {**golden, "progressive_page.jpg": golden["scan_420.jpg"]}
+    return {**golden, "progressive_page.jpg": golden["scan_420.jpg"],
+            "arith_444.jpg": golden["restart_444.jpg"],
+            "lossless_stripe.jpg": golden["scan_420.jpg"][:8]}
 
 
 def test_fixtures_are_pil_exact_and_small():
@@ -945,7 +1001,7 @@ def test_fixtures_are_pil_exact_and_small():
     their golden arrays (the progressive page as scan_420.jpg's); together
     they stay under 1 MB."""
     golden = load_golden()
-    assert len(golden) == 36 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    assert len(golden) == 48 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
     assert golden["scan_420.jpg"].shape == golden["ccitt_g4_page.tif"].shape == (500, 1200)
     assert golden["progressive_page.jpg"] is golden["scan_420.jpg"]
     for name, want in golden.items():

@@ -356,19 +356,19 @@ def test_smoothing_picks_neighbour_rows_as_libjpeg(tmp_path, sampling, h):
                                          (0xCA, "arithmetic-coded JPEG"),
                                          (0xCE, "hierarchical JPEG")])
 def test_other_frames_raise_naming_their_kind(tmp_path, marker, kind):
-    """Arithmetic coding (SOF10) is a kind libjpeg decodes and the port not
-    yet: it raises naming A.6. libjpeg refuses hierarchical frames (SOF6,
-    SOF14), so PIL fails and both packages' ``decode_image`` give the zero
-    image; the port calls the file corrupt (ValueError), naming its kind."""
+    """Arithmetic coding (SOF10): libjpeg decodes this Huffman data as
+    arithmetic-coded, and so does the port since A.6.6, bit-equal with PIL.
+    libjpeg refuses hierarchical frames (SOF6, SOF14), so PIL fails and both
+    packages' ``decode_image`` give the zero image; the port calls the file
+    corrupt (ValueError), naming its kind."""
     data = bytearray(pil_jpeg(np.full((16, 16), 128, np.uint8), progressive=True))
     at = data.index(b"\xff\xc2")
     data[at + 1] = marker
-    if kind == "arithmetic-coded JPEG":
-        with pytest.raises(NotImplementedError, match=f"{kind}.*ROADMAP A.6"):
-            tnative.decode(bytes(data))
-        return
     path = tmp_path / "h.jpg"
     path.write_bytes(bytes(data))
+    if kind == "arithmetic-coded JPEG":
+        assert_port_reads_as_pil(path)
+        return
     with pytest.raises(ValueError, match=kind.split()[0]):
         tnative.decode(bytes(data))
     assert not jdataset.decode_image(path, 16).any()

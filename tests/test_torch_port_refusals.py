@@ -18,9 +18,12 @@ import zlib
 import numpy as np
 import pytest
 from PIL import Image
-from test_torch_port_decode import (_codes, _pack, _pack_row, assert_port_reads_as_pil,
+from test_torch_port_decode import (_pack, _pack_row, assert_port_reads_as_pil,
                                     bmp_bytes, jpeg_bytes, pixels, tiff_file)
 from test_torch_port_progressive import pil_jpeg
+from torch_port_jpeg_writers import lossless_jpeg
+
+import chip_smoke
 
 from siggan_tpu.data import dataset as jdataset
 from siggan_tpu.data.native import loader as jnative
@@ -164,11 +167,11 @@ def test_pil_refused_kind_is_a_zero_image(tmp_path, name):
 
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
 STILL_A6 = {
-    "lossless_sof3": (lambda: lossless_jpeg(GREY), "lossless JPEG"),
-    "arithmetic_sof9": (lambda: frame(pil_jpeg(GREY, quality=85), 0xC9), "arithmetic-coded"),
     "bigtiff": (lambda: (lambda b: (Image.fromarray(GREY).save(b, "TIFF", big_tiff=True),
                                     b.getvalue())[1])(io.BytesIO()), "BigTIFF"),
-    "int16_tiff": (lambda: raw_tiff(G8 * 100, 16, 1, [(339, 3, [2])]), "sample format 2"),
+    "planar_rgb": (lambda: chip_smoke.tiff_pack(24, 16, [RGB[..., i].tobytes() for i in range(3)], [
+        (258, 3, [8] * 3), (259, 3, [1]), (262, 3, [2]), (277, 3, [3]), (284, 3, [2]),
+        (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [16 * 24] * 3)]), "planar TIFF"),
     "lzma_tiff": (lambda: (lambda b: (Image.fromarray(GREY).save(b, "TIFF", compression="lzma"),
                                       b.getvalue())[1])(io.BytesIO()), "compression 34925"),
     "palette_with_extra_sample": (lambda: raw_tiff(
@@ -178,30 +181,23 @@ STILL_A6 = {
 }
 
 
-def lossless_jpeg(img: np.ndarray) -> bytes:
-    """A genuine lossless JPEG (SOF3, predictor 1, one 8-bit component)."""
-    h, w = img.shape
-    bits = [0, 1, 5] + [1] * 11 + [0, 0]
-    codes = _codes(bits, list(range(17)))
-    out, acc, n = bytearray(), 0, 0
-    x = img.astype(int).tolist()
-    for r in range(h):
-        for c in range(w):
-            p = 128 if r == c == 0 else x[r][c - 1] if r == 0 or c else x[r - 1][c]
-            d = (x[r][c] - p + 0x8000) % 0x10000 - 0x8000
-            s = abs(d).bit_length()
-            for v, k in (codes[s], (d if d >= 0 else d + (1 << s) - 1, s)):
-                acc, n = (acc << k) | (v & ((1 << k) - 1)), n + k
-                while n >= 8:
-                    byte = (acc >> (n - 8)) & 0xFF
-                    out += bytes([byte, 0] if byte == 0xFF else [byte])
-                    n -= 8
-    if n:
-        byte = ((acc << (8 - n)) | ((1 << (8 - n)) - 1)) & 0xFF
-        out += bytes([byte, 0] if byte == 0xFF else [byte])
-    return (b"\xff\xd8" + seg(0xC4, bytes([0] + bits) + bytes(range(17)))
-            + seg(0xC3, struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0]))
-            + seg(0xDA, bytes([1, 1, 0, 1, 0, 0])) + bytes(out) + b"\xff\xd9")
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.6).
+NOW_READ = {
+    "lossless_sof3": lambda: lossless_jpeg([GREY]),
+    "arithmetic_sof9": lambda: frame(pil_jpeg(GREY, quality=85), 0xC9),
+    "int16_tiff": lambda: raw_tiff(G8 * 100, 16, 1, [(339, 3, [2])]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NOW_READ))
+def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
+    """A genuine lossless JPEG (predictor 1), Huffman data under an
+    arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
+    TIFF: each bit-equal with PIL."""
+    path = tmp_path / name
+    path.write_bytes(NOW_READ[name]())
+    assert jdataset.decode_image(path, 16).any()                   # PIL reads it
+    assert_port_reads_as_pil(path)
 
 
 @pytest.mark.parametrize("name", sorted(STILL_A6))

@@ -166,8 +166,8 @@ def test_deflate_stops_at_the_strip_and_refuses_what_libtiff_refuses(tmp_path):
     """Bytes after a strip's stream are not read; a stream that ends short,
     a bad zlib header and predictor 3 on integer samples (libtiff's
     PredictorSetup refuses it) are corrupt (PIL fails, the datasets take a
-    zero image); predictor 3 on float samples, which PIL reads, is a kind
-    not read yet."""
+    zero image); predictor 3 on float samples, which PIL reads, reads as
+    PIL reads it (since A.6.4)."""
     img = pixels(np.random.RandomState(14), (30, 44, 1)).astype(np.int64)
     z = zlib.compress(np.diff(img[..., 0], prepend=0, axis=1).astype(np.uint8).tobytes())
     tags = [(258, 3, [8]), (259, 3, [8]), (262, 3, [1]), (277, 3, [1]), (317, 3, [2]),
@@ -192,8 +192,7 @@ def test_deflate_stops_at_the_strip_and_refuses_what_libtiff_refuses(tmp_path):
                                                          compression="tiff_adobe_deflate",
                                                          tiffinfo={317: 3})
     assert jdataset.decode_image(path, 16).any()      # PIL reads it
-    with pytest.raises(NotImplementedError, match="floating-point predictor.*ROADMAP A.6"):
-        tdataset.decode_gray(path)
+    assert_port_reads_as_pil(path)
 
 
 # -- JPEG-in-TIFF ----------------------------------------------------------------
@@ -255,10 +254,12 @@ def test_written_jpeg_tiff_matches_pil(tmp_path, kind, h, w, seed):
 
 
 def test_jpeg_tiff_refusals(tmp_path):
-    """Old-style JPEG-in-TIFF (compression 6) and planar YCbCr are kinds not
-    read yet; a stream whose sampling is not the file's (4:2:0 in an RGB
-    file), or that is taller than its strip and not the last, is corrupt,
-    as libtiff has it (PIL fails; the datasets take a zero image)."""
+    """Planar YCbCr is a kind not read yet; a stream whose sampling is not
+    the file's (4:2:0 in an RGB file), or that is taller than its strip and
+    not the last, is corrupt, as libtiff has it (PIL fails; the datasets
+    take a zero image); so is this file marked old-style JPEG-in-TIFF
+    (compression 6, read since A.6.3), whose 8-row strips are not whole
+    rows of its 4:2:0 MCUs."""
     rgb = pixels(np.random.RandomState(15), (24, 40, 3)).astype(np.uint8)
     good = jpeg_tiff(rgb, 6, rows_per_strip=8)
 
@@ -272,7 +273,7 @@ def test_jpeg_tiff_refusals(tmp_path):
     short = struct.pack("<HHI", 259, 3, 1)
     planar = struct.pack("<HHI", 284, 3, 1)
     cases = {"old.tif": (good.replace(short + struct.pack("<I", 7), short + struct.pack("<I", 6)),
-                         NotImplementedError, "old-style JPEG-in-TIFF.*ROADMAP A.6"),
+                         ValueError, "old-style JPEG-in-TIFF strips not whole MCU rows"),
              "planar.tif": (good.replace(planar + struct.pack("<I", 1),
                                          planar + struct.pack("<I", 2)),
                             NotImplementedError, "YCbCr TIFF.*ROADMAP A.6"),
