@@ -1860,22 +1860,8 @@ def tiff_grey(u8, rows_per_strip: int = 0, deflate: bool = False) -> bytes:
     ``rows_per_strip`` rows (0: one strip), uncompressed, or with
     ``deflate`` Deflate-compressed (compression 8, zlib level 6) with
     predictor 2, as libtiff writes a scan page."""
-    import zlib
-    import numpy as np
-    h, w = u8.shape
-    rps = rows_per_strip or h
-    blobs = []
-    for y in range(0, h, rps):
-        rows = u8[y:y + rps]
-        if deflate:
-            diff = rows.astype(np.int16)
-            diff[:, 1:] -= rows[:, :-1]
-            rows = zlib.compress(diff.astype(np.uint8).tobytes(), 6)
-        blobs.append(bytes(rows))
-    return tiff_pack(w, h, blobs, [
-        (258, 3, [8]), (259, 3, [8 if deflate else 1]), (262, 3, [1]), (273, 4, lambda o: o),
-        (277, 3, [1]), (278, 4, [rps]), (279, 4, [len(b) for b in blobs])]
-        + ([(317, 3, [2])] if deflate else []))
+    return tiff_layout(u8[..., None], 8, 1, compression=8 if deflate else 1,
+                       predictor=2 if deflate else 1, rows_per_strip=rows_per_strip)
 
 
 def tiff_cmyk(u8, rows_per_strip: int = 0) -> bytes:
@@ -1884,16 +1870,10 @@ def tiff_cmyk(u8, rows_per_strip: int = 0) -> bytes:
     strips (zlib level 6) of ``rows_per_strip`` rows (0: one strip). PIL's
     CMYK -> L gives back the grey exactly, so the file needs no golden
     array of its own (tests/test_torch_port_cmyk.py holds PIL to that)."""
-    import zlib
     import numpy as np
-    h, w = u8.shape
-    rps = rows_per_strip or h
-    cmyk = np.zeros((h, w, 4), np.uint8)
+    cmyk = np.zeros(u8.shape + (4,), np.uint8)
     cmyk[..., 3] = 255 - u8
-    blobs = [zlib.compress(cmyk[y:y + rps].tobytes(), 6) for y in range(0, h, rps)]
-    return tiff_pack(w, h, blobs, [
-        (258, 3, [8] * 4), (259, 3, [8]), (262, 3, [5]), (273, 4, lambda o: o), (277, 3, [4]),
-        (278, 4, [rps]), (279, 4, [len(b) for b in blobs])])
+    return tiff_layout(cmyk, 8, 5, compression=8, rows_per_strip=rows_per_strip)
 
 
 def tile_jpeg(data: bytes, width: int, height: int, pick, renumber=None) -> bytes:
@@ -1955,34 +1935,241 @@ def tile_golden(golden, width: int, height: int, pick):
     return out[:height]
 
 
-def tiff_pack(w: int, h: int, blobs, entries, be: bool = False) -> bytes:
-    """A one-page TIFF: ``blobs`` after the 8-byte header (each at an even
-    offset), then the IFD of ``entries``, (tag, type, values) with type 3
-    SHORT, 4 LONG or 5 RATIONAL (a (numerator, denominator) a value); a
-    values entry may be a function of the blobs' offsets."""
+# struct codes of the TIFF field types (ASCII and UNDEFINED as bytes).
+TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 10: "i",
+              11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+
+
+def tiff_pack(w: int, h: int, blobs, entries, be: bool = False, big: bool = False) -> bytes:
+    """A one-page TIFF: ``blobs`` after the header (each at an even offset),
+    then the IFD of ``entries``, (tag, type, values): a type of
+    ``TIFF_TYPES`` (RATIONAL and SRATIONAL a (numerator, denominator) a
+    value, ASCII and UNDEFINED bytes), or (type written, type packed) to
+    give an entry a type its values are not packed in; values may be a
+    function of the blobs' offsets. ImageWidth and ImageLength are ``w`` and
+    ``h`` unless ``entries`` give them. ``big``: BigTIFF (version 43, 8-byte
+    offsets and counts, 20-byte entries)."""
     import struct
     o = ">" if be else "<"
-    data, offsets = bytearray(struct.pack(o + "2sHI", b"MM" if be else b"II", 42, 0)), []
+    head = struct.pack(o + "2sHHHQ", b"MM" if be else b"II", 43, 8, 0, 0) if big else \
+        struct.pack(o + "2sHI", b"MM" if be else b"II", 42, 0)
+    data, offsets = bytearray(head), []
     for b in blobs:
         data += b"\0" * (len(data) & 1)
         offsets.append(len(data))
         data += b
     data += b"\0" * (len(data) & 1)
-    entries = sorted([(256, 4, [w]), (257, 4, [h])] + [
-        (tag, typ, vals(offsets) if callable(vals) else vals) for tag, typ, vals in entries])
+    given = {e[0] for e in entries}
+    entries = sorted([e for e in [(256, 4, [w]), (257, 4, [h])] if e[0] not in given] + [
+        (tag, typ, vals(offsets) if callable(vals) else vals) for tag, typ, vals in entries],
+        key=lambda e: e[0])
     ifd_at = len(data)
-    struct.pack_into(o + "I", data, 4, ifd_at)
-    base, tail = ifd_at + 2 + 12 * len(entries) + 4, bytearray()
-    ifd = bytearray(struct.pack(o + "H", len(entries)))
+    struct.pack_into(o + ("Q" if big else "I"), data, 8 if big else 4, ifd_at)
+    slot = 8 if big else 4
+    base = ifd_at + (8 + 20 * len(entries) + 8 if big else 2 + 12 * len(entries) + 4)
+    tail = bytearray()
+    ifd = bytearray(struct.pack(o + ("Q" if big else "H"), len(entries)))
     for tag, typ, vals in entries:
-        raw = (b"".join(struct.pack(o + "II", *v) for v in vals) if typ == 5 else
-               struct.pack(o + {3: "H", 4: "I"}[typ] * len(vals), *[int(v) for v in vals]))
-        if len(raw) <= 4:
-            ifd += struct.pack(o + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+        code, pack = typ if isinstance(typ, tuple) else (typ, typ)
+        if isinstance(vals, (bytes, bytearray)):
+            raw, count = bytes(vals), len(vals)
+        elif pack in (5, 10):
+            raw, count = b"".join(struct.pack(o + 2 * TIFF_TYPES[pack], *v) for v in vals), len(vals)
         else:
-            ifd += struct.pack(o + "HHII", tag, typ, len(vals), base + len(tail))
+            f = TIFF_TYPES[pack]
+            raw = struct.pack(o + f * len(vals), *[v if f in "fd" else int(v) for v in vals])
+            count = len(vals)
+        ifd += struct.pack(o + ("HHQ" if big else "HHI"), tag, code, count)
+        if len(raw) <= slot:
+            ifd += raw.ljust(slot, b"\0")
+        else:
+            ifd += struct.pack(o + ("Q" if big else "I"), base + len(tail))
             tail += raw + b"\0" * (len(raw) & 1)
-    return bytes(data + ifd + struct.pack(o + "I", 0) + tail)
+    return bytes(data + ifd + struct.pack(o + ("Q" if big else "I"), 0) + tail)
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW of ``data`` as libtiff's encoder writes it: codes MSB first
+    from 9 bits, a clear code first and whenever the table fills, wider once
+    the next entry needs it, EOI last."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+    width, nxt, table, code = 9, 258, {}, None
+    put(256, width)
+    for c in data:
+        if code is None:
+            code = c
+            continue
+        key = (code << 8) | c
+        hit = table.get(key)
+        if hit is not None:
+            code = hit
+            continue
+        put(code, width)
+        table[key] = nxt
+        nxt += 1
+        code = c
+        if nxt == 4094:  # the table is full: a clear code
+            put(256, width)
+            width, nxt, table = 9, 258, {}
+        elif nxt >= 1 << width:
+            width += 1
+    if code is not None:
+        put(code, width)
+        nxt += 1
+        if nxt == 4094:
+            put(256, width)
+            width = 9
+        elif nxt >= 1 << width:
+            width += 1
+    put(257, width)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def tiff_layout(samples, bits: int, photometric: int, *, compression: int = 1, planar: int = 1,
+                rows_per_strip: int = 0, tile=None, predictor: int = 1, fill: int = 1,
+                be: bool = False, big: bool = False, tags=()) -> bytes:
+    """A one-page TIFF of (H, W, spp) unsigned ``samples`` of ``bits`` bits
+    (8 or 16; 1, 2 or 4 packed MSB first a row), chunky or ``planar`` 2
+    (each sample a plane of its own chunks, plane-major), in strips of
+    ``rows_per_strip`` rows (0: one strip) or (width, height) ``tile``s,
+    ``predictor`` 2 (each sample less its left neighbour's, within its
+    plane), then ``compression`` 1 (none), 5 (LZW), 8 (Deflate) or 32773
+    (PackBits), and with ``fill`` 2 every stored byte bit-reversed
+    (FillOrder 2). ``tags`` are more (tag, type, values) entries; ``big``:
+    BigTIFF with LONG8 offsets and counts."""
+    import zlib
+    import numpy as np
+    a = np.asarray(samples)
+    h, w, spp = a.shape
+    planes = [a[..., i:i + 1] for i in range(spp)] if planar == 2 else [a]
+    if tile:
+        tw, th = tile
+        grid = [(y, x, th, tw) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        rps = rows_per_strip or h
+        grid = [(y, 0, rps, w) for y in range(0, h, rps)]
+    blobs = []
+    for p in planes:
+        for y, x, ch, cw in grid:
+            c = np.zeros((ch if tile else min(ch, h - y), cw, p.shape[2]), np.int64)
+            part = p[y:y + ch, x:x + cw]
+            c[:part.shape[0], :part.shape[1]] = part
+            if predictor == 2:
+                c[:, 1:] -= c[:, :-1].copy()
+                c &= (1 << bits) - 1
+            if bits == 16:
+                raw = c.astype((">" if be else "<") + "u2").tobytes()
+            elif bits == 8:
+                raw = c.astype(np.uint8).tobytes()
+            else:
+                v = c.reshape(c.shape[0], -1).astype(np.uint8)
+                bitrows = (v[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+                raw = np.packbits(bitrows.reshape(v.shape[0], -1), axis=1).tobytes()
+            raw = (lzw_encode(raw) if compression == 5 else zlib.compress(raw, 6)
+                   if compression == 8 else packbits_encode(raw) if compression == 32773 else raw)
+            blobs.append(raw.translate(REVERSED_BITS) if fill == 2 else raw)
+    n = len(blobs)
+    long_ = 16 if big else 4
+    layout = ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, long_, lambda o: o[:n]),
+               (325, long_, [len(b) for b in blobs])] if tile else
+              [(273, long_, lambda o: o[:n]), (278, 4, [rows_per_strip or h]),
+               (279, long_, [len(b) for b in blobs])])
+    base = [(258, 3, [bits] * spp), (259, 3, [compression]), (262, 3, [photometric]),
+            (277, 3, [spp]), (284, 3, [planar])] + layout
+    if predictor != 1:
+        base.append((317, 3, [predictor]))
+    if fill != 1:
+        base.append((266, 3, [fill]))
+    given = {t[0] for t in tags}
+    return tiff_pack(w, h, blobs, [e for e in base if e[0] not in given] + list(tags), be, big)
+
+
+def tiff_ycbcr(y, cb, cr, sub=(2, 2), *, compression: int = 8, rows_per_strip: int = 0,
+               tile=None, planar: int = 1, be: bool = False, tags=()) -> bytes:
+    """A YCbCr TIFF (photometric 6, 8 bits) of uint8 luma ``y`` (H, W) and
+    chroma ``cb``, ``cr`` of one sample a ``sub`` = (h, v) block, (ceil(H /
+    v), ceil(W / h)): chunky, each strip or tile rows of blocks, a block its
+    h x v luma samples (rows of them, the image's edge repeated past it)
+    then Cb and Cr; or ``planar`` 2, three planes of the image's size, the
+    chroma repeated over each block. Strips of ``rows_per_strip`` rows (a
+    multiple of v; 0: one strip) or (width, height) ``tile``s, compression
+    1, 5, 8 or 32773; the YCbCrSubsampling tag unless ``tags`` give one."""
+    import zlib
+    import numpy as np
+    y, cb, cr = (np.asarray(a, np.uint8) for a in (y, cb, cr))
+    hh, vv = sub
+    H, W = y.shape
+    if planar == 2:
+        full = [y, np.repeat(np.repeat(cb, vv, 0), hh, 1)[:H, :W],
+                np.repeat(np.repeat(cr, vv, 0), hh, 1)[:H, :W]]
+        return tiff_layout(np.dstack(full), 8, 6, compression=compression, planar=2,
+                           rows_per_strip=rows_per_strip, tile=tile, be=be,
+                           tags=[(530, 3, [hh, vv])] + [t for t in tags if t[0] != 530]
+                           if all(t[0] != 530 for t in tags) else list(tags))
+    bh, bw = cb.shape
+    ypad = np.pad(y, ((0, bh * vv - H), (0, bw * hh - W)), mode="edge")
+    units = np.concatenate([ypad.reshape(bh, vv, bw, hh).transpose(0, 2, 1, 3).reshape(bh, bw, -1),
+                            cb[..., None], cr[..., None]], axis=2)
+    if tile:
+        tw, th = tile
+        grid = [(r, c, th // vv, tw // hh) for r in range(0, bh, th // vv)
+                for c in range(0, bw, tw // hh)]
+    else:
+        rb = (rows_per_strip or bh * vv) // vv
+        grid = [(r, 0, rb, bw) for r in range(0, bh, rb)]
+    blobs = []
+    for r, c, nr, nc in grid:
+        part = units[r:r + nr, c:c + nc]
+        if tile:
+            full = np.zeros((nr, nc, units.shape[2]), np.uint8)
+            full[:part.shape[0], :part.shape[1]] = part
+            part = full
+        raw = part.tobytes()
+        blobs.append(lzw_encode(raw) if compression == 5 else zlib.compress(raw, 6)
+                     if compression == 8 else packbits_encode(raw) if compression == 32773 else raw)
+    n = len(blobs)
+    layout = ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, lambda o: o[:n]),
+               (325, 4, [len(b) for b in blobs])] if tile else
+              [(273, 4, lambda o: o[:n]), (278, 4, [rows_per_strip or H]),
+               (279, 4, [len(b) for b in blobs])])
+    base = [(258, 3, [8] * 3), (259, 3, [compression]), (262, 3, [6]), (277, 3, [3]),
+            (284, 3, [1]), (530, 3, [hh, vv])] + layout
+    given = {t[0] for t in tags}
+    return tiff_pack(W, H, blobs, [e for e in base if e[0] not in given] + list(tags), be)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as a repeat, the rest as
+    literal runs of up to 128 bytes."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([(257 - (j - i)) & 0xFF, data[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < len(data) and j - i < 128 and not (j + 2 < len(data) and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
 
 
 def ojpeg_wrap(stream: bytes, w: int, h: int, spp: int, photometric: int = 6) -> bytes:
@@ -2076,15 +2263,82 @@ def a6_pages(golden) -> dict:
     arith_444.jpg's restart intervals tiled (arithmetic-coded, sequential),
     and lossless_stripe.jpg's rows (lossless, predictor 1, a restart a row)
     stacked. Each is held to a digest of PIL's grey of the same bytes
-    (a6_pages.sha256, written with the fixtures)."""
+    (a6_pages.sha256, written with the fixtures), or to PIL's refusal: the
+    arithmetic page's scan runs past PIL's first 64 KB read block, where
+    libjpeg's arithmetic decoder cannot suspend, so a 1200 x 160 band of it
+    (inside the block) is the arithmetic page that reads."""
     import numpy as np
     return {"ojpeg_page.tif": ojpeg_wrap((FIXTURES / "scan_420.jpg").read_bytes(), 1200, 500, 3),
             "float32_page.tif": tiff_numbers(golden["scan_420.jpg"].astype(np.float32), "<f4", 3,
                                              rows_per_strip=50, deflate=True, predictor=3),
             "arith_page.jpg": tile_jpeg((FIXTURES / "arith_444.jpg").read_bytes(), 1200, 500,
                                         page_pick),
+            "arith_band.jpg": tile_jpeg((FIXTURES / "arith_444.jpg").read_bytes(), 1200, 160,
+                                        page_pick),
             "lossless_page.jpg": lossless_rows((FIXTURES / "lossless_stripe.jpg").read_bytes(),
                                                500, stripe_pick)}
+
+
+def tiff_strips(data: bytes) -> dict:
+    """{tag: values} of the SHORT and LONG entries of a little-endian
+    classic TIFF's first IFD, and its strips' bytes under "strips"."""
+    import struct
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    out = {}
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        tag, typ, count = struct.unpack_from("<HHI", data, ifd + 2 + 12 * i)
+        if typ in (3, 4):
+            size = 2 if typ == 3 else 4
+            at = ifd + 10 + 12 * i if size * count <= 4 else struct.unpack_from(
+                "<I", data, ifd + 10 + 12 * i)[0]
+            out[tag] = list(struct.unpack_from(f"<{count}{'H' if typ == 3 else 'I'}", data, at))
+    out["strips"] = [data[o:o + n] for o, n in zip(out[273], out[279])]
+    return out
+
+
+def fill_order_2(data: bytes) -> bytes:
+    """A bilevel TIFF of strips (a little-endian classic one, PIL's CCITT
+    pages) with each strip's bits reversed and FillOrder 2: the same image."""
+    t = tiff_strips(data)
+    blobs = [b.translate(REVERSED_BITS) for b in t["strips"]]
+    keep = [(tag, 4, t[tag]) for tag in (262, 278, 292, 293) if tag in t]
+    return tiff_pack(t[256][0], t[257][0], blobs, [
+        (258, 3, [1]), (259, 3, t[259]), (266, 3, [2]), (277, 3, [1]),
+        (273, 4, lambda o: o), (279, 4, [len(b) for b in blobs])] + keep)
+
+
+def a6_layout_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of the TIFF layouts of A.6.7-A.6.12,
+    built without PIL from scan_420.jpg's grey (integer arithmetic alone)
+    and the Group 4 page: BigTIFF in LZW strips, planar RGB (the grey
+    tinted) in Deflate with predictor 2, YCbCr 2 x 2 in Deflate (luma the
+    grey, chroma from each block's mean), ccitt_g4_page.tif with FillOrder
+    2, and a palette with an alpha sample (PA) in Deflate. Each is held to
+    a digest of PIL's grey of the same bytes (a6_pages.sha256)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"].astype(np.int64)
+    rgb = np.dstack([grey, grey * 31 // 32, np.minimum(grey + 6, 255)])
+    block = grey.reshape(250, 2, 600, 2).sum(axis=(1, 3)) // 4
+    ramp = np.arange(256)
+    palette = list(ramp * 257) + list(ramp * 250 // 255 * 257) + list(np.minimum(ramp + 9, 255) * 257)
+    return {
+        "bigtiff_page.tif": tiff_layout(grey[..., None], 8, 1, compression=5, big=True,
+                                        rows_per_strip=50),
+        "planar_page.tif": tiff_layout(rgb, 8, 2, compression=8, planar=2, predictor=2,
+                                       rows_per_strip=50),
+        "ycbcr_page.tif": tiff_ycbcr(grey, 128 + (block - 128) // 8, 128 - (block - 128) // 16,
+                                     (2, 2), compression=8, rows_per_strip=50),
+        "fill2_g4_page.tif": fill_order_2((FIXTURES / "ccitt_g4_page.tif").read_bytes()),
+        "pa_page.tif": tiff_layout(np.dstack([grey, 255 - grey // 2]), 8, 3, compression=8,
+                                   rows_per_strip=50, tags=[(338, 3, [2]), (320, 3, palette)]),
+    }
+
+
+# The decoder fixtures of A.6.7-A.6.12 (tests/test_torch_port_decode.py::
+# write_fixtures).
+LAYOUT_FIXTURES = ("bigtiff_lzw.tif", "planar_rgb.tif", "planar_cmyk_raw.tif", "ycbcr_22.tif",
+                   "ycbcr_44_tiles.tif", "ycbcr_raw.tif", "fill2_lzw_rgb.tif", "fill2_raw_grey.tif",
+                   "rgba_assoc.tif", "pa.tif")
 
 
 def gray_digest(gray) -> str:
@@ -2110,10 +2364,12 @@ def golden_arrays() -> dict:
 
 def decode_phase(card: str, work: str):
     """Phase 12: the host decoders: the fixtures bit-equal to their golden
-    arrays, the pages built here bit-equal to their sources, a cut
+    arrays, the pages built here bit-equal to their sources or to digests
+    of PIL's grey (the TIFF layouts of A.6.7-A.6.12 among them), a cut
     progressive scan script smoothed, a file PIL refuses a zero image, the
     threaded batch decode's rate per format, ``cli.preprocess`` and a
-    ``SignatureDataset`` on a mixed tree of 1320 scans."""
+    ``SignatureDataset`` on a mixed tree of 1320 scans whose TIFFs take
+    those layouts in turns."""
     import shutil
     import numpy as np
     import torch
@@ -2130,8 +2386,8 @@ def decode_phase(card: str, work: str):
                         f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
         build_s = time.perf_counter() - t0
     golden = golden_arrays()
-    if len(golden) != 48:
-        raise AssertionError(f"expected 48 decoder fixtures, found {sorted(golden)}")
+    if len(golden) != 58:
+        raise AssertionError(f"expected 58 decoder fixtures, found {sorted(golden)}")
     for name, want in golden.items():
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -2174,18 +2430,26 @@ def decode_phase(card: str, work: str):
         if not np.array_equal(ds_mod.decode_gray(Path(work) / name), want):
             raise AssertionError(f"{name}: not bit-equal to the grey it was built from")
     # Pages of old-style JPEG-in-TIFF, float TIFF, arithmetic-coded and
-    # lossless JPEG, each held to the digest of PIL's grey of the same bytes
-    # (a6_pages.sha256).
+    # lossless JPEG, and of the TIFF layouts of A.6.7-A.6.12, each held to
+    # the digest of PIL's grey of the same bytes (a6_pages.sha256), or to
+    # PIL's refusal (the arithmetic page past PIL's 64 KB block: corrupt).
     digests = dict(reversed(line.split()) for line in
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
-    a6 = a6_pages(golden)
+    a6 = {**a6_pages(golden), **a6_layout_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
+        if digests[name] == "refused":
+            try:
+                native.decode(data, name)
+            except ValueError:
+                continue
+            raise AssertionError(f"{name}: PIL refuses it, the port read it")
         got = ds_mod.decode_gray(Path(work) / name)
-        if got.shape != (500, 1200) or gray_digest(got) != digests[name]:
+        if got.shape[1] != 1200 or gray_digest(got) != digests[name]:
             raise AssertionError(f"{name}: not bit-equal to PIL's grey (its SHA-256)")
     print("decode: " + ", ".join(f"{n} ({len(d)} B)" for n, d in a6.items())
-          + " bit-equal to PIL's grey by their SHA-256", flush=True)
+          + " bit-equal to PIL's grey by their SHA-256, or corrupt where PIL refuses them ("
+          + ", ".join(n for n in a6 if digests[n] == "refused") + ")", flush=True)
     # A file PIL refuses (grey.jpg as a 12-bit frame) is a zero image in a
     # SignatureDataset beside a good one, as in the JAX package.
     refused = Path(work) / "refused_set"
@@ -2212,7 +2476,7 @@ def decode_phase(card: str, work: str):
            "cmyk.tif", "progressive_cut.jpg", "ojpeg_grey.tif", "ojpeg_420.tif",
            "ojpeg_tables_420.tif", "float32_pred3.tif", "int16_be.tif", "uint32.tif",
            "grey12.tif", "int32_lzw.tif", "lossless_rgb.jpg", "arith_progressive.jpg",
-           "arith_444.jpg", "lossless_stripe.jpg"}
+           "arith_444.jpg", "lossless_stripe.jpg", *LAYOUT_FIXTURES}
     old = [n for n in golden if n not in new]
 
     def fixtures(*names):
@@ -2248,8 +2512,8 @@ def decode_phase(card: str, work: str):
                   [Path(work) / "ojpeg_page.tif"], 20),
               "float32 TIFF 1200x500 (Deflate strips, predictor 3)": (
                   [Path(work) / "float32_page.tif"], 20),
-              "arithmetic-coded JPEG 1200x500 (4:4:4, a restart an MCU row)": (
-                  [Path(work) / "arith_page.jpg"], 20),
+              "arithmetic-coded JPEG 1200x160 (4:4:4, a restart an MCU row; inside PIL's "
+              "64 KB block)": ([Path(work) / "arith_band.jpg"], 40),
               "lossless JPEG 1200x500 (grey, predictor 1, a restart a row)": (
                   [Path(work) / "lossless_page.jpg"], 20),
               "old-style JPEG-in-TIFF 48x32 (grey; 4:2:0 in both layouts)": (
@@ -2258,7 +2522,16 @@ def decode_phase(card: str, work: str):
                   fixtures("float32_pred3.tif", "int16_be.tif", "uint32.tif", "grey12.tif",
                            "int32_lzw.tif"), 200),
               "lossless and arithmetic-coded JPEG 48x32": (
-                  fixtures("lossless_rgb.jpg", "arith_progressive.jpg"), 200)}
+                  fixtures("lossless_rgb.jpg", "arith_progressive.jpg"), 200),
+              "BigTIFF 1200x500 (LZW strips)": ([Path(work) / "bigtiff_page.tif"], 20),
+              "planar RGB TIFF 1200x500 (Deflate, predictor 2)": (
+                  [Path(work) / "planar_page.tif"], 20),
+              "YCbCr TIFF 1200x500 (2x2, Deflate; libtiff's RGBA reader)": (
+                  [Path(work) / "ycbcr_page.tif"], 20),
+              "CCITT G4 TIFF 1200x500 with FillOrder 2": ([Path(work) / "fill2_g4_page.tif"], 200),
+              "palette + alpha TIFF 1200x500 (PA, Deflate)": ([Path(work) / "pa_page.tif"], 20),
+              "TIFF layouts 48x32 (BigTIFF, planar, YCbCr, FillOrder 2, RGBa, PA)": (
+                  fixtures(*LAYOUT_FIXTURES), 200)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -2280,11 +2553,13 @@ def decode_phase(card: str, work: str):
         print(f"decode: {k}: {v:.1f} images/s [{card}]", flush=True)
 
     # A mixed tree in CEDAR's shape from phase 11's scans: per writer, PNG,
-    # BMP, TIFF and JPEG in turns (the JPEGs are the fixtures' scan pages).
+    # BMP, TIFF and JPEG in turns (the JPEGs are the fixtures' scan pages);
+    # the TIFFs in turn plain, and of the layouts of A.6.7-A.6.12.
     raw, mixed = Path(work) / "scans", Path(work) / "mixed_scans"
     jpegs = sorted(FIXTURES.glob("scan_*.jpg"))
     t0 = time.perf_counter()
     kinds = {".png": 0, ".bmp": 0, ".tif": 0, ".jpg": 0}
+    layouts = {}
     for i, p in enumerate(sorted(raw.rglob("*.png"))):
         d = mixed / p.parent.name
         d.mkdir(parents=True, exist_ok=True)
@@ -2295,7 +2570,11 @@ def decode_phase(card: str, work: str):
             shutil.copy(jpegs[i % len(jpegs)], d / f"{p.stem}.jpg")
         else:
             grey = decode_png(p.read_bytes())[..., 0]
-            data = bmp_grey(grey) if k == 1 else tiff_grey(grey)
+            if k == 1:
+                data = bmp_grey(grey)
+            else:
+                layout, data = mixed_tiff(grey, i // 4)
+                layouts[layout] = layouts.get(layout, 0) + 1
             (d / f"{p.stem}{'.bmp' if k == 1 else '.tif'}").write_bytes(data)
         kinds[[".png", ".bmp", ".tif", ".jpg"][k]] += 1
     write_s = time.perf_counter() - t0
@@ -2327,7 +2606,8 @@ def decode_phase(card: str, work: str):
     ds_s = time.perf_counter() - t0
     if ds.images.shape != (1320, 64, 64, 1) or not np.isfinite(ds.images).all():
         raise AssertionError(f"SignatureDataset on the mixed tree: {ds.images.shape}")
-    print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}) written in "
+    print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}; the TIFFs "
+          f"{json.dumps(layouts)}) written in "
           f"{write_s:.2f} s; cli.preprocess {pre_s:.2f} s ({1320 / pre_s:.1f} images/s), "
           f"{len(rep['processed'])} written, {len(rep['invalid'])} invalid; the host decode + "
           f"letterbox of every scan alone {host_s:.2f} s ({host_s / pre_s:.4f} of the CLI's "
@@ -2339,6 +2619,37 @@ def decode_phase(card: str, work: str):
             "host_ms_per_scan": {k: [1e3 * d / kinds[k], 1e3 * c / kinds[k]]
                                  for k, (d, c) in per_kind.items()},
             "pil_png_tree": png}
+
+
+def mixed_tiff(grey, turn: int):
+    """(layout, bytes) of phase 12's mixed tree's TIFF scan ``turn``: plain
+    grey, then a layout of A.6.7-A.6.12 in turns (BigTIFF in LZW strips,
+    planar RGB in Deflate with predictor 2, YCbCr 2 x 2 in Deflate, grey
+    with FillOrder 2 in Deflate, a palette with alpha), of uint8 (H, W)
+    ``grey``."""
+    import numpy as np
+    g = grey.astype(np.int64)
+    layout = ("plain", "bigtiff", "planar", "ycbcr", "fill2", "pa")[turn % 6]
+    if layout == "plain":
+        return layout, tiff_grey(grey)
+    if layout == "bigtiff":
+        return layout, tiff_layout(g[..., None], 8, 1, compression=5, big=True, rows_per_strip=32)
+    if layout == "planar":
+        rgb = np.dstack([g, g * 31 // 32, np.minimum(g + 6, 255)])
+        return layout, tiff_layout(rgb, 8, 2, compression=8, planar=2, predictor=2,
+                                   rows_per_strip=32)
+    if layout == "ycbcr":
+        h, w = g.shape
+        pad = np.pad(g, ((0, h % 2), (0, w % 2)), mode="edge")
+        block = pad.reshape(pad.shape[0] // 2, 2, pad.shape[1] // 2, 2).sum(axis=(1, 3)) // 4
+        return layout, tiff_ycbcr(g, 128 + (block - 128) // 8, 128 - (block - 128) // 16, (2, 2),
+                                  rows_per_strip=32)
+    if layout == "fill2":
+        return layout, tiff_layout(g[..., None], 8, 1, compression=8, fill=2, rows_per_strip=32)
+    ramp = np.arange(256)
+    palette = list(ramp * 257) + list(ramp * 250 // 255 * 257) + list(np.minimum(ramp + 9, 255) * 257)
+    return layout, tiff_layout(np.dstack([g, 255 - g // 2]), 8, 3, compression=8,
+                               rows_per_strip=32, tags=[(338, 3, [2]), (320, 3, palette)])
 
 
 def pool_label(ds_mod, paths, threads) -> str:

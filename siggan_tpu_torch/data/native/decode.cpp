@@ -23,21 +23,29 @@
 // as libjpeg reads it: a bad Huffman code gives a zero symbol, a restart
 // marker out of place is resynchronised (jpeg_resync_to_restart), and once
 // a segment's data runs out its MCUs are left alone (zero in a sequential
-// scan).
+// scan). A file PIL reads in 64 KB blocks: whether data that ends without
+// EOI is read follows libjpeg-turbo's bit-buffer fills (Bits) against those
+// blocks (Jpeg::avail), and an arithmetic-coded scan past the first block
+// is refused, as under PIL.
 //
 // BMP: as PIL's BmpImagePlugin reads it (1/4/8-bit palettes, 16-bit 555 and
 // 565, 24-bit, 32-bit, BI_BITFIELDS, RLE4/RLE8 with PIL's own RLE rules,
 // bottom-up and top-down rows).
 //
-// TIFF: the first page, strips or tiles, either byte order, no compression,
-// PackBits, LZW or Deflate (compression 8 and 32946, the port's own
-// inflate; predictor 1, 2, or 3 on floats, with either); WhiteIsZero/
-// BlackIsZero at 1, 2, 4, 8 bits (PIL inverts WhiteIsZero) and 16 bits (PIL
-// clamps at 255), grey numbers (12 bits, signed 16 and 32, unsigned 32,
-// float 32) as PIL's modes convert them,
-// RGB/RGBA and CMYK at 8 and 16 bits (PIL keeps the high byte), grey+alpha,
-// palettes; bilevel strips coded CCITT Modified Huffman, T.4 (1-D and 2-D,
-// with or without EOL fill bits) or T.6 (Group 4); and JPEG-in-TIFF
+// TIFF: the first page, classic or BigTIFF, strips or tiles, chunky or
+// planar, either byte order, either FillOrder, no compression, PackBits,
+// LZW or Deflate (compression 8 and 32946, the port's own inflate;
+// predictor 1, 2, or 3 on floats, with either); WhiteIsZero/BlackIsZero at
+// 1, 2, 4, 8 bits (PIL inverts WhiteIsZero) and 16 bits (PIL clamps at
+// 255), grey numbers (12 bits, signed 16 and 32, unsigned 32, float 32) as
+// PIL's modes convert them, RGB/RGBA and CMYK at 8 and 16 bits (PIL keeps
+// the high byte), RGB with associated alpha (PIL's RGBa, un-premultiplied),
+// grey+alpha, palettes (with an extra sample too: PA, PX), YCbCr; bilevel
+// strips coded CCITT Modified Huffman, T.4 (1-D and 2-D, with or without EOL
+// fill bits) or T.6 (Group 4). A compressed file is read as libtiff reads it
+// for PIL (its directory rules, its codecs, YCbCr through its RGBA reader),
+// an uncompressed one as PIL's own raw decoder reads it (its raw modes, its
+// tiles over the offsets); see decode_tiff. And JPEG-in-TIFF
 // (compression 7) in grey, RGB, CMYK or chunky YCbCr, each strip or tile a
 // JPEG stream read with the JPEGTables tag's tables, as libtiff reads it for
 // PIL (YCbCr through libjpeg's own upsampling and colour conversion); and
@@ -73,6 +81,7 @@
 #include <stdexcept>
 #include <string>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 namespace {
@@ -188,6 +197,15 @@ void std_table(Huff& t, bool dc, int id) {
   t.build(dc);
 }
 
+// PIL reads a file to its decoder in blocks of ImageFile.MAXBLOCK bytes
+// (64 KB); libjpeg under PIL's source sees the file up to the end of the
+// last block read, and suspends where it needs a byte past it, which makes
+// PIL read the next block, or refuse the file ("image file is truncated")
+// once there is none. (libtiff hands libjpeg a whole strip or tile.)
+constexpr size_t kPilBlock = 65536;
+
+struct Suspend {};  // a Huffman decode that suspends mid-file (see Jpeg::huffman_mcu)
+
 // Entropy-coded data, MSB first, with FF00 unstuffing. At a marker it
 // supplies zero bits (as libjpeg does); running off the end of the file is
 // a truncated file. `pad` counts the zero bits supplied (the last `pad` of
@@ -196,26 +214,43 @@ void std_table(Huff& t, bool dc, int id) {
 // (`starved`). A progressive scan's reader (kStarve) checks that at every
 // read; a sequential scan's reader leaves it to the caller once an MCU
 // (`took_padding`), so that its per-symbol work stays as small as it was.
+//
+// It fills where libjpeg-turbo's jdhuff.c fills, since under PIL that
+// decides whether a file whose data ends without EOI is read: the slow
+// path (kFast false) fills to 57 bits only when a code needs more than it
+// holds (below 8 bits for its 8-bit lookahead, below 9 for a longer code,
+// and so on one bit at a time; below s for s extra bits); the fast path
+// (decode_mcu_fast, kFast true) reads 6 bytes whenever 16 bits or fewer are
+// left, before each code and each run of extra bits, and at a marker
+// (`hit`) has its MCU decoded again by the slow path. Bytes past `end`
+// (PIL's buffer) are out of reach: a fill there suspends (Suspend) while
+// the file goes on, else the file is truncated.
 template <bool kStarve>
 struct Bits {
   const uint8_t* d;
   size_t n, pos;
+  size_t end;  // the end of what libjpeg's source holds
   uint64_t acc = 0;
   int cnt = 0;
   int pad = 0;  // the zero bits supplied at a marker, the last `pad` of `cnt`
   bool at_marker = false;
   bool starved = false;
+  bool hit = false;  // the fast path met a marker
 
-  void fill() {
+  [[noreturn, gnu::noinline]] void ran_out() const {
+    if (end < n) throw Suspend{};
+    corrupt("JPEG data ends early");
+  }
+  void fill() {  // jpeg_fill_bit_buffer: to 57 bits, or zeros from a marker on
     while (cnt <= 56) {
       int byte = 0;
       if (!at_marker) {
-        if (pos >= n) corrupt("JPEG data ends early");
+        if (pos >= end) ran_out();
         byte = d[pos];
         if (byte == 0xFF) {
           size_t q = pos + 1;
-          while (q < n && d[q] == 0xFF) ++q;
-          if (q >= n) corrupt("JPEG data ends early");
+          while (q < end && d[q] == 0xFF) ++q;
+          if (q >= end) ran_out();
           if (d[q] == 0) {
             pos = q + 1;
           } else {
@@ -232,8 +267,21 @@ struct Bits {
       cnt += 8;
     }
   }
-  inline void need(int k) {
-    if (cnt < k) fill();
+  // FILL_BIT_BUFFER_FAST's six GET_BYTEs; the caller has 512 bytes a block
+  // of the MCU before `end`.
+  void fill6() {
+    for (int i = 0; i < 6; ++i) {
+      int c0 = d[pos++];
+      if (c0 == 0xFF) {
+        if (d[pos++] != 0) {  // a marker: back out, a zero byte
+          pos -= 2;
+          c0 = 0;
+          hit = true;
+        }
+      }
+      acc |= (uint64_t)c0 << (56 - cnt);
+      cnt += 8;
+    }
   }
   inline void take(int k) {
     acc <<= k;
@@ -245,31 +293,52 @@ struct Bits {
       }
     }
   }
+  template <bool kFast = false>
   inline int get(int k) {  // 1 <= k <= 16
-    need(k);
+    if constexpr (kFast) {
+      if (cnt <= 16) fill6();
+    } else if (cnt < k) {
+      fill();
+    }
     int v = (int)(acc >> (64 - k));
     take(k);
     return v;
   }
+  template <bool kFast = false>
   inline int decode(const Huff& h) {
-    need(16);
+    if constexpr (kFast) {
+      if (cnt <= 16) fill6();
+    } else if (cnt < 8) {
+      fill();
+    }
     uint16_t e = h.look[acc >> 55];
-    if (e) {
+    if (e && (kFast || (e >> 8) <= cnt)) {
       take(e >> 8);
       return e & 0xFF;
     }
-    for (int l = 10; l <= 16; ++l) {
-      int code = (int)(acc >> (64 - l));
-      if (code <= h.maxcode[l]) {
-        take(l);
-        return h.vals[(h.valoffset[l] + code) & 0xFF];
-      }
+    return decode_long<kFast>(h);
+  }
+  // A code of 9 bits or more, or one the slow path holds too few bits for:
+  // jpeg_huff_decode, 9 bits, then a bit at a time, the slow path filling
+  // when none is left (so after taking the code's first bits).
+  template <bool kFast>
+  int decode_long(const Huff& h) {
+    if (!kFast && cnt < 9) fill();
+    if (uint16_t e = h.look[acc >> 55]) {
+      take(e >> 8);
+      return e & 0xFF;
+    }
+    int code = (int)(acc >> 55), l = 9;
+    take(9);
+    while (code > h.maxcode[l]) {  // maxcode[17] stops a bad code at 17 bits
+      if (!kFast && cnt < 1) fill();
+      code = (code << 1) | (int)(acc >> 63);
+      take(1);
+      ++l;
     }
     // No code of 16 bits or fewer: libjpeg (jdhuff.c, JWRN_HUFF_BAD_CODE)
     // takes 17 bits and fakes a zero symbol.
-    need(17);
-    take(17);
-    return 0;
+    return l > 16 ? 0 : h.vals[(h.valoffset[l] + code) & 0xFF];
   }
   bool took_padding() const { return cnt < pad; }
   void reset() {
@@ -333,28 +402,36 @@ const uint32_t kQmStates[114] = {
 // Arithmetic-coded data (jdarith.c's arith_decode and its byte input):
 // FF 00 is an FF byte; at a marker the decoder takes zero bytes, and pos
 // stays at the marker's last FF (where the Huffman reader leaves it).
-// Running off the end of the file is a truncated file. Its interface is
+// Running off the end of the file is a truncated file, and so is reading
+// past `end`, the end of PIL's buffer: libjpeg's arithmetic decoder cannot
+// suspend (JERR_CANT_SUSPEND), so PIL refuses a file whose arithmetic-coded
+// data runs past the 64 KB block it was handed. Its interface is
 // each_block's: it never runs out of data (libjpeg's arithmetic decoder
 // never sets insufficient_data).
 struct ArithReader {
   const uint8_t* d;
-  size_t n, pos;
+  size_t n, pos, end;
   int64_t c = 0, a = 0;
   int ct = -16;  // -16: two bytes to read into c; -1: an error left the interval's MCUs alone
   bool at_marker = false;
   bool starved = false;  // never set
 
+  [[noreturn, gnu::noinline]] void ran_out() const {
+    corrupt(end < n ? "arithmetic-coded JPEG data past PIL's 64 KB read block (libjpeg's "
+                      "arithmetic decoder cannot suspend)"
+                    : "JPEG data ends early");
+  }
   int byte() {
     if (at_marker) return 0;
-    if (pos >= n) corrupt("JPEG data ends early");
+    if (pos >= end) ran_out();
     int v = d[pos];
     if (v != 0xFF) {
       ++pos;
       return v;
     }
     size_t q = pos + 1;
-    while (q < n && d[q] == 0xFF) ++q;
-    if (q >= n) corrupt("JPEG data ends early");
+    while (q < end && d[q] == 0xFF) ++q;
+    if (q >= end) ran_out();
     if (d[q] == 0) {
       pos = q + 1;
       return 0xFF;
@@ -665,6 +742,12 @@ enum ColorMode { kColorFromMarkers, kColorYcc, kColorAsIs };
 struct Jpeg {
   const uint8_t* d;
   size_t n, pos = 2;
+  // The end of the data libjpeg's source holds: PIL's blocks read so far
+  // for a JPEG file (kPilBlock), all of it for a TIFF's stream. Reading
+  // markers past it suspends, and PIL reads the next block; an arithmetic
+  // scan cannot suspend (can_suspend false), not even at its restarts.
+  size_t avail = 0;
+  bool can_suspend = true;
   // Tables outlive a stream: a TIFF's JPEGTables and its strips share them.
   int16_t qt[4][64];
   bool qdef[4] = {false, false, false, false};
@@ -697,12 +780,15 @@ struct Jpeg {
   int prev_bits[4][10];
   int last_good = 0, last_good_rows = 1;  // in the latest scan's MCU rows, and those an iMCU row
 
-  // A new stream (SOI at data[0]) with the tables read so far.
-  void begin(const uint8_t* data, size_t len) {
+  // A new stream (SOI at data[0]) with the tables read so far; `pil`: a
+  // file PIL hands libjpeg a block at a time.
+  void begin(const uint8_t* data, size_t len, bool pil = false) {
     if (len < 2 || data[0] != 0xFF || data[1] != 0xD8) corrupt("not a JPEG stream");
     d = data;
     n = len;
     pos = 2;
+    avail = pil ? std::min(len, kPilBlock) : len;
+    can_suspend = true;
     W = H = ncomp = mcux = mcuy = 0;
     hmax = vmax = 1;
     for (Component& c : comp) c = Component();
@@ -715,11 +801,18 @@ struct Jpeg {
   }
 
   int u8() {
+    if (pos >= avail) more();
+    return d[pos++];
+  }
+  [[gnu::noinline]] void more() {
     if (pos >= n) {
       if (whole) throw JpegEnd{};
       corrupt("JPEG file ends early");
     }
-    return d[pos++];
+    if (!can_suspend)
+      corrupt("arithmetic-coded JPEG data past PIL's 64 KB read block (libjpeg's arithmetic "
+              "decoder cannot suspend)");
+    while (avail <= pos) avail = std::min(n, avail + kPilBlock);
   }
   int u16() {
     int a = u8();
@@ -861,19 +954,20 @@ struct Jpeg {
     if (len) corrupt("bad JPEG arithmetic conditioning");
   }
 
+  template <bool kFast>
   void block(BitReader& br, Component& c, int brow, int bcol) {
     int16_t coef[64] = {0};
-    int s = br.decode(dc[c.td]);
-    int diff = s ? extend(br.get(s), s) : 0;
+    int s = br.decode<kFast>(dc[c.td]);
+    int diff = s ? extend(br.get<kFast>(s), s) : 0;
     c.dc_pred += diff;
     coef[0] = (int16_t)c.dc_pred;
     const Huff& a = ac[c.ta];
     for (int k = 1; k < 64; ++k) {
-      int rs = br.decode(a), r = rs >> 4;
+      int rs = br.decode<kFast>(a), r = rs >> 4;
       s = rs & 15;
       if (s) {
         k += r;
-        coef[kNatural[k]] = (int16_t)extend(br.get(s), s);
+        coef[kNatural[k]] = (int16_t)extend(br.get<kFast>(s), s);
       } else {
         if (r != 15) break;
         k += 15;
@@ -971,14 +1065,48 @@ struct Jpeg {
     }
   }
 
+  // A sequential Huffman MCU as jdhuff.c's decode_mcu reads it: the fast
+  // path while there are no restarts, no marker has been met and 512 bytes
+  // a block of the MCU are buffered, the slow path otherwise and for an MCU
+  // whose fast decode met a marker; an MCU that suspends is decoded again
+  // from its start once PIL has read the next block (jpeg_read_scanlines
+  // returns, PIL reads on and calls the decoder again). f(fast, component,
+  // block row, block column) decodes one block.
+  template <class Mcu, class F>
+  void huffman_mcu(BitReader& br, Component** sc, int ns, int blocks, Mcu& mcu, F& f) {
+    int preds[4];
+    for (int i = 0; i < ns; ++i) preds[i] = sc[i]->dc_pred;
+    for (;;) {
+      const BitReader at_start = br;
+      auto undo = [&] {
+        br = at_start;
+        for (int i = 0; i < ns; ++i) sc[i]->dc_pred = preds[i];
+      };
+      try {
+        if (!restart && !br.at_marker && br.end - br.pos >= (size_t)512 * blocks) {
+          mcu([&](Component& c, int r, int col) { f(std::true_type{}, c, r, col); });
+          if (!br.hit) return;
+          undo();
+        }
+        mcu([&](Component& c, int r, int col) { f(std::false_type{}, c, r, col); });
+        return;
+      } catch (const Suspend&) {
+        undo();
+        br.end = std::min(n, br.end + kPilBlock);
+      }
+    }
+  }
+
   // Calls f(component, block row, block column) for each block of each MCU
   // of a scan, reading the restart markers between intervals; before each
   // MCU, mcu_start(whether a restart came just before it). An MCU that
   // starts once the reader has run out of data in its interval (libjpeg's
   // insufficient_data) is passed to `skipped` instead, block by block: a
   // sequential decoder leaves its blocks zero, a progressive one as they are.
+  // A sequential Huffman scan's f takes the path first (huffman_mcu).
   template <class Reader, class Start, class F, class Skip>
   void each_block(Component** sc, int ns, Reader& br, Start mcu_start, F f, Skip skipped) {
+    constexpr bool kHuffman = std::is_same_v<Reader, BitReader>;
     int rows, cols;
     if (ns == 1) {  // a non-interleaved scan covers the component's own blocks
       cols = (sc[0]->dw + 7) / 8;
@@ -988,7 +1116,8 @@ struct Jpeg {
       rows = mcuy;
     }
     int64_t done = 0;
-    int rst = 0;
+    int rst = 0, blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += ns == 1 ? 1 : sc[i]->h * sc[i]->v;
     last_good_rows = ns == 1 ? sc[0]->v : 1;  // MCU rows an iMCU row
     for (int my = 0; my < rows; ++my) {
       for (int mx = 0; mx < cols; ++mx) {
@@ -1000,15 +1129,17 @@ struct Jpeg {
           const bool starved = br.starved;
           br.reset();
           pos = br.pos;
+          if constexpr (kHuffman) avail = br.end;
           stop_row = my;
           const bool left = restart_marker(rst);
           rst = (rst + 1) & 7;
           br.pos = pos;
+          if constexpr (kHuffman) br.end = avail;
           br.starved = left && starved;
         }
         mcu_start(restarted);
         if (!br.starved) last_good = my;
-        auto mcu = [&](auto& g) {
+        auto mcu = [&](auto&& g) {
           if (ns == 1) {
             g(*sc[0], my, mx);
           } else {
@@ -1019,12 +1150,15 @@ struct Jpeg {
         };
         if (br.starved)
           mcu(skipped);
+        else if constexpr (kHuffman)
+          huffman_mcu(br, sc, ns, blocks, mcu, f);
         else
           mcu(f);
         ++done;
       }
     }
     pos = br.pos;
+    if constexpr (kHuffman) avail = br.end;
   }
 
   // A lossless scan (libjpeg-turbo 3: jdlhuff.c, jddiffct.c, jdlossls.c):
@@ -1051,7 +1185,9 @@ struct Jpeg {
       rows[i].diff.assign((size_t)sc[i]->v * cols * (inter ? sc[i]->h : 1), 0);
       rows[i].undiff.assign((size_t)sc[i]->v * sc[i]->dw, 0);
     }
-    BitReader br{d, n, pos};
+    // Its decoder suspends between MCUs and reads the same bits again, so
+    // PIL's blocks do not matter; the end of the file does.
+    BitReader br{d, n, pos, n};
     const int init = 1 << (8 - pt - 1);
     int rst = 0, rows_to_go = restart / cols;
     for (int im = 0; im < mcuy; ++im) {
@@ -1215,8 +1351,9 @@ struct Jpeg {
   // An error (a magnitude or run past its bound) leaves the MCUs that
   // follow in its restart interval alone: zero blocks in a sequential scan.
   void arith_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
-    ArithReader ar{d, n, pos};
+    ArithReader ar{d, n, pos, avail};
     ArithStats s;
+    can_suspend = false;
     const bool dc_scan = !progressive || (ss == 0 && ah == 0), ac_scan = !progressive || ss;
     auto reset = [&]() {
       for (int i = 0; i < ns; ++i) {
@@ -1369,17 +1506,18 @@ struct Jpeg {
     }
     if (!progressive && arith) {
       arith_scan(sc, ns, 0, 63, 0, 0);
+      can_suspend = true;
       return;
     }
     if (!progressive) {
-      BitReader br{d, n, pos};
+      BitReader br{d, n, pos, avail};
       each_block(
           sc, ns, br,
           [&](bool rst) {
             if (rst)
               for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
           },
-          [&](Component& c, int r, int col) { block(br, c, r, col); },
+          [&](auto fast, Component& c, int r, int col) { block<decltype(fast)::value>(br, c, r, col); },
           [&](Component& c, int r, int col) {  // all-zero coefficients: flat 128
             for (int y = 0; y < 8; ++y)
               memset(&c.plane[((size_t)r * 8 + y) * c.pw + (size_t)col * 8], 128, 8);
@@ -1394,9 +1532,12 @@ struct Jpeg {
     }
     if (arith) {
       arith_scan(sc, ns, ss, se, ah, al);
+      can_suspend = true;
       return;
     }
-    ProgressiveReader br{d, n, pos};
+    // jdphuff.c suspends between MCUs and reads the same bits again: PIL's
+    // blocks do not matter.
+    ProgressiveReader br{d, n, pos, n};
     int eobrun = 0;
     auto start = [&](bool rst) {
       if (rst) {
@@ -1738,7 +1879,7 @@ struct Jpeg {
 
 Gray decode_jpeg(const uint8_t* d, size_t n) {
   Jpeg j;
-  j.begin(d, n);
+  j.begin(d, n, true);
   return j.run();
 }
 
@@ -1975,6 +2116,7 @@ struct Tiff {
   const uint8_t* d;
   size_t n;
   bool be = false;
+  bool big = false;  // BigTIFF: 8-byte offsets and counts, 20-byte entries
 
   uint32_t r16(size_t p) const {
     if (p + 2 > n) corrupt("TIFF file ends early");
@@ -1986,79 +2128,139 @@ struct Tiff {
               : (uint32_t)d[p] | ((uint32_t)d[p + 1] << 8) | ((uint32_t)d[p + 2] << 16) |
                     ((uint32_t)d[p + 3] << 24);
   }
+  uint64_t r64(size_t p) const {
+    const uint64_t a = r32(p), b = r32(p + 4);
+    return be ? a << 32 | b : b << 32 | a;
+  }
+  size_t offset(size_t p) const { return big ? (size_t)r64(p) : r32(p); }
 
-  struct Tag {
-    bool present = false;
-    std::vector<uint32_t> v;
+  // The bytes of a value of a field type (libtiff's TIFFDataWidth), 0 for
+  // a type TIFF does not define.
+  static int type_size(uint32_t type) {
+    switch (type) {
+      case 1: case 2: case 6: case 7: return 1;
+      case 3: case 8: return 2;
+      case 4: case 9: case 11: case 13: return 4;
+      case 5: case 10: case 12: case 16: case 17: case 18: return 8;
+      default: return 0;
+    }
+  }
+  // An IFD entry (12 bytes, or 20 in a BigTIFF): its tag, field type, value
+  // count and where its values lie, in the entry's value field when they
+  // fit it; `fits`: a defined type whose values lie inside the file.
+  struct Entry {
+    uint32_t tag = 0, type = 0;
+    uint64_t count = 0;
+    size_t at = 0;
+    bool fits = false;
   };
-
-  Tag tags[8] = {};
-  // Values of an IFD entry as unsigned integers (BYTE, SHORT, LONG and their signed forms).
-  std::vector<uint32_t> values(size_t e) const {
-    uint32_t type = r16(e + 2), count = r32(e + 4);
-    int size = (type == 1 || type == 2 || type == 6 || type == 7) ? 1
-               : (type == 3 || type == 8)                       ? 2
-               : (type == 4 || type == 9 || type == 11)         ? 4
-                                                                : 8;
-    if (count > (1u << 28)) corrupt("bad TIFF tag");
-    size_t total = (size_t)size * count;
-    size_t at = total <= 4 ? e + 8 : r32(e + 8);
-    if (at + total > n) corrupt("TIFF tag data outside the file");
-    std::vector<uint32_t> out(count);
-    for (uint32_t i = 0; i < count; ++i) {
-      size_t p = at + (size_t)size * i;
-      out[i] = size == 1 ? d[p] : size == 2 ? r16(p) : r32(p);
+  Entry entry(size_t e) const {
+    Entry x;
+    x.tag = r16(e);
+    x.type = r16(e + 2);
+    x.count = big ? r64(e + 4) : r32(e + 4);
+    const int size = type_size(x.type);
+    if (size == 0) return x;
+    const size_t field = e + (big ? 12 : 8), slot = big ? 8 : 4;
+    x.at = x.count <= slot / size ? field : offset(field);
+    x.fits = x.count <= (1u << 28) && x.at <= n && x.count * size <= n - x.at;
+    return x;
+  }
+  // Value i of an entry of a defined type, as a number.
+  double number(const Entry& x, uint64_t i) const {
+    const size_t p = x.at + (size_t)i * type_size(x.type);
+    switch (x.type) {
+      case 1: case 2: case 7: return d[p];
+      case 6: return (int8_t)d[p];
+      case 3: return r16(p);
+      case 8: return (int16_t)r16(p);
+      case 4: case 13: return r32(p);
+      case 9: return (int32_t)r32(p);
+      case 5: case 10: {
+        const uint32_t num = r32(p), den = r32(p + 4);
+        const double a = x.type == 5 ? (double)num : (double)(int32_t)num;
+        const double b = x.type == 5 ? (double)den : (double)(int32_t)den;
+        return b != 0 ? a / b : std::nan("");
+      }
+      case 11: {
+        const uint32_t u = r32(p);
+        float f;
+        memcpy(&f, &u, sizeof f);
+        return f;
+      }
+      case 12: {
+        const uint64_t u = r64(p);
+        double f;
+        memcpy(&f, &u, sizeof f);
+        return f;
+      }
+      case 17: return (double)(int64_t)r64(p);
+      default: return (double)r64(p);  // LONG8, IFD8
+    }
+  }
+  // An entry's values as unsigned 32-bit integers (a value past that, or
+  // not whole, is a bad tag); the first `limit` of them.
+  std::vector<uint32_t> values(size_t e, uint64_t limit = ~0ull) const {
+    Entry x = entry(e);
+    if (x.count > limit && type_size(x.type)) {
+      const uint64_t size = type_size(x.type);
+      x.count = limit;
+      x.fits = x.at <= n && limit * size <= n - x.at;
+    }
+    if (!x.fits) corrupt(type_size(x.type) ? "TIFF tag data outside the file" : "bad TIFF tag");
+    std::vector<uint32_t> out(x.count);
+    for (uint64_t i = 0; i < x.count; ++i) {
+      const double v = number(x, i);
+      if (!(v >= 0 && v <= 4294967295.0) || v != std::floor(v)) corrupt("bad TIFF tag");
+      out[i] = (uint32_t)v;
     }
     return out;
   }
   // A RATIONAL entry's values as libtiff reads them into floats (0 for a
   // zero denominator).
   std::vector<float> rationals(size_t e) const {
-    const uint32_t count = r32(e + 4);
-    if (r16(e + 2) != 5 || count > 64) corrupt("bad TIFF tag");
-    const size_t at = r32(e + 8);
-    if (at + 8 * (size_t)count > n) corrupt("TIFF tag data outside the file");
-    std::vector<float> out(count);
-    for (uint32_t i = 0; i < count; ++i) {
-      const uint32_t num = r32(at + 8 * i), den = r32(at + 8 * i + 4);
+    const Entry x = entry(e);
+    if (x.type != 5 || x.count > 64 || !x.fits) corrupt("bad TIFF tag");
+    std::vector<float> out(x.count);
+    for (uint32_t i = 0; i < x.count; ++i) {
+      const uint32_t num = r32(x.at + 8 * i), den = r32(x.at + 8 * i + 4);
       out[i] = den ? (float)num / (float)den : 0.0f;
     }
     return out;
   }
   // An IFD entry's data as bytes: (file offset, byte count).
   std::pair<size_t, size_t> bytes(size_t e) const {
-    uint32_t type = r16(e + 2), count = r32(e + 4);
-    if ((type != 1 && type != 7) || count > (1u << 28)) corrupt("bad TIFF tag");
-    size_t at = count <= 4 ? e + 8 : r32(e + 8);
-    if (at + count > n) corrupt("TIFF tag data outside the file");
-    return {at, count};
+    const Entry x = entry(e);
+    if ((x.type != 1 && x.type != 7) || !x.fits) corrupt("bad TIFF tag");
+    return {x.at, (size_t)x.count};
   }
 };
 
-std::vector<uint8_t> packbits(const uint8_t* s, size_t n, size_t want) {
-  std::vector<uint8_t> out;
+// The codecs below decode into `out`, which keeps what they decoded when
+// they fail (libtiff's RGBA reader reads on from such a strip).
+void packbits(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
+  out.clear();
   out.reserve(want);
   size_t p = 0;
-  while (out.size() < want && p < n) {
+  while (out.size() < want && p < n) {  // libtiff's PackBitsDecode: a run cut to the output first
     int c = (int8_t)s[p++];
     if (c >= 0) {
-      size_t k = (size_t)c + 1;
+      const size_t k = std::min((size_t)c + 1, want - out.size());
       if (p + k > n) corrupt("PackBits data ends early");
       out.insert(out.end(), s + p, s + p + k);
       p += k;
     } else if (c != -128) {
       if (p >= n) corrupt("PackBits data ends early");
-      out.insert(out.end(), (size_t)(1 - c), s[p++]);
+      out.insert(out.end(), std::min((size_t)(1 - c), want - out.size()), s[p++]);
     }
   }
   if (out.size() < want) corrupt("PackBits data ends early");
   out.resize(want);
-  return out;
 }
 
-std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
+void lzw(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
+  out.clear();
   if (n >= 2 && s[0] == 0 && (s[1] & 1)) unsupported("old-style TIFF LZW");
-  std::vector<uint8_t> out;
   out.reserve(want);
   std::vector<uint16_t> prefix(4096);
   std::vector<uint8_t> suffix(4096), first(4096);
@@ -2120,7 +2322,6 @@ std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
   }
   if (out.size() < want) corrupt("TIFF LZW data ends early");
   out.resize(want);
-  return out;
 }
 
 // ---------------------------------------------------------------- inflate
@@ -2128,8 +2329,9 @@ std::vector<uint8_t> lzw(const uint8_t* s, size_t n, size_t want) {
 // Huffman blocks) inflated into `want` bytes, as libtiff's ZIP codec asks
 // zlib for a strip: a stream that ends short is corrupt; once the strip is
 // whole zlib reads on as far as it can without room for output (block
-// headers and tables, a match's length and distance, and after the last
-// block the Adler-32 of the output), so an error there is corrupt too.
+// headers and tables, a match's length and distance codes, and after the
+// last block the Adler-32 of the output), so an error there is corrupt too;
+// a distance past the output it checks only with room to copy.
 
 // Canonical Huffman codes of up to 15 bits, read LSB first: a 10-bit table
 // of (length << 9 | symbol), 0 for a longer code, then puff's count walk.
@@ -2262,7 +2464,7 @@ uint32_t adler32(const uint8_t* p, size_t n) {
   return (uint32_t)(b << 16 | a);
 }
 
-std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
+void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
   static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
                                         31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
   static const uint8_t kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
@@ -2273,11 +2475,12 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
   static const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5,  6,
                                          6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
   static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+  out.clear();
   if (n < 2) corrupt("Deflate data ends early");
   if ((s[0] & 15) != 8 || (s[0] >> 4) > 7 || ((s[0] << 8) | s[1]) % 31 != 0)
     corrupt("bad zlib header");
   if (s[1] & 0x20) corrupt("zlib stream needs a preset dictionary");
-  std::vector<uint8_t> out(want);
+  out.assign(want, 0);
   size_t at = 0;
   InflateBits b{s + 2, n - 2};
   b.done = &at;
@@ -2305,7 +2508,7 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
           at += k;
           left -= k;
         }
-        if (left > 0) return out;  // the rest waits for room
+        if (left > 0) return;  // the rest waits for room
         continue;
       }
       if (type == 3) corrupt("bad Deflate block type");
@@ -2351,7 +2554,7 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
       for (;;) {
         int sym = b.decode(lit);
         if (sym < 256) {
-          if (at == want) return out;  // a literal waits for room
+          if (at == want) return;  // a literal waits for room
           out[at++] = (uint8_t)sym;
           continue;
         }
@@ -2362,6 +2565,7 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
         int ds = b.decode(dist);
         if (ds >= 30) corrupt("bad Deflate distance code");
         size_t back = kDistBase[ds] + b.get(kDistExtra[ds]);
+        if (at == want) return;  // zlib checks a match's distance once it has room to copy
         if (back > at) corrupt("Deflate distance too far back");
         const bool room = len <= want - at;  // else the rest of the match waits for it
         len = std::min(len, want - at);
@@ -2372,7 +2576,7 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
           for (size_t i = 0; i < len; ++i) o[i] = o[i - back];
         }
         at += len;
-        if (!room) return out;
+        if (!room) return;
       }
     }
     if (at < want) corrupt("Deflate data ends early");
@@ -2381,8 +2585,10 @@ std::vector<uint8_t> inflate_zlib(const uint8_t* s, size_t n, size_t want) {
     for (int i = 0; i < 4; ++i) check = check << 8 | (uint32_t)b.get(8);
     if (check != adler32(out.data(), want)) corrupt("Deflate data check (Adler-32) fails");
   } catch (const InflateEnd&) {
+  } catch (const DecodeError&) {
+    if (at < want) out.resize(at);
+    throw;
   }
-  return out;
 }
 
 // ----------------------------------------------------------------- CCITT
@@ -2798,7 +3004,40 @@ struct TiffYcc {
     return luma(clamp255(v + cr_r[cr]), clamp255(v + (int32_t)((cb_g[cb] + cr_g[cr]) >> 16)),
                   clamp255(v + cb_b[cb]));
   }
+  uint8_t component(int yy, int cb, int cr, int i) const {  // R, G, B or A of the RGBA
+    const int32_t v = y[yy];
+    return i == 0   ? clamp255(v + cr_r[cr])
+           : i == 1 ? clamp255(v + (int32_t)((cb_g[cb] + cr_g[cr]) >> 16))
+           : i == 2 ? clamp255(v + cb_b[cb])
+                    : 255;
+  }
 };
+
+// The YCbCr subsamplings tif_getimage.c has a reader for: 4 x 4, 4 x 2,
+// 4 x 1, 2 x 2, 2 x 1, 1 x 2, 1 x 1.
+bool rgba_subsampling(int h, int v) {
+  return (h == 4 && (v == 4 || v == 2 || v == 1)) || (h == 2 && (v == 2 || v == 1)) ||
+         (h == 1 && (v == 2 || v == 1));
+}
+
+// The YCbCr conversion of a file's YCbCrCoefficients and
+// ReferenceBlackWhite (libtiff's defaults where absent).
+TiffYcc tiff_ycc(const Tiff& t, size_t coefficients, size_t refbw) {
+  float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
+  if (coefficients) {
+    const std::vector<float> v = t.rationals(coefficients);
+    if (v.size() < 3) corrupt("bad YCbCrCoefficients tag");
+    std::copy(v.begin(), v.begin() + 3, luma);
+  }
+  if (refbw) {
+    const std::vector<float> v = t.rationals(refbw);
+    if (v.size() < 6) corrupt("bad ReferenceBlackWhite tag");
+    std::copy(v.begin(), v.begin() + 6, rbw);
+  }
+  if (std::isnan(luma[0]) || std::isnan(luma[1]) || luma[1] == 0 || std::isnan(luma[2]))
+    corrupt("bad YCbCrCoefficients tag");
+  return TiffYcc(luma, rbw);
+}
 
 struct OJpegTags {  // IFD entries, 0 where absent
   size_t jif, jif_len, restart, qtables, dctables, actables, coefficients, refbw;
@@ -3057,26 +3296,11 @@ struct OJpegTags {  // IFD entries, 0 where absent
       memcpy(&g.px[(size_t)y * W], &cp[0].plane[(size_t)y * cp[0].pw], W);
     return;
   }
-  float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
-  if (oj.coefficients) {
-    const std::vector<float> v = t.rationals(oj.coefficients);
-    if (v.size() < 3) corrupt("bad YCbCrCoefficients tag");
-    std::copy(v.begin(), v.begin() + 3, luma);
-  }
-  if (oj.refbw) {
-    const std::vector<float> v = t.rationals(oj.refbw);
-    if (v.size() < 6) corrupt("bad ReferenceBlackWhite tag");
-    std::copy(v.begin(), v.begin() + 6, rbw);
-  }
-  if (std::isnan(luma[0]) || std::isnan(luma[1]) || luma[1] == 0 || std::isnan(luma[2]))
-    corrupt("bad YCbCrCoefficients tag");
+  const TiffYcc conv = tiff_ycc(t, oj.coefficients, oj.refbw);
   if (desub)
     corrupt("old-style JPEG-in-TIFF of a sampling libtiff leaves to libjpeg (PIL refuses it)");
-  // The subsamplings tif_getimage.c has a reader for.
-  static const int kRgbaSub[] = {0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11};
-  if (std::find(std::begin(kRgbaSub), std::end(kRgbaSub), sub_h << 4 | sub_v) == std::end(kRgbaSub))
+  if (!rgba_subsampling(sub_h, sub_v))
     corrupt("old-style JPEG-in-TIFF with YCbCr subsampling libtiff's RGBA reader refuses");
-  const TiffYcc conv(luma, rbw);
   std::fill(g.px.begin() + (size_t)std::min(good_rows, H) * W, g.px.end(), conv.grey(0, 0, 0));
   for (uint32_t y = 0; y < std::min(good_rows, H); ++y) {
     const uint8_t* yr = &cp[0].plane[(size_t)y * cp[0].pw];
@@ -3154,65 +3378,572 @@ inline uint8_t clip_int(int32_t v) { return (uint8_t)(v <= 0 ? 0 : v >= 255 ? 25
   }
 }
 
+// How PIL's ImageFileDirectory_v2 takes an IFD entry. It drops one of a
+// type it has no loader for (0, 14, 15, 17, 18, past 18) or of no values;
+// it stops reading the directory at an entry whose values run past the end
+// of the file (`cut`: that entry's position), keeping the entries before
+// it; it reads BYTE and UNDEFINED as bytes and ASCII as a string, which
+// match no number, RATIONAL, FLOAT and DOUBLE as numbers, which match an
+// integer only when whole, and the integer types (SHORT, LONG, IFD, LONG8
+// and the signed ones) as integers.
+struct PilTag {
+  bool present = false;  // PIL keeps the entry
+  bool ints = false;     // its values match integers 0 .. 2^32 - 1
+  bool exact = false;    // and are of an integer type (what PIL's size and offsets must be)
+  std::vector<uint32_t> v;
+};
+
+PilTag pil_tag(const Tiff& t, size_t e, size_t cut) {
+  PilTag k;
+  if (!e || e >= cut) return k;
+  const Tiff::Entry x = t.entry(e);
+  const uint32_t ty = x.type;
+  if (!x.fits || x.count == 0 || ty == 0 || ty == 14 || ty == 15 || ty > 16) return k;
+  k.present = true;
+  if (ty == 1 || ty == 2 || ty == 7) return k;
+  k.ints = true;
+  for (uint64_t i = 0; i < x.count && k.ints; ++i) {
+    const double v = t.number(x, i);
+    k.ints = v >= 0 && v <= 4294967295.0 && v == std::floor(v);
+    k.v.push_back(k.ints ? (uint32_t)v : 0);
+  }
+  k.exact = k.ints && ty != 5 && ty != 10 && ty != 11 && ty != 12;
+  return k;
+}
+
+// Whether libtiff (tif_dirread.c) reads an entry as integers: BYTE, SHORT,
+// LONG, LONG8 and their signed forms (not IFD), no value negative. It fails
+// the directory on any other in a tag it needs (the size, the strip and
+// tile layout, the sample layout, compression) and drops it in the rest.
+bool libtiff_ints(const Tiff& t, size_t e, uint64_t limit = ~0ull) {
+  Tiff::Entry x = t.entry(e);
+  const uint32_t ty = x.type;
+  if (!(ty == 1 || ty == 3 || ty == 4 || ty == 6 || ty == 8 || ty == 9 || ty == 16 || ty == 17))
+    return false;
+  if (x.count > limit) {  // a longer strip or tile array libtiff reads no further than it needs
+    x.count = limit;
+    x.fits = x.at <= t.n && limit * Tiff::type_size(ty) <= t.n - x.at;
+  }
+  if (!x.fits) return false;
+  for (uint64_t i = 0; i < x.count; ++i)
+    if (t.number(x, i) < 0) return false;
+  return true;
+}
+
+// A TIFF's first directory as the decoder uses it: what PIL's own reading
+// decides (the size, the mode's tags, the route: libtiff for a compressed
+// file, PIL's raw decoder for an uncompressed one, and on the raw route the
+// strips or tiles), and on the libtiff route what libtiff reads.
+struct TiffDir {
+  uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
+           planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
+  uint32_t codec_fill = 1;  // libtiff's FillOrder: 2 reverses each byte's bits before a codec
+  uint32_t lt_spp = 1, lt_bps = 1, lt_planar = 1;  // libtiff's sample layout
+  std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1}, ycbcr_sub;
+  bool strips = false, tiles = false, has_photometric = false, has_spp = false;
+  size_t jpeg_tables = 0;  // the JPEGTables entry, 0 where absent
+  OJpegTags oj{};  // old-style JPEG's entries, and YCbCr's colour tags
+};
+
+// libtiff's EstimateStripByteCounts for a compressed file without
+// StripByteCounts (or with one strip of none): each strip the file's size
+// less the header, the directory and the values it points at (a share of
+// that a plane), the last strip cut at the end of the file.
+void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) {
+  const size_t width = t.big ? 20 : 12, slot = t.big ? 8 : 4;
+  uint64_t space = (t.big ? 16 + 8 + 8 : 8 + 2 + 4) + count * width;
+  for (uint64_t i = 0; i < count; ++i) {
+    const size_t e = first + width * i;
+    const int size = Tiff::type_size(t.r16(e + 2));
+    if (size == 0) corrupt("TIFF without StripByteCounts and an entry of an unknown type");
+    const uint64_t bytes = (uint64_t)size * (t.big ? t.r64(e + 4) : t.r32(e + 4));
+    if (bytes > slot) space += bytes;
+  }
+  uint64_t share = t.n < space ? t.n : t.n - space;
+  if (dir.lt_planar == 2) share /= dir.lt_spp;
+  dir.counts.assign(dir.offsets.size(), (uint32_t)std::min<uint64_t>(share, 0xFFFFFFFF));
+  if (!dir.offsets.empty()) {
+    const uint64_t last = dir.offsets.back();
+    if (last >= t.n)
+      dir.counts.back() = 0;
+    else if (last + dir.counts.back() > t.n)
+      dir.counts.back() = (uint32_t)(t.n - last);
+  }
+}
+
+[[gnu::noinline]] void read_tiff_dir(const Tiff& t, TiffDir& dir) {
+  const size_t ifd = t.offset(t.big ? 8 : 4);
+  uint64_t count = t.big ? t.r64(ifd) : t.r16(ifd);
+  const size_t first = ifd + (t.big ? 8 : 2), width = t.big ? 20 : 12;
+  if (first > t.n) corrupt("TIFF file ends early");
+  // PIL reads the entries the file holds; libtiff needs the whole directory.
+  const bool whole_dir = count <= (t.n - first) / width;
+  count = std::min<uint64_t>(count, (t.n - first) / width);
+  size_t cut = first + width * count;
+  struct {
+    size_t w, h, bps, comp, photo, fill, soff, spp, rps, scnt, planar, t4, t6, pred, cmap, tw, th,
+        toff, tcnt, extra, fmt, sub;
+  } p{};
+  bool twice = false;  // a tag of `p` given twice: PIL keeps the last, libtiff the first
+  for (uint64_t i = 0; i < count; ++i) {
+    const size_t e = first + width * i;
+    const uint32_t ty = t.r16(e + 2);
+    if (cut == first + width * count && ty >= 1 && ty <= 16 && ty != 14 && ty != 15 &&
+        !t.entry(e).fits) {
+      cut = e;
+      // PIL seeks to the values: past 2^63 Python's seek overflows, and
+      // PIL's open fails.
+      const uint64_t size = Tiff::type_size(ty) * t.entry(e).count;
+      if (t.big && size > 8 && t.r64(e + 12) >> 63) corrupt("BigTIFF offset past 2^63");
+    }
+    const auto before = p;
+    switch (t.r16(e)) {
+      case 256: p.w = e; break;
+      case 257: p.h = e; break;
+      case 258: p.bps = e; break;
+      case 259: p.comp = e; break;
+      case 262: p.photo = e; break;
+      case 266: p.fill = e; break;
+      case 273: p.soff = e; break;
+      case 277: p.spp = e; break;
+      case 278: p.rps = e; break;
+      case 279: p.scnt = e; break;
+      case 284: p.planar = e; break;
+      case 292: p.t4 = e; break;
+      case 293: p.t6 = e; break;
+      case 317: p.pred = e; break;
+      case 320: p.cmap = e; break;
+      case 322: p.tw = e; break;
+      case 323: p.th = e; break;
+      case 324: p.toff = e; break;
+      case 325: p.tcnt = e; break;
+      case 338: p.extra = e; break;
+      case 339: p.fmt = e; break;
+      case 347: dir.jpeg_tables = e; break;
+      case 513: dir.oj.jif = e; break;
+      case 514: dir.oj.jif_len = e; break;
+      case 515: dir.oj.restart = e; break;
+      case 519: dir.oj.qtables = e; break;
+      case 520: dir.oj.dctables = e; break;
+      case 521: dir.oj.actables = e; break;
+      case 529: dir.oj.coefficients = e; break;
+      case 530: p.sub = e; break;
+      case 532: dir.oj.refbw = e; break;
+      default: break;
+    }
+    const size_t* was = &before.w;
+    for (const size_t* now = &p.w; now <= &p.sub; ++now, ++was) twice = twice || (*was && *now != *was);
+  }
+  // PIL: the size must be integers; the tags of its mode key (and the
+  // compression, looked up in a table) must match integers.
+  const PilTag w = pil_tag(t, p.w, cut), h = pil_tag(t, p.h, cut);
+  if (!w.exact || !h.exact) corrupt("TIFF size PIL does not read (ImageWidth, ImageLength)");
+  dir.W = w.v[0];
+  dir.H = h.v[0];
+  auto key = [&](size_t e, std::vector<uint32_t>& out, const char* what) {
+    const PilTag k = pil_tag(t, e, cut);
+    if (k.present && !k.ints) corrupt(std::string("TIFF ") + what + " that PIL matches to no value");
+    if (k.present) out = k.v;
+    return k.present;
+  };
+  std::vector<uint32_t> v;
+  if (key(p.comp, v, "compression")) dir.compression = v[0];
+  if ((dir.has_photometric = key(p.photo, v, "photometric"))) dir.photometric = v[0];
+  if (key(p.fill, v, "FillOrder")) dir.fill = v[0];
+  if ((dir.has_spp = key(p.spp, v, "SamplesPerPixel"))) dir.spp = v[0];
+  key(p.bps, dir.bps, "BitsPerSample");
+  key(p.extra, dir.extra, "ExtraSamples");
+  key(p.fmt, dir.fmt, "SampleFormat");
+  const PilTag pl = pil_tag(t, p.planar, cut);
+  dir.planar = pl.ints && pl.v[0] == 2 ? 2 : 1;
+  const PilTag cm = pil_tag(t, p.cmap, cut);
+  if (cm.exact) dir.cmap = cm.v;  // else no colour map: a palette is corrupt
+  if (dir.compression == 1) {
+    // PIL's raw decoder: the strips (StripOffsets, RowsPerStrip) or tiles
+    // of its own reading, the counts unused.
+    dir.strips = p.soff && p.soff < cut;
+    dir.tiles = !dir.strips && p.toff && p.toff < cut;
+    const PilTag off = pil_tag(t, dir.strips ? p.soff : p.toff, cut);
+    if (!off.present) corrupt("TIFF has no image data");
+    if (!off.exact) corrupt("TIFF strip or tile offsets PIL does not read");
+    dir.offsets = off.v;
+    if (dir.strips) {
+      const PilTag r = pil_tag(t, p.rps, cut);
+      if (r.present && !r.exact) corrupt("TIFF RowsPerStrip PIL does not read");
+      if (r.present) dir.rps = r.v[0];
+    } else {
+      const PilTag a = pil_tag(t, p.tw, cut), b = pil_tag(t, p.th, cut);
+      if (!a.exact || !b.exact) corrupt("TIFF tile size PIL does not read");
+      dir.tw = a.v[0];
+      dir.th = b.v[0];
+    }
+    return;
+  }
+  // libtiff's directory: the tags it needs as integers, the rest dropped
+  // when of another type (their defaults then).
+  if (!whole_dir) corrupt("TIFF directory past the end of the file");
+  // EvaluateIFDdatasizeReading: every entry's values, and their sum out of
+  // the entries, in 64 bits.
+  uint64_t held = 0;
+  for (uint64_t i = 0; i < count; ++i) {
+    const size_t e = first + width * i;
+    const uint64_t size = Tiff::type_size(t.r16(e + 2)), n = t.big ? t.r64(e + 4) : t.r32(e + 4);
+    if (size && n > ~0ull / size) corrupt("TIFF entry of more data than 64 bits count");
+    if (size * n > (t.big ? 8u : 4u) && (held += size * n) < size * n)
+      corrupt("TIFF entries of more data than 64 bits count");
+  }
+  if (twice) unsupported("TIFF of a tag given twice (PIL reads the last, libtiff the first)");
+  if (t.big && (t.r16(4) != 8 || t.r16(6) != 0)) corrupt("BigTIFF of offsets not of 8 bytes");
+  auto refuses = [&](size_t e) {
+    corrupt("TIFF tag " + std::to_string(t.r16(e)) + " of type " + std::to_string(t.r16(e + 2)) +
+            ", which libtiff refuses");
+  };
+  for (size_t e : {p.w, p.h, p.bps, p.comp, p.spp, p.rps, p.planar, p.tw, p.th, p.extra, p.fmt})
+    if (e && !libtiff_ints(t, e)) refuses(e);
+  // One value, or for BitsPerSample, Compression and SampleFormat one a
+  // sample, all alike (TIFFReadDirEntryPersampleShort); a tag libtiff may
+  // drop it drops for another count.
+  for (size_t e : {p.w, p.h, p.spp, p.rps, p.planar, p.tw, p.th})
+    if (e && t.entry(e).count != 1) refuses(e);
+  const uint32_t spp1 = p.spp ? t.values(p.spp).at(0) : 1;
+  for (size_t e : {p.bps, p.comp, p.fmt}) {
+    if (!e || t.entry(e).count == 1) continue;
+    const std::vector<uint32_t> v = t.values(e);
+    if (v.size() < spp1 || std::count(v.begin(), v.begin() + spp1, v[0]) != (long)spp1) refuses(e);
+  }
+  auto dropped = [&](size_t e, uint32_t fallback) {
+    return e && t.entry(e).count == 1 && libtiff_ints(t, e) ? t.values(e).at(0) : fallback;
+  };
+  if (p.planar && t.values(p.planar).at(0) != 1 && t.values(p.planar).at(0) != 2)
+    corrupt("TIFF PlanarConfiguration not 1 or 2 (libtiff refuses it)");
+  dir.lt_spp = spp1;
+  dir.lt_bps = p.bps ? t.values(p.bps).at(0) : 1;
+  dir.lt_planar = p.planar ? t.values(p.planar).at(0) : 1;
+  dir.predictor = dropped(p.pred, 1);
+  dir.codec_fill = dropped(p.fill, 1);
+  if (dir.codec_fill != 2) dir.codec_fill = 1;
+  dir.t4opts = dropped(p.t4, 0);
+  dir.t6opts = dropped(p.t6, 0);
+  if (p.sub && libtiff_ints(t, p.sub)) dir.ycbcr_sub = t.values(p.sub);
+  if (p.rps) dir.rps = t.values(p.rps).at(0);
+  if (p.tw) dir.tw = t.values(p.tw).at(0);
+  if (p.th) dir.th = t.values(p.th).at(0);
+  // libtiff's strips a plane: none (an error) for RowsPerStrip 0, or one
+  // so near 2^32 that TIFFhowmany_32 overflows.
+  if (dir.rps == 0 || (dir.rps != 0xFFFFFFFF && dir.H >= 0xFFFFFFFFu - (dir.rps - 1)))
+    corrupt("TIFF RowsPerStrip libtiff counts no strips for");
+  dir.tiles = p.toff;  // libtiff: tiles where the file has them
+  dir.strips = !p.toff && p.soff;
+  if (!dir.strips && !dir.tiles) corrupt("TIFF has no image data");
+  // libtiff reads a strip or tile array no further than the chunks it
+  // needs, and pads a shorter one with zeros.
+  const auto howmany = [](uint64_t a, uint64_t b) { return b ? (a + b - 1) / b : 0; };
+  const uint64_t need =
+      (dir.tiles ? howmany(dir.W, dir.tw) * howmany(dir.H, dir.th)
+                 : howmany(dir.H, std::min<uint64_t>(dir.rps, dir.H))) *
+      (dir.lt_planar == 2 ? dir.lt_spp : 1);
+  const size_t counts = dir.strips ? p.scnt : p.tcnt;
+  for (size_t e : {dir.strips ? p.soff : p.toff, counts})
+    if (e && !libtiff_ints(t, e, need)) refuses(e);
+  dir.offsets = t.values(dir.strips ? p.soff : p.toff, need);
+  if (counts) dir.counts = t.values(counts, need);
+  if (dir.offsets.size() < need) dir.offsets.resize(need, 0);
+  if (counts && dir.counts.size() < need) dir.counts.resize(need, 0);
+  const size_t nchunks = dir.offsets.size();
+  if (!counts || (nchunks == 1 && dir.strips && dir.counts.at(0) == 0 && dir.offsets[0] != 0)) {
+    // libtiff estimates the counts of one strip (or one a plane) only.
+    if (!counts &&
+        ((dir.lt_planar == 1 && nchunks > 1) || (dir.lt_planar == 2 && nchunks != dir.lt_spp)))
+      corrupt("TIFF strip byte counts missing");
+    estimate_counts(t, first, count, dir);
+  }
+}
+
+// A strip's or tile's bytes from the file, decompressed into `want` bytes
+// of `out` (CCITT: `rows` rows of cw samples), each byte's bits reversed
+// first for FillOrder 2; `out` keeps what a failing codec decoded. Not
+// inlined, six register arguments (see jpeg_tiff).
+struct TiffCodec {
+  const Tiff* t;
+  uint32_t compression, cw, t4opts;
+  bool reverse;
+};
+
+const uint8_t* reversed_bits() {
+  static const auto table = [] {
+    std::vector<uint8_t> r(256);
+    for (int b = 0; b < 256; ++b) {
+      int v = 0;
+      for (int k = 0; k < 8; ++k) v |= ((b >> k) & 1) << (7 - k);
+      r[b] = (uint8_t)v;
+    }
+    return r;
+  }();
+  return table.data();
+}
+
+[[gnu::noinline]] void tiff_chunk(const TiffCodec& k, size_t off, size_t cnt, size_t want,
+                                  uint32_t rows, std::vector<uint8_t>& out) {
+  const Tiff& t = *k.t;
+  std::vector<uint8_t> rev;
+  const uint8_t* s = t.d + off;
+  out.clear();
+  if (k.compression == 1) {
+    if (off > t.n || want > t.n - off) corrupt("TIFF image data ends early");
+    cnt = want;
+  } else if (off > t.n || cnt > t.n - off) {
+    corrupt("TIFF strip outside the file");
+  }
+  if (k.reverse) {
+    const uint8_t* r = reversed_bits();
+    rev.resize(cnt);
+    for (size_t i = 0; i < cnt; ++i) rev[i] = r[s[i]];
+    s = rev.data();
+  }
+  switch (k.compression) {
+    case 1: out.assign(s, s + want); break;
+    case 2: case 3: case 4: out = ccitt(s, cnt, k.cw, rows, k.compression, k.t4opts); break;
+    case 5: lzw(s, cnt, want, out); break;
+    case 8: case 32946: inflate_zlib(s, cnt, want, out); break;
+    default: packbits(s, cnt, want, out); break;
+  }
+}
+
+// YCbCr outside JPEG, as PIL reads it through libtiff's RGBA reader
+// (TIFFRGBAImage, tif_getimage.c; PIL's _decodeAsRGBA): per block of h x v
+// pixels its luma samples with the block's Cb and Cr (as they are: no
+// upsampling) through TiffYcc; planar files three planes of 1 x 1
+// subsampling. The subsamplings tif_getimage.c has a reader for: 4 x 4,
+// 4 x 2, 4 x 1, 2 x 2, 2 x 1, 1 x 2, 1 x 1 (planar: 1 x 1). Chunky strips
+// hold rows of blocks (h x v luma samples, Cb, Cr); of a strip libtiff
+// decodes (its rows rounded up to v) x TIFFScanlineSize bytes, the
+// scanline being a block row's bytes over v rounded down, so the end of a
+// strip whose blocks a row are odd under v = 4 is not read (it stays
+// zero). The reader reads on from a strip or tile its codec cannot decode
+// whole (PIL asks it not to stop on errors), with what the codec gave and
+// zeros for the rest of what it was asked for.
+[[gnu::noinline]] void ycbcr_rgba(const TiffCodec& k, const TiffDir& dir, const TiffYcc& conv,
+                                  bool bytes_of_rgba, Gray& g) {
+  const uint32_t W = dir.W, H = dir.H;
+  // Each pixel's Y, Cb, Cr where PIL unpacks the RGBA rows as bytes.
+  std::vector<uint8_t> ycc(bytes_of_rgba ? (size_t)W * H * 3 : 0);
+  auto put = [&](uint32_t yy, uint32_t xx, int Y, int cb, int cr) {
+    const size_t i = (size_t)yy * W + xx;
+    if (!bytes_of_rgba) {
+      g.px[i] = conv.grey(Y, cb, cr);
+      return;
+    }
+    ycc[3 * i] = (uint8_t)Y;
+    ycc[3 * i + 1] = (uint8_t)cb;
+    ycc[3 * i + 2] = (uint8_t)cr;
+  };
+  const bool tiles = dir.tiles;
+  const uint32_t cw = tiles ? dir.tw : W, ch = tiles ? dir.th : std::min(dir.rps ? dir.rps : H, H);
+  if (cw == 0 || ch == 0) corrupt("bad TIFF tile size");
+  int sh = 2, sv = 2;  // libtiff's default
+  if (dir.ycbcr_sub.size() >= 2) {
+    sh = (int)dir.ycbcr_sub[0];
+    sv = (int)dir.ycbcr_sub[1];
+  }
+  const bool planar = dir.planar == 2;
+  // PIL's _decodeAsRGBA sizes a buffer of RowsPerStrip (or the tile's
+  // height) rows of 4-byte pixels, and refuses one past INT_MAX bytes.
+  const uint32_t block_rows = tiles ? dir.th : dir.rps == 0xFFFFFFFF ? H : dir.rps;
+  if (block_rows > 2147483647u / 4 / W) corrupt("YCbCr TIFF of more rows a strip than PIL's buffer");
+  if (!rgba_subsampling(sh, sv) || (planar && (sh != 1 || sv != 1)))
+    corrupt("YCbCr TIFF of a subsampling libtiff's RGBA reader has no reader for");
+  const uint32_t across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
+  const size_t per_plane = (size_t)across * down;
+  if (dir.offsets.size() < per_plane * (planar ? 3 : 1) || dir.counts.size() < dir.offsets.size())
+    corrupt("TIFF has too few strips or tiles");
+  const uint32_t bcols = (cw + sh - 1) / sh;
+  const size_t unit = (size_t)sh * sv + 2, brow = (size_t)bcols * unit;
+  const size_t row_bytes = planar ? cw : brow / sv;  // TIFFScanlineSize, TIFFTileRowSize
+  const uint32_t full_brows = (ch + sv - 1) / sv;
+  std::vector<uint8_t> held[3], got;
+  for (size_t idx = 0; idx < per_plane; ++idx) {
+    const uint32_t y0 = (uint32_t)(idx / across) * ch, x0 = (uint32_t)(idx % across) * cw;
+    const uint32_t rows = tiles ? ch : std::min(ch, H - y0), brows = (rows + sv - 1) / sv;
+    // What libtiff asks of the codec: a tile whole; a strip's rows rounded
+    // up to v, of the scanline's bytes, no more than the strip holds.
+    const size_t whole = planar ? (size_t)cw * rows : brow * brows;
+    const size_t want = tiles ? whole : std::min(whole, (size_t)brows * sv * row_bytes);
+    // PIL asks the reader for a strip, or a row of tiles, a call; each call
+    // reads into a new zeroed buffer, which the call's first read allocates:
+    // libtiff stops the call (and PIL refuses the file) where that read
+    // finds no data (no bytes, or bytes past the end of the file), and
+    // reads on past a later one, as zeros.
+    const bool call = !tiles || idx % across == 0;
+    if (call)
+      for (auto& b : held) b.assign(planar ? (size_t)cw * ch : brow * full_brows, 0);
+    for (int p = 0; p < (planar ? 3 : 1); ++p) {
+      const size_t i = idx + (size_t)p * per_plane;
+      const size_t off = dir.offsets[i], cnt = dir.counts[i];
+      if (cnt == 0 || off > k.t->n || cnt > k.t->n - off) {
+        if (call && p == 0) corrupt("YCbCr TIFF strip or tile libtiff cannot read");
+        std::fill(held[p].begin(), held[p].begin() + want, 0);
+        continue;
+      }
+      bool whole_chunk = true;
+      try {
+        tiff_chunk(k, off, cnt, want, rows, got);
+      } catch (const DecodeError&) {
+        whole_chunk = false;
+      }
+      const size_t n = std::min(got.size(), want);  // a codec that runs short zeroes the rest
+      std::copy(got.begin(), got.begin() + n, held[p].begin());
+      std::fill(held[p].begin() + n, held[p].begin() + want, 0);
+      // libtiff's predictor, after a codec that filled the request: rows of
+      // TIFFScanlineSize (a strip) or TIFFTileRowSize (a tile: the tile's
+      // width x samples, blind to subsampling), samples a pixel apart; a
+      // request or row it does not divide it leaves as it is.
+      const size_t prow = tiles ? (size_t)cw * (planar ? 1 : 3) : row_bytes;
+      const size_t step = planar ? 1 : 3;
+      if (whole_chunk && dir.predictor == 2 && prow && want % prow == 0 && prow % step == 0)
+        for (size_t a = 0; a < want; a += prow)
+          for (size_t q = step; q < prow; ++q)
+            held[p][a + q] = (uint8_t)(held[p][a + q] + held[p][a + q - step]);
+    }
+    if (planar) {
+      for (uint32_t r = 0; r < rows && y0 + r < H; ++r)
+        for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
+          const size_t q = (size_t)r * cw + c;
+          put(y0 + r, x0 + c, held[0][q], held[1][q], held[2][q]);
+        }
+      continue;
+    }
+    // A tile past the image's right edge: the put routine skips the blocks
+    // past the edge after each block row, by (tile width - width) / h
+    // blocks; tif_getimage.c's 4 x 4 routine counts them 10 bytes each (its
+    // 4 x 2 routine's), not 18.
+    const uint8_t* buf = held[0].data();
+    const uint32_t vis = std::min(cw, W - x0), used = (vis + sh - 1) / sh;
+    const size_t step = tiles && vis < cw
+                            ? used * unit + (size_t)((cw - vis) / sh) * (sh == 4 && sv == 4 ? 10 : unit)
+                            : brow;
+    for (uint32_t br = 0; br < brows; ++br)
+      for (uint32_t bc = 0; bc < used; ++bc) {
+        const uint8_t* u = &buf[br * step + bc * unit];
+        const int cb = u[unit - 2], cr = u[unit - 1];
+        for (int j = 0; j < sv; ++j) {
+          const uint32_t yy = y0 + br * sv + j;
+          if (br * sv + j >= rows || yy >= H) break;
+          for (int i = 0; i < sh; ++i) {
+            const uint32_t xx = x0 + bc * sh + i;
+            if (bc * sh + i >= cw || xx >= W) break;
+            put(yy, xx, u[j * sh + i], cb, cr);
+          }
+        }
+      }
+  }
+  if (bytes_of_rgba)
+    for (uint32_t yy = 0; yy < H; ++yy)
+      for (uint32_t xx = 0; xx < W; ++xx) {
+        const uint8_t* p = &ycc[((size_t)yy * W + xx / 4) * 3];
+        g.px[(size_t)yy * W + xx] = conv.component(p[0], p[1], p[2], xx % 4);
+      }
+}
+
+// PIL's raw route where it reads otherwise than the file's layout: planar
+// files and YCbCr. TiffImageFile._setup gives each offset a tile: strips of
+// the image's width and RowsPerStrip rows (or tiles), across then down, then
+// the next layer; a planar file's layer p is read with the one-letter raw
+// mode rawmode[p] (whatever BitsPerSample says: 8 bits for a band letter or
+// L or P, 1 for "1", 32 for I and F), a chunky YCbCr one with "RGBX" (4
+// bytes a pixel over 3-byte samples). PIL's raw decoder reads a tile's rows
+// from its offset on, each (width x bits + 7) / 8 bytes, then a tile's
+// stride less that (stride 0 but for a tile past the image's right edge:
+// tile width x sum(bps) / 8, over the samples a pixel of a planar file);
+// past the end of the file it is truncated. Fills `smp` (spp samples a
+// pixel: bytes, bits, or I and F clipped to 0 .. 255; the bands a layer has
+// not reached stay 0).
+enum PilRawMode { kRawRgbx, kRawByte, kRawBit, kRawInt32, kRawFloat32 };
+
+struct PilRaw {
+  uint32_t W, H, cw, ch, spp, bps_sum, bps_count;
+  PilRawMode mode;
+  bool planar;
+};
+
+[[gnu::noinline]] void pil_raw(const Tiff& t, const PilRaw& r, const std::vector<uint32_t>& offsets,
+                               std::vector<uint16_t>& smp) {
+  uint32_t x = 0, y = 0, layer = 0;
+  const int px_bits = r.mode == kRawBit ? 1 : r.mode == kRawByte ? 8 : 32;
+  for (uint32_t off : offsets) {
+    if (r.planar && layer >= r.spp) corrupt("TIFF of more planes than PIL's raw mode has bands");
+    const uint32_t bw = std::min(x + r.cw, r.W) - x, bh = std::min(y + r.ch, r.H) - y;
+    double stride = x + r.cw > r.W ? (double)r.cw * r.bps_sum / 8 : 0;
+    if (r.planar) stride /= r.bps_count;
+    const size_t bytes = ((size_t)bw * px_bits + 7) / 8, st = (size_t)stride;
+    if (st && st < bytes) corrupt("TIFF tile stride below PIL's raw row (PIL's decoder refuses it)");
+    const size_t skip = st ? st - bytes : 0;
+    if (bh && (off > t.n || (bytes + skip) * (bh - 1) + bytes > t.n - off))
+      corrupt("TIFF image data ends early (PIL's raw decoder runs out of the file)");
+    for (uint32_t j = 0; j < bh; ++j) {
+      const uint8_t* row = t.d + off + (bytes + skip) * j;
+      uint16_t* o = &smp[((size_t)(y + j) * r.W + x) * r.spp];
+      for (uint32_t i = 0; i < bw; ++i, o += r.spp) {
+        switch (r.mode) {
+          case kRawRgbx:
+            o[0] = row[4 * i];
+            o[1] = row[4 * i + 1];
+            o[2] = row[4 * i + 2];
+            break;
+          case kRawByte: o[layer] = row[i]; break;
+          case kRawBit: o[layer] = (row[i >> 3] >> (7 - (i & 7))) & 1; break;
+          case kRawInt32: {  // native (little-endian) int32, clipped
+            const int32_t v = (int32_t)(row[4 * i] | row[4 * i + 1] << 8 | row[4 * i + 2] << 16 |
+                                        (uint32_t)row[4 * i + 3] << 24);
+            o[layer] = clip_int(v);
+            break;
+          }
+          case kRawFloat32: {
+            const uint32_t u = row[4 * i] | row[4 * i + 1] << 8 | row[4 * i + 2] << 16 |
+                               (uint32_t)row[4 * i + 3] << 24;
+            float v;
+            memcpy(&v, &u, sizeof v);
+            o[layer] = v > 0.0f ? (v >= 255.0f ? 255 : (uint16_t)v) : 0;
+            break;
+          }
+        }
+      }
+    }
+    x += r.cw;
+    if (x >= r.W) {
+      x = 0;
+      y += r.ch;
+      if (y >= r.H) {
+        y = 0;
+        ++layer;
+      }
+    }
+  }
+}
+
 Gray decode_tiff(const uint8_t* d, size_t n) {
   Tiff t{d, n};
   if (n < 8) corrupt("TIFF file ends early");
   t.be = d[0] == 'M';
-  if (t.r16(2) == 43) unsupported("BigTIFF");
-  size_t ifd = t.r32(4);
-  uint32_t count = t.r16(ifd);
-  uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
-           planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
-  std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1}, ycbcr_sub;
-  bool strips = false, tiles = false, has_photometric = false, has_spp = false;
-  size_t jpeg_tables = 0;  // the JPEGTables entry, if any
-  OJpegTags oj{};
-  for (uint32_t i = 0; i < count; ++i) {
-    size_t e = ifd + 2 + 12 * (size_t)i;
-    uint32_t tag = t.r16(e);
-    switch (tag) {
-      case 256: W = t.values(e).at(0); break;
-      case 257: H = t.values(e).at(0); break;
-      case 258: bps = t.values(e); break;
-      case 259: compression = t.values(e).at(0); break;
-      case 262: photometric = t.values(e).at(0); has_photometric = true; break;
-      case 266: fill = t.values(e).at(0); break;
-      case 273: offsets = t.values(e); strips = true; break;
-      case 277: spp = t.values(e).at(0); has_spp = true; break;
-      case 278: rps = t.values(e).at(0); break;
-      case 279: counts = t.values(e); break;
-      case 284: planar = t.values(e).at(0); break;
-      case 292: t4opts = t.values(e).at(0); break;
-      case 293: t6opts = t.values(e).at(0); break;
-      case 317: predictor = t.values(e).at(0); break;
-      case 320: cmap = t.values(e); break;
-      case 322: tw = t.values(e).at(0); break;
-      case 323: th = t.values(e).at(0); break;
-      case 324: offsets = t.values(e); tiles = true; break;
-      case 325: counts = t.values(e); break;
-      case 338: extra = t.values(e); break;
-      case 339: fmt = t.values(e); break;
-      case 347: jpeg_tables = e; break;
-      case 513: oj.jif = e; break;
-      case 514: oj.jif_len = e; break;
-      case 515: oj.restart = e; break;
-      case 519: oj.qtables = e; break;
-      case 520: oj.dctables = e; break;
-      case 521: oj.actables = e; break;
-      case 529: oj.coefficients = e; break;
-      case 530: ycbcr_sub = t.values(e); break;
-      case 532: oj.refbw = e; break;
-      default: break;
-    }
-  }
+  t.big = t.r16(2) == 43;
+  // PIL takes a header's third byte for its version: a big-endian BigTIFF's
+  // is 0, so PIL reads it as a classic header and fails.
+  if (t.big && t.be) corrupt("big-endian BigTIFF, whose header PIL misreads");
+  TiffDir dir;
+  read_tiff_dir(t, dir);
+  const uint32_t W = dir.W, H = dir.H, fill = dir.fill, tw = dir.tw,
+                 th = dir.th, t4opts = dir.t4opts, t6opts = dir.t6opts;
+  uint32_t compression = dir.compression, photometric = dir.photometric, spp = dir.spp;
+  std::vector<uint32_t> bps = dir.bps, fmt = dir.fmt;
+  const std::vector<uint32_t>&offsets = dir.offsets, &cmap = dir.cmap, &extra = dir.extra;
+  const bool strips = dir.strips, tiles = dir.tiles;
   check_size(W, H);
   if (compression == 6) {
     // libtiff (tif_dirread.c) takes an old-style JPEG's photometric for
     // YCbCr when the tag is missing or says RGB of 3 samples, and its
     // samples per pixel for 3 when missing there; PIL takes its own
     // photometric for YCbCr and defaults to 3 samples too.
-    if (!has_spp && (!has_photometric || photometric == 2 || photometric == 6)) spp = 3;
-    if (!has_photometric || (photometric == 2 && spp == 3)) photometric = 6;
+    if (!dir.has_spp && (!dir.has_photometric || photometric == 2 || photometric == 6)) spp = 3;
+    if (!dir.has_photometric || (photometric == 2 && spp == 3)) photometric = 6;
   }
   // What PIL itself refuses is corrupt: a compression its TiffImagePlugin
   // does not name, a layout without a mode in its OPEN_INFO, a CIELab image
@@ -3230,6 +3961,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (fmt.size() == 1 && spp > 1) fmt.assign(spp, fmt[0]);
   const int bits = (int)bps[0];
   if (photometric == 8) corrupt("CIELab TIFF (PIL cannot convert LAB to L)");
+  const bool lib = compression != 1;  // libtiff decodes for PIL; else PIL's raw decoder
+  // PlanarConfiguration as each route takes it: libtiff's decodes a
+  // compressed file, PIL's own reading lays out the raw route's tiles.
+  const uint32_t planar = lib ? dir.lt_planar : dir.planar;
   const bool fax = compression == 2 || compression == 3 || compression == 4;
   const bool jpeg = compression == 7, zip = compression == 8 || compression == 32946;
   // libtiff's codecs: SGILog wants a LogLuv image (no PIL mode), WebP is not
@@ -3241,21 +3976,25 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (compression == 32809 && bits != 4) corrupt("ThunderScan TIFF not of 4 bits");
   if (jpeg && bits != 8 && bits != 12) corrupt(std::to_string(bits) + "-bit JPEG-in-TIFF");
   const bool predicted = compression == 5 || zip || compression == 34925 || compression == 50000;
-  if (predicted && (predictor < 1 || predictor > 3))
-    corrupt("TIFF predictor " + std::to_string(predictor));
-  if (predicted && predictor == 2 && bits != 8 && bits != 16 && bits != 32 && bits != 64)
+  const uint32_t predictor = predicted ? dir.predictor : 1;
+  if (predictor < 1 || predictor > 3) corrupt("TIFF predictor " + std::to_string(predictor));
+  if (predictor == 2 && bits != 8 && bits != 16 && bits != 32 && bits != 64)
     corrupt("TIFF predictor 2 with " + std::to_string(bits) + "-bit samples");
-  if (predicted && predictor == 3 && fmt[0] != 3) corrupt("TIFF floating-point predictor on integers");
+  if (predictor == 3 && fmt[0] != 3) corrupt("TIFF floating-point predictor on integers");
+  // PIL's raw modes of FillOrder 2 it has no unpacker for: 8-bit
+  // WhiteIsZero (L;IR) and palettes below 8 bits (P;1R, P;2R, P;4R); a
+  // planar file's layer takes the raw mode's first letter alone.
+  if (!lib && fill == 2 && planar != 2 &&
+      ((photometric == 0 && bits == 8) || (photometric == 3 && bits < 8)))
+    corrupt("TIFF of FillOrder 2 in a raw mode PIL has no unpacker for");
 
   // Kinds PIL reads and the port does not yet (ROADMAP A.6).
   const bool ojpeg = compression == 6;
-  if (compression != 1 && compression != 5 && compression != 32773 && !fax && !jpeg && !zip &&
-      !ojpeg)
+  if (lib && compression != 5 && compression != 32773 && !fax && !jpeg && !zip && !ojpeg)
     unsupported("TIFF compression " + std::to_string(compression));
-  // YCbCr is read only as libtiff's JPEG codecs give it, in one plane.
-  if (photometric == 6 && !((jpeg || ojpeg) && planar == 1)) unsupported("YCbCr TIFF");
-  if (fill != 1) unsupported("TIFF with FillOrder 2");
-  if (spp > 1 && planar == 2) unsupported("planar TIFF");
+  const bool planes = spp > 1 && planar == 2;
+  if ((jpeg || ojpeg) && planes)
+    unsupported(photometric == 6 ? "YCbCr TIFF of JPEG in planes" : "planar JPEG-in-TIFF");
   if (fax) {
     if (photometric > 1) unsupported("CCITT-coded palette TIFF");
     if (tiles) unsupported("CCITT-coded TIFF in tiles");
@@ -3272,9 +4011,13 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   // What the samples mean, in PIL's OPEN_INFO terms. pil_tiff_mode lets a
   // sample format other than 1 through for grey alone: 2 at 8 bits (read as
   // unsigned, PIL's L), 16 and 32 bits, 3 at 32 bits.
-  enum { kGrey, kGreyInv, kGrey16, kNumber, kRgb, kPal, kGreyAlpha, kCmyk } kind = kGrey;
+  enum { kGrey, kGreyInv, kGrey16, kNumber, kRgb, kRgbAssoc, kPal, kGreyAlpha, kCmyk, kYcc } kind = kGrey;
   if (jpeg || ojpeg) {
     // libjpeg's output, converted to grey per strip or tile below.
+  } else if (photometric == 6) {  // PIL's L of one sample, RGB (raw mode RGBX) of three
+    if (spp == 3 || lib) kind = kYcc;
+    if (lib && (dir.lt_spp != 3 || dir.lt_bps != 8))
+      corrupt("YCbCr TIFF not of 3 samples of 8 bits, which libtiff's RGBA reader refuses");
   } else if (photometric <= 1 && spp == 1) {
     if (bits == 12 || bits == 32 || (bits == 16 && fmt[0] == 2)) {
       kind = kNumber;
@@ -3285,18 +4028,23 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     }
   } else if (photometric == 1 && spp == 2 && bits == 8 && extra.size() == 1 && extra[0] == 2) {
     kind = kGreyAlpha;
-  } else if (photometric == 2) {  // PIL's modes: 3 to 6 samples, extra ones unassociated
-    if (!extra.empty() && extra[0] == 1) unsupported("TIFF with associated alpha");
-    kind = kRgb;
+  } else if (photometric == 2) {  // PIL's RGB, RGBX, RGBA and RGBa families
+    kind = !extra.empty() && extra[0] == 1 ? kRgbAssoc : kRgb;
   } else if (photometric == 5) {  // PIL's CMYK, CMYKX, CMYKXX and 16-bit CMYK
     kind = kCmyk;
-  } else if (photometric == 3 && spp == 1 && (bits == 1 || bits == 2 || bits == 4 || bits == 8)) {
+  } else if (photometric == 3) {  // P, or PA / PX of two samples: the palette of the first
     if (cmap.size() != 3u << bits) corrupt("bad TIFF colour map");
     kind = kPal;
   } else {
     unsupported("TIFF photometric " + std::to_string(photometric) + " with " + std::to_string(spp) +
                 " samples of " + std::to_string(bits) + " bits");
   }
+  // The bands of PIL's mode: RGB for RGBX and YCbCr, RGBA for RGBA and
+  // RGBa, CMYK, LA, PA, P for PX.
+  const uint32_t bands = kind == kRgb || kind == kYcc ? (spp >= 4 && (extra.empty() || extra[0] != 0) ? 4 : 3)
+                         : kind == kRgbAssoc || kind == kCmyk ? 4
+                         : kind == kGreyAlpha || (kind == kPal && spp == 2 && extra[0] == 2) ? 2
+                                                                                         : 1;
 
   // Chunks: strips (full width) or tiles.
   uint32_t cw, ch;
@@ -3306,103 +4054,192 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     ch = th;
   } else if (strips) {
     cw = W;
-    ch = std::min(rps == 0 ? H : rps, H);
+    ch = std::min(dir.rps == 0 ? H : dir.rps, H);
   } else {
     corrupt("TIFF has no image data");
   }
   const uint32_t across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
-  if (offsets.size() < (size_t)across * down) corrupt("TIFF has too few strips or tiles");
-  if (compression != 1 && counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
-  const size_t rb = ((size_t)cw * spp * bits + 7) / 8;
-  const bool pred2 = predictor == 2 && predicted && kind != kNumber;
-  const NumberGrey numbers{bits, (int)fmt[0], t.be, !t.be || compression != 1,
-                           predicted ? (int)predictor : 1, rb, cw};
+  const uint32_t nplanes = planes ? spp : 1;
+  if (lib && offsets.size() < (size_t)across * down * nplanes)
+    corrupt("TIFF has too few strips or tiles");
+  if (lib && dir.counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
+  const TiffCodec codec{&t, compression, cw, t4opts,
+                        (lib ? dir.codec_fill : fill) == 2 && !jpeg && !ojpeg};
 
   Gray g;
   g.w = (int)W;
   g.h = (int)H;
   g.px.resize((size_t)W * H);
   if (jpeg || ojpeg) {
-    const bool sub = ycbcr_sub.size() >= 2;
-    const Chunks chunks{offsets, counts, cw, ch, tiles, sub ? (int)ycbcr_sub[0] : 0,
-                        sub ? (int)ycbcr_sub[1] : 0};
+    const bool sub = dir.ycbcr_sub.size() >= 2;
+    const Chunks chunks{offsets, dir.counts, cw, ch, tiles, sub ? (int)dir.ycbcr_sub[0] : 0,
+                        sub ? (int)dir.ycbcr_sub[1] : 0};
     if (jpeg)
-      jpeg_tiff(t, jpeg_tables, photometric, spp, chunks, g);
+      jpeg_tiff(t, dir.jpeg_tables, photometric, spp, chunks, g);
     else
-      ojpeg_tiff(t, oj, photometric, spp, chunks, g);
+      ojpeg_tiff(t, dir.oj, photometric, spp, chunks, g);
     return g;
+  }
+  if (lib && kind == kYcc) {
+    // PIL's mode L (one sample in its directory) unpacks the reader's RGBA
+    // rows as bytes: pixel x is byte x of its row (R, G, B, A of pixel x / 4).
+    ycbcr_rgba(codec, dir, tiff_ycc(t, dir.oj.coefficients, dir.oj.refbw), spp == 1, g);
+    return g;
+  }
+  // PIL's libtiff decoder sizes its rows by PIL's raw mode (its bits a
+  // pixel over the mode's bands for a planar file, `planes`) and refuses a
+  // strip whose libtiff scanline is shorter, or a tile whose libtiff size
+  // is more than that many rows (the tile's height) of the tile's width.
+  // It reads a planar file's first `bands` planes; a mode of one band (PX)
+  // from the first plane's tiles with the chunky raw mode, on past a tile
+  // row's bytes. Where PIL's directory and libtiff's disagree on the
+  // samples and these checks pass, the port does not follow (A.6).
+  uint32_t read_planes = nplanes;
+  bool px_tiles = false;  // PX planes in tiles: the first plane read with raw mode PX
+  if (lib) {
+    const uint64_t lt_px = (uint64_t)dir.lt_bps * (dir.lt_planar == 2 ? 1 : dir.lt_spp);
+    const uint32_t pil_planes = dir.lt_planar == 2 && bands > 1 ? bands : 1;
+    const uint64_t raw_bits = (uint64_t)bits * spp;
+    if (strips ? (W * lt_px + 7) / 8 < (W * raw_bits / pil_planes + 7) / 8
+               : (tw * lt_px + 7) / 8 * th > (th * raw_bits / pil_planes + 7) / 8 * tw)
+      corrupt("TIFF whose rows PIL's libtiff decoder sizes otherwise");
+    if (dir.lt_bps != (uint32_t)bits || (planar == 1 && dir.lt_spp != spp))
+      unsupported("TIFF whose samples PIL's directory and libtiff's read otherwise");
+    if (planar == 2 && std::min(spp, bands) > dir.lt_spp)
+      corrupt("TIFF of fewer planes than PIL's mode has bands");
+  }
+  if (lib && planes) {
+    read_planes = std::min(nplanes, bands);
+    px_tiles = bands == 1;
+    // PIL's decoder takes a planar RGBA's colours for premultiplied when no
+    // ExtraSamples say otherwise (as its RGBa).
+    if (kind == kRgb && bands == 4 && extra.empty()) kind = kRgbAssoc;
+  }
+  // PIL's raw decoder over planes (layers of one-letter raw modes) and
+  // over YCbCr (raw mode RGBX). It takes PlanarConfiguration 2 for one
+  // sample too: its layer is rawmode[0] (1, L, P, I or F; I;16's "I" it has
+  // no unpacker for), inverted, reversed or packed or not.
+  const bool pil_planes = !lib && (planar == 2 || kind == kYcc);
+  PilRawMode raw_mode = kRawByte;
+  if (pil_planes && planar == 2) {
+    if (spp > 1 && !((kind == kRgb && spp == bands) || (kind == kCmyk && spp == 4) || kind == kYcc))
+      corrupt("planar TIFF of a raw mode PIL reads no plane of (X, a, L or P)");
+    if (kind == kGrey16 || (kind == kNumber && bits == 12))
+      corrupt("planar TIFF of PIL's mode I;16, whose raw mode I it has no unpacker for");
+    if (kind == kNumber) raw_mode = fmt[0] == 3 ? kRawFloat32 : kRawInt32;
+    if (bits == 1 && (kind == kGrey || kind == kGreyInv)) raw_mode = kRawBit;
+  } else if (pil_planes) {
+    raw_mode = kRawRgbx;
   }
   // Bilevel grey (CCITT scans among them) goes straight to 0 / 255; every
   // other kind unpacks to one sample array per pixel (spp values each,
-  // 16-bit kept whole).
-  const bool bilevel = bits == 1 && (kind == kGrey || kind == kGreyInv);
-  std::vector<uint16_t> smp(bilevel || kind == kNumber ? 0 : (size_t)W * H * spp);
-  for (uint32_t ty = 0; ty < down; ++ty) {
-    for (uint32_t tx = 0; tx < across; ++tx) {
-      size_t idx = (size_t)ty * across + tx;
-      uint32_t y0 = ty * ch, x0 = tx * cw;
-      uint32_t rows = tiles ? ch : std::min(ch, H - y0);
-      size_t want = rb * rows;
-      size_t off = offsets[idx];
-      std::vector<uint8_t> buf;
-      if (compression == 1) {
-        if (off + want > n) corrupt("TIFF image data ends early");
-        buf.assign(d + off, d + off + want);
-      } else {
-        size_t cnt = counts[idx];
-        if (off > n || cnt > n - off) corrupt("TIFF strip outside the file");
-        buf = fax                ? ccitt(d + off, cnt, cw, rows, compression, t4opts)
-              : compression == 5 ? lzw(d + off, cnt, want)
-              : zip              ? inflate_zlib(d + off, cnt, want)
-                                 : packbits(d + off, cnt, want);
-      }
-      if (kind == kNumber) {
-        number_rows(numbers, buf.data(), rows, x0, y0, g);
-        continue;
-      }
-      if (pred2) {
-        for (uint32_t r = 0; r < rows; ++r) {
-          uint8_t* row = &buf[r * rb];
-          if (bits == 8) {
-            for (size_t i = spp; i < (size_t)cw * spp; ++i) row[i] = (uint8_t)(row[i] + row[i - spp]);
-          } else {
-            for (size_t i = spp; i < (size_t)cw * spp; ++i) {
-              uint8_t* a = row + 2 * i;
-              uint8_t* b = row + 2 * (i - spp);
-              uint32_t va = t.be ? (a[0] << 8) | a[1] : a[0] | (a[1] << 8);
-              uint32_t vb = t.be ? (b[0] << 8) | b[1] : b[0] | (b[1] << 8);
-              uint32_t v = (va + vb) & 0xFFFF;
-              a[0] = (uint8_t)(t.be ? v >> 8 : v);
-              a[1] = (uint8_t)(t.be ? v : v >> 8);
+  // 16-bit kept whole; 8-bit where PIL's raw decoder read a plane).
+  const bool bilevel = bits == 1 && (kind == kGrey || kind == kGreyInv) && !pil_planes;
+  std::vector<uint16_t> smp(bilevel || (kind == kNumber && !pil_planes) ? 0 : (size_t)W * H * spp);
+  int sample_bits = bits;
+  if (pil_planes) {
+    // TiffImageFile._setup: one tile for all of a chunky image when a
+    // strip or tile covers it (the last offset), else one an offset.
+    const bool whole = (strips ? (dir.rps == 0xFFFFFFFF ? H : dir.rps) == H : tw == W && th == H) && !planes;
+    const std::vector<uint32_t> last = whole ? std::vector<uint32_t>{offsets.back()} : offsets;
+    const uint32_t bps_count = (photometric == 5 ? 4 : photometric == 2 || photometric == 6 ? 3 : 1) +
+                               (uint32_t)extra.size();
+    const uint32_t rows = strips ? (dir.rps == 0xFFFFFFFF ? H : dir.rps) : th;
+    if (rows == 0) corrupt("TIFF of RowsPerStrip 0");
+    const PilRaw r{W, H, cw, rows, spp, (uint32_t)bits * spp, bps_count, raw_mode, planar == 2};
+    pil_raw(t, r, last, smp);
+    sample_bits = raw_mode == kRawBit ? 1 : 8;
+    if (kind == kYcc) kind = kRgb;
+    if (kind == kGreyInv || kind == kNumber) kind = kGrey;  // "L;I"[0] is L: not inverted
+  }
+  const uint32_t per = planes ? 1 : spp;  // samples a chunk's pixel
+  const size_t rb = ((size_t)cw * per * bits + 7) / 8;
+  const bool pred2 = predictor == 2 && kind != kNumber;
+  const NumberGrey numbers{bits, (int)fmt[0], t.be, !t.be || compression != 1, (int)predictor, rb, cw};
+  // PIL's raw decoder takes the last offset when one strip or tile covers
+  // the image (TiffImageFile._setup).
+  // PIL's raw decoder reads every offset, layer after layer over the
+  // image, or the last alone when one strip or tile covers the image
+  // (TiffImageFile._setup); libtiff the planes' chunks it is asked for.
+  const size_t per_plane = (size_t)across * down;
+  const bool last_only = !lib && offsets.size() > 1 &&
+                         (strips ? (dir.rps == 0xFFFFFFFF ? H : dir.rps) == H : tw == W && th == H);
+  const size_t nchunks = pil_planes ? 0 : lib ? per_plane * read_planes : last_only ? 1 : offsets.size();
+  std::vector<uint8_t> buf;
+  for (size_t i = 0; i < nchunks; ++i) {
+    {
+      {
+        const size_t idx = last_only ? offsets.size() - 1 : i, at = i % per_plane;
+        const uint32_t pl = lib ? (uint32_t)(i / per_plane) : 0;
+        const uint32_t ty = (uint32_t)(at / across), tx = (uint32_t)(at % across);
+        const uint32_t y0 = ty * ch, x0 = tx * cw;
+        const uint32_t rows = tiles ? ch : std::min(ch, H - y0);
+        if (lib) {
+          tiff_chunk(codec, offsets[idx], dir.counts[idx], rb * rows, rows, buf);
+        } else {
+          // PIL's raw decoder reads a tile's rows inside the image alone, the
+          // last of them to the image's right edge.
+          const size_t last = ((size_t)std::min(cw, W - x0) * per * bits + 7) / 8;
+          tiff_chunk(codec, offsets[idx], 0, (std::min(rows, H - y0) - 1) * rb + last, rows, buf);
+          buf.resize(rb * rows);
+        }
+        if (kind == kNumber) {
+          number_rows(numbers, buf.data(), rows, x0, y0, g);
+          continue;
+        }
+        if (pred2) {
+          for (uint32_t r = 0; r < rows; ++r) {
+            uint8_t* row = &buf[r * rb];
+            if (bits == 8) {
+              for (size_t i = per; i < (size_t)cw * per; ++i) row[i] = (uint8_t)(row[i] + row[i - per]);
+            } else {
+              for (size_t i = per; i < (size_t)cw * per; ++i) {
+                uint8_t* a = row + 2 * i;
+                uint8_t* b = row + 2 * (i - per);
+                uint32_t va = t.be ? (a[0] << 8) | a[1] : a[0] | (a[1] << 8);
+                uint32_t vb = t.be ? (b[0] << 8) | b[1] : b[0] | (b[1] << 8);
+                uint32_t v = (va + vb) & 0xFFFF;
+                a[0] = (uint8_t)(t.be ? v >> 8 : v);
+                a[1] = (uint8_t)(t.be ? v : v >> 8);
+              }
             }
           }
         }
-      }
-      for (uint32_t r = 0; r < rows && y0 + r < H; ++r) {
-        const uint8_t* row = &buf[r * rb];
-        if (bilevel) {  // a byte at a time, 8 pixels from a table
-          const uint8_t(*lut)[8] = bilevel_lut(kind == kGreyInv);
-          uint8_t* o = &g.px[(size_t)(y0 + r) * W + x0];
-          const uint32_t n = std::min(cw, W - x0);
-          uint32_t c = 0;
-          for (; c + 8 <= n; c += 8) std::memcpy(o + c, lut[row[c >> 3]], 8);
-          for (; c < n; ++c) o[c] = lut[row[c >> 3]][c & 7];
+        if (px_tiles) {  // a tile row's pixel c is its byte 2c, on into the next row
+          for (uint32_t r = 0; r < rows && y0 + r < H; ++r)
+            for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
+              const size_t k = (size_t)r * cw + 2 * c;
+              if (k >= buf.size()) unsupported("planar PX TIFF tile whose last row PIL reads past");
+              smp[((size_t)(y0 + r) * W + x0 + c) * spp] = buf[k];
+            }
           continue;
         }
-        for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
-          uint16_t* o = &smp[(((size_t)(y0 + r)) * W + x0 + c) * spp];
-          for (uint32_t s = 0; s < spp; ++s) {
-            size_t k = (size_t)c * spp + s;
-            uint16_t v;
-            if (bits == 8) {
-              v = row[k];
-            } else if (bits == 16) {
-              v = (uint16_t)(t.be ? (row[2 * k] << 8) | row[2 * k + 1] : row[2 * k] | (row[2 * k + 1] << 8));
-            } else {
-              size_t bit = k * bits;
-              v = (uint16_t)((row[bit >> 3] >> (8 - bits - (bit & 7))) & ((1 << bits) - 1));
+        for (uint32_t r = 0; r < rows && y0 + r < H; ++r) {
+          const uint8_t* row = &buf[r * rb];
+          if (bilevel) {  // a byte at a time, 8 pixels from a table
+            const uint8_t(*lut)[8] = bilevel_lut(kind == kGreyInv);
+            uint8_t* o = &g.px[(size_t)(y0 + r) * W + x0];
+            const uint32_t n = std::min(cw, W - x0);
+            uint32_t c = 0;
+            for (; c + 8 <= n; c += 8) std::memcpy(o + c, lut[row[c >> 3]], 8);
+            for (; c < n; ++c) o[c] = lut[row[c >> 3]][c & 7];
+            continue;
+          }
+          for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
+            uint16_t* o = &smp[(((size_t)(y0 + r)) * W + x0 + c) * spp + pl];
+            for (uint32_t s = 0; s < per; ++s) {
+              size_t k = (size_t)c * per + s;
+              uint16_t v;
+              if (bits == 8) {
+                v = row[k];
+              } else if (bits == 16) {
+                v = (uint16_t)(t.be ? (row[2 * k] << 8) | row[2 * k + 1] : row[2 * k] | (row[2 * k + 1] << 8));
+              } else {
+                size_t bit = k * bits;
+                v = (uint16_t)((row[bit >> 3] >> (8 - bits - (bit & 7))) & ((1 << bits) - 1));
+              }
+              o[s] = v;
             }
-            o[s] = v;
           }
         }
       }
@@ -3410,8 +4247,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   }
 
   if (bilevel || kind == kNumber) return g;
-  const int maxv = (1 << std::min(bits, 8)) - 1;
-  uint8_t pal[256];
+  const int maxv = (1 << std::min(sample_bits, 8)) - 1;
+  const int hi = sample_bits == 16 ? 8 : 0;  // PIL keeps a 16-bit sample's high byte
+  uint8_t pal[256] = {0};  // PIL's P -> L: entries past the colour map are black
   if (kind == kPal) {
     size_t m = (size_t)1 << bits;
     for (size_t i = 0; i < m; ++i)
@@ -3425,19 +4263,16 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       case kGrey16: g.px[i] = (uint8_t)std::min<int>(s[0], 255); break;
       case kGreyAlpha: g.px[i] = (uint8_t)s[0]; break;
       case kPal: g.px[i] = pal[s[0]]; break;
-      case kRgb:
-        if (bits == 16)
-          g.px[i] = luma(s[0] >> 8, s[1] >> 8, s[2] >> 8);
-        else
-          g.px[i] = luma(s[0], s[1], s[2]);
+      case kRgb: g.px[i] = luma(s[0] >> hi, s[1] >> hi, s[2] >> hi); break;
+      case kRgbAssoc: {  // PIL's RGBa unpackers: un-premultiplied, then RGBA -> L
+        const int a = s[3] >> hi;
+        auto un = [a](int c) { return a == 255 ? c : (uint8_t)std::min(c * 255 / a, 255); };
+        g.px[i] = a == 0 ? 0 : luma(un(s[0] >> hi), un(s[1] >> hi), un(s[2] >> hi));
         break;
-      case kCmyk:
-        if (bits == 16)
-          g.px[i] = cmyk_luma(s[0] >> 8, s[1] >> 8, s[2] >> 8, s[3] >> 8);
-        else
-          g.px[i] = cmyk_luma(s[0], s[1], s[2], s[3]);
-        break;
+      }
+      case kCmyk: g.px[i] = cmyk_luma(s[0] >> hi, s[1] >> hi, s[2] >> hi, s[3] >> hi); break;
       case kNumber:  // written by number_rows
+      case kYcc:     // read as RGB or by ycbcr_rgba
         break;
     }
   }

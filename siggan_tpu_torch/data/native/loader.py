@@ -1,6 +1,6 @@
 """ctypes binding of the port's host image decoder, ``decode.cpp``.
 
-The decoder reads JPEG, BMP and TIFF files to 8-bit grey, as PIL's
+The decoder reads JPEG, BMP and TIFF files (BigTIFF among them) to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
 files are recognised and left to ``infer/export.py::decode_png``, which
 inflates their rows with zlib and undoes the row filters here
@@ -39,8 +39,13 @@ SOURCE = Path(__file__).with_name("decode.cpp")
 # or resized pixel. d1: the decoders of the PNG-in-Python port; d2: PNG rows
 # unfiltered by ``sig_png_unfilter``; d3: damaged JPEG data read as
 # libjpeg-turbo reads it (restart resync, bad Huffman codes, its SIMD IDCT
-# on out-of-range coefficients), so files that were zero images decode.
-DECODE_VERSION = "d3"
+# on out-of-range coefficients), so files that were zero images decode;
+# d4: a JPEG file whose data ends without EOI read where PIL reads it (its
+# 64 KB blocks and libjpeg-turbo's bit-buffer fills; an arithmetic-coded
+# scan past a block is refused), and libtiff's tag types in compressed TIFF
+# (a tag of a type it cannot read is refused, a missing StripByteCounts
+# estimated), so pixels become zero images and zero images pixels.
+DECODE_VERSION = "d4"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 

@@ -9,10 +9,11 @@ drawn by hypothesis: widths off a multiple of 8, 1 px wide, wider than
 PIL writes PhotometricInterpretation 1; a 0 is patched into the tag.
 Each is read bit-equal with PIL's ``convert("L")`` through
 ``decode_gray``, ``data/dataset.py::decode_image`` and
-``cli/preprocess.py::load_canvas`` against the JAX package's. What stays
-refused (uncompressed mode, CCITT in tiles, FillOrder 2) raises
-``NotImplementedError`` naming ROADMAP A.6; truncated or invalid code data
-is a corrupt file (a zero image with a warning)."""
+``cli/preprocess.py::load_canvas`` against the JAX package's, and so is
+Group 4 with FillOrder 2 (A.6.10). What stays refused (uncompressed mode,
+CCITT in tiles) raises ``NotImplementedError`` naming ROADMAP A.6;
+truncated or invalid code data is a corrupt file (a zero image with a
+warning)."""
 
 import io
 import logging
@@ -155,7 +156,7 @@ def test_pil_writes_the_codings_it_is_asked_for():
 
 def refused_files():
     """{name: (bytes, what the message names)}: kinds PIL reads and the
-    port does not yet."""
+    port does not yet, and FillOrder 2, which it reads since A.6.10."""
     img = page(np.random.RandomState(2), 32, 40, "strokes")
     g4 = ccitt_bytes(img, "t6")
     t4 = ccitt_bytes(img, "t4_2d")
@@ -174,8 +175,7 @@ def refused_files():
             "fill_order_2": (fill2, "FillOrder 2")}, img
 
 
-@pytest.mark.parametrize("name", ["t4_uncompressed", "t6_uncompressed", "tiles",
-                                  "fill_order_2"])
+@pytest.mark.parametrize("name", ["t4_uncompressed", "t6_uncompressed", "tiles"])
 def test_refused_kinds_raise_naming_a6(tmp_path, name):
     files, img = refused_files()
     data, what = files[name]
@@ -187,6 +187,17 @@ def test_refused_kinds_raise_naming_a6(tmp_path, name):
         tnative.decode(data)
     with pytest.raises(NotImplementedError, match="A.6"):
         tdataset.decode_image(path, 16)
+
+
+def test_group4_with_fill_order_2_reads_as_pil(tmp_path):
+    """FillOrder 2 (A.6.10): libtiff reverses each byte's bits before its
+    fax decoder, and the port does as well; refused before."""
+    files, img = refused_files()
+    data, _ = files["fill_order_2"]
+    np.testing.assert_array_equal(pil_l(data), np.where(img, 255, 0).astype(np.uint8))
+    path = tmp_path / "fill_order_2.tif"
+    path.write_bytes(data)
+    assert_port_reads_as_pil(path)
 
 
 @pytest.mark.parametrize("damage,message", [

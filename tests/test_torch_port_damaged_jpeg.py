@@ -236,19 +236,19 @@ def test_datasets_take_damaged_files_as_jax(tmp_path, monkeypatch):
 
 
 def test_cache_of_the_older_decoder_is_not_read(tmp_path):
-    """DECODE_VERSION is d3: a d2 cache beside the data (what the decoder
-    before these repairs wrote, zero images where files now decode) is not
-    read; the new cache carries d3."""
-    assert tnative.DECODE_VERSION == "d3"
+    """DECODE_VERSION is d4 (d3 since these repairs, d4 since C.13's): a d2
+    or d3 cache beside the data (what an older decoder wrote, zero images
+    where files now decode) is not read; the new cache carries d4."""
+    assert tnative.DECODE_VERSION == "d4"
     d = tmp_path / "raw"
     d.mkdir()
     (d / "restart_damaged.jpg").write_bytes((FIXTURES / "restart_damaged.jpg").read_bytes())
     ds = tdataset.SignatureDataset(d, 16, use_cache=True)
     cache = ds._cache_path()
-    assert "_d3_" in cache.name and cache.exists()
-    stale = cache.with_name(cache.name.replace("_d3_", "_d2_"))
+    assert "_d4_" in cache.name and cache.exists()
     cache.unlink()
-    np.save(stale, np.zeros((1, 16, 16, 1), np.float32))
+    for old in ("_d2_", "_d3_"):
+        np.save(cache.with_name(cache.name.replace("_d4_", old)), np.zeros((1, 16, 16, 1), np.float32))
     again = tdataset.SignatureDataset(d, 16, use_cache=True)
     assert again.images.any()
     np.testing.assert_array_equal(again.images, ds.images)

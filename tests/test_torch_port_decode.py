@@ -635,26 +635,39 @@ def test_format_comes_from_content_not_suffix(tmp_path):
 def _unsupported_files(tmp_path):
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
+    from test_torch_port_ccitt import refused_files
+    Image.fromarray(img).save(tmp_path / "lzma.tif", compression="lzma")
+    Image.fromarray(img).save(tmp_path / "zstd.tif", compression="zstd")
+    (tmp_path / "ccitt_tiles.tif").write_bytes(refused_files()[0]["tiles"][0])
+    return {"lzma.tif": "compression 34925", "zstd.tif": "compression 50000",
+            "ccitt_tiles.tif": "in tiles"}
+
+
+def _now_read_files(root):
+    """The kinds this test held as unread before A.6.7-A.6.10: CCITT with
+    FillOrder 2, BigTIFF, planar RGB."""
+    rs = np.random.RandomState(4)
+    img = pixels(rs, (24, 40, 3)).astype(np.uint8)
     from test_torch_port_ccitt import ccitt_bytes, strips, wrap
-    # Group 4 with FillOrder 2: each byte's bits reversed (CCITT itself is read).
+    # Group 4 with FillOrder 2: each byte's bits reversed.
     rev = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
     (strip,) = strips(ccitt_bytes(img[..., 0] > 128, "t6"))
-    (tmp_path / "fill_order_2.tif").write_bytes(
+    (root / "fill_order_2.tif").write_bytes(
         wrap(40, 24, [strip.translate(rev)], 4, extra=[(266, 3, 2)]))
-    Image.fromarray(img).save(tmp_path / "big.tiff", big_tiff=True)
-    (tmp_path / "planar.tif").write_bytes(tiff_file(
+    Image.fromarray(img).save(root / "big.tiff", big_tiff=True)
+    (root / "planar.tif").write_bytes(tiff_file(
         40, 24, [img.transpose(2, 0, 1).tobytes()],
         [(258, 3, [8] * 3), (259, 3, [1]), (262, 3, [2]), (277, 3, [3]), (284, 3, [2]),
          (273, 4, None), (278, 4, [24]), (279, 4, None)]))
-    return {"fill_order_2.tif": "FillOrder 2", "big.tiff": "BigTIFF", "planar.tif": "planar TIFF"}
 
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (CCITT with
-    FillOrder 2, BigTIFF, planar RGB). The kinds this test named before the
-    port read them (a cut progressive scan script, CMYK TIFF and JPEG) now
-    read bit-equal with PIL."""
+    NotImplementedError naming the feature and ROADMAP A.6 (LZMA and ZSTD
+    TIFF, CCITT in tiles). The kinds this test named before the port read
+    them (a cut progressive scan script, CMYK TIFF and JPEG; since A.6.7-
+    A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB) now read bit-equal
+    with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -669,7 +682,9 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
         cut_scans(pil_jpeg(img, quality=80, progressive=True), 6))
     Image.fromarray(img).convert("CMYK").save(read / "cmyk.tiff", compression="tiff_deflate")
     Image.fromarray(img).convert("CMYK").save(read / "cmyk.jpg")
-    for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg"):
+    _now_read_files(read)
+    for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg", "fill_order_2.tif", "big.tiff",
+                 "planar.tif"):
         assert_port_reads_as_pil(read / name)
 
 
@@ -946,15 +961,64 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
                                     dac=((0, 0x31),)))
     put("lossless_stripe.jpg", lossless_jpeg([pil_gray(out / "scan_420.jpg")[:8]],
                                              restart_rows=1))
+    # The TIFF layouts of A.6.7-A.6.12, 48 x 32 (46 x 30 where the image's
+    # edge cuts 4 x 4 YCbCr tiles; 24 x 16 uncompressed) from draws of their own, by
+    # chip_smoke's writers: BigTIFF, planar, YCbCr through libtiff and PIL's
+    # raw route, FillOrder 2, associated alpha, a palette with alpha.
+    rs = np.random.RandomState(2028)
+    page = scan_page(rs, 32, 48, rgb=True).astype(np.int64)
+    grey = page[..., :1]
+    alpha = rs.randint(0, 256, (32, 48, 1))
+    cmyk = np.dstack([255 - page, np.minimum(page[..., :1], 40)])
+    block = page[..., 0].reshape(16, 2, 24, 2).sum(axis=(1, 3)) // 4
+    put("bigtiff_lzw.tif", chip_smoke.tiff_layout(grey, 8, 1, compression=5, big=True,
+                                                  rows_per_strip=8))
+    put("planar_rgb.tif", chip_smoke.tiff_layout(page, 8, 2, compression=8, planar=2,
+                                                 predictor=2, rows_per_strip=8))
+    put("planar_cmyk_raw.tif", chip_smoke.tiff_layout(cmyk[:16, :24], 8, 5, planar=2,
+                                                      tile=(16, 16)))
+    put("ycbcr_22.tif", chip_smoke.tiff_ycbcr(page[..., 0], 128 + (block - 128) // 4,
+                                              128 - (block - 128) // 8, (2, 2),
+                                              rows_per_strip=8))
+    edge = page[:30, :46, 0]
+    put("ycbcr_44_tiles.tif", chip_smoke.tiff_ycbcr(
+        edge, rs.randint(100, 156, (8, 12)), rs.randint(100, 156, (8, 12)), (4, 4),
+        compression=5, tile=(16, 16)))
+    # PIL's raw route reads RGBX, 4 bytes a pixel, on past each strip: a
+    # private tag's 512 bytes after the directory keeps the last strip's read in
+    # the file.
+    put("ycbcr_raw.tif", chip_smoke.tiff_ycbcr(page[:16, :24, 0], page[:16, :24, 1],
+                                               page[:16, :24, 2], (1, 1), compression=1,
+                                               rows_per_strip=8,
+                                               tags=[(65000, 7, bytes(range(256)) * 2)]))
+    put("fill2_lzw_rgb.tif", chip_smoke.tiff_layout(page, 8, 2, compression=5, fill=2,
+                                                    rows_per_strip=8))
+    put("fill2_raw_grey.tif", chip_smoke.tiff_layout(grey, 8, 1, fill=2, rows_per_strip=8))
+    put("rgba_assoc.tif", chip_smoke.tiff_layout(
+        np.dstack([page * alpha // 255, alpha])[:16, :24], 8, 2, tags=[(338, 3, [1])]))
+    ramp = np.arange(256)
+    put("pa.tif", chip_smoke.tiff_layout(np.dstack([grey, alpha]), 8, 3, compression=8, tags=[
+        (338, 3, [2]), (320, 3, list(ramp * 257) + list(ramp * 200 // 255 * 257)
+                        + list(255 * 257 - ramp * 257))]))
+    # PIL reads a file in blocks of its ImageFile.MAXBLOCK (64 KB), which
+    # this module raises for PIL's JPEG writer: the goldens and digests are
+    # PIL's at its own block size, as the JAX package reads.
+    writer_block, ImageFile.MAXBLOCK = ImageFile.MAXBLOCK, 65536
     golden = {name: pil_gray(path) for name, path in files.items()}
     assert np.array_equal(golden.pop("progressive_page.jpg"), golden["scan_420.jpg"])
     assert np.array_equal(golden.pop("arith_444.jpg"), golden["restart_444.jpg"])
     assert np.array_equal(golden.pop("lossless_stripe.jpg"), golden["scan_420.jpg"][:8])
-    # chip_smoke.py's pages of these kinds, held to PIL's grey by digest.
+    # chip_smoke.py's pages of these kinds, held to PIL's grey by digest
+    # ("refused" where PIL refuses the page).
     lines = []
-    for name, data in chip_smoke.a6_pages(golden).items():
-        with Image.open(io.BytesIO(data)) as im:
-            lines.append(f"{gray_digest(np.asarray(im.convert('L')))}  {name}\n")
+    pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden)}
+    for name, data in pages.items():
+        try:
+            with Image.open(io.BytesIO(data)) as im:
+                digest = gray_digest(np.asarray(im.convert("L")))
+        except OSError:
+            digest = "refused"
+        lines.append(f"{digest}  {name}\n")
     (out / "a6_pages.sha256").write_text("".join(lines))
     # The progressive page cut after 6 of its 10 scans, which chip_smoke.py
     # decodes: a page of golden array would pass the 1 MB, so its digest.
@@ -962,6 +1026,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     with Image.open(io.BytesIO(cut)) as im:
         (out / "progressive_cut_page.sha256").write_text(
             gray_digest(np.asarray(im.convert("L"))) + "\n")
+    ImageFile.MAXBLOCK = writer_block
     np.savez_compressed(out / "golden.npz", **golden)
     return load_golden(out)
 
@@ -1001,7 +1066,7 @@ def test_fixtures_are_pil_exact_and_small():
     their golden arrays (the progressive page as scan_420.jpg's); together
     they stay under 1 MB."""
     golden = load_golden()
-    assert len(golden) == 48 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    assert len(golden) == 58 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
     assert golden["scan_420.jpg"].shape == golden["ccitt_g4_page.tif"].shape == (500, 1200)
     assert golden["progressive_page.jpg"] is golden["scan_420.jpg"]
     for name, want in golden.items():

@@ -273,11 +273,8 @@ def test_datasets_read_the_new_kinds_as_jax(tmp_path, monkeypatch):
     np.testing.assert_array_equal(t.images, j.images)
 
 
-# -- C.13's open findings: PIL reads these otherwise than the port ---------------
+# -- C.13's last two findings, repaired: the end of the data, libtiff's tags --------
 
-@pytest.mark.xfail(strict=True, reason="C.13 (open): libjpeg-turbo fills its bit buffer to 57 "
-                   "bits only when a code needs more than it holds, and PIL's source suspends at "
-                   "the end of the data; the port reads ahead earlier and calls the file corrupt")
 def test_scan_ending_without_eoi_reads_as_pil(tmp_path):
     """A baseline file whose EOI is replaced by one byte past its scan data:
     libjpeg never fills past the end before the last MCU, so PIL reads it."""
@@ -288,9 +285,6 @@ def test_scan_ending_without_eoi_reads_as_pil(tmp_path):
     assert_port_reads_as_pil(tmp_path / "tail.jpg")
 
 
-@pytest.mark.xfail(strict=True, reason="C.13 (open): libtiff's directory reader refuses a tag "
-                   "of a type it cannot convert (RowsPerStrip of type 96 here) in a file it "
-                   "decodes, and PIL with it; the port reads the value")
 def test_libtiff_tag_type_rules_are_pils(tmp_path):
     """A Deflate grey TIFF (a kind read since A.6's first slices) whose
     RowsPerStrip entry carries an unknown type: PIL refuses it."""
@@ -299,4 +293,4 @@ def test_libtiff_tag_type_rules_are_pils(tmp_path):
     entry = data.index(bytes([0x16, 0x01, 0x04, 0x00]))   # tag 278, LONG
     data[entry + 2:entry + 4] = bytes([96, 0])
     (tmp_path / "rps.tif").write_bytes(bytes(data))
-    refused_as_pil(tmp_path / "rps.tif", "")
+    refused_as_pil(tmp_path / "rps.tif", "libtiff refuses")

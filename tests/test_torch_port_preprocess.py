@@ -228,8 +228,8 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     report, images within the whole-pipeline tolerance; JPEG, BMP and TIFF
     scans read as the JAX CLI reads them, a progressive JPEG whose scan
     script was cut (libjpeg smooths its unrefined coefficients) among them;
-    a kind the port does not read yet (BigTIFF) is refused, naming ROADMAP
-    A.6."""
+    a kind the port does not read yet (an LZMA TIFF; a BigTIFF before A.6.7,
+    now read among the others) is refused, naming ROADMAP A.6."""
     from siggan_tpu.cli import preprocess as jcli
     from siggan_tpu.core import platform as jplatform
     from siggan_tpu_torch.cli import preprocess as tcli
@@ -260,7 +260,7 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
         assert a.shape == (64, 64) and (d > 0).mean() <= 0.25 and d.max() <= 40
     other = tmp_path / "other"
     from test_torch_port_progressive import cut_scans, pil_jpeg
-    for i, fmt in enumerate(("JPEG", "BMP", "TIFF", "cut")):
+    for i, fmt in enumerate(("JPEG", "BMP", "TIFF", "cut", "BigTIFF")):
         page = rs.randint(215, 256, (90, 110)).astype(np.uint8)
         for _ in range(12):
             y, x = rs.randint(4, 86), rs.randint(4, 90)
@@ -270,17 +270,20 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
             (other / f"w{i}" / f"w{i}_0.jpg").write_bytes(
                 cut_scans(pil_jpeg(page, progressive=True), 3))
             continue
+        if fmt == "BigTIFF":
+            Image.fromarray(page).save(other / f"w{i}" / f"w{i}_0.tif", big_tiff=True)
+            continue
         Image.fromarray(page).save(other / f"w{i}" / f"w{i}_0.{fmt.lower()}", fmt)
     assert jcli.main(["--input_dir", str(other), "--output_dir", str(tmp_path / "jo")] + flags) == 0
     assert tcli.main(["--input_dir", str(other), "--output_dir", str(tmp_path / "to"),
                       "--device", "cpu"] + flags) == 0
     want = json.loads((tmp_path / "jo" / "preprocess_report.json").read_text())
     assert json.loads((tmp_path / "to" / "preprocess_report.json").read_text()) == want
-    assert len(want["processed"]) == 4
+    assert len(want["processed"]) == 5
     for name in want["processed"]:
         path = next(other.rglob(name))
         np.testing.assert_array_equal(tcli.load_canvas(path, 64)[0], jcli.load_canvas(path, 64)[0])
-    Image.fromarray(page).save(raw / "w1" / "scan.tif", big_tiff=True)
-    with pytest.raises(NotImplementedError, match="BigTIFF.*ROADMAP A.6"):
+    Image.fromarray(page).save(raw / "w1" / "scan.tif", compression="lzma")
+    with pytest.raises(NotImplementedError, match="compression 34925.*ROADMAP A.6"):
         tcli.main(["--input_dir", str(raw), "--output_dir", str(tmp_path / "x"),
                    "--device", "cpu"])

@@ -167,25 +167,24 @@ def test_pil_refused_kind_is_a_zero_image(tmp_path, name):
 
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
 STILL_A6 = {
-    "bigtiff": (lambda: (lambda b: (Image.fromarray(GREY).save(b, "TIFF", big_tiff=True),
-                                    b.getvalue())[1])(io.BytesIO()), "BigTIFF"),
-    "planar_rgb": (lambda: chip_smoke.tiff_pack(24, 16, [RGB[..., i].tobytes() for i in range(3)], [
-        (258, 3, [8] * 3), (259, 3, [1]), (262, 3, [2]), (277, 3, [3]), (284, 3, [2]),
-        (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [16 * 24] * 3)]), "planar TIFF"),
     "lzma_tiff": (lambda: (lambda b: (Image.fromarray(GREY).save(b, "TIFF", compression="lzma"),
                                       b.getvalue())[1])(io.BytesIO()), "compression 34925"),
-    "palette_with_extra_sample": (lambda: raw_tiff(
-        np.dstack([G8, G8]) // 16, 8, 3, [(338, 3, [0]), (320, 3, list(range(0, 65536, 256)) * 3)]),
-        "photometric 3 with 2 samples"),
-    "associated_alpha": (lambda: raw_tiff(RGBA, 8, 2, [(338, 3, [1])]), "associated alpha"),
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.6).
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.12).
 NOW_READ = {
     "lossless_sof3": lambda: lossless_jpeg([GREY]),
     "arithmetic_sof9": lambda: frame(pil_jpeg(GREY, quality=85), 0xC9),
     "int16_tiff": lambda: raw_tiff(G8 * 100, 16, 1, [(339, 3, [2])]),
+    "bigtiff": lambda: (lambda b: (Image.fromarray(GREY).save(b, "TIFF", big_tiff=True),
+                                   b.getvalue())[1])(io.BytesIO()),
+    "planar_rgb": lambda: chip_smoke.tiff_pack(24, 16, [RGB[..., i].tobytes() for i in range(3)], [
+        (258, 3, [8] * 3), (259, 3, [1]), (262, 3, [2]), (277, 3, [3]), (284, 3, [2]),
+        (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [16 * 24] * 3)]),
+    "palette_with_extra_sample": lambda: raw_tiff(
+        np.dstack([G8, G8]) // 16, 8, 3, [(338, 3, [0]), (320, 3, list(range(0, 65536, 256)) * 3)]),
+    "associated_alpha": lambda: raw_tiff(RGBA, 8, 2, [(338, 3, [1])]),
 }
 
 
@@ -193,7 +192,8 @@ NOW_READ = {
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
     """A genuine lossless JPEG (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
-    TIFF: each bit-equal with PIL."""
+    TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample and
+    RGB with associated alpha: each bit-equal with PIL."""
     path = tmp_path / name
     path.write_bytes(NOW_READ[name]())
     assert jdataset.decode_image(path, 16).any()                   # PIL reads it
