@@ -2039,6 +2039,30 @@ def lzw_encode(data: bytes) -> bytes:
 REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
+def tiff_codec(raw: bytes, compression: int) -> bytes:
+    """A strip's or tile's bytes coded as TIFF ``compression`` 1 (as they
+    are), 5 (LZW), 8 (Deflate), 32773 (PackBits), 34925 (LZMA: one .xz
+    stream of Delta and LZMA2 with no check, as libtiff writes it) or 50000
+    (ZSTD: one frame, from the ``zstandard`` package, which the card's
+    machine does not have)."""
+    import lzma
+    import zlib
+    if compression == 5:
+        return lzw_encode(raw)
+    if compression == 8:
+        return zlib.compress(raw, 6)
+    if compression == 32773:
+        return packbits_encode(raw)
+    if compression == 34925:
+        return lzma.compress(raw, lzma.FORMAT_XZ, check=lzma.CHECK_NONE,
+                             filters=[{"id": lzma.FILTER_DELTA, "dist": 1},
+                                      {"id": lzma.FILTER_LZMA2, "preset": 6}])
+    if compression == 50000:
+        import zstandard
+        return zstandard.ZstdCompressor(level=9, write_content_size=False).compress(raw)
+    return raw
+
+
 def tiff_layout(samples, bits: int, photometric: int, *, compression: int = 1, planar: int = 1,
                 rows_per_strip: int = 0, tile=None, predictor: int = 1, fill: int = 1,
                 be: bool = False, big: bool = False, tags=()) -> bytes:
@@ -2047,11 +2071,9 @@ def tiff_layout(samples, bits: int, photometric: int, *, compression: int = 1, p
     (each sample a plane of its own chunks, plane-major), in strips of
     ``rows_per_strip`` rows (0: one strip) or (width, height) ``tile``s,
     ``predictor`` 2 (each sample less its left neighbour's, within its
-    plane), then ``compression`` 1 (none), 5 (LZW), 8 (Deflate) or 32773
-    (PackBits), and with ``fill`` 2 every stored byte bit-reversed
-    (FillOrder 2). ``tags`` are more (tag, type, values) entries; ``big``:
-    BigTIFF with LONG8 offsets and counts."""
-    import zlib
+    plane), then ``compression`` (``tiff_codec``), and with ``fill`` 2 every
+    stored byte bit-reversed (FillOrder 2). ``tags`` are more (tag, type,
+    values) entries; ``big``: BigTIFF with LONG8 offsets and counts."""
     import numpy as np
     a = np.asarray(samples)
     h, w, spp = a.shape
@@ -2079,8 +2101,7 @@ def tiff_layout(samples, bits: int, photometric: int, *, compression: int = 1, p
                 v = c.reshape(c.shape[0], -1).astype(np.uint8)
                 bitrows = (v[..., None] >> np.arange(bits - 1, -1, -1)) & 1
                 raw = np.packbits(bitrows.reshape(v.shape[0], -1), axis=1).tobytes()
-            raw = (lzw_encode(raw) if compression == 5 else zlib.compress(raw, 6)
-                   if compression == 8 else packbits_encode(raw) if compression == 32773 else raw)
+            raw = tiff_codec(raw, compression)
             blobs.append(raw.translate(REVERSED_BITS) if fill == 2 else raw)
     n = len(blobs)
     long_ = 16 if big else 4
@@ -2106,9 +2127,8 @@ def tiff_ycbcr(y, cb, cr, sub=(2, 2), *, compression: int = 8, rows_per_strip: i
     h x v luma samples (rows of them, the image's edge repeated past it)
     then Cb and Cr; or ``planar`` 2, three planes of the image's size, the
     chroma repeated over each block. Strips of ``rows_per_strip`` rows (a
-    multiple of v; 0: one strip) or (width, height) ``tile``s, compression
-    1, 5, 8 or 32773; the YCbCrSubsampling tag unless ``tags`` give one."""
-    import zlib
+    multiple of v; 0: one strip) or (width, height) ``tile``s, coded by
+    ``tiff_codec``; the YCbCrSubsampling tag unless ``tags`` give one."""
     import numpy as np
     y, cb, cr = (np.asarray(a, np.uint8) for a in (y, cb, cr))
     hh, vv = sub
@@ -2138,9 +2158,7 @@ def tiff_ycbcr(y, cb, cr, sub=(2, 2), *, compression: int = 8, rows_per_strip: i
             full = np.zeros((nr, nc, units.shape[2]), np.uint8)
             full[:part.shape[0], :part.shape[1]] = part
             part = full
-        raw = part.tobytes()
-        blobs.append(lzw_encode(raw) if compression == 5 else zlib.compress(raw, 6)
-                     if compression == 8 else packbits_encode(raw) if compression == 32773 else raw)
+        blobs.append(tiff_codec(part.tobytes(), compression))
     n = len(blobs)
     layout = ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, lambda o: o[:n]),
                (325, 4, [len(b) for b in blobs])] if tile else
@@ -2184,15 +2202,14 @@ def ojpeg_wrap(stream: bytes, w: int, h: int, spp: int, photometric: int = 6) ->
 
 
 def tiff_numbers(values, dtype: str, fmt: int, *, rows_per_strip: int = 0,
-                 deflate: bool = False, predictor: int = 1) -> bytes:
+                 compression: int = 1, predictor: int = 1) -> bytes:
     """A grey TIFF of (H, W) ``values`` as numpy ``dtype`` ('<f4', '>i2',
     '<u4', ... , or '12' for 12-bit samples packed MSB first), SampleFormat
     ``fmt`` (1 unsigned, 2 signed, 3 float), in strips of ``rows_per_strip``
-    rows (0: one strip), uncompressed or Deflate (zlib level 6) after
+    rows (0: one strip), coded in ``compression`` (``tiff_codec``) after
     ``predictor`` 2 (each sample less its left neighbour, modulo its size)
     or 3 (libtiff's floating-point predictor: the row's samples as byte
     planes, most significant first, each byte less the one before it)."""
-    import zlib
     import numpy as np
     h, w = values.shape
     be = dtype.startswith(">")
@@ -2218,11 +2235,11 @@ def tiff_numbers(values, dtype: str, fmt: int, *, rows_per_strip: int = 0,
                 raw = (b & 0xFF).astype(np.uint8).tobytes()
             else:
                 raw = a.tobytes()
-        blobs.append(zlib.compress(raw, 6) if deflate else raw)
+        blobs.append(tiff_codec(raw, compression))
     n = len(blobs)
     return tiff_pack(w, h, blobs, [
         (258, 3, [12 if dtype == "12" else np.dtype(dtype).itemsize * 8]),
-        (259, 3, [8 if deflate else 1]), (262, 3, [1]), (277, 3, [1]),
+        (259, 3, [compression]), (262, 3, [1]), (277, 3, [1]),
         (273, 4, lambda o: o[:n]), (278, 4, [rps]), (279, 4, [len(b) for b in blobs]),
         (317, 3, [predictor]), (339, 3, [fmt])], be)
 
@@ -2270,7 +2287,7 @@ def a6_pages(golden) -> dict:
     import numpy as np
     return {"ojpeg_page.tif": ojpeg_wrap((FIXTURES / "scan_420.jpg").read_bytes(), 1200, 500, 3),
             "float32_page.tif": tiff_numbers(golden["scan_420.jpg"].astype(np.float32), "<f4", 3,
-                                             rows_per_strip=50, deflate=True, predictor=3),
+                                             rows_per_strip=50, compression=8, predictor=3),
             "arith_page.jpg": tile_jpeg((FIXTURES / "arith_444.jpg").read_bytes(), 1200, 500,
                                         page_pick),
             "arith_band.jpg": tile_jpeg((FIXTURES / "arith_444.jpg").read_bytes(), 1200, 160,
@@ -2334,6 +2351,33 @@ def a6_layout_pages(golden) -> dict:
     }
 
 
+def damaged_g4_page() -> bytes:
+    """ccitt_g4_page.tif with two bytes of its second strip (rows 436-499)
+    inverted: libtiff's fax decoder meets an extension code in row 3 and a
+    bad code in row 9 of that strip, cuts each row there in the colour it
+    had reached and reads on (C.14); the rows it does not reach keep the
+    first strip's, so PIL's grey of it is the same every run."""
+    data = bytearray((FIXTURES / "ccitt_g4_page.tif").read_bytes())
+    second = tiff_strips(bytes(data))[273][1]
+    for at in (30, 70):
+        data[second + at] ^= 0xFF
+    return bytes(data)
+
+
+def a6_codec_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of A.6.13 and C.14, built without PIL:
+    scan_420.jpg's grey as LZMA TIFF as libtiff writes it (one .xz stream of
+    Delta and LZMA2, no check, a 50-row strip; the stdlib's ``lzma``), and
+    the damaged Group 4 page. Each is held to a digest of PIL's grey of the
+    same bytes (a6_pages.sha256). The ZSTD page is a fixture,
+    zstd_g4_page.tif (the card's machine has no Zstandard encoder)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"].astype(np.int64)
+    return {"lzma_page.tif": tiff_layout(grey[..., None], 8, 1, compression=34925,
+                                         rows_per_strip=50),
+            "damaged_g4_page.tif": damaged_g4_page()}
+
+
 # The decoder fixtures of A.6.7-A.6.12 (tests/test_torch_port_decode.py::
 # write_fixtures).
 LAYOUT_FIXTURES = ("bigtiff_lzw.tif", "planar_rgb.tif", "planar_cmyk_raw.tif", "ycbcr_22.tif",
@@ -2349,23 +2393,26 @@ def gray_digest(gray) -> str:
 
 
 def golden_arrays() -> dict:
-    """The decoder fixtures' golden arrays by name. Three fixtures hold
+    """The decoder fixtures' golden arrays by name. Four fixtures hold
     pixels another's array holds, and ``golden.npz`` no array of their own:
     the progressive page scan_420.jpg's (its quality and subsampling),
-    arith_444.jpg restart_444.jpg's (its coefficients arithmetic-coded) and
-    lossless_stripe.jpg the first 8 rows of scan_420.jpg's grey."""
+    arith_444.jpg restart_444.jpg's (its coefficients arithmetic-coded),
+    lossless_stripe.jpg the first 8 rows of scan_420.jpg's grey and
+    zstd_g4_page.tif ccitt_g4_page.tif's (PIL's ZSTD TIFF of that grey)."""
     import numpy as np
     with np.load(FIXTURES / "golden.npz") as f:
         golden = dict(f)
     return {**golden, "progressive_page.jpg": golden["scan_420.jpg"],
             "arith_444.jpg": golden["restart_444.jpg"],
-            "lossless_stripe.jpg": golden["scan_420.jpg"][:8]}
+            "lossless_stripe.jpg": golden["scan_420.jpg"][:8],
+            "zstd_g4_page.tif": golden["ccitt_g4_page.tif"]}
 
 
 def decode_phase(card: str, work: str):
     """Phase 12: the host decoders: the fixtures bit-equal to their golden
     arrays, the pages built here bit-equal to their sources or to digests
-    of PIL's grey (the TIFF layouts of A.6.7-A.6.12 among them), a cut
+    of PIL's grey (the TIFF layouts of A.6.7-A.6.12, LZMA TIFF and damaged
+    Group 4 data among them), a cut
     progressive scan script smoothed, a file PIL refuses a zero image, the
     threaded batch decode's rate per format, ``cli.preprocess`` and a
     ``SignatureDataset`` on a mixed tree of 1320 scans whose TIFFs take
@@ -2385,9 +2432,10 @@ def decode_phase(card: str, work: str):
         subprocess.run([shutil.which("g++"), *build.HOST_FLAGS, str(native.SOURCE), "-o",
                         f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
         build_s = time.perf_counter() - t0
+    import lzma  # the LZMA page is written here; no fallback if the stdlib lacks it
     golden = golden_arrays()
-    if len(golden) != 58:
-        raise AssertionError(f"expected 58 decoder fixtures, found {sorted(golden)}")
+    if len(golden) != 59:
+        raise AssertionError(f"expected 59 decoder fixtures, found {sorted(golden)}")
     for name, want in golden.items():
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
@@ -2430,12 +2478,13 @@ def decode_phase(card: str, work: str):
         if not np.array_equal(ds_mod.decode_gray(Path(work) / name), want):
             raise AssertionError(f"{name}: not bit-equal to the grey it was built from")
     # Pages of old-style JPEG-in-TIFF, float TIFF, arithmetic-coded and
-    # lossless JPEG, and of the TIFF layouts of A.6.7-A.6.12, each held to
-    # the digest of PIL's grey of the same bytes (a6_pages.sha256), or to
-    # PIL's refusal (the arithmetic page past PIL's 64 KB block: corrupt).
+    # lossless JPEG, of the TIFF layouts of A.6.7-A.6.12, of LZMA TIFF and
+    # of damaged Group 4 data (C.14), each held to the digest of PIL's grey
+    # of the same bytes (a6_pages.sha256), or to PIL's refusal (the
+    # arithmetic page past PIL's 64 KB block: corrupt).
     digests = dict(reversed(line.split()) for line in
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
-    a6 = {**a6_pages(golden), **a6_layout_pages(golden)}
+    a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -2476,7 +2525,7 @@ def decode_phase(card: str, work: str):
            "cmyk.tif", "progressive_cut.jpg", "ojpeg_grey.tif", "ojpeg_420.tif",
            "ojpeg_tables_420.tif", "float32_pred3.tif", "int16_be.tif", "uint32.tif",
            "grey12.tif", "int32_lzw.tif", "lossless_rgb.jpg", "arith_progressive.jpg",
-           "arith_444.jpg", "lossless_stripe.jpg", *LAYOUT_FIXTURES}
+           "arith_444.jpg", "lossless_stripe.jpg", "zstd_g4_page.tif", *LAYOUT_FIXTURES}
     old = [n for n in golden if n not in new]
 
     def fixtures(*names):
@@ -2531,7 +2580,13 @@ def decode_phase(card: str, work: str):
               "CCITT G4 TIFF 1200x500 with FillOrder 2": ([Path(work) / "fill2_g4_page.tif"], 200),
               "palette + alpha TIFF 1200x500 (PA, Deflate)": ([Path(work) / "pa_page.tif"], 20),
               "TIFF layouts 48x32 (BigTIFF, planar, YCbCr, FillOrder 2, RGBa, PA)": (
-                  fixtures(*LAYOUT_FIXTURES), 200)}
+                  fixtures(*LAYOUT_FIXTURES), 200),
+              "LZMA TIFF 1200x500 (Delta + LZMA2, 50-row strips)": (
+                  [Path(work) / "lzma_page.tif"], 20),
+              "ZSTD TIFF 1200x500 (PIL's, of the G4 page's grey)": (
+                  fixtures("zstd_g4_page.tif"), 20),
+              "CCITT G4 TIFF 1200x500 with damaged code (C.14)": (
+                  [Path(work) / "damaged_g4_page.tif"], 200)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -2554,7 +2609,8 @@ def decode_phase(card: str, work: str):
 
     # A mixed tree in CEDAR's shape from phase 11's scans: per writer, PNG,
     # BMP, TIFF and JPEG in turns (the JPEGs are the fixtures' scan pages);
-    # the TIFFs in turn plain, and of the layouts of A.6.7-A.6.12.
+    # the TIFFs in turn plain, of the layouts of A.6.7-A.6.12, LZMA, ZSTD
+    # (the fixture page) and damaged Group 4 (the damaged page).
     raw, mixed = Path(work) / "scans", Path(work) / "mixed_scans"
     jpegs = sorted(FIXTURES.glob("scan_*.jpg"))
     t0 = time.perf_counter()
@@ -2626,12 +2682,20 @@ def mixed_tiff(grey, turn: int):
     grey, then a layout of A.6.7-A.6.12 in turns (BigTIFF in LZW strips,
     planar RGB in Deflate with predictor 2, YCbCr 2 x 2 in Deflate, grey
     with FillOrder 2 in Deflate, a palette with alpha), of uint8 (H, W)
-    ``grey``."""
+    ``grey``, then LZMA grey in strips of 32 rows, and the ZSTD and the
+    damaged Group 4 page as they are."""
     import numpy as np
     g = grey.astype(np.int64)
-    layout = ("plain", "bigtiff", "planar", "ycbcr", "fill2", "pa")[turn % 6]
+    layout = ("plain", "bigtiff", "planar", "ycbcr", "fill2", "pa", "lzma", "zstd",
+              "damaged_g4")[turn % 9]
     if layout == "plain":
         return layout, tiff_grey(grey)
+    if layout == "lzma":
+        return layout, tiff_layout(g[..., None], 8, 1, compression=34925, rows_per_strip=32)
+    if layout == "zstd":
+        return layout, (FIXTURES / "zstd_g4_page.tif").read_bytes()
+    if layout == "damaged_g4":
+        return layout, damaged_g4_page()
     if layout == "bigtiff":
         return layout, tiff_layout(g[..., None], 8, 1, compression=5, big=True, rows_per_strip=32)
     if layout == "planar":

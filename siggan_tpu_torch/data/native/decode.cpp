@@ -42,7 +42,9 @@
 // the high byte), RGB with associated alpha (PIL's RGBa, un-premultiplied),
 // grey+alpha, palettes (with an extra sample too: PA, PX), YCbCr; bilevel
 // strips coded CCITT Modified Huffman, T.4 (1-D and 2-D, with or without EOL
-// fill bits) or T.6 (Group 4). A compressed file is read as libtiff reads it
+// fill bits) or T.6 (Group 4), damaged code as libtiff's fax decoder reads
+// it; LZMA (.xz) and ZSTD strips and tiles, through this file's own xz and
+// Zstandard decoders. A compressed file is read as libtiff reads it
 // for PIL (its directory rules, its codecs, YCbCr through its RGBA reader),
 // an uncompressed one as PIL's own raw decoder reads it (its raw modes, its
 // tiles over the offsets); see decode_tiff. And JPEG-in-TIFF
@@ -77,6 +79,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <new>
 #include <stdexcept>
 #include <string>
@@ -2591,7 +2594,1381 @@ void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>&
   }
 }
 
+// -------------------------------------------------------------------- xz
+// LZMA TIFF (compression 34925) as libtiff's LZMADecode reads it for PIL:
+// each strip one .xz stream (the xz project's xz-file-format 1.2), decoded
+// as liblzma's stream decoder decodes it until the strip is full. What
+// lies past the data that fills the strip (the rest of a block, its check,
+// the index, the footer, a second stream) is not read; a stream that ends
+// or fails before then fails the strip, as libtiff reports it, and PIL
+// refuses the file. The filters are LZMA2 (the LZMA SDK's
+// lzma-specification for its LZMA chunks), Delta and the BCJ filters of
+// x86, PowerPC, IA-64, ARM, ARM-Thumb and SPARC; the checks None, CRC32,
+// CRC64 and SHA-256, verified where a block ends before the strip is full.
+
+uint32_t crc32_of(const uint8_t* p, size_t n, uint32_t c = 0) {
+  static const auto table = [] {
+    std::vector<uint32_t> t(256);
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t v = i;
+      for (int k = 0; k < 8; ++k) v = v & 1 ? 0xEDB88320u ^ (v >> 1) : v >> 1;
+      t[i] = v;
+    }
+    return t;
+  }();
+  c = ~c;
+  for (size_t i = 0; i < n; ++i) c = table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return ~c;
+}
+
+uint64_t crc64_of(const uint8_t* p, size_t n, uint64_t c = 0) {
+  static const auto table = [] {
+    std::vector<uint64_t> t(256);
+    for (uint64_t i = 0; i < 256; ++i) {
+      uint64_t v = i;
+      for (int k = 0; k < 8; ++k) v = v & 1 ? 0xC96C5795D7870F42ull ^ (v >> 1) : v >> 1;
+      t[i] = v;
+    }
+    return t;
+  }();
+  c = ~c;
+  for (size_t i = 0; i < n; ++i) c = table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return ~c;
+}
+
+// FIPS 180-4's SHA-256 of p[0 .. n).
+void sha256_of(const uint8_t* p, size_t n, uint8_t digest[32]) {
+  static const uint32_t K[64] = {
+      0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1, 0x923f82a4, 0xab1c5ed5,
+      0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174,
+      0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+      0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147, 0x06ca6351, 0x14292967,
+      0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+      0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+      0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f, 0x682e6ff3,
+      0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208, 0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+  uint32_t h[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+                   0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+  auto rotr = [](uint32_t x, int k) { return (x >> k) | (x << (32 - k)); };
+  std::vector<uint8_t> m(p, p + n);
+  m.push_back(0x80);
+  while (m.size() % 64 != 56) m.push_back(0);
+  for (int i = 7; i >= 0; --i) m.push_back((uint8_t)((uint64_t)n * 8 >> (8 * i)));
+  for (size_t at = 0; at < m.size(); at += 64) {
+    uint32_t w[64];
+    for (int i = 0; i < 16; ++i)
+      w[i] = (uint32_t)m[at + 4 * i] << 24 | m[at + 4 * i + 1] << 16 | m[at + 4 * i + 2] << 8 | m[at + 4 * i + 3];
+    for (int i = 16; i < 64; ++i) {
+      const uint32_t s0 = rotr(w[i - 15], 7) ^ rotr(w[i - 15], 18) ^ (w[i - 15] >> 3);
+      const uint32_t s1 = rotr(w[i - 2], 17) ^ rotr(w[i - 2], 19) ^ (w[i - 2] >> 10);
+      w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], k = h[7];
+    for (int i = 0; i < 64; ++i) {
+      const uint32_t t1 = k + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & g)) + K[i] + w[i];
+      const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c));
+      k = g;
+      g = f;
+      f = e;
+      e = d + t1;
+      d = c;
+      c = b;
+      b = a;
+      a = t1 + t2;
+    }
+    const uint32_t v[8] = {a, b, c, d, e, f, g, k};
+    for (int i = 0; i < 8; ++i) h[i] += v[i];
+  }
+  for (int i = 0; i < 32; ++i) digest[i] = (uint8_t)(h[i / 4] >> (24 - 8 * (i % 4)));
+}
+
+[[noreturn]] void xz_error(const char* what) { corrupt(std::string("LZMA TIFF strip: ") + what); }
+
+// A stage of a block's filter chain as liblzma runs it: asked to fill
+// out[*pos .. size), it returns true at the end of the block's data.
+struct XzCoder {
+  virtual ~XzCoder() = default;
+  virtual bool code(uint8_t* out, size_t& pos, size_t size) = 0;
+};
+
+// LZMA2 (lzma2_decoder.c over lzma_decoder.c): chunks of LZMA data or of
+// bytes as they are, the dictionary its history since its last reset.
+// Distances reach back no further than that reset and the dictionary size
+// of the filter's properties, whatever the strip already holds.
+struct Lzma2 final : XzCoder {
+  const uint8_t* in;
+  size_t n, at = 0;
+  uint64_t dict_size;
+  std::vector<uint8_t> hist;  // everything decoded, for the matches
+  size_t reset_at = 0;        // where the dictionary was last reset
+  size_t copied = 0;          // of hist, handed on
+  bool need_dict = true, need_props = true, ended = false;
+  bool exhausted = false;  // the input ran out: liblzma waits for more
+  bool stalled = false;    // ... inside a symbol it decoded past a full strip
+  int lc = 0, lp = 0, pb = 0;
+  // the chunk in progress
+  enum { kControl, kHeader, kLzma, kRaw } mode = kControl;
+  uint8_t ctl = 0;  // the chunk's control byte
+  size_t chunk_left = 0;  // its uncompressed bytes to come
+  size_t comp_end = 0;    // where its compressed bytes should end
+  // range decoder
+  uint32_t range = 0, rcode = 0;
+  // LZMA state
+  uint32_t state = 0, rep[4] = {0, 0, 0, 0};
+  size_t pending = 0;  // match bytes still to copy
+  std::vector<uint16_t> probs;
+  enum : size_t {
+    kIsMatch = 0, kIsRep = 192, kIsRepG0 = 204, kIsRepG1 = 216, kIsRepG2 = 228, kIsRep0Long = 240,
+    kPosSlot = 432, kSpecPos = 688, kAlign = 802, kLenCoder = 818, kRepLenCoder = 1332, kLiteral = 1846
+  };
+
+  Lzma2(const uint8_t* s, size_t cnt, uint64_t dict) : in(s), n(cnt), dict_size(dict) {}
+
+  uint8_t byte() {
+    if (at >= n) {
+      exhausted = true;
+      xz_error("data ends early");
+    }
+    return in[at++];
+  }
+  void normalize() {
+    if (range < (1u << 24)) {
+      if (at >= n) {
+        exhausted = true;
+        xz_error("data ends early");
+      }
+      range <<= 8;
+      rcode = rcode << 8 | in[at++];
+    }
+  }
+  int bit(uint16_t& p) {
+    normalize();
+    const uint32_t bound = (range >> 11) * p;
+    if (rcode < bound) {
+      range = bound;
+      p = (uint16_t)(p + ((2048 - p) >> 5));
+      return 0;
+    }
+    range -= bound;
+    rcode -= bound;
+    p = (uint16_t)(p - (p >> 5));
+    return 1;
+  }
+  uint32_t tree(size_t base, int bits) {
+    uint32_t m = 1;
+    for (int i = 0; i < bits; ++i) m = (m << 1) | (uint32_t)bit(probs[base + m]);
+    return m - (1u << bits);
+  }
+  uint32_t reverse_tree(size_t base, int bits) {
+    uint32_t m = 1, v = 0;
+    for (int i = 0; i < bits; ++i) {
+      const int b = bit(probs[base + m]);
+      m = (m << 1) | (uint32_t)b;
+      v |= (uint32_t)b << i;
+    }
+    return v;
+  }
+  uint32_t length(size_t base, uint32_t pos_state) {
+    if (!bit(probs[base])) return tree(base + 2 + (pos_state << 3), 3);
+    if (!bit(probs[base + 1])) return 8 + tree(base + 130 + (pos_state << 3), 3);
+    return 16 + tree(base + 258, 8);
+  }
+  void reset_state() {
+    probs.assign(kLiteral + ((size_t)0x300 << (lc + lp)), 1024);
+    state = 0;
+    rep[0] = rep[1] = rep[2] = rep[3] = 0;
+  }
+  size_t full() const { return std::min<size_t>(hist.size() - reset_at, dict_size); }
+  // One LZMA symbol into hist (a match's bytes to `pending`).
+  void symbol() {
+    const size_t pos = hist.size() - reset_at;
+    const uint32_t ps = (uint32_t)(pos & ((1u << pb) - 1));
+    if (!bit(probs[kIsMatch + (state << 4) + ps])) {
+      const uint8_t prev = hist.size() > reset_at ? hist.back() : 0;
+      const size_t lit = kLiteral + 0x300 * ((((pos & ((1u << lp) - 1)) << lc)) + (prev >> (8 - lc)));
+      uint32_t sym = 1;
+      if (state >= 7) {
+        uint32_t match = hist[hist.size() - rep[0] - 1];
+        do {
+          const uint32_t mb = (match >> 7) & 1;
+          match <<= 1;
+          const int b = bit(probs[lit + 0x100 + (mb << 8) + sym]);
+          sym = (sym << 1) | (uint32_t)b;
+          if ((uint32_t)b != mb) break;
+        } while (sym < 0x100);
+      }
+      while (sym < 0x100) sym = (sym << 1) | (uint32_t)bit(probs[lit + sym]);
+      hist.push_back((uint8_t)sym);
+      state = state < 4 ? 0 : state < 10 ? state - 3 : state - 6;
+      --chunk_left;
+      return;
+    }
+    uint32_t len;
+    if (bit(probs[kIsRep + state])) {
+      if (full() == 0) xz_error("repeated match before any data");
+      if (!bit(probs[kIsRepG0 + state])) {
+        if (!bit(probs[kIsRep0Long + (state << 4) + ps])) {  // a short rep: one byte at rep0
+          state = state < 7 ? 9 : 11;
+          hist.push_back(hist[hist.size() - rep[0] - 1]);
+          --chunk_left;
+          return;
+        }
+      } else {
+        uint32_t d;
+        if (!bit(probs[kIsRepG1 + state])) {
+          d = rep[1];
+        } else {
+          if (!bit(probs[kIsRepG2 + state])) {
+            d = rep[2];
+          } else {
+            d = rep[3];
+            rep[3] = rep[2];
+          }
+          rep[2] = rep[1];
+        }
+        rep[1] = rep[0];
+        rep[0] = d;
+      }
+      len = length(kRepLenCoder, ps);
+      state = state < 7 ? 8 : 11;
+    } else {
+      rep[3] = rep[2];
+      rep[2] = rep[1];
+      rep[1] = rep[0];
+      len = length(kLenCoder, ps);
+      state = state < 7 ? 7 : 10;
+      const uint32_t slot = tree(kPosSlot + (std::min<uint32_t>(len, 3) << 6), 6);
+      uint32_t dist;
+      if (slot < 4) {
+        dist = slot;
+      } else {
+        const int direct = (int)(slot >> 1) - 1;
+        dist = 2 | (slot & 1);
+        if (slot < 14) {
+          dist <<= direct;
+          dist += reverse_tree(kSpecPos + dist - slot - 1, direct);
+        } else {
+          for (int i = 0; i < direct - 4; ++i) {
+            normalize();
+            range >>= 1;
+            rcode -= range;
+            const uint32_t t = 0u - (rcode >> 31);
+            rcode += range & t;
+            dist = (dist << 1) + (t + 1);
+          }
+          dist = (dist << 4) + reverse_tree(kAlign, 4);
+        }
+      }
+      if (dist == 0xFFFFFFFFu) xz_error("end marker in an LZMA2 chunk");
+      rep[0] = dist;
+    }
+    if (rep[0] >= full()) xz_error("match distance past the dictionary");
+    pending = len + 2;
+  }
+  void copy_pending(size_t limit) {
+    while (pending && chunk_left && hist.size() < limit) {
+      hist.push_back(hist[hist.size() - rep[0] - 1]);
+      --pending;
+      --chunk_left;
+    }
+  }
+  // Decode into hist until it holds `limit` bytes or the data ends. As
+  // lzma2_decoder.c, it reads on from a chunk's end while there is input,
+  // the strip full or not: the next control byte, and unless that resets
+  // the dictionary the chunk's header and its range coder's first bytes.
+  void run(size_t limit) {
+    while (!ended) {
+      if (mode == kControl) {
+        if (hist.size() >= limit && at >= n) break;
+        ctl = byte();
+        if (ctl == 0) {
+          ended = true;
+          break;
+        }
+        if (ctl >= 0xE0 || ctl == 1) {
+          need_props = true;
+          need_dict = true;
+        } else if (need_dict) {
+          xz_error("LZMA2 data without a dictionary reset");
+        }
+        if (ctl >= 0x80) {
+          if (ctl < 0xC0 && need_props) xz_error("LZMA2 chunk without properties");
+        } else if (ctl > 2) {
+          xz_error("bad LZMA2 control byte");
+        }
+        mode = kHeader;
+        if (need_dict) {
+          need_dict = false;
+          reset_at = hist.size();
+          if (hist.size() >= limit) break;
+        }
+        continue;
+      }
+      if (mode == kHeader) {
+        const uint8_t c = ctl;
+        if (c >= 0x80) {
+          chunk_left = ((size_t)(c & 0x1F) << 16) + ((size_t)byte() << 8);
+          chunk_left += byte() + 1u;
+          size_t comp = (size_t)byte() << 8;
+          comp += byte() + 1u;
+          if (c >= 0xC0) {
+            const uint8_t p = byte();
+            if (p > (4 * 5 + 4) * 9 + 8) xz_error("bad LZMA properties");
+            pb = p / 45;
+            lp = p % 45 / 9;
+            lc = p % 9;
+            if (lc + lp > 4) xz_error("LZMA2 literal bits past 4");
+            need_props = false;
+            reset_state();
+          } else if (c >= 0xA0) {
+            reset_state();
+          }
+          comp_end = at + comp;
+          range = 0xFFFFFFFFu;
+          rcode = 0;
+          if (byte() != 0) xz_error("LZMA range coder's first byte not 0");
+          for (int i = 0; i < 4; ++i) rcode = rcode << 8 | byte();
+          mode = kLzma;
+        } else {
+          chunk_left = (size_t)byte() << 8;
+          chunk_left += byte() + 1u;
+          mode = kRaw;
+        }
+        continue;
+      }
+      if (hist.size() >= limit) break;
+      if (mode == kRaw) {
+        const size_t k = std::min(chunk_left, limit - hist.size()), have = std::min(k, n - at);
+        hist.insert(hist.end(), in + at, in + at + have);
+        at += have;
+        chunk_left -= have;
+        if (have < k) xz_error("data ends early");
+        if (!chunk_left) mode = kControl;
+        continue;
+      }
+      if (stalled) break;
+      copy_pending(limit);
+      while (chunk_left && hist.size() < limit) {
+        symbol();
+        copy_pending(limit);
+      }
+      // At a full strip inside a chunk, liblzma's LZMA decoder decodes the
+      // next symbol before it finds no room for it (its literal, short
+      // rep or match waits for the next call); the input running out
+      // inside it is no error.
+      if (chunk_left && !pending && hist.size() == limit) {
+        try {
+          symbol();
+        } catch (const DecodeError&) {
+          if (!exhausted) throw;
+          stalled = true;
+          break;
+        }
+      }
+      if (at > comp_end) xz_error("LZMA chunk reads past its compressed size");
+      if (!chunk_left) {  // the chunk is whole: its range coder done and its bytes all read
+        if (pending) xz_error("LZMA match past its chunk");
+        normalize();
+        if (rcode != 0 || at != comp_end) xz_error("LZMA chunk ends badly");
+        mode = kControl;
+      }
+    }
+  }
+  // What run decoded goes out, also ahead of its error (lz_decoder.c).
+  bool code(uint8_t* out, size_t& pos, size_t size) override {
+    auto flush = [&] {
+      const size_t k = std::min(hist.size() - copied, size - pos);
+      std::memcpy(out + pos, hist.data() + copied, k);
+      copied += k;
+      pos += k;
+    };
+    try {
+      run(copied + (size - pos));
+    } catch (const DecodeError&) {
+      flush();
+      throw;
+    }
+    flush();
+    return ended && copied == hist.size();
+  }
+};
+
+// Delta (delta_decoder.c): each byte plus the byte `distance` before it.
+struct XzDelta final : XzCoder {
+  std::unique_ptr<XzCoder> next;
+  size_t distance;
+  uint8_t history[256] = {0};
+  uint8_t p = 0;
+  bool code(uint8_t* out, size_t& pos, size_t size) override {
+    const size_t from = pos;
+    auto decode = [&] {  // also ahead of an error below it in the chain
+      for (size_t i = from; i < pos; ++i) {
+        out[i] = (uint8_t)(out[i] + history[(uint8_t)(distance + p)]);
+        history[p--] = out[i];
+      }
+    };
+    bool end;
+    try {
+      end = next->code(out, pos, size);
+    } catch (const DecodeError&) {
+      decode();
+      throw;
+    }
+    decode();
+    return end;
+  }
+};
+
+// The BCJ filters (liblzma's simple/*.c, decoding): branch targets from
+// absolute back to relative. Each converts what it can decide and leaves
+// the last few bytes, which an instruction may still span.
+size_t bcj_x86(uint32_t now, uint8_t* b, size_t size, uint32_t& prev_mask, uint32_t& prev_pos) {
+  static const bool allowed[8] = {true, true, true, false, true, false, false, false};
+  static const uint32_t bit_number[8] = {0, 1, 2, 2, 3, 3, 3, 3};
+  auto ms = [](uint8_t v) { return v == 0 || v == 0xFF; };
+  if (size < 5) return 0;
+  if (now - prev_pos > 5) prev_pos = now - 5;
+  const size_t limit = size - 5;
+  size_t i = 0;
+  while (i <= limit) {
+    uint8_t v = b[i];
+    if (v != 0xE8 && v != 0xE9) {
+      ++i;
+      continue;
+    }
+    const uint32_t offset = now + (uint32_t)i - prev_pos;
+    prev_pos = now + (uint32_t)i;
+    if (offset > 5) {
+      prev_mask = 0;
+    } else {
+      for (uint32_t k = 0; k < offset; ++k) {
+        prev_mask &= 0x77;
+        prev_mask <<= 1;
+      }
+    }
+    v = b[i + 4];
+    if (ms(v) && allowed[(prev_mask >> 1) & 7] && (prev_mask >> 1) < 0x10) {
+      uint32_t src = (uint32_t)v << 24 | (uint32_t)b[i + 3] << 16 | (uint32_t)b[i + 2] << 8 | b[i + 1];
+      uint32_t dest;
+      for (;;) {
+        dest = src - (now + (uint32_t)i + 5);
+        if (prev_mask == 0) break;
+        const uint32_t k = bit_number[prev_mask >> 1];
+        v = (uint8_t)(dest >> (24 - k * 8));
+        if (!ms(v)) break;
+        src = dest ^ ((1u << (32 - k * 8)) - 1);
+      }
+      b[i + 4] = (uint8_t)(~(((dest >> 24) & 1) - 1));
+      b[i + 3] = (uint8_t)(dest >> 16);
+      b[i + 2] = (uint8_t)(dest >> 8);
+      b[i + 1] = (uint8_t)dest;
+      i += 5;
+      prev_mask = 0;
+    } else {
+      ++i;
+      prev_mask |= 1;
+      if (ms(v)) prev_mask |= 0x10;
+    }
+  }
+  return i;
+}
+
+size_t bcj_powerpc(uint32_t now, uint8_t* b, size_t size) {
+  size &= ~(size_t)3;
+  size_t i = 0;
+  for (; i < size; i += 4)
+    if ((b[i] >> 2) == 0x12 && (b[i + 3] & 3) == 1) {
+      const uint32_t src = ((uint32_t)b[i] & 3) << 24 | (uint32_t)b[i + 1] << 16 | (uint32_t)b[i + 2] << 8 |
+                           ((uint32_t)b[i + 3] & ~3u);
+      const uint32_t dest = src - (now + (uint32_t)i);
+      b[i] = (uint8_t)(0x48 | ((dest >> 24) & 3));
+      b[i + 1] = (uint8_t)(dest >> 16);
+      b[i + 2] = (uint8_t)(dest >> 8);
+      b[i + 3] = (uint8_t)((b[i + 3] & 3) | (dest & 0xFF & ~3u));
+    }
+  return i;
+}
+
+size_t bcj_ia64(uint32_t now, uint8_t* b, size_t size) {
+  static const uint32_t branch[32] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                      4, 4, 6, 6, 0, 0, 7, 7, 4, 4, 0, 0, 4, 4, 0, 0};
+  size_t i = 0;
+  for (; i + 16 <= size; i += 16) {
+    const uint32_t mask = branch[b[i] & 0x1F];
+    uint32_t bit_pos = 5;
+    for (int slot = 0; slot < 3; ++slot, bit_pos += 41) {
+      if (!((mask >> slot) & 1)) continue;
+      const size_t byte_pos = bit_pos >> 3;
+      const uint32_t bit_res = bit_pos & 7;
+      uint64_t inst = 0;
+      for (int j = 0; j < 6; ++j) inst += (uint64_t)b[i + j + byte_pos] << (8 * j);
+      uint64_t norm = inst >> bit_res;
+      if (((norm >> 37) & 0xF) == 0x5 && ((norm >> 9) & 0x7) == 0) {
+        uint32_t src = (uint32_t)((norm >> 13) & 0xFFFFF);
+        src |= (uint32_t)((norm >> 36) & 1) << 20;
+        src <<= 4;
+        uint32_t dest = src - (now + (uint32_t)i);
+        dest >>= 4;
+        norm &= ~((uint64_t)0x8FFFFF << 13);
+        norm |= (uint64_t)(dest & 0xFFFFF) << 13;
+        norm |= (uint64_t)(dest & 0x100000) << (36 - 20);
+        inst &= (1ull << bit_res) - 1;
+        inst |= norm << bit_res;
+        for (int j = 0; j < 6; ++j) b[i + j + byte_pos] = (uint8_t)(inst >> (8 * j));
+      }
+    }
+  }
+  return i;
+}
+
+size_t bcj_arm(uint32_t now, uint8_t* b, size_t size) {
+  size &= ~(size_t)3;
+  size_t i = 0;
+  for (; i < size; i += 4)
+    if (b[i + 3] == 0xEB) {
+      const uint32_t src = ((uint32_t)b[i + 2] << 16 | (uint32_t)b[i + 1] << 8 | b[i]) << 2;
+      const uint32_t dest = (src - (now + (uint32_t)i + 8)) >> 2;
+      b[i + 2] = (uint8_t)(dest >> 16);
+      b[i + 1] = (uint8_t)(dest >> 8);
+      b[i] = (uint8_t)dest;
+    }
+  return i;
+}
+
+size_t bcj_armthumb(uint32_t now, uint8_t* b, size_t size) {
+  if (size < 4) return 0;
+  size -= 4;
+  size_t i = 0;
+  for (; i <= size; i += 2)
+    if ((b[i + 1] & 0xF8) == 0xF0 && (b[i + 3] & 0xF8) == 0xF8) {
+      const uint32_t src = (((uint32_t)b[i + 1] & 7) << 19 | (uint32_t)b[i] << 11 | ((uint32_t)b[i + 3] & 7) << 8 |
+                            b[i + 2]) << 1;
+      const uint32_t dest = (src - (now + (uint32_t)i + 4)) >> 1;
+      b[i + 1] = (uint8_t)(0xF0 | ((dest >> 19) & 7));
+      b[i] = (uint8_t)(dest >> 11);
+      b[i + 3] = (uint8_t)(0xF8 | ((dest >> 8) & 7));
+      b[i + 2] = (uint8_t)dest;
+      i += 2;
+    }
+  return i;
+}
+
+size_t bcj_sparc(uint32_t now, uint8_t* b, size_t size) {
+  size &= ~(size_t)3;
+  size_t i = 0;
+  for (; i < size; i += 4)
+    if ((b[i] == 0x40 && (b[i + 1] & 0xC0) == 0) || (b[i] == 0x7F && (b[i + 1] & 0xC0) == 0xC0)) {
+      uint32_t src = (uint32_t)b[i] << 24 | (uint32_t)b[i + 1] << 16 | (uint32_t)b[i + 2] << 8 | b[i + 3];
+      src <<= 2;
+      uint32_t dest = (src - (now + (uint32_t)i)) >> 2;
+      dest = (((0u - ((dest >> 22) & 1)) << 22) & 0x3FFFFFFF) | (dest & 0x3FFFFF) | 0x40000000;
+      b[i] = (uint8_t)(dest >> 24);
+      b[i + 1] = (uint8_t)(dest >> 16);
+      b[i + 2] = (uint8_t)(dest >> 8);
+      b[i + 3] = (uint8_t)dest;
+    }
+  return i;
+}
+
+// simple_coder.c's buffering around a BCJ filter: bytes it cannot decide
+// yet wait in `buffer` for more data; at the end of the block's data they
+// go out as they are.
+struct XzBcj final : XzCoder {
+  std::unique_ptr<XzCoder> next;
+  uint64_t id;
+  uint32_t now = 0, prev_mask = 0, prev_pos = (uint32_t)-5;
+  std::vector<uint8_t> buffer;
+  size_t bpos = 0, bsize = 0, filtered = 0, allocated = 0;
+  bool end = false;
+  XzBcj(std::unique_ptr<XzCoder> nx, uint64_t filter, uint32_t start) : next(std::move(nx)), id(filter), now(start) {
+    const size_t unfiltered_max = id == 4 ? 5 : id == 6 ? 16 : 4;
+    allocated = 2 * unfiltered_max;
+    buffer.assign(allocated, 0);
+  }
+  size_t filter(uint8_t* b, size_t size) {
+    size_t k = 0;
+    switch (id) {
+      case 4: k = bcj_x86(now, b, size, prev_mask, prev_pos); break;
+      case 5: k = bcj_powerpc(now, b, size); break;
+      case 6: k = bcj_ia64(now, b, size); break;
+      case 7: k = bcj_arm(now, b, size); break;
+      case 8: k = bcj_armthumb(now, b, size); break;
+      default: k = bcj_sparc(now, b, size); break;
+    }
+    now += (uint32_t)k;
+    return k;
+  }
+  void copy(uint8_t* out, size_t& pos, size_t size) {
+    const size_t k = std::min(filtered - bpos, size - pos);
+    std::memcpy(out + pos, buffer.data() + bpos, k);
+    bpos += k;
+    pos += k;
+  }
+  bool code(uint8_t* out, size_t& pos, size_t size) override {
+    if (bpos < filtered) {
+      copy(out, pos, size);
+      if (bpos < filtered) return false;
+      if (end) return true;
+    }
+    filtered = 0;
+    const size_t out_avail = size - pos, buf_avail = bsize - bpos;
+    if (out_avail > buf_avail || buf_avail == 0) {
+      const size_t out_start = pos;
+      std::memcpy(out + pos, buffer.data() + bpos, buf_avail);
+      pos += buf_avail;
+      end = next->code(out, pos, size);
+      const size_t got = pos - out_start;
+      const size_t unfiltered = got - (got ? filter(out + out_start, got) : 0);
+      bpos = 0;
+      bsize = unfiltered;
+      if (end) {
+        bsize = 0;
+      } else if (unfiltered > 0) {
+        pos -= unfiltered;
+        std::memcpy(buffer.data(), out + pos, unfiltered);
+      }
+    } else if (bpos > 0) {
+      std::memmove(buffer.data(), buffer.data() + bpos, buf_avail);
+      bsize -= bpos;
+      bpos = 0;
+    }
+    if (bsize > 0) {
+      end = next->code(buffer.data(), bsize, allocated);
+      filtered = filter(buffer.data(), bsize);
+      if (end) filtered = bsize;
+      copy(out, pos, size);
+    }
+    return end && bpos == bsize;
+  }
+};
+
+// The xz stream's multibyte integer at s[at ..].
+uint64_t xz_vli(const uint8_t* s, size_t n, size_t& at) {
+  uint64_t v = 0;
+  for (int i = 0; i < 9; ++i) {
+    if (at >= n) xz_error("data ends early");
+    const uint8_t b = s[at++];
+    if (i > 0 && b == 0) xz_error("multibyte integer not in its shortest form");
+    v |= (uint64_t)(b & 0x7F) << (7 * i);
+    if (!(b & 0x80)) return v;
+  }
+  xz_error("multibyte integer too long");
+}
+
+[[gnu::noinline]] void unxz(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
+  static const uint8_t magic[6] = {0xFD, '7', 'z', 'X', 'Z', 0};
+  out.assign(want, 0);
+  size_t got = 0;
+  try {
+    if (n < 12 || std::memcmp(s, magic, 6) != 0) xz_error("not an .xz stream");
+    if (s[6] != 0 || s[7] > 0x0F) xz_error("unsupported stream flags");
+    if (crc32_of(s + 6, 2) != (uint32_t)(s[8] | s[9] << 8 | s[10] << 16 | (uint32_t)s[11] << 24))
+      xz_error("stream header CRC32 fails");
+    const int check = s[7];
+    static const int check_sizes[16] = {0, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 32, 64, 64, 64};
+    size_t at = 12;
+    while (got < want) {  // a block
+      if (at >= n) xz_error("data ends early");
+      if (s[at] == 0) xz_error("stream ends before the strip is full");
+      const size_t hsize = ((size_t)s[at] + 1) * 4;
+      if (hsize > n - at) xz_error("data ends early");
+      const uint8_t* h = s + at;
+      if (crc32_of(h, hsize - 4) != (uint32_t)(h[hsize - 4] | h[hsize - 3] << 8 | h[hsize - 2] << 16 |
+                                              (uint32_t)h[hsize - 1] << 24))
+        xz_error("block header CRC32 fails");
+      const uint8_t flags = h[1];
+      if (flags & 0x3C) xz_error("unsupported block flags");
+      size_t hp = 2;
+      const uint64_t unknown = ~0ull;
+      uint64_t csize = unknown, usize = unknown;
+      if (flags & 0x40) csize = xz_vli(h, hsize - 4, hp);
+      if (flags & 0x80) usize = xz_vli(h, hsize - 4, hp);
+      if (csize == 0) xz_error("block of compressed size 0");
+      struct Filter {
+        uint64_t id;
+        std::vector<uint8_t> props;
+      };
+      std::vector<Filter> chain((flags & 3) + 1);
+      for (auto& f : chain) {
+        f.id = xz_vli(h, hsize - 4, hp);
+        if (f.id >= 0x4000000000000000ull) xz_error("reserved filter ID");
+        const uint64_t ps = xz_vli(h, hsize - 4, hp);
+        if (ps > hsize - 4 - hp) xz_error("filter properties past the block header");
+        f.props.assign(h + hp, h + hp + ps);
+        hp += (size_t)ps;
+      }
+      for (size_t i = hp; i < hsize - 4; ++i)
+        if (h[i]) xz_error("block header padding not zero");
+      at += hsize;
+      const size_t data_start = at;
+      // The chain: LZMA2 last, Delta or BCJ filters before it.
+      const Filter& last = chain.back();
+      if (last.id != 0x21 || last.props.size() != 1 || last.props[0] > 40)
+        xz_error("filter chain not ending in LZMA2");
+      const uint8_t d = last.props[0];
+      const uint64_t dict = d == 40 ? 0xFFFFFFFFull : (uint64_t)(2 | (d & 1)) << (d / 2 + 11);
+      const size_t data_end = csize == unknown || csize > n - at ? n : at + (size_t)csize;
+      auto lzma2 = std::make_unique<Lzma2>(s, data_end, dict);
+      lzma2->at = at;
+      Lzma2* raw = lzma2.get();
+      std::unique_ptr<XzCoder> top = std::move(lzma2);
+      for (size_t k = chain.size() - 1; k-- > 0;) {
+        const Filter& f = chain[k];
+        if (f.id == 3) {
+          if (f.props.size() != 1) xz_error("bad Delta properties");
+          auto delta = std::make_unique<XzDelta>();
+          delta->next = std::move(top);
+          delta->distance = (size_t)f.props[0] + 1;
+          top = std::move(delta);
+        } else if (f.id >= 4 && f.id <= 9) {
+          uint32_t start = 0;
+          if (f.props.size() == 4)
+            start = f.props[0] | f.props[1] << 8 | f.props[2] << 16 | (uint32_t)f.props[3] << 24;
+          else if (!f.props.empty())
+            xz_error("bad BCJ properties");
+          top = std::make_unique<XzBcj>(std::move(top), f.id, start);
+        } else if (f.id == 0x0A || f.id == 0x0B) {
+          unsupported(std::string("LZMA TIFF of the ") + (f.id == 0x0A ? "ARM64" : "RISC-V") + " BCJ filter");
+        } else {
+          xz_error("filter liblzma has no decoder for, or LZMA2 before the last filter");
+        }
+      }
+      // The block's data into the strip, no more than an uncompressed
+      // size given in its header.
+      const size_t start = got;
+      const size_t stop = usize == unknown || usize > want - got ? want : got + (size_t)usize;
+      bool end = false;
+      for (;;) {  // libtiff calls lzma_code until the strip is full
+        const size_t before = got, decoded = raw->hist.size();
+        end = top->code(out.data(), got, stop);
+        if (end || got >= stop) break;
+        if (got == before && raw->hist.size() == decoded) xz_error("data ends early");
+      }
+      if (!end) {
+        if (got < want) xz_error("block's data longer than its header says");
+        break;  // the strip is full
+      }
+      at = raw->at;
+      if ((csize != unknown && at - data_start != csize) ||
+          (usize != unknown && got - start != usize))
+        xz_error("block sizes unlike its header's");
+      while ((at - (size_t)(h - s)) & 3) {
+        if (at >= n) xz_error("data ends early");
+        if (s[at++]) xz_error("block padding not zero");
+      }
+      const int cs = check_sizes[check];
+      if (cs > (int)(n - at)) xz_error("data ends early");
+      const uint8_t* c = s + at;
+      bool ok = true;
+      if (check == 1) {
+        ok = crc32_of(out.data() + start, got - start) == (uint32_t)(c[0] | c[1] << 8 | c[2] << 16 | (uint32_t)c[3] << 24);
+      } else if (check == 4) {
+        uint64_t v = 0;
+        for (int i = 0; i < 8; ++i) v |= (uint64_t)c[i] << (8 * i);
+        ok = crc64_of(out.data() + start, got - start) == v;
+      } else if (check == 10) {
+        uint8_t digest[32];
+        sha256_of(out.data() + start, got - start, digest);
+        ok = std::memcmp(digest, c, 32) == 0;
+      }
+      if (!ok) xz_error("block check fails");
+      at += (size_t)cs;
+    }
+  } catch (const DecodeError& e) {
+    if (e.status == kUnsupported) throw;
+    if (got >= want) return;  // libtiff takes a full strip whatever lzma_code says
+    out.resize(got);
+    throw;
+  }
+}
+
+// ------------------------------------------------------------- Zstandard
+// ZSTD TIFF (compression 50000) as libtiff's ZSTDDecode reads it for PIL:
+// each strip a Zstandard frame (RFC 8878) decoded as libzstd's
+// ZSTD_decompressStream does until the frame ends or the strip is full.
+// Blocks are decoded whole and then handed on, so a strip full at a block's
+// end still has the next block (or the checksum, verified) decoded, and
+// its error fails the strip; the end of the first frame ends the strip,
+// short or not. A failing strip keeps the blocks before the one that
+// failed. libzstd's defaults bound the window (windowLogMax 27).
+
+[[noreturn]] void zstd_error(const char* what) { corrupt(std::string("ZSTD TIFF strip: ") + what); }
+
+// xxHash's XXH64, seed 0.
+uint64_t xxh64(const uint8_t* p, size_t n) {
+  const uint64_t P1 = 11400714785074694791ull, P2 = 14029467366897019727ull, P3 = 1609587929392839161ull,
+                 P4 = 9650029242287828579ull, P5 = 2870177450012600261ull;
+  auto rotl = [](uint64_t x, int r) { return (x << r) | (x >> (64 - r)); };
+  auto rd64 = [](const uint8_t* q) {
+    uint64_t v;
+    std::memcpy(&v, q, 8);
+    return v;
+  };
+  auto round = [&](uint64_t acc, uint64_t in) { return rotl(acc + in * P2, 31) * P1; };
+  auto merge = [&](uint64_t acc, uint64_t v) { return (acc ^ round(0, v)) * P1 + P4; };
+  size_t i = 0;
+  uint64_t h;
+  if (n >= 32) {
+    uint64_t v1 = P1 + P2, v2 = P2, v3 = 0, v4 = 0 - P1;
+    for (; i + 32 <= n; i += 32) {
+      v1 = round(v1, rd64(p + i));
+      v2 = round(v2, rd64(p + i + 8));
+      v3 = round(v3, rd64(p + i + 16));
+      v4 = round(v4, rd64(p + i + 24));
+    }
+    h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+    h = merge(merge(merge(merge(h, v1), v2), v3), v4);
+  } else {
+    h = P5;
+  }
+  h += n;
+  for (; i + 8 <= n; i += 8) h = rotl(h ^ round(0, rd64(p + i)), 27) * P1 + P4;
+  if (i + 4 <= n) {
+    uint32_t v;
+    std::memcpy(&v, p + i, 4);
+    h = rotl(h ^ (uint64_t)v * P1, 23) * P2 + P3;
+    i += 4;
+  }
+  for (; i < n; ++i) h = rotl(h ^ p[i] * P5, 11) * P1;
+  h ^= h >> 33;
+  h *= P2;
+  h ^= h >> 29;
+  h *= P3;
+  h ^= h >> 32;
+  return h;
+}
+
+// A bit stream read backwards from its end (RFC 8878 4.1): its last
+// byte's highest 1 bit starts it; bits before its first byte read as 0.
+struct BackBits {
+  const uint8_t* s;
+  int64_t pos;  // bits left
+  BackBits(const uint8_t* p, size_t n) : s(p) {
+    if (n == 0 || p[n - 1] == 0) zstd_error("bit stream without its end marker");
+    int top = 7;
+    while (!(p[n - 1] >> top & 1)) --top;
+    pos = (int64_t)(n - 1) * 8 + top;
+  }
+  uint32_t peek(int k) const {  // the next k <= 25 bits, the first read the highest
+    if (k == 0) return 0;
+    const int64_t lo = pos - k;
+    uint64_t w = 0;
+    const int64_t b0 = lo < 0 ? 0 : lo >> 3;
+    for (int64_t b = b0; b < b0 + 5 && b * 8 < pos; ++b) w |= (uint64_t)s[b] << (8 * (b - b0));
+    if (lo < 0) return (uint32_t)((w << -lo) & ((1u << k) - 1));
+    return (uint32_t)((w >> (lo & 7)) & ((1u << k) - 1));
+  }
+  uint32_t read(int k) {
+    const uint32_t v = peek(k);
+    pos -= k;
+    return v;
+  }
+};
+
+// An FSE decoding table (RFC 8878 4.1.1).
+struct Fse {
+  int log = 0;
+  std::vector<uint8_t> sym, bits;
+  std::vector<uint16_t> base;
+  void build(const int16_t* norm, int nsym, int al) {
+    log = al;
+    const int size = 1 << al;
+    sym.assign(size, 0);
+    bits.assign(size, 0);
+    base.assign(size, 0);
+    std::vector<int> next(nsym);
+    int high = size - 1;
+    for (int s = 0; s < nsym; ++s)
+      if (norm[s] == -1) {
+        sym[high--] = (uint8_t)s;
+        next[s] = 1;
+      } else {
+        next[s] = norm[s];
+      }
+    const int step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+    int p = 0;
+    for (int s = 0; s < nsym; ++s)
+      for (int i = 0; i < norm[s]; ++i) {
+        sym[p] = (uint8_t)s;
+        do p = (p + step) & mask;
+        while (p > high);
+      }
+    if (p != 0) zstd_error("bad FSE table");
+    for (int i = 0; i < size; ++i) {
+      const int n = next[sym[i]]++;
+      int hb = 31;
+      while (!((uint32_t)n >> hb & 1)) --hb;
+      bits[i] = (uint8_t)(al - hb);
+      base[i] = (uint16_t)((n << bits[i]) - size);
+    }
+  }
+  void rle(uint8_t s) {
+    log = 0;
+    sym.assign(1, s);
+    bits.assign(1, 0);
+    base.assign(1, 0);
+  }
+};
+
+// FSE_readNCount: a table description at s[0 .. n), its length returned.
+size_t fse_read(const uint8_t* s, size_t n, int max_log, int max_sym, Fse& t) {
+  if (n < 1) zstd_error("data ends early");
+  auto bit_at = [&](size_t b) -> uint32_t { return b / 8 < n ? (s[b / 8] >> (b % 8)) & 1 : 0; };
+  auto bits = [&](size_t b, int k) {
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) v |= bit_at(b + i) << i;
+    return v;
+  };
+  size_t bp = 0;
+  const int al = (int)bits(0, 4) + 5;
+  bp = 4;
+  if (al > max_log) zstd_error("FSE accuracy past its maximum");
+  int remaining = (1 << al) + 1, threshold = 1 << al, nb = al + 1, symbol = 0;
+  int16_t norm[256] = {0};
+  bool prev0 = false;
+  for (;;) {
+    if (prev0) {  // runs of zero counts: 2-bit repeat fields, 3 again while they read 3
+      int reps = 0;
+      while (bits(bp, 2) == 3) {
+        reps += 3;
+        bp += 2;
+      }
+      reps += (int)bits(bp, 2);
+      bp += 2;
+      symbol += reps;
+      if (symbol > max_sym) break;
+    }
+    const int max = (2 * threshold - 1) - remaining;
+    int count;
+    if ((int)(bits(bp, nb - 1)) < max) {
+      count = (int)bits(bp, nb - 1);
+      bp += nb - 1;
+    } else {
+      count = (int)bits(bp, nb);
+      if (count >= threshold) count -= max;
+      bp += nb;
+    }
+    --count;
+    remaining -= count < 0 ? -count : count;
+    norm[symbol++] = (int16_t)count;
+    prev0 = count == 0;
+    if (remaining < threshold) {
+      if (remaining <= 1) break;
+      nb = 1;
+      while (remaining >> nb) ++nb;
+      threshold = 1 << (nb - 1);
+    }
+    if (symbol > max_sym) break;
+  }
+  if (remaining != 1 || symbol > max_sym + 1) zstd_error("bad FSE table description");
+  const size_t used = (bp + 7) / 8;
+  if (used > n) zstd_error("data ends early");
+  t.build(norm, symbol, al);
+  return used;
+}
+
+struct Huffman {
+  int max_bits = 0;
+  std::vector<uint8_t> sym, len;  // by the next max_bits bits
+};
+
+struct ZstdFrame {
+  bool has_huffman = false;
+  Huffman huf;
+  Fse tables[3];  // literal lengths, offsets, match lengths
+  bool has_table[3] = {false, false, false};
+  uint32_t rep[3] = {1, 4, 8};
+};
+
+// The literals section of a compressed block at s[0 .. n): its literals,
+// its length returned.
+size_t zstd_literals(const uint8_t* s, size_t n, ZstdFrame& f, std::vector<uint8_t>& lit) {
+  if (n < 1) zstd_error("data ends early");
+  const int type = s[0] & 3, sf = (s[0] >> 2) & 3;
+  size_t regen, comp = 0, hs;
+  if (type < 2) {
+    if (sf == 0 || sf == 2) {
+      regen = s[0] >> 3;
+      hs = 1;
+    } else if (sf == 1) {
+      if (n < 2) zstd_error("data ends early");
+      regen = (s[0] >> 4) + ((size_t)s[1] << 4);
+      hs = 2;
+    } else {
+      if (n < 3) zstd_error("data ends early");
+      regen = (s[0] >> 4) + ((size_t)s[1] << 4) + ((size_t)s[2] << 12);
+      hs = 3;
+    }
+    if (regen > 128 * 1024) zstd_error("literals past the block maximum");
+    if (type == 0) {
+      if (regen > n - hs) zstd_error("data ends early");
+      lit.assign(s + hs, s + hs + regen);
+      return hs + regen;
+    }
+    if (n < hs + 1) zstd_error("block too short for RLE literals");
+    lit.assign(regen, s[hs]);
+    return hs + 1;
+  }
+  hs = sf < 2 ? 3 : sf == 2 ? 4 : 5;
+  if (n < 5) zstd_error("block too short for compressed literals");
+  uint64_t v = 0;
+  for (size_t i = 0; i < hs; ++i) v |= (uint64_t)s[i] << (8 * i);
+  const int w = sf < 2 ? 10 : sf == 2 ? 14 : 18;
+  regen = (size_t)((v >> 4) & ((1u << w) - 1));
+  comp = (size_t)((v >> (4 + w)) & ((1u << w) - 1));
+  const bool single = sf == 0;
+  if (regen > 128 * 1024) zstd_error("literals past the block maximum");
+  if (comp > n - hs) zstd_error("data ends early");
+  if (!single && regen < 6) zstd_error("too few literals for 4 streams");
+  const uint8_t* p = s + hs;
+  size_t left = comp;
+  if (type == 2) {  // the Huffman tree description
+    if (left < 1) zstd_error("data ends early");
+    const uint8_t hb = p[0];
+    uint8_t weights[256] = {0};
+    size_t nw;
+    if (hb >= 128) {
+      nw = hb - 127;
+      const size_t bytes = (nw + 1) / 2;
+      if (bytes + 1 > left) zstd_error("data ends early");
+      for (size_t i = 0; i < nw; ++i) weights[i] = (uint8_t)(i & 1 ? p[1 + i / 2] & 15 : p[1 + i / 2] >> 4);
+      p += 1 + bytes;
+      left -= 1 + bytes;
+    } else {
+      if ((size_t)hb + 1 > left) zstd_error("data ends early");
+      Fse t;
+      const size_t used = fse_read(p + 1, hb, 6, 255, t);
+      BackBits b(p + 1 + used, hb - used);
+      uint32_t s1 = b.read(t.log), s2 = b.read(t.log);
+      nw = 0;
+      for (;;) {
+        if (nw > 253) zstd_error("too many Huffman weights");
+        weights[nw++] = t.sym[s1];
+        s1 = t.base[s1] + b.read(t.bits[s1]);
+        if (b.pos < 0) {
+          weights[nw++] = t.sym[s2];
+          break;
+        }
+        if (nw > 253) zstd_error("too many Huffman weights");
+        weights[nw++] = t.sym[s2];
+        s2 = t.base[s2] + b.read(t.bits[s2]);
+        if (b.pos < 0) {
+          weights[nw++] = t.sym[s1];
+          break;
+        }
+      }
+      p += 1 + hb;
+      left -= 1 + hb;
+    }
+    // The last weight makes the total a power of 2.
+    uint32_t total = 0, rank1 = 0;
+    for (size_t i = 0; i < nw; ++i) {
+      if (weights[i] > 12) zstd_error("Huffman weight past 12");
+      total += (1u << weights[i]) >> 1;
+    }
+    if (total == 0) zstd_error("Huffman weights all 0");
+    int hbit = 31;
+    while (!(total >> hbit & 1)) --hbit;
+    const int max_bits = hbit + 1;
+    if (max_bits > 12) zstd_error("Huffman codes past 12 bits");
+    const uint32_t rest = (1u << max_bits) - total;
+    int rb = 31;
+    while (!(rest >> rb & 1)) --rb;
+    if ((1u << rb) != rest) zstd_error("Huffman weights not summing to a power of 2");
+    weights[nw++] = (uint8_t)(rb + 1);
+    for (size_t i = 0; i < nw; ++i) rank1 += weights[i] == 1;
+    if (rank1 < 2 || (rank1 & 1)) zstd_error("bad Huffman tree");
+    // Codes by weight, lowest first (HUF_readDTableX1).
+    Huffman& h = f.huf;
+    h.max_bits = max_bits;
+    h.sym.assign((size_t)1 << max_bits, 0);
+    h.len.assign((size_t)1 << max_bits, 0);
+    uint32_t start[14] = {0};
+    uint32_t count[14] = {0};
+    for (size_t i = 0; i < nw; ++i) ++count[weights[i]];
+    uint32_t next = 0;
+    for (int wgt = 1; wgt <= max_bits; ++wgt) {
+      start[wgt] = next;
+      next += count[wgt] << (wgt - 1);
+    }
+    for (size_t i = 0; i < nw; ++i) {
+      const int wgt = weights[i];
+      if (!wgt) continue;
+      const uint32_t k = 1u << (wgt - 1);
+      for (uint32_t j = 0; j < k; ++j) {
+        h.sym[start[wgt] + j] = (uint8_t)i;
+        h.len[start[wgt] + j] = (uint8_t)(max_bits + 1 - wgt);
+      }
+      start[wgt] += k;
+    }
+    f.has_huffman = true;
+  } else if (!f.has_huffman) {
+    zstd_error("treeless literals without a previous Huffman table");
+  }
+  const Huffman& h = f.huf;
+  lit.resize(regen);
+  // A stream's bits; `below` bytes before it may be read on into, unchecked
+  // (libzstd's fast 4-stream decoder on x86-64: streams of 8 bytes or
+  // more are not checked to end where their bits do).
+  auto stream = [&](const uint8_t* q, size_t qn, size_t below, size_t from, size_t count) {
+    if (qn == 0 || q[qn - 1] == 0) zstd_error("bit stream without its end marker");
+    BackBits b(q - below, qn + below);
+    for (size_t i = 0; i < count; ++i) {
+      const uint32_t k = b.peek(h.max_bits);
+      lit[from + i] = h.sym[k];
+      b.pos -= h.len[k];
+    }
+    if (!below && b.pos != 0) zstd_error("Huffman stream not read to its end");
+  };
+  if (single) {
+    stream(p, left, 0, 0, regen);
+  } else {
+    if (left < 10) zstd_error("data ends early");
+    const size_t l1 = p[0] | p[1] << 8, l2 = p[2] | p[3] << 8, l3 = p[4] | p[5] << 8;
+    if (l1 + l2 + l3 > left - 6) zstd_error("bad literal stream sizes");
+    const size_t l4 = left - 6 - l1 - l2 - l3, seg = (regen + 3) / 4;
+    if (3 * seg > regen) zstd_error("too few literals for 4 streams");
+    const uint8_t* q = p + 6;
+    const bool fast = l1 >= 8 && l2 >= 8 && l3 >= 8 && l4 >= 8 && h.max_bits <= 11;
+    stream(q, l1, fast ? 6 : 0, 0, seg);
+    stream(q + l1, l2, fast ? 6 + l1 : 0, seg, seg);
+    stream(q + l1 + l2, l3, fast ? 6 + l1 + l2 : 0, 2 * seg, seg);
+    stream(q + l1 + l2 + l3, l4, fast ? 6 + l1 + l2 + l3 : 0, 3 * seg, regen - 3 * seg);
+  }
+  return hs + comp;
+}
+
+// A compressed block's sequences, executed onto `out` (the frame so far).
+void zstd_sequences(const uint8_t* s, size_t n, ZstdFrame& f, const std::vector<uint8_t>& lit,
+                    std::vector<uint8_t>& out, size_t block_max) {
+  static const int16_t ll_def[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 2, 2,
+                                     2, 2, 2, 2, 2, 2, 2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+  static const int16_t ml_def[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+  static const int16_t of_def[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  static const uint32_t ll_base[36] = {0,  1,  2,   3,   4,   5,    6,    7,    8,    9,     10,    11,
+                                       12, 13, 14,  15,  16,  18,   20,   22,   24,   28,    32,    40,
+                                       48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+  static const uint8_t ll_bits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1,
+                                      1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+  static const uint32_t ml_base[53] = {3,  4,  5,  6,  7,  8,  9,  10,  11,  12,   13,   14,   15,   16,
+                                       17, 18, 19, 20, 21, 22, 23, 24,  25,  26,   27,   28,   29,   30,
+                                       31, 32, 33, 34, 35, 37, 39, 41,  43,  47,   51,   59,   67,   83,
+                                       99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+  static const uint8_t ml_bits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                      0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
+                                      2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+  const size_t start = out.size();
+  if (n < 1) zstd_error("data ends early");
+  size_t at = 0, nseq;
+  const uint8_t b0 = s[at++];
+  if (b0 < 128) {
+    nseq = b0;
+  } else if (b0 < 255) {
+    if (at >= n) zstd_error("data ends early");
+    nseq = ((size_t)(b0 - 128) << 8) + s[at++];
+  } else {
+    if (at + 2 > n) zstd_error("data ends early");
+    nseq = s[at] + ((size_t)s[at + 1] << 8) + 0x7F00;
+    at += 2;
+  }
+  size_t li = 0;
+  if (nseq > 0) {
+    if (at >= n) zstd_error("data ends early");
+    const uint8_t modes = s[at++];
+    if (modes & 3) zstd_error("reserved bits of the sequence modes set");
+    static const int max_log[3] = {9, 8, 9}, max_sym[3] = {35, 31, 52}, def_log[3] = {6, 5, 6};
+    const int16_t* defs[3] = {ll_def, of_def, ml_def};
+    const int shift[3] = {6, 4, 2};
+    for (int k = 0; k < 3; ++k) {  // literal lengths, offsets, match lengths
+      const int m = (modes >> shift[k]) & 3;
+      if (m == 0) {
+        f.tables[k].build(defs[k], max_sym[k] + 1 - (k == 1 ? 3 : 0), def_log[k]);
+      } else if (m == 1) {
+        if (at >= n) zstd_error("data ends early");
+        if (s[at] > max_sym[k]) zstd_error("RLE sequence symbol past its maximum");
+        f.tables[k].rle(s[at++]);
+      } else if (m == 2) {
+        at += fse_read(s + at, n - at, max_log[k], max_sym[k], f.tables[k]);
+      } else if (!f.has_table[k]) {
+        zstd_error("repeated sequence table without a previous one");
+      }
+      f.has_table[k] = true;
+    }
+    BackBits b(s + at, n - at);
+    Fse &tl = f.tables[0], &to = f.tables[1], &tm = f.tables[2];
+    uint32_t sl = b.read(tl.log), so = b.read(to.log), sm = b.read(tm.log);
+    for (size_t q = 0; q < nseq; ++q) {
+      const int oc = to.sym[so], mc = tm.sym[sm], lc = tl.sym[sl];
+      if (lc > 35 || mc > 52 || oc > 31) zstd_error("sequence code past its maximum");
+      uint32_t off_value = (1u << oc) + b.read(oc);
+      uint32_t ml = ml_base[mc] + b.read(ml_bits[mc]);
+      uint32_t ll = ll_base[lc] + b.read(ll_bits[lc]);
+      size_t offset;
+      if (off_value > 3) {
+        offset = off_value - 3;
+        f.rep[2] = f.rep[1];
+        f.rep[1] = f.rep[0];
+        f.rep[0] = (uint32_t)offset;
+      } else {
+        const uint32_t idx = off_value - 1 + (ll == 0);
+        if (idx == 0) {
+          offset = f.rep[0];
+        } else {
+          offset = idx < 3 ? f.rep[idx] : f.rep[0] - 1;
+          if (idx > 1) f.rep[2] = f.rep[1];
+          f.rep[1] = f.rep[0];
+          f.rep[0] = (uint32_t)offset;
+          if (offset == 0) zstd_error("offset 0");
+        }
+      }
+      if (q + 1 < nseq) {  // the states: literal lengths, match lengths, offsets
+        sl = tl.base[sl] + b.read(tl.bits[sl]);
+        sm = tm.base[sm] + b.read(tm.bits[sm]);
+        so = to.base[so] + b.read(to.bits[so]);
+      }
+      if (b.pos < 0) zstd_error("sequence stream read past its start");
+      if (ll > lit.size() - li) zstd_error("literal length past the literals");
+      if (out.size() - start + ll + ml > block_max) zstd_error("block larger than its maximum");
+      out.insert(out.end(), lit.begin() + li, lit.begin() + li + ll);
+      li += ll;
+      if (offset > out.size()) zstd_error("match offset before the frame's start");
+      const size_t from = out.size() - offset;
+      for (uint32_t i = 0; i < ml; ++i) out.push_back(out[from + i]);
+    }
+    if (b.pos != 0) zstd_error("sequence stream not read to its end");
+  } else if (at != n) {
+    zstd_error("sequence section longer than its sequences");
+  }
+  if (out.size() - start + lit.size() - li > block_max) zstd_error("block larger than its maximum");
+  out.insert(out.end(), lit.begin() + li, lit.end());
+}
+
+struct ZstdShort {};  // the data ends: libzstd waits for more, libtiff stops asking
+
+[[gnu::noinline]] void unzstd(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
+  out.clear();
+  size_t flushed = 0;  // what has gone into the strip: whole blocks
+  size_t at = 0;
+  auto need = [&](size_t k) {
+    if (k > n - at) throw ZstdShort{};
+  };
+  try {
+    need(4);
+    const uint32_t magic = s[0] | s[1] << 8 | s[2] << 16 | (uint32_t)s[3] << 24;
+    if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) zstd_error("skippable frame, which ends the strip");
+    if (magic != 0xFD2FB528u) zstd_error("not a Zstandard frame");
+    at = 4;
+    need(1);
+    const uint8_t fhd = s[at++];
+    const int fcs_flag = fhd >> 6, did_flag = fhd & 3;
+    const bool single = fhd & 0x20, checksum = fhd & 4;
+    if (fhd & 8) zstd_error("reserved frame header bit set");
+    uint64_t window = 0;
+    if (!single) {
+      need(1);
+      const uint8_t wd = s[at++];
+      const int wlog = 10 + (wd >> 3);
+      window = (1ull << wlog) + ((1ull << wlog) / 8) * (wd & 7);
+    }
+    static const int did_size[4] = {0, 1, 2, 4};
+    uint32_t did = 0;
+    need(did_size[did_flag]);
+    for (int i = 0; i < did_size[did_flag]; ++i) did |= (uint32_t)s[at + i] << (8 * i);
+    at += did_size[did_flag];
+    if (did) zstd_error("frame wants a dictionary");
+    const int fcs_size = fcs_flag == 0 ? (single ? 1 : 0) : 1 << fcs_flag;
+    uint64_t content = ~0ull;
+    if (fcs_size) {
+      need(fcs_size);
+      content = 0;
+      for (int i = 0; i < fcs_size; ++i) content |= (uint64_t)s[at + i] << (8 * i);
+      if (fcs_size == 2) content += 256;
+      at += fcs_size;
+    }
+    if (single) window = content;
+    // A frame whose content fits the strip is decoded in one pass, which
+    // does not look at the window.
+    if (!(content != ~0ull && content <= want) && window > (1ull << 27) + 1)
+      zstd_error("window past libzstd's default maximum (windowLogMax 27)");
+    const size_t block_max = (size_t)std::min<uint64_t>(window, 128 * 1024);
+    ZstdFrame f;
+    std::vector<uint8_t> lit;
+    for (bool last = false; !last;) {
+      if (flushed >= want) {
+        // A full strip: the next unit is read only if the last block
+        // filled it whole (libzstd decodes on until it cannot hand on).
+        if (out.size() > want) break;
+      }
+      need(3);
+      const uint32_t bh = s[at] | s[at + 1] << 8 | (uint32_t)s[at + 2] << 16;
+      at += 3;
+      last = bh & 1;
+      const int type = (bh >> 1) & 3;
+      const size_t size = bh >> 3;
+      if (type == 3) zstd_error("reserved block type");
+      if (size > block_max) zstd_error("block larger than its maximum");
+      if (type == 0) {  // libzstd hands on a raw block's bytes as they come
+        const size_t have = std::min(size, n - at);
+        out.insert(out.end(), s + at, s + at + have);
+        at += have;
+        flushed = std::min(out.size(), want);
+        need(size - have);
+      } else if (type == 1) {
+        need(1);
+        out.insert(out.end(), size, s[at++]);
+      } else {
+        need(size);
+        if (size < 2) zstd_error("compressed block too short");
+        const size_t used = zstd_literals(s + at, size, f, lit);
+        zstd_sequences(s + at + used, size - used, f, lit, out, block_max);
+        at += size;
+      }
+      if (content != ~0ull && out.size() > content) zstd_error("frame longer than its content size");
+      flushed = std::min(out.size(), want);
+    }
+    if (flushed >= want && out.size() > want) {
+      out.resize(want);
+      return;
+    }
+    if (content != ~0ull && out.size() != content) zstd_error("frame shorter than its content size");
+    if (checksum) {
+      need(4);
+      const uint32_t c = s[at] | s[at + 1] << 8 | s[at + 2] << 16 | (uint32_t)s[at + 3] << 24;
+      if (c != (uint32_t)xxh64(out.data(), out.size())) zstd_error("frame checksum fails");
+    }
+    if (out.size() < want) zstd_error("frame ends before the strip is full");
+    out.resize(want);
+  } catch (const ZstdShort&) {
+    if (flushed >= want) {
+      out.resize(want);
+      return;
+    }
+    out.resize(flushed);
+    zstd_error("data ends early");
+  } catch (const DecodeError&) {
+    out.resize(std::min(flushed, want));
+    throw;
+  }
+}
+
 // ----------------------------------------------------------------- CCITT
+// Each byte's bits in reverse order, by byte.
+const uint8_t* reversed_bits() {
+  static const auto table = [] {
+    std::vector<uint8_t> r(256);
+    for (int b = 0; b < 256; ++b) {
+      int v = 0;
+      for (int k = 0; k < 8; ++k) v |= ((b >> k) & 1) << (7 - k);
+      r[b] = (uint8_t)v;
+    }
+    return r;
+  }();
+  return table.data();
+}
+
 // Bilevel fax coding in TIFF (ITU-T T.4 and T.6), decoded to rows of 1-bit
 // samples, MSB first, a black run as 1 bits (the raw samples libtiff's fax
 // codec returns; PhotometricInterpretation then says which bit is white).
@@ -2600,7 +3977,8 @@ void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>&
 // decoder finds it: any bits up to 11 zeros, the zeros, then a 1), then
 // with T4Options bit 0 a tag bit (1: a 1-D row, 0: a 2-D row). Compression
 // 4 is T.6: 2-D rows back to back. Each strip starts on an all-white
-// reference line.
+// reference line. The decoder is libtiff's (tif_fax3.c, tif_fax3.h), so
+// that damaged code reads as PIL reads it (fax_strip).
 
 // The terminating (0-63) and make-up (64-1728) codes of each colour, then
 // the extended make-up codes (1792-2560) both colours share.
@@ -2644,180 +4022,391 @@ const char* const kExtendedCodes[] = {  // 1792, 1856, ..., 2560
     "000000010100", "000000010101", "000000010110", "000000010111", "000000011100",
     "000000011101", "000000011110", "000000011111"};
 
-constexpr int kPeek = 13;     // the longest run code
-constexpr int16_t kEol = -1;  // 000000000001
-constexpr int16_t kBad = -2;
+// libtiff's tables (mkg3states.c): an entry per next 7 (modes), 12 (white
+// runs) or 13 (black runs) bits, read LSB first, of what the code is, its
+// length and its run. A bit string no code starts is kFaxNull of length 0;
+// libtiff's EOL is 7 zeros among the modes and 11 among the runs.
+enum : uint8_t {
+  kFaxNull, kFaxPass, kFaxHoriz, kFaxV0, kFaxVR, kFaxVL, kFaxExt, kFaxTermW, kFaxTermB,
+  kFaxMakeUpW, kFaxMakeUpB, kFaxMakeUp, kFaxEol
+};
 
-// Per colour, the next 13 bits -> (code length, run length or kEol/kBad).
-struct RunTable {
-  uint8_t len[1 << kPeek];
-  int16_t run[1 << kPeek];
-  void add(const char* code, int16_t value) {
-    int l = (int)std::strlen(code), c = 0;
-    for (int i = 0; i < l; ++i) c = (c << 1) | (code[i] - '0');
-    for (int t = 0; t < 1 << (kPeek - l); ++t) {
-      len[(c << (kPeek - l)) | t] = (uint8_t)l;
-      run[(c << (kPeek - l)) | t] = value;
-    }
+struct FaxEntry {
+  uint8_t state, width;
+  uint16_t param;
+};
+
+struct FaxTables {
+  FaxEntry main[1 << 7], white[1 << 12], black[1 << 13];
+  static void add(FaxEntry* t, int size, const char* code, uint8_t state, int param) {
+    const int w = (int)std::strlen(code);
+    int at = 0;
+    for (int i = 0; i < w; ++i) at |= (code[i] - '0') << i;
+    for (int k = at; k < 1 << size; k += 1 << w) t[k] = FaxEntry{state, (uint8_t)w, (uint16_t)param};
   }
-  explicit RunTable(const char* const* codes) {
-    std::fill(len, len + (1 << kPeek), 0);
-    std::fill(run, run + (1 << kPeek), kBad);
-    for (int i = 0; i < 64; ++i) add(codes[i], (int16_t)i);
-    for (int i = 0; i < 27; ++i) add(codes[64 + i], (int16_t)(64 * (i + 1)));
-    for (int i = 0; i < 13; ++i) add(kExtendedCodes[i], (int16_t)(1792 + 64 * i));
-    add("000000000001", kEol);
+  FaxTables() {
+    std::memset(this, 0, sizeof *this);
+    static const struct { const char* code; uint8_t state; int param; } modes[] = {
+        {"0001", kFaxPass, 0},   {"001", kFaxHoriz, 0},   {"1", kFaxV0, 0},
+        {"011", kFaxVR, 1},      {"000011", kFaxVR, 2},   {"0000011", kFaxVR, 3},
+        {"010", kFaxVL, 1},      {"000010", kFaxVL, 2},   {"0000010", kFaxVL, 3},
+        {"0000001", kFaxExt, 0}, {"0000000", kFaxEol, 0}};
+    for (const auto& m : modes) add(main, 7, m.code, m.state, m.param);
+    for (int c = 0; c < 2; ++c) {
+      FaxEntry* t = c ? black : white;
+      const int size = c ? 13 : 12;
+      const char* const* codes = c ? kBlackCodes : kWhiteCodes;
+      for (int i = 0; i < 64; ++i) add(t, size, codes[i], c ? kFaxTermB : kFaxTermW, i);
+      for (int i = 0; i < 27; ++i) add(t, size, codes[64 + i], c ? kFaxMakeUpB : kFaxMakeUpW, 64 * (i + 1));
+      for (int i = 0; i < 13; ++i) add(t, size, kExtendedCodes[i], kFaxMakeUp, 1792 + 64 * i);
+      add(t, size, "00000000000", kFaxEol, 0);
+    }
   }
 };
 
-const RunTable& run_table(bool black) {
-  static const RunTable white(kWhiteCodes), blk(kBlackCodes);
-  return black ? blk : white;
+const FaxTables& fax_tables() {
+  static const FaxTables t;
+  return t;
 }
 
-struct FaxBits {
-  const uint8_t* s;
-  size_t nbits;
-  size_t pos = 0;
-  uint32_t peek(int k) const {  // the next k <= 24 bits, zeros past the end
-    uint32_t v = 0;
-    size_t byte = pos >> 3;
-    for (int i = 0; i < 4; ++i) v = (v << 8) | (byte + i < nbits / 8 ? s[byte + i] : 0u);
-    return (v << (pos & 7)) >> (32 - k);
-  }
-  void skip(int k) {
-    pos += (size_t)k;
-    if (pos > nbits) corrupt("CCITT data ends early");
-  }
-  void align() { pos = (pos + 7) & ~(size_t)7; }
-  // libtiff's SYNC_EOL: any bits up to 11 zeros, the zeros, then the 1.
-  void sync_eol() {
-    while (peek(11) != 0) skip(1);
-    while (peek(1) == 0) skip(1);
-    skip(1);
+// What libtiff keeps of one image's fax decoding from strip to strip
+// (Fax3CodecState): its run arrays, zeroed once and then holding each row's
+// runs, which a damaged row may read past its reference line's end; and
+// FAXMODE_NOEOL, set once a T.4 strip shows no EOL.
+struct FaxCodec {
+  int width;
+  uint32_t compression;
+  bool two_d;  // a reference line: T.4 2-D or T.6
+  bool no_eol;
+  uint32_t nruns;
+  std::vector<uint32_t> runs;  // current and reference line, nruns each
+  FaxCodec(uint32_t w, uint32_t c, uint32_t t4opts)
+      : width((int)w), compression(c), two_d(c == 4 || (c == 3 && (t4opts & 1))), no_eol(c == 2) {
+    nruns = (w + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
+    runs.assign(2 * (size_t)nruns + 2, 0);
   }
 };
 
-// One run of `black` pixels: make-up codes, then a terminating code.
-int fax_run(FaxBits& b, bool black) {
-  const RunTable& t = run_table(black);
-  int total = 0;
-  for (;;) {
-    uint32_t c = b.peek(kPeek);
-    int16_t r = t.run[c];
-    if (r == kEol) corrupt("CCITT row ends early (EOL)");
-    if (r == kBad) corrupt("bad CCITT run code");
-    b.skip(t.len[c]);
-    total += r;
-    if (r < 64) return total;
+struct FaxEof {};
+
+// Bits x0 .. x1 of a row of 1-bit samples (MSB first) set or cleared.
+inline void fax_span(uint8_t* row, uint32_t x0, uint32_t x1, bool black) {
+  if (x0 >= x1) return;
+  const uint32_t b0 = x0 >> 3, b1 = (x1 - 1) >> 3;
+  const uint8_t head = (uint8_t)(0xFF >> (x0 & 7)), tail = (uint8_t)(0xFF << (7 - ((x1 - 1) & 7)));
+  if (b0 == b1) {
+    const uint8_t m = head & tail;
+    row[b0] = black ? row[b0] | m : row[b0] & ~m;
+    return;
   }
+  row[b0] = black ? row[b0] | head : row[b0] & ~head;
+  if (b1 > b0 + 1) std::memset(row + b0 + 1, black ? 0xFF : 0, b1 - b0 - 1);
+  row[b1] = black ? row[b1] | tail : row[b1] & ~tail;
 }
 
-// A 1-D row: alternating white and black runs from white, until they fill
-// the width. `cur` receives the changing elements (where the colour flips).
-void fax_row_1d(FaxBits& b, int W, std::vector<int>& cur) {
-  cur.clear();
-  int a0 = 0;
-  for (bool black = false;; black = !black) {
-    a0 += fax_run(b, black);
-    if (a0 > W) corrupt("CCITT row longer than the image");
-    if (a0 == W) return;
-    cur.push_back(a0);
-  }
-}
-
-// A 2-D row against the reference line's changing elements `ref` (then
-// two entries W): pass, horizontal and vertical modes until a0 reaches W.
-void fax_row_2d(FaxBits& b, int W, const std::vector<int>& ref, std::vector<int>& cur) {
-  cur.clear();
-  int a0 = -1;         // the imaginary white element before the row
-  bool black = false;  // a0's colour
-  size_t j = 0;
-  while (a0 < W) {
-    // b1: the first change on the reference line right of a0 to the colour
-    // opposite a0's (even entries change to black); b2: the change after it.
-    j = j > 0 ? j - 1 : 0;
-    while (ref[j] <= a0 || (j & 1) != (size_t)black) ++j;
-    const int b1 = ref[j], b2 = ref[j + 1];
-    const uint32_t c = b.peek(7);
-    int d;
-    if (c >= 64) {  // 1: V0
-      b.skip(1);
-      d = 0;
-    } else if (c >= 32) {  // 011: VR1, 010: VL1
-      b.skip(3);
-      d = c >= 48 ? 1 : -1;
-    } else if (c >= 16) {  // 001: horizontal, two runs from a0
-      b.skip(3);
-      const int a1 = std::max(a0, 0) + fax_run(b, black);
-      const int a2 = a1 + fax_run(b, !black);
-      if (a2 > W) corrupt("CCITT row longer than the image");
-      if (a1 < W) cur.push_back(a1);
-      if (a2 < W) cur.push_back(a2);
-      a0 = a2;
-      continue;
-    } else if (c >= 8) {  // 0001: pass, a0 to b2 in its colour
-      b.skip(4);
-      a0 = b2;
-      continue;
-    } else if (c >= 4) {  // 000011: VR2, 000010: VL2
-      b.skip(6);
-      d = c >= 6 ? 2 : -2;
-    } else if (c >= 2) {  // 0000011: VR3, 0000010: VL3
-      b.skip(7);
-      d = c == 3 ? 3 : -3;
-    } else if (c == 1) {
-      corrupt("CCITT extension code in 2-D data");
-    } else {
-      corrupt(b.peek(12) == 1 ? "CCITT row ends early (EOL)" : "bad CCITT mode code");
-    }
-    const int a1 = b1 + d;  // a vertical mode
-    if (a1 < std::max(a0, 0) || a1 > W) corrupt("bad CCITT vertical mode");
-    if (a1 < W) cur.push_back(a1);
-    a0 = a1;
-    black = !black;
-  }
-}
-
-// One strip of `rows` rows, `W` wide: `n` bytes of code -> rows of
-// (W + 7) / 8 bytes.
-std::vector<uint8_t> ccitt(const uint8_t* s, size_t n, uint32_t W, uint32_t rows,
-                           uint32_t compression, uint32_t t4opts) {
-  const size_t rb = ((size_t)W + 7) / 8;
-  std::vector<uint8_t> out(rb * rows, 0);
-  FaxBits b{s, n * 8};
-  std::vector<int> ref{(int)W, (int)W}, cur;
-  cur.reserve(W + 2);
-  for (uint32_t r = 0; r < rows; ++r) {
-    bool two_d = compression == 4;
-    if (compression == 3) {
-      b.sync_eol();
-      if (t4opts & 1) {
-        two_d = b.peek(1) == 0;
-        b.skip(1);
+// One strip of `rows` rows as libtiff's decoder (Fax3DecodeRLE,
+// Fax3Decode1D, Fax3Decode2D, Fax4Decode with the macros of tif_fax3.h)
+// writes it into PIL's strip buffer `out` (rows of rb bytes): a bad code,
+// an EOL inside a row or a row too long or short ends the row there, which
+// is then cut or padded to the width in the colour it had reached
+// (CLEANUP_RUNS) and kept as the next row's reference; T.4 finds the next
+// row's EOL past what is left; past the data's end the reader takes zero
+// bits while bits it took from the data are left unread. A T.4 strip whose
+// EOL search runs out of data is read again from its first bit without
+// EOLs, from that row on and in every later strip (FAXMODE_NOEOL). Group 4
+// ends a strip at an EOL or the data's end, and keeps its decoded rows
+// unless that was in the first; the rows it did not reach keep what the
+// buffer held (the previous strip's rows; zeros before the first strip).
+// Corrupt where libtiff's decoder returns -1, as PIL then refuses the file.
+void fax_strip(FaxCodec& f, const uint8_t* d, size_t n, uint32_t rows, uint8_t* out, size_t rb) {
+  const FaxTables& T = fax_tables();
+  const uint8_t* rev = reversed_bits();  // libtiff's reader takes each byte's bits LSB first
+  const int lastx = f.width;
+  const uint32_t nruns = f.nruns;
+  uint32_t* R = f.runs.data();
+  uint32_t acc = 0;
+  size_t cp = 0;
+  int avail = 0, eolcnt = 0;
+  const size_t ep = n;
+  uint32_t cur = 0, ref = nruns, thisrun = 0, pa = 0, pb = 0;
+  int a0 = 0, rl = 0, b1 = 0;
+  auto need8 = [&](int k) __attribute__((always_inline)) {
+    if (avail < k) {
+      if (cp >= ep) {
+        if (avail == 0) throw FaxEof{};
+        avail = k;  // zeros
+      } else {
+        acc |= (uint32_t)rev[d[cp++]] << avail;
+        avail += 8;
       }
     }
-    if (two_d)
-      fax_row_2d(b, (int)W, ref, cur);
-    else
-      fax_row_1d(b, (int)W, cur);
-    if (compression == 2) b.align();
-    uint8_t* row = &out[r * rb];
-    for (size_t i = 0; i < cur.size(); i += 2) {  // black from cur[i] to cur[i + 1]
-      const int x0 = cur[i], x1 = i + 1 < cur.size() ? cur[i + 1] : (int)W;
-      int x = x0;
-      for (; x < x1 && (x & 7); ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
-      if (x1 - x >= 8) {
-        std::memset(row + (x >> 3), 0xFF, (size_t)((x1 - x) >> 3));
-        x += (x1 - x) & ~7;
+  };
+  auto need16 = [&](int k) __attribute__((always_inline)) {
+    if (avail < k) {
+      if (cp >= ep) {
+        if (avail == 0) throw FaxEof{};
+        avail = k;
+      } else {
+        acc |= (uint32_t)rev[d[cp++]] << avail;
+        if ((avail += 8) < k) {
+          if (cp >= ep) {
+            avail = k;
+          } else {
+            acc |= (uint32_t)rev[d[cp++]] << avail;
+            avail += 8;
+          }
+        }
       }
-      for (; x < x1; ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
     }
-    ref.assign(cur.begin(), cur.end());
-    ref.push_back((int)W);
-    ref.push_back((int)W);
+  };
+  auto clr = [&](int k) __attribute__((always_inline)) {
+    avail -= k;
+    acc >>= k;
+  };
+  auto lookup = [&](const FaxEntry* t, int wid) __attribute__((always_inline)) -> const FaxEntry& {
+    need16(wid);
+    const FaxEntry& e = t[acc & ((1u << wid) - 1)];
+    clr(e.width);
+    return e;
+  };
+  auto setvalue = [&](int x) __attribute__((always_inline)) {
+    if (pa >= thisrun + nruns) corrupt("CCITT row of more runs than libtiff's buffer");
+    R[pa++] = (uint32_t)(rl + x);
+    a0 += x;
+    rl = 0;
+  };
+  auto cleanup = [&]() __attribute__((always_inline)) {  // CLEANUP_RUNS
+    if (rl) setvalue(0);
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > thisrun) a0 -= (int)R[--pa];
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if ((pa - thisrun) & 1) setvalue(0);
+        setvalue(lastx - a0);
+      } else if (a0 > lastx) {
+        setvalue(lastx);
+        setvalue(0);
+      }
+    }
+  };
+  auto fill = [&](uint32_t y) __attribute__((always_inline)) {  // _TIFFFax3fillruns, which cuts the runs it is given to the row
+    uint8_t* row = out + (size_t)y * rb;
+    uint32_t e = pa, x = 0;
+    if ((e - thisrun) & 1) R[e++] = 0;
+    for (uint32_t i = thisrun; i < e; i += 2)
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t run = R[i + c];
+        if (x + run > (uint32_t)lastx || run > (uint32_t)lastx) R[i + c] = lastx - x;
+        fax_span(row, x, x + R[i + c], c == 1);
+        x += R[i + c];
+      }
+  };
+  // EXPAND1D's runs up to its end (the row full, an EOL, a bad code);
+  // FaxEof past the data.
+  auto runs1d = [&]() __attribute__((always_inline)) {
+    for (;;) {
+      for (int black = 0; black < 2; ++black) {
+        for (;;) {
+          const FaxEntry& e = black ? lookup(T.black, 13) : lookup(T.white, 12);
+          if (e.state == (black ? kFaxTermB : kFaxTermW)) {
+            setvalue(e.param);
+            break;
+          }
+          if (e.state == (black ? kFaxMakeUpB : kFaxMakeUpW) || e.state == kFaxMakeUp) {
+            a0 += e.param;
+            rl += e.param;
+            continue;
+          }
+          if (e.state == kFaxEol) eolcnt = 1;
+          return;
+        }
+        if (a0 >= lastx) return;
+      }
+      if (R[pa - 1] == 0 && R[pa - 2] == 0) pa -= 2;
+    }
+  };
+  auto check_b1 = [&]() __attribute__((always_inline)) {
+    if (pa != thisrun)
+      while (b1 <= a0 && b1 < lastx) {
+        if (pb + 1 >= ref + nruns) corrupt("CCITT reference line past libtiff's buffer");
+        b1 += (int)(R[pb] + R[pb + 1]);
+        pb += 2;
+      }
+  };
+  // EXPAND2D up to its end.
+  auto runs2d = [&]() __attribute__((always_inline)) {
+    while (a0 < lastx) {
+      if (pa >= thisrun + nruns) corrupt("CCITT row of more runs than libtiff's buffer");
+      need8(7);
+      const FaxEntry& e = T.main[acc & 0x7F];
+      clr(e.width);
+      switch (e.state) {
+        case kFaxPass:
+          check_b1();
+          if (pb + 1 >= ref + nruns) corrupt("CCITT reference line past libtiff's buffer");
+          b1 += (int)R[pb++];
+          rl += b1 - a0;
+          a0 = b1;
+          b1 += (int)R[pb++];
+          break;
+        case kFaxHoriz:
+          for (int k = 0; k < 2; ++k) {  // black first after an odd number of runs
+            const bool black = ((pa - thisrun) & 1) != 0;
+            for (;;) {
+              const FaxEntry& r = black ? lookup(T.black, 13) : lookup(T.white, 12);
+              if (r.state == (black ? kFaxTermB : kFaxTermW)) {
+                setvalue(r.param);
+                break;
+              }
+              if (r.state == (black ? kFaxMakeUpB : kFaxMakeUpW) || r.state == kFaxMakeUp) {
+                a0 += r.param;
+                rl += r.param;
+                continue;
+              }
+              return;
+            }
+          }
+          check_b1();
+          break;
+        case kFaxV0:
+        case kFaxVR:
+          check_b1();
+          setvalue(b1 - a0 + e.param);
+          if (pb >= ref + nruns) corrupt("CCITT reference line past libtiff's buffer");
+          b1 += (int)R[pb++];
+          break;
+        case kFaxVL:
+          check_b1();
+          if (b1 < a0 + e.param) return;
+          setvalue(b1 - a0 - e.param);
+          b1 -= (int)R[--pb];
+          break;
+        case kFaxExt:
+          R[pa++] = (uint32_t)(lastx - a0);
+          return;
+        case kFaxEol:
+          R[pa++] = (uint32_t)(lastx - a0);
+          need8(4);
+          clr(4);
+          eolcnt = 1;
+          return;
+        default:
+          return;
+      }
+    }
+    if (rl) {
+      if (rl + a0 < lastx) {  // a final V0
+        need8(1);
+        if (!(acc & 1)) return;
+        clr(1);
+      }
+      setvalue(0);
+    }
+  };
+  auto expand = [&](bool two) __attribute__((always_inline)) {  // the runs, then CLEANUP_RUNS, also past the data's end
+    try {
+      two ? runs2d() : runs1d();
+    } catch (const FaxEof&) {
+      cleanup();
+      throw;
+    }
+    cleanup();
+  };
+  auto sync_eol = [&]() __attribute__((always_inline)) {  // SYNC_EOL
+    if (eolcnt == 0)
+      for (;;) {
+        need16(11);
+        if ((acc & 0x7FF) == 0) break;
+        clr(1);
+      }
+    for (;;) {
+      need8(8);
+      if (acc & 0xFF) break;
+      clr(8);
+    }
+    while (!(acc & 1)) clr(1);
+    clr(1);
+    eolcnt = 0;
+  };
+
+  if (f.two_d) {
+    R[ref] = (uint32_t)lastx;
+    R[ref + 1] = 0;
   }
-  return out;
+  for (uint32_t y = 0; y < rows; ++y) {
+    a0 = rl = 0;
+    thisrun = pa = cur;
+    if (f.compression == 4) {
+      pb = ref;
+      b1 = (int)R[pb++];
+      bool eof = false;
+      try {
+        expand(true);
+      } catch (const FaxEof&) {
+        eof = true;
+      }
+      if (!eof && !eolcnt) {
+        fill(y);
+        setvalue(0);
+        std::swap(cur, ref);
+        continue;
+      }
+      try {  // the EOFB
+        need16(13);
+      } catch (const FaxEof&) {
+      }
+      clr(13);
+      fill(y);
+      if (y == 0) corrupt("CCITT Group 4 strip that ends in its first row");
+      return;
+    }
+    if (f.compression == 2) {
+      try {
+        expand(false);
+      } catch (const FaxEof&) {
+        fill(y);
+        corrupt("CCITT data ends early");
+      }
+      fill(y);
+      clr(avail & 7);  // the row ends on a byte
+      continue;
+    }
+    bool is1d = true;
+    try {
+      if (!f.no_eol) {
+        try {
+          sync_eol();
+        } catch (const FaxEof&) {
+          f.no_eol = true;  // read again from the strip's first bit, without EOLs
+          acc = 0;
+          cp = 0;
+          avail = eolcnt = 0;
+        }
+      }
+      if (f.two_d) {
+        need8(1);
+        is1d = acc & 1;
+        clr(1);
+        pb = ref;
+        b1 = (int)R[pb++];
+      }
+    } catch (const FaxEof&) {
+      cleanup();
+      fill(y);
+      corrupt("CCITT data ends early");
+    }
+    try {
+      expand(!is1d);
+    } catch (const FaxEof&) {
+      fill(y);
+      corrupt("CCITT data ends early");
+    }
+    fill(y);
+    if (f.two_d) {
+      if (pa < thisrun + nruns) setvalue(0);
+      std::swap(cur, ref);
+    }
+  }
 }
 
 // 1-bit samples, MSB first -> 8 grey pixels per byte: 255 for a 1 bit, or
@@ -3660,34 +5249,24 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
 }
 
 // A strip's or tile's bytes from the file, decompressed into `want` bytes
-// of `out` (CCITT: `rows` rows of cw samples), each byte's bits reversed
-// first for FillOrder 2; `out` keeps what a failing codec decoded. Not
-// inlined, six register arguments (see jpeg_tiff).
+// of `out` (CCITT: `rows` rows of cw samples, over what `out` held from the
+// previous strip, as PIL's strip buffer), each byte's bits reversed first
+// for FillOrder 2; `out` keeps what a failing codec decoded. Not inlined,
+// six register arguments (see jpeg_tiff).
 struct TiffCodec {
   const Tiff* t;
-  uint32_t compression, cw, t4opts;
+  uint32_t compression, cw;
   bool reverse;
+  FaxCodec* fax;  // the fax codings' state from strip to strip
 };
 
-const uint8_t* reversed_bits() {
-  static const auto table = [] {
-    std::vector<uint8_t> r(256);
-    for (int b = 0; b < 256; ++b) {
-      int v = 0;
-      for (int k = 0; k < 8; ++k) v |= ((b >> k) & 1) << (7 - k);
-      r[b] = (uint8_t)v;
-    }
-    return r;
-  }();
-  return table.data();
-}
 
 [[gnu::noinline]] void tiff_chunk(const TiffCodec& k, size_t off, size_t cnt, size_t want,
                                   uint32_t rows, std::vector<uint8_t>& out) {
   const Tiff& t = *k.t;
   std::vector<uint8_t> rev;
   const uint8_t* s = t.d + off;
-  out.clear();
+  if (!k.fax) out.clear();
   if (k.compression == 1) {
     if (off > t.n || want > t.n - off) corrupt("TIFF image data ends early");
     cnt = want;
@@ -3702,9 +5281,14 @@ const uint8_t* reversed_bits() {
   }
   switch (k.compression) {
     case 1: out.assign(s, s + want); break;
-    case 2: case 3: case 4: out = ccitt(s, cnt, k.cw, rows, k.compression, k.t4opts); break;
+    case 2: case 3: case 4:  // into PIL's strip buffer, which keeps what libtiff does not write
+      out.resize(want);
+      fax_strip(*k.fax, s, cnt, rows, out.data(), ((size_t)k.cw + 7) / 8);
+      break;
     case 5: lzw(s, cnt, want, out); break;
     case 8: case 32946: inflate_zlib(s, cnt, want, out); break;
+    case 34925: unxz(s, cnt, want, out); break;
+    case 50000: unzstd(s, cnt, want, out); break;
     default: packbits(s, cnt, want, out); break;
   }
 }
@@ -3990,7 +5574,8 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
 
   // Kinds PIL reads and the port does not yet (ROADMAP A.6).
   const bool ojpeg = compression == 6;
-  if (lib && compression != 5 && compression != 32773 && !fax && !jpeg && !zip && !ojpeg)
+  if (lib && compression != 5 && compression != 32773 && compression != 34925 && compression != 50000 &&
+      !fax && !jpeg && !zip && !ojpeg)
     unsupported("TIFF compression " + std::to_string(compression));
   const bool planes = spp > 1 && planar == 2;
   if ((jpeg || ojpeg) && planes)
@@ -4063,8 +5648,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (lib && offsets.size() < (size_t)across * down * nplanes)
     corrupt("TIFF has too few strips or tiles");
   if (lib && dir.counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
-  const TiffCodec codec{&t, compression, cw, t4opts,
-                        (lib ? dir.codec_fill : fill) == 2 && !jpeg && !ojpeg};
+  std::unique_ptr<FaxCodec> fax_codec(fax ? new FaxCodec(cw, compression, t4opts) : nullptr);
+  const TiffCodec codec{&t, compression, cw, (lib ? dir.codec_fill : fill) == 2 && !jpeg && !ojpeg,
+                        fax_codec.get()};
 
   Gray g;
   g.w = (int)W;

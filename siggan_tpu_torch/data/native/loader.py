@@ -1,6 +1,6 @@
 """ctypes binding of the port's host image decoder, ``decode.cpp``.
 
-The decoder reads JPEG, BMP and TIFF files (BigTIFF among them) to 8-bit grey, as PIL's
+The decoder reads JPEG, BMP and TIFF files (BigTIFF, LZMA and ZSTD among them) to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
 files are recognised and left to ``infer/export.py::decode_png``, which
 inflates their rows with zlib and undoes the row filters here
@@ -44,8 +44,12 @@ SOURCE = Path(__file__).with_name("decode.cpp")
 # 64 KB blocks and libjpeg-turbo's bit-buffer fills; an arithmetic-coded
 # scan past a block is refused), and libtiff's tag types in compressed TIFF
 # (a tag of a type it cannot read is refused, a missing StripByteCounts
-# estimated), so pixels become zero images and zero images pixels.
-DECODE_VERSION = "d4"
+# estimated), so pixels become zero images and zero images pixels; d5:
+# damaged CCITT data read as libtiff's fax decoder reads it (a bad code or
+# a row of the wrong length cut or padded and decoding going on, T.4
+# without EOLs, Group 4 strips that end early keeping their rows), so
+# files that were zero images decode.
+DECODE_VERSION = "d5"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 

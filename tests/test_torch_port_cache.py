@@ -31,7 +31,8 @@ def test_cache_name_carries_the_port_and_the_decoder_version(pngs):
     np.testing.assert_array_equal(np.load(pngs / name), ds.images)
 
 
-@pytest.mark.parametrize("planted", ["jax", "older port tag", "untagged port name", "d3 tag"])
+@pytest.mark.parametrize("planted", ["jax", "older port tag", "untagged port name", "d3 tag",
+                                     "d4 tag"])
 def test_foreign_and_stale_caches_are_ignored(pngs, planted):
     """A cache of wrong pixels under another name is not read; the port
     decodes and writes its own."""
@@ -44,6 +45,8 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
         name = f".siggan_torch_cache_64_d1_{sig}"
     elif planted == "d3 tag":  # written before C.13's last repairs and A.6.7-A.6.12
         name = f".siggan_torch_cache_64_d3_{sig}"
+    elif planted == "d4 tag":  # written before damaged CCITT data was read as libtiff reads it
+        name = f".siggan_torch_cache_64_d4_{sig}"
     else:
         name = f".siggan_cache_64_{sig}"
     assert name != own
@@ -56,15 +59,16 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
 
 def test_a_d3_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path):
     """A tree with a BigTIFF (d3 raised on it; d4 reads it) and a d3 cache
-    holding other pixels: the dataset decodes anew under d4's name."""
+    holding other pixels: the dataset decodes anew under its own name (d5
+    since damaged CCITT data decodes)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=4)
     scan = (np.random.RandomState(5).rand(30, 50) * 255).astype(np.uint8)
     Image.fromarray(scan).save(tmp_path / "scan.tif", big_tiff=True)
-    assert tnative.DECODE_VERSION == "d4"
+    assert tnative.DECODE_VERSION == "d5"
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    np.save(tmp_path / own.replace("_d4_", "_d3_"), np.zeros_like(want.images))
+    np.save(tmp_path / own.replace("_d5_", "_d3_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)

@@ -11,9 +11,10 @@ Each is read bit-equal with PIL's ``convert("L")`` through
 ``decode_gray``, ``data/dataset.py::decode_image`` and
 ``cli/preprocess.py::load_canvas`` against the JAX package's, and so is
 Group 4 with FillOrder 2 (A.6.10). What stays refused (uncompressed mode,
-CCITT in tiles) raises ``NotImplementedError`` naming ROADMAP A.6;
-truncated or invalid code data is a corrupt file (a zero image with a
-warning)."""
+CCITT in tiles) raises ``NotImplementedError`` naming ROADMAP A.6.
+Damaged code data reads as libtiff's fax decoder reads it for PIL (C.14;
+``tests/test_torch_port_ccitt_damage.py``): a file PIL refuses is corrupt
+(a zero image with a warning)."""
 
 import io
 import logging
@@ -29,8 +30,9 @@ from siggan_tpu.data import dataset as jdataset
 from siggan_tpu.data.native import loader as jnative
 from siggan_tpu_torch.data import dataset as tdataset
 from siggan_tpu_torch.data.native import loader as tnative
-from test_torch_port_decode import (SETTINGS, assert_port_reads_as_pil, layout_tags, pixels,
-                                    tiff_file)
+from test_torch_port_decode import (SETTINGS, assert_port_reads_as_pil, layout_tags, pil_gray,
+                                    pixels, tiff_file)
+from torch_port_libtiff import assert_reads_as_libtiff
 
 # Compression name and T4Options of each coding PIL writes.
 CODINGS = {"mh": ("tiff_ccitt", None), "t4_1d": ("group3", None),
@@ -200,34 +202,62 @@ def test_group4_with_fill_order_2_reads_as_pil(tmp_path):
     assert_port_reads_as_pil(path)
 
 
-@pytest.mark.parametrize("damage,message", [
-    ("cut_strip", "bad CCITT run code"),            # the strip's byte count cut to a third
-    ("garbage", "bad CCITT mode code"),
-    ("eol_missing", "CCITT data ends early"),       # 1-D rows with no EOL to find
-    ("too_long", "CCITT row longer than the image"),
-])
-def test_bad_code_data_is_a_corrupt_file(tmp_path, caplog, damage, message):
+def damaged_file(damage: str) -> bytes:
+    """A 50 x 20 page's strip, damaged: ``cut_strip`` (its byte count cut
+    to a third), ``garbage`` (an EOL then zeros), ``eol_missing`` (T.4 1-D
+    rows of 1 bits, no EOL to find), ``too_long`` (horizontal mode "001",
+    white 64 + 0 ("11011" "00110101"), black 0: past the 50 px)."""
     img = page(np.random.RandomState(3), 20, 50, "strokes")
-    coding = "t4_1d" if damage == "eol_missing" else "t6"
-    data = ccitt_bytes(img, coding)
+    data = ccitt_bytes(img, "t4_1d" if damage == "eol_missing" else "t6")
     (strip,) = strips(data)
     if damage == "cut_strip":
-        data = patch_tag(data, 279, len(strip) // 3)
-    elif damage == "garbage":
-        data = wrap(50, 20, [b"\x00\x01" + bytes(len(strip))], 4)
-    elif damage == "eol_missing":
-        data = wrap(50, 20, [b"\xff" * len(strip)], 3)
-    else:   # horizontal mode "001", white 64 + 0 ("11011" "00110101"), black 0 in 50 px
-        data = wrap(50, 20, [int("00111011001101010000110111".ljust(32, "0"), 2)
-                             .to_bytes(4, "big")], 4)
+        return patch_tag(data, 279, len(strip) // 3)
+    if damage == "garbage":
+        return wrap(50, 20, [b"\x00\x01" + bytes(len(strip))], 4)
+    if damage == "eol_missing":
+        return wrap(50, 20, [b"\xff" * len(strip)], 3)
+    return wrap(50, 20, [int("00111011001101010000110111".ljust(32, "0"), 2).to_bytes(4, "big")], 4)
+
+
+@pytest.mark.parametrize("damage,message", [
+    ("garbage", "CCITT Group 4 strip that ends in its first row"),
+])
+def test_bad_code_data_is_a_corrupt_file(tmp_path, caplog, damage, message):
+    """A Group 4 strip whose first row meets an EOL fails in libtiff's
+    decoder, and PIL refuses the file: a zero image, as in the JAX package."""
+    data = damaged_file(damage)
     with pytest.raises(ValueError, match=message):
         tnative.decode(data)
+    with pytest.raises(OSError):
+        pil_l(data)
     path = tmp_path / f"{damage}.tif"
     path.write_bytes(data)
     with caplog.at_level(logging.WARNING):
         out = tdataset.decode_image(path, 16)
     assert out.shape == (16, 16, 1) and not out.any()
     assert "using zero image" in caplog.text
+    np.testing.assert_array_equal(jdataset.decode_image(path, 16), out)
+
+
+@pytest.mark.parametrize("damage", ["cut_strip", "eol_missing", "too_long"])
+def test_damaged_code_data_reads_as_pil(tmp_path, damage):
+    """Damaged fax data that PIL reads (C.14): libtiff's decoder ends a bad
+    row in the colour it reached and goes on (T.4 without EOLs is read from
+    the strip's first bit; Group 4 keeps the rows before a fault). The rows
+    a Group 4 strip did not reach (``cut_strip`` after row 10, ``too_long``
+    after row 1) are PIL's uncleared strip buffer, which differs from run to
+    run: there the port gives its cleared buffer's rows, and is held to PIL
+    and to the JAX package on the rows libtiff wrote; ``eol_missing`` is
+    written whole and held whole."""
+    data = damaged_file(damage)
+    path = tmp_path / f"{damage}.tif"
+    path.write_bytes(data)
+    grey, written = assert_reads_as_libtiff(data, tmp_path, reads=True)
+    rows = written.all(axis=1)
+    assert rows.sum() == {"cut_strip": 11, "eol_missing": 20, "too_long": 2}[damage]
+    np.testing.assert_array_equal(pil_gray(path)[rows], tdataset.decode_gray(path)[rows])
+    if rows.all():
+        assert_port_reads_as_pil(path)
 
 
 def test_dataset_over_a_mixed_tree_matches_jax(tmp_path, monkeypatch):

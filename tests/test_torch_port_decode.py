@@ -636,18 +636,21 @@ def _unsupported_files(tmp_path):
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
     from test_torch_port_ccitt import refused_files
-    Image.fromarray(img).save(tmp_path / "lzma.tif", compression="lzma")
-    Image.fromarray(img).save(tmp_path / "zstd.tif", compression="zstd")
-    (tmp_path / "ccitt_tiles.tif").write_bytes(refused_files()[0]["tiles"][0])
-    return {"lzma.tif": "compression 34925", "zstd.tif": "compression 50000",
+    refused = refused_files()[0]
+    for name in ("t4_uncompressed", "t6_uncompressed"):
+        (tmp_path / f"{name}.tif").write_bytes(refused[name][0])
+    (tmp_path / "ccitt_tiles.tif").write_bytes(refused["tiles"][0])
+    return {"t4_uncompressed.tif": "uncompressed mode", "t6_uncompressed.tif": "uncompressed mode",
             "ccitt_tiles.tif": "in tiles"}
 
 
 def _now_read_files(root):
     """The kinds this test held as unread before A.6.7-A.6.10: CCITT with
-    FillOrder 2, BigTIFF, planar RGB."""
+    FillOrder 2, BigTIFF, planar RGB; before A.6.13-A.6.14: LZMA and ZSTD."""
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
+    Image.fromarray(img).save(root / "lzma.tif", compression="lzma")
+    Image.fromarray(img).save(root / "zstd.tif", compression="zstd")
     from test_torch_port_ccitt import ccitt_bytes, strips, wrap
     # Group 4 with FillOrder 2: each byte's bits reversed.
     rev = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
@@ -663,11 +666,11 @@ def _now_read_files(root):
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (LZMA and ZSTD
-    TIFF, CCITT in tiles). The kinds this test named before the port read
-    them (a cut progressive scan script, CMYK TIFF and JPEG; since A.6.7-
-    A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB) now read bit-equal
-    with PIL."""
+    NotImplementedError naming the feature and ROADMAP A.6 (CCITT in
+    uncompressed mode and in tiles). The kinds this test named before the
+    port read them (a cut progressive scan script, CMYK TIFF and JPEG; since
+    A.6.7-A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB; since
+    A.6.13-A.6.14 LZMA and ZSTD TIFF) now read bit-equal with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -684,7 +687,7 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     Image.fromarray(img).convert("CMYK").save(read / "cmyk.jpg")
     _now_read_files(read)
     for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg", "fill_order_2.tif", "big.tiff",
-                 "planar.tif"):
+                 "planar.tif", "lzma.tif", "zstd.tif"):
         assert_port_reads_as_pil(read / name)
 
 
@@ -868,6 +871,10 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     (out / "ccitt_g4_page.tif").write_bytes(
         ccitt_bytes(scan_page(rs, 500, 1200) >= 128, "t6"))
     files["ccitt_g4_page.tif"] = out / "ccitt_g4_page.tif"
+    # PIL's ZSTD TIFF of the Group 4 page's grey: the card's machine has no
+    # Zstandard encoder, so phase 12's ZSTD page is this file.
+    save("zstd_g4_page.tif", Image.fromarray(pil_gray(out / "ccitt_g4_page.tif")), "TIFF",
+         compression="zstd")
     # Progressive JPEG, Deflate and JPEG-in-TIFF, from the pages above (no
     # new draws). The progressive page holds scan_420.jpg's pixels at its
     # quality and subsampling, so it reads as that file does: golden.npz
@@ -944,13 +951,13 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     floats = (grey * 1.3 - 30 + rs.rand(32, 48)).astype(np.float32)
     floats[0, :6] = [np.nan, -3.5, 0.5, 254.9, 300, np.inf]
     put("float32_pred3.tif", chip_smoke.tiff_numbers(floats, "<f4", 3, rows_per_strip=8,
-                                                     deflate=True, predictor=3))
+                                                     compression=8, predictor=3))
     put("int16_be.tif", chip_smoke.tiff_numbers(np.round(grey * 2 - 100).astype(np.int16), ">i2",
-                                                2, deflate=True, predictor=2))
+                                                2, compression=8, predictor=2))
     wide = (grey * 3).astype(np.uint32) | (rs.rand(32, 48) < 0.1).astype(np.uint32) << 31
-    put("uint32.tif", chip_smoke.tiff_numbers(wide, "<u4", 1, deflate=True, predictor=2))
+    put("uint32.tif", chip_smoke.tiff_numbers(wide, "<u4", 1, compression=8, predictor=2))
     put("grey12.tif", chip_smoke.tiff_numbers((grey * 13).astype(np.uint16) % 4096, "12", 1,
-                                              deflate=True))
+                                              compression=8))
     save("int32_lzw.tif", Image.fromarray((grey * 2 - 80).astype(np.int32), "I"), "TIFF",
          compression="tiff_lzw", tiffinfo={317: 2})
     put("lossless_rgb.jpg", lossless_jpeg([tiny[..., 0], tiny[:, ::2, 1], tiny[:, ::2, 2]],
@@ -1008,10 +1015,12 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     assert np.array_equal(golden.pop("progressive_page.jpg"), golden["scan_420.jpg"])
     assert np.array_equal(golden.pop("arith_444.jpg"), golden["restart_444.jpg"])
     assert np.array_equal(golden.pop("lossless_stripe.jpg"), golden["scan_420.jpg"][:8])
+    assert np.array_equal(golden.pop("zstd_g4_page.tif"), golden["ccitt_g4_page.tif"])
     # chip_smoke.py's pages of these kinds, held to PIL's grey by digest
     # ("refused" where PIL refuses the page).
     lines = []
-    pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden)}
+    pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden),
+             **chip_smoke.a6_codec_pages(golden)}
     for name, data in pages.items():
         try:
             with Image.open(io.BytesIO(data)) as im:
@@ -1052,13 +1061,14 @@ def with_quantizers(data: bytes, q: int) -> bytes:
 
 def load_golden(root: Path = FIXTURES) -> dict:
     """PIL's grey of every fixture by name: ``golden.npz``, and for the
-    three fixtures that hold another's pixels that array
+    four fixtures that hold another's pixels that array
     (``chip_smoke.golden_arrays``)."""
     with np.load(root / "golden.npz") as f:
         golden = dict(f)
     return {**golden, "progressive_page.jpg": golden["scan_420.jpg"],
             "arith_444.jpg": golden["restart_444.jpg"],
-            "lossless_stripe.jpg": golden["scan_420.jpg"][:8]}
+            "lossless_stripe.jpg": golden["scan_420.jpg"][:8],
+            "zstd_g4_page.tif": golden["ccitt_g4_page.tif"]}
 
 
 def test_fixtures_are_pil_exact_and_small():
@@ -1066,7 +1076,7 @@ def test_fixtures_are_pil_exact_and_small():
     their golden arrays (the progressive page as scan_420.jpg's); together
     they stay under 1 MB."""
     golden = load_golden()
-    assert len(golden) == 58 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
+    assert len(golden) == 59 and sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1 << 20
     assert golden["scan_420.jpg"].shape == golden["ccitt_g4_page.tif"].shape == (500, 1200)
     assert golden["progressive_page.jpg"] is golden["scan_420.jpg"]
     for name, want in golden.items():

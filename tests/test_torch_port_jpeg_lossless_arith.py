@@ -253,10 +253,10 @@ def new_kinds_tree(root):
         grey = rgb[..., 0]
         files = {
             "ojpeg.tif": ojpeg_jif(pil_jpeg(rgb, quality=85, subsampling=2), w, h, 3),
-            "float.tif": chip_smoke.tiff_numbers(grey * 1.5 - 40, "<f4", 3, deflate=True,
+            "float.tif": chip_smoke.tiff_numbers(grey * 1.5 - 40, "<f4", 3, compression=8,
                                                  predictor=3),
             "int16.tif": chip_smoke.tiff_numbers(grey.astype(np.int16) - 30, ">i2", 2,
-                                                 deflate=True),
+                                                 compression=8),
             "lossless.jpg": lossless_jpeg([grey], psv=4 + wi),
             "arith.jpg": arith_jpeg(pil_jpeg(rgb, quality=80), restart=2),
         }

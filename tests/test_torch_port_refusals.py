@@ -165,15 +165,27 @@ def test_pil_refused_kind_is_a_zero_image(tmp_path, name):
         tdataset.decode_gray(path)
 
 
+def ccitt_tiles() -> bytes:
+    from test_torch_port_ccitt import refused_files
+    return refused_files()[0]["tiles"][0]
+
+
+def pil_tiff_of(codec: str) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(GREY).save(buf, "TIFF", compression=codec)
+    return buf.getvalue()
+
+
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
 STILL_A6 = {
-    "lzma_tiff": (lambda: (lambda b: (Image.fromarray(GREY).save(b, "TIFF", compression="lzma"),
-                                      b.getvalue())[1])(io.BytesIO()), "compression 34925"),
+    "ccitt_tiles": (ccitt_tiles, "in tiles"),
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.12).
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.14).
 NOW_READ = {
+    "lzma_tiff": lambda: pil_tiff_of("lzma"),
+    "zstd_tiff": lambda: pil_tiff_of("zstd"),
     "lossless_sof3": lambda: lossless_jpeg([GREY]),
     "arithmetic_sof9": lambda: frame(pil_jpeg(GREY, quality=85), 0xC9),
     "int16_tiff": lambda: raw_tiff(G8 * 100, 16, 1, [(339, 3, [2])]),
@@ -192,8 +204,8 @@ NOW_READ = {
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
     """A genuine lossless JPEG (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
-    TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample and
-    RGB with associated alpha: each bit-equal with PIL."""
+    TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample,
+    RGB with associated alpha, LZMA and ZSTD TIFF: each bit-equal with PIL."""
     path = tmp_path / name
     path.write_bytes(NOW_READ[name]())
     assert jdataset.decode_image(path, 16).any()                   # PIL reads it

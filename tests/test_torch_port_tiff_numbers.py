@@ -61,7 +61,7 @@ def test_number_tiff_matches_pil(tmp_path, name, order, coding):
     dtype, fmt, _ = FORMATS[name]
     v = samples(name, 13, 22, seed=len(coding))
     data = chip_smoke.tiff_numbers(
-        v, order + dtype, fmt, deflate=coding != "raw",
+        v, order + dtype, fmt, compression=1 if coding == "raw" else 8,
         predictor=3 if coding.endswith("pred3") else 2 if coding.endswith("pred2") else 1,
         rows_per_strip=4 if coding == "deflate_strips" else 0)
     (tmp_path / "n.tif").write_bytes(data)
@@ -75,7 +75,7 @@ def test_12_bit_grey_matches_pil(tmp_path, coding, w):
     bytes MSB first, odd widths padding their rows to a byte."""
     v = np.random.RandomState(w).randint(0, 4096, (9, w))
     v[0, :5] = [0, 1, 255, 256, 4095][:w]
-    data = chip_smoke.tiff_numbers(v, "12", 1, deflate=coding != "raw",
+    data = chip_smoke.tiff_numbers(v, "12", 1, compression=1 if coding == "raw" else 8,
                                    rows_per_strip=4 if coding == "deflate_strips" else 0)
     (tmp_path / "g12.tif").write_bytes(data)
     assert_port_reads_as_pil(tmp_path / "g12.tif")
@@ -128,7 +128,7 @@ def test_number_kind_pil_refuses_is_a_zero_image(tmp_path, kind, what):
             "float64": lambda: chip_smoke.tiff_numbers(v, "<f8", 3),
             "uint32_be": lambda: chip_smoke.tiff_numbers(np.abs(v), ">u4", 1),
             "grey12_predictor2": lambda: chip_smoke.tiff_numbers(np.abs(v), "12", 1,
-                                                                 deflate=True, predictor=2),
+                                                                 compression=8, predictor=2),
             }[kind]()
     path = tmp_path / f"{kind}.tif"
     path.write_bytes(data)
@@ -146,7 +146,7 @@ def test_float_page_of_the_smoke_is_pils(tmp_path):
     grey, which is the grey it was written from."""
     grey = pixels(np.random.RandomState(4), (60, 90)).astype(np.uint8)
     data = chip_smoke.tiff_numbers(grey.astype(np.float32), "<f4", 3, rows_per_strip=16,
-                                   deflate=True, predictor=3)
+                                   compression=8, predictor=3)
     (tmp_path / "page.tif").write_bytes(data)
     assert_port_reads_as_pil(tmp_path / "page.tif")
     with Image.open(io.BytesIO(data)) as im:
