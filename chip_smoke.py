@@ -1988,14 +1988,173 @@ def tiff_pack(w: int, h: int, blobs, entries, be: bool = False, big: bool = Fals
     return bytes(data + ifd + struct.pack(o + ("Q" if big else "I"), 0) + tail)
 
 
-def lzw_encode(data: bytes) -> bytes:
+# T.4's run-length codes (ITU-T T.4 tables 2 and 3): terminating codes of
+# runs 0-63, then make-up codes of 64, 128, ..., 1728, for white and black;
+# the make-up codes of 1792, 1856, ..., 2560 both colours share.
+CCITT_WHITE = (
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110",
+    "1111", "10011", "10100", "00111", "01000", "001000", "000011",
+    "110100", "110101", "101010", "101011", "0100111", "0001100", "0001000",
+    "0010111", "0000011", "0000100", "0101000", "0101011", "0010011", "0100100",
+    "0011000", "00000010", "00000011", "00011010", "00011011", "00010010", "00010011",
+    "00010100", "00010101", "00010110", "00010111", "00101000", "00101001", "00101010",
+    "00101011", "00101100", "00101101", "00000100", "00000101", "00001010", "00001011",
+    "01010010", "01010011", "01010100", "01010101", "00100100", "00100101", "01011000",
+    "01011001", "01011010", "01011011", "01001010", "01001011", "00110010", "00110011",
+    "00110100", "11011", "10010", "010111", "0110111", "00110110", "00110111",
+    "01100100", "01100101", "01101000", "01100111", "011001100", "011001101", "011010010",
+    "011010011", "011010100", "011010101", "011010110", "011010111", "011011000", "011011001",
+    "011011010", "011011011", "010011000", "010011001", "010011010", "011000", "010011011",)
+CCITT_BLACK = (
+    "0000110111", "010", "11", "10", "011", "0011", "0010",
+    "00011", "000101", "000100", "0000100", "0000101", "0000111", "00000100",
+    "00000111", "000011000", "0000010111", "0000011000", "0000001000", "00001100111", "00001101000",
+    "00001101100", "00000110111", "00000101000", "00000010111", "00000011000", "000011001010", "000011001011",
+    "000011001100", "000011001101", "000001101000", "000001101001", "000001101010", "000001101011", "000011010010",
+    "000011010011", "000011010100", "000011010101", "000011010110", "000011010111", "000001101100", "000001101101",
+    "000011011010", "000011011011", "000001010100", "000001010101", "000001010110", "000001010111", "000001100100",
+    "000001100101", "000001010010", "000001010011", "000000100100", "000000110111", "000000111000", "000000100111",
+    "000000101000", "000001011000", "000001011001", "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111", "0000001111", "000011001000", "000011001001", "000001011011", "000000110011", "000000110100",
+    "000000110101", "0000001101100", "0000001101101", "0000001001010", "0000001001011", "0000001001100", "0000001001101",
+    "0000001110010", "0000001110011", "0000001110100", "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010", "0000001011011", "0000001100100", "0000001100101",)
+CCITT_EXTENDED = (
+    "00000001000", "00000001100", "00000001101", "000000010010", "000000010011", "000000010100", "000000010101",
+    "000000010110", "000000010111", "000000011100", "000000011101", "000000011110", "000000011111",)
+
+
+def ccitt_run(run: int, black: bool) -> str:
+    """The T.4 code words of one run, as a string of bits."""
+    codes, out = CCITT_BLACK if black else CCITT_WHITE, ""
+    while run >= 2560:
+        out, run = out + CCITT_EXTENDED[12], run - 2560
+    if run >= 1792:
+        k = (run - 1792) // 64
+        out, run = out + CCITT_EXTENDED[k], run - 1792 - 64 * k
+    elif run >= 64:
+        out, run = out + codes[63 + run // 64], run % 64
+    return out + codes[run]
+
+
+G4_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000010",
+               -3: "0000010"}
+
+
+def g4_rows(black) -> list:
+    """The T.6 (Group 4) code of each row of a bilevel (H, W) array, True
+    for black, as a string of bits: coded against the row above (the first
+    against a white line) in pass, vertical or horizontal mode (T.4 4.2)."""
+    import numpy as np
+    h, w = black.shape
+    rows = []
+
+    def changes(row):
+        return list(np.flatnonzero(np.diff(np.concatenate([[False], row]).astype(np.int8)))) + [w, w]
+    ref = changes(np.zeros(w, bool))
+    for y in range(h):
+        cur, bits = changes(black[y]), []
+        a0, colour = -1, False
+        while a0 < w:
+            a1 = next(c for c in cur if c > a0)
+            a2 = next(c for c in cur if c > a1) if a1 < w else w
+            # b1: the next change on the reference line to the colour opposite
+            # a0's (changes alternate, the first to black), b2 the one after.
+            k = next((i for i, c in enumerate(ref) if c > a0 and (i % 2 == 0) != colour), None)
+            b1, b2 = (ref[k], ref[k + 1] if k + 1 < len(ref) else w) if k is not None else (w, w)
+            if b2 < a1:
+                bits.append("0001")
+                a0 = b2
+            elif abs(a1 - b1) <= 3:
+                bits.append(G4_VERTICAL[a1 - b1])
+                a0, colour = a1, not colour
+            else:
+                bits.append("001" + ccitt_run(a1 - max(a0, 0), colour) + ccitt_run(a2 - a1, not colour))
+                a0 = a2
+        rows.append("".join(bits))
+        ref = cur
+    return rows
+
+
+def fax_bytes(bits: str) -> bytes:
+    """A string of bits, MSB first, padded with 0 bits to a whole byte."""
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+
+
+def g4_encode(black) -> bytes:
+    """T.6 (Group 4) data of a bilevel (H, W) array, True for black
+    (``g4_rows``), then EOFB."""
+    return fax_bytes("".join(g4_rows(black)) + "000000000001" * 2)
+
+
+def tiff_g4(black, *, tile=None, photometric: int = 0, tags=()) -> bytes:
+    """A little-endian Group 4 TIFF of a bilevel (H, W) array (True for
+    black, 1 bits of WhiteIsZero): one strip, or tiles of ``tile`` = (tw,
+    th), each coded on its own and padded white past the image's edges;
+    ``tags`` more (tag, type, values)."""
+    import numpy as np
+    h, w = black.shape
+    if tile is None:
+        blobs, layout = [g4_encode(black)], [(273, 4, lambda o: o), (278, 4, [h])]
+    else:
+        tw, th = tile
+        pad = np.zeros((-(-h // th) * th, -(-w // tw) * tw), bool)
+        pad[:h, :w] = black
+        blobs = [g4_encode(pad[y:y + th, x:x + tw]) for y in range(0, pad.shape[0], th)
+                 for x in range(0, pad.shape[1], tw)]
+        layout = [(322, 4, [tw]), (323, 4, [th]), (324, 4, lambda o: o)]
+    count = 325 if tile else 279
+    return tiff_pack(w, h, blobs, [(258, 3, [1]), (259, 3, [4]), (262, 3, [photometric]),
+                                   (277, 3, [1]), (count, 4, [len(b) for b in blobs])]
+                     + layout + list(tags))
+
+
+def ojpeg_tiles(stream: bytes, w: int, h: int, tile, spp: int, photometric: int = 6) -> bytes:
+    """An old-style JPEG-in-TIFF (compression 6) in tiles of ``tile`` = (tw,
+    th), JPEGInterchangeFormat giving ``stream``: a JPEG tw wide whose rows
+    are the tiles' rows one tile after another (as libtiff reads the tiles,
+    across then down), a restart interval ending at each tile's end; each
+    tile points at its intervals in the stream."""
+    sos = stream.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(stream[sos + 2:sos + 4], "big")
+    body = stream[start:stream.rindex(b"\xff\xd9")]
+    cuts = [i for i in range(len(body) - 1) if body[i] == 0xFF and 0xD0 <= body[i + 1] <= 0xD7]
+    ends = cuts + [len(body)]
+    tw, th = tile
+    n = -(-w // tw) * -(-h // th)
+    per = len(ends) // n   # restart intervals a tile
+    if per * n != len(ends):
+        raise ValueError("ojpeg_tiles wants the stream's restart intervals to end at its tiles' ends")
+    firsts = [0] + [c + 2 for c in cuts]
+    offs = [start + firsts[per * i] for i in range(n)]
+    counts = [ends[per * i + per - 1] - firsts[per * i] for i in range(n)]
+    return tiff_pack(w, h, [stream], [
+        (258, 3, [8] * spp), (259, 3, [6]), (262, 3, [photometric]), (277, 3, [spp]),
+        (322, 4, [tw]), (323, 4, [th]), (324, 4, lambda o: [o[0] + a for a in offs]),
+        (325, 4, counts), (513, 4, lambda o: [o[0]]), (514, 4, [len(stream)])])
+
+
+def lzw_encode(data: bytes, old_style: bool = False) -> bytes:
     """TIFF LZW of ``data`` as libtiff's encoder writes it: codes MSB first
     from 9 bits, a clear code first and whenever the table fills, wider once
-    the next entry needs it, EOI last."""
+    the next entry needs it, EOI last. ``old_style``: the LZW of libtiff
+    before 5.0, which libtiff still reads (LZWDecodeCompat): codes LSB
+    first, each width change one code later (the decoder's table, one entry
+    behind the encoder's, passing 2^width - 1), a clear code once the table
+    reaches 4096 entries."""
     out, acc, nacc = bytearray(), 0, 0
 
     def put(code, width):
         nonlocal acc, nacc
+        if old_style:
+            acc |= code << nacc
+            nacc += width
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+            return
         acc = (acc << width) | code
         nacc += width
         while nacc >= 8:
@@ -2003,6 +2162,16 @@ def lzw_encode(data: bytes) -> bytes:
             out.append((acc >> nacc) & 0xFF)
         acc &= (1 << nacc) - 1
     width, nxt, table, code = 9, 258, {}, None
+    dec_free = None  # old style: the decoder's next free entry, None before its first code
+
+    def emitted():  # old style: the decoder's table and width after it reads a code
+        nonlocal dec_free, width
+        if dec_free is None:
+            dec_free = 258
+        else:
+            dec_free += 1
+            if dec_free > (1 << width) - 1 and width < 12:
+                width += 1
     put(256, width)
     for c in data:
         if code is None:
@@ -2017,7 +2186,12 @@ def lzw_encode(data: bytes) -> bytes:
         table[key] = nxt
         nxt += 1
         code = c
-        if nxt == 4094:  # the table is full: a clear code
+        if old_style:
+            emitted()
+            if nxt == 4096:
+                put(256, width)
+                width, nxt, table, dec_free = 9, 258, {}, None
+        elif nxt == 4094:  # the table is full: a clear code
             put(256, width)
             width, nxt, table = 9, 258, {}
         elif nxt >= 1 << width:
@@ -2025,14 +2199,16 @@ def lzw_encode(data: bytes) -> bytes:
     if code is not None:
         put(code, width)
         nxt += 1
-        if nxt == 4094:
+        if old_style:
+            emitted()
+        elif nxt == 4094:
             put(256, width)
             width = 9
         elif nxt >= 1 << width:
             width += 1
     put(257, width)
     if nacc:
-        out.append((acc << (8 - nacc)) & 0xFF)
+        out.append(acc & 0xFF if old_style else (acc << (8 - nacc)) & 0xFF)
     return bytes(out)
 
 
@@ -2041,14 +2217,14 @@ REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 def tiff_codec(raw: bytes, compression: int) -> bytes:
     """A strip's or tile's bytes coded as TIFF ``compression`` 1 (as they
-    are), 5 (LZW), 8 (Deflate), 32773 (PackBits), 34925 (LZMA: one .xz
+    are), 5 (LZW; -5 old-style LZW, tagged 5), 8 (Deflate), 32773 (PackBits), 34925 (LZMA: one .xz
     stream of Delta and LZMA2 with no check, as libtiff writes it) or 50000
     (ZSTD: one frame, from the ``zstandard`` package, which the card's
     machine does not have)."""
     import lzma
     import zlib
-    if compression == 5:
-        return lzw_encode(raw)
+    if compression in (5, -5):
+        return lzw_encode(raw, old_style=compression < 0)
     if compression == 8:
         return zlib.compress(raw, 6)
     if compression == 32773:
@@ -2109,7 +2285,7 @@ def tiff_layout(samples, bits: int, photometric: int, *, compression: int = 1, p
                (325, long_, [len(b) for b in blobs])] if tile else
               [(273, long_, lambda o: o[:n]), (278, 4, [rows_per_strip or h]),
                (279, long_, [len(b) for b in blobs])])
-    base = [(258, 3, [bits] * spp), (259, 3, [compression]), (262, 3, [photometric]),
+    base = [(258, 3, [bits] * spp), (259, 3, [abs(compression)]), (262, 3, [photometric]),
             (277, 3, [spp]), (284, 3, [planar])] + layout
     if predictor != 1:
         base.append((317, 3, [predictor]))
@@ -2164,7 +2340,7 @@ def tiff_ycbcr(y, cb, cr, sub=(2, 2), *, compression: int = 8, rows_per_strip: i
                (325, 4, [len(b) for b in blobs])] if tile else
               [(273, 4, lambda o: o[:n]), (278, 4, [rows_per_strip or H]),
                (279, 4, [len(b) for b in blobs])])
-    base = [(258, 3, [8] * 3), (259, 3, [compression]), (262, 3, [6]), (277, 3, [3]),
+    base = [(258, 3, [8] * 3), (259, 3, [abs(compression)]), (262, 3, [6]), (277, 3, [3]),
             (284, 3, [1]), (530, 3, [hh, vv])] + layout
     given = {t[0] for t in tags}
     return tiff_pack(W, H, blobs, [e for e in base if e[0] not in given] + list(tags), be)
@@ -2378,6 +2554,39 @@ def a6_codec_pages(golden) -> dict:
             "damaged_g4_page.tif": damaged_g4_page()}
 
 
+PAPER_INK = [245 * 257, 20 * 257, 240 * 257, 30 * 257, 230 * 257, 110 * 257]  # a 1-bit ColorMap
+
+
+def sof11(data: bytes) -> bytes:
+    """A lossless JPEG with its SOF3 marker made SOF11 (lossless,
+    arithmetic-coded): libjpeg has no decoder for it, so PIL refuses it."""
+    at = data.index(b"\xff\xc3")
+    return data[:at + 1] + b"\xcb" + data[at + 2:]
+
+
+def a6_ccitt_lzw_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of A.6.15-A.6.19 and C.16, built without
+    PIL: the Group 4 page's ink in 256 x 256 tiles, with a 1-bit palette
+    (paper and blue ink) and with T6Options' uncompressed-mode bit;
+    scan_420.jpg's grey in old-style LZW strips of 50 rows; old-style
+    JPEG-in-TIFF in 400 x 80 tiles (restart_444.jpg's intervals tiled into
+    one 400 px wide stream, a tile after another); lossless_stripe.jpg as
+    SOF11, which PIL refuses. Each is held to a digest of PIL's grey of the
+    same bytes (a6_pages.sha256), or to the refusal."""
+    import numpy as np
+    black = golden["ccitt_g4_page.tif"] == 0
+    grey = golden["scan_420.jpg"].astype(np.int64)
+    ojpeg = tile_jpeg((FIXTURES / "restart_444.jpg").read_bytes(), 400, 21 * 80, page_pick)
+    return {"g4_tiles_page.tif": tiff_g4(black, tile=(256, 256)),
+            "g4_palette_page.tif": tiff_g4(black, tile=(256, 256), photometric=3,
+                                           tags=[(320, 3, PAPER_INK)]),
+            "g4_uncompressed_page.tif": tiff_g4(black, tags=[(293, 4, [2])]),
+            "old_lzw_page.tif": tiff_layout(grey[..., None], 8, 1, compression=-5,
+                                            rows_per_strip=50),
+            "ojpeg_tiles_page.tif": ojpeg_tiles(ojpeg, 1200, 500, (400, 80), 3),
+            "sof11_stripe.jpg": sof11((FIXTURES / "lossless_stripe.jpg").read_bytes())}
+
+
 # The decoder fixtures of A.6.7-A.6.12 (tests/test_torch_port_decode.py::
 # write_fixtures).
 LAYOUT_FIXTURES = ("bigtiff_lzw.tif", "planar_rgb.tif", "planar_cmyk_raw.tif", "ycbcr_22.tif",
@@ -2411,12 +2620,15 @@ def golden_arrays() -> dict:
 def decode_phase(card: str, work: str):
     """Phase 12: the host decoders: the fixtures bit-equal to their golden
     arrays, the pages built here bit-equal to their sources or to digests
-    of PIL's grey (the TIFF layouts of A.6.7-A.6.12, LZMA TIFF and damaged
-    Group 4 data among them), a cut
+    of PIL's grey (the TIFF layouts of A.6.7-A.6.12, LZMA TIFF, damaged
+    Group 4 data, Group 4 in tiles, with a palette and with the
+    uncompressed-mode bit, old-style LZW and old-style JPEG-in-TIFF in tiles
+    among them; a SOF11 JPEG corrupt, as PIL refuses it), a cut
     progressive scan script smoothed, a file PIL refuses a zero image, the
     threaded batch decode's rate per format, ``cli.preprocess`` and a
     ``SignatureDataset`` on a mixed tree of 1320 scans whose TIFFs take
-    those layouts in turns."""
+    those layouts in turns, then SOF11 JPEGs added to it: zero images in the
+    dataset, and ``cli.preprocess`` stops on one."""
     import shutil
     import numpy as np
     import torch
@@ -2478,13 +2690,15 @@ def decode_phase(card: str, work: str):
         if not np.array_equal(ds_mod.decode_gray(Path(work) / name), want):
             raise AssertionError(f"{name}: not bit-equal to the grey it was built from")
     # Pages of old-style JPEG-in-TIFF, float TIFF, arithmetic-coded and
-    # lossless JPEG, of the TIFF layouts of A.6.7-A.6.12, of LZMA TIFF and
-    # of damaged Group 4 data (C.14), each held to the digest of PIL's grey
-    # of the same bytes (a6_pages.sha256), or to PIL's refusal (the
-    # arithmetic page past PIL's 64 KB block: corrupt).
+    # lossless JPEG, of the TIFF layouts of A.6.7-A.6.12, of LZMA TIFF, of
+    # damaged Group 4 data (C.14) and of A.6.15-A.6.19, each held to the
+    # digest of PIL's grey of the same bytes (a6_pages.sha256), or to PIL's
+    # refusal (the arithmetic page past PIL's 64 KB block and the SOF11
+    # stripe: corrupt).
     digests = dict(reversed(line.split()) for line in
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
-    a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden)}
+    a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
+          **a6_ccitt_lzw_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -2496,7 +2710,7 @@ def decode_phase(card: str, work: str):
         got = ds_mod.decode_gray(Path(work) / name)
         if got.shape[1] != 1200 or gray_digest(got) != digests[name]:
             raise AssertionError(f"{name}: not bit-equal to PIL's grey (its SHA-256)")
-    print("decode: " + ", ".join(f"{n} ({len(d)} B)" for n, d in a6.items())
+    print("decode: " + ", ".join(f"{n} ({len(d)} B, {digests[n][:16]})" for n, d in a6.items())
           + " bit-equal to PIL's grey by their SHA-256, or corrupt where PIL refuses them ("
           + ", ".join(n for n in a6 if digests[n] == "refused") + ")", flush=True)
     # A file PIL refuses (grey.jpg as a 12-bit frame) is a zero image in a
@@ -2586,7 +2800,16 @@ def decode_phase(card: str, work: str):
               "ZSTD TIFF 1200x500 (PIL's, of the G4 page's grey)": (
                   fixtures("zstd_g4_page.tif"), 20),
               "CCITT G4 TIFF 1200x500 with damaged code (C.14)": (
-                  [Path(work) / "damaged_g4_page.tif"], 200)}
+                  [Path(work) / "damaged_g4_page.tif"], 200),
+              "CCITT G4 TIFF 1200x500 in 256x256 tiles": ([Path(work) / "g4_tiles_page.tif"], 200),
+              "CCITT G4 TIFF 1200x500, 1-bit palette in 256x256 tiles": (
+                  [Path(work) / "g4_palette_page.tif"], 200),
+              "CCITT G4 TIFF 1200x500, uncompressed-mode bit set": (
+                  [Path(work) / "g4_uncompressed_page.tif"], 200),
+              "old-style LZW TIFF 1200x500 (grey, 50-row strips)": (
+                  [Path(work) / "old_lzw_page.tif"], 20),
+              "old-style JPEG-in-TIFF 1200x500 in 400x80 tiles (YCbCr 4:4:4)": (
+                  [Path(work) / "ojpeg_tiles_page.tif"], 20)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -2610,7 +2833,9 @@ def decode_phase(card: str, work: str):
     # A mixed tree in CEDAR's shape from phase 11's scans: per writer, PNG,
     # BMP, TIFF and JPEG in turns (the JPEGs are the fixtures' scan pages);
     # the TIFFs in turn plain, of the layouts of A.6.7-A.6.12, LZMA, ZSTD
-    # (the fixture page) and damaged Group 4 (the damaged page).
+    # (the fixture page), damaged Group 4 (the damaged page), Group 4 in
+    # tiles, with a palette and with the uncompressed-mode bit, and
+    # old-style LZW.
     raw, mixed = Path(work) / "scans", Path(work) / "mixed_scans"
     jpegs = sorted(FIXTURES.glob("scan_*.jpg"))
     t0 = time.perf_counter()
@@ -2662,13 +2887,42 @@ def decode_phase(card: str, work: str):
     ds_s = time.perf_counter() - t0
     if ds.images.shape != (1320, 64, 64, 1) or not np.isfinite(ds.images).all():
         raise AssertionError(f"SignatureDataset on the mixed tree: {ds.images.shape}")
+    # SOF11 JPEGs (PIL refuses them) beside the scans: zero images in the
+    # SignatureDataset, and cli.preprocess stops on one with ValueError, as
+    # the JAX package's PIL path does.
+    stripe = sof11((FIXTURES / "lossless_stripe.jpg").read_bytes())
+    sof11_paths = [mixed / f"w{k:02d}" / f"w{k:02d}_sof11.jpg" for k in range(0, 55, 11)]
+    for p in sof11_paths:
+        p.write_bytes(stripe)
+    with_sof11 = ds_mod.SignatureDataset(mixed, 64, use_cache=False)
+    at = {p.name: i for i, p in enumerate(with_sof11.paths)}
+    zero = [not with_sof11.images[at[p.name]].any() for p in sof11_paths]
+    kept = np.array_equal(np.delete(with_sof11.images, [at[p.name] for p in sof11_paths], axis=0),
+                          ds.images)
+    if with_sof11.images.shape[0] != 1320 + len(sof11_paths) or not all(zero) or not kept:
+        raise AssertionError("SOF11 JPEGs in the mixed tree: not zero images beside the same scans")
+    one = Path(work) / "sof11_tree" / "w00"
+    one.mkdir(parents=True, exist_ok=True)
+    shutil.copy(sof11_paths[0], one / "w00_sof11.jpg")
+    shutil.copy(jpegs[0], one / "w00_scan.jpg")
+    try:
+        run_cli(pre_cli.main, ["--input_dir", str(one.parent), "--output_dir",
+                               str(Path(work) / "sof11_clean")])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("cli.preprocess read a SOF11 JPEG, which PIL refuses")
+    for p in sof11_paths:
+        p.unlink()
     print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}; the TIFFs "
           f"{json.dumps(layouts)}) written in "
           f"{write_s:.2f} s; cli.preprocess {pre_s:.2f} s ({1320 / pre_s:.1f} images/s), "
           f"{len(rep['processed'])} written, {len(rep['invalid'])} invalid; the host decode + "
           f"letterbox of every scan alone {host_s:.2f} s ({host_s / pre_s:.4f} of the CLI's "
           f"wall time); SignatureDataset (threaded decode + resize to 64) {ds_s:.2f} s "
-          f"({1320 / ds_s:.1f} images/s) [{card}]", flush=True)
+          f"({1320 / ds_s:.1f} images/s); {len(sof11_paths)} SOF11 JPEGs added: zero images in a "
+          f"SignatureDataset of {with_sof11.images.shape[0]}, the other scans' arrays unchanged; "
+          f"cli.preprocess on a tree holding one: ValueError ({refusal}) [{card}]", flush=True)
     png = png_tree_phase(card, work)
     return {"build_s": build_s, "images_per_s": rates, "preprocess_s": pre_s,
             "preprocess_host_decode_s": host_s, "dataset_s": ds_s,
@@ -2682,12 +2936,15 @@ def mixed_tiff(grey, turn: int):
     grey, then a layout of A.6.7-A.6.12 in turns (BigTIFF in LZW strips,
     planar RGB in Deflate with predictor 2, YCbCr 2 x 2 in Deflate, grey
     with FillOrder 2 in Deflate, a palette with alpha), of uint8 (H, W)
-    ``grey``, then LZMA grey in strips of 32 rows, and the ZSTD and the
-    damaged Group 4 page as they are."""
+    ``grey``, then LZMA grey in strips of 32 rows, the ZSTD and the
+    damaged Group 4 page as they are, then the scan's ink (grey below 128)
+    in Group 4: in 256 x 256 tiles, with a 1-bit palette in such tiles, and
+    with the uncompressed-mode bit set; then old-style LZW grey in strips
+    of 32 rows."""
     import numpy as np
     g = grey.astype(np.int64)
     layout = ("plain", "bigtiff", "planar", "ycbcr", "fill2", "pa", "lzma", "zstd",
-              "damaged_g4")[turn % 9]
+              "damaged_g4", "g4_tiles", "g4_palette", "g4_uncompressed", "old_lzw")[turn % 13]
     if layout == "plain":
         return layout, tiff_grey(grey)
     if layout == "lzma":
@@ -2696,6 +2953,15 @@ def mixed_tiff(grey, turn: int):
         return layout, (FIXTURES / "zstd_g4_page.tif").read_bytes()
     if layout == "damaged_g4":
         return layout, damaged_g4_page()
+    if layout in ("g4_tiles", "g4_palette", "g4_uncompressed"):
+        ink = grey < 128
+        if layout == "g4_uncompressed":
+            return layout, tiff_g4(ink, tags=[(293, 4, [2])])
+        if layout == "g4_palette":
+            return layout, tiff_g4(ink, tile=(256, 256), photometric=3, tags=[(320, 3, PAPER_INK)])
+        return layout, tiff_g4(ink, tile=(256, 256))
+    if layout == "old_lzw":
+        return layout, tiff_layout(g[..., None], 8, 1, compression=-5, rows_per_strip=32)
     if layout == "bigtiff":
         return layout, tiff_layout(g[..., None], 8, 1, compression=5, big=True, rows_per_strip=32)
     if layout == "planar":

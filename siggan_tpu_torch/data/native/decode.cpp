@@ -1769,8 +1769,8 @@ struct Jpeg {
         corrupt("JPEG tables stream holds image data");
       if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3) {
         sof(m == 0xC2, m == 0xC3);
-      } else if (m == 0xCB) {
-        unsupported("lossless arithmetic-coded JPEG");
+      } else if (m == 0xCB) {  // libjpeg-turbo has no lossless arithmetic decoder: PIL refuses it
+        corrupt("lossless arithmetic-coded JPEG (SOF11), which libjpeg does not decode");
       } else if (m == 0xC9 || m == 0xCA) {
         sof(m == 0xCA, false, true);
       } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF) {
@@ -2263,7 +2263,6 @@ void packbits(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out
 
 void lzw(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
   out.clear();
-  if (n >= 2 && s[0] == 0 && (s[1] & 1)) unsupported("old-style TIFF LZW");
   out.reserve(want);
   std::vector<uint16_t> prefix(4096);
   std::vector<uint8_t> suffix(4096), first(4096);
@@ -2325,6 +2324,82 @@ void lzw(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
   }
   if (out.size() < want) corrupt("TIFF LZW data ends early");
   out.resize(want);
+}
+
+// Old-style LZW, as libtiff's LZWDecodeCompat (tif_lzw.c, LZW_COMPAT) reads
+// it: codes LSB first, the width one bit more once the next free entry
+// passes 2^width - 1 (one code later than new-style), up to 12 bits, and a
+// table of 5119 entries (past 4095 unreachable: the entries are still made,
+// and one past the last is a corrupt table). A strip ends at EOI, where its
+// bytes cannot give another code, or once it is full; a code past the next
+// free entry, a first code that is no clear code, or a clear code followed
+// by one past 256 are corrupt. `out` keeps what was decoded.
+void lzw_compat(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
+  struct Entry {
+    int32_t next;  // -1: none
+    uint16_t length;
+    uint8_t value, first;
+  };
+  constexpr int kSize = 4095 + 1024;
+  std::vector<Entry> tab(kSize, Entry{-1, 0, 0, 0});
+  for (int i = 0; i < 256; ++i) tab[i] = Entry{-1, 1, (uint8_t)i, (uint8_t)i};
+  out.clear();
+  out.reserve(want);
+  size_t left = n * 8, at = 0;  // the strip's bits not yet taken
+  uint64_t data = 0;
+  int have = 0, nbits = 9, free = 258, old = -1;
+  auto next_code = [&]() -> int {
+    if (left < (size_t)nbits) return 257;  // not terminated with EOI
+    data |= (uint64_t)s[at++] << have;
+    have += 8;
+    if (have < nbits) {
+      data |= (uint64_t)s[at++] << have;
+      have += 8;
+    }
+    const int code = (int)(data & ((1u << nbits) - 1));
+    data >>= nbits;
+    have -= nbits;
+    left -= nbits;
+    return code;
+  };
+  while (out.size() < want) {
+    int code = next_code();
+    if (code == 257) break;
+    if (code == 256) {
+      do {
+        std::fill(tab.begin() + 258, tab.end(), Entry{-1, 0, 0, 0});
+        free = 258;
+        nbits = 9;
+        code = next_code();
+      } while (code == 256);
+      if (code == 257) break;
+      if (code > 256) corrupt("bad old-style TIFF LZW code after a clear code");
+      out.push_back((uint8_t)code);
+      old = code;
+      continue;
+    }
+    if (free >= kSize) corrupt("old-style TIFF LZW table overflows");
+    if (old < 0) corrupt("old-style TIFF LZW data does not start with a clear code");
+    Entry& e = tab[free];
+    e.next = old;
+    e.first = tab[old].first;
+    e.length = (uint16_t)(tab[old].length + 1);
+    e.value = code < free ? tab[code].first : e.first;
+    if (++free > (1 << nbits) - 1 && nbits < 12) ++nbits;
+    old = code;
+    if (code < 256) {
+      out.push_back((uint8_t)code);
+      continue;
+    }
+    const size_t len = tab[code].length;
+    if (len == 0) corrupt("bad old-style TIFF LZW code");
+    const size_t k = std::min(len, want - out.size()), base = out.size();
+    int c = code;
+    for (size_t l = len; l > k; --l) c = tab[c].next;  // a string past the strip: its start
+    out.resize(base + k);
+    for (size_t i = k; i > 0; --i, c = tab[c].next) out[base + i - 1] = tab[c].value;
+  }
+  if (out.size() < want) corrupt("old-style TIFF LZW data ends early");
 }
 
 // ---------------------------------------------------------------- inflate
@@ -3572,9 +3647,264 @@ struct Huffman {
   std::vector<uint8_t> sym, len;  // by the next max_bits bits
 };
 
+// libzstd 1.5.7's Huffman literal decoders (huf_decompress.c, bitstream.h)
+// as PIL's x86-64 build runs them with BMI2, which decide what damaged
+// literals give. The single-symbol table (X1) or, for 4 streams where
+// HUF_selectDecoder's timing table prefers it, the double-symbol table
+// (X2: a code and the next one where both fit in the lookup bits); one
+// stream always X1, and treeless literals the previous table's kind. The
+// 4 streams take the fast path when each is 8 bytes or more, the table's
+// lookup is 11 bits and the output is not tiny: streams in lock step, each
+// reading on into the bytes before it; a stream whose pointer went more
+// than 8 bytes below its own start is an error; each then finishes with a
+// BIT_DStream whose start is the jump table's, decoding on past it with no
+// end check (bits past the start read as zeros until 64 are consumed, then
+// the container again). Otherwise (12-bit codes, a stream under 8 bytes)
+// each stream's own reader, and every stream must end where its bits do.
+struct HufEntry {
+  uint8_t seq[2], nb, len;  // symbols (X1: one), bits consumed, symbols given
+};
+
+struct HufBits {  // BIT_DStream_t
+  uint64_t c = 0;
+  uint32_t used = 0;
+  const uint8_t *ptr = nullptr, *start = nullptr;  // ptr null: overflowed (libzstd's zero word)
+  enum { kUnfinished, kEndOfBuffer, kCompleted, kOverflow };
+  static uint64_t rd(const uint8_t* q) {
+    uint64_t v = 0;
+    for (int i = 7; i >= 0; --i) v = v << 8 | q[i];
+    return v;
+  }
+  void init(const uint8_t* s, size_t n) {  // BIT_initDStream
+    if (n < 1) zstd_error("empty Huffman stream");
+    start = s;
+    const uint8_t last = s[n - 1];
+    if (last == 0) zstd_error("bit stream without its end marker");
+    int top = 7;
+    while (!(last >> top & 1)) --top;
+    used = 8 - top;
+    if (n >= 8) {
+      ptr = s + n - 8;
+      c = rd(ptr);
+    } else {
+      ptr = s;
+      c = 0;
+      for (size_t i = 0; i < n; ++i) c |= (uint64_t)s[i] << (8 * i);
+      used += (uint32_t)(8 - n) * 8;
+    }
+  }
+  uint32_t look(int nb) const { return (uint32_t)((c << (used & 63)) >> ((64 - nb) & 63)); }
+  int reload() {  // BIT_reloadDStream
+    if (used > 64) {
+      ptr = nullptr;
+      return kOverflow;
+    }
+    if (ptr >= start + 8) {
+      ptr -= used >> 3;
+      used &= 7;
+      c = rd(ptr);
+      return kUnfinished;
+    }
+    if (ptr == start) return used < 64 ? kEndOfBuffer : kCompleted;
+    size_t nbytes = used >> 3;
+    int r = kUnfinished;
+    if ((size_t)(ptr - start) < nbytes) {
+      nbytes = (size_t)(ptr - start);
+      r = kEndOfBuffer;
+    }
+    ptr -= nbytes;
+    used -= (uint32_t)nbytes * 8;
+    c = rd(ptr);
+    return r;
+  }
+  int reload_fast() {  // BIT_reloadDStreamFast
+    if (ptr < start + 8) return kOverflow;
+    ptr -= used >> 3;
+    used &= 7;
+    c = rd(ptr);
+    return kUnfinished;
+  }
+  bool end() const { return ptr == start && used == 64; }
+};
+
+// HUF_selectDecoder: whether the double-symbol decoder is the faster.
+bool huf_select_x2(size_t dst, size_t src) {
+  static const uint16_t t[16][4] = {
+      {0, 0, 1, 1},        {0, 0, 1, 1},        {150, 216, 381, 119},  {170, 205, 514, 112},
+      {177, 199, 539, 110}, {197, 194, 644, 107}, {221, 192, 735, 107},  {256, 189, 881, 106},
+      {359, 188, 1167, 109}, {582, 187, 1570, 114}, {688, 187, 1712, 122}, {825, 186, 1965, 136},
+      {976, 185, 2131, 150}, {1180, 186, 2070, 175}, {1377, 185, 1731, 202}, {1412, 185, 1695, 202}};
+  const size_t q = src >= dst ? 15 : src * 16 / dst;
+  const uint32_t d256 = (uint32_t)(dst >> 8);
+  const uint32_t t0 = t[q][0] + t[q][1] * d256;
+  uint32_t t1 = t[q][2] + t[q][3] * d256;
+  t1 += t1 >> 5;
+  return t1 < t0;
+}
+
+// The literal section's streams at p[0 .. n) decoded into `lit`.
+void huf_literals(const Huffman& h, bool x2, const uint8_t* p, size_t n, bool single,
+                  std::vector<uint8_t>& lit) {
+  const size_t regen = lit.size();
+  // The table: lookups of `log` bits (an X1 table of shorter codes is
+  // rescaled to 11 bits, HUF_rescaleStats; X2's lookup is 11 bits too).
+  const int log = std::max(h.max_bits, 11);
+  std::vector<HufEntry> dt((size_t)1 << log);
+  for (size_t i = 0; i < dt.size(); ++i) {
+    const size_t a = i >> (log - h.max_bits);
+    HufEntry e{{h.sym[a], 0}, h.len[a], 1};
+    if (x2) {
+      const size_t j = (i << e.nb) & (dt.size() - 1), b = j >> (log - h.max_bits);
+      if (e.nb + h.len[b] <= log) e = HufEntry{{h.sym[a], h.sym[b]}, (uint8_t)(e.nb + h.len[b]), 2};
+    }
+    dt[i] = e;
+  }
+  auto put = [&](size_t at, const HufEntry& e, int k) {  // libzstd writes 2 bytes of an X2 entry
+    for (int i = 0; i < k; ++i)
+      if (at + i < regen) lit[at + i] = e.seq[i];
+  };
+  // HUF_decodeSymbolX1 / X2; X2 returns the symbols it gave.
+  auto sym1 = [&](HufBits& b, size_t& op) {
+    const HufEntry& e = dt[b.look(log)];
+    put(op++, e, 1);
+    b.used += e.nb;
+  };
+  auto sym2 = [&](HufBits& b, size_t& op) {
+    const HufEntry& e = dt[b.look(log)];
+    put(op, e, 2);
+    b.used += e.nb;
+    op += e.len;
+  };
+  auto stream1 = [&](HufBits& b, size_t op, size_t end) {  // HUF_decodeStreamX1
+    if (end - op > 3) {
+      while ((b.reload() == HufBits::kUnfinished) & (op < end - 3))
+        for (int k = 0; k < 4; ++k) sym1(b, op);
+    } else {
+      b.reload();
+    }
+    while (op < end) sym1(b, op);
+  };
+  auto stream2 = [&](HufBits& b, size_t op, size_t end) {  // HUF_decodeStreamX2
+    if (end - op >= 8) {
+      if (log <= 11) {
+        while ((b.reload() == HufBits::kUnfinished) & (op + 9 < end))
+          for (int k = 0; k < 5; ++k) sym2(b, op);
+      } else {
+        while ((b.reload() == HufBits::kUnfinished) & (op + 7 < end))
+          for (int k = 0; k < 4; ++k) sym2(b, op);
+      }
+    } else {
+      b.reload();
+    }
+    if (end - op >= 2) {
+      while ((b.reload() == HufBits::kUnfinished) & (op + 2 <= end)) sym2(b, op);
+      while (op + 2 <= end) sym2(b, op);
+    }
+    if (op < end) {  // HUF_decodeLastSymbolX2
+      const HufEntry& e = dt[b.look(log)];
+      put(op, e, 1);
+      if (e.len == 1) {
+        b.used += e.nb;
+      } else if (b.used < 64) {
+        b.used = std::min<uint32_t>(b.used + e.nb, 64);
+      }
+    }
+  };
+  auto stream = [&](HufBits& b, size_t op, size_t end) { x2 ? stream2(b, op, end) : stream1(b, op, end); };
+  if (single) {
+    HufBits b;
+    b.init(p, n);
+    stream(b, 0, regen);
+    if (!b.end()) zstd_error("Huffman stream not read to its end");
+    return;
+  }
+  if (n < 10) zstd_error("data ends early");
+  const size_t len[3] = {(size_t)(p[0] | p[1] << 8), (size_t)(p[2] | p[3] << 8), (size_t)(p[4] | p[5] << 8)};
+  if (len[0] + len[1] + len[2] + 6 > n) zstd_error("bad literal stream sizes");
+  const size_t len4 = n - 6 - len[0] - len[1] - len[2], seg = (regen + 3) / 4;
+  const uint8_t* in[5] = {p + 6, p + 6 + len[0], p + 6 + len[0] + len[1], p + 6 + len[0] + len[1] + len[2],
+                          p + n};
+  const size_t ostart[4] = {0, seg, 2 * seg, 3 * seg};
+  if (log == 11 && len[0] >= 8 && len[1] >= 8 && len[2] >= 8 && len4 >= 8 && 3 * seg < regen) {
+    // HUF_DecompressFastArgs_init and the fast loop (X1: 5 symbols a
+    // stream a turn; X2: 5 lookups).
+    uint64_t bits[4];
+    const uint8_t* ip[4];
+    size_t op[4], oend[4] = {seg, 2 * seg, 3 * seg, regen};
+    for (int i = 0; i < 4; ++i) {
+      ip[i] = in[i + 1] - 8;
+      const uint8_t last = ip[i][7];
+      int top = 7;
+      while (last && !(last >> top & 1)) --top;
+      bits[i] = (HufBits::rd(ip[i]) | 1) << (last ? 8 - top : 0);
+      op[i] = ostart[i];
+    }
+    for (;;) {
+      size_t iters = (size_t)(ip[0] - p) / 7;
+      if (x2) {
+        for (int i = 0; i < 4; ++i) iters = std::min(iters, (oend[i] - op[i]) / 10);
+      } else {
+        iters = std::min(iters, (regen - op[3]) / 5);
+      }
+      const size_t olimit = op[3] + iters * 5;
+      if (op[3] == olimit) break;
+      if (ip[1] < ip[0] || ip[2] < ip[1] || ip[3] < ip[2]) break;
+      do {
+        for (int i = 0; i < 4; ++i) {
+          for (int k = 0; k < 5; ++k) {
+            const HufEntry& e = dt[bits[i] >> 53];
+            bits[i] <<= e.nb;
+            if (x2) {
+              put(op[i], e, 2);
+              op[i] += e.len;
+            } else {
+              put(op[i] + k, e, 1);
+            }
+          }
+          if (!x2) op[i] += 5;
+          const int ctz = __builtin_ctzll(bits[i]);
+          ip[i] -= ctz >> 3;
+          bits[i] = (HufBits::rd(ip[i]) | 1) << (ctz & 7);
+        }
+      } while (op[3] < olimit);
+    }
+    for (int i = 0; i < 4; ++i) {  // HUF_initRemainingDStream, then each stream to its end
+      if (op[i] > oend[i] || ip[i] - p + 8 < in[i] - p) zstd_error("Huffman stream read past its start");
+      HufBits b;
+      b.c = HufBits::rd(ip[i]);
+      b.used = (uint32_t)__builtin_ctzll(bits[i]);
+      b.start = p;
+      b.ptr = ip[i];
+      stream(b, op[i], oend[i]);
+    }
+    return;
+  }
+  // HUF_decompress4X1/X2_usingDTable_internal_body.
+  if (regen < 6) zstd_error("too few literals for 4 streams");
+  HufBits b[4];
+  for (int i = 0; i < 4; ++i) b[i].init(in[i], (size_t)(in[i + 1] - in[i]));
+  size_t op[4] = {ostart[0], ostart[1], ostart[2], ostart[3]};
+  if (regen - op[3] >= 8) {
+    const size_t olimit = regen - (x2 ? 7 : 3);
+    bool go = true;
+    while (go && op[3] < olimit) {
+      for (int k = 0; k < 4; ++k)
+        for (int i = 0; i < 4; ++i) x2 ? sym2(b[i], op[i]) : sym1(b[i], op[i]);
+      go = true;
+      for (int i = 0; i < 4; ++i) go &= b[i].reload_fast() == HufBits::kUnfinished;
+    }
+  }
+  for (int i = 0; i < 3; ++i)
+    if (op[i] > ostart[i + 1]) zstd_error("Huffman stream past its segment");
+  for (int i = 0; i < 4; ++i) stream(b[i], op[i], i < 3 ? ostart[i + 1] : regen);
+  for (int i = 0; i < 4; ++i)
+    if (!b[i].end()) zstd_error("Huffman stream not read to its end");
+}
+
 struct ZstdFrame {
   bool has_huffman = false;
   Huffman huf;
+  bool huf_x2 = false;  // the table libzstd built is its double-symbol one (HUF_readDTableX2)
   Fse tables[3];  // literal lengths, offsets, match lengths
   bool has_table[3] = {false, false, false};
   uint32_t rep[3] = {1, 4, 8};
@@ -3705,36 +4035,9 @@ size_t zstd_literals(const uint8_t* s, size_t n, ZstdFrame& f, std::vector<uint8
   } else if (!f.has_huffman) {
     zstd_error("treeless literals without a previous Huffman table");
   }
-  const Huffman& h = f.huf;
+  if (type == 2) f.huf_x2 = !single && huf_select_x2(regen, comp);
   lit.resize(regen);
-  // A stream's bits; `below` bytes before it may be read on into, unchecked
-  // (libzstd's fast 4-stream decoder on x86-64: streams of 8 bytes or
-  // more are not checked to end where their bits do).
-  auto stream = [&](const uint8_t* q, size_t qn, size_t below, size_t from, size_t count) {
-    if (qn == 0 || q[qn - 1] == 0) zstd_error("bit stream without its end marker");
-    BackBits b(q - below, qn + below);
-    for (size_t i = 0; i < count; ++i) {
-      const uint32_t k = b.peek(h.max_bits);
-      lit[from + i] = h.sym[k];
-      b.pos -= h.len[k];
-    }
-    if (!below && b.pos != 0) zstd_error("Huffman stream not read to its end");
-  };
-  if (single) {
-    stream(p, left, 0, 0, regen);
-  } else {
-    if (left < 10) zstd_error("data ends early");
-    const size_t l1 = p[0] | p[1] << 8, l2 = p[2] | p[3] << 8, l3 = p[4] | p[5] << 8;
-    if (l1 + l2 + l3 > left - 6) zstd_error("bad literal stream sizes");
-    const size_t l4 = left - 6 - l1 - l2 - l3, seg = (regen + 3) / 4;
-    if (3 * seg > regen) zstd_error("too few literals for 4 streams");
-    const uint8_t* q = p + 6;
-    const bool fast = l1 >= 8 && l2 >= 8 && l3 >= 8 && l4 >= 8 && h.max_bits <= 11;
-    stream(q, l1, fast ? 6 : 0, 0, seg);
-    stream(q + l1, l2, fast ? 6 + l1 : 0, seg, seg);
-    stream(q + l1 + l2, l3, fast ? 6 + l1 + l2 : 0, 2 * seg, seg);
-    stream(q + l1 + l2 + l3, l4, fast ? 6 + l1 + l2 + l3 : 0, 3 * seg, regen - 3 * seg);
-  }
+  huf_literals(f.huf, f.huf_x2, p, left, single, lit);
   return hs + comp;
 }
 
@@ -4072,16 +4375,21 @@ const FaxTables& fax_tables() {
 // What libtiff keeps of one image's fax decoding from strip to strip
 // (Fax3CodecState): its run arrays, zeroed once and then holding each row's
 // runs, which a damaged row may read past its reference line's end; and
-// FAXMODE_NOEOL, set once a T.4 strip shows no EOL.
+// FAXMODE_NOEOL, set once a T.4 strip shows no EOL. In tiles, where
+// TIFFReadEncodedTile takes the decoder's -1 for success (it tests the
+// return for truth, TIFFReadEncodedStrip for <= 0), a tile that fails keeps
+// the rows decoded and the buffer's rows after them.
 struct FaxCodec {
   int width;
   uint32_t compression;
   bool two_d;  // a reference line: T.4 2-D or T.6
   bool no_eol;
+  bool tiles;
   uint32_t nruns;
   std::vector<uint32_t> runs;  // current and reference line, nruns each
-  FaxCodec(uint32_t w, uint32_t c, uint32_t t4opts)
-      : width((int)w), compression(c), two_d(c == 4 || (c == 3 && (t4opts & 1))), no_eol(c == 2) {
+  FaxCodec(uint32_t w, uint32_t c, uint32_t t4opts, bool in_tiles)
+      : width((int)w), compression(c), two_d(c == 4 || (c == 3 && (t4opts & 1))), no_eol(c == 2),
+        tiles(in_tiles) {
     nruns = (w + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
     runs.assign(2 * (size_t)nruns + 2, 0);
   }
@@ -4651,14 +4959,18 @@ struct OJpegTags {  // IFD entries, 0 where absent
 // jpeg_tiff.
 [[gnu::noinline]] void ojpeg_tiff(const Tiff& t, const OJpegTags& oj, uint32_t photometric,
                                   uint32_t spp, const Chunks& c, Gray& g) {
-  if (c.tiles) unsupported("old-style JPEG-in-TIFF in tiles");
   const uint8_t* d = t.d;
   const size_t fsize = t.n;
-  const uint32_t W = g.w, H = g.h, rps = c.ch, nstrips = (H + rps - 1) / rps;
+  // libtiff's striles: strips of RowsPerStrip rows, or tiles, each read as
+  // `rps` rows of a frame `sw` wide, one strile after another (a tile's
+  // rows follow the previous tile's), the frame `total` rows high unless
+  // the stream's own frame says otherwise.
+  const uint32_t W = g.w, H = g.h, rps = c.ch, sw = c.tiles ? c.cw : W;
+  const uint32_t across = (W + sw - 1) / sw, down = (H + rps - 1) / rps, nstrips = across * down;
+  const uint32_t total = c.tiles ? down * rps : H;
   const bool ycc = spp == 3;
-  if (ycc && photometric != 6 && photometric != 2)
-    unsupported("old-style JPEG-in-TIFF of 3 samples in photometric " +
-                std::to_string(photometric));
+  if (ycc && photometric != 6 && photometric != 2)  // libtiff's OJPEG decoder fails (PIL refuses)
+    corrupt("old-style JPEG-in-TIFF of 3 samples in photometric " + std::to_string(photometric));
   if (!ycc && photometric == 6)
     corrupt("old-style JPEG-in-TIFF of one YCbCr sample, which libtiff's RGBA reader refuses");
   // The byte source, and where each strip's bytes end in it.
@@ -4727,11 +5039,11 @@ struct OJpegTags {  // IFD entries, 0 where absent
       if (f != 1 && f != 2 && f != 4)
         corrupt("old-style JPEG-in-TIFF with YCbCr subsampling " + std::to_string(f));
     if (rps % (8 * sub_v)) corrupt("old-style JPEG-in-TIFF strips not whole MCU rows");
-    restart = (int)(((W + 8 * sub_h - 1) / (8 * sub_h)) * (rps / (8 * sub_v)));
+    restart = (int)(((sw + 8 * sub_h - 1) / (8 * sub_h)) * (rps / (8 * sub_v)));
   }
   // The header: libtiff's OJPEGReadHeaderInfoSec, segment by segment.
   std::vector<uint8_t> qseg[4], dcseg[4], acseg[4];
-  int sof_marker = 0xC0, sof_x = (int)W, sof_y = (int)H;
+  int sof_marker = 0xC0, sof_x = (int)sw, sof_y = (int)total;
   int sof_c[3] = {0, 1, 2}, sof_hv[3] = {sub_h << 4 | sub_v, 0x11, 0x11}, sof_tq[3] = {0, 0, 0};
   int sos_cs[3] = {0, 1, 2}, sos_tda[3] = {0, 0, 0};
   bool have_sof = false;
@@ -4776,7 +5088,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
       if (byte() != 8) corrupt("old-style JPEG-in-TIFF not of 8 bits");
       sof_y = word();
       sof_x = word();
-      if ((uint32_t)sof_y < H || (uint32_t)sof_x != W)
+      if ((uint32_t)sof_y < std::min(H, total) || (uint32_t)sof_x != sw)
         corrupt("old-style JPEG-in-TIFF frame of the wrong size");
       if (byte() != (int)spp) corrupt("bad frame in old-style JPEG-in-TIFF");
       for (uint32_t k = 0; k < spp; ++k) {
@@ -4871,7 +5183,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
   Jpeg jp;
   jp.begin(s.data(), s.size());
   jp.old_tiff = true;
-  uint32_t good_rows = H;
+  uint32_t good_rows = sof_y;
   try {
     jp.planes();
   } catch (const OldTiffStop&) {
@@ -4880,23 +5192,43 @@ struct OJpegTags {  // IFD entries, 0 where absent
       corrupt("old-style JPEG-in-TIFF with a restart marker out of place (libtiff stops there)");
   }
   const Component* cp = jp.comp;
-  if (!ycc) {
-    for (uint32_t y = 0; y < H; ++y)
-      memcpy(&g.px[(size_t)y * W], &cp[0].plane[(size_t)y * cp[0].pw], W);
-    return;
-  }
-  const TiffYcc conv = tiff_ycc(t, oj.coefficients, oj.refbw);
-  if (desub)
+  static const float kLuma[3] = {0.299f, 0.587f, 0.114f}, kRbw[6] = {0, 255, 128, 255, 128, 255};
+  const TiffYcc conv = ycc ? tiff_ycc(t, oj.coefficients, oj.refbw) : TiffYcc(kLuma, kRbw);
+  if (ycc && desub)
     corrupt("old-style JPEG-in-TIFF of a sampling libtiff leaves to libjpeg (PIL refuses it)");
-  if (!rgba_subsampling(sub_h, sub_v))
+  if (ycc && !rgba_subsampling(sub_h, sub_v))
     corrupt("old-style JPEG-in-TIFF with YCbCr subsampling libtiff's RGBA reader refuses");
-  std::fill(g.px.begin() + (size_t)std::min(good_rows, H) * W, g.px.end(), conv.grey(0, 0, 0));
-  for (uint32_t y = 0; y < std::min(good_rows, H); ++y) {
-    const uint8_t* yr = &cp[0].plane[(size_t)y * cp[0].pw];
-    const uint8_t* cb = &cp[1].plane[(size_t)(y / sub_v) * cp[1].pw];
-    const uint8_t* cr = &cp[2].plane[(size_t)(y / sub_v) * cp[2].pw];
-    uint8_t* o = &g.px[(size_t)y * W];
-    for (uint32_t x = 0; x < W; ++x) o[x] = conv.grey(yr[x], cb[x / sub_h], cr[x / sub_h]);
+  // Each strile's rows to its place: frame row m * rps + r is row r of
+  // strile m. Tiles past the frame's last row (the tables layout's frame
+  // is one column of tiles high) are read all the same, libjpeg giving no
+  // more rows: grey rows then keep PIL's tile buffer (the previous tile's
+  // rows), YCbCr ones the last iMCU row libtiff's raw buffer holds. YCbCr
+  // rows past a stop read Y = Cb = Cr = 0.
+  const uint32_t imcu = 8 * (ycc ? sub_v : 1), last = ((uint32_t)sof_y + imcu - 1) / imcu * imcu - imcu;
+  const uint8_t blank = ycc ? conv.grey(0, 0, 0) : 0;
+  std::vector<uint8_t> held((size_t)rps * sw, 0);  // PIL's tile buffer (grey)
+  for (uint32_t m = 0; m < nstrips; ++m) {
+    const uint32_t x0 = (m % across) * sw, y0 = (m / across) * rps, nc = std::min(sw, W - x0);
+    for (uint32_t r = 0; r < rps; ++r) {
+      uint32_t v = m * rps + r;
+      uint8_t* o = y0 + r < H ? &g.px[(size_t)(y0 + r) * W + x0] : nullptr;
+      if (!ycc) {
+        uint8_t* b = &held[(size_t)r * sw];
+        if (v < (uint32_t)sof_y) memcpy(b, &cp[0].plane[(size_t)v * cp[0].pw], sw);
+        if (o) memcpy(o, b, nc);
+        continue;
+      }
+      if (!o) continue;
+      if (v >= (uint32_t)sof_y) v = good_rows < (uint32_t)sof_y ? good_rows : last + v % imcu;
+      if (v >= good_rows) {
+        std::fill(o, o + nc, blank);
+        continue;
+      }
+      const uint8_t* yr = &cp[0].plane[(size_t)v * cp[0].pw];
+      const uint8_t* cb = &cp[1].plane[(size_t)(v / sub_v) * cp[1].pw];
+      const uint8_t* cr = &cp[2].plane[(size_t)(v / sub_v) * cp[2].pw];
+      for (uint32_t x = 0; x < nc; ++x) o[x] = conv.grey(yr[x], cb[x / sub_h], cr[x / sub_h]);
+    }
   }
 }
 
@@ -5025,7 +5357,7 @@ bool libtiff_ints(const Tiff& t, size_t e, uint64_t limit = ~0ull) {
 // strips or tiles), and on the libtiff route what libtiff reads.
 struct TiffDir {
   uint32_t W = 0, H = 0, compression = 1, photometric = 0, fill = 1, spp = 1, rps = 0xFFFFFFFF,
-           planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0, t6opts = 0;
+           planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0;
   uint32_t codec_fill = 1;  // libtiff's FillOrder: 2 reverses each byte's bits before a codec
   uint32_t lt_spp = 1, lt_bps = 1, lt_planar = 1;  // libtiff's sample layout
   std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1}, ycbcr_sub;
@@ -5070,10 +5402,11 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
   count = std::min<uint64_t>(count, (t.n - first) / width);
   size_t cut = first + width * count;
   struct {
-    size_t w, h, bps, comp, photo, fill, soff, spp, rps, scnt, planar, t4, t6, pred, cmap, tw, th,
+    size_t w, h, bps, comp, photo, fill, soff, spp, rps, scnt, planar, t4, pred, cmap, tw, th,
         toff, tcnt, extra, fmt, sub;
   } p{};
   bool twice = false;  // a tag of `p` given twice: PIL keeps the last, libtiff the first
+  size_t lt_first[3] = {0, 0, 0};  // libtiff's entries (the first): ImageWidth, ImageLength, BitsPerSample
   for (uint64_t i = 0; i < count; ++i) {
     const size_t e = first + width * i;
     const uint32_t ty = t.r16(e + 2);
@@ -5087,9 +5420,9 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
     }
     const auto before = p;
     switch (t.r16(e)) {
-      case 256: p.w = e; break;
-      case 257: p.h = e; break;
-      case 258: p.bps = e; break;
+      case 256: p.w = e, lt_first[0] = lt_first[0] ? lt_first[0] : e; break;
+      case 257: p.h = e, lt_first[1] = lt_first[1] ? lt_first[1] : e; break;
+      case 258: p.bps = e, lt_first[2] = lt_first[2] ? lt_first[2] : e; break;
       case 259: p.comp = e; break;
       case 262: p.photo = e; break;
       case 266: p.fill = e; break;
@@ -5099,7 +5432,6 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
       case 279: p.scnt = e; break;
       case 284: p.planar = e; break;
       case 292: p.t4 = e; break;
-      case 293: p.t6 = e; break;
       case 317: p.pred = e; break;
       case 320: p.cmap = e; break;
       case 322: p.tw = e; break;
@@ -5181,6 +5513,12 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
     if (size * n > (t.big ? 8u : 4u) && (held += size * n) < size * n)
       corrupt("TIFF entries of more data than 64 bits count");
   }
+  // PIL's libtiff decoder refuses an image whose size or bits a sample a
+  // tag given twice makes libtiff read otherwise than PIL.
+  const uint32_t pil_v[3] = {dir.W, dir.H, dir.bps.empty() ? 1 : dir.bps[0]};
+  for (int k = 0; twice && k < 3; ++k)
+    if (lt_first[k] && libtiff_ints(t, lt_first[k]) && t.values(lt_first[k]).at(0) != pil_v[k])
+      corrupt("TIFF whose size or sample bits libtiff reads otherwise than PIL (a tag given twice)");
   if (twice) unsupported("TIFF of a tag given twice (PIL reads the last, libtiff the first)");
   if (t.big && (t.r16(4) != 8 || t.r16(6) != 0)) corrupt("BigTIFF of offsets not of 8 bytes");
   auto refuses = [&](size_t e) {
@@ -5212,7 +5550,6 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
   dir.codec_fill = dropped(p.fill, 1);
   if (dir.codec_fill != 2) dir.codec_fill = 1;
   dir.t4opts = dropped(p.t4, 0);
-  dir.t6opts = dropped(p.t6, 0);
   if (p.sub && libtiff_ints(t, p.sub)) dir.ycbcr_sub = t.values(p.sub);
   if (p.rps) dir.rps = t.values(p.rps).at(0);
   if (p.tw) dir.tw = t.values(p.tw).at(0);
@@ -5258,6 +5595,10 @@ struct TiffCodec {
   uint32_t compression, cw;
   bool reverse;
   FaxCodec* fax;  // the fax codings' state from strip to strip
+  // LZW: -1 until the first strip is read, then whether that strip was
+  // old-style (first byte 0, low bit of the second set), which libtiff then
+  // takes for every strip of the image.
+  int* lzw_old;
 };
 
 
@@ -5283,9 +5624,16 @@ struct TiffCodec {
     case 1: out.assign(s, s + want); break;
     case 2: case 3: case 4:  // into PIL's strip buffer, which keeps what libtiff does not write
       out.resize(want);
-      fax_strip(*k.fax, s, cnt, rows, out.data(), ((size_t)k.cw + 7) / 8);
+      try {
+        fax_strip(*k.fax, s, cnt, rows, out.data(), ((size_t)k.cw + 7) / 8);
+      } catch (const DecodeError&) {
+        if (!k.fax->tiles) throw;
+      }
       break;
-    case 5: lzw(s, cnt, want, out); break;
+    case 5:
+      if (*k.lzw_old < 0) *k.lzw_old = cnt >= 2 && s[0] == 0 && (s[1] & 1);
+      *k.lzw_old ? lzw_compat(s, cnt, want, out) : lzw(s, cnt, want, out);
+      break;
     case 8: case 32946: inflate_zlib(s, cnt, want, out); break;
     case 34925: unxz(s, cnt, want, out); break;
     case 50000: unzstd(s, cnt, want, out); break;
@@ -5515,7 +5863,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   TiffDir dir;
   read_tiff_dir(t, dir);
   const uint32_t W = dir.W, H = dir.H, fill = dir.fill, tw = dir.tw,
-                 th = dir.th, t4opts = dir.t4opts, t6opts = dir.t6opts;
+                 th = dir.th, t4opts = dir.t4opts;
   uint32_t compression = dir.compression, photometric = dir.photometric, spp = dir.spp;
   std::vector<uint32_t> bps = dir.bps, fmt = dir.fmt;
   const std::vector<uint32_t>&offsets = dir.offsets, &cmap = dir.cmap, &extra = dir.extra;
@@ -5578,14 +5926,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       !fax && !jpeg && !zip && !ojpeg)
     unsupported("TIFF compression " + std::to_string(compression));
   const bool planes = spp > 1 && planar == 2;
-  if ((jpeg || ojpeg) && planes)
-    unsupported(photometric == 6 ? "YCbCr TIFF of JPEG in planes" : "planar JPEG-in-TIFF");
-  if (fax) {
-    if (photometric > 1) unsupported("CCITT-coded palette TIFF");
-    if (tiles) unsupported("CCITT-coded TIFF in tiles");
-    if ((compression == 3 && (t4opts & 2)) || (compression == 4 && (t6opts & 2)))
-      unsupported("CCITT uncompressed mode");
-  }
+  if ((jpeg || ojpeg) && planes && photometric == 6)  // libtiff's JPEG codec refuses it
+    corrupt("YCbCr TIFF of JPEG in planes");
+  if ((jpeg || ojpeg) && planes) unsupported("planar JPEG-in-TIFF");
   if (jpeg && bits != 8) unsupported(std::to_string(bits) + "-bit JPEG-in-TIFF");
   if (jpeg && !(photometric == 1   ? spp == 1
                 : photometric == 5 ? spp == 4
@@ -5620,9 +5963,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   } else if (photometric == 3) {  // P, or PA / PX of two samples: the palette of the first
     if (cmap.size() != 3u << bits) corrupt("bad TIFF colour map");
     kind = kPal;
-  } else {
-    unsupported("TIFF photometric " + std::to_string(photometric) + " with " + std::to_string(spp) +
-                " samples of " + std::to_string(bits) + " bits");
+  } else {  // pil_tiff_mode has refused every other layout
+    corrupt("TIFF photometric " + std::to_string(photometric) + " with " + std::to_string(spp) +
+            " samples of " + std::to_string(bits) + " bits");
   }
   // The bands of PIL's mode: RGB for RGBX and YCbCr, RGBA for RGBA and
   // RGBa, CMYK, LA, PA, P for PX.
@@ -5648,9 +5991,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (lib && offsets.size() < (size_t)across * down * nplanes)
     corrupt("TIFF has too few strips or tiles");
   if (lib && dir.counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
-  std::unique_ptr<FaxCodec> fax_codec(fax ? new FaxCodec(cw, compression, t4opts) : nullptr);
+  std::unique_ptr<FaxCodec> fax_codec(fax ? new FaxCodec(cw, compression, t4opts, tiles) : nullptr);
+  int lzw_old = -1;
   const TiffCodec codec{&t, compression, cw, (lib ? dir.codec_fill : fill) == 2 && !jpeg && !ojpeg,
-                        fax_codec.get()};
+                        fax_codec.get(), &lzw_old};
 
   Gray g;
   g.w = (int)W;
@@ -5678,8 +6022,8 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   // is more than that many rows (the tile's height) of the tile's width.
   // It reads a planar file's first `bands` planes; a mode of one band (PX)
   // from the first plane's tiles with the chunky raw mode, on past a tile
-  // row's bytes. Where PIL's directory and libtiff's disagree on the
-  // samples and these checks pass, the port does not follow (A.6).
+  // row's bytes. It refuses a file whose samples its directory and
+  // libtiff's read otherwise.
   uint32_t read_planes = nplanes;
   bool px_tiles = false;  // PX planes in tiles: the first plane read with raw mode PX
   if (lib) {
@@ -5690,7 +6034,8 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
                : (tw * lt_px + 7) / 8 * th > (th * raw_bits / pil_planes + 7) / 8 * tw)
       corrupt("TIFF whose rows PIL's libtiff decoder sizes otherwise");
     if (dir.lt_bps != (uint32_t)bits || (planar == 1 && dir.lt_spp != spp))
-      unsupported("TIFF whose samples PIL's directory and libtiff's read otherwise");
+      corrupt("TIFF whose samples PIL's directory and libtiff's read otherwise (PIL's decoder "
+              "refuses it)");
     if (planar == 2 && std::min(spp, bands) > dir.lt_spp)
       corrupt("TIFF of fewer planes than PIL's mode has bands");
   }
@@ -5717,10 +6062,21 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   } else if (pil_planes) {
     raw_mode = kRawRgbx;
   }
-  // Bilevel grey (CCITT scans among them) goes straight to 0 / 255; every
-  // other kind unpacks to one sample array per pixel (spp values each,
-  // 16-bit kept whole; 8-bit where PIL's raw decoder read a plane).
-  const bool bilevel = bits == 1 && (kind == kGrey || kind == kGreyInv) && !pil_planes;
+  // PIL's P -> L: a palette entry's grey; entries past the colour map are
+  // black.
+  uint8_t pal[256] = {0};
+  if (kind == kPal) {
+    size_t m = (size_t)1 << bits;
+    for (size_t i = 0; i < m; ++i)
+      pal[i] = luma(cmap[i] / 256, cmap[m + i] / 256, cmap[2 * m + i] / 256);
+  }
+  // Bilevel grey and 1-bit palettes (CCITT scans among them) go straight to
+  // their two greys through a byte table; every other kind unpacks to one
+  // sample array per pixel (spp values each, 16-bit kept whole; 8-bit where
+  // PIL's raw decoder read a plane).
+  const bool bilevel = bits == 1 && (kind == kGrey || kind == kGreyInv || kind == kPal) && !pil_planes;
+  std::vector<uint8_t> pal_lut(kind == kPal && bilevel ? 256 * 8 : 0);
+  for (size_t b = 0; b < pal_lut.size(); ++b) pal_lut[b] = pal[(b / 8 >> (7 - b % 8)) & 1];
   std::vector<uint16_t> smp(bilevel || (kind == kNumber && !pil_planes) ? 0 : (size_t)W * H * spp);
   int sample_bits = bits;
   if (pil_planes) {
@@ -5803,7 +6159,8 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
         for (uint32_t r = 0; r < rows && y0 + r < H; ++r) {
           const uint8_t* row = &buf[r * rb];
           if (bilevel) {  // a byte at a time, 8 pixels from a table
-            const uint8_t(*lut)[8] = bilevel_lut(kind == kGreyInv);
+            const uint8_t(*lut)[8] = kind == kPal ? reinterpret_cast<const uint8_t(*)[8]>(pal_lut.data())
+                                                  : bilevel_lut(kind == kGreyInv);
             uint8_t* o = &g.px[(size_t)(y0 + r) * W + x0];
             const uint32_t n = std::min(cw, W - x0);
             uint32_t c = 0;
@@ -5835,12 +6192,6 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (bilevel || kind == kNumber) return g;
   const int maxv = (1 << std::min(sample_bits, 8)) - 1;
   const int hi = sample_bits == 16 ? 8 : 0;  // PIL keeps a 16-bit sample's high byte
-  uint8_t pal[256] = {0};  // PIL's P -> L: entries past the colour map are black
-  if (kind == kPal) {
-    size_t m = (size_t)1 << bits;
-    for (size_t i = 0; i < m; ++i)
-      pal[i] = luma(cmap[i] / 256, cmap[m + i] / 256, cmap[2 * m + i] / 256);
-  }
   for (size_t i = 0; i < g.px.size(); ++i) {
     const uint16_t* s = &smp[i * spp];
     switch (kind) {

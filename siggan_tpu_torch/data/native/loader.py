@@ -1,6 +1,6 @@
 """ctypes binding of the port's host image decoder, ``decode.cpp``.
 
-The decoder reads JPEG, BMP and TIFF files (BigTIFF, LZMA and ZSTD among them) to 8-bit grey, as PIL's
+The decoder reads JPEG, BMP and TIFF files (BigTIFF, LZMA, ZSTD, CCITT in tiles and old-style LZW among them) to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
 files are recognised and left to ``infer/export.py::decode_png``, which
 inflates their rows with zlib and undoes the row filters here
@@ -48,8 +48,13 @@ SOURCE = Path(__file__).with_name("decode.cpp")
 # damaged CCITT data read as libtiff's fax decoder reads it (a bad code or
 # a row of the wrong length cut or padded and decoding going on, T.4
 # without EOLs, Group 4 strips that end early keeping their rows), so
-# files that were zero images decode.
-DECODE_VERSION = "d5"
+# files that were zero images decode; d6: damaged 4-stream ZSTD literals
+# read as libzstd's x86-64 decoders read them (its double-symbol table,
+# its fast path's checks and its reader past a stream's start), and
+# kinds PIL refuses made corrupt (SOF11 JPEG, a size or sample bits tag
+# given twice, samples PIL's directory and libtiff's read otherwise), so
+# pixels change and files that raised become zero images.
+DECODE_VERSION = "d6"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 

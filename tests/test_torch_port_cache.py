@@ -32,7 +32,7 @@ def test_cache_name_carries_the_port_and_the_decoder_version(pngs):
 
 
 @pytest.mark.parametrize("planted", ["jax", "older port tag", "untagged port name", "d3 tag",
-                                     "d4 tag"])
+                                     "d4 tag", "d5 tag"])
 def test_foreign_and_stale_caches_are_ignored(pngs, planted):
     """A cache of wrong pixels under another name is not read; the port
     decodes and writes its own."""
@@ -47,6 +47,8 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
         name = f".siggan_torch_cache_64_d3_{sig}"
     elif planted == "d4 tag":  # written before damaged CCITT data was read as libtiff reads it
         name = f".siggan_torch_cache_64_d4_{sig}"
+    elif planted == "d5 tag":  # written before damaged ZSTD literals were read as libzstd reads them
+        name = f".siggan_torch_cache_64_d5_{sig}"
     else:
         name = f".siggan_cache_64_{sig}"
     assert name != own
@@ -59,19 +61,43 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
 
 def test_a_d3_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path):
     """A tree with a BigTIFF (d3 raised on it; d4 reads it) and a d3 cache
-    holding other pixels: the dataset decodes anew under its own name (d5
-    since damaged CCITT data decodes)."""
+    holding other pixels: the dataset decodes anew under its own name (d6
+    since damaged ZSTD literals read as libzstd reads them)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=4)
     scan = (np.random.RandomState(5).rand(30, 50) * 255).astype(np.uint8)
     Image.fromarray(scan).save(tmp_path / "scan.tif", big_tiff=True)
-    assert tnative.DECODE_VERSION == "d5"
+    assert tnative.DECODE_VERSION == "d6"
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    np.save(tmp_path / own.replace("_d5_", "_d3_"), np.zeros_like(want.images))
+    np.save(tmp_path / own.replace("_d6_", "_d3_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)
+
+
+def test_a_d5_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path, monkeypatch):
+    """A tree with a CCITT TIFF in tiles and an old-style LZW TIFF (d5
+    raised on both; d6 reads them, A.6.16 and A.6.18) and a d5 cache holding
+    other pixels: the dataset decodes anew under its own name, as the JAX
+    package reads the tree (its PIL path)."""
+    import chip_smoke
+    from siggan_tpu.data.native import loader as jnative
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    save_dataset_pngs(3, tmp_path, seed=6)
+    scan = (np.random.RandomState(7).rand(40, 70) * 255).astype(np.int64)
+    (tmp_path / "tiles.tif").write_bytes(chip_smoke.tiff_g4(scan < 100, tile=(32, 16)))
+    (tmp_path / "old_lzw.tif").write_bytes(
+        chip_smoke.tiff_layout(scan[..., None], 8, 1, compression=-5, rows_per_strip=16))
+    want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
+    own = want._cache_path().name
+    assert "_d6_" in own
+    np.save(tmp_path / own.replace("_d6_", "_d5_"), np.zeros_like(want.images))
+    got = tdataset.SignatureDataset(tmp_path, 32)
+    assert got.images.any() and (tmp_path / own).exists()
+    np.testing.assert_array_equal(got.images, want.images)
+    np.testing.assert_array_equal(
+        got.images, jdataset.SignatureDataset(tmp_path, 32, use_cache=False).images)
 
 
 def test_jax_package_still_reads_its_own_cache(pngs):

@@ -10,8 +10,9 @@ PIL writes PhotometricInterpretation 1; a 0 is patched into the tag.
 Each is read bit-equal with PIL's ``convert("L")`` through
 ``decode_gray``, ``data/dataset.py::decode_image`` and
 ``cli/preprocess.py::load_canvas`` against the JAX package's, and so is
-Group 4 with FillOrder 2 (A.6.10). What stays refused (uncompressed mode,
-CCITT in tiles) raises ``NotImplementedError`` naming ROADMAP A.6.
+Group 4 with FillOrder 2 (A.6.10), and the kinds refused before A.6.15 and
+A.6.16, uncompressed mode and CCITT in tiles (their cases in full are
+``tests/test_torch_port_ccitt_layouts.py``'s).
 Damaged code data reads as libtiff's fax decoder reads it for PIL (C.14;
 ``tests/test_torch_port_ccitt_damage.py``): a file PIL refuses is corrupt
 (a zero image with a warning)."""
@@ -157,8 +158,9 @@ def test_pil_writes_the_codings_it_is_asked_for():
 # -- what stays refused, what is corrupt --------------------------------------
 
 def refused_files():
-    """{name: (bytes, what the message names)}: kinds PIL reads and the
-    port does not yet, and FillOrder 2, which it reads since A.6.10."""
+    """{name: (bytes, what the message named)}: kinds PIL reads that the
+    port refused before, uncompressed mode (read since A.6.15), tiles (since
+    A.6.16) and FillOrder 2 (since A.6.10)."""
     img = page(np.random.RandomState(2), 32, 40, "strokes")
     g4 = ccitt_bytes(img, "t6")
     t4 = ccitt_bytes(img, "t4_2d")
@@ -178,17 +180,18 @@ def refused_files():
 
 
 @pytest.mark.parametrize("name", ["t4_uncompressed", "t6_uncompressed", "tiles"])
-def test_refused_kinds_raise_naming_a6(tmp_path, name):
+def test_formerly_refused_kinds_read_as_pil(tmp_path, name):
+    """Uncompressed mode's tag bit (A.6.15) and CCITT in tiles (A.6.16),
+    which the port refused naming A.6: PIL reads each as the page, and so
+    does the port, as the JAX package through ``decode_image``."""
     files, img = refused_files()
-    data, what = files[name]
+    data, _ = files[name]
     want = np.where(img, 255, 0).astype(np.uint8)
     np.testing.assert_array_equal(pil_l(data), want)              # PIL reads it
+    np.testing.assert_array_equal(tnative.decode(data), want)
     path = tmp_path / f"{name}.tif"
     path.write_bytes(data)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A.6"):
-        tnative.decode(data)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tdataset.decode_image(path, 16)
+    assert_port_reads_as_pil(path)
 
 
 def test_group4_with_fill_order_2_reads_as_pil(tmp_path):

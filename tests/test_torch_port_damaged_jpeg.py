@@ -236,20 +236,21 @@ def test_datasets_take_damaged_files_as_jax(tmp_path, monkeypatch):
 
 
 def test_cache_of_the_older_decoder_is_not_read(tmp_path):
-    """DECODE_VERSION is d5 (d3 since these repairs, d4 since C.13's, d5
-    since damaged CCITT data decodes): a d2, d3 or d4 cache beside the data
-    (what an older decoder wrote, zero images where files now decode) is not
-    read; the new cache carries d5."""
-    assert tnative.DECODE_VERSION == "d5"
+    """DECODE_VERSION is d6 (d3 since these repairs, d4 since C.13's, d5
+    since damaged CCITT data decodes, d6 since damaged ZSTD literals read as
+    libzstd reads them): a d2, d3, d4 or d5 cache beside the data (what an
+    older decoder wrote, zero images where files now decode) is not read;
+    the new cache carries d6."""
+    assert tnative.DECODE_VERSION == "d6"
     d = tmp_path / "raw"
     d.mkdir()
     (d / "restart_damaged.jpg").write_bytes((FIXTURES / "restart_damaged.jpg").read_bytes())
     ds = tdataset.SignatureDataset(d, 16, use_cache=True)
     cache = ds._cache_path()
-    assert "_d5_" in cache.name and cache.exists()
+    assert "_d6_" in cache.name and cache.exists()
     cache.unlink()
-    for old in ("_d2_", "_d3_", "_d4_"):
-        np.save(cache.with_name(cache.name.replace("_d5_", old)), np.zeros((1, 16, 16, 1), np.float32))
+    for old in ("_d2_", "_d3_", "_d4_", "_d5_"):
+        np.save(cache.with_name(cache.name.replace("_d6_", old)), np.zeros((1, 16, 16, 1), np.float32))
     again = tdataset.SignatureDataset(d, 16, use_cache=True)
     assert again.images.any()
     np.testing.assert_array_equal(again.images, ds.images)

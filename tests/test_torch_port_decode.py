@@ -633,22 +633,23 @@ def test_format_comes_from_content_not_suffix(tmp_path):
 
 
 def _unsupported_files(tmp_path):
-    rs = np.random.RandomState(4)
-    img = pixels(rs, (24, 40, 3)).astype(np.uint8)
-    from test_torch_port_ccitt import refused_files
-    refused = refused_files()[0]
-    for name in ("t4_uncompressed", "t6_uncompressed"):
-        (tmp_path / f"{name}.tif").write_bytes(refused[name][0])
-    (tmp_path / "ccitt_tiles.tif").write_bytes(refused["tiles"][0])
-    return {"t4_uncompressed.tif": "uncompressed mode", "t6_uncompressed.tif": "uncompressed mode",
-            "ccitt_tiles.tif": "in tiles"}
+    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
+    (tmp_path / "arm64_bcj.tif").write_bytes(bcj_filter_tiff(0x0A))
+    (tmp_path / "riscv_bcj.tif").write_bytes(bcj_filter_tiff(0x0B))
+    return {"arm64_bcj.tif": "ARM64 BCJ filter", "riscv_bcj.tif": "RISC-V BCJ filter"}
 
 
 def _now_read_files(root):
     """The kinds this test held as unread before A.6.7-A.6.10: CCITT with
-    FillOrder 2, BigTIFF, planar RGB; before A.6.13-A.6.14: LZMA and ZSTD."""
+    FillOrder 2, BigTIFF, planar RGB; before A.6.13-A.6.14: LZMA and ZSTD;
+    before A.6.15-A.6.16: CCITT in uncompressed mode (T.4, T.6) and in
+    tiles."""
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
+    from test_torch_port_ccitt import refused_files
+    refused = refused_files()[0]
+    for name in ("t4_uncompressed", "t6_uncompressed", "tiles"):
+        (root / f"ccitt_{name}.tif").write_bytes(refused[name][0])
     Image.fromarray(img).save(root / "lzma.tif", compression="lzma")
     Image.fromarray(img).save(root / "zstd.tif", compression="zstd")
     from test_torch_port_ccitt import ccitt_bytes, strips, wrap
@@ -666,11 +667,12 @@ def _now_read_files(root):
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (CCITT in
-    uncompressed mode and in tiles). The kinds this test named before the
+    NotImplementedError naming the feature and ROADMAP A.6 (LZMA TIFF of
+    the ARM64 and RISC-V BCJ filters). The kinds this test named before the
     port read them (a cut progressive scan script, CMYK TIFF and JPEG; since
     A.6.7-A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB; since
-    A.6.13-A.6.14 LZMA and ZSTD TIFF) now read bit-equal with PIL."""
+    A.6.13-A.6.14 LZMA and ZSTD TIFF; since A.6.15-A.6.16 CCITT in
+    uncompressed mode and in tiles) now read bit-equal with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -687,7 +689,8 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     Image.fromarray(img).convert("CMYK").save(read / "cmyk.jpg")
     _now_read_files(read)
     for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg", "fill_order_2.tif", "big.tiff",
-                 "planar.tif", "lzma.tif", "zstd.tif"):
+                 "planar.tif", "lzma.tif", "zstd.tif", "ccitt_t4_uncompressed.tif",
+                 "ccitt_t6_uncompressed.tif", "ccitt_tiles.tif"):
         assert_port_reads_as_pil(read / name)
 
 
@@ -1020,7 +1023,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     # ("refused" where PIL refuses the page).
     lines = []
     pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden),
-             **chip_smoke.a6_codec_pages(golden)}
+             **chip_smoke.a6_codec_pages(golden), **chip_smoke.a6_ccitt_lzw_pages(golden)}
     for name, data in pages.items():
         try:
             with Image.open(io.BytesIO(data)) as im:

@@ -7,9 +7,12 @@ the writer, and only then holds the port to PIL. Also: libjpeg's rules
 that PIL's reading shows (lossless colour spaces, restart intervals of
 whole rows, a sequential frame ends after a scan of every component, a
 sequential scan's Ss / Se / Ah / Al are a warning: C.13), damaged data,
-and a dataset over a tree of every kind this slice reads."""
+and a dataset over a tree of every kind this slice reads. SOF11 (lossless
+and arithmetic-coded) libjpeg does not decode, so PIL refuses it: corrupt
+(C.16)."""
 
 import io
+import logging
 
 import numpy as np
 import pytest
@@ -17,7 +20,8 @@ from PIL import Image
 from test_torch_port_decode import assert_port_reads_as_pil, pixels
 from test_torch_port_ojpeg import ojpeg_jif
 from test_torch_port_progressive import cut_scans, pil_jpeg
-from torch_port_jpeg_writers import SCRIPT1, SCRIPT3, arith_jpeg, lossless_jpeg, seg
+from torch_port_jpeg_writers import (SCRIPT1, SCRIPT3, arith_jpeg, lossless_arith_jpeg, lossless_jpeg,
+                                     seg)
 
 import chip_smoke
 from siggan_tpu.data import dataset as jdataset
@@ -185,12 +189,31 @@ def test_huffman_data_read_as_arithmetic_matches_pil(tmp_path, marker, seed):
             assert_port_reads_as_pil(tmp_path / f"{i}.jpg")
 
 
-def test_lossless_arithmetic_still_raises_naming_a6(tmp_path):
-    """SOF11 (lossless arithmetic) is the next slice's: NotImplementedError."""
-    (tmp_path / "sof11.jpg").write_bytes(
-        lossless_jpeg([np.zeros((4, 4), np.uint8)]).replace(b"\xff\xc3", b"\xff\xcb"))
-    with pytest.raises(NotImplementedError, match="lossless arithmetic-coded.*ROADMAP A.6"):
-        tdataset.decode_gray(tmp_path / "sof11.jpg")
+@pytest.mark.parametrize("kind", ["swapped", "qm_coded"])
+def test_lossless_arithmetic_is_corrupt_as_pil_refuses_it(tmp_path, caplog, kind):
+    """SOF11 (lossless, arithmetic-coded), C.16: libjpeg-turbo has a
+    lossless decoder and an arithmetic one but none for both, so PIL
+    refuses a SOF11 file whatever its data: Huffman-coded lossless data
+    under the swapped marker, or differences really QM-coded
+    (``lossless_arith_jpeg``). The JAX package gives a zero image; so does
+    the port, and its ``decode_gray`` raises ``ValueError`` naming SOF11."""
+    img = np.random.RandomState(5).randint(0, 256, (9, 13)).astype(np.uint8)
+    if kind == "swapped":
+        data = lossless_jpeg([img]).replace(b"\xff\xc3", b"\xff\xcb")
+    else:
+        data = lossless_arith_jpeg(img)
+    path = tmp_path / f"sof11_{kind}.jpg"
+    path.write_bytes(data)
+    with pytest.raises(Exception):
+        with Image.open(path) as im:
+            im.convert("L")
+    assert not jdataset.decode_image(path, 16).any()
+    with caplog.at_level(logging.WARNING):
+        out = tdataset.decode_image(path, 16)
+    assert "using zero image" in caplog.text
+    np.testing.assert_array_equal(out, jdataset.decode_image(path, 16))
+    with pytest.raises(ValueError, match="SOF11"):
+        tdataset.decode_gray(path)
 
 
 # -- libjpeg's sequential-scan rules (C.13) --------------------------------------

@@ -62,11 +62,13 @@ def ojpeg_jif(stream: bytes, w: int, h: int, spp: int, *, photometric=6, sub=Non
 
 
 def ojpeg_tables(stream: bytes, w: int, h: int, spp: int, *, photometric=6, sub=None,
-                 rows_per_strip=None, restart_tag=None, with_tables=True) -> bytes:
+                 rows_per_strip=None, restart_tag=None, with_tables=True, tile=None) -> bytes:
     """The second layout: the stream's scan data in strips (one a restart
     interval), its tables in JPEGQTables / JPEGDCTables / JPEGACTables, an
     offset a component, shared where components share a table (libjpeg's
-    default Huffman tables where the stream holds none)."""
+    default Huffman tables where the stream holds none). With ``tile`` =
+    (tw, th) the intervals are tiles instead (the stream tw wide, its rows
+    the tiles' one after another)."""
     segs, data = segments(stream)
     q, dc, ac = {}, {0: bytes(_STD_BITS["dc", 0]) + _STD_VALS["dc", 0]}, \
         {0: bytes(_STD_BITS["ac", 0]) + _STD_VALS["ac", 0]}
@@ -91,9 +93,12 @@ def ojpeg_tables(stream: bytes, w: int, h: int, spp: int, *, photometric=6, sub=
         if table not in place:
             place[table] = len(blobs)
             blobs.append(table)
+    layout = ([(322, 4, [tile[0]]), (323, 4, [tile[1]]), (324, 4, lambda o: o[:ns]),
+               (325, 4, [len(b) for b in blobs[:ns]])] if tile else
+              [(273, 4, lambda o: o[:ns]), (278, 4, [rows_per_strip or h]),
+               (279, 4, [len(b) for b in blobs[:ns]])])
     tags = [(258, 3, [8] * spp), (259, 3, [6]), (262, 3, [photometric]), (277, 3, [spp]),
-            (273, 4, lambda o: o[:ns]), (278, 4, [rows_per_strip or h]),
-            (279, 4, [len(b) for b in blobs[:ns]]), (512, 3, [1])]
+            (512, 3, [1])] + layout
     if with_tables:
         for tag, tables in zip((519, 520, 521), per_component):
             tags.append((tag, 4, lambda o, tables=tables: [o[place[t]] for t in tables]))

@@ -228,9 +228,10 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     report, images within the whole-pipeline tolerance; JPEG, BMP and TIFF
     scans read as the JAX CLI reads them, a progressive JPEG whose scan
     script was cut (libjpeg smooths its unrefined coefficients) among them;
-    a kind the port does not read yet (a CCITT TIFF in tiles; a BigTIFF
-    before A.6.7, now read among the others, and an LZMA TIFF before A.6.13)
-    is refused, naming ROADMAP A.6."""
+    a kind the port does not read yet (an LZMA TIFF of the ARM64 BCJ
+    filter; a BigTIFF before A.6.7, now read among the others, an LZMA TIFF
+    before A.6.13 and a CCITT TIFF in tiles before A.6.16) is refused,
+    naming ROADMAP A.6."""
     from siggan_tpu.cli import preprocess as jcli
     from siggan_tpu.core import platform as jplatform
     from siggan_tpu_torch.cli import preprocess as tcli
@@ -284,8 +285,8 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     for name in want["processed"]:
         path = next(other.rglob(name))
         np.testing.assert_array_equal(tcli.load_canvas(path, 64)[0], jcli.load_canvas(path, 64)[0])
-    from test_torch_port_ccitt import refused_files
-    (raw / "w1" / "scan.tif").write_bytes(refused_files()[0]["tiles"][0])
-    with pytest.raises(NotImplementedError, match="in tiles.*ROADMAP A.6"):
+    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
+    (raw / "w1" / "scan.tif").write_bytes(bcj_filter_tiff())
+    with pytest.raises(NotImplementedError, match="ARM64.*ROADMAP A.6"):
         tcli.main(["--input_dir", str(raw), "--output_dir", str(tmp_path / "x"),
                    "--device", "cpu"])

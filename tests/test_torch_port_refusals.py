@@ -20,7 +20,9 @@ import pytest
 from PIL import Image
 from test_torch_port_decode import (_pack, _pack_row, assert_port_reads_as_pil,
                                     bmp_bytes, jpeg_bytes, pixels, tiff_file)
+from test_torch_port_ojpeg import ojpeg_jif
 from test_torch_port_progressive import pil_jpeg
+from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
 from torch_port_jpeg_writers import lossless_jpeg
 
 import chip_smoke
@@ -144,6 +146,18 @@ REFUSED = {
     "jpeg_tiff_subsampling_3": (lambda: jpeg_tiff_sampled((3, 1), (3, 1)), "subsampling 3"),
     "jpeg_tiff_tag_not_the_stream": (lambda: jpeg_tiff_sampled((2, 2), (2, 1)),
                                      "improper sampling factors"),
+    # C.16: sites that raised naming A.6 for files PIL refuses.
+    "jpeg_sof11": (lambda: chip_smoke.sof11(lossless_jpeg([GREY])), "SOF11"),
+    "tiff_ojpeg_3_samples_in_photometric_1": (
+        lambda: ojpeg_jif(pil_jpeg(RGB, quality=90, subsampling=0), 24, 16, 3, photometric=1),
+        "3 samples in photometric 1"),
+    "tiff_width_given_twice": (lambda: chip_smoke.tiff_layout(
+        G8, 8, 1, compression=8, tags=[(256, 4, [24]), (256, 3, [21])]), "given twice"),
+    "tiff_ycbcr_jpeg_in_planes": (lambda: planar_jpeg_tiff(6), "JPEG in planes"),
+    "tiff_samples_read_otherwise": (lambda: chip_smoke.tiff_pack(24, 16, [zlib.compress(
+        GREY.tobytes())], [(258, 17, [8]), (259, 3, [8]), (262, 3, [1]), (277, 3, [1]),
+                           (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [len(zlib.compress(
+                               GREY.tobytes()))])]), "read otherwise"),
 }
 
 
@@ -170,6 +184,63 @@ def ccitt_tiles() -> bytes:
     return refused_files()[0]["tiles"][0]
 
 
+def planar_jpeg_tiff(photometric: int) -> bytes:
+    """A JPEG-in-TIFF of three planes, each a grey JPEG stream of one of
+    RGB's channels."""
+    planes = [pil_jpeg(np.ascontiguousarray(RGB[..., i]), quality=90) for i in range(3)]
+    return chip_smoke.tiff_pack(24, 16, planes, [
+        (258, 3, [8] * 3), (259, 3, [7]), (262, 3, [photometric]), (277, 3, [3]), (284, 3, [2]),
+        (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [len(p) for p in planes])])
+
+
+def jpeg_tiff_grey(stream: bytes, bits: int = 8, photometric: int = 1, tags=()) -> bytes:
+    return chip_smoke.tiff_pack(24, 16, [stream], [
+        (258, 3, [bits]), (259, 3, [7]), (262, 3, [photometric]), (277, 3, [1]),
+        (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [len(stream)])] + list(tags))
+
+
+def mh_word_rows(black) -> bytes:
+    """CCITT RLE-W (compression 32771) rows: each row's Modified Huffman
+    runs (white first), padded to a 16-bit word."""
+    bits = ""
+    for row in black:
+        x, colour, s = 0, False, ""
+        while x < len(row):
+            e = x
+            while e < len(row) and row[e] == colour:
+                e += 1
+            s, x, colour = s + chip_smoke.ccitt_run(e - x, colour), e, not colour
+        bits += s + "0" * (-len(s) % 16)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big")
+
+
+def thunderscan_raw(nibbles) -> bytes:
+    """ThunderScan (compression 32809) rows of raw 4-bit pixels: a code
+    byte 0xC0 | value each."""
+    return bytes(0xC0 | int(v) for v in nibbles.ravel())
+
+
+def pil_image_bytes(fmt: str) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(GREY).save(buf, fmt)
+    return buf.getvalue()
+
+
+def one_strip(blob: bytes, bits: int, compression: int, photometric: int = 1) -> bytes:
+    return chip_smoke.tiff_pack(24, 16, [blob], [
+        (258, 3, [bits]), (259, 3, [compression]), (262, 3, [photometric]), (277, 3, [1]),
+        (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [len(blob)])])
+
+
+def px_tile_past_its_row() -> bytes:
+    """Planar PX through libtiff in tiles whose last row is inside the
+    image: PIL reads that row of the first plane's tile on past its buffer."""
+    from test_torch_port_tiff_layouts import PLANAR
+    smp, bits, photo, tags = PLANAR["px"]
+    return chip_smoke.tiff_layout(np.resize(smp, (16,) + smp.shape[1:]), bits, photo,
+                                  compression=5, planar=2, tile=(16, 16), tags=tags)
+
+
 def pil_tiff_of(codec: str) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(GREY).save(buf, "TIFF", compression=codec)
@@ -177,13 +248,31 @@ def pil_tiff_of(codec: str) -> bytes:
 
 
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
+# The audit: a genuine file at each site of decode.cpp that still
+# raises naming A.6 (a site whose file PIL refuses is corrupt: REFUSED).
 STILL_A6 = {
-    "ccitt_tiles": (ccitt_tiles, "in tiles"),
+    "lzma_arm64_bcj": (lambda: bcj_filter_tiff(0x0A), "ARM64 BCJ"),
+    "lzma_riscv_bcj": (lambda: bcj_filter_tiff(0x0B), "RISC-V BCJ"),
+    "tag_given_twice": (lambda: chip_smoke.tiff_layout(
+        G8, 8, 1, compression=8, tags=[(262, 3, [1]), (262, 3, [0])]), "given twice"),
+    "ccitt_rle_w": (lambda: one_strip(mh_word_rows(GREY < 60), 1, 32771, 0), "compression 32771"),
+    "thunderscan": (lambda: one_strip(thunderscan_raw(GREY >> 4), 4, 32809), "compression 32809"),
+    "planar_jpeg_tiff": (lambda: planar_jpeg_tiff(2), "planar JPEG-in-TIFF"),
+    "jpeg_tiff_12_bits": (lambda: jpeg_tiff_grey(frame(pil_jpeg(GREY, quality=90), precision=12),
+                                                 12), "12-bit JPEG-in-TIFF"),
+    "jpeg_tiff_white_is_zero": (lambda: jpeg_tiff_grey(pil_jpeg(GREY, quality=90), photometric=0),
+                                "photometric 0"),
+    "jpeg_tiff_palette": (lambda: jpeg_tiff_grey(pil_jpeg(GREY, quality=90), photometric=3, tags=[
+        (320, 3, list(range(0, 65536, 256)) * 3)]), "photometric 3"),
+    "planar_px_tile_past_its_row": (px_tile_past_its_row, "planar PX TIFF tile"),
+    "gif": (lambda: pil_image_bytes("GIF"), "GIF"),
+    "webp": (lambda: pil_image_bytes("WEBP"), "WebP"),
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.14).
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.16).
 NOW_READ = {
+    "ccitt_tiles": ccitt_tiles,
     "lzma_tiff": lambda: pil_tiff_of("lzma"),
     "zstd_tiff": lambda: pil_tiff_of("zstd"),
     "lossless_sof3": lambda: lossless_jpeg([GREY]),
@@ -205,7 +294,8 @@ def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
     """A genuine lossless JPEG (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
     TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample,
-    RGB with associated alpha, LZMA and ZSTD TIFF: each bit-equal with PIL."""
+    RGB with associated alpha, LZMA and ZSTD TIFF, CCITT in tiles: each
+    bit-equal with PIL."""
     path = tmp_path / name
     path.write_bytes(NOW_READ[name]())
     assert jdataset.decode_image(path, 16).any()                   # PIL reads it

@@ -95,9 +95,10 @@ def test_dataset_and_canvas_pixels_stay_the_jax_packages(tmp_path, monkeypatch):
     give the JAX package's PIL pixels, so the resize moved no pixel and
     needed no new cache version (d2 then; d3 since damaged JPEG data decodes
     as libjpeg-turbo decodes it, d4 since C.13's last repairs, d5 since
-    damaged CCITT data decodes as libtiff decodes it); the resize is the
-    native one, not numpy's."""
-    assert native.DECODE_VERSION == "d5"
+    damaged CCITT data decodes as libtiff decodes it, d6 since damaged ZSTD
+    literals read as libzstd reads them); the resize is the native one, not
+    numpy's."""
+    assert native.DECODE_VERSION == "d6"
     paths = []
     for i, (h, w) in enumerate(((500, 1200), (90, 210), (64, 64), (700, 300))):
         p = tmp_path / f"s{i}.png"

@@ -254,10 +254,11 @@ def test_written_jpeg_tiff_matches_pil(tmp_path, kind, h, w, seed):
 
 
 def test_jpeg_tiff_refusals(tmp_path):
-    """Planar YCbCr is a kind not read yet; a stream whose sampling is not
-    the file's (4:2:0 in an RGB file), or that is taller than its strip and
-    not the last, is corrupt, as libtiff has it (PIL fails; the datasets
-    take a zero image); so is this file marked old-style JPEG-in-TIFF
+    """Planar YCbCr (which libtiff's JPEG codec refuses: C.16), a stream
+    whose sampling is not the file's (4:2:0 in an RGB file), or that is
+    taller than its strip and not the last, is corrupt, as libtiff has it
+    (PIL fails; the datasets take a zero image); so is this file marked
+    old-style JPEG-in-TIFF
     (compression 6, read since A.6.3), whose 8-row strips are not whole
     rows of its 4:2:0 MCUs."""
     rgb = pixels(np.random.RandomState(15), (24, 40, 3)).astype(np.uint8)
@@ -276,7 +277,7 @@ def test_jpeg_tiff_refusals(tmp_path):
                          ValueError, "old-style JPEG-in-TIFF strips not whole MCU rows"),
              "planar.tif": (good.replace(planar + struct.pack("<I", 1),
                                          planar + struct.pack("<I", 2)),
-                            NotImplementedError, "YCbCr TIFF.*ROADMAP A.6"),
+                            ValueError, "YCbCr TIFF of JPEG in planes"),
              "sampling.tif": (jpeg_tiff(rgb, 2, rows_per_strip=8, sub=2), ValueError,
                               "sampling factors"),
              "tall.tif": (tall, ValueError, "wrong size")}

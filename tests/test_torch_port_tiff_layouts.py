@@ -672,9 +672,14 @@ def test_damaged_files_read_as_pil(tmp_path, name):
 
 def test_a_tag_given_twice_on_libtiffs_route_is_not_read_yet(tmp_path):
     """PIL keeps a duplicated tag's last entry and libtiff its first: the
-    port does not follow the two apart (ROADMAP A.6)."""
+    port does not follow the two apart (ROADMAP A.6) where PIL reads the
+    file (a photometric given twice); an ImageWidth given twice, which makes
+    libtiff's size not PIL's, PIL's decoder refuses (C.16): corrupt."""
     data = chip_smoke.tiff_layout(GREY, 8, 1, compression=8,
                                   tags=[(256, 4, [W]), (256, 3, [W - 3])])
+    holds(tmp_path, data, False, "size or sample bits libtiff reads otherwise")
+    data = chip_smoke.tiff_layout(GREY, 8, 1, compression=8, tags=[(262, 3, [1]), (262, 3, [0])])
+    assert pil_reads(data)
     (tmp_path / "twice.tif").write_bytes(data)
     with pytest.raises(NotImplementedError, match="given twice.*ROADMAP A.6"):
         tdataset.decode_gray(tmp_path / "twice.tif")

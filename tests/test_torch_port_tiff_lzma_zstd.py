@@ -263,12 +263,20 @@ def test_xz_stream_reads_as_pil(tmp_path, name):
     holds(tmp_path, grey_strip(blob, LZMA, w, h), reads)
 
 
+def bcj_filter_tiff(filter_id: int = 0x0A, seed: int = 3) -> bytes:
+    """A grey LZMA TIFF whose stream's BCJ filter is liblzma's ARM64 (0x0A)
+    or RISC-V (0x0B): x86 BCJ data with the filter ID patched (Python's
+    ``lzma`` writes neither). PIL reads it; the port not yet (ROADMAP A.6),
+    so tests use it as their kind the port does not read."""
+    s = with_block_header(xz(bcj_data(np.random.RandomState(seed), W * H),
+                             filters=[{"id": lzma.FILTER_X86}, {"id": lzma.FILTER_LZMA2}]),
+                          lambda h: h.__setitem__(2, filter_id))
+    return grey_strip(s, LZMA)
+
+
 def test_xz_filters_liblzma_has_and_the_port_does_not_yet_raise_a6():
     """ARM64 and RISC-V BCJ (liblzma 5.4 on; PIL's reads them): A.6."""
-    s = with_block_header(xz(bcj_data(np.random.RandomState(3), W * H),
-                             filters=[{"id": lzma.FILTER_X86}, {"id": lzma.FILTER_LZMA2}]),
-                          lambda h: h.__setitem__(2, 0x0A))
-    data = grey_strip(s, LZMA)
+    data = bcj_filter_tiff()
     assert pil_reads(data)
     with pytest.raises(NotImplementedError, match="ARM64.*A.6"):
         tnative.decode(data)
@@ -395,6 +403,159 @@ def test_damaged_strips_read_as_pil(tmp_path, route, codec):
         verdicts.append(reads)
         holds(tmp_path, data, reads)
     assert any(verdicts)
+
+
+# -- C.15: damaged Huffman literals, as libzstd's x86-64 decoders read them ---------
+
+def code_lengths(rs, k: int, most: int) -> list:
+    """Code lengths of a complete prefix code of up to ``k`` symbols, none
+    longer than ``most``: leaves split at random."""
+    lens = [1, 1]
+    while len(lens) < k:
+        can = [i for i, n in enumerate(lens) if n < most]
+        if not can:
+            break
+        i = can[rs.randint(len(can))]
+        lens[i] += 1
+        lens.insert(i + 1, lens[i])
+    rs.shuffle(lens)
+    return lens
+
+
+def literals_frame(rs, regen: int, streams: int):
+    """A ZSTD frame of one compressed block of ``regen`` Huffman-coded
+    literals and no sequences (so its content is the literals): a random
+    complete code over up to 59 symbols (direct weights, 1 to 12 bits; the
+    canonical codes of RFC 8878 4.2.1.3), the literals drawn from them, in
+    1 or 4 streams (each a backward bit stream, its highest 1 bit the end
+    mark), then one stream damaged: bits flipped, a byte replaced, cut,
+    bytes inserted, or replaced by random bytes. None where the sizes do
+    not fit the header this writer uses."""
+    lens = code_lengths(rs, rs.randint(2, 60), rs.randint(2, 13))
+    syms = sorted(rs.choice(128, len(lens), replace=False).tolist())
+    most = max(lens)
+    order = sorted(range(len(lens)), key=lambda i: (-lens[i], syms[i]))
+    codes, at = {}, 0
+    for i in order:  # weights ascending from index 0, symbols ascending within
+        codes[syms[i]] = format(at >> (most - lens[i]), f"0{lens[i]}b")
+        at += 1 << (most - lens[i])
+    weight = {sym: most + 1 - n for sym, n in zip(syms, lens)}
+    explicit = [weight.get(sym, 0) for sym in range(syms[-1])]  # the last is implied
+    tree = bytes([127 + len(explicit)]) + bytes(
+        (explicit[i] << 4) | (explicit[i + 1] if i + 1 < len(explicit) else 0)
+        for i in range(0, len(explicit), 2))
+    data = rs.choice(syms, regen).tolist()
+
+    def stream(part):
+        bits = "".join(codes[sym] for sym in part)
+        value = (1 << len(bits)) | (int(bits, 2) if bits else 0)
+        return value.to_bytes((len(bits) + 8) // 8, "little")
+    seg = -(-regen // 4)
+    parts = [stream(data)] if streams == 1 else [stream(data[i * seg:(i + 1) * seg])
+                                                 for i in range(4)]
+    i = rs.randint(len(parts))
+    b, kind = bytearray(parts[i]), rs.randint(5)
+    if kind == 0:
+        for _ in range(rs.randint(1, 4)):
+            b[rs.randint(len(b))] ^= 1 << rs.randint(8)
+    elif kind == 1:
+        b[rs.randint(len(b))] = rs.randint(256)
+    elif kind == 2 and len(b) > 1:
+        del b[rs.randint(1, len(b)):]
+    elif kind == 3:
+        p = rs.randint(len(b) + 1)
+        b[p:p] = bytes(rs.randint(0, 256, rs.randint(1, 4)).tolist())
+    else:
+        b = bytearray(rs.randint(0, 256, max(1, len(b) + rs.randint(-3, 4))).tolist())
+    parts[i] = bytes(b)
+    payload = tree + (parts[0] if streams == 1 else
+                      struct.pack("<HHH", *[len(q) for q in parts[:3]]) + b"".join(parts))
+    size_format = 0 if streams == 1 else 1 if max(regen, len(payload)) < 1024 else 2
+    width = 10 if size_format < 2 else 14
+    if max(regen, len(payload)) >= 1 << width or (streams == 1 and regen >= 1024):
+        return None
+    head = (2 | size_format << 2 | regen << 4 | len(payload) << (4 + width)).to_bytes(
+        3 if size_format < 2 else 4, "little")
+    block = head + payload + b"\x00"
+    return (struct.pack("<IBI", 0xFD2FB528, 0xA0, regen)
+            + (1 | 2 << 1 | len(block) << 3).to_bytes(3, "little") + block)
+
+
+def pil_grey_or_none(data: bytes):
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("L"))
+    except Exception:
+        return None
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_damaged_literals_read_as_pil(part):
+    """C.15: 500 frames a part (2,000 in all) of damaged Huffman literals,
+    from 6 to 12,000 of them (X1 and X2 tables, the fast path and the
+    checked one, 1 and 4 streams), each a one-row ZSTD TIFF: the port reads
+    what PIL (libzstd 1.5.7) reads, byte for byte, and refuses what it
+    refuses. The decoder before C.15's repair read some 10 % of such files
+    otherwise."""
+    verdicts = []
+    for seed in range(500 * part, 500 * part + 500):
+        rs = np.random.RandomState(seed)
+        regen = int(rs.choice([rs.randint(6, 100), rs.randint(100, 3000), rs.randint(3000, 12000)]))
+        streams = 1 if rs.rand() < 0.15 else 4
+        frame = literals_frame(rs, min(regen, 1023) if streams == 1 else regen, streams)
+        if frame is None:
+            continue
+        n = struct.unpack_from("<I", frame, 5)[0]
+        data = grey_strip(frame, ZSTD, n, 1)
+        want = pil_grey_or_none(data)
+        verdicts.append(want is not None)
+        if want is None:
+            with pytest.raises(ValueError):
+                tnative.decode(data)
+        else:
+            np.testing.assert_array_equal(tnative.decode(data), want, err_msg=f"seed {seed}")
+    assert 0.2 < np.mean(verdicts) < 0.8 and len(verdicts) > 450
+
+
+def literal_span(frame: bytes):
+    """(start, end) of the first block's literal section in a ZSTD frame, or
+    None when that block is not compressed with Huffman literals."""
+    fhd = frame[4]
+    at = 5 + (0 if fhd & 0x20 else 1) + (0, 1, 2, 4)[fhd & 3]
+    at += (1 if fhd & 0x20 else 0, 2, 4, 8)[fhd >> 6]
+    if (frame[at] >> 1) & 3 != 2 or frame[at + 3] & 3 < 2:
+        return None
+    lit = at + 3
+    sf = (frame[lit] >> 2) & 3
+    hs, width = (3, 10) if sf < 2 else (4, 14) if sf == 2 else (5, 18)
+    v = int.from_bytes(frame[lit:lit + hs], "little")
+    return lit, lit + hs + ((v >> (4 + width)) & ((1 << width) - 1))
+
+
+def test_damaged_zstd_strips_in_their_literals_read_as_pil():
+    """C.15 on real strips: 240 grey scans' ZSTD strips (the ``zstandard``
+    package, levels 1 to 19) damaged inside their first block's Huffman
+    literals: the port reads each as PIL does, or refuses it where PIL does."""
+    rs = np.random.RandomState(15)
+    done = 0
+    while done < 240:
+        h, w = int(rs.randint(20, 60)), int(rs.randint(40, 200))
+        img = pixels(rs, (h, w)).astype(np.uint8)
+        frame = zstandard.ZstdCompressor(level=int(rs.randint(1, 20))).compress(img.tobytes())
+        span = literal_span(frame)
+        if span is None:
+            continue
+        b = bytearray(frame)
+        for _ in range(rs.randint(1, 3)):
+            b[rs.randint(span[0] + 1, span[1])] ^= 1 << rs.randint(8)
+        data = grey_strip(bytes(b), ZSTD, w, h)
+        want = pil_grey_or_none(data)
+        if want is None:
+            with pytest.raises(ValueError):
+                tnative.decode(data)
+        else:
+            np.testing.assert_array_equal(tnative.decode(data), want)
+        done += 1
 
 
 # -- the datasets ------------------------------------------------------------------

@@ -233,9 +233,10 @@ def test_pairs_and_split_match_jax(trees, layout):
 def test_pairs_refuse_other_image_formats(trees, tmp_path):
     """A tree holding .jpg, .bmp and .tif scans (a CCITT Group 4 one among
     them) is paired and decoded as the JAX package does (its PIL path);
-    only a file of a kind not read yet (a CCITT TIFF in tiles; the CMYK
-    TIFF, BigTIFF and LZMA TIFF this test refused before are read) is
-    refused, naming the ROADMAP item of the decoders."""
+    only a file of a kind not read yet (an LZMA TIFF of the ARM64 BCJ
+    filter; the CMYK TIFF, BigTIFF, LZMA TIFF and CCITT TIFF in tiles this
+    test refused before are read) is refused, naming the ROADMAP item of
+    the decoders."""
     import shutil
 
     from siggan_tpu.data.native import loader as jnative
@@ -268,9 +269,9 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     have = tpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
     np.testing.assert_array_equal(have.img1, want.img1)
     np.testing.assert_array_equal(have.img2, want.img2)
-    from test_torch_port_ccitt import refused_files
-    (tmp_path / "users" / "writer_010" / "tiles.tif").write_bytes(refused_files()[0]["tiles"][0])
-    with pytest.raises(NotImplementedError, match="in tiles.*ROADMAP A.6"):
+    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
+    (tmp_path / "users" / "writer_010" / "arm64.tif").write_bytes(bcj_filter_tiff())
+    with pytest.raises(NotImplementedError, match="ARM64.*ROADMAP A.6"):
         tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
 

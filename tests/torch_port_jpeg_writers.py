@@ -546,3 +546,55 @@ def _arith_scan(blocks, comps, comp_ids, geometry, progressive, ss, se, ah, al, 
                 else:
                     ac_refine(b)
     return bytes(out + enc.finish())
+
+
+def lossless_arith_jpeg(img, *, psv: int = 1) -> bytes:
+    """A lossless arithmetic-coded JPEG (SOF11) of uint8 grey ``img``: the
+    differences from predictor ``psv`` (T.81 Table H.1, the first row and
+    column as in ``lossless_jpeg``) coded by the QM coder as T.81 H.1.2.3
+    conditions them: as a DC difference (F.1.4.1), its zero, sign and first
+    magnitude decisions in one of 25 contexts by the classes of the
+    differences to the left (Da) and above (Db) (conditioning bounds L = 0,
+    U = 1), its magnitude bins in one of two sets by Db's class (small or
+    large). libjpeg has no decoder for it."""
+    x = np.asarray(img, np.int64)
+    h, w = x.shape
+    enc, bins = QMEncoder(), [0] * (100 + 2 * 29)
+    diff = np.zeros((h, w), np.int64)
+
+    def cls(d):  # 0 zero, 1 / 2 small + / -, 3 / 4 large + / -
+        return 0 if d == 0 else (1 if d > 0 else 2) if abs(d) <= 2 else (3 if d > 0 else 4)
+    for r in range(h):
+        for c in range(w):
+            if r == 0:
+                p = 128 if c == 0 else x[r, c - 1]
+            elif c == 0:
+                p = x[r - 1, c]
+            else:
+                p = predict(psv, x[r, c - 1], x[r - 1, c], x[r - 1, c - 1])
+            v = int((x[r, c] - p + 0x8000) % 0x10000 - 0x8000)
+            diff[r, c] = v
+            da, db = cls(diff[r, c - 1]) if c else 0, cls(diff[r - 1, c]) if r else 0
+            st = 4 * (5 * da + db)
+            if v == 0:
+                enc.encode(bins, st, 0)
+                continue
+            enc.encode(bins, st, 1)
+            enc.encode(bins, st + 1, int(v < 0))
+            st += 2 + int(v < 0)
+            m, v = 0, abs(v) - 1
+            if v:
+                enc.encode(bins, st, 1)
+                m, v2, st = 1, v, 100 + 29 * (db > 2)
+                while v2 >> 1:
+                    v2 >>= 1
+                    enc.encode(bins, st, 1)
+                    m <<= 1
+                    st += 1
+            enc.encode(bins, st, 0)
+            st += 14
+            while m >> 1:
+                m >>= 1
+                enc.encode(bins, st, int(bool(m & v)))
+    return (b"\xff\xd8" + seg(0xCB, struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0]))
+            + seg(0xDA, bytes([1, 1, 0, psv, 0, 0])) + enc.finish() + b"\xff\xd9")

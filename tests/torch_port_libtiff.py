@@ -9,7 +9,8 @@ port to them. ``libtiff_read`` decodes each strip into one buffer reused
 from strip to strip, as PIL's ``_decodeStrip`` does, twice: once cleared to
 0x00 and once filled with 0xFF. The bytes that agree are the ones libtiff
 wrote; the port's reading is the 0x00 run (it starts from a cleared
-buffer), and PIL is compared where libtiff wrote.
+buffer), and PIL is compared where libtiff wrote. A tiled file is read the
+same way, tile after tile into one buffer, as PIL's ``_decodeTile`` does.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ def _libtiff() -> ctypes.CDLL:
     lib.TIFFStripSize.restype = ctypes.c_ssize_t
     lib.TIFFStripSize.argtypes = [ctypes.c_void_p]
     lib.TIFFClose.argtypes = [ctypes.c_void_p]
+    lib.TIFFReadEncodedTile.restype = ctypes.c_ssize_t
+    lib.TIFFReadEncodedTile.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+                                        ctypes.c_ssize_t]
+    lib.TIFFNumberOfTiles.argtypes = [ctypes.c_void_p]
+    lib.TIFFTileSize.restype = ctypes.c_ssize_t
+    lib.TIFFTileSize.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -64,8 +71,9 @@ def _tags(data: bytes) -> dict:
     return out
 
 
-def _strips(data: bytes, fill: int):
-    """[(libtiff's return, the buffer after it)] a strip, one buffer reused."""
+def _strips(data: bytes, fill: int, tiles: bool = False):
+    """[(libtiff's return, the buffer after it)] a strip (or tile), one
+    buffer reused."""
     fd, path = tempfile.mkstemp(suffix=".tif")
     try:
         os.write(fd, data)
@@ -74,11 +82,12 @@ def _strips(data: bytes, fill: int):
         if not tif:
             return None
         try:
-            size = _LIB.TIFFStripSize(tif)
+            size = (_LIB.TIFFTileSize if tiles else _LIB.TIFFStripSize)(tif)
             buf = (ctypes.c_uint8 * size)(*([fill] * size))
+            read = _LIB.TIFFReadEncodedTile if tiles else _LIB.TIFFReadEncodedStrip
             out = []
-            for s in range(_LIB.TIFFNumberOfStrips(tif)):
-                out.append((_LIB.TIFFReadEncodedStrip(tif, s, buf, size), bytes(buf)))
+            for s in range((_LIB.TIFFNumberOfTiles if tiles else _LIB.TIFFNumberOfStrips)(tif)):
+                out.append((read(tif, s, buf, size), bytes(buf)))
                 if out[-1][0] < 0:
                     break
             return out
@@ -94,19 +103,21 @@ def libtiff_read(data: bytes):
     first strip, and which of its pixels libtiff wrote."""
     tags = _tags(data)
     w, h = tags[256][0], tags[257][0]
-    rps = min(tags.get(278, [h])[0], h)
-    zero, ones = _strips(data, 0x00), _strips(data, 0xFF)
-    if zero is None or any(r < 0 for r, _ in zero) or len(zero) < -(-h // rps):
+    tiles = 322 in tags
+    cw, ch = (tags[322][0], tags[323][0]) if tiles else (w, min(tags.get(278, [h])[0], h))
+    across = -(-w // cw)
+    zero, ones = _strips(data, 0x00, tiles), _strips(data, 0xFF, tiles)
+    if zero is None or any(r < 0 for r, _ in zero) or len(zero) < across * -(-h // ch):
         return None
-    rb = (w + 7) // 8
-    bits, same = [], []
-    for (_, a), (_, b) in zip(zero, ones):
-        for y in range(min(rps, h - len(bits))):
-            ra = np.frombuffer(a[y * rb:(y + 1) * rb], np.uint8)
-            rb_ = np.frombuffer(b[y * rb:(y + 1) * rb], np.uint8)
-            bits.append(np.unpackbits(ra)[:w])
-            same.append(np.unpackbits(ra)[:w] == np.unpackbits(rb_)[:w])
-    bits, written = np.array(bits), np.array(same)
+    rb = (cw + 7) // 8
+    bits, written = np.zeros((h, w), np.uint8), np.zeros((h, w), bool)
+    for i, ((_, a), (_, b)) in enumerate(zip(zero, ones)):
+        y0, x0 = i // across * ch, i % across * cw
+        for y in range(min(ch, h - y0)):
+            ra = np.unpackbits(np.frombuffer(a[y * rb:(y + 1) * rb], np.uint8))[:min(cw, w - x0)]
+            rb_ = np.unpackbits(np.frombuffer(b[y * rb:(y + 1) * rb], np.uint8))[:len(ra)]
+            bits[y0 + y, x0:x0 + len(ra)] = ra
+            written[y0 + y, x0:x0 + len(ra)] = ra == rb_
     white = 0 if tags.get(262, [0])[0] == 0 else 1     # WhiteIsZero: a 0 bit is white
     grey = np.where(bits == white, 255, 0).astype(np.uint8)
     return grey, written
