@@ -2024,17 +2024,22 @@ CCITT_EXTENDED = (
     "000000010110", "000000010111", "000000011100", "000000011101", "000000011110", "000000011111",)
 
 
-def ccitt_run(run: int, black: bool) -> str:
-    """The T.4 code words of one run, as a string of bits."""
-    codes, out = CCITT_BLACK if black else CCITT_WHITE, ""
+def ccitt_words(run: int, black: bool) -> list:
+    """The T.4 code words of one run, each a string of bits."""
+    codes, out = CCITT_BLACK if black else CCITT_WHITE, []
     while run >= 2560:
-        out, run = out + CCITT_EXTENDED[12], run - 2560
+        out, run = out + [CCITT_EXTENDED[12]], run - 2560
     if run >= 1792:
         k = (run - 1792) // 64
-        out, run = out + CCITT_EXTENDED[k], run - 1792 - 64 * k
+        out, run = out + [CCITT_EXTENDED[k]], run - 1792 - 64 * k
     elif run >= 64:
-        out, run = out + codes[63 + run // 64], run % 64
-    return out + codes[run]
+        out, run = out + [codes[63 + run // 64]], run % 64
+    return out + [codes[run]]
+
+
+def ccitt_run(run: int, black: bool) -> str:
+    """The T.4 code words of one run, as a string of bits."""
+    return "".join(ccitt_words(run, black))
 
 
 G4_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000010",
@@ -2587,6 +2592,271 @@ def a6_ccitt_lzw_pages(golden) -> dict:
             "sof11_stripe.jpg": sof11((FIXTURES / "lossless_stripe.jpg").read_bytes())}
 
 
+def mh_words(row) -> list:
+    """A bilevel row's Modified Huffman code words (True black), white
+    first: [(word, black), ...]."""
+    out, x, colour = [], 0, False
+    while x < len(row):
+        e = x
+        while e < len(row) and bool(row[e]) == colour:
+            e += 1
+        out += [(word, colour) for word in ccitt_words(e - x, colour)]
+        x, colour = e, not colour
+    return out
+
+
+def rlew_strip(black, odd: bool = False, libtiff: bool = True) -> bytes:
+    """CCITT RLE-W (compression 32771) of a bilevel (H, W) array, True
+    black: each row's Modified Huffman codes, then zero bits up to where
+    libtiff's reader takes up the next row. Its reader fetches a byte at a
+    time until it holds 12 bits for a white code, 13 for a black one; at a
+    row's end it drops the bits it holds past a multiple of 16 and, holding
+    none, moves its pointer to an even address (``odd``: the strip starts
+    at an odd offset in the file). ``libtiff`` False pads each row to a
+    16-bit word from the strip's start instead, as the format says."""
+    bits, fetched, held = [], 0, 0
+    for row in black:
+        for word, colour in mh_words(row):
+            while libtiff and held < (13 if colour else 12):
+                fetched, held = fetched + 1, held + 8
+            bits.append(word)
+            held -= len(word)
+        n = sum(map(len, bits))
+        if not libtiff:
+            bits.append("0" * (-n % 16))
+            continue
+        held -= held & 15
+        if held == 0 and (fetched + odd) & 1:
+            fetched += 1
+        bits.append("0" * (8 * fetched - held - n))
+    return fax_bytes("".join(bits))
+
+
+def thunder_codes(nibbles, rs=None) -> bytes:
+    """ThunderScan (compression 32809) code bytes of rows of 4-bit values:
+    at each pixel, of the codes that fit, a run of the last value (up to 63
+    pixels), three 2-bit deltas, two 3-bit deltas (deltas modulo 16), or
+    the raw value: the first that fits in that order, or with ``rs`` a
+    random one, the deltas then with one slot the skip code now and then."""
+    out = bytearray()
+    two, three = {0: 0, 1: 1, 15: 3}, {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    for row in nibbles:
+        row = [int(v) for v in row]
+        last, x, w = 0, 0, len(row)
+        while x < w:
+            run = 0
+            while x + run < w and row[x + run] == last and run < 63:
+                run += 1
+            d, prev = [], last
+            for v in row[x:x + 3]:
+                d.append((v - prev) % 16)
+                prev = v
+            fits = []
+            if run:
+                fits.append(("run", run if rs is None else int(rs.randint(1, run + 1))))
+            if len(d) == 3 and all(v in two for v in d):
+                fits.append(("two", 3))
+            if len(d) >= 2 and all(v in three for v in d[:2]):
+                fits.append(("three", 2))
+            if rs is not None and d[0] in two:
+                fits.append(("two", 1))
+            if rs is not None and d[0] in three:
+                fits.append(("three", 1))
+            fits.append(("raw", 1))
+            kind, n = fits[0] if rs is None else fits[rs.randint(len(fits))]
+            if kind == "run":
+                out.append(n)
+            elif kind == "two":
+                slots = [two[v] for v in d[:n]] + [2] * (3 - n)
+                out.append(0x40 | slots[0] << 4 | slots[1] << 2 | slots[2])
+            elif kind == "three":
+                slots = [three[v] for v in d[:n]] + [4] * (2 - n)
+                out.append(0x80 | slots[0] << 3 | slots[1])
+            else:
+                out.append(0xC0 | row[x])
+            last, x = row[x + n - 1], x + n
+    return bytes(out)
+
+
+def _dct_matrix():
+    import numpy as np
+    k = np.arange(8)
+    m = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    m[0] /= np.sqrt(2)
+    return m
+
+
+# Fixed-length Huffman tables that hold every symbol a 12-bit frame codes:
+# DC categories 0 .. 15 in 5 bits, and every AC run/size (sizes 1 .. 14),
+# EOB and ZRL in 8 bits (no code all ones).
+SOF1_DC = list(range(16))
+SOF1_AC = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 15)]
+ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+          27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37,
+          44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+
+
+def jpeg_sof1(planes, quant, *, precision: int = 12, restart: int = 0, pq16: bool = False) -> bytes:
+    """An extended sequential Huffman JPEG (SOF1) of ``planes`` (one 2-D
+    array, or a list of them, one a component, all 1 x 1): samples
+    level-shifted by half their range, a float DCT rounded and divided by
+    the 64 quantizers ``quant`` (natural order; 16-bit with ``pq16``),
+    coded with SOF1_DC / SOF1_AC, a restart every ``restart`` MCUs; up to
+    4 components in one scan, more in a scan each. At 12 bits
+    libjpeg-turbo's 12-bit decoder reads it (through libtiff, for PIL: PIL
+    refuses the JPEG file on its own)."""
+    import struct
+    import numpy as np
+    planes = [np.asarray(p, np.int64) for p in (planes if isinstance(planes, list) else [planes])]
+    h, w = planes[0].shape
+    m = _dct_matrix()
+    quant = np.asarray(quant, np.int64).reshape(8, 8)
+    pads = [np.pad(p, ((0, -h % 8), (0, -w % 8)), mode="edge").astype(np.float64)
+            - (1 << (precision - 1)) for p in planes]
+    dc_bits, ac_bits = [0] * 4 + [16] + [0] * 11, [0] * 7 + [len(SOF1_AC)] + [0] * 8
+    dc_codes = {v: (i, 5) for i, v in enumerate(SOF1_DC)}
+    ac_codes = {v: (i, 8) for i, v in enumerate(SOF1_AC)}
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+    n = len(planes)
+    table = b"".join(int(quant.flat[i]).to_bytes(2 if pq16 else 1, "big") for i in ZIGZAG)
+    head = b"\xff\xd8" + seg(0xDB, bytes([0x10 if pq16 else 0]) + table)
+    head += seg(0xC4, bytes([0x00] + dc_bits) + bytes(SOF1_DC))
+    head += seg(0xC4, bytes([0x10] + ac_bits) + bytes(SOF1_AC))
+    head += seg(0xC1, struct.pack(">BHHB", precision, h, w, n) +
+                b"".join(bytes([i + 1, 0x11, 0]) for i in range(n)))
+    if restart:
+        head += seg(0xDD, struct.pack(">H", restart))
+    body = b""
+    for comps in ([list(range(n))] if n <= 4 else [[ci] for ci in range(n)]):
+        out, acc, nacc, preds, count = bytearray(), 0, 0, [0] * n, 0
+
+        def put(v, k):
+            nonlocal acc, nacc
+            acc, nacc = (acc << k) | (v & ((1 << k) - 1)), nacc + k
+            while nacc >= 8:
+                byte = (acc >> (nacc - 8)) & 0xFF
+                out.extend([byte, 0] if byte == 0xFF else [byte])
+                nacc -= 8
+            acc &= (1 << nacc) - 1
+
+        def value(code, v):
+            put(*code)
+            s = abs(v).bit_length()
+            if s:
+                put(v if v >= 0 else v + (1 << s) - 1, s)
+
+        def flush():
+            if nacc:
+                put((1 << (8 - nacc)) - 1, 8 - nacc)
+        coefs = [np.rint(np.einsum("ij,ajbk,lk->abil", m, pads[ci].reshape(
+            pads[ci].shape[0] // 8, 8, pads[ci].shape[1] // 8, 8), m) / quant).astype(np.int64)
+            .reshape(-1, 64)[:, ZIGZAG] for ci in range(n)]
+        for b in range(coefs[0].shape[0]):
+            if restart and count and count % restart == 0:
+                flush()
+                out.extend([0xFF, 0xD0 + (count // restart - 1) % 8])
+                preds = [0] * n
+            count += 1
+            for ci in comps:
+                zz = coefs[ci][b].tolist()
+                value(dc_codes[abs(zz[0] - preds[ci]).bit_length()], zz[0] - preds[ci])
+                preds[ci], run = zz[0], 0
+                for k in range(1, 64):
+                    if zz[k] == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        put(*ac_codes[0xF0])
+                        run -= 16
+                    value(ac_codes[(run << 4) | abs(zz[k]).bit_length()], zz[k])
+                    run = 0
+                if run:
+                    put(*ac_codes[0x00])
+        flush()
+        sos = bytes([len(comps)]) + b"".join(bytes([ci + 1, 0x00]) for ci in comps) + bytes([0, 63, 0])
+        body += seg(0xDA, sos) + bytes(out)
+    return head + body + b"\xff\xd9"
+
+
+def jpeg_in_tiff(streams, w: int, h: int, bits: int, photometric: int, spp: int, *,
+                 planar: int = 1, rows_per_strip: int = 0, tags=()) -> bytes:
+    """A JPEG-in-TIFF (compression 7) of ``streams``, one a strip (planar
+    2: each plane's strips, plane after plane)."""
+    n = len(streams)
+    return tiff_pack(w, h, streams, [
+        (258, 3, [bits] * spp), (259, 3, [7]), (262, 3, [photometric]), (277, 3, [spp]),
+        (284, 3, [planar]), (273, 4, lambda o: o[:n]), (278, 4, [rows_per_strip or h]),
+        (279, 4, [len(s) for s in streams])] + list(tags))
+
+
+def xz_with_filter(stream: bytes, filter_id: int) -> bytes:
+    """A single-block .xz stream with its first filter's ID made
+    ``filter_id`` (one byte) and its block header's CRC32 made good."""
+    import struct
+    import zlib
+    size = (stream[12] + 1) * 4
+    head = bytearray(stream[12:12 + size])
+    head[2] = filter_id
+    struct.pack_into("<I", head, size - 4, zlib.crc32(bytes(head[:size - 4])))
+    return stream[:12] + bytes(head) + stream[12 + size:]
+
+
+def lzma_bcj(raw: bytes, filter_id: int) -> bytes:
+    """``raw`` through Python's x86 BCJ encoder and LZMA2, the filter then
+    named ``filter_id`` (0x0A ARM64, 0x0B RISC-V: liblzma's decoders, which
+    Python's ``lzma`` does not write): what the file's reader gives is that
+    filter's decoding of the x86-coded bytes."""
+    import lzma
+    xz = lzma.compress(raw, lzma.FORMAT_XZ, check=lzma.CHECK_NONE,
+                       filters=[{"id": lzma.FILTER_X86}, {"id": lzma.FILTER_LZMA2, "preset": 6}])
+    return xz_with_filter(xz, filter_id)
+
+
+Q90 = [3, 2, 2, 3, 5, 8, 10, 12, 2, 2, 3, 4, 5, 12, 12, 11, 3, 3, 3, 5, 8, 11, 14, 11, 3, 3, 4, 6,
+       10, 17, 16, 12, 4, 4, 7, 11, 14, 22, 21, 15, 5, 7, 11, 13, 16, 21, 23, 18, 10, 13, 16, 17,
+       21, 24, 24, 20, 14, 18, 19, 20, 22, 20, 21, 20]  # IJG's luminance table at quality 90
+
+
+def a6_kind_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of A.6.20-A.6.25, built without PIL
+    from scan_420.jpg's grey and the Group 4 page's ink: JPEG-in-TIFF of
+    photometric 0 (the grey inverted, SOF1 at IJG quality 90), 12-bit
+    JPEG-in-TIFF (the grey halved, the ink from 3000 up: most of the page
+    under 256, the ink clipped), planar RGB JPEG-in-TIFF (the grey tinted,
+    a stream a plane a 50-row strip), CCITT RLE-W and ThunderScan (the grey
+    >> 4) in 50-row strips, and the grey as LZMA TIFF with the ARM64 BCJ
+    filter. Each is held to a digest of PIL's grey of the same bytes
+    (a6_pages.sha256)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"].astype(np.int64)
+    ink = golden["ccitt_g4_page.tif"] == 0
+    h, w = grey.shape
+    rows = range(0, h, 50)
+    rgb = [grey, grey * 31 // 32, np.minimum(grey + 6, 255)]
+    twelve = grey // 2 + (grey < 60) * 3000
+
+    def strips(blobs, bits, compression, photometric, rows_per_strip=50):
+        return tiff_pack(w, h, blobs, [
+            (258, 3, [bits]), (259, 3, [compression]), (262, 3, [photometric]), (277, 3, [1]),
+            (273, 4, lambda o: o), (278, 4, [rows_per_strip]), (279, 4, [len(b) for b in blobs])])
+    return {
+        "jpeg_white_is_zero_page.tif": jpeg_in_tiff(
+            [jpeg_sof1(255 - grey[y:y + 50], Q90, precision=8) for y in rows], w, h, 8, 0, 1,
+            rows_per_strip=50),
+        "jpeg_12bit_page.tif": jpeg_in_tiff(
+            [jpeg_sof1(twelve[y:y + 50], np.full(64, 4)) for y in rows], w, h, 12, 1, 1,
+            rows_per_strip=50),
+        "planar_jpeg_page.tif": jpeg_in_tiff(
+            [jpeg_sof1(p[y:y + 50], Q90, precision=8) for p in rgb for y in rows], w, h, 8, 2, 3,
+            planar=2, rows_per_strip=50),
+        "rlew_page.tif": strips([rlew_strip(ink[y:y + 50]) for y in rows], 1, 32771, 0),
+        "thunderscan_page.tif": strips([thunder_codes(grey[y:y + 50] >> 4) for y in rows], 4, 32809, 1),
+        "lzma_arm64_page.tif": strips([lzma_bcj(grey.astype(np.uint8).tobytes(), 0x0A)], 8, 34925, 1, h),
+    }
+
+
 # The decoder fixtures of A.6.7-A.6.12 (tests/test_torch_port_decode.py::
 # write_fixtures).
 LAYOUT_FIXTURES = ("bigtiff_lzw.tif", "planar_rgb.tif", "planar_cmyk_raw.tif", "ycbcr_22.tif",
@@ -2622,8 +2892,10 @@ def decode_phase(card: str, work: str):
     arrays, the pages built here bit-equal to their sources or to digests
     of PIL's grey (the TIFF layouts of A.6.7-A.6.12, LZMA TIFF, damaged
     Group 4 data, Group 4 in tiles, with a palette and with the
-    uncompressed-mode bit, old-style LZW and old-style JPEG-in-TIFF in tiles
-    among them; a SOF11 JPEG corrupt, as PIL refuses it), a cut
+    uncompressed-mode bit, old-style LZW and old-style JPEG-in-TIFF in tiles,
+    JPEG-in-TIFF of photometric 0, of 12 bits and planar, CCITT RLE-W,
+    ThunderScan and LZMA with the ARM64 BCJ filter among them; a SOF11 JPEG
+    corrupt, as PIL refuses it), a cut
     progressive scan script smoothed, a file PIL refuses a zero image, the
     threaded batch decode's rate per format, ``cli.preprocess`` and a
     ``SignatureDataset`` on a mixed tree of 1320 scans whose TIFFs take
@@ -2691,14 +2963,14 @@ def decode_phase(card: str, work: str):
             raise AssertionError(f"{name}: not bit-equal to the grey it was built from")
     # Pages of old-style JPEG-in-TIFF, float TIFF, arithmetic-coded and
     # lossless JPEG, of the TIFF layouts of A.6.7-A.6.12, of LZMA TIFF, of
-    # damaged Group 4 data (C.14) and of A.6.15-A.6.19, each held to the
+    # damaged Group 4 data (C.14) and of A.6.15-A.6.25, each held to the
     # digest of PIL's grey of the same bytes (a6_pages.sha256), or to PIL's
     # refusal (the arithmetic page past PIL's 64 KB block and the SOF11
     # stripe: corrupt).
     digests = dict(reversed(line.split()) for line in
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
     a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
-          **a6_ccitt_lzw_pages(golden)}
+          **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -2809,7 +3081,19 @@ def decode_phase(card: str, work: str):
               "old-style LZW TIFF 1200x500 (grey, 50-row strips)": (
                   [Path(work) / "old_lzw_page.tif"], 20),
               "old-style JPEG-in-TIFF 1200x500 in 400x80 tiles (YCbCr 4:4:4)": (
-                  [Path(work) / "ojpeg_tiles_page.tif"], 20)}
+                  [Path(work) / "ojpeg_tiles_page.tif"], 20),
+              "JPEG-in-TIFF 1200x500, WhiteIsZero (grey SOF1, 50-row strips)": (
+                  [Path(work) / "jpeg_white_is_zero_page.tif"], 20),
+              "JPEG-in-TIFF 1200x500, 12-bit (SOF1, 50-row strips)": (
+                  [Path(work) / "jpeg_12bit_page.tif"], 20),
+              "JPEG-in-TIFF 1200x500, planar RGB (a SOF1 stream a plane a strip)": (
+                  [Path(work) / "planar_jpeg_page.tif"], 20),
+              "CCITT RLE-W TIFF 1200x500 (the G4 page's ink, 50-row strips)": (
+                  [Path(work) / "rlew_page.tif"], 200),
+              "ThunderScan TIFF 1200x500 (4-bit grey, 50-row strips)": (
+                  [Path(work) / "thunderscan_page.tif"], 20),
+              "LZMA TIFF 1200x500 with the ARM64 BCJ filter (one strip)": (
+                  [Path(work) / "lzma_arm64_page.tif"], 20)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -2834,8 +3118,8 @@ def decode_phase(card: str, work: str):
     # BMP, TIFF and JPEG in turns (the JPEGs are the fixtures' scan pages);
     # the TIFFs in turn plain, of the layouts of A.6.7-A.6.12, LZMA, ZSTD
     # (the fixture page), damaged Group 4 (the damaged page), Group 4 in
-    # tiles, with a palette and with the uncompressed-mode bit, and
-    # old-style LZW.
+    # tiles, with a palette and with the uncompressed-mode bit, old-style
+    # LZW, and the kinds of A.6.20-A.6.25.
     raw, mixed = Path(work) / "scans", Path(work) / "mixed_scans"
     jpegs = sorted(FIXTURES.glob("scan_*.jpg"))
     t0 = time.perf_counter()
@@ -2940,13 +3224,40 @@ def mixed_tiff(grey, turn: int):
     damaged Group 4 page as they are, then the scan's ink (grey below 128)
     in Group 4: in 256 x 256 tiles, with a 1-bit palette in such tiles, and
     with the uncompressed-mode bit set; then old-style LZW grey in strips
-    of 32 rows."""
+    of 32 rows; then JPEG-in-TIFF of photometric 0 (the grey inverted), of
+    12 bits (the grey, the ink from 3000 up) and planar RGB (the grey
+    tinted), the ink as CCITT RLE-W, the grey >> 4 as ThunderScan and the
+    grey as LZMA with the ARM64 BCJ filter, in strips of 32 rows."""
     import numpy as np
     g = grey.astype(np.int64)
     layout = ("plain", "bigtiff", "planar", "ycbcr", "fill2", "pa", "lzma", "zstd",
-              "damaged_g4", "g4_tiles", "g4_palette", "g4_uncompressed", "old_lzw")[turn % 13]
+              "damaged_g4", "g4_tiles", "g4_palette", "g4_uncompressed", "old_lzw",
+              "jpeg_white_is_zero", "jpeg_12bit", "planar_jpeg", "rlew", "thunderscan",
+              "lzma_arm64")[turn % 19]
     if layout == "plain":
         return layout, tiff_grey(grey)
+    h, w = g.shape
+    rows = range(0, h, 32)
+    if layout in ("jpeg_white_is_zero", "jpeg_12bit"):
+        twelve = layout == "jpeg_12bit"
+        src = g // 2 + (g < 60) * 3000 if twelve else 255 - g
+        return layout, jpeg_in_tiff([jpeg_sof1(src[y:y + 32], np.full(64, 4) if twelve else Q90,
+                                               precision=12 if twelve else 8) for y in rows],
+                                    w, h, 12 if twelve else 8, 1 if twelve else 0, 1,
+                                    rows_per_strip=32)
+    if layout == "planar_jpeg":
+        planes = [g, g * 31 // 32, np.minimum(g + 6, 255)]
+        return layout, jpeg_in_tiff([jpeg_sof1(p[y:y + 32], Q90, precision=8) for p in planes
+                                     for y in rows], w, h, 8, 2, 3, planar=2, rows_per_strip=32)
+    if layout in ("rlew", "thunderscan", "lzma_arm64"):
+        blobs = ([rlew_strip(grey[y:y + 32] < 128) for y in rows] if layout == "rlew" else
+                 [thunder_codes(g[y:y + 32] >> 4) for y in rows] if layout == "thunderscan" else
+                 [lzma_bcj(grey[y:y + 32].astype(np.uint8).tobytes(), 0x0A) for y in rows])
+        bits, compression, photometric = {"rlew": (1, 32771, 0), "thunderscan": (4, 32809, 1),
+                                          "lzma_arm64": (8, 34925, 1)}[layout]
+        return layout, tiff_pack(w, h, blobs, [
+            (258, 3, [bits]), (259, 3, [compression]), (262, 3, [photometric]), (277, 3, [1]),
+            (273, 4, lambda o: o), (278, 4, [32]), (279, 4, [len(b) for b in blobs])])
     if layout == "lzma":
         return layout, tiff_layout(g[..., None], 8, 1, compression=34925, rows_per_strip=32)
     if layout == "zstd":

@@ -208,6 +208,7 @@ void std_table(Huff& t, bool dc, int id) {
 constexpr size_t kPilBlock = 65536;
 
 struct Suspend {};  // a Huffman decode that suspends mid-file (see Jpeg::huffman_mcu)
+struct OldTiffStop {};  // see Jpeg::old_tiff
 
 // Entropy-coded data, MSB first, with FF00 unstuffing. At a marker it
 // supplies zero bits (as libjpeg does); running off the end of the file is
@@ -239,8 +240,10 @@ struct Bits {
   bool at_marker = false;
   bool starved = false;
   bool hit = false;  // the fast path met a marker
+  bool open_end = false;  // see Jpeg::open_end
 
   [[noreturn, gnu::noinline]] void ran_out() const {
+    if (open_end) throw OldTiffStop{};
     if (end < n) throw Suspend{};
     corrupt("JPEG data ends early");
   }
@@ -488,9 +491,11 @@ struct ArithReader {
 
 // One arithmetic-coded scan's statistics (jdarith.c): 64 DC and 256 AC
 // bins a table, each component's DC prediction and context, the fixed bin.
+constexpr int kMaxComponents = 10;  // libjpeg's MAX_COMPONENTS
+
 struct ArithStats {
   uint8_t dc[16][64], ac[16][256];
-  int last_dc[4], dc_context[4];
+  int last_dc[kMaxComponents], dc_context[kMaxComponents];
   uint8_t fixed = 113;
 };
 
@@ -623,8 +628,64 @@ void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride)
   }
 }
 
-struct OldTiffStop {};  // see Jpeg::old_tiff
-struct JpegEnd {};      // see Jpeg::whole
+// jidctint.c's islow IDCT as libjpeg-turbo builds it for 12-bit samples
+// (no SIMD there; PASS1_BITS 1, 64-bit products, a 32-bit workspace): 8x8
+// coefficients and their quantizers (unsigned 16-bit) -> samples 0 .. 4095
+// through the range limit table, whose index is the descaled value masked
+// to 14 bits: -2048 .. 2047 map to 0 .. 4095, 2048 .. 8191 to 4095, the
+// rest of the table to 0 (then 0 .. 2047 again below -2048, as 8-bit).
+void idct_islow12(const int16_t* coef, const int16_t* q, uint16_t* out, int stride) {
+  const int kPass1 = 1;
+  int32_t ws[64];
+  auto deq = [&](int i) { return (int64_t)coef[i] * (uint16_t)q[i]; };
+  auto round = [](int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; };
+  // One 1-D pass: in(k) the k-th input, put(k, v) the k-th unrounded output.
+  auto pass = [](auto in, auto put) {
+    int64_t z2 = in(2), z3 = in(6);
+    int64_t z1 = (z2 + z3) * F0_541196100;
+    const int64_t tmp2 = z1 + z3 * -F1_847759065, tmp3 = z1 + z2 * F0_765366865;
+    z2 = in(0);
+    z3 = in(4);
+    const int64_t t0 = (z2 + z3) * (1 << kConstBits), t1 = (z2 - z3) * (1 << kConstBits);
+    const int64_t tmp10 = t0 + tmp3, tmp13 = t0 - tmp3, tmp11 = t1 + tmp2, tmp12 = t1 - tmp2;
+    int64_t o0 = in(7), o1 = in(5), o2 = in(3), o3 = in(1);
+    z1 = o0 + o3;
+    z2 = o1 + o2;
+    z3 = o0 + o2;
+    int64_t z4 = o1 + o3;
+    const int64_t z5 = (z3 + z4) * F1_175875602;
+    o0 *= F0_298631336;
+    o1 *= F2_053119869;
+    o2 *= F3_072711026;
+    o3 *= F1_501321110;
+    z1 *= -F0_899976223;
+    z2 *= -F2_562915447;
+    z3 = z3 * -F1_961570560 + z5;
+    z4 = z4 * -F0_390180644 + z5;
+    o0 += z1 + z3;
+    o1 += z2 + z4;
+    o2 += z2 + z3;
+    o3 += z1 + z4;
+    put(0, tmp10 + o3);
+    put(7, tmp10 - o3);
+    put(1, tmp11 + o2);
+    put(6, tmp11 - o2);
+    put(2, tmp12 + o1);
+    put(5, tmp12 - o1);
+    put(3, tmp13 + o0);
+    put(4, tmp13 - o0);
+  };
+  for (int c = 0; c < 8; ++c)
+    pass([&](int k) { return deq(8 * k + c); },
+         [&](int k, int64_t v) { ws[8 * k + c] = (int32_t)round(v, kConstBits - kPass1); });
+  for (int r = 0; r < 8; ++r)
+    pass([&](int k) { return (int64_t)ws[8 * r + k]; }, [&](int k, int64_t v) {
+      const int i = (int)round(v, kConstBits + kPass1 + 3) & 16383;
+      out[(size_t)r * stride + k] = (uint16_t)(i < 2048 ? i + 2048 : i < 8192 ? 4095 : i < 14336 ? 0 : i - 14336);
+    });
+}
+
+struct JpegEnd {};  // see Jpeg::whole
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -634,6 +695,7 @@ struct Component {
   int16_t q[64] = {0};  // the quantization table, latched at the first scan
   bool latched = false;
   std::vector<uint8_t> plane;
+  std::vector<uint16_t> plane12;  // a 12-bit frame's samples, in place of plane
   std::vector<int16_t> coef;  // progressive: 64 a block over the plane's blocks
   int dc_pred = 0;
 };
@@ -756,7 +818,7 @@ struct Jpeg {
   bool qdef[4] = {false, false, false, false};
   Huff dc[4], ac[4];
   int W = 0, H = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Component comp[4];
+  Component comp[kMaxComponents];
   bool frame = false, progressive = false, lossless = false, arith = false, jfif = false,
        adobe = false;
   // The DAC segment's conditioning per arithmetic table (defaults at SOI):
@@ -772,15 +834,25 @@ struct Jpeg {
   // reads no marker past its one scan.
   bool old_tiff = false;
   int stop_row = 0;
+  // libtiff's old-style stream without an EOI (its last strip or tile has
+  // no data): libjpeg reading past its end fails, which stops the decode
+  // as a restart out of place does.
+  bool open_end = false;
+  // The sample precision a frame may have: 8, or a TIFF's BitsPerSample
+  // (libtiff's JPEG codec reads 8 or 12 bits and refuses the other).
+  int allow_precision = 8, precision = 8;
+  // libtiff's JPEG codec takes a frame of any count of components libjpeg
+  // does (up to 10), PIL's JPEG plugin 1, 3 or 4.
+  bool any_components = false;
   // A frame of one scan is whole once that scan is (see tail).
   bool whole = false;
   // libjpeg's coef_bits: per component and zig-zag index, -1 before any
   // scan codes the coefficient, else the Al of the last scan that did.
-  int coef_bits[4][64];
+  int coef_bits[kMaxComponents][64];
   // jdphuff.c's copy of coef_bits 0 .. 9 from before the component's latest
   // scan (0 for the file's first scan), and the iMCU row of the last MCU
   // the latest scan began with data left (libjpeg's last_good_iMCU_row).
-  int prev_bits[4][10];
+  int prev_bits[kMaxComponents][10];
   int last_good = 0, last_good_rows = 1;  // in the latest scan's MCU rows, and those an iMCU row
 
   // A new stream (SOI at data[0]) with the tables read so far; `pil`: a
@@ -810,6 +882,7 @@ struct Jpeg {
   [[gnu::noinline]] void more() {
     if (pos >= n) {
       if (whole) throw JpegEnd{};
+      if (open_end) throw OldTiffStop{};
       corrupt("JPEG file ends early");
     }
     if (!can_suspend)
@@ -847,9 +920,12 @@ struct Jpeg {
     // PIL's JpegImagePlugin takes 8-bit frames of 1, 3 or 4 components;
     // libjpeg refuses an empty frame (a height left to a DNL marker) and a
     // side over JPEG_MAX_DIMENSION.
-    if (p != 8) corrupt(std::to_string(p) + "-bit JPEG (PIL reads 8-bit frames only)");
+    if (p != allow_precision)
+      corrupt(allow_precision == 8 ? std::to_string(p) + "-bit JPEG (PIL reads 8-bit frames only)"
+                                   : "JPEG-in-TIFF stream of another precision than the TIFF's bits");
+    precision = p;
     if (H == 0) corrupt("JPEG with a DNL marker (height 0)");
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+    if (any_components ? ncomp < 1 || ncomp > kMaxComponents : ncomp != 1 && ncomp != 3 && ncomp != 4)
       corrupt(std::to_string(ncomp) + "-component JPEG (PIL reads 1, 3 or 4)");
     if ((size_t)len != 8 + 3 * (size_t)ncomp) corrupt("bad JPEG frame header");
     check_size(W, H);
@@ -883,6 +959,8 @@ struct Jpeg {
       c.ph = mcuy * c.v * bs;
       if (prog)
         c.coef.assign((size_t)c.pw * c.ph, 0);  // 64 a block, pw/8 x ph/8 blocks
+      else if (p == 12)
+        c.plane12.assign((size_t)c.pw * c.ph, 0);
       else
         c.plane.assign((size_t)c.pw * c.ph, 0);
       std::fill(coef_bits[i], coef_bits[i] + 64, -1);
@@ -976,7 +1054,16 @@ struct Jpeg {
         k += 15;
       }
     }
-    idct_islow(coef, c.q, &c.plane[(size_t)brow * 8 * c.pw + (size_t)bcol * 8], c.pw);
+    idct(c, coef, brow, bcol);
+  }
+
+  // A block's samples into its component's plane, at the frame's precision.
+  void idct(Component& c, const int16_t* coef, int brow, int bcol) {
+    const size_t at = (size_t)brow * 8 * c.pw + (size_t)bcol * 8;
+    if (precision == 12)
+      idct_islow12(coef, c.q, &c.plane12[at], c.pw);
+    else
+      idct_islow(coef, c.q, &c.plane[at], c.pw);
   }
 
   // jdphuff.c, one block of each kind of progressive scan; `eobrun` is the
@@ -1123,6 +1210,7 @@ struct Jpeg {
     for (int i = 0; i < ns; ++i) blocks += ns == 1 ? 1 : sc[i]->h * sc[i]->v;
     last_good_rows = ns == 1 ? sc[0]->v : 1;  // MCU rows an iMCU row
     for (int my = 0; my < rows; ++my) {
+      stop_row = my;
       for (int mx = 0; mx < cols; ++mx) {
         bool restarted = restart && done > 0 && done % restart == 0;
         if (br.took_padding()) br.starved = true;
@@ -1133,7 +1221,6 @@ struct Jpeg {
           br.reset();
           pos = br.pos;
           if constexpr (kHuffman) avail = br.end;
-          stop_row = my;
           const bool left = restart_marker(rst);
           rst = (rst + 1) & 7;
           br.pos = pos;
@@ -1191,7 +1278,7 @@ struct Jpeg {
     // Its decoder suspends between MCUs and reads the same bits again, so
     // PIL's blocks do not matter; the end of the file does.
     BitReader br{d, n, pos, n};
-    const int init = 1 << (8 - pt - 1);
+    const int init = 1 << (precision - pt - 1);
     int rst = 0, rows_to_go = restart / cols;
     for (int im = 0; im < mcuy; ++im) {
       // A lone component's iMCU row is v of its rows, fewer at its foot.
@@ -1263,7 +1350,12 @@ struct Jpeg {
               u[x] = ra = (df[x] + p) & 0xFFFF;
             }
           }
-          uint8_t* o = &c.plane[(size_t)(im * c.v + y) * c.pw];
+          const size_t row = (size_t)(im * c.v + y) * c.pw;
+          if (precision == 12) {  // libjpeg's 12-bit samples are shorts: the low 16 bits
+            for (int x = 0; x < dw; ++x) c.plane12[row + x] = (uint16_t)(u[x] << pt);
+            continue;
+          }
+          uint8_t* o = &c.plane[row];
           for (int x = 0; x < dw; ++x) o[x] = (uint8_t)(u[x] << pt);
         }
       }
@@ -1390,7 +1482,7 @@ struct Jpeg {
           b[0] = (int16_t)dcv;
           arith_ac(ar, s.ac[c.ta], c.ta, &s.fixed, b, 1, 63, 0);
         }
-        idct_islow(b, c.q, &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+        idct(c, b, r, col);
       }, leave);
       return;
     }
@@ -1451,12 +1543,12 @@ struct Jpeg {
     if (!frame) corrupt("JPEG scan before its frame");
     int len = u16();
     int ns = u8();
-    if (ns < 1 || ns > ncomp || len != 6 + 2 * ns) corrupt("bad JPEG scan header");
+    if (ns < 1 || ns > ncomp || ns > 4 || len != 6 + 2 * ns) corrupt("bad JPEG scan header");
     Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
       Component* c = nullptr;
-      for (int j = 0; j < ncomp; ++j)
+      for (int j = 0; j < std::min(ncomp, 4); ++j)  // libjpeg-turbo looks among the first 4 alone
         if (comp[j].id == id) c = &comp[j];
       if (!c) corrupt("JPEG scan names an unknown component");
       c->td = t >> 4;
@@ -1468,7 +1560,7 @@ struct Jpeg {
     // A sequential scan's Ss, Se, Ah and Al are only a warning to libjpeg
     // (some baseline files hold zeros there): it codes all 64 coefficients.
     if (lossless) {  // jdlossls.c start_pass_lossless: the predictor and point transform
-      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) corrupt("bad lossless JPEG scan");
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision) corrupt("bad lossless JPEG scan");
     } else if (progressive) {  // jdphuff.c start_pass_phuff_decoder
       bool bad = ss == 0 ? se != 0 : ss > se || se > 63 || ns != 1;
       if ((ah != 0 && al != ah - 1) || al > 13 || bad) corrupt("bad progressive JPEG scan");
@@ -1514,6 +1606,7 @@ struct Jpeg {
     }
     if (!progressive) {
       BitReader br{d, n, pos, avail};
+      br.open_end = open_end;
       each_block(
           sc, ns, br,
           [&](bool rst) {
@@ -1521,9 +1614,9 @@ struct Jpeg {
               for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
           },
           [&](auto fast, Component& c, int r, int col) { block<decltype(fast)::value>(br, c, r, col); },
-          [&](Component& c, int r, int col) {  // all-zero coefficients: flat 128
-            for (int y = 0; y < 8; ++y)
-              memset(&c.plane[((size_t)r * 8 + y) * c.pw + (size_t)col * 8], 128, 8);
+          [&](Component& c, int r, int col) {  // all-zero coefficients: flat 128 (2048)
+            const int16_t zero[64] = {0};
+            idct(c, zero, r, col);
           });
       return;
     }
@@ -1661,7 +1754,7 @@ struct Jpeg {
                          D[6] + 10 * D[7] - 10 * D[9]);
           predict(5, -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]);
         }
-        idct_islow(ws, c.q, &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+        idct(c, ws, r, col);
       }
     }
   }
@@ -1672,15 +1765,16 @@ struct Jpeg {
     const bool smooth = would_smooth();
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
-      c.plane.assign((size_t)c.pw * c.ph, 0);
+      if (precision == 12)
+        c.plane12.assign((size_t)c.pw * c.ph, 0);
+      else
+        c.plane.assign((size_t)c.pw * c.ph, 0);
       const int bw = c.pw / 8;
       if (smooth) {
         smooth_plane(i);
       } else {
         for (int r = 0; r < (c.dh + 7) / 8; ++r)
-          for (int col = 0; col < (c.dw + 7) / 8; ++col)
-            idct_islow(&c.coef[((size_t)r * bw + col) * 64], c.q,
-                       &c.plane[(size_t)r * 8 * c.pw + (size_t)col * 8], c.pw);
+          for (int col = 0; col < (c.dw + 7) / 8; ++col) idct(c, &c.coef[((size_t)r * bw + col) * 64], r, col);
       }
       std::vector<int16_t>().swap(c.coef);
     }
@@ -3245,6 +3339,87 @@ size_t bcj_sparc(uint32_t now, uint8_t* b, size_t size) {
   return i;
 }
 
+// ARM64 (liblzma 5.4 on): BL's 26-bit immediate, and ADRP's 21-bit one
+// where it lies within +-512 MiB (its top 3 bits all equal), from absolute
+// back to relative, in 4-byte little-endian words.
+size_t bcj_arm64(uint32_t now, uint8_t* b, size_t size) {
+  size_t i = 0;
+  for (; i + 4 <= size; i += 4) {
+    const uint32_t pc = now + (uint32_t)i;
+    uint32_t instr = b[i] | b[i + 1] << 8 | b[i + 2] << 16 | (uint32_t)b[i + 3] << 24;
+    if ((instr >> 26) == 0x25) {  // BL
+      instr = 0x94000000 | ((instr - (pc >> 2)) & 0x03FFFFFF);
+    } else if ((instr & 0x9F000000) == 0x90000000) {  // ADRP
+      const uint32_t src = ((instr >> 29) & 3) | ((instr >> 3) & 0x001FFFFC);
+      if ((src + 0x00020000) & 0x001C0000) continue;
+      const uint32_t dest = src - (pc >> 12);
+      instr &= 0x9000001F;
+      instr |= (dest & 3) << 29;
+      instr |= (dest & 0x0003FFFC) << 3;
+      instr |= (0u - (dest & 0x00020000)) & 0x00E00000;
+    } else {
+      continue;
+    }
+    for (int k = 0; k < 4; ++k) b[i + k] = (uint8_t)(instr >> (8 * k));
+  }
+  return i;
+}
+
+// RISC-V (liblzma 5.6 on), on 2-byte steps: JAL with rd x1 or x5 (its
+// 20-bit immediate from the encoder's big-endian-ish absolute form back to
+// relative), and AUIPC with the instruction after it: the encoder turns an
+// AUIPC + a load, store or ADDI of the same register into a "special"
+// AUIPC of rd x2 holding the second instruction's low 20 bits, followed by
+// the absolute address big-endian, and swaps a genuine AUIPC x2 of that
+// special form with the word after it; decoding undoes both.
+size_t bcj_riscv(uint32_t now, uint8_t* b, size_t size) {
+  auto rd32 = [&](size_t at) { return b[at] | b[at + 1] << 8 | b[at + 2] << 16 | (uint32_t)b[at + 3] << 24; };
+  auto wr32 = [&](size_t at, uint32_t v) {
+    for (int k = 0; k < 4; ++k) b[at + k] = (uint8_t)(v >> (8 * k));
+  };
+  if (size < 8) return 0;
+  size -= 8;
+  size_t i = 0;
+  for (; i <= size; i += 2) {
+    uint32_t inst = b[i];
+    if (inst == 0xEF) {  // JAL
+      const uint32_t b1 = b[i + 1];
+      if (b1 & 0x0D) continue;
+      const uint32_t b2 = b[i + 2], b3 = b[i + 3], pc = now + (uint32_t)i;
+      uint32_t addr = ((b1 & 0xF0) << 13) | (b2 << 9) | (b3 << 1);
+      addr -= pc;
+      b[i + 1] = (uint8_t)((b1 & 0x0F) | ((addr >> 8) & 0xF0));
+      b[i + 2] = (uint8_t)(((addr >> 16) & 0x0F) | ((addr >> 7) & 0x10) | ((addr << 4) & 0xE0));
+      b[i + 3] = (uint8_t)(((addr >> 4) & 0x7F) | ((addr >> 13) & 0x80));
+      i += 4 - 2;
+    } else if ((inst & 0x7F) == 0x17) {  // AUIPC
+      inst = rd32(i);
+      if (inst & 0xE80) {  // rd neither x0 nor x2: a swapped special AUIPC, or nothing
+        const uint32_t inst2 = rd32(i + 4);
+        if ((((inst << 8) ^ (inst2 - 3)) & 0xF8003) != 0) {
+          i += 6 - 2;
+          continue;
+        }
+        wr32(i, 0x17 | (2 << 7) | (inst2 << 12));
+        wr32(i + 4, (inst & 0xFFFFF000) | (inst2 >> 20));
+      } else {  // rd x0 or x2: the special form of a pair, or nothing
+        const uint32_t inst2_rs1 = inst >> 27;
+        if ((uint32_t)((inst - 0x3117) << 18) >= (inst2_rs1 & 0x1D)) {
+          i += 4 - 2;
+          continue;
+        }
+        uint32_t addr = (uint32_t)b[i + 4] << 24 | (uint32_t)b[i + 5] << 16 | (uint32_t)b[i + 6] << 8 | b[i + 7];
+        addr -= now + (uint32_t)i;
+        const uint32_t inst2 = (inst >> 12) | (addr << 20);
+        wr32(i, 0x17 | (inst2_rs1 << 7) | ((addr + 0x800) & 0xFFFFF000));
+        wr32(i + 4, inst2);
+      }
+      i += 8 - 2;
+    }
+  }
+  return i;
+}
+
 // simple_coder.c's buffering around a BCJ filter: bytes it cannot decide
 // yet wait in `buffer` for more data; at the end of the block's data they
 // go out as they are.
@@ -3256,7 +3431,7 @@ struct XzBcj final : XzCoder {
   size_t bpos = 0, bsize = 0, filtered = 0, allocated = 0;
   bool end = false;
   XzBcj(std::unique_ptr<XzCoder> nx, uint64_t filter, uint32_t start) : next(std::move(nx)), id(filter), now(start) {
-    const size_t unfiltered_max = id == 4 ? 5 : id == 6 ? 16 : 4;
+    const size_t unfiltered_max = id == 4 ? 5 : id == 6 ? 16 : id == 0x0B ? 8 : 4;
     allocated = 2 * unfiltered_max;
     buffer.assign(allocated, 0);
   }
@@ -3268,7 +3443,9 @@ struct XzBcj final : XzCoder {
       case 6: k = bcj_ia64(now, b, size); break;
       case 7: k = bcj_arm(now, b, size); break;
       case 8: k = bcj_armthumb(now, b, size); break;
-      default: k = bcj_sparc(now, b, size); break;
+      case 9: k = bcj_sparc(now, b, size); break;
+      case 0x0A: k = bcj_arm64(now, b, size); break;
+      default: k = bcj_riscv(now, b, size); break;
     }
     now += (uint32_t)k;
     return k;
@@ -3395,15 +3572,16 @@ uint64_t xz_vli(const uint8_t* s, size_t n, size_t& at) {
           delta->next = std::move(top);
           delta->distance = (size_t)f.props[0] + 1;
           top = std::move(delta);
-        } else if (f.id >= 4 && f.id <= 9) {
+        } else if (f.id >= 4 && f.id <= 0x0B) {
           uint32_t start = 0;
           if (f.props.size() == 4)
             start = f.props[0] | f.props[1] << 8 | f.props[2] << 16 | (uint32_t)f.props[3] << 24;
           else if (!f.props.empty())
             xz_error("bad BCJ properties");
+          // simple_coder.c: a start offset a multiple of the filter's alignment
+          static const uint32_t kAlign[8] = {1, 4, 16, 4, 2, 4, 4, 2};  // IDs 4 .. 11
+          if (start % kAlign[f.id - 4]) xz_error("BCJ start offset off its filter's alignment");
           top = std::make_unique<XzBcj>(std::move(top), f.id, start);
-        } else if (f.id == 0x0A || f.id == 0x0B) {
-          unsupported(std::string("LZMA TIFF of the ") + (f.id == 0x0A ? "ARM64" : "RISC-V") + " BCJ filter");
         } else {
           xz_error("filter liblzma has no decoder for, or LZMA2 before the last filter");
         }
@@ -4385,11 +4563,12 @@ struct FaxCodec {
   bool two_d;  // a reference line: T.4 2-D or T.6
   bool no_eol;
   bool tiles;
+  bool odd = false;  // the strip's data starts at an odd offset (RLE-W's word alignment)
   uint32_t nruns;
   std::vector<uint32_t> runs;  // current and reference line, nruns each
   FaxCodec(uint32_t w, uint32_t c, uint32_t t4opts, bool in_tiles)
-      : width((int)w), compression(c), two_d(c == 4 || (c == 3 && (t4opts & 1))), no_eol(c == 2),
-        tiles(in_tiles) {
+      : width((int)w), compression(c), two_d(c == 4 || (c == 3 && (t4opts & 1))),
+        no_eol(c == 2 || c == 32771), tiles(in_tiles) {
     nruns = (w + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
     runs.assign(2 * (size_t)nruns + 2, 0);
   }
@@ -4668,7 +4847,7 @@ void fax_strip(FaxCodec& f, const uint8_t* d, size_t n, uint32_t rows, uint8_t* 
       if (y == 0) corrupt("CCITT Group 4 strip that ends in its first row");
       return;
     }
-    if (f.compression == 2) {
+    if (f.compression == 2 || f.compression == 32771) {
       try {
         expand(false);
       } catch (const FaxEof&) {
@@ -4676,7 +4855,16 @@ void fax_strip(FaxCodec& f, const uint8_t* d, size_t n, uint32_t rows, uint8_t* 
         corrupt("CCITT data ends early");
       }
       fill(y);
-      clr(avail & 7);  // the row ends on a byte
+      if (f.compression == 2) {
+        clr(avail & 7);  // the row ends on a byte
+        continue;
+      }
+      // RLE-W: the row ends on a 16-bit word as libtiff's reader sees it:
+      // the bits held past a multiple of 16 dropped, then, with none held,
+      // the read pointer moved to an even address (PIL hands libtiff the
+      // file at an even address, so a strip at an odd offset is off by one).
+      clr(avail & 15);
+      if (avail == 0 && ((cp + f.odd) & 1)) ++cp;
       continue;
     }
     bool is1d = true;
@@ -5176,20 +5364,37 @@ struct OJpegTags {  // IFD entries, 0 where absent
       rst = (rst + 1) & 7;
     }
   }
-  s.insert(s.end(), {0xFF, 0xD9});
+  // libtiff writes EOI once it has handed on the last strile's bytes; when
+  // that strile has none (no offset, or one past the end of the file), the
+  // stream ends after the previous strile's RSTn.
+  const size_t last_off = nstrips ? c.offsets[nstrips - 1] : 0;
+  const bool eoi = last_off != 0 && last_off < fsize;
+  if (eoi) s.insert(s.end(), {0xFF, 0xD9});
   // A stop in a strip fails its read: PIL refuses the file, unless it is
   // the last strip of YCbCr, which libtiff's RGBA reader takes with the
-  // rows from the stopped MCU row on left zero (Y = Cb = Cr = 0).
+  // rows from the stopped MCU row on left zero (Y = Cb = Cr = 0). Tiles
+  // (C.17): PIL asks the reader for a row of tiles a call; the tile that
+  // stops is zeroed, and each later one fails before it is read (libtiff
+  // skips the stopped tile's rows again), which the reader ignores, the
+  // zeroed buffer standing, unless it is the first tile of a call: so YCbCr
+  // reads with the stopped tile and the rest of its row zero when the stop
+  // is in the last row of tiles, and PIL refuses it otherwise.
   Jpeg jp;
   jp.begin(s.data(), s.size());
   jp.old_tiff = true;
-  uint32_t good_rows = sof_y;
+  jp.open_end = !eoi;
+  uint32_t good_rows = sof_y, stopped = nstrips;  // the strile a stop came in
   try {
     jp.planes();
   } catch (const OldTiffStop&) {
     good_rows = (uint32_t)jp.stop_row * 8 * jp.vmax;
-    if (!ycc || good_rows / rps + 1 < nstrips)
-      corrupt("old-style JPEG-in-TIFF with a restart marker out of place (libtiff stops there)");
+    if (c.tiles) {
+      stopped = std::min(good_rows / rps, nstrips - 1);
+      good_rows = sof_y;
+    }
+    if (!ycc || (c.tiles ? stopped / across + 1 < down : good_rows / rps + 1 < nstrips))
+      corrupt("old-style JPEG-in-TIFF stopped by a restart marker out of place or the end of its "
+              "data (libtiff stops there)");
   }
   const Component* cp = jp.comp;
   static const float kLuma[3] = {0.299f, 0.587f, 0.114f}, kRbw[6] = {0, 255, 128, 255, 128, 255};
@@ -5220,7 +5425,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
       }
       if (!o) continue;
       if (v >= (uint32_t)sof_y) v = good_rows < (uint32_t)sof_y ? good_rows : last + v % imcu;
-      if (v >= good_rows) {
+      if (v >= good_rows || m >= stopped) {
         std::fill(o, o + nc, blank);
         continue;
       }
@@ -5360,6 +5565,9 @@ struct TiffDir {
            planar = 1, predictor = 1, tw = 0, th = 0, t4opts = 0;
   uint32_t codec_fill = 1;  // libtiff's FillOrder: 2 reverses each byte's bits before a codec
   uint32_t lt_spp = 1, lt_bps = 1, lt_planar = 1;  // libtiff's sample layout
+  uint32_t lt_compression = 1, lt_photometric = 0;  // libtiff's (a tag given twice: its first)
+  bool lt_cmap = false;  // libtiff holds a ColorMap (of 3 << BitsPerSample entries)
+  uint32_t lt_fmt = 1;   // libtiff's SampleFormat
   std::vector<uint32_t> bps{1}, offsets, counts, cmap, extra, fmt{1}, ycbcr_sub;
   bool strips = false, tiles = false, has_photometric = false, has_spp = false;
   size_t jpeg_tables = 0;  // the JPEGTables entry, 0 where absent
@@ -5401,12 +5609,17 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
   const bool whole_dir = count <= (t.n - first) / width;
   count = std::min<uint64_t>(count, (t.n - first) / width);
   size_t cut = first + width * count;
-  struct {
+  // The entries of the tags the decoder reads: PIL keeps the last of a tag
+  // given twice among those it reads (`p`), libtiff the first (`q`).
+  struct Entries {
     size_t w, h, bps, comp, photo, fill, soff, spp, rps, scnt, planar, t4, pred, cmap, tw, th,
-        toff, tcnt, extra, fmt, sub;
-  } p{};
-  bool twice = false;  // a tag of `p` given twice: PIL keeps the last, libtiff the first
-  size_t lt_first[3] = {0, 0, 0};  // libtiff's entries (the first): ImageWidth, ImageLength, BitsPerSample
+        toff, tcnt, extra, fmt, sub, tables, jif, jif_len, restart, qtables, dctables, actables,
+        coefficients, refbw;
+  } p{}, q{};
+  static const uint16_t kTags[] = {256, 257, 258, 259, 262, 266, 273, 277, 278, 279, 284, 292, 317, 320, 322,
+                                   323, 324, 325, 338, 339, 530, 347, 513, 514, 515, 519, 520, 521, 529, 532};
+  static_assert(sizeof(kTags) / sizeof(kTags[0]) == sizeof(Entries) / sizeof(size_t), "a tag a field");
+  bool twice = false;  // a tag given twice
   for (uint64_t i = 0; i < count; ++i) {
     const size_t e = first + width * i;
     const uint32_t ty = t.r16(e + 2);
@@ -5418,43 +5631,16 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
       const uint64_t size = Tiff::type_size(ty) * t.entry(e).count;
       if (t.big && size > 8 && t.r64(e + 12) >> 63) corrupt("BigTIFF offset past 2^63");
     }
-    const auto before = p;
-    switch (t.r16(e)) {
-      case 256: p.w = e, lt_first[0] = lt_first[0] ? lt_first[0] : e; break;
-      case 257: p.h = e, lt_first[1] = lt_first[1] ? lt_first[1] : e; break;
-      case 258: p.bps = e, lt_first[2] = lt_first[2] ? lt_first[2] : e; break;
-      case 259: p.comp = e; break;
-      case 262: p.photo = e; break;
-      case 266: p.fill = e; break;
-      case 273: p.soff = e; break;
-      case 277: p.spp = e; break;
-      case 278: p.rps = e; break;
-      case 279: p.scnt = e; break;
-      case 284: p.planar = e; break;
-      case 292: p.t4 = e; break;
-      case 317: p.pred = e; break;
-      case 320: p.cmap = e; break;
-      case 322: p.tw = e; break;
-      case 323: p.th = e; break;
-      case 324: p.toff = e; break;
-      case 325: p.tcnt = e; break;
-      case 338: p.extra = e; break;
-      case 339: p.fmt = e; break;
-      case 347: dir.jpeg_tables = e; break;
-      case 513: dir.oj.jif = e; break;
-      case 514: dir.oj.jif_len = e; break;
-      case 515: dir.oj.restart = e; break;
-      case 519: dir.oj.qtables = e; break;
-      case 520: dir.oj.dctables = e; break;
-      case 521: dir.oj.actables = e; break;
-      case 529: dir.oj.coefficients = e; break;
-      case 530: p.sub = e; break;
-      case 532: dir.oj.refbw = e; break;
-      default: break;
-    }
-    const size_t* was = &before.w;
-    for (const size_t* now = &p.w; now <= &p.sub; ++now, ++was) twice = twice || (*was && *now != *was);
+    const uint16_t* tag = std::find(std::begin(kTags), std::end(kTags), t.r16(e));
+    if (tag == std::end(kTags)) continue;
+    size_t* pf = &p.w + (tag - kTags);
+    size_t* qf = &q.w + (tag - kTags);
+    twice = twice || *qf;
+    if (!*qf) *qf = e;
+    if (e < cut) *pf = e;
   }
+  dir.jpeg_tables = q.tables;  // libtiff's alone
+  dir.oj = OJpegTags{q.jif, q.jif_len, q.restart, q.qtables, q.dctables, q.actables, q.coefficients, q.refbw};
   // PIL: the size must be integers; the tags of its mode key (and the
   // compression, looked up in a table) must match integers.
   const PilTag w = pil_tag(t, p.w, cut), h = pil_tag(t, p.h, cut);
@@ -5516,24 +5702,24 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
   // PIL's libtiff decoder refuses an image whose size or bits a sample a
   // tag given twice makes libtiff read otherwise than PIL.
   const uint32_t pil_v[3] = {dir.W, dir.H, dir.bps.empty() ? 1 : dir.bps[0]};
+  const size_t lt_first[3] = {q.w, q.h, q.bps};
   for (int k = 0; twice && k < 3; ++k)
     if (lt_first[k] && libtiff_ints(t, lt_first[k]) && t.values(lt_first[k]).at(0) != pil_v[k])
       corrupt("TIFF whose size or sample bits libtiff reads otherwise than PIL (a tag given twice)");
-  if (twice) unsupported("TIFF of a tag given twice (PIL reads the last, libtiff the first)");
   if (t.big && (t.r16(4) != 8 || t.r16(6) != 0)) corrupt("BigTIFF of offsets not of 8 bytes");
   auto refuses = [&](size_t e) {
     corrupt("TIFF tag " + std::to_string(t.r16(e)) + " of type " + std::to_string(t.r16(e + 2)) +
             ", which libtiff refuses");
   };
-  for (size_t e : {p.w, p.h, p.bps, p.comp, p.spp, p.rps, p.planar, p.tw, p.th, p.extra, p.fmt})
+  for (size_t e : {q.w, q.h, q.bps, q.comp, q.spp, q.rps, q.planar, q.tw, q.th, q.extra, q.fmt})
     if (e && !libtiff_ints(t, e)) refuses(e);
   // One value, or for BitsPerSample, Compression and SampleFormat one a
   // sample, all alike (TIFFReadDirEntryPersampleShort); a tag libtiff may
   // drop it drops for another count.
-  for (size_t e : {p.w, p.h, p.spp, p.rps, p.planar, p.tw, p.th})
+  for (size_t e : {q.w, q.h, q.spp, q.rps, q.planar, q.tw, q.th})
     if (e && t.entry(e).count != 1) refuses(e);
-  const uint32_t spp1 = p.spp ? t.values(p.spp).at(0) : 1;
-  for (size_t e : {p.bps, p.comp, p.fmt}) {
+  const uint32_t spp1 = q.spp ? t.values(q.spp).at(0) : 1;
+  for (size_t e : {q.bps, q.comp, q.fmt}) {
     if (!e || t.entry(e).count == 1) continue;
     const std::vector<uint32_t> v = t.values(e);
     if (v.size() < spp1 || std::count(v.begin(), v.begin() + spp1, v[0]) != (long)spp1) refuses(e);
@@ -5541,26 +5727,36 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
   auto dropped = [&](size_t e, uint32_t fallback) {
     return e && t.entry(e).count == 1 && libtiff_ints(t, e) ? t.values(e).at(0) : fallback;
   };
-  if (p.planar && t.values(p.planar).at(0) != 1 && t.values(p.planar).at(0) != 2)
+  if (q.planar && t.values(q.planar).at(0) != 1 && t.values(q.planar).at(0) != 2)
     corrupt("TIFF PlanarConfiguration not 1 or 2 (libtiff refuses it)");
   dir.lt_spp = spp1;
-  dir.lt_bps = p.bps ? t.values(p.bps).at(0) : 1;
-  dir.lt_planar = p.planar ? t.values(p.planar).at(0) : 1;
-  dir.predictor = dropped(p.pred, 1);
-  dir.codec_fill = dropped(p.fill, 1);
+  dir.lt_compression = q.comp ? t.values(q.comp).at(0) : 1;
+  dir.lt_photometric = dropped(q.photo, dir.photometric);
+  dir.lt_fmt = q.fmt && libtiff_ints(t, q.fmt) ? t.values(q.fmt).at(0) : 1;
+  dir.lt_bps = q.bps ? t.values(q.bps).at(0) : 1;
+  dir.lt_planar = q.planar ? t.values(q.planar).at(0) : 1;
+  dir.lt_cmap = q.cmap && dir.lt_bps <= 24 && t.entry(q.cmap).count == (3ull << dir.lt_bps);
+  dir.predictor = dropped(q.pred, 1);
+  dir.codec_fill = dropped(q.fill, 1);
   if (dir.codec_fill != 2) dir.codec_fill = 1;
-  dir.t4opts = dropped(p.t4, 0);
-  if (p.sub && libtiff_ints(t, p.sub)) dir.ycbcr_sub = t.values(p.sub);
-  if (p.rps) dir.rps = t.values(p.rps).at(0);
-  if (p.tw) dir.tw = t.values(p.tw).at(0);
-  if (p.th) dir.th = t.values(p.th).at(0);
+  dir.t4opts = dropped(q.t4, 0);
+  if (q.sub && libtiff_ints(t, q.sub)) dir.ycbcr_sub = t.values(q.sub);
+  if (q.rps) dir.rps = t.values(q.rps).at(0);
+  if (q.tw) dir.tw = t.values(q.tw).at(0);
+  if (q.th) dir.th = t.values(q.th).at(0);
   // libtiff's strips a plane: none (an error) for RowsPerStrip 0, or one
   // so near 2^32 that TIFFhowmany_32 overflows.
   if (dir.rps == 0 || (dir.rps != 0xFFFFFFFF && dir.H >= 0xFFFFFFFFu - (dir.rps - 1)))
     corrupt("TIFF RowsPerStrip libtiff counts no strips for");
-  dir.tiles = p.toff;  // libtiff: tiles where the file has them
-  dir.strips = !p.toff && p.soff;
+  // libtiff: tiles where the file gives a tile size (TileWidth or
+  // TileLength, C.19), whichever offsets and counts it gives: StripOffsets
+  // and TileOffsets are one field, the later entry's.
+  const bool tiled = q.tw || q.th;
+  const size_t offs = std::max(q.soff, q.toff), counts = std::max(q.scnt, q.tcnt);
+  dir.tiles = tiled && offs;
+  dir.strips = !tiled && offs;
   if (!dir.strips && !dir.tiles) corrupt("TIFF has no image data");
+  if (tiled && (dir.tw == 0 || dir.th == 0)) corrupt("TIFF tile size of 0 (libtiff counts no tiles)");
   // libtiff reads a strip or tile array no further than the chunks it
   // needs, and pads a shorter one with zeros.
   const auto howmany = [](uint64_t a, uint64_t b) { return b ? (a + b - 1) / b : 0; };
@@ -5568,10 +5764,9 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
       (dir.tiles ? howmany(dir.W, dir.tw) * howmany(dir.H, dir.th)
                  : howmany(dir.H, std::min<uint64_t>(dir.rps, dir.H))) *
       (dir.lt_planar == 2 ? dir.lt_spp : 1);
-  const size_t counts = dir.strips ? p.scnt : p.tcnt;
-  for (size_t e : {dir.strips ? p.soff : p.toff, counts})
+  for (size_t e : {offs, counts})
     if (e && !libtiff_ints(t, e, need)) refuses(e);
-  dir.offsets = t.values(dir.strips ? p.soff : p.toff, need);
+  dir.offsets = t.values(offs, need);
   if (counts) dir.counts = t.values(counts, need);
   if (dir.offsets.size() < need) dir.offsets.resize(need, 0);
   if (counts && dir.counts.size() < need) dir.counts.resize(need, 0);
@@ -5582,6 +5777,129 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
         ((dir.lt_planar == 1 && nchunks > 1) || (dir.lt_planar == 2 && nchunks != dir.lt_spp)))
       corrupt("TIFF strip byte counts missing");
     estimate_counts(t, first, count, dir);
+  }
+}
+
+// ThunderScan 4-bit data (compression 32809) as libtiff's ThunderDecodeRow
+// decodes a strip or tile into PIL's buffer `out` (`want` bytes, what the
+// buffer held kept where nothing is written): rows of TIFFScanlineSize
+// bytes, each of the image's width in pixels, from one run of code bytes.
+// A code's top two bits: a run of the last pixel (its low 6 bits long;
+// written unless it runs past the row, an odd start completing the
+// half-written byte first), three 2-bit deltas, two 3-bit
+// deltas (a delta of the skip code writes nothing), or a raw 4-bit pixel.
+// A row of too few or too many pixels clears its rest and fails the strip.
+void thunder(const uint8_t* s, size_t n, size_t want, uint32_t width, std::vector<uint8_t>& out) {
+  static const int two[4] = {0, 1, 0, -1}, three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const size_t line = ((size_t)width * 4 + 7) / 8;
+  out.resize(want);
+  if (line == 0 || want % line) corrupt("ThunderScan TIFF of fractional scanlines");
+  size_t at = 0;
+  for (size_t row = 0; row < want; row += line) {
+    uint8_t* const op0 = &out[row];
+    uint8_t* op = op0;
+    unsigned last = 0;
+    int64_t np = 0;
+    const int64_t maxp = width;
+    auto set = [&](unsigned v) {  // SETPIXEL
+      last = v & 0xF;
+      if (np < maxp) {
+        if (np++ & 1)
+          *op++ |= (uint8_t)last;
+        else
+          op[0] = (uint8_t)(last << 4);
+      }
+    };
+    while (at < n && np < maxp) {
+      const int c = s[at++];
+      switch (c & 0xC0) {
+        case 0x00: {
+          int k = c & 0x3F;
+          if (np & 1) {
+            op[0] |= (uint8_t)last;
+            last = *op++;
+            ++np;
+            --k;
+          } else {
+            last |= last << 4;
+          }
+          np += k;
+          if (np <= maxp)
+            for (; k > 0; k -= 2) *op++ = (uint8_t)last;
+          if (k == -1) *--op &= 0xF0;
+          last &= 0xF;
+          break;
+        }
+        case 0x40:
+          for (int shift : {4, 2, 0})
+            if (((c >> shift) & 3) != 2) set((unsigned)((int)last + two[(c >> shift) & 3]));
+          break;
+        case 0x80:
+          for (int shift : {3, 0})
+            if (((c >> shift) & 7) != 4) set((unsigned)((int)last + three[(c >> shift) & 7]));
+          break;
+        default:
+          set((unsigned)c);
+          break;
+      }
+    }
+    if (np != maxp) {
+      std::fill(op, op0 + (maxp + 1) / 2, 0);
+      corrupt(np < maxp ? "ThunderScan row of too few pixels" : "ThunderScan row of too many pixels");
+    }
+  }
+}
+
+// JPEG-in-TIFF through libtiff's JPEG codec (JPEGDecode) as a strip or
+// tile codec, for what PIL unpacks as samples: one component a chunk (grey
+// of photometric 0 or 3, 12-bit grey, a plane of a planar file), or
+// several as they are (libtiff's JCS_UNKNOWN: grey or RGB with extra
+// samples, CMYK with extra samples). One decoder, so that JPEGTables' and
+// each stream's tables carry over. libtiff's checks, as jpeg_tiff's: the
+// stream holds the chunk's samples a pixel, each component 1 x 1, the
+// chunk's width and its rows (a last strip's stream may be taller, and is
+// cropped), and the TIFF's bits a sample (8 or 12: Jpeg::allow_precision).
+// 12-bit samples come out two in three bytes, MSB first; libtiff packs a
+// row's samples in pairs, so of an odd count the last is not written (it
+// stays zero here).
+struct TiffJpeg {
+  Jpeg jp;
+  uint32_t per = 1;   // samples a chunk's pixel
+  bool tiles = false;
+  bool last = false;  // the chunk is the image's last strip
+  std::vector<uint8_t> stream;
+};
+
+[[gnu::noinline]] void jpeg_chunk(TiffJpeg& j, const uint8_t* s, size_t cnt, uint32_t cw, uint32_t rows,
+                                  size_t want, std::vector<uint8_t>& out) {
+  // libtiff feeds libjpeg an EOI once a strip's bytes run out.
+  j.stream.assign(s, s + cnt);
+  j.stream.insert(j.stream.end(), {0xFF, 0xD9});
+  Jpeg& jp = j.jp;
+  jp.begin(j.stream.data(), j.stream.size());
+  jp.planes();
+  if ((uint32_t)jp.ncomp != j.per) corrupt("JPEG-in-TIFF stream with the wrong component count");
+  for (int i = 0; i < jp.ncomp; ++i)
+    if (jp.comp[i].h != 1 || jp.comp[i].v != 1) corrupt("JPEG-in-TIFF stream with improper sampling factors");
+  if ((uint32_t)jp.W != cw || (uint32_t)jp.H < rows || ((j.tiles || !j.last) && (uint32_t)jp.H != rows))
+    corrupt("JPEG-in-TIFF stream of the wrong size");
+  out.assign(want, 0);
+  const size_t rb = want / rows;
+  for (uint32_t r = 0; r < rows; ++r) {
+    uint8_t* o = &out[(size_t)r * rb];
+    if (jp.precision == 12) {
+      const uint16_t* v = &jp.comp[0].plane12[(size_t)r * jp.comp[0].pw];
+      for (uint32_t x = 0; x + 1 < cw; x += 2, o += 3) {
+        o[0] = (uint8_t)((v[x] & 0xFF0) >> 4);
+        o[1] = (uint8_t)((v[x] & 0xF) << 4 | (v[x + 1] & 0xF00) >> 8);
+        o[2] = (uint8_t)v[x + 1];
+      }
+      continue;
+    }
+    for (uint32_t k = 0; k < j.per; ++k) {
+      const uint8_t* v = &jp.comp[k].plane[(size_t)r * jp.comp[k].pw];
+      for (uint32_t x = 0; x < cw; ++x) o[(size_t)x * j.per + k] = v[x];
+    }
   }
 }
 
@@ -5599,6 +5917,8 @@ struct TiffCodec {
   // old-style (first byte 0, low bit of the second set), which libtiff then
   // takes for every strip of the image.
   int* lzw_old;
+  TiffJpeg* jpeg;  // JPEG-in-TIFF as a codec
+  uint32_t width;  // the image's (a ThunderScan row's pixels)
 };
 
 
@@ -5607,7 +5927,7 @@ struct TiffCodec {
   const Tiff& t = *k.t;
   std::vector<uint8_t> rev;
   const uint8_t* s = t.d + off;
-  if (!k.fax) out.clear();
+  if (!k.fax && k.compression != 32809) out.clear();
   if (k.compression == 1) {
     if (off > t.n || want > t.n - off) corrupt("TIFF image data ends early");
     cnt = want;
@@ -5622,8 +5942,9 @@ struct TiffCodec {
   }
   switch (k.compression) {
     case 1: out.assign(s, s + want); break;
-    case 2: case 3: case 4:  // into PIL's strip buffer, which keeps what libtiff does not write
+    case 2: case 3: case 4: case 32771:  // into PIL's strip buffer, which keeps what libtiff does not write
       out.resize(want);
+      k.fax->odd = off & 1;
       try {
         fax_strip(*k.fax, s, cnt, rows, out.data(), ((size_t)k.cw + 7) / 8);
       } catch (const DecodeError&) {
@@ -5634,6 +5955,8 @@ struct TiffCodec {
       if (*k.lzw_old < 0) *k.lzw_old = cnt >= 2 && s[0] == 0 && (s[1] & 1);
       *k.lzw_old ? lzw_compat(s, cnt, want, out) : lzw(s, cnt, want, out);
       break;
+    case 7: jpeg_chunk(*k.jpeg, s, cnt, k.cw, rows, want, out); break;
+    case 32809: thunder(s, cnt, want, k.width, out); break;
     case 8: case 32946: inflate_zlib(s, cnt, want, out); break;
     case 34925: unxz(s, cnt, want, out); break;
     case 50000: unzstd(s, cnt, want, out); break;
@@ -5655,8 +5978,9 @@ struct TiffCodec {
 // whole (PIL asks it not to stop on errors), with what the codec gave and
 // zeros for the rest of what it was asked for.
 [[gnu::noinline]] void ycbcr_rgba(const TiffCodec& k, const TiffDir& dir, const TiffYcc& conv,
-                                  bool bytes_of_rgba, Gray& g) {
+                                  std::vector<uint8_t>* rgba, Gray& g) {
   const uint32_t W = dir.W, H = dir.H;
+  const bool bytes_of_rgba = rgba != nullptr;
   // Each pixel's Y, Cb, Cr where PIL unpacks the RGBA rows as bytes.
   std::vector<uint8_t> ycc(bytes_of_rgba ? (size_t)W * H * 3 : 0);
   auto put = [&](uint32_t yy, uint32_t xx, int Y, int cb, int cr) {
@@ -5677,7 +6001,7 @@ struct TiffCodec {
     sh = (int)dir.ycbcr_sub[0];
     sv = (int)dir.ycbcr_sub[1];
   }
-  const bool planar = dir.planar == 2;
+  const bool planar = dir.lt_planar == 2;  // libtiff's reader, on libtiff's route
   // PIL's _decodeAsRGBA sizes a buffer of RowsPerStrip (or the tile's
   // height) rows of 4-byte pixels, and refuses one past INT_MAX bytes.
   const uint32_t block_rows = tiles ? dir.th : dir.rps == 0xFFFFFFFF ? H : dir.rps;
@@ -5768,12 +6092,11 @@ struct TiffCodec {
         }
       }
   }
-  if (bytes_of_rgba)
-    for (uint32_t yy = 0; yy < H; ++yy)
-      for (uint32_t xx = 0; xx < W; ++xx) {
-        const uint8_t* p = &ycc[((size_t)yy * W + xx / 4) * 3];
-        g.px[(size_t)yy * W + xx] = conv.component(p[0], p[1], p[2], xx % 4);
-      }
+  if (bytes_of_rgba) {  // the reader's RGBA rows, for PIL's raw mode to unpack
+    rgba->resize((size_t)W * H * 4);
+    for (size_t i = 0; i < (size_t)W * H; ++i)
+      for (int c = 0; c < 4; ++c) (*rgba)[4 * i + c] = conv.component(ycc[3 * i], ycc[3 * i + 1], ycc[3 * i + 2], c);
+  }
 }
 
 // PIL's raw route where it reads otherwise than the file's layout: planar
@@ -5894,10 +6217,14 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   const int bits = (int)bps[0];
   if (photometric == 8) corrupt("CIELab TIFF (PIL cannot convert LAB to L)");
   const bool lib = compression != 1;  // libtiff decodes for PIL; else PIL's raw decoder
+  // libtiff decodes with its own compression (a tag given twice: the first
+  // entry, PIL's the last).
+  const uint32_t pil_compression = compression;
+  if (lib) compression = dir.lt_compression;
   // PlanarConfiguration as each route takes it: libtiff's decodes a
   // compressed file, PIL's own reading lays out the raw route's tiles.
   const uint32_t planar = lib ? dir.lt_planar : dir.planar;
-  const bool fax = compression == 2 || compression == 3 || compression == 4;
+  const bool fax = compression == 2 || compression == 3 || compression == 4 || compression == 32771;
   const bool jpeg = compression == 7, zip = compression == 8 || compression == 32946;
   // libtiff's codecs: SGILog wants a LogLuv image (no PIL mode), WebP is not
   // built into PIL's libtiff, the fax codecs take 1 bit, ThunderScan 4, JPEG
@@ -5912,7 +6239,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (predictor < 1 || predictor > 3) corrupt("TIFF predictor " + std::to_string(predictor));
   if (predictor == 2 && bits != 8 && bits != 16 && bits != 32 && bits != 64)
     corrupt("TIFF predictor 2 with " + std::to_string(bits) + "-bit samples");
-  if (predictor == 3 && fmt[0] != 3) corrupt("TIFF floating-point predictor on integers");
+  if (predictor == 3 && (lib ? dir.lt_fmt : fmt[0]) != 3) corrupt("TIFF floating-point predictor on integers");
   // PIL's raw modes of FillOrder 2 it has no unpacker for: 8-bit
   // WhiteIsZero (L;IR) and palettes below 8 bits (P;1R, P;2R, P;4R); a
   // planar file's layer takes the raw mode's first letter alone.
@@ -5920,32 +6247,54 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
       ((photometric == 0 && bits == 8) || (photometric == 3 && bits < 8)))
     corrupt("TIFF of FillOrder 2 in a raw mode PIL has no unpacker for");
 
-  // Kinds PIL reads and the port does not yet (ROADMAP A.6).
   const bool ojpeg = compression == 6;
-  if (lib && compression != 5 && compression != 32773 && compression != 34925 && compression != 50000 &&
-      !fax && !jpeg && !zip && !ojpeg)
-    unsupported("TIFF compression " + std::to_string(compression));
   const bool planes = spp > 1 && planar == 2;
-  if ((jpeg || ojpeg) && planes && photometric == 6)  // libtiff's JPEG codec refuses it
+  if (ojpeg && planes && photometric == 6)  // libtiff's OJPEG codec refuses it
     corrupt("YCbCr TIFF of JPEG in planes");
-  if ((jpeg || ojpeg) && planes) unsupported("planar JPEG-in-TIFF");
-  if (jpeg && bits != 8) unsupported(std::to_string(bits) + "-bit JPEG-in-TIFF");
-  if (jpeg && !(photometric == 1   ? spp == 1
-                : photometric == 5 ? spp == 4
-                                   : (photometric == 2 || photometric == 6) && spp == 3))
-    unsupported("JPEG-in-TIFF of photometric " + std::to_string(photometric) + " with " +
-                std::to_string(spp) + " samples");
+  // JPEG-in-TIFF as libtiff decodes it for PIL (a tag given twice: each
+  // side its own entries). libjpeg converts YCbCr to RGB where libtiff's
+  // photometric says YCbCr (PIL's decoder asks for JPEGCOLORMODE_RGB),
+  // which wants 3 components and contiguous samples. PIL's raw mode of
+  // YCbCr is RGB where its own compression is JPEG and its samples
+  // contiguous, else RGBX, 4 bytes a pixel over libtiff's 3.
+  const uint32_t lt_photo = dir.lt_photometric;
+  if (jpeg && lt_photo == 6 && dir.lt_planar == 2) corrupt("YCbCr TIFF of JPEG in planes");
+  if (jpeg && lt_photo == 6 && dir.lt_spp != 3)  // libjpeg's YCbCr -> RGB wants 3 components
+    corrupt("JPEG-in-TIFF of photometric 6 with " + std::to_string(dir.lt_spp) + " samples");
+  const bool pil_rgb_of_ycc = pil_compression == 7 && dir.planar == 1;
+  if (pil_rgb_of_ycc && photometric == 6 && spp != 3)  // raw mode RGB for PIL's mode L
+    corrupt("YCbCr JPEG-in-TIFF of one sample, whose raw mode PIL has no unpacker for");
+  if (jpeg && photometric == 6 && !pil_rgb_of_ycc)
+    corrupt("JPEG-in-TIFF of YCbCr PIL unpacks as RGBX (PIL's decoder refuses it)");
+  // JPEG-in-TIFF that libjpeg converts (YCbCr) or whose grey, RGB or CMYK
+  // jpeg_tiff reads whole; the rest through libtiff's JPEG codec
+  // (TiffJpeg) as samples.
+  const bool jpeg_whole = jpeg && (lt_photo == 6 || (!planes && bits == 8 && (photometric == 1 ? spp == 1
+                                                                              : photometric == 2 ? spp == 3
+                                                                              : photometric == 5 && spp == 4)));
+  if (jpeg_whole && dir.lt_spp != spp)
+    corrupt("TIFF whose samples PIL's directory and libtiff's read otherwise (PIL's decoder refuses it)");
+
+  // libtiff's own reading: YCbCr outside JPEG goes through its RGBA reader,
+  // whatever PIL's photometric (a tag given twice); it drops a ColorMap of
+  // another count than 3 << bits, and then refuses a palette of fewer than
+  // 8 bits.
+  const bool lt_ycc = lib && dir.lt_photometric == 6 && !jpeg && !ojpeg;
+  if (lt_ycc && (dir.lt_spp != 3 || dir.lt_bps != 8 || dir.lt_fmt == 3))
+    corrupt("YCbCr TIFF not of 3 samples of 8-bit integers, which libtiff's RGBA reader refuses");
+  if (lib && dir.lt_photometric == 3 && bits < 8 && !dir.lt_cmap)
+    corrupt("TIFF palette of fewer than 8 bits without a ColorMap libtiff takes");
 
   // What the samples mean, in PIL's OPEN_INFO terms. pil_tiff_mode lets a
   // sample format other than 1 through for grey alone: 2 at 8 bits (read as
   // unsigned, PIL's L), 16 and 32 bits, 3 at 32 bits.
   enum { kGrey, kGreyInv, kGrey16, kNumber, kRgb, kRgbAssoc, kPal, kGreyAlpha, kCmyk, kYcc } kind = kGrey;
-  if (jpeg || ojpeg) {
+  if (jpeg_whole || ojpeg) {
     // libjpeg's output, converted to grey per strip or tile below.
-  } else if (photometric == 6) {  // PIL's L of one sample, RGB (raw mode RGBX) of three
-    if (spp == 3 || lib) kind = kYcc;
-    if (lib && (dir.lt_spp != 3 || dir.lt_bps != 8))
-      corrupt("YCbCr TIFF not of 3 samples of 8 bits, which libtiff's RGBA reader refuses");
+  } else if (photometric == 6) {  // PIL's L of one sample, RGB (raw mode RGBX; RGB: see above) of three
+    if (spp == 3) kind = pil_rgb_of_ycc ? kRgb : kYcc;
+    if (lib && !lt_ycc && kind == kYcc)  // RGBX over libtiff's 3 bytes a pixel
+      corrupt("TIFF whose rows PIL's libtiff decoder sizes otherwise (YCbCr to PIL, not to libtiff)");
   } else if (photometric <= 1 && spp == 1) {
     if (bits == 12 || bits == 32 || (bits == 16 && fmt[0] == 2)) {
       kind = kNumber;
@@ -5961,7 +6310,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   } else if (photometric == 5) {  // PIL's CMYK, CMYKX, CMYKXX and 16-bit CMYK
     kind = kCmyk;
   } else if (photometric == 3) {  // P, or PA / PX of two samples: the palette of the first
-    if (cmap.size() != 3u << bits) corrupt("bad TIFF colour map");
+    if (cmap.empty()) corrupt("TIFF palette without a colour map");
+    if (cmap.size() / 3 > 256) corrupt("TIFF colour map of more than 256 entries (PIL's palette refuses it)");
+    for (uint32_t v : cmap)
+      if (v > 65535) corrupt("TIFF colour map entry past 16 bits (PIL's palette refuses it)");
     kind = kPal;
   } else {  // pil_tiff_mode has refused every other layout
     corrupt("TIFF photometric " + std::to_string(photometric) + " with " + std::to_string(spp) +
@@ -5973,6 +6325,16 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
                          : kind == kRgbAssoc || kind == kCmyk ? 4
                          : kind == kGreyAlpha || (kind == kPal && spp == 2 && extra[0] == 2) ? 2
                                                                                          : 1;
+
+  // PIL's P -> L: a palette entry's grey. PIL's palette is the colour map
+  // in thirds, red, green and blue, whatever its count; entries past it
+  // are black (C.18).
+  uint8_t pal[256] = {0};
+  if (kind == kPal) {
+    const size_t m = cmap.size() / 3;
+    for (size_t i = 0; i < std::min<size_t>(m, 256); ++i)
+      pal[i] = luma(cmap[i] / 256, cmap[m + i] / 256, cmap[2 * m + i] / 256);
+  }
 
   // Chunks: strips (full width) or tiles.
   uint32_t cw, ch;
@@ -5988,32 +6350,72 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   }
   const uint32_t across = (W + cw - 1) / cw, down = (H + ch - 1) / ch;
   const uint32_t nplanes = planes ? spp : 1;
-  if (lib && offsets.size() < (size_t)across * down * nplanes)
+  if (lib && offsets.size() < (size_t)across * down * std::min(nplanes, planes ? dir.lt_spp : 1))
     corrupt("TIFF has too few strips or tiles");
   if (lib && dir.counts.size() < offsets.size()) corrupt("TIFF strip byte counts missing");
   std::unique_ptr<FaxCodec> fax_codec(fax ? new FaxCodec(cw, compression, t4opts, tiles) : nullptr);
   int lzw_old = -1;
+  std::unique_ptr<TiffJpeg> jpeg_codec(jpeg && !jpeg_whole ? new TiffJpeg : nullptr);
+  if (jpeg_codec) {
+    jpeg_codec->per = dir.lt_planar == 2 ? 1 : dir.lt_spp;
+    jpeg_codec->tiles = tiles;
+    jpeg_codec->jp.allow_precision = bits;
+    jpeg_codec->jp.any_components = true;
+    if (dir.jpeg_tables) {
+      auto [at, len] = t.bytes(dir.jpeg_tables);
+      jpeg_codec->jp.begin(d + at, len);
+      jpeg_codec->jp.markers(true);
+    }
+  }
   const TiffCodec codec{&t, compression, cw, (lib ? dir.codec_fill : fill) == 2 && !jpeg && !ojpeg,
-                        fax_codec.get(), &lzw_old};
+                        fax_codec.get(), &lzw_old, jpeg_codec.get(), W};
 
   Gray g;
   g.w = (int)W;
   g.h = (int)H;
   g.px.resize((size_t)W * H);
-  if (jpeg || ojpeg) {
+  if (jpeg_whole || ojpeg) {
     const bool sub = dir.ycbcr_sub.size() >= 2;
     const Chunks chunks{offsets, dir.counts, cw, ch, tiles, sub ? (int)dir.ycbcr_sub[0] : 0,
                         sub ? (int)dir.ycbcr_sub[1] : 0};
     if (jpeg)
-      jpeg_tiff(t, dir.jpeg_tables, photometric, spp, chunks, g);
+      jpeg_tiff(t, dir.jpeg_tables, lt_photo, spp, chunks, g);
     else
       ojpeg_tiff(t, dir.oj, photometric, spp, chunks, g);
     return g;
   }
-  if (lib && kind == kYcc) {
-    // PIL's mode L (one sample in its directory) unpacks the reader's RGBA
-    // rows as bytes: pixel x is byte x of its row (R, G, B, A of pixel x / 4).
-    ycbcr_rgba(codec, dir, tiff_ycc(t, dir.oj.coefficients, dir.oj.refbw), spp == 1, g);
+  if (lt_ycc) {
+    const TiffYcc conv = tiff_ycc(t, dir.oj.coefficients, dir.oj.refbw);
+    if (kind == kYcc) {  // PIL's RGBX: the reader's pixels as they are
+      ycbcr_rgba(codec, dir, conv, nullptr, g);
+      return g;
+    }
+    // PIL's raw mode of its own photometric (L, P, RGB, ...) unpacks the
+    // reader's RGBA rows as bytes: pixel x is bytes spp x .. of its row.
+    std::vector<uint8_t> rgba;
+    ycbcr_rgba(codec, dir, conv, &rgba, g);
+    for (uint32_t y = 0; y < H; ++y)
+      for (uint32_t x = 0; x < W; ++x) {
+        uint8_t q[6] = {0};  // past the last row, PIL's unpacker reads on past the buffer
+        for (uint32_t c = 0; c < spp; ++c) {
+          const size_t at = (size_t)y * W * 4 + (size_t)x * spp + c;
+          q[c] = at < rgba.size() ? rgba[at] : 0;
+        }
+        uint8_t& o = g.px[(size_t)y * W + x];
+        switch (kind) {
+          case kGreyInv: o = (uint8_t)(255 - q[0]); break;
+          case kPal: o = pal[q[0]]; break;
+          case kRgb: o = luma(q[0], q[1], q[2]); break;
+          case kRgbAssoc: {
+            const int a = q[3];
+            auto un = [a](int c) { return a == 255 ? c : (uint8_t)std::min(c * 255 / a, 255); };
+            o = a == 0 ? 0 : luma(un(q[0]), un(q[1]), un(q[2]));
+            break;
+          }
+          case kCmyk: o = cmyk_luma(q[0], q[1], q[2], q[3]); break;
+          default: o = q[0]; break;  // L, LA
+        }
+      }
     return g;
   }
   // PIL's libtiff decoder sizes its rows by PIL's raw mode (its bits a
@@ -6036,7 +6438,9 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     if (dir.lt_bps != (uint32_t)bits || (planar == 1 && dir.lt_spp != spp))
       corrupt("TIFF whose samples PIL's directory and libtiff's read otherwise (PIL's decoder "
               "refuses it)");
-    if (planar == 2 && std::min(spp, bands) > dir.lt_spp)
+    // A plane past libtiff's samples: TIFFReadTile refuses it, and
+    // TIFFComputeStrip gives strip 0 for every strip of it.
+    if (planar == 2 && tiles && std::min(spp, bands) > dir.lt_spp)
       corrupt("TIFF of fewer planes than PIL's mode has bands");
   }
   if (lib && planes) {
@@ -6061,14 +6465,6 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
     if (bits == 1 && (kind == kGrey || kind == kGreyInv)) raw_mode = kRawBit;
   } else if (pil_planes) {
     raw_mode = kRawRgbx;
-  }
-  // PIL's P -> L: a palette entry's grey; entries past the colour map are
-  // black.
-  uint8_t pal[256] = {0};
-  if (kind == kPal) {
-    size_t m = (size_t)1 << bits;
-    for (size_t i = 0; i < m; ++i)
-      pal[i] = luma(cmap[i] / 256, cmap[m + i] / 256, cmap[2 * m + i] / 256);
   }
   // Bilevel grey and 1-bit palettes (CCITT scans among them) go straight to
   // their two greys through a byte table; every other kind unpacks to one
@@ -6111,12 +6507,13 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   for (size_t i = 0; i < nchunks; ++i) {
     {
       {
-        const size_t idx = last_only ? offsets.size() - 1 : i, at = i % per_plane;
         const uint32_t pl = lib ? (uint32_t)(i / per_plane) : 0;
+        const size_t idx = last_only ? offsets.size() - 1 : pl < dir.lt_spp || !planes ? i : 0, at = i % per_plane;
         const uint32_t ty = (uint32_t)(at / across), tx = (uint32_t)(at % across);
         const uint32_t y0 = ty * ch, x0 = tx * cw;
         const uint32_t rows = tiles ? ch : std::min(ch, H - y0);
         if (lib) {
+          if (jpeg_codec) jpeg_codec->last = !tiles && y0 + rows >= H;
           tiff_chunk(codec, offsets[idx], dir.counts[idx], rb * rows, rows, buf);
         } else {
           // PIL's raw decoder reads a tile's rows inside the image alone, the
@@ -6148,11 +6545,12 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
           }
         }
         if (px_tiles) {  // a tile row's pixel c is its byte 2c, on into the next row
+          // The tile's last rows read past PIL's tile buffer, memory that
+          // differs from run to run: the port takes 0 there (A.6.27).
           for (uint32_t r = 0; r < rows && y0 + r < H; ++r)
             for (uint32_t c = 0; c < cw && x0 + c < W; ++c) {
               const size_t k = (size_t)r * cw + 2 * c;
-              if (k >= buf.size()) unsupported("planar PX TIFF tile whose last row PIL reads past");
-              smp[((size_t)(y0 + r) * W + x0 + c) * spp] = buf[k];
+              smp[((size_t)(y0 + r) * W + x0 + c) * spp] = k < buf.size() ? buf[k] : 0;
             }
           continue;
         }

@@ -53,8 +53,12 @@ SOURCE = Path(__file__).with_name("decode.cpp")
 # its fast path's checks and its reader past a stream's start), and
 # kinds PIL refuses made corrupt (SOF11 JPEG, a size or sample bits tag
 # given twice, samples PIL's directory and libtiff's read otherwise), so
-# pixels change and files that raised become zero images.
-DECODE_VERSION = "d6"
+# pixels change and files that raised become zero images; d7: old-style
+# JPEG-in-TIFF whose last strip or tile has no data read as libtiff reads
+# it (no EOI: a stop where libjpeg runs out), and YCbCr tiles after a stop
+# as PIL's RGBA reader takes them (C.17), so pixels change and files that
+# decoded become zero images.
+DECODE_VERSION = "d7"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 

@@ -32,7 +32,7 @@ def test_cache_name_carries_the_port_and_the_decoder_version(pngs):
 
 
 @pytest.mark.parametrize("planted", ["jax", "older port tag", "untagged port name", "d3 tag",
-                                     "d4 tag", "d5 tag"])
+                                     "d4 tag", "d5 tag", "d6 tag"])
 def test_foreign_and_stale_caches_are_ignored(pngs, planted):
     """A cache of wrong pixels under another name is not read; the port
     decodes and writes its own."""
@@ -49,6 +49,8 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
         name = f".siggan_torch_cache_64_d4_{sig}"
     elif planted == "d5 tag":  # written before damaged ZSTD literals were read as libzstd reads them
         name = f".siggan_torch_cache_64_d5_{sig}"
+    elif planted == "d6 tag":  # written before damaged old-style JPEG-in-TIFF was read as libtiff reads it
+        name = f".siggan_torch_cache_64_d6_{sig}"
     else:
         name = f".siggan_cache_64_{sig}"
     assert name != own
@@ -61,16 +63,17 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
 
 def test_a_d3_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path):
     """A tree with a BigTIFF (d3 raised on it; d4 reads it) and a d3 cache
-    holding other pixels: the dataset decodes anew under its own name (d6
-    since damaged ZSTD literals read as libzstd reads them)."""
+    holding other pixels: the dataset decodes anew under its own name (d7
+    since old-style JPEG-in-TIFF without its last strip's data read as
+    libtiff reads it)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=4)
     scan = (np.random.RandomState(5).rand(30, 50) * 255).astype(np.uint8)
     Image.fromarray(scan).save(tmp_path / "scan.tif", big_tiff=True)
-    assert tnative.DECODE_VERSION == "d6"
+    assert tnative.DECODE_VERSION == "d7"
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    np.save(tmp_path / own.replace("_d6_", "_d3_"), np.zeros_like(want.images))
+    np.save(tmp_path / own.replace("_d7_", "_d3_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)
@@ -91,8 +94,8 @@ def test_a_d5_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path, monkeypat
         chip_smoke.tiff_layout(scan[..., None], 8, 1, compression=-5, rows_per_strip=16))
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    assert "_d6_" in own
-    np.save(tmp_path / own.replace("_d6_", "_d5_"), np.zeros_like(want.images))
+    assert "_d7_" in own
+    np.save(tmp_path / own.replace("_d7_", "_d5_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)

@@ -632,18 +632,28 @@ def test_format_comes_from_content_not_suffix(tmp_path):
         assert_port_reads_as_pil(tmp_path / name)
 
 
+def webp_bytes(seed: int = 3) -> bytes:
+    """PIL's WebP of a small grey scan: a kind PIL reads and the port does
+    not yet (ROADMAP A.6), whatever the file's name."""
+    buf = io.BytesIO()
+    Image.fromarray(pixels(np.random.RandomState(seed), (24, 40)).astype(np.uint8)).save(buf, "WEBP")
+    return buf.getvalue()
+
+
 def _unsupported_files(tmp_path):
-    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
-    (tmp_path / "arm64_bcj.tif").write_bytes(bcj_filter_tiff(0x0A))
-    (tmp_path / "riscv_bcj.tif").write_bytes(bcj_filter_tiff(0x0B))
-    return {"arm64_bcj.tif": "ARM64 BCJ filter", "riscv_bcj.tif": "RISC-V BCJ filter"}
+    (tmp_path / "webp_named.tif").write_bytes(webp_bytes(3))
+    (tmp_path / "webp_named.png").write_bytes(webp_bytes(4))
+    return {"webp_named.tif": "WebP", "webp_named.png": "WebP"}
 
 
 def _now_read_files(root):
     """The kinds this test held as unread before A.6.7-A.6.10: CCITT with
     FillOrder 2, BigTIFF, planar RGB; before A.6.13-A.6.14: LZMA and ZSTD;
     before A.6.15-A.6.16: CCITT in uncompressed mode (T.4, T.6) and in
-    tiles."""
+    tiles; before A.6.25: LZMA with the ARM64 and RISC-V BCJ filters."""
+    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
+    (root / "arm64_bcj.tif").write_bytes(bcj_filter_tiff(0x0A))
+    (root / "riscv_bcj.tif").write_bytes(bcj_filter_tiff(0x0B))
     rs = np.random.RandomState(4)
     img = pixels(rs, (24, 40, 3)).astype(np.uint8)
     from test_torch_port_ccitt import refused_files
@@ -667,12 +677,13 @@ def _now_read_files(root):
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (LZMA TIFF of
-    the ARM64 and RISC-V BCJ filters). The kinds this test named before the
-    port read them (a cut progressive scan script, CMYK TIFF and JPEG; since
+    NotImplementedError naming the feature and ROADMAP A.6 (WebP, under a
+    .tif and a .png name). The kinds this test named before the port read
+    them (a cut progressive scan script, CMYK TIFF and JPEG; since
     A.6.7-A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB; since
     A.6.13-A.6.14 LZMA and ZSTD TIFF; since A.6.15-A.6.16 CCITT in
-    uncompressed mode and in tiles) now read bit-equal with PIL."""
+    uncompressed mode and in tiles; since A.6.25 LZMA TIFF of the ARM64
+    and RISC-V BCJ filters) now read bit-equal with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -690,7 +701,7 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     _now_read_files(read)
     for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg", "fill_order_2.tif", "big.tiff",
                  "planar.tif", "lzma.tif", "zstd.tif", "ccitt_t4_uncompressed.tif",
-                 "ccitt_t6_uncompressed.tif", "ccitt_tiles.tif"):
+                 "ccitt_t6_uncompressed.tif", "ccitt_tiles.tif", "arm64_bcj.tif", "riscv_bcj.tif"):
         assert_port_reads_as_pil(read / name)
 
 
@@ -1023,7 +1034,8 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     # ("refused" where PIL refuses the page).
     lines = []
     pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden),
-             **chip_smoke.a6_codec_pages(golden), **chip_smoke.a6_ccitt_lzw_pages(golden)}
+             **chip_smoke.a6_codec_pages(golden), **chip_smoke.a6_ccitt_lzw_pages(golden),
+             **chip_smoke.a6_kind_pages(golden)}
     for name, data in pages.items():
         try:
             with Image.open(io.BytesIO(data)) as im:

@@ -103,10 +103,10 @@ def test_best_and_an_epoch_are_served_and_listed(tmp_path, capsys):
 def test_dataset_refuses_images_it_cannot_decode(tmp_path):
     """C.3, then A.6: the dataset reads the JAX package's formats (a .JPG
     next to PNGs is trained on, as PIL reads it; so is a CMYK JPEG) and
-    refuses, naming A.6, only a file of a kind not read yet (an LZMA TIFF
-    of the ARM64 BCJ filter; a BigTIFF, an LZMA TIFF and a CCITT TIFF in
-    tiles, this test's such kinds before A.6.7, A.6.13 and A.6.16, are
-    read)."""
+    refuses, naming A.6, only a file of a kind not read yet (a WebP under a
+    .tif name; a BigTIFF, an LZMA TIFF, a CCITT TIFF in tiles and an LZMA
+    TIFF of the ARM64 BCJ filter, this test's such kinds before A.6.7,
+    A.6.13, A.6.16 and A.6.25, are read)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=1)
     assert len(SignatureDataset(tmp_path, 64, use_cache=False)) == 3
@@ -130,9 +130,9 @@ def test_dataset_refuses_images_it_cannot_decode(tmp_path):
         want = np.asarray(im.convert("L").resize((64, 64), Image.BILINEAR), np.float32)
     assert len(ds) == 6 and ds.paths[-1].name == "scan3.tif"
     np.testing.assert_array_equal(ds.images[-1, ..., 0], want / 255.0 * 2.0 - 1.0)
-    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
-    (tmp_path / "sub" / "scan4.tif").write_bytes(bcj_filter_tiff())
-    with pytest.raises(NotImplementedError, match="ARM64.*A.6"):
+    from test_torch_port_decode import webp_bytes
+    (tmp_path / "sub" / "scan4.tif").write_bytes(webp_bytes())
+    with pytest.raises(NotImplementedError, match="WebP.*A.6"):
         SignatureDataset(tmp_path, 64, use_cache=False)
 
 

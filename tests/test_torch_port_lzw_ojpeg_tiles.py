@@ -316,6 +316,133 @@ def test_ojpeg_jif_frame_of_the_page_height(tmp_path):
         holds(tmp_path, data, True, f"{kind}.tif")
 
 
+# -- C.17: damaged old-style JPEG-in-TIFF tiles --------------------------------------
+
+def ifd_first(data: bytes) -> bytes:
+    """A little-endian classic TIFF of ``chip_smoke.tiff_pack`` with its
+    directory (and the values it points at) moved in front of the image
+    data, every offset moved with it: cutting the file then cuts the data,
+    not the directory."""
+    at = struct.unpack_from("<I", data, 4)[0]
+    region = bytearray(data[at:])
+    shift = len(region) + (len(region) & 1)
+    for i in range(struct.unpack_from("<H", region, 0)[0]):
+        e = 2 + 12 * i
+        tag, typ, count = struct.unpack_from("<HHI", region, e)
+        where = e + 8
+        if {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1}[typ] * count > 4:
+            where = struct.unpack_from("<I", region, e + 8)[0] - at
+            struct.pack_into("<I", region, e + 8, where + 8)
+        if tag in (273, 324, 513, 519, 520, 521):  # offsets into the image data
+            f = "H" if typ == 3 else "I"
+            values = struct.unpack_from(f"<{count}{f}", region, where)
+            struct.pack_into(f"<{count}{f}", region, where, *[v + shift for v in values])
+    return data[:4] + struct.pack("<I", 8) + bytes(region) + b"\0" * (len(region) & 1) + data[8:at]
+
+
+def entries(data: bytes, tag: int):
+    """An entry's values, where they sit and their struct format."""
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        e = ifd + 2 + 12 * i
+        t, typ, count = struct.unpack_from("<HHI", data, e)
+        if t == tag:
+            f = "H" if typ == 3 else "I"
+            at = e + 8 if count * struct.calcsize(f) <= 4 else struct.unpack_from("<I", data, e + 8)[0]
+            return list(struct.unpack_from(f"<{count}{f}", data, at)), at, f
+    raise KeyError(tag)
+
+
+def damaged_tiles(seed: int):
+    """A seeded old-style JPEG-in-TIFF in tiles, either layout, grey or
+    YCbCr 4:4:4, 4:2:2 or 4:2:0, its directory first or last, then damaged
+    one of four ways: bytes of a tile changed (0), a tile's byte count cut
+    (1), the file truncated (2), a tile's byte count past the end of the
+    file (3). Returns (layout, kind, damage, file)."""
+    rs = np.random.RandomState(seed)
+    layout, kind = ["jif", "tables"][rs.randint(2)], ["grey", "444", "422", "420"][rs.randint(4)]
+    tw, th = [(16, 16), (16, 32), (32, 16), (32, 32)][rs.randint(4)]
+    h, w = int(rs.randint(8, 70)), int(rs.randint(8, 70))
+    img = rs.randint(0, 256, (h, w) if kind == "grey" else (h, w, 3)).astype(np.uint8)
+    if rs.rand() < 0.5:
+        img = (np.add.outer(np.arange(h), np.arange(w)) * 3 % 256).astype(np.uint8)
+        if kind != "grey":
+            img = np.dstack([img, img[::-1], 255 - img])
+    stream = tile_stream(img, (tw, th), kind)
+    spp, photometric = (1, 1) if kind == "grey" else (3, 6)
+    if layout == "jif":
+        data = chip_smoke.ojpeg_tiles(stream, w, h, (tw, th), spp, photometric)
+    else:
+        data = ojpeg_tables(stream, w, h, spp, photometric=photometric, tile=(tw, th),
+                            sub=None if kind == "grey" else SUB[kind][0])
+    if rs.rand() < 0.5:
+        data = ifd_first(data)
+    d = bytearray(data)
+    offs = entries(data, 324)[0]
+    counts, at, f = entries(data, 325)
+    how, i = rs.randint(4), rs.randint(len(offs))
+    if how == 0:
+        for _ in range(rs.randint(1, 4)):
+            if counts[i]:
+                p = offs[i] + rs.randint(counts[i])
+                d[p] = rs.randint(256) if rs.rand() < 0.5 else d[p] ^ (1 << rs.randint(8))
+    elif how == 1:
+        struct.pack_into("<" + f, d, at + i * struct.calcsize(f), rs.randint(0, counts[i] + 1))
+    elif how == 2:
+        del d[rs.randint(min(offs), len(d)):]
+    else:
+        struct.pack_into("<" + f, d, at + i * struct.calcsize(f), len(d) + rs.randint(1, 5000))
+    return layout, kind, how, bytes(d)
+
+
+@pytest.mark.parametrize("part", range(2))
+def test_damaged_ojpeg_tiles_probe_reads_as_pil(part):
+    """C.17's probe, 200 files a part: both tile layouts, grey and YCbCr,
+    bytes changed, a tile's count cut, the file truncated, a count past the
+    file: read bit-equal where PIL reads, corrupt where it refuses. (Before
+    C.17 the port appended an EOI to every stream and read on where libtiff
+    stops: 31 of 1500 such files read otherwise than PIL.)"""
+    verdicts = {}
+    for seed in range(200 * part, 200 * part + 200):
+        layout, kind, how, data = damaged_tiles(seed)
+        want = pil_grey(data)
+        verdicts.setdefault(how, set()).add(want is not None)
+        if want is None:
+            with pytest.raises(ValueError):
+                tnative.decode(data)
+        else:
+            np.testing.assert_array_equal(tnative.decode(data), want, err_msg=f"seed {seed}")
+    assert verdicts[2] == {True, False} and True in verdicts[0] | verdicts[3]
+
+
+# Seeds of damaged_tiles that show C.17's rules (PIL's verdict, the tiles it
+# leaves blank): a truncated file whose last tiles have no data, so
+# libtiff's stream has no EOI and libjpeg runs out in a tile.
+STOPS = {
+    "ycbcr_stop_in_the_last_row": (1246, True),    # tiles 1 and 2 of 3 blank
+    "ycbcr_stop_before_the_last_row": (91, False),  # the next row's first tile fails
+    "grey_stop": (1430, False),                     # TIFFReadEncodedTile fails
+}
+
+
+@pytest.mark.parametrize("name", sorted(STOPS))
+def test_ojpeg_tiles_stopped_by_the_end_of_their_data(tmp_path, name):
+    """A tile the stream runs out in (no EOI after it): libtiff zeroes it,
+    and every later tile fails before it is read; PIL's RGBA reader keeps
+    the zeroed buffer for those unless one is the first tile of its call (a
+    row of tiles), so YCbCr reads with the stopped tile and the rest of the
+    last row blank (Y = Cb = Cr = 0) and is refused when a row follows;
+    grey, read tile by tile, is refused."""
+    seed, reads = STOPS[name]
+    layout, kind, how, data = damaged_tiles(seed)
+    assert how == 2 and layout == "jif"
+    holds(tmp_path, data, reads)
+    if reads:
+        grey = pil_grey(data)
+        blank = grey[:, 16:].ravel()
+        assert (blank == blank[0]).all() and grey[:, :16].std() > 0
+
+
 # -- the datasets, phase 12's pages and tree ------------------------------------------
 
 def test_datasets_read_the_new_kinds_as_jax(tmp_path, monkeypatch):

@@ -18,7 +18,7 @@ import zlib
 import numpy as np
 import pytest
 from PIL import Image
-from test_torch_port_decode import (_pack, _pack_row, assert_port_reads_as_pil,
+from test_torch_port_decode import (_pack, _pack_row, assert_port_reads_as_pil, pil_gray,
                                     bmp_bytes, jpeg_bytes, pixels, tiff_file)
 from test_torch_port_ojpeg import ojpeg_jif
 from test_torch_port_progressive import pil_jpeg
@@ -251,27 +251,25 @@ def pil_tiff_of(codec: str) -> bytes:
 # The audit: a genuine file at each site of decode.cpp that still
 # raises naming A.6 (a site whose file PIL refuses is corrupt: REFUSED).
 STILL_A6 = {
-    "lzma_arm64_bcj": (lambda: bcj_filter_tiff(0x0A), "ARM64 BCJ"),
-    "lzma_riscv_bcj": (lambda: bcj_filter_tiff(0x0B), "RISC-V BCJ"),
-    "tag_given_twice": (lambda: chip_smoke.tiff_layout(
-        G8, 8, 1, compression=8, tags=[(262, 3, [1]), (262, 3, [0])]), "given twice"),
-    "ccitt_rle_w": (lambda: one_strip(mh_word_rows(GREY < 60), 1, 32771, 0), "compression 32771"),
-    "thunderscan": (lambda: one_strip(thunderscan_raw(GREY >> 4), 4, 32809), "compression 32809"),
-    "planar_jpeg_tiff": (lambda: planar_jpeg_tiff(2), "planar JPEG-in-TIFF"),
-    "jpeg_tiff_12_bits": (lambda: jpeg_tiff_grey(frame(pil_jpeg(GREY, quality=90), precision=12),
-                                                 12), "12-bit JPEG-in-TIFF"),
-    "jpeg_tiff_white_is_zero": (lambda: jpeg_tiff_grey(pil_jpeg(GREY, quality=90), photometric=0),
-                                "photometric 0"),
-    "jpeg_tiff_palette": (lambda: jpeg_tiff_grey(pil_jpeg(GREY, quality=90), photometric=3, tags=[
-        (320, 3, list(range(0, 65536, 256)) * 3)]), "photometric 3"),
-    "planar_px_tile_past_its_row": (px_tile_past_its_row, "planar PX TIFF tile"),
     "gif": (lambda: pil_image_bytes("GIF"), "GIF"),
     "webp": (lambda: pil_image_bytes("WEBP"), "WebP"),
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.16).
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.27).
 NOW_READ = {
+    "lzma_arm64_bcj": lambda: bcj_filter_tiff(0x0A),
+    "lzma_riscv_bcj": lambda: bcj_filter_tiff(0x0B),
+    "tag_given_twice": lambda: chip_smoke.tiff_layout(
+        G8, 8, 1, compression=8, tags=[(262, 3, [1]), (262, 3, [0])]),
+    "ccitt_rle_w": lambda: one_strip(mh_word_rows(GREY < 60), 1, 32771, 0),
+    "thunderscan": lambda: one_strip(thunderscan_raw(GREY >> 4), 4, 32809),
+    "planar_jpeg_tiff": lambda: planar_jpeg_tiff(2),
+    "jpeg_tiff_12_bits": lambda: jpeg_tiff_grey(frame(pil_jpeg(GREY, quality=90), precision=12), 12),
+    "jpeg_tiff_white_is_zero": lambda: jpeg_tiff_grey(pil_jpeg(GREY, quality=90), photometric=0),
+    "jpeg_tiff_palette": lambda: jpeg_tiff_grey(pil_jpeg(GREY, quality=90), photometric=3, tags=[
+        (320, 3, list(range(0, 65536, 256)) * 3)]),
+    "planar_px_tile_past_its_row": px_tile_past_its_row,
     "ccitt_tiles": ccitt_tiles,
     "lzma_tiff": lambda: pil_tiff_of("lzma"),
     "zstd_tiff": lambda: pil_tiff_of("zstd"),
@@ -289,17 +287,45 @@ NOW_READ = {
 }
 
 
+def past_the_tile_buffer(data: bytes) -> np.ndarray:
+    """Where PIL reads a planar PX TIFF's tiles past its tile buffer: pixel
+    c of a tile's row r is byte r * tw + 2 c of the first plane's tile,
+    which holds tw * th bytes."""
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    tags = {}
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        tag, typ, _ = struct.unpack_from("<HHI", data, ifd + 2 + 12 * i)
+        tags[tag] = struct.unpack_from("<H" if typ == 3 else "<I", data, ifd + 10 + 12 * i)[0]
+    h, w, tw, th = tags[257], tags[256], tags[322], tags[323]
+    r, c = np.mgrid[0:h, 0:w]
+    return (r % th) * tw + 2 * (c % tw) >= tw * th
+
+
 @pytest.mark.parametrize("name", sorted(NOW_READ))
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
     """A genuine lossless JPEG (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
     TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample,
-    RGB with associated alpha, LZMA and ZSTD TIFF, CCITT in tiles: each
-    bit-equal with PIL."""
+    RGB with associated alpha, LZMA and ZSTD TIFF, CCITT in tiles, LZMA of
+    the ARM64 and RISC-V BCJ filters, a tag given twice, CCITT RLE-W,
+    ThunderScan, planar, 12-bit, WhiteIsZero and palette JPEG-in-TIFF: each
+    bit-equal with PIL. A planar PX TIFF in tiles whose last rows PIL reads
+    past its tile buffer (memory that differs from run to run) is
+    bit-equal with PIL elsewhere, and there a sample of 0, palette entry 0's
+    grey (A.6.27)."""
     path = tmp_path / name
     path.write_bytes(NOW_READ[name]())
     assert jdataset.decode_image(path, 16).any()                   # PIL reads it
-    assert_port_reads_as_pil(path)
+    if name != "planar_px_tile_past_its_row":
+        assert_port_reads_as_pil(path)
+        return
+    past = past_the_tile_buffer(path.read_bytes())
+    got = tdataset.decode_gray(path)
+    with Image.open(path) as im:
+        zero = Image.fromarray(np.zeros((1, 1), np.uint8), "P")
+        zero.putpalette(im.getpalette())
+    assert past.sum() == 8 and (got[past] == np.asarray(zero.convert("L"))[0, 0]).all()
+    np.testing.assert_array_equal(got[~past], pil_gray(path)[~past])
 
 
 @pytest.mark.parametrize("name", sorted(STILL_A6))

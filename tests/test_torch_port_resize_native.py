@@ -96,9 +96,10 @@ def test_dataset_and_canvas_pixels_stay_the_jax_packages(tmp_path, monkeypatch):
     needed no new cache version (d2 then; d3 since damaged JPEG data decodes
     as libjpeg-turbo decodes it, d4 since C.13's last repairs, d5 since
     damaged CCITT data decodes as libtiff decodes it, d6 since damaged ZSTD
-    literals read as libzstd reads them); the resize is the native one, not
-    numpy's."""
-    assert native.DECODE_VERSION == "d6"
+    literals read as libzstd reads them, d7 since old-style JPEG-in-TIFF
+    without its last strip's data reads as libtiff reads it); the resize is
+    the native one, not numpy's."""
+    assert native.DECODE_VERSION == "d7"
     paths = []
     for i, (h, w) in enumerate(((500, 1200), (90, 210), (64, 64), (700, 300))):
         p = tmp_path / f"s{i}.png"

@@ -263,23 +263,86 @@ def test_xz_stream_reads_as_pil(tmp_path, name):
     holds(tmp_path, grey_strip(blob, LZMA, w, h), reads)
 
 
-def bcj_filter_tiff(filter_id: int = 0x0A, seed: int = 3) -> bytes:
+def no_x86_opcode(piece: bytes) -> bool:
+    return 0xE8 not in piece and 0xE9 not in piece
+
+
+def arm64_code(rs, n: int) -> bytes:
+    """``n`` bytes of little-endian words rich in what liblzma's ARM64
+    filter converts: BL (top six bits 100101) and ADRP (its immediate
+    mostly within +-512 MiB, where the filter converts it) among random
+    words; no byte E8 or E9, so that Python's x86 encoder, which
+    ``bcj_filter_tiff`` writes through, leaves them as they are."""
+    out = bytearray()
+    while len(out) < n:
+        kind = rs.randint(4)
+        if kind == 0:
+            word = 0x94000000 | rs.randint(0, 1 << 26)
+        elif kind == 1:
+            hi = rs.randint(1 << 19)
+            if rs.rand() < 0.7:
+                hi = (hi & 0x7FFF) | (0x70000 if rs.rand() < 0.5 else 0)
+            word = 0x90000000 | rs.randint(4) << 29 | hi << 5 | rs.randint(32)
+        else:
+            word = rs.randint(0, 1 << 32)
+        piece = struct.pack("<I", word)
+        if no_x86_opcode(piece):
+            out += piece
+    return bytes(out[:n])
+
+
+def riscv_code(rs, n: int) -> bytes:
+    """``n`` bytes rich in what liblzma's RISC-V filter converts: JAL with
+    rd x1 or x5; AUIPC x2 of the filter's special form (bits 13:12 set, the
+    pair's register in 31:27) followed by a big-endian address; AUIPC of
+    another register followed by an instruction whose rs1 is that register
+    (a load: its opcode's low bits 11); compressed halfwords and random
+    words between; no byte E8 or E9 (see ``arm64_code``)."""
+    out = bytearray()
+    while len(out) < n:
+        kind = rs.randint(5)
+        if kind == 0:
+            piece = struct.pack("<I", 0x6F | [1, 5][rs.randint(2)] << 7 | rs.randint(0, 1 << 20) << 12)
+        elif kind == 1:
+            word = 0x17 | 2 << 7 | 3 << 12 | rs.randint(0, 1 << 13) << 14 | [1, 3, 5, 8, 10][rs.randint(5)] << 27
+            piece = struct.pack("<I", word) + struct.pack(">I", rs.randint(0, 1 << 32))
+        elif kind == 2:
+            reg = [1, 3, 5, 8, 10, 15][rs.randint(6)]
+            load = 0x03 | rs.randint(0, 1 << 5) << 7 | rs.randint(0, 8) << 12 | reg << 15 | rs.randint(0, 1 << 12) << 20
+            piece = struct.pack("<II", 0x17 | reg << 7 | rs.randint(0, 1 << 20) << 12, load)
+        elif kind == 3:
+            piece = struct.pack("<H", rs.randint(0, 1 << 16))
+        else:
+            piece = struct.pack("<I", rs.randint(0, 1 << 32))
+        if no_x86_opcode(piece):
+            out += piece
+    return bytes(out[:n])
+
+
+def bcj_filter_tiff(filter_id: int = 0x0A, seed: int = 3, start: int = 0, w: int = W,
+                    h: int = H) -> bytes:
     """A grey LZMA TIFF whose stream's BCJ filter is liblzma's ARM64 (0x0A)
-    or RISC-V (0x0B): x86 BCJ data with the filter ID patched (Python's
-    ``lzma`` writes neither). PIL reads it; the port not yet (ROADMAP A.6),
-    so tests use it as their kind the port does not read."""
-    s = with_block_header(xz(bcj_data(np.random.RandomState(seed), W * H),
-                             filters=[{"id": lzma.FILTER_X86}, {"id": lzma.FILTER_LZMA2}]),
-                          lambda h: h.__setitem__(2, filter_id))
-    return grey_strip(s, LZMA)
+    or RISC-V (0x0B), of ``arm64_code`` / ``riscv_code``: Python's x86
+    filter (which leaves these bytes as they are) with its ID patched, as
+    Python's ``lzma`` writes neither; ``start``: the filter's start
+    offset. The filter's decoding rewrites what it converts, so PIL's
+    pixels are not the bytes written (A.6.25)."""
+    code = (arm64_code if filter_id == 0x0A else riscv_code)(np.random.RandomState(seed), w * h)
+    f = {"id": lzma.FILTER_X86, **({"start_offset": start} if start else {})}
+    s = with_block_header(xz(code, filters=[f, {"id": lzma.FILTER_LZMA2}]),
+                          lambda hd: hd.__setitem__(2, filter_id))
+    return grey_strip(s, LZMA, w, h)
 
 
-def test_xz_filters_liblzma_has_and_the_port_does_not_yet_raise_a6():
-    """ARM64 and RISC-V BCJ (liblzma 5.4 on; PIL's reads them): A.6."""
-    data = bcj_filter_tiff()
-    assert pil_reads(data)
-    with pytest.raises(NotImplementedError, match="ARM64.*A.6"):
-        tnative.decode(data)
+@pytest.mark.parametrize("filter_id", [0x0A, 0x0B])
+def test_xz_arm64_and_riscv_filters_read_as_pil(tmp_path, filter_id):
+    """ARM64 and RISC-V BCJ (liblzma 5.4 and 5.6 on; PIL reads them,
+    A.6.25): bit-equal with PIL, whose pixels are not the bytes written (a
+    decoder passing them through would fail)."""
+    data = bcj_filter_tiff(filter_id, w=64, h=12)
+    code = (arm64_code if filter_id == 0x0A else riscv_code)(np.random.RandomState(3), 64 * 12)
+    holds(tmp_path, data, True)
+    assert (tnative.decode(data) != np.frombuffer(code, np.uint8).reshape(12, 64)).sum() > 8
 
 
 # -- ZSTD frames -----------------------------------------------------------------

@@ -233,10 +233,10 @@ def test_pairs_and_split_match_jax(trees, layout):
 def test_pairs_refuse_other_image_formats(trees, tmp_path):
     """A tree holding .jpg, .bmp and .tif scans (a CCITT Group 4 one among
     them) is paired and decoded as the JAX package does (its PIL path);
-    only a file of a kind not read yet (an LZMA TIFF of the ARM64 BCJ
-    filter; the CMYK TIFF, BigTIFF, LZMA TIFF and CCITT TIFF in tiles this
-    test refused before are read) is refused, naming the ROADMAP item of
-    the decoders."""
+    only a file of a kind not read yet (a WebP under a .tif name; the CMYK
+    TIFF, BigTIFF, LZMA TIFF, CCITT TIFF in tiles and LZMA TIFF of the
+    ARM64 BCJ filter this test refused before are read) is refused, naming
+    the ROADMAP item of the decoders."""
     import shutil
 
     from siggan_tpu.data.native import loader as jnative
@@ -269,9 +269,9 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     have = tpairs.PairDataset(tmp_path / "users", pairs_per_user=3, seed=2)
     np.testing.assert_array_equal(have.img1, want.img1)
     np.testing.assert_array_equal(have.img2, want.img2)
-    from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
-    (tmp_path / "users" / "writer_010" / "arm64.tif").write_bytes(bcj_filter_tiff())
-    with pytest.raises(NotImplementedError, match="ARM64.*ROADMAP A.6"):
+    from test_torch_port_decode import webp_bytes
+    (tmp_path / "users" / "writer_010" / "webp.tif").write_bytes(webp_bytes())
+    with pytest.raises(NotImplementedError, match="WebP.*ROADMAP A.6"):
         tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
 
