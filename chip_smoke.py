@@ -140,7 +140,12 @@ Phases (any failure raises and the script exits non-zero):
      written here with numpy, JPEG copied from the fixtures), run
      ``cli.preprocess`` on it (wall time, images/s, the share of it that
      host decoding and letterboxing take) and build a ``SignatureDataset``
-     on it (its decode time);
+     on it (its decode time); the tree's PNG scans in turns GIF and PGM
+     files under their .png names, and planar YCbCr old-style
+     JPEG-in-TIFF, GIF and PGM pages (``a6_gif_pnm_pages``) held to PIL's
+     grey by digest and timed; a file of each format PIL opens and the
+     port does not read (``c21_files``), named .png beside a scan, stops
+     its ``SignatureDataset`` naming the format and ROADMAP A.6;
  13. shared fakes and the ablation grid (``shared_fakes_phase``,
      ``ablation_phase``): ``cli.train --share_fakes`` at full width on
      phase 7's 2048 PNGs for 2 epochs of 32 steps (B1 x1, B1' x1, B2 x0
@@ -2857,6 +2862,264 @@ def a6_kind_pages(golden) -> dict:
     }
 
 
+def gif_lzw(pixels: bytes, bits: int = 8, *, eoi: bool = True, clear_when_full: bool = True) -> bytes:
+    """GIF LZW codes of ``pixels`` (indices below 1 << ``bits``), packed
+    least significant bit first, as Pillow's GifDecode.c reads them: a clear
+    code first; a code widened once the decoder's next free code reaches its
+    mask; when the 4096-entry table is full a clear code and a new table,
+    or, without ``clear_when_full``, 12-bit codes on from the full table (the
+    deferred clear); the end code last unless ``eoi`` is false."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    out, acc, nacc = bytearray(), 0, 0
+    size, dnext, first = bits + 1, clear + 2, True
+
+    def emit(code):
+        nonlocal acc, nacc, size, dnext, first
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+        if code == clear:
+            size, dnext, first = bits + 1, clear + 2, True
+        elif first:
+            first = False
+        elif dnext < 4096:  # the decoder adds an entry for each later code
+            if dnext == (1 << size) - 1 and size < 12:
+                size += 1
+            dnext += 1
+    emit(clear)
+    table, nxt, prefix = {}, clear + 2, None
+    for ch in pixels:
+        if prefix is None:
+            prefix = ch
+            continue
+        if (prefix, ch) in table:
+            prefix = table[prefix, ch]
+            continue
+        emit(prefix)
+        if nxt < 4096:
+            table[prefix, ch] = nxt
+            nxt += 1
+        elif clear_when_full:
+            emit(clear)
+            table, nxt = {}, clear + 2
+        prefix = ch
+    if prefix is not None:
+        emit(prefix)
+    if eoi:
+        emit(end)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def gif_blocks(data: bytes) -> bytes:
+    """Data sub-blocks of at most 255 bytes and the terminator."""
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def gif_table(rgb) -> tuple:
+    """(flag bits, bytes) of a colour table of (n, 3) ``rgb``, padded with
+    black to the next power of two of 2 to 256 entries."""
+    import numpy as np
+    rgb = np.asarray(rgb, np.uint8).reshape(-1, 3)
+    k = max(1, (len(rgb) - 1).bit_length())
+    return k - 1, rgb.tobytes() + bytes(3 * ((1 << k) - len(rgb)))
+
+
+def gif_file(frame, *, screen=None, at=(0, 0), global_table=None, local_table=None,
+             interlace: bool = False, transparency=None, bits: int = 8, eoi: bool = True,
+             clear_when_full: bool = True, extensions=(), codes=None) -> bytes:
+    """A GIF89a of one frame, (h, w) indices ``frame`` at ``at`` = (x, y) on
+    a logical screen ``screen`` = (w, h) (the frame's size by default):
+    ``global_table`` / ``local_table`` (n, 3) colours or None, the rows in
+    interlaced order with ``interlace``, a graphic control extension with
+    ``transparency``, ``extensions`` (bytes) before the frame, the LZW of
+    ``gif_lzw`` (or the raw ``codes``) with LZW code size ``bits``."""
+    import struct
+    import numpy as np
+    frame = np.asarray(frame, np.uint8)
+    h, w = frame.shape
+    sw, sh = screen or (w, h)
+    flags, table = 0, b""
+    if global_table is not None:
+        k, table = gif_table(global_table)
+        flags = 0x80 | k
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, flags, 0, 0) + table + b"".join(extensions)
+    if transparency is not None:
+        out += b"\x21\xf9\x04\x01\x00\x00" + bytes([transparency]) + b"\x00"
+    lflags, ltable = 0x40 if interlace else 0, b""
+    if local_table is not None:
+        k, ltable = gif_table(local_table)
+        lflags |= 0x80 | k
+    rows = (list(range(0, h, 8)) + list(range(4, h, 8)) + list(range(2, h, 4))
+            + list(range(1, h, 2))) if interlace else list(range(h))
+    if codes is None:
+        codes = gif_lzw(frame[rows].tobytes(), bits, eoi=eoi, clear_when_full=clear_when_full)
+    return (out + b"\x2c" + struct.pack("<HHHHB", at[0], at[1], w, h, lflags) + ltable
+            + bytes([bits]) + gif_blocks(codes) + b"\x3b")
+
+
+def pnm_file(kind: str, samples, maxval: int = 255) -> bytes:
+    """A Netpbm file of ``kind`` (P1-P6, or Pillow's P0CMYK / PyP / PyRGBA /
+    PyCMYK) of (h, w[, bands]) ``samples``: plain (P1-P3) as decimal
+    tokens, 17 a line; raw at one byte a sample up to maxval 255, else two,
+    big-endian; P4 eight pixels a byte, a set bit black."""
+    import numpy as np
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    head = f"{kind}\n{w} {h}\n" + ("" if kind in ("P1", "P4") else f"{maxval}\n")
+    if kind in ("P1", "P2", "P3"):
+        toks = [str(int(v)) for v in s.reshape(-1)]
+        return (head + "\n".join(" ".join(toks[i:i + 17]) for i in range(0, len(toks), 17))
+                + "\n").encode()
+    if kind == "P4":
+        return head.encode() + np.packbits(s.astype(np.uint8) & 1, axis=1).tobytes()
+    return head.encode() + s.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def ojpeg_planes_tiff(planes, quant) -> bytes:
+    """Old-style JPEG-in-TIFF (compression 6) of YCbCr in planes: each of
+    the three (h, w) ``planes`` a baseline stream (``jpeg_sof1`` at 8 bits),
+    its scan one strip, the tables in JPEGQTables / JPEGDCTables /
+    JPEGACTables (one of each, shared), YCbCrSubsampling 1 x 1; the strips
+    of planes 1 and 2 open with their SOS (one component, named 1 and 2,
+    the frame libtiff builds from the tables naming 0, 1 and 2), as
+    libtiff finds a plane's scan by searching on from the last."""
+    import struct
+    h, w = planes[0].shape
+    streams = [jpeg_sof1(p, quant, precision=8) for p in planes]
+    s = streams[0]
+    dqt = s.index(b"\xff\xdb")
+    q = s[dqt + 5:dqt + 69]
+    dht = [i for i in range(len(s) - 1) if s[i] == 0xFF and s[i + 1] == 0xC4]
+    tables = [s[i + 5:i + 2 + struct.unpack(">H", s[i + 2:i + 4])[0]] for i in dht]
+    strips = []
+    for k, st in enumerate(streams):
+        at = st.index(b"\xff\xda")
+        data = st[at + 2 + struct.unpack(">H", st[at + 2:at + 4])[0]:st.rindex(b"\xff\xd9")]
+        strips.append((b"\xff\xda\x00\x08\x01" + bytes([k, 0x00, 0, 63, 0]) if k else b"") + data)
+    return tiff_pack(w, h, strips + [q] + tables, [
+        (258, 3, [8] * 3), (259, 3, [6]), (262, 3, [6]), (277, 3, [3]), (284, 3, [2]),
+        (512, 3, [1]), (273, 4, lambda o: o[:3]), (278, 4, [h]),
+        (279, 4, [len(b) for b in strips]), (519, 4, lambda o: [o[3]] * 3),
+        (520, 4, lambda o: [o[4]] * 3), (521, 4, lambda o: [o[5]] * 3), (530, 3, [1, 1])])
+
+
+def a6_gif_pnm_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of C.20, A.6.28 and A.6.29, built without
+    PIL from scan_420.jpg's grey: planar YCbCr old-style JPEG-in-TIFF (the
+    grey as Y, two chroma planes of it), GIF (the grey's indices under the
+    identity ramp: mode L) and interlaced GIF (under a tinted table: mode
+    P), raw PGM at 8 and at 16 bits (maxval 65535: the samples as they
+    are, PIL's I clipped) and plain PGM (P2). Each is held to a digest of
+    PIL's grey of the same bytes (a6_pages.sha256)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"]
+    g = grey.astype(np.int64)
+    ramp = np.repeat(np.arange(256), 3).reshape(256, 3)
+    tint = np.stack([np.arange(256), np.arange(256) * 7 // 8, np.minimum(np.arange(256) + 20, 255)], 1)
+    return {
+        "planar_ojpeg_page.tif": ojpeg_planes_tiff([g, 128 + (g - 128) // 6, 128 - (g - 128) // 5], Q90),
+        "gif_page.gif": gif_file(grey, global_table=ramp),
+        "gif_interlaced_page.gif": gif_file(grey, global_table=tint, interlace=True),
+        "p5_page.pgm": pnm_file("P5", grey),
+        "p5_16bit_page.pgm": pnm_file("P5", g * 3 // 2, 65535),
+        "p2_page.pgm": pnm_file("P2", grey),
+    }
+
+
+# An 8 x 8 grey ramp (4 x the pixel's index) as Pillow 12.1.0 writes it in
+# JPEG 2000 and AVIF, codecs whose writers this script does not carry.
+JP2_RAMP = bytes.fromhex(
+    "0000000c6a5020200d0a870a00000014667479706a703220000000006a7032200000002d6a70326800000016"
+    "6968647200000008000000080001070700000000000f636f6c7201000000000011000000b06a703263ff4fff"
+    "510029000000000008000000080000000000000000000000080000000800000000000000000001070101ff52"
+    "000c00000001000304040001ff5c000d4040484850484850484850ff64002500014372656174656420627920"
+    "4f70656e4a5045472076657273696f6e20322e352e34ff90000a0000000000350001ff93c7d40405efc1f382"
+    "9f8010043f045fc0f90147da060d010b3d86c07c21c3ea0300221a0f037febffd9")
+AVIF_RAMP = bytes.fromhex(
+    "00000020667479706176696600000000617669666d6966316d6961664d413142000000eb6d65746100000000"
+    "0000002168646c72000000000000000070696374000000000000000000000000000000000e7069746d000000"
+    "0000010000001e696c6f630000000044000001000100000001000001130000001a0000002869696e66000000"
+    "0000010000001a696e6665020000000001000061763031436f6c6f72000000006a697072700000004b697063"
+    "6f0000001469737065000000000000000800000008000000107069786900000000030808080000000c617631"
+    "4381000c0000000013636f6c726e636c780001000d0006800000001769706d61000000000000000100010401"
+    "028304000000226d64617412000a051808bf6042320f18000a28a2840001bbb94677fc9c52")
+
+
+def c21_files() -> dict:
+    """One file of each format PIL opens and the port does not read
+    (ROADMAP C.21), by the format's name, built without PIL: a 6 x 9 grey
+    ramp in AVIF and JPEG 2000 (Pillow's bytes of an 8 x 8 ramp), BLP2 (a
+    palette), DDS (luminance), DIB, ICNS (a 128 x 128 PNG icon), ICO (a PNG
+    icon), CUR (a BMP cursor), IM, MSP, PCX, DCX, PSD, QOI, SGI, SPIDER, SUN,
+    TGA, XBM and XPM. PIL reads each (tests/test_torch_port_pil_formats.py);
+    the port raises naming the format and ROADMAP A.6."""
+    import struct
+    import numpy as np
+    from siggan_tpu_torch.infer.export import encode_png
+    h, w = 6, 9
+    g = (np.arange(h * w).reshape(h, w) * 4).astype(np.uint8)
+    ink = g < 100
+    dib = bmp_grey(g)[14:]
+    pcx_rows = b"".join(bytes(b for v in row for b in ((0xC1, v) if v >= 0xC0 else (v,)))
+                        + (b"\0" if w % 2 else b"") for row in g)
+    pcx = (bytes([10, 5, 1, 8]) + struct.pack("<HHHHHH", 0, 0, w - 1, h - 1, 72, 72) + bytes(48)
+           + bytes([0, 1]) + struct.pack("<HH", w + w % 2, 1) + bytes(58) + pcx_rows
+           + b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes())
+    png = encode_png(g)
+    icon = encode_png(np.resize(g, (128, 128)))
+    cur_dib = bytearray(dib)
+    struct.pack_into("<i", cur_dib, 8, 2 * h)
+    msp = [0x6144, 0x4D6E, w, h, 1, 1, 1, 1, 0, 0, 1, 1, 0, 0, 0, 0]
+    for v in msp[:12]:
+        msp[12] ^= v
+    rec = w * 4
+    labrec = -(-1024 // rec)
+    spider = np.zeros(labrec * rec // 4, ">f4")
+    spider[[0, 1, 4, 11, 12, 21, 22]] = [1, h, 1, w, labrec, labrec * rec, rec]
+    xbm = np.packbits(ink, axis=1, bitorder="little").reshape(-1)
+    xpm_rows = "".join('"' + "".join("a" if v else "b" for v in row) + '",\n' for row in ink)
+    return {
+        "AVIF": AVIF_RAMP,
+        "BLP": (b"BLP2" + struct.pack("<iBBBB", 1, 1, 0, 0, 0) + struct.pack("<II", w, h)
+                + struct.pack("<16I", 1172, *[0] * 15) + struct.pack("<16I", w * h, *[0] * 15)
+                + np.repeat(np.arange(256, dtype=np.uint8), 4).tobytes() + g.tobytes()),
+        "DDS": (b"DDS " + struct.pack("<7I", 124, 0x100F, h, w, w, 0, 0) + bytes(44)
+                + struct.pack("<8I", 32, 0x20000, 0, 8, 0xFF, 0, 0, 0) + struct.pack("<I", 0x1000)
+                + bytes(16) + g.tobytes()),
+        "DIB": dib,
+        "ICNS": (b"icns" + struct.pack(">I", 16 + len(icon)) + b"ic07"
+                 + struct.pack(">I", 8 + len(icon)) + icon),
+        "ICO": struct.pack("<HHHBBBBHHII", 0, 1, 1, w, h, 0, 0, 1, 32, len(png), 22) + png,
+        "CUR": struct.pack("<HHHBBBBHHII", 0, 2, 1, w, h, 0, 0, 0, 0, len(cur_dib), 22) + bytes(cur_dib),
+        "IM": (f"Image type: Greyscale image\r\nImage size (x*y): {w}*{h}\r\n".encode()
+               + b"\x1a" + g.tobytes()),
+        "JPEG2000": JP2_RAMP,
+        "MSP": struct.pack("<16H", *msp) + np.packbits(~ink, axis=1).tobytes(),
+        "PCX": pcx,
+        "DCX": struct.pack("<III", 987654321, 12, 0) + pcx,
+        "PSD": (b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1) + struct.pack(">III", 0, 0, 0)
+                + struct.pack(">H", 0) + g.tobytes()),
+        "QOI": (b"qoif" + struct.pack(">IIBB", w, h, 3, 0)
+                + b"".join(bytes([0xFE, v, v, v]) for v in g.reshape(-1)) + bytes(7) + b"\x01"),
+        "SGI": (struct.pack(">HBBHHHHIIi", 474, 0, 1, 2, w, h, 1, 0, 255, 0) + bytes(488)
+                + g[::-1].tobytes()),
+        "SPIDER": spider.tobytes() + g.astype(">f4").tobytes(),
+        "SUN": (struct.pack(">8I", 0x59A66A95, w, h, 8, h * (w + w % 2), 1, 0, 0)
+                + np.pad(g, ((0, 0), (0, w % 2))).tobytes()),
+        "TGA": struct.pack("<BBBHHBHHHHBB", 0, 0, 3, 0, 0, 0, 0, 0, w, h, 8, 0x20) + g.tobytes(),
+        "XBM": (f"#define ramp_width {w}\n#define ramp_height {h}\nstatic char ramp_bits[] = {{\n"
+                + ", ".join(f"0x{b:02x}" for b in xbm) + "\n};\n").encode(),
+        "XPM": ("/* XPM */\nstatic char *ramp[] = {\n" + f'"{w} {h} 2 1",\n' + '"a c #000000",\n'
+                + '"b c #FFFFFF",\n' + xpm_rows + "};\n").encode(),
+    }
+
+
 # The decoder fixtures of A.6.7-A.6.12 (tests/test_torch_port_decode.py::
 # write_fixtures).
 LAYOUT_FIXTURES = ("bigtiff_lzw.tif", "planar_rgb.tif", "planar_cmyk_raw.tif", "ycbcr_22.tif",
@@ -2894,13 +3157,16 @@ def decode_phase(card: str, work: str):
     Group 4 data, Group 4 in tiles, with a palette and with the
     uncompressed-mode bit, old-style LZW and old-style JPEG-in-TIFF in tiles,
     JPEG-in-TIFF of photometric 0, of 12 bits and planar, CCITT RLE-W,
-    ThunderScan and LZMA with the ARM64 BCJ filter among them; a SOF11 JPEG
-    corrupt, as PIL refuses it), a cut
+    ThunderScan and LZMA with the ARM64 BCJ filter among them, planar YCbCr
+    old-style JPEG-in-TIFF, GIF and PGM; a SOF11 JPEG corrupt, as PIL
+    refuses it), a cut
     progressive scan script smoothed, a file PIL refuses a zero image, the
     threaded batch decode's rate per format, ``cli.preprocess`` and a
     ``SignatureDataset`` on a mixed tree of 1320 scans whose TIFFs take
-    those layouts in turns, then SOF11 JPEGs added to it: zero images in the
-    dataset, and ``cli.preprocess`` stops on one."""
+    those layouts in turns and whose PNGs are in turns GIF and PGM files
+    named .png, then SOF11 JPEGs added to it: zero images in the dataset,
+    and ``cli.preprocess`` stops on one; then a tree for each format PIL
+    opens and the port does not read: the build stops naming it (A.6)."""
     import shutil
     import numpy as np
     import torch
@@ -2970,7 +3236,7 @@ def decode_phase(card: str, work: str):
     digests = dict(reversed(line.split()) for line in
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
     a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
-          **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden)}
+          **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden), **a6_gif_pnm_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -3093,7 +3359,15 @@ def decode_phase(card: str, work: str):
               "ThunderScan TIFF 1200x500 (4-bit grey, 50-row strips)": (
                   [Path(work) / "thunderscan_page.tif"], 20),
               "LZMA TIFF 1200x500 with the ARM64 BCJ filter (one strip)": (
-                  [Path(work) / "lzma_arm64_page.tif"], 20)}
+                  [Path(work) / "lzma_arm64_page.tif"], 20),
+              "old-style JPEG-in-TIFF 1200x500, planar YCbCr (a plane a strip, C.20)": (
+                  [Path(work) / "planar_ojpeg_page.tif"], 20),
+              "GIF 1200x500 (identity ramp: mode L)": ([Path(work) / "gif_page.gif"], 20),
+              "GIF 1200x500, interlaced (a tinted table: mode P)": (
+                  [Path(work) / "gif_interlaced_page.gif"], 20),
+              "PGM 1200x500, raw 8-bit (P5)": ([Path(work) / "p5_page.pgm"], 20),
+              "PGM 1200x500, raw 16-bit (P5, maxval 65535)": ([Path(work) / "p5_16bit_page.pgm"], 20),
+              "PGM 1200x500, plain (P2)": ([Path(work) / "p2_page.pgm"], 20)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -3125,11 +3399,18 @@ def decode_phase(card: str, work: str):
     t0 = time.perf_counter()
     kinds = {".png": 0, ".bmp": 0, ".tif": 0, ".jpg": 0}
     layouts = {}
+    png_named = {"GIF": 0, "PGM": 0}  # other formats under a .png name (A.6.28, A.6.29)
     for i, p in enumerate(sorted(raw.rglob("*.png"))):
         d = mixed / p.parent.name
         d.mkdir(parents=True, exist_ok=True)
         k = i % 4
-        if k == 0:
+        if k == 0 and (i // 4) % 3:  # a GIF (interlaced in turns) or a PGM, named .png
+            grey = decode_png(p.read_bytes())[..., 0]
+            fmt = "GIF" if (i // 4) % 3 == 1 else "PGM"
+            (d / p.name).write_bytes(gif_file(grey, interlace=(i // 12) % 2 == 1) if fmt == "GIF"
+                                     else pnm_file("P5", grey))
+            png_named[fmt] += 1
+        elif k == 0:
             shutil.copy(p, d / p.name)
         elif k == 3:
             shutil.copy(jpegs[i % len(jpegs)], d / f"{p.stem}.jpg")
@@ -3198,7 +3479,25 @@ def decode_phase(card: str, work: str):
         raise AssertionError("cli.preprocess read a SOF11 JPEG, which PIL refuses")
     for p in sof11_paths:
         p.unlink()
-    print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}; the TIFFs "
+    # C.21: a file of each format PIL opens and the port does not read, named
+    # .png beside a scan: the build stops naming the format and A.6.
+    stops = {}
+    for fmt, data in c21_files().items():
+        tree = Path(work) / "c21_tree" / fmt
+        tree.mkdir(parents=True, exist_ok=True)
+        shutil.copy(jpegs[0], tree / "w00_scan.jpg")
+        (tree / "w00_c21.png").write_bytes(data)
+        try:
+            ds_mod.SignatureDataset(tree, 64, use_cache=False)
+        except NotImplementedError as e:
+            stops[fmt] = str(e)
+        if fmt not in stops or fmt not in stops[fmt] or "ROADMAP A.6" not in stops[fmt]:
+            raise AssertionError(f"a {fmt} file named .png: the build did not stop naming {fmt} and A.6")
+    print(f"decode: C.21: {len(stops)} trees, each a scan and one file of a format PIL opens and "
+          f"the port does not read, named .png ({', '.join(stops)}): each build stopped with "
+          f"NotImplementedError naming its format and ROADMAP A.6 (ICO: {stops['ICO']!r})", flush=True)
+    print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}, of the .png "
+          f"{json.dumps(png_named)} other formats under a .png name; the TIFFs "
           f"{json.dumps(layouts)}) written in "
           f"{write_s:.2f} s; cli.preprocess {pre_s:.2f} s ({1320 / pre_s:.1f} images/s), "
           f"{len(rep['processed'])} written, {len(rep['invalid'])} invalid; the host decode + "

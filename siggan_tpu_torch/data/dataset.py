@@ -7,8 +7,8 @@ decode-free (its name carries the decoder's version,
 ``data/native/loader.py::DECODE_VERSION``, and is not the JAX package's
 cache name). The files are those the JAX package reads (.png, .jpg, .jpeg,
 .bmp, .tiff, .tif), each decoded by its content, not its name, with no
-imaging package: PNG by ``infer/export.decode_png``, JPEG, BMP and TIFF by
-the port's C++ decoder (``data/native/``), the whole set on several
+imaging package: PNG by ``infer/export.decode_png``, JPEG, BMP, TIFF, GIF
+and Netpbm by the port's C++ decoder (``data/native/``), the whole set on several
 threads; each gives PIL's ``convert("L")`` grey bit for bit. Images of
 another size are resized by the same C++ library
 (``data/native/loader.py::resize_bilinear``), bit-equal with the PIL
@@ -64,8 +64,10 @@ def _to_gray(u8: np.ndarray) -> np.ndarray:
 
 def decode_gray(path: str | Path) -> np.ndarray:
     """An image file as uint8 (H, W) grey, PIL's ``convert("L")``; the
-    format comes from the file's first bytes. Raises ``NotImplementedError``
-    for a file PIL reads, of a kind not read yet, ``ValueError`` (or
+    format comes from the file's bytes, as PIL's ``Image.open`` finds it.
+    Raises ``NotImplementedError`` naming the format for a file PIL reads,
+    of a kind not read yet (a PGM saved as ``.png`` reads; an ICO saved as
+    ``.png`` raises naming ICO and ROADMAP A.6), ``ValueError`` (or
     ``OSError``) for a corrupt (or unreadable) one or one PIL refuses."""
     data = Path(path).read_bytes()
     if data.startswith(b"\x89PNG\r\n\x1a\n"):

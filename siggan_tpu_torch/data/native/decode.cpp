@@ -148,6 +148,8 @@ struct Huff {
     for (int l = 1; l <= 16; ++l) {
       valoffset[l] = k - code;
       for (int i = 0; i < bits[l]; ++i, ++k, ++code) {
+        // jdhuff.c: every code fits in its length and none is all ones (C.22)
+        if (code + 1 >= (1 << l)) corrupt("bad Huffman table");
         if (l <= 9) {
           int shift = 9 - l;
           for (int j = 0; j < (1 << shift); ++j)
@@ -155,7 +157,6 @@ struct Huff {
         }
       }
       maxcode[l] = bits[l] ? code - 1 : -1;
-      if (code > (1 << l)) corrupt("bad Huffman table");
       code <<= 1;
     }
     maxcode[17] = 0x7FFFFFFF;
@@ -834,6 +835,9 @@ struct Jpeg {
   // reads no marker past its one scan.
   bool old_tiff = false;
   int stop_row = 0;
+  // Where each restart of a sequential Huffman scan found the reader: the
+  // next byte it would fetch, and whether it had met a marker (C.20).
+  std::vector<std::pair<size_t, bool>>* restart_log = nullptr;
   // libtiff's old-style stream without an EOI (its last strip or tile has
   // no data): libjpeg reading past its end fails, which stops the decode
   // as a restart out of place does.
@@ -1218,6 +1222,7 @@ struct Jpeg {
           // Drop the buffered bits, find RSTn, restart the predictors; out
           // of data stays so only while a marker is left unread.
           const bool starved = br.starved;
+          if (restart_log) restart_log->emplace_back(br.pos, br.at_marker);
           br.reset();
           pos = br.pos;
           if constexpr (kHuffman) avail = br.end;
@@ -4925,6 +4930,7 @@ struct Chunks {  // a TIFF's strips or tiles
   uint32_t cw, ch;  // a chunk's size
   bool tiles;
   int sub_h, sub_v;  // the YCbCrSubsampling tag, 0 when the file has none
+  bool planes;       // libtiff's PlanarConfiguration 2, of more than one sample
 };
 
 // Whether PIL's TiffImagePlugin.OPEN_INFO holds a mode for this layout:
@@ -5124,6 +5130,198 @@ TiffYcc tiff_ycc(const Tiff& t, size_t coefficients, size_t refbw) {
   return TiffYcc(luma, rbw);
 }
 
+// C.20: old-style JPEG-in-TIFF of YCbCr in planes (PlanarConfiguration 2),
+// as PIL reads it through libtiff's RGBA reader (gtStripSeparate): a call a
+// strip, the strip of plane 0, 1 and 2 read in turn into a buffer cleared
+// for the call; a read that fails leaves its plane's rows zero, and one that
+// fails before it decodes plane 0 fails PIL's read. libtiff's codec decodes
+// plane s as a frame of that one sample. Its scan's SOS is found by
+// searching the byte source `src` (the JPEGInterchangeFormat bytes, then
+// the striles, which end at `strip_end`) onward from plane s - 1's SOS for
+// FF DA (OJPEGReadSecondarySos; plane 0's ends at `from`); a plane whose SOS
+// is not found fails every read, and the search leaves the source where it
+// stopped. One libjpeg session at a time: a read of another plane ends it
+// (libtiff then starts that plane over, decoding the strips before the one
+// read), a session whose header failed is never ended and every header
+// after it fails, and a read that fails is not counted, so the plane's next
+// read decodes the failed strip again. `stream(s, 1, at)` is plane s's
+// stream, its scan at `at`.
+template <class Stream>
+[[gnu::noinline]] void ojpeg_planes(const std::vector<uint8_t>& src, size_t jif_size,
+                                    const std::vector<size_t>& strip_end, size_t from,
+                                    const Stream& stream, int* sos_cs,
+                                    int* sos_tda, const int* sof_hv, uint32_t sof_y, bool open_end,
+                                    int restart, uint32_t rps, uint32_t down, const TiffYcc& conv,
+                                    Gray& g) {
+  const uint32_t W = g.w, H = g.h;
+  // The ends of the source's blocks, past which OJPEGReadSkip does not skip.
+  std::vector<size_t> ends{jif_size};
+  ends.insert(ends.end(), strip_end.begin(), strip_end.end());
+  ends.push_back(SIZE_MAX);
+  bool found[3] = {true, false, false};
+  size_t at[3] = {from, 0, 0}, stopped = src.size();  // where a failed search stopped
+  for (int s = 1; s < 3; ++s) {
+    size_t q = at[s - 1];
+    bool sos = false;
+    while (q < src.size() && !sos) {
+      if (src[q++] != 0xFF) continue;
+      while (q < src.size() && src[q] == 0xFF) ++q;
+      if (q < src.size()) sos = src[q++] == 0xDA;
+    }
+    // Ls 8 and Ns 1, each checked as it is read, then Cs and Td/Ta; Ss, Se
+    // and Ah/Al are skipped, no further than the end of their block.
+    const size_t left = src.size() - q;
+    if (!sos || left < 2 || src[q] != 0 || src[q + 1] != 8 || left < 3 || src[q + 2] != 1) {
+      stopped = !sos || left < 2 ? src.size() : left < 3 || src[q] != 0 || src[q + 1] != 8 ? q + 2 : q + 3;
+      break;
+    }
+    if (left < 5) break;
+    sos_cs[s] = src[q + 3];
+    sos_tda[s] = src[q + 4];
+    q += 5;
+    at[s] = std::min(q + 3, *std::upper_bound(ends.begin(), ends.end(), q - 1));
+    found[s] = true;
+  }
+  struct Plane {
+    bool ok = false;  // its header decodes
+    uint32_t lines = 0;  // the lines libjpeg gives before it fails
+    std::vector<uint8_t> px;
+    size_t pw = 0;
+  } pl[3];
+  auto decode = [&](const std::vector<uint8_t>& str, Plane& out,
+                    std::vector<std::pair<size_t, bool>>* log) {
+    Jpeg jp;
+    jp.begin(str.data(), str.size());
+    jp.old_tiff = true;
+    jp.open_end = open_end;
+    jp.restart_log = log;
+    uint32_t lines = sof_y;
+    try {
+      jp.planes();
+    } catch (const OldTiffStop&) {
+      lines = (uint32_t)jp.stop_row * 8;
+    } catch (const DecodeError&) {
+      if (!jp.scans) return;
+      lines = (uint32_t)jp.stop_row * 8;
+    }
+    out.ok = true;
+    out.lines = lines;
+    out.pw = jp.comp[0].pw;
+    out.px = std::move(jp.comp[0].plane);
+  };
+  std::vector<std::pair<size_t, bool>> log0;
+  std::vector<uint8_t> str0;
+  for (int s = 0; s < 3 && found[s]; ++s) {
+    if (sof_hv[s] != 0x11) continue;  // libtiff wants the frame's sampling its own, 1 x 1
+    std::vector<uint8_t> str = stream(s, 1, at[s]);
+    decode(str, pl[s], s ? nullptr : &log0);
+    if (!s) str0 = std::move(str);
+  }
+  // Without plane 1's SOS every call's searches leave the source where they
+  // stopped, and plane 0's session, left open, reads on from there: each
+  // strip after the first begins with the bytes from where the search
+  // stopped to the end of that strile (an RSTn libtiff owes from the
+  // strile the strip before it read last comes first, and is the one it
+  // wants). When the strip before it left bytes unread in a piece of a
+  // strile that is not the strile's last (libtiff hands a strile on in
+  // 2048-byte pieces), libjpeg skips them and those to the RSTn after the
+  // search's strile, and the strip begins with the next strile's. Plane 0
+  // is decoded again, a strip at a time, from such a stream.
+  const bool reads_on = !found[1] && stopped < src.size() && pl[0].ok && down > 1 &&
+                        restart == (int)(((W + 7) / 8) * (rps / 8)) && !log0.empty();
+  if (reads_on) {
+    constexpr size_t kPiece = 2048;  // tif_ojpeg.c's OJPEG_BUFFER
+    auto next_end = [&](size_t q) { return *std::upper_bound(strip_end.begin(), strip_end.end(), q); };
+    auto block_start = [&](size_t q) {  // the start of q's strile (JPEGInterchangeFormat: 0)
+      auto it = std::upper_bound(strip_end.begin(), strip_end.end(), q);
+      return q < jif_size ? (size_t)0 : it == strip_end.begin() ? jif_size : std::max(jif_size, *(it - 1));
+    };
+    // Whether q, read in a piece handed on from `a` on (pieces counted from
+    // `origin`), lies in its strile's last piece.
+    auto last_piece = [&](size_t q, size_t a, size_t origin) {
+      if (q < jif_size) return false;  // no RSTn follows the JPEGInterchangeFormat bytes
+      const size_t e = next_end(a), first = std::min(e, origin + kPiece * ((a - origin) / kPiece + 1));
+      return q >= (e <= first ? a : first + kPiece * ((e - first - 1) / kPiece));
+    };
+    const size_t e1 = next_end(stopped);
+    const size_t search_origin = std::max(block_start(stopped), block_start(stopped) == block_start(from) ? from : 0);
+    const size_t head = stream(0, 1, src.size()).size() - (open_end ? 0 : 2);
+    std::vector<uint8_t> str(str0.begin(), str0.begin() + log0[0].first);
+    bool from_stop = log0[0].second ||
+                     last_piece(from + (log0[0].first - head), block_start(from), block_start(from));
+    Plane emu;
+    for (uint32_t j = 1; j < down; ++j) {
+      const size_t a = from_stop ? stopped : e1, b = a < src.size() ? next_end(a) : a;
+      std::vector<uint8_t> tail(str);
+      tail.insert(tail.end(), {0xFF, (uint8_t)(0xD0 + ((j - 1) & 7))});
+      const size_t at_data = tail.size();
+      tail.insert(tail.end(), src.begin() + a, src.begin() + b);
+      // RSTn after a strile's bytes, EOI after the last's
+      const uint8_t m = b < src.size() || open_end ? 0xD0 + (j & 7) : 0xD9;
+      tail.insert(tail.end(), {0xFF, m});
+      std::vector<std::pair<size_t, bool>> log;
+      emu = Plane();
+      decode(tail, emu, &log);
+      if (j + 1 < down && log.size() > j) {
+        const auto [pos, met] = log[j];
+        from_stop = met || pos < at_data ||
+                    last_piece(a + (pos - at_data), a, a == stopped ? search_origin : a);
+      }
+      str.assign(tail.begin(), tail.end() - 2);
+    }
+    pl[0] = std::move(emu);
+  }
+  // The codec's session: its plane (-1 none), whether a failed header left
+  // it open, the strips it has read, the lines it has given and can give.
+  int cur = -1;
+  bool stuck = false;
+  uint32_t done = 0, line = 0, limit = 0;
+  auto lines = [&](uint32_t n) {
+    const uint32_t k = std::min(n, limit > line ? limit - line : 0u);
+    line += k;
+    return k;
+  };
+  // Plane s's read of strip k: the rows it writes, or -1 when it fails
+  // before decoding.
+  auto read = [&](int s, uint32_t k) -> int64_t {
+    if (!found[s]) {
+      if (!reads_on)  // the search ran to the end: libjpeg has only the lines it decoded
+        limit = std::min(limit, (line + 7) / 8 * 8);
+      return -1;
+    }
+    if (cur >= 0 && (cur != s || done > k)) cur = -1;
+    if (cur < 0) {
+      if (stuck) return -1;
+      if (!pl[s].ok) {
+        stuck = true;
+        return -1;
+      }
+      cur = s;
+      done = line = 0;
+      limit = pl[s].lines;
+    }
+    for (; done < k; ++done)
+      if (lines(rps) < rps) return -1;
+    const uint32_t n = std::min(rps, H - k * rps), got = lines(n);
+    if (got == n && ++done % down == 0) cur = -1;  // the plane's last strip ends the session
+    return got;
+  };
+  for (uint32_t k = 0; k < down; ++k) {
+    int64_t w[3];
+    for (int s = 0; s < 3; ++s) w[s] = read(s, k);
+    if (w[0] < 0) corrupt("old-style JPEG-in-TIFF plane 0 fails before it decodes (PIL's read fails)");
+    const uint32_t n = std::min(rps, H - k * rps);
+    for (uint32_t r = 0; r < n; ++r) {
+      const size_t y = (size_t)k * rps + r;
+      const uint8_t* row[3];
+      for (int s = 0; s < 3; ++s) row[s] = w[s] > (int64_t)r ? &pl[s].px[y * pl[s].pw] : nullptr;
+      uint8_t* o = &g.px[y * W];
+      for (uint32_t x = 0; x < W; ++x)
+        o[x] = conv.grey(row[0] ? row[0][x] : 0, row[1] ? row[1][x] : 0, row[2] ? row[2][x] : 0);
+    }
+  }
+}
+
 struct OJpegTags {  // IFD entries, 0 where absent
   size_t jif, jif_len, restart, qtables, dctables, actables, coefficients, refbw;
 };
@@ -5147,6 +5345,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
 // jpeg_tiff.
 [[gnu::noinline]] void ojpeg_tiff(const Tiff& t, const OJpegTags& oj, uint32_t photometric,
                                   uint32_t spp, const Chunks& c, Gray& g) {
+  const bool planes = c.planes;
   const uint8_t* d = t.d;
   const size_t fsize = t.n;
   // libtiff's striles: strips of RowsPerStrip rows, or tiles, each read as
@@ -5157,6 +5356,11 @@ struct OJpegTags {  // IFD entries, 0 where absent
   const uint32_t across = (W + sw - 1) / sw, down = (H + rps - 1) / rps, nstrips = across * down;
   const uint32_t total = c.tiles ? down * rps : H;
   const bool ycc = spp == 3;
+  // The striles of every plane, one after another in the byte source; the
+  // samples of a scan (libtiff's samples_per_pixel_per_plane).
+  const uint32_t nall = nstrips * (planes ? spp : 1), per = planes ? 1 : spp;
+  if (planes && c.tiles)  // PIL reads them through the RGBA reader's gtTileSeparate
+    unsupported("YCbCr old-style JPEG-in-TIFF in planes and tiles");
   if (ycc && photometric != 6 && photometric != 2)  // libtiff's OJPEG decoder fails (PIL refuses)
     corrupt("old-style JPEG-in-TIFF of 3 samples in photometric " + std::to_string(photometric));
   if (!ycc && photometric == 6)
@@ -5173,7 +5377,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
     }
   }
   const size_t jif_size = src.size();
-  for (uint32_t i = 0; i < nstrips; ++i) {
+  for (uint32_t i = 0; i < nall; ++i) {
     const size_t off = c.offsets[i];
     if (off != 0 && off < fsize) {
       size_t cnt = c.counts[i];
@@ -5288,9 +5492,10 @@ struct OJpegTags {  // IFD entries, 0 where absent
       }
       have_sof = true;
     } else if (m == 0xDA) {
-      if (word() != 6 + 2 * (int)spp || byte() != (int)spp)
+      if (!have_sof) corrupt("old-style JPEG-in-TIFF scan before its frame");
+      if (word() != 6 + 2 * (int)per || byte() != (int)per)
         corrupt("bad SOS in old-style JPEG-in-TIFF");
-      for (uint32_t k = 0; k < spp; ++k) {
+      for (uint32_t k = 0; k < per; ++k) {
         sos_cs[k] = byte();
         sos_tda[k] = byte();
       }
@@ -5340,36 +5545,53 @@ struct OJpegTags {  // IFD entries, 0 where absent
       }
     }
   }
-  // The stream libjpeg reads.
-  std::vector<uint8_t> s{0xFF, 0xD8};
-  for (auto* set : {qseg, dcseg, acseg})
-    for (int k = 0; k < 4; ++k) s.insert(s.end(), set[k].begin(), set[k].end());
-  if (restart) s.insert(s.end(), {0xFF, 0xDD, 0, 4, (uint8_t)(restart >> 8), (uint8_t)restart});
-  s.insert(s.end(), {0xFF, (uint8_t)sof_marker, 0, (uint8_t)(8 + 3 * spp), 8, (uint8_t)(sof_y >> 8),
-                     (uint8_t)sof_y, (uint8_t)(sof_x >> 8), (uint8_t)sof_x, (uint8_t)spp});
-  for (uint32_t k = 0; k < spp; ++k)
-    s.insert(s.end(), {(uint8_t)sof_c[k], (uint8_t)sof_hv[k], (uint8_t)sof_tq[k]});
-  s.insert(s.end(), {0xFF, 0xDA, 0, (uint8_t)(6 + 2 * spp), (uint8_t)spp});
-  for (uint32_t k = 0; k < spp; ++k) s.insert(s.end(), {(uint8_t)sos_cs[k], (uint8_t)sos_tda[k]});
-  s.insert(s.end(), {0, 63, 0});
-  // The scan: what the header left of the source, an RSTn after each
-  // strip's last bytes but the last strip's.
-  if (p < jif_size) s.insert(s.end(), src.begin() + p, src.begin() + jif_size);
-  for (uint32_t i = 0, rst = 0; i < nstrips; ++i) {
-    const size_t from = std::max(p, i ? strip_end[i - 1] : jif_size), to = strip_end[i];
-    if (from >= to) continue;
-    s.insert(s.end(), src.begin() + from, src.begin() + to);
-    if (i + 1 < nstrips) {
-      s.insert(s.end(), {0xFF, (uint8_t)(0xD0 + rst)});
-      rst = (rst + 1) & 7;
-    }
-  }
-  // libtiff writes EOI once it has handed on the last strile's bytes; when
-  // that strile has none (no offset, or one past the end of the file), the
-  // stream ends after the previous strile's RSTn.
-  const size_t last_off = nstrips ? c.offsets[nstrips - 1] : 0;
+  // The stream libjpeg reads of the scan of samples k0 .. k0 + n - 1 whose
+  // SOS ends at `from` in the source: the tables, the frame of those
+  // samples, their SOS, then what is left of the source, an RSTn after
+  // each strile's last bytes but the last strile's. libtiff writes EOI
+  // once it has handed on the last strile's bytes; when that strile has
+  // none (no offset, or one past the end of the file), the stream ends
+  // after the previous strile's RSTn.
+  const size_t last_off = nall ? c.offsets[nall - 1] : 0;
   const bool eoi = last_off != 0 && last_off < fsize;
-  if (eoi) s.insert(s.end(), {0xFF, 0xD9});
+  auto stream = [&](uint32_t k0, uint32_t n, size_t from) {
+    std::vector<uint8_t> s{0xFF, 0xD8};
+    for (auto* set : {qseg, dcseg, acseg})
+      for (int k = 0; k < 4; ++k) s.insert(s.end(), set[k].begin(), set[k].end());
+    if (restart) s.insert(s.end(), {0xFF, 0xDD, 0, 4, (uint8_t)(restart >> 8), (uint8_t)restart});
+    s.insert(s.end(), {0xFF, (uint8_t)sof_marker, 0, (uint8_t)(8 + 3 * n), 8, (uint8_t)(sof_y >> 8),
+                       (uint8_t)sof_y, (uint8_t)(sof_x >> 8), (uint8_t)sof_x, (uint8_t)n});
+    for (uint32_t k = k0; k < k0 + n; ++k)
+      s.insert(s.end(), {(uint8_t)sof_c[k], (uint8_t)sof_hv[k], (uint8_t)sof_tq[k]});
+    s.insert(s.end(), {0xFF, 0xDA, 0, (uint8_t)(6 + 2 * n), (uint8_t)n});
+    for (uint32_t k = k0; k < k0 + n; ++k) s.insert(s.end(), {(uint8_t)sos_cs[k], (uint8_t)sos_tda[k]});
+    s.insert(s.end(), {0, 63, 0});
+    if (from < jif_size) s.insert(s.end(), src.begin() + from, src.begin() + jif_size);
+    for (uint32_t i = 0, rst = 0; i < nall; ++i) {
+      const size_t a = std::max(from, i ? strip_end[i - 1] : jif_size), b = strip_end[i];
+      if (a >= b) continue;
+      s.insert(s.end(), src.begin() + a, src.begin() + b);
+      if (i + 1 < nall) {
+        s.insert(s.end(), {0xFF, (uint8_t)(0xD0 + rst)});
+        rst = (rst + 1) & 7;
+      }
+    }
+    if (eoi) s.insert(s.end(), {0xFF, 0xD9});
+    return s;
+  };
+  static const float kLuma[3] = {0.299f, 0.587f, 0.114f}, kRbw[6] = {0, 255, 128, 255, 128, 255};
+  const TiffYcc conv = ycc ? tiff_ycc(t, oj.coefficients, oj.refbw) : TiffYcc(kLuma, kRbw);
+  if (planes) {
+    // C.20: libtiff's RGBA reader takes YCbCr planes (gtStripSeparate) of
+    // 1 x 1 subsampling alone, as libtiff's codec corrects it from the
+    // stream's frame.
+    if (sub_h != 1 || sub_v != 1)
+      corrupt("old-style JPEG-in-TIFF planes of YCbCr subsampling libtiff's RGBA reader refuses");
+    ojpeg_planes(src, jif_size, strip_end, p, stream, sos_cs, sos_tda, sof_hv,
+                 (uint32_t)sof_y, !eoi, restart, rps, down, conv, g);
+    return;
+  }
+  const std::vector<uint8_t> s = stream(0, spp, p);
   // A stop in a strip fails its read: PIL refuses the file, unless it is
   // the last strip of YCbCr, which libtiff's RGBA reader takes with the
   // rows from the stopped MCU row on left zero (Y = Cb = Cr = 0). Tiles
@@ -5397,8 +5619,6 @@ struct OJpegTags {  // IFD entries, 0 where absent
               "data (libtiff stops there)");
   }
   const Component* cp = jp.comp;
-  static const float kLuma[3] = {0.299f, 0.587f, 0.114f}, kRbw[6] = {0, 255, 128, 255, 128, 255};
-  const TiffYcc conv = ycc ? tiff_ycc(t, oj.coefficients, oj.refbw) : TiffYcc(kLuma, kRbw);
   if (ycc && desub)
     corrupt("old-style JPEG-in-TIFF of a sampling libtiff leaves to libjpeg (PIL refuses it)");
   if (ycc && !rgba_subsampling(sub_h, sub_v))
@@ -5735,6 +5955,11 @@ void estimate_counts(const Tiff& t, size_t first, uint64_t count, TiffDir& dir) 
   dir.lt_fmt = q.fmt && libtiff_ints(t, q.fmt) ? t.values(q.fmt).at(0) : 1;
   dir.lt_bps = q.bps ? t.values(q.bps).at(0) : 1;
   dir.lt_planar = q.planar ? t.values(q.planar).at(0) : 1;
+  // tif_dirread.c's old-style JPEG hack: planes whose StripOffsets and
+  // StripByteCounts hold one value each are read as contiguous samples.
+  if (dir.lt_compression == 6 && dir.lt_planar == 2 && q.soff && q.scnt &&
+      t.entry(q.soff).count == 1 && t.entry(q.scnt).count == 1)
+    dir.lt_planar = 1;
   dir.lt_cmap = q.cmap && dir.lt_bps <= 24 && t.entry(q.cmap).count == (3ull << dir.lt_bps);
   dir.predictor = dropped(q.pred, 1);
   dir.codec_fill = dropped(q.fill, 1);
@@ -6249,8 +6474,6 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
 
   const bool ojpeg = compression == 6;
   const bool planes = spp > 1 && planar == 2;
-  if (ojpeg && planes && photometric == 6)  // libtiff's OJPEG codec refuses it
-    corrupt("YCbCr TIFF of JPEG in planes");
   // JPEG-in-TIFF as libtiff decodes it for PIL (a tag given twice: each
   // side its own entries). libjpeg converts YCbCr to RGB where libtiff's
   // photometric says YCbCr (PIL's decoder asks for JPEGCOLORMODE_RGB),
@@ -6377,7 +6600,7 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   if (jpeg_whole || ojpeg) {
     const bool sub = dir.ycbcr_sub.size() >= 2;
     const Chunks chunks{offsets, dir.counts, cw, ch, tiles, sub ? (int)dir.ycbcr_sub[0] : 0,
-                        sub ? (int)dir.ycbcr_sub[1] : 0};
+                        sub ? (int)dir.ycbcr_sub[1] : 0, planes};
     if (jpeg)
       jpeg_tiff(t, dir.jpeg_tables, lt_photo, spp, chunks, g);
     else
@@ -6614,6 +6837,904 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
   return g;
 }
 
+// ---------------------------------------------------------- Netpbm (A.6.29)
+//
+// PIL's PpmImagePlugin: P1-P6 plain and raw, Pf, and Pillow's own P0CMYK,
+// PyP, PyRGBA and PyCMYK headers. A header token is read to whitespace, 10
+// bytes at most, a comment (# to CR, LF or the end) skipped wherever it
+// starts; its numbers are Python's int() and float(). A sample is scaled to
+// the mode's range as Python rounds (half to even); a plain one past maxval,
+// and samples that end early, are refused.
+
+inline bool pnm_space(int c) { return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r'; }
+inline bool pnm_digit(int c) { return c >= '0' && c <= '9'; }
+
+// Python's int() of a token of at most 10 ASCII bytes: a sign, then digits
+// with single underscores between them. False where Python raises.
+bool py_int(const char* t, size_t n, int64_t& v) {
+  size_t i = 0;
+  const bool neg = n && t[0] == '-';
+  if (n && (t[0] == '+' || t[0] == '-')) ++i;
+  if (i >= n) return false;
+  int64_t x = 0;
+  for (; i < n; ++i) {
+    if (t[i] == '_' && i > 0 && pnm_digit(t[i - 1]) && i + 1 < n && pnm_digit(t[i + 1])) continue;
+    if (!pnm_digit(t[i])) return false;
+    x = x * 10 + (t[i] - '0');
+  }
+  v = neg ? -x : x;
+  return true;
+}
+bool py_int(const std::string& t, int64_t& v) { return py_int(t.data(), t.size(), v); }
+
+// Python's float() of a token: a sign, then digits (underscores between
+// them) with a point and an exponent, or inf, infinity or nan in any case.
+bool py_float(const std::string& t, double& v) {
+  std::string s;
+  size_t i = 0;
+  if (i < t.size() && (t[i] == '+' || t[i] == '-')) s += t[i++];
+  std::string word;
+  for (size_t k = i; k < t.size(); ++k) word += (char)tolower((unsigned char)t[k]);
+  if (word == "inf" || word == "infinity" || word == "nan") {
+    v = word == "nan" ? NAN : (s == "-" ? -INFINITY : INFINITY);
+    return true;
+  }
+  int digits = 0, mant = 0;
+  bool point = false, exp = false;
+  for (; i < t.size(); ++i) {
+    const char c = t[i];
+    if (c == '_') {
+      if (!(i > 0 && pnm_digit(t[i - 1]) && i + 1 < t.size() && pnm_digit(t[i + 1]))) return false;
+      continue;
+    }
+    if (pnm_digit(c)) {
+      ++digits;
+      if (!exp) ++mant;
+    } else if (c == '.' && !point && !exp) {
+      point = true;
+    } else if ((c == 'e' || c == 'E') && !exp && mant) {
+      exp = true;
+      digits = 0;
+      if (i + 1 < t.size() && (t[i + 1] == '+' || t[i + 1] == '-')) s += t[++i] == '+' ? "e+" : "e-";
+      else s += 'e';
+      continue;
+    } else {
+      return false;
+    }
+    s += c;
+  }
+  if (!mant || (exp && !digits)) return false;
+  v = strtod(s.c_str(), nullptr);
+  return true;
+}
+
+struct Pnm {
+  int kind = 0;  // '1'-'6': P1-P6; 'f': Pf; 'C': P0CMYK or PyCMYK; 'P': PyP; 'A': PyRGBA
+  int64_t w = 0, h = 0, maxval = 255;
+  double scale = 0;
+  size_t data = 0;  // where the samples begin
+};
+
+// Whether PIL's PpmImagePlugin takes the file (false: it raises
+// SyntaxError, and Image.open tries the next plugin); throws where its
+// header raises ValueError.
+bool pnm_head(const uint8_t* d, size_t n, Pnm& p) {
+  size_t pos = 0;
+  std::string magic;
+  for (int i = 0; i < 6 && pos < n; ++i) {
+    const int c = d[pos++];
+    if (pnm_space(c)) break;
+    magic += (char)c;
+  }
+  static const struct { const char* m; int kind; } kMagic[] = {
+      {"P1", '1'}, {"P2", '2'}, {"P3", '3'}, {"P4", '4'}, {"P5", '5'}, {"P6", '6'},
+      {"P0CMYK", 'C'}, {"Pf", 'f'}, {"PyP", 'P'}, {"PyRGBA", 'A'}, {"PyCMYK", 'C'}};
+  for (const auto& k : kMagic)
+    if (magic == k.m) p.kind = k.kind;
+  if (!p.kind) return false;
+  auto token = [&]() {
+    std::string t;
+    while (t.size() <= 10 && pos < n) {
+      const int c = d[pos++];
+      if (pnm_space(c)) {
+        if (t.empty()) continue;
+        break;
+      }
+      if (c == '#') {
+        while (pos < n && d[pos] != '\r' && d[pos] != '\n') ++pos;
+        if (pos < n) ++pos;
+        continue;
+      }
+      t += (char)c;
+    }
+    if (t.empty()) corrupt("Netpbm header ends early");
+    if (t.size() > 10) corrupt("Netpbm header token too long");
+    return t;
+  };
+  if (!py_int(token(), p.w) || !py_int(token(), p.h)) corrupt("Netpbm size not a number");
+  if (p.kind == 'f') {
+    if (!py_float(token(), p.scale)) corrupt("Netpbm scale not a number");
+    if (p.scale == 0.0 || !std::isfinite(p.scale)) corrupt("Netpbm scale zero or not finite");
+  } else if (p.kind != '1' && p.kind != '4') {
+    if (!py_int(token(), p.maxval)) corrupt("Netpbm maxval not a number");
+    if (p.maxval <= 0 || p.maxval >= 65536) corrupt("Netpbm maxval not 1 .. 65535");
+  }
+  p.data = pos;
+  return p.w > 0 && p.h > 0;  // ImageFile: no pixels is no image of this plugin
+}
+
+// PIL's plain decoders read the samples a SAFEBLOCK (1 MiB) at a time and
+// drop comments, # to the first CR or LF, block by block.
+struct PnmBlocks {
+  const uint8_t* d;
+  size_t n, pos;
+  bool spans = false;  // a comment runs on into the next block
+  static constexpr size_t kBlock = 1 << 20;
+  std::string read() {
+    const size_t k = std::min(kBlock, n - pos);
+    std::string b((const char*)d + pos, k);
+    pos += k;
+    return b;
+  }
+  static long comment_end(const std::string& b, size_t from) {  // as PpmPlainDecoder finds it
+    const size_t a = b.find('\n', from), c = b.find('\r', from);
+    const long x = a == std::string::npos ? -1 : (long)a, y = c == std::string::npos ? -1 : (long)c;
+    return x * y > 0 ? std::min(x, y) : std::max(x, y);
+  }
+  std::string uncomment(std::string b) {
+    if (spans) {
+      while (!b.empty()) {
+        const long e = comment_end(b, 0);
+        if (e != -1) {
+          b.erase(0, e + 1);
+          break;
+        }
+        b = read();
+      }
+    }
+    spans = false;
+    for (;;) {
+      const size_t s = b.find('#');
+      if (s == std::string::npos) break;
+      const long e = comment_end(b, s);
+      if (e != -1) {
+        b.erase(s, e + 1 - s);
+      } else {
+        b.erase(s);
+        spans = true;
+        break;
+      }
+    }
+    return b;
+  }
+};
+
+inline int py_round(double x) { return (int)std::nearbyint(x); }
+
+Gray decode_pnm(const uint8_t* d, size_t n, const Pnm& p) {
+  check_size(p.w, p.h);
+  Gray g;
+  g.w = (int)p.w;
+  g.h = (int)p.h;
+  const size_t px = (size_t)p.w * p.h;
+  g.px.resize(px);
+  const uint8_t* s = d + p.data;
+  const size_t left = n - p.data;
+  auto short_data = [] { corrupt("Netpbm samples end early (PIL refuses the file)"); };
+  if (p.kind == '4') {  // raw 1;I: a set bit is black
+    const size_t stride = ((size_t)p.w + 7) / 8;
+    if (left < stride * p.h) short_data();
+    for (int64_t y = 0; y < p.h; ++y)
+      for (int64_t x = 0; x < p.w; ++x)
+        g.px[y * p.w + x] = (s[y * stride + (x >> 3)] >> (7 - (x & 7))) & 1 ? 0 : 255;
+    return g;
+  }
+  if (p.kind == 'f') {  // F;32F (scale < 0) or F;32BF, the bottom row first; F -> L truncates
+    if (left / 4 < px) short_data();
+    for (int64_t y = 0; y < p.h; ++y)
+      for (int64_t x = 0; x < p.w; ++x) {
+        const uint8_t* q = s + 4 * ((p.h - 1 - y) * p.w + x);
+        const uint32_t u = p.scale < 0 ? q[0] | q[1] << 8 | q[2] << 16 | (uint32_t)q[3] << 24
+                                       : (uint32_t)q[0] << 24 | q[1] << 16 | q[2] << 8 | q[3];
+        float f;
+        memcpy(&f, &u, 4);
+        g.px[y * p.w + x] = f <= 0.0f || f != f ? 0 : f >= 255.0f ? 255 : (uint8_t)f;
+      }
+    return g;
+  }
+  if (p.kind == '5' && p.maxval == 255) {  // raw L
+    if (left < px) short_data();
+    memcpy(g.px.data(), s, px);
+    return g;
+  }
+  const int bands = p.kind == '3' || p.kind == '6' ? 3 : p.kind == 'C' || p.kind == 'A' ? 4 : 1;
+  const bool grey_i = (p.kind == '2' || p.kind == '5') && p.maxval > 255;  // PIL's mode I
+  const int out_max = grey_i ? 65535 : 255;
+  std::vector<int> v((size_t)px * bands);
+  if (p.kind == '1') {  // plain bitonal: every character 0 or 1, 0 white
+    PnmBlocks b{d, n, p.data};
+    size_t k = 0;
+    while (k != px) {
+      std::string blk = b.read();
+      if (blk.empty()) break;
+      blk = b.uncomment(blk);
+      for (char c : blk) {
+        if (pnm_space((unsigned char)c)) continue;
+        if (c != '0' && c != '1') corrupt("Netpbm P1 sample not 0 or 1");
+        if (k < px) v[k++] = c == '0' ? 255 : 0;
+      }
+    }
+    if (k != px) short_data();
+    for (size_t i = 0; i < px; ++i) g.px[i] = (uint8_t)v[i];
+    return g;
+  }
+  if (p.kind == '2' || p.kind == '3') {  // plain: tokens of at most 10 bytes
+    PnmBlocks b{d, n, p.data};
+    size_t k = 0;
+    const size_t total = v.size();
+    std::string half;
+    while (k != total) {
+      std::string blk = b.read();
+      if (blk.empty()) {
+        if (half.empty()) break;
+        blk = " ";
+      }
+      blk = b.uncomment(blk);
+      blk = half + blk;
+      half.clear();
+      std::vector<std::pair<size_t, size_t>> toks;  // (start, length) in blk
+      for (size_t i = 0; i < blk.size();) {
+        while (i < blk.size() && pnm_space((unsigned char)blk[i])) ++i;
+        size_t j = i;
+        while (j < blk.size() && !pnm_space((unsigned char)blk[j])) ++j;
+        if (j > i) toks.emplace_back(i, j - i);
+        i = j;
+      }
+      if (!blk.empty() && !pnm_space((unsigned char)blk.back())) {
+        half = blk.substr(toks.back().first);
+        toks.pop_back();
+        if (half.size() > 10) corrupt("Netpbm sample token too long");
+      }
+      for (const auto& [at, len] : toks) {
+        int64_t x;
+        if (len > 10) corrupt("Netpbm sample token too long");
+        if (!py_int(blk.data() + at, len, x)) corrupt("Netpbm sample not a number");
+        if (x < 0) corrupt("Netpbm sample negative");
+        if (x > p.maxval) corrupt("Netpbm sample past maxval");
+        v[k++] = py_round((double)x / (double)p.maxval * out_max);
+        if (k == total) break;
+      }
+    }
+    if (k != total) short_data();
+  } else {  // raw, '5', '6', 'C', 'P', 'A'
+    const int in = p.maxval < 256 ? 1 : 2;
+    if (left / ((size_t)in * bands) < px) short_data();
+    const bool straight = p.maxval == 255 || (p.maxval == 65535 && p.kind == '5');
+    for (size_t i = 0; i < v.size(); ++i) {
+      const int x = in == 1 ? s[i] : s[2 * i] << 8 | s[2 * i + 1];
+      v[i] = straight ? x : std::min(out_max, py_round((double)x / (double)p.maxval * out_max));
+    }
+  }
+  for (size_t i = 0; i < px; ++i) {
+    const int* q = &v[i * bands];
+    switch (p.kind) {
+      case '2': case '5': g.px[i] = (uint8_t)std::min(q[0], 255); break;  // L, or I clipped
+      case '3': case '6': case 'A': g.px[i] = luma(q[0], q[1], q[2]); break;
+      case 'C': g.px[i] = cmyk_luma(q[0], q[1], q[2], q[3]); break;
+      default: g.px[i] = 0; break;  // PyP: P without a palette reads black
+    }
+  }
+  return g;
+}
+
+// --------------------------------------------------------------- GIF (A.6.28)
+//
+// The first frame as PIL's GifImagePlugin and GifDecode.c read it: the
+// extensions before its image descriptor skipped (a graphic control
+// extension's transparency index taken when its flag is set), its local
+// table or the global one (mode L where there is none, or where it is the
+// identity ramp, the indices then the grey; else P, an index past the table
+// black), a canvas of the logical screen grown to hold the frame, filled
+// with the transparency index or 0, then the LZW codes (Pillow's decoder:
+// a code past the next free one or a first code past the clear code is
+// refused, the code table stops growing at 4096 entries, a clear code
+// after a clear is ignored) written in the frame's rows, interlaced in four
+// passes, until the frame is full. Data that ends first is refused, as PIL
+// refuses it ("image file is truncated"). EOI only ends a call of the
+// decoder: PIL hands it the file 64 KB at a time from the frame's data on,
+// and calls it again, with the codes after EOI, while the file holds more.
+Gray decode_gif(const uint8_t* d, size_t n) {
+  if (n < 11) corrupt("GIF header ends early");
+  size_t pos = std::min<size_t>(13, n);
+  int64_t W = le16(d + 6), H = le16(d + 8);
+  const int flags = d[10];
+  // GifImageFile._is_palette_needed: a table that is not i, i, i for every
+  // entry it holds; a partial entry that matches so far raises.
+  auto needed = [](const uint8_t* p, size_t len) {
+    for (size_t i = 0; i < len; i += 3) {
+      if (p[i] != i / 3) return true;
+      if (i + 1 >= len) corrupt("GIF colour table ends early");
+      if (p[i + 1] != p[i]) return true;
+      if (i + 2 >= len) corrupt("GIF colour table ends early");
+      if (p[i + 2] != p[i]) return true;
+    }
+    return false;
+  };
+  const uint8_t* global = nullptr;
+  size_t global_len = 0;
+  if (flags & 128) {
+    if (n < 12) corrupt("GIF header ends early");
+    const size_t len = std::min((size_t)3 << ((flags & 7) + 1), n - pos);
+    if (needed(d + pos, len)) {
+      global = d + pos;
+      global_len = len;
+    }
+    pos += len;
+  }
+  auto byte = [&]() -> int { return pos < n ? d[pos++] : -1; };
+  // GifImageFile.data: a sub-block (nullptr for a 0 length or the end),
+  // its bytes as many as the file holds.
+  auto block = [&](size_t& len) -> const uint8_t* {
+    const int c = byte();
+    if (c <= 0) return nullptr;
+    len = std::min((size_t)c, n - pos);
+    const uint8_t* b = d + pos;
+    pos += len;
+    return b;
+  };
+  int transparency = -1;
+  int64_t x0 = 0, y0 = 0, fw = 0, fh = 0;
+  bool interlace = false, have_frame = false;
+  const uint8_t* table = global;
+  size_t table_len = global_len;
+  int bits = 0;
+  for (int s = byte(); s >= 0 && s != ';'; s = byte()) {
+    if (s == '!') {
+      const int label = byte();
+      if (label < 0) corrupt("GIF extension ends early");
+      size_t len = 0;
+      const uint8_t* b = block(len);
+      if (label == 0xF9 && b) {
+        if (len < 1) corrupt("GIF graphic control extension ends early");
+        if (b[0] & 1) {
+          if (len < 4) corrupt("GIF graphic control extension ends early");
+          transparency = b[3];
+        }
+        if (len < 3) corrupt("GIF graphic control extension ends early");
+      } else if (label == 0xFE) {
+        while (b) b = block(len);
+        continue;
+      } else if (label == 0xFF && b && len >= 11 && !memcmp(b, "NETSCAPE2.0", 11)) {
+        block(len);  // its loop count, or the terminator: the sub-blocks then run on past it
+      }
+      while (block(len) && len) {
+      }
+    } else if (s == ',') {
+      if (n - pos < 9) corrupt("GIF image descriptor ends early");
+      const uint8_t* q = d + pos;
+      pos += 9;
+      x0 = le16(q);
+      y0 = le16(q + 2);
+      fw = le16(q + 4);
+      fh = le16(q + 6);
+      W = std::max(W, x0 + fw);
+      H = std::max(H, y0 + fh);
+      if (W * H > kMaxPixels) corrupt("GIF larger than PIL's decompression-bomb limit");
+      interlace = q[8] & 64;
+      if (q[8] & 128) {
+        const size_t len = std::min((size_t)3 << ((q[8] & 7) + 1), n - pos);
+        const bool need = needed(d + pos, len);
+        table = need ? d + pos : nullptr;
+        table_len = need ? len : 0;
+        pos += len;
+      }
+      bits = byte();
+      if (bits < 0) corrupt("GIF image ends before its LZW code size");
+      have_frame = true;
+      break;
+    }
+  }
+  if (!have_frame) corrupt("GIF without an image");
+  check_size(W, H);
+  if (bits > 12) corrupt("GIF LZW code size past 12 (PIL's decoder refuses it)");
+  if (x0 == 0 && fw == 0) {  // decode.c's setimage: extents (0, y0, 0, y1) are the whole image
+    y0 = 0;
+    fw = W;
+    fh = H;
+  }
+  if (fw <= 0 || fh <= 0) corrupt("GIF frame of no pixels (PIL: tile cannot extend outside image)");
+  // The frame's indices on the canvas; then the palette's grey (L: as is).
+  std::vector<uint8_t> idx((size_t)W * H, (uint8_t)(transparency < 0 ? 0 : transparency));
+  constexpr int kTable = 4096;
+  std::vector<uint8_t> data(kTable), stack(kTable);
+  std::vector<uint16_t> link(kTable);
+  const int clear = 1 << bits, end = clear + 1;
+  int next = 0, codesize = 0, codemask = 0, lastdata = 0, lastcode = 0, state = 1;
+  uint32_t bitbuf = 0;
+  int bitcount = 0, blocksize = 0;
+  int64_t x = 0, y = 0, step = interlace ? 8 : 1, pass = interlace ? 1 : 0;
+  const size_t data_at = pos;  // the tile's offset, where PIL's reads begin
+  uint8_t* out = &idx[(size_t)y0 * W + x0];
+  bool full = false;
+  // NEWLINE: the next row of the pass, the next pass past the frame's foot.
+  auto newline = [&]() {
+    x = 0;
+    y += step;
+    while (y >= fh) {
+      if (pass == 1) {
+        y = 4;
+        pass = 2;
+      } else if (pass == 2) {
+        step = 4;
+        y = 2;
+        pass = 3;
+      } else if (pass == 3) {
+        step = 2;
+        y = 1;
+        pass = 0;
+      } else {
+        full = true;
+        return;
+      }
+    }
+    out = &idx[(size_t)(y0 + y) * W + x0];
+  };
+  while (!full) {
+    if (state == 1) {
+      next = clear + 2;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      state = 2;
+    }
+    while (bitcount < codesize) {
+      if (blocksize > 0) {
+        bitbuf |= (uint32_t)d[pos++] << bitcount;
+        bitcount += 8;
+        --blocksize;
+      } else {  // a sub-block is decoded only once the file holds all of it
+        if (pos >= n || n - pos < (size_t)d[pos] + 1)
+          corrupt("GIF image data ends before EOI (PIL: image file is truncated)");
+        blocksize = d[pos++];
+      }
+    }
+    int c = (int)(bitbuf & codemask);
+    bitbuf >>= codesize;
+    bitcount -= codesize;
+    if (c == clear) {
+      if (state != 2) state = 1;
+      continue;
+    }
+    if (c == end) {  // the call ends; the next one, with PIL's next 64 KB, goes on
+      const size_t handed = data_at + ((pos + blocksize - data_at + kPilBlock - 1) / kPilBlock) * kPilBlock;
+      if (handed >= n) corrupt("GIF frame ends before its pixels (PIL: image file is truncated)");
+      continue;
+    }
+    const uint8_t* p;
+    int len = 1;
+    uint8_t one;
+    if (state == 2) {
+      if (c > clear) corrupt("GIF LZW code past the clear code after a clear");
+      lastdata = lastcode = c;
+      one = (uint8_t)c;
+      p = &one;
+      state = 3;
+    } else {
+      const int thiscode = c;
+      if (c > next) corrupt("GIF LZW code past the next free code");
+      int at = kTable;
+      if (c == next) {
+        stack[--at] = (uint8_t)lastdata;
+        c = lastcode;
+      }
+      while (c >= clear) {
+        stack[--at] = data[c];
+        c = link[c];
+      }
+      stack[--at] = (uint8_t)c;
+      lastdata = c;
+      if (next < kTable) {
+        data[next] = (uint8_t)c;
+        link[next] = (uint16_t)lastcode;
+        if (next == codemask && codesize < 12) {
+          ++codesize;
+          codemask = (1 << codesize) - 1;
+        }
+        ++next;
+      }
+      lastcode = thiscode;
+      p = &stack[at];
+      len = kTable - at;
+    }
+    for (int k = 0; k < len && !full; ++k) {
+      *out++ = p[k];
+      if (++x >= fw) newline();
+    }
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize(idx.size());
+  if (!table) {
+    g.px = std::move(idx);
+    return g;
+  }
+  uint8_t grey[256] = {0};
+  for (size_t i = 0; i < table_len / 3; ++i) grey[i] = luma(table[3 * i], table[3 * i + 1], table[3 * i + 2]);
+  for (size_t i = 0; i < idx.size(); ++i) g.px[i] = grey[idx[i]];
+  return g;
+}
+
+// ------------------------------------------------ PIL's other formats (C.21)
+//
+// Image.open tries Pillow 12.1.0's plugins in Image.ID's order: preinit's
+// (BMP, DIB, GIF, JPEG, PPM, PNG), then the rest as init imports them. A
+// plugin whose _accept takes the file's first 16 bytes opens it; an _open
+// that raises SyntaxError (IndexError, TypeError, KeyError, EOFError and
+// struct.error become one) passes the file on to the next plugin, any
+// other exception fails Image.open. IM, IMT, IPTC, PCD, SPIDER and TGA have
+// no _accept: their _open's checks decide. `pil_format` is the format PIL
+// opens a file as, by those rules, for the kinds the port does not read by
+// its own magic (PNG, JPEG, BMP, TIFF and GIF come first and keep their
+// routes): PPM is read here (A.6.29); the stubs with no decoder in PIL
+// (BUFR, GRIB, HDF5, WMF), MPEG (no tile) and EPS (Ghostscript) are
+// corrupt, as PIL refuses their pixels; every other raises naming A.6. The
+// checks go as deep as each _open's header; a damaged file of a format
+// PIL opens raises naming A.6 even where PIL would then refuse its pixels.
+
+inline uint32_t be16(const uint8_t* p) { return p[0] << 8 | p[1]; }
+inline uint32_t be32(const uint8_t* p) { return (uint32_t)p[0] << 24 | p[1] << 16 | p[2] << 8 | p[3]; }
+inline bool starts(const uint8_t* d, size_t n, const char* m, size_t k) { return n >= k && !memcmp(d, m, k); }
+
+// ImImagePlugin: a text header of "Key: value" lines, at least one key of
+// its TAGS, ended by NUL or ^Z, then ^Z before the pixels.
+bool im_header(const uint8_t* d, size_t n) {
+  if (!memchr(d, '\n', std::min<size_t>(n, 100))) return false;
+  static const char* kTags[] = {"Comment", "Date", "Digitalization equipment", "File size (no of images)",
+                                "Lut", "Name", "Scale (x,y)", "Image size (x*y)", "Image type"};
+  size_t pos = 0;
+  int tags = 0, c = -1;
+  while (pos < n) {
+    c = d[pos++];
+    if (c == '\r') continue;
+    if (c == 0 || c == 0x1A) break;
+    const size_t start = pos - 1;
+    while (pos < n && d[pos - 1] != '\n') ++pos;
+    std::string line((const char*)d + start, pos - start);
+    c = -1;
+    if (line.size() > 100) return false;
+    if (line.size() >= 2 && line.compare(line.size() - 2, 2, "\r\n") == 0) line.resize(line.size() - 2);
+    else if (!line.empty() && line.back() == '\n') line.pop_back();
+    const size_t colon = line.find(':');
+    if (line.empty() || !isalpha((unsigned char)line[0]) || colon == std::string::npos ||
+        line.find('\n') != std::string::npos)
+      return false;
+    for (const char* k : kTags) tags += line.compare(0, colon, k) == 0;
+  }
+  if (!tags) return false;
+  while (c != 0x1A) {  // the pixels start after ^Z
+    if (pos >= n) return false;
+    c = d[pos++];
+  }
+  return true;
+}
+
+// XbmImagePlugin's xbm_head in the first 512 bytes: whitespace, a line
+// "#define <name>_width N", a line "#define <name>_height N", then
+// "_bits[]" anywhere after.
+bool xbm_header(const uint8_t* d, size_t n) {
+  const std::string s((const char*)d, std::min<size_t>(n, 512));
+  size_t k = 0;
+  while (k < s.size() && isspace((unsigned char)s[k])) ++k;
+  if (k > 9) return false;  // _accept: "#define" within the first 16 bytes
+  auto define = [&](size_t& at, const char* what) {
+    if (s.compare(at, 7, "#define") != 0) return false;
+    at += 7;
+    if (at >= s.size() || (s[at] != ' ' && s[at] != '\t')) return false;
+    const size_t eol = s.find_first_of("\r\n", at);
+    if (eol == std::string::npos) return false;
+    size_t e = eol;  // the line ends in <what>[ \t]+[0-9]+
+    while (e > at && isdigit((unsigned char)s[e - 1])) --e;
+    if (e == eol) return false;
+    size_t b = e;
+    while (b > at && (s[b - 1] == ' ' || s[b - 1] == '\t')) --b;
+    const size_t w = strlen(what);
+    if (b == e || b < at + 1 + w || s.compare(b - w, w, what) != 0) return false;
+    at = eol;
+    while (at < s.size() && (s[at] == '\r' || s[at] == '\n')) ++at;
+    return true;
+  };
+  size_t at = k;
+  return define(at, "_width") && define(at, "_height") && s.find("_bits[]", at) != std::string::npos;
+}
+
+// ImtImagePlugin: "width N", "height N" and "pixel n8" lines.
+bool imt_header(const uint8_t* d, size_t n) {
+  if (!memchr(d, '\n', std::min<size_t>(n, 100))) return false;
+  std::string buf((const char*)d, std::min<size_t>(n, 100));
+  size_t pos = buf.size();
+  int64_t w = 0, h = 0;
+  bool grey = false;
+  for (;;) {
+    std::string s;
+    if (!buf.empty()) {
+      s = buf.substr(0, 1);
+      buf.erase(0, 1);
+    } else if (pos < n) {
+      s = std::string(1, (char)d[pos++]);
+    }
+    if (s.empty() || s[0] == 0x0C) break;
+    if (buf.find('\n') == std::string::npos) {
+      const size_t k = std::min<size_t>(100, n - pos);
+      buf.append((const char*)d + pos, k);
+      pos += k;
+    }
+    const size_t nl = buf.find('\n');
+    s += buf.substr(0, nl);
+    buf = nl == std::string::npos ? std::string() : buf.substr(nl + 1);
+    if (s.size() == 1 || s.size() > 100) break;
+    if (s[0] == '*') continue;
+    size_t k = 0;  // ([a-z]*) ([^ \r\n]*)
+    while (k < s.size() && s[k] >= 'a' && s[k] <= 'z') ++k;
+    if (k >= s.size() || s[k] != ' ') break;
+    const std::string key = s.substr(0, k);
+    size_t e = k + 1;
+    while (e < s.size() && s[e] != ' ' && s[e] != '\r' && s[e] != '\n') ++e;
+    const std::string v = s.substr(k + 1, e - k - 1);
+    int64_t x;
+    if (key == "width" || key == "height") {
+      if (!py_int(v, x)) corrupt("IMT size not a number");
+      (key == "width" ? w : h) = x;
+    } else if (key == "pixel" && v == "n8") {
+      grey = true;
+    }
+  }
+  return grey && w > 0 && h > 0;
+}
+
+// IptcImagePlugin: 0x1C records to the image record (8, 10), with the
+// layers (3, 60), size (3, 20), (3, 30) and compression (3, 120) it needs.
+bool iptc_header(const uint8_t* d, size_t n) {
+  size_t pos = 0;
+  struct Rec {
+    int count = 0;
+    const uint8_t* p = nullptr;
+    size_t len = 0;
+  } layers, w, h, comp;
+  for (;;) {
+    const size_t k = std::min<size_t>(5, n - pos);
+    const uint8_t* s = d + pos;
+    pos += k;
+    bool zero = true;
+    for (size_t i = 0; i < k; ++i) zero = zero && s[i] == 0;
+    if (zero) break;
+    if (k < 3) return false;
+    const int t0 = s[1], t1 = s[2];
+    if (s[0] != 0x1C || !((t0 >= 1 && t0 <= 9) || t0 == 240)) return false;
+    if (k < 4) return false;
+    size_t size = s[3];
+    if (size > 132) corrupt("IPTC field length past 132 (PIL refuses it)");
+    if (size == 128) {
+      size = 0;
+    } else if (size > 128) {
+      const size_t m = std::min(size - 128, n - pos);
+      size = 0;
+      for (size_t i = m > 4 ? m - 4 : 0; i < m; ++i) size = size << 8 | d[pos + i];
+      pos += m;
+    } else {
+      if (k < 5) return false;
+      size = be16(s + 3);
+    }
+    if (t0 == 8 && t1 == 10) break;
+    const size_t m = std::min(size, n - pos);
+    Rec* r = t0 == 3 && t1 == 60 ? &layers : t0 == 3 && t1 == 20 ? &w : t0 == 3 && t1 == 30 ? &h
+             : t0 == 3 && t1 == 120 ? &comp : nullptr;
+    if (r) *r = Rec{r->count + 1, size ? d + pos : nullptr, m};
+    pos += m;
+  }
+  auto getint = [](const Rec& r, int64_t& v) {  // PIL's getint: the last 4 bytes, big-endian
+    if (r.count != 1 || !r.p) return false;
+    v = 0;
+    for (size_t i = r.len > 4 ? r.len - 4 : 0; i < r.len; ++i) v = v << 8 | r.p[i];
+    return true;
+  };
+  if (layers.count != 1 || !layers.p || layers.len < 2) return false;
+  const int nl = layers.p[0], component = layers.p[1];
+  const bool mode = (nl == 1 && !component) || ((nl == 3 || nl == 4) && component);
+  int64_t x, y, c;
+  if (!getint(w, x) || !getint(h, y)) return false;
+  if (!getint(comp, c)) return false;
+  if (c != 1 && c != 5) corrupt("IPTC compression PIL does not know");
+  return mode && x > 0 && y > 0;
+}
+
+// SpiderImagePlugin: 27 floats, big-endian first, whose header fields are
+// whole numbers that agree (isSpiderHeader), of a 2D image (iform 1).
+bool spider_header(const uint8_t* d, size_t n) {
+  if (n < 108) return false;
+  static const double kForms[] = {1, 3, -11, -12, -21, -22};
+  for (int be = 1; be >= 0; --be) {
+    double h[28];
+    for (int i = 0; i < 27; ++i) {
+      const uint8_t* q = d + 4 * i;
+      const uint32_t u = be ? be32(q) : le32(q);
+      float f;
+      memcpy(&f, &u, 4);
+      h[i + 1] = f;
+    }
+    auto whole = [](double f) { return std::isfinite(f) && f == std::trunc(f); };
+    bool ok = true;
+    for (int i : {1, 2, 5, 12, 13, 22, 23}) ok = ok && whole(h[i]);
+    if (!ok || std::find(std::begin(kForms), std::end(kForms), h[5]) == std::end(kForms)) continue;
+    // labbyt = labrec * lenbyt: float32 whole numbers, exact in long double
+    if ((long double)h[22] != (long double)h[13] * (long double)h[23] || h[22] == 0) continue;
+    if (h[5] != 1) return false;
+    if (!std::isfinite(h[24]) || !std::isfinite(h[27])) corrupt("SPIDER stack fields not numbers");
+    const double stack = std::trunc(h[24]), number = std::trunc(h[27]);
+    if (!((stack == 0 && number == 0) || (stack > 0 && number == 0) || (stack == 0 && number > 0)))
+      return false;
+    return std::trunc(h[12]) > 0 && std::trunc(h[2]) > 0;
+  }
+  return false;
+}
+
+// PcxImagePlugin's header: a box of pixels and a mode it knows.
+int pcx_header(const uint8_t* d, size_t n) {  // 0: not PCX, 1: PCX, -1: PIL fails
+  if (n < 68 || d[0] != 10 || !(d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return 0;
+  if ((int)le16(d + 8) + 1 <= (int)le16(d + 4) || (int)le16(d + 10) + 1 <= (int)le16(d + 6)) return 0;
+  const int bits = d[3], planes = d[65], version = d[1];
+  const bool mode = (bits == 1 && (planes == 1 || planes == 2 || planes == 4)) ||
+                    (version == 5 && bits == 8 && (planes == 1 || planes == 3));
+  return mode ? 1 : -1;
+}
+
+// The format PIL's Image.open takes the file for, "" for none.
+std::string pil_format(const uint8_t* d, size_t n) {
+  auto st = [&](const auto& m) { return starts(d, n, m, sizeof m - 1); };  // a literal, NULs and all
+  const uint32_t l32 = n >= 4 ? le32(d) : 0;
+  // preinit's: BMP, JPEG, PNG and GIF are the port's own; DIB, PPM
+  for (uint32_t k : {12u, 40u, 52u, 56u, 64u, 108u, 124u})
+    if (n >= 4 && l32 == k) return "DIB";
+  if (n >= 2 && d[0] == 'P' && memchr("0123456fy", d[1], 9)) {
+    Pnm p;
+    if (pnm_head(d, n, p)) return "PPM";
+  }
+  // init's, in Image.ID's order
+  if (n >= 12 && !memcmp(d + 4, "ftyp", 4) &&
+      (!memcmp(d + 8, "avif", 4) || !memcmp(d + 8, "avis", 4) || !memcmp(d + 8, "mif1", 4) ||
+       !memcmp(d + 8, "msf1", 4)))
+    return "AVIF";
+  if (((st("BLP1") && n >= 28) || (st("BLP2") && n >= 20)) && le32(d + 12) && le32(d + 16)) return "BLP";
+  if (st("BUFR") || st("ZCZC")) return "BUFR";
+  if (st("\0\0\2\0") && n >= 6 && le16(d + 4) > 0) return "CUR";
+  if (const int pcx = pcx_header(d, n)) {
+    if (pcx < 0) corrupt("PCX of a mode PIL does not know (PIL refuses it)");
+    return "PCX";
+  }
+  if (n >= 8 && l32 == 987654321) {
+    const uint32_t at = le32(d + 4);
+    if (at && at < n) {
+      const int pcx = pcx_header(d + at, n - at);
+      if (pcx < 0) corrupt("DCX of a PCX mode PIL does not know (PIL refuses it)");
+      if (pcx) return "DCX";
+    }
+  }
+  if (st("DDS ")) {
+    if (n < 8 || le32(d + 4) != 124) corrupt("DDS header size not 124 (PIL refuses it)");
+    return "DDS";
+  }
+  if (st("%!PS") || l32 == 0xC6D3D0C5u) return "EPS";
+  if (st("SIMPLE")) {
+    std::string v((const char*)d + 8, std::min<size_t>(72, n > 8 ? n - 8 : 0));
+    v = v.substr(0, v.find('/'));
+    auto trim = [](std::string s) {
+      const size_t a = s.find_first_not_of(" \t\n\r\v\f"), b = s.find_last_not_of(" \t\n\r\v\f");
+      return a == std::string::npos ? std::string() : s.substr(a, b - a + 1);
+    };
+    v = trim(v);
+    if (!v.empty() && v[0] == '=') v = trim(v.substr(1));
+    if (n >= 80 && v == "T") return "FITS";
+  }
+  if (n >= 128 && (le16(d + 4) == 0xAF11 || le16(d + 4) == 0xAF12) && (le16(d + 14) == 0 || le16(d + 14) == 3)) {
+    bool zero = !d[20] && !d[21];
+    for (size_t i = 42; i < 80; ++i) zero = zero && !d[i];
+    for (size_t i = 88; i < 128; ++i) zero = zero && !d[i];
+    if (zero && le16(d + 8) > 0 && le16(d + 10) > 0) return "FLI";
+  }
+  if (st("FTEX") && n >= 32) {
+    if (le32(d + 20) != 1 || le32(d + 24) > 1) corrupt("FTEX of a layout PIL refuses");
+    return "FTEX";
+  }
+  if (n >= 20 && be32(d) >= 20 && (be32(d + 4) == 1 || be32(d + 4) == 2) && be32(d + 8) && be32(d + 12) &&
+      (be32(d + 16) == 1 || be32(d + 16) == 4) && (be32(d + 4) == 1 || (n >= 28 && !memcmp(d + 20, "GIMP", 4))))
+    return "GBR";
+  if (n >= 8 && st("GRIB") && d[7] == 1) return "GRIB";
+  if (st("\x89HDF\r\n\x1a\n")) return "HDF5";
+  if (st("\xff\x4f\xff\x51") || starts(d, n, "\0\0\0\x0cjP  \r\n\x87\n", 12)) return "JPEG2000";
+  if (st("icns")) return "ICNS";
+  if (st("\0\0\1\0") && n >= 6 && le16(d + 4)) return "ICO";
+  if (im_header(d, n)) return "IM";
+  if (imt_header(d, n)) return "IMT";
+  if (n && d[0] == 0x1C && iptc_header(d, n)) return "IPTC";
+  if (n >= 256 && starts(d, n, "\0\0\0\0\0\0\0\x04", 8)) {
+    const uint32_t depth = be32(d + 40);
+    if ((depth == 1 || depth == 2 || depth == 4) && be32(d + 36) > 0 && be32(d + 32) > 0) return "MCIDAS";
+  }
+  if (n >= 7 && st("\0\0\1\xb3") && (d[4] << 4 | d[5] >> 4) && ((d[5] & 15) << 8 | d[6])) return "MPEG";
+  if ((st("DanM") || st("LinS")) && n >= 32) {
+    uint32_t x = 0;
+    for (int i = 0; i < 32; i += 2) x ^= le16(d + i);
+    if (!x && le16(d + 4) && le16(d + 6)) return "MSP";
+  }
+  if (n >= 2048 + 1539 && !memcmp(d + 2048, "PCD_", 4)) return "PCD";
+  if (st("\x80\xe8\0\0") && n >= 428 && le16(d + 424) == 14 && le16(d + 426) == 2 && le16(d + 418) &&
+      le16(d + 416))
+    return "PIXAR";
+  if (st("8BPS") && n >= 26 && be16(d + 4) == 1) {
+    static const int kModes[][3] = {{0, 1, 1}, {0, 8, 1}, {1, 8, 1}, {2, 8, 1}, {3, 8, 3},
+                                    {4, 8, 4}, {7, 8, 1}, {8, 8, 1}, {9, 8, 3}};  // mode, bits, channels
+    for (const auto& m : kModes)
+      if ((int)be16(d + 24) == m[0] && (int)be16(d + 22) == m[1]) {
+        if (m[2] > (int)be16(d + 12)) corrupt("PSD of fewer channels than its mode (PIL refuses it)");
+        if (be32(d + 18) && be32(d + 14)) return "PSD";
+      }
+  }
+  if (st("qoif") && n >= 13 && be32(d + 4) && be32(d + 8)) return "QOI";
+  if (n >= 12 && be16(d) == 474) {
+    static const int kModes[][3] = {{1, 1, 1}, {1, 2, 1}, {2, 1, 1}, {2, 2, 1},
+                                    {1, 3, 3}, {2, 3, 3}, {1, 3, 4}, {2, 3, 4}};  // bpc, dimension, zsize
+    bool mode = false;
+    for (const auto& m : kModes) mode = mode || (d[3] == m[0] && (int)be16(d + 4) == m[1] && (int)be16(d + 10) == m[2]);
+    if (!mode) corrupt("SGI of a mode PIL does not know (PIL refuses it)");
+    if (be16(d + 6) && be16(d + 8)) return "SGI";
+  }
+  if (spider_header(d, n)) return "SPIDER";
+  if (n >= 32 && be32(d) == 0x59A66A95u) {
+    const uint32_t depth = be32(d + 12), type = be32(d + 20), ptype = be32(d + 24), plen = be32(d + 28);
+    if ((depth == 1 || depth == 4 || depth == 8 || depth == 24 || depth == 32) &&
+        (!plen || (plen <= 1024 && ptype == 1)) && type <= 5 && be32(d + 4) && be32(d + 8))
+      return "SUN";
+  }
+  if (n >= 18) {  // TgaImagePlugin
+    const int cmt = d[1], type = d[2], depth = d[16];
+    if ((cmt == 0 || cmt == 1) && le16(d + 12) && le16(d + 14) &&
+        (depth == 1 || depth == 8 || depth == 16 || depth == 24 || depth == 32) &&
+        (type == 1 || type == 2 || type == 3 || type == 9 || type == 10 || type == 11) &&
+        (!cmt || d[7] == 16 || d[7] == 24 || d[7] == 32))
+      return "TGA";
+  }
+  if (n >= 16 && st("RIFF") && !memcmp(d + 8, "WEBP", 4) &&
+      (!memcmp(d + 12, "VP8 ", 4) || !memcmp(d + 12, "VP8L", 4) || !memcmp(d + 12, "VP8X", 4)))
+    return "WebP";
+  if (st("\xd7\xcd\xc6\x9a\0\0") && n >= 16) {
+    if (!le16(d + 14)) corrupt("WMF of inch 0 (PIL refuses it)");
+    if (n >= 26 && !memcmp(d + 22, "\x01\0\t\0", 4)) return "WMF";
+  }
+  if (st("\x01\0\0\0") && n >= 44 && !memcmp(d + 40, " EMF", 4)) return "WMF";
+  if (xbm_header(d, n)) return "XBM";
+  if (st("/* XPM */")) {
+    // XpmImagePlugin: lines from byte 9 on until one opens with "W H C P
+    // (four runs of digits, each maybe empty, which int() then refuses).
+    for (size_t q = 9; q < n; q = (size_t)((const uint8_t*)memchr(d + q, '\n', n - q) - d) + 1) {
+      size_t k = q;
+      bool head = d[k] == '"', empty = false;
+      ++k;
+      for (int f = 0; f < 4 && head; ++f) {
+        const size_t a = k;
+        while (k < n && d[k] >= '0' && d[k] <= '9') ++k;
+        empty = empty || k == a;
+        if (f < 3) head = k < n && d[k++] == ' ';
+      }
+      if (head) {
+        if (empty) corrupt("XPM header of an empty number (PIL refuses it)");
+        return "XPM";
+      }
+      if (!memchr(d + q, '\n', n - q)) break;
+    }
+  }
+  if (st("P7 332")) return "XVThumb";
+  return "";
+}
+
 // --------------------------------------------------------------- dispatch
 
 int format_of(const uint8_t* d, size_t n) {
@@ -6626,8 +7747,22 @@ int format_of(const uint8_t* d, size_t n) {
     if (magic == 42 || magic == 43 || magic == 0x2A00) return 'T';
   }
   if (n >= 6 && (!memcmp(d, "GIF87a", 6) || !memcmp(d, "GIF89a", 6))) return 'G';
-  if (n >= 12 && !memcmp(d, "RIFF", 4) && !memcmp(d + 8, "WEBP", 4)) return 'W';
   return 0;
+}
+
+// Every other file: the format PIL opens it as (C.21).
+Gray decode_other(const uint8_t* d, size_t n) {
+  const std::string f = pil_format(d, n);
+  if (f.empty()) corrupt("not a recognised image file");
+  if (f == "PPM") {
+    Pnm p;
+    pnm_head(d, n, p);
+    return decode_pnm(d, n, p);
+  }
+  if (f == "BUFR" || f == "GRIB" || f == "HDF5" || f == "WMF" || f == "MPEG")
+    corrupt(f + " file, which PIL opens and has no decoder for");
+  if (f == "EPS") corrupt("EPS file, which PIL reads through Ghostscript alone");
+  unsupported(f + " image (PIL's " + f + " plugin opens the file, whatever its name)");
 }
 
 int decode_any(const uint8_t* d, size_t n, Gray& g, std::string& msg) {
@@ -6637,9 +7772,8 @@ int decode_any(const uint8_t* d, size_t n, Gray& g, std::string& msg) {
       case 'J': g = decode_jpeg(d, n); break;
       case 'B': g = decode_bmp(d, n); break;
       case 'T': g = decode_tiff(d, n); break;
-      case 'G': unsupported("GIF");
-      case 'W': unsupported("WebP");
-      default: corrupt("not a recognised image file");
+      case 'G': g = decode_gif(d, n); break;
+      default: g = decode_other(d, n);
     }
   } catch (const DecodeError& e) {
     msg = e.msg;

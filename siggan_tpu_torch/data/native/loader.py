@@ -1,11 +1,13 @@
 """ctypes binding of the port's host image decoder, ``decode.cpp``.
 
-The decoder reads JPEG, BMP and TIFF files (BigTIFF, LZMA, ZSTD, CCITT in tiles and old-style LZW among them) to 8-bit grey, as PIL's
+The decoder reads JPEG, BMP, TIFF (BigTIFF, LZMA, ZSTD, CCITT in tiles and
+old-style LZW among them), GIF and Netpbm files to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
 files are recognised and left to ``infer/export.py::decode_png``, which
 inflates their rows with zlib and undoes the row filters here
-(``png_unfilter``). The
-format comes from the file's first bytes, not from its name. The library
+(``png_unfilter``). The format comes from the file's bytes, not from its
+name, by the rules PIL's ``Image.open`` tries its plugins by: a file PIL
+opens as another format (ICO, TGA, PCX, ...) raises naming that format. The library
 also resizes (``resize_bilinear``: Pillow's ``L``-mode bilinear, bit-equal
 to ``data/resample.py``'s numpy version, which stays as the plain version);
 a ctypes call releases the interpreter lock, so threads resize in parallel. The library is
@@ -57,8 +59,11 @@ SOURCE = Path(__file__).with_name("decode.cpp")
 # JPEG-in-TIFF whose last strip or tile has no data read as libtiff reads
 # it (no EOI: a stop where libjpeg runs out), and YCbCr tiles after a stop
 # as PIL's RGBA reader takes them (C.17), so pixels change and files that
-# decoded become zero images.
-DECODE_VERSION = "d7"
+# decoded become zero images; d8: planar YCbCr old-style JPEG-in-TIFF read
+# as PIL reads it (C.20), a JPEG Huffman table with an all-ones code
+# corrupt (C.22), and every format PIL opens classified as PIL's Image.open
+# does (C.21): zero images become pages, or a stop naming ROADMAP A.6.
+DECODE_VERSION = "d8"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
 _MSG = 160
 
@@ -93,7 +98,9 @@ def _take(lib: ctypes.CDLL, ptr: int, w: int, h: int) -> np.ndarray:
 
 
 def error(status: int, message: str, what: str) -> Exception:
-    """The exception a failed decode of ``what`` raises."""
+    """The exception a failed decode of ``what`` raises; a kind not read yet
+    names the format PIL would open the file as (``message``), whatever the
+    file's name."""
     if status == UNSUPPORTED:
         return NotImplementedError(
             f"{what}: {message} is not read by the port yet (ROADMAP A.6)")
@@ -103,7 +110,7 @@ def error(status: int, message: str, what: str) -> Exception:
 
 
 def decode(data: bytes, what: str = "image") -> np.ndarray:
-    """A JPEG, BMP or TIFF file's bytes -> uint8 (H, W) grey; raises as
+    """A JPEG, BMP, TIFF, GIF or Netpbm file's bytes -> uint8 (H, W) grey; raises as
     ``error`` says (a PNG raises ``ValueError``: it is not decoded here)."""
     lib = library()
     ptr, w, h = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()

@@ -158,6 +158,12 @@ REFUSED = {
         GREY.tobytes())], [(258, 17, [8]), (259, 3, [8]), (262, 3, [1]), (277, 3, [1]),
                            (273, 4, lambda o: o), (278, 4, [16]), (279, 4, [len(zlib.compress(
                                GREY.tobytes()))])]), "read otherwise"),
+    # A.6.28, A.6.29: the GIF and Netpbm kinds PIL refuses.
+    "gif_lzw_cut_before_eoi": (lambda: chip_smoke.gif_file(GREY, codes=chip_smoke.gif_lzw(
+        GREY.tobytes(), eoi=False)[:100]), "before EOI"),
+    "pgm_plain_sample_past_maxval": (lambda: chip_smoke.pnm_file("P2", GREY, 100), "past maxval"),
+    "pam_p7": (lambda: b"P7\nWIDTH 24\nHEIGHT 16\nDEPTH 1\nMAXVAL 255\nTUPLTYPE GRAYSCALE\n"
+               b"ENDHDR\n" + GREY.tobytes(), "not a recognised image file"),
 }
 
 
@@ -247,17 +253,35 @@ def pil_tiff_of(codec: str) -> bytes:
     return buf.getvalue()
 
 
+def ojpeg_planar_tiles() -> bytes:
+    """Planar YCbCr old-style JPEG-in-TIFF in tiles (tests/
+    test_torch_port_ojpeg_planes.py), which PIL reads through its RGBA
+    reader's gtTileSeparate."""
+    from test_torch_port_ojpeg_planes import planar_tiles
+    return planar_tiles()
+
+
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
 # The audit: a genuine file at each site of decode.cpp that still
-# raises naming A.6 (a site whose file PIL refuses is corrupt: REFUSED).
+# raises naming A.6 (a site whose file PIL refuses is corrupt: REFUSED):
+# WebP, planar old-style JPEG-in-TIFF in tiles, and one file of each
+# format PIL opens that the port does not read (C.21, chip_smoke.c21_files).
 STILL_A6 = {
-    "gif": (lambda: pil_image_bytes("GIF"), "GIF"),
     "webp": (lambda: pil_image_bytes("WEBP"), "WebP"),
+    "ojpeg_planar_tiles": (ojpeg_planar_tiles, "planes and tiles"),
+    **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt], fmt)
+       for fmt in ("AVIF", "BLP", "CUR", "DCX", "DDS", "DIB", "ICNS", "ICO", "IM", "JPEG2000", "MSP",
+                   "PCX", "PSD", "QOI", "SGI", "SPIDER", "SUN", "TGA", "XBM", "XPM")},
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.27).
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.29,
+# C.20).
 NOW_READ = {
+    "gif": lambda: pil_image_bytes("GIF"),
+    "pgm": lambda: pil_image_bytes("PPM"),
+    "ojpeg_planar_ycbcr": lambda: chip_smoke.ojpeg_planes_tiff(
+        [GREY, GREY // 2 + 64, 255 - GREY], chip_smoke.Q90),
     "lzma_arm64_bcj": lambda: bcj_filter_tiff(0x0A),
     "lzma_riscv_bcj": lambda: bcj_filter_tiff(0x0B),
     "tag_given_twice": lambda: chip_smoke.tiff_layout(

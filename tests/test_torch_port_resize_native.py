@@ -97,9 +97,10 @@ def test_dataset_and_canvas_pixels_stay_the_jax_packages(tmp_path, monkeypatch):
     as libjpeg-turbo decodes it, d4 since C.13's last repairs, d5 since
     damaged CCITT data decodes as libtiff decodes it, d6 since damaged ZSTD
     literals read as libzstd reads them, d7 since old-style JPEG-in-TIFF
-    without its last strip's data reads as libtiff reads it); the resize is
+    without its last strip's data reads as libtiff reads it, d8 since
+    planar YCbCr old-style JPEG-in-TIFF, GIF and Netpbm read); the resize is
     the native one, not numpy's."""
-    assert native.DECODE_VERSION == "d7"
+    assert native.DECODE_VERSION == "d8"
     paths = []
     for i, (h, w) in enumerate(((500, 1200), (90, 210), (64, 64), (700, 300))):
         p = tmp_path / f"s{i}.png"

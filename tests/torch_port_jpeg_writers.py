@@ -213,6 +213,79 @@ def huffman_coefficients(data: bytes) -> dict:
     return {"segments": segments, "frame": comps, "size": size, "blocks": blocks}
 
 
+# -- non-interleaved Huffman scans ------------------------------------------------
+
+# Flat Huffman tables that code every baseline symbol: the 12 DC categories
+# in 4 bits, the 162 AC run/size symbols in 8 bits.
+FLAT_DC = ([0, 0, 0, 12] + [0] * 12, list(range(12)))
+FLAT_AC = ([0] * 7 + [162] + [0] * 8,
+           [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 11)])
+
+
+def _category(v: int) -> int:
+    return abs(int(v)).bit_length()
+
+
+def _put_value(w: BitWriter, v: int, s: int) -> None:
+    if s:
+        w.put(v if v >= 0 else v + (1 << s) - 1, s)
+
+
+def non_interleaved_jpeg(source: bytes, *, restart: int = 0, order=None) -> bytes:
+    """The quantized coefficients of ``source`` (a baseline Huffman JPEG,
+    ``huffman_coefficients``) as a baseline JPEG with one scan a component
+    (T.81 A.2.2: each block an MCU, the component's own blocks in raster
+    order), in the order ``order`` (component indices; all, in frame order,
+    by default). ``restart``: blocks a restart interval, numbered from RST0
+    in each scan. Every component codes with the flat tables 0."""
+    src = huffman_coefficients(source)
+    comps, (w, h) = src["frame"], src["size"]
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    dc_codes, ac_codes = huffman_codes(*FLAT_DC), huffman_codes(*FLAT_AC)
+    out = bytearray(b"\xff\xd8")
+    for s in src["segments"]:
+        out += s
+    out += seg(0xC4, bytes([0x00] + FLAT_DC[0] + FLAT_DC[1]) +
+               bytes([0x10] + FLAT_AC[0] + FLAT_AC[1]))
+    out += seg(0xC0, struct.pack(">BHHB", 8, h, w, len(comps)) + b"".join(
+        bytes([cid, (ch << 4) | cv, tq]) for cid, ch, cv, tq in comps))
+    if restart:
+        out += seg(0xDD, struct.pack(">H", restart))
+    for ci in (range(len(comps)) if order is None else order):
+        cid, ch, cv, _ = comps[ci]
+        bw_, bh_ = -(-(-(-w * ch // hmax)) // 8), -(-(-(-h * cv // vmax)) // 8)
+        out += seg(0xDA, bytes([1, cid, 0x00, 0, 63, 0]))
+        bits, pred, rst = BitWriter(), 0, 0
+        for n in range(bw_ * bh_):
+            if restart and n and n % restart == 0:
+                bits.flush()
+                out += bits.out + bytes([0xFF, 0xD0 + rst])
+                bits, pred, rst = BitWriter(), 0, (rst + 1) & 7
+            b = src["blocks"][ci][n // bw_, n % bw_]
+            s = _category(b[0] - pred)
+            bits.put(*dc_codes[s])
+            _put_value(bits, int(b[0] - pred), s)
+            pred = b[0]
+            run = 0
+            last = max([k for k in range(1, 64) if b[k]], default=0)
+            for k in range(1, last + 1):
+                if b[k] == 0:
+                    run += 1
+                    continue
+                while run > 15:
+                    bits.put(*ac_codes[0xF0])
+                    run -= 16
+                s = _category(b[k])
+                bits.put(*ac_codes[(run << 4) | s])
+                _put_value(bits, int(b[k]), s)
+                run = 0
+            if last < 63:
+                bits.put(*ac_codes[0x00])
+        bits.flush()
+        out += bits.out
+    return bytes(out) + b"\xff\xd9"
+
+
 # -- the QM coder and arithmetic-coded JPEG --------------------------------------
 
 # T.81 Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) per state.
