@@ -110,7 +110,7 @@ Phases (any failure raises and the script exits non-zero):
      and PNGs (no errors, a finite FID, the real floor and the feature
      diversity; B4 x8, B3 x24); the stage times;
  12. the host decoders (``decode_phase``): build ``data/native/decode.cpp``
-     with g++ and decode every fixture of ``tests/data/torch_port/`` (JPEG
+     and ``webp.cpp`` with g++ and decode every fixture of ``tests/data/torch_port/`` (JPEG
      at 4:4:4, 4:2:2 and 4:2:0 at scan size, grey, restart intervals,
      optimised tables; BMP 1/8/24/32-bit; TIFF raw, PackBits, LZW with
      predictor 2, 1-bit WhiteIsZero, RGB; CCITT Group 4, 2-D T.4 with EOL
@@ -145,7 +145,12 @@ Phases (any failure raises and the script exits non-zero):
      JPEG-in-TIFF, GIF and PGM pages (``a6_gif_pnm_pages``) held to PIL's
      grey by digest and timed; a file of each format PIL opens and the
      port does not read (``c21_files``), named .png beside a scan, stops
-     its ``SignatureDataset`` naming the format and ROADMAP A.6;
+     its ``SignatureDataset`` naming the format and ROADMAP A.6; Pillow's
+     three WebP pages (``tests/data/torch_port_webp/``: lossy, lossless,
+     lossy with ALPH) held to PIL's grey by digest and timed; phase 11's
+     scans as lossless WebP files under .jpg and .png names
+     (``webp_tree_step``): ``cli.preprocess`` writes and refuses what it did
+     from their PNGs, and a ``SignatureDataset`` holds the PNGs' arrays;
  13. shared fakes and the ablation grid (``shared_fakes_phase``,
      ``ablation_phase``): ``cli.train --share_fakes`` at full width on
      phase 7's 2048 PNGs for 2 epochs of 32 steps (B1 x1, B1' x1, B2 x0
@@ -1841,6 +1846,10 @@ def verification_phase(card: str, work: str):
 
 
 FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_port"
+# Pillow's WebP pages (tests/test_torch_port_decode.py::write_webp_pages), beside
+# the fixtures: they would take those past their 1 MB.
+WEBP_PAGES = FIXTURES.parent / "torch_port_webp"
+WEBP_PAGES_NAMES = ("webp_lossy_page.webp", "webp_lossless_page.webp", "webp_alpha_page.webp")
 
 
 def bmp_grey(u8) -> bytes:
@@ -2981,6 +2990,204 @@ def pnm_file(kind: str, samples, maxval: int = 255) -> bytes:
     return head.encode() + s.astype(">u2" if maxval > 255 else np.uint8).tobytes()
 
 
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk: its tag, its size and its payload, padded to even."""
+    return tag + len(payload).to_bytes(4, "little") + payload + b"\0" * (len(payload) & 1)
+
+
+def riff_webp(chunks) -> bytes:
+    """A WebP file of already-built chunks (``webp_chunk``)."""
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + len(body).to_bytes(4, "little") + body
+
+
+def vp8x_chunk(w: int, h: int, flags: int) -> bytes:
+    """The extended header: flags (0x10 alpha, 0x02 animation, 0x20 ICC,
+    0x08 EXIF, 0x04 XMP) and the canvas size."""
+    return webp_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+class BitFields:
+    """The fields of a VP8L stream, read least significant bit first;
+    ``code`` writes a prefix code's bits as the reader takes them (its
+    first bit, the code's most significant, first)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def put(self, value: int, nbits: int):
+        if nbits:
+            self.parts.append(([value], [nbits]))
+
+    def put_many(self, values, nbits):
+        self.parts.append((values, nbits))
+
+    def code(self, code: int, length: int):
+        self.put(int(f"{code:0{length}b}"[::-1], 2) if length else 0, length)
+
+    def tobytes(self) -> bytes:
+        """The fields packed: each (at most 24 bits) shifted into the
+        32-bit word it starts in, its spill into the next; the fields never
+        overlap, so a word's sum is exact in float64 and equals their OR."""
+        import numpy as np
+        vals = np.concatenate([np.asarray(v, np.int64).ravel() for v, _ in self.parts])
+        bits = np.concatenate([np.asarray(n, np.int64).ravel() for _, n in self.parts])
+        pos = np.concatenate([[0], np.cumsum(bits)[:-1]])
+        total = int(bits.sum())
+        words = total // 32 + 2
+        shifted = vals.astype(np.uint64) << (pos & 31).astype(np.uint64)
+        at = pos >> 5
+        packed = (np.bincount(at, (shifted & 0xFFFFFFFF).astype(np.float64), words)
+                  + np.bincount(at + 1, (shifted >> 32).astype(np.float64), words))
+        return packed.astype("<u4").tobytes()[:(total + 7) // 8]
+
+
+def huffman_lengths(counts, max_len: int = 15):
+    """Code lengths of a Huffman code of ``counts`` no longer than
+    ``max_len`` (counts halved until it fits); a lone symbol gets length 1."""
+    import heapq
+    import numpy as np
+    counts = np.asarray(counts, np.int64)
+    used = np.nonzero(counts)[0]
+    lengths = np.zeros(len(counts), np.int64)
+    if len(used) == 1:
+        lengths[used[0]] = 1
+        return lengths
+    c = counts.copy()
+    while True:
+        heap = [(int(c[s]), int(s), (int(s),)) for s in used]
+        heapq.heapify(heap)
+        depth = dict.fromkeys(used.tolist(), 0)
+        while len(heap) > 1:
+            a, b = heapq.heappop(heap), heapq.heappop(heap)
+            for s in a[2] + b[2]:
+                depth[s] += 1
+            heapq.heappush(heap, (a[0] + b[0], min(a[1], b[1]), a[2] + b[2]))
+        if max(depth.values()) <= max_len:
+            for s, d in depth.items():
+                lengths[s] = d
+            return lengths
+        c = np.where(c > 0, (c + 1) // 2, 0)
+
+
+def canonical_codes(lengths):
+    """Each symbol's code of a canonical prefix code of ``lengths``, as
+    libwebp assigns them (by length, then symbol); a lone symbol reads no
+    bits, so its length becomes 0."""
+    import numpy as np
+    lengths = np.asarray(lengths, np.int64)
+    codes, out_len = np.zeros(len(lengths), np.int64), lengths.copy()
+    if np.count_nonzero(lengths) == 1:
+        out_len[:] = 0
+        return codes, out_len
+    code = 0
+    for length in range(1, 16):
+        for s in np.nonzero(lengths == length)[0]:
+            codes[s] = code
+            code += 1
+        code <<= 1
+    return codes, out_len
+
+
+VP8L_CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def vp8l_prefix_code(bw: BitFields, lengths, *, simple=None, max_symbol=False):
+    """Write the prefix code of ``lengths`` (one entry per symbol of the
+    alphabet): the simple form where it can be (one or two symbols under
+    256) unless ``simple`` is False, else code lengths through a code-length
+    code (runs of zeros as 17/18, repeats as 16), with ``max_symbol`` the
+    count of code-length symbols read stated and the trailing zeros left
+    out. Returns (codes, lengths) to write the alphabet's symbols with."""
+    import numpy as np
+    lengths = np.asarray(lengths, np.int64)
+    used = np.nonzero(lengths)[0]
+    if simple is None:
+        simple = len(used) <= 2 and (len(used) == 0 or used.max() < 256)
+    if simple:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        first = int(used[0])
+        bw.put(int(first >= 2), 1)
+        bw.put(first, 8 if first >= 2 else 1)
+        if len(used) == 2:
+            bw.put(int(used[1]), 8)
+        lengths = np.where(lengths > 0, 1, 0)
+        return canonical_codes(lengths)
+    toks = []  # (symbol, extra value, extra bits)
+    end = max(int(used.max()) + 1, 2) if max_symbol else len(lengths)  # max_symbol >= 2
+    i, prev = 0, 8
+    while i < end:
+        v = int(lengths[i])
+        run = 1
+        while i + run < end and lengths[i + run] == v:
+            run += 1
+        if v == 0 and run >= 3:
+            take = min(run, 138)
+            toks.append((18, take - 11, 7) if take >= 11 else (17, take - 3, 3))
+        elif v and v == prev and run >= 3:
+            take = min(run, 6)
+            toks.append((16, take - 3, 2))
+        else:
+            take = 1
+            toks.append((v, 0, 0))
+            prev = v if v else prev
+        i += take
+    cl = huffman_lengths(np.bincount([t[0] for t in toks], minlength=19), 7)
+    num = max(4, max(k for k in range(19) if cl[VP8L_CODE_LENGTH_ORDER[k]]) + 1)
+    bw.put(0, 1)
+    bw.put(num - 4, 4)
+    for k in range(num):
+        bw.put(int(cl[VP8L_CODE_LENGTH_ORDER[k]]), 3)
+    if max_symbol:
+        value = len(toks) - 2
+        k = next(k for k in range(8) if value < 1 << (2 + 2 * k))
+        bw.put(1, 1)
+        bw.put(k, 3)
+        bw.put(value, 2 + 2 * k)
+    else:
+        bw.put(0, 1)
+    ccodes, clens = canonical_codes(cl)
+    for sym, extra, nbits in toks:
+        bw.code(int(ccodes[sym]), int(clens[sym]))
+        bw.put(extra, nbits)
+    return canonical_codes(lengths)
+
+
+def vp8l_header(bw: BitFields, w: int, h: int, alpha: bool = False):
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(int(alpha), 1)
+    bw.put(0, 3)
+
+
+def vp8l_grey_file(grey) -> bytes:
+    """A lossless WebP file of an (h, w) grey image, without PIL: a
+    subtract-green transform (red and blue become 0), then each pixel a
+    green literal of a Huffman code of the image's histogram; red, blue,
+    alpha (255) and distance one-symbol codes that read no bits."""
+    import numpy as np
+    g = np.asarray(grey, np.int64)
+    h, w = g.shape
+    bw = BitFields()
+    vp8l_header(bw, w, h)
+    bw.put(1, 1)
+    bw.put(2, 2)  # subtract green
+    bw.put(0, 1)  # no more transforms
+    bw.put(0, 1)  # no colour cache
+    bw.put(0, 1)  # no meta Huffman image
+    lengths = np.zeros(280, np.int64)
+    lengths[:256] = huffman_lengths(np.bincount(g.ravel(), minlength=256))
+    codes, lens = vp8l_prefix_code(bw, lengths)
+    for size, sym in ((256, 0), (256, 0), (256, 255), (40, 0)):  # red, blue, alpha, distance
+        vp8l_prefix_code(bw, np.eye(size, dtype=np.int64)[sym])
+    rev = np.array([int(f"{int(c):0{int(n)}b}"[::-1], 2) if n else 0 for c, n in zip(codes, lens)])
+    bw.put_many(rev[g.ravel()], lens[g.ravel()])
+    return riff_webp([webp_chunk(b"VP8L", bw.tobytes())])
+
+
 def ojpeg_planes_tiff(planes, quant) -> bytes:
     """Old-style JPEG-in-TIFF (compression 6) of YCbCr in planes: each of
     the three (h, w) ``planes`` a baseline stream (``jpeg_sof1`` at 8 bits),
@@ -3150,7 +3357,7 @@ def golden_arrays() -> dict:
             "zstd_g4_page.tif": golden["ccitt_g4_page.tif"]}
 
 
-def decode_phase(card: str, work: str):
+def decode_phase(card: str, work: str, build_s: float):
     """Phase 12: the host decoders: the fixtures bit-equal to their golden
     arrays, the pages built here bit-equal to their sources or to digests
     of PIL's grey (the TIFF layouts of A.6.7-A.6.12, LZMA TIFF, damaged
@@ -3159,14 +3366,16 @@ def decode_phase(card: str, work: str):
     JPEG-in-TIFF of photometric 0, of 12 bits and planar, CCITT RLE-W,
     ThunderScan and LZMA with the ARM64 BCJ filter among them, planar YCbCr
     old-style JPEG-in-TIFF, GIF and PGM; a SOF11 JPEG corrupt, as PIL
-    refuses it), a cut
+    refuses it), Pillow's three WebP pages to their digests, a cut
     progressive scan script smoothed, a file PIL refuses a zero image, the
     threaded batch decode's rate per format, ``cli.preprocess`` and a
     ``SignatureDataset`` on a mixed tree of 1320 scans whose TIFFs take
     those layouts in turns and whose PNGs are in turns GIF and PGM files
     named .png, then SOF11 JPEGs added to it: zero images in the dataset,
-    and ``cli.preprocess`` stops on one; then a tree for each format PIL
-    opens and the port does not read: the build stops naming it (A.6)."""
+    and ``cli.preprocess`` stops on one; the same scans as WebP files
+    under .jpg and .png names (``webp_tree_step``); then a tree for each
+    format PIL opens and the port does not read: the build stops naming it
+    (A.6). ``build_s``: the library's g++ build, timed where it was built."""
     import shutil
     import numpy as np
     import torch
@@ -3175,13 +3384,6 @@ def decode_phase(card: str, work: str):
     from siggan_tpu_torch.data.native import loader as native
     from siggan_tpu_torch.infer.export import decode_png
 
-    from siggan_tpu_torch.ops.kernels import build
-    native.library()   # built on first use (phase 7's dataset); timed again here
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        subprocess.run([shutil.which("g++"), *build.HOST_FLAGS, str(native.SOURCE), "-o",
-                        f"{tmp}/libdecode.so"], check=True, capture_output=True, timeout=300)
-        build_s = time.perf_counter() - t0
     import lzma  # the LZMA page is written here; no fallback if the stdlib lacks it
     golden = golden_arrays()
     if len(golden) != 59:
@@ -3190,8 +3392,8 @@ def decode_phase(card: str, work: str):
         got = ds_mod.decode_gray(FIXTURES / name)
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"decoder fixture {name}: not bit-equal to PIL's grey")
-    print(f"decode: g++ build of data/native/decode.cpp {build_s:.2f} s (timed apart from the "
-          f"first use's build); all {len(golden)} "
+    print(f"decode: g++ build of data/native/decode.cpp and webp.cpp {build_s:.2f} s (at the "
+          f"script's start); all {len(golden)} "
           f"fixtures bit-equal to PIL's grey ({', '.join(sorted(golden))})", flush=True)
     # The Deflate page: lossless, so its golden is the grey it was written from.
     deflate_page = Path(work) / "deflate_page.tif"
@@ -3251,6 +3453,15 @@ def decode_phase(card: str, work: str):
     print("decode: " + ", ".join(f"{n} ({len(d)} B, {digests[n][:16]})" for n, d in a6.items())
           + " bit-equal to PIL's grey by their SHA-256, or corrupt where PIL refuses them ("
           + ", ".join(n for n in a6 if digests[n] == "refused") + ")", flush=True)
+    # Pillow's WebP pages (A.6.30-A.6.32): lossy 'VP8 ', lossless grey 'VP8L',
+    # lossy with ALPH in VP8X, each held to the digest of PIL's grey.
+    for name in WEBP_PAGES_NAMES:
+        got = ds_mod.decode_gray(WEBP_PAGES / name)
+        if got.shape != (500, 1200) or gray_digest(got) != digests[name]:
+            raise AssertionError(f"{name}: not bit-equal to PIL's grey (its SHA-256)")
+    print("decode: " + ", ".join(f"{n} ({(WEBP_PAGES / n).stat().st_size} B, {digests[n][:16]})"
+                                 for n in WEBP_PAGES_NAMES)
+          + " bit-equal to PIL's grey by their SHA-256", flush=True)
     # A file PIL refuses (grey.jpg as a 12-bit frame) is a zero image in a
     # SignatureDataset beside a good one, as in the JAX package.
     refused = Path(work) / "refused_set"
@@ -3367,7 +3578,13 @@ def decode_phase(card: str, work: str):
                   [Path(work) / "gif_interlaced_page.gif"], 20),
               "PGM 1200x500, raw 8-bit (P5)": ([Path(work) / "p5_page.pgm"], 20),
               "PGM 1200x500, raw 16-bit (P5, maxval 65535)": ([Path(work) / "p5_16bit_page.pgm"], 20),
-              "PGM 1200x500, plain (P2)": ([Path(work) / "p2_page.pgm"], 20)}
+              "PGM 1200x500, plain (P2)": ([Path(work) / "p2_page.pgm"], 20),
+              "WebP 1200x500, lossy (Pillow's q80 'VP8 ', RGB)": (
+                  [WEBP_PAGES / "webp_lossy_page.webp"], 20),
+              "WebP 1200x500, lossless (Pillow's 'VP8L', grey)": (
+                  [WEBP_PAGES / "webp_lossless_page.webp"], 20),
+              "WebP 1200x500, lossy with alpha (Pillow's VP8X + ALPH, q80)": (
+                  [WEBP_PAGES / "webp_alpha_page.webp"], 20)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -3479,6 +3696,7 @@ def decode_phase(card: str, work: str):
         raise AssertionError("cli.preprocess read a SOF11 JPEG, which PIL refuses")
     for p in sof11_paths:
         p.unlink()
+    webp = webp_tree_step(card, work)
     # C.21: a file of each format PIL opens and the port does not read, named
     # .png beside a scan: the build stops naming the format and A.6.
     stops = {}
@@ -3507,11 +3725,77 @@ def decode_phase(card: str, work: str):
           f"SignatureDataset of {with_sof11.images.shape[0]}, the other scans' arrays unchanged; "
           f"cli.preprocess on a tree holding one: ValueError ({refusal}) [{card}]", flush=True)
     png = png_tree_phase(card, work)
-    return {"build_s": build_s, "images_per_s": rates, "preprocess_s": pre_s,
+    return {"build_s": build_s, "images_per_s": rates, "preprocess_s": pre_s, "webp_tree": webp,
             "preprocess_host_decode_s": host_s, "dataset_s": ds_s,
             "host_ms_per_scan": {k: [1e3 * d / kinds[k], 1e3 * c / kinds[k]]
                                  for k, (d, c) in per_kind.items()},
             "pil_png_tree": png}
+
+
+# What cli.preprocess writes and refuses of phase 11's 1320 scans on the CPU,
+# from their PNGs and from their WebP files alike (scripts/webp_tree_cpu.py).
+WEBP_TREE_CPU_COUNTS = (1171, 149)
+
+
+def webp_tree_step(card: str, work: str, run=None) -> dict:
+    """Phase 12's WebP tree (A.6.30): phase 11's 1320 scans, each written
+    here as a lossless WebP file of its grey (``vp8l_grey_file``; no PIL on
+    this host) under a .jpg or a .png name in turns. ``cli.preprocess``
+    must write and refuse the scans phase 11's run on their PNGs did, as
+    many as on the CPU (``WEBP_TREE_CPU_COUNTS``), and a
+    ``SignatureDataset`` of the tree must equal one of the PNGs. ``run``
+    runs a CLI (``run_cli``; ``scripts/webp_tree_cpu.py`` adds ``--device
+    cpu``)."""
+    import concurrent.futures
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.cli import preprocess as pre_cli
+    from siggan_tpu_torch.data import dataset as ds_mod
+    from siggan_tpu_torch.infer.export import decode_png
+    run = run or run_cli
+    raw, tree = Path(work) / "scans", Path(work) / "webp_scans"
+    pngs = sorted(raw.rglob("*.png"))
+
+    def write(item):
+        i, p = item
+        (tree / p.parent.name).mkdir(parents=True, exist_ok=True)
+        data = vp8l_grey_file(decode_png(p.read_bytes())[..., 0])
+        (tree / p.parent.name / f"{p.stem}{'.jpg' if i % 2 else '.png'}").write_bytes(data)
+        return len(data)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(write, enumerate(pngs)))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(pre_cli.main, ["--input_dir", str(tree), "--output_dir", str(Path(work) / "webp_clean")])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rep = json.loads((Path(work) / "webp_clean" / "preprocess_report.json").read_text())
+    want = json.loads((Path(work) / "clean" / "preprocess_report.json").read_text())
+
+    def stems(names):
+        return sorted(Path(n).stem for n in names)
+    if (len(pngs) != 1320 or any(stems(rep[k]) != stems(want[k]) for k in ("processed", "invalid"))
+            or (len(rep["processed"]), len(rep["invalid"])) != WEBP_TREE_CPU_COUNTS):
+        raise AssertionError(f"cli.preprocess on the WebP tree: {len(rep['processed'])} written, "
+                             f"{len(rep['invalid'])} invalid; on the same scans' PNGs "
+                             f"{len(want['processed'])} and {len(want['invalid'])}; on the CPU "
+                             f"{WEBP_TREE_CPU_COUNTS}")
+    t0 = time.perf_counter()
+    ds = ds_mod.SignatureDataset(tree, 64, use_cache=False)
+    ds_s = time.perf_counter() - t0
+    ref = ds_mod.SignatureDataset(raw, 64, use_cache=False)
+    if [p.stem for p in ds.paths] != [p.stem for p in ref.paths] or not np.array_equal(ds.images, ref.images):
+        raise AssertionError("SignatureDataset of the WebP tree: not the arrays of the same scans' PNGs")
+    print(f"decode: WebP tree of 1320 scans (phase 11's, lossless grey VP8L under .jpg and .png "
+          f"names in turns; {sum(sizes) / len(sizes) / 1e3:.1f} KB a file) written in {write_s:.2f} s; "
+          f"cli.preprocess {pre_s:.2f} s ({1320 / pre_s:.1f} images/s), {len(rep['processed'])} "
+          f"written, {len(rep['invalid'])} invalid, the scans phase 11 wrote and refused from "
+          f"their PNGs and as many as on the CPU; SignatureDataset {ds_s:.2f} s ({1320 / ds_s:.1f} images/s), its arrays the "
+          f"PNGs' [{card}]", flush=True)
+    return {"write_s": write_s, "preprocess_s": pre_s, "dataset_s": ds_s,
+            "written": len(rep["processed"]), "invalid": len(rep["invalid"])}
 
 
 def mixed_tiff(grey, turn: int):
@@ -5258,6 +5542,14 @@ def main() -> int:
 
     card = nvidia_smi_line()
     print(card, flush=True)
+    # Wall seconds of each phase, printed before the kernels line: the script
+    # must finish within its time limit as it grows.
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - clock[0], 1)
+        clock[0] = now
 
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -5280,6 +5572,12 @@ def main() -> int:
             if not counts or min(counts) == 0:
                 raise AssertionError(f"{lib}: {k} has no tensor-core instructions: {found}")
         return found
+    # The host decoders' library, built once here (phase 12 reports its time).
+    from siggan_tpu_torch.data.native import loader as native
+    t0 = time.perf_counter()
+    native.library()
+    host_build_s = time.perf_counter() - t0
+    print(f"build: g++ of data/native/decode.cpp and webp.cpp {host_build_s:.1f} s", flush=True)
     tiles = tc_kernels("train_tail", ["convt_mma_kernel"])
     b3_sass = tc_kernels("upsample", ["convt_tile_kernel"])
     b4_sass = tc_kernels("generator_fwd", ["convt_tile_kernel", "gen_tail_kernel"])
@@ -5292,29 +5590,42 @@ def main() -> int:
     calibrate(model, torch.randn(256, cfg.latent_dim,
                                  generator=torch.Generator().manual_seed(3)).to(dev))
 
+    lap("build, SASS, setup")
     with torch.no_grad():
         b3, b4 = check_kernels(model, dev)
     launches = serve_phase(model, card)
     b1 = check_pack_tail(dev)
     b2 = check_train_tail(dev)
     b2_route = check_fused_route(dev)
+    lap("kernels and serving (1-6)")
     with tempfile.TemporaryDirectory() as work:
-        paths = {"train 64 px": train_phase(card, keep=work),
-                 "train v1.1 128 px": train_phase(card, 128, epochs=2, n_images=1024),
-                 "train v2.0": train_phase(card, v20=True)}
+        paths = {"train 64 px": train_phase(card, keep=work)}
+        lap("train 64 px (7)")
+        paths["train v1.1 128 px"] = train_phase(card, 128, epochs=2, n_images=1024)
+        lap("train v1.1 (8)")
+        paths["train v2.0"] = train_phase(card, v20=True)
+        lap("train v2.0 (9)")
         eval_launches, stages = eval_phase(card, work)
+        lap("evaluation (10)")
         verify_launches, verify_stages = verification_phase(card, work)
-        decode_stats = decode_phase(card, work)
+        lap("verification (11)")
+        decode_stats = decode_phase(card, work, host_build_s)
+        lap("decoders (12)")
         paths["train share_fakes"] = shared_fakes_phase(card, work)
         paths["train fuse_g_forwards"], fused_stats = fused_phase(card, work)
         ablation_stats = ablation_phase(card, work)
+        lap("shared fakes, fused, ablation (13)")
         imported = imported_run_phase(card, work)
         paths["imported JAX run resume"] = imported["train"]
         panel = panel_phase(card, work, b4["device_kernels"], b4["device_ops"])
+        lap("imported run, panel (14)")
         stream_launches, stream_stats = streaming_phase(card, work)
         paths.update(stream_launches)
+        lap("streaming (15)")
         dp = dp_phase(card, work)
         paths["data parallel, one-rank NCCL graphed trainer"] = dp["a"]["launches"]
+        lap("data parallel (16)")
+    print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
     launches.update(paths["train 64 px"])
     launches["train_tail"] = paths["train v1.1 128 px"]["train_tail"]
 

@@ -43,7 +43,10 @@ from siggan_tpu_torch.ops.kernels import build  # noqa: E402
 
 
 def decoder(tree: Path) -> ctypes.CDLL:
-    return build.load_host(tree / "siggan_tpu_torch" / "data" / "native" / "decode.cpp",
+    """The tree's decoder library, built from every C++ source of its
+    ``data/native/`` (``decode.cpp`` first; ``webp.cpp`` where it has one)."""
+    native_dir = tree / "siggan_tpu_torch" / "data" / "native"
+    return build.load_host(sorted(native_dir.glob("*.cpp"), key=lambda p: p.name != "decode.cpp"),
                            native._SIGNATURES)
 
 

@@ -55,6 +55,10 @@
 // file's pieces as libtiff's tif_ojpeg.c builds it (YCbCr through libtiff's
 // RGBA reader: each block's chroma as it is, libtiff's colour tables).
 //
+// WebP: webp.cpp (sigwebp::decode), libwebp's demuxer and decoders as
+// Pillow calls them, reached through pil_format like the other formats PIL
+// opens by their bytes.
+//
 // PNG: the Python side (infer/export.py::decode_png) parses the chunks and
 // inflates the image data with zlib; sig_png_unfilter undoes the five row
 // filters (None, Sub, Up, Average, Paeth) for any bytes per pixel.
@@ -86,6 +90,11 @@
 #include <thread>
 #include <type_traits>
 #include <vector>
+
+namespace sigwebp {  // webp.cpp
+int decode(const uint8_t* data, size_t size, int64_t max_pixels, std::vector<uint8_t>& gray, int& w,
+           int& h, std::string& msg);
+}  // namespace sigwebp
 
 namespace {
 
@@ -7758,6 +7767,12 @@ Gray decode_other(const uint8_t* d, size_t n) {
     Pnm p;
     pnm_head(d, n, p);
     return decode_pnm(d, n, p);
+  }
+  if (f == "WebP") {
+    Gray g;
+    std::string msg;
+    if (sigwebp::decode(d, n, kMaxPixels, g.px, g.w, g.h, msg)) corrupt(msg);
+    return g;
   }
   if (f == "BUFR" || f == "GRIB" || f == "HDF5" || f == "WMF" || f == "MPEG")
     corrupt(f + " file, which PIL opens and has no decoder for");

@@ -1,7 +1,10 @@
-"""ctypes binding of the port's host image decoder, ``decode.cpp``.
+"""ctypes binding of the port's host image decoder, ``decode.cpp`` and
+``webp.cpp`` (built together into one library).
 
 The decoder reads JPEG, BMP, TIFF (BigTIFF, LZMA, ZSTD, CCITT in tiles and
-old-style LZW among them), GIF and Netpbm files to 8-bit grey, as PIL's
+old-style LZW among them), GIF, Netpbm and WebP (lossless, lossy, with an
+ALPH chunk, an animation's first frame: libwebp's demuxer and decoders as
+Pillow calls them) files to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
 files are recognised and left to ``infer/export.py::decode_png``, which
 inflates their rows with zlib and undoes the row filters here
@@ -34,6 +37,8 @@ import numpy as np
 from siggan_tpu_torch.ops.kernels import build
 
 SOURCE = Path(__file__).with_name("decode.cpp")
+# Every source of the library: decode.cpp and the WebP decoder it calls.
+SOURCES = (SOURCE, Path(__file__).with_name("webp.cpp"))
 # The version of what the dataset decodes: the decoders (this library and
 # ``infer/export.py::decode_png``) and the resize (``sig_resize_bilinear``).
 # It names the dataset cache (``data/dataset.py``), so a cache written by an
@@ -85,7 +90,7 @@ _SIGNATURES = {
 
 def library() -> ctypes.CDLL:
     """The decoder library, built on first use."""
-    return build.load_host(SOURCE, _SIGNATURES)
+    return build.load_host(SOURCES, _SIGNATURES)
 
 
 def _take(lib: ctypes.CDLL, ptr: int, w: int, h: int) -> np.ndarray:
@@ -110,7 +115,7 @@ def error(status: int, message: str, what: str) -> Exception:
 
 
 def decode(data: bytes, what: str = "image") -> np.ndarray:
-    """A JPEG, BMP, TIFF, GIF or Netpbm file's bytes -> uint8 (H, W) grey; raises as
+    """A JPEG, BMP, TIFF, GIF, Netpbm or WebP file's bytes -> uint8 (H, W) grey; raises as
     ``error`` says (a PNG raises ``ValueError``: it is not decoded here)."""
     lib = library()
     ptr, w, h = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()

@@ -11,9 +11,10 @@ starts one ``nvcc`` per source at once and waits for all of them.
 Every C entry returns ``cudaGetLastError()`` after its launches; ``check``
 turns a non-zero code into a ``RuntimeError`` with CUDA's message.
 
-``load_host`` builds a host C++ source (the image decoders of
-``data/native/``) the same way with ``g++``, which needs no CUDA toolkit, so
-it runs on the CPU as well as on the card's host.
+``load_host`` builds host C++ sources (the image decoders of
+``data/native/``) into one library the same way with ``g++``, which needs no
+CUDA toolkit, so it runs on the CPU as well as on the card's host; the
+library's name carries a hash of every source it is built from.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -91,18 +92,21 @@ def _finish(name: str, started: Tuple[subprocess.Popen, Path, Path] | None) -> s
     return log
 
 
-def host_library_path(src: Path) -> Path:
-    """The shared library the host source ``src`` builds into, named by a
-    hash of the source."""
-    digest = hashlib.sha256(src.name.encode() + src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+def host_library_path(sources: Sequence[Path]) -> Path:
+    """The shared library the host sources build into, named after the first
+    and by a hash of every source's name and bytes (an edit to any of them
+    builds a new library)."""
+    digest = hashlib.sha256(b"".join(s.name.encode() + b"\0" + s.read_bytes() for s in sources))
+    return BUILD_DIR / f"lib{sources[0].stem}_{digest.hexdigest()[:12]}.so"
 
 
-def load_host(src: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
-    """The loaded library of the host C++ source ``src``, built with ``g++``
-    on first use; ``signatures`` maps each C entry to ``(argtypes,
-    restype)``. Raises ``RuntimeError`` when ``g++`` is missing or fails."""
-    key = str(src)
+def load_host(sources: Sequence[Path], signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library of the host C++ ``sources`` (one ``g++`` call
+    compiles and links them all), built on first use; ``signatures`` maps
+    each C entry to ``(argtypes, restype)``. Raises ``RuntimeError`` when
+    ``g++`` is missing or fails."""
+    srcs = list(sources)
+    key = "|".join(map(str, srcs))
     lib = _libs.get(key)
     if lib is not None:
         return lib
@@ -111,10 +115,10 @@ def load_host(src: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         if lib is None:
             gxx = shutil.which("g++")
             if gxx is None:
-                raise RuntimeError(f"g++ not found: {src.name} (the port's host "
+                raise RuntimeError(f"g++ not found: {srcs[0].name} (the port's host "
                                    "image decoder) is built with the host C++ compiler")
-            out = host_library_path(src)
-            _finish(src.name, _spawn([gxx, *HOST_FLAGS, str(src)], out))
+            out = host_library_path(srcs)
+            _finish(srcs[0].name, _spawn([gxx, *HOST_FLAGS, *map(str, srcs)], out))
             lib = ctypes.CDLL(str(out))
             for fn, (argtypes, restype) in signatures.items():
                 getattr(lib, fn).argtypes = argtypes

@@ -633,24 +633,35 @@ def test_format_comes_from_content_not_suffix(tmp_path):
 
 
 def webp_bytes(seed: int = 3) -> bytes:
-    """PIL's WebP of a small grey scan: a kind PIL reads and the port does
-    not yet (ROADMAP A.6), whatever the file's name."""
+    """PIL's WebP of a small grey scan, which the port reads since
+    A.6.30-A.6.32 whatever the file's name."""
     buf = io.BytesIO()
     Image.fromarray(pixels(np.random.RandomState(seed), (24, 40)).astype(np.uint8)).save(buf, "WEBP")
     return buf.getvalue()
 
 
+def unread_bytes() -> bytes:
+    """An ICO (``chip_smoke.c21_files``): a format PIL reads and the port
+    does not yet (ROADMAP A.6), whatever the file's name."""
+    import chip_smoke
+    return chip_smoke.c21_files()["ICO"]
+
+
 def _unsupported_files(tmp_path):
-    (tmp_path / "webp_named.tif").write_bytes(webp_bytes(3))
-    (tmp_path / "webp_named.png").write_bytes(webp_bytes(4))
-    return {"webp_named.tif": "WebP", "webp_named.png": "WebP"}
+    ico = unread_bytes()
+    (tmp_path / "ico_named.tif").write_bytes(ico)
+    (tmp_path / "ico_named.png").write_bytes(ico)
+    return {"ico_named.tif": "ICO", "ico_named.png": "ICO"}
 
 
 def _now_read_files(root):
     """The kinds this test held as unread before A.6.7-A.6.10: CCITT with
     FillOrder 2, BigTIFF, planar RGB; before A.6.13-A.6.14: LZMA and ZSTD;
     before A.6.15-A.6.16: CCITT in uncompressed mode (T.4, T.6) and in
-    tiles; before A.6.25: LZMA with the ARM64 and RISC-V BCJ filters."""
+    tiles; before A.6.25: LZMA with the ARM64 and RISC-V BCJ filters;
+    before A.6.30-A.6.32: WebP under a .tif and a .png name."""
+    (root / "webp_named.tif").write_bytes(webp_bytes(3))
+    (root / "webp_named.png").write_bytes(webp_bytes(4))
     from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
     (root / "arm64_bcj.tif").write_bytes(bcj_filter_tiff(0x0A))
     (root / "riscv_bcj.tif").write_bytes(bcj_filter_tiff(0x0B))
@@ -677,13 +688,14 @@ def _now_read_files(root):
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (WebP, under a
+    NotImplementedError naming the feature and ROADMAP A.6 (an ICO, under a
     .tif and a .png name). The kinds this test named before the port read
     them (a cut progressive scan script, CMYK TIFF and JPEG; since
     A.6.7-A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB; since
     A.6.13-A.6.14 LZMA and ZSTD TIFF; since A.6.15-A.6.16 CCITT in
     uncompressed mode and in tiles; since A.6.25 LZMA TIFF of the ARM64
-    and RISC-V BCJ filters) now read bit-equal with PIL."""
+    and RISC-V BCJ filters; since A.6.30-A.6.32 WebP) now read bit-equal
+    with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -701,7 +713,8 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     _now_read_files(read)
     for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg", "fill_order_2.tif", "big.tiff",
                  "planar.tif", "lzma.tif", "zstd.tif", "ccitt_t4_uncompressed.tif",
-                 "ccitt_t6_uncompressed.tif", "ccitt_tiles.tif", "arm64_bcj.tif", "riscv_bcj.tif"):
+                 "ccitt_t6_uncompressed.tif", "ccitt_tiles.tif", "arm64_bcj.tif", "riscv_bcj.tif",
+                 "webp_named.tif", "webp_named.png"):
         assert_port_reads_as_pil(read / name)
 
 
@@ -803,8 +816,8 @@ def test_host_build_names_a_missing_compiler(tmp_path, monkeypatch):
     src.write_bytes(tnative.SOURCE.read_bytes() + b"\n// copy\n")
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
-        build.load_host(src, {})
-    assert build.host_library_path(src).name.startswith("libdecode_copy_")
+        build.load_host([src], {})
+    assert build.host_library_path([src]).name.startswith("libdecode_copy_")
 
 
 # -- the card's fixtures -------------------------------------------------------
@@ -1043,6 +1056,9 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
         except OSError:
             digest = "refused"
         lines.append(f"{digest}  {name}\n")
+    for name, data in write_webp_pages(out / "scan_420.jpg", chip_smoke.WEBP_PAGES).items():
+        with Image.open(io.BytesIO(data)) as im:
+            lines.append(f"{gray_digest(np.asarray(im.convert('L')))}  {name}\n")
     (out / "a6_pages.sha256").write_text("".join(lines))
     # The progressive page cut after 6 of its 10 scans, which chip_smoke.py
     # decodes: a page of golden array would pass the 1 MB, so its digest.
@@ -1053,6 +1069,27 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     ImageFile.MAXBLOCK = writer_block
     np.savez_compressed(out / "golden.npz", **golden)
     return load_golden(out)
+
+
+def write_webp_pages(scan_jpg: Path, out: Path) -> dict:
+    """Pillow's WebP pages of ``scan_jpg``'s pixels (1200 x 500), which
+    phase 12 decodes on the card's host (it has no WebP encoder): lossy RGB
+    ('VP8 '), lossless grey ('VP8L') and lossy RGBA (VP8X with ALPH: the
+    page's white transparent, a half-transparent margin). They live in a
+    directory of their own (``chip_smoke.WEBP_PAGES``): the fixtures here
+    stay under 1 MB."""
+    with Image.open(scan_jpg) as im:
+        rgb, grey = np.asarray(im.convert("RGB")), np.asarray(im.convert("L"))
+    alpha = np.where(grey > 230, 0, 255).astype(np.uint8)
+    alpha[:, :40] = 128
+    out.mkdir(parents=True, exist_ok=True)
+    pages = {}
+    for name, arr, kw in (("webp_lossy_page.webp", rgb, {"quality": 80}),
+                          ("webp_lossless_page.webp", grey, {"lossless": True}),
+                          ("webp_alpha_page.webp", np.dstack([rgb, alpha]), {"quality": 80})):
+        Image.fromarray(arr).save(out / name, "WEBP", **kw)
+        pages[name] = (out / name).read_bytes()
+    return pages
 
 
 def gray_digest(gray: np.ndarray) -> str:

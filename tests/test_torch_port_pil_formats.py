@@ -6,7 +6,7 @@ saved as ``.png`` reaches it and reads. The port's decoder finds the format
 by the same rules (``decode.cpp::pil_format``: preinit's plugins, then
 ``Image.ID``'s, each ``_accept`` and the header checks of each ``_open``):
 a file PIL opens as a format the port reads (PNG, JPEG and MPO, BMP, TIFF,
-GIF, PPM) reads bit-equal; one of another format raises
+GIF, PPM, WEBP) reads bit-equal; one of another format raises
 ``NotImplementedError`` naming that format and A.6, never a zero image; a
 file PIL identifies as nothing, and the formats whose pixels PIL refuses
 (EPS here, the stubs BUFR, GRIB, HDF5 and WMF, MPEG), are corrupt."""
@@ -26,7 +26,7 @@ from siggan_tpu.data import dataset as jdataset
 from siggan_tpu_torch.data import dataset as tdataset
 
 # The formats the port reads, by PIL's name.
-READ = {"BMP", "JPEG", "MPO", "PNG", "TIFF", "GIF", "PPM"}
+READ = {"BMP", "JPEG", "MPO", "PNG", "TIFF", "GIF", "PPM", "WEBP"}
 H, W = 6, 9
 GREY = (np.arange(H * W).reshape(H, W) * 4).astype(np.uint8)
 

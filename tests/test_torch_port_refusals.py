@@ -164,7 +164,49 @@ REFUSED = {
     "pgm_plain_sample_past_maxval": (lambda: chip_smoke.pnm_file("P2", GREY, 100), "past maxval"),
     "pam_p7": (lambda: b"P7\nWIDTH 24\nHEIGHT 16\nDEPTH 1\nMAXVAL 255\nTUPLTYPE GRAYSCALE\n"
                b"ENDHDR\n" + GREY.tobytes(), "not a recognised image file"),
+    # A.6.30-A.6.32: damaged WebP files PIL refuses (libwebp's demuxer, its
+    # decoder's header check, a VP8 macroblock past its data, VP8L data past
+    # its end, an ALPH chunk it cannot decode).
+    "webp_cut_by_a_byte": (lambda: pil_image_bytes("WEBP")[:-1], "demuxer refuses"),
+    "webp_vp8x_of_12_bytes": (lambda: webp_vp8x_of_12_bytes(), "decoder refuses"),
+    "webp_lossy_tokens_cut": (lambda: webp_tokens_cut(), "premature end of VP8 data"),
+    "webp_lossless_cut": (lambda: webp_lossless_cut(), "VP8L"),
+    "webp_alph_reserved_bits": (lambda: webp_bad_alph(), "ALPH"),
 }
+
+
+def webp_vp8x_of_12_bytes() -> bytes:
+    """A still VP8X file whose VP8X chunk holds 12 bytes: the demuxer
+    skips the two past the 10, the decoder's header check refuses them."""
+    d = pil_image_bytes("WEBP")
+    return chip_smoke.riff_webp([chip_smoke.webp_chunk(b"VP8X", chip_smoke.vp8x_chunk(24, 16, 0)[8:] + b"\0\0"),
+                                 d[12:]])
+
+
+def webp_tokens_cut() -> bytes:
+    """A lossy file whose token partition ends 8 bytes early, its sizes
+    fixed: a macroblock reads past the data."""
+    d = pil_image_bytes("WEBP")
+    payload = d[20:20 + int.from_bytes(d[16:20], "little") - 8]
+    return chip_smoke.riff_webp([chip_smoke.webp_chunk(b"VP8 ", payload)])
+
+
+def webp_lossless_cut() -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(RGB).save(buf, "WEBP", lossless=True)
+    d = buf.getvalue()
+    payload = d[20:20 + int.from_bytes(d[16:20], "little")]
+    return chip_smoke.riff_webp([chip_smoke.webp_chunk(b"VP8L", payload[:len(payload) // 2 * 2 - 20])])
+
+
+def webp_bad_alph() -> bytes:
+    """Lossy with alpha whose ALPH header sets a reserved bit: libwebp fails
+    the frame (the alpha never reaches L)."""
+    buf = io.BytesIO()
+    Image.fromarray(np.dstack([RGB, GREY])).save(buf, "WEBP", quality=80)
+    d = bytearray(buf.getvalue())
+    d[d.index(b"ALPH") + 8] |= 0x40
+    return bytes(d)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -264,10 +306,9 @@ def ojpeg_planar_tiles() -> bytes:
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
 # The audit: a genuine file at each site of decode.cpp that still
 # raises naming A.6 (a site whose file PIL refuses is corrupt: REFUSED):
-# WebP, planar old-style JPEG-in-TIFF in tiles, and one file of each
-# format PIL opens that the port does not read (C.21, chip_smoke.c21_files).
+# planar old-style JPEG-in-TIFF in tiles, and one file of each format PIL
+# opens that the port does not read (C.21, chip_smoke.c21_files).
 STILL_A6 = {
-    "webp": (lambda: pil_image_bytes("WEBP"), "WebP"),
     "ojpeg_planar_tiles": (ojpeg_planar_tiles, "planes and tiles"),
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt], fmt)
        for fmt in ("AVIF", "BLP", "CUR", "DCX", "DDS", "DIB", "ICNS", "ICO", "IM", "JPEG2000", "MSP",
@@ -275,9 +316,14 @@ STILL_A6 = {
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.29,
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.32,
 # C.20).
 NOW_READ = {
+    "webp": lambda: pil_image_bytes("WEBP"),
+    "webp_lossless": lambda: (lambda b: (Image.fromarray(RGB).save(b, "WEBP", lossless=True),
+                                         b.getvalue())[1])(io.BytesIO()),
+    "webp_alpha": lambda: (lambda b: (Image.fromarray(np.dstack([RGB, GREY])).save(b, "WEBP", quality=80),
+                                      b.getvalue())[1])(io.BytesIO()),
     "gif": lambda: pil_image_bytes("GIF"),
     "pgm": lambda: pil_image_bytes("PPM"),
     "ojpeg_planar_ycbcr": lambda: chip_smoke.ojpeg_planes_tiff(
@@ -327,7 +373,8 @@ def past_the_tile_buffer(data: bytes) -> np.ndarray:
 
 @pytest.mark.parametrize("name", sorted(NOW_READ))
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
-    """A genuine lossless JPEG (predictor 1), Huffman data under an
+    """WebP (lossy, lossless, lossy with alpha), a genuine lossless JPEG
+    (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
     TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample,
     RGB with associated alpha, LZMA and ZSTD TIFF, CCITT in tiles, LZMA of
