@@ -144,13 +144,22 @@ Phases (any failure raises and the script exits non-zero):
      files under their .png names, and planar YCbCr old-style
      JPEG-in-TIFF, GIF and PGM pages (``a6_gif_pnm_pages``) held to PIL's
      grey by digest and timed; a file of each format PIL opens and the
-     port does not read (``c21_files``), named .png beside a scan, stops
-     its ``SignatureDataset`` naming the format and ROADMAP A.6; Pillow's
-     three WebP pages (``tests/data/torch_port_webp/``: lossy, lossless,
-     lossy with ALPH) held to PIL's grey by digest and timed; phase 11's
-     scans as lossless WebP files under .jpg and .png names
-     (``webp_tree_step``): ``cli.preprocess`` writes and refuses what it did
-     from their PNGs, and a ``SignatureDataset`` holds the PNGs' arrays;
+     port does not read (``c21_files`` but ``C21_READ``), named .png beside
+     a scan, stops its ``SignatureDataset`` naming the format and ROADMAP
+     A.6, and the files of ``C21_READ`` (DIB, ICO, CUR, TGA, PCX, DCX, SGI,
+     SUN, MSP, QOI) read as the greys they were built from; Pillow's three
+     WebP pages (``tests/data/torch_port_webp/``: lossy, lossless, lossy
+     with ALPH) held to PIL's grey by digest and timed; phase 11's scans as
+     lossless WebP files under .jpg and .png names (``webp_tree_step``):
+     ``cli.preprocess`` writes and refuses what it did from their PNGs, and
+     a ``SignatureDataset`` holds the PNGs' arrays; the 1200 x 500 pages of
+     A.6.33-A.6.42 built here (``a6_raster_pages``: DIB, RLE TGA, PCX, DCX,
+     ICO of a bitmap and of a PNG icon, CUR, RLE SGI and SUN, MSP version
+     2, QOI) held to PIL's grey by digest and timed (the PNG icon through
+     ``decode_images``); phase 11's scans in those formats in turns under
+     .png and .bmp names (``raster_tree_step``): ``cli.preprocess`` writes
+     and refuses as many as on the CPU, and a ``SignatureDataset`` holds
+     the greys written;
  13. shared fakes and the ablation grid (``shared_fakes_phase``,
      ``ablation_phase``): ``cli.train --share_fakes`` at full width on
      phase 7's 2048 PNGs for 2 epochs of 32 steps (B1 x1, B1' x1, B2 x0
@@ -3259,13 +3268,14 @@ AVIF_RAMP = bytes.fromhex(
 
 
 def c21_files() -> dict:
-    """One file of each format PIL opens and the port does not read
-    (ROADMAP C.21), by the format's name, built without PIL: a 6 x 9 grey
-    ramp in AVIF and JPEG 2000 (Pillow's bytes of an 8 x 8 ramp), BLP2 (a
-    palette), DDS (luminance), DIB, ICNS (a 128 x 128 PNG icon), ICO (a PNG
-    icon), CUR (a BMP cursor), IM, MSP, PCX, DCX, PSD, QOI, SGI, SPIDER, SUN,
-    TGA, XBM and XPM. PIL reads each (tests/test_torch_port_pil_formats.py);
-    the port raises naming the format and ROADMAP A.6."""
+    """One file of each format PIL opens that the port did not read when
+    C.21 was repaired, by the format's name, built without PIL: a 6 x 9
+    grey ramp in AVIF and JPEG 2000 (Pillow's bytes of an 8 x 8 ramp), BLP2
+    (a palette), DDS (luminance), DIB, ICNS (a 128 x 128 PNG icon), ICO (a
+    PNG icon), CUR (a BMP cursor), IM, MSP, PCX, DCX, PSD, QOI, SGI, SPIDER,
+    SUN, TGA, XBM and XPM. PIL reads each (tests/test_torch_port_pil_formats.py);
+    the port reads those of ``C21_READ`` (A.6.33-A.6.42) and raises naming
+    each other format and ROADMAP A.6."""
     import struct
     import numpy as np
     from siggan_tpu_torch.infer.export import encode_png
@@ -3327,6 +3337,423 @@ def c21_files() -> dict:
     }
 
 
+# Writers of the formats of A.6.33-A.6.42 (DIB, ICO, CUR, TGA, PCX, DCX,
+# SGI, SUN, MSP, QOI), without PIL: phase 12's pages and tree, and the
+# tests' hand-built files.
+
+def dib_bytes(rows, w: int, h: int, bits: int, palette=b"", *, header: int = 40,
+              compression: int = 0, colors: int = None, masks=b"", top_down: bool = False) -> bytes:
+    """A DIB (a BMP without its file header): the info header of
+    ``header`` bytes (12: OS/2, else Windows's 40 to 124), ``masks`` after
+    it, the ``palette`` entries (3 or 4 bytes each), then ``rows`` (bytes,
+    in file order)."""
+    import struct
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, compression,
+                           len(rows), 2835, 2835, len(palette) // 4 if colors is None else colors, 0)
+        info += bytes(header - 40)
+    return info + masks + bytes(palette) + bytes(rows)
+
+
+def dib_rows(pixels, bits: int) -> bytes:
+    """(h, w) indices or (h, w, 3) BGR -> bottom-up rows of ``bits``, each
+    padded to 32 bits."""
+    import numpy as np
+    a = np.asarray(pixels, np.uint8)
+    h, w = a.shape[:2]
+    stride = ((w * bits + 31) >> 3) & ~3
+    out = np.zeros((h, stride), np.uint8)
+    for y in range(h):
+        r = a[h - 1 - y]
+        if bits == 24:
+            b = r.reshape(-1)
+        elif bits == 8:
+            b = r
+        else:
+            per = 8 // bits
+            r = np.pad(r, (0, -w % per)).reshape(-1, per).astype(np.int64)
+            b = sum(r[:, i] << (8 - bits * (i + 1)) for i in range(per)).astype(np.uint8)
+        out[y, :len(b)] = b
+    return out.tobytes()
+
+
+def icon_dib(grey, bits: int = 8) -> bytes:
+    """An icon's bitmap: a DIB of twice its height, the image (grey
+    palette indices at 1, 4 or 8 bits, or BGR at 24) then an AND mask of
+    every pixel opaque."""
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    h, w = g.shape
+    if bits == 24:
+        pal, px = b"", np.repeat(g[..., None], 3, 2)
+    else:
+        k = 1 << bits
+        levels = (np.arange(k) * 255 // (k - 1)).astype(np.uint8)
+        pal = np.repeat(levels[:, None], 4, 1)
+        pal[:, 3] = 0
+        pal, px = pal.tobytes(), (g.astype(np.int64) * (k - 1) // 255).astype(np.uint8)
+    mask = bytes(((w + 31) // 32 * 4) * h)
+    return dib_bytes(dib_rows(px, bits) + mask, w, 2 * h, bits, pal)
+
+
+def ico_file(icons, kind: bytes = b"\x00\x00\x01\x00") -> bytes:
+    """An ICO (or, with ``kind`` 0 0 2 0, a CUR) of ``icons``: each (width
+    byte, height byte, colours byte, planes, bits, data), the data a DIB
+    with its mask or a PNG."""
+    import struct
+    out = kind + struct.pack("<H", len(icons))
+    at, body = 6 + 16 * len(icons), b""
+    for w, h, colors, planes, bits, data in icons:
+        out += struct.pack("<BBBBHHII", w & 255, h & 255, colors, 0, planes, bits, len(data), at + len(body))
+        body += data
+    return out + body
+
+
+def value_runs(a):
+    """(start, length) of each run of equal values along the first axis of
+    ``a`` (bytes, or pixels of several bytes), in order."""
+    import numpy as np
+    a = np.asarray(a)
+    if not len(a):
+        return []
+    flat = a.reshape(len(a), -1)
+    cut = np.flatnonzero((flat[1:] != flat[:-1]).any(axis=1)) + 1
+    starts = np.concatenate([[0], cut])
+    return list(zip(starts.tolist(), np.diff(np.concatenate([starts, [len(a)]])).tolist()))
+
+
+def tga_rle(pixels, cross_rows: bool = True) -> bytes:
+    """TGA run-length packets of (h, w, k) pixel bytes in file order: runs
+    of a repeated pixel within a row, literal packets of the rest, up to
+    128 pixels each; with ``cross_rows`` a literal packet may run on into
+    the next row (Pillow's decoder reads that, and refuses a run that
+    does)."""
+    import numpy as np
+    a = np.asarray(pixels, np.uint8)
+    h, w, k = a.shape
+    raw, out, lit = a.tobytes(), bytearray(), []
+
+    def flush():
+        for i in range(0, len(lit), 128):
+            part = lit[i:i + 128]
+            out.append(len(part) - 1)
+            out.extend(raw[part[0] * k:(part[-1] + 1) * k])
+        lit.clear()
+    for y in range(h):
+        for start, n in value_runs(a[y]):
+            if n == 1:
+                lit.append(y * w + start)
+                continue
+            flush()
+            for i in range(0, n, 128):
+                out.append(0x80 | (min(128, n - i) - 1))
+                out.extend(raw[(y * w + start) * k:(y * w + start + 1) * k])
+        if not cross_rows:
+            flush()
+    flush()
+    return bytes(out)
+
+
+def tga_file(pixels, image_type: int, depth: int, *, colormap=None, start: int = 0,
+             map_depth: int = 24, flags: int = 0x20, image_id: bytes = b"",
+             cross_rows: bool = True) -> bytes:
+    """A Targa file of (h, w, k) pixel bytes in display order, written top
+    down (flag 0x20) or bottom up, mirrored for flag 0x10; ``colormap`` the
+    map's raw entries (bytes) from index ``start``; types 9-11 run-length
+    coded (``tga_rle``)."""
+    import struct
+    import numpy as np
+    a = np.asarray(pixels, np.uint8)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w = a.shape[:2]
+    rows = a if flags & 0x20 else a[::-1]
+    if flags & 0x10:
+        rows = rows[:, ::-1]
+    cmap = bytes(colormap or b"")
+    entry = {16: 2, 24: 3, 32: 4}[map_depth]
+    head = struct.pack("<BBBHHBHHHHBB", len(image_id), 1 if colormap is not None else 0, image_type,
+                       start, len(cmap) // entry, map_depth if colormap is not None else 0,
+                       0, 0, w, h, depth, flags)
+    if depth == 1:
+        body = np.packbits(rows[..., 0] & 1, axis=1).tobytes()
+    elif image_type & 8:
+        body = tga_rle(rows, cross_rows)
+    else:
+        body = rows.tobytes()
+    return head + image_id + cmap + body
+
+
+def pcx_rle(row: bytes) -> bytes:
+    """PCX run-length coding of one row: runs of up to 63, a byte of 0xC0 or
+    more always as a run."""
+    import numpy as np
+    out = bytearray()
+    for start, n in value_runs(np.frombuffer(row, np.uint8)):
+        v = row[start]
+        if n == 1 and v < 0xC0:
+            out.append(v)
+            continue
+        for i in range(0, n, 63):
+            out += bytes([0xC0 | min(63, n - i), v])
+    return bytes(out)
+
+
+def pcx_file(planes_rows, w: int, h: int, bits: int, planes: int, *, version: int = 5,
+             header_palette: bytes = b"", palette: bytes = None, stride: int = None) -> bytes:
+    """A PCX file: ``planes_rows`` (h rows, each ``planes`` plane rows of
+    bytes, each ``stride`` long as the header says, even by default),
+    run-length coded; a 16-colour ``header_palette`` and a 768-byte
+    ``palette`` after a 0x0C byte at the end."""
+    import struct
+    stride = stride or ((w * bits + 7) // 8 + 1) & ~1
+    head = (bytes([10, version, 1, bits]) + struct.pack("<HHHHHH", 0, 0, w - 1, h - 1, 72, 72)
+            + bytes(header_palette).ljust(48, b"\0") + bytes([0, planes])
+            + struct.pack("<HH", stride, 1) + bytes(58))
+    body = b"".join(pcx_rle(b"".join(bytes(p).ljust(stride, b"\0")[:stride] for p in row))
+                    for row in planes_rows)
+    return head + body + (b"\x0c" + bytes(palette) if palette is not None else b"")
+
+
+def pcx_grey(grey, palette: bytes = None) -> bytes:
+    """An 8-bit PCX of uint8 (H, W) grey: the identity ramp as its palette
+    (PIL's mode L), or ``palette`` (mode P)."""
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    h, w = g.shape
+    ramp = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    return pcx_file([[r.tobytes()] for r in g], w, h, 8, 1, palette=palette or ramp)
+
+
+def dcx_file(pages) -> bytes:
+    """A DCX of PCX ``pages``: the offset list, ended by 0, then the pages."""
+    import struct
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for p in pages:
+        offsets.append(at)
+        at += len(p)
+    return struct.pack(f"<I{len(pages) + 1}I", 987654321, *offsets, 0) + b"".join(pages)
+
+
+def sgi_rle_row(samples, bpc: int) -> bytes:
+    """SGI run-length coding of one channel's row (numbers), ended by a 0
+    packet; 2-byte packets and samples at ``bpc`` 2."""
+    import numpy as np
+    vals, out, lit = np.asarray(samples, np.int64), [], []
+
+    def flush():
+        for i in range(0, len(lit), 127):
+            part = lit[i:i + 127]
+            out.extend([0x80 | len(part)] + part)
+        lit.clear()
+    for start, n in value_runs(vals):
+        v = int(vals[start])
+        if n == 1:
+            lit.append(v)
+            continue
+        flush()
+        for i in range(0, n, 127):
+            out.extend([min(127, n - i), v])
+    flush()
+    out.append(0)
+    return np.asarray(out, ">u2" if bpc == 2 else np.uint8).tobytes()
+
+
+def sgi_file(channels, bpc: int = 1, rle: bool = False, dimension: int = None) -> bytes:
+    """An SGI image of (z, h, w) ``channels`` in display order (rows are
+    stored bottom up), raw planes or run-length rows with their tables."""
+    import struct
+    import numpy as np
+    c = np.asarray(channels)
+    z, h, w = c.shape
+    dimension = dimension or (2 if z == 1 else 3)
+    head = struct.pack(">HBBHHHHIIi", 474, 1 if rle else 0, bpc, dimension, w, h, z, 0,
+                       255 if bpc == 1 else 65535, 0).ljust(512, b"\0")
+    flipped = c[:, ::-1]
+    if not rle:
+        return head + flipped.astype(">u2" if bpc == 2 else np.uint8).tobytes()
+    rows = [sgi_rle_row(flipped[k, y], bpc) for k in range(z) for y in range(h)]
+    at, starts = 512 + 8 * z * h, []
+    for r in rows:
+        starts.append(at)
+        at += len(r)
+    return head + struct.pack(f">{z * h}I{z * h}I", *starts, *map(len, rows)) + b"".join(rows)
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun raster run-length coding: 0x80 n v for n + 1 copies of v, 0x80 0
+    for a literal 0x80, other bytes as they are."""
+    import numpy as np
+    out = bytearray()
+    for start, n in value_runs(np.frombuffer(bytes(data), np.uint8)):
+        v = data[start]
+        for i in range(0, n, 256):
+            k = min(256, n - i)
+            if k >= 3 or (v == 0x80 and k == 2):
+                out += bytes([0x80, k - 1, v])
+            else:
+                out += (b"\x80\x00" if v == 0x80 else bytes([v])) * k
+    return bytes(out)
+
+
+def sun_file(rows, w: int, h: int, depth: int, *, file_type: int = 1, palette: bytes = b"") -> bytes:
+    """A Sun raster file of ``rows`` (bytes in file order): raw rows padded
+    to 16 bits, or for ``file_type`` 2 unpadded rows run-length coded; a
+    planar RGB ``palette``."""
+    import struct
+    stride = ((w * depth + 15) // 16) * 2
+    if file_type == 2:
+        body = sun_rle(b"".join(bytes(r) for r in rows))
+    else:
+        body = b"".join(bytes(r).ljust(stride, b"\0") for r in rows)
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), file_type,
+                       1 if palette else 0, len(palette)) + bytes(palette) + body
+
+
+def msp_file(ink, version: int = 2) -> bytes:
+    """A Windows Paint file of (h, w) bool ``ink`` (set: black): version 1
+    raw rows, version 2 a row map and run-length rows (0 n v runs, literal
+    runs of up to 255 bytes)."""
+    import struct
+    import numpy as np
+    h, w = ink.shape
+    rows = np.packbits(~np.asarray(ink, bool), axis=1)
+    words = [0x6144, 0x4D6E, w, h, 1, 1, 1, 1, 0, 0, 1, 1, 0, 0, 0, 0]
+    if version == 2:
+        words[:2] = [0x694C, 0x536E]
+    for v in words[:12]:
+        words[12] ^= v
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    coded = []
+    for r in rows:
+        out, lit = bytearray(), bytearray()
+
+        def flush():
+            for i in range(0, len(lit), 255):
+                out.append(len(lit[i:i + 255]))
+                out.extend(lit[i:i + 255])
+            lit.clear()
+        for start, n in value_runs(r):
+            if n < 3:
+                lit.extend(r[start:start + n].tobytes())
+                continue
+            flush()
+            for i in range(0, n, 255):
+                out += bytes([0, min(255, n - i), int(r[start])])
+        flush()
+        coded.append(bytes(out))
+    return head + struct.pack(f"<{h}H", *map(len, coded)) + b"".join(coded)
+
+
+def qoi_file(pixels, channels: int = None) -> bytes:
+    """A QOI file of (h, w, 3 or 4) uint8 ``pixels``: the reference
+    encoder's ops (run, index, diff, luma, RGB, RGBA) and its end marker."""
+    import struct
+    import numpy as np
+    a = np.asarray(pixels, np.uint8)
+    h, w, k = a.shape
+    px = np.concatenate([a, np.full((h, w, 1), 255, np.uint8)], 2) if k == 3 else a
+    flat = px.reshape(-1, 4)
+    out, seen, prev = bytearray(), [[0, 0, 0, 0]] * 64, [0, 0, 0, 255]
+    for start, n in value_runs(flat):
+        p = flat[start].tolist()
+        if p != prev:
+            h6 = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+            if seen[h6] == p:
+                out.append(h6)
+            else:
+                seen[h6] = p
+                dr, dg, db = ((p[c] - prev[c] + 128) % 256 - 128 for c in range(3))
+                if p[3] != prev[3]:
+                    out += bytes([0xFF] + p)
+                elif -2 <= dr <= 1 and -2 <= dg <= 1 and -2 <= db <= 1:
+                    out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+                elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and -8 <= db - dg <= 7:
+                    out += bytes([0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)])
+                else:
+                    out += bytes([0xFE] + p[:3])
+            prev, n = p, n - 1
+        for i in range(0, n, 62):
+            out.append(0xC0 | (min(62, n - i) - 1))
+    return (b"qoif" + struct.pack(">IIBB", w, h, channels or k, 0) + bytes(out)
+            + bytes(7) + b"\x01")
+
+
+# The formats of c21_files that the port reads since A.6.33-A.6.42.
+C21_READ = ("CUR", "DCX", "DIB", "ICO", "MSP", "PCX", "QOI", "SGI", "SUN", "TGA")
+
+
+def c21_greys() -> dict:
+    """The greys ``c21_files``' files of ``C21_READ`` hold: the 6 x 9 ramp,
+    MSP's its ink (below 100) black and the rest white."""
+    import numpy as np
+    g = (np.arange(54).reshape(6, 9) * 4).astype(np.uint8)
+    return {f: np.where(g < 100, 0, 255).astype(np.uint8) if f == "MSP" else g for f in C21_READ}
+
+
+def a6_raster_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of A.6.33-A.6.42, built without PIL from
+    scan_420.jpg's grey, the RLE variant where the format has one: a DIB
+    (8-bit, a grey palette), TGA (type 11, grey RLE, bottom-up), PCX (8-bit,
+    the identity palette: mode L), DCX (that PCX as its one page), ICO of
+    an 8-bit bitmap and ICO of a PNG icon (the page larger than the
+    directory's 256), CUR (an 8-bit bitmap), SGI (grey RLE), SUN (type 2,
+    8-bit RLE), MSP (version 2, the ink below 128) and QOI (RGB). Each is
+    held to a digest of PIL's grey of the same bytes (a6_pages.sha256)."""
+    import numpy as np
+    from siggan_tpu_torch.infer.export import encode_png
+    grey = golden["scan_420.jpg"]
+    h, w = grey.shape
+    pcx = pcx_grey(grey)
+    return {
+        "dib_page.dib": bmp_grey(grey)[14:],
+        "tga_rle_page.tga": tga_file(grey, 11, 8, flags=0),
+        "pcx_page.pcx": pcx,
+        "dcx_page.dcx": dcx_file([pcx]),
+        "ico_bitmap_page.ico": ico_file([(0, 0, 0, 1, 8, icon_dib(grey, 8))]),
+        "ico_png_page.ico": ico_file([(0, 0, 0, 1, 32, encode_png(grey))]),
+        "cur_page.cur": ico_file([(0, 0, 0, 1, 0, icon_dib(grey, 8))], b"\0\0\2\0"),
+        "sgi_rle_page.sgi": sgi_file(grey[None], 1, rle=True),
+        "sun_rle_page.ras": sun_file([r.tobytes() for r in grey], w, h, 8, file_type=2),
+        "msp_page.msp": msp_file(grey < 128, 2),
+        "qoi_page.qoi": qoi_file(np.repeat(grey[..., None], 3, 2)),
+    }
+
+
+# The formats of A.6.33-A.6.42 in phase 12's raster tree, in turns (ICO with
+# a bitmap and with a PNG icon).
+RASTER_TREE_KINDS = ("DIB", "TGA", "PCX", "DCX", "ICO", "ICO-PNG", "CUR", "SGI", "SUN", "MSP", "QOI")
+
+
+def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
+    """(bytes, the grey PIL reads back) of a uint8 (H, W) scan as a file of
+    ``kind`` (``RASTER_TREE_KINDS``): lossless, but MSP's 1 bit (the ink
+    below 128, black); an ICO's PNG icon is ``png`` (the grey's PNG)."""
+    import numpy as np
+    h, w = grey.shape
+    if kind == "ICO-PNG" and png is None:
+        from siggan_tpu_torch.infer.export import encode_png
+        png = encode_png(grey)
+    if kind == "MSP":
+        return msp_file(grey < 128, 2), np.where(grey < 128, 0, 255).astype(np.uint8)
+    data = {"DIB": lambda: bmp_grey(grey)[14:],
+            "TGA": lambda: tga_file(grey, 11, 8),
+            "PCX": lambda: pcx_grey(grey),
+            "DCX": lambda: dcx_file([pcx_grey(grey)]),
+            "ICO": lambda: ico_file([(w, h, 0, 1, 8, icon_dib(grey, 8))]),
+            "ICO-PNG": lambda: ico_file([(w, h, 0, 1, 32, png)]),
+            "CUR": lambda: ico_file([(w, h, 0, 1, 0, icon_dib(grey, 8))], b"\0\0\2\0"),
+            "SGI": lambda: sgi_file(grey[None], 1, rle=True),
+            "SUN": lambda: sun_file([r.tobytes() for r in grey], w, h, 8, file_type=2),
+            "QOI": lambda: qoi_file(np.repeat(grey[..., None], 3, 2))}[kind]()
+    return data, grey
+
+
 # The decoder fixtures of A.6.7-A.6.12 (tests/test_torch_port_decode.py::
 # write_fixtures).
 LAYOUT_FIXTURES = ("bigtiff_lzw.tif", "planar_rgb.tif", "planar_cmyk_raw.tif", "ycbcr_22.tif",
@@ -3373,9 +3800,12 @@ def decode_phase(card: str, work: str, build_s: float):
     those layouts in turns and whose PNGs are in turns GIF and PGM files
     named .png, then SOF11 JPEGs added to it: zero images in the dataset,
     and ``cli.preprocess`` stops on one; the same scans as WebP files
-    under .jpg and .png names (``webp_tree_step``); then a tree for each
-    format PIL opens and the port does not read: the build stops naming it
-    (A.6). ``build_s``: the library's g++ build, timed where it was built."""
+    under .jpg and .png names (``webp_tree_step``) and in the formats of
+    A.6.33-A.6.42 (``raster_tree_step``; their pages, ``a6_raster_pages``,
+    held to PIL's grey by digest and timed); then the C.21 files the port
+    now reads, and a tree for each format PIL opens and the port does not
+    read: the build stops naming it (A.6). ``build_s``: the library's g++
+    build, timed where it was built."""
     import shutil
     import numpy as np
     import torch
@@ -3438,7 +3868,8 @@ def decode_phase(card: str, work: str, build_s: float):
     digests = dict(reversed(line.split()) for line in
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
     a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
-          **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden), **a6_gif_pnm_pages(golden)}
+          **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden), **a6_gif_pnm_pages(golden),
+          **a6_raster_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -3584,18 +4015,37 @@ def decode_phase(card: str, work: str, build_s: float):
               "WebP 1200x500, lossless (Pillow's 'VP8L', grey)": (
                   [WEBP_PAGES / "webp_lossless_page.webp"], 20),
               "WebP 1200x500, lossy with alpha (Pillow's VP8X + ALPH, q80)": (
-                  [WEBP_PAGES / "webp_alpha_page.webp"], 20)}
+                  [WEBP_PAGES / "webp_alpha_page.webp"], 20),
+              "DIB 1200x500 (8-bit, a grey palette)": ([Path(work) / "dib_page.dib"], 100),
+              "TGA 1200x500 (grey RLE, type 11)": ([Path(work) / "tga_rle_page.tga"], 100),
+              "PCX 1200x500 (8-bit RLE, mode L)": ([Path(work) / "pcx_page.pcx"], 100),
+              "DCX 1200x500 (that PCX as its page)": ([Path(work) / "dcx_page.dcx"], 100),
+              "ICO 1200x500 (an 8-bit bitmap and its mask)": ([Path(work) / "ico_bitmap_page.ico"], 100),
+              "CUR 1200x500 (an 8-bit bitmap and its mask)": ([Path(work) / "cur_page.cur"], 100),
+              "SGI 1200x500 (grey RLE)": ([Path(work) / "sgi_rle_page.sgi"], 100),
+              "SUN 1200x500 (8-bit RLE, type 2)": ([Path(work) / "sun_rle_page.ras"], 100),
+              "MSP 1200x500 (version 2 RLE, 1 bit)": ([Path(work) / "msp_page.msp"], 100),
+              "QOI 1200x500 (RGB)": ([Path(work) / "qoi_page.qoi"], 100)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
         for threads in (1, 8):
             native.decode_files(files, threads)
             t0 = time.perf_counter()
-            _, status, _ = native.decode_files(paths, threads)
+            _, status, _, _ = native.decode_files(paths, threads)
             dt = time.perf_counter() - t0
             if (status != native.OK).any():
                 raise AssertionError(f"batch decode of {fmt}: statuses {set(status.tolist())}")
             rates[f"{fmt}, {threads} thread{'s' if threads > 1 else ''}"] = len(paths) / dt
+    # The ICO of a PNG icon comes back from the C++ batch as a PNG stream:
+    # decode_images decodes it (decode_png) and resizes it to 64.
+    icos = [Path(work) / "ico_png_page.ico"] * 40
+    for threads in (1, 8):
+        ds_mod.decode_images(icos[:2], 64, n_threads=threads)
+        t0 = time.perf_counter()
+        ds_mod.decode_images(icos, 64, n_threads=threads)
+        rates[f"ICO 1200x500 of a PNG icon (decode_images: decode_png, resized to 64), {threads} "
+              f"thread{'s' if threads > 1 else ''}"] = len(icos) / (time.perf_counter() - t0)
     pngs = [FIXTURES / n for n in golden if n.endswith(".png")] * 30
     for threads in (1, 8, None):
         t0 = time.perf_counter()
@@ -3697,10 +4147,21 @@ def decode_phase(card: str, work: str, build_s: float):
     for p in sof11_paths:
         p.unlink()
     webp = webp_tree_step(card, work)
+    raster = raster_tree_step(card, work)
     # C.21: a file of each format PIL opens and the port does not read, named
-    # .png beside a scan: the build stops naming the format and A.6.
-    stops = {}
-    for fmt, data in c21_files().items():
+    # .png beside a scan: the build stops naming the format and A.6. The ten
+    # formats of A.6.33-A.6.42 read, bit-equal to the greys they were built
+    # from (PIL's, tests/test_torch_port_pil_formats.py).
+    stops, c21 = {}, c21_files()
+    for fmt in C21_READ:
+        want = c21_greys()[fmt]
+        path = Path(work) / "c21_read" / f"{fmt}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(c21.pop(fmt))
+        got = ds_mod.decode_gray(path)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"the C.21 {fmt} file: not the grey it was built from")
+    for fmt, data in c21.items():
         tree = Path(work) / "c21_tree" / fmt
         tree.mkdir(parents=True, exist_ok=True)
         shutil.copy(jpegs[0], tree / "w00_scan.jpg")
@@ -3711,9 +4172,11 @@ def decode_phase(card: str, work: str, build_s: float):
             stops[fmt] = str(e)
         if fmt not in stops or fmt not in stops[fmt] or "ROADMAP A.6" not in stops[fmt]:
             raise AssertionError(f"a {fmt} file named .png: the build did not stop naming {fmt} and A.6")
-    print(f"decode: C.21: {len(stops)} trees, each a scan and one file of a format PIL opens and "
-          f"the port does not read, named .png ({', '.join(stops)}): each build stopped with "
-          f"NotImplementedError naming its format and ROADMAP A.6 (ICO: {stops['ICO']!r})", flush=True)
+    print(f"decode: C.21: {', '.join(C21_READ)} (A.6.33-A.6.42) files named .png read bit-equal "
+          f"to the greys they were built from; {len(stops)} trees, each a scan and one file of a "
+          f"format PIL opens and the port does not read, named .png ({', '.join(stops)}): each build "
+          f"stopped with NotImplementedError naming its format and ROADMAP A.6 (PSD: "
+          f"{stops['PSD']!r})", flush=True)
     print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}, of the .png "
           f"{json.dumps(png_named)} other formats under a .png name; the TIFFs "
           f"{json.dumps(layouts)}) written in "
@@ -3726,6 +4189,7 @@ def decode_phase(card: str, work: str, build_s: float):
           f"cli.preprocess on a tree holding one: ValueError ({refusal}) [{card}]", flush=True)
     png = png_tree_phase(card, work)
     return {"build_s": build_s, "images_per_s": rates, "preprocess_s": pre_s, "webp_tree": webp,
+            "raster_tree": raster,
             "preprocess_host_decode_s": host_s, "dataset_s": ds_s,
             "host_ms_per_scan": {k: [1e3 * d / kinds[k], 1e3 * c / kinds[k]]
                                  for k, (d, c) in per_kind.items()},
@@ -3796,6 +4260,90 @@ def webp_tree_step(card: str, work: str, run=None) -> dict:
           f"PNGs' [{card}]", flush=True)
     return {"write_s": write_s, "preprocess_s": pre_s, "dataset_s": ds_s,
             "written": len(rep["processed"]), "invalid": len(rep["invalid"])}
+
+
+def _write_raster_scan(job) -> int:
+    """A worker of ``raster_tree_step``: (kind, grey, the scan's PNG, path)
+    -> the file's size, written."""
+    kind, grey, png, path = job
+    data = raster_scan(kind, grey, png)[0]
+    Path(path).write_bytes(data)
+    return len(data)
+
+
+# What cli.preprocess writes and refuses of phase 11's 1320 scans written in
+# the formats of A.6.33-A.6.42 (raster_tree_step), on the CPU
+# (scripts/raster_tree_cpu.py).
+RASTER_TREE_CPU_COUNTS = (1171, 149)
+
+
+def raster_tree_step(card: str, work: str, run=None) -> dict:
+    """Phase 12's raster tree (A.6.33-A.6.42): phase 11's 1320 scans, each
+    written here without PIL in the formats of ``RASTER_TREE_KINDS`` in
+    turns, under .png and .bmp names in turns (the datasets list only the
+    JAX package's six extensions, so not .tga, .pcx, ...). ``cli.preprocess``
+    must write and refuse as many scans as on the CPU
+    (``RASTER_TREE_CPU_COUNTS``) and the ones phase 11 did from the lossless
+    kinds' PNGs; a ``SignatureDataset`` of the tree must equal the greys
+    the files were built from (the PNGs' but MSP's 1 bit). ``run`` runs a
+    CLI (``run_cli``; ``scripts/raster_tree_cpu.py`` adds ``--device cpu``)."""
+    import numpy as np
+    import torch
+    from siggan_tpu_torch.cli import preprocess as pre_cli
+    from siggan_tpu_torch.data import dataset as ds_mod
+    from siggan_tpu_torch.infer.export import decode_png
+    run = run or run_cli
+    raw, tree = Path(work) / "scans", Path(work) / "raster_scans"
+    pngs = sorted(raw.rglob("*.png"))
+    # The encoders are numpy and Python loops: 8 worker processes write the
+    # files (spawned: this process may hold the card).
+    import concurrent.futures
+    import multiprocessing
+    t0 = time.perf_counter()
+    kinds, expected, jobs = {}, {}, []
+    for i, p in enumerate(pngs):
+        kind = RASTER_TREE_KINDS[i % len(RASTER_TREE_KINDS)]
+        png = p.read_bytes()
+        grey = decode_png(png)[..., 0]
+        (tree / p.parent.name).mkdir(parents=True, exist_ok=True)
+        name = tree / p.parent.name / f"{p.stem}{'.bmp' if (i // len(RASTER_TREE_KINDS)) % 2 else '.png'}"
+        jobs.append((kind, grey, png, str(name)))
+        kinds[kind] = kinds.get(kind, 0) + 1
+        expected[p.stem] = (kind, np.where(grey < 128, 0, 255).astype(np.uint8) if kind == "MSP" else grey)
+    with concurrent.futures.ProcessPoolExecutor(
+            min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")) as pool:
+        sizes = list(pool.map(_write_raster_scan, jobs, chunksize=16))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(pre_cli.main, ["--input_dir", str(tree), "--output_dir", str(Path(work) / "raster_clean")])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rep = json.loads((Path(work) / "raster_clean" / "preprocess_report.json").read_text())
+    counts = (len(rep["processed"]), len(rep["invalid"]))
+    want = json.loads((Path(work) / "clean" / "preprocess_report.json").read_text())
+
+    def lossless(names):
+        return sorted(Path(n).stem for n in names if expected[Path(n).stem][0] != "MSP")
+    if (len(pngs) != 1320 or any(lossless(rep[k]) != lossless(want[k]) for k in ("processed", "invalid"))
+            or (RASTER_TREE_CPU_COUNTS is not None and counts != RASTER_TREE_CPU_COUNTS)):
+        raise AssertionError(f"cli.preprocess on the raster tree: {counts[0]} written, {counts[1]} "
+                             f"invalid; on the CPU {RASTER_TREE_CPU_COUNTS}; the lossless kinds' scans "
+                             "not the ones phase 11 wrote and refused from their PNGs")
+    t0 = time.perf_counter()
+    ds = ds_mod.SignatureDataset(tree, 64, use_cache=False)
+    ds_s = time.perf_counter() - t0
+    ref = np.stack([ds_mod._scaled(expected[p.stem][1], 64) for p in ds.paths])
+    if len(ds.paths) != 1320 or not np.array_equal(ds.images, ref):
+        raise AssertionError("SignatureDataset of the raster tree: not the arrays of the greys written")
+    print(f"decode: raster tree of 1320 scans (phase 11's, {json.dumps(kinds)}, under .png and .bmp "
+          f"names in turns; {sum(sizes) / len(sizes) / 1e3:.1f} KB a file) written in {write_s:.2f} s; "
+          f"cli.preprocess {pre_s:.2f} s ({1320 / pre_s:.1f} images/s), {counts[0]} written, "
+          f"{counts[1]} invalid (on the CPU {RASTER_TREE_CPU_COUNTS}), the lossless kinds' scans the "
+          f"ones phase 11 wrote and refused from their PNGs; SignatureDataset {ds_s:.2f} s "
+          f"({1320 / ds_s:.1f} images/s), its arrays the greys written [{card}]", flush=True)
+    return {"write_s": write_s, "preprocess_s": pre_s, "dataset_s": ds_s, "written": counts[0],
+            "invalid": counts[1], "kinds": kinds}
 
 
 def mixed_tiff(grey, turn: int):
@@ -3880,8 +4428,8 @@ def pool_label(ds_mod, paths, threads) -> str:
     """'N threads', or for ``threads`` None the default pool's size."""
     if threads is None:
         from siggan_tpu_torch.data.native import loader as native
-        grays, status, _ = native.decode_files(paths[:8])
-        n = ds_mod.pool_threads(paths[:8], grays, status, min(8, os.cpu_count() or 1))
+        grays, status, _, png_at = native.decode_files(paths[:8])
+        n = ds_mod.pool_threads(paths[:8], grays, status, png_at, min(8, os.cpu_count() or 1))
         return f"default ({n} thread{'s' if n > 1 else ''})"
     return f"{threads} thread{'s' if threads > 1 else ''}"
 

@@ -56,15 +56,14 @@ def load_canvas(path: Path, canvas: int) -> tuple[np.ndarray, tuple[int, int]]:
     """Decode to grayscale and letterbox onto a white (canvas, canvas)
     float32 array at the top-left; returns it and the image's (h, w).
     Images larger than the canvas are downscaled (aspect kept) first."""
-    from siggan_tpu_torch.data.dataset import decode_gray
-    from siggan_tpu_torch.data.native import loader as native
+    from siggan_tpu_torch.data.dataset import read_gray, resize
 
-    gray = decode_gray(path)
+    gray, nearest = read_gray(path)
     h, w = gray.shape
     if max(w, h) > canvas:
         s = canvas / max(w, h)
         w, h = max(1, int(w * s)), max(1, int(h * s))
-        gray = native.resize_bilinear(gray, w, h)
+        gray = resize(gray, w, h, nearest)
     out = np.full((canvas, canvas), 255.0, np.float32)
     out[:h, :w] = gray
     return out, (h, w)

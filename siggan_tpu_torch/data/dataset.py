@@ -7,9 +7,11 @@ decode-free (its name carries the decoder's version,
 ``data/native/loader.py::DECODE_VERSION``, and is not the JAX package's
 cache name). The files are those the JAX package reads (.png, .jpg, .jpeg,
 .bmp, .tiff, .tif), each decoded by its content, not its name, with no
-imaging package: PNG by ``infer/export.decode_png``, JPEG, BMP, TIFF, GIF
-and Netpbm by the port's C++ decoder (``data/native/``), the whole set on several
-threads; each gives PIL's ``convert("L")`` grey bit for bit. Images of
+imaging package: PNG (and an ICO file's PNG icon) by
+``infer/export.decode_png``, JPEG, BMP, TIFF, GIF, Netpbm, WebP, DIB, ICO,
+CUR, TGA, PCX, DCX, SGI, SUN, MSP and QOI by the port's C++ decoder
+(``data/native/``), the whole set on several threads; each gives PIL's
+``convert("L")`` grey bit for bit. Images of
 another size are resized by the same C++ library
 (``data/native/loader.py::resize_bilinear``), bit-equal with the PIL
 ``resize(..., Image.BILINEAR)`` that the JAX package calls and with
@@ -62,23 +64,39 @@ def _to_gray(u8: np.ndarray) -> np.ndarray:
              + 0x8000) >> 16).astype(np.uint8)
 
 
+def read_gray(path: str | Path) -> Tuple[np.ndarray, bool]:
+    """``decode_gray``'s grey, and whether PIL resizes it nearest (its
+    ``convert("L")`` left the image in mode P: a grey TGA with a colour
+    map)."""
+    data = Path(path).read_bytes()
+    got = native.decode_or_png(data, str(path))
+    if got.gray is None:
+        return _to_gray(decode_png(data[got.png_at:])), False
+    return got.gray, got.nearest
+
+
 def decode_gray(path: str | Path) -> np.ndarray:
     """An image file as uint8 (H, W) grey, PIL's ``convert("L")``; the
     format comes from the file's bytes, as PIL's ``Image.open`` finds it.
     Raises ``NotImplementedError`` naming the format for a file PIL reads,
-    of a kind not read yet (a PGM saved as ``.png`` reads; an ICO saved as
-    ``.png`` raises naming ICO and ROADMAP A.6), ``ValueError`` (or
-    ``OSError``) for a corrupt (or unreadable) one or one PIL refuses."""
-    data = Path(path).read_bytes()
-    if data.startswith(b"\x89PNG\r\n\x1a\n"):
-        return _to_gray(decode_png(data))
-    return native.decode(data, str(path))
+    of a kind not read yet (a PGM or an ICO saved as ``.png`` reads; an
+    XBM saved as ``.png`` raises naming XBM and ROADMAP A.6), ``ValueError``
+    (or ``OSError``) for a corrupt (or unreadable) one or one PIL refuses.
+    A PNG stream (a PNG file, an ICO file's PNG icon) goes to
+    ``decode_png``."""
+    return read_gray(path)[0]
 
 
-def _scaled(gray: np.ndarray, image_size: int) -> np.ndarray:
+def resize(gray: np.ndarray, width: int, height: int, nearest: bool = False) -> np.ndarray:
+    """PIL's ``resize(..., Image.BILINEAR)`` of a grey, which PIL does
+    nearest for an image of mode P (``read_gray``)."""
+    return (native.resize_nearest if nearest else native.resize_bilinear)(gray, width, height)
+
+
+def _scaled(gray: np.ndarray, image_size: int, nearest: bool = False) -> np.ndarray:
     """uint8 grey (+ resize to (s, s)) -> [-1, 1] float32 (s, s, 1)."""
     if gray.shape != (image_size, image_size):
-        gray = native.resize_bilinear(gray, image_size, image_size)
+        gray = resize(gray, image_size, image_size, nearest)
     return (gray.astype(np.float32) / 255.0 * 2.0 - 1.0)[:, :, None]
 
 
@@ -93,10 +111,10 @@ def decode_image(path: Path, image_size: int) -> np.ndarray:
     and a warning (the reference's fallback); ``NotImplementedError`` (a
     kind PIL reads and the port not yet) passes through."""
     try:
-        gray = decode_gray(path)
+        gray, nearest = read_gray(path)
     except DECODE_ERRORS as e:
         return _zero_image(path, image_size, e)
-    return _scaled(gray, image_size)
+    return _scaled(gray, image_size, nearest)
 
 
 # The Python pool pays once the files it decodes or resizes average about
@@ -107,43 +125,47 @@ def decode_image(path: Path, image_size: int) -> np.ndarray:
 POOL_MIN_PIXELS = 1 << 17
 
 
-def _png_pixels(path: Path) -> int:
-    """Width x height from a PNG's IHDR (0 if the header is cut short)."""
+def _png_pixels(path: Path, at: int = 0) -> int:
+    """Width x height from the IHDR of the PNG stream at ``at`` (0 if the
+    header is cut short)."""
     with open(path, "rb") as f:
+        f.seek(at)
         head = f.read(24)
     return int.from_bytes(head[16:20], "big") * int.from_bytes(head[20:24], "big")
 
 
-def pool_threads(paths: List[Path], grays, status, threads: int) -> int:
+def pool_threads(paths: List[Path], grays, status, png_at, threads: int) -> int:
     """The Python pool's size for ``decode_images``: ``threads`` when the
-    files it decodes (PNG) or resizes (the rest) average ``POOL_MIN_PIXELS``
-    or more, else 1 (on small files the interpreter lock's hand-offs cost
-    more than the work that runs without it)."""
-    px = [_png_pixels(p) if s == native.PNG else grays[i].size
-          for i, (p, s) in enumerate(zip(paths, status)) if s in (native.PNG, native.OK)]
+    files it decodes (PNG streams, at ``png_at``) or resizes (the rest)
+    average ``POOL_MIN_PIXELS`` or more, else 1 (on small files the
+    interpreter lock's hand-offs cost more than the work that runs without
+    it); the greys, statuses and offsets are ``native.decode_files``'."""
+    px = [_png_pixels(p, int(png_at[i])) if s == native.PNG else grays[i].size
+          for i, (p, s) in enumerate(zip(paths, status)) if s in (native.PNG, native.OK, native.INDICES)]
     return threads if px and sum(px) >= POOL_MIN_PIXELS * len(px) else 1
 
 
 def decode_images(paths: List[Path], image_size: int,
                   n_threads: Optional[int] = None) -> np.ndarray:
-    """``decode_image`` of every path -> (N, s, s, 1) float32: JPEG, BMP and
-    TIFF files in the C++ decoder's own threads (up to 8, one per core);
-    then PNG files (zlib and the C++ row unfilter, both of which release the
-    interpreter lock) and every resize (C++, which releases it too) on a
-    pool of Python threads, as many as ``pool_threads`` gives. ``n_threads`` fixes both counts."""
+    """``decode_image`` of every path -> (N, s, s, 1) float32: every file
+    but PNG streams in the C++ decoder's own threads (up to 8, one per
+    core); then PNG streams (PNG files and ICO files' PNG icons: zlib and
+    the C++ row unfilter, both of which release the interpreter lock) and
+    every resize (C++, which releases it too) on a pool of Python threads,
+    as many as ``pool_threads`` gives. ``n_threads`` fixes both counts."""
     threads = n_threads or min(8, os.cpu_count() or 1)
-    grays, status, msgs = native.decode_files(paths, threads)
-    pool_size = n_threads or pool_threads(paths, grays, status, threads)
+    grays, status, msgs, png_at = native.decode_files(paths, threads)
+    pool_size = n_threads or pool_threads(paths, grays, status, png_at, threads)
 
     def one(i: int) -> np.ndarray:
         p = paths[i]
         if status[i] == native.PNG:
             try:
-                return _scaled(_to_gray(decode_png(p.read_bytes())), image_size)
+                return _scaled(_to_gray(decode_png(p.read_bytes()[png_at[i]:])), image_size)
             except DECODE_ERRORS as e:
                 return _zero_image(p, image_size, e)
-        if status[i] == native.OK:
-            return _scaled(grays[i], image_size)
+        if status[i] in (native.OK, native.INDICES):
+            return _scaled(grays[i], image_size, status[i] == native.INDICES)
         err = native.error(int(status[i]), msgs[i], str(p))
         if isinstance(err, NotImplementedError):
             raise err

@@ -30,7 +30,13 @@
 //
 // BMP: as PIL's BmpImagePlugin reads it (1/4/8-bit palettes, 16-bit 555 and
 // 565, 24-bit, 32-bit, BI_BITFIELDS, RLE4/RLE8 with PIL's own RLE rules,
-// bottom-up and top-down rows).
+// bottom-up and top-down rows), through one DIB reader that also reads DIB
+// files, cursors (CUR) and the bitmaps of icons (ICO).
+//
+// TGA, PCX (and DCX's first page), SGI, SUN raster, MSP and QOI: as Pillow's
+// plugins and its C decoders (TgaRleDecode.c, PcxDecode.c, SgiRleDecode.c,
+// SunRleDecode.c) and Python ones (MspDecoder, QoiDecoder) read them, their
+// end-of-data and overrun rules included.
 //
 // TIFF: the first page, classic or BigTIFF, strips or tiles, chunky or
 // planar, either byte order, either FillOrder, no compression, PackBits,
@@ -73,8 +79,11 @@
 //
 // Every entry returns a status: 0 ok, 1 corrupt (truncated or malformed
 // data, or a kind PIL itself refuses), 2 unsupported (a file PIL reads, of a
-// kind not read here yet), 3 the file could not be read, 4 a PNG file
-// (decoded by the Python side).
+// kind not read here yet), 3 the file could not be read, 4 a PNG stream,
+// decoded by the Python side: a PNG file, or the PNG icon of an ICO file's
+// largest entry (the stream's offset in the file handed back in the
+// width's place), 5 ok, where PIL's convert("L") gives an image of mode P
+// (a grey TGA with a colour map: its indices), which PIL resizes nearest.
 
 #include <algorithm>
 #include <atomic>
@@ -98,7 +107,7 @@ int decode(const uint8_t* data, size_t size, int64_t max_pixels, std::vector<uin
 
 namespace {
 
-enum Status { kOk = 0, kCorrupt = 1, kUnsupported = 2, kUnreadable = 3, kPng = 4 };
+enum Status { kOk = 0, kCorrupt = 1, kUnsupported = 2, kUnreadable = 3, kPng = 4, kIndices = 5 };
 
 struct DecodeError {
   int status;
@@ -111,6 +120,8 @@ struct DecodeError {
 struct Gray {
   int w = 0, h = 0;
   std::vector<uint8_t> px;
+  int64_t png_at = -1;   // an icon's PNG stream, handed back to the Python side (kPng)
+  bool indices = false;  // PIL's convert("L") leaves the image in mode P (kIndices)
 };
 
 inline uint8_t luma(int r, int g, int b) {
@@ -2006,135 +2017,166 @@ struct Palette {
   uint8_t grey[256] = {0};
 };
 
-// A kind PIL's BmpImagePlugin refuses (a header size, bit depth, bitfields
-// layout, compression or palette size it does not know) is corrupt here too.
-Gray decode_bmp(const uint8_t* d, size_t n) {
-  if (n < 18) corrupt("BMP file ends early");
-  uint32_t offset = le32(d + 10);
-  uint32_t hsize = le32(d + 14);
-  if (14 + (size_t)hsize > n) corrupt("BMP header ends early");
-  const uint8_t* hd = d + 18;  // the header after its size field
-  int64_t w, h;
-  int bits, compression, pal_pad;
-  bool top_down = false;
+// A device-independent bitmap as PIL's BmpImageFile._bitmap reads it: a BMP
+// after its 14-byte file header, a DIB, a cursor (CUR) and an icon's
+// bitmap (ICO). `mode` is PIL's: 'P' a palette, 'L' a palette of grey
+// levels 0, 1, 2, ... whose pixels PIL unpacks a byte each ("L"), '1' the
+// palette (0, 255) whose pixels it unpacks a bit each ("1"), whatever the
+// bit depth (C.24); 'R' RGB or RGBA.
+struct Dib {
+  int64_t w = 0, h = 0;
+  int bits = 0;
+  uint32_t compression = 0;
+  bool top_down = false, rle = false;
+  char mode = 'R';
+  int layout = 0;            // 16 to 32-bit pixels: 15 (555), 16 (565), 24 (BGR), 32
+  int order[3] = {2, 1, 0};  // byte index of R, G, B within a 24- or 32-bit pixel
+  bool mappable = false;     // PIL's raw mode is its mode and one it maps ("L", "P", "RGBA")
+  bool too_many = false;     // a palette of more than 256 colours, which PIL's load refuses
+  Palette pal;
+  uint64_t offset = 0;       // where the pixel data starts
+};
+
+// The info header at `at`. `offset`: the pixel data's position from a BMP
+// file header, or 0 for none (DIB, CUR, ICO, and a BMP that gives 0: the
+// data starts where PIL's reads of the header, its masks and its palette
+// stop, C.23). Throws corrupt() where _bitmap raises OSError; returns false
+// where it fails in a way Image.open takes for "not this format" (the
+// header's size or a bitfield mask read past the file's end).
+bool dib_header(const uint8_t* d, size_t n, size_t at, uint64_t offset, Dib& b) {
+  if (at > n || n - at < 4) return false;
+  const uint32_t hsize = le32(d + at);
+  uint64_t pos = at + 4;
+  if (hsize > 4 && n - pos < hsize - 4) corrupt("BMP header ends early");
+  const uint8_t* hd = d + pos;
+  if (hsize > 4) pos += hsize - 4;
   uint32_t colors = 0;
   uint32_t masks[4] = {0, 0, 0, 0};
+  int pal_pad;
   if (hsize == 12) {
-    w = le16(hd);
-    h = le16(hd + 2);
-    bits = le16(hd + 6);
-    compression = 0;
+    b.w = le16(hd);
+    b.h = le16(hd + 2);
+    b.bits = le16(hd + 6);
     pal_pad = 3;
   } else if (hsize == 40 || hsize == 52 || hsize == 56 || hsize == 64 || hsize == 108 ||
              hsize == 124) {
-    top_down = hd[7] == 0xFF;
-    w = (int32_t)le32(hd);
-    uint32_t hh = le32(hd + 4);
-    h = top_down ? (int64_t)((uint64_t)1 << 32) - hh : hh;
-    bits = le16(hd + 10);
-    compression = (int)le32(hd + 12);
+    b.top_down = hd[7] == 0xFF;
+    b.w = le32(hd);
+    const uint32_t hh = le32(hd + 4);
+    b.h = b.top_down ? (int64_t)((uint64_t)1 << 32) - hh : hh;
+    b.bits = le16(hd + 10);
+    b.compression = le32(hd + 12);
     colors = le32(hd + 28);
     pal_pad = 4;
-    if (compression == 3) {
-      size_t have = hsize - 4;
-      if (have >= 48) {
-        int k = have >= 52 ? 4 : 3;
+    if (b.compression == 3) {
+      if (hsize - 4 >= 48) {
+        const int k = hsize - 4 >= 52 ? 4 : 3;
         for (int i = 0; i < k; ++i) masks[i] = le32(hd + 36 + 4 * i);
       } else {
-        if (14 + (size_t)hsize + 12 > n) corrupt("BMP header ends early");
-        for (int i = 0; i < 3; ++i) masks[i] = le32(d + 14 + hsize + 4 * i);
+        if (n - pos < 12) return false;
+        for (int i = 0; i < 3; ++i) masks[i] = le32(d + pos + 4 * i);
+        pos += 12;
       }
     }
   } else {
     corrupt("BMP header of " + std::to_string(hsize) + " bytes");
   }
-  if (colors == 0) colors = 1u << std::min(bits, 31);
-  if (offset == 14 + hsize && bits <= 8) offset += 4 * colors;
+  const uint64_t ncolors = colors ? colors : (uint64_t)1 << std::min(b.bits, 63);
+  if (offset == 14 + (uint64_t)hsize && b.bits <= 8) offset += 4 * ncolors;
+  const int bits = b.bits;
   if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
     corrupt(std::to_string(bits) + "-bit BMP");
-  check_size(w, h);
-  const int W = (int)w, H = (int)h;
-
-  // Channel layout of 16/24/32-bit pixels: (byte or field) positions of R, G, B.
-  enum { kRaw, kRle } decoder = kRaw;
-  int layout = 0;  // 15: 555, 16: 565, 24: BGR, 32: one of the 32-bit byte orders
-  int order[3] = {2, 1, 0};  // byte index of R, G, B within a 32-bit or 24-bit pixel
-  if (compression == 3) {
+  b.mode = bits <= 8 ? 'P' : 'R';
+  if (b.compression == 3) {
     if (bits == 32) {
-      struct M { uint32_t m[4]; int r, g, b; } known[] = {
-          {{0xFF0000, 0xFF00, 0xFF, 0x0}, 2, 1, 0},        // BGRX
-          {{0xFF000000, 0xFF0000, 0xFF00, 0x0}, 3, 2, 1},  // XBGR
-          {{0xFF000000, 0xFF00, 0xFF, 0x0}, 3, 1, 0},      // BGXR
-          {{0xFF000000, 0xFF0000, 0xFF00, 0xFF}, 3, 2, 1}, // ABGR
-          {{0xFF, 0xFF00, 0xFF0000, 0xFF000000}, 0, 1, 2}, // RGBA
-          {{0xFF0000, 0xFF00, 0xFF, 0xFF000000}, 2, 1, 0}, // BGRA
-          {{0xFF000000, 0xFF00, 0xFF, 0xFF0000}, 3, 1, 0}, // BGAR
-          {{0x0, 0x0, 0x0, 0x0}, 2, 1, 0}};                // BGRA
+      struct M { uint32_t m[4]; int r, g, b; bool rgba; } known[] = {
+          {{0xFF0000, 0xFF00, 0xFF, 0x0}, 2, 1, 0, false},         // BGRX
+          {{0xFF000000, 0xFF0000, 0xFF00, 0x0}, 3, 2, 1, false},   // XBGR
+          {{0xFF000000, 0xFF00, 0xFF, 0x0}, 3, 1, 0, false},       // BGXR
+          {{0xFF000000, 0xFF0000, 0xFF00, 0xFF}, 3, 2, 1, false},  // ABGR
+          {{0xFF, 0xFF00, 0xFF0000, 0xFF000000}, 0, 1, 2, true},   // RGBA
+          {{0xFF0000, 0xFF00, 0xFF, 0xFF000000}, 2, 1, 0, false},  // BGRA
+          {{0xFF000000, 0xFF00, 0xFF, 0xFF0000}, 3, 1, 0, false},  // BGAR
+          {{0x0, 0x0, 0x0, 0x0}, 2, 1, 0, false}};                 // BGRA
       bool found = false;
       for (const M& k : known)
         if (!memcmp(k.m, masks, sizeof masks)) {
-          order[0] = k.r;
-          order[1] = k.g;
-          order[2] = k.b;
+          b.order[0] = k.r;
+          b.order[1] = k.g;
+          b.order[2] = k.b;
+          b.mappable = k.rgba;
           found = true;
           break;
         }
       if (!found) corrupt("BMP bitfields layout");
-      layout = 32;
+      b.layout = 32;
     } else if (bits == 24 && masks[0] == 0xFF0000 && masks[1] == 0xFF00 && masks[2] == 0xFF) {
-      layout = 24;
+      b.layout = 24;
     } else if (bits == 16 && masks[0] == 0xF800 && masks[1] == 0x7E0 && masks[2] == 0x1F) {
-      layout = 16;
+      b.layout = 16;
     } else if (bits == 16 && masks[0] == 0x7C00 && masks[1] == 0x3E0 && masks[2] == 0x1F) {
-      layout = 15;
+      b.layout = 15;
     } else {
       corrupt("BMP bitfields layout");
     }
-  } else if (compression == 0) {
-    layout = bits == 16 ? 15 : bits;
-  } else if (compression == 1 || compression == 2) {
-    decoder = kRle;
+  } else if (b.compression == 0) {
+    b.layout = bits == 16 ? 15 : bits;
+  } else if (b.compression == 1 || b.compression == 2) {
+    b.rle = true;
   } else {
-    corrupt("BMP compression " + std::to_string(compression));
+    corrupt("BMP compression " + std::to_string(b.compression));
   }
 
-  Palette pal;
-  if (bits <= 8) {
-    if (colors == 0 || colors > 65536) corrupt("BMP palette size");
-    size_t pstart = 14 + hsize;
-    size_t avail = pstart < n ? std::min((size_t)pal_pad * colors, n - pstart) : 0;
-    size_t entries = std::min<size_t>(avail / pal_pad, 256);
-    // PIL's grayscale test: a palette of (v, v, v) for v = 0, 1, ... (or 0
-    // and 255 for two colours) makes the image "L" (or "1"), whose pixels
-    // are the indices themselves, past the palette too.
-    bool identity = entries == colors;
-    for (size_t i = 0; i < entries; ++i) {
-      const uint8_t* e = d + pstart + i * pal_pad;
-      int v = colors == 2 ? (i ? 255 : 0) : (int)i;
-      identity = identity && e[0] == v && e[1] == v && e[2] == v;
-      pal.grey[i] = luma(e[2], e[1], e[0]);
+  if (b.mode == 'P') {
+    if (ncolors == 0 || ncolors > 65536) corrupt("BMP palette size");
+    const size_t got = (size_t)std::min<uint64_t>(pal_pad * ncolors, pos < n ? n - pos : 0);
+    const uint8_t* p = d + pos;
+    // PIL's grayscale test: the palette (v, v, v) for v = 0, 1, ... (mod
+    // 256), or 0 and 255 for two colours, all of it in the file, makes the
+    // image "L" (or "1"), whose pixels are unpacked as such (C.24).
+    bool grey = true;
+    for (uint64_t i = 0; i < ncolors && grey; ++i) {
+      const int v = ncolors == 2 ? (i ? 255 : 0) : (int)(i & 255);
+      grey = i * pal_pad + 3 <= got && p[i * pal_pad] == v && p[i * pal_pad + 1] == v &&
+             p[i * pal_pad + 2] == v;
     }
-    if (identity)
-      for (int i = 0; i < 256; ++i) pal.grey[i] = colors == 2 ? (i ? 255 : 0) : (uint8_t)i;
+    if (grey) {
+      b.mode = ncolors == 2 ? '1' : 'L';
+      b.mappable = b.mode == 'L';
+    } else {
+      b.too_many = got / pal_pad > 256;
+      for (size_t i = 0; i < std::min<size_t>(got / pal_pad, 256); ++i) {
+        const uint8_t* e = p + i * pal_pad;
+        b.pal.grey[i] = luma(e[2], e[1], e[0]);
+      }
+      b.mappable = bits == 8 && !b.rle;
+    }
+    pos += got;
   }
+  b.offset = offset ? offset : std::min<uint64_t>(pos, n);
+  return true;
+}
 
-  if (offset > n) corrupt("BMP pixel data missing");
-  const size_t stride = (((size_t)W * bits + 31) >> 3) & ~(size_t)3;
-  if (decoder == kRaw && offset + stride * H > n) corrupt("BMP pixel data ends early");
+// PIL's grey of a DIB's first `rows` rows (all of them, or the XOR half of
+// a cursor or an icon). `mapped`: the file was opened by its name, so PIL
+// maps a tile of a mappable mode (Dib::mappable) whose rows fit in the file
+// and reads them where they lie, past the file's end as zeros; otherwise
+// its raw decoder unpacks each row from its own bytes.
+Gray dib_pixels(const uint8_t* d, size_t n, const Dib& b, int64_t rows, bool mapped) {
+  if (b.too_many) corrupt("BMP palette of more than 256 colours (PIL refuses it)");
+  const int W = (int)b.w, H = (int)rows;
   Gray g;
   g.w = W;
   g.h = H;
   g.px.resize((size_t)W * H);
-  if (decoder == kRle) {
-    if ((compression == 1 && bits != 8) || (compression == 2 && bits != 4))
-      corrupt("BMP RLE with the wrong bit depth");
+  if (b.rle) {
     // PIL's BmpRleDecoder, rule for rule (file positions count from the file's start).
-    bool rle4 = compression == 2;
+    const bool rle4 = b.compression == 2;
     std::vector<uint8_t> data;
-    size_t dest = (size_t)W * H, p = offset;
-    size_t x = 0;
+    const size_t dest = (size_t)W * H;
+    size_t p = b.offset < n ? (size_t)b.offset : n, x = 0;
     auto rd = [&](size_t k, std::vector<uint8_t>& out) {
-      size_t got = p < n ? std::min(k, n - p) : 0;
+      const size_t got = p < n ? std::min(k, n - p) : 0;
       out.assign(d + p, d + p + got);
       p += got;
       return got;
@@ -2160,18 +2202,18 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
       } else if (byte == 2) {
         if (rd(2, tmp) < 2) break;
         if (rd(2, tmp) < 2) corrupt("BMP RLE data ends early");
-        size_t right = tmp[0], up = tmp[1];
+        const size_t right = tmp[0], up = tmp[1];
         data.insert(data.end(), right + up * W, 0);
         x = data.size() % W;
       } else {
-        size_t count = rle4 ? byte / 2 : byte;
-        size_t got = rd(count, tmp);
-        for (uint8_t b : tmp) {
+        const size_t count = rle4 ? byte / 2 : byte;
+        const size_t got = rd(count, tmp);
+        for (uint8_t v : tmp) {
           if (rle4) {
-            data.push_back(b >> 4);
-            data.push_back(b & 15);
+            data.push_back(v >> 4);
+            data.push_back(v & 15);
           } else {
-            data.push_back(b);
+            data.push_back(v);
           }
         }
         if (got < count) break;
@@ -2180,26 +2222,47 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
       }
     }
     if (data.size() < dest) corrupt("BMP RLE data ends early");
+    // set_as_raw: raw mode "L" for an "L" image, else "P", which PIL has no
+    // unpacker of for a "1" or an RGB image (RLE at 1 or 16-32 bits); any
+    // bit depth of a palette reads the decoder's bytes (C.24).
+    if (b.mode == '1' || b.mode == 'R') corrupt("BMP RLE of a mode PIL has no raw mode P for");
     for (int y = 0; y < H; ++y) {
-      int src = top_down ? y : H - 1 - y;
-      for (int xx = 0; xx < W; ++xx) g.px[(size_t)src * W + xx] = pal.grey[data[(size_t)y * W + xx]];
+      const int src = b.top_down ? y : H - 1 - y;
+      uint8_t* o = &g.px[(size_t)src * W];
+      const uint8_t* s = &data[(size_t)y * W];
+      for (int xx = 0; xx < W; ++xx) o[xx] = b.mode == 'L' ? s[xx] : b.pal.grey[s[xx]];
     }
     return g;
   }
+  const uint64_t stride = (((uint64_t)W * b.bits + 31) >> 3) & ~(uint64_t)3;
+  const int unpack_bits = b.mode == 'L' ? 8 : b.mode == '1' ? 1 : b.layout == 15 || b.layout == 16 ? 16 : b.bits;
+  const uint64_t row = ((uint64_t)W * unpack_bits + 7) / 8;
+  const bool map = mapped && b.mappable && b.offset <= n && stride * H <= n - b.offset;
+  if (!map) {
+    if (row > stride) corrupt("BMP rows shorter than PIL's raw mode takes (PIL refuses it)");
+    if (b.offset > n || n - b.offset < stride * (H - 1) + row) corrupt("BMP pixel data ends early");
+  }
   for (int y = 0; y < H; ++y) {
-    const uint8_t* r = d + offset + stride * (top_down ? y : H - 1 - y);
+    const uint64_t at = b.offset + stride * (b.top_down ? y : H - 1 - y);
+    const uint8_t* r = d + at;
     uint8_t* o = &g.px[(size_t)y * W];
-    if (bits <= 8) {
-      int per = 8 / bits, mask = (1 << bits) - 1;
+    if (b.mode == 'L') {
+      const uint64_t k = std::min<uint64_t>(W, n - at);  // a mapped row past the file's end
+      memcpy(o, r, k);
+      std::fill(o + k, o + W, 0);
+    } else if (b.mode == '1') {
+      for (int x = 0; x < W; ++x) o[x] = (r[x >> 3] >> (7 - (x & 7))) & 1 ? 255 : 0;
+    } else if (b.mode == 'P') {
+      const int bits = b.bits, per = 8 / bits, mask = (1 << bits) - 1;
       for (int x = 0; x < W; ++x) {
-        int idx = bits == 8 ? r[x] : (r[x / per] >> (8 - bits * (x % per + 1))) & mask;
-        o[x] = pal.grey[idx];
+        const int idx = bits == 8 ? r[x] : (r[x / per] >> (8 - bits * (x % per + 1))) & mask;
+        o[x] = b.pal.grey[idx];
       }
-    } else if (layout == 15 || layout == 16) {
+    } else if (b.layout == 15 || b.layout == 16) {
       for (int x = 0; x < W; ++x) {
-        int v = r[2 * x] | (r[2 * x + 1] << 8);
+        const int v = r[2 * x] | (r[2 * x + 1] << 8);
         int R, G, B;
-        if (layout == 15) {
+        if (b.layout == 15) {
           R = ((v >> 10) & 31) * 255 / 31;
           G = ((v >> 5) & 31) * 255 / 31;
           B = (v & 31) * 255 / 31;
@@ -2211,14 +2274,24 @@ Gray decode_bmp(const uint8_t* d, size_t n) {
         o[x] = luma(R, G, B);
       }
     } else {
-      int bpp = bits / 8;
+      const int bpp = b.bits / 8;
       for (int x = 0; x < W; ++x) {
         const uint8_t* q = r + (size_t)bpp * x;
-        o[x] = luma(q[order[0]], q[order[1]], q[order[2]]);
+        o[x] = luma(q[b.order[0]], q[b.order[1]], q[b.order[2]]);
       }
     }
   }
   return g;
+}
+
+// A BMP file: the 14-byte file header, then its DIB. A kind PIL's
+// BmpImagePlugin refuses (a header size, bit depth, bitfields layout,
+// compression or palette size it does not know) is corrupt here too.
+Gray decode_bmp(const uint8_t* d, size_t n) {
+  Dib b;
+  if (n < 14 || !dib_header(d, n, 14, le32(d + 10), b)) corrupt("BMP header ends early");
+  check_size(b.w, b.h);
+  return dib_pixels(d, n, b, b.h, true);
 }
 
 // ------------------------------------------------------------------ TIFF
@@ -7586,6 +7659,599 @@ bool spider_header(const uint8_t* d, size_t n) {
   return false;
 }
 
+// ------------------------------------------------- ICO, CUR (on the DIB reader)
+
+// CurImagePlugin: the first cursor of the directory, replaced by one whose
+// width and height bytes are both larger (0 counts as 0 here); its DIB at
+// the entry's offset (where the directory's reads stopped for an offset of
+// 0), as high as half its height. False where Image.open passes the file
+// on: a directory entry or the DIB's header read past the file's end, no
+// cursor, a size that is not positive.
+bool cur_open(const uint8_t* d, size_t n, Dib& b, int64_t& rows) {
+  if (n < 6) return false;
+  size_t pos = 6, mlen = 0;
+  const uint8_t* m = nullptr;
+  for (uint32_t i = 0, count = le16(d + 4); i < count; ++i) {
+    const size_t k = pos < n ? std::min<size_t>(16, n - pos) : 0;
+    const uint8_t* s = d + pos;
+    pos += k;
+    if (!mlen) {
+      m = s;
+      mlen = k;
+    } else if (!k) {
+      return false;  // s[0]: IndexError
+    } else if (s[0] > m[0]) {
+      if (k < 2 || mlen < 2) return false;
+      if (s[1] > m[1]) {
+        m = s;
+        mlen = k;
+      }
+    }
+  }
+  if (mlen < 16) return false;  // no cursor (TypeError), or i32(m, 12) short
+  const uint32_t at = le32(m + 12);
+  if (!dib_header(d, n, at ? at : pos, 0, b)) return false;
+  rows = b.h / 2;
+  return b.w > 0 && rows > 0;
+}
+
+// IcoImagePlugin's entry: the directory sorted by colour depth, then by area,
+// largest first (both sorts stable); PIL loads the first.
+struct IcoEntry {
+  uint32_t bpp, size, offset;
+  int64_t square, depth;
+};
+
+// The icon PIL's IcoImageFile._open loads: 0 where Image.open passes the
+// file on (a directory entry past the file's end, no entry, a bitmap
+// header past the file's end or of no size), 1 a bitmap (`b`, `rows` its
+// XOR half), 2 a PNG icon, whose stream starts at `png_at` and which the
+// Python side decodes (infer/export.py::decode_png; PIL takes the PNG's
+// own size).
+int ico_open(const uint8_t* d, size_t n, Dib& b, int64_t& rows, size_t& png_at) {
+  if (n < 6) return 0;
+  const uint32_t count = le16(d + 4);
+  if (!count || n - 6 < (uint64_t)16 * count) return 0;
+  std::vector<IcoEntry> entries(count);
+  for (uint32_t i = 0; i < count; ++i) {
+    const uint8_t* s = d + 6 + 16 * i;
+    const int64_t w = s[0] ? s[0] : 256, h = s[1] ? s[1] : 256;
+    const uint32_t colors = s[2], bpp = le16(s + 6);
+    // bpp or (nb_color != 0 and ceil(log(nb_color, 2))) or 256
+    int64_t depth = bpp;
+    if (!depth && colors) depth = (int64_t)std::ceil(std::log((double)colors) / std::log(2.0));
+    if (!depth) depth = 256;
+    entries[i] = IcoEntry{bpp, le32(s + 8), le32(s + 12), w * h, depth};
+  }
+  std::stable_sort(entries.begin(), entries.end(),
+                   [](const IcoEntry& a, const IcoEntry& c) { return a.depth < c.depth; });
+  std::stable_sort(entries.begin(), entries.end(),
+                   [](const IcoEntry& a, const IcoEntry& c) { return a.square > c.square; });
+  const IcoEntry& e = entries[0];
+  static const uint8_t kMagic[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
+  if (e.offset <= n && n - e.offset >= 8 && !memcmp(d + e.offset, kMagic, 8)) {
+    png_at = e.offset;
+    return 2;
+  }
+  if (!dib_header(d, n, e.offset, 0, b) || b.w <= 0 || b.h <= 0) return 0;
+  check_size(b.w, b.h);
+  rows = b.h / 2;
+  if (rows <= 0) corrupt("ICO bitmap of height 1 (PIL refuses its tile)");
+  if (e.bpp == 32) {  // the alpha bytes of 32-bit pixels, whatever the DIB holds
+    if (b.offset > n || (n - b.offset) / 4 < (uint64_t)b.w * rows) corrupt("ICO alpha ends early");
+  } else {  // the AND mask, rows padded to 32 bits, ending where the entry ends
+    const uint64_t stride = (uint64_t)(b.w + 31) / 32 * 4, total = stride * rows;
+    const int64_t at = (int64_t)e.offset + e.size - (int64_t)total;
+    if (at < 0) corrupt("ICO mask before the file's start");
+    const uint64_t got = (uint64_t)at < n ? std::min<uint64_t>(total, n - at) : 0;
+    if (got < stride * (rows - 1) + (b.w + 7) / 8) corrupt("ICO mask ends early");
+  }
+  return 1;
+}
+
+// -------------------------------------------------------------------- TGA
+
+// TgaImagePlugin and Pillow's TgaRleDecode.c. Types 1/9 (a colour map),
+// 2/10 (BGR, BGRA, BGRA;15Z at 16 bits) and 3/11 (grey, 1-bit, grey + alpha),
+// raw or RLE; rows bottom-up unless flag 0x20, flipped left to right by
+// flag 0x10. A colour map on a grey image gives PIL's core a palette that
+// "L" ignores and "LA" applies; on a 1-bit or RGB image, and of 32-bit
+// entries, PIL refuses it.
+inline uint8_t five_bits(int v) { return (uint8_t)(v * 255 / 31); }
+
+Gray decode_tga(const uint8_t* d, size_t n) {
+  const int id_len = d[0], cmt = d[1], type = d[2], depth = d[16], flags = d[17];
+  const uint32_t start = le16(d + 3), size = le16(d + 5), mdepth = d[7];
+  const int64_t W = le16(d + 12), H = le16(d + 14);
+  check_size(W, H);
+  // the mode and the raw mode of MODES[(type & 7, depth)] (no tile: refused)
+  char mode;  // 'L', '1', 'A' (LA), 'P', 'R' (RGB or RGBA)
+  int rawbits;
+  const int t = type & 7;
+  if (type == 3 || type == 11) mode = depth == 1 ? '1' : depth == 16 ? 'A' : 'L';
+  else if (type == 1 || type == 9) mode = cmt ? 'P' : 'L';
+  else mode = 'R';
+  if (t == 1 && depth == 8) rawbits = 8;        // "P"
+  else if (t == 3 && depth == 1) rawbits = 1;   // "1"
+  else if (t == 3 && depth == 8) rawbits = 8;   // "L"
+  else if (t == 3 && depth == 16) rawbits = 16; // "LA"
+  else if (t == 2 && (depth == 16 || depth == 24 || depth == 32)) rawbits = depth;
+  else corrupt("TGA of a type and depth PIL has no raw mode for (PIL refuses it)");
+  if (t == 1 && mode == 'L') corrupt("TGA colour-mapped without a map (PIL refuses it)");
+  const size_t pal_at = std::min<size_t>(n, 18 + (size_t)id_len);
+  const int mbytes = cmt ? (mdepth == 16 ? 2 : mdepth == 24 ? 3 : 4) : 0;
+  const size_t pal_got = std::min<size_t>((size_t)mbytes * size, n - pal_at);
+  const size_t offset = pal_at + pal_got;
+  // The palette: `start` zero entries, then the file's.
+  uint8_t pal[256] = {0};
+  if (cmt) {
+    if (mode == '1' || mode == 'R') corrupt("TGA colour map on a 1-bit or RGB image (PIL refuses it)");
+    if (mbytes == 4) corrupt("TGA colour map of 32-bit entries (PIL has no raw mode BGRA for an RGB palette)");
+    if (start + pal_got / mbytes > 256) corrupt("TGA colour map of more than 256 entries (PIL refuses it)");
+    for (size_t i = 0; i < pal_got / mbytes; ++i) {
+      const uint8_t* e = d + pal_at + i * mbytes;
+      const int v = e[0] | e[1] << 8;
+      pal[start + i] = mbytes == 2 ? luma(five_bits(v >> 10 & 31), five_bits(v >> 5 & 31), five_bits(v & 31))
+                                   : luma(e[2], e[1], e[0]);
+    }
+  }
+  const size_t row = ((size_t)W * rawbits + 7) / 8;
+  std::vector<uint8_t> rows_data;  // every row as the file holds it, in file order
+  const uint8_t* src;
+  if (!(type & 8)) {
+    if (offset > n || n - offset < row * H) corrupt("TGA pixel data ends early");
+    src = d + offset;
+  } else {
+    // TgaRleDecode.c: runs stop at a row's end (past it: refused), literal
+    // packets carry on into the next rows; a 1-bit file (depth / 8 == 0
+    // bytes a pixel) never fills a row.
+    const size_t pix = depth / 8;
+    if (!pix) corrupt("TGA RLE of 1-bit pixels (PIL never fills a row)");
+    rows_data.resize(row * H);
+    size_t p = offset, x = 0, y = 0;
+    uint8_t* out = rows_data.data();
+    while (y < (size_t)H) {
+      if (p >= n) corrupt("TGA RLE data ends early");
+      const size_t k = pix * ((d[p] & 0x7F) + 1);
+      if (d[p] & 0x80) {
+        if (n - p < 1 + pix) corrupt("TGA RLE data ends early");
+        if (x + k > row) corrupt("TGA RLE run past a row's end (PIL refuses it)");
+        for (size_t i = 0; i < k; i += pix) memcpy(out + y * row + x + i, d + p + 1, pix);
+        p += 1 + pix;
+        x += k;
+      } else {
+        if (n - p < 1 + k) corrupt("TGA RLE data ends early");
+        const uint8_t* s = d + p + 1;
+        p += 1 + k;
+        for (size_t left = k; left && y < (size_t)H;) {
+          const size_t m = std::min(left, row - x);
+          memcpy(out + y * row + x, s, m);
+          s += m;
+          left -= m;
+          x += m;
+          if (x == row) {
+            x = 0;
+            ++y;
+          }
+        }
+        continue;
+      }
+      if (x == row) {
+        x = 0;
+        ++y;
+      }
+    }
+    src = rows_data.data();
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  // A grey image with a map: PIL puts the palette on the image at load, so
+  // convert("L") returns it as it is, mode P, whose indices are its grey.
+  g.indices = cmt && mode == 'L';
+  const bool flip_x = flags & 0x10;
+  for (int64_t y = 0; y < H; ++y) {
+    const uint8_t* r = src + row * (flags & 0x20 ? y : H - 1 - y);
+    uint8_t* o = &g.px[(size_t)y * W];
+    for (int64_t x = 0; x < W; ++x) {
+      uint8_t v;
+      switch (rawbits) {
+        case 1: v = (r[x >> 3] >> (7 - (x & 7))) & 1 ? 255 : 0; break;
+        case 8: v = mode == 'P' ? pal[r[x]] : r[x]; break;
+        case 16:
+          if (mode == 'A') {
+            v = cmt ? pal[r[2 * x]] : r[2 * x];
+          } else {
+            const int u = r[2 * x] | r[2 * x + 1] << 8;
+            v = luma(five_bits(u >> 10 & 31), five_bits(u >> 5 & 31), five_bits(u & 31));
+          }
+          break;
+        default: {
+          const uint8_t* q = r + (size_t)x * (rawbits / 8);
+          v = luma(q[2], q[1], q[0]);
+        }
+      }
+      o[flip_x ? W - 1 - x : x] = v;
+    }
+  }
+  return g;
+}
+
+// ------------------------------------------------------------- PCX, DCX
+
+// PcxImagePlugin and Pillow's PcxDecode.c on the page at `at` (0, or a DCX
+// page's offset): 1-bit (one plane, or 2 / 4 planes of a 16-colour header
+// palette), 8-bit grey or a palette (the 769 bytes at the file's end), 24-bit
+// RGB in three planes a row. PIL's row length, not the header's: (w bits +
+// 7) / 8, made even where the header gives another. A run past a row's end
+// is refused.
+Gray decode_pcx(const uint8_t* d, size_t n, size_t at) {
+  const uint8_t* s = d + at;
+  const int64_t W = (int64_t)le16(s + 8) + 1 - le16(s + 4), H = (int64_t)le16(s + 10) + 1 - le16(s + 6);
+  const int version = s[1], bits = s[3], planes = s[65];
+  check_size(W, H);
+  char mode;  // '1', 'p' (1-bit planes), 'L', 'P', 'R'
+  uint8_t pal[256];
+  for (int i = 0; i < 256; ++i) pal[i] = (uint8_t)i;
+  if (bits == 1 && planes == 1) {
+    mode = '1';
+  } else if (bits == 1 && (planes == 2 || planes == 4)) {
+    mode = 'p';
+    for (int i = 0; i < 16; ++i) pal[i] = luma(s[16 + 3 * i], s[17 + 3 * i], s[18 + 3 * i]);
+  } else if (version == 5 && bits == 8 && planes == 1) {
+    mode = 'L';
+    if (n < 769) corrupt("PCX of 8 bits shorter than its palette (PIL cannot seek to it)");
+    const uint8_t* t = d + n - 769;
+    if (t[0] == 12) {
+      bool ramp = true;
+      for (int i = 0; i < 256 && ramp; ++i) ramp = t[1 + 3 * i] == i && t[2 + 3 * i] == i && t[3 + 3 * i] == i;
+      if (!ramp) {
+        mode = 'P';
+        for (int i = 0; i < 256; ++i) pal[i] = luma(t[1 + 3 * i], t[2 + 3 * i], t[3 + 3 * i]);
+      }
+    }
+  } else {
+    mode = 'R';
+  }
+  uint64_t stride = ((uint64_t)W * bits + 7) / 8;
+  if (le16(s + 66) != stride) stride += stride % 2;
+  const uint64_t bytes = planes * stride;
+  const int ubits = mode == '1' ? 1 : mode == 'p' ? planes : mode == 'R' ? 24 : 8;
+  if (((uint64_t)W * ubits + 7) / 8 > bytes) corrupt("PCX row shorter than its pixels (PIL refuses it)");
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  std::vector<uint8_t> buf(bytes);
+  size_t p = at + 128;
+  for (int64_t y = 0; y < H; ++y) {
+    for (uint64_t x = 0; x < bytes;) {
+      if (p >= n) corrupt("PCX data ends early");
+      if ((d[p] & 0xC0) == 0xC0) {
+        if (n - p < 2) corrupt("PCX data ends early");
+        const int k = d[p] & 0x3F;
+        if (x + k > bytes) corrupt("PCX run past a row's end (PIL refuses it)");
+        memset(&buf[x], d[p + 1], k);
+        x += k;
+        p += 2;
+      } else {
+        buf[x++] = d[p++];
+      }
+    }
+    // PcxDecode.c's band shift: 1-bit planes (2 or 4) of (w + 7) / 8 bytes
+    // each, other rows in bands of w bytes; bands further apart than that
+    // move together, band i from i * stride.
+    {
+      const bool planar = mode == 'p';
+      const uint64_t xsize = planar ? (W + 7) / 8 : W, bands = planar ? planes : bytes / W;
+      const uint64_t step = bands ? bytes / bands : 0;
+      if (step > xsize)
+        for (uint64_t i = 1; i < bands; ++i) memmove(&buf[i * xsize], &buf[i * step], xsize);
+    }
+    uint8_t* o = &g.px[(size_t)y * W];
+    const size_t plane = (W + 7) / 8;  // unpackP2L / unpackP4L
+    for (int64_t x = 0; x < W; ++x) {
+      const int bit = 7 - (x & 7);
+      switch (mode) {
+        case '1': o[x] = (buf[x >> 3] >> bit) & 1 ? 255 : 0; break;
+        case 'p': {
+          int v = 0;
+          for (int k = 0; k < planes; ++k) v |= ((buf[(x >> 3) + k * plane] >> bit) & 1) << k;
+          o[x] = pal[v];
+          break;
+        }
+        case 'R': o[x] = luma(buf[x], buf[x + W], buf[x + 2 * W]); break;
+        default: o[x] = pal[buf[x]];
+      }
+    }
+  }
+  return g;
+}
+
+// DcxImagePlugin: the first page of the offset list, which runs to a 0 or
+// 1024 entries; 0 where Image.open passes the file on (the list past the
+// file's end, no page), else the page's offset.
+uint32_t dcx_page(const uint8_t* d, size_t n) {
+  for (size_t i = 0; i < 1024; ++i) {
+    if (n < 8 + 4 * i) return 0;
+    if (!le32(d + 4 + 4 * i)) break;
+  }
+  return n >= 8 ? le32(d + 4) : 0;
+}
+
+// -------------------------------------------------------------------- SGI
+
+// SgiImagePlugin: 8 or 16 bits a channel (PIL keeps the high byte), grey,
+// RGB or RGBA, rows bottom-up; raw planes one after another, or
+// Pillow's SgiRleDecode.c: start and length tables of a row a channel,
+// a row's packets counted by its length, a row that ends early keeping the
+// previous row's values, and a row's last counted packet that is not its end
+// stopping the whole decode with what was read.
+Gray decode_sgi(const uint8_t* d, size_t n) {
+  const int compression = d[2], bpc = d[3], zsize = be16(d + 10);
+  const int64_t W = be16(d + 6), H = be16(d + 8);
+  check_size(W, H);
+  const int bands = zsize == 1 ? 1 : zsize;  // the mode's bands: L, RGB, RGBA
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  auto put = [&](int64_t y, const uint8_t* px, size_t step, size_t band) {  // a row of samples
+    uint8_t* o = &g.px[(size_t)(H - 1 - y) * W];
+    for (int64_t x = 0; x < W; ++x) {
+      const uint8_t* q = px + x * step;
+      o[x] = bands == 1 ? q[0] : luma(q[0], q[band], q[2 * band]);
+    }
+  };
+  if (compression == 0) {
+    const uint64_t page = (uint64_t)W * H * bpc;
+    if (n < 512 || n - 512 < page * bands) corrupt("SGI pixel data ends early");
+    const uint8_t* base = d + 512;
+    for (int64_t y = 0; y < H; ++y) put(y, base + (size_t)y * W * bpc, bpc, page);
+    return g;
+  }
+  if (compression != 1) corrupt("SGI compression " + std::to_string(compression) + " (PIL has no tile)");
+  const int64_t bufsize = (int64_t)n - 512;
+  const int64_t tablen = (int64_t)bands * H;
+  if (bufsize < 8 * tablen) corrupt("SGI RLE tables end early");
+  const uint8_t* buf = d + 512;
+  const int64_t end = bufsize - 1;  // the last byte, which a packet's data may not reach
+  std::vector<uint8_t> row((size_t)W * bands * 2, 0);
+  for (int64_t r = 0; r < H; ++r) {
+    for (int c = 0; c < bands; ++c) {
+      uint32_t off = be32(buf + 4 * (r + c * H));
+      const uint32_t len = be32(buf + 4 * (tablen + r + c * H));
+      if (off < 512) corrupt("SGI RLE row before the data");
+      off -= 512;
+      int64_t s = off, x = 0;
+      uint8_t* dst = &row[(size_t)c * bpc];
+      const size_t step = (size_t)bands * bpc;
+      int status = 0;
+      for (int64_t k = (int32_t)len; k > 0; --k) {  // a C int: a length past 2^31 reads nothing
+        if (s + bpc - 1 > end) { status = -1; break; }
+        const uint8_t pixel = buf[s + bpc - 1];
+        s += bpc;
+        if (k == 1 && pixel) { status = 1; break; }
+        const int count = pixel & 0x7F;
+        if (!count) break;
+        if (x + count > W) { status = -1; break; }
+        x += count;
+        if (pixel & 0x80) {
+          if (s + (int64_t)bpc * count > end) { status = -1; break; }
+          for (int i = 0; i < count; ++i, s += bpc, dst += step) memcpy(dst, buf + s, bpc);
+        } else {
+          if (s + bpc - 1 + (bpc == 2) > end) { status = -1; break; }
+          for (int i = 0; i < count; ++i, dst += step) memcpy(dst, buf + s, bpc);
+          s += bpc;
+        }
+      }
+      if (status < 0) corrupt("SGI RLE row overruns (PIL refuses it)");
+      if (status > 0) return g;
+    }
+    put(r, row.data(), (size_t)bands * bpc, bpc);
+  }
+  return g;
+}
+
+// ---------------------------------------------------------------- SUN
+
+// SunImagePlugin: 1-bit (inverted), 4 and 8-bit grey or a palette (planar
+// RGB, up to 256 entries), 24 and 32-bit BGR(X), RGB(X) for type 3; raw rows
+// padded to 16 bits, or Pillow's SunRleDecode.c over unpadded rows (0x80 0
+// a literal 0x80, 0x80 n v n + 1 copies of v, carried into the next rows).
+Gray decode_sun(const uint8_t* d, size_t n) {
+  const int64_t W = be32(d + 4), H = be32(d + 8);
+  const uint32_t depth = be32(d + 12), type = be32(d + 20), plen = be32(d + 28);
+  check_size(W, H);
+  uint8_t pal[256];
+  for (int i = 0; i < 256; ++i) pal[i] = (uint8_t)i;
+  const size_t pal_got = std::min<size_t>(plen, n - 32);
+  if (plen) {
+    if (depth != 4 && depth != 8) corrupt("SUN palette on a 1-bit or RGB image (PIL refuses it)");
+    const size_t k = pal_got / 3;  // "RGB;L": the reds, the greens, the blues
+    if (k > 256) corrupt("SUN palette of more than 256 entries (PIL refuses it)");
+    std::fill(pal, pal + 256, 0);
+    for (size_t i = 0; i < k; ++i) pal[i] = luma(d[32 + i], d[32 + k + i], d[32 + 2 * k + i]);
+  }
+  const uint64_t offset = 32 + (uint64_t)plen;
+  const uint64_t row = ((uint64_t)W * depth + 7) / 8;
+  std::vector<uint8_t> rle;
+  const uint8_t* src;
+  uint64_t stride;
+  if (type == 2) {
+    rle.resize(row * H);
+    stride = row;
+    uint64_t p = offset, x = 0, y = 0;
+    while (y < (uint64_t)H) {
+      if (p >= n) corrupt("SUN RLE data ends early");
+      uint64_t k = 1;
+      uint8_t v = d[p];
+      if (d[p] == 0x80) {
+        if (n - p < 2) corrupt("SUN RLE data ends early");
+        if (d[p + 1]) {
+          if (n - p < 3) corrupt("SUN RLE data ends early");
+          k = d[p + 1] + 1;
+          v = d[p + 2];
+          p += 3;
+        } else {
+          p += 2;
+        }
+      } else {
+        p += 1;
+      }
+      while (k && y < (uint64_t)H) {
+        const uint64_t m = std::min(k, row - x);
+        memset(&rle[y * row + x], v, m);
+        k -= m;
+        x += m;
+        if (x == row) {
+          x = 0;
+          ++y;
+        }
+      }
+    }
+    src = rle.data();
+  } else {
+    stride = ((W * depth + 15) / 16) * 2;
+    if (offset > n || n - offset < stride * (H - 1) + row) corrupt("SUN pixel data ends early");
+    src = d + offset;
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  for (int64_t y = 0; y < H; ++y) {
+    const uint8_t* r = src + stride * y;
+    uint8_t* o = &g.px[(size_t)y * W];
+    for (int64_t x = 0; x < W; ++x) {
+      switch (depth) {
+        case 1: o[x] = (r[x >> 3] >> (7 - (x & 7))) & 1 ? 0 : 255; break;
+        case 4: {
+          const int v = (r[x >> 1] >> (x & 1 ? 0 : 4)) & 15;
+          o[x] = plen ? pal[v] : (uint8_t)(v * 17);
+          break;
+        }
+        case 8: o[x] = pal[r[x]]; break;
+        default: {
+          const uint8_t* q = r + (size_t)x * (depth / 8);
+          o[x] = type == 3 ? luma(q[0], q[1], q[2]) : luma(q[2], q[1], q[0]);
+        }
+      }
+    }
+  }
+  return g;
+}
+
+// ---------------------------------------------------------------- MSP
+
+// MspImagePlugin: version 1 ("DanM") raw 1-bit rows; version 2 ("LinS")
+// MspDecoder: a row map of encoded lengths, rows of runs (0 n v) and
+// literals, all written one after another and read as raw 1-bit rows, so
+// a row of another length shifts every later one; a row of length 0 is
+// white.
+Gray decode_msp(const uint8_t* d, size_t n) {
+  const int64_t W = le16(d + 4), H = le16(d + 6);
+  check_size(W, H);
+  const size_t row = (W + 7) / 8;
+  std::vector<uint8_t> bits;
+  const uint8_t* src;
+  if (d[0] == 'D') {
+    if (n - 32 < row * H) corrupt("MSP pixel data ends early");
+    src = d + 32;
+  } else {
+    if (n - 32 < 2 * (uint64_t)H) corrupt("MSP row map ends early");
+    size_t p = 32 + 2 * H;
+    bits.reserve(row * H);
+    for (int64_t y = 0; y < H; ++y) {
+      const size_t len = le16(d + 32 + 2 * y);
+      if (!len) {
+        bits.insert(bits.end(), row, 0xFF);
+        continue;
+      }
+      if (n - p < len) corrupt("MSP row ends early");
+      const uint8_t* r = d + p;
+      p += len;
+      for (size_t i = 0; i < len;) {
+        const int type = r[i++];
+        if (!type) {
+          if (len - i < 2) corrupt("MSP run ends early");
+          bits.insert(bits.end(), r[i], r[i + 1]);
+          i += 2;
+        } else {
+          const size_t k = std::min<size_t>(type, len - i);
+          bits.insert(bits.end(), r + i, r + i + k);
+          i += type;
+        }
+      }
+      if (bits.size() > row * H) bits.resize(row * H);
+    }
+    if (bits.size() < row * H) corrupt("MSP rows hold too little data (PIL refuses it)");
+    src = bits.data();
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  for (int64_t y = 0; y < H; ++y)
+    for (int64_t x = 0; x < W; ++x)
+      g.px[(size_t)y * W + x] = (src[y * row + (x >> 3)] >> (7 - (x & 7))) & 1 ? 255 : 0;
+  return g;
+}
+
+// ---------------------------------------------------------------- QOI
+
+// QoiImagePlugin's QoiDecoder: the index of 64 seen pixels, runs, diffs
+// and luma ops, until the image is full; the data ending before is refused.
+// 3 channels make it RGB, any other count RGBA.
+Gray decode_qoi(const uint8_t* d, size_t n) {
+  const int64_t W = be32(d + 4), H = be32(d + 8);
+  check_size(W, H);
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  uint8_t seen[64][4] = {};  // an index entry never set is (0, 0, 0, 0)
+  uint8_t prev[4] = {0, 0, 0, 255};
+  const size_t total = (size_t)W * H;
+  size_t p = 14, i = 0;
+  while (i < total) {
+    if (p >= n) corrupt("QOI data ends early");
+    const int op = d[p++];
+    uint8_t v[4];
+    if (op == 0xFE || op == 0xFF) {
+      const size_t k = op == 0xFE ? 3 : 4;
+      if (n - p < k) corrupt("QOI data ends early");
+      memcpy(v, d + p, k);
+      if (k == 3) v[3] = prev[3];
+      p += k;
+    } else if (op >> 6 == 0) {
+      memcpy(v, seen[op], 4);
+    } else if (op >> 6 == 1) {
+      v[0] = (uint8_t)(prev[0] + ((op >> 4) & 3) - 2);
+      v[1] = (uint8_t)(prev[1] + ((op >> 2) & 3) - 2);
+      v[2] = (uint8_t)(prev[2] + (op & 3) - 2);
+      v[3] = prev[3];
+    } else if (op >> 6 == 2) {
+      if (p >= n) corrupt("QOI data ends early");
+      const int second = d[p++], dg = (op & 63) - 32;
+      v[0] = (uint8_t)(prev[0] + dg + (second >> 4) - 8);
+      v[1] = (uint8_t)(prev[1] + dg);
+      v[2] = (uint8_t)(prev[2] + dg + (second & 15) - 8);
+      v[3] = prev[3];
+    } else {  // a run of the previous pixel, which the index already holds
+      const uint8_t grey = luma(prev[0], prev[1], prev[2]);
+      for (int k = (op & 63) + 1; k && i < total; --k) g.px[i++] = grey;
+      continue;
+    }
+    memcpy(prev, v, 4);
+    const int h = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64;
+    memcpy(seen[h], v, 4);
+    g.px[i++] = luma(v[0], v[1], v[2]);
+  }
+  return g;
+}
+
 // PcxImagePlugin's header: a box of pixels and a mode it knows.
 int pcx_header(const uint8_t* d, size_t n) {  // 0: not PCX, 1: PCX, -1: PIL fails
   if (n < 68 || d[0] != 10 || !(d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return 0;
@@ -7602,7 +8268,10 @@ std::string pil_format(const uint8_t* d, size_t n) {
   const uint32_t l32 = n >= 4 ? le32(d) : 0;
   // preinit's: BMP, JPEG, PNG and GIF are the port's own; DIB, PPM
   for (uint32_t k : {12u, 40u, 52u, 56u, 64u, 108u, 124u})
-    if (n >= 4 && l32 == k) return "DIB";
+    if (n >= 4 && l32 == k) {
+      Dib b;
+      if (dib_header(d, n, 0, 0, b) && b.w > 0 && b.h > 0) return "DIB";
+    }
   if (n >= 2 && d[0] == 'P' && memchr("0123456fy", d[1], 9)) {
     Pnm p;
     if (pnm_head(d, n, p)) return "PPM";
@@ -7614,13 +8283,17 @@ std::string pil_format(const uint8_t* d, size_t n) {
     return "AVIF";
   if (((st("BLP1") && n >= 28) || (st("BLP2") && n >= 20)) && le32(d + 12) && le32(d + 16)) return "BLP";
   if (st("BUFR") || st("ZCZC")) return "BUFR";
-  if (st("\0\0\2\0") && n >= 6 && le16(d + 4) > 0) return "CUR";
+  if (st("\0\0\2\0")) {
+    Dib b;
+    int64_t rows;
+    if (cur_open(d, n, b, rows)) return "CUR";
+  }
   if (const int pcx = pcx_header(d, n)) {
     if (pcx < 0) corrupt("PCX of a mode PIL does not know (PIL refuses it)");
     return "PCX";
   }
-  if (n >= 8 && l32 == 987654321) {
-    const uint32_t at = le32(d + 4);
+  if (n >= 4 && l32 == 987654321) {
+    const uint32_t at = dcx_page(d, n);
     if (at && at < n) {
       const int pcx = pcx_header(d + at, n - at);
       if (pcx < 0) corrupt("DCX of a PCX mode PIL does not know (PIL refuses it)");
@@ -7660,7 +8333,12 @@ std::string pil_format(const uint8_t* d, size_t n) {
   if (st("\x89HDF\r\n\x1a\n")) return "HDF5";
   if (st("\xff\x4f\xff\x51") || starts(d, n, "\0\0\0\x0cjP  \r\n\x87\n", 12)) return "JPEG2000";
   if (st("icns")) return "ICNS";
-  if (st("\0\0\1\0") && n >= 6 && le16(d + 4)) return "ICO";
+  if (st("\0\0\1\0")) {
+    Dib b;
+    int64_t rows;
+    size_t png_at;
+    if (ico_open(d, n, b, rows, png_at)) return "ICO";
+  }
   if (im_header(d, n)) return "IM";
   if (imt_header(d, n)) return "IMT";
   if (n && d[0] == 0x1C && iptc_header(d, n)) return "IPTC";
@@ -7774,6 +8452,34 @@ Gray decode_other(const uint8_t* d, size_t n) {
     if (sigwebp::decode(d, n, kMaxPixels, g.px, g.w, g.h, msg)) corrupt(msg);
     return g;
   }
+  Dib b;
+  int64_t rows;
+  if (f == "DIB") {
+    dib_header(d, n, 0, 0, b);
+    check_size(b.w, b.h);
+    return dib_pixels(d, n, b, b.h, true);
+  }
+  if (f == "CUR") {
+    cur_open(d, n, b, rows);
+    check_size(b.w, rows);
+    return dib_pixels(d, n, b, rows, true);
+  }
+  if (f == "ICO") {  // an icon's DIB comes through PIL's decoder, never mapped
+    Gray g;
+    size_t png_at = 0;
+    if (ico_open(d, n, b, rows, png_at) == 2) {
+      g.png_at = (int64_t)png_at;
+      return g;
+    }
+    return dib_pixels(d, n, b, rows, false);
+  }
+  if (f == "TGA") return decode_tga(d, n);
+  if (f == "PCX") return decode_pcx(d, n, 0);
+  if (f == "DCX") return decode_pcx(d, n, dcx_page(d, n));
+  if (f == "SGI") return decode_sgi(d, n);
+  if (f == "SUN") return decode_sun(d, n);
+  if (f == "MSP") return decode_msp(d, n);
+  if (f == "QOI") return decode_qoi(d, n);
   if (f == "BUFR" || f == "GRIB" || f == "HDF5" || f == "WMF" || f == "MPEG")
     corrupt(f + " file, which PIL opens and has no decoder for");
   if (f == "EPS") corrupt("EPS file, which PIL reads through Ghostscript alone");
@@ -7783,7 +8489,7 @@ Gray decode_other(const uint8_t* d, size_t n) {
 int decode_any(const uint8_t* d, size_t n, Gray& g, std::string& msg) {
   try {
     switch (format_of(d, n)) {
-      case 'P': return kPng;
+      case 'P': g.png_at = 0; return kPng;
       case 'J': g = decode_jpeg(d, n); break;
       case 'B': g = decode_bmp(d, n); break;
       case 'T': g = decode_tiff(d, n); break;
@@ -7800,7 +8506,7 @@ int decode_any(const uint8_t* d, size_t n, Gray& g, std::string& msg) {
     msg = "malformed header";
     return kCorrupt;
   }
-  return kOk;
+  return g.png_at >= 0 ? kPng : g.indices ? kIndices : kOk;
 }
 
 void put_msg(char* dst, int len, const std::string& m) {
@@ -7814,13 +8520,14 @@ void put_msg(char* dst, int len, const std::string& m) {
 int finish(int status, const Gray* g, uint8_t** out, int* w, int* h) {
   *out = nullptr;
   *w = *h = 0;
-  if (status != kOk) return status;
+  if (status == kPng) *w = (int)g->png_at;  // where the PNG stream starts
+  if (status != kOk && status != kIndices) return status;
   *out = (uint8_t*)malloc(g->px.size());
   if (!*out) return kCorrupt;
   memcpy(*out, g->px.data(), g->px.size());
   *w = g->w;
   *h = g->h;
-  return kOk;
+  return status;
 }
 
 inline uint8_t paeth(int a, int b, int c) {

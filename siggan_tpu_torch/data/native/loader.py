@@ -2,15 +2,17 @@
 ``webp.cpp`` (built together into one library).
 
 The decoder reads JPEG, BMP, TIFF (BigTIFF, LZMA, ZSTD, CCITT in tiles and
-old-style LZW among them), GIF, Netpbm and WebP (lossless, lossy, with an
+old-style LZW among them), GIF, Netpbm, WebP (lossless, lossy, with an
 ALPH chunk, an animation's first frame: libwebp's demuxer and decoders as
-Pillow calls them) files to 8-bit grey, as PIL's
-``Image.open(path).convert("L")`` gives them, with no imaging library; PNG
-files are recognised and left to ``infer/export.py::decode_png``, which
-inflates their rows with zlib and undoes the row filters here
-(``png_unfilter``). The format comes from the file's bytes, not from its
+Pillow calls them), DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN raster, MSP and
+QOI files to 8-bit grey, as PIL's ``Image.open(path).convert("L")`` gives
+them, with no imaging library; PNG streams are recognised and left to
+``infer/export.py::decode_png``, which inflates their rows with zlib and
+undoes the row filters here (``png_unfilter``): a PNG file, and the PNG
+icon an ICO file's largest entry holds, which comes back as its offset
+(``decode_or_png``). The format comes from the file's bytes, not from its
 name, by the rules PIL's ``Image.open`` tries its plugins by: a file PIL
-opens as another format (ICO, TGA, PCX, ...) raises naming that format. The library
+opens as another format (IM, XBM, PSD, ...) raises naming that format. The library
 also resizes (``resize_bilinear``: Pillow's ``L``-mode bilinear, bit-equal
 to ``data/resample.py``'s numpy version, which stays as the plain version);
 a ctypes call releases the interpreter lock, so threads resize in parallel. The library is
@@ -22,7 +24,10 @@ Statuses: ``OK``; ``CORRUPT`` (truncated or malformed data, or a kind PIL
 itself refuses, such as a 12-bit JPEG or a TIFF layout PIL has no mode
 for: raised as ``ValueError``); ``UNSUPPORTED`` (a file PIL reads, of a
 kind not read yet, raised as ``NotImplementedError`` naming ROADMAP A.6);
-``UNREADABLE`` (the file could not be opened or read, ``OSError``); ``PNG``.
+``UNREADABLE`` (the file could not be opened or read, ``OSError``); ``PNG``
+(a PNG stream, at an offset the library hands back); ``INDICES`` (read, and
+PIL's ``convert("L")`` leaves the image in mode P, whose indices are its
+grey and which PIL resizes nearest: ``resize_nearest``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import os
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -67,9 +72,14 @@ SOURCES = (SOURCE, Path(__file__).with_name("webp.cpp"))
 # decoded become zero images; d8: planar YCbCr old-style JPEG-in-TIFF read
 # as PIL reads it (C.20), a JPEG Huffman table with an all-ones code
 # corrupt (C.22), and every format PIL opens classified as PIL's Image.open
-# does (C.21): zero images become pages, or a stop naming ROADMAP A.6.
-DECODE_VERSION = "d8"
-OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG = range(5)
+# does (C.21): zero images become pages, or a stop naming ROADMAP A.6; d9:
+# a BMP whose file header gives a pixel offset of 0 read from where PIL's
+# header reads stop (C.23), and BMP palettes PIL takes for grey ("L") or
+# black and white ("1") unpacked at that mode's depth, a palette of more
+# than 256 colours refused, rows whose last padding is missing read, as PIL
+# reads them (C.24), so pixels change and files become zero images or pages.
+DECODE_VERSION = "d9"
+OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG, INDICES = range(6)
 _MSG = 160
 
 _P = ctypes.POINTER
@@ -114,19 +124,37 @@ def error(status: int, message: str, what: str) -> Exception:
     return ValueError(f"{what}: {message}")
 
 
-def decode(data: bytes, what: str = "image") -> np.ndarray:
-    """A JPEG, BMP, TIFF, GIF, Netpbm or WebP file's bytes -> uint8 (H, W) grey; raises as
-    ``error`` says (a PNG raises ``ValueError``: it is not decoded here)."""
+class Decoded(NamedTuple):
+    """What the library made of a file: its grey (None for a PNG stream),
+    where its PNG stream starts, and whether PIL resizes it nearest."""
+    gray: Optional[np.ndarray]
+    png_at: int
+    nearest: bool
+
+
+def decode_or_png(data: bytes, what: str = "image") -> Decoded:
+    """A file's bytes -> its uint8 (H, W) grey, or None and the offset a
+    PNG stream starts at (0 for a PNG file, the icon's for an ICO file whose
+    largest entry is a PNG), for ``decode_png``; raises as ``error`` says."""
     lib = library()
     ptr, w, h = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()
     msg = ctypes.create_string_buffer(_MSG)
     st = lib.sig_decode(data, len(data), ctypes.byref(ptr), ctypes.byref(w), ctypes.byref(h),
                         msg, _MSG)
     if st == PNG:
-        raise ValueError(f"{what}: a PNG file goes to decode_png")
-    if st != OK:
+        return Decoded(None, w.value, False)
+    if st not in (OK, INDICES):
         raise error(st, msg.value.decode(errors="replace"), what)
-    return _take(lib, ptr.value, w.value, h.value)
+    return Decoded(_take(lib, ptr.value, w.value, h.value), 0, st == INDICES)
+
+
+def decode(data: bytes, what: str = "image") -> np.ndarray:
+    """A file's bytes -> uint8 (H, W) grey; raises as ``error`` says (a PNG
+    stream raises ``ValueError``: it is not decoded here)."""
+    gray = decode_or_png(data, what).gray
+    if gray is None:
+        raise ValueError(f"{what}: a PNG stream goes to decode_png")
+    return gray
 
 
 def png_unfilter(raw: np.ndarray, pos: int, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -145,6 +173,19 @@ def png_unfilter(raw: np.ndarray, pos: int, h: int, stride: int, bpp: int) -> np
     if st != OK:
         raise ValueError(msg.value.decode(errors="replace"))
     return out
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 (H, W) -> uint8 (height, width), PIL's ``Image.resize`` of a
+    mode P image (NEAREST: ImagingTransform's affine map in 16.16 fixed
+    point, each output pixel's centre)."""
+    a = np.asarray(img, np.uint8)
+
+    def source(n_in: int, n_out: int) -> np.ndarray:
+        step = n_in / n_out
+        fix = lambda v: int(np.floor(v * 65536.0 + 0.5))  # noqa: E731
+        return (fix(step * 0.5) + np.arange(n_out, dtype=np.int64) * fix(step)) >> 16
+    return a[np.ix_(source(a.shape[0], height), source(a.shape[1], width))]
 
 
 def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -169,10 +210,12 @@ def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
 
 
 def decode_files(paths: Sequence[str | Path], n_threads: Optional[int] = None
-                 ) -> Tuple[List[Optional[np.ndarray]], np.ndarray, List[str]]:
+                 ) -> Tuple[List[Optional[np.ndarray]], np.ndarray, List[str], np.ndarray]:
     """Decode files on ``n_threads`` threads (default: up to 8, one per
     core) -> (per file its uint8 (H, W) grey or None, (n,) int32 statuses,
-    messages). A PNG file comes back as None with status ``PNG``."""
+    messages, (n,) offsets): a grey with status ``OK`` or ``INDICES``, a PNG
+    stream as None with status ``PNG`` and the offset it starts at (0 for a
+    PNG file and every other status)."""
     lib = library()
     n = len(paths)
     names = (ctypes.c_char_p * n)(*[os.fsencode(str(p)) for p in paths])
@@ -182,8 +225,9 @@ def decode_files(paths: Sequence[str | Path], n_threads: Optional[int] = None
     threads = n_threads or min(8, os.cpu_count() or 1)
     lib.sig_decode_files(names, n, threads, outs, ws, hs, st, msgs, _MSG)
     images: List[Optional[np.ndarray]] = [
-        _take(lib, outs[i], ws[i], hs[i]) if st[i] == OK else None for i in range(n)]
+        _take(lib, outs[i], ws[i], hs[i]) if st[i] in (OK, INDICES) else None for i in range(n)]
     raw = msgs.raw
     messages = [raw[i * _MSG:(i + 1) * _MSG].split(b"\0", 1)[0].decode(errors="replace")
                 for i in range(n)]
-    return images, np.frombuffer(st, np.int32).copy(), messages
+    status = np.frombuffer(st, np.int32).copy()
+    return images, status, messages, np.where(status == PNG, np.frombuffer(ws, np.int32), 0)

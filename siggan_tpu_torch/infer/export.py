@@ -17,6 +17,7 @@ samples; Adam7 interlacing.
 from __future__ import annotations
 
 import io
+import re
 import struct
 import zipfile
 import zlib
@@ -151,6 +152,25 @@ def _samples(rows: np.ndarray, w: int, chans: int, depth: int) -> np.ndarray:
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 
 
+_CID = re.compile(rb"\w\w\w\w")   # PngImagePlugin's is_cid
+_PIECE = 1 << 16                    # PIL's reads of image data (ImageFile.MAXBLOCK)
+
+
+def _idat_pieces(data: bytes, pos: int) -> List[tuple]:
+    """(start, end) of the image data as PIL's ``load_read`` hands it to its
+    decoder: the consecutive IDAT chunks from the one at ``pos`` (empty
+    ones skipped, their CRCs unread), in 64 KB pieces, each cut at the
+    file's end."""
+    pieces, n = [], len(data)
+    while pos + 8 <= n and data[pos + 4:pos + 8] == b"IDAT":
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        start = pos + 8
+        pieces += [(a, min(a + _PIECE, start + length, n))
+                   for a in range(start, min(start + length, n), _PIECE)]
+        pos = start + length + 4
+    return pieces
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """A PNG file -> uint8 (H, W, C) as PIL opens it and takes it to 8 bits:
     grey (C=1), grey + alpha (C=2), RGB (C=3) or RGBA (C=4); a palette image
@@ -158,29 +178,38 @@ def decode_png(data: bytes) -> np.ndarray:
     ``convert("L")`` ignores it); 1-, 2- and 4-bit grey scaled to 0..255;
     16-bit grey clamped at 255 and 16-bit colour or alpha reduced to its
     high byte, as PIL's conversions do; Adam7 interlacing. Every colour
-    type and bit depth of the standard is read. Raises ``ValueError`` on a
-    malformed file, a bad chunk CRC or more than ``MAX_PIXELS`` pixels."""
+    type and bit depth of the standard is read. Damaged data reads as PIL
+    reads it (C.25): the chunks before the image data whole, their CRCs
+    checked; the image data the IDAT chunks that follow one another, CRCs
+    unchecked, inflated only as far as the image needs (a stream that ends
+    at a row's end in the piece that filled it leaves the later rows 0);
+    after the image, the chunks PIL's ``load_end`` walks must be whole up
+    to IEND or a header it cannot read. Raises ``ValueError`` where PIL
+    refuses the file, and over ``MAX_PIXELS`` pixels."""
     if data[:8] != _SIG:
         raise ValueError("not a PNG")
-    pos, idat, hdr, plte = 8, [], None, None
-    while pos < len(data):
-        if pos + 12 > len(data):
-            raise ValueError("PNG file ends inside a chunk")
+    n, pos, hdr, plte = len(data), 8, None, None
+    while True:
+        if pos + 8 > n:
+            raise ValueError("PNG file ends before its image data")
         (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
-        if pos + 12 + length > len(data):
+        tag = data[pos + 4:pos + 8]
+        if not _CID.match(tag):
+            raise ValueError(f"broken PNG file (chunk {tag!r})")
+        if tag in (b"IDAT", b"IEND"):   # the image data, or none (refused after the size)
+            break
+        if pos + 12 + length > n:
             raise ValueError("PNG file ends inside a chunk")
+        body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
             raise ValueError(f"bad CRC in {tag!r} chunk")
         if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
+            if length < 13:
+                raise ValueError("truncated IHDR chunk")
+            hdr = struct.unpack(">IIBBBBB", body[:13])
         elif tag == b"PLTE":
-            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
+            plte = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         pos += 12 + length
     if hdr is None:
         raise ValueError("PNG has no IHDR")
@@ -191,28 +220,57 @@ def decode_png(data: bytes) -> np.ndarray:
     if w * h > MAX_PIXELS:
         raise ValueError(f"image of {w * h} pixels (PIL's decompression-bomb limit is "
                          f"{MAX_PIXELS})")
+    if data[pos + 4:pos + 8] == b"IEND":
+        raise ValueError("PNG without image data")
     if ctype == 3 and plte is None:
         raise ValueError("palette PNG without a PLTE chunk")
+    if ctype == 3 and len(plte) > 256:
+        raise ValueError("PNG palette of more than 256 colours (PIL refuses it)")
     chans = _CHANNELS[ctype]
     bpp = max(1, chans * depth // 8)
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     stride = lambda width: (width * chans * depth + 7) // 8  # noqa: E731
-    if not interlace:
-        if len(raw) != h * (stride(w) + 1):
-            raise ValueError("PNG image data has the wrong size")
-        img = _samples(png_unfilter(raw, 0, h, stride(w), bpp), w, chans, depth)
-    else:
-        img = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
-        pos = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-            if pw <= 0 or ph <= 0:
-                continue
-            img[y0::dy, x0::dx] = _samples(png_unfilter(raw, pos, ph, stride(pw), bpp),
-                                           pw, chans, depth)
-            pos += ph * (stride(pw) + 1)
-        if pos != len(raw):
-            raise ValueError("PNG image data has the wrong size")
+    passes = [(0, 0, 1, 1, w, h)] if not interlace else [
+        (x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in _ADAM7]
+    passes = [q for q in passes if q[4] > 0 and q[5] > 0]
+    ends = np.cumsum([stride(q[4]) + 1 for q in passes for _ in range(q[5])])
+    need = int(ends[-1])
+    # ZipDecode.c: rows inflated one at a time; the image ends when its
+    # last row is filled, or when the stream ends in the call that filled a
+    # row; a data error before then, or the data running out, is refused.
+    z, raw, end_at = zlib.decompressobj(), bytearray(), None
+    for a, b in _idat_pieces(data, pos):
+        had = len(raw)
+        try:
+            raw += z.decompress(data[a:b], need - len(raw))
+        except zlib.error as e:
+            raise ValueError(f"PNG image data: {e}") from None
+        if len(raw) == need or (z.eof and len(raw) > had and len(raw) in ends):
+            end_at = b
+            break
+        if z.eof:
+            break
+    if end_at is None:
+        raise ValueError("PNG image data ends early")
+    raw = np.frombuffer(bytes(raw), np.uint8)
+    img = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        rows = min(ph, (len(raw) - at) // (stride(pw) + 1))
+        if rows:
+            img[y0:y0 + rows * dy:dy, x0::dx] = _samples(
+                png_unfilter(raw, at, rows, stride(pw), bpp), pw, chans, depth)
+        at += rows * (stride(pw) + 1)
+    # PIL's load_end: past the image, each chunk's CRC skipped and its data
+    # read whole, until IEND or a header cut short or not a chunk's name.
+    p = end_at
+    while True:
+        p = min(p + 4, n)
+        if p + 8 > n or not _CID.match(data[p + 4:p + 8]) or data[p + 4:p + 8] == b"IEND":
+            break
+        (length,) = struct.unpack(">I", data[p:p + 4])
+        if p + 8 + length > n:
+            raise ValueError("PNG file ends inside a chunk after the image data")
+        p += 8 + length
     if ctype == 3:
         # Indices past the palette are black, as in PIL.
         lut = np.zeros((256, 3), np.uint8)

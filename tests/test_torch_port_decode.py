@@ -641,17 +641,17 @@ def webp_bytes(seed: int = 3) -> bytes:
 
 
 def unread_bytes() -> bytes:
-    """An ICO (``chip_smoke.c21_files``): a format PIL reads and the port
+    """An AVIF (``chip_smoke.c21_files``): a format PIL reads and the port
     does not yet (ROADMAP A.6), whatever the file's name."""
     import chip_smoke
-    return chip_smoke.c21_files()["ICO"]
+    return chip_smoke.c21_files()["AVIF"]
 
 
 def _unsupported_files(tmp_path):
-    ico = unread_bytes()
-    (tmp_path / "ico_named.tif").write_bytes(ico)
-    (tmp_path / "ico_named.png").write_bytes(ico)
-    return {"ico_named.tif": "ICO", "ico_named.png": "ICO"}
+    avif = unread_bytes()
+    (tmp_path / "avif_named.tif").write_bytes(avif)
+    (tmp_path / "avif_named.png").write_bytes(avif)
+    return {"avif_named.tif": "AVIF", "avif_named.png": "AVIF"}
 
 
 def _now_read_files(root):
@@ -659,9 +659,13 @@ def _now_read_files(root):
     FillOrder 2, BigTIFF, planar RGB; before A.6.13-A.6.14: LZMA and ZSTD;
     before A.6.15-A.6.16: CCITT in uncompressed mode (T.4, T.6) and in
     tiles; before A.6.25: LZMA with the ARM64 and RISC-V BCJ filters;
-    before A.6.30-A.6.32: WebP under a .tif and a .png name."""
+    before A.6.30-A.6.32: WebP under a .tif and a .png name; before
+    A.6.37: an ICO under a .tif and a .png name."""
     (root / "webp_named.tif").write_bytes(webp_bytes(3))
     (root / "webp_named.png").write_bytes(webp_bytes(4))
+    import chip_smoke
+    (root / "ico_named.tif").write_bytes(chip_smoke.c21_files()["ICO"])
+    (root / "ico_named.png").write_bytes(chip_smoke.c21_files()["ICO"])
     from test_torch_port_tiff_lzma_zstd import bcj_filter_tiff
     (root / "arm64_bcj.tif").write_bytes(bcj_filter_tiff(0x0A))
     (root / "riscv_bcj.tif").write_bytes(bcj_filter_tiff(0x0B))
@@ -688,14 +692,14 @@ def _now_read_files(root):
 
 def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     """PIL reads these, so a zero image would be wrong: the port raises
-    NotImplementedError naming the feature and ROADMAP A.6 (an ICO, under a
+    NotImplementedError naming the feature and ROADMAP A.6 (an AVIF, under a
     .tif and a .png name). The kinds this test named before the port read
     them (a cut progressive scan script, CMYK TIFF and JPEG; since
     A.6.7-A.6.10 CCITT with FillOrder 2, BigTIFF, planar RGB; since
     A.6.13-A.6.14 LZMA and ZSTD TIFF; since A.6.15-A.6.16 CCITT in
     uncompressed mode and in tiles; since A.6.25 LZMA TIFF of the ARM64
-    and RISC-V BCJ filters; since A.6.30-A.6.32 WebP) now read bit-equal
-    with PIL."""
+    and RISC-V BCJ filters; since A.6.30-A.6.32 WebP; since A.6.37 ICO,
+    this test's unread kind before) now read bit-equal with PIL."""
     for name, feature in _unsupported_files(tmp_path).items():
         assert jdataset.decode_image(tmp_path / name, 16).std() > 0     # PIL reads it
         with pytest.raises(NotImplementedError, match=f"{feature}.*ROADMAP A.6"):
@@ -714,7 +718,7 @@ def test_unsupported_file_raises_instead_of_a_zero_image(tmp_path):
     for name in ("cut_script.jpg", "cmyk.tiff", "cmyk.jpg", "fill_order_2.tif", "big.tiff",
                  "planar.tif", "lzma.tif", "zstd.tif", "ccitt_t4_uncompressed.tif",
                  "ccitt_t6_uncompressed.tif", "ccitt_tiles.tif", "arm64_bcj.tif", "riscv_bcj.tif",
-                 "webp_named.tif", "webp_named.png"):
+                 "webp_named.tif", "webp_named.png", "ico_named.tif", "ico_named.png"):
         assert_port_reads_as_pil(read / name)
 
 
@@ -795,7 +799,7 @@ def test_threaded_batch_equals_single_decodes(tmp_path):
     (tmp_path / "corrupt.jpg").write_bytes(b"\xff\xd8\xff\xe0 too short")
     paths += [tmp_path / "corrupt.jpg", tmp_path / "missing.bmp"]
     for threads in (1, 4):
-        grays, status, msgs = tnative.decode_files(paths, threads)
+        grays, status, msgs, _ = tnative.decode_files(paths, threads)
         for p, g, s in zip(paths[:-2], grays, status):
             if p.suffix == ".png":
                 assert s == tnative.PNG and g is None
@@ -1048,7 +1052,8 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     lines = []
     pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden),
              **chip_smoke.a6_codec_pages(golden), **chip_smoke.a6_ccitt_lzw_pages(golden),
-             **chip_smoke.a6_kind_pages(golden), **chip_smoke.a6_gif_pnm_pages(golden)}
+             **chip_smoke.a6_kind_pages(golden), **chip_smoke.a6_gif_pnm_pages(golden),
+             **chip_smoke.a6_raster_pages(golden)}
     for name, data in pages.items():
         try:
             with Image.open(io.BytesIO(data)) as im:

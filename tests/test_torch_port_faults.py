@@ -103,11 +103,11 @@ def test_best_and_an_epoch_are_served_and_listed(tmp_path, capsys):
 def test_dataset_refuses_images_it_cannot_decode(tmp_path):
     """C.3, then A.6: the dataset reads the JAX package's formats (a .JPG
     next to PNGs is trained on, as PIL reads it; so is a CMYK JPEG) and
-    refuses, naming A.6, only a file of a kind not read yet (an ICO under a
-    .tif name; a BigTIFF, an LZMA TIFF, a CCITT TIFF in tiles, an LZMA
-    TIFF of the ARM64 BCJ filter and a WebP under a .tif name, this test's
-    such kinds before A.6.7, A.6.13, A.6.16, A.6.25 and A.6.30, are
-    read)."""
+    refuses, naming A.6, only a file of a kind not read yet (an AVIF under
+    a .tif name; a BigTIFF, an LZMA TIFF, a CCITT TIFF in tiles, an LZMA
+    TIFF of the ARM64 BCJ filter, a WebP and an ICO under a .tif name, this
+    test's such kinds before A.6.7, A.6.13, A.6.16, A.6.25, A.6.30 and
+    A.6.37, are read)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=1)
     assert len(SignatureDataset(tmp_path, 64, use_cache=False)) == 3
@@ -139,7 +139,7 @@ def test_dataset_refuses_images_it_cannot_decode(tmp_path):
     assert len(ds) == 7 and ds.paths[-1].name == "scan4.tif"
     np.testing.assert_array_equal(ds.images[-1, ..., 0], want / 255.0 * 2.0 - 1.0)
     (tmp_path / "sub" / "scan5.tif").write_bytes(unread_bytes())
-    with pytest.raises(NotImplementedError, match="ICO.*A.6"):
+    with pytest.raises(NotImplementedError, match="AVIF.*A.6"):
         SignatureDataset(tmp_path, 64, use_cache=False)
 
 

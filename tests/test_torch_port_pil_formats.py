@@ -1,12 +1,13 @@
 """Every format PIL opens is read or raised naming it and ROADMAP A.6 (C.21).
 
 The JAX package opens every file through ``Image.open``, which tries each
-of Pillow 12.1.0's plugins whatever the file's name, so a PGM or an ICO
+of Pillow 12.1.0's plugins whatever the file's name, so a PGM or an XBM
 saved as ``.png`` reaches it and reads. The port's decoder finds the format
 by the same rules (``decode.cpp::pil_format``: preinit's plugins, then
 ``Image.ID``'s, each ``_accept`` and the header checks of each ``_open``):
 a file PIL opens as a format the port reads (PNG, JPEG and MPO, BMP, TIFF,
-GIF, PPM, WEBP) reads bit-equal; one of another format raises
+GIF, PPM, WEBP, DIB, TGA, PCX, DCX, ICO, CUR, SGI, SUN, MSP, QOI) reads
+bit-equal; one of another format raises
 ``NotImplementedError`` naming that format and A.6, never a zero image; a
 file PIL identifies as nothing, and the formats whose pixels PIL refuses
 (EPS here, the stubs BUFR, GRIB, HDF5 and WMF, MPEG), are corrupt."""
@@ -20,13 +21,12 @@ import numpy as np
 import pytest
 from PIL import Image
 from test_torch_port_decode import assert_port_reads_as_pil, pixels
+from torch_port_raster_cases import READ
 
 import chip_smoke
 from siggan_tpu.data import dataset as jdataset
 from siggan_tpu_torch.data import dataset as tdataset
 
-# The formats the port reads, by PIL's name.
-READ = {"BMP", "JPEG", "MPO", "PNG", "TIFF", "GIF", "PPM", "WEBP"}
 H, W = 6, 9
 GREY = (np.arange(H * W).reshape(H, W) * 4).astype(np.uint8)
 
@@ -99,8 +99,9 @@ def test_every_pillow_writer_reads_or_raises_a6(tmp_path, fmt, mode):
 @pytest.mark.parametrize("fmt", sorted(chip_smoke.c21_files()))
 def test_hand_written_files_raise_naming_their_format(tmp_path, fmt):
     """``chip_smoke.c21_files`` (phase 12's C.21 tree, written without
-    PIL): SUN, XPM, PSD, CUR, DCX and the rest are genuine files PIL opens
-    as that format and reads; the port raises naming it."""
+    PIL): XPM, PSD, SUN, CUR, DCX and the rest are genuine files PIL opens
+    as that format and reads; the port reads the ten formats of
+    A.6.33-A.6.42 bit-equal and raises naming each other one."""
     data = chip_smoke.c21_files()[fmt]
     got, grey = pil_format(data)
     assert got == fmt and grey is not None and grey.size
@@ -189,19 +190,25 @@ def test_random_bytes_pil_identifies_as_nothing_are_corrupt(tmp_path):
 
 
 def test_build_stops_naming_a_misnamed_format(tmp_path, monkeypatch):
-    """An ICO saved as .png beside scans: the JAX package reads it; the
-    port's SignatureDataset and cli.preprocess stop, naming ICO and A.6; a
-    PGM under the same name reads."""
+    """An AVIF saved as .png beside scans: the JAX package reads it; the
+    port's SignatureDataset and cli.preprocess stop, naming AVIF and A.6; a
+    PGM and an ICO (A.6.37, this test's unread format before) under the
+    same name read."""
     from siggan_tpu_torch.cli import preprocess as tcli
     raw = tmp_path / "raw" / "w0"
     raw.mkdir(parents=True)
     Image.fromarray(pixels(np.random.RandomState(1), (30, 40)).astype(np.uint8)).save(raw / "w0_0.png")
-    (raw / "w0_1.png").write_bytes(chip_smoke.c21_files()["ICO"])
+    (raw / "w0_1.png").write_bytes(chip_smoke.c21_files()["AVIF"])
     assert jdataset.SignatureDataset(raw, 16, use_cache=False).images[1].any()
-    with pytest.raises(NotImplementedError, match="ICO.*ROADMAP A.6"):
+    with pytest.raises(NotImplementedError, match="AVIF.*ROADMAP A.6"):
         tdataset.SignatureDataset(raw, 16, use_cache=False)
-    with pytest.raises(NotImplementedError, match="ICO.*ROADMAP A.6"):
+    with pytest.raises(NotImplementedError, match="AVIF.*ROADMAP A.6"):
         tcli.main(["--input_dir", str(tmp_path / "raw"), "--output_dir", str(tmp_path / "t"),
                    "--device", "cpu"])
     (raw / "w0_1.png").write_bytes(chip_smoke.pnm_file("P5", GREY))
     assert len(tdataset.SignatureDataset(raw, 16, use_cache=False)) == 2
+    (raw / "w0_1.png").write_bytes(chip_smoke.c21_files()["ICO"])
+    from siggan_tpu.data.native import loader as jnative
+    monkeypatch.setattr(jnative, "available", lambda: False)   # the JAX package's PIL path
+    np.testing.assert_array_equal(tdataset.SignatureDataset(raw, 16, use_cache=False).images,
+                                  jdataset.SignatureDataset(raw, 16, use_cache=False).images)

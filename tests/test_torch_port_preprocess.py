@@ -228,11 +228,11 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
     report, images within the whole-pipeline tolerance; JPEG, BMP and TIFF
     scans read as the JAX CLI reads them, a progressive JPEG whose scan
     script was cut (libjpeg smooths its unrefined coefficients) among them;
-    a kind the port does not read yet (an ICO under a .tif name; a BigTIFF
+    a kind the port does not read yet (an AVIF under a .tif name; a BigTIFF
     before A.6.7, now read among the others, an LZMA TIFF before A.6.13, a
     CCITT TIFF in tiles before A.6.16, an LZMA TIFF of the ARM64 BCJ
-    filter before A.6.25 and a WebP under a .tif name before A.6.30) is
-    refused, naming ROADMAP A.6."""
+    filter before A.6.25, a WebP under a .tif name before A.6.30 and an
+    ICO before A.6.37) is refused, naming ROADMAP A.6."""
     from siggan_tpu.cli import preprocess as jcli
     from siggan_tpu.core import platform as jplatform
     from siggan_tpu_torch.cli import preprocess as tcli
@@ -288,6 +288,6 @@ def test_cli_preprocess_matches_jax_cli(tmp_path, monkeypatch):
         np.testing.assert_array_equal(tcli.load_canvas(path, 64)[0], jcli.load_canvas(path, 64)[0])
     from test_torch_port_decode import unread_bytes
     (raw / "w1" / "scan.tif").write_bytes(unread_bytes())
-    with pytest.raises(NotImplementedError, match="ICO.*ROADMAP A.6"):
+    with pytest.raises(NotImplementedError, match="AVIF.*ROADMAP A.6"):
         tcli.main(["--input_dir", str(raw), "--output_dir", str(tmp_path / "x"),
                    "--device", "cpu"])

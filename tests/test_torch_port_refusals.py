@@ -311,14 +311,15 @@ def ojpeg_planar_tiles() -> bytes:
 STILL_A6 = {
     "ojpeg_planar_tiles": (ojpeg_planar_tiles, "planes and tiles"),
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt], fmt)
-       for fmt in ("AVIF", "BLP", "CUR", "DCX", "DDS", "DIB", "ICNS", "ICO", "IM", "JPEG2000", "MSP",
-                   "PCX", "PSD", "QOI", "SGI", "SPIDER", "SUN", "TGA", "XBM", "XPM")},
+       for fmt in ("AVIF", "BLP", "DDS", "ICNS", "IM", "JPEG2000", "PSD", "SPIDER", "XBM", "XPM")},
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.32,
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.42,
 # C.20).
 NOW_READ = {
+    **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt])
+       for fmt in ("CUR", "DCX", "DIB", "ICO", "MSP", "PCX", "QOI", "SGI", "SUN", "TGA")},
     "webp": lambda: pil_image_bytes("WEBP"),
     "webp_lossless": lambda: (lambda b: (Image.fromarray(RGB).save(b, "WEBP", lossless=True),
                                          b.getvalue())[1])(io.BytesIO()),
@@ -373,8 +374,9 @@ def past_the_tile_buffer(data: bytes) -> np.ndarray:
 
 @pytest.mark.parametrize("name", sorted(NOW_READ))
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
-    """WebP (lossy, lossless, lossy with alpha), a genuine lossless JPEG
-    (predictor 1), Huffman data under an
+    """DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP and QOI (the files of
+    ``chip_smoke.c21_files``), WebP (lossy, lossless, lossy with alpha), a
+    genuine lossless JPEG (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
     TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample,
     RGB with associated alpha, LZMA and ZSTD TIFF, CCITT in tiles, LZMA of

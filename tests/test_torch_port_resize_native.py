@@ -98,9 +98,10 @@ def test_dataset_and_canvas_pixels_stay_the_jax_packages(tmp_path, monkeypatch):
     damaged CCITT data decodes as libtiff decodes it, d6 since damaged ZSTD
     literals read as libzstd reads them, d7 since old-style JPEG-in-TIFF
     without its last strip's data reads as libtiff reads it, d8 since
-    planar YCbCr old-style JPEG-in-TIFF, GIF and Netpbm read); the resize is
-    the native one, not numpy's."""
-    assert native.DECODE_VERSION == "d8"
+    planar YCbCr old-style JPEG-in-TIFF, GIF and Netpbm read, d9 since BMP
+    files read as PIL reads a pixel offset of 0 and its grey palettes); the
+    resize is the native one, not numpy's."""
+    assert native.DECODE_VERSION == "d9"
     paths = []
     for i, (h, w) in enumerate(((500, 1200), (90, 210), (64, 64), (700, 300))):
         p = tmp_path / f"s{i}.png"

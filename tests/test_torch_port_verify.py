@@ -233,9 +233,9 @@ def test_pairs_and_split_match_jax(trees, layout):
 def test_pairs_refuse_other_image_formats(trees, tmp_path):
     """A tree holding .jpg, .bmp and .tif scans (a CCITT Group 4 one among
     them) is paired and decoded as the JAX package does (its PIL path);
-    only a file of a kind not read yet (an ICO under a .tif name; the CMYK
+    only a file of a kind not read yet (an AVIF under a .tif name; the CMYK
     TIFF, BigTIFF, LZMA TIFF, CCITT TIFF in tiles, LZMA TIFF of the ARM64
-    BCJ filter and WebP this test refused before are read) is refused,
+    BCJ filter, WebP and ICO this test refused before are read) is refused,
     naming the ROADMAP item of the decoders."""
     import shutil
 
@@ -270,8 +270,8 @@ def test_pairs_refuse_other_image_formats(trees, tmp_path):
     np.testing.assert_array_equal(have.img1, want.img1)
     np.testing.assert_array_equal(have.img2, want.img2)
     from test_torch_port_decode import unread_bytes
-    (tmp_path / "users" / "writer_010" / "ico.tif").write_bytes(unread_bytes())
-    with pytest.raises(NotImplementedError, match="ICO.*ROADMAP A.6"):
+    (tmp_path / "users" / "writer_010" / "avif.tif").write_bytes(unread_bytes())
+    with pytest.raises(NotImplementedError, match="AVIF.*ROADMAP A.6"):
         tpairs.PairDataset(tmp_path / "users", pairs_per_user=30, seed=2)
 
 
