@@ -147,7 +147,8 @@ Phases (any failure raises and the script exits non-zero):
      port does not read (``c21_files`` but ``C21_READ``), named .png beside
      a scan, stops its ``SignatureDataset`` naming the format and ROADMAP
      A.6, and the files of ``C21_READ`` (DIB, ICO, CUR, TGA, PCX, DCX, SGI,
-     SUN, MSP, QOI) read as the greys they were built from; Pillow's three
+     SUN, MSP, QOI, IM, PSD, XBM, XPM) read as the greys they were built
+     from; Pillow's three
      WebP pages (``tests/data/torch_port_webp/``: lossy, lossless, lossy
      with ALPH) held to PIL's grey by digest and timed; phase 11's scans as
      lossless WebP files under .jpg and .png names (``webp_tree_step``):
@@ -156,10 +157,12 @@ Phases (any failure raises and the script exits non-zero):
      A.6.33-A.6.42 built here (``a6_raster_pages``: DIB, RLE TGA, PCX, DCX,
      ICO of a bitmap and of a PNG icon, CUR, RLE SGI and SUN, MSP version
      2, QOI) held to PIL's grey by digest and timed (the PNG icon through
-     ``decode_images``); phase 11's scans in those formats in turns under
-     .png and .bmp names (``raster_tree_step``): ``cli.preprocess`` writes
-     and refuses as many as on the CPU, and a ``SignatureDataset`` holds
-     the greys written;
+     ``decode_images``); the pages of A.6.43-A.6.48 (``a6_text_pages``: IM,
+     XBM, XPM, XV thumbnail, PSD raw and PackBits, planar YCbCr old-style
+     JPEG-in-TIFF in tiles) the same; phase 11's scans in the formats of
+     A.6.33-A.6.47 in turns under .png and .bmp names
+     (``raster_tree_step``): ``cli.preprocess`` writes and refuses as many
+     as on the CPU, and a ``SignatureDataset`` holds the greys written;
  13. shared fakes and the ablation grid (``shared_fakes_phase``,
      ``ablation_phase``): ``cli.train --share_fakes`` at full width on
      phase 7's 2048 PNGs for 2 epochs of 32 steps (B1 x1, B1' x1, B2 x0
@@ -3225,6 +3228,44 @@ def ojpeg_planes_tiff(planes, quant) -> bytes:
         (520, 4, lambda o: [o[4]] * 3), (521, 4, lambda o: [o[5]] * 3), (530, 3, [1, 1])])
 
 
+def ojpeg_planes_tiles(planes, quant, tw: int, th: int) -> bytes:
+    """Old-style JPEG-in-TIFF of YCbCr in planes and tw x th tiles, the
+    tables layout of ``ojpeg_planes_tiff``: each plane a baseline stream
+    (``jpeg_sof1`` at 8 bits) tw wide whose rows are the plane's tiles one
+    after another, a restart interval a tile; each interval a tile, the
+    first tile of planes 1 and 2 opening with its SOS. libtiff's frame is
+    one column of tiles high, so PIL reads tiles past the first column as
+    no lines (they keep the buffer, A.6.48)."""
+    import struct
+    import numpy as np
+    h, w = planes[0].shape
+    down, across = -(-h // th), -(-w // tw)
+    tiles, q, tables = [], None, None
+    for k, p in enumerate(planes):
+        full = np.pad(np.asarray(p, np.int64), ((0, down * th - h), (0, across * tw - w)), mode="edge")
+        stacked = np.concatenate([full[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw]
+                                  for ty in range(down) for tx in range(across)], 0)
+        st = jpeg_sof1(stacked, quant, precision=8, restart=(tw // 8) * (th // 8))
+        if q is None:
+            dqt = st.index(b"\xff\xdb")
+            q = st[dqt + 5:dqt + 69]
+            dht = [i for i in range(len(st) - 1) if st[i] == 0xFF and st[i + 1] == 0xC4]
+            tables = [st[i + 5:i + 2 + struct.unpack(">H", st[i + 2:i + 4])[0]] for i in dht]
+        at = st.index(b"\xff\xda")
+        data = st[at + 2 + struct.unpack(">H", st[at + 2:at + 4])[0]:st.rindex(b"\xff\xd9")]
+        cuts = [i for i in range(len(data) - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+        parts = [data[a:b] for a, b in zip([0] + [c + 2 for c in cuts], cuts + [len(data)])]
+        if k:
+            parts[0] = b"\xff\xda\x00\x08\x01" + bytes([k, 0x00, 0, 63, 0]) + parts[0]
+        tiles += parts
+    n = len(tiles)
+    return tiff_pack(w, h, tiles + [q] + tables, [
+        (258, 3, [8] * 3), (259, 3, [6]), (262, 3, [6]), (277, 3, [3]), (284, 3, [2]),
+        (322, 4, [tw]), (323, 4, [th]), (324, 4, lambda o: o[:n]), (325, 4, [len(b) for b in tiles]),
+        (512, 3, [1]), (519, 4, lambda o: [o[n]] * 3), (520, 4, lambda o: [o[n + 1]] * 3),
+        (521, 4, lambda o: [o[n + 2]] * 3), (530, 3, [1, 1])])
+
+
 def a6_gif_pnm_pages(golden) -> dict:
     """Phase 12's 1200 x 500 pages of C.20, A.6.28 and A.6.29, built without
     PIL from scan_420.jpg's grey: planar YCbCr old-style JPEG-in-TIFF (the
@@ -3274,7 +3315,7 @@ def c21_files() -> dict:
     (a palette), DDS (luminance), DIB, ICNS (a 128 x 128 PNG icon), ICO (a
     PNG icon), CUR (a BMP cursor), IM, MSP, PCX, DCX, PSD, QOI, SGI, SPIDER,
     SUN, TGA, XBM and XPM. PIL reads each (tests/test_torch_port_pil_formats.py);
-    the port reads those of ``C21_READ`` (A.6.33-A.6.42) and raises naming
+    the port reads those of ``C21_READ`` (A.6.33-A.6.47) and raises naming
     each other format and ROADMAP A.6."""
     import struct
     import numpy as np
@@ -3684,16 +3725,130 @@ def qoi_file(pixels, channels: int = None) -> bytes:
             + bytes(7) + b"\x01")
 
 
-# The formats of c21_files that the port reads since A.6.33-A.6.42.
-C21_READ = ("CUR", "DCX", "DIB", "ICO", "MSP", "PCX", "QOI", "SGI", "SUN", "TGA")
+# Writers of the formats of A.6.43-A.6.47 (IM, XBM, XPM, XV thumbnail,
+# PSD), without PIL: phase 12's pages and tree, and the tests' hand-built
+# files.
+
+def im_file(kind: str, rows, w: int, h: int, *, lines=(), lut: bytes = None) -> bytes:
+    """An IM file: "Image type: ``kind``" (ImImagePlugin's OPEN name), its
+    size and ``lines``, CR LF each, then ^Z, the 768 bytes of a ``lut``
+    (256 reds, greens, blues) and ``rows`` (bytes, the bottom row first)."""
+    head = [f"Image type: {kind}", f"Image size (x*y): {w}*{h}", *lines]
+    if lut is not None:
+        head.append("Lut: 1")
+    return ("".join(f"{line}\r\n" for line in head).encode("latin-1") + b"\x1a"
+            + (bytes(lut) if lut is not None else b"") + bytes(rows))
+
+
+def im_grey(grey) -> bytes:
+    """A grey IM page: "Greyscale image", rows bottom-up."""
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    return im_file("Greyscale image", g[::-1].tobytes(), g.shape[1], g.shape[0])
+
+
+def xbm_file(white, name: str = "page", hotspot=None, per_line: int = 12, upper: bool = False) -> bytes:
+    """An X11 bitmap of a (h, w) bool image, a set bit white (as PIL reads
+    it), least significant bit first, ``per_line`` tokens a line."""
+    import numpy as np
+    a = np.asarray(white, bool)
+    h, w = a.shape
+    data = np.packbits(a, axis=1, bitorder="little").reshape(-1)
+    head = f"#define {name}_width {w}\n#define {name}_height {h}\n"
+    if hotspot:
+        head += f"#define {name}_x_hot {hotspot[0]}\n#define {name}_y_hot {hotspot[1]}\n"
+    fmt = "0x{:02X}" if upper else "0x{:02x}"
+    body = ",\n".join(", ".join(fmt.format(b) for b in data[i:i + per_line])
+                      for i in range(0, len(data), per_line))
+    return (head + f"static char {name}_bits[] = {{\n{body}\n}};\n").encode()
+
+
+def xpm_file(indices, colours, *, chars: int = 1, keys=None, header_extra: str = "",
+             pixels_comment: bool = True) -> bytes:
+    """An X11 pixmap: the "W H C P" line, a "c #RRGGBB" line per colour
+    (``colours``: (r, g, b) each; a colour of None is "None"), then a
+    quoted line per row of ``indices``' keys, ``chars`` characters a key
+    (``keys``: the keys, by default drawn from printable characters)."""
+    import numpy as np
+    idx = np.asarray(indices)
+    h, w = idx.shape
+    alphabet = [chr(c) for c in range(35, 127) if chr(c) not in '"\\']
+    if keys is None:
+        keys = ["".join(alphabet[(k // len(alphabet) ** j) % len(alphabet)] for j in range(chars))
+                for k in range(len(colours))]
+    lines = ["/* XPM */", "static char *page[] = {", "/* width height colours chars */",
+             f'"{w} {h} {len(colours)} {chars}{header_extra}",']
+    for key, c in zip(keys, colours):
+        lines.append(f'"{key} c {"None" if c is None else "#%02X%02X%02X" % tuple(c)}",')
+    if pixels_comment:
+        lines.append("/* pixels */")
+    lines += ['"' + "".join(keys[v] for v in row) + '",' for row in idx]
+    lines.append("};")
+    return ("\n".join(lines) + "\n").encode("latin-1")
+
+
+def xv_thumb(indices, comments=("#XVVERSION:Version 2.28", "#END_OF_COMMENTS")) -> bytes:
+    """An XV thumbnail: "P7 332", comment lines, "W H 255", then the rows
+    of 3-3-2 palette indices."""
+    import numpy as np
+    idx = np.asarray(indices, np.uint8)
+    h, w = idx.shape
+    return (b"P7 332\n" + "".join(f"{c}\n" for c in comments).encode() + f"{w} {h} 255\n".encode()
+            + idx.tobytes())
+
+
+def xv_index(grey):
+    """The 3-3-2 palette index nearest each grey level's r = g, b."""
+    import numpy as np
+    g = np.asarray(grey).astype(np.int64)
+    return ((g * 7 + 127) // 255 << 5 | (g * 7 + 127) // 255 << 2 | (g * 3 + 127) // 255).astype(np.uint8)
+
+
+def psd_file(planes, mode: int, *, bits: int = 8, compression: int = 0, channels: int = None,
+             mode_data: bytes = b"", resources: bytes = b"", layers: bytes = b"", counts=None,
+             width: int = None) -> bytes:
+    """A Photoshop file: the header (``mode``: 0 bitmap, 1 grey, 2 indexed,
+    3 RGB, 4 CMYK, 7 multichannel, 8 duotone, 9 LAB; ``channels`` by
+    default the planes'; ``width`` by default the rows' pixels), the colour
+    mode data, image resources and the layer section as given, then the
+    composite image of ``planes`` ((h, row bytes) uint8 each): raw, or
+    PackBits a row at a time after the table of row byte counts
+    (``counts`` replaces the table)."""
+    import struct
+    import numpy as np
+    planes = [np.asarray(p, np.uint8) for p in planes]
+    h = planes[0].shape[0]
+    w = width or planes[0].shape[1] * (8 if bits == 1 else 1)
+    head = (b"8BPS" + struct.pack(">H6xHIIHH", 1, len(planes) if channels is None else channels, h, w,
+                                  bits, mode)
+            + struct.pack(">I", len(mode_data)) + mode_data + struct.pack(">I", len(resources)) + resources
+            + struct.pack(">I", len(layers)) + layers + struct.pack(">H", compression))
+    if compression != 1:
+        return head + b"".join(p.tobytes() for p in planes)
+    rows = [packbits_encode(r.tobytes()) for p in planes for r in p]
+    table = counts if counts is not None else [len(r) for r in rows]
+    return head + struct.pack(f">{len(table)}H", *table) + b"".join(rows)
+
+
+def psd_grey(grey, compression: int) -> bytes:
+    """A grey PSD page (mode 1), raw or PackBits."""
+    return psd_file([grey], 1, compression=compression)
+
+
+# The formats of c21_files that the port reads since A.6.33-A.6.47.
+C21_READ = ("CUR", "DCX", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI", "SUN", "TGA", "XBM", "XPM")
 
 
 def c21_greys() -> dict:
-    """The greys ``c21_files``' files of ``C21_READ`` hold: the 6 x 9 ramp,
-    MSP's its ink (below 100) black and the rest white."""
+    """The greys ``c21_files``' files of ``C21_READ`` hold: the 6 x 9 ramp;
+    IM's upside down (its rows are written top row first, and PIL reads an
+    IM file's rows bottom-up); MSP's and XPM's its ink (below 100) black and
+    the rest white, XBM's the ink white (a set bit is white to PIL)."""
     import numpy as np
     g = (np.arange(54).reshape(6, 9) * 4).astype(np.uint8)
-    return {f: np.where(g < 100, 0, 255).astype(np.uint8) if f == "MSP" else g for f in C21_READ}
+    ink = np.where(g < 100, 0, 255).astype(np.uint8)
+    special = {"MSP": ink, "XPM": ink, "XBM": 255 - ink, "IM": g[::-1]}
+    return {f: special.get(f, g) for f in C21_READ}
 
 
 def a6_raster_pages(golden) -> dict:
@@ -3725,22 +3880,72 @@ def a6_raster_pages(golden) -> dict:
     }
 
 
-# The formats of A.6.33-A.6.42 in phase 12's raster tree, in turns (ICO with
+def xpm_grey(grey) -> bytes:
+    """An X11 pixmap of a grey: its 256 levels a palette of 2-character keys
+    (mode P), each row a quoted line."""
+    import numpy as np
+    return xpm_file(np.asarray(grey, np.int64), [(v, v, v) for v in range(256)], chars=2)
+
+
+def a6_text_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of A.6.43-A.6.48, built without PIL from
+    scan_420.jpg's grey: IM (grey), XBM (the ink below 128 black), XPM (the
+    grey's 256 levels, 2-character keys), XV thumbnail (the 3-3-2 index of
+    each level), PSD raw and PackBits (grey), and planar YCbCr old-style
+    JPEG-in-TIFF in 1200 x 64 tiles (the grey as Y, two chroma planes of it;
+    the last row of tiles partial). Each is held to a digest of PIL's grey
+    of the same bytes (a6_pages.sha256)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"]
+    g = grey.astype(np.int64)
+    return {
+        "im_page.im": im_grey(grey),
+        "xbm_page.xbm": xbm_file(grey >= 128),
+        "xpm_page.xpm": xpm_grey(grey),
+        "xv_thumb_page.xvt": xv_thumb(xv_index(grey)),
+        "psd_raw_page.psd": psd_grey(grey, 0),
+        "psd_packbits_page.psd": psd_grey(grey, 1),
+        "planar_ojpeg_tiles_page.tif": ojpeg_planes_tiles(
+            [g, 128 + (g - 128) // 6, 128 - (g - 128) // 5], Q90, 1200, 64),
+    }
+
+
+# The formats of A.6.33-A.6.47 in phase 12's raster tree, in turns (ICO with
 # a bitmap and with a PNG icon).
-RASTER_TREE_KINDS = ("DIB", "TGA", "PCX", "DCX", "ICO", "ICO-PNG", "CUR", "SGI", "SUN", "MSP", "QOI")
+RASTER_TREE_KINDS = ("DIB", "TGA", "PCX", "DCX", "ICO", "ICO-PNG", "CUR", "SGI", "SUN", "MSP", "QOI",
+                     "IM", "XBM", "XPM", "XVThumb", "PSD")
+
+# The kinds of RASTER_TREE_KINDS that do not keep every grey level.
+RASTER_TREE_LOSSY = ("MSP", "XBM", "XVThumb")
+
+
+def raster_grey(kind: str, grey):
+    """The grey PIL reads back from ``raster_scan``'s file of a uint8 scan:
+    the scan, but MSP's and XBM's 1 bit (the ink below 128, black) and the
+    XV thumbnail's 3-3-2 palette (each level's index, then PIL's luma)."""
+    import numpy as np
+    if kind in ("MSP", "XBM"):
+        return np.where(grey < 128, 0, 255).astype(np.uint8)
+    if kind == "XVThumb":
+        idx = xv_index(grey).astype(np.int64)
+        r, g, b = (idx >> 5) * 255 // 7, (idx >> 2 & 7) * 255 // 7, (idx & 3) * 255 // 3
+        return ((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16).astype(np.uint8)
+    return grey
 
 
 def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
-    """(bytes, the grey PIL reads back) of a uint8 (H, W) scan as a file of
-    ``kind`` (``RASTER_TREE_KINDS``): lossless, but MSP's 1 bit (the ink
-    below 128, black); an ICO's PNG icon is ``png`` (the grey's PNG)."""
+    """(bytes, the grey PIL reads back: ``raster_grey``) of a uint8 (H, W)
+    scan as a file of ``kind`` (``RASTER_TREE_KINDS``); an ICO's PNG icon
+    is ``png`` (the grey's PNG)."""
     import numpy as np
     h, w = grey.shape
     if kind == "ICO-PNG" and png is None:
         from siggan_tpu_torch.infer.export import encode_png
         png = encode_png(grey)
-    if kind == "MSP":
-        return msp_file(grey < 128, 2), np.where(grey < 128, 0, 255).astype(np.uint8)
+    if kind in RASTER_TREE_LOSSY:
+        data = {"MSP": lambda: msp_file(grey < 128, 2), "XBM": lambda: xbm_file(grey >= 128),
+                "XVThumb": lambda: xv_thumb(xv_index(grey))}[kind]()
+        return data, raster_grey(kind, grey)
     data = {"DIB": lambda: bmp_grey(grey)[14:],
             "TGA": lambda: tga_file(grey, 11, 8),
             "PCX": lambda: pcx_grey(grey),
@@ -3750,7 +3955,10 @@ def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
             "CUR": lambda: ico_file([(w, h, 0, 1, 0, icon_dib(grey, 8))], b"\0\0\2\0"),
             "SGI": lambda: sgi_file(grey[None], 1, rle=True),
             "SUN": lambda: sun_file([r.tobytes() for r in grey], w, h, 8, file_type=2),
-            "QOI": lambda: qoi_file(np.repeat(grey[..., None], 3, 2))}[kind]()
+            "QOI": lambda: qoi_file(np.repeat(grey[..., None], 3, 2)),
+            "IM": lambda: im_grey(grey),
+            "XPM": lambda: xpm_grey(grey),
+            "PSD": lambda: psd_grey(grey, 1)}[kind]()
     return data, grey
 
 
@@ -3801,8 +4009,9 @@ def decode_phase(card: str, work: str, build_s: float):
     named .png, then SOF11 JPEGs added to it: zero images in the dataset,
     and ``cli.preprocess`` stops on one; the same scans as WebP files
     under .jpg and .png names (``webp_tree_step``) and in the formats of
-    A.6.33-A.6.42 (``raster_tree_step``; their pages, ``a6_raster_pages``,
-    held to PIL's grey by digest and timed); then the C.21 files the port
+    A.6.33-A.6.47 (``raster_tree_step``; their pages, ``a6_raster_pages``
+    and ``a6_text_pages`` with planar old-style JPEG-in-TIFF in tiles, held
+    to PIL's grey by digest and timed); then the C.21 files the port
     now reads, and a tree for each format PIL opens and the port does not
     read: the build stops naming it (A.6). ``build_s``: the library's g++
     build, timed where it was built."""
@@ -3869,7 +4078,7 @@ def decode_phase(card: str, work: str, build_s: float):
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
     a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
           **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden), **a6_gif_pnm_pages(golden),
-          **a6_raster_pages(golden)}
+          **a6_raster_pages(golden), **a6_text_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -4025,7 +4234,15 @@ def decode_phase(card: str, work: str, build_s: float):
               "SGI 1200x500 (grey RLE)": ([Path(work) / "sgi_rle_page.sgi"], 100),
               "SUN 1200x500 (8-bit RLE, type 2)": ([Path(work) / "sun_rle_page.ras"], 100),
               "MSP 1200x500 (version 2 RLE, 1 bit)": ([Path(work) / "msp_page.msp"], 100),
-              "QOI 1200x500 (RGB)": ([Path(work) / "qoi_page.qoi"], 100)}
+              "QOI 1200x500 (RGB)": ([Path(work) / "qoi_page.qoi"], 100),
+              "IM 1200x500 (grey)": ([Path(work) / "im_page.im"], 100),
+              "XBM 1200x500 (1 bit, hex text)": ([Path(work) / "xbm_page.xbm"], 20),
+              "XPM 1200x500 (256 colours, 2-character keys)": ([Path(work) / "xpm_page.xpm"], 20),
+              "XV thumbnail 1200x500 (3-3-2 palette)": ([Path(work) / "xv_thumb_page.xvt"], 100),
+              "PSD 1200x500 (grey, raw)": ([Path(work) / "psd_raw_page.psd"], 100),
+              "PSD 1200x500 (grey, PackBits)": ([Path(work) / "psd_packbits_page.psd"], 100),
+              "old-style JPEG-in-TIFF 1200x500, planar YCbCr in 1200x64 tiles (A.6.48)": (
+                  [Path(work) / "planar_ojpeg_tiles_page.tif"], 20)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -4149,8 +4366,8 @@ def decode_phase(card: str, work: str, build_s: float):
     webp = webp_tree_step(card, work)
     raster = raster_tree_step(card, work)
     # C.21: a file of each format PIL opens and the port does not read, named
-    # .png beside a scan: the build stops naming the format and A.6. The ten
-    # formats of A.6.33-A.6.42 read, bit-equal to the greys they were built
+    # .png beside a scan: the build stops naming the format and A.6. The
+    # formats of A.6.33-A.6.47 read, bit-equal to the greys they were built
     # from (PIL's, tests/test_torch_port_pil_formats.py).
     stops, c21 = {}, c21_files()
     for fmt in C21_READ:
@@ -4172,11 +4389,11 @@ def decode_phase(card: str, work: str, build_s: float):
             stops[fmt] = str(e)
         if fmt not in stops or fmt not in stops[fmt] or "ROADMAP A.6" not in stops[fmt]:
             raise AssertionError(f"a {fmt} file named .png: the build did not stop naming {fmt} and A.6")
-    print(f"decode: C.21: {', '.join(C21_READ)} (A.6.33-A.6.42) files named .png read bit-equal "
+    print(f"decode: C.21: {', '.join(C21_READ)} (A.6.33-A.6.47) files named .png read bit-equal "
           f"to the greys they were built from; {len(stops)} trees, each a scan and one file of a "
           f"format PIL opens and the port does not read, named .png ({', '.join(stops)}): each build "
-          f"stopped with NotImplementedError naming its format and ROADMAP A.6 (PSD: "
-          f"{stops['PSD']!r})", flush=True)
+          f"stopped with NotImplementedError naming its format and ROADMAP A.6 (DDS: "
+          f"{stops['DDS']!r})", flush=True)
     print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}, of the .png "
           f"{json.dumps(png_named)} other formats under a .png name; the TIFFs "
           f"{json.dumps(layouts)}) written in "
@@ -4272,20 +4489,21 @@ def _write_raster_scan(job) -> int:
 
 
 # What cli.preprocess writes and refuses of phase 11's 1320 scans written in
-# the formats of A.6.33-A.6.42 (raster_tree_step), on the CPU
+# the formats of A.6.33-A.6.47 (raster_tree_step), on the CPU
 # (scripts/raster_tree_cpu.py).
 RASTER_TREE_CPU_COUNTS = (1171, 149)
 
 
 def raster_tree_step(card: str, work: str, run=None) -> dict:
-    """Phase 12's raster tree (A.6.33-A.6.42): phase 11's 1320 scans, each
+    """Phase 12's raster tree (A.6.33-A.6.47): phase 11's 1320 scans, each
     written here without PIL in the formats of ``RASTER_TREE_KINDS`` in
     turns, under .png and .bmp names in turns (the datasets list only the
     JAX package's six extensions, so not .tga, .pcx, ...). ``cli.preprocess``
     must write and refuse as many scans as on the CPU
     (``RASTER_TREE_CPU_COUNTS``) and the ones phase 11 did from the lossless
     kinds' PNGs; a ``SignatureDataset`` of the tree must equal the greys
-    the files were built from (the PNGs' but MSP's 1 bit). ``run`` runs a
+    the files were built from (``raster_grey``: the PNGs', but the 1 bit of
+    MSP and XBM and the XV thumbnail's palette). ``run`` runs a
     CLI (``run_cli``; ``scripts/raster_tree_cpu.py`` adds ``--device cpu``)."""
     import numpy as np
     import torch
@@ -4309,7 +4527,7 @@ def raster_tree_step(card: str, work: str, run=None) -> dict:
         name = tree / p.parent.name / f"{p.stem}{'.bmp' if (i // len(RASTER_TREE_KINDS)) % 2 else '.png'}"
         jobs.append((kind, grey, png, str(name)))
         kinds[kind] = kinds.get(kind, 0) + 1
-        expected[p.stem] = (kind, np.where(grey < 128, 0, 255).astype(np.uint8) if kind == "MSP" else grey)
+        expected[p.stem] = (kind, raster_grey(kind, grey))
     with concurrent.futures.ProcessPoolExecutor(
             min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")) as pool:
         sizes = list(pool.map(_write_raster_scan, jobs, chunksize=16))
@@ -4324,7 +4542,7 @@ def raster_tree_step(card: str, work: str, run=None) -> dict:
     want = json.loads((Path(work) / "clean" / "preprocess_report.json").read_text())
 
     def lossless(names):
-        return sorted(Path(n).stem for n in names if expected[Path(n).stem][0] != "MSP")
+        return sorted(Path(n).stem for n in names if expected[Path(n).stem][0] not in RASTER_TREE_LOSSY)
     if (len(pngs) != 1320 or any(lossless(rep[k]) != lossless(want[k]) for k in ("processed", "invalid"))
             or (RASTER_TREE_CPU_COUNTS is not None and counts != RASTER_TREE_CPU_COUNTS)):
         raise AssertionError(f"cli.preprocess on the raster tree: {counts[0]} written, {counts[1]} "

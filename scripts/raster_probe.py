@@ -1,10 +1,13 @@
-"""The damage probe of A.6.33-A.6.42 and C.23-C.25: damaged files of each
-format (DIB, BMP, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI and PNG), from
-Pillow's writers and hand-built ones (``tests/torch_port_raster_cases.py``),
+"""The damage probe of A.6.33-A.6.47 and C.23-C.25: damaged files of each
+format (DIB, BMP, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, PNG, IM, XBM,
+XPM, XV thumbnail and PSD), from Pillow's writers and hand-built ones
+(``tests/torch_port_raster_cases.py``, ``tests/torch_port_text_cases.py``),
+and, as the format OJPEG-PLANES, planar YCbCr old-style JPEG-in-TIFF in
+strips and tiles damaged by ``tests/test_torch_port_ojpeg_planes.py::damaged``,
 each held to PIL's verdict: the port's grey bit-equal where PIL reads the
 file, corrupt where PIL refuses it. Needs PIL (this is no chip script).
 
-    python scripts/raster_probe.py [--n 3000] [--seed 0] [--formats TGA,PCX]
+    python scripts/raster_probe.py [--n 3000] [--seed 0] [--formats TGA,PCX,XPM]
 
 prints per format the files PIL read and refused and the first files that
 differ, and exits 1 if any does. ``--asan`` runs the same under
@@ -24,14 +27,19 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 import numpy as np  # noqa: E402
-from torch_port_raster_cases import BASES, damage, holds  # noqa: E402
+from torch_port_raster_cases import BASES as RASTER_BASES  # noqa: E402
+from torch_port_raster_cases import damage, holds  # noqa: E402
+from torch_port_text_cases import BASES as TEXT_BASES  # noqa: E402
+from test_torch_port_ojpeg_planes import damaged  # noqa: E402
+
+BASES = {**RASTER_BASES, **TEXT_BASES}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=3000, help="damaged files a format")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--formats", default=",".join(BASES))
+    p.add_argument("--formats", default=",".join([*BASES, "OJPEG-PLANES"]))
     p.add_argument("--asan", action="store_true", help="under AddressSanitizer")
     args = p.parse_args(argv)
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
@@ -47,11 +55,11 @@ def main(argv=None) -> int:
             build.BUILD_DIR = Path(tmp) / "build"
         path = Path(tmp) / "f.png"
         for fmt in args.formats.split(","):
-            bases = BASES[fmt]()
+            bases = BASES[fmt]() if fmt in BASES else []
             rs = np.random.RandomState(args.seed)
             counts, wrong = {}, []
             for i in range(args.n):
-                data = damage(rs, bases[i % len(bases)])
+                data = damage(rs, bases[i % len(bases)]) if bases else damaged(args.seed * args.n + i)[2]
                 try:
                     got, want = holds(path, data)
                 except AssertionError as e:
@@ -59,7 +67,7 @@ def main(argv=None) -> int:
                     continue
                 counts.setdefault(str(got), [0, 0])[want is None] += 1
             bad += len(wrong)
-            print(f"{fmt}: {len(bases)} bases, {args.n} damaged; PIL's format: [read, refused] "
+            print(f"{fmt}: {len(bases) or 'seeded'} bases, {args.n} damaged; PIL's format: [read, refused] "
                   f"{counts}; {len(wrong)} read otherwise than PIL", flush=True)
             for w in wrong[:5]:
                 print(f"  {w}")

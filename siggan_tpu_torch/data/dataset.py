@@ -9,7 +9,8 @@ cache name). The files are those the JAX package reads (.png, .jpg, .jpeg,
 .bmp, .tiff, .tif), each decoded by its content, not its name, with no
 imaging package: PNG (and an ICO file's PNG icon) by
 ``infer/export.decode_png``, JPEG, BMP, TIFF, GIF, Netpbm, WebP, DIB, ICO,
-CUR, TGA, PCX, DCX, SGI, SUN, MSP and QOI by the port's C++ decoder
+CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, IM, XBM, XPM, XV thumbnail and PSD
+by the port's C++ decoder
 (``data/native/``), the whole set on several threads; each gives PIL's
 ``convert("L")`` grey bit for bit. Images of
 another size are resized by the same C++ library
@@ -79,8 +80,8 @@ def decode_gray(path: str | Path) -> np.ndarray:
     """An image file as uint8 (H, W) grey, PIL's ``convert("L")``; the
     format comes from the file's bytes, as PIL's ``Image.open`` finds it.
     Raises ``NotImplementedError`` naming the format for a file PIL reads,
-    of a kind not read yet (a PGM or an ICO saved as ``.png`` reads; an
-    XBM saved as ``.png`` raises naming XBM and ROADMAP A.6), ``ValueError``
+    of a kind not read yet (a PGM, an ICO or an XBM saved as ``.png``
+    reads; a DDS saved as ``.png`` raises naming DDS and ROADMAP A.6), ``ValueError
     (or ``OSError``) for a corrupt (or unreadable) one or one PIL refuses.
     A PNG stream (a PNG file, an ICO file's PNG icon) goes to
     ``decode_png``."""

@@ -98,6 +98,7 @@
 #include <string>
 #include <thread>
 #include <type_traits>
+#include <unordered_map>
 #include <vector>
 
 namespace sigwebp {  // webp.cpp
@@ -5216,25 +5217,31 @@ TiffYcc tiff_ycc(const Tiff& t, size_t coefficients, size_t refbw) {
 // as PIL reads it through libtiff's RGBA reader (gtStripSeparate): a call a
 // strip, the strip of plane 0, 1 and 2 read in turn into a buffer cleared
 // for the call; a read that fails leaves its plane's rows zero, and one that
-// fails before it decodes plane 0 fails PIL's read. libtiff's codec decodes
-// plane s as a frame of that one sample. Its scan's SOS is found by
+// fails before it decodes plane 0 fails PIL's read. In tiles (A.6.48,
+// gtTileSeparate): a call a row of tiles, the buffer cleared when the
+// call's first tile is read and not between its tiles: a read that fails
+// clears its plane's tile (libtiff 4.7.1 clears the buffer on a failure),
+// one below libjpeg's frame succeeds with no line and leaves the tile
+// before it in the same row of tiles; a tile is `rps` rows of a frame `sw`
+// wide (striles one after another), `across` tiles a row. libtiff's codec
+// decodes plane s as a frame of that one sample. Its scan's SOS is found by
 // searching the byte source `src` (the JPEGInterchangeFormat bytes, then
 // the striles, which end at `strip_end`) onward from plane s - 1's SOS for
 // FF DA (OJPEGReadSecondarySos; plane 0's ends at `from`); a plane whose SOS
 // is not found fails every read, and the search leaves the source where it
 // stopped. One libjpeg session at a time: a read of another plane ends it
-// (libtiff then starts that plane over, decoding the strips before the one
+// (libtiff then starts that plane over, decoding the striles before the one
 // read), a session whose header failed is never ended and every header
 // after it fails, and a read that fails is not counted, so the plane's next
-// read decodes the failed strip again. `stream(s, 1, at)` is plane s's
-// stream, its scan at `at`.
+// read decodes the failed strile again. `stream(s, 1, at)` is plane s's
+// stream, its scan at `at`; `down` the striles of a plane.
 template <class Stream>
 [[gnu::noinline]] void ojpeg_planes(const std::vector<uint8_t>& src, size_t jif_size,
                                     const std::vector<size_t>& strip_end, size_t from,
                                     const Stream& stream, int* sos_cs,
                                     int* sos_tda, const int* sof_hv, uint32_t sof_y, bool open_end,
-                                    int restart, uint32_t rps, uint32_t down, const TiffYcc& conv,
-                                    Gray& g) {
+                                    int restart, uint32_t rps, uint32_t down, bool tiles, uint32_t sw,
+                                    uint32_t across, const TiffYcc& conv, Gray& g) {
   const uint32_t W = g.w, H = g.h;
   // The ends of the source's blocks, past which OJPEGReadSkip does not skip.
   std::vector<size_t> ends{jif_size};
@@ -5310,7 +5317,7 @@ template <class Stream>
   // search's strile, and the strip begins with the next strile's. Plane 0
   // is decoded again, a strip at a time, from such a stream.
   const bool reads_on = !found[1] && stopped < src.size() && pl[0].ok && down > 1 &&
-                        restart == (int)(((W + 7) / 8) * (rps / 8)) && !log0.empty();
+                        restart == (int)(((sw + 7) / 8) * (rps / 8)) && !log0.empty();
   if (reads_on) {
     constexpr size_t kPiece = 2048;  // tif_ojpeg.c's OJPEG_BUFFER
     auto next_end = [&](size_t q) { return *std::upper_bound(strip_end.begin(), strip_end.end(), q); };
@@ -5382,12 +5389,42 @@ template <class Stream>
       done = line = 0;
       limit = pl[s].lines;
     }
+    // Past the frame's last line libjpeg gives no line and no error: such a
+    // read succeeds, writing nothing (a tile below a tables-layout frame).
     for (; done < k; ++done)
-      if (lines(rps) < rps) return -1;
-    const uint32_t n = std::min(rps, H - k * rps), got = lines(n);
-    if (got == n && ++done % down == 0) cur = -1;  // the plane's last strip ends the session
+      if (lines(rps) < rps && limit < sof_y) return -1;
+    const uint32_t n = tiles ? rps : std::min(rps, H - k * rps), got = lines(n);
+    if ((got == n || limit >= sof_y) && ++done % down == 0) cur = -1;  // the plane's last strile ends the session
     return got;
   };
+  if (tiles) {
+    const size_t tile = (size_t)rps * sw;
+    std::vector<uint8_t> buf(3 * tile);
+    for (uint32_t ty = 0; ty * across < down; ++ty) {
+      std::fill(buf.begin(), buf.end(), 0);
+      const uint32_t y0 = ty * rps, nrow = std::min(rps, H - y0);
+      for (uint32_t tx = 0; tx < across; ++tx) {
+        const uint32_t m = ty * across + tx, x0 = tx * sw, ncol = std::min(sw, W - x0);
+        for (int s = 0; s < 3; ++s) {
+          const int64_t w = read(s, m);
+          if (w < 0 && !s && !tx)
+            corrupt("old-style JPEG-in-TIFF plane 0 fails before it decodes (PIL's read fails)");
+          if (w < 0 || (w < (int64_t)rps && limit < sof_y)) {  // a failed read clears its tile
+            std::fill(&buf[s * tile], &buf[s * tile] + tile, 0);
+            continue;
+          }
+          for (int64_t r = 0; r < w; ++r)
+            memcpy(&buf[s * tile + r * sw], &pl[s].px[((size_t)m * rps + r) * pl[s].pw], sw);
+        }
+        for (uint32_t r = 0; r < nrow; ++r) {
+          uint8_t* o = &g.px[(size_t)(y0 + r) * W + x0];
+          const uint8_t* b = &buf[(size_t)r * sw];
+          for (uint32_t x = 0; x < ncol; ++x) o[x] = conv.grey(b[x], b[tile + x], b[2 * tile + x]);
+        }
+      }
+    }
+    return;
+  }
   for (uint32_t k = 0; k < down; ++k) {
     int64_t w[3];
     for (int s = 0; s < 3; ++s) w[s] = read(s, k);
@@ -5441,8 +5478,6 @@ struct OJpegTags {  // IFD entries, 0 where absent
   // The striles of every plane, one after another in the byte source; the
   // samples of a scan (libtiff's samples_per_pixel_per_plane).
   const uint32_t nall = nstrips * (planes ? spp : 1), per = planes ? 1 : spp;
-  if (planes && c.tiles)  // PIL reads them through the RGBA reader's gtTileSeparate
-    unsupported("YCbCr old-style JPEG-in-TIFF in planes and tiles");
   if (ycc && photometric != 6 && photometric != 2)  // libtiff's OJPEG decoder fails (PIL refuses)
     corrupt("old-style JPEG-in-TIFF of 3 samples in photometric " + std::to_string(photometric));
   if (!ycc && photometric == 6)
@@ -5507,6 +5542,12 @@ struct OJpegTags {  // IFD entries, 0 where absent
     }
     if (desub) sub_h = sub_v = 1;
   }
+  // C.26: libtiff's OJPEGReadSkip skips no further than the end of the
+  // block it reads (the JPEGInterchangeFormat bytes or a strile).
+  auto skip = [&](size_t k) {
+    const size_t end = p <= jif_size ? jif_size : *std::lower_bound(strip_end.begin(), strip_end.end(), p);
+    p = std::min({src.size(), end, p + k});
+  };
   int restart = oj.restart ? (int)t.values(oj.restart).at(0) : 0;
   if (rps < H) {
     for (int f : {sub_h, sub_v})
@@ -5530,7 +5571,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
     if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
       const int len = word();
       if (len < 2) corrupt("bad JPEG marker segment in old-style JPEG-in-TIFF");
-      p = std::min(src.size(), p + len - 2);
+      skip(len - 2);
     } else if (m == 0xDD) {
       if (word() != 4) corrupt("bad DRI segment in old-style JPEG-in-TIFF");
       restart = word();
@@ -5581,7 +5622,7 @@ struct OJpegTags {  // IFD entries, 0 where absent
         sos_cs[k] = byte();
         sos_tda[k] = byte();
       }
-      for (int k = 0; k < 3; ++k) byte();
+      skip(3);  // Ss, Se, Ah/Al
       break;
     } else {
       corrupt("unknown JPEG marker in old-style JPEG-in-TIFF");
@@ -5669,8 +5710,8 @@ struct OJpegTags {  // IFD entries, 0 where absent
     // stream's frame.
     if (sub_h != 1 || sub_v != 1)
       corrupt("old-style JPEG-in-TIFF planes of YCbCr subsampling libtiff's RGBA reader refuses");
-    ojpeg_planes(src, jif_size, strip_end, p, stream, sos_cs, sos_tda, sof_hv,
-                 (uint32_t)sof_y, !eoi, restart, rps, down, conv, g);
+    ojpeg_planes(src, jif_size, strip_end, p, stream, sos_cs, sos_tda, sof_hv, (uint32_t)sof_y, !eoi,
+                 restart, rps, nstrips, c.tiles, sw, across, conv, g);
     return;
   }
   const std::vector<uint8_t> s = stream(0, spp, p);
@@ -6931,8 +6972,10 @@ Gray decode_tiff(const uint8_t* d, size_t n) {
 inline bool pnm_space(int c) { return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r'; }
 inline bool pnm_digit(int c) { return c >= '0' && c <= '9'; }
 
-// Python's int() of a token of at most 10 ASCII bytes: a sign, then digits
-// with single underscores between them. False where Python raises.
+// Python's int() of an ASCII token: a sign, then digits with single
+// underscores between them; its value saturates at 2^50. False where
+// Python raises.
+constexpr int64_t kPyIntCap = (int64_t)1 << 50;
 bool py_int(const char* t, size_t n, int64_t& v) {
   size_t i = 0;
   const bool neg = n && t[0] == '-';
@@ -6942,7 +6985,7 @@ bool py_int(const char* t, size_t n, int64_t& v) {
   for (; i < n; ++i) {
     if (t[i] == '_' && i > 0 && pnm_digit(t[i - 1]) && i + 1 < n && pnm_digit(t[i + 1])) continue;
     if (!pnm_digit(t[i])) return false;
-    x = x * 10 + (t[i] - '0');
+    x = std::min(kPyIntCap, x * 10 + (t[i] - '0'));
   }
   v = neg ? -x : x;
   return true;
@@ -7457,76 +7500,196 @@ Gray decode_gif(const uint8_t* d, size_t n) {
 // no _accept: their _open's checks decide. `pil_format` is the format PIL
 // opens a file as, by those rules, for the kinds the port does not read by
 // its own magic (PNG, JPEG, BMP, TIFF and GIF come first and keep their
-// routes): PPM is read here (A.6.29); the stubs with no decoder in PIL
-// (BUFR, GRIB, HDF5, WMF), MPEG (no tile) and EPS (Ghostscript) are
-// corrupt, as PIL refuses their pixels; every other raises naming A.6. The
-// checks go as deep as each _open's header; a damaged file of a format
-// PIL opens raises naming A.6 even where PIL would then refuse its pixels.
+// routes): PPM (A.6.29), WebP (A.6.30-A.6.32), DIB, ICO, CUR, TGA, PCX,
+// DCX, SGI, SUN, MSP, QOI (A.6.33-A.6.42), IM, XBM, XPM, XVThumb and PSD
+// (A.6.43-A.6.47) are read here; the stubs with no decoder in PIL (BUFR,
+// GRIB, HDF5, WMF), MPEG (no tile) and EPS (Ghostscript) are corrupt, as
+// PIL refuses their pixels; every other raises naming A.6. The checks go
+// as deep as each _open's header; a damaged file of a format PIL opens
+// raises naming A.6 even where PIL would then refuse its pixels.
 
 inline uint32_t be16(const uint8_t* p) { return p[0] << 8 | p[1]; }
 inline uint32_t be32(const uint8_t* p) { return (uint32_t)p[0] << 24 | p[1] << 16 | p[2] << 8 | p[3]; }
 inline bool starts(const uint8_t* d, size_t n, const char* m, size_t k) { return n >= k && !memcmp(d, m, k); }
 
-// ImImagePlugin: a text header of "Key: value" lines, at least one key of
-// its TAGS, ended by NUL or ^Z, then ^Z before the pixels.
-bool im_header(const uint8_t* d, size_t n) {
+// Python's int() and float() of a str read from a file as latin-1: the
+// whitespace they take off around it first (ASCII's, 0x85 and 0xA0; not
+// 0x1C-0x1F, which str.strip() would).
+inline bool py_str_space(uint8_t c) { return (c >= 9 && c <= 13) || c == 0x20 || c == 0x85 || c == 0xA0; }
+std::string py_strip(const std::string& t) {
+  size_t a = 0, b = t.size();
+  while (a < b && py_str_space((uint8_t)t[a])) ++a;
+  while (b > a && py_str_space((uint8_t)t[b - 1])) --b;
+  return t.substr(a, b - a);
+}
+// ImImagePlugin's _open (A.6.43): "Key: value" lines, each under 101
+// bytes, a CR opening a line skipped, until NUL, ^Z or the end; at least
+// one key of its TAGS; then ^Z before the pixels. "Image type" maps its
+// OPEN names to a mode and a raw mode (any other value is the mode, the raw
+// mode staying what it was, "L" at first); the size's, the frame count's
+// and the scale's values must be numbers. A "Lut" key takes 768 bytes
+// after ^Z: a palette of colours makes L and P mode P (raw P), LA and PA
+// mode PA (raw PA;L); a grey one, linear or not, changes nothing (PIL keeps
+// it as `lut` and never applies it). False where PIL passes the file on to
+// the next plugin; throws where Image.open fails.
+struct ImHead {
+  std::string mode = "L", rawmode = "L";
+  int64_t w = 512, h = 512;
+  size_t data = 0;        // where the pixels start
+  bool palette = false;   // a colour Lut: `pal` its RGB;L bytes
+  const uint8_t* pal = nullptr;
+};
+
+bool im_open(const uint8_t* d, size_t n, ImHead& m) {
   if (!memchr(d, '\n', std::min<size_t>(n, 100))) return false;
   static const char* kTags[] = {"Comment", "Date", "Digitalization equipment", "File size (no of images)",
                                 "Lut", "Name", "Scale (x,y)", "Image size (x*y)", "Image type"};
+  static const char* kOpen[][3] = {
+      {"0 1 image", "1", "1"}, {"L 1 image", "1", "1"}, {"Greyscale image", "L", "L"},
+      {"Grayscale image", "L", "L"}, {"RGB image", "RGB", "RGB;L"}, {"RLB image", "RGB", "RLB"},
+      {"RYB image", "RGB", "RLB"}, {"B1 image", "1", "1"}, {"B2 image", "P", "P;2"},
+      {"B4 image", "P", "P;4"}, {"X 24 image", "RGB", "RGB"}, {"L 32 S image", "I", "I;32"},
+      {"L 32 F image", "F", "F;32"}, {"RGB3 image", "RGB", "RGB;T"}, {"RYB3 image", "RGB", "RYB;T"},
+      {"LA image", "LA", "LA;L"}, {"PA image", "LA", "PA;L"}, {"RGBA image", "RGBA", "RGBA;L"},
+      {"RGBX image", "RGB", "RGBX;L"}, {"CMYK image", "CMYK", "CMYK;L"}, {"YCC image", "YCbCr", "YCbCr;L"},
+      {"L 8 image", "F", "F;8"}, {"L 8S image", "F", "F;8S"}, {"L 16S image", "F", "F;16S"},
+      {"L 32 image", "F", "F;32"}, {"L 32F image", "F", "F;32F"}, {"L*8S image", "F", "F;8S"},
+      {"L*16S image", "F", "F;16S"}, {"L*32F image", "F", "F;32F"}, {"L 16 image", "I;16", "I;16"},
+      {"L 16L image", "I;16L", "I;16L"}, {"L*16L image", "I;16L", "I;16L"},
+      {"L 16B image", "I;16B", "I;16B"}, {"L*16B image", "I;16B", "I;16B"},
+      {"L 32S image", "I", "I;32S"}, {"L*32S image", "I", "I;32S"}};
   size_t pos = 0;
   int tags = 0, c = -1;
+  bool lut = false;
+  std::vector<double> size{512, 512};  // the size's values; NAN marks a float
   while (pos < n) {
     c = d[pos++];
     if (c == '\r') continue;
     if (c == 0 || c == 0x1A) break;
     const size_t start = pos - 1;
-    while (pos < n && d[pos - 1] != '\n') ++pos;
-    std::string line((const char*)d + start, pos - start);
+    while (pos < n && d[pos++] != '\n') {
+    }
+    std::string s((const char*)d + start, pos - start);
     c = -1;
-    if (line.size() > 100) return false;
-    if (line.size() >= 2 && line.compare(line.size() - 2, 2, "\r\n") == 0) line.resize(line.size() - 2);
-    else if (!line.empty() && line.back() == '\n') line.pop_back();
-    const size_t colon = line.find(':');
-    if (line.empty() || !isalpha((unsigned char)line[0]) || colon == std::string::npos ||
-        line.find('\n') != std::string::npos)
+    if (s.size() > 100) return false;
+    if (s.size() >= 2 && s.compare(s.size() - 2, 2, "\r\n") == 0) s.resize(s.size() - 2);
+    else if (!s.empty() && s.back() == '\n') s.pop_back();
+    const size_t colon = s.find(':');
+    if (s.empty() || !isalpha((unsigned char)s[0]) || colon == std::string::npos ||
+        s.find('\n') != std::string::npos)
       return false;
-    for (const char* k : kTags) tags += line.compare(0, colon, k) == 0;
+    const std::string k = s.substr(0, colon);
+    size_t v0 = colon + 1;
+    while (v0 < s.size() && (s[v0] == ' ' || s[v0] == '\t')) ++v0;
+    const std::string v = s.substr(v0);
+    const bool is_size = k == "Image size (x*y)";
+    if (is_size || k == "File size (no of images)" || k == "Scale (x,y)") {
+      std::vector<double> vals;
+      for (size_t a = 0;;) {  // "*" read as ",", each piece int() or else float()
+        size_t b = a;
+        while (b < v.size() && v[b] != ',' && v[b] != '*') ++b;
+        const std::string piece = py_strip(v.substr(a, b - a));
+        int64_t iv;
+        double fv;
+        if (py_int(piece, iv)) vals.push_back((double)iv);
+        else if (py_float(piece, fv)) vals.push_back(fv > 0 ? NAN : fv);  // a float > 0 only fails later
+        else corrupt("IM header number not a number (PIL refuses the file)");
+        if (b >= v.size()) break;
+        a = b + 1;
+      }
+      if (is_size) size = vals;
+    } else if (k == "Image type") {
+      m.mode = v;
+      for (const auto& o : kOpen)
+        if (v == o[0]) {
+          m.mode = o[1];
+          m.rawmode = o[2];
+        }
+      for (int j = 2; j <= 32; ++j)  // "L*j image": F;j (8, 16 and 32 read raw, the rest bit-packed)
+        if (v == "L*" + std::to_string(j) + " image") {
+          m.mode = "F";
+          m.rawmode = "F;" + std::to_string(j);
+        }
+    }
+    lut = lut || k == "Lut";
+    for (const char* t : kTags) tags += k == t;
   }
   if (!tags) return false;
   while (c != 0x1A) {  // the pixels start after ^Z
     if (pos >= n) return false;
     c = d[pos++];
   }
+  if (lut) {
+    if (n - pos < 768) return false;  // the palette's bytes cut short: IndexError
+    const uint8_t* p = d + pos;
+    bool grey = true;
+    for (int i = 0; i < 256; ++i) grey = grey && p[i] == p[i + 256] && p[i] == p[i + 512];
+    const std::string& mo = m.mode;
+    if (!grey && (mo == "L" || mo == "P" || mo == "LA" || mo == "PA")) {
+      const bool alpha = mo[1] == 'A';
+      m.mode = alpha ? "PA" : "P";
+      m.rawmode = alpha ? "PA;L" : "P";
+      m.palette = true;
+      m.pal = p;
+    }
+    pos += 768;
+  }
+  m.data = pos;
+  // ImageFile: no mode, or a size of one value (TypeError) or not above 0,
+  // passes the file on.
+  if (m.mode.empty() || size.size() < 2 || !(size[0] > 0 || std::isnan(size[0])) ||
+      !(size[1] > 0 || std::isnan(size[1])))
+    return false;
+  if (size.size() != 2 || std::isnan(size[0]) || std::isnan(size[1]))
+    corrupt("IM size not two integers (PIL refuses the file)");
+  m.w = (int64_t)size[0];
+  m.h = (int64_t)size[1];
   return true;
 }
 
-// XbmImagePlugin's xbm_head in the first 512 bytes: whitespace, a line
-// "#define <name>_width N", a line "#define <name>_height N", then
-// "_bits[]" anywhere after.
-bool xbm_header(const uint8_t* d, size_t n) {
+// XbmImagePlugin's xbm_head matched on the first 512 bytes: whitespace,
+// "#define[ \t]+.*_width[ \t]+N[\r\n]+", the same of "_height", then
+// anything up to "_bits[]" (the regex's greedy parts: the last "_width" of
+// its line that fits, the last "_bits[]"). False where it does not match;
+// else the size and where the data starts, after that "_bits[]".
+bool xbm_open(const uint8_t* d, size_t n, int64_t& w, int64_t& h, size_t& data) {
   const std::string s((const char*)d, std::min<size_t>(n, 512));
   size_t k = 0;
-  while (k < s.size() && isspace((unsigned char)s[k])) ++k;
+  while (k < s.size() && pnm_space((unsigned char)s[k])) ++k;
   if (k > 9) return false;  // _accept: "#define" within the first 16 bytes
-  auto define = [&](size_t& at, const char* what) {
-    if (s.compare(at, 7, "#define") != 0) return false;
+  // The ends and numbers of "#define...<what> N[\r\n]+" at `at`, the
+  // greedy .* trying the last <what> on the line first.
+  auto defines = [&](size_t at, const std::string& what) {
+    std::vector<std::pair<size_t, int64_t>> out;
+    if (s.compare(at, 7, "#define") != 0) return out;
     at += 7;
-    if (at >= s.size() || (s[at] != ' ' && s[at] != '\t')) return false;
-    const size_t eol = s.find_first_of("\r\n", at);
-    if (eol == std::string::npos) return false;
-    size_t e = eol;  // the line ends in <what>[ \t]+[0-9]+
-    while (e > at && isdigit((unsigned char)s[e - 1])) --e;
-    if (e == eol) return false;
-    size_t b = e;
-    while (b > at && (s[b - 1] == ' ' || s[b - 1] == '\t')) --b;
-    const size_t w = strlen(what);
-    if (b == e || b < at + 1 + w || s.compare(b - w, w, what) != 0) return false;
-    at = eol;
-    while (at < s.size() && (s[at] == '\r' || s[at] == '\n')) ++at;
-    return true;
+    if (at >= s.size() || (s[at] != ' ' && s[at] != '\t')) return out;
+    const size_t eol = std::min(s.find('\n', at), s.size());
+    for (size_t p = eol; p-- > at + 1;) {
+      if (s.compare(p, what.size(), what) != 0) continue;
+      size_t q = p + what.size();
+      if (q >= s.size() || (s[q] != ' ' && s[q] != '\t')) continue;
+      while (q < s.size() && (s[q] == ' ' || s[q] == '\t')) ++q;
+      const size_t digits = q;
+      int64_t v = 0;
+      for (; q < s.size() && pnm_digit(s[q]); ++q) v = std::min(kPyIntCap, v * 10 + (s[q] - '0'));
+      if (q == digits || q >= s.size() || (s[q] != '\r' && s[q] != '\n')) continue;
+      while (q < s.size() && (s[q] == '\r' || s[q] == '\n')) ++q;
+      out.emplace_back(q, v);
+    }
+    return out;
   };
-  size_t at = k;
-  return define(at, "_width") && define(at, "_height") && s.find("_bits[]", at) != std::string::npos;
+  const size_t bits = s.rfind("_bits[]");
+  if (bits == std::string::npos) return false;
+  for (const auto& [e1, wv] : defines(k, "_width"))
+    for (const auto& [e2, hv] : defines(e1, "_height"))
+      if (bits >= e2) {
+        w = wv;
+        h = hv;
+        data = bits + 7;
+        return true;
+      }
+  return false;
 }
 
 // ImtImagePlugin: "width N", "height N" and "pixel n8" lines.
@@ -8252,6 +8415,505 @@ Gray decode_qoi(const uint8_t* d, size_t n) {
   return g;
 }
 
+// The line from `p` through its '\n' (or the file's end), as Python's
+// readline gives it; `p` moves past it.
+std::string read_line(const uint8_t* d, size_t n, size_t& p) {
+  const size_t a = p;
+  const void* e = p < n ? memchr(d + p, '\n', n - p) : nullptr;
+  p = e ? (size_t)((const uint8_t*)e - d) + 1 : n;
+  return std::string((const char*)d + a, p - a);
+}
+
+// XpmImagePlugin's _open up to its "W H C P" line: the lines from byte 9 on
+// until one opens with '"' and four runs of digits, a space after each of
+// the first three. False where no line does (PIL passes the file on);
+// throws where such a run is empty (int() refuses it). `v` the numbers,
+// `p` past that line.
+bool xpm_open(const uint8_t* d, size_t n, int64_t v[4], size_t& p) {
+  for (p = 9; p < n;) {
+    const std::string s = read_line(d, n, p);
+    size_t k = 1;
+    bool head = s[0] == '"';
+    for (int f = 0; f < 4 && head; ++f) {
+      const size_t a = k;
+      for (v[f] = 0; k < s.size() && pnm_digit(s[k]); ++k) v[f] = std::min(kPyIntCap, v[f] * 10 + (s[k] - '0'));
+      if (k == a) corrupt("XPM header of an empty number (PIL refuses it)");
+      if (f < 3) head = k < s.size() && s[k++] == ' ';
+    }
+    if (head) return true;
+  }
+  return false;
+}
+
+// ---------------------------------------------------- XV thumbnail (A.6.46)
+
+// XVThumbImagePlugin: "P7 332", the rest of that line, lines opening with
+// '#', then a line whose first two fields are the size (int()); then the
+// rows, mode P bytes through the fixed 3-3-2 palette ((r * 255) // 7, the
+// same of g, (b * 255) // 3), the data whole or refused.
+Gray decode_xvthumb(const uint8_t* d, size_t n) {
+  size_t p = 6;
+  read_line(d, n, p);
+  std::string s;
+  do {
+    if (p >= n) corrupt("XV thumbnail header ends early (PIL refuses the file)");
+    s = read_line(d, n, p);
+  } while (s[0] == '#');
+  std::vector<std::string> f;
+  for (size_t i = 0; i < s.size() && f.size() < 2;) {
+    while (i < s.size() && pnm_space((unsigned char)s[i])) ++i;
+    size_t j = i;
+    while (j < s.size() && !pnm_space((unsigned char)s[j])) ++j;
+    if (j > i) f.push_back(s.substr(i, j - i));
+    i = j;
+  }
+  int64_t W, H;
+  if (f.size() < 2 || !py_int(f[0], W) || !py_int(f[1], H))
+    corrupt("XV thumbnail size not two numbers (PIL refuses the file)");
+  check_size(W, H);
+  if ((uint64_t)(n - p) < (uint64_t)W * H) corrupt("XV thumbnail pixels end early (PIL refuses the file)");
+  uint8_t grey[256];
+  for (int v = 0; v < 256; ++v) grey[v] = luma((v >> 5) * 255 / 7, (v >> 2 & 7) * 255 / 7, (v & 3) * 255 / 3);
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  for (size_t i = 0; i < g.px.size(); ++i) g.px[i] = grey[d[p + i]];
+  return g;
+}
+
+// ------------------------------------------------------------- XBM (A.6.44)
+
+inline int hex_digit(int c) {  // XbmDecode.c's HEX: 0 for a character not a hex digit
+  return c >= '0' && c <= '9' ? c - '0' : c >= 'a' && c <= 'f' ? c - 'a' + 10 : c >= 'A' && c <= 'F' ? c - 'A' + 10 : 0;
+}
+
+// XbmDecode.c from xbm_open's data start: each byte is the two characters
+// after the next 'x' (a token cut short, "0x5,", reads 0x50), its bits
+// the row's pixels least significant first, a set bit white (PIL's mode 1
+// from raw 1;R); an 'x' without two characters after it, or too few, is
+// refused ("image file is truncated").
+Gray decode_xbm(const uint8_t* d, size_t n) {
+  int64_t W = 0, H = 0;
+  size_t p = 0;
+  xbm_open(d, n, W, H, p);
+  check_size(W, H);
+  const size_t stride = ((size_t)W + 7) / 8;
+  if ((n - p) / 3 < stride * H) corrupt("XBM data ends early (PIL refuses the file)");
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  std::vector<uint8_t> row(stride);
+  for (int64_t y = 0; y < H; ++y) {
+    for (size_t i = 0; i < stride; ++i) {
+      const void* x = p < n ? memchr(d + p, 'x', n - p) : nullptr;
+      if (!x || n - (size_t)((const uint8_t*)x - d) < 3) corrupt("XBM data ends early (PIL refuses the file)");
+      p = (size_t)((const uint8_t*)x - d);
+      row[i] = (uint8_t)(hex_digit(d[p + 1]) << 4 | hex_digit(d[p + 2]));
+      p += 3;
+    }
+    uint8_t* o = &g.px[(size_t)y * W];
+    for (int64_t x = 0; x < W; ++x) o[x] = row[x >> 3] >> (x & 7) & 1 ? 255 : 0;
+  }
+  return g;
+}
+
+// ------------------------------------------------------------- XPM (A.6.45)
+
+// Python's int(t, 16) of a bytes token: a sign, an optional 0x, hex digits
+// with single underscores between them (and one after the 0x); false where
+// Python raises. `low` is the value's low 24 bits, two's complement.
+bool py_hex24(const std::string& t, uint32_t& low) {
+  size_t i = 0;
+  const bool neg = !t.empty() && t[0] == '-';
+  if (!t.empty() && (t[0] == '+' || t[0] == '-')) ++i;
+  const bool prefix = t.size() >= i + 2 && t[i] == '0' && (t[i + 1] == 'x' || t[i + 1] == 'X');
+  if (prefix) i += 2;
+  auto hexc = [](char c) { return isxdigit((unsigned char)c) != 0; };
+  uint32_t x = 0;
+  int digits = 0;
+  for (; i < t.size(); ++i) {
+    if (t[i] == '_' && ((digits && hexc(t[i - 1])) || (prefix && !digits && t[i - 1] != '_')) &&
+        i + 1 < t.size() && hexc(t[i + 1]))
+      continue;
+    if (!hexc(t[i])) return false;
+    x = (x << 4 | (uint32_t)hex_digit(t[i])) & 0xFFFFFF;
+    ++digits;
+  }
+  if (!digits) return false;
+  low = neg ? (0x1000000 - x) & 0xFFFFFF : x;
+  return true;
+}
+
+// XpmImagePlugin: after the "W H C P" line, C palette lines, each
+// rstripped, its key line[1:P+1] and the pairs of line[P+1:-2].split():
+// the first "c" pair's colour "#hex" (int(, 16)'s low 24 bits) or "None"
+// (the key left out); another colour, or no "c", is refused. A key given
+// twice keeps its first place with its last colour. More than 256 lines
+// make the image RGB, else P of the palette in the keys' order: either way
+// a pixel's grey is its key's colour's. Then XpmDecoder: lines until the
+// pixels are enough (one "/* pixels */" line skipped), each the bytes
+// between its first and last '"', P bytes a key; a key not in the palette,
+// P 0, or too few pixels are refused; more are cut.
+Gray decode_xpm(const uint8_t* d, size_t n) {
+  size_t p;
+  int64_t v[4];
+  if (!xpm_open(d, n, v, p)) corrupt("XPM header not found (PIL refuses the file)");
+  const int64_t W = v[0], H = v[1], colours = v[2], bpp = v[3];
+  std::vector<std::string> keys;
+  std::vector<uint8_t> greys;
+  std::unordered_map<std::string, size_t> at;
+  for (int64_t i = 0; i < colours; ++i) {
+    std::string s = read_line(d, n, p);
+    while (!s.empty() && pnm_space((unsigned char)s.back())) s.pop_back();
+    const size_t len = s.size(), a = std::min<size_t>((size_t)std::min<int64_t>(bpp, kPyIntCap) + 1, len);
+    const std::string key = s.substr(std::min<size_t>(1, len), a - std::min<size_t>(1, len));
+    std::vector<std::string> words;
+    for (size_t q = a, e = len >= 2 ? len - 2 : 0; q < e;) {
+      while (q < e && pnm_space((unsigned char)s[q])) ++q;
+      size_t r = q;
+      while (r < e && !pnm_space((unsigned char)s[r])) ++r;
+      if (r > q) words.push_back(s.substr(q, r - q));
+      q = r;
+    }
+    bool found = false;
+    for (size_t w = 0; w < words.size() && !found; w += 2) {
+      if (words[w] != "c") continue;
+      found = true;
+      if (w + 1 >= words.size()) corrupt("XPM colour key without a colour (PIL refuses the file)");
+      const std::string& rgb = words[w + 1];
+      if (rgb == "None") break;
+      uint32_t x;
+      if (rgb[0] != '#' || !py_hex24(rgb.substr(1), x)) corrupt("XPM colour PIL cannot read");
+      const uint8_t grey = luma(x >> 16 & 255, x >> 8 & 255, x & 255);
+      const auto it = at.find(key);
+      if (it != at.end()) {
+        greys[it->second] = grey;
+      } else {
+        at.emplace(key, keys.size());
+        keys.push_back(key);
+        greys.push_back(grey);
+      }
+    }
+    if (!found) corrupt("XPM palette line without a colour key (PIL refuses the file)");
+  }
+  check_size(W, H);
+  if (bpp == 0) corrupt("XPM of 0 characters a pixel (PIL refuses the file)");
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  const size_t want = (size_t)W * H;
+  g.px.reserve(std::min<size_t>(want, n));
+  // Keys of 1 and 2 characters by table: the grey, -1 for none.
+  std::vector<int16_t> one(256, -1), two(bpp == 2 ? 65536 : 0, -1);
+  for (size_t k = 0; k < keys.size(); ++k) {
+    if (keys[k].size() == 1) one[(uint8_t)keys[k][0]] = greys[k];
+    if (keys[k].size() == 2 && bpp == 2) two[(uint8_t)keys[k][0] << 8 | (uint8_t)keys[k][1]] = greys[k];
+  }
+  bool pixels_line = false;
+  std::string key;
+  while (g.px.size() < want && p < n) {
+    const std::string s = read_line(d, n, p);
+    std::string t = s;
+    while (!t.empty() && pnm_space((unsigned char)t.back())) t.pop_back();
+    if (t == "/* pixels */" && !pixels_line) {
+      pixels_line = true;
+      continue;
+    }
+    const size_t f = s.find('"'), l = s.rfind('"');
+    if (f == std::string::npos || f == l) continue;
+    const char* c = s.data() + f + 1;
+    const size_t len = l - f - 1;
+    for (size_t i = 0; i < len; i += (size_t)bpp) {
+      const size_t k = std::min<size_t>((size_t)bpp, len - i);
+      int grey = -1;
+      if (k == 1) {
+        grey = one[(uint8_t)c[i]];
+      } else if (k == 2 && bpp == 2) {
+        grey = two[(uint8_t)c[i] << 8 | (uint8_t)c[i + 1]];
+      } else {
+        key.assign(c + i, k);
+        const auto it = at.find(key);
+        if (it != at.end()) grey = greys[it->second];
+      }
+      if (grey < 0) corrupt("XPM pixel of a key not in its palette (PIL refuses the file)");
+      g.px.push_back((uint8_t)grey);
+    }
+  }
+  if (g.px.size() < want) corrupt("XPM pixels end early (PIL refuses the file)");
+  g.px.resize(want);
+  return g;
+}
+
+// -------------------------------------------------------------- IM (A.6.43)
+
+// Pillow's BitDecode.c as the IM plugin calls it (pad 8, fill 3, unsigned,
+// bottom row first): N-bit samples packed from each byte's low bits up,
+// each row from a fresh byte (the bits left in the buffer kept, ORed under
+// the next byte), a buffer past 32 bits refilled from the last byte; a
+// sample's value in float32, clipped to 255 by convert("L"). False where
+// the data ends before the image is full.
+bool bit_decode(const uint8_t* s, size_t n, int bits, int64_t W, int64_t H, uint8_t* out) {
+  const uint64_t mask = (uint64_t)(uint32_t)((1 << bits) - 1);
+  uint64_t buf = 0;
+  int cnt = 0;
+  int64_t x = 0, y = H - 1;
+  for (size_t i = 0; i < n; ++i) {
+    const uint8_t byte = s[i];
+    buf |= (uint64_t)byte << cnt;
+    cnt += 8;
+    while (cnt >= bits) {
+      const uint64_t v = buf & mask;
+      if (cnt > 32) buf = byte >> (8 - (cnt - bits));
+      else buf >>= bits;
+      cnt -= bits;
+      out[y * W + x] = (uint8_t)std::min<uint64_t>(v, 255);
+      if (++x >= W) {
+        if (--y < 0) return true;
+        x = 0;
+        cnt = 0;
+      }
+    }
+  }
+  return false;
+}
+
+// The first frame of an IM file (im_open), its rows bottom-up, of PIL's
+// raw mode for its mode (a pair PIL's unpackers lack is refused), three
+// planes G, R, B for RGB;T and RYB;T, the bit decoder for F;N; the data
+// whole or refused. convert("L"): 1 to 0 / 255, P and PA through the Lut's
+// colours (black without them), LA its L, RGB luma, CMYK cmyk_luma, YCbCr
+// its Y, I and F clipped to 0 .. 255 (F truncated, NaN 0).
+Gray decode_im(const uint8_t* d, size_t n) {
+  ImHead m;
+  im_open(d, n, m);
+  check_size(m.w, m.h);
+  const int64_t W = m.w, H = m.h;
+  const uint8_t* s = d + m.data;
+  const size_t left = n - m.data;
+  const std::string &mo = m.mode, &raw = m.rawmode;
+  enum Kind { kBits, kPlanes, kBit1, kGrey, kIndex, kIndex2, kIndex4, kPA, kRgb, kRgbL, kCmykL,
+              kU16le, kU16be, kI32, kF8s, kF16s, kF32, kF32f };
+  static const struct { const char* mode; const char* raw; Kind kind; int row8; } kRaw[] = {
+      // row8: the row's bytes per 8 pixels
+      {"1", "1", kBit1, 1}, {"L", "L", kGrey, 8}, {"P", "L", kIndex, 8}, {"P", "P", kIndex, 8},
+      {"P", "P;2", kIndex2, 2}, {"P", "P;4", kIndex4, 4}, {"PA", "PA;L", kIndex, 16}, {"LA", "LA;L", kGrey, 16},
+      {"RGB", "RGB", kRgb, 24}, {"RGBX", "RGB", kRgb, 24}, {"RGB", "RGB;L", kRgbL, 24},
+      {"RGBX", "RGB;L", kRgbL, 24}, {"RGB", "RGBA;L", kRgbL, 32}, {"RGB", "RGBX;L", kRgbL, 32},
+      {"RGBA", "RGBA;L", kRgbL, 32}, {"RGBX", "RGBX;L", kRgbL, 32}, {"CMYK", "CMYK;L", kCmykL, 32},
+      {"YCbCr", "YCbCr;L", kGrey, 24}, {"I", "I;16", kU16le, 16}, {"I;16", "I;16", kU16le, 16},
+      {"I;16L", "I;16L", kU16le, 16}, {"I", "I;16B", kU16be, 16}, {"I;16", "I;16B", kU16be, 16},
+      {"I;16B", "I;16B", kU16be, 16}, {"I", "I;32", kI32, 32}, {"I", "I;32S", kI32, 32},
+      {"F", "F;8", kGrey, 8}, {"F", "F;8S", kF8s, 8}, {"F", "F;16", kU16le, 16}, {"F", "F;16S", kF16s, 16},
+      {"F", "F;32", kF32, 32}, {"F", "F;32F", kF32f, 32}};
+  int kind = -1, bits = 0;
+  size_t stride = 0;  // a row's bytes; kPlanes: a plane's
+  if (raw.compare(0, 2, "F;") == 0 && raw.size() > 2 && raw.find_first_not_of("0123456789", 2) == std::string::npos &&
+      raw != "F;8" && raw != "F;16" && raw != "F;32") {
+    if (mo != "F") corrupt("IM of " + raw + " in mode " + mo + " (PIL's bit decoder takes F alone)");
+    kind = kBits;
+    bits = std::stoi(raw.substr(2));
+    stride = ((size_t)W * bits + 7) / 8;
+  } else if (raw == "RGB;T" || raw == "RYB;T") {  // planes G, R, B
+    if (mo != "RGB" && mo != "RGBA" && mo != "RGBX") corrupt("IM planes of mode " + mo + " (PIL refuses them)");
+    kind = kPlanes;
+    stride = (size_t)W * 3;
+  } else {
+    for (const auto& r : kRaw)
+      if (mo == r.mode && raw == r.raw) {
+        kind = r.kind;
+        stride = ((size_t)W * r.row8 + 7) / 8;
+      }
+    if (kind < 0) corrupt("IM of mode " + mo + " in raw mode " + raw + " (PIL has no such unpacker)");
+  }
+  if (left / stride < (size_t)H) corrupt("IM pixels end early (PIL refuses the file)");
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  if (kind == kBits) {
+    if (!bit_decode(s, left, bits, W, H, g.px.data())) corrupt("IM pixels end early (PIL refuses the file)");
+    return g;
+  }
+  uint8_t pal[256] = {0};
+  if (m.palette)
+    for (int i = 0; i < 256; ++i) pal[i] = luma(m.pal[i], m.pal[256 + i], m.pal[512 + i]);
+  const size_t plane = (size_t)W * H;
+  for (int64_t y = 0; y < H; ++y) {
+    const uint8_t* r = s + (size_t)(H - 1 - y) * (kind == kPlanes ? W : stride);
+    uint8_t* o = &g.px[(size_t)y * W];
+    if (kind == kGrey) {
+      memcpy(o, r, W);
+      continue;
+    }
+    for (int64_t x = 0; x < W; ++x) {
+      int v = 0;
+      switch (kind) {
+        case kPlanes: v = luma(r[plane + x], r[x], r[2 * plane + x]); break;
+        case kBit1: v = r[x >> 3] >> (7 - (x & 7)) & 1 ? 255 : 0; break;
+        case kGrey: v = r[x]; break;
+        case kIndex: v = pal[r[x]]; break;
+        case kIndex2: v = pal[r[x >> 2] >> (6 - 2 * (x & 3)) & 3]; break;
+        case kIndex4: v = pal[r[x >> 1] >> (x & 1 ? 0 : 4) & 15]; break;
+        case kRgb: v = luma(r[3 * x], r[3 * x + 1], r[3 * x + 2]); break;
+        case kRgbL: v = luma(r[x], r[W + x], r[2 * W + x]); break;
+        case kCmykL: v = cmyk_luma(r[x], r[W + x], r[2 * W + x], r[3 * W + x]); break;
+        case kU16le: v = std::min(255, r[2 * x] | r[2 * x + 1] << 8); break;
+        case kU16be: v = std::min(255, r[2 * x] << 8 | r[2 * x + 1]); break;
+        case kF8s: v = std::max(0, (int)(int8_t)r[x]); break;
+        case kF16s: v = std::max(0, std::min(255, (int)(int16_t)(r[2 * x] | r[2 * x + 1] << 8))); break;
+        case kI32: v = std::max(0, std::min(255, (int)(int32_t)le32(r + 4 * x))); break;
+        case kF32: v = (int)std::min<uint32_t>(le32(r + 4 * x), 255); break;
+        case kF32f: {
+          const uint32_t u = le32(r + 4 * x);
+          float f;
+          memcpy(&f, &u, 4);
+          v = f <= 0.0f || f != f ? 0 : f >= 255.0f ? 255 : (int)f;
+          break;
+        }
+      }
+      o[x] = (uint8_t)v;
+    }
+  }
+  return g;
+}
+
+// ------------------------------------------------------------- PSD (A.6.47)
+
+// Pillow's PackDecode.c from `at`: a run (257 - c copies) or a literal (c +
+// 1 bytes) written into the row, cut at its end, 0x80 skipped, until `rows`
+// rows of `rowb` bytes are full; false where the data ends first.
+bool pil_packbits(const uint8_t* d, size_t n, size_t at, size_t rowb, size_t rows, uint8_t* out) {
+  size_t p = at, x = 0, y = 0;
+  for (;;) {
+    if (p >= n) return false;
+    const int c = d[p];
+    if (c == 0x80) {
+      ++p;
+      continue;
+    }
+    uint8_t* o = out + y * rowb + x;
+    if (c & 0x80) {
+      if (n - p < 2) return false;
+      const size_t k = std::min<size_t>(257 - c, rowb - x);
+      memset(o, d[p + 1], k);
+      x += k;
+      p += 2;
+    } else {
+      if (n - p < (size_t)c + 2) return false;
+      const size_t k = std::min<size_t>(c + 1, rowb - x);
+      memcpy(o, d + p + 1, k);
+      x += k;
+      p += c + 2;
+    }
+    if (x >= rowb) {
+      x = 0;
+      if (++y >= rows) return true;
+    }
+  }
+}
+
+// PsdImagePlugin: the header's mode and depth (MODES: 1 or 8 bits; the
+// mode's channels, RGB of exactly 4 read as RGBA), the colour mode data
+// (a palette where P's is exactly 768 bytes, RGB;L), the image resources
+// and the layer section skipped by their sizes, then the composite image:
+// compression 0 (raw planes, each W * H bytes apart, even at 1 bit) or 1
+// (a table of row byte counts, then each channel's PackBits stream from
+// where the counts place it, read until its rows are full, whatever the
+// counts say); any other makes no tile, which PIL refuses. A header read
+// past the end passes the file on (refused); LAB opens and convert("L")
+// refuses it. CMYK's planes are inverted; P without a palette reads black.
+Gray decode_psd(const uint8_t* d, size_t n) {
+  const int bits = (int)be16(d + 22), pmode = (int)be16(d + 24);
+  const int64_t W = be32(d + 18), H = be32(d + 14);
+  if (pmode == 9) corrupt("PSD in LAB, which PIL's convert(\"L\") refuses");
+  const int channels = pmode == 3 ? (be16(d + 12) == 4 ? 4 : 3) : pmode == 4 ? 4 : 1;
+  check_size(W, H);
+  size_t p = 26;
+  auto need = [&](size_t k) {
+    if (p >= n || n - p < k) corrupt("PSD header ends early (PIL refuses the file)");
+  };
+  auto skip = [&](uint64_t k) { p = (size_t)std::min<uint64_t>(std::max(p, n), p + k); };
+  need(4);
+  const uint32_t mode_data = be32(d + p);
+  p += 4;
+  const uint8_t* palette = pmode == 2 && mode_data == 768 && n - p >= 768 ? d + p : nullptr;
+  skip(mode_data);
+  need(4);
+  const uint64_t res_end = p + 4 + (uint64_t)be32(d + p);
+  p += 4;
+  while (p < res_end) {  // signature, id, a Pascal name padded to even, data padded to even
+    skip(4);
+    need(3);
+    const size_t name = std::min<size_t>(d[p + 2], n - p - 3);
+    p += 3 + name;
+    if (!(name & 1)) skip(1);
+    need(4);
+    const uint32_t len = be32(d + p);
+    p += 4;
+    const size_t data = std::min<size_t>(len, n - p);
+    p += data;
+    if (data & 1) skip(1);
+  }
+  need(4);
+  const uint32_t layers = be32(d + p);
+  p += 4;
+  if (layers) {
+    const uint64_t end = p + (uint64_t)layers;
+    need(4);
+    p = (size_t)std::min<uint64_t>(end, SIZE_MAX);
+  }
+  need(2);
+  const int compression = (int)be16(d + p);
+  p += 2;
+  const size_t rowb = bits == 1 ? ((size_t)W + 7) / 8 : (size_t)W, plane = rowb * H;
+  // Too little data for the planes (a PackBits op of 2 bytes gives at most
+  // 128 bytes of a row) is refused before they are allocated.
+  const uint64_t least = compression ? (uint64_t)H * (2 * channels + 2 * ((rowb + 127) / 128)) : plane;
+  if (p >= n || n - p < least) corrupt("PSD pixels end early (PIL refuses the file)");
+  std::vector<uint8_t> planes((size_t)channels * plane);
+  if (compression == 0) {
+    for (int c = 0; c < channels; ++c) {
+      const uint64_t at = p + (uint64_t)c * W * H;
+      if (at > n || n - at < plane) corrupt("PSD pixels end early (PIL refuses the file)");
+      memcpy(&planes[c * plane], d + at, plane);
+    }
+  } else if (compression == 1) {
+    need((size_t)2 * channels * H);
+    uint64_t at = p + (uint64_t)2 * channels * H;
+    for (int c = 0; c < channels; ++c) {
+      if (at > n || !pil_packbits(d, n, (size_t)at, rowb, H, &planes[c * plane]))
+        corrupt("PSD PackBits data ends early (PIL refuses the file)");
+      for (int64_t y = 0; y < H; ++y) at += be16(d + p + 2 * (c * H + y));
+    }
+  } else {
+    corrupt("PSD of compression " + std::to_string(compression) + ", of which PIL makes no tile");
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  if (bits == 8 && pmode != 2 && pmode != 3 && pmode != 4) {  // L: the first channel
+    planes.resize(plane);
+    g.px = std::move(planes);
+    return g;
+  }
+  g.px.resize((size_t)W * H);
+  const uint8_t* a = planes.data();
+  for (int64_t y = 0; y < H; ++y)
+    for (int64_t x = 0; x < W; ++x) {
+      const size_t i = (size_t)y * rowb + x;
+      uint8_t& o = g.px[(size_t)y * W + x];
+      if (bits == 1) o = a[(size_t)y * rowb + (x >> 3)] >> (7 - (x & 7)) & 1 ? 255 : 0;
+      else if (pmode == 2) o = palette ? luma(palette[a[i]], palette[256 + a[i]], palette[512 + a[i]]) : 0;
+      else if (pmode == 3) o = luma(a[i], a[plane + i], a[2 * plane + i]);
+      else if (pmode == 4)
+        o = cmyk_luma(255 - a[i], 255 - a[plane + i], 255 - a[2 * plane + i], 255 - a[3 * plane + i]);
+      else o = a[i];
+    }
+  return g;
+}
+
 // PcxImagePlugin's header: a box of pixels and a mode it knows.
 int pcx_header(const uint8_t* d, size_t n) {  // 0: not PCX, 1: PCX, -1: PIL fails
   if (n < 68 || d[0] != 10 || !(d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return 0;
@@ -8339,7 +9001,10 @@ std::string pil_format(const uint8_t* d, size_t n) {
     size_t png_at;
     if (ico_open(d, n, b, rows, png_at)) return "ICO";
   }
-  if (im_header(d, n)) return "IM";
+  {
+    ImHead m;
+    if (im_open(d, n, m)) return "IM";
+  }
   if (imt_header(d, n)) return "IMT";
   if (n && d[0] == 0x1C && iptc_header(d, n)) return "IPTC";
   if (n >= 256 && starts(d, n, "\0\0\0\0\0\0\0\x04", 8)) {
@@ -8397,26 +9062,15 @@ std::string pil_format(const uint8_t* d, size_t n) {
     if (n >= 26 && !memcmp(d + 22, "\x01\0\t\0", 4)) return "WMF";
   }
   if (st("\x01\0\0\0") && n >= 44 && !memcmp(d + 40, " EMF", 4)) return "WMF";
-  if (xbm_header(d, n)) return "XBM";
+  {
+    int64_t w = 0, h = 0;
+    size_t at;
+    if (xbm_open(d, n, w, h, at) && w > 0 && h > 0) return "XBM";
+  }
   if (st("/* XPM */")) {
-    // XpmImagePlugin: lines from byte 9 on until one opens with "W H C P
-    // (four runs of digits, each maybe empty, which int() then refuses).
-    for (size_t q = 9; q < n; q = (size_t)((const uint8_t*)memchr(d + q, '\n', n - q) - d) + 1) {
-      size_t k = q;
-      bool head = d[k] == '"', empty = false;
-      ++k;
-      for (int f = 0; f < 4 && head; ++f) {
-        const size_t a = k;
-        while (k < n && d[k] >= '0' && d[k] <= '9') ++k;
-        empty = empty || k == a;
-        if (f < 3) head = k < n && d[k++] == ' ';
-      }
-      if (head) {
-        if (empty) corrupt("XPM header of an empty number (PIL refuses it)");
-        return "XPM";
-      }
-      if (!memchr(d + q, '\n', n - q)) break;
-    }
+    int64_t v[4];
+    size_t at;
+    if (xpm_open(d, n, v, at)) return "XPM";
   }
   if (st("P7 332")) return "XVThumb";
   return "";
@@ -8480,6 +9134,11 @@ Gray decode_other(const uint8_t* d, size_t n) {
   if (f == "SUN") return decode_sun(d, n);
   if (f == "MSP") return decode_msp(d, n);
   if (f == "QOI") return decode_qoi(d, n);
+  if (f == "IM") return decode_im(d, n);
+  if (f == "PSD") return decode_psd(d, n);
+  if (f == "XBM") return decode_xbm(d, n);
+  if (f == "XPM") return decode_xpm(d, n);
+  if (f == "XVThumb") return decode_xvthumb(d, n);
   if (f == "BUFR" || f == "GRIB" || f == "HDF5" || f == "WMF" || f == "MPEG")
     corrupt(f + " file, which PIL opens and has no decoder for");
   if (f == "EPS") corrupt("EPS file, which PIL reads through Ghostscript alone");

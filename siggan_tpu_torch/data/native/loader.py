@@ -4,15 +4,17 @@
 The decoder reads JPEG, BMP, TIFF (BigTIFF, LZMA, ZSTD, CCITT in tiles and
 old-style LZW among them), GIF, Netpbm, WebP (lossless, lossy, with an
 ALPH chunk, an animation's first frame: libwebp's demuxer and decoders as
-Pillow calls them), DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN raster, MSP and
-QOI files to 8-bit grey, as PIL's ``Image.open(path).convert("L")`` gives
+Pillow calls them), DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN raster, MSP,
+QOI, IM, XBM, XPM, XV thumbnail and PSD files (old-style JPEG-in-TIFF in
+planes and tiles among the TIFFs) to 8-bit grey, as PIL's
+``Image.open(path).convert("L")`` gives
 them, with no imaging library; PNG streams are recognised and left to
 ``infer/export.py::decode_png``, which inflates their rows with zlib and
 undoes the row filters here (``png_unfilter``): a PNG file, and the PNG
 icon an ICO file's largest entry holds, which comes back as its offset
 (``decode_or_png``). The format comes from the file's bytes, not from its
 name, by the rules PIL's ``Image.open`` tries its plugins by: a file PIL
-opens as another format (IM, XBM, PSD, ...) raises naming that format. The library
+opens as another format (DDS, BLP, FITS, ...) raises naming that format. The library
 also resizes (``resize_bilinear``: Pillow's ``L``-mode bilinear, bit-equal
 to ``data/resample.py``'s numpy version, which stays as the plain version);
 a ctypes call releases the interpreter lock, so threads resize in parallel. The library is
@@ -77,8 +79,11 @@ SOURCES = (SOURCE, Path(__file__).with_name("webp.cpp"))
 # header reads stop (C.23), and BMP palettes PIL takes for grey ("L") or
 # black and white ("1") unpacked at that mode's depth, a palette of more
 # than 256 colours refused, rows whose last padding is missing read, as PIL
-# reads them (C.24), so pixels change and files become zero images or pages.
-DECODE_VERSION = "d9"
+# reads them (C.24), so pixels change and files become zero images or pages;
+# d10: old-style JPEG-in-TIFF whose header skips a segment's bytes (APPn,
+# COM, the SOS's last three) no further than the end of their block, as
+# libtiff skips them (C.26), so the scan starts where libtiff's does.
+DECODE_VERSION = "d10"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG, INDICES = range(6)
 _MSG = 160
 

@@ -63,17 +63,16 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
 
 def test_a_d3_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path):
     """A tree with a BigTIFF (d3 raised on it; d4 reads it) and a d3 cache
-    holding other pixels: the dataset decodes anew under its own name (d9
-    since BMP files read as PIL reads a pixel offset of 0 and its grey
-    palettes, C.23 and C.24)."""
+    holding other pixels: the dataset decodes anew under its own name (d10
+    since old-style JPEG-in-TIFF headers skip as libtiff skips, C.26)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=4)
     scan = (np.random.RandomState(5).rand(30, 50) * 255).astype(np.uint8)
     Image.fromarray(scan).save(tmp_path / "scan.tif", big_tiff=True)
-    assert tnative.DECODE_VERSION == "d9"
+    assert tnative.DECODE_VERSION == "d10"
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    np.save(tmp_path / own.replace("_d9_", "_d3_"), np.zeros_like(want.images))
+    np.save(tmp_path / own.replace("_d10_", "_d3_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)
@@ -94,8 +93,8 @@ def test_a_d5_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path, monkeypat
         chip_smoke.tiff_layout(scan[..., None], 8, 1, compression=-5, rows_per_strip=16))
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    assert "_d9_" in own
-    np.save(tmp_path / own.replace("_d9_", "_d5_"), np.zeros_like(want.images))
+    assert "_d10_" in own
+    np.save(tmp_path / own.replace("_d10_", "_d5_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)

@@ -236,24 +236,25 @@ def test_datasets_take_damaged_files_as_jax(tmp_path, monkeypatch):
 
 
 def test_cache_of_the_older_decoder_is_not_read(tmp_path):
-    """DECODE_VERSION is d9 (d3 since these repairs, d4 since C.13's, d5
+    """DECODE_VERSION is d10 (d3 since these repairs, d4 since C.13's, d5
     since damaged CCITT data decodes, d6 since damaged ZSTD literals read as
     libzstd reads them, d7 since old-style JPEG-in-TIFF without its last
     strip's data reads as libtiff reads it, d8 since planar YCbCr
     old-style JPEG-in-TIFF, GIF and Netpbm read, d9 since BMP files read as
-    PIL reads a pixel offset of 0 and its grey palettes): a d2 to d8 cache
+    PIL reads a pixel offset of 0 and its grey palettes, d10 since
+    old-style JPEG-in-TIFF headers skip as libtiff skips): a d2 to d9 cache
     beside the data (what an older decoder wrote, zero images where files
-    now decode) is not read; the new cache carries d9."""
-    assert tnative.DECODE_VERSION == "d9"
+    now decode) is not read; the new cache carries d10."""
+    assert tnative.DECODE_VERSION == "d10"
     d = tmp_path / "raw"
     d.mkdir()
     (d / "restart_damaged.jpg").write_bytes((FIXTURES / "restart_damaged.jpg").read_bytes())
     ds = tdataset.SignatureDataset(d, 16, use_cache=True)
     cache = ds._cache_path()
-    assert "_d9_" in cache.name and cache.exists()
+    assert "_d10_" in cache.name and cache.exists()
     cache.unlink()
-    for old in ("_d2_", "_d3_", "_d4_", "_d5_", "_d6_", "_d7_", "_d8_"):
-        np.save(cache.with_name(cache.name.replace("_d9_", old)), np.zeros((1, 16, 16, 1), np.float32))
+    for old in ("_d2_", "_d3_", "_d4_", "_d5_", "_d6_", "_d7_", "_d8_", "_d9_"):
+        np.save(cache.with_name(cache.name.replace("_d10_", old)), np.zeros((1, 16, 16, 1), np.float32))
     again = tdataset.SignatureDataset(d, 16, use_cache=True)
     assert again.images.any()
     np.testing.assert_array_equal(again.images, ds.images)

@@ -228,6 +228,19 @@ def test_planar_kinds_pil_refuses_are_corrupt(tmp_path):
             tnative.decode(data, name)
 
 
+def planar_tiled(h: int, w: int, tw: int, th: int, seed: int, sos=(False, True, True)) -> bytes:
+    """Planar YCbCr old-style JPEG-in-TIFF of seeded RGB in tw x th tiles,
+    the tables layout: each plane's scan tw wide, its rows the tiles' one
+    after another (a restart interval a tile), planes 1 and 2 opening with
+    their SOS where ``sos`` says."""
+    down, across = -(-h // th), -(-w // tw)
+    rgb = pixels(np.random.RandomState(seed), (down * th, across * tw, 3)).astype(np.uint8)
+    tiles = [rgb[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] for ty in range(down) for tx in range(across)]
+    stream = non_interleaved_jpeg(pil_jpeg(np.ascontiguousarray(np.concatenate(tiles, 0)), quality=85,
+                                           subsampling=0), restart=(tw // 8) * (th // 8))
+    return planar_tables(stream, w, h, tile=(tw, th), sos=sos)
+
+
 def planar_tiles() -> bytes:
     """Planar YCbCr old-style JPEG-in-TIFF in 16 x 16 tiles of a 32 x 16
     image, the tables layout, which PIL reads through gtTileSeparate."""
@@ -237,37 +250,65 @@ def planar_tiles() -> bytes:
     return planar_tables(stream, 32, 16, tile=(16, 16))
 
 
-def test_planar_tiles_pil_reads_raise_naming_a6():
-    """Planes in tiles: PIL reads them (gtTileSeparate, whose tile buffer
-    is not cleared between a row's tiles); the port raises naming A.6."""
+def test_planar_tiles_pil_reads_raise_naming_a6(tmp_path):
+    """A.6.48, planes in tiles: PIL reads them through gtTileSeparate, whose
+    tile buffer is not cleared between a row's tiles. libtiff's frame of
+    the tables layout is one column of tiles high, so the second tile of
+    the row gets no line and keeps the first's rows: the right half reads
+    as the left, in PIL and in the port, bit-equal."""
     data = planar_tiles()
-    assert pil_grey(data) is not None
-    with pytest.raises(NotImplementedError, match="planes and tiles.*ROADMAP A.6"):
-        tnative.decode(data)
+    want = pil_grey(data)
+    assert want is not None and np.array_equal(want[:, :16], want[:, 16:])
+    (tmp_path / "p.tif").write_bytes(data)
+    assert_port_reads_as_pil(tmp_path / "p.tif")
+
+
+@pytest.mark.parametrize("tw,th", [(16, 16), (16, 8), (32, 16), (8, 24)])
+@pytest.mark.parametrize("size", [(16, 32), (30, 40), (17, 33), (40, 16), (48, 48), (8, 64)])
+@pytest.mark.parametrize("sos", [(False, True, True), (False, False, False), (False, True, False),
+                                 (False, False, True)])
+def test_planar_tiles_read_as_pil(tw, th, size, sos):
+    """Tile sizes, partial tiles at the right and bottom edges, one and
+    several rows of tiles, planes 1 and 2 with or without their SOS: tiles
+    below the frame read no line and keep the buffer (the tile before, in
+    the row), a read that fails before it decodes clears its plane's tile,
+    a first tile of a row that fails so fails PIL's read. PIL's verdict,
+    and the port's: bit-equal, or corrupt where PIL refuses."""
+    h, w = size
+    data = planar_tiled(h, w, tw, th, h * w + tw * th, sos)
+    want = pil_grey(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            tnative.decode(data)
+        return
+    np.testing.assert_array_equal(tnative.decode(data), want)
 
 
 def damaged(seed: int):
-    """A seeded planar file, either layout, in one strip a plane or in
-    restart-interval strips, planes 1 and 2 with or without their SOS, its
-    directory first or last, damaged one of four ways: bytes of a strip
-    changed (0, some in its first 12: an SOS), a strip's byte count cut
-    (1), the file truncated (2), a byte count past the end of the file
-    (3). Returns (layout, damage, file)."""
+    """A seeded planar file, either layout, in one strip a plane, in
+    restart-interval strips or in tiles (the tables layout), planes 1 and 2
+    with or without their SOS, its directory first or last, damaged one of
+    four ways: bytes of a strile changed (0, some in its first 12: an SOS),
+    a strile's byte count cut (1), the file truncated (2), a byte count past
+    the end of the file (3). Returns (layout, damage, file)."""
     rs = np.random.RandomState(seed)
     h, w = int(rs.randint(8, 48)), int(rs.randint(8, 48))
-    layout = ["jif", "tables"][rs.randint(2)]
+    layout = ["jif", "tables", "tiles"][rs.randint(3)]
+    sos = [(False, True, True), (False, False, False), (False, True, False)][rs.randint(3)]
     if layout == "jif":
         data = planar_jif(stream_of(h, w, seed), w, h, offsets=[1, 3][rs.randint(2)])
-    else:
+    elif layout == "tables":
         rows = [None, 8, 16][rs.randint(3)]
         rows = rows if rows and rows < h else None
-        sos = [(False, True, True), (False, False, False), (False, True, False)][rs.randint(3)]
         data = planar_tables(stream_of(h, w, seed, rows=rows), w, h, rows=rows, sos=sos)
+    else:
+        tw, th = [(16, 16), (16, 8), (8, 16), (32, 8)][rs.randint(4)]
+        data = planar_tiled(h, w, tw, th, seed, sos)
     if rs.rand() < 0.5:
         data = ifd_first(data)
     d = bytearray(data)
-    offs = entries(data, 273)[0]
-    counts, at, f = entries(data, 279)
+    offs = entries(data, 324 if layout == "tiles" else 273)[0]
+    counts, at, f = entries(data, 325 if layout == "tiles" else 279)
     how, i = rs.randint(4), rs.randint(len(counts))
     if how == 0:
         for _ in range(rs.randint(1, 4)):
@@ -340,3 +381,45 @@ def test_phase_12_page_reads_as_its_digest():
     with Image.open(io.BytesIO(data)) as im:
         assert chip_smoke.gray_digest(np.asarray(im.convert("L"))) == digests["planar_ojpeg_page.tif"]
     assert chip_smoke.gray_digest(tnative.decode(data)) == digests["planar_ojpeg_page.tif"]
+
+
+def jif_cut(stream: bytes, cut: int, w: int, h: int, spp: int, photometric: int) -> bytes:
+    """Old-style JPEG-in-TIFF whose JPEGInterchangeFormat block is the
+    stream's first ``cut`` bytes and whose one strip is the rest."""
+    tags = [(258, 3, [8] * spp), (259, 3, [6]), (262, 3, [photometric]), (277, 3, [spp]),
+            (513, 4, lambda o: [o[0]]), (514, 4, [cut]), (273, 4, lambda o: [o[1]]), (278, 4, [h]),
+            (279, 4, [len(stream) - cut])]
+    if spp == 3:
+        tags.append((530, 3, [1, 1]))
+    return chip_smoke.tiff_pack(w, h, [stream[:cut], stream[cut:]], tags)
+
+
+@pytest.mark.parametrize("spp", [1, 3])
+@pytest.mark.parametrize("where", ["sos_end", "sos_mid", "com"])
+def test_header_skip_stops_at_its_block_end(tmp_path, spp, where):
+    """C.26: libtiff's OJPEGReadSkip skips no further than the end of the
+    block it reads (the JPEGInterchangeFormat bytes, a strile). An SOS
+    whose Ss, Se and Ah/Al lie past the block's end leaves them to the
+    scan, and a COM segment cut at the block's end leaves its rest to the
+    next marker's place; the port skipped across (so read, where PIL
+    refuses, a file it now calls corrupt, and decoded the scan from the
+    wrong byte: damaged planar files of the probe met it). Each as PIL
+    reads it, grey and YCbCr 4:4:4."""
+    g = pixels(np.random.RandomState(11), (16, 24, 3)).astype(np.uint8)
+    from PIL import Image
+    b = io.BytesIO()
+    Image.fromarray(g[..., 0] if spp == 1 else g).save(b, "JPEG", quality=85, subsampling=0,
+                                                       comment=b"a scanner's note")
+    stream = b.getvalue()
+    sos = stream.index(b"\xff\xda")
+    com = stream.index(b"\xff\xfe")
+    cut = {"sos_end": sos + 5 + 2 * spp, "sos_mid": sos + 6 + 2 * spp, "com": com + 8}[where]
+    data = jif_cut(stream, cut, 24, 16, spp, 1 if spp == 1 else 6)
+    want = pil_grey(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            tnative.decode(data)
+        return
+    np.testing.assert_array_equal(tnative.decode(data), want)
+    assert where != "sos_end" or not np.array_equal(want, pil_grey(jif_cut(stream, sos + 8 + 2 * spp, 24, 16, spp,
+                                                                           1 if spp == 1 else 6)))

@@ -6,8 +6,8 @@ saved as ``.png`` reaches it and reads. The port's decoder finds the format
 by the same rules (``decode.cpp::pil_format``: preinit's plugins, then
 ``Image.ID``'s, each ``_accept`` and the header checks of each ``_open``):
 a file PIL opens as a format the port reads (PNG, JPEG and MPO, BMP, TIFF,
-GIF, PPM, WEBP, DIB, TGA, PCX, DCX, ICO, CUR, SGI, SUN, MSP, QOI) reads
-bit-equal; one of another format raises
+GIF, PPM, WEBP, DIB, TGA, PCX, DCX, ICO, CUR, SGI, SUN, MSP, QOI, IM, PSD,
+XBM, XPM, XVThumb) reads bit-equal; one of another format raises
 ``NotImplementedError`` naming that format and A.6, never a zero image; a
 file PIL identifies as nothing, and the formats whose pixels PIL refuses
 (EPS here, the stubs BUFR, GRIB, HDF5 and WMF, MPEG), are corrupt."""
@@ -100,12 +100,25 @@ def test_every_pillow_writer_reads_or_raises_a6(tmp_path, fmt, mode):
 def test_hand_written_files_raise_naming_their_format(tmp_path, fmt):
     """``chip_smoke.c21_files`` (phase 12's C.21 tree, written without
     PIL): XPM, PSD, SUN, CUR, DCX and the rest are genuine files PIL opens
-    as that format and reads; the port reads the ten formats of
-    A.6.33-A.6.42 bit-equal and raises naming each other one."""
+    as that format and reads; the port reads the formats of A.6.33-A.6.47
+    bit-equal and raises naming each other one."""
     data = chip_smoke.c21_files()[fmt]
     got, grey = pil_format(data)
     assert got == fmt and grey is not None and grey.size
     holds(tmp_path, data, fmt)
+
+
+@pytest.mark.parametrize("fmt", chip_smoke.C21_READ)
+def test_c21_files_the_port_reads_hold_their_greys(tmp_path, fmt):
+    """``chip_smoke.c21_greys`` (what phase 12 holds the C.21 files of
+    ``C21_READ`` to, with no PIL on the card's host) is PIL's grey of each
+    file, and the port's."""
+    want = chip_smoke.c21_greys()[fmt]
+    got, grey = pil_format(chip_smoke.c21_files()[fmt])
+    assert got == fmt
+    np.testing.assert_array_equal(grey, want)
+    (tmp_path / "f.png").write_bytes(chip_smoke.c21_files()[fmt])
+    np.testing.assert_array_equal(tdataset.decode_gray(tmp_path / "f.png"), want)
 
 
 def no_writer_files() -> dict:
@@ -140,14 +153,23 @@ def no_writer_files() -> dict:
     }
 
 
-@pytest.mark.parametrize("fmt", sorted(no_writer_files()))
+@pytest.mark.parametrize("fmt", sorted(set(no_writer_files()) - {"XVThumb"}))
 def test_formats_pil_reads_and_writes_not_raise_naming_them(tmp_path, fmt):
-    """FITS, FLI, FTEX, GBR, IMT, IPTC, McIdas, PCD, PIXAR and XVThumb: PIL
-    opens and reads each; the port raises naming the format."""
+    """FITS, FLI, FTEX, GBR, IMT, IPTC, McIdas, PCD and PIXAR: PIL opens
+    and reads each; the port raises naming the format."""
     data = no_writer_files()[fmt]
     got, grey = pil_format(data)
     assert got.upper() == fmt.upper() and grey is not None
     holds(tmp_path, data, fmt)
+
+
+def test_xv_thumbnail_pil_opens_whatever_its_name_reads_as_pil(tmp_path):
+    """The hand-written XV thumbnail (A.6.46), which PIL opens as XVThumb
+    under a .png name: the port reads it bit-equal."""
+    data = no_writer_files()["XVThumb"]
+    got, grey = pil_format(data)
+    assert got == "XVThumb" and grey is not None
+    holds(tmp_path, data, got)
 
 
 STUBS = {

@@ -303,23 +303,34 @@ def ojpeg_planar_tiles() -> bytes:
     return planar_tiles()
 
 
+def pil_only_file(fmt: str) -> bytes:
+    """A genuine file of a format PIL opens and has no writer of
+    (tests/test_torch_port_pil_formats.py)."""
+    from test_torch_port_pil_formats import no_writer_files
+    return no_writer_files()[fmt]
+
+
 # name -> (bytes, what the message names): PIL reads these; the port not yet.
 # The audit: a genuine file at each site of decode.cpp that still
 # raises naming A.6 (a site whose file PIL refuses is corrupt: REFUSED):
-# planar old-style JPEG-in-TIFF in tiles, and one file of each format PIL
-# opens that the port does not read (C.21, chip_smoke.c21_files).
+# one file of each format PIL opens that the port does not read (C.21,
+# chip_smoke.c21_files, and the formats PIL reads and writes not).
 STILL_A6 = {
-    "ojpeg_planar_tiles": (ojpeg_planar_tiles, "planes and tiles"),
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt], fmt)
-       for fmt in ("AVIF", "BLP", "DDS", "ICNS", "IM", "JPEG2000", "PSD", "SPIDER", "XBM", "XPM")},
+       for fmt in ("AVIF", "BLP", "DDS", "ICNS", "JPEG2000", "SPIDER")},
+    **{f"pil_only_{fmt.lower()}": (lambda fmt=fmt: pil_only_file(fmt), fmt)
+       for fmt in ("FITS", "FLI", "FTEX", "GBR", "IMT", "IPTC", "MCIDAS", "PCD", "PIXAR")},
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.42,
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.48,
 # C.20).
 NOW_READ = {
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt])
-       for fmt in ("CUR", "DCX", "DIB", "ICO", "MSP", "PCX", "QOI", "SGI", "SUN", "TGA")},
+       for fmt in ("CUR", "DCX", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI", "SUN", "TGA",
+                   "XBM", "XPM")},
+    "xv_thumbnail": lambda: pil_only_file("XVThumb"),
+    "ojpeg_planar_tiles": ojpeg_planar_tiles,
     "webp": lambda: pil_image_bytes("WEBP"),
     "webp_lossless": lambda: (lambda b: (Image.fromarray(RGB).save(b, "WEBP", lossless=True),
                                          b.getvalue())[1])(io.BytesIO()),
@@ -374,8 +385,10 @@ def past_the_tile_buffer(data: bytes) -> np.ndarray:
 
 @pytest.mark.parametrize("name", sorted(NOW_READ))
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
-    """DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP and QOI (the files of
-    ``chip_smoke.c21_files``), WebP (lossy, lossless, lossy with alpha), a
+    """DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, IM, PSD, XBM and
+    XPM (the files of ``chip_smoke.c21_files``), an XV thumbnail, planar
+    YCbCr old-style JPEG-in-TIFF in tiles (the right tile keeping the left's
+    rows, as PIL's tile buffer does), WebP (lossy, lossless, lossy with alpha), a
     genuine lossless JPEG (predictor 1), Huffman data under an
     arithmetic frame marker (decoded as libjpeg decodes it), an int16 grey
     TIFF, a BigTIFF, a planar RGB TIFF, a palette with an extra sample,

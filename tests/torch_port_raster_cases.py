@@ -19,7 +19,7 @@ from siggan_tpu_torch.infer.export import _chunk, encode_png
 
 # The formats the port reads, by PIL's name.
 READ = {"BMP", "JPEG", "MPO", "PNG", "TIFF", "GIF", "PPM", "WEBP", "DIB", "TGA", "PCX", "DCX", "ICO",
-        "CUR", "SGI", "SUN", "MSP", "QOI"}
+        "CUR", "SGI", "SUN", "MSP", "QOI", "IM", "XBM", "XPM", "XVThumb", "PSD"}
 
 
 def image(h: int, w: int, bands: int = 0, seed: int = 5) -> np.ndarray:
