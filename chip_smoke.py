@@ -147,8 +147,8 @@ Phases (any failure raises and the script exits non-zero):
      port does not read (``c21_files`` but ``C21_READ``), named .png beside
      a scan, stops its ``SignatureDataset`` naming the format and ROADMAP
      A.6, and the files of ``C21_READ`` (DIB, ICO, CUR, TGA, PCX, DCX, SGI,
-     SUN, MSP, QOI, IM, PSD, XBM, XPM) read as the greys they were built
-     from; Pillow's three
+     SUN, MSP, QOI, IM, PSD, XBM, XPM, BLP, DDS, SPIDER) read as the greys
+     they were built from; Pillow's three
      WebP pages (``tests/data/torch_port_webp/``: lossy, lossless, lossy
      with ALPH) held to PIL's grey by digest and timed; phase 11's scans as
      lossless WebP files under .jpg and .png names (``webp_tree_step``):
@@ -159,8 +159,10 @@ Phases (any failure raises and the script exits non-zero):
      2, QOI) held to PIL's grey by digest and timed (the PNG icon through
      ``decode_images``); the pages of A.6.43-A.6.48 (``a6_text_pages``: IM,
      XBM, XPM, XV thumbnail, PSD raw and PackBits, planar YCbCr old-style
-     JPEG-in-TIFF in tiles) the same; phase 11's scans in the formats of
-     A.6.33-A.6.47 in turns under .png and .bmp names
+     JPEG-in-TIFF in tiles) and of A.6.49-A.6.55 (``a6_texture_pages``: DDS
+     uncompressed, BC1, BC4 and BC7, FTEX, BLP2 DXT1 and palette, BLP1,
+     SPIDER) the same; phase 11's scans in the formats of A.6.33-A.6.55 in
+     turns under .png and .bmp names
      (``raster_tree_step``): ``cli.preprocess`` writes and refuses as many
      as on the CPU, and a ``SignatureDataset`` holds the greys written;
  13. shared fakes and the ablation grid (``shared_fakes_phase``,
@@ -3315,7 +3317,7 @@ def c21_files() -> dict:
     (a palette), DDS (luminance), DIB, ICNS (a 128 x 128 PNG icon), ICO (a
     PNG icon), CUR (a BMP cursor), IM, MSP, PCX, DCX, PSD, QOI, SGI, SPIDER,
     SUN, TGA, XBM and XPM. PIL reads each (tests/test_torch_port_pil_formats.py);
-    the port reads those of ``C21_READ`` (A.6.33-A.6.47) and raises naming
+    the port reads those of ``C21_READ`` (A.6.33-A.6.55) and raises naming
     each other format and ROADMAP A.6."""
     import struct
     import numpy as np
@@ -3835,8 +3837,9 @@ def psd_grey(grey, compression: int) -> bytes:
     return psd_file([grey], 1, compression=compression)
 
 
-# The formats of c21_files that the port reads since A.6.33-A.6.47.
-C21_READ = ("CUR", "DCX", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI", "SUN", "TGA", "XBM", "XPM")
+# The formats of c21_files that the port reads since A.6.33-A.6.55.
+C21_READ = ("BLP", "CUR", "DCX", "DDS", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI", "SPIDER", "SUN",
+            "TGA", "XBM", "XPM")
 
 
 def c21_greys() -> dict:
@@ -3910,20 +3913,228 @@ def a6_text_pages(golden) -> dict:
     }
 
 
-# The formats of A.6.33-A.6.47 in phase 12's raster tree, in turns (ICO with
-# a bitmap and with a PNG icon).
+# Writers of the formats of A.6.49-A.6.55 (DDS, FTEX, BLP, SPIDER), without
+# PIL: phase 12's pages and tree, and the tests' hand-built files.
+
+def dds_file(w: int, h: int, data, *, fourcc: bytes = b"", dx10: int = None, flags: int = None,
+             bits: int = 0, masks=(0, 0, 0, 0), palette=b"") -> bytes:
+    """A DDS file of a ``w`` x ``h`` image: the 124-byte header with pixel
+    format ``flags`` (FOURCC where ``fourcc`` is given, else luminance),
+    ``bits`` a pixel and four channel ``masks``; DX10's 20 bytes where
+    ``dx10`` names a DXGI format; then ``palette`` and ``data``."""
+    import struct
+    if flags is None:
+        flags = 0x4 if fourcc else 0x20000
+    head = struct.pack("<7I", 124, 0x100F, h, w, 0, 0, 0) + bytes(44)
+    head += struct.pack("<4I", 32, flags, struct.unpack("<I", fourcc or bytes(4))[0], bits)
+    head += struct.pack("<4I", *masks) + struct.pack("<I", 0x1000) + bytes(16)
+    ext = struct.pack("<5I", dx10, 3, 0, 1, 0) if dx10 is not None else b""
+    return b"DDS " + head + ext + bytes(palette) + bytes(data)
+
+
+def _blocks(grey):
+    """(H, W) uint8 -> (H/4 * W/4, 16) int64 4 x 4 blocks in raster order,
+    the edges repeated out to a multiple of 4."""
+    import numpy as np
+    g = np.asarray(grey, np.int64)
+    h, w = g.shape
+    g = np.pad(g, ((0, -h % 4), (0, -w % 4)), mode="edge")
+    return g.reshape(g.shape[0] // 4, 4, g.shape[1] // 4, 4).transpose(0, 2, 1, 3).reshape(-1, 16)
+
+
+def _unblock(px, h: int, w: int):
+    """``_blocks``' inverse: (blocks, 16) values -> (h, w) uint8."""
+    import numpy as np
+    bh, bw = -(-h // 4), -(-w // 4)
+    return px.reshape(bh, bw, 4, 4).transpose(0, 2, 1, 3).reshape(bh * 4, bw * 4)[:h, :w].astype(np.uint8)
+
+
+def _bit_fields(fields) -> bytes:
+    """Blocks of little-endian bit fields: ``fields`` a list of (values of
+    shape (blocks,) or (blocks, k), bits each), packed in order, 16 bytes
+    or 8 a block."""
+    import numpy as np
+    cols = []
+    for v, nbits in fields:
+        v = np.asarray(v, np.int64)
+        v = v[:, None] if v.ndim == 1 else v
+        cols.append(((v[..., None] >> np.arange(nbits)) & 1).reshape(len(v), -1))
+    return np.packbits(np.concatenate(cols, axis=1).astype(np.uint8), axis=1, bitorder="little").tobytes()
+
+
+def _565(c):
+    """565 codes -> (r, g, b) as Pillow's bcn decoder widens them."""
+    r, g, b = c >> 11, c >> 5 & 63, c & 31
+    return (r << 3 | r >> 2), (g << 2 | g >> 4), (b << 3 | b >> 2)
+
+
+def bc1_grey(grey) -> tuple:
+    """(BC1 blocks, the grey Pillow's bcn decoder gives back) of a uint8
+    grey: each block's endpoints its brightest and darkest pixel as 565
+    grey (c0 > c1: the 4-colour mode; all index 0 where they meet), each
+    pixel the index of the nearest of the four colours' lumas."""
+    import numpy as np
+    px = _blocks(grey)
+    code = lambda v: (v >> 3) << 11 | (v >> 2) << 5 | v >> 3  # noqa: E731
+    c0, c1 = code(px.max(1)), code(px.min(1))
+    e0, e1 = np.stack(_565(c0), 1), np.stack(_565(c1), 1)
+    pal = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], 1)        # (blocks, 4, rgb)
+    lum = (19595 * pal[..., 0] + 38470 * pal[..., 1] + 7471 * pal[..., 2] + 0x8000) >> 16
+    idx = np.abs(px[:, :, None] - lum[:, None, :]).argmin(2)
+    idx[c0 == c1] = 0
+    out = np.take_along_axis(lum, idx, 1)
+    return _bit_fields([(c0, 16), (c1, 16), (idx, 2)]), _unblock(out, *np.shape(grey))
+
+
+def bc4_grey(grey) -> tuple:
+    """(BC4 blocks, the grey decoded) of a uint8 grey: endpoints each
+    block's max and min (the 8-value ramp; index 0 where they meet), each
+    pixel the nearest ramp value's index."""
+    import numpy as np
+    px = _blocks(grey)
+    a0, a1 = px.max(1), px.min(1)
+    k = np.arange(2, 8)
+    ramp = np.concatenate([a0[:, None], a1[:, None],
+                           ((8 - k) * a0[:, None] + (k - 1) * a1[:, None]) // 7], 1)
+    idx = np.abs(px[:, :, None] - ramp[:, None, :]).argmin(2)
+    idx[a0 == a1] = 0
+    out = np.take_along_axis(ramp, idx, 1)
+    return _bit_fields([(a0, 8), (a1, 8), (idx, 3)]), _unblock(out, *np.shape(grey))
+
+
+def bc7_grey(grey) -> tuple:
+    """(BC7 blocks in mode 6, the grey decoded) of a uint8 grey: one subset,
+    7-bit endpoints with a p-bit each (so 8 bits exact: the block's max
+    and min in every channel, alpha 255), 4-bit indices to the nearest of
+    the 16 weights; endpoints swapped where the first pixel's index would
+    need its top bit (the anchor keeps 3)."""
+    import numpy as np
+    px = _blocks(grey)
+    w = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+    e0, e1 = px.max(1), px.min(1)
+    ramp = ((64 - w) * e0[:, None] + w * e1[:, None] + 32) >> 6
+    idx = np.abs(px[:, :, None] - ramp[:, None, :]).argmin(2)
+    swap = idx[:, 0] >= 8
+    e0, e1 = np.where(swap, e1, e0), np.where(swap, e0, e1)
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    out = np.take_along_axis(((64 - w) * e0[:, None] + w * e1[:, None] + 32) >> 6, idx, 1)
+    ends = np.stack([e0 >> 1, e1 >> 1], 1)
+    a = np.full_like(ends, 127)
+    fields = [(np.full(len(px), 64), 7), (ends, 7), (ends, 7), (ends, 7), (a, 7),
+              (np.stack([e0 & 1, e1 & 1], 1), 1), (idx[:, :1], 3), (idx[:, 1:], 4)]
+    return _bit_fields(fields), _unblock(out, *np.shape(grey))
+
+
+def ftex_file(w: int, h: int, data, fmt: int = 0, *, formats: int = 1, size: int = None) -> bytes:
+    """An FTEX file: one format (``fmt`` 0 DXT1, 1 raw RGB), one mipmap of
+    ``data`` (its byte count ``size``, by default the data's)."""
+    import struct
+    data = bytes(data)
+    return (b"FTEX" + struct.pack("<5i", 0, w, h, 1, formats) + struct.pack("<2i", fmt, 32)
+            + struct.pack("<i", len(data) if size is None else size) + data)
+
+
+def blp_file(w: int, h: int, data, *, version: int = 2, compression: int = 1, encoding: int = 1,
+             alpha: int = 0, alpha_encoding: int = 0, jpeg_header=b"", gap=b"", offset: int = None) -> bytes:
+    """A BLP file: BLP2 (``encoding`` 1 indices, 2 DXT of ``alpha_encoding``
+    0, 1 or 7) or BLP1 (``compression`` 1: a palette and ``encoding`` 4 or
+    5; 0: a JPEG whose ``jpeg_header`` comes before the mipmap table's
+    first entry, ``data`` the rest). The palette is a grey ramp of BGRA
+    entries; the first mipmap is ``data``, after ``gap``, its offset in
+    the table ``offset`` (by default where it is)."""
+    import struct
+    import numpy as np
+    data = bytes(data)
+    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).tobytes()
+    if version == 2:
+        head = b"BLP2" + struct.pack("<iBBBB", compression, encoding, alpha, alpha_encoding, 0)
+        head += struct.pack("<II", w, h)
+    else:
+        head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, w, h, encoding, 0)
+    if version == 1 and compression == 0:
+        body = struct.pack("<I", len(jpeg_header)) + bytes(jpeg_header)
+    else:
+        body = bytes(palette)
+    at = len(head) + 128 + len(body) + len(gap) if offset is None else offset
+    return (head + struct.pack("<16I", at, *[0] * 15) + struct.pack("<16I", len(data), *[0] * 15) + body
+            + bytes(gap) + data)
+
+
+def blp_grey(grey, alpha_encoding: int = None) -> bytes:
+    """A BLP2 page of a uint8 grey: its indices over the grey ramp, or
+    (``alpha_encoding`` 0) ``bc1_grey``'s DXT1 blocks."""
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    h, w = g.shape
+    if alpha_encoding is None:
+        return blp_file(w, h, g.tobytes())
+    return blp_file(w, h, bc1_grey(g)[0], encoding=2, alpha_encoding=alpha_encoding)
+
+
+def spider_file(values, big_endian: bool = True, *, stack: int = 0, fields: dict = None) -> bytes:
+    """A SPIDER 2D image of (h, w) ``values`` as float32: the header
+    padded to whole records of 4 w bytes (at least 1024 bytes), its fields
+    1-based (``fields`` overrides any), ``stack`` its istack (a stack's
+    first image after a second header)."""
+    import numpy as np
+    v = np.asarray(values, np.float32)
+    h, w = v.shape
+    rec = 4 * w
+    labrec = -(-1024 // rec)
+    head = np.zeros(labrec * rec // 4, np.float32)
+    for k, x in {1: 1, 2: h, 5: 1, 12: w, 13: labrec, 22: labrec * rec, 23: rec, 24: stack, 26: 1,
+                 **(fields or {})}.items():
+        head[k - 1] = x
+    order = ">f4" if big_endian else "<f4"
+    body = head.astype(order).tobytes()
+    if stack > 0:
+        body += body
+    return body + v.astype(order).tobytes()
+
+
+def a6_texture_pages(golden) -> dict:
+    """Phase 12's 1200 x 500 pages of A.6.49-A.6.55, built without PIL from
+    scan_420.jpg's grey: DDS uncompressed (luminance), BC1, BC4 and BC7
+    (mode 6), FTEX (DXT1), BLP2 (DXT1 and the grey's indices), BLP1 (a
+    palette) and SPIDER (the grey as floats, stretched past 0 .. 255 so
+    that convert("L") clips). Each is held to a digest of PIL's grey of the
+    same bytes (a6_pages.sha256)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"]
+    h, w = grey.shape
+    return {
+        "dds_l_page.dds": dds_file(w, h, grey.tobytes(), bits=8),
+        "dds_bc1_page.dds": dds_file(w, h, bc1_grey(grey)[0], fourcc=b"DXT1"),
+        "dds_bc4_page.dds": dds_file(w, h, bc4_grey(grey)[0], fourcc=b"ATI1"),
+        "dds_bc7_page.dds": dds_file(w, h, bc7_grey(grey)[0], fourcc=b"DX10", dx10=98),
+        "ftex_page.ftc": ftex_file(w, h, bc1_grey(grey)[0]),
+        "blp_dxt1_page.blp": blp_grey(grey, 0),
+        "blp_palette_page.blp": blp_grey(grey),
+        "blp1_palette_page.blp": blp_file(w, h, grey.tobytes(), version=1, encoding=5),
+        "spider_page.spi": spider_file(grey.astype(np.float32) * 1.25 - 20.3),
+    }
+
+
+# The formats of A.6.33-A.6.55 in phase 12's raster tree, in turns (ICO with
+# a bitmap and with a PNG icon; DDS as BC7, FTEX as DXT1, BLP as BLP2 of a
+# grey palette).
 RASTER_TREE_KINDS = ("DIB", "TGA", "PCX", "DCX", "ICO", "ICO-PNG", "CUR", "SGI", "SUN", "MSP", "QOI",
-                     "IM", "XBM", "XPM", "XVThumb", "PSD")
+                     "IM", "XBM", "XPM", "XVThumb", "PSD", "DDS", "FTEX", "BLP", "SPIDER")
 
 # The kinds of RASTER_TREE_KINDS that do not keep every grey level.
-RASTER_TREE_LOSSY = ("MSP", "XBM", "XVThumb")
+RASTER_TREE_LOSSY = ("MSP", "XBM", "XVThumb", "DDS", "FTEX")
 
 
 def raster_grey(kind: str, grey):
     """The grey PIL reads back from ``raster_scan``'s file of a uint8 scan:
-    the scan, but MSP's and XBM's 1 bit (the ink below 128, black) and the
-    XV thumbnail's 3-3-2 palette (each level's index, then PIL's luma)."""
+    the scan, but MSP's and XBM's 1 bit (the ink below 128, black), the
+    XV thumbnail's 3-3-2 palette (each level's index, then PIL's luma) and
+    the block encoders' greys (DDS: BC7, FTEX: BC1)."""
     import numpy as np
+    if kind == "DDS":
+        return bc7_grey(grey)[1]
+    if kind == "FTEX":
+        return bc1_grey(grey)[1]
     if kind in ("MSP", "XBM"):
         return np.where(grey < 128, 0, 255).astype(np.uint8)
     if kind == "XVThumb":
@@ -3944,7 +4155,9 @@ def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
         png = encode_png(grey)
     if kind in RASTER_TREE_LOSSY:
         data = {"MSP": lambda: msp_file(grey < 128, 2), "XBM": lambda: xbm_file(grey >= 128),
-                "XVThumb": lambda: xv_thumb(xv_index(grey))}[kind]()
+                "XVThumb": lambda: xv_thumb(xv_index(grey)),
+                "DDS": lambda: dds_file(w, h, bc7_grey(grey)[0], fourcc=b"DX10", dx10=98),
+                "FTEX": lambda: ftex_file(w, h, bc1_grey(grey)[0])}[kind]()
         return data, raster_grey(kind, grey)
     data = {"DIB": lambda: bmp_grey(grey)[14:],
             "TGA": lambda: tga_file(grey, 11, 8),
@@ -3958,7 +4171,9 @@ def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
             "QOI": lambda: qoi_file(np.repeat(grey[..., None], 3, 2)),
             "IM": lambda: im_grey(grey),
             "XPM": lambda: xpm_grey(grey),
-            "PSD": lambda: psd_grey(grey, 1)}[kind]()
+            "PSD": lambda: psd_grey(grey, 1),
+            "BLP": lambda: blp_grey(grey),
+            "SPIDER": lambda: spider_file(grey)}[kind]()
     return data, grey
 
 
@@ -4009,9 +4224,9 @@ def decode_phase(card: str, work: str, build_s: float):
     named .png, then SOF11 JPEGs added to it: zero images in the dataset,
     and ``cli.preprocess`` stops on one; the same scans as WebP files
     under .jpg and .png names (``webp_tree_step``) and in the formats of
-    A.6.33-A.6.47 (``raster_tree_step``; their pages, ``a6_raster_pages``
-    and ``a6_text_pages`` with planar old-style JPEG-in-TIFF in tiles, held
-    to PIL's grey by digest and timed); then the C.21 files the port
+    A.6.33-A.6.55 (``raster_tree_step``; their pages, ``a6_raster_pages``,
+    ``a6_text_pages`` with planar old-style JPEG-in-TIFF in tiles and
+    ``a6_texture_pages``, held to PIL's grey by digest and timed); then the C.21 files the port
     now reads, and a tree for each format PIL opens and the port does not
     read: the build stops naming it (A.6). ``build_s``: the library's g++
     build, timed where it was built."""
@@ -4078,7 +4293,7 @@ def decode_phase(card: str, work: str, build_s: float):
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
     a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
           **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden), **a6_gif_pnm_pages(golden),
-          **a6_raster_pages(golden), **a6_text_pages(golden)}
+          **a6_raster_pages(golden), **a6_text_pages(golden), **a6_texture_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -4242,7 +4457,16 @@ def decode_phase(card: str, work: str, build_s: float):
               "PSD 1200x500 (grey, raw)": ([Path(work) / "psd_raw_page.psd"], 100),
               "PSD 1200x500 (grey, PackBits)": ([Path(work) / "psd_packbits_page.psd"], 100),
               "old-style JPEG-in-TIFF 1200x500, planar YCbCr in 1200x64 tiles (A.6.48)": (
-                  [Path(work) / "planar_ojpeg_tiles_page.tif"], 20)}
+                  [Path(work) / "planar_ojpeg_tiles_page.tif"], 20),
+              "DDS 1200x500 (uncompressed luminance)": ([Path(work) / "dds_l_page.dds"], 100),
+              "DDS 1200x500 (BC1)": ([Path(work) / "dds_bc1_page.dds"], 100),
+              "DDS 1200x500 (BC4)": ([Path(work) / "dds_bc4_page.dds"], 100),
+              "DDS 1200x500 (BC7, mode 6)": ([Path(work) / "dds_bc7_page.dds"], 100),
+              "FTEX 1200x500 (DXT1)": ([Path(work) / "ftex_page.ftc"], 100),
+              "BLP2 1200x500 (DXT1)": ([Path(work) / "blp_dxt1_page.blp"], 100),
+              "BLP2 1200x500 (grey palette)": ([Path(work) / "blp_palette_page.blp"], 100),
+              "BLP1 1200x500 (palette)": ([Path(work) / "blp1_palette_page.blp"], 100),
+              "SPIDER 1200x500 (float32, big-endian)": ([Path(work) / "spider_page.spi"], 100)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -4367,7 +4591,7 @@ def decode_phase(card: str, work: str, build_s: float):
     raster = raster_tree_step(card, work)
     # C.21: a file of each format PIL opens and the port does not read, named
     # .png beside a scan: the build stops naming the format and A.6. The
-    # formats of A.6.33-A.6.47 read, bit-equal to the greys they were built
+    # formats of A.6.33-A.6.55 read, bit-equal to the greys they were built
     # from (PIL's, tests/test_torch_port_pil_formats.py).
     stops, c21 = {}, c21_files()
     for fmt in C21_READ:
@@ -4389,11 +4613,11 @@ def decode_phase(card: str, work: str, build_s: float):
             stops[fmt] = str(e)
         if fmt not in stops or fmt not in stops[fmt] or "ROADMAP A.6" not in stops[fmt]:
             raise AssertionError(f"a {fmt} file named .png: the build did not stop naming {fmt} and A.6")
-    print(f"decode: C.21: {', '.join(C21_READ)} (A.6.33-A.6.47) files named .png read bit-equal "
+    print(f"decode: C.21: {', '.join(C21_READ)} (A.6.33-A.6.55) files named .png read bit-equal "
           f"to the greys they were built from; {len(stops)} trees, each a scan and one file of a "
           f"format PIL opens and the port does not read, named .png ({', '.join(stops)}): each build "
-          f"stopped with NotImplementedError naming its format and ROADMAP A.6 (DDS: "
-          f"{stops['DDS']!r})", flush=True)
+          f"stopped with NotImplementedError naming its format and ROADMAP A.6 (ICNS: "
+          f"{stops['ICNS']!r})", flush=True)
     print(f"decode: mixed tree of 1320 scans (55 writers x 24; {json.dumps(kinds)}, of the .png "
           f"{json.dumps(png_named)} other formats under a .png name; the TIFFs "
           f"{json.dumps(layouts)}) written in "
@@ -4489,13 +4713,13 @@ def _write_raster_scan(job) -> int:
 
 
 # What cli.preprocess writes and refuses of phase 11's 1320 scans written in
-# the formats of A.6.33-A.6.47 (raster_tree_step), on the CPU
+# the formats of A.6.33-A.6.55 (raster_tree_step), on the CPU
 # (scripts/raster_tree_cpu.py).
-RASTER_TREE_CPU_COUNTS = (1171, 149)
+RASTER_TREE_CPU_COUNTS = (1170, 150)
 
 
 def raster_tree_step(card: str, work: str, run=None) -> dict:
-    """Phase 12's raster tree (A.6.33-A.6.47): phase 11's 1320 scans, each
+    """Phase 12's raster tree (A.6.33-A.6.55): phase 11's 1320 scans, each
     written here without PIL in the formats of ``RASTER_TREE_KINDS`` in
     turns, under .png and .bmp names in turns (the datasets list only the
     JAX package's six extensions, so not .tga, .pcx, ...). ``cli.preprocess``
@@ -4503,7 +4727,8 @@ def raster_tree_step(card: str, work: str, run=None) -> dict:
     (``RASTER_TREE_CPU_COUNTS``) and the ones phase 11 did from the lossless
     kinds' PNGs; a ``SignatureDataset`` of the tree must equal the greys
     the files were built from (``raster_grey``: the PNGs', but the 1 bit of
-    MSP and XBM and the XV thumbnail's palette). ``run`` runs a
+    MSP and XBM, the XV thumbnail's palette and the block encoders' greys
+    of DDS and FTEX). ``run`` runs a
     CLI (``run_cli``; ``scripts/raster_tree_cpu.py`` adds ``--device cpu``)."""
     import numpy as np
     import torch

@@ -1,7 +1,8 @@
-"""The damage probe of A.6.33-A.6.47 and C.23-C.25: damaged files of each
+"""The damage probe of A.6.33-A.6.55 and C.23-C.25: damaged files of each
 format (DIB, BMP, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, PNG, IM, XBM,
-XPM, XV thumbnail and PSD), from Pillow's writers and hand-built ones
-(``tests/torch_port_raster_cases.py``, ``tests/torch_port_text_cases.py``),
+XPM, XV thumbnail, PSD, DDS by route, FTEX, BLP and SPIDER), from Pillow's
+writers and hand-built ones (``tests/torch_port_raster_cases.py``,
+``tests/torch_port_text_cases.py``, ``tests/torch_port_texture_cases.py``),
 and, as the format OJPEG-PLANES, planar YCbCr old-style JPEG-in-TIFF in
 strips and tiles damaged by ``tests/test_torch_port_ojpeg_planes.py::damaged``,
 each held to PIL's verdict: the port's grey bit-equal where PIL reads the
@@ -10,7 +11,9 @@ file, corrupt where PIL refuses it. Needs PIL (this is no chip script).
     python scripts/raster_probe.py [--n 3000] [--seed 0] [--formats TGA,PCX,XPM]
 
 prints per format the files PIL read and refused and the first files that
-differ, and exits 1 if any does. ``--asan`` runs the same under
+differ, and exits 1 if any does. A damaged DDS of the RGB route whose size
+PIL's Python decoder would loop over for minutes (``pil_slow``) is counted
+apart and not held. ``--asan`` runs the same under
 AddressSanitizer: the library built with ``-fsanitize=address`` into a
 temporary directory, the script run again with libasan and libstdc++
 preloaded (libasan alone fails intercepting ``__cxa_throw``); a fault
@@ -30,9 +33,11 @@ import numpy as np  # noqa: E402
 from torch_port_raster_cases import BASES as RASTER_BASES  # noqa: E402
 from torch_port_raster_cases import damage, holds  # noqa: E402
 from torch_port_text_cases import BASES as TEXT_BASES  # noqa: E402
+from torch_port_texture_cases import BASES as TEXTURE_BASES  # noqa: E402
+from torch_port_texture_cases import PIL_SLOW_PIXELS, pil_slow  # noqa: E402
 from test_torch_port_ojpeg_planes import damaged  # noqa: E402
 
-BASES = {**RASTER_BASES, **TEXT_BASES}
+BASES = {**RASTER_BASES, **TEXT_BASES, **TEXTURE_BASES}
 
 
 def main(argv=None) -> int:
@@ -57,9 +62,12 @@ def main(argv=None) -> int:
         for fmt in args.formats.split(","):
             bases = BASES[fmt]() if fmt in BASES else []
             rs = np.random.RandomState(args.seed)
-            counts, wrong = {}, []
+            counts, wrong, slow = {}, [], 0
             for i in range(args.n):
                 data = damage(rs, bases[i % len(bases)]) if bases else damaged(args.seed * args.n + i)[2]
+                if pil_slow(data):
+                    slow += 1
+                    continue
                 try:
                     got, want = holds(path, data)
                 except AssertionError as e:
@@ -68,7 +76,9 @@ def main(argv=None) -> int:
                 counts.setdefault(str(got), [0, 0])[want is None] += 1
             bad += len(wrong)
             print(f"{fmt}: {len(bases) or 'seeded'} bases, {args.n} damaged; PIL's format: [read, refused] "
-                  f"{counts}; {len(wrong)} read otherwise than PIL", flush=True)
+                  f"{counts}; {len(wrong)} read otherwise than PIL"
+                  + (f"; {slow} not held (a DDS of more than {PIL_SLOW_PIXELS} pixels for PIL's "
+                     "Python RGB decoder)" if slow else ""), flush=True)
             for w in wrong[:5]:
                 print(f"  {w}")
     print(f"files read otherwise than PIL: {bad}")

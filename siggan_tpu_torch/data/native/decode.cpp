@@ -38,6 +38,11 @@
 // SunRleDecode.c) and Python ones (MspDecoder, QoiDecoder) read them, their
 // end-of-data and overrun rules included.
 //
+// DDS (BC1-BC7 through Pillow's BcnDecode.c, uncompressed through its
+// Python DdsRgbDecoder), FTEX, BLP (its Python DXT decoders, BLP1's JPEG
+// through this file's JPEG reader) and SPIDER: as Pillow's plugins read
+// them, down to what a short or damaged file gives.
+//
 // TIFF: the first page, classic or BigTIFF, strips or tiles, chunky or
 // planar, either byte order, either FillOrder, no compression, PackBits,
 // LZW or Deflate (compression 8 and 32946, the port's own inflate;
@@ -129,15 +134,18 @@ inline uint8_t luma(int r, int g, int b) {
   return (uint8_t)((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16);
 }
 
+// PIL's F -> L (Convert.c): a float clipped to 0 .. 255 and truncated, NaN 0.
+inline uint8_t float_grey(float f) { return f > 0.0f ? (f >= 255.0f ? 255 : (uint8_t)f) : 0; }
+
 // PIL's Image.open refuses more than 2 * Image.MAX_IMAGE_PIXELS pixels
 // (DecompressionBombError); any side length up to that is read.
 constexpr int64_t kMaxPixels = 2 * (1024LL * 1024 * 1024 / 4 / 3);
 
 inline void check_size(int64_t w, int64_t h) {
   if (w <= 0 || h <= 0) corrupt("image has no pixels");
-  if (w * h > kMaxPixels)
-    corrupt("image of " + std::to_string(w * h) + " pixels (PIL's decompression-bomb limit is " +
-            std::to_string(kMaxPixels) + ")");
+  if (w > kMaxPixels || h > kMaxPixels || w * h > kMaxPixels)
+    corrupt("image of " + std::to_string(w) + " x " + std::to_string(h) +
+            " pixels (PIL's decompression-bomb limit is " + std::to_string(kMaxPixels) + ")");
 }
 
 // ------------------------------------------------------------------ JPEG
@@ -151,26 +159,31 @@ const int kNatural[64 + 16] = {
 
 struct Huff {
   bool defined = false;
+  // jdhuff.c jpeg_make_d_derived_tbl's checks, which libjpeg makes when a
+  // scan that uses the table starts, not at DHT (C.27): every code fits in
+  // its length and none is all ones (C.22); a DC symbol is at most 15 (16,
+  // the lossless difference category, in a lossless frame).
+  bool valid = false;
+  int max_val = 0;
   uint8_t bits[17] = {0};
   uint8_t vals[256] = {0};
   int maxcode[18];
   int valoffset[18];
   uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 = longer code
 
-  void build(bool dc) {
+  void build() {
     int count = 0;
     for (int l = 1; l <= 16; ++l) count += bits[l];
     if (count > 256) corrupt("bad Huffman table");
-    if (dc)  // libjpeg-turbo 3 allows 16, the lossless difference category
-      for (int i = 0; i < count; ++i)
-        if (vals[i] > 16) corrupt("bad Huffman table");
+    defined = true;
+    valid = false;
+    max_val = count ? *std::max_element(vals, vals + count) : 0;
     int code = 0, k = 0;
     std::fill(look, look + 512, 0);
     for (int l = 1; l <= 16; ++l) {
       valoffset[l] = k - code;
       for (int i = 0; i < bits[l]; ++i, ++k, ++code) {
-        // jdhuff.c: every code fits in its length and none is all ones (C.22)
-        if (code + 1 >= (1 << l)) corrupt("bad Huffman table");
+        if (code + 1 >= (1 << l)) return;
         if (l <= 9) {
           int shift = 9 - l;
           for (int j = 0; j < (1 << shift); ++j)
@@ -181,7 +194,11 @@ struct Huff {
       code <<= 1;
     }
     maxcode[17] = 0x7FFFFFFF;
-    defined = true;
+    valid = true;
+  }
+
+  void check(bool dc, bool lossless) const {
+    if (!valid || (dc && max_val > (lossless ? 16 : 15))) corrupt("bad Huffman table");
   }
 };
 
@@ -219,7 +236,7 @@ const uint8_t kAcVals[2][162] = {
 void std_table(Huff& t, bool dc, int id) {
   memcpy(t.bits, dc ? kDcBits[id] : kAcBits[id], 17);
   memcpy(t.vals, dc ? kDcVals : kAcVals[id], dc ? 12 : 162);
-  t.build(dc);
+  t.build();
 }
 
 // PIL reads a file to its decoder in blocks of ImageFile.MAXBLOCK bytes
@@ -871,6 +888,10 @@ struct Jpeg {
   bool any_components = false;
   // A frame of one scan is whole once that scan is (see tail).
   bool whole = false;
+  // BLP1's JPEG (BlpImagePlugin): four components read as CMYK whatever
+  // Adobe's transform says (jpegmode "CMYK", raw mode still CMYK;I), and
+  // the RGB that PIL's convert("RGB") gives relabelled BGR: R and B swap.
+  bool blp = false;
   // libjpeg's coef_bits: per component and zig-zag index, -1 before any
   // scan codes the coefficient, else the Al of the last scan that did.
   int coef_bits[kMaxComponents][64];
@@ -1022,7 +1043,7 @@ struct Jpeg {
       for (int l = 1; l <= 16; ++l) count += (t.bits[l] = (uint8_t)u8());
       if (count > 256 || pos + count > end) corrupt("bad JPEG Huffman table");
       for (int i = 0; i < count; ++i) t.vals[i] = (uint8_t)u8();
-      t.build(tc == 0);
+      t.build();
     }
     if (pos != end) corrupt("bad JPEG Huffman table");
   }
@@ -1565,22 +1586,34 @@ struct Jpeg {
     }
   }
 
+  // jdmarker.c get_sos's lookup of the scan's i-th component `id` (C.27):
+  // the first of the frame's first 4 components of that id whose index ci
+  // finds cur[ci] empty (cur holds the scan's components by their place
+  // in the scan, so a scan out of the frame's order fails), and not one an
+  // earlier place took (JERR_BAD_COMPONENT_ID).
+  Component* scan_component(Component* cur[4], int i, int id) {
+    const int m = std::min(ncomp, 4);
+    int ci = 0;
+    while (ci < m && (comp[ci].id != id || cur[ci])) ++ci;
+    if (ci == m) corrupt("JPEG scan names an unknown component");
+    cur[i] = &comp[ci];
+    for (int pi = 0; pi < i; ++pi)
+      if (cur[pi] == cur[i]) corrupt("JPEG scan names a component twice");
+    return cur[i];
+  }
+
   void sos() {
     if (!frame) corrupt("JPEG scan before its frame");
     int len = u16();
     int ns = u8();
     if (ns < 1 || ns > ncomp || ns > 4 || len != 6 + 2 * ns) corrupt("bad JPEG scan header");
-    Component* sc[4];
+    Component* sc[4] = {nullptr, nullptr, nullptr, nullptr};
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
-      Component* c = nullptr;
-      for (int j = 0; j < std::min(ncomp, 4); ++j)  // libjpeg-turbo looks among the first 4 alone
-        if (comp[j].id == id) c = &comp[j];
-      if (!c) corrupt("JPEG scan names an unknown component");
+      Component* c = scan_component(sc, i, id);
       c->td = t >> 4;
       c->ta = t & 15;
       if (!arith && (c->td > 3 || c->ta > 3)) corrupt("bad JPEG scan header");
-      sc[i] = c;
     }
     int ss = u8(), se = u8(), ahl = u8(), ah = ahl >> 4, al = ahl & 15;
     // A sequential scan's Ss, Se, Ah and Al are only a warning to libjpeg
@@ -1600,13 +1633,19 @@ struct Jpeg {
       Component* c = sc[i];
       if (arith) {
         // no Huffman tables
-      } else if (use_dc && !dc[c->td].defined) {
-        if (c->td > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
-        std_table(dc[c->td], true, c->td);
+      } else if (use_dc) {
+        if (!dc[c->td].defined) {
+          if (c->td > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
+          std_table(dc[c->td], true, c->td);
+        }
+        dc[c->td].check(true, lossless);
       }
-      if (!arith && use_ac && !ac[c->ta].defined) {
-        if (c->ta > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
-        std_table(ac[c->ta], false, c->ta);
+      if (!arith && use_ac) {
+        if (!ac[c->ta].defined) {
+          if (c->ta > 1 || progressive) corrupt("JPEG scan uses an undefined Huffman table");
+          std_table(ac[c->ta], false, c->ta);
+        }
+        ac[c->ta].check(false, false);
       }
       if (!c->latched && !lossless) {  // libjpeg latches a component's table at its first scan
         if (!qdef[c->tq]) corrupt("JPEG component uses an undefined quantization table");
@@ -1860,14 +1899,11 @@ struct Jpeg {
           len = u16();
           const int ns = u8();
           if (len != 6 + 2 * ns || ns < 1 || ns > 4) bad();
-          bool used[4] = {false, false, false, false};
+          Component* cur[4] = {nullptr, nullptr, nullptr, nullptr};
           for (int i = 0; i < ns; ++i) {
             const int id = u8();
             u8();
-            int ci = 0;
-            while (ci < std::min(ncomp, 4) && (comp[ci].id != id || used[ci])) ++ci;
-            if (ci == std::min(ncomp, 4)) bad();
-            used[ci] = true;
+            scan_component(cur, i, id);
           }
           u8();
           u8();
@@ -1952,6 +1988,8 @@ struct Jpeg {
     bool ycc;
     if (mode != kColorFromMarkers) {
       ycc = mode == kColorYcc;
+    } else if (ncomp == 4 && blp) {  // BLP1's jpegmode "CMYK": no YCCK conversion
+      ycc = false;
     } else if (ncomp == 3 && jfif) {
       ycc = true;
     } else if (adobe) {
@@ -1981,20 +2019,22 @@ struct Jpeg {
           m = 255 - gg;
           y = 255 - b;
         }
-        g.px[i] = cmyk_luma(c ^ inv, m ^ inv, y ^ inv, c3[i] ^ inv);
+        g.px[i] = blp ? cmyk_luma(y ^ inv, m ^ inv, c ^ inv, c3[i] ^ inv)
+                      : cmyk_luma(c ^ inv, m ^ inv, y ^ inv, c3[i] ^ inv);
       }
       return g;
     }
     uint8_t* o = g.px.data();
     const size_t n = g.px.size();
     if (!ycc) {
+      if (blp) std::swap(c0, c2);
       for (size_t i = 0; i < n; ++i) o[i] = luma(c0[i], c1[i], c2[i]);
       return g;
     }
     for (size_t i = 0; i < n; ++i) {
       int r, gg, b;
       t.rgb(c0[i], c1[i], c2[i], r, gg, b);
-      o[i] = luma(r, gg, b);
+      o[i] = blp ? luma(b, gg, r) : luma(r, gg, b);
     }
     return g;
   }
@@ -5841,7 +5881,7 @@ inline uint8_t clip_int(int32_t v) { return (uint8_t)(v <= 0 ? 0 : v >= 255 ? 25
         const uint32_t u = rd(row + 4 * c, 4, f.le);
         float v;
         memcpy(&v, &u, sizeof v);
-        o[c] = v > 0.0f ? (v >= 255.0f ? 255 : (uint8_t)v) : 0;  // NaN: 0
+        o[c] = float_grey(v);
       }
     }
   }
@@ -7163,7 +7203,7 @@ Gray decode_pnm(const uint8_t* d, size_t n, const Pnm& p) {
                                        : (uint32_t)q[0] << 24 | q[1] << 16 | q[2] << 8 | q[3];
         float f;
         memcpy(&f, &u, 4);
-        g.px[y * p.w + x] = f <= 0.0f || f != f ? 0 : f >= 255.0f ? 255 : (uint8_t)f;
+        g.px[y * p.w + x] = float_grey(f);
       }
     return g;
   }
@@ -7502,9 +7542,10 @@ Gray decode_gif(const uint8_t* d, size_t n) {
 // its own magic (PNG, JPEG, BMP, TIFF and GIF come first and keep their
 // routes): PPM (A.6.29), WebP (A.6.30-A.6.32), DIB, ICO, CUR, TGA, PCX,
 // DCX, SGI, SUN, MSP, QOI (A.6.33-A.6.42), IM, XBM, XPM, XVThumb and PSD
-// (A.6.43-A.6.47) are read here; the stubs with no decoder in PIL (BUFR,
-// GRIB, HDF5, WMF), MPEG (no tile) and EPS (Ghostscript) are corrupt, as
-// PIL refuses their pixels; every other raises naming A.6. The checks go
+// (A.6.43-A.6.47), DDS, FTEX, BLP and SPIDER (A.6.49-A.6.55) are read
+// here; the stubs with no decoder in PIL (BUFR, GRIB, HDF5, WMF), MPEG (no
+// tile) and EPS (Ghostscript) are corrupt, as PIL refuses their pixels;
+// every other raises naming A.6. The checks go
 // as deep as each _open's header; a damaged file of a format PIL opens
 // raises naming A.6 even where PIL would then refuse its pixels.
 
@@ -7790,36 +7831,6 @@ bool iptc_header(const uint8_t* d, size_t n) {
   if (!getint(comp, c)) return false;
   if (c != 1 && c != 5) corrupt("IPTC compression PIL does not know");
   return mode && x > 0 && y > 0;
-}
-
-// SpiderImagePlugin: 27 floats, big-endian first, whose header fields are
-// whole numbers that agree (isSpiderHeader), of a 2D image (iform 1).
-bool spider_header(const uint8_t* d, size_t n) {
-  if (n < 108) return false;
-  static const double kForms[] = {1, 3, -11, -12, -21, -22};
-  for (int be = 1; be >= 0; --be) {
-    double h[28];
-    for (int i = 0; i < 27; ++i) {
-      const uint8_t* q = d + 4 * i;
-      const uint32_t u = be ? be32(q) : le32(q);
-      float f;
-      memcpy(&f, &u, 4);
-      h[i + 1] = f;
-    }
-    auto whole = [](double f) { return std::isfinite(f) && f == std::trunc(f); };
-    bool ok = true;
-    for (int i : {1, 2, 5, 12, 13, 22, 23}) ok = ok && whole(h[i]);
-    if (!ok || std::find(std::begin(kForms), std::end(kForms), h[5]) == std::end(kForms)) continue;
-    // labbyt = labrec * lenbyt: float32 whole numbers, exact in long double
-    if ((long double)h[22] != (long double)h[13] * (long double)h[23] || h[22] == 0) continue;
-    if (h[5] != 1) return false;
-    if (!std::isfinite(h[24]) || !std::isfinite(h[27])) corrupt("SPIDER stack fields not numbers");
-    const double stack = std::trunc(h[24]), number = std::trunc(h[27]);
-    if (!((stack == 0 && number == 0) || (stack > 0 && number == 0) || (stack == 0 && number > 0)))
-      return false;
-    return std::trunc(h[12]) > 0 && std::trunc(h[2]) > 0;
-  }
-  return false;
 }
 
 // ------------------------------------------------- ICO, CUR (on the DIB reader)
@@ -8769,7 +8780,7 @@ Gray decode_im(const uint8_t* d, size_t n) {
           const uint32_t u = le32(r + 4 * x);
           float f;
           memcpy(&f, &u, 4);
-          v = f <= 0.0f || f != f ? 0 : f >= 255.0f ? 255 : (int)f;
+          v = float_grey(f);
           break;
         }
       }
@@ -8914,6 +8925,812 @@ Gray decode_psd(const uint8_t* d, size_t n) {
   return g;
 }
 
+// ------------------------------------ DDS, FTEX: Pillow's bcn (A.6.49-A.6.53)
+
+// Pillow's BcnDecode.c: 4 x 4 blocks in raster order, each written into the
+// image where it lies inside it (a partial block at the right and bottom
+// edges cut), until the image is full; data that ends first is refused
+// ("image file is truncated"). BC1-BC3 colour: the 565 endpoints widened
+// by their high bits, 2/3 and 1/3 of the way between them (C's truncating
+// division), or BC1's 3-colour mode with transparent black where c0 <= c1
+// (BC2 and BC3 never take it); BC2's 4-bit alpha times 17; BC3/BC4/BC5's
+// 8-value ramps (6 values, 0 and 255 where a0 <= a1), BC5S's signed
+// endpoints plus 128; BC5's blue 0 (128 for BC5S).
+struct Rgba {
+  uint8_t r, g, b, a;
+};
+
+inline Rgba bcn_565(uint32_t x) {
+  int r = (x & 0xF800) >> 8, g = (x & 0x7E0) >> 3, b = (x & 0x1F) << 3;
+  return {(uint8_t)(r | r >> 5), (uint8_t)(g | g >> 6), (uint8_t)(b | b >> 5), 255};
+}
+
+void bc1_colour(Rgba* col, const uint8_t* s, bool separate_alpha) {
+  const uint32_t c0 = le16(s), c1 = le16(s + 2), lut = le32(s + 4);
+  Rgba p[4] = {bcn_565(c0), bcn_565(c1)};
+  const int r0 = p[0].r, g0 = p[0].g, b0 = p[0].b, r1 = p[1].r, g1 = p[1].g, b1 = p[1].b;
+  if (c0 > c1 || separate_alpha) {
+    p[2] = {(uint8_t)((2 * r0 + r1) / 3), (uint8_t)((2 * g0 + g1) / 3), (uint8_t)((2 * b0 + b1) / 3), 255};
+    p[3] = {(uint8_t)((r0 + 2 * r1) / 3), (uint8_t)((g0 + 2 * g1) / 3), (uint8_t)((b0 + 2 * b1) / 3), 255};
+  } else {
+    p[2] = {(uint8_t)((r0 + r1) / 2), (uint8_t)((g0 + g1) / 2), (uint8_t)((b0 + b1) / 2), 255};
+    p[3] = {0, 0, 0, 0};
+  }
+  for (int i = 0; i < 16; ++i) col[i] = p[3 & lut >> 2 * i];
+}
+
+// A BC3 alpha block into byte `o` of each of 16 `stride`-byte pixels.
+void bc3_alpha(uint8_t* dst, int stride, int o, const uint8_t* s, bool sign) {
+  const int a0 = sign ? (int8_t)s[0] + 128 : s[0], a1 = sign ? (int8_t)s[1] + 128 : s[1];
+  uint8_t a[8] = {(uint8_t)a0, (uint8_t)a1};
+  if (a0 > a1) {
+    for (int k = 2; k < 8; ++k) a[k] = (uint8_t)(((8 - k) * a0 + (k - 1) * a1) / 7);
+  } else {
+    for (int k = 2; k < 6; ++k) a[k] = (uint8_t)(((6 - k) * a0 + (k - 1) * a1) / 5);
+    a[6] = 0;
+    a[7] = 255;
+  }
+  const uint32_t lut1 = s[2] | s[3] << 8 | s[4] << 16, lut2 = s[5] | s[6] << 8 | s[7] << 16;
+  for (int i = 0; i < 8; ++i) {
+    dst[stride * i + o] = a[7 & lut1 >> 3 * i];
+    dst[stride * (8 + i) + o] = a[7 & lut2 >> 3 * i];
+  }
+}
+
+inline int bcn_bit(const uint8_t* s, int bit) { return s[bit >> 3] >> (bit & 7) & 1; }
+
+// BcnDecode.c's get_bits: up to 8 bits from `bit` on, least significant first.
+inline int bcn_bits(const uint8_t* s, int bit, int count) {
+  if (!count) return 0;
+  const int by = bit >> 3;
+  bit &= 7;
+  const int x = bit + count <= 8 ? s[by] : s[by] | s[by + 1] << 8;
+  return x >> bit & ((1 << count) - 1);
+}
+
+// BC7's tables (the format's): the partitions of 2 subsets (a bit a pixel)
+// and 3 (two bits), the anchors of subset 1 of 2, of subsets 1 and 2 of 3,
+// the interpolation weights of 2-, 3- and 4-bit indices.
+const uint16_t kBc7Part2[64] = {
+    0xcccc, 0x8888, 0xeeee, 0xecc8, 0xc880, 0xfeec, 0xfec8, 0xec80, 0xc800, 0xffec, 0xfe80, 0xe800, 0xffe8,
+    0xff00, 0xfff0, 0xf000, 0xf710, 0x008e, 0x7100, 0x08ce, 0x008c, 0x7310, 0x3100, 0x8cce, 0x088c, 0x3110,
+    0x6666, 0x366c, 0x17e8, 0x0ff0, 0x718e, 0x399c, 0xaaaa, 0xf0f0, 0x5a5a, 0x33cc, 0x3c3c, 0x55aa, 0x9696,
+    0xa55a, 0x73ce, 0x13c8, 0x324c, 0x3bdc, 0x6996, 0xc33c, 0x9966, 0x0660, 0x0272, 0x04e4, 0x4e40, 0x2720,
+    0xc936, 0x936c, 0x39c6, 0x639c, 0x9336, 0x9cc6, 0x817e, 0xe718, 0xccf0, 0x0fcc, 0x7744, 0xee22};
+const uint32_t kBc7Part3[64] = {
+    0xaa685050, 0x6a5a5040, 0x5a5a4200, 0x5450a0a8, 0xa5a50000, 0xa0a05050, 0x5555a0a0, 0x5a5a5050,
+    0xaa550000, 0xaa555500, 0xaaaa5500, 0x90909090, 0x94949494, 0xa4a4a4a4, 0xa9a59450, 0x2a0a4250,
+    0xa5945040, 0x0a425054, 0xa5a5a500, 0x55a0a0a0, 0xa8a85454, 0x6a6a4040, 0xa4a45000, 0x1a1a0500,
+    0x0050a4a4, 0xaaa59090, 0x14696914, 0x69691400, 0xa08585a0, 0xaa821414, 0x50a4a450, 0x6a5a0200,
+    0xa9a58000, 0x5090a0a8, 0xa8a09050, 0x24242424, 0x00aa5500, 0x24924924, 0x24499224, 0x50a50a50,
+    0x500aa550, 0xaaaa4444, 0x66660000, 0xa5a0a5a0, 0x50a050a0, 0x69286928, 0x44aaaa44, 0x66666600,
+    0xaa444444, 0x54a854a8, 0x95809580, 0x96969600, 0xa85454a8, 0x80959580, 0xaa141414, 0x96960000,
+    0xaaaa1414, 0xa05050a0, 0xa0a5a5a0, 0x96000000, 0x40804080, 0xa9a8a9a8, 0xaaaaaa44, 0x2a4a5254};
+const uint8_t kBc7Anchor2[64] = {15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+                                 15, 2,  8,  2,  2,  8,  8,  15, 2,  8,  2,  2,  8,  8,  2,  2,
+                                 15, 15, 6,  8,  2,  8,  15, 15, 2,  8,  2,  2,  2,  15, 15, 6,
+                                 6,  2,  6,  8,  15, 15, 2,  2,  15, 15, 15, 15, 15, 2,  2,  15};
+const uint8_t kBc7Anchor3a[64] = {3,  3,  15, 15, 8,  3,  15, 15, 8,  8,  6,  6,  6,  5,  3,  3,
+                                  3,  3,  8,  15, 3,  3,  6,  10, 5,  8,  8,  6,  8,  5,  15, 15,
+                                  8,  15, 3,  5,  6,  10, 8,  15, 15, 3,  15, 5,  15, 15, 15, 15,
+                                  3,  15, 5,  5,  5,  8,  5,  10, 5,  10, 8,  13, 15, 12, 3,  3};
+const uint8_t kBc7Anchor3b[64] = {15, 8,  8,  3,  15, 15, 3,  8,  15, 15, 15, 15, 15, 15, 15, 8,
+                                  15, 8,  15, 3,  15, 8,  15, 8,  3,  15, 6,  10, 15, 15, 10, 8,
+                                  15, 3,  15, 10, 10, 8,  9,  10, 6,  15, 8,  15, 3,  6,  6,  8,
+                                  15, 3,  15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 3,  15, 15, 8};
+const uint8_t kBc7Weights[3][16] = {{0, 21, 43, 64},
+                                    {0, 9, 18, 27, 37, 46, 55, 64},
+                                    {0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64}};
+inline const uint8_t* bc7_weights(int bits) { return kBc7Weights[bits == 2 ? 0 : bits == 3 ? 1 : 2]; }
+
+inline int bc7_subset(int ns, int partition, int i) {
+  return ns == 2 ? kBc7Part2[partition] >> i & 1 : ns == 3 ? kBc7Part3[partition] >> 2 * i & 3 : 0;
+}
+
+// BC7 (BcnDecode.c's decode_bc7_block): the mode is the count of zero bits
+// below the first set bit, a first byte of 0 an opaque black block; the
+// endpoints channel by channel, p-bits per endpoint or per subset, each
+// value widened by its high bits, indices with one bit less at each
+// subset's anchor, the index-selection bit swapping colour and alpha
+// indices, the rotation swapping alpha with a colour channel.
+void bc7_block(Rgba* col, const uint8_t* s) {
+  // subsets, partition bits, rotation bits, index-selection bits, colour
+  // bits, alpha bits, p-bits per endpoint, per subset, index bits, second
+  // index bits
+  static const uint8_t kModes[8][10] = {{3, 4, 0, 0, 4, 0, 1, 0, 3, 0}, {2, 6, 0, 0, 6, 0, 0, 1, 3, 0},
+                                        {3, 6, 0, 0, 5, 0, 0, 0, 2, 0}, {2, 6, 0, 0, 7, 0, 1, 0, 2, 0},
+                                        {1, 0, 2, 1, 5, 6, 0, 0, 2, 3}, {1, 0, 2, 0, 7, 8, 0, 0, 2, 2},
+                                        {1, 0, 0, 0, 7, 7, 1, 0, 4, 0}, {2, 6, 0, 0, 5, 5, 1, 0, 2, 0}};
+  if (!s[0]) {
+    for (int i = 0; i < 16; ++i) col[i] = {0, 0, 0, 255};
+    return;
+  }
+  int mode = 0;
+  while (!(s[0] >> mode & 1)) ++mode;
+  const uint8_t* m = kModes[mode];
+  const int ns = m[0], ib = m[8], ib2 = m[9];
+  int cb = m[4], ab = m[5], bit = mode + 1;
+  const uint8_t *cw = bc7_weights(ib), *aw = bc7_weights(ab && ib2 ? ib2 : ib);
+  auto load = [&](int k) {
+    const int v = bcn_bits(s, bit, k);
+    bit += k;
+    return v;
+  };
+  const int partition = load(m[1]), rotation = load(m[2]), index_sel = load(m[3]), numep = ns * 2;
+  uint8_t e[6][4];
+  for (int c = 0; c < 3; ++c)
+    for (int i = 0; i < numep; ++i) e[i][c] = (uint8_t)load(cb);
+  for (int i = 0; i < numep; ++i) e[i][3] = ab ? (uint8_t)load(ab) : 255;
+  auto pbit = [&](int i, int v) {
+    for (int c = 0; c < (ab ? 4 : 3); ++c) e[i][c] = (uint8_t)(e[i][c] << 1 | v);
+  };
+  if (m[6]) {
+    ++cb;
+    if (ab) ++ab;
+    for (int i = 0; i < numep; ++i) pbit(i, load(1));
+  }
+  if (m[7]) {
+    ++cb;
+    if (ab) ++ab;
+    for (int i = 0; i < numep; i += 2) {
+      const int v = load(1);
+      pbit(i, v);
+      pbit(i + 1, v);
+    }
+  }
+  auto expand = [](uint8_t v, int b) {
+    v = (uint8_t)(v << (8 - b));
+    return (uint8_t)(v | v >> b);
+  };
+  for (int i = 0; i < numep; ++i) {
+    for (int c = 0; c < 3; ++c) e[i][c] = expand(e[i][c], cb);
+    if (ab) e[i][3] = expand(e[i][3], ab);
+  }
+  int cibit = bit, aibit = cibit + 16 * ib - ns;
+  for (int i = 0; i < 16; ++i) {
+    const int sub = bc7_subset(ns, partition, i) * 2;
+    int k = ib;
+    if (i == 0 || (ns == 2 && i == kBc7Anchor2[partition]) ||
+        (ns == 3 && (i == kBc7Anchor3a[partition] || i == kBc7Anchor3b[partition])))
+      --k;
+    const int i0 = bcn_bits(s, cibit, k);
+    cibit += k;
+    int sc = cw[i0], sa = cw[i0];
+    if (ab && ib2) {
+      const int k2 = i == 0 ? ib2 - 1 : ib2, i1 = bcn_bits(s, aibit, k2);
+      aibit += k2;
+      sc = index_sel ? aw[i1] : cw[i0];
+      sa = index_sel ? cw[i0] : aw[i1];
+    }
+    const uint8_t *e0 = e[sub], *e1 = e[sub + 1];
+    uint8_t v[4];
+    for (int c = 0; c < 4; ++c) {
+      const int w = c < 3 ? sc : sa;
+      v[c] = (uint8_t)(((64 - w) * e0[c] + w * e1[c] + 32) >> 6);
+    }
+    if (rotation) std::swap(v[rotation - 1], v[3]);
+    col[i] = {v[0], v[1], v[2], v[3]};
+  }
+}
+
+// BC6H's endpoint bits, mode by mode (the format's tables as Pillow reads
+// them): runs of one endpoint value's bits, each {value, first bit, last
+// bit} in the order they stand in the block; the values are r, g, b of w,
+// x, y, z (x and z as deltas where the mode transforms).
+enum { RW, GW, BW, RX, GX, BX, RY, GY, BY, RZ, GZ, BZ };
+struct Bc6Run {
+  uint8_t value, first, last;
+};
+const Bc6Run kBc6Runs[14][24] = {
+    {{GY, 4, 4}, {BY, 4, 4}, {BZ, 4, 4}, {RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 4}, {GZ, 4, 4},
+     {GY, 0, 3}, {GX, 0, 4}, {BZ, 0, 0}, {GZ, 0, 3}, {BX, 0, 4}, {BZ, 1, 1}, {BY, 0, 3}, {RY, 0, 4},
+     {BZ, 2, 2}, {RZ, 0, 4}, {BZ, 3, 3}},
+    {{GY, 5, 5}, {GZ, 4, 5}, {RW, 0, 6}, {BZ, 0, 1}, {BY, 4, 4}, {GW, 0, 6}, {BY, 5, 5}, {BZ, 2, 2},
+     {GY, 4, 4}, {BW, 0, 6}, {BZ, 3, 3}, {BZ, 5, 5}, {BZ, 4, 4}, {RX, 0, 5}, {GY, 0, 3}, {GX, 0, 5},
+     {GZ, 0, 3}, {BX, 0, 5}, {BY, 0, 3}, {RY, 0, 5}, {RZ, 0, 5}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 4}, {RW, 10, 10}, {GY, 0, 3}, {GX, 0, 3}, {GW, 10, 10},
+     {BZ, 0, 0}, {GZ, 0, 3}, {BX, 0, 3}, {BW, 10, 10}, {BZ, 1, 1}, {BY, 0, 3}, {RY, 0, 4}, {BZ, 2, 2},
+     {RZ, 0, 4}, {BZ, 3, 3}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 3}, {RW, 10, 10}, {GZ, 4, 4}, {GY, 0, 3}, {GX, 0, 4},
+     {GW, 10, 10}, {GZ, 0, 3}, {BX, 0, 3}, {BW, 10, 10}, {BZ, 1, 1}, {BY, 0, 3}, {RY, 0, 3}, {BZ, 0, 0},
+     {BZ, 2, 2}, {RZ, 0, 3}, {GY, 4, 4}, {BZ, 3, 3}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 3}, {RW, 10, 10}, {BY, 4, 4}, {GY, 0, 3}, {GX, 0, 3},
+     {GW, 10, 10}, {BZ, 0, 0}, {GZ, 0, 3}, {BX, 0, 4}, {BW, 10, 10}, {BY, 0, 3}, {RY, 0, 3}, {BZ, 1, 2},
+     {RZ, 0, 3}, {BZ, 4, 4}, {BZ, 3, 3}},
+    {{RW, 0, 8}, {BY, 4, 4}, {GW, 0, 8}, {GY, 4, 4}, {BW, 0, 8}, {BZ, 4, 4}, {RX, 0, 4}, {GZ, 4, 4},
+     {GY, 0, 3}, {GX, 0, 4}, {BZ, 0, 0}, {GZ, 0, 3}, {BX, 0, 4}, {BZ, 1, 1}, {BY, 0, 3}, {RY, 0, 4},
+     {BZ, 2, 2}, {RZ, 0, 4}, {BZ, 3, 3}},
+    {{RW, 0, 7}, {GZ, 4, 4}, {BY, 4, 4}, {GW, 0, 7}, {BZ, 2, 2}, {GY, 4, 4}, {BW, 0, 7}, {BZ, 3, 4},
+     {RX, 0, 5}, {GY, 0, 3}, {GX, 0, 4}, {BZ, 0, 0}, {GZ, 0, 3}, {BX, 0, 4}, {BZ, 1, 1}, {BY, 0, 3},
+     {RY, 0, 5}, {RZ, 0, 5}},
+    {{RW, 0, 7}, {BZ, 0, 0}, {BY, 4, 4}, {GW, 0, 7}, {GY, 5, 5}, {GY, 4, 4}, {BW, 0, 7}, {GZ, 5, 5},
+     {BZ, 4, 4}, {RX, 0, 4}, {GZ, 4, 4}, {GY, 0, 3}, {GX, 0, 5}, {GZ, 0, 3}, {BX, 0, 4}, {BZ, 1, 1},
+     {BY, 0, 3}, {RY, 0, 4}, {BZ, 2, 2}, {RZ, 0, 4}, {BZ, 3, 3}},
+    {{RW, 0, 7}, {BZ, 1, 1}, {BY, 4, 4}, {GW, 0, 7}, {BY, 5, 5}, {GY, 4, 4}, {BW, 0, 7}, {BZ, 5, 5},
+     {BZ, 4, 4}, {RX, 0, 4}, {GZ, 4, 4}, {GY, 0, 3}, {GX, 0, 4}, {BZ, 0, 0}, {GZ, 0, 3}, {BX, 0, 5},
+     {BY, 0, 3}, {RY, 0, 4}, {BZ, 2, 2}, {RZ, 0, 4}, {BZ, 3, 3}},
+    {{RW, 0, 5}, {GZ, 4, 4}, {BZ, 0, 1}, {BY, 4, 4}, {GW, 0, 5}, {GY, 5, 5}, {BY, 5, 5}, {BZ, 2, 2},
+     {GY, 4, 4}, {BW, 0, 5}, {GZ, 5, 5}, {BZ, 3, 3}, {BZ, 5, 5}, {BZ, 4, 4}, {RX, 0, 5}, {GY, 0, 3},
+     {GX, 0, 5}, {GZ, 0, 3}, {BX, 0, 5}, {BY, 0, 3}, {RY, 0, 5}, {RZ, 0, 5}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 9}, {GX, 0, 9}, {BX, 0, 9}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 8}, {RW, 10, 10}, {GX, 0, 8}, {GW, 10, 10}, {BX, 0, 8},
+     {BW, 10, 10}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 7}, {RW, 11, 10}, {GX, 0, 7}, {GW, 11, 10}, {BX, 0, 7},
+     {BW, 11, 10}},
+    {{RW, 0, 9}, {GW, 0, 9}, {BW, 0, 9}, {RX, 0, 3}, {RW, 15, 10}, {GX, 0, 3}, {GW, 15, 10}, {BX, 0, 3},
+     {BW, 15, 10}}};
+
+// Pillow's half_to_float (a multiply by 2^112 of the bits shifted into
+// place, infinity from 65536 up) and the float's 8 bits (0 below 0, 255
+// above 1, else value * 255 truncated, in float).
+inline uint8_t bc6_channel(uint16_t h) {
+  uint32_t u = (uint32_t)(h & 0x7FFF) << 13;
+  float f, magic;
+  const uint32_t m = 0x77800000, inf = 0x47800000;
+  memcpy(&f, &u, 4);
+  memcpy(&magic, &m, 4);
+  f *= magic;
+  float lim;
+  memcpy(&lim, &inf, 4);
+  memcpy(&u, &f, 4);
+  if (f >= lim) u |= 255u << 23;
+  u |= (uint32_t)(h & 0x8000) << 16;
+  memcpy(&f, &u, 4);
+  return f < 0.0f ? 0 : f > 1.0f ? 255 : (uint8_t)(f * 255.0f);
+}
+
+inline void bc6_extend(uint16_t& v, int bits) {
+  int x = v;
+  if (x & 1 << (bits - 1)) x |= (int)(~0u << bits);
+  v = (uint16_t)x;
+}
+
+int bc6_unquantize(uint16_t v, int bits, bool sign) {
+  if (!sign) {
+    if (bits >= 15) return v;
+    if (!v) return 0;
+    if (v == (1 << bits) - 1) return 0xFFFF;
+    return (((int)v << 16) + 0x8000) >> bits;
+  }
+  if (bits >= 16) return v;
+  const bool neg = v & 0x8000;
+  if (neg) v = (uint16_t)-v;
+  if (v) v = v >= (1 << (bits - 1)) - 1 ? 0x7FFF : (uint16_t)((((int)v << 15) + 0x4000) >> (bits - 1));
+  return neg ? -(int)v : v;
+}
+
+inline uint16_t bc6_half(int v, bool sign) {
+  if (!sign) return (uint16_t)(v * 31 / 64);
+  return v < 0 ? (uint16_t)(0x8000 | (-v) * 31 / 32) : (uint16_t)(v * 31 / 32);
+}
+
+// BC6H (decode_bc6_block): the 2- or 5-bit mode (14 and up an all-zero
+// block), the endpoint bits, the partition, signed values and deltas
+// extended, the deltas added modulo the endpoint precision, each endpoint
+// unquantized to 16 bits, then each pixel's value between its subset's
+// two (weights of 3- or 4-bit indices, one bit less at the anchors) as a
+// half float, in 8 bits.
+void bc6_block(Rgba* col, const uint8_t* s, bool sign) {
+  // subsets, transformed, partition bits, endpoint bits, delta bits r g b
+  static const uint8_t kModes[14][7] = {
+      {2, 1, 5, 10, 5, 5, 5}, {2, 1, 5, 7, 6, 6, 6},   {2, 1, 5, 11, 5, 4, 4}, {2, 1, 5, 11, 4, 5, 4},
+      {2, 1, 5, 11, 4, 4, 5}, {2, 1, 5, 9, 5, 5, 5},   {2, 1, 5, 8, 6, 5, 5},  {2, 1, 5, 8, 5, 6, 5},
+      {2, 1, 5, 8, 5, 5, 6},  {2, 0, 5, 6, 6, 6, 6},   {1, 0, 0, 10, 10, 10, 10},
+      {1, 1, 0, 11, 9, 9, 9}, {1, 1, 0, 12, 8, 8, 8}, {1, 1, 0, 16, 4, 4, 4}};
+  int mode = s[0] & 0x1F, bit = 5, epbits = 75, ib = 3;
+  if ((mode & 3) < 2) {
+    mode &= 3;
+    bit = 2;
+  } else if ((mode & 3) == 2) {
+    mode = 2 + (mode >> 2);
+    epbits = 72;
+  } else {
+    mode = 10 + (mode >> 2);
+    epbits = 60;
+    ib = 4;
+  }
+  if (mode >= 14) {
+    for (int i = 0; i < 16; ++i) col[i] = {0, 0, 0, 0};
+    return;
+  }
+  const uint8_t* m = kModes[mode];
+  const int ns = m[0], epb = m[3], numep = ns == 2 ? 12 : 6;
+  uint16_t e[12] = {0};
+  int at = bit;
+  for (const Bc6Run& r : kBc6Runs[mode]) {
+    if (r.first == 0 && r.last == 0 && r.value == RW) break;  // the table's end
+    const int step = r.first <= r.last ? 1 : -1;
+    for (int b = r.first;; b += step) {
+      e[r.value] |= (uint16_t)(bcn_bit(s, at++) << b);
+      if (b == r.last) break;
+    }
+  }
+  bit += epbits;
+  const int partition = bcn_bits(s, bit, m[2]);
+  bit += m[2];
+  const int mask = (1 << epb) - 1;
+  if (sign)
+    for (int c = 0; c < 3; ++c) bc6_extend(e[c], epb);
+  if (sign || m[1])
+    for (int i = 3; i < numep; i += 3)
+      for (int c = 0; c < 3; ++c) bc6_extend(e[i + c], m[4 + c]);
+  if (m[1])
+    for (int i = 3; i < numep; ++i) e[i] = (uint16_t)((e[i] + e[i % 3]) & mask);
+  int u[12];
+  for (int i = 0; i < numep; ++i) u[i] = bc6_unquantize(e[i], epb, sign);
+  const uint8_t* w = bc7_weights(ib);
+  for (int i = 0; i < 16; ++i) {
+    const int sub = bc7_subset(ns, partition, i) * 6;
+    const int k = i == 0 || (ns == 2 && i == kBc7Anchor2[partition]) ? ib - 1 : ib;
+    const int t = w[bcn_bits(s, bit, k)];
+    bit += k;
+    uint8_t v[3];
+    for (int c = 0; c < 3; ++c)
+      v[c] = bc6_channel(bc6_half((u[sub + c] * (64 - t) + u[sub + 3 + c] * t) >> 6, sign));
+    col[i] = {v[0], v[1], v[2], 255};
+  }
+}
+
+// The grey of a bcn image of `n_` (1-7) from `at` on: each block to RGBA
+// (BC4 to L), then luma; BC5 and BC6H are PIL's mode RGB, alpha unused.
+Gray bcn_grey(const uint8_t* d, size_t n, size_t at, int64_t W, int64_t H, int n_, bool sign) {
+  check_size(W, H);
+  const int64_t bw = (W + 3) / 4, bh = (H + 3) / 4, bytes = n_ == 1 || n_ == 4 ? 8 : 16;
+  if (at > n || (uint64_t)(n - at) / bytes < (uint64_t)bw * bh)
+    corrupt("bcn data ends early (PIL refuses the file)");
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  Rgba col[16];
+  uint8_t lum[16];
+  const uint8_t* s = d + at;
+  for (int64_t by = 0; by < bh; ++by)
+    for (int64_t bx = 0; bx < bw; ++bx, s += bytes) {
+      switch (n_) {
+        case 1: bc1_colour(col, s, false); break;
+        case 2:
+          bc1_colour(col, s + 8, true);
+          for (int i = 0; i < 16; ++i) col[i].a = (uint8_t)((s[i >> 1] >> 4 * (i & 1) & 15) * 17);
+          break;
+        case 3:
+          bc1_colour(col, s + 8, true);
+          bc3_alpha(&col[0].r, 4, 3, s, false);
+          break;
+        case 4: bc3_alpha(lum, 1, 0, s, false); break;
+        case 5:
+          for (int i = 0; i < 16; ++i) col[i] = {0, 0, (uint8_t)(sign ? 128 : 0), 0};
+          bc3_alpha(&col[0].r, 4, 0, s, sign);
+          bc3_alpha(&col[0].r, 4, 1, s + 8, sign);
+          break;
+        case 6: bc6_block(col, s, sign); break;
+        default: bc7_block(col, s);
+      }
+      for (int j = 0; j < 4 && by * 4 + j < H; ++j) {
+        uint8_t* o = &g.px[(size_t)(by * 4 + j) * W + bx * 4];
+        for (int i = 0; i < 4 && bx * 4 + i < W; ++i) {
+          const Rgba& c = col[4 * j + i];
+          o[i] = n_ == 4 ? lum[4 * j + i] : luma(c.r, c.g, c.b);
+        }
+      }
+    }
+  return g;
+}
+
+// DdsImagePlugin's _open: the 124-byte header, then the pixel format's
+// route: RGB masks (DdsRgbDecoder), luminance (L at 8 bits, LA at 16 with
+// alpha), an 8-bit palette of 1024 RGBA bytes, a FourCC or DX10 format of
+// Pillow's bcn, DX10's R8G8B8A8 as raw RGBA; any other is refused. The
+// pixels start where the header's reads stopped (load_seek does nothing).
+// False where Image.open passes the file on.
+struct Dds {
+  int64_t w = 0, h = 0;
+  int route = 0;    // 'R' masks, 'L', 'A' (LA), 'P', 'B' bcn, '4' RGBA
+  int bcn = 0;      // Pillow's n
+  bool sign = false;  // BC5S, BC6HS
+  uint32_t bits = 0, masks[4] = {0}, nmasks = 0;
+  size_t at = 0;
+};
+
+bool dds_open(const uint8_t* d, size_t n, Dds& f) {
+  if (n < 8) return false;
+  if (le32(d + 4) != 124) corrupt("DDS header size not 124 (PIL refuses it)");
+  if (n < 128) corrupt("DDS header incomplete (PIL refuses it)");
+  const uint8_t* h = d + 8;
+  f.h = le32(h + 4);
+  f.w = le32(h + 8);
+  const uint32_t pf = le32(h + 72), fourcc = le32(h + 76);
+  f.bits = le32(h + 80);
+  f.at = 128;
+  auto cc = [](const char* s) { return (uint32_t)le32((const uint8_t*)s); };
+  if (pf & 0x40) {  // DDPF.RGB
+    f.route = 'R';
+    f.nmasks = pf & 1 ? 4 : 3;
+    for (uint32_t i = 0; i < f.nmasks; ++i) f.masks[i] = le32(h + 84 + 4 * i);
+  } else if (pf & 0x20000) {  // DDPF.LUMINANCE
+    if (f.bits == 8) f.route = 'L';
+    else if (f.bits == 16 && pf & 1) f.route = 'A';
+    else corrupt("DDS luminance of a bit count PIL does not read (PIL refuses it)");
+  } else if (pf & 0x20) {  // DDPF.PALETTEINDEXED8
+    f.route = 'P';
+    f.at = std::min<size_t>(n, 128 + 1024);
+  } else if (pf & 4) {  // DDPF.FOURCC
+    f.route = 'B';
+    if (fourcc == cc("DXT1")) f.bcn = 1;
+    else if (fourcc == cc("DXT3")) f.bcn = 2;
+    else if (fourcc == cc("DXT5")) f.bcn = 3;
+    else if (fourcc == cc("BC4U") || fourcc == cc("ATI1")) f.bcn = 4;
+    else if (fourcc == cc("BC5S")) f.bcn = 5, f.sign = true;
+    else if (fourcc == cc("BC5U") || fourcc == cc("ATI2")) f.bcn = 5;
+    else if (fourcc == cc("DX10")) {
+      if (n < 132) return false;  // struct.error: SyntaxError
+      const uint32_t dx = le32(d + 128);
+      f.at = std::min<size_t>(n, 148);
+      if (dx == 70 || dx == 71) f.bcn = 1;
+      else if (dx == 73 || dx == 74) f.bcn = 2;
+      else if (dx == 76 || dx == 77) f.bcn = 3;
+      else if (dx == 79 || dx == 80) f.bcn = 4;
+      else if (dx == 82 || dx == 83) f.bcn = 5;
+      else if (dx == 84) f.bcn = 5, f.sign = true;
+      else if (dx == 95) f.bcn = 6;
+      else if (dx == 96) f.bcn = 6, f.sign = true;
+      else if (dx >= 97 && dx <= 99) f.bcn = 7;  // BC7_UNORM_SRGB only sets info["gamma"]
+      else if (dx >= 27 && dx <= 29) f.route = '4';
+      else corrupt("DDS of a DXGI format PIL does not read (PIL refuses it)");
+    } else {
+      corrupt("DDS of a FourCC PIL does not read (PIL refuses it)");
+    }
+  } else {
+    corrupt("DDS of pixel format flags PIL does not read (PIL refuses it)");
+  }
+  return f.w > 0 && f.h > 0;
+}
+
+// DdsRgbDecoder: bits / 8 little-endian bytes a pixel (a short read the
+// bytes left, past the end none: 0), each channel its mask's bits shifted
+// down, over the mask's, times 255, truncated (in double); a zero mask 0.
+Gray decode_dds(const uint8_t* d, size_t n) {
+  Dds f;
+  dds_open(d, n, f);
+  if (f.route == 'B') return bcn_grey(d, n, f.at, f.w, f.h, f.bcn, f.sign);
+  check_size(f.w, f.h);
+  const size_t px = (size_t)f.w * f.h;
+  Gray g;
+  g.w = (int)f.w;
+  g.h = (int)f.h;
+  if (f.route == 'R') {
+    int shift[4];
+    double total[4];
+    for (uint32_t c = 0; c < f.nmasks; ++c) {
+      shift[c] = f.masks[c] ? __builtin_ctz(f.masks[c]) : 0;
+      total[c] = (double)(f.masks[c] >> shift[c]);
+    }
+    auto chan = [&](uint32_t v, int c) {
+      return f.masks[c] ? (int)((double)((v & f.masks[c]) >> shift[c]) / total[c] * 255) : 0;
+    };
+    g.px.resize(px);
+    const size_t step = f.bits / 8;
+    size_t p = f.at;
+    for (size_t i = 0; i < px; ++i) {
+      const size_t k = std::min(step, n - p);
+      uint32_t v = 0;
+      for (size_t b = 0; b < std::min<size_t>(k, 4); ++b) v |= (uint32_t)d[p + b] << 8 * b;
+      p += k;
+      g.px[i] = luma(chan(v, 0), chan(v, 1), chan(v, 2));
+    }
+    return g;
+  }
+  const size_t bpp = f.route == 'A' ? 2 : f.route == '4' ? 4 : 1;
+  if ((n - f.at) / bpp < px) corrupt("DDS pixels end early (PIL refuses the file)");
+  const uint8_t* s = d + f.at;
+  g.px.resize(px);
+  if (f.route == 'P') {  // the palette's RGBA entries (a file cut in them has no pixels)
+    uint8_t grey[256];
+    for (int i = 0; i < 256; ++i) grey[i] = luma(d[128 + 4 * i], d[129 + 4 * i], d[130 + 4 * i]);
+    for (size_t i = 0; i < px; ++i) g.px[i] = grey[s[i]];
+  } else if (f.route == '4') {
+    for (size_t i = 0; i < px; ++i) g.px[i] = luma(s[4 * i], s[4 * i + 1], s[4 * i + 2]);
+  } else {
+    for (size_t i = 0; i < px; ++i) g.px[i] = s[bpp * i];
+  }
+  return g;
+}
+
+// FtexImagePlugin's _open: the size (signed), the format count (1 or
+// Python's AssertionError, which fails Image.open), the first format and
+// where its mipmaps start, the first mipmap's byte count (-1: the rest
+// of the file, as a file's read(-1) gives it; below -1 read() raises),
+// its bytes: DXT1 (bcn 1) or raw RGB. False where Image.open passes the file
+// on; the data is [`p`, `e`).
+struct Ftex {
+  int64_t w = 0, h = 0;
+  int format = 0;
+  size_t p = 0, e = 0;
+};
+
+bool ftex_open(const uint8_t* d, size_t n, Ftex& f) {
+  if (n < 24) return false;
+  f.w = (int32_t)le32(d + 8);
+  f.h = (int32_t)le32(d + 12);
+  if (le32(d + 20) != 1) corrupt("FTEX of a format count other than 1 (PIL's assert fails)");
+  if (n < 32) return false;
+  f.format = (int32_t)le32(d + 24);
+  const int32_t where = (int32_t)le32(d + 28);
+  if (where < 0) corrupt("FTEX mipmap at a negative offset (PIL refuses it)");
+  if ((size_t)where + 4 > n) return false;
+  const int32_t size = (int32_t)le32(d + where);
+  // a file's read(-1) is the rest of it; any other negative count raises
+  if (size < -1) corrupt("FTEX mipmap of a negative byte count (PIL refuses it)");
+  f.p = (size_t)where + 4;
+  f.e = size < 0 ? n : std::min(n, f.p + (size_t)size);
+  if (f.format != 0 && f.format != 1) corrupt("FTEX of a texture format PIL does not know (PIL refuses it)");
+  // PIL's _open has closed the file: Image.open fails on the next plugin
+  if (f.w <= 0 || f.h <= 0) corrupt("FTEX of no pixels (PIL refuses it)");
+  return true;
+}
+
+Gray decode_ftex(const uint8_t* d, size_t n) {
+  Ftex f;
+  ftex_open(d, n, f);
+  if (f.format == 0) return bcn_grey(d, f.e, f.p, f.w, f.h, 1, false);
+  check_size(f.w, f.h);
+  const size_t px = (size_t)f.w * f.h;
+  if ((f.e - f.p) / 3 < px) corrupt("FTEX pixels end early (PIL refuses the file)");
+  Gray g;
+  g.w = (int)f.w;
+  g.h = (int)f.h;
+  g.px.resize(px);
+  const uint8_t* s = d + f.p;
+  for (size_t i = 0; i < px; ++i) g.px[i] = luma(s[3 * i], s[3 * i + 1], s[3 * i + 2]);
+  return g;
+}
+
+// ------------------------------------------------------------- BLP (A.6.54)
+
+// BlpImagePlugin's _open: BLP1 (compression, alpha, size, encoding) or
+// BLP2 (compression, encoding, alpha and alpha encoding as signed bytes,
+// size); mode RGBA where alpha is not 0, else RGB. False where Image.open
+// passes the file on.
+struct Blp {
+  bool v2 = false, alpha = false;
+  int32_t compression = 0, encoding = 0, alpha_encoding = 0;
+  int64_t w = 0, h = 0;
+};
+
+bool blp_open(const uint8_t* d, size_t n, Blp& b) {
+  b.v2 = d[3] == '2';
+  if (n < (b.v2 ? 20u : 24u)) return false;
+  b.compression = (int32_t)le32(d + 4);
+  if (b.v2) {
+    b.encoding = (int8_t)d[8];
+    b.alpha = d[9] != 0;
+    b.alpha_encoding = (int8_t)d[10];
+  } else {
+    b.alpha = le32(d + 8) != 0;
+    b.encoding = (int32_t)le32(d + 20);
+  }
+  b.w = le32(d + 12);
+  b.h = le32(d + 16);
+  return b.w > 0 && b.h > 0;
+}
+
+// Pillow's Python DXT decoders (BlpImagePlugin.decode_dxt1/3/5): 565
+// endpoints shifted up without their high bits copied down, Python's //;
+// DXT1 gives RGB (RGBA where the image has alpha), DXT3 and DXT5 RGBA
+// always. `out` gets a block's 16 pixels, `bpp` bytes each.
+void blp_dxt(const uint8_t* s, int enc, uint8_t* out, int bpp) {
+  const uint8_t* c = enc == 0 ? s : s + 8;
+  const uint32_t c0 = le16(c), c1 = le16(c + 2), code = le32(c + 4);
+  const int r0 = (c0 >> 11 & 31) << 3, g0 = (c0 >> 5 & 63) << 2, b0 = (c0 & 31) << 3;
+  const int r1 = (c1 >> 11 & 31) << 3, g1 = (c1 >> 5 & 63) << 2, b1 = (c1 & 31) << 3;
+  const uint64_t abits = enc == 7 ? (uint64_t)le16(s + 2) | (uint64_t)le32(s + 4) << 16 : 0;
+  for (int i = 0; i < 16; ++i) {
+    const int k = code >> 2 * i & 3;
+    int r, g, b, a = 255;
+    if (k == 0) r = r0, g = g0, b = b0;
+    else if (k == 1) r = r1, g = g1, b = b1;
+    else if (enc != 0 || c0 > c1) {
+      const int u = k == 2 ? 2 : 1;  // DXT1's 4-colour mode; DXT3 and DXT5 always
+      r = (u * r0 + (3 - u) * r1) / 3, g = (u * g0 + (3 - u) * g1) / 3, b = (u * b0 + (3 - u) * b1) / 3;
+    } else if (k == 2) {
+      r = (r0 + r1) / 2, g = (g0 + g1) / 2, b = (b0 + b1) / 2;
+    } else {
+      r = g = b = a = 0;
+    }
+    if (enc == 1) {
+      a = (s[i >> 1] >> 4 * (i & 1) & 15) * 17;
+    } else if (enc == 7) {
+      const int a0 = s[0], a1 = s[1], q = (int)(abits >> 3 * i & 7);
+      a = q == 0 ? a0 : q == 1 ? a1 : a0 > a1 ? ((8 - q) * a0 + (q - 1) * a1) / 7
+          : q == 6 ? 0 : q == 7 ? 255 : ((6 - q) * a0 + (q - 1) * a1) / 5;
+    }
+    uint8_t* o = out + bpp * i;
+    o[0] = (uint8_t)r, o[1] = (uint8_t)g, o[2] = (uint8_t)b;
+    if (bpp == 4) o[3] = (uint8_t)a;
+  }
+}
+
+// The BLP decoders: the 16 mipmap offsets and lengths after the header
+// (PIL's _safe_read: all there or refused), then BLP1: a JPEG (its header
+// and the first mipmap joined, after a skip to the mipmap that never goes
+// back, read by this file's JPEG reader, R and B swapped) or a palette
+// (encoding 4 or 5) and that many indices right after it; BLP2: the
+// palette, then at the first mipmap's offset its indices (encoding 1) or
+// DXT blocks a row of blocks at a time (alpha encoding 0, 1, 7), each
+// row of blocks four rows of ceil(w / 4) * 4 pixels. set_as_raw then reads
+// the image's w * h pixels from those bytes in order, 3 a pixel in mode
+// RGB whatever the decoder gave (so a width off a multiple of 4 reads
+// DXT rows sheared, and DXT3/5 without alpha bytes shifted): too few are
+// refused.
+Gray decode_blp(const uint8_t* d, size_t n) {
+  Blp b;
+  blp_open(d, n, b);
+  check_size(b.w, b.h);
+  size_t p = b.v2 ? 20 : 28;
+  if (n < p + 128) corrupt("BLP mipmap table ends early (PIL refuses the file)");
+  const uint32_t off0 = le32(d + p), len0 = le32(d + p + 64);
+  p += 128;
+  const size_t px = (size_t)b.w * b.h, mbpp = b.alpha ? 4 : 3;
+  auto need = [&](size_t k) {
+    if (k > n - std::min(p, n)) corrupt("BLP data ends early (PIL refuses the file)");
+  };
+  Gray g;
+  g.w = (int)b.w;
+  g.h = (int)b.h;
+  if (!b.v2 && b.compression == 0) {
+    need(4);
+    const size_t hs = le32(d + p);
+    p += 4;
+    need(hs);
+    std::vector<uint8_t> jpeg(d + p, d + p + hs);
+    p += hs;
+    if (off0 > p) {
+      need(off0 - p);
+      p = off0;
+    }
+    need(len0);
+    jpeg.insert(jpeg.end(), d + p, d + p + len0);
+    if (jpeg.size() < 3 || jpeg[0] != 0xFF || jpeg[1] != 0xD8 || jpeg[2] != 0xFF)
+      corrupt("BLP1's JPEG is not a JPEG stream (PIL refuses the file)");
+    Jpeg j;
+    j.begin(jpeg.data(), jpeg.size(), true);
+    j.blp = true;
+    Gray rgb = j.run();
+    if (rgb.px.size() < px) corrupt("BLP1's JPEG has fewer pixels than the image (PIL refuses the file)");
+    rgb.px.resize(px);
+    g.px = std::move(rgb.px);
+    return g;
+  }
+  auto palette = [&](uint8_t grey[256]) {
+    need(1024);
+    for (int i = 0; i < 256; ++i) grey[i] = luma(d[p + 4 * i + 2], d[p + 4 * i + 1], d[p + 4 * i]);
+    p += 1024;
+  };
+  auto indices = [&](const uint8_t grey[256]) {
+    need(len0);
+    if (len0 < px) corrupt("BLP indices fewer than the pixels (PIL refuses the file)");
+    g.px.resize(px);
+    for (size_t i = 0; i < px; ++i) g.px[i] = grey[d[p + i]];
+  };
+  uint8_t grey[256];
+  if (!b.v2) {
+    if (b.compression != 1 || (b.encoding != 4 && b.encoding != 5))
+      corrupt("BLP1 of a compression or encoding PIL does not read (PIL refuses it)");
+    palette(grey);
+    indices(grey);
+    return g;
+  }
+  palette(grey);
+  p = off0;
+  if (b.compression != 1 || (b.encoding != 1 && b.encoding != 2) ||
+      (b.encoding == 2 && b.alpha_encoding != 0 && b.alpha_encoding != 1 && b.alpha_encoding != 7))
+    corrupt("BLP2 of a compression or encoding PIL does not read (PIL refuses it)");
+  if (b.encoding == 1) {
+    indices(grey);
+    return g;
+  }
+  const int enc = b.alpha_encoding;
+  const size_t bw = ((size_t)b.w + 3) / 4, bh = ((size_t)b.h + 3) / 4, bytes = enc == 0 ? 8 : 16;
+  const size_t dbpp = enc == 0 ? mbpp : 4, row = bw * 4 * dbpp;  // a pixel row of the decoder's
+  need(bw * bh * bytes);
+  // the decoder's bytes, only as many block rows as the image's pixels take
+  const size_t total = px * mbpp, rows = std::min(bh, (total + 4 * row - 1) / (4 * row));
+  std::vector<uint8_t> data(rows * 4 * row);
+  uint8_t blk[64];
+  for (size_t by = 0; by < rows; ++by)
+    for (size_t bx = 0; bx < bw; ++bx) {
+      blp_dxt(d + p + (by * bw + bx) * bytes, enc, blk, (int)dbpp);
+      for (int j = 0; j < 4; ++j)
+        memcpy(&data[(by * 4 + j) * row + bx * 4 * dbpp], blk + 4 * j * dbpp, 4 * dbpp);
+    }
+  g.px.resize(px);
+  for (size_t i = 0; i < px; ++i) {
+    const uint8_t* q = &data[i * mbpp];
+    g.px[i] = luma(q[0], q[1], q[2]);
+  }
+  return g;
+}
+
+// ---------------------------------------------------------- SPIDER (A.6.55)
+
+// SpiderImagePlugin's _open: 27 floats, big-endian first, then
+// little-endian, whose header fields are whole numbers that agree
+// (isSpiderHeader: labbyt = labrec * lenbyt, not 0), of a 2D image (iform
+// 1, or SyntaxError without trying the other order); the stack fields as
+// int() takes them (not numbers: ValueError); a plain image at labbyt, a
+// stack's first image at 2 labbyt (its image count int() too), an image
+// within a stack refused (self.stkoffset was never set: AttributeError),
+// other stack fields passed on. False where Image.open passes the file
+// on.
+struct Spider {
+  int64_t w = 0, h = 0;
+  bool be = true;
+  double offset = 0;
+};
+
+bool spider_open(const uint8_t* d, size_t n, Spider& f) {
+  if (n < 108) return false;
+  static const double kForms[] = {1, 3, -11, -12, -21, -22};
+  for (int be = 1; be >= 0; --be) {
+    double h[28];
+    for (int i = 0; i < 27; ++i) {
+      const uint8_t* q = d + 4 * i;
+      const uint32_t u = be ? be32(q) : le32(q);
+      float v;
+      memcpy(&v, &u, 4);
+      h[i + 1] = v;
+    }
+    auto whole = [](double v) { return std::isfinite(v) && v == std::trunc(v); };
+    bool ok = true;
+    for (int i : {1, 2, 5, 12, 13, 22, 23}) ok = ok && whole(h[i]);
+    if (!ok || std::find(std::begin(kForms), std::end(kForms), h[5]) == std::end(kForms)) continue;
+    // labbyt = labrec * lenbyt: float32 whole numbers, exact in long double
+    if ((long double)h[22] != (long double)h[13] * (long double)h[23] || h[22] == 0) continue;
+    if (h[5] != 1) return false;
+    f.be = be;
+    auto i64 = [](double v) { return v >= 1e18 ? INT64_MAX : v <= -1e18 ? INT64_MIN : (int64_t)v; };
+    f.w = i64(h[12]);
+    f.h = i64(h[2]);
+    if (!std::isfinite(h[24]) || !std::isfinite(h[27])) corrupt("SPIDER stack fields not numbers");
+    const double stack = std::trunc(h[24]), number = std::trunc(h[27]);
+    if (stack == 0 && number == 0) {
+      f.offset = h[22];
+    } else if (stack > 0 && number == 0) {
+      if (!std::isfinite(h[26])) corrupt("SPIDER image count not a number");
+      f.offset = 2 * h[22];
+    } else if (stack == 0 && number > 0) {
+      corrupt("SPIDER image within a stack (PIL's offset for it was never set)");
+    } else {
+      return false;
+    }
+    return f.w > 0 && f.h > 0;
+  }
+  return false;
+}
+
+// Mode F from F;32BF or F;32F at the header's offset, the data whole or
+// refused; convert("L") clips and truncates, NaN 0.
+Gray decode_spider(const uint8_t* d, size_t n) {
+  Spider f;
+  spider_open(d, n, f);
+  check_size(f.w, f.h);
+  const size_t px = (size_t)f.w * f.h;
+  if (f.offset < 0 || f.offset > (double)n || (n - (size_t)f.offset) / 4 < px)
+    corrupt("SPIDER pixels end early or start before the file (PIL refuses it)");
+  const uint8_t* s = d + (size_t)f.offset;
+  Gray g;
+  g.w = (int)f.w;
+  g.h = (int)f.h;
+  g.px.resize(px);
+  for (size_t i = 0; i < px; ++i) {
+    const uint32_t u = f.be ? be32(s + 4 * i) : le32(s + 4 * i);
+    float v;
+    memcpy(&v, &u, 4);
+    g.px[i] = float_grey(v);
+  }
+  return g;
+}
+
 // PcxImagePlugin's header: a box of pixels and a mode it knows.
 int pcx_header(const uint8_t* d, size_t n) {  // 0: not PCX, 1: PCX, -1: PIL fails
   if (n < 68 || d[0] != 10 || !(d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return 0;
@@ -8943,7 +9760,10 @@ std::string pil_format(const uint8_t* d, size_t n) {
       (!memcmp(d + 8, "avif", 4) || !memcmp(d + 8, "avis", 4) || !memcmp(d + 8, "mif1", 4) ||
        !memcmp(d + 8, "msf1", 4)))
     return "AVIF";
-  if (((st("BLP1") && n >= 28) || (st("BLP2") && n >= 20)) && le32(d + 12) && le32(d + 16)) return "BLP";
+  if (st("BLP1") || st("BLP2")) {
+    Blp b;
+    if (blp_open(d, n, b)) return "BLP";
+  }
   if (st("BUFR") || st("ZCZC")) return "BUFR";
   if (st("\0\0\2\0")) {
     Dib b;
@@ -8963,8 +9783,8 @@ std::string pil_format(const uint8_t* d, size_t n) {
     }
   }
   if (st("DDS ")) {
-    if (n < 8 || le32(d + 4) != 124) corrupt("DDS header size not 124 (PIL refuses it)");
-    return "DDS";
+    Dds f;
+    if (dds_open(d, n, f)) return "DDS";
   }
   if (st("%!PS") || l32 == 0xC6D3D0C5u) return "EPS";
   if (st("SIMPLE")) {
@@ -8984,9 +9804,9 @@ std::string pil_format(const uint8_t* d, size_t n) {
     for (size_t i = 88; i < 128; ++i) zero = zero && !d[i];
     if (zero && le16(d + 8) > 0 && le16(d + 10) > 0) return "FLI";
   }
-  if (st("FTEX") && n >= 32) {
-    if (le32(d + 20) != 1 || le32(d + 24) > 1) corrupt("FTEX of a layout PIL refuses");
-    return "FTEX";
+  if (st("FTEX")) {
+    Ftex f;
+    if (ftex_open(d, n, f)) return "FTEX";
   }
   if (n >= 20 && be32(d) >= 20 && (be32(d + 4) == 1 || be32(d + 4) == 2) && be32(d + 8) && be32(d + 12) &&
       (be32(d + 16) == 1 || be32(d + 16) == 4) && (be32(d + 4) == 1 || (n >= 28 && !memcmp(d + 20, "GIMP", 4))))
@@ -9039,7 +9859,10 @@ std::string pil_format(const uint8_t* d, size_t n) {
     if (!mode) corrupt("SGI of a mode PIL does not know (PIL refuses it)");
     if (be16(d + 6) && be16(d + 8)) return "SGI";
   }
-  if (spider_header(d, n)) return "SPIDER";
+  {
+    Spider f;
+    if (spider_open(d, n, f)) return "SPIDER";
+  }
   if (n >= 32 && be32(d) == 0x59A66A95u) {
     const uint32_t depth = be32(d + 12), type = be32(d + 20), ptype = be32(d + 24), plen = be32(d + 28);
     if ((depth == 1 || depth == 4 || depth == 8 || depth == 24 || depth == 32) &&
@@ -9139,6 +9962,10 @@ Gray decode_other(const uint8_t* d, size_t n) {
   if (f == "XBM") return decode_xbm(d, n);
   if (f == "XPM") return decode_xpm(d, n);
   if (f == "XVThumb") return decode_xvthumb(d, n);
+  if (f == "DDS") return decode_dds(d, n);
+  if (f == "FTEX") return decode_ftex(d, n);
+  if (f == "BLP") return decode_blp(d, n);
+  if (f == "SPIDER") return decode_spider(d, n);
   if (f == "BUFR" || f == "GRIB" || f == "HDF5" || f == "WMF" || f == "MPEG")
     corrupt(f + " file, which PIL opens and has no decoder for");
   if (f == "EPS") corrupt("EPS file, which PIL reads through Ghostscript alone");

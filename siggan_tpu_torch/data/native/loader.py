@@ -82,8 +82,12 @@ SOURCES = (SOURCE, Path(__file__).with_name("webp.cpp"))
 # reads them (C.24), so pixels change and files become zero images or pages;
 # d10: old-style JPEG-in-TIFF whose header skips a segment's bytes (APPn,
 # COM, the SOS's last three) no further than the end of their block, as
-# libtiff skips them (C.26), so the scan starts where libtiff's does.
-DECODE_VERSION = "d10"
+# libtiff skips them (C.26), so the scan starts where libtiff's does; d11:
+# a JPEG scan header's components looked up as libjpeg-turbo's get_sos
+# looks them up (C.27): a scan out of the frame's order or naming a
+# component twice is corrupt, and a frame's repeated id is the first one
+# free, so files become zero images and pixels change.
+DECODE_VERSION = "d11"
 OK, CORRUPT, UNSUPPORTED, UNREADABLE, PNG, INDICES = range(6)
 _MSG = 160
 

@@ -63,16 +63,17 @@ def test_foreign_and_stale_caches_are_ignored(pngs, planted):
 
 def test_a_d3_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path):
     """A tree with a BigTIFF (d3 raised on it; d4 reads it) and a d3 cache
-    holding other pixels: the dataset decodes anew under its own name (d10
-    since old-style JPEG-in-TIFF headers skip as libtiff skips, C.26)."""
+    holding other pixels: the dataset decodes anew under its own name (d11
+    since a JPEG scan header's components are looked up as libjpeg-turbo
+    looks them up, C.27)."""
     from PIL import Image
     save_dataset_pngs(3, tmp_path, seed=4)
     scan = (np.random.RandomState(5).rand(30, 50) * 255).astype(np.uint8)
     Image.fromarray(scan).save(tmp_path / "scan.tif", big_tiff=True)
-    assert tnative.DECODE_VERSION == "d10"
+    assert tnative.DECODE_VERSION == "d11"
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    np.save(tmp_path / own.replace("_d10_", "_d3_"), np.zeros_like(want.images))
+    np.save(tmp_path / own.replace("_d11_", "_d3_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)
@@ -93,8 +94,8 @@ def test_a_d5_cache_of_a_tree_the_port_now_reads_is_not_read(tmp_path, monkeypat
         chip_smoke.tiff_layout(scan[..., None], 8, 1, compression=-5, rows_per_strip=16))
     want = tdataset.SignatureDataset(tmp_path, 32, use_cache=False)
     own = want._cache_path().name
-    assert "_d10_" in own
-    np.save(tmp_path / own.replace("_d10_", "_d5_"), np.zeros_like(want.images))
+    assert "_d11_" in own
+    np.save(tmp_path / own.replace("_d11_", "_d5_"), np.zeros_like(want.images))
     got = tdataset.SignatureDataset(tmp_path, 32)
     assert got.images.any() and (tmp_path / own).exists()
     np.testing.assert_array_equal(got.images, want.images)

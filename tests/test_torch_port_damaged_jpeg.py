@@ -236,25 +236,96 @@ def test_datasets_take_damaged_files_as_jax(tmp_path, monkeypatch):
 
 
 def test_cache_of_the_older_decoder_is_not_read(tmp_path):
-    """DECODE_VERSION is d10 (d3 since these repairs, d4 since C.13's, d5
+    """DECODE_VERSION is d11 (d3 since these repairs, d4 since C.13's, d5
     since damaged CCITT data decodes, d6 since damaged ZSTD literals read as
     libzstd reads them, d7 since old-style JPEG-in-TIFF without its last
     strip's data reads as libtiff reads it, d8 since planar YCbCr
     old-style JPEG-in-TIFF, GIF and Netpbm read, d9 since BMP files read as
     PIL reads a pixel offset of 0 and its grey palettes, d10 since
-    old-style JPEG-in-TIFF headers skip as libtiff skips): a d2 to d9 cache
-    beside the data (what an older decoder wrote, zero images where files
-    now decode) is not read; the new cache carries d10."""
-    assert tnative.DECODE_VERSION == "d10"
+    old-style JPEG-in-TIFF headers skip as libtiff skips, d11 since a JPEG
+    scan header's components are looked up as libjpeg-turbo looks them
+    up): a d2 to d10 cache beside the data (what an older decoder wrote,
+    zero images where files now decode) is not read; the new cache carries
+    d11."""
+    assert tnative.DECODE_VERSION == "d11"
     d = tmp_path / "raw"
     d.mkdir()
     (d / "restart_damaged.jpg").write_bytes((FIXTURES / "restart_damaged.jpg").read_bytes())
     ds = tdataset.SignatureDataset(d, 16, use_cache=True)
     cache = ds._cache_path()
-    assert "_d10_" in cache.name and cache.exists()
+    assert "_d11_" in cache.name and cache.exists()
     cache.unlink()
-    for old in ("_d2_", "_d3_", "_d4_", "_d5_", "_d6_", "_d7_", "_d8_", "_d9_"):
-        np.save(cache.with_name(cache.name.replace("_d10_", old)), np.zeros((1, 16, 16, 1), np.float32))
+    for old in ("_d2_", "_d3_", "_d4_", "_d5_", "_d6_", "_d7_", "_d8_", "_d9_", "_d10_"):
+        np.save(cache.with_name(cache.name.replace("_d11_", old)), np.zeros((1, 16, 16, 1), np.float32))
     again = tdataset.SignatureDataset(d, 16, use_cache=True)
     assert again.images.any()
     np.testing.assert_array_equal(again.images, ds.images)
+
+
+def with_component_ids(data: bytes, frame_ids, scan_ids) -> bytes:
+    """A baseline JPEG with its frame's component ids and its scan's
+    replaced."""
+    d = bytearray(data)
+    sof, sos = d.index(b"\xff\xc0"), d.index(b"\xff\xda")
+    for k, v in enumerate(frame_ids):
+        d[sof + 10 + 3 * k] = v
+    for k, v in enumerate(scan_ids):
+        d[sos + 5 + 2 * k] = v
+    return bytes(d)
+
+
+@pytest.mark.parametrize("subsampling", [0, 2])
+@pytest.mark.parametrize("frame_ids", [(1, 2, 3), (3, 2, 1), (1, 1, 3), (1, 2, 2), (2, 2, 2), (1, 3, 1)])
+def test_scan_component_ids_looked_up_as_libjpeg(frame_ids, subsampling):
+    """C.27: jdmarker.c get_sos takes a scan's i-th id as the first of the
+    frame's components of that id whose index finds the scan's slot of that
+    number empty, and fails on a component named twice. So a scan out of
+    the frame's order is corrupt (PIL: "broken data stream"), and a frame
+    that repeats an id reads its components in order; every scan of ids
+    1 .. 4 against each frame, read or refused as PIL."""
+    buf = io.BytesIO()
+    Image.fromarray(pixels(np.random.RandomState(3), (16, 16, 3)).astype(np.uint8)).save(
+        buf, "JPEG", quality=85, subsampling=subsampling)
+    read = 0
+    for scan_ids in np.ndindex(4, 4, 4):
+        data = with_component_ids(buf.getvalue(), frame_ids, [i + 1 for i in scan_ids])
+        same_as_pil(data)
+        try:
+            pil_l(data)
+            read += 1
+        except OSError:
+            pass
+    assert 0 < read < 64
+
+
+def dht_segment(tc: int, th: int, counts, vals) -> bytes:
+    body = bytes([tc << 4 | th]) + bytes(counts) + bytes(vals)
+    return b"\xff\xc4" + struct.pack(">H", 2 + len(body)) + body
+
+
+HUFFMAN_TABLES = {   # (class, slot, counts, symbols): a DC table of 12 codes, or two codes of 1 bit
+    "dc_symbol_16": (0, 0, [0, 1, 5, 1, 1, 1, 1, 1, 1] + [0] * 7, list(range(11)) + [16]),
+    "dc_symbol_200": (0, 0, [0, 1, 5, 1, 1, 1, 1, 1, 1] + [0] * 7, list(range(11)) + [200]),
+    "chroma_dc_symbol_16": (0, 1, [0, 1, 5, 1, 1, 1, 1, 1, 1] + [0] * 7, list(range(11)) + [16]),
+    "dc_all_ones": (0, 0, [2] + [0] * 15, [0, 1]),
+    "ac_all_ones": (1, 0, [2] + [0] * 15, [0, 1]),
+    "dc_symbol_15": (0, 0, [0, 1, 5, 1, 1, 1, 1, 1, 1] + [0] * 7, list(range(11)) + [15]),
+}
+
+
+@pytest.mark.parametrize("slot_used", [True, False])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("table", sorted(HUFFMAN_TABLES))
+def test_huffman_tables_checked_when_a_scan_uses_them(table, progressive, slot_used):
+    """C.27: libjpeg checks a Huffman table (jdhuff.c
+    jpeg_make_d_derived_tbl: codes that fit, none all ones; a DC symbol at
+    most 15 in a lossy frame) when a scan that uses it starts, not at DHT:
+    the same table in a slot no scan uses (3) reads; in the slot the first
+    scan uses, it is refused where it breaks those rules."""
+    tc, th, counts, vals = HUFFMAN_TABLES[table]
+    buf = io.BytesIO()
+    Image.fromarray(pixels(np.random.RandomState(5), (16, 16, 3)).astype(np.uint8)).save(
+        buf, "JPEG", quality=85, progressive=progressive)
+    data = buf.getvalue()
+    sos = data.index(b"\xff\xda")
+    same_as_pil(data[:sos] + dht_segment(tc, th if slot_used else 3, counts, vals) + data[sos:])

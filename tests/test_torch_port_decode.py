@@ -1053,7 +1053,8 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     pages = {**chip_smoke.a6_pages(golden), **chip_smoke.a6_layout_pages(golden),
              **chip_smoke.a6_codec_pages(golden), **chip_smoke.a6_ccitt_lzw_pages(golden),
              **chip_smoke.a6_kind_pages(golden), **chip_smoke.a6_gif_pnm_pages(golden),
-             **chip_smoke.a6_raster_pages(golden), **chip_smoke.a6_text_pages(golden)}
+             **chip_smoke.a6_raster_pages(golden), **chip_smoke.a6_text_pages(golden),
+             **chip_smoke.a6_texture_pages(golden)}
     for name, data in pages.items():
         try:
             with Image.open(io.BytesIO(data)) as im:

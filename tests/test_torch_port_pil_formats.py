@@ -100,7 +100,7 @@ def test_every_pillow_writer_reads_or_raises_a6(tmp_path, fmt, mode):
 def test_hand_written_files_raise_naming_their_format(tmp_path, fmt):
     """``chip_smoke.c21_files`` (phase 12's C.21 tree, written without
     PIL): XPM, PSD, SUN, CUR, DCX and the rest are genuine files PIL opens
-    as that format and reads; the port reads the formats of A.6.33-A.6.47
+    as that format and reads; the port reads the formats of A.6.33-A.6.55
     bit-equal and raises naming each other one."""
     data = chip_smoke.c21_files()[fmt]
     got, grey = pil_format(data)
@@ -156,7 +156,8 @@ def no_writer_files() -> dict:
 @pytest.mark.parametrize("fmt", sorted(set(no_writer_files()) - {"XVThumb"}))
 def test_formats_pil_reads_and_writes_not_raise_naming_them(tmp_path, fmt):
     """FITS, FLI, FTEX, GBR, IMT, IPTC, McIdas, PCD and PIXAR: PIL opens
-    and reads each; the port raises naming the format."""
+    and reads each; the port reads FTEX (A.6.53) bit-equal and raises
+    naming each other format."""
     data = no_writer_files()[fmt]
     got, grey = pil_format(data)
     assert got.upper() == fmt.upper() and grey is not None

@@ -317,19 +317,20 @@ def pil_only_file(fmt: str) -> bytes:
 # chip_smoke.c21_files, and the formats PIL reads and writes not).
 STILL_A6 = {
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt], fmt)
-       for fmt in ("AVIF", "BLP", "DDS", "ICNS", "JPEG2000", "SPIDER")},
+       for fmt in ("AVIF", "ICNS", "JPEG2000")},
     **{f"pil_only_{fmt.lower()}": (lambda fmt=fmt: pil_only_file(fmt), fmt)
-       for fmt in ("FITS", "FLI", "FTEX", "GBR", "IMT", "IPTC", "MCIDAS", "PCD", "PIXAR")},
+       for fmt in ("FITS", "FLI", "GBR", "IMT", "IPTC", "MCIDAS", "PCD", "PIXAR")},
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.48,
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.55,
 # C.20).
 NOW_READ = {
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt])
-       for fmt in ("CUR", "DCX", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI", "SUN", "TGA",
-                   "XBM", "XPM")},
+       for fmt in ("BLP", "CUR", "DCX", "DDS", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI",
+                   "SPIDER", "SUN", "TGA", "XBM", "XPM")},
     "xv_thumbnail": lambda: pil_only_file("XVThumb"),
+    "pil_only_ftex": lambda: pil_only_file("FTEX"),
     "ojpeg_planar_tiles": ojpeg_planar_tiles,
     "webp": lambda: pil_image_bytes("WEBP"),
     "webp_lossless": lambda: (lambda b: (Image.fromarray(RGB).save(b, "WEBP", lossless=True),
@@ -385,8 +386,9 @@ def past_the_tile_buffer(data: bytes) -> np.ndarray:
 
 @pytest.mark.parametrize("name", sorted(NOW_READ))
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
-    """DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, IM, PSD, XBM and
-    XPM (the files of ``chip_smoke.c21_files``), an XV thumbnail, planar
+    """DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, IM, PSD, XBM, XPM,
+    BLP, DDS and SPIDER (the files of ``chip_smoke.c21_files``), an XV
+    thumbnail, an FTEX file, planar
     YCbCr old-style JPEG-in-TIFF in tiles (the right tile keeping the left's
     rows, as PIL's tile buffer does), WebP (lossy, lossless, lossy with alpha), a
     genuine lossless JPEG (predictor 1), Huffman data under an

@@ -100,9 +100,10 @@ def test_dataset_and_canvas_pixels_stay_the_jax_packages(tmp_path, monkeypatch):
     without its last strip's data reads as libtiff reads it, d8 since
     planar YCbCr old-style JPEG-in-TIFF, GIF and Netpbm read, d9 since BMP
     files read as PIL reads a pixel offset of 0 and its grey palettes, d10
-    since old-style JPEG-in-TIFF headers skip as libtiff skips); the
-    resize is the native one, not numpy's."""
-    assert native.DECODE_VERSION == "d10"
+    since old-style JPEG-in-TIFF headers skip as libtiff skips, d11 since a
+    JPEG scan header's components are looked up as libjpeg-turbo looks
+    them up); the resize is the native one, not numpy's."""
+    assert native.DECODE_VERSION == "d11"
     paths = []
     for i, (h, w) in enumerate(((500, 1200), (90, 210), (64, 64), (700, 300))):
         p = tmp_path / f"s{i}.png"

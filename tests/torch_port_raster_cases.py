@@ -19,7 +19,8 @@ from siggan_tpu_torch.infer.export import _chunk, encode_png
 
 # The formats the port reads, by PIL's name.
 READ = {"BMP", "JPEG", "MPO", "PNG", "TIFF", "GIF", "PPM", "WEBP", "DIB", "TGA", "PCX", "DCX", "ICO",
-        "CUR", "SGI", "SUN", "MSP", "QOI", "IM", "XBM", "XPM", "XVThumb", "PSD"}
+        "CUR", "SGI", "SUN", "MSP", "QOI", "IM", "XBM", "XPM", "XVThumb", "PSD", "DDS", "FTEX", "BLP",
+        "SPIDER"}
 
 
 def image(h: int, w: int, bands: int = 0, seed: int = 5) -> np.ndarray:
