@@ -161,7 +161,9 @@ Phases (any failure raises and the script exits non-zero):
      XBM, XPM, XV thumbnail, PSD raw and PackBits, planar YCbCr old-style
      JPEG-in-TIFF in tiles) and of A.6.49-A.6.55 (``a6_texture_pages``: DDS
      uncompressed, BC1, BC4 and BC7, FTEX, BLP2 DXT1 and palette, BLP1,
-     SPIDER) the same; phase 11's scans in the formats of A.6.33-A.6.55 in
+     SPIDER) and of A.6.56-A.6.63 (``a6_header_pages``: PIXAR, GBR,
+     McIdas, IMT, FITS of BITPIX 8 and 16, IPTC, FLC, PCD at 768 x 512)
+     the same; phase 11's scans in the formats of A.6.33-A.6.63 in
      turns under .png and .bmp names
      (``raster_tree_step``): ``cli.preprocess`` writes and refuses as many
      as on the CPU, and a ``SignatureDataset`` holds the greys written;
@@ -4092,6 +4094,264 @@ def spider_file(values, big_endian: bool = True, *, stack: int = 0, fields: dict
     return body + v.astype(order).tobytes()
 
 
+# Writers of the formats of A.6.56-A.6.63 (PIXAR, GBR, McIdas, IMT, FITS,
+# IPTC, FLI, PCD), without PIL: phase 12's pages and tree, and the tests'
+# hand-built files.
+
+def pixar_file(rgb, mode=(14, 2)) -> bytes:
+    """A PIXAR file of (h, w, 3) uint8 RGB: the magic and, little-endian in
+    a 1024-byte header, the height at 416, the width at 418 and the
+    channel / depth pair at 424 ((14, 2) is PIL's RGB); raw RGB after it."""
+    import struct
+    import numpy as np
+    a = np.asarray(rgb, np.uint8)
+    head = bytearray(b"\x80\xe8\x00\x00" + bytes(1020))
+    struct.pack_into("<HH", head, 416, a.shape[0], a.shape[1])
+    struct.pack_into("<HH", head, 424, *mode)
+    return bytes(head) + a.tobytes()
+
+
+def gbr_file(pixels, version: int = 2, comment: bytes = b"brush", spacing: int = 10,
+             header_size: int = None) -> bytes:
+    """A GIMP brush of (h, w) grey (depth 1) or (h, w, 4) RGBA (depth 4):
+    the big-endian header (its size, the version, width, height, depth;
+    version 2 then "GIMP" and the spacing), the comment and its NUL, then
+    the pixels."""
+    import struct
+    import numpy as np
+    a = np.asarray(pixels, np.uint8)
+    h, w = a.shape[:2]
+    depth = 1 if a.ndim == 2 else a.shape[2]
+    tail = bytes(comment) + b"\0"
+    if header_size is None:
+        header_size = (20 if version == 1 else 28) + len(tail)
+    head = struct.pack(">IIIII", header_size, version, w, h, depth)
+    if version != 1:
+        head += b"GIMP" + struct.pack(">I", spacing)
+    return head + tail + a.tobytes()
+
+
+def mcidas_file(samples, prefix: int = 0, bands: int = 1, words: dict = None) -> bytes:
+    """A McIdas area of (h, w) samples, 1, 2 or 4 bytes an element by their
+    dtype (big-endian): the 64-word directory (word k 1-based: 2 the type
+    4, 9 the lines, 10 the elements, 11 the bytes an element, 14 the bands,
+    15 a line's prefix bytes, 34 where the data starts; ``words``
+    overrides any), then each line as its prefix (bytes 0xA5) and its
+    elements (the first band, the others zero)."""
+    import struct
+    import numpy as np
+    a = np.asarray(samples)
+    h, w = a.shape
+    size = a.dtype.itemsize
+    w_ = {2: 4, 9: h, 10: w, 11: size, 14: bands, 15: prefix, 34: 256, **(words or {})}
+    head = struct.pack(">64i", *[w_.get(k, 0) for k in range(1, 65)])
+    body = a.astype(f">u{size}" if size > 1 else np.uint8)
+    rows = np.concatenate([np.full((h, prefix), 0xA5, np.uint8), body.view(np.uint8).reshape(h, -1),
+                           np.zeros((h, w * size * (bands - 1)), np.uint8)], 1)
+    return head + rows.tobytes()
+
+
+def imt_file(grey, lines=None) -> bytes:
+    """An IM Tools file of a (h, w) uint8 grey: the text lines (by default
+    width, height and "pixel n8", after a comment), a form feed, the
+    pixels."""
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    h, w = g.shape
+    lines = lines if lines is not None else ["* written without PIL", f"width {w}", f"height {h}",
+                                             "pixel n8"]
+    return "".join(f"{s}\n" for s in lines).encode() + b"\x0c" + g.tobytes()
+
+
+def fits_cards(cards) -> bytes:
+    """A FITS header unit: 80-byte cards ("KEY = value" or (key, value)),
+    END, padded with spaces to a multiple of 2880 bytes."""
+    out = b""
+    for c in [*cards, "END"]:
+        out += (c if isinstance(c, str) else f"{c[0]:<8}= {c[1]:>20}").encode().ljust(80)
+    return out + b" " * (-len(out) % 2880)
+
+
+def fits_file(values, bitpix: int, big_endian: bool = True, cards=()) -> bytes:
+    """A FITS primary image of (h, w) ``values`` (NAXIS1 w, NAXIS2 h) as
+    BITPIX 8, 16, 32, -32 or -64 samples, rows in the format's order
+    (the first row is the image's bottom one), padded to 2880 bytes;
+    ``cards`` come after the NAXIS cards."""
+    import numpy as np
+    v = np.asarray(values)
+    h, w = v.shape
+    dt = {8: "u1", 16: "i2", 32: "i4", -32: "f4", -64: "f8"}[bitpix]
+    data = v[::-1].astype((">" if big_endian else "<") + dt).tobytes()
+    head = fits_cards([("SIMPLE", "T"), ("BITPIX", bitpix), ("NAXIS", 2), ("NAXIS1", w),
+                       ("NAXIS2", h), *cards])
+    return head + data + bytes(-len(data) % 2880)
+
+
+def fits_gzip_file(values, zbitpix: int, table: int = 8) -> bytes:
+    """A FITS file of one tile-compressed image (ZCMPTYPE GZIP_1): an empty
+    primary unit, then a BINTABLE extension (``table`` bytes of table, in
+    one row) whose heap holds the gzip of the image's samples, each a
+    4-byte big-endian value, its rows in the format's order."""
+    import gzip
+    import numpy as np
+    v = np.asarray(values)
+    h, w = v.shape
+    primary = fits_cards([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0)])
+    ext = fits_cards([("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2), ("NAXIS1", table),
+                      ("NAXIS2", 1), ("ZIMAGE", "T"), ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", zbitpix),
+                      ("ZNAXIS", 2), ("ZNAXIS1", w), ("ZNAXIS2", h)])
+    heap = gzip.compress(v[::-1].astype(">i4").tobytes(), 6, mtime=0)
+    data = bytes(table) + heap
+    return primary + ext + data + bytes(-len(data) % 2880)
+
+
+def iptc_record(record: int, dataset: int, data: bytes) -> bytes:
+    """An IPTC/NAA field: 0x1C, its numbers and a 16-bit length, or, past
+    32767 bytes, the length byte 0x84 (PIL takes 4 length bytes after the
+    field's five) and a 4-byte length."""
+    import struct
+    data = bytes(data)
+    if len(data) < 0x8000:
+        return bytes([0x1C, record, dataset]) + struct.pack(">H", len(data)) + data
+    return bytes([0x1C, record, dataset, 0x84, 0]) + struct.pack(">I", len(data)) + data
+
+
+def iptc_file(w: int, h: int, image: bytes, *, layers: int = 1, component: int = 0,
+              compression: int = 1, band: int = None, piece: int = 30000, fields=()) -> bytes:
+    """An IPTC/NAA file: the layers and component (3:60), the size (3:20,
+    3:30), the compression (3:120: 1 raw, 5 JPEG), a band (3:65) and
+    ``fields``, then ``image`` in 8:10 records of ``piece`` bytes."""
+    import struct
+    out = (iptc_record(3, 60, bytes([layers, component])) + iptc_record(3, 20, struct.pack(">I", w))
+           + iptc_record(3, 30, struct.pack(">I", h)) + iptc_record(3, 120, struct.pack(">I", compression)))
+    if band is not None:
+        out += iptc_record(3, 65, bytes([band]))
+    for f in fields:
+        out += iptc_record(*f)
+    image = bytes(image)
+    for at in range(0, len(image), piece):
+        out += iptc_record(8, 10, image[at:at + piece])
+    return out
+
+
+def fli_chunk(kind: int, data: bytes) -> bytes:
+    """An FLI subchunk: its size (header included) and type, little-endian."""
+    import struct
+    return struct.pack("<IH", 6 + len(data), kind) + bytes(data)
+
+
+def fli_palette(colours, kind: int = 4, skip: int = 0) -> bytes:
+    """A COLOR_256 (4) or COLOR_64 (11) subchunk of one packet: ``skip``
+    entries, then the (n, 3) ``colours`` (256 as a count of 0)."""
+    import struct
+    import numpy as np
+    c = np.asarray(colours, np.uint8).reshape(-1, 3)
+    return fli_chunk(kind, struct.pack("<HBB", 1, skip, len(c) % 256) + c.tobytes())
+
+
+def fli_brun(grey) -> bytes:
+    """A BRUN subchunk of a (h, w) uint8 image: each row a packet count
+    byte, then runs of a repeated value (count below 128) and literal
+    runs (256 - count bytes)."""
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    out = bytearray()
+    for row in g:
+        out.append(0)
+        x, w = 0, len(row)
+        while x < w:
+            e = x
+            while e < w and e - x < 127 and row[e] == row[x]:
+                e += 1
+            if e - x >= 3 or e == w:
+                out += bytes([e - x, row[x]])
+            else:
+                e = x
+                while e < w and e - x < 128 and not (e + 2 < w and row[e] == row[e + 1] == row[e + 2]):
+                    e += 1
+                out += bytes([256 - (e - x)]) + row[x:e].tobytes()
+            x = e
+    return fli_chunk(15, bytes(out))
+
+
+def fli_lc(grey, y0: int = 0) -> bytes:
+    """An LC (byte delta) subchunk that sets the rows of ``grey`` from row
+    ``y0``: per row a packet count and packets of a skip of 0 and a literal
+    (count below 128) or a run (256 - count)."""
+    import struct
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    out = bytearray(struct.pack("<HH", y0, len(g)))
+    for row in g:
+        packets = bytearray()
+        count, x = 0, 0
+        while x < len(row):
+            e = x
+            while e < len(row) and e - x < 127 and row[e] == row[x]:
+                e += 1
+            if e - x >= 3:
+                packets += bytes([0, 256 - (e - x), row[x]])
+            else:
+                e = min(len(row), x + 127)
+                packets += bytes([0, e - x]) + row[x:e].tobytes()
+            count, x = count + 1, e
+        out += bytes([count]) + packets
+    return fli_chunk(12, bytes(out))
+
+
+def fli_ss2(grey) -> bytes:
+    """An SS2 (word delta) subchunk of a (h, w) image of even width: per
+    line a packet count and packets of a skip of 0 and 1 .. 127 words, or a
+    run of one word repeated (256 - count)."""
+    import struct
+    import numpy as np
+    g = np.asarray(grey, np.uint8)
+    out = bytearray(struct.pack("<H", len(g)))
+    for row in g:
+        words = row.reshape(-1, 2)
+        packets, count, x = bytearray(), 0, 0
+        while x < len(words):
+            e = x
+            while e < len(words) and e - x < 127 and (words[e] == words[x]).all():
+                e += 1
+            if e - x >= 2:
+                packets += bytes([0, 256 - (e - x)]) + words[x].tobytes()
+            else:
+                e = min(len(words), x + 127)
+                packets += bytes([0, e - x]) + words[x:e].tobytes()
+            count, x = count + 1, e
+        out += struct.pack("<H", count) + packets
+    return fli_chunk(7, bytes(out))
+
+
+def fli_file(w: int, h: int, chunks, *, magic: int = 0xAF12, frames: int = 1, prefix: bytes = None,
+             frame_size: int = None) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file: the 128-byte header, a prefix
+    chunk (0xF100) when ``prefix`` is given, then one frame (0xF1FA) of
+    ``chunks`` (subchunks' bytes), its size ``frame_size`` if given."""
+    import struct
+    body = b"".join(bytes(c) for c in chunks)
+    frame = struct.pack("<IHH8x", frame_size if frame_size is not None else 16 + len(body), 0xF1FA,
+                        len(chunks)) + body
+    pre = b"" if prefix is None else struct.pack("<IH", 6 + len(prefix), 0xF100) + bytes(prefix)
+    head = struct.pack("<IHHHHHHI", 128 + len(pre) + len(frame), magic, frames, w, h, 8, 3, 5)
+    return head + bytes(128 - len(head)) + pre + frame
+
+
+def pcd_file(y, cb, cr, orientation: int = 0) -> bytes:
+    """A Photo CD image pack of the base image: 768 x 512 luma ``y``, 384 x
+    256 chroma ``cb`` and ``cr`` (uint8), "PCD_" at 2048 and the
+    orientation in byte 1538 after it; from 96 sectors of 2048 bytes on,
+    each pair of luma rows and then its Cb and Cr rows."""
+    import numpy as np
+    y, cb, cr = (np.asarray(a, np.uint8) for a in (y, cb, cr))
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    pairs = np.concatenate([y.reshape(256, 2 * 768), cb, cr], 1)
+    return bytes(head) + pairs.tobytes()
+
+
 def a6_texture_pages(golden) -> dict:
     """Phase 12's 1200 x 500 pages of A.6.49-A.6.55, built without PIL from
     scan_420.jpg's grey: DDS uncompressed (luminance), BC1, BC4 and BC7
@@ -4115,22 +4375,94 @@ def a6_texture_pages(golden) -> dict:
     }
 
 
-# The formats of A.6.33-A.6.55 in phase 12's raster tree, in turns (ICO with
+def pcd_ycc_tables():
+    """The PhotoYCC tables of Pillow's YCC;P unpacker, as ``decode.cpp``'s
+    PcdTables builds them (int(k * (v - v0) + 0.5) each): luma, Cr's R,
+    Cr's G, Cb's G and Cb's B, (256,) int64 each."""
+    import numpy as np
+    i = np.arange(256)
+    t = lambda k, v: np.trunc(k * v + 0.5).astype(np.int64)  # noqa: E731
+    return t(1.3584, i), t(1.8215, i - 137), t(-0.9271, i - 137), t(-0.4303, i - 156), t(2.2179, i - 156)
+
+
+def pcd_ycc_grey(y, cb, cr):
+    """The grey PIL reads from ``pcd_file``'s planes (orientation 0): each
+    pixel's PhotoYCC through ``pcd_ycc_tables`` (the sums clipped), then
+    luma; a chroma sample for each 2 x 2 block."""
+    import numpy as np
+    lt, crt, grt, gbt, cbt = pcd_ycc_tables()
+    cb = np.repeat(np.repeat(np.asarray(cb, np.int64), 2, 0), 2, 1)
+    cr = np.repeat(np.repeat(np.asarray(cr, np.int64), 2, 0), 2, 1)
+    lum = lt[np.asarray(y, np.int64)]
+    r = np.clip(lum + crt[cr], 0, 255)
+    g = np.clip(lum + grt[cr] + gbt[cb], 0, 255)
+    b = np.clip(lum + cbt[cb], 0, 255)
+    return ((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16).astype(np.uint8)
+
+
+def pcd_planes_of(grey, tint: bool = False) -> tuple:
+    """PCD planes of a uint8 grey: its top left 512 x 768 (white past its
+    edges) scaled into luma 0 .. 187 (PhotoYCC's 1.3584 brings 187 to 254),
+    the chroma neutral (156, 137) or, ``tint``, moved by each 2 x 2 block's
+    mean."""
+    import numpy as np
+    g = np.full((512, 768), 255, np.int64)
+    src = np.asarray(grey, np.int64)[:512, :768]
+    g[:src.shape[0], :src.shape[1]] = src
+    block = g.reshape(256, 2, 384, 2).mean(axis=(1, 3)).astype(np.int64)
+    cb = 156 + (block - 128) // 8 if tint else np.full((256, 384), 156)
+    cr = 137 - (block - 128) // 10 if tint else np.full((256, 384), 137)
+    return (g * 187 // 255).astype(np.uint8), cb.astype(np.uint8), cr.astype(np.uint8)
+
+
+def a6_header_pages(golden) -> dict:
+    """Phase 12's pages of A.6.56-A.6.63, built without PIL from
+    scan_420.jpg's grey: PIXAR (the grey as RGB), GBR (version 2, depth 1),
+    McIdas (1 byte an element, a 4-byte line prefix), IMT, FITS of BITPIX 8
+    and of BITPIX 16 (the grey in each sample's high byte, big-endian: PIL
+    reads it little-endian), IPTC (raw, in 8:10 records of 30,000 bytes),
+    FLC (a tinted COLOR_256 palette, BRUN), all 1200 x 500, and PCD (768 x
+    512, its one size: the page's left part, tinted chroma). Each is held
+    to a digest of PIL's grey of the same bytes (a6_pages.sha256)."""
+    import numpy as np
+    grey = golden["scan_420.jpg"]
+    h, w = grey.shape
+    ramp = np.arange(256)
+    palette = np.stack([ramp, ramp * 250 // 255, np.minimum(ramp + 4, 255)], 1)
+    return {
+        "pixar_page.pxr": pixar_file(np.repeat(grey[..., None], 3, 2)),
+        "gbr_page.gbr": gbr_file(grey),
+        "mcidas_page.area": mcidas_file(grey, prefix=4),
+        "imt_page.imt": imt_file(grey),
+        "fits_8_page.fits": fits_file(grey, 8),
+        "fits_16_page.fits": fits_file(grey.astype(np.uint16) << 8, 16),
+        "iptc_page.iptc": iptc_file(w, h, grey.tobytes()),
+        "fli_page.flc": fli_file(w, h, [fli_palette(palette), fli_brun(grey)]),
+        "pcd_page.pcd": pcd_file(*pcd_planes_of(grey, tint=True)),
+    }
+
+
+# The formats of A.6.33-A.6.63 in phase 12's raster tree, in turns (ICO with
 # a bitmap and with a PNG icon; DDS as BC7, FTEX as DXT1, BLP as BLP2 of a
-# grey palette).
+# grey palette; FITS of BITPIX 8, IPTC raw, FLI a BRUN frame, PCD the scan
+# in its base image).
 RASTER_TREE_KINDS = ("DIB", "TGA", "PCX", "DCX", "ICO", "ICO-PNG", "CUR", "SGI", "SUN", "MSP", "QOI",
-                     "IM", "XBM", "XPM", "XVThumb", "PSD", "DDS", "FTEX", "BLP", "SPIDER")
+                     "IM", "XBM", "XPM", "XVThumb", "PSD", "DDS", "FTEX", "BLP", "SPIDER", "PIXAR", "GBR",
+                     "MCIDAS", "IMT", "FITS", "IPTC", "FLI", "PCD")
 
 # The kinds of RASTER_TREE_KINDS that do not keep every grey level.
-RASTER_TREE_LOSSY = ("MSP", "XBM", "XVThumb", "DDS", "FTEX")
+RASTER_TREE_LOSSY = ("MSP", "XBM", "XVThumb", "DDS", "FTEX", "PCD")
 
 
 def raster_grey(kind: str, grey):
     """The grey PIL reads back from ``raster_scan``'s file of a uint8 scan:
     the scan, but MSP's and XBM's 1 bit (the ink below 128, black), the
-    XV thumbnail's 3-3-2 palette (each level's index, then PIL's luma) and
-    the block encoders' greys (DDS: BC7, FTEX: BC1)."""
+    XV thumbnail's 3-3-2 palette (each level's index, then PIL's luma), the
+    block encoders' greys (DDS: BC7, FTEX: BC1) and PCD's 768 x 512 base
+    image (``pcd_ycc_grey``)."""
     import numpy as np
+    if kind == "PCD":
+        return pcd_ycc_grey(*pcd_planes_of(grey))
     if kind == "DDS":
         return bc7_grey(grey)[1]
     if kind == "FTEX":
@@ -4157,7 +4489,8 @@ def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
         data = {"MSP": lambda: msp_file(grey < 128, 2), "XBM": lambda: xbm_file(grey >= 128),
                 "XVThumb": lambda: xv_thumb(xv_index(grey)),
                 "DDS": lambda: dds_file(w, h, bc7_grey(grey)[0], fourcc=b"DX10", dx10=98),
-                "FTEX": lambda: ftex_file(w, h, bc1_grey(grey)[0])}[kind]()
+                "FTEX": lambda: ftex_file(w, h, bc1_grey(grey)[0]),
+                "PCD": lambda: pcd_file(*pcd_planes_of(grey))}[kind]()
         return data, raster_grey(kind, grey)
     data = {"DIB": lambda: bmp_grey(grey)[14:],
             "TGA": lambda: tga_file(grey, 11, 8),
@@ -4173,7 +4506,14 @@ def raster_scan(kind: str, grey, png: bytes = None) -> tuple:
             "XPM": lambda: xpm_grey(grey),
             "PSD": lambda: psd_grey(grey, 1),
             "BLP": lambda: blp_grey(grey),
-            "SPIDER": lambda: spider_file(grey)}[kind]()
+            "SPIDER": lambda: spider_file(grey),
+            "PIXAR": lambda: pixar_file(np.repeat(grey[..., None], 3, 2)),
+            "GBR": lambda: gbr_file(grey),
+            "MCIDAS": lambda: mcidas_file(grey),
+            "IMT": lambda: imt_file(grey),
+            "FITS": lambda: fits_file(grey, 8),
+            "IPTC": lambda: iptc_file(w, h, grey.tobytes()),
+            "FLI": lambda: fli_file(w, h, [fli_brun(grey)])}[kind]()
     return data, grey
 
 
@@ -4224,9 +4564,10 @@ def decode_phase(card: str, work: str, build_s: float):
     named .png, then SOF11 JPEGs added to it: zero images in the dataset,
     and ``cli.preprocess`` stops on one; the same scans as WebP files
     under .jpg and .png names (``webp_tree_step``) and in the formats of
-    A.6.33-A.6.55 (``raster_tree_step``; their pages, ``a6_raster_pages``,
-    ``a6_text_pages`` with planar old-style JPEG-in-TIFF in tiles and
-    ``a6_texture_pages``, held to PIL's grey by digest and timed); then the C.21 files the port
+    A.6.33-A.6.63 (``raster_tree_step``; their pages, ``a6_raster_pages``,
+    ``a6_text_pages`` with planar old-style JPEG-in-TIFF in tiles,
+    ``a6_texture_pages`` and ``a6_header_pages``, held to PIL's grey by
+    digest and timed); then the C.21 files the port
     now reads, and a tree for each format PIL opens and the port does not
     read: the build stops naming it (A.6). ``build_s``: the library's g++
     build, timed where it was built."""
@@ -4293,7 +4634,8 @@ def decode_phase(card: str, work: str, build_s: float):
                    (FIXTURES / "a6_pages.sha256").read_text().splitlines())
     a6 = {**a6_pages(golden), **a6_layout_pages(golden), **a6_codec_pages(golden),
           **a6_ccitt_lzw_pages(golden), **a6_kind_pages(golden), **a6_gif_pnm_pages(golden),
-          **a6_raster_pages(golden), **a6_text_pages(golden), **a6_texture_pages(golden)}
+          **a6_raster_pages(golden), **a6_text_pages(golden), **a6_texture_pages(golden),
+          **a6_header_pages(golden)}
     for name, data in a6.items():
         (Path(work) / name).write_bytes(data)
         if digests[name] == "refused":
@@ -4303,7 +4645,7 @@ def decode_phase(card: str, work: str, build_s: float):
                 continue
             raise AssertionError(f"{name}: PIL refuses it, the port read it")
         got = ds_mod.decode_gray(Path(work) / name)
-        if got.shape[1] != 1200 or gray_digest(got) != digests[name]:
+        if got.shape[1] != (768 if name.startswith("pcd") else 1200) or gray_digest(got) != digests[name]:
             raise AssertionError(f"{name}: not bit-equal to PIL's grey (its SHA-256)")
     print("decode: " + ", ".join(f"{n} ({len(d)} B, {digests[n][:16]})" for n, d in a6.items())
           + " bit-equal to PIL's grey by their SHA-256, or corrupt where PIL refuses them ("
@@ -4466,7 +4808,16 @@ def decode_phase(card: str, work: str, build_s: float):
               "BLP2 1200x500 (DXT1)": ([Path(work) / "blp_dxt1_page.blp"], 100),
               "BLP2 1200x500 (grey palette)": ([Path(work) / "blp_palette_page.blp"], 100),
               "BLP1 1200x500 (palette)": ([Path(work) / "blp1_palette_page.blp"], 100),
-              "SPIDER 1200x500 (float32, big-endian)": ([Path(work) / "spider_page.spi"], 100)}
+              "SPIDER 1200x500 (float32, big-endian)": ([Path(work) / "spider_page.spi"], 100),
+              "PIXAR 1200x500 (RGB)": ([Path(work) / "pixar_page.pxr"], 100),
+              "GBR 1200x500 (version 2, grey)": ([Path(work) / "gbr_page.gbr"], 100),
+              "McIdas 1200x500 (1 byte, a line prefix)": ([Path(work) / "mcidas_page.area"], 100),
+              "IMT 1200x500 (grey)": ([Path(work) / "imt_page.imt"], 100),
+              "FITS 1200x500 (BITPIX 8)": ([Path(work) / "fits_8_page.fits"], 100),
+              "FITS 1200x500 (BITPIX 16)": ([Path(work) / "fits_16_page.fits"], 100),
+              "IPTC 1200x500 (raw, 20 image records)": ([Path(work) / "iptc_page.iptc"], 100),
+              "FLC 1200x500 (BRUN, COLOR_256)": ([Path(work) / "fli_page.flc"], 100),
+              "PCD 768x512 (base image, PhotoYCC)": ([Path(work) / "pcd_page.pcd"], 100)}
     rates = {}
     for fmt, (files, reps) in groups.items():
         paths = files * reps
@@ -4713,13 +5064,13 @@ def _write_raster_scan(job) -> int:
 
 
 # What cli.preprocess writes and refuses of phase 11's 1320 scans written in
-# the formats of A.6.33-A.6.55 (raster_tree_step), on the CPU
+# the formats of A.6.33-A.6.63 (raster_tree_step), on the CPU
 # (scripts/raster_tree_cpu.py).
-RASTER_TREE_CPU_COUNTS = (1170, 150)
+RASTER_TREE_CPU_COUNTS = (1146, 174)
 
 
 def raster_tree_step(card: str, work: str, run=None) -> dict:
-    """Phase 12's raster tree (A.6.33-A.6.55): phase 11's 1320 scans, each
+    """Phase 12's raster tree (A.6.33-A.6.63): phase 11's 1320 scans, each
     written here without PIL in the formats of ``RASTER_TREE_KINDS`` in
     turns, under .png and .bmp names in turns (the datasets list only the
     JAX package's six extensions, so not .tga, .pcx, ...). ``cli.preprocess``
@@ -4727,8 +5078,8 @@ def raster_tree_step(card: str, work: str, run=None) -> dict:
     (``RASTER_TREE_CPU_COUNTS``) and the ones phase 11 did from the lossless
     kinds' PNGs; a ``SignatureDataset`` of the tree must equal the greys
     the files were built from (``raster_grey``: the PNGs', but the 1 bit of
-    MSP and XBM, the XV thumbnail's palette and the block encoders' greys
-    of DDS and FTEX). ``run`` runs a
+    MSP and XBM, the XV thumbnail's palette, the block encoders' greys
+    of DDS and FTEX and PCD's PhotoYCC base image). ``run`` runs a
     CLI (``run_cli``; ``scripts/raster_tree_cpu.py`` adds ``--device cpu``)."""
     import numpy as np
     import torch

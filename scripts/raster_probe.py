@@ -1,8 +1,10 @@
-"""The damage probe of A.6.33-A.6.55 and C.23-C.25: damaged files of each
+"""The damage probe of A.6.33-A.6.63 and C.23-C.25: damaged files of each
 format (DIB, BMP, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, PNG, IM, XBM,
-XPM, XV thumbnail, PSD, DDS by route, FTEX, BLP and SPIDER), from Pillow's
-writers and hand-built ones (``tests/torch_port_raster_cases.py``,
-``tests/torch_port_text_cases.py``, ``tests/torch_port_texture_cases.py``),
+XPM, XV thumbnail, PSD, DDS by route, FTEX, BLP, SPIDER, PIXAR, GBR, McIdas,
+IMT, FITS and IPTC by route, FLI and PCD), from Pillow's writers and
+hand-built ones (``tests/torch_port_raster_cases.py``,
+``tests/torch_port_text_cases.py``, ``tests/torch_port_texture_cases.py``,
+``tests/torch_port_header_cases.py``),
 and, as the format OJPEG-PLANES, planar YCbCr old-style JPEG-in-TIFF in
 strips and tiles damaged by ``tests/test_torch_port_ojpeg_planes.py::damaged``,
 each held to PIL's verdict: the port's grey bit-equal where PIL reads the
@@ -30,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 import numpy as np  # noqa: E402
+from torch_port_header_cases import BASES as HEADER_BASES  # noqa: E402
 from torch_port_raster_cases import BASES as RASTER_BASES  # noqa: E402
 from torch_port_raster_cases import damage, holds  # noqa: E402
 from torch_port_text_cases import BASES as TEXT_BASES  # noqa: E402
@@ -37,7 +40,7 @@ from torch_port_texture_cases import BASES as TEXTURE_BASES  # noqa: E402
 from torch_port_texture_cases import PIL_SLOW_PIXELS, pil_slow  # noqa: E402
 from test_torch_port_ojpeg_planes import damaged  # noqa: E402
 
-BASES = {**RASTER_BASES, **TEXT_BASES, **TEXTURE_BASES}
+BASES = {**RASTER_BASES, **TEXT_BASES, **TEXTURE_BASES, **HEADER_BASES}
 
 
 def main(argv=None) -> int:

@@ -6,7 +6,7 @@
 Writes phase 11's 1320 scans (``chip_smoke.write_scans``) under DIR,
 runs ``cli.preprocess --device cpu`` on their PNGs, then
 ``chip_smoke.raster_tree_step`` with every CLI on the CPU: the scans in the
-formats of A.6.33-A.6.42 in turns under .png and .bmp names,
+formats of A.6.33-A.6.63 in turns under .png and .bmp names,
 ``cli.preprocess`` on them and a ``SignatureDataset`` (the greys written).
 Prints the step's line and its numbers (``chip_smoke.RASTER_TREE_CPU_COUNTS``
 holds its written and invalid counts); about 2 minutes on one core.

@@ -81,7 +81,7 @@ def decode_gray(path: str | Path) -> np.ndarray:
     format comes from the file's bytes, as PIL's ``Image.open`` finds it.
     Raises ``NotImplementedError`` naming the format for a file PIL reads,
     of a kind not read yet (a PGM, an ICO or an XBM saved as ``.png``
-    reads; a DDS saved as ``.png`` raises naming DDS and ROADMAP A.6), ``ValueError
+    reads; an AVIF saved as ``.png`` raises naming AVIF and ROADMAP A.6), ``ValueError
     (or ``OSError``) for a corrupt (or unreadable) one or one PIL refuses.
     A PNG stream (a PNG file, an ICO file's PNG icon) goes to
     ``decode_png``."""

@@ -43,6 +43,12 @@
 // through this file's JPEG reader) and SPIDER: as Pillow's plugins read
 // them, down to what a short or damaged file gives.
 //
+// PIXAR, GBR, McIdas, IMT and FITS (raw tiles as PIL's raw decoder, or its
+// map of a file opened by name, reads them; FITS's GZIP_1 tiles through
+// gzip and this file's inflate), IPTC (its image records' JPEG or raw grey,
+// alone or as one band), FLI (Pillow's FliDecode.c on the first frame) and
+// PCD (PcdDecode.c and the PhotoYCC tables of Pillow's YCC;P unpacker).
+//
 // TIFF: the first page, classic or BigTIFF, strips or tiles, chunky or
 // planar, either byte order, either FillOrder, no compression, PackBits,
 // LZW or Deflate (compression 8 and 32946, the port's own inflate;
@@ -97,6 +103,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <new>
 #include <stdexcept>
@@ -2764,17 +2771,63 @@ uint32_t adler32(const uint8_t* p, size_t n) {
   return (uint32_t)(b << 16 | a);
 }
 
-void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
-  static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
-                                        31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
-  static const uint8_t kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
-                                        2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
-  static const uint16_t kDistBase[30] = {1,    2,    3,    4,    5,    7,     9,     13,    17,  25,
-                                         33,   49,   65,   97,   129,  193,   257,   385,   513, 769,
-                                         1025, 1537, 2049, 3073, 4097, 6145,  8193, 12289, 16385, 24577};
-  static const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5,  6,
-                                         6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+// Deflate's length and distance bases and extra bits.
+const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
+                               31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+const uint8_t kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                               2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+const uint16_t kDistBase[30] = {1,    2,    3,    4,    5,    7,     9,     13,    17,  25,
+                                33,   49,   65,   97,   129,  193,   257,   385,   513, 769,
+                                1025, 1537, 2049, 3073, 4097, 6145,  8193, 12289, 16385, 24577};
+const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5,  6,
+                                6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+
+// A compressed block's codes: the fixed ones (type 1) or those its header
+// gives (type 2).
+void inflate_codes(InflateBits& b, int type, InflateCodes& lit, InflateCodes& dist) {
   static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+  uint8_t lens[320];
+  int nlit = 288, ndist = 32;
+  if (type == 1) {
+    std::fill(lens, lens + 144, 8);
+    std::fill(lens + 144, lens + 256, 9);
+    std::fill(lens + 256, lens + 280, 7);
+    std::fill(lens + 280, lens + 288, 8);
+    std::fill(lens + 288, lens + 320, 5);
+  } else {
+    nlit = b.get(5) + 257;
+    ndist = b.get(5) + 1;
+    const int ncode = b.get(4) + 4;
+    if (nlit > 286 || ndist > 30) corrupt("bad Deflate code counts");
+    uint8_t cl[19] = {0};
+    for (int i = 0; i < ncode; ++i) cl[kOrder[i]] = (uint8_t)b.get(3);
+    InflateCodes clh;
+    clh.build(cl, 19, false, false);
+    for (int i = 0; i < nlit + ndist;) {
+      int sym = b.decode(clh);
+      if (sym < 16) {
+        lens[i++] = (uint8_t)sym;
+        continue;
+      }
+      int rep, v = 0;
+      if (sym == 16) {
+        if (i == 0) corrupt("bad Deflate code lengths (repeat with no previous)");
+        v = lens[i - 1];
+        rep = 3 + b.get(2);
+      } else {
+        rep = sym == 17 ? 3 + b.get(3) : 11 + b.get(7);
+      }
+      if (i + rep > nlit + ndist) corrupt("bad Deflate code lengths (too many)");
+      std::fill(lens + i, lens + i + rep, (uint8_t)v);
+      i += rep;
+    }
+    if (lens[256] == 0) corrupt("Deflate block has no end-of-block code");
+  }
+  lit.build(lens, nlit, true, false);
+  dist.build(lens + nlit, ndist, true, true);
+}
+
+void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>& out) {
   out.clear();
   if (n < 2) corrupt("Deflate data ends early");
   if ((s[0] & 15) != 8 || (s[0] >> 4) > 7 || ((s[0] << 8) | s[1]) % 31 != 0)
@@ -2812,45 +2865,7 @@ void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>&
         continue;
       }
       if (type == 3) corrupt("bad Deflate block type");
-      uint8_t lens[320];
-      int nlit = 288, ndist = 32;
-      if (type == 1) {
-        std::fill(lens, lens + 144, 8);
-        std::fill(lens + 144, lens + 256, 9);
-        std::fill(lens + 256, lens + 280, 7);
-        std::fill(lens + 280, lens + 288, 8);
-        std::fill(lens + 288, lens + 320, 5);
-      } else {
-        nlit = b.get(5) + 257;
-        ndist = b.get(5) + 1;
-        const int ncode = b.get(4) + 4;
-        if (nlit > 286 || ndist > 30) corrupt("bad Deflate code counts");
-        uint8_t cl[19] = {0};
-        for (int i = 0; i < ncode; ++i) cl[kOrder[i]] = (uint8_t)b.get(3);
-        InflateCodes clh;
-        clh.build(cl, 19, false, false);
-        for (int i = 0; i < nlit + ndist;) {
-          int sym = b.decode(clh);
-          if (sym < 16) {
-            lens[i++] = (uint8_t)sym;
-            continue;
-          }
-          int rep, v = 0;
-          if (sym == 16) {
-            if (i == 0) corrupt("bad Deflate code lengths (repeat with no previous)");
-            v = lens[i - 1];
-            rep = 3 + b.get(2);
-          } else {
-            rep = sym == 17 ? 3 + b.get(3) : 11 + b.get(7);
-          }
-          if (i + rep > nlit + ndist) corrupt("bad Deflate code lengths (too many)");
-          std::fill(lens + i, lens + i + rep, (uint8_t)v);
-          i += rep;
-        }
-        if (lens[256] == 0) corrupt("Deflate block has no end-of-block code");
-      }
-      lit.build(lens, nlit, true, false);
-      dist.build(lens + nlit, ndist, true, true);
+      inflate_codes(b, type, lit, dist);
       for (;;) {
         int sym = b.decode(lit);
         if (sym < 256) {
@@ -2889,6 +2904,46 @@ void inflate_zlib(const uint8_t* s, size_t n, size_t want, std::vector<uint8_t>&
     if (at < want) out.resize(at);
     throw;
   }
+}
+
+// A raw Deflate stream to its end, as Python's zlib.decompressobj(-15)
+// reads it for gzip.decompress: the output grows as it must; returns the
+// bytes the stream took (to the byte after its last block). A stream that
+// ends early or is malformed is refused.
+size_t inflate_raw(const uint8_t* s, size_t n, std::vector<uint8_t>& out) {
+  out.clear();
+  InflateBits b{s, n};
+  InflateCodes lit, dist;
+  for (bool last = false; !last;) {
+    last = b.get(1);
+    const int type = b.get(2);
+    if (type == 0) {
+      b.drop(b.cnt & 7);
+      const int len = b.get(16), nlen = b.get(16);
+      if (len != (~nlen & 0xFFFF)) corrupt("bad Deflate stored block length");
+      for (int i = 0; i < len; ++i) out.push_back((uint8_t)b.get(8));
+      continue;
+    }
+    if (type == 3) corrupt("bad Deflate block type");
+    inflate_codes(b, type, lit, dist);
+    for (;;) {
+      int sym = b.decode(lit);
+      if (sym < 256) {
+        out.push_back((uint8_t)sym);
+        continue;
+      }
+      if (sym == 256) break;
+      sym -= 257;
+      if (sym >= 29) corrupt("bad Deflate length code");
+      const size_t len = kLenBase[sym] + b.get(kLenExtra[sym]);
+      const int ds = b.decode(dist);
+      if (ds >= 30) corrupt("bad Deflate distance code");
+      const size_t back = kDistBase[ds] + b.get(kDistExtra[ds]);
+      if (back > out.size()) corrupt("Deflate distance too far back");
+      for (size_t i = 0; i < len; ++i) out.push_back(out[out.size() - back]);
+    }
+  }
+  return b.pos - b.cnt / 8;
 }
 
 // -------------------------------------------------------------------- xz
@@ -7733,106 +7788,6 @@ bool xbm_open(const uint8_t* d, size_t n, int64_t& w, int64_t& h, size_t& data) 
   return false;
 }
 
-// ImtImagePlugin: "width N", "height N" and "pixel n8" lines.
-bool imt_header(const uint8_t* d, size_t n) {
-  if (!memchr(d, '\n', std::min<size_t>(n, 100))) return false;
-  std::string buf((const char*)d, std::min<size_t>(n, 100));
-  size_t pos = buf.size();
-  int64_t w = 0, h = 0;
-  bool grey = false;
-  for (;;) {
-    std::string s;
-    if (!buf.empty()) {
-      s = buf.substr(0, 1);
-      buf.erase(0, 1);
-    } else if (pos < n) {
-      s = std::string(1, (char)d[pos++]);
-    }
-    if (s.empty() || s[0] == 0x0C) break;
-    if (buf.find('\n') == std::string::npos) {
-      const size_t k = std::min<size_t>(100, n - pos);
-      buf.append((const char*)d + pos, k);
-      pos += k;
-    }
-    const size_t nl = buf.find('\n');
-    s += buf.substr(0, nl);
-    buf = nl == std::string::npos ? std::string() : buf.substr(nl + 1);
-    if (s.size() == 1 || s.size() > 100) break;
-    if (s[0] == '*') continue;
-    size_t k = 0;  // ([a-z]*) ([^ \r\n]*)
-    while (k < s.size() && s[k] >= 'a' && s[k] <= 'z') ++k;
-    if (k >= s.size() || s[k] != ' ') break;
-    const std::string key = s.substr(0, k);
-    size_t e = k + 1;
-    while (e < s.size() && s[e] != ' ' && s[e] != '\r' && s[e] != '\n') ++e;
-    const std::string v = s.substr(k + 1, e - k - 1);
-    int64_t x;
-    if (key == "width" || key == "height") {
-      if (!py_int(v, x)) corrupt("IMT size not a number");
-      (key == "width" ? w : h) = x;
-    } else if (key == "pixel" && v == "n8") {
-      grey = true;
-    }
-  }
-  return grey && w > 0 && h > 0;
-}
-
-// IptcImagePlugin: 0x1C records to the image record (8, 10), with the
-// layers (3, 60), size (3, 20), (3, 30) and compression (3, 120) it needs.
-bool iptc_header(const uint8_t* d, size_t n) {
-  size_t pos = 0;
-  struct Rec {
-    int count = 0;
-    const uint8_t* p = nullptr;
-    size_t len = 0;
-  } layers, w, h, comp;
-  for (;;) {
-    const size_t k = std::min<size_t>(5, n - pos);
-    const uint8_t* s = d + pos;
-    pos += k;
-    bool zero = true;
-    for (size_t i = 0; i < k; ++i) zero = zero && s[i] == 0;
-    if (zero) break;
-    if (k < 3) return false;
-    const int t0 = s[1], t1 = s[2];
-    if (s[0] != 0x1C || !((t0 >= 1 && t0 <= 9) || t0 == 240)) return false;
-    if (k < 4) return false;
-    size_t size = s[3];
-    if (size > 132) corrupt("IPTC field length past 132 (PIL refuses it)");
-    if (size == 128) {
-      size = 0;
-    } else if (size > 128) {
-      const size_t m = std::min(size - 128, n - pos);
-      size = 0;
-      for (size_t i = m > 4 ? m - 4 : 0; i < m; ++i) size = size << 8 | d[pos + i];
-      pos += m;
-    } else {
-      if (k < 5) return false;
-      size = be16(s + 3);
-    }
-    if (t0 == 8 && t1 == 10) break;
-    const size_t m = std::min(size, n - pos);
-    Rec* r = t0 == 3 && t1 == 60 ? &layers : t0 == 3 && t1 == 20 ? &w : t0 == 3 && t1 == 30 ? &h
-             : t0 == 3 && t1 == 120 ? &comp : nullptr;
-    if (r) *r = Rec{r->count + 1, size ? d + pos : nullptr, m};
-    pos += m;
-  }
-  auto getint = [](const Rec& r, int64_t& v) {  // PIL's getint: the last 4 bytes, big-endian
-    if (r.count != 1 || !r.p) return false;
-    v = 0;
-    for (size_t i = r.len > 4 ? r.len - 4 : 0; i < r.len; ++i) v = v << 8 | r.p[i];
-    return true;
-  };
-  if (layers.count != 1 || !layers.p || layers.len < 2) return false;
-  const int nl = layers.p[0], component = layers.p[1];
-  const bool mode = (nl == 1 && !component) || ((nl == 3 || nl == 4) && component);
-  int64_t x, y, c;
-  if (!getint(w, x) || !getint(h, y)) return false;
-  if (!getint(comp, c)) return false;
-  if (c != 1 && c != 5) corrupt("IPTC compression PIL does not know");
-  return mode && x > 0 && y > 0;
-}
-
 // ------------------------------------------------- ICO, CUR (on the DIB reader)
 
 // CurImagePlugin: the first cursor of the directory, replaced by one whose
@@ -9731,6 +9686,918 @@ Gray decode_spider(const uint8_t* d, size_t n) {
   return g;
 }
 
+// ------------------------------------ PIXAR, GBR, McIdas, IMT, FITS (A.6.56-A.6.60)
+
+std::string pil_format(const uint8_t* d, size_t n);
+int format_of(const uint8_t* d, size_t n);
+
+// The modes of these formats' raw tiles, as PIL's raw mode unpacks them
+// (little-endian where the raw mode names no order) and convert("L") takes
+// them: L itself, I;16 and I;16B 255 where the high byte is set, I clipped
+// to 0 .. 255, F clipped and truncated (NaN 0), RGB and RGBA through luma.
+enum RawMode { kRawL, kRawI16, kRawI16B, kRawI32, kRawI32B, kRawF32, kRawRgb, kRawRgba };
+constexpr int kRawBytes[] = {1, 2, 2, 4, 4, 4, 3, 4};
+
+inline uint8_t raw_grey(RawMode m, const uint8_t* p) {
+  switch (m) {
+    case kRawL: return p[0];
+    case kRawI16: return p[1] ? 255 : p[0];
+    case kRawI16B: return p[0] ? 255 : p[1];
+    case kRawI32: return clip_int((int32_t)le32(p));
+    case kRawI32B: return clip_int((int32_t)be32(p));
+    case kRawF32: {
+      const uint32_t u = le32(p);
+      float f;
+      memcpy(&f, &u, 4);
+      return float_grey(f);
+    }
+    case kRawRgb: case kRawRgba: return luma(p[0], p[1], p[2]);
+  }
+  return 0;
+}
+
+// PIL's raw tile at `offset` of a W x H image: row after row `stride` bytes
+// apart (0: packed), the bottom row first where `bottom_up`. ImageFile.load
+// maps a tile of a file opened by its name whose raw mode is its mode and
+// one of L, I;16 and I;16B (`mappable`): a negative offset is refused; if
+// offset + H * stride passes the file's end it falls back to the decoder,
+// else map_buffer reads the rows where they lie, `stride` apart or, for a
+// stride of 0 or less, a row of the mode's own width apart (L 1, I;16 2
+// bytes a pixel), refusing the file where those rows pass its end. The raw
+// decoder (RawDecode.c) refuses a stride below a row's bytes, and a file
+// that ends before the last row's bytes (a seek past the end reads
+// nothing). A stride past C's int is refused either way.
+Gray raw_tile(const uint8_t* d, size_t n, int64_t W, int64_t H, RawMode m, __int128 offset, __int128 stride,
+              bool bottom_up, bool mappable, const char* what) {
+  check_size(W, H);
+  const int64_t row = W * kRawBytes[m];
+  if (stride > INT32_MAX || stride < INT32_MIN) corrupt(std::string(what) + " row stride past C's int (PIL refuses it)");
+  if (offset < 0) corrupt(std::string(what) + " pixels before the file's start (PIL refuses it)");
+  __int128 step = stride;
+  bool map = mappable && offset + H * stride <= (__int128)n;
+  if (map) {
+    if (step <= 0) step = row;
+    if (offset + H * step > (__int128)n) corrupt(std::string(what) + " pixels end early (PIL's map refuses the file)");
+  } else {
+    if (step == 0) step = row;
+    if (step < row) corrupt(std::string(what) + " row stride below a row's bytes (PIL refuses it)");
+    if (offset + (H - 1) * step + row > (__int128)n) corrupt(std::string(what) + " pixels end early (PIL refuses the file)");
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize((size_t)W * H);
+  const int k = kRawBytes[m];
+  uint8_t buf[4];
+  auto unpack = [&](auto mode, const uint8_t* r, uint8_t* o) {  // the mode a constant in each loop
+    for (int64_t x = 0; x < W; ++x) o[x] = raw_grey(decltype(mode)::value, r + k * x);
+  };
+  for (int64_t y = 0; y < H; ++y) {
+    const size_t at = (size_t)(offset + (bottom_up ? H - 1 - y : y) * step);
+    uint8_t* o = &g.px[(size_t)y * W];
+    if (at + row <= n) {
+      const uint8_t* r = d + at;
+      switch (m) {
+        case kRawL: memcpy(o, r, W); break;
+        case kRawI16: unpack(std::integral_constant<RawMode, kRawI16>(), r, o); break;
+        case kRawI16B: unpack(std::integral_constant<RawMode, kRawI16B>(), r, o); break;
+        case kRawI32: unpack(std::integral_constant<RawMode, kRawI32>(), r, o); break;
+        case kRawI32B: unpack(std::integral_constant<RawMode, kRawI32B>(), r, o); break;
+        case kRawF32: unpack(std::integral_constant<RawMode, kRawF32>(), r, o); break;
+        case kRawRgb: unpack(std::integral_constant<RawMode, kRawRgb>(), r, o); break;
+        case kRawRgba: unpack(std::integral_constant<RawMode, kRawRgba>(), r, o); break;
+      }
+      continue;
+    }
+    for (int64_t x = 0; x < W; ++x) {  // a mapped row of a short stride past the file's end: zeros
+      for (int i = 0; i < k; ++i) {
+        const size_t p = at + (size_t)(k * x + i);
+        buf[i] = p < n ? d[p] : 0;
+      }
+      o[x] = raw_grey(m, buf);
+    }
+  }
+  return g;
+}
+
+// PixarImagePlugin: the magic, 508 more header bytes read (fewer than 428
+// in all: struct.error, the file passed on), the size little-endian at 418
+// (w) and 416 (h), and mode RGB only for the channel / depth pair (14, 2) at
+// 424 (any other: no mode, passed on); raw RGB from 1024.
+bool pixar_open(const uint8_t* d, size_t n, int64_t& w, int64_t& h) {
+  if (!starts(d, n, "\x80\xe8\0\0", 4) || n < 428) return false;
+  w = le16(d + 418);
+  h = le16(d + 416);
+  return le16(d + 424) == 14 && le16(d + 426) == 2 && w > 0 && h > 0;
+}
+
+Gray decode_pixar(const uint8_t* d, size_t n) {
+  int64_t w = 0, h = 0;
+  pixar_open(d, n, w, h);
+  return raw_tile(d, n, w, h, kRawRgb, 1024, 0, false, false, "PIXAR");
+}
+
+// GbrImagePlugin: big-endian header size (at least 20), version (1 or 2),
+// width and height (not 0), depth (1: L, 4: RGBA); version 2's "GIMP" and
+// spacing after them; then a comment of header size - 20 (version 1) or -
+// 28 bytes: -1 reads the rest of the file, a length below that is refused
+// (a file's read() takes no other negative length). A header read past
+// the file's end, or a value PIL does not know, passes the file on. The pixels are frombytes of w * h * depth bytes
+// from where the reads stopped: fewer is refused.
+struct Gbr {
+  int64_t w = 0, h = 0;
+  int depth = 0;
+  size_t data = 0;
+};
+
+bool gbr_open(const uint8_t* d, size_t n, Gbr& f) {
+  if (n < 20) return false;
+  const uint32_t head = be32(d), version = be32(d + 4);
+  if (head < 20 || (version != 1 && version != 2)) return false;
+  f.w = be32(d + 8);
+  f.h = be32(d + 12);
+  f.depth = (int)be32(d + 16);
+  if (!f.w || !f.h || (f.depth != 1 && f.depth != 4)) return false;
+  size_t pos = 20;
+  int64_t comment = (int64_t)head - 20;
+  if (version == 2) {
+    if (n < 28 || memcmp(d + 20, "GIMP", 4)) return false;
+    pos = 28;
+    comment = (int64_t)head - 28;
+  }
+  if (comment < -1) corrupt("GBR header shorter than its fields (read() of a negative length: PIL refuses it)");
+  f.data = comment < 0 ? n : std::min<size_t>(n, pos + (size_t)comment);
+  return true;
+}
+
+Gray decode_gbr(const uint8_t* d, size_t n) {
+  Gbr f;
+  gbr_open(d, n, f);
+  return raw_tile(d, n, f.w, f.h, f.depth == 1 ? kRawL : kRawRgba, f.data, 0, false, false, "GBR");
+}
+
+// McIdasImagePlugin: 256 bytes of 64 big-endian int32 words (w[1] the
+// first), starting 0 0 0 0 0 0 0 4; w[11] the mode (1: L, 2: I;16B, 4: I
+// from I;32B, else passed on), the size (w[10], w[9]), a raw tile at w[34]
+// + w[15] with a stride of w[15] + w[10] * w[11] * w[14] (Python's ints).
+struct McIdas {
+  int64_t w[65] = {0};
+  RawMode mode = kRawL;
+};
+
+bool mcidas_open(const uint8_t* d, size_t n, McIdas& f) {
+  if (n < 256 || !starts(d, n, "\0\0\0\0\0\0\0\x04", 8)) return false;
+  for (int i = 1; i <= 64; ++i) f.w[i] = (int32_t)be32(d + 4 * (i - 1));
+  if (f.w[11] == 1) f.mode = kRawL;
+  else if (f.w[11] == 2) f.mode = kRawI16B;
+  else if (f.w[11] == 4) f.mode = kRawI32B;
+  else return false;
+  return f.w[10] > 0 && f.w[9] > 0;
+}
+
+Gray decode_mcidas(const uint8_t* d, size_t n) {
+  McIdas f;
+  mcidas_open(d, n, f);
+  const int64_t* w = f.w;
+  const __int128 stride = (__int128)w[15] + (__int128)w[10] * w[11] * w[14];
+  return raw_tile(d, n, w[10], w[9], f.mode, (__int128)w[34] + w[15], stride, false, f.mode != kRawI32B,
+                  "McIdas");
+}
+
+// ImtImagePlugin: a newline in the first 100 bytes, then lines read 100
+// bytes at a time (one of length 1 or past 100 ends the header, '*' starts
+// a comment, a line the field regex ([a-z]*) ([^ \r\n]*) misses ends it):
+// "width N" and "height N" (int(): not a number is refused), "pixel n8"
+// mode L. A form feed ends the header: the raw L pixels start after it, at
+// the size read so far. Without a mode or a size the file is passed on;
+// with them and no form feed PIL has no tile and refuses it.
+struct Imt {
+  int64_t w = 0, h = 0;
+  bool grey = false;
+  int64_t data = -1;  // after the form feed
+};
+
+bool imt_open(const uint8_t* d, size_t n, Imt& f) {
+  if (!memchr(d, '\n', std::min<size_t>(n, 100))) return false;
+  std::string buf((const char*)d, std::min<size_t>(n, 100));
+  size_t pos = buf.size();
+  for (;;) {
+    std::string s;
+    if (!buf.empty()) {
+      s = buf.substr(0, 1);
+      buf.erase(0, 1);
+    } else if (pos < n) {
+      s = std::string(1, (char)d[pos++]);
+    }
+    if (s.empty()) break;
+    if (s[0] == 0x0C) {
+      if (f.grey) f.data = (int64_t)(pos - buf.size());
+      break;
+    }
+    if (buf.find('\n') == std::string::npos) {
+      const size_t k = std::min<size_t>(100, n - pos);
+      buf.append((const char*)d + pos, k);
+      pos += k;
+    }
+    const size_t nl = buf.find('\n');
+    s += buf.substr(0, nl);
+    buf = nl == std::string::npos ? std::string() : buf.substr(nl + 1);
+    if (s.size() == 1 || s.size() > 100) break;
+    if (s[0] == '*') continue;
+    size_t k = 0;  // ([a-z]*) ([^ \r\n]*)
+    while (k < s.size() && s[k] >= 'a' && s[k] <= 'z') ++k;
+    if (k >= s.size() || s[k] != ' ') break;
+    const std::string key = s.substr(0, k);
+    size_t e = k + 1;
+    while (e < s.size() && s[e] != ' ' && s[e] != '\r' && s[e] != '\n') ++e;
+    const std::string v = s.substr(k + 1, e - k - 1);
+    int64_t x;
+    if (key == "width" || key == "height") {
+      if (!py_int(v, x)) corrupt("IMT size not a number");
+      (key == "width" ? f.w : f.h) = x;
+    } else if (key == "pixel" && v == "n8") {
+      f.grey = true;
+    }
+  }
+  return f.grey && f.w > 0 && f.h > 0;
+}
+
+Gray decode_imt(const uint8_t* d, size_t n) {
+  Imt f;
+  imt_open(d, n, f);
+  if (f.data < 0) corrupt("IMT header without a form feed (PIL has no tile to load)");
+  return raw_tile(d, n, f.w, f.h, kRawL, f.data, 0, false, true, "IMT");
+}
+
+// bytes.strip(): ASCII whitespace off both ends.
+std::string bytes_strip(const std::string& t) {
+  auto space = [](char c) { return c == ' ' || (c >= 9 && c <= 13); };
+  size_t a = 0, b = t.size();
+  while (a < b && space(t[a])) ++a;
+  while (b > a && space(t[b - 1])) --b;
+  return t.substr(a, b - a);
+}
+
+// FitsImagePlugin: 80-byte cards (a read that returns nothing is refused,
+// "Truncated FITS file"); the first must be SIMPLE = T (else passed on).
+// END seeks to the next multiple of 2880 and, the first time it yields a
+// decoder, parses the cards so far (later headers, extensions among them,
+// are read past); a card after END that opens no header is the data, and
+// the tile starts where it started (the read's end less 80). No decoder:
+// refused ("No image data"). The size is (1, NAXIS1) for NAXIS 1, (NAXIS1,
+// NAXIS2) above, none for 0; BITPIX 8 L, 16 I;16, 32 I, -32 and -64 F, read
+// in the raw mode of the mode (little-endian; -64 as float32), the bottom
+// row first, with no BSCALE or BZERO. A BINTABLE extension with ZIMAGE T
+// and ZCMPTYPE 'GZIP_1  ' is the fits_gzip route: ZNAXIS and ZBITPIX, the
+// data after NAXIS1 * NAXIS2 * (BITPIX // 8) bytes of table.
+inline int64_t floor_div8(int64_t v) { return v >= 0 ? v / 8 : -((-v + 7) / 8); }
+
+struct Fits {
+  bool gzip = false;
+  int64_t w = 0, h = 0, bitpix = 0;
+  RawMode mode = kRawL;
+  __int128 offset = 0;
+};
+
+bool fits_open(const uint8_t* d, size_t n, Fits& f) {
+  std::map<std::string, std::string> headers;
+  bool in_progress = false, decoder = false;
+  size_t pos = 0;
+  auto num = [&](const std::string& key, int64_t& v) {
+    const auto it = headers.find(key);
+    if (it == headers.end()) return false;  // KeyError: passed on
+    if (!py_int(it->second, v)) corrupt("FITS " + key + " not a number (PIL refuses it)");
+    return true;
+  };
+  // _get_size: -1 for KeyError, 0 for NAXIS 0 (no size), else 1
+  auto size = [&](const std::string& prefix, int64_t& w, int64_t& h) {
+    int64_t naxis;
+    w = h = 0;
+    if (!num(prefix + "NAXIS", naxis)) return -1;
+    if (naxis == 0) return 0;
+    if (naxis == 1) {
+      w = 1;
+      return num(prefix + "NAXIS1", h) ? 1 : -1;
+    }
+    return num(prefix + "NAXIS1", w) && num(prefix + "NAXIS2", h) ? 1 : -1;
+  };
+  for (;;) {
+    const size_t k = pos < n ? std::min<size_t>(80, n - pos) : 0;
+    if (!k) corrupt("FITS file ends within its header (PIL: Truncated FITS file)");
+    const std::string card((const char*)d + pos, k);
+    pos += k;
+    const std::string keyword = bytes_strip(card.substr(0, 8));
+    if (keyword == "SIMPLE" || keyword == "XTENSION") {
+      in_progress = true;
+    } else if (!headers.empty() && !in_progress) {
+      break;
+    } else if (keyword == "END") {
+      pos = (pos + 2879) / 2880 * 2880;
+      if (!decoder) {  // _parse_headers
+        std::string prefix;
+        __int128 offset = 0;
+        int64_t w, h, bits;
+        const auto x = headers.find("XTENSION"), z = headers.find("ZIMAGE");
+        f.gzip = false;
+        if (x != headers.end() && x->second == "'BINTABLE'" && z != headers.end() && z->second == "T") {
+          const auto c = headers.find("ZCMPTYPE");
+          if (c == headers.end()) return false;
+          if (c->second == "'GZIP_1  '") {
+            if (size("", w, h) < 0 || !num("BITPIX", bits)) return false;
+            offset = (__int128)w * h * floor_div8(bits);
+            prefix = "Z";
+            f.gzip = true;
+          }
+        }
+        const int got = size(prefix, w, h);
+        if (got < 0) return false;
+        if (got > 0) {
+          if (!num(prefix + "BITPIX", bits)) return false;
+          f.w = w;
+          f.h = h;
+          f.bitpix = bits;
+          f.offset = offset;
+          decoder = true;
+        }
+      }
+      in_progress = false;
+      continue;
+    }
+    if (decoder) continue;
+    std::string value = card.size() > 8 ? card.substr(8) : std::string();
+    value = bytes_strip(value.substr(0, value.find('/')));
+    if (!value.empty() && value[0] == '=') value = bytes_strip(value.substr(1));
+    if (headers.empty() && (keyword.compare(0, 6, "SIMPLE") != 0 || value != "T")) return false;
+    headers[keyword] = value;
+  }
+  if (!decoder) corrupt("FITS file with no image data (PIL refuses it)");
+  f.offset += (__int128)pos - 80;
+  switch (f.bitpix) {
+    case 8: f.mode = kRawL; break;
+    case 16: f.mode = kRawI16; break;
+    case 32: f.mode = kRawI32; break;
+    case -32: case -64: f.mode = kRawF32; break;
+    default: return false;  // no mode
+  }
+  return f.w > 0 && f.h > 0;
+}
+
+// Python's gzip.decompress: members, each a header (magic, method 8, the
+// FEXTRA, FNAME, FCOMMENT and FHCRC fields its flags name), raw Deflate, a
+// CRC-32 and the length that must agree, then any NUL bytes; the data
+// ending where a member would start. Anything else is refused.
+std::vector<uint8_t> gunzip(const uint8_t* s, size_t n) {
+  std::vector<uint8_t> all, one;
+  size_t p = 0;
+  while (p < n) {
+    if (n - p < 10 || s[p] != 0x1F || s[p + 1] != 0x8B || s[p + 2] != 8) corrupt("not gzip data (PIL refuses it)");
+    const int flags = s[p + 3];
+    p += 10;
+    if (flags & 4) {
+      if (n - p < 2) corrupt("gzip header ends early");
+      const size_t k = le16(s + p);
+      if (n - p - 2 < k) corrupt("gzip header ends early");
+      p += 2 + k;
+    }
+    for (int bit : {8, 16})
+      if (flags & bit) {
+        while (p < n && s[p]) ++p;
+        if (p < n) ++p;
+      }
+    if (flags & 2) {
+      if (n - p < 2) corrupt("gzip header ends early");
+      p += 2;
+    }
+    const size_t used = inflate_raw(s + p, n - p, one);
+    p += used;
+    if (n - p < 8) corrupt("gzip data ends before its trailer (PIL refuses it)");
+    if (le32(s + p) != crc32_of(one.data(), one.size()) || le32(s + p + 4) != (uint32_t)one.size())
+      corrupt("gzip CRC or length does not agree (PIL refuses it)");
+    p += 8;
+    all.insert(all.end(), one.begin(), one.end());
+    while (p < n && !s[p]) ++p;
+  }
+  return all;
+}
+
+Gray decode_fits(const uint8_t* d, size_t n) {
+  Fits f;
+  fits_open(d, n, f);
+  if (!f.gzip)
+    return raw_tile(d, n, f.w, f.h, f.mode, f.offset, 0, true, f.mode == kRawL || f.mode == kRawI16, "FITS");
+  // fits_gzip: the rest of the file from the offset, gunzipped; each sample
+  // the last min(ZBITPIX // 8, 4) bytes of a 4-byte value (none for a
+  // negative ZBITPIX: not enough image data), the rows reversed, set_as_raw
+  // in the mode.
+  check_size(f.w, f.h);
+  if (f.offset < 0) corrupt("FITS tile before the file's start (PIL refuses it)");
+  const size_t at = f.offset > (__int128)n ? n : (size_t)f.offset;
+  const std::vector<uint8_t> v = gunzip(d + at, n - at);
+  const int bytes = (int)std::min<int64_t>(floor_div8(f.bitpix), 4);
+  if (bytes <= 0 || v.size() / 4 / f.w < (size_t)f.h) corrupt("FITS gzip tile holds too few samples (PIL refuses it)");
+  const RawMode m = f.mode;
+  Gray g;
+  g.w = (int)f.w;
+  g.h = (int)f.h;
+  g.px.resize((size_t)f.w * f.h);
+  for (int64_t y = 0; y < f.h; ++y)
+    for (int64_t x = 0; x < f.w; ++x) {
+      const uint8_t* s = &v[4 * (size_t)((f.h - 1 - y) * f.w + x) + 4 - bytes];
+      g.px[(size_t)y * f.w + x] = raw_grey(m, s);
+    }
+  return g;
+}
+
+// ---------------------------------------------------------- IPTC (A.6.61)
+
+// IptcImagePlugin: fields of five bytes read in turn, to none (the end, or
+// all NUL) or the first image record (8, 10): 0x1C and a record number
+// PIL knows (else passed on); a length byte past 132 refused, 128 no data,
+// 129 .. 132 that many minus 128 length bytes after the five (the fifth
+// ignored), below 128 a 16-bit length; a field's data read (short at the
+// file's end), the same tag twice a list. Then the layers and component
+// (3, 60: L for 1 and 0; RGB for 3, CMYK for 4, with a component; a band
+// from 3, 65, 0 by default), the size (3, 20), (3, 30) and the compression
+// (3, 120: 1 raw, 5 JPEG; any other, or none, refused), each the last 4
+// bytes of its data, big-endian. Data that is not there, or a list, passes
+// the file on (PIL's IndexError, TypeError, KeyError).
+struct IptcField {
+  int count = 0;
+  bool none = true;  // no data (a length of 0)
+  size_t at = 0, len = 0;
+};
+
+struct Iptc {
+  int64_t w = 0, h = 0;
+  int mode = 0;   // 'L', 'R' RGB, 'C' CMYK
+  bool banded = false;  // not L: the image is one band of RGB or CMYK
+  int band = 0;
+  int compression = 0;
+  int64_t image = -1;  // the first image record's field, -1 for none
+};
+
+// One field at `pos`: false for none; throws where PIL raises anything but
+// the pass-on errors (`pass`: IndexError, struct.error, SyntaxError).
+bool iptc_field(const uint8_t* d, size_t n, size_t& pos, int& t0, int& t1, size_t& size, bool& pass) {
+  pass = false;
+  const uint8_t* s = d + std::min(pos, n);
+  const size_t k = pos < n ? std::min<size_t>(5, n - pos) : 0;
+  pos += k;
+  bool zero = true;
+  for (size_t i = 0; i < k; ++i) zero = zero && !s[i];
+  if (zero) return false;
+  if (k < 3 || s[0] != 0x1C || !((s[1] >= 1 && s[1] <= 9) || s[1] == 240) || k < 4) {
+    pass = true;
+    return false;
+  }
+  t0 = s[1];
+  t1 = s[2];
+  size = s[3];
+  if (size > 132) corrupt("IPTC field length past 132 (PIL refuses it)");
+  if (size == 128) {
+    size = 0;
+  } else if (size > 128) {
+    const size_t m = std::min(size - 128, pos < n ? n - pos : 0);
+    size = 0;
+    for (size_t i = 0; i < m; ++i) size = size << 8 | d[pos + i];
+    pos += m;
+  } else if (k < 5) {
+    pass = true;
+    return false;
+  } else {
+    size = be16(s + 3);
+  }
+  return true;
+}
+
+bool iptc_open(const uint8_t* d, size_t n, Iptc& f) {
+  if (!n || d[0] != 0x1C) return false;
+  std::map<std::pair<int, int>, IptcField> info;
+  size_t pos = 0;
+  for (;;) {
+    const size_t start = pos;
+    int t0 = 0, t1 = 0;
+    size_t size = 0;
+    bool pass;
+    if (!iptc_field(d, n, pos, t0, t1, size, pass)) {
+      if (pass) return false;
+      break;
+    }
+    if (t0 == 8 && t1 == 10) {
+      f.image = (int64_t)start;
+      break;
+    }
+    IptcField& r = info[{t0, t1}];
+    const size_t at = std::min(pos, n), m = std::min(size, n - at);
+    r = IptcField{r.count + 1, size == 0, at, m};
+    pos += size;
+  }
+  // bytes of a tag's data, false where PIL's lookup raises a pass-on error
+  auto get = [&](int a, int b, const IptcField*& r) {
+    const auto it = info.find({a, b});
+    if (it == info.end() || it->second.count != 1 || it->second.none) return false;
+    r = &it->second;
+    return true;
+  };
+  auto getint = [&](int a, int b, int64_t& v) {
+    const IptcField* r;
+    if (!get(a, b, r)) return false;
+    v = 0;
+    for (size_t i = r->len > 4 ? r->len - 4 : 0; i < r->len; ++i) v = v << 8 | d[r->at + i];
+    return true;
+  };
+  const auto l = info.find({3, 60});
+  if (l == info.end()) return false;
+  int layers = -1, component = -1;  // a list: neither matches a mode
+  if (l->second.count == 1) {
+    if (l->second.none || l->second.len < 2) return false;
+    layers = d[l->second.at];
+    component = d[l->second.at + 1];
+  }
+  f.mode = layers == 1 && !component ? 'L' : layers == 3 && component ? 'R' : layers == 4 && component ? 'C' : 0;
+  f.banded = !(layers == 1 && !component);
+  if (f.banded) {
+    const auto b = info.find({3, 65});
+    f.band = 0;
+    if (b != info.end()) {
+      const IptcField* r;
+      if (!get(3, 65, r) || !r->len) return false;
+      f.band = d[r->at] - 1;
+    }
+  }
+  if (!getint(3, 20, f.w) || !getint(3, 30, f.h)) return false;
+  const auto c = info.find({3, 120});
+  if (c != info.end() && (c->second.count != 1 || c->second.none)) return false;  // TypeError
+  int64_t comp = 0;
+  if (!getint(3, 120, comp) || (comp != 1 && comp != 5)) corrupt("IPTC compression PIL does not know (PIL refuses it)");
+  f.compression = (int)comp;
+  return f.mode && f.w > 0 && f.h > 0;
+}
+
+Gray decode_iptc(const uint8_t* d, size_t n) {
+  Iptc f;
+  iptc_open(d, n, f);
+  check_size(f.w, f.h);
+  if (f.image < 0) corrupt("IPTC file without image data (PIL has no tile to load)");
+  // load(): the image records' data joined (for raw compression after a
+  // PGM header of the size), until the first field of another tag; a field
+  // PIL cannot read there is refused.
+  std::string buf;
+  if (f.compression == 1) buf = "P5\n" + std::to_string(f.w) + " " + std::to_string(f.h) + "\n255\n";
+  for (size_t pos = (size_t)f.image;;) {
+    int t0 = 0, t1 = 0;
+    size_t size = 0;
+    bool pass;
+    if (!iptc_field(d, n, pos, t0, t1, size, pass)) {
+      if (pass) corrupt("IPTC field PIL cannot read after the image data (PIL refuses it)");
+      break;
+    }
+    if (t0 != 8 || t1 != 10) break;
+    const size_t at = std::min(pos, n), m = std::min(size, n - at);
+    buf.append((const char*)d + at, m);
+    pos += m;
+  }
+  // Image.open of that buffer: the PGM of raw data (mode L), or a JPEG; a
+  // buffer of another format raises naming it, as the port does not read
+  // it out of such a buffer.
+  const uint8_t* b = (const uint8_t*)buf.data();
+  const size_t bn = buf.size();
+  const int kind = format_of(b, bn);
+  std::string other;  // the format of a buffer that is neither the raw PGM nor a JPEG
+  if (f.compression != 1 && kind != 'J') {
+    static const std::map<int, std::string> kOwn = {{'P', "PNG"}, {'B', "BMP"}, {'T', "TIFF"}, {'G', "GIF"}};
+    other = kind ? kOwn.at(kind) : pil_format(b, bn);
+    if (other.empty()) corrupt("IPTC image data PIL identifies as no image (PIL refuses it)");
+  }
+  const int nb = f.mode == 'R' ? 3 : 4;
+  if (f.banded && (f.band >= nb || f.band < -nb)) corrupt("IPTC band past the image's bands (PIL refuses it)");
+  if (!other.empty()) unsupported("IPTC image holding a " + other + " image");
+  Gray g;
+  int bands = 1;
+  if (f.compression == 1) {
+    Pnm p;
+    pnm_head(b, bn, p);
+    g = decode_pnm(b, bn, p);
+  } else {
+    Jpeg j;
+    j.begin(b, bn, true);
+    g = j.run();
+    bands = j.ncomp;
+  }
+  // L: the image itself, whose mode convert("L") keeps (one not grey is
+  // not read); else the image as band `band` of an RGB or CMYK merge with
+  // zero bands (a band out of range, or an image not L, is refused).
+  if (!f.banded) {
+    if (bands != 1) unsupported("IPTC image of mode L holding a JPEG of " + std::to_string(bands) +
+                                " components (PIL's convert(\"L\") keeps its mode)");
+    return g;
+  }
+  if (bands != 1) corrupt("IPTC band of a JPEG that is not grey (PIL's merge refuses it)");
+  const int at = f.band < 0 ? f.band + nb : f.band;
+  for (uint8_t& v : g.px) {
+    int c[4] = {0, 0, 0, 0};
+    c[at] = v;
+    v = nb == 3 ? luma(c[0], c[1], c[2]) : cmyk_luma(c[0], c[1], c[2], c[3]);
+  }
+  return g;
+}
+
+// ------------------------------------------------------------ FLI (A.6.62)
+
+// FliImagePlugin: 128 header bytes, the magic at 4 (0xAF11, 0xAF12),
+// flags 0 or 3 at 14, bytes 20-22, 42-80 and 88-128 zero (else passed
+// on), the size at 8 and 10; the palette grey unless the chunk after the
+// header (or after a prefix chunk, 0xF100, at 128 + its size) is a frame
+// (0xF1FA) whose subchunks, walked by their sizes, reach a COLOR_64 (11,
+// values << 2) or COLOR_256 (4) chunk first: its packets of a skip and a
+// count (0: 256) of RGB entries. A read past the file's end there, or an
+// entry past 256, passes the file on; so do a frame count of 0 and
+// nothing at 128. The frame
+// decoded is the chunk at 128 (a prefix chunk there is no frame: refused).
+struct Fli {
+  int64_t w = 0, h = 0;
+  uint8_t grey[256];
+};
+
+bool fli_open(const uint8_t* d, size_t n, Fli& f) {
+  if (n < 128 || (le16(d + 4) != 0xAF11 && le16(d + 4) != 0xAF12) || (le16(d + 14) != 0 && le16(d + 14) != 3))
+    return false;
+  bool zero = !d[20] && !d[21];
+  for (size_t i = 42; i < 80; ++i) zero = zero && !d[i];
+  for (size_t i = 88; i < 128; ++i) zero = zero && !d[i];
+  if (!zero) return false;
+  f.w = le16(d + 8);
+  f.h = le16(d + 10);
+  uint8_t pal[256][3];
+  for (int i = 0; i < 256; ++i) pal[i][0] = pal[i][1] = pal[i][2] = (uint8_t)i;
+  auto avail = [&](int64_t p, int64_t k) { return p >= 0 && p <= (int64_t)n && (int64_t)n - p >= k; };
+  int64_t p = 128;
+  if (!avail(p, 6)) return false;
+  if (le16(d + p + 4) == 0xF100) {
+    if (!avail(p, 4)) return false;
+    p = 128 + (int64_t)le32(d + p);
+    if (!avail(p, 6)) return false;
+  }
+  if (le16(d + p + 4) == 0xF1FA) {
+    if (!avail(p, 8)) return false;
+    const int chunks = le16(d + p + 6);
+    p += 16;
+    int64_t chunk_size = -1;
+    for (int c = 0; c < chunks; ++c) {
+      if (chunk_size >= 0) p += chunk_size - 6;  // a seek past the subchunk from the 6 bytes read
+      const int64_t at = p;
+      if (!avail(at, 6)) return false;
+      p += 6;
+      const int type = le16(d + at + 4);
+      if (type == 4 || type == 11) {
+        const int shift = type == 11 ? 2 : 0;
+        if (!avail(p, 2)) return false;
+        const int packets = le16(d + p);
+        p += 2;
+        int i = 0;
+        for (int e = 0; e < packets; ++e) {
+          if (!avail(p, 2)) return false;
+          i += d[p];
+          const int count = d[p + 1] ? d[p + 1] : 256;
+          p += 2;
+          const int64_t got = std::min<int64_t>(3 * count, std::max<int64_t>(0, (int64_t)n - p));
+          if (got % 3) return false;
+          for (int64_t k = 0; k < got; k += 3, ++i) {
+            if (i >= 256) return false;
+            for (int ch = 0; ch < 3; ++ch) pal[i][ch] = (uint8_t)(d[p + k + ch] << shift);
+          }
+          p += got;
+        }
+        break;
+      }
+      chunk_size = le32(d + at);
+      if (!chunk_size) break;
+    }
+  }
+  for (int i = 0; i < 256; ++i) f.grey[i] = luma(pal[i][0], pal[i][1], pal[i][2]);
+  // seek(0): a frame count of 0 is past the sequence, the frame's size must be read
+  if (!le16(d + 6) || n - 128 < 4) return false;
+  return f.w > 0 && f.h > 0;
+}
+
+// Pillow's FliDecode.c on the frame at 128, its bytes as ImageFile.load
+// hands them over: reads of the frame's size (a pad byte short is taken,
+// less waits for more, and a file that ends first is refused). A frame
+// chunk's subchunks in turn: BLACK (13), COPY (16; too short: the decoder
+// waits for data that never comes, refused), BRUN (15), LC (12), SS2 (7),
+// PSTAMP (18) and the colour chunks skipped, any other type refused; every
+// read past the data, a line not unpacked whole and a subchunk size of 0
+// or past the data is refused. The image starts black (index 0).
+Gray decode_fli(const uint8_t* d, size_t n) {
+  Fli f;
+  fli_open(d, n, f);
+  check_size(f.w, f.h);
+  const int64_t W = f.w, H = f.h;
+  const uint32_t framesize_u = le32(d + 128);
+  const int64_t rest = (int64_t)n - 128;
+  const int64_t bytes0 = std::min<int64_t>(framesize_u, rest);
+  if (bytes0 < 4 || bytes0 + (bytes0 % 2) < framesize_u) corrupt("FLI frame ends early (PIL: image file is truncated)");
+  const uint8_t* buf = d + 128;
+  int64_t bytes = bytes0;
+  if (bytes < 8) corrupt("FLI frame too short (PIL refuses it)");
+  if (le16(buf + 4) != 0xF1FA) corrupt("FLI frame chunk is not a frame (PIL refuses it)");
+  std::vector<uint8_t> im((size_t)W * H, 0);
+  const int chunks = le16(buf + 6);
+  const uint8_t* ptr = buf + 16;
+  bytes -= 16;
+  auto oob = [&](const uint8_t* data, int64_t k) {
+    if (data + k > ptr + bytes) corrupt("FLI chunk data past the frame (PIL refuses it)");
+  };
+  for (int c = 0; c < chunks; ++c) {
+    if (bytes < 10) corrupt("FLI subchunk past the frame (PIL refuses it)");
+    const uint8_t* data = ptr + 6;
+    const int type = le16(ptr + 4);
+    switch (type) {
+      case 4: case 11: case 18: break;
+      case 7: {  // SS2, word delta
+        const int lines = le16(data);
+        data += 2;
+        int l = 0;
+        int64_t y = 0;
+        for (; l < lines && y < H; ++l, ++y) {
+          uint8_t* row = &im[(size_t)y * W];
+          oob(data, 2);
+          int packets = le16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= H) corrupt("FLI SS2 skips past the image (PIL refuses it)");
+              row = &im[(size_t)y * W];
+            } else {
+              row[W - 1] = (uint8_t)packets;
+            }
+            oob(data, 2);
+            packets = le16(data);
+            data += 2;
+          }
+          int p = 0;
+          int64_t x = 0;
+          for (; p < packets; ++p) {
+            oob(data, 2);
+            x += data[0];
+            if (data[1] >= 128) {
+              oob(data, 4);
+              const int i = 256 - data[1];
+              if (x + 2 * i > W) break;
+              for (int j = 0; j < i; ++j) {
+                row[x++] = data[2];
+                row[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              const int i = 2 * data[1];
+              if (x + i > W) break;
+              oob(data, 2 + i);
+              memcpy(row + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) corrupt("FLI SS2 lines not unpacked whole (PIL refuses it)");
+        break;
+      }
+      case 12: {  // LC, byte delta
+        int64_t y = le16(data);
+        const int64_t ymax = y + le16(data + 2);
+        data += 4;
+        for (; y < ymax && y < H; ++y) {
+          uint8_t* row = &im[(size_t)y * W];
+          oob(data, 1);
+          const int packets = *data++;
+          int p = 0;
+          int64_t x = 0, i = 0;
+          for (; p < packets; ++p, x += i) {
+            oob(data, 2);
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > W) break;
+              oob(data, 3);
+              memset(row + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > W) break;
+              oob(data, 2 + i);
+              memcpy(row + x, data + 2, i);
+              data += 2 + i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) corrupt("FLI LC lines not unpacked whole (PIL refuses it)");
+        break;
+      }
+      case 13: std::fill(im.begin(), im.end(), 0); break;  // BLACK
+      case 15: {  // BRUN
+        for (int64_t y = 0; y < H; ++y) {
+          uint8_t* row = &im[(size_t)y * W];
+          data += 1;
+          int64_t x = 0, i = 0;
+          for (; x < W; x += i) {
+            oob(data, 2);
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > W) break;
+              oob(data, i + 1);
+              memcpy(row + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > W) break;
+              memset(row + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != W) corrupt("FLI BRUN line not unpacked whole (PIL refuses it)");
+        }
+        break;
+      }
+      case 16:  // COPY
+        if (INT32_MAX / W < H) corrupt("FLI COPY chunk too large (PIL refuses it)");
+        if (data + W * H > ptr + bytes) corrupt("FLI COPY chunk past the frame (PIL: image file is truncated)");
+        memcpy(im.data(), data, (size_t)(W * H));
+        break;
+      default: corrupt("FLI subchunk of an unknown type (PIL refuses it)");
+    }
+    const int32_t advance = (int32_t)le32(ptr);
+    if (advance == 0) corrupt("FLI subchunk of size 0 (PIL refuses it)");
+    if (advance < 0 || advance > bytes) corrupt("FLI subchunk past the frame (PIL refuses it)");
+    ptr += advance;
+    bytes -= advance;
+  }
+  Gray g;
+  g.w = (int)W;
+  g.h = (int)H;
+  g.px.resize(im.size());
+  for (size_t i = 0; i < im.size(); ++i) g.px[i] = f.grey[im[i]];
+  return g;
+}
+
+// ------------------------------------------------------------ PCD (A.6.63)
+
+// PcdImagePlugin: "PCD_" at 2048, the orientation in the low 2 bits of
+// byte 2048 + 1538 (fewer bytes: IndexError, passed on); the base image's
+// 768 x 512 pixels from 96 sectors of 2048 bytes on (PcdDecode.c: each pair
+// of rows 768 Y, 768 Y, 384 Cb, 384 Cr, a chroma sample for 2 x 2 pixels;
+// a file that ends first is refused), through the YCC;P unpacker's PhotoYCC
+// tables (ConvertYCC.c: int(k * (v - v0) + 0.5), truncated toward zero:
+// luma 1.3584 Y, R 1.8215 (Cr - 137), G -0.9271 (Cr - 137) - 0.4303 (Cb -
+// 156), B 2.2179 (Cb - 156), each sum clipped to 0 .. 255), then luma;
+// orientations 1 and 3 rotate the image 90 and 270 degrees.
+struct PcdTables {
+  int16_t l[256], cr[256], gr[256], gb[256], cb[256];
+  PcdTables() {
+    auto t = [](double k, int v) { return (int16_t)(int)(k * v + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      l[i] = t(1.3584, i);
+      cr[i] = t(1.8215, i - 137);
+      gr[i] = t(-0.9271, i - 137);
+      gb[i] = t(-0.4303, i - 156);
+      cb[i] = t(2.2179, i - 156);
+    }
+  }
+};
+
+Gray decode_pcd(const uint8_t* d, size_t n) {
+  static const PcdTables t;
+  constexpr size_t kAt = 96 * 2048, W = 768, H = 512;
+  if (n < kAt || (n - kAt) / (3 * W) < H / 2) corrupt("PCD image ends early (PIL: image file is truncated)");
+  const int orientation = d[2048 + 1538] & 3;
+  std::vector<uint8_t> im(W * H);
+  auto c8 = [](int v) { return v <= 0 ? 0 : v >= 255 ? 255 : v; };
+  for (size_t y = 0; y < H; ++y) {
+    const uint8_t* pair = d + kAt + (y / 2) * 3 * W;
+    const uint8_t *ys = pair + (y & 1) * W, *cbs = pair + 2 * W, *crs = pair + 2 * W + W / 2;
+    for (size_t x = 0; x < W; ++x) {
+      const int l = t.l[ys[x]], cb = cbs[x / 2], cr = crs[x / 2];
+      im[y * W + x] = luma(c8(l + t.cr[cr]), c8(l + t.gr[cr] + t.gb[cb]), c8(l + t.cb[cb]));
+    }
+  }
+  Gray g;
+  if (orientation != 1 && orientation != 3) {
+    g.w = (int)W;
+    g.h = (int)H;
+    g.px = std::move(im);
+    return g;
+  }
+  g.w = (int)H;
+  g.h = (int)W;
+  g.px.resize(W * H);
+  for (size_t y = 0; y < W; ++y)  // ROTATE_90 (counter-clockwise) or ROTATE_270
+    for (size_t x = 0; x < H; ++x)
+      g.px[y * H + x] = orientation == 1 ? im[x * W + (W - 1 - y)] : im[(H - 1 - x) * W + y];
+  return g;
+}
+
 // PcxImagePlugin's header: a box of pixels and a mode it knows.
 int pcx_header(const uint8_t* d, size_t n) {  // 0: not PCX, 1: PCX, -1: PIL fails
   if (n < 68 || d[0] != 10 || !(d[1] == 0 || d[1] == 2 || d[1] == 3 || d[1] == 5)) return 0;
@@ -9788,29 +10655,21 @@ std::string pil_format(const uint8_t* d, size_t n) {
   }
   if (st("%!PS") || l32 == 0xC6D3D0C5u) return "EPS";
   if (st("SIMPLE")) {
-    std::string v((const char*)d + 8, std::min<size_t>(72, n > 8 ? n - 8 : 0));
-    v = v.substr(0, v.find('/'));
-    auto trim = [](std::string s) {
-      const size_t a = s.find_first_not_of(" \t\n\r\v\f"), b = s.find_last_not_of(" \t\n\r\v\f");
-      return a == std::string::npos ? std::string() : s.substr(a, b - a + 1);
-    };
-    v = trim(v);
-    if (!v.empty() && v[0] == '=') v = trim(v.substr(1));
-    if (n >= 80 && v == "T") return "FITS";
+    Fits f;
+    if (fits_open(d, n, f)) return "FITS";
   }
-  if (n >= 128 && (le16(d + 4) == 0xAF11 || le16(d + 4) == 0xAF12) && (le16(d + 14) == 0 || le16(d + 14) == 3)) {
-    bool zero = !d[20] && !d[21];
-    for (size_t i = 42; i < 80; ++i) zero = zero && !d[i];
-    for (size_t i = 88; i < 128; ++i) zero = zero && !d[i];
-    if (zero && le16(d + 8) > 0 && le16(d + 10) > 0) return "FLI";
+  {
+    Fli f;
+    if (fli_open(d, n, f)) return "FLI";
   }
   if (st("FTEX")) {
     Ftex f;
     if (ftex_open(d, n, f)) return "FTEX";
   }
-  if (n >= 20 && be32(d) >= 20 && (be32(d + 4) == 1 || be32(d + 4) == 2) && be32(d + 8) && be32(d + 12) &&
-      (be32(d + 16) == 1 || be32(d + 16) == 4) && (be32(d + 4) == 1 || (n >= 28 && !memcmp(d + 20, "GIMP", 4))))
-    return "GBR";
+  {
+    Gbr f;
+    if (gbr_open(d, n, f)) return "GBR";
+  }
   if (n >= 8 && st("GRIB") && d[7] == 1) return "GRIB";
   if (st("\x89HDF\r\n\x1a\n")) return "HDF5";
   if (st("\xff\x4f\xff\x51") || starts(d, n, "\0\0\0\x0cjP  \r\n\x87\n", 12)) return "JPEG2000";
@@ -9825,11 +10684,17 @@ std::string pil_format(const uint8_t* d, size_t n) {
     ImHead m;
     if (im_open(d, n, m)) return "IM";
   }
-  if (imt_header(d, n)) return "IMT";
-  if (n && d[0] == 0x1C && iptc_header(d, n)) return "IPTC";
-  if (n >= 256 && starts(d, n, "\0\0\0\0\0\0\0\x04", 8)) {
-    const uint32_t depth = be32(d + 40);
-    if ((depth == 1 || depth == 2 || depth == 4) && be32(d + 36) > 0 && be32(d + 32) > 0) return "MCIDAS";
+  {
+    Imt f;
+    if (imt_open(d, n, f)) return "IMT";
+  }
+  {
+    Iptc f;
+    if (iptc_open(d, n, f)) return "IPTC";
+  }
+  {
+    McIdas f;
+    if (mcidas_open(d, n, f)) return "MCIDAS";
   }
   if (n >= 7 && st("\0\0\1\xb3") && (d[4] << 4 | d[5] >> 4) && ((d[5] & 15) << 8 | d[6])) return "MPEG";
   if ((st("DanM") || st("LinS")) && n >= 32) {
@@ -9838,9 +10703,10 @@ std::string pil_format(const uint8_t* d, size_t n) {
     if (!x && le16(d + 4) && le16(d + 6)) return "MSP";
   }
   if (n >= 2048 + 1539 && !memcmp(d + 2048, "PCD_", 4)) return "PCD";
-  if (st("\x80\xe8\0\0") && n >= 428 && le16(d + 424) == 14 && le16(d + 426) == 2 && le16(d + 418) &&
-      le16(d + 416))
-    return "PIXAR";
+  {
+    int64_t w, h;
+    if (pixar_open(d, n, w, h)) return "PIXAR";
+  }
   if (st("8BPS") && n >= 26 && be16(d + 4) == 1) {
     static const int kModes[][3] = {{0, 1, 1}, {0, 8, 1}, {1, 8, 1}, {2, 8, 1}, {3, 8, 3},
                                     {4, 8, 4}, {7, 8, 1}, {8, 8, 1}, {9, 8, 3}};  // mode, bits, channels
@@ -9966,6 +10832,14 @@ Gray decode_other(const uint8_t* d, size_t n) {
   if (f == "FTEX") return decode_ftex(d, n);
   if (f == "BLP") return decode_blp(d, n);
   if (f == "SPIDER") return decode_spider(d, n);
+  if (f == "PIXAR") return decode_pixar(d, n);
+  if (f == "GBR") return decode_gbr(d, n);
+  if (f == "MCIDAS") return decode_mcidas(d, n);
+  if (f == "IMT") return decode_imt(d, n);
+  if (f == "FITS") return decode_fits(d, n);
+  if (f == "IPTC") return decode_iptc(d, n);
+  if (f == "FLI") return decode_fli(d, n);
+  if (f == "PCD") return decode_pcd(d, n);
   if (f == "BUFR" || f == "GRIB" || f == "HDF5" || f == "WMF" || f == "MPEG")
     corrupt(f + " file, which PIL opens and has no decoder for");
   if (f == "EPS") corrupt("EPS file, which PIL reads through Ghostscript alone");

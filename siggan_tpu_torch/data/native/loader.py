@@ -5,7 +5,8 @@ The decoder reads JPEG, BMP, TIFF (BigTIFF, LZMA, ZSTD, CCITT in tiles and
 old-style LZW among them), GIF, Netpbm, WebP (lossless, lossy, with an
 ALPH chunk, an animation's first frame: libwebp's demuxer and decoders as
 Pillow calls them), DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN raster, MSP,
-QOI, IM, XBM, XPM, XV thumbnail and PSD files (old-style JPEG-in-TIFF in
+QOI, IM, XBM, XPM, XV thumbnail, PSD, DDS, FTEX, BLP, SPIDER, PIXAR, GBR,
+McIdas, IMT, FITS, IPTC, FLI and PCD files (old-style JPEG-in-TIFF in
 planes and tiles among the TIFFs) to 8-bit grey, as PIL's
 ``Image.open(path).convert("L")`` gives
 them, with no imaging library; PNG streams are recognised and left to
@@ -14,7 +15,8 @@ undoes the row filters here (``png_unfilter``): a PNG file, and the PNG
 icon an ICO file's largest entry holds, which comes back as its offset
 (``decode_or_png``). The format comes from the file's bytes, not from its
 name, by the rules PIL's ``Image.open`` tries its plugins by: a file PIL
-opens as another format (DDS, BLP, FITS, ...) raises naming that format. The library
+opens as a format the port does not read (ICNS, JPEG 2000, AVIF) raises
+naming that format. The library
 also resizes (``resize_bilinear``: Pillow's ``L``-mode bilinear, bit-equal
 to ``data/resample.py``'s numpy version, which stays as the plain version);
 a ctypes call releases the interpreter lock, so threads resize in parallel. The library is

@@ -156,8 +156,8 @@ def no_writer_files() -> dict:
 @pytest.mark.parametrize("fmt", sorted(set(no_writer_files()) - {"XVThumb"}))
 def test_formats_pil_reads_and_writes_not_raise_naming_them(tmp_path, fmt):
     """FITS, FLI, FTEX, GBR, IMT, IPTC, McIdas, PCD and PIXAR: PIL opens
-    and reads each; the port reads FTEX (A.6.53) bit-equal and raises
-    naming each other format."""
+    and reads each; the port reads each bit-equal (FTEX A.6.53, the others
+    A.6.56-A.6.63)."""
     data = no_writer_files()[fmt]
     got, grey = pil_format(data)
     assert got.upper() == fmt.upper() and grey is not None

@@ -318,14 +318,14 @@ def pil_only_file(fmt: str) -> bytes:
 STILL_A6 = {
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt], fmt)
        for fmt in ("AVIF", "ICNS", "JPEG2000")},
-    **{f"pil_only_{fmt.lower()}": (lambda fmt=fmt: pil_only_file(fmt), fmt)
-       for fmt in ("FITS", "FLI", "GBR", "IMT", "IPTC", "MCIDAS", "PCD", "PIXAR")},
 }
 
 
-# Kinds this file held as raising, which the port now reads (A.6.4-A.6.55,
+# Kinds this file held as raising, which the port now reads (A.6.4-A.6.63,
 # C.20).
 NOW_READ = {
+    **{f"pil_only_{fmt.lower()}": (lambda fmt=fmt: pil_only_file(fmt))
+       for fmt in ("FITS", "FLI", "GBR", "IMT", "IPTC", "MCIDAS", "PCD", "PIXAR")},
     **{f"c21_{fmt.lower()}": (lambda fmt=fmt: chip_smoke.c21_files()[fmt])
        for fmt in ("BLP", "CUR", "DCX", "DDS", "DIB", "ICO", "IM", "MSP", "PCX", "PSD", "QOI", "SGI",
                    "SPIDER", "SUN", "TGA", "XBM", "XPM")},
@@ -388,7 +388,8 @@ def past_the_tile_buffer(data: bytes) -> np.ndarray:
 def test_kind_pil_reads_is_read_as_pil(tmp_path, name):
     """DIB, ICO, CUR, TGA, PCX, DCX, SGI, SUN, MSP, QOI, IM, PSD, XBM, XPM,
     BLP, DDS and SPIDER (the files of ``chip_smoke.c21_files``), an XV
-    thumbnail, an FTEX file, planar
+    thumbnail, an FTEX file, a FITS, FLI, GBR, IMT, IPTC, McIdas, PCD and
+    PIXAR file, planar
     YCbCr old-style JPEG-in-TIFF in tiles (the right tile keeping the left's
     rows, as PIL's tile buffer does), WebP (lossy, lossless, lossy with alpha), a
     genuine lossless JPEG (predictor 1), Huffman data under an
